@@ -1,15 +1,17 @@
 // Fused dense GLM sweeps for Hopper (sm_90a): one pass over X per call.
 //
-// Replaces the two Pallas TPU kernels of photon_ml_tpu/ops/pallas_glm.py:
+// Replaces the three Pallas TPU kernels of photon_ml_tpu/ops/pallas_glm.py:
 //   fused_value_grad      (_vg_kernel)  -> (sum_i wt_i l_i, X^T(wt*dz), sum_i wt_i dz_i)
 //                                          with z = X.coef + offsets
 //   fused_hessian_vector  (_hv_kernel)  -> (X^T(c*u), sum_i c_i u_i)
 //                                          with c = wt*l''(z), u = X.v + vshift
+//   fused_hessian_stats   (_hd_kernel)  -> s2 = (X*X)^T c, and with the shifts
+//                                          s1 = X^T c, s0 = sum_i c_i; c = wt*l''(z)
 //
-// What bounds them: the bytes of X. Each call does about 4 flops per element
-// of X (a dot and an accumulation), against the card's ~20 f32 flops per byte
-// of device-memory bandwidth, so both kernels are bandwidth-bound; the
-// unfused composition reads X twice (value+grad) or three times (Hv).
+// What bounds them: the bytes of X. Each call does 4 to 6 flops per element
+// of X (a dot and one or two accumulations), against the card's ~20 f32
+// flops per byte of device-memory bandwidth, so all three are
+// bandwidth-bound; the unfused compositions read X two or three times.
 //
 // What the design does about it: X is read from device memory exactly once.
 // Each block walks a strided set of row tiles. A tile (a few contiguous rows,
@@ -31,7 +33,10 @@
 // takes f32 FMAs (no TF32). A bf16 X keeps the reference's rounding points:
 // bf16 coefficients (rounded by the caller), and the per-row weight (wt*dz
 // for the gradient, c*u for Hv) rounded to f32 and then bf16 before the
-// column product. Labels, offsets, weights and every output are f32. Row
+// column product. The Hessian statistics take (x*x) in f32, which is exact
+// for a bf16 x (the TPU kernel rounds the square to bf16 for its bf16 dot);
+// c is rounded like the other per-row weights, while s0 sums the unrounded
+// c in double. Labels, offsets, weights and every output are f32. Row
 // indices are 64-bit, and no load reaches past row n (the ragged last tile
 // is cut short).
 //
@@ -43,6 +48,9 @@
 #include <stdint.h>
 
 namespace {
+
+// Sweep modes; keep in step with photon_ml_tpu_torch/ops/fused_glm.py.
+enum Mode : int { kVG = 0, kHV = 1, kHD = 2, kHDShifts = 3 };
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -124,30 +132,47 @@ __device__ __forceinline__ double d2z(int loss, double z, double y) {
 
 __host__ __device__ __forceinline__ size_t round_up16(size_t b) { return (b + 15) & ~size_t(15); }
 
-// Shared-memory layout: X tile | coef [d] | v [d] (Hv only) | acc [d] |
-// row weight, label, offset, sample weight [rows_per_tile] each.
-size_t smem_bytes(int rows_per_tile, int d, int elem, bool hv) {
-  const size_t x_bytes = round_up16((size_t)rows_per_tile * d * elem);
-  return x_bytes + sizeof(float) * ((size_t)d * (hv ? 3 : 2) + 4 * (size_t)rows_per_tile);
+// [d]-sized shared vectors of a mode: the coefficients, v (Hv), and one
+// accumulator per column output (two for the Hessian stats with shifts).
+__host__ __device__ constexpr int d_vectors(int mode) {
+  return mode == kHV ? 3 : (mode == kHDShifts ? 3 : 2);
 }
 
-// One kernel body for both sweeps. Per block output (row blockIdx.x of
-// part, width d + S): the [d] column partial, then S scalar partials —
-// value grad: (sum wt*l, sum wt*dz); Hv: (sum c*u).
-template <typename T, bool HV>
+// Per-block output width: the column partial(s), then the scalar partials —
+// value grad: [d] + (sum wt*l, sum wt*dz); Hv: [d] + (sum c*u);
+// Hessian stats: s2 [d]; with shifts s2 [d] + s1 [d] + (sum c).
+__host__ __device__ constexpr int out_width(int mode, int d) {
+  return mode == kVG ? d + 2 : (mode == kHV ? d + 1 : (mode == kHD ? d : 2 * d + 1));
+}
+
+// Shared-memory layout: X tile | coef [d] | v [d] (Hv only) | acc [d] |
+// acc1 [d] (stats with shifts only) | row weight, label, offset, sample
+// weight [rows_per_tile] each.
+size_t smem_bytes(int rows_per_tile, int d, int elem, int mode) {
+  const size_t x_bytes = round_up16((size_t)rows_per_tile * d * elem);
+  return x_bytes + sizeof(float) * ((size_t)d * d_vectors(mode) + 4 * (size_t)rows_per_tile);
+}
+
+// One kernel body for the three sweeps; MODE selects what a row computes
+// and what the columns accumulate. Block b writes row b of part[grid, width].
+template <typename T, int MODE>
 __global__ void __launch_bounds__(kThreads)
 fused_glm_kernel(const T* __restrict__ x, const T* __restrict__ coef, const T* __restrict__ v,
                  const float* __restrict__ y, const float* __restrict__ off,
                  const float* __restrict__ wt, const float* __restrict__ vshift,
                  int64_t n, int d, int rows_per_tile, int loss, int vec16,
                  float* __restrict__ part) {
+  constexpr bool HV = MODE == kHV;
+  constexpr bool HD = MODE == kHD || MODE == kHDShifts;
+  constexpr bool SHIFTS = MODE == kHDShifts;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ double red[kWarps][2];
   T* xs = reinterpret_cast<T*>(smem);
   float* cs = reinterpret_cast<float*>(smem + round_up16((size_t)rows_per_tile * d * sizeof(T)));
   float* vs = cs + d;
   float* acc = HV ? vs + d : cs + d;
-  float* rw = acc + d;
+  float* acc1 = acc + d;  // s1 columns (stats with shifts)
+  float* rw = cs + (size_t)d * d_vectors(MODE);
   float* ys = rw + rows_per_tile;
   float* os = ys + rows_per_tile;
   float* ws = os + rows_per_tile;
@@ -159,6 +184,7 @@ fused_glm_kernel(const T* __restrict__ x, const T* __restrict__ coef, const T* _
     cs[j] = to_f(coef[j]);
     if (HV) vs[j] = to_f(v[j]);
     acc[j] = 0.0f;
+    if (SHIFTS) acc1[j] = 0.0f;
   }
   const double vsh = HV ? (double)*vshift : 0.0;
   double s0 = 0.0, s1 = 0.0;  // lane 0 of each warp
@@ -203,6 +229,10 @@ fused_glm_kernel(const T* __restrict__ x, const T* __restrict__ coef, const T* _
           const double cu = w * d2z(loss, z, (double)ys[r]) * (u + vsh);
           s0 += cu;
           rw[r] = round_to<T>(cu);
+        } else if (HD) {
+          const double c = w * d2z(loss, z, (double)ys[r]);
+          if (SHIFTS) s0 += c;
+          rw[r] = round_to<T>(c);
         } else {
           double l, dz;
           loss_and_dz(loss, z, (double)ys[r], l, dz);
@@ -218,7 +248,17 @@ fused_glm_kernel(const T* __restrict__ x, const T* __restrict__ coef, const T* _
     // column accumulation: one thread per column, the tile's rows in order
     for (int j = tid; j < d; j += kThreads) {
       float a = acc[j];
-      for (int r = 0; r < rows; ++r) a = fmaf(rw[r], to_f(xs[(int64_t)r * d + j]), a);
+      if (HD) {
+        float a1 = SHIFTS ? acc1[j] : 0.0f;
+        for (int r = 0; r < rows; ++r) {
+          const float xv = to_f(xs[(int64_t)r * d + j]);
+          a = fmaf(rw[r], xv * xv, a);
+          if (SHIFTS) a1 = fmaf(rw[r], xv, a1);
+        }
+        if (SHIFTS) acc1[j] = a1;
+      } else {
+        for (int r = 0; r < rows; ++r) a = fmaf(rw[r], to_f(xs[(int64_t)r * d + j]), a);
+      }
       acc[j] = a;
     }
   }
@@ -228,17 +268,20 @@ fused_glm_kernel(const T* __restrict__ x, const T* __restrict__ coef, const T* _
     red[warp][1] = s1;
   }
   __syncthreads();
-  const int width = d + (HV ? 1 : 2);
-  float* out = part + (int64_t)blockIdx.x * width;
-  for (int j = tid; j < d; j += kThreads) out[j] = acc[j];
-  if (tid == 0) {
+  float* out = part + (int64_t)blockIdx.x * out_width(MODE, d);
+  for (int j = tid; j < d; j += kThreads) {
+    out[j] = acc[j];
+    if (SHIFTS) out[d + j] = acc1[j];
+  }
+  if (tid == 0 && MODE != kHD) {
     double a0 = 0.0, a1 = 0.0;
     for (int w = 0; w < kWarps; ++w) {
       a0 += red[w][0];
       a1 += red[w][1];
     }
-    out[d] = (float)a0;
-    if (!HV) out[d + 1] = (float)a1;
+    const int s = SHIFTS ? 2 * d : d;
+    out[s] = (float)a0;
+    if (MODE == kVG) out[s + 1] = (float)a1;
   }
 }
 
@@ -252,32 +295,73 @@ __global__ void finalize_kernel(const float* __restrict__ part, int grid, int wi
   out[j] = (float)a;
 }
 
-const void* kernel_for(int hv, int bf16) {
-  if (hv) {
-    return bf16 ? (const void*)fused_glm_kernel<__nv_bfloat16, true>
-                : (const void*)fused_glm_kernel<float, true>;
+template <typename T>
+const void* kernel_of(int mode) {
+  switch (mode) {
+    case kVG: return (const void*)fused_glm_kernel<T, kVG>;
+    case kHV: return (const void*)fused_glm_kernel<T, kHV>;
+    case kHD: return (const void*)fused_glm_kernel<T, kHD>;
+    default: return (const void*)fused_glm_kernel<T, kHDShifts>;
   }
-  return bf16 ? (const void*)fused_glm_kernel<__nv_bfloat16, false>
-              : (const void*)fused_glm_kernel<float, false>;
+}
+
+const void* kernel_for(int mode, int bf16) {
+  return bf16 ? kernel_of<__nv_bfloat16>(mode) : kernel_of<float>(mode);
+}
+
+template <typename T, int MODE>
+void launch_mode(int grid, long long smem, cudaStream_t s, const void* x, const void* coef,
+                 const void* v, const float* y, const float* off, const float* wt,
+                 const float* vshift, long long n, int d, int rows_per_tile, int loss,
+                 int vec16, float* part) {
+  fused_glm_kernel<T, MODE><<<grid, kThreads, (size_t)smem, s>>>(
+      (const T*)x, (const T*)coef, (const T*)v, y, off, wt, vshift, n, d, rows_per_tile, loss,
+      vec16, part);
+}
+
+template <typename T>
+void launch_typed(int mode, int grid, long long smem, cudaStream_t s, const void* x,
+                  const void* coef, const void* v, const float* y, const float* off,
+                  const float* wt, const float* vshift, long long n, int d, int rows_per_tile,
+                  int loss, int vec16, float* part) {
+  switch (mode) {
+    case kVG:
+      launch_mode<T, kVG>(grid, smem, s, x, coef, v, y, off, wt, vshift, n, d, rows_per_tile,
+                          loss, vec16, part);
+      break;
+    case kHV:
+      launch_mode<T, kHV>(grid, smem, s, x, coef, v, y, off, wt, vshift, n, d, rows_per_tile,
+                          loss, vec16, part);
+      break;
+    case kHD:
+      launch_mode<T, kHD>(grid, smem, s, x, coef, v, y, off, wt, vshift, n, d, rows_per_tile,
+                          loss, vec16, part);
+      break;
+    default:
+      launch_mode<T, kHDShifts>(grid, smem, s, x, coef, v, y, off, wt, vshift, n, d,
+                                rows_per_tile, loss, vec16, part);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch geometry for an (n, d) sweep: rows per tile, dynamic shared bytes,
-// and the grid (every block resident at once, capped by the tile count).
-// Returns a cudaError_t; cudaErrorInvalidValue when d is too wide for one
-// staged row plus its [d] vectors in shared memory.
-int fused_glm_plan(int hv, int bf16, long long n, int d, int* grid, int* rows_per_tile,
+// Launch geometry for an (n, d) sweep of a mode (0 value+grad, 1 Hv, 2
+// Hessian stats, 3 Hessian stats with shifts): rows per tile, dynamic shared
+// bytes, and the grid (every block resident at once, capped by the tile
+// count). Returns a cudaError_t; cudaErrorInvalidValue for an unknown mode
+// or when d is too wide for one staged row plus its [d] vectors in shared
+// memory.
+int fused_glm_plan(int mode, int bf16, long long n, int d, int* grid, int* rows_per_tile,
                    long long* smem) {
-  if (d <= 0 || n < 0) return (int)cudaErrorInvalidValue;
+  if (d <= 0 || n < 0 || mode < kVG || mode > kHDShifts) return (int)cudaErrorInvalidValue;
   const int elem = bf16 ? 2 : 4;
   int rows = kTileBytes / (d * elem);
   rows = rows < 1 ? 1 : (rows > kMaxTileRows ? kMaxTileRows : rows);
-  const size_t bytes = smem_bytes(rows, d, elem, hv != 0);
+  const size_t bytes = smem_bytes(rows, d, elem, mode);
   if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
-  const void* k = kernel_for(hv, bf16);
+  const void* k = kernel_for(mode, bf16);
   cudaError_t err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   int per_sm = 0;
@@ -297,38 +381,25 @@ int fused_glm_plan(int hv, int bf16, long long n, int d, int* grid, int* rows_pe
   return (int)cudaSuccess;
 }
 
-// One sweep: the main kernel writes part[grid, d + S], the finalize kernel
-// reduces it into out[d + S]. Both go on `stream`; nothing synchronises.
+// One sweep: the main kernel writes part[grid, width], the finalize kernel
+// reduces it into out[width]. Both go on `stream`; nothing synchronises.
 // Returns cudaGetLastError() after each launch.
-int fused_glm_launch(int hv, int bf16, const void* x, const void* coef, const void* v,
+int fused_glm_launch(int mode, int bf16, const void* x, const void* coef, const void* v,
                      const float* y, const float* off, const float* wt, const float* vshift,
                      long long n, int d, int loss, int grid, int rows_per_tile,
                      long long smem, int vec16, float* part, float* out, void* stream) {
+  if (mode < kVG || mode > kHDShifts) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (hv) {
-    if (bf16) {
-      fused_glm_kernel<__nv_bfloat16, true><<<grid, kThreads, (size_t)smem, s>>>(
-          (const __nv_bfloat16*)x, (const __nv_bfloat16*)coef, (const __nv_bfloat16*)v, y, off,
-          wt, vshift, n, d, rows_per_tile, loss, vec16, part);
-    } else {
-      fused_glm_kernel<float, true><<<grid, kThreads, (size_t)smem, s>>>(
-          (const float*)x, (const float*)coef, (const float*)v, y, off, wt, vshift, n, d,
-          rows_per_tile, loss, vec16, part);
-    }
+  if (bf16) {
+    launch_typed<__nv_bfloat16>(mode, grid, smem, s, x, coef, v, y, off, wt, vshift, n, d,
+                                rows_per_tile, loss, vec16, part);
   } else {
-    if (bf16) {
-      fused_glm_kernel<__nv_bfloat16, false><<<grid, kThreads, (size_t)smem, s>>>(
-          (const __nv_bfloat16*)x, (const __nv_bfloat16*)coef, nullptr, y, off, wt, nullptr, n,
-          d, rows_per_tile, loss, vec16, part);
-    } else {
-      fused_glm_kernel<float, false><<<grid, kThreads, (size_t)smem, s>>>(
-          (const float*)x, (const float*)coef, nullptr, y, off, wt, nullptr, n, d,
-          rows_per_tile, loss, vec16, part);
-    }
+    launch_typed<float>(mode, grid, smem, s, x, coef, v, y, off, wt, vshift, n, d,
+                        rows_per_tile, loss, vec16, part);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int width = d + (hv ? 1 : 2);
+  const int width = out_width(mode, d);
   finalize_kernel<<<(width + 255) / 256, 256, 0, s>>>(part, grid, width, out);
   return (int)cudaGetLastError();
 }

@@ -6,10 +6,16 @@ descending score, each tie group's positive and negative weights come from
 differences of running sums at the group ends (no scatter, so no atomics
 and the same bits on every run). NaN for a single-class batch. Sums run in
 float64.
+
+``build_device_evaluator`` computes every requested metric where the scores
+lie and brings them to the host in one fetch.
 """
 
 from __future__ import annotations
 
+from typing import Callable, Dict, Optional
+
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -77,3 +83,33 @@ DEVICE_METRICS = {
     "SQUARED_LOSS": squared_loss,
     "SMOOTHED_HINGE_LOSS": smoothed_hinge_loss,
 }
+
+
+def build_device_evaluator(evaluators, labels: np.ndarray, weights) -> Optional[Callable]:
+    """A function ``scores -> {name: float}`` computing every (ungrouped,
+    device-supported) metric of ``evaluators`` on the scores' device, with
+    one stacked fetch; None when any metric needs the host path (grouped or
+    ranking metrics). Labels and weights move to the scores' device, in
+    float32, at the first call."""
+    names = []
+    for e in evaluators:
+        if e.group_by is not None or e.name not in DEVICE_METRICS:
+            return None
+        names.append(e.name)
+    fns = [DEVICE_METRICS[n] for n in names]
+    y_host = torch.as_tensor(np.asarray(labels, dtype=np.float32))
+    w_host = torch.ones_like(y_host) if weights is None else torch.as_tensor(
+        np.asarray(weights, dtype=np.float32)
+    )
+    on_device: Dict[torch.device, tuple] = {}
+
+    def evaluate(scores: Tensor) -> Dict[str, float]:
+        dev = scores.device
+        if dev not in on_device:
+            on_device[dev] = (y_host.to(dev), w_host.to(dev))
+        y, w = on_device[dev]
+        s = scores.to(y.dtype)
+        vals = torch.stack([f(s, y, w).to(torch.float64) for f in fns]).cpu().numpy()
+        return {n: float(v) for n, v in zip(names, vals)}
+
+    return evaluate

@@ -1,3 +1,24 @@
+from .coordinate import Coordinate, FixedEffectCoordinate, RandomEffectCoordinate
+from .data import (
+    EntityBlocks,
+    FixedEffectDataset,
+    RandomEffectDataset,
+    build_random_effect_dataset,
+)
+from .descent import CoordinateDescent, CoordinateDescentResult, ValidationContext
 from .problem import GLMOptimizationConfig, GLMProblem
 
-__all__ = ["GLMOptimizationConfig", "GLMProblem"]
+__all__ = [
+    "Coordinate",
+    "CoordinateDescent",
+    "CoordinateDescentResult",
+    "EntityBlocks",
+    "FixedEffectCoordinate",
+    "FixedEffectDataset",
+    "GLMOptimizationConfig",
+    "GLMProblem",
+    "RandomEffectCoordinate",
+    "RandomEffectDataset",
+    "ValidationContext",
+    "build_random_effect_dataset",
+]

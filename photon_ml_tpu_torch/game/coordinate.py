@@ -1,0 +1,477 @@
+"""GAME coordinates: the training and scoring unit of coordinate descent.
+
+Counterpart of the JAX package's ``game/coordinate.py``:
+
+- ``FixedEffectCoordinate``: one GLM solve over the whole resident dense
+  batch (``GLMProblem.run``: the CUDA kernels on the card), with the other
+  coordinates' scores added to the offsets;
+- ``RandomEffectCoordinate``: all entities' problems solved in lockstep by
+  the batched L-BFGS over entity-minor stacks (``_train_blocks_packed``),
+  one solve per power-of-two size bucket (``_size_buckets``); the solver
+  runs as torch ops, since the JAX package's packed path is XLA code and
+  not a Pallas kernel.
+
+Scores returned by coordinates never include the base offsets: the
+coordinate-descent loop owns residual composition.
+
+Not ported yet, each raising with its ROADMAP item: streamed datasets (A7),
+fixed-effect down-sampling (A4: ``game/sampling.py`` draws with
+``jax.random``; the port needs an explicit ``torch.Generator``), the
+vmapped ``_train_blocks`` and batched TRON for random effects (A2/A4),
+and random-effect priors from a ``prior_model`` (A8). The lane-stacked
+``train_lanes`` of both coordinates is A8 as well.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import weakref
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..models.game import (
+    FixedEffectModel,
+    RandomEffectModel,
+    ell_row_subspace,
+    score_entity_rows_dense,
+)
+from ..ops.losses import get_loss
+from ..ops.normalization import NormalizationContext
+from ..optimize import OptimizerType, SolverResult, SyncCounter, solve_lbfgs
+from ..optimize.common import abs_tolerances
+from .data import FixedEffectDataset, RandomEffectDataset
+from .problem import GLMOptimizationConfig, GLMProblem
+
+Tensor = torch.Tensor
+
+
+class Coordinate:
+    """Base coordinate API."""
+
+    coordinate_id: str
+
+    @property
+    def n_rows(self) -> int:
+        raise NotImplementedError
+
+    def train(self, residual_scores: Optional[Tensor], initial_model):
+        """-> (model, SolverResult). residual_scores f[n] are the OTHER
+        coordinates' summed scores, added to base offsets for this solve."""
+        raise NotImplementedError
+
+    def score(self, model) -> Tensor:
+        """Per-sample scores of this coordinate's model, excluding offsets."""
+        raise NotImplementedError
+
+
+@dataclasses.dataclass
+class FixedEffectCoordinate(Coordinate):
+    """Whole-dataset GLM solve over a resident dense batch. ``plain=True``
+    runs the plain PyTorch versions of the kernels on the card: a reference
+    sweep to hold the kernels' sweep against."""
+
+    dataset: FixedEffectDataset
+    task: str
+    config: GLMOptimizationConfig
+    normalization: Optional[NormalizationContext] = None
+    down_sampling_seed: int = 0
+    # incremental training: regularize toward this model instead of zero
+    prior_model: Optional[FixedEffectModel] = None
+    plain: bool = False
+
+    def __post_init__(self):
+        self.coordinate_id = self.dataset.coordinate_id
+
+    @property
+    def n_rows(self) -> int:
+        return self.dataset.n_rows
+
+    def train(
+        self,
+        residual_scores: Optional[Tensor],
+        initial_model: Optional[FixedEffectModel] = None,
+    ) -> Tuple[FixedEffectModel, SolverResult]:
+        if self.config.down_sampling_rate < 1.0:
+            raise NotImplementedError(
+                "fixed-effect down-sampling is not ported yet (ROADMAP A4: game/sampling.py "
+                "with an explicit torch.Generator)"
+            )
+        batch = self.dataset.batch
+        if residual_scores is not None:
+            batch = dataclasses.replace(
+                batch, offsets=batch.offsets + residual_scores.to(batch.offsets.dtype)
+            )
+        problem = GLMProblem(
+            task=self.task,
+            config=self.config,
+            normalization=self.normalization,
+            prior=self.prior_model.model.coefficients if self.prior_model else None,
+        )
+        glm, result = problem.run(
+            batch, initial_model=initial_model.model if initial_model else None, plain=self.plain
+        )
+        return FixedEffectModel(model=glm, feature_shard=self.dataset.feature_shard), result
+
+    def score(self, model: FixedEffectModel) -> Tensor:
+        # compute in the dataset's dtype: a warm-start model in another dtype
+        # must not change the dtype of the score stream
+        dtype = self.dataset.batch.labels.dtype
+        means = model.model.coefficients.means.to(device=self.dataset.batch.device, dtype=dtype)
+        return self.dataset.batch.features.matvec(means)
+
+
+@dataclasses.dataclass
+class RandomEffectCoordinate(Coordinate):
+    """Entity-blocked batched solves: every entity is one lane of one
+    lockstep L-BFGS per size bucket, each lane converging and freezing on
+    its own."""
+
+    dataset: RandomEffectDataset
+    task: str
+    config: GLMOptimizationConfig
+    # incremental training: per-entity prior means/precisions (ROADMAP A8)
+    prior_model: Optional[RandomEffectModel] = None
+
+    def __post_init__(self):
+        self.coordinate_id = self.dataset.coordinate_id
+
+    @property
+    def n_rows(self) -> int:
+        return self.dataset.row_entity.shape[0]
+
+    def train(
+        self,
+        residual_scores: Optional[Tensor],
+        initial_model: Optional[RandomEffectModel] = None,
+    ) -> Tuple[RandomEffectModel, SolverResult]:
+        if self.prior_model is not None:
+            raise NotImplementedError(
+                "random-effect priors from a prior_model (incremental training) are not "
+                "ported yet (ROADMAP A8)"
+            )
+        _re_solver_mode()
+        blocks = self.dataset.blocks
+        E, K, S = blocks.features.shape
+        # solver state stays in the wide dtype: features may be stored bf16
+        dtype, dev = blocks.labels.dtype, blocks.labels.device
+
+        if residual_scores is not None:
+            rows = torch.clamp(blocks.active_rows, min=0).long()
+            res_blocks = residual_scores[rows] * (blocks.active_rows >= 0)
+            offsets = blocks.offsets + res_blocks.to(dtype)
+        else:
+            offsets = blocks.offsets
+        if initial_model is not None:
+            w0 = _project_model_values(self.dataset, initial_model, initial_model.coef_values, dtype)
+        else:
+            w0 = torch.zeros((E, S), dtype=dtype, device=dev)
+        prior_mean = torch.zeros((E, S), dtype=dtype, device=dev)
+        prior_prec = torch.ones((E, S), dtype=dtype, device=dev)
+
+        solver_kwargs = self._solver_kwargs()
+        segments = _size_buckets(self.dataset)
+        if segments is None:
+            results = _train_blocks_packed(
+                blocks.features, blocks.labels, offsets, blocks.weights,
+                w0, prior_mean, prior_prec, **solver_kwargs,
+            )
+        else:
+            # size-bucketed solves: entities are sorted by descending row
+            # count, so each (K, S)-rounded bucket is a contiguous segment and
+            # small entities do not pay the padding of the largest
+            parts = []
+            for start, end, kb, sb in segments:
+                parts.append(
+                    _train_blocks_packed(
+                        blocks.features[start:end, :kb, :sb],
+                        blocks.labels[start:end, :kb],
+                        offsets[start:end, :kb],
+                        blocks.weights[start:end, :kb],
+                        w0[start:end, :sb],
+                        prior_mean[start:end, :sb],
+                        prior_prec[start:end, :sb],
+                        **solver_kwargs,
+                    )
+                )
+            results = _concat_results(parts, S)
+        coef_indices = blocks.proj_cols
+        valid = coef_indices >= 0
+        model = RandomEffectModel(
+            random_effect_type=self.dataset.random_effect_type,
+            feature_shard=self.dataset.feature_shard,
+            task=self.task,
+            entity_ids=self.dataset.entity_ids,
+            coef_indices=coef_indices,
+            coef_values=torch.where(valid, results.coefficients, torch.zeros((), dtype=dtype, device=dev)),
+        )
+        # provenance mark (a weakref, so the model does not pin the dataset):
+        # this model's support layout is this dataset's block layout, so
+        # score() takes the cached fast path without comparing index arrays
+        object.__setattr__(model, "_support_layout_of", weakref.ref(self.dataset))
+        return model, results
+
+    def _solver_kwargs(self) -> dict:
+        cfg = self.config
+        solver_cfg = cfg.solver_config()
+        return dict(
+            task=self.task,
+            l2=cfg.regularization.l2_weight(cfg.reg_weight),
+            l1=solver_cfg.l1_weight,
+            optimizer_type=OptimizerType(solver_cfg.normalized_type()).value,
+            tolerance=solver_cfg.tolerance,
+            max_iterations=solver_cfg.max_iterations,
+            num_corrections=solver_cfg.num_corrections,
+            max_cg_iterations=solver_cfg.max_cg_iterations,
+            max_improvement_failures=solver_cfg.max_improvement_failures,
+        )
+
+    def _support_layout_matches(self, model: RandomEffectModel) -> bool:
+        """True when model.coef_indices is this dataset's own block layout
+        (the coordinate-descent case): by provenance, by identity, or else by
+        comparing the index arrays (one fetch)."""
+        ds = self.dataset
+        prov = getattr(model, "_support_layout_of", None)
+        if prov is not None and prov() is ds:
+            return True
+        ci = model.coef_indices
+        if ci is ds.blocks.proj_cols:
+            return True
+        pc = ds.blocks.proj_cols
+        return tuple(ci.shape) == tuple(pc.shape) and bool(torch.equal(ci.to(pc.device), pc))
+
+    def score(self, model: RandomEffectModel) -> Tensor:
+        ds = self.dataset
+        row_entity = ds.row_entity
+        score_dt = torch.promote_types(ds.ell_val.dtype, ds.blocks.labels.dtype)
+        ds_ids = list(map(str, ds.entity_ids))
+        m_ids = list(map(str, model.entity_ids))
+        if ds_ids == m_ids and self._support_layout_matches(model):
+            # coordinate-descent hot path: densify the rows' features into
+            # the entity-subspace layout once (cached on the dataset); each
+            # score is then a row gather and an elementwise dot
+            cache = getattr(ds, "_score_xsub_cache", None)
+            if cache is None:
+                cache = ell_row_subspace(model.coef_indices, row_entity, ds.ell_idx, ds.ell_val)
+                object.__setattr__(ds, "_score_xsub_cache", cache)
+            vals = model.coef_values.to(device=ds.device, dtype=score_dt)
+            return score_entity_rows_dense(vals, row_entity, cache.to(score_dt))
+        # the model's entity rows or support differ from this dataset's (a
+        # model loaded from elsewhere): remap block rows to model rows by id
+        if ds_ids != m_ids:
+            block_to_model = torch.as_tensor(
+                model.rows_for(ds.entity_ids), dtype=torch.int32, device=ds.device
+            )
+            row_entity = torch.where(
+                row_entity >= 0, block_to_model[torch.clamp(row_entity, min=0).long()], -1
+            ).to(torch.int32)
+        scoring = dataclasses.replace(
+            model,
+            coef_indices=model.coef_indices.to(ds.device),
+            coef_values=model.coef_values.to(device=ds.device, dtype=score_dt),
+        )
+        return scoring.score_ell_rows(row_entity, ds.ell_idx, ds.ell_val.to(score_dt))
+
+
+def _re_solver_mode() -> str:
+    """Random-effect solver selection, as in the JAX package: 'packed'
+    (the default, entity-minor lockstep solves); 'vmapped' is ROADMAP A2/A4
+    here. Unknown values raise."""
+    mode = os.environ.get("PHOTON_RE_SOLVER", "packed").strip().lower()
+    if mode not in ("packed", "vmapped"):
+        raise ValueError(f"PHOTON_RE_SOLVER={mode!r}: expected 'packed' or 'vmapped'")
+    if mode == "vmapped":
+        raise NotImplementedError(
+            "the vmapped per-entity random-effect solve (_train_blocks) is not ported yet "
+            "(ROADMAP A2/A4); photon_ml_tpu_torch runs the packed lockstep solve"
+        )
+    return mode
+
+
+def _project_model_values(
+    dataset: RandomEffectDataset, model: RandomEffectModel, values: Tensor, dtype
+) -> Tensor:
+    """Project per-entity values stored in ``model``'s (entity, support)
+    layout into this dataset's entity/subspace block layout. The same layout
+    is reused directly; any other goes through one vectorized sorted-key
+    lookup on the host."""
+    blocks = dataset.blocks
+    dev = blocks.labels.device
+    E, S = blocks.proj_cols.shape
+    prov = getattr(model, "_support_layout_of", None)
+    if prov is not None and prov() is dataset:
+        return values.to(device=dev, dtype=dtype)
+    pc_host = blocks.proj_cols.cpu().numpy()
+    idx = model.coef_indices.cpu().numpy()
+    if (
+        idx.shape == (E, S)
+        and model.num_entities == E
+        and np.array_equal(idx, pc_host)
+        and list(map(str, model.entity_ids)) == list(map(str, dataset.entity_ids))
+    ):
+        return values.to(device=dev, dtype=dtype)
+    dim = int(max(int(pc_host.max(initial=0)), int(idx.max(initial=0))) + 1)
+    vals = values.detach().cpu().double().numpy()
+    me, ms = np.nonzero(idx >= 0)
+    mkeys = me.astype(np.int64) * dim + idx[me, ms]
+    order = np.argsort(mkeys, kind="stable")
+    mkeys_s = mkeys[order]
+    mvals_s = vals[me, ms][order]
+    rows = model.rows_for(dataset.entity_ids)  # [E] model row or -1
+    de, dsl = np.nonzero((pc_host >= 0) & (rows[:, None] >= 0))
+    dkeys = rows[de].astype(np.int64) * dim + pc_host[de, dsl]
+    w0 = np.zeros((E, S))
+    if len(mkeys_s) and len(dkeys):
+        # side='right' - 1: among duplicate support columns the last stored
+        # value wins
+        pos = np.clip(np.searchsorted(mkeys_s, dkeys, side="right") - 1, 0, None)
+        hit = mkeys_s[pos] == dkeys
+        w0[de[hit], dsl[hit]] = mvals_s[pos[hit]]
+    return torch.as_tensor(w0).to(device=dev, dtype=dtype)
+
+
+def _pow2_ceil(x: np.ndarray) -> np.ndarray:
+    """Exact elementwise 2**ceil(log2(max(x, 1))) for int64 inputs < 2^53."""
+    v = np.maximum(np.asarray(x, dtype=np.int64), 1) - 1
+    return np.int64(1) << np.frexp(v.astype(np.float64))[1].astype(np.int64)
+
+
+def _size_buckets(dataset: RandomEffectDataset, min_dim: int = 8):
+    """Contiguous entity segments with power-of-2-rounded (K, S) block shapes.
+
+    Returns [(start, end, K_b, S_b)], or None when per-entity stats are
+    unavailable or bucketing cannot shrink anything. (The JAX package's
+    ``align`` and ``entity_range`` serve mesh-sharded and streamed blocks,
+    ROADMAP A10 / A7.)"""
+    counts = dataset.entity_counts
+    svec = dataset.entity_subspace_dims
+    if counts is None or svec is None or len(counts) == 0:
+        return None
+    E, K, S = dataset.blocks.features.shape
+
+    kb_of = np.minimum(
+        np.maximum(_pow2_ceil(np.asarray(counts[:E], dtype=np.int64)), min_dim), K
+    )
+    bounds = np.flatnonzero(np.diff(kb_of)) + 1  # starts of new equal-K runs
+    bounds = bounds[(bounds > 0) & (bounds < E)]
+    starts = np.concatenate([[0], bounds])
+    ends = np.concatenate([bounds, [E]])
+
+    sv = np.asarray(svec[:E], dtype=np.int64)
+    sb_of = np.minimum(np.maximum(_pow2_ceil(np.maximum.reduceat(sv, starts)), min_dim), S)
+    segments = [
+        (int(s), int(e), int(kb_of[s]), int(sb))  # counts non-increasing => max K
+        for s, e, sb in zip(starts, ends, sb_of)
+    ]
+    if len(segments) == 1 and segments[0][2] >= K and segments[0][3] >= S:
+        return None
+    return segments
+
+
+def _concat_results(parts, S: int) -> SolverResult:
+    """Stitch per-bucket SolverResults back into entity order, zero-padding
+    coefficients/gradients to the global subspace dim; the syncs add up."""
+
+    def pad_cols(a):
+        if a.shape[-1] == S:
+            return a
+        return torch.nn.functional.pad(a, (0, S - a.shape[-1]))
+
+    return SolverResult(
+        coefficients=torch.cat([pad_cols(p.coefficients) for p in parts]),
+        loss=torch.cat([p.loss for p in parts]),
+        gradient=torch.cat([pad_cols(p.gradient) for p in parts]),
+        iterations=torch.cat([p.iterations for p in parts]),
+        reason=torch.cat([p.reason for p in parts]),
+        loss_history=torch.cat([p.loss_history for p in parts]),
+        grad_norm_history=torch.cat([p.grad_norm_history for p in parts]),
+        syncs=sum(p.syncs for p in parts),
+    )
+
+
+def _train_blocks_packed(
+    features: Tensor,  # [E, K, S]
+    labels: Tensor,
+    offsets: Tensor,
+    weights: Tensor,
+    w0: Tensor,  # [E, S]
+    prior_mean: Tensor,  # [E, S]; zeros = plain L2
+    prior_prec: Tensor,  # [E, S]; ones = plain L2
+    *,
+    task: str,
+    l2: float,
+    l1: float,
+    optimizer_type: str,
+    tolerance: float,
+    max_iterations: int,
+    num_corrections: int,
+    max_cg_iterations: int,
+    max_improvement_failures: int,
+) -> SolverResult:
+    """Entity-minor lockstep solve over all entity blocks: the data is
+    transposed so the entity axis is minor (features [K, S, E],
+    coefficients [S, E]), every solver op is elementwise over the entities,
+    and the per-entity reductions are axis-0 sums. Returns the result in
+    entity-major layout (coefficients [E, S], histories [E, T]).
+
+    Unlike the JAX package, each entity's objective value sums in float64
+    (the gradient and the iterate stay in the solve dtype). An entity capped
+    at ``active_cap`` rows carries the count/cap weight rescale, which puts
+    its loss in the thousands at bench shapes (about 3e4 for the largest
+    user of bench.py's data): there one float32 ulp (~2e-3) exceeds the
+    packed solve's loss bound (atol 1e-4), and the line search's Armijo test
+    would compare values at that resolution."""
+    if optimizer_type == OptimizerType.TRON.value:
+        raise NotImplementedError(
+            "batched TRON for random effects is not ported yet (ROADMAP A2/A4); "
+            "use L-BFGS for the random-effect coordinate"
+        )
+    loss = get_loss(task)
+    # features may be stored narrower (bf16); products promote to the
+    # labels' (solve) dtype
+    F = features.permute(1, 2, 0).contiguous()  # [K, S, E]
+    y = labels.T.contiguous()  # [K, E]
+    off = offsets.T.to(labels.dtype).contiguous()
+    wt = weights.T.contiguous()
+    w0t = w0.T.contiguous()  # [S, E]
+    pm = prior_mean.T.contiguous()
+    pp = prior_prec.T.contiguous()
+
+    def value_and_grad(w):  # [S, E] -> ([E] float64, [S, E])
+        z = torch.sum(F * w[None, :, :], dim=1) + off  # [K, E]
+        lvals, dz = loss.loss_and_dz(z, y)
+        wdz = wt * dz
+        grad = torch.sum(F * wdz[:, None, :], dim=0)  # [S, E]
+        delta = w - pm
+        # the per-entity value sums in float64 (see the note in the docstring)
+        value = torch.sum((wt * lvals).double(), dim=0) + 0.5 * l2 * torch.sum(
+            (pp * delta * delta).double(), dim=0
+        )
+        grad = grad + l2 * pp * delta
+        return value, grad
+
+    syncs = SyncCounter()
+    loss_tol, grad_tol = abs_tolerances(value_and_grad, w0t, tolerance)
+    res = solve_lbfgs(
+        value_and_grad,
+        w0t,
+        loss_tol,
+        grad_tol,
+        max_iterations=max_iterations,
+        num_corrections=num_corrections,
+        l1_weight=l1,
+        syncs=syncs,
+        batched=True,
+    )
+    return SolverResult(
+        coefficients=res.coefficients.T,
+        loss=res.loss,
+        gradient=res.gradient.T,
+        iterations=res.iterations,
+        reason=res.reason,
+        loss_history=res.loss_history.T,
+        grad_norm_history=res.grad_norm_history.T,
+        syncs=res.syncs,
+    )

@@ -61,7 +61,9 @@ class GLMOptimizationConfig:
     optimizer: OptimizerConfig = dataclasses.field(default_factory=OptimizerConfig)
     regularization: RegularizationContext = NO_REGULARIZATION
     reg_weight: float = 0.0
-    variance_type: str = "NONE"  # NONE (SIMPLE | FULL come with the next slice)
+    # fixed-effect down-sampling (game/sampling.py) is ROADMAP A4: 1.0 only
+    down_sampling_rate: float = 1.0
+    variance_type: str = "NONE"  # NONE | SIMPLE (FULL is ROADMAP A6)
 
     def with_reg_weight(self, w: float) -> "GLMOptimizationConfig":
         return dataclasses.replace(self, reg_weight=w)
@@ -129,7 +131,7 @@ class GLMProblem:
         well: a reference solve to hold the kernels' solve against.
         """
         vt = self.config.variance_type.upper()
-        if vt != "NONE":
+        if vt not in ("NONE", "SIMPLE"):
             # fail before the solve, not after it
             compute_variances(None, None, vt)
         if not plain:
@@ -147,10 +149,12 @@ class GLMProblem:
         result = optimize(
             obj.value_and_grad, w0, self.config.solver_config(), hvp=obj.hessian_vector
         )
+        # variances stay in the transformed space, as in the reference
+        variances = compute_variances(obj, result.coefficients, vt)
         means = result.coefficients
         if obj.norm is not None:
             means = obj.norm.model_to_original_space(means)
-        model = model_for_task(self.task, Coefficients(means=means, variances=None))
+        model = model_for_task(self.task, Coefficients(means=means, variances=variances))
         return model, result
 
     def zero_model(self, dim: int, dtype=torch.float32, device="cuda") -> GeneralizedLinearModel:

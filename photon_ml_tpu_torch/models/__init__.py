@@ -1,4 +1,5 @@
 from .coefficients import Coefficients
+from .game import FixedEffectModel, GameModel, RandomEffectModel
 from .glm import (
     GeneralizedLinearModel,
     LinearRegressionModel,
@@ -11,6 +12,9 @@ from .glm import (
 
 __all__ = [
     "Coefficients",
+    "FixedEffectModel",
+    "GameModel",
+    "RandomEffectModel",
     "GeneralizedLinearModel",
     "LogisticRegressionModel",
     "LinearRegressionModel",

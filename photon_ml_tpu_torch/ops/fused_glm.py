@@ -6,16 +6,20 @@ Counterpart of the JAX package's ``ops/pallas_glm.py``:
 - ``fused_value_grad``: ``(sum_i wt_i l_i, X^T(wt*dz), sum_i wt_i dz_i)``
   with ``z = X.eff_coef + offsets`` (replaces ``_vg_kernel``);
 - ``fused_hessian_vector``: ``(X^T(c*u), sum_i c_i u_i)`` with
-  ``c = wt*l''(z)`` and ``u = X.eff_v + vshift`` (replaces ``_hv_kernel``).
+  ``c = wt*l''(z)`` and ``u = X.eff_v + vshift`` (replaces ``_hv_kernel``);
+- ``fused_hessian_stats``: ``s2 = (X*X)^T c`` and, with ``need_shifts``,
+  ``s1 = X^T c`` and ``s0 = sum_i c_i`` (replaces ``_hd_kernel``).
 
 ``offsets`` already carry the normalization margin shift, so the shift and
 factor algebra stays in ``ops/glm.py``. The kernels live in
 ``csrc/fused_glm.cu``; each wrapper launches its kernel for a CUDA tensor and
 raises on anything the kernel does not take, and runs the plain version only
 for a tensor that lies on the CPU. The plain versions are the unfused
-compositions (X read twice for value+grad, three times for Hv) with the
-kernel's bf16 rounding points: the coefficients round to X's dtype, and so
-does the per-row weight before the column product.
+compositions (X read twice for value+grad, three times for Hv, two or three
+times for the Hessian stats) with the kernel's bf16 rounding points: the
+coefficients round to X's dtype, and so does the per-row weight before the
+column product. ``x*x`` is taken in the compute dtype, where the square of a
+bf16 value is exact (the TPU kernel rounds it to bf16 for its bf16 dot).
 
 ``LAUNCHES`` counts the kernel launches of each wrapper; nothing else
 touches it but ``reset_launch_counts``.
@@ -33,7 +37,10 @@ from .losses import PointwiseLoss
 
 Tensor = torch.Tensor
 
-LAUNCHES = {"fused_value_grad": 0, "fused_hessian_vector": 0}
+LAUNCHES = {"fused_value_grad": 0, "fused_hessian_vector": 0, "fused_hessian_stats": 0}
+
+# sweep modes of csrc/fused_glm.cu (enum Mode)
+VG, HV, HD, HD_SHIFTS = 0, 1, 2, 3
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -101,6 +108,29 @@ def hessian_vector_plain(
     return hv, torch.sum(cu)
 
 
+def hessian_stats_plain(
+    x: Tensor,
+    eff_coef: Tensor,
+    labels: Tensor,
+    offsets: Tensor,
+    weights: Tensor,
+    loss: PointwiseLoss,
+    need_shifts: bool = False,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> Tuple[Tensor, Optional[Tensor], Optional[Tensor]]:
+    """Plain version of ``fused_hessian_stats``: ``(s2, s1, s0)``, the last
+    two ``None`` without ``need_shifts``."""
+    cd = _compute_dtype(x, compute_dtype)
+    xc = x.to(cd)
+    z = torch.mv(xc, eff_coef.to(x.dtype).to(cd)) + offsets.to(cd)
+    c = weights.to(cd) * loss.d2z(z, labels.to(cd))
+    cr = _round_like_x(c, x.dtype)
+    s2 = torch.mv((xc * xc).T, cr)
+    if not need_shifts:
+        return s2, None, None
+    return s2, torch.mv(xc.T, cr), torch.sum(c)
+
+
 def _vec(name: str, t: Tensor, n: int, device: torch.device, dtype: torch.dtype) -> Tensor:
     if t.shape != (n,):
         raise ValueError(f"{name} must have shape ({n},), got {tuple(t.shape)}")
@@ -122,8 +152,13 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _launch(hv: bool, x, coef, v, labels, offsets, weights, vshift, loss: PointwiseLoss) -> Tensor:
-    """Check the operands, then run one sweep; returns ``out[d + S]``."""
+def _out_width(mode: int, d: int) -> int:
+    return {VG: d + 2, HV: d + 1, HD: d, HD_SHIFTS: 2 * d + 1}[mode]
+
+
+def _launch(mode: int, x, coef, v, labels, offsets, weights, vshift, loss: PointwiseLoss) -> Tensor:
+    """Check the operands, then run one sweep of ``mode``; returns the
+    flat f32 output (see ``_out_width``)."""
     if x.dim() != 2:
         raise ValueError(f"X must be 2-D, got shape {tuple(x.shape)}")
     if x.dtype not in _KERNEL_DTYPES:
@@ -133,6 +168,7 @@ def _launch(hv: bool, x, coef, v, labels, offsets, weights, vshift, loss: Pointw
     n, d = x.shape
     dev = x.device
     coef = _vec("eff_coef", coef, d, dev, x.dtype)
+    hv = mode == HV
     if hv:
         v = _vec("eff_v", v, d, dev, x.dtype)
         vshift = torch.as_tensor(vshift, device=dev).to(torch.float32).reshape(1)
@@ -146,7 +182,7 @@ def _launch(hv: bool, x, coef, v, labels, offsets, weights, vshift, loss: Pointw
     with torch.cuda.device(dev):
         grid, rows, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
         rc = lib.fused_glm_plan(
-            int(hv), bf16, n, d, ctypes.byref(grid), ctypes.byref(rows), ctypes.byref(smem)
+            mode, bf16, n, d, ctypes.byref(grid), ctypes.byref(rows), ctypes.byref(smem)
         )
         if rc != 0:
             raise RuntimeError(
@@ -154,11 +190,11 @@ def _launch(hv: bool, x, coef, v, labels, offsets, weights, vshift, loss: Pointw
                 "(cudaErrorInvalidValue=1: one staged row of X plus its [d] vectors "
                 "does not fit in a block's shared memory)"
             )
-        width = d + (1 if hv else 2)
+        width = _out_width(mode, d)
         part = torch.empty((grid.value, width), dtype=torch.float32, device=dev)
         out = torch.empty(width, dtype=torch.float32, device=dev)
         rc = lib.fused_glm_launch(
-            int(hv), bf16, x.data_ptr(), coef.data_ptr(), v.data_ptr() if hv else None,
+            mode, bf16, x.data_ptr(), coef.data_ptr(), v.data_ptr() if hv else None,
             y.data_ptr(), off.data_ptr(), wt.data_ptr(), vshift.data_ptr() if hv else None,
             n, d, loss.code, grid.value, rows.value, smem.value, vec16,
             part.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
@@ -188,7 +224,7 @@ def fused_value_grad(
     if x.device.type == "cpu":
         return value_grad_plain(x, eff_coef, labels, offsets, weights, loss)
     _require_cuda(x)
-    out = _launch(False, x, eff_coef, None, labels, offsets, weights, None, loss)
+    out = _launch(VG, x, eff_coef, None, labels, offsets, weights, None, loss)
     LAUNCHES["fused_value_grad"] += 1
     d = x.shape[1]
     return out[d], out[:d], out[d + 1]
@@ -209,22 +245,47 @@ def fused_hessian_vector(
     if x.device.type == "cpu":
         return hessian_vector_plain(x, eff_coef, eff_v, labels, offsets, weights, vshift, loss)
     _require_cuda(x)
-    out = _launch(True, x, eff_coef, eff_v, labels, offsets, weights, vshift, loss)
+    out = _launch(HV, x, eff_coef, eff_v, labels, offsets, weights, vshift, loss)
     LAUNCHES["fused_hessian_vector"] += 1
     d = x.shape[1]
     return out[:d], out[d]
 
 
-def sweep_bytes(n: int, d: int, x_dtype: torch.dtype, hv: bool) -> int:
+def fused_hessian_stats(
+    x: Tensor,
+    eff_coef: Tensor,
+    labels: Tensor,
+    offsets: Tensor,
+    weights: Tensor,
+    loss: PointwiseLoss,
+    need_shifts: bool = False,
+) -> Tuple[Tensor, Optional[Tensor], Optional[Tensor]]:
+    """One sweep of dense X: ``(s2, s1, s0)`` with ``c = wt*l''(z)``,
+    ``s2 = (X*X)^T c``, ``s1 = X^T c`` and ``s0 = sum c`` (the last two
+    ``None`` without ``need_shifts``), f32 outputs on the card. A CPU tensor
+    takes ``hessian_stats_plain``."""
+    if x.device.type == "cpu":
+        return hessian_stats_plain(x, eff_coef, labels, offsets, weights, loss, need_shifts)
+    _require_cuda(x)
+    out = _launch(HD_SHIFTS if need_shifts else HD, x, eff_coef, None, labels, offsets, weights, None, loss)
+    LAUNCHES["fused_hessian_stats"] += 1
+    d = x.shape[1]
+    if not need_shifts:
+        return out, None, None
+    return out[:d], out[d : 2 * d], out[2 * d]
+
+
+def sweep_bytes(n: int, d: int, x_dtype: torch.dtype, mode: int) -> int:
     """Bytes one call must move: X, the [d] vector(s) in X's dtype, labels,
     offsets and weights (f32) read once; the outputs written once."""
     item = torch.empty((), dtype=x_dtype).element_size()
+    hv = mode == HV
     reads = n * d * item + d * item * (2 if hv else 1) + 3 * n * 4 + (4 if hv else 0)
-    writes = 4 * (d + (1 if hv else 2))
-    return reads + writes
+    return reads + 4 * _out_width(mode, d)
 
 
-def sweep_flops(n: int, d: int, hv: bool) -> int:
-    """Multiply-adds of one call, counted as 2 operations each: the row dot(s)
-    and the column accumulation."""
-    return 2 * n * d * (3 if hv else 2)
+def sweep_flops(n: int, d: int, mode: int) -> int:
+    """Operations of one call, a multiply-add counted as 2: the row dot(s)
+    and the column accumulation(s); the Hessian stats also square x."""
+    per_element = {VG: 4, HV: 6, HD: 5, HD_SHIFTS: 7}[mode]
+    return per_element * n * d

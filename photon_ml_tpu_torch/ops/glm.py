@@ -13,6 +13,7 @@ training (mean m, precision P; plain L2 when both are absent).
 Every X sweep goes through ``ops/fused_glm.py``: on the card the CUDA
 kernels, on the CPU their plain versions. ``plain=True`` sends a CUDA batch
 to the plain versions too, for a reference run beside the kernels.
+Variances: NONE and SIMPLE (``1 / diag H``); FULL is ROADMAP A6.
 """
 
 from __future__ import annotations
@@ -24,8 +25,10 @@ import torch
 
 from .features import LabeledBatch
 from .fused_glm import (
+    fused_hessian_stats,
     fused_hessian_vector,
     fused_value_grad,
+    hessian_stats_plain,
     hessian_vector_plain,
     value_grad_plain,
 )
@@ -34,9 +37,9 @@ from .normalization import NormalizationContext, identity_normalization
 
 Tensor = torch.Tensor
 
-_NEXT_SLICE = (
-    "{} is not ported yet: SIMPLE and FULL variances land with the next slice "
-    "(ROADMAP A6, kernel B3 fused_hessian_stats)"
+_FULL_TODO = (
+    "{} is not ported yet: FULL variance (the dense Hessian and its inverse's "
+    "diagonal) is ROADMAP A6"
 )
 
 
@@ -104,20 +107,40 @@ class GLMObjective:
         return hv + self.l2 * self._precision(v) * v
 
     def hessian_diagonal(self, coef: Tensor) -> Tensor:
-        raise NotImplementedError(_NEXT_SLICE.format("hessian_diagonal"))
+        """diag H = sum_i w_i l''_i x'_ji^2 (+ l2 P), expanded for the
+        normalization: f_j^2 (S2_j - 2 s_j S1_j + s_j^2 S0) with S2 = sum c x^2,
+        S1 = sum c x and S0 = sum c, all from one sweep of X."""
+        b = self.batch
+        norm = self._norm()
+        need_shifts = norm.shifts is not None
+        eff, mshift = norm.effective_coefficients(coef)
+        stats = hessian_stats_plain if self.plain else fused_hessian_stats
+        s2, s1, s0 = stats(
+            b.features.dense, eff, b.labels, b.offsets + mshift, b.weights, self.loss,
+            need_shifts,
+        )
+        diag = s2
+        if need_shifts:
+            diag = s2 - 2.0 * norm.shifts * s1 + norm.shifts**2 * s0
+        if norm.factors is not None:
+            diag = diag * norm.factors**2
+        return diag + self.l2 * self._precision(diag)
 
     def hessian_matrix(self, coef: Tensor) -> Tensor:
-        raise NotImplementedError(_NEXT_SLICE.format("hessian_matrix"))
+        raise NotImplementedError(_FULL_TODO.format("hessian_matrix"))
 
 
 def compute_variances(
     objective: GLMObjective, coef: Tensor, variance_type: str
 ) -> Optional[Tensor]:
-    """Coefficient variances: NONE -> None. SIMPLE and FULL come with the
-    next slice."""
+    """Coefficient variances: NONE -> None; SIMPLE -> 1 / diag(H), a zero
+    diagonal entry (no data, no L2) pinned to variance 1. FULL raises."""
     vt = variance_type.upper()
     if vt == "NONE":
         return None
-    if vt in ("SIMPLE", "FULL"):
-        raise NotImplementedError(_NEXT_SLICE.format(f"variance {vt}"))
+    if vt == "SIMPLE":
+        d = objective.hessian_diagonal(coef)
+        return 1.0 / torch.where(d == 0, torch.ones_like(d), d)
+    if vt == "FULL":
+        raise NotImplementedError(_FULL_TODO.format("variance FULL"))
     raise ValueError(f"Unknown variance computation type: {variance_type!r}")

@@ -8,6 +8,11 @@ a branch cross to the host, a few at a time in one ``fetch``.
 Convergence semantics: tolerances are relative, turned absolute from the
 state at zero coefficients (loss(0) * tol, ||grad(0)|| * tol), and the
 reasons are checked in the reference's precedence order.
+
+The helpers are lane-generic, as the JAX package's are: a 1-D coefficient
+vector is one problem, and an entity-minor stack ``[S, E]`` is E problems
+whose reductions run over axis 0, with per-lane ``[E]`` losses, tolerances
+and reasons (the batched L-BFGS of ``lbfgs.py``).
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import math
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -73,20 +78,22 @@ class OptimizerConfig:
 @dataclasses.dataclass(frozen=True)
 class SolverResult:
     """Final solver state plus per-iteration history (NaN-padded to
-    ``max_iterations + 1``). ``iterations`` and ``reason`` are host ints;
-    ``syncs`` counts the device-to-host fetches the solve made."""
+    ``max_iterations + 1``). For one problem ``iterations`` and ``reason``
+    are host ints; for a batch of lanes they are ``[E]`` int32 tensors and
+    the histories ``[max_iterations + 1, E]``. ``syncs`` counts the
+    device-to-host fetches the solve made."""
 
     coefficients: Tensor
     loss: Tensor
     gradient: Tensor
-    iterations: int
-    reason: int
+    iterations: Union[int, Tensor]
+    reason: Union[int, Tensor]
     loss_history: Tensor
     grad_norm_history: Tensor
     syncs: int = 0
 
     @property
-    def converged(self) -> bool:
+    def converged(self):
         return self.reason != ConvergenceReason.NOT_CONVERGED
 
 
@@ -119,18 +126,29 @@ def project_box(w: Tensor, box: Optional[Tuple[Tensor, Tensor]]) -> Tensor:
 
 
 def check_convergence(
-    it: int,
+    it,
     max_iterations: int,
-    loss: float,
-    prev_loss: float,
-    grad_norm: float,
-    loss_abs_tol: float,
-    grad_abs_tol: float,
-    objective_not_improving: bool,
-    diverged: bool = False,
-) -> int:
+    loss,
+    prev_loss,
+    grad_norm,
+    loss_abs_tol,
+    grad_abs_tol,
+    objective_not_improving,
+    diverged=False,
+):
     """Reason code in the reference's precedence order: later conditions
-    override earlier ones, divergence overrides all."""
+    override earlier ones, divergence overrides all. Host scalars give a
+    host int; ``[E]`` lane tensors give an ``[E]`` int32 tensor."""
+    if isinstance(loss, torch.Tensor):
+        r = ConvergenceReason
+        zero = torch.zeros_like(loss, dtype=torch.int32)
+        reason = torch.where(grad_norm <= grad_abs_tol, int(r.GRADIENT_CONVERGED), zero)
+        reason = torch.where(
+            torch.abs(loss - prev_loss) <= loss_abs_tol, int(r.FUNCTION_VALUES_CONVERGED), reason
+        )
+        reason = torch.where(objective_not_improving, int(r.OBJECTIVE_NOT_IMPROVING), reason)
+        reason = torch.where(it >= max_iterations, int(r.MAX_ITERATIONS), reason)
+        return torch.where(diverged, int(r.NUMERICAL_DIVERGENCE), reason).to(torch.int32)
     reason = 0
     if grad_norm <= grad_abs_tol:
         reason = int(ConvergenceReason.GRADIENT_CONVERGED)
@@ -146,12 +164,21 @@ def check_convergence(
 
 
 def finite_state(f: Tensor, g: Tensor) -> Tensor:
-    """Device bool: the (loss, gradient) pair is numerically sound."""
-    return torch.isfinite(f) & torch.all(torch.isfinite(g))
+    """Device bool per lane: the (loss, gradient) pair is numerically sound
+    (scalar for a 1-D gradient, ``[E]`` for an ``[S, E]`` stack)."""
+    return torch.isfinite(f) & torch.all(torch.isfinite(g), dim=0)
+
+
+def vdot(a: Tensor, b: Tensor) -> Tensor:
+    """Coefficient-axis dot: ``torch.dot`` for 1-D operands, per-lane
+    ``[E]`` axis-0 sums for ``[S, E]`` stacks."""
+    if a.dim() == 1:
+        return torch.dot(a, b)
+    return torch.sum(a * b, dim=0)
 
 
 def norm(v: Tensor) -> Tensor:
-    return torch.sqrt(torch.dot(v, v))
+    return torch.sqrt(vdot(v, v))
 
 
 def abs_tolerances(
@@ -159,9 +186,15 @@ def abs_tolerances(
     zero_like: Tensor,
     tolerance: float,
     syncs: Optional[SyncCounter] = None,
-) -> Tuple[np.generic, np.generic]:
-    """Absolute tolerances from the state at zero coefficients."""
+):
+    """Absolute tolerances from the state at zero coefficients: host
+    scalars for one problem (one fetch); ``[E]`` device tensors for an
+    ``[S, E]`` stack of lanes, which the batched solver keeps on the device
+    (no fetch)."""
     f0, g0 = value_and_grad(torch.zeros_like(zero_like))
+    if zero_like.dim() > 1:
+        tol = torch.as_tensor(tolerance, dtype=f0.dtype, device=f0.device)
+        return torch.abs(f0) * tol, norm(g0) * tol
     f0_h, g0_norm = (syncs or SyncCounter()).fetch(f0, norm(g0))
     tol = f0_h.dtype.type(tolerance)
     return abs(f0_h) * tol, g0_norm * tol

@@ -107,6 +107,11 @@ def solve_tron(
     box_constraints: Optional[Tuple[Tensor, Tensor]] = None,
     syncs: Optional[SyncCounter] = None,
 ) -> SolverResult:
+    if w0.dim() != 1:
+        raise NotImplementedError(
+            "batched (lane-stacked) TRON is not ported yet (ROADMAP A2); "
+            "photon_ml_tpu_torch runs single-lane TRON"
+        )
     syncs = syncs or SyncCounter()
     w = w0.clone()
     f, g = value_and_grad(w)

@@ -8,8 +8,11 @@ worker collects the same tests). On a machine with a card, nvcc and no JAX:
 (``--noconftest`` because tests/conftest.py sets up JAX for the rest of the
 suite.) This file imports no JAX. Kernels are held against their plain
 versions computed in float64 from the same rounded inputs, at the reference
-suite's bounds: value rtol 2e-6; gradient and Hv max-abs error
-<= 3e-5 * max(|ref|, 1).
+suite's bounds: value rtol 2e-6; gradient, Hv and the Hessian statistics
+max-abs error <= 3e-5 * max(|ref|, 1); the Hessian stats' scalar s0 rtol
+2e-6. A GLMix sweep on the card is held against the plain versions' sweep
+at the solve bounds (fixed effect rtol 1e-3 / atol 1e-5; random effect
+coefficients atol 5e-3, loss atol 1e-4 on identical residuals).
 """
 
 import math
@@ -72,7 +75,36 @@ def test_kernels_match_float64_plain(cuda, loss_name, xdt, n, d):
     assert abs(float(val) - float(rv)) <= 2e-6 * abs(float(rv)) + 1e-30
     _assert_vec(torch.cat([grad, wdz.reshape(1)]), torch.cat([rg, rw.reshape(1)]), "gradient")
     _assert_vec(torch.cat([hv, csum.reshape(1)]), torch.cat([rh, rc.reshape(1)]), "Hv")
-    assert fg.LAUNCHES == {"fused_value_grad": 1, "fused_hessian_vector": 1}
+    assert fg.LAUNCHES == {"fused_value_grad": 1, "fused_hessian_vector": 1, "fused_hessian_stats": 0}
+
+
+@pytest.mark.parametrize("need_shifts", [False, True], ids=["no-shifts", "shifts"])
+@pytest.mark.parametrize("loss_name", sorted(LOSSES))
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(4096, 256), (4099, 256), (777, 203), (5, 1), (33, 4096)])
+def test_hessian_stats_match_float64_plain(cuda, loss_name, xdt, n, d, need_shifts):
+    x, coef, _, y, off, wt, _ = _inputs(cuda, n, d, xdt, seed=3 * n + d, poisson=loss_name == "poisson")
+    loss = LOSSES[loss_name]
+    s2, s1, s0 = fg.fused_hessian_stats(x, coef, y, off, wt, loss, need_shifts)
+    torch.cuda.synchronize()
+    assert s2.dtype == torch.float32 and s2.shape == (d,)
+    r2, r1, r0 = fg.hessian_stats_plain(x, coef, y, off, wt, loss, need_shifts, compute_dtype=torch.float64)
+    _assert_vec(s2, r2, "s2")
+    if need_shifts:
+        _assert_vec(s1, r1, "s1")
+        assert abs(float(s0) - float(r0)) <= 2e-6 * abs(float(r0)) + 1e-30
+    else:
+        assert s1 is None and s0 is None
+    assert fg.LAUNCHES == {"fused_value_grad": 0, "fused_hessian_vector": 0, "fused_hessian_stats": 1}
+
+
+def test_hessian_stats_are_bitwise_stable(cuda):
+    x, coef, _, y, off, wt, _ = _inputs(cuda, 100_003, 512, torch.float32, seed=4)
+    loss = LOSSES["smoothed_hinge"]
+    for need_shifts in (False, True):
+        a = fg.fused_hessian_stats(x, coef, y, off, wt, loss, need_shifts)
+        b = fg.fused_hessian_stats(x, coef, y, off, wt, loss, need_shifts)
+        assert all(p is None and q is None or torch.equal(p, q) for p, q in zip(a, b))
 
 
 def test_kernels_are_deterministic_and_ignore_empty_batches(cuda):
@@ -103,7 +135,9 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(cuda):
     with pytest.raises(RuntimeError, match="fused_glm_plan"):
         wide = torch.zeros((2, 20_000), device=cuda)
         fg.fused_hessian_vector(wide, wide[0], wide[0], y[:2], off[:2], wt[:2], vshift, loss)
-    assert fg.LAUNCHES == {"fused_value_grad": 0, "fused_hessian_vector": 0}
+    with pytest.raises(RuntimeError, match="fused_glm_plan"):
+        fg.fused_hessian_stats(wide, wide[0], y[:2], off[:2], wt[:2], loss, True)
+    assert fg.LAUNCHES == {"fused_value_grad": 0, "fused_hessian_vector": 0, "fused_hessian_stats": 0}
     f64_batch = batch_from_dense(x.double(), y, dtype=torch.float64)
     with pytest.raises(TypeError):
         _fusion_mode(f64_batch)
@@ -139,7 +173,7 @@ def test_solve_on_card_matches_plain_and_cpu(cuda, optimizer):
         assert fg.LAUNCHES["fused_hessian_vector"] > 0
     fg.reset_launch_counts()
     m_p, r_p = problem.run(batch, plain=True)
-    assert fg.LAUNCHES == {"fused_value_grad": 0, "fused_hessian_vector": 0}
+    assert fg.LAUNCHES == {"fused_value_grad": 0, "fused_hessian_vector": 0, "fused_hessian_stats": 0}
     m_c, r_c = problem.run(batch_from_dense(x.cpu(), y.cpu(), device="cpu"))
     for other in (m_p, m_c):
         torch.testing.assert_close(
@@ -162,3 +196,70 @@ def test_bf16_solve_on_card_reaches_the_f32_optimum(cuda, optimizer):
     l16 = float(obj.value(m16.coefficients.means))
     l32 = float(obj.value(m32.coefficients.means))
     assert math.isfinite(l16) and l16 <= l32 * 1.01
+
+
+def _glmix_on(dev, n=20_000, d=64, users=300, d_re=8, seed=9):
+    """A small bench-shaped GLMix problem built on ``dev``."""
+    import numpy as np
+
+    from photon_ml_tpu_torch.game import (
+        FixedEffectCoordinate, FixedEffectDataset, RandomEffectCoordinate,
+        build_random_effect_dataset,
+    )
+    from photon_ml_tpu_torch.io.data import RawDataset
+
+    rng = np.random.default_rng(seed)
+    gx = rng.standard_normal((n, d), dtype=np.float32)
+    gx[:, -1] = 1.0
+    probs = 1.0 / np.arange(1, users + 1) ** 1.1
+    assign = rng.choice(users, size=n, p=probs / probs.sum())
+    ex = rng.standard_normal((n, d_re), dtype=np.float32)
+    ex[:, -1] = 1.0
+    z = gx @ (rng.standard_normal(d) / np.sqrt(d)) + np.einsum(
+        "nd,nd->n", ex, rng.standard_normal((users, d_re))[assign] / np.sqrt(d_re)
+    )
+    y = (rng.uniform(size=n) < 1 / (1 + np.exp(-z))).astype(np.float32)
+    raw = RawDataset(
+        n_rows=n, labels=y.astype(np.float64), offsets=np.zeros(n), weights=np.ones(n),
+        shard_coo={"u": (np.repeat(np.arange(n), d_re), np.tile(np.arange(d_re), n), ex.reshape(-1).astype(np.float64))},
+        shard_dims={"u": d_re}, id_tags={"userId": np.char.add("u", assign.astype(str)).astype(object)},
+    )
+    reg = dict(regularization=RegularizationContext("L2"), reg_weight=1.0)
+    fe_cfg = GLMOptimizationConfig(
+        optimizer=OptimizerConfig(optimizer_type="TRON", tolerance=1e-6, max_iterations=10),
+        variance_type="SIMPLE", **reg,
+    )
+    re_cfg = GLMOptimizationConfig(optimizer=OptimizerConfig(tolerance=1e-6, max_iterations=30), **reg)
+    fe = FixedEffectCoordinate(
+        dataset=FixedEffectDataset("global", "global", batch=batch_from_dense(gx, y, device=dev)),
+        task="logistic_regression", config=fe_cfg,
+    )
+    re_ = RandomEffectCoordinate(
+        dataset=build_random_effect_dataset(raw, "per-user", "u", "userId", active_cap=64, device=dev),
+        task="logistic_regression", config=re_cfg,
+    )
+    return {"global": fe, "per-user": re_}
+
+
+def test_glmix_sweep_on_card_matches_plain(cuda):
+    """One GLMix sweep through B1, B2 and B3 on the card, against the same
+    sweep with the plain versions forced."""
+    import dataclasses
+
+    from photon_ml_tpu_torch.game import CoordinateDescent
+
+    coords = _glmix_on(cuda)
+    r_k = CoordinateDescent(coords, n_iterations=1).run()
+    assert min(fg.LAUNCHES.values()) > 0 and fg.LAUNCHES["fused_hessian_stats"] == 1
+    fg.reset_launch_counts()
+    plain = dict(coords, **{"global": dataclasses.replace(coords["global"], plain=True)})
+    r_p = CoordinateDescent(plain, n_iterations=1).run()
+    assert fg.LAUNCHES == {"fused_value_grad": 0, "fused_hessian_vector": 0, "fused_hessian_stats": 0}
+    fk, fp = r_k.model["global"].coefficients, r_p.model["global"].coefficients
+    torch.testing.assert_close(fk.means, fp.means, rtol=1e-3, atol=1e-5)
+    torch.testing.assert_close(fk.variances, fp.variances, rtol=1e-3, atol=1e-5)
+    # the random effect on identical residuals (chained on two fixed effects
+    # a capped user's weighted loss moves with its residual; ROADMAP C4)
+    re_model, re_res = plain["per-user"].train(coords["global"].score(r_k.model["global"]), None)
+    torch.testing.assert_close(r_k.model["per-user"].coef_values, re_model.coef_values, rtol=0, atol=5e-3)
+    torch.testing.assert_close(r_k.solver_results["per-user"].loss, re_res.loss, rtol=0, atol=1e-4)

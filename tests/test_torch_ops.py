@@ -162,7 +162,9 @@ def test_plain_sweeps_raw_aggregates(rng, xdt):
     _close_vec(th.numpy(), jh, "raw Hv")
     np.testing.assert_allclose(float(tc), float(jc), rtol=2e-5, atol=1e-4)
     # on the CPU the wrappers take the plain versions and launch nothing
-    assert fused_glm.LAUNCHES == {"fused_value_grad": 0, "fused_hessian_vector": 0}
+    assert fused_glm.LAUNCHES == {
+        "fused_value_grad": 0, "fused_hessian_vector": 0, "fused_hessian_stats": 0
+    }
 
 
 def test_plain_float64_reference_agrees(rng):
@@ -266,11 +268,13 @@ def test_variances_and_hessian_matrix_name_next_slice(rng):
     obj = GLMObjective(loss=LOSSES["logistic"], batch=batch_from_dense(x, y, device="cpu"))
     w = torch.zeros(4)
     assert compute_variances(obj, w, "none") is None
-    for vt in ("SIMPLE", "FULL"):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            compute_variances(obj, w, vt)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        obj.hessian_diagonal(w)
+    # SIMPLE landed with kernel B3; FULL (the dense Hessian) names its item
+    simple = compute_variances(obj, w, "SIMPLE")
+    assert simple.shape == (4,) and bool(torch.isfinite(simple).all())
+    with pytest.raises(NotImplementedError, match="A6"):
+        compute_variances(obj, w, "FULL")
+    with pytest.raises(NotImplementedError, match="A6"):
+        obj.hessian_matrix(w)
     with pytest.raises(ValueError):
         compute_variances(obj, w, "BOGUS")
 
@@ -285,14 +289,22 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors(rng):
         fused_glm.fused_value_grad(x, vec, rows, rows, rows, LOSSES["logistic"])
     with pytest.raises(ValueError, match="CUDA"):
         fused_glm.fused_hessian_vector(x, vec, vec, rows, rows, rows, 0.0, LOSSES["logistic"])
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_glm.fused_hessian_stats(x, vec, rows, rows, rows, LOSSES["logistic"], True)
 
 
 def test_sweep_byte_and_flop_counts():
     n, d = 500_000, 1024
-    b1 = fused_glm.sweep_bytes(n, d, torch.float32, hv=False)
-    b2 = fused_glm.sweep_bytes(n, d, torch.float32, hv=True)
+    b1 = fused_glm.sweep_bytes(n, d, torch.float32, fused_glm.VG)
+    b2 = fused_glm.sweep_bytes(n, d, torch.float32, fused_glm.HV)
+    b3 = fused_glm.sweep_bytes(n, d, torch.float32, fused_glm.HD)
+    b3s = fused_glm.sweep_bytes(n, d, torch.float32, fused_glm.HD_SHIFTS)
     assert b1 == n * d * 4 + d * 4 + 12 * n + 4 * (d + 2)
     assert b2 == n * d * 4 + 2 * d * 4 + 12 * n + 4 + 4 * (d + 1)
-    assert fused_glm.sweep_bytes(n, d, torch.bfloat16, hv=False) < b1 * 0.51
-    assert fused_glm.sweep_flops(n, d, hv=False) == 4 * n * d
-    assert fused_glm.sweep_flops(n, d, hv=True) == 6 * n * d
+    assert b3 == n * d * 4 + d * 4 + 12 * n + 4 * d
+    assert b3s == n * d * 4 + d * 4 + 12 * n + 4 * (2 * d + 1)
+    assert fused_glm.sweep_bytes(n, d, torch.bfloat16, fused_glm.VG) < b1 * 0.51
+    assert fused_glm.sweep_flops(n, d, fused_glm.VG) == 4 * n * d
+    assert fused_glm.sweep_flops(n, d, fused_glm.HV) == 6 * n * d
+    assert fused_glm.sweep_flops(n, d, fused_glm.HD) == 5 * n * d
+    assert fused_glm.sweep_flops(n, d, fused_glm.HD_SHIFTS) == 7 * n * d

@@ -26,6 +26,9 @@ import photon_ml_tpu_torch.convert, photon_ml_tpu_torch.device
 import photon_ml_tpu_torch.evaluation.device, photon_ml_tpu_torch.game.problem
 import photon_ml_tpu_torch.ops.cuda_lib, photon_ml_tpu_torch.ops.fused_glm
 import photon_ml_tpu_torch.optimize.driver
+import photon_ml_tpu_torch.game.coordinate, photon_ml_tpu_torch.game.data
+import photon_ml_tpu_torch.game.descent, photon_ml_tpu_torch.models.game
+import photon_ml_tpu_torch.io.data, photon_ml_tpu_torch.evaluation.suite
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")

@@ -219,8 +219,8 @@ def test_unported_paths_raise(rng):
     )
     with pytest.raises(NotImplementedError, match="A2"):
         GLMProblem("logistic_regression", boxed).run(batch)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        GLMProblem("logistic_regression", GLMOptimizationConfig(variance_type="SIMPLE")).run(batch)
+    with pytest.raises(NotImplementedError, match="A6"):
+        GLMProblem("logistic_regression", GLMOptimizationConfig(variance_type="FULL")).run(batch)
     for method in ("run_streamed", "run_lanes"):
         with pytest.raises(NotImplementedError):
             getattr(GLMProblem("logistic_regression", GLMOptimizationConfig()), method)(batch)
