@@ -26,7 +26,8 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    CoordinateDescent sweep of FixedEffectCoordinate (TRON tol 1e-6, 10
    iterations, L2 1.0, SIMPLE variance: kernels B1, B2, B3) and
    RandomEffectCoordinate (packed batched L-BFGS tol 1e-6, 30 iterations,
-   L2 1.0, active cap 256), five timed sweeps after a warm-up one, with
+   L2 1.0, active cap 256), three timed sweeps after a warm-up one (five
+   before the data-parallel phase joined the run's time limit), with
    every launch counter at 0 before them and read after (B3 launches once
    per fixed-effect solve). The same sweep with the
    plain versions forced must agree, and so must a small sweep on the card
@@ -41,7 +42,28 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    the coordinates' shares of the wall, syncs per coordinate and the
    training AUC; then one more sweep under torch.profiler (the device's busy
    share of the sweep, the top device operations);
-6. each kernel timed with CUDA events beside its bound (bytes over 3.35 TB/s,
+6. the data-parallel GLMix sweep (kernel B4: B1-B3 on each rank's rows and a
+   rank-order float64 sum over torch.distributed), in processes started by
+   photon_ml_tpu_torch.parallel.spawn, the kernels built here first:
+   (a) B4 on 4 gloo ranks sharing the card against the float64 plain
+   versions on the whole batch, at n and n-1 rows, f32 and bf16 X, logistic,
+   Hessian statistics with and without shifts, at the bounds of phase 3;
+   every rank bitwise alike; each function's time per call and the share of
+   it that the collective takes;
+   (b) the sweep of phase 5 on 4 gloo ranks (each rank reads its rows of the
+   fixed effect's X from a memory-mapped .npy the parent wrote, builds the
+   random effect and keeps its entity range), one warm-up and three timed
+   sweeps, walls on rank 0 between barriers after a synchronize on every
+   rank, launch counters at 0 before them; held against phase 5's sweep:
+   fixed-effect coefficients and variances rtol 1e-3 / atol 1e-5,
+   random-effect coefficients atol 5e-3 and per-entity loss atol 1e-4 on
+   identical residuals (phase 5's random effect retrained on the 4-rank
+   fixed effect's scores); prints examples/s, shares, each rank's RE wall
+   and padded work, syncs and collectives per coordinate;
+   (c) the same sweep over NCCL with one rank per card: on a one-card
+   machine one rank, whose fixed-effect coefficients and variances must
+   equal phase 5's bitwise;
+7. each kernel timed with CUDA events beside its bound (bytes over 3.35 TB/s,
    or operations over the dtype's peak) and its plain version.
 
 The line before the last is {"kernels": [...]}; the last line is
@@ -67,10 +89,27 @@ REPLACES = {
     "fused_value_grad": "photon_ml_tpu/ops/pallas_glm.py:165",
     "fused_hessian_vector": "photon_ml_tpu/ops/pallas_glm.py:203",
     "fused_hessian_stats": "photon_ml_tpu/ops/pallas_glm.py:238",
+    "sharded_value_grad": "photon_ml_tpu/ops/pallas_glm.py:361",
+    "sharded_hessian_vector": "photon_ml_tpu/ops/pallas_glm.py:390",
+    "sharded_hessian_stats": "photon_ml_tpu/ops/pallas_glm.py:517",
 }
 KERNELS = tuple(REPLACES)
-SWEEPS = 5  # timed GLMix sweeps; launches are counted over all of them
-SOURCE = "photon_ml_tpu_torch/csrc/fused_glm.cu"
+# B4's per-rank compute is B1-B3 (csrc/fused_glm.cu); its wrappers and the
+# rank-order sum live in ops/fused_glm.py
+SOURCES = {
+    name: "photon_ml_tpu_torch/ops/fused_glm.py" if name.startswith("sharded_")
+    else "photon_ml_tpu_torch/csrc/fused_glm.cu"
+    for name in KERNELS
+}
+# B4 name -> the one-rank kernel each rank runs (B1-B3)
+B4_OF = {
+    "sharded_value_grad": "fused_value_grad",
+    "sharded_hessian_vector": "fused_hessian_vector",
+    "sharded_hessian_stats": "fused_hessian_stats",
+}
+SWEEPS = 3  # timed GLMix sweeps; launches are counted over all of them
+DP_RANKS = 4  # gloo ranks sharing the card in phase 6 (a) and (b)
+DP_TIMEOUT_S = 300.0  # each spawn of phase 6, start to join
 
 
 def log(*parts) -> None:
@@ -356,10 +395,13 @@ def build_data(n=500_000, d_fixed=1024, n_users=20_000, d_re=32, seed=0):
     return gx, y, ex, ids
 
 
-def glmix_coordinates(data, dev, plain=False):
+def glmix_coordinates(data, dev, plain=False, group=None):
     """bench.py's product-path datasets and coordinates on ``dev``: the
     fixed effect batches the dense matrix; the random effect runs the real
-    build on a userShard-only RawDataset with active cap 256."""
+    build on a userShard-only RawDataset with active cap 256. With a
+    ``group``, the fixed effect's batch is this rank's rows (read from
+    ``gx``, which may be memory-mapped) and the random effect keeps the
+    rank's entity range."""
     from photon_ml_tpu_torch.game import (
         FixedEffectCoordinate, FixedEffectDataset, GLMOptimizationConfig,
         RandomEffectCoordinate, build_random_effect_dataset,
@@ -368,6 +410,7 @@ def glmix_coordinates(data, dev, plain=False):
     from photon_ml_tpu_torch.ops.features import batch_from_dense
     from photon_ml_tpu_torch.ops.regularization import RegularizationContext
     from photon_ml_tpu_torch.optimize import OptimizerConfig, OptimizerType
+    from photon_ml_tpu_torch.parallel import local_batch, row_range, shard_random_effect_dataset
 
     gx, y, ex, ids = data
     n, d_re = ex.shape
@@ -385,8 +428,18 @@ def glmix_coordinates(data, dev, plain=False):
         variance_type="SIMPLE", **reg,
     )
     cfg_re = GLMOptimizationConfig(optimizer=OptimizerConfig(tolerance=1e-6, max_iterations=30), **reg)
-    fe_ds = FixedEffectDataset("global", "global", batch=batch_from_dense(gx, y, device=dev))
-    re_ds = build_random_effect_dataset(raw, "per-user", "userShard", "userId", active_cap=256, device=dev)
+    if group is None:
+        fe_ds = FixedEffectDataset("global", "global", batch=batch_from_dense(gx, y, device=dev))
+    else:
+        start, stop = row_range(n, group)
+        rows = batch_from_dense(np.array(gx[start:stop]), y[start:stop], device=dev)
+        fe_ds = FixedEffectDataset("global", "global", batch=local_batch(rows, n, group), true_n_rows=n)
+    re_ds = build_random_effect_dataset(
+        raw, "per-user", "userShard", "userId", active_cap=256, device=dev,
+        pad_entities_to_multiple=1 if group is None else group.world_size,
+    )
+    if group is not None:
+        re_ds = shard_random_effect_dataset(re_ds, group)
     return {
         "global": FixedEffectCoordinate(dataset=fe_ds, task="logistic_regression", config=cfg_fe, plain=plain),
         "per-user": RandomEffectCoordinate(dataset=re_ds, task="logistic_regression", config=cfg_re),
@@ -395,16 +448,22 @@ def glmix_coordinates(data, dev, plain=False):
 
 def sweep(torch, coords):
     """One CoordinateDescent sweep; (result, wall seconds) on the host clock
-    around work that ends in a device synchronize."""
+    around work that ends in a device synchronize (over a group: between two
+    barriers, after a synchronize on every rank)."""
     from photon_ml_tpu_torch.game import CoordinateDescent
 
     dev = coords["global"].dataset.batch.device
+    group = coords["global"].group
     if dev.type == "cuda":
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(dev)
+    if group is not None:
+        group.barrier()
     t0 = time.perf_counter()
     result = CoordinateDescent(coords, n_iterations=1).run()
     if dev.type == "cuda":
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(dev)
+    if group is not None:
+        group.barrier()
     return result, time.perf_counter() - t0
 
 
@@ -556,7 +615,405 @@ def glmix_path(torch, n, d, users, d_re, seed):
         "launches": launches, "wall_s": wall, "walls": walls, "examples_per_s": n / wall,
         "fe_share": res.seconds["global"] / wall, "re_share": res.seconds["per-user"] / wall,
         "syncs": res.syncs, "train_auc": a,
+        # for the data-parallel phase: the data, the one-card coordinates and
+        # the median sweep's result
+        "state": {"data": data, "coords": coords, "result": res},
     }
+
+
+# ------------------------------------------------- phase 6: data parallel
+#
+# The rank bodies below run in processes that photon_ml_tpu_torch.parallel.
+# spawn starts: each imports this file as a module, so they must stay at
+# module level, import what they need themselves and return CPU tensors.
+
+
+def _b4_inputs(torch, n, d, xname, seed, dev):
+    """The B4 check's inputs, the same in every process on the card."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed * 7919 + n * 3 + (xname == "bfloat16"))
+    return make_inputs(torch, gen, n, d, "logistic", getattr(torch, xname), dev)
+
+
+def _b4_calls(fg, group, x, coef, v, y, off, wt, vshift, loss):
+    """B4's three functions as the main path calls them (the Hessian
+    statistics without and with shifts): name -> a call."""
+    return {
+        "sharded_value_grad": lambda: fg.sharded_value_grad(group, x, coef, y, off, wt, loss),
+        "sharded_hessian_vector": lambda: fg.sharded_hessian_vector(group, x, coef, v, y, off, wt, vshift, loss),
+        "sharded_hessian_stats": lambda: fg.sharded_hessian_stats(group, x, coef, y, off, wt, loss, False),
+        "sharded_hessian_stats_shifts": lambda: fg.sharded_hessian_stats(group, x, coef, y, off, wt, loss, True),
+    }
+
+
+def _host_ms(torch, group, fn, reps):
+    """Per-call host milliseconds of ``fn`` on every rank at once: every B4
+    call ends in a device synchronize (its collective's), so the host clock
+    holds the whole call; the loop starts after a barrier."""
+    sync = torch.cuda.synchronize if group.device.type == "cuda" else (lambda _: None)
+    for _ in range(3):
+        fn()
+    sync(group.device)
+    group.barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync(group.device)
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _staging_ms(torch, group, width):
+    """The parts of one slot sum, each alone on every rank at once (ms per
+    call): the backend's all-reduce of the [world, width] float64 buffer
+    where it lies (and of one element: the latency alone), a device
+    synchronize, and (gloo) the copies of a width-wide float64 row to the
+    host and back."""
+    import torch.distributed as dist
+
+    host = group.device if group.backend == "nccl" else torch.device("cpu")
+    buf = torch.zeros((group.world_size, width), dtype=torch.float64, device=host)
+    row = torch.zeros(width, dtype=torch.float64, device=group.device)
+    one = torch.zeros(1, dtype=torch.float64, device=host)
+    out = {
+        "all_reduce": _host_ms(torch, group, lambda: dist.all_reduce(buf), 20),
+        "all_reduce_one_element": _host_ms(torch, group, lambda: dist.all_reduce(one), 20),
+    }
+    if group.device.type == "cuda":
+        out["synchronize"] = _host_ms(torch, group, lambda: torch.cuda.synchronize(group.device), 20)
+    if group.backend == "gloo" and group.device.type == "cuda":
+        out["to_host"] = _host_ms(torch, group, lambda: row.to("cpu"), 20)
+        out["to_device"] = _host_ms(torch, group, lambda: buf[0].to(group.device), 20)
+    return out
+
+
+def dp_b4_rank(group, n, d, seed):
+    """Phase 6 (a), on one rank: B4 on the rank's rows of each case, and at
+    n rows the time per call of each B4 function, of its collective alone
+    (a slot sum of the same width) and of the rank's kernel alone."""
+    import torch
+
+    from photon_ml_tpu_torch.ops import fused_glm as fg
+    from photon_ml_tpu_torch.ops.losses import LOSSES
+    from photon_ml_tpu_torch.parallel import row_range
+
+    dev, loss = group.device, LOSSES["logistic"]
+    outs, times = {}, {}
+    for xname in ("float32", "bfloat16"):
+        for nn in (n, n - 1):
+            x, coef, v, y, off, wt, vshift = _b4_inputs(torch, nn, d, xname, seed, dev)
+            start, stop = row_range(nn, group)
+            share = -(-nn // group.world_size)
+            pad = lambda a: torch.cat([a[start:stop], a.new_zeros((share - (stop - start),) + a.shape[1:])])  # noqa: E731
+            xs, ys, offs, wts = pad(x), pad(y), pad(off), pad(wt)
+            del x
+            torch.cuda.empty_cache()
+            calls = _b4_calls(fg, group, xs, coef, v, ys, offs, wts, vshift, loss)
+            outs[(nn, xname)] = {
+                name: tuple(None if o is None else o.cpu() for o in call()) for name, call in calls.items()
+            }
+            if nn == n:
+                kernels = {
+                    "sharded_value_grad": (fg.VG, lambda: fg.fused_value_grad(xs, coef, ys, offs, wts, loss)),
+                    "sharded_hessian_vector": (fg.HV, lambda: fg.fused_hessian_vector(xs, coef, v, ys, offs, wts, vshift, loss)),
+                    "sharded_hessian_stats": (fg.HD, lambda: fg.fused_hessian_stats(xs, coef, ys, offs, wts, loss, False)),
+                    "sharded_hessian_stats_shifts": (fg.HD_SHIFTS, lambda: fg.fused_hessian_stats(xs, coef, ys, offs, wts, loss, True)),
+                }
+                row = {}
+                for name, call in calls.items():
+                    mode, kernel = kernels[name]
+                    flat = torch.zeros(fg._out_width(mode, d), dtype=torch.float64, device=dev)
+                    row[name] = {
+                        "ms": _host_ms(torch, group, call, 20),
+                        "collective_ms": _host_ms(torch, group, lambda: group.slot_sum(flat), 20),
+                        "kernel_ms": _host_ms(torch, group, kernel, 20),
+                    }
+                if xname == "float32":
+                    row["staging"] = _staging_ms(torch, group, fg._out_width(fg.VG, d))
+                times[xname] = row
+            del xs
+            torch.cuda.empty_cache()
+    return {"outs": outs, "times": times, "device": str(dev), "backend": group.backend}
+
+
+def dp_sweep_rank(group, data_dir, sweeps):
+    """Phase 6 (b) and (c), on one rank: the GLMix sweep over sharded
+    datasets built from the parent's files, one untimed sweep and
+    ``sweeps`` timed ones. Returns the rank's walls, per-coordinate seconds,
+    syncs and collectives, launch counts, its random-effect solve (entities,
+    bucket shape, padded and real cells), and from rank 0 the model, the
+    random effect's per-entity loss and the fixed effect's scores."""
+    import torch
+
+    from photon_ml_tpu_torch.evaluation.device import auc
+    from photon_ml_tpu_torch.game.coordinate import _size_buckets
+    from photon_ml_tpu_torch.ops import fused_glm as fg
+    from photon_ml_tpu_torch.parallel import entity_range
+
+    t0 = time.perf_counter()
+    gx = np.load(f"{data_dir}/gx.npy", mmap_mode="r")
+    y, ex = np.load(f"{data_dir}/y.npy"), np.load(f"{data_dir}/ex.npy")
+    ids = np.load(f"{data_dir}/ids.npy").astype(object)
+    n = gx.shape[0]
+    coords = glmix_coordinates((gx, y, ex, ids), group.device, group=group)
+    del gx
+    build_s = time.perf_counter() - t0
+    re_ds = coords["per-user"].dataset
+    E = re_ds.num_entities
+    lo, hi = entity_range(E, group)
+    e_local = hi - lo
+    segs = _size_buckets(re_ds, align=e_local if group.world_size > 1 else 1) or [(0, E, None, None)]
+    mine = [(s, e, kb, sb) for s, e, kb, sb in segs if s < hi and lo < e]
+    _, K, S = re_ds.blocks.features.shape
+    counts, sdims = re_ds.entity_counts[lo:hi], re_ds.entity_subspace_dims[lo:hi]
+    padded = sum((min(e, hi) - max(s, lo)) * (kb or K) * (sb or S) for s, e, kb, sb in mine)
+
+    sweep(torch, coords)  # loads PyTorch's lazily loaded kernels
+    fg.reset_launch_counts()
+    runs = [sweep(torch, coords) for _ in range(sweeps)]
+    launches, sharded = dict(fg.LAUNCHES), dict(fg.SHARDED_LAUNCHES)
+    res = sorted(runs, key=lambda rw: rw[1])[len(runs) // 2][0]
+    out = {
+        "rank": group.rank, "world": group.world_size, "backend": group.backend,
+        "device": str(group.device), "build_s": build_s,
+        "walls": [w for _, w in runs], "seconds": dict(res.seconds), "syncs": dict(res.syncs),
+        "collectives": dict(res.collectives), "collective_s": dict(res.collective_seconds),
+        "launches": launches, "sharded": sharded,
+        "re": {
+            "entities": (lo, hi), "buckets": [(kb, sb) for _, _, kb, sb in mine],
+            "padded_cells": int(padded), "real_cells": int(np.sum(counts * sdims)),
+            "rows": int(np.sum(counts)),
+        },
+        "rejections": dict(res.rejections),
+    }
+    # B4 as the sweep calls it, on this rank's rows (every rank at once)
+    from photon_ml_tpu_torch.ops.losses import LOSSES
+
+    b = coords["global"].dataset.batch
+    x = b.features.dense
+    coef = res.model["global"].coefficients.means.to(x.device)
+    flat = torch.zeros(fg._out_width(fg.VG, x.shape[1]), dtype=torch.float64, device=x.device)
+    loss = LOSSES["logistic"]
+    out["b4_ms"] = {  # after the launch counts were read
+        "ms": _host_ms(torch, group, lambda: fg.sharded_value_grad(group, x, coef, b.labels, b.offsets, b.weights, loss), 20),
+        "collective_ms": _host_ms(torch, group, lambda: group.slot_sum(flat), 20),
+        "kernel_ms": _host_ms(torch, group, lambda: fg.fused_value_grad(x, coef, b.labels, b.offsets, b.weights, loss), 20),
+    }
+    # scoring the fixed effect gathers across the ranks: every rank scores
+    fe_scores = coords["global"].score(res.model["global"])
+    re_scores = coords["per-user"].score(res.model["per-user"])
+    if group.rank == 0:
+        fe = res.model["global"].coefficients
+        ones = torch.ones_like(fe_scores)
+        yt = torch.as_tensor(y, device=fe_scores.device)
+        out.update(
+            fe_means=fe.means.cpu(), fe_variances=fe.variances.cpu(), fe_scores=fe_scores.cpu(),
+            fe_iterations=res.solver_results["global"].iterations,
+            re_values=res.model["per-user"].coef_values.cpu(),
+            re_loss=res.solver_results["per-user"].loss.cpu(),
+            train_auc=float(auc(fe_scores + re_scores, yt, ones)),
+        )
+    return out
+
+
+def _ref_b4(torch, fg, x, coef, v, y, off, wt, vshift, loss):
+    """The float64 plain versions on the whole batch, in B4's output form."""
+    f64 = torch.float64
+    return {
+        "sharded_value_grad": fg.value_grad_plain(x, coef, y, off, wt, loss, compute_dtype=f64),
+        "sharded_hessian_vector": fg.hessian_vector_plain(x, coef, v, y, off, wt, vshift, loss, compute_dtype=f64),
+        "sharded_hessian_stats": fg.hessian_stats_plain(x, coef, y, off, wt, loss, False, compute_dtype=f64),
+        "sharded_hessian_stats_shifts": fg.hessian_stats_plain(x, coef, y, off, wt, loss, True, compute_dtype=f64),
+    }
+
+
+def _b4_errors(torch, got, ref):
+    """(ok, {name: (vector err, bound, scalar rel err)}) at phase 3's bounds:
+    the value and s0 rtol 2e-6; the vectors with their scalar sums max-abs
+    <= 3e-5 * max(|ref|, 1)."""
+    report, ok = {}, True
+    for name, r in ref.items():
+        g = got[name]
+        if name == "sharded_value_grad":
+            vec_g, vec_r = torch.cat([g[1].double(), g[2].double().reshape(1)]), torch.cat([r[1], r[2].reshape(1)])
+            scal = (float(g[0]), float(r[0]))
+        elif name == "sharded_hessian_vector":
+            vec_g, vec_r = torch.cat([g[0].double(), g[1].double().reshape(1)]), torch.cat([r[0], r[1].reshape(1)])
+            scal = None
+        elif name == "sharded_hessian_stats":
+            vec_g, vec_r, scal = g[0].double(), r[0], None
+        else:
+            vec_g, vec_r = torch.cat([g[0].double(), g[1].double()]), torch.cat([r[0], r[1]])
+            scal = (float(g[2]), float(r[2]))
+        vec_r = vec_r.cpu()
+        err = float((vec_g - vec_r).abs().max())
+        bound = 3e-5 * max(float(vec_r.abs().max()), 1.0)
+        rel = abs(scal[0] - scal[1]) / max(abs(scal[1]), 1e-30) if scal else 0.0
+        finite = all(bool(torch.isfinite(o).all()) for o in g if o is not None)
+        good = finite and err <= bound and rel <= 2e-6
+        ok &= good
+        report[name] = (err, bound, rel, good)
+    return ok, report
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+
+    if a is None or b is None:
+        return a is None and b is None
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).contiguous().view(torch.uint8), b.reshape(-1).contiguous().view(torch.uint8)
+    )
+
+
+def dp_path(torch, n, d, seed, state, device="cuda"):
+    """Phase 6: the data-parallel GLMix sweep; (a), (b), (c) as in the
+    module docstring. ``device="cpu"`` rehearses (a) and (b) on the CPU at
+    a small size (the plain versions, no nccl)."""
+    import tempfile
+
+    from photon_ml_tpu_torch.ops import cuda_lib
+    from photon_ml_tpu_torch.ops import fused_glm as fg
+    from photon_ml_tpu_torch.ops.losses import LOSSES
+    from photon_ml_tpu_torch.parallel import spawn
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        cuda_lib.load("fused_glm")  # built here, so that no two ranks run nvcc
+    problems = []
+    report = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        # (a) B4 against the float64 plain versions on the whole batch
+        t0 = time.perf_counter()
+        ranks = spawn(dp_b4_rank, DP_RANKS, "gloo", device, args=(n, d, seed),
+                      timeout_s=DP_TIMEOUT_S, store_dir=tmp)
+        log(f"  (a) B4 on {DP_RANKS} gloo ranks on {ranks[0]['device']} "
+            f"(backend {ranks[0]['backend']}, world {DP_RANKS}): ranks done in {time.perf_counter() - t0:.1f}s")
+        errs = {}
+        for (nn, xname), got in ranks[0]["outs"].items():
+            x, coef, v, y, off, wt, vshift = _b4_inputs(torch, nn, d, xname, seed, dev)
+            ref = _ref_b4(torch, fg, x, coef, v, y, off, wt, vshift, LOSSES["logistic"])
+            del x
+            torch.cuda.empty_cache()
+            ok, rep = _b4_errors(torch, got, ref)
+            same = all(
+                _same_bits(a, b)
+                for r in ranks[1:] for name in got for a, b in zip(r["outs"][(nn, xname)][name], got[name])
+            )
+            for name, (err, bound, rel, good) in rep.items():
+                log(f"  check B4 gloo world={DP_RANKS} n={nn} d={d} {xname:8s} {name:28s} "
+                    f"err={err:.3e}/{bound:.3e} scalar_rel={rel:.2e} {'ok' if good else 'MISS'}")
+            log(f"  B4 gloo world={DP_RANKS} n={nn} {xname}: every rank bitwise alike: {same}")
+            if not (ok and same):
+                problems.append(f"B4 n={nn} {xname}: bounds ok {ok}, ranks alike {same}")
+            if (nn, xname) == (n, "float32"):
+                errs = {name: rep[name][0] for name in B4_OF}
+        times = {}
+        for xname, row in ranks[0]["times"].items():
+            for name, t in row.items():
+                if name == "staging":
+                    continue
+                share = t["collective_ms"] / t["ms"]
+                worst = max(r["times"][xname][name]["ms"] for r in ranks)
+                log(f"  time B4 gloo world={DP_RANKS} {xname:8s} {name:28s} {t['ms']:.4f} ms/call on rank 0 "
+                    f"(slowest rank {worst:.4f}); collective alone {t['collective_ms']:.4f} ms "
+                    f"({share:.1%}); rank's kernel alone, {DP_RANKS} ranks at once {t['kernel_ms']:.4f} ms")
+            times[xname] = row
+        st = ranks[0]["times"]["float32"]["staging"]
+        log(f"  the slot sum's parts alone, ms per call on rank 0 of {DP_RANKS} (gloo): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in st.items()))
+        report["b4"] = {"errors": errs, "times": times}
+        del ranks
+
+        # (b) the 4-rank sweep against phase 5's one-card sweep
+        gx, y, ex, ids = state["data"]
+        t0 = time.perf_counter()
+        np.save(f"{tmp}/gx.npy", gx)
+        np.save(f"{tmp}/y.npy", y)
+        np.save(f"{tmp}/ex.npy", ex)
+        np.save(f"{tmp}/ids.npy", np.asarray(ids, dtype=str))
+        log(f"  wrote the sweep's data for the ranks in {time.perf_counter() - t0:.1f}s")
+        one, coords = state["result"], state["coords"]
+        t0 = time.perf_counter()
+        ranks = spawn(dp_sweep_rank, DP_RANKS, "gloo", device, args=(tmp, SWEEPS),
+                      timeout_s=DP_TIMEOUT_S, store_dir=tmp)
+        log(f"  (b) sweep on {DP_RANKS} gloo ranks: ranks done in {time.perf_counter() - t0:.1f}s "
+            f"(builds {', '.join(f'{r['build_s']:.1f}' for r in ranks)} s)")
+        r0 = ranks[0]
+        walls = sorted(r0["walls"])
+        wall = walls[len(walls) // 2]
+        log(f"  data-parallel sweep (backend gloo, world {DP_RANKS}, one card), median of {SWEEPS}: "
+            f"wall_s={wall:.4f} examples_per_s={n / wall:.1f} (walls {', '.join(f'{w:.4f}' for w in r0['walls'])}) "
+            f"shares FE={r0['seconds']['global'] / wall:.3f} RE={r0['seconds']['per-user'] / wall:.3f} "
+            f"train_auc={r0['train_auc']:.6f}")
+        for r in ranks:
+            log(f"    rank {r['rank']} of {r['world']} ({r['backend']}): RE wall {r['seconds']['per-user']:.4f} s, FE {r['seconds']['global']:.4f} s; "
+                f"entities {r['re']['entities']} buckets (K, S) {r['re']['buckets']} "
+                f"padded cells {r['re']['padded_cells']} real cells {r['re']['real_cells']} rows {r['re']['rows']}; "
+                f"syncs {r['syncs']} collectives {r['collectives']} "
+                f"collective_s {{{', '.join(f'{k}: {v:.4f}' for k, v in r['collective_s'].items())}}}; "
+                f"launches {r['launches']} {r['sharded']}; B4 value+grad on its rows "
+                f"{r['b4_ms']['ms']:.4f} ms/call, collective alone {r['b4_ms']['collective_ms']:.4f}, "
+                f"kernel alone {r['b4_ms']['kernel_ms']:.4f}")
+        if any(r["rejections"] != {"global": 0, "per-user": 0} for r in ranks):
+            problems.append("the divergence guard rejected an update on a rank")
+        for r in ranks:
+            if min(r["sharded"].values()) <= 0 or min(r["launches"].values()) <= 0:
+                problems.append(f"rank {r['rank']}: a kernel of the data-parallel sweep was not launched")
+        if not (0.5 < r0["train_auc"] <= 1.0):
+            problems.append(f"data-parallel training AUC {r0['train_auc']} out of (0.5, 1]")
+        f1 = one.model["global"].coefficients
+        hold(problems, "4 ranks vs one card: FE coefficients", r0["fe_means"], f1.means, 1e-3, 1e-5)
+        hold(problems, "4 ranks vs one card: FE variances", r0["fe_variances"], f1.variances, 1e-3, 1e-5)
+        E1 = one.model["per-user"].coef_values.shape[0]
+        re1, res1 = coords["per-user"].train(r0["fe_scores"].to(dev), None)
+        hold(problems, "4 ranks vs one card: RE coefficients (identical residuals)",
+             r0["re_values"][:E1], re1.coef_values, 0.0, 5e-3)
+        hold(problems, "4 ranks vs one card: RE loss (identical residuals)",
+             r0["re_loss"][:E1], res1.loss, 0.0, 1e-4)
+        _, coef = allclose(r0["re_values"][:E1], one.model["per-user"].coef_values, 0.0, 5e-3)
+        _, loss = allclose(r0["re_loss"][:E1], one.solver_results["per-user"].loss, 0.0, 1e-4)
+        log(f"  (for the record) RE chained on each sweep's own FE: max abs diff coefficients "
+            f"{coef:.3e}, loss {loss:.3e}")
+        report["sweep"] = {
+            "wall_s": wall, "walls": r0["walls"], "examples_per_s": n / wall,
+            "fe_share": r0["seconds"]["global"] / wall, "re_share": r0["seconds"]["per-user"] / wall,
+            "re_walls": [r["seconds"]["per-user"] for r in ranks],
+            "sharded": [r["sharded"] for r in ranks], "launches": [r["launches"] for r in ranks],
+            "collectives": r0["collectives"], "syncs": r0["syncs"], "b4_ms": r0["b4_ms"],
+        }
+        del ranks
+
+        # (c) NCCL, one rank per card
+        if dev.type != "cuda":
+            if problems:
+                raise AssertionError("; ".join(problems))
+            return report
+        world = torch.cuda.device_count()
+        t0 = time.perf_counter()
+        ranks = spawn(dp_sweep_rank, world, "nccl", "cuda", args=(tmp, 1),
+                      timeout_s=DP_TIMEOUT_S, store_dir=tmp)
+        r0 = ranks[0]
+        log(f"  (c) sweep over nccl (backend nccl, world {world}, one rank per card): wall_s={r0['walls'][0]:.4f} "
+            f"examples_per_s={n / r0['walls'][0]:.1f}, ranks done in {time.perf_counter() - t0:.1f}s; "
+            f"syncs {r0['syncs']} collectives {r0['collectives']} launches {r0['launches']} {r0['sharded']}; "
+            f"B4 value+grad {r0['b4_ms']['ms']:.4f} ms/call, collective alone {r0['b4_ms']['collective_ms']:.4f}, "
+            f"kernel alone {r0['b4_ms']['kernel_ms']:.4f}")
+        if world == 1:
+            for what, a, b in (("coefficients", r0["fe_means"], f1.means.cpu()),
+                               ("variances", r0["fe_variances"], f1.variances.cpu())):
+                same = _same_bits(a, b)
+                log(f"  nccl world 1 vs one card: FE {what} bitwise equal: {same}")
+                if not same:
+                    problems.append(f"nccl world 1: FE {what} differ from the one-card sweep")
+        else:
+            hold(problems, f"nccl world {world} vs one card: FE coefficients", r0["fe_means"], f1.means, 1e-3, 1e-5)
+            hold(problems, f"nccl world {world} vs one card: FE variances", r0["fe_variances"], f1.variances, 1e-3, 1e-5)
+        if min(r0["sharded"].values()) <= 0:
+            problems.append("the nccl sweep did not run through B4")
+        report["nccl"] = {"world": world, "wall_s": r0["walls"][0], "sharded": r0["sharded"], "b4_ms": r0["b4_ms"]}
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return report
 
 
 def time_ms(torch, fn, reps):
@@ -624,6 +1081,44 @@ def timings(torch, n, d, seed):
     return out
 
 
+def b4_entry(name, n, d, dp, times):
+    """B4's line of the kernels JSON. ``launches``: its calls over the
+    4-rank sweeps, summed over the ranks (per rank beside). ``ms``: one call
+    at n x d f32 on rank 0 of 4 gloo ranks sharing the card (the rank's
+    kernel and the rank-order sum), with the collective's part beside.
+    ``plain_ms``: the unsharded plain version on the whole batch (phase 7).
+    ``bound_ms``: the whole padded batch's bytes over 3.35 TB/s (4 ranks
+    share one card, so all of X streams once); with P cards each would move
+    only its shard (``bound_ms_per_card_p4``). No PyTorch call computes it:
+    NCCL and gloo move bytes, they compute none of B4's sums."""
+    import torch
+
+    from photon_ml_tpu_torch.ops import fused_glm as fg
+
+    mode = {"sharded_value_grad": fg.VG, "sharded_hessian_vector": fg.HV, "sharded_hessian_stats": fg.HD}[name]
+    share = -(-n // DP_RANKS)
+    t_bytes = fg.sweep_bytes(share * DP_RANKS, d, torch.float32, mode) / HBM_BYTES_PER_S * 1e3
+    t_ops = fg.sweep_flops(share * DP_RANKS, d, mode) / PEAK_OPS["float32"] * 1e3
+    b4 = (dp or {}).get("b4", {})
+    t32 = b4.get("times", {}).get("float32", {}).get(name, {})
+    sweep = (dp or {}).get("sweep") or {}
+    per_rank = [r[name] for r in sweep.get("sharded", [])]
+    plain = (times or {}).get("float32", {}).get(B4_OF[name], {})
+    return {
+        "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+        "launches": sum(per_rank), "launches_per_rank": per_rank,
+        "launches_nccl": ((dp or {}).get("nccl") or {}).get("sharded", {}).get(name, 0),
+        "max_abs_err": b4.get("errors", {}).get(name),
+        "ms": t32.get("ms"), "collective_ms": t32.get("collective_ms"),
+        "rank_kernel_ms": t32.get("kernel_ms"),
+        "plain_ms": plain.get("plain_ms"), "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms_per_card_p4": fg.sweep_bytes(share, d, torch.float32, mode) / HBM_BYTES_PER_S * 1e3,
+        "library_ms": None, "dtype": "float32", "world": DP_RANKS, "backend": "gloo",
+        "bf16_ms": b4.get("times", {}).get("bfloat16", {}).get(name, {}).get("ms"),
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=500_000)
@@ -652,6 +1147,15 @@ def main() -> int:
     glmix = phases.run(
         "GLMix sweep (main path)", glmix_path, torch, args.n, args.d, args.users, args.d_re, args.seed
     )
+    state = (glmix or {}).pop("state", None)
+    dp = None
+    if state is None:
+        log("== phase: data-parallel GLMix sweep needs the one-card sweep's results")
+        phases.failed.append("data-parallel GLMix sweep")
+    else:
+        dp = phases.run("data-parallel GLMix sweep", dp_path, torch, args.n, args.d, args.seed, state)
+    del state
+    torch.cuda.empty_cache()
     times = phases.run("timing", timings, torch, args.n, args.d, args.seed)
 
     if glmix:
@@ -659,14 +1163,28 @@ def main() -> int:
             f"of {min(glmix['walls']):.4f}-{max(glmix['walls']):.4f}, "
             f"FE share {glmix['fe_share']:.3f}, RE share {glmix['re_share']:.3f}, "
             f"syncs {glmix['syncs']}, train AUC {glmix['train_auc']:.6f}) on {smi}")
+    if dp:
+        sw = dp["sweep"]
+        log(f"data-parallel GLMix sweep (backend gloo, world {DP_RANKS}, one card): "
+            f"{sw['examples_per_s']:.1f} examples/s (median wall {sw['wall_s']:.4f} s, "
+            f"FE share {sw['fe_share']:.3f}, RE share {sw['re_share']:.3f}, RE walls per rank "
+            f"{', '.join(f'{w:.4f}' for w in sw['re_walls'])} s, syncs {sw['syncs']}, "
+            f"collectives {sw['collectives']}); nccl world {dp['nccl']['world']}: "
+            f"wall {dp['nccl']['wall_s']:.4f} s; on {smi}")
     launches = (glmix or {}).get("launches", {})
     kernels = []
     for name in KERNELS:
+        if name in B4_OF:
+            kernels.append(b4_entry(name, args.n, args.d, dp, times))
+            continue
         t = (times or {}).get("float32", {}).get(name, {})
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": launches.get(name, 0),
             "launches_fixed_effect_path": (fe_launches or {}).get(name, 0),
+            "launches_data_parallel_per_rank": [
+                r[name] for r in ((dp or {}).get("sweep") or {}).get("launches", [])
+            ],
             "max_abs_err": (errs or {}).get(name),
             "ms": t.get("ms"), "plain_ms": t.get("plain_ms"), "bound_ms": t.get("bound_ms"),
             "bound_by": t.get("bound_by"), "library_ms": None, "dtype": "float32",

@@ -14,6 +14,14 @@ Counterpart of the JAX package's ``game/coordinate.py``:
 Scores returned by coordinates never include the base offsets: the
 coordinate-descent loop owns residual composition.
 
+On datasets sharded over a data-parallel group (``parallel.mesh``), every
+rank runs the same calls: the fixed effect solves over its row shard with
+every sweep summed across the ranks and returns the same model on every
+rank, its scores gathered into the whole ``[n]``; the random effect solves
+the rank's entity range and gathers every rank's results, so its model is
+whole on every rank and scores as an unsharded one does. Scores, residuals
+and models are the same, bitwise, on every rank.
+
 Not ported yet, each raising with its ROADMAP item: streamed datasets (A7),
 fixed-effect down-sampling (A4: ``game/sampling.py`` draws with
 ``jax.random``; the port needs an explicit ``torch.Generator``), the
@@ -57,6 +65,12 @@ class Coordinate:
     def n_rows(self) -> int:
         raise NotImplementedError
 
+    @property
+    def group(self):
+        """The data-parallel group the coordinate's dataset is sharded
+        over, or None."""
+        return None
+
     def train(self, residual_scores: Optional[Tensor], initial_model):
         """-> (model, SolverResult). residual_scores f[n] are the OTHER
         coordinates' summed scores, added to base offsets for this solve."""
@@ -89,6 +103,10 @@ class FixedEffectCoordinate(Coordinate):
     def n_rows(self) -> int:
         return self.dataset.n_rows
 
+    @property
+    def group(self):
+        return self.dataset.batch.group
+
     def train(
         self,
         residual_scores: Optional[Tensor],
@@ -101,9 +119,10 @@ class FixedEffectCoordinate(Coordinate):
             )
         batch = self.dataset.batch
         if residual_scores is not None:
-            batch = dataclasses.replace(
-                batch, offsets=batch.offsets + residual_scores.to(batch.offsets.dtype)
-            )
+            residual = residual_scores.to(batch.offsets.dtype)
+            if batch.group is not None:
+                residual = _local_rows(residual, batch.n_rows, batch.group)
+            batch = dataclasses.replace(batch, offsets=batch.offsets + residual)
         problem = GLMProblem(
             task=self.task,
             config=self.config,
@@ -118,9 +137,25 @@ class FixedEffectCoordinate(Coordinate):
     def score(self, model: FixedEffectModel) -> Tensor:
         # compute in the dataset's dtype: a warm-start model in another dtype
         # must not change the dtype of the score stream
-        dtype = self.dataset.batch.labels.dtype
-        means = model.model.coefficients.means.to(device=self.dataset.batch.device, dtype=dtype)
-        return self.dataset.batch.features.matvec(means)
+        batch = self.dataset.batch
+        dtype = batch.labels.dtype
+        means = model.model.coefficients.means.to(device=batch.device, dtype=dtype)
+        scores = batch.features.matvec(means)
+        if batch.group is not None:
+            # every rank's rows, in rank order, then the padding cut off
+            (scores,) = batch.group.gather_rows([scores])
+            scores = scores[: self.dataset.n_rows]
+        return scores
+
+
+def _local_rows(v: Tensor, share: int, group) -> Tensor:
+    """This rank's rows of a whole ``[n]`` vector, zero-padded to the
+    shard's ``share`` rows (``parallel.mesh.shard_batch``'s row layout)."""
+    lo = group.rank * share
+    part = v[lo : lo + share]
+    if part.shape[0] < share:
+        part = torch.cat([part, part.new_zeros(share - part.shape[0])])
+    return part
 
 
 @dataclasses.dataclass
@@ -142,6 +177,10 @@ class RandomEffectCoordinate(Coordinate):
     def n_rows(self) -> int:
         return self.dataset.row_entity.shape[0]
 
+    @property
+    def group(self):
+        return self.dataset.group
+
     def train(
         self,
         residual_scores: Optional[Tensor],
@@ -153,8 +192,10 @@ class RandomEffectCoordinate(Coordinate):
                 "ported yet (ROADMAP A8)"
             )
         _re_solver_mode()
-        blocks = self.dataset.blocks
-        E, K, S = blocks.features.shape
+        ds = self.dataset
+        group = ds.group
+        blocks = ds.blocks
+        E, K, S = blocks.features.shape  # E: this rank's entities when sharded
         # solver state stays in the wide dtype: features may be stored bf16
         dtype, dev = blocks.labels.dtype, blocks.labels.device
 
@@ -164,15 +205,24 @@ class RandomEffectCoordinate(Coordinate):
             offsets = blocks.offsets + res_blocks.to(dtype)
         else:
             offsets = blocks.offsets
+        lo = 0 if group is None else group.rank * E
         if initial_model is not None:
-            w0 = _project_model_values(self.dataset, initial_model, initial_model.coef_values, dtype)
+            w0 = _project_model_values(ds, initial_model, initial_model.coef_values, dtype)
+            w0 = w0[lo : lo + E]
         else:
             w0 = torch.zeros((E, S), dtype=dtype, device=dev)
         prior_mean = torch.zeros((E, S), dtype=dtype, device=dev)
         prior_prec = torch.ones((E, S), dtype=dtype, device=dev)
 
         solver_kwargs = self._solver_kwargs()
-        segments = _size_buckets(self.dataset)
+        # over several ranks the segments come from the global counts with
+        # their bounds snapped up to the ranks' entity chunks (the JAX
+        # package's align), so each is a union of whole rank ranges: a rank
+        # solves the one its range lies in
+        sharded = group is not None and group.world_size > 1
+        segments = _size_buckets(ds, align=E if sharded else 1)
+        if segments is not None and sharded:
+            segments = [(0, E, kb, sb) for start, end, kb, sb in segments if start <= lo < end]
         if segments is None:
             results = _train_blocks_packed(
                 blocks.features, blocks.labels, offsets, blocks.weights,
@@ -197,20 +247,22 @@ class RandomEffectCoordinate(Coordinate):
                     )
                 )
             results = _concat_results(parts, S)
-        coef_indices = blocks.proj_cols
+        if group is not None:
+            results = _gather_results(results, group)
+        coef_indices = _layout(ds)
         valid = coef_indices >= 0
         model = RandomEffectModel(
-            random_effect_type=self.dataset.random_effect_type,
-            feature_shard=self.dataset.feature_shard,
+            random_effect_type=ds.random_effect_type,
+            feature_shard=ds.feature_shard,
             task=self.task,
-            entity_ids=self.dataset.entity_ids,
+            entity_ids=ds.entity_ids,
             coef_indices=coef_indices,
             coef_values=torch.where(valid, results.coefficients, torch.zeros((), dtype=dtype, device=dev)),
         )
         # provenance mark (a weakref, so the model does not pin the dataset):
         # this model's support layout is this dataset's block layout, so
         # score() takes the cached fast path without comparing index arrays
-        object.__setattr__(model, "_support_layout_of", weakref.ref(self.dataset))
+        object.__setattr__(model, "_support_layout_of", weakref.ref(ds))
         return model, results
 
     def _solver_kwargs(self) -> dict:
@@ -237,9 +289,9 @@ class RandomEffectCoordinate(Coordinate):
         if prov is not None and prov() is ds:
             return True
         ci = model.coef_indices
-        if ci is ds.blocks.proj_cols:
+        pc = _layout(ds)
+        if ci is pc:
             return True
-        pc = ds.blocks.proj_cols
         return tuple(ci.shape) == tuple(pc.shape) and bool(torch.equal(ci.to(pc.device), pc))
 
     def score(self, model: RandomEffectModel) -> Tensor:
@@ -275,6 +327,27 @@ class RandomEffectCoordinate(Coordinate):
         return scoring.score_ell_rows(row_entity, ds.ell_idx, ds.ell_val.to(score_dt))
 
 
+def _layout(ds: RandomEffectDataset) -> Tensor:
+    """The dataset's whole support layout ``[E, S]`` on its device: the
+    blocks' own, or for entity-sharded blocks ``host_proj_cols`` (uploaded
+    once and cached on the dataset)."""
+    if ds.group is None:
+        return ds.blocks.proj_cols
+    cached = getattr(ds, "_layout_cache", None)
+    if cached is None:
+        cached = torch.as_tensor(ds.host_proj_cols, dtype=torch.int32, device=ds.device)
+        object.__setattr__(ds, "_layout_cache", cached)
+    return cached
+
+
+def _gather_results(res: SolverResult, group) -> SolverResult:
+    """Every rank's entity-major ``SolverResult`` rows, in rank order, on
+    every rank (one collective); ``syncs`` stays this rank's own count."""
+    fields = ("coefficients", "loss", "gradient", "iterations", "reason", "loss_history", "grad_norm_history")
+    whole = group.gather_rows([getattr(res, f) for f in fields])
+    return SolverResult(**dict(zip(fields, whole)), syncs=res.syncs)
+
+
 def _re_solver_mode() -> str:
     """Random-effect solver selection, as in the JAX package: 'packed'
     (the default, entity-minor lockstep solves); 'vmapped' is ROADMAP A2/A4
@@ -297,13 +370,13 @@ def _project_model_values(
     layout into this dataset's entity/subspace block layout. The same layout
     is reused directly; any other goes through one vectorized sorted-key
     lookup on the host."""
-    blocks = dataset.blocks
-    dev = blocks.labels.device
-    E, S = blocks.proj_cols.shape
+    dev = dataset.blocks.labels.device
+    layout = _layout(dataset)
+    E, S = layout.shape
     prov = getattr(model, "_support_layout_of", None)
     if prov is not None and prov() is dataset:
         return values.to(device=dev, dtype=dtype)
-    pc_host = blocks.proj_cols.cpu().numpy()
+    pc_host = layout.cpu().numpy()
     idx = model.coef_indices.cpu().numpy()
     if (
         idx.shape == (E, S)
@@ -338,23 +411,29 @@ def _pow2_ceil(x: np.ndarray) -> np.ndarray:
     return np.int64(1) << np.frexp(v.astype(np.float64))[1].astype(np.int64)
 
 
-def _size_buckets(dataset: RandomEffectDataset, min_dim: int = 8):
+def _size_buckets(dataset: RandomEffectDataset, min_dim: int = 8, align: int = 1):
     """Contiguous entity segments with power-of-2-rounded (K, S) block shapes.
 
-    Returns [(start, end, K_b, S_b)], or None when per-entity stats are
-    unavailable or bucketing cannot shrink anything. (The JAX package's
-    ``align`` and ``entity_range`` serve mesh-sharded and streamed blocks,
-    ROADMAP A10 / A7.)"""
+    Returns [(start, end, K_b, S_b)] over all the dataset's entities, or
+    None when per-entity stats are unavailable or bucketing cannot shrink
+    anything. ``align`` snaps segment bounds up to multiples of the ranks'
+    entity chunk, so that no segment splits a rank's range (counts are
+    non-increasing, so the merged head of the next run still fits the larger
+    preceding block shape). (The JAX package's ``entity_range`` serves
+    streamed blocks, ROADMAP A7.)"""
     counts = dataset.entity_counts
     svec = dataset.entity_subspace_dims
     if counts is None or svec is None or len(counts) == 0:
         return None
-    E, K, S = dataset.blocks.features.shape
+    E = dataset.num_entities
+    _, K, S = dataset.blocks.features.shape
 
     kb_of = np.minimum(
         np.maximum(_pow2_ceil(np.asarray(counts[:E], dtype=np.int64)), min_dim), K
     )
     bounds = np.flatnonzero(np.diff(kb_of)) + 1  # starts of new equal-K runs
+    if align > 1:
+        bounds = np.unique(-(-bounds // align) * align)
     bounds = bounds[(bounds > 0) & (bounds < E)]
     starts = np.concatenate([[0], bounds])
     ends = np.concatenate([bounds, [E]])

@@ -17,8 +17,12 @@ vectorized subspace projection and the optional Pearson feature selection.
 Its numpy arrays are the JAX build's, bit for bit; only the last step
 differs, which places them on the dataset's device as torch tensors.
 
-Streamed (out-of-core) datasets are ROADMAP A7 and multi-process entity
-sharding is A10: their fields raise when set.
+A dataset sharded over a data-parallel group (``parallel.mesh``'s
+``shard_fixed_effect_dataset`` / ``shard_random_effect_dataset``) holds one
+rank's rows of the fixed effect's batch, or one rank's entity range of the
+random effect's blocks; its entity tables and scoring arrays stay whole.
+Streamed (out-of-core) datasets are ROADMAP A7 and the multi-process build
+(``game/data_mp.py``) is A10: their fields raise when set.
 """
 
 from __future__ import annotations
@@ -36,7 +40,10 @@ from ..ops.features import LabeledBatch
 Tensor = torch.Tensor
 
 _STREAMED_TODO = "streamed (out-of-core) datasets are not ported yet (ROADMAP A7)"
-_MULTI_TODO = "multi-process / mesh-sharded datasets are not ported yet (ROADMAP A10)"
+_MULTI_TODO = (
+    "multi-process-built and streamed mesh-sharded datasets are not ported yet "
+    "(ROADMAP A10); shard a whole dataset with parallel.mesh instead"
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,8 +51,9 @@ class FixedEffectDataset:
     """All samples' features from one shard, resident on the device.
 
     ``true_dim`` / ``true_n_rows`` are the unpadded shard dimension and
-    sample count (the JAX package pads both on a mesh; the port does not,
-    so they default to the batch's)."""
+    sample count; they default to the batch's. A row-sharded batch
+    (``batch.group`` set) holds one rank's padded rows, so ``true_n_rows``
+    is then required: the global row count."""
 
     coordinate_id: str
     feature_shard: str
@@ -64,6 +72,8 @@ class FixedEffectDataset:
             raise NotImplementedError(_MULTI_TODO)
         if self.batch is None:
             raise ValueError("a resident FixedEffectDataset needs its batch")
+        if self.batch.group is not None and self.true_n_rows is None:
+            raise ValueError("a row-sharded batch needs true_n_rows, the global row count")
 
     @property
     def n_rows(self) -> int:
@@ -121,16 +131,20 @@ class RandomEffectDataset:
     hbm_budget_bytes: Optional[int] = None
     entity_shard_range: Optional[Tuple[int, int]] = None
     mesh: Optional[object] = None
+    # entity-sharded over a data-parallel group: ``blocks`` hold this rank's
+    # contiguous entity range, ``host_proj_cols`` the whole support layout
+    group: Optional[object] = None  # parallel.mesh.DataParallelGroup
 
     def __post_init__(self):
         if self.streamed or self.hbm_budget_bytes is not None:
             raise NotImplementedError(_STREAMED_TODO)
-        if (
-            self.host_proj_cols is not None
-            or self.entity_shard_range is not None
-            or self.mesh is not None
-        ):
+        if self.entity_shard_range is not None or self.mesh is not None:
             raise NotImplementedError(_MULTI_TODO)
+        if (self.host_proj_cols is None) != (self.group is None):
+            raise ValueError(
+                "an entity-sharded dataset carries both its group and host_proj_cols "
+                "(parallel.mesh.shard_random_effect_dataset)"
+            )
 
     @property
     def num_entities(self) -> int:

@@ -15,6 +15,11 @@ The result carries each coordinate's raw ``SolverResult`` where the JAX
 package builds optimization trackers (``trackers.py`` is ROADMAP A2).
 Checkpoints, boundary callbacks, resume, pipelining, telemetry and the
 distributed barrier are not ported.
+
+Over coordinates sharded across a data-parallel group, every rank runs this
+loop alike: scores, residuals, models and the guard's fetch are replicated
+(the coordinates gather what they shard), so every rank takes the same
+branch and calls the same collectives in the same order.
 """
 
 from __future__ import annotations
@@ -53,6 +58,10 @@ class CoordinateDescentResult:
     # the guard's fetch waits for the device, so with the guard on this is
     # the device time of the update as well)
     seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # coordinate -> this rank's collective calls of its updates and their
+    # host seconds (DataParallelGroup's counters; 0 for unsharded ones)
+    collectives: Dict[str, int] = dataclasses.field(default_factory=dict)
+    collective_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -114,6 +123,8 @@ class CoordinateDescent:
         syncs = {name: 0 for name in self.order}
         rejections = {name: 0 for name in self.order}
         seconds = {name: 0.0 for name in self.order}
+        collectives = {name: 0 for name in self.order}
+        collective_s = {name: 0.0 for name in self.order}
         for name in self.order:
             if name in initial_models:
                 models[name] = initial_models[name]
@@ -133,6 +144,8 @@ class CoordinateDescent:
                     residual = None
                 else:
                     residual = summed - own if own is not None else summed
+                group = getattr(coordinate, "group", None)
+                c0 = (group.collectives, group.collective_seconds) if group is not None else None
                 t0 = time.perf_counter()
                 model, solver_result = coordinate.train(residual, initial_model=models.get(name))
                 results[name] = solver_result
@@ -143,6 +156,9 @@ class CoordinateDescent:
                     syncs[name] += 1
                     accepted, train_loss = self._guard(name, new_scores, solver_result, train_losses)
                 seconds[name] += time.perf_counter() - t0
+                if c0 is not None:
+                    collectives[name] += group.collectives - c0[0]
+                    collective_s[name] += group.collective_seconds - c0[1]
                 if accepted:
                     models[name] = model
                     # summedScores - oldScores + newScores
@@ -175,6 +191,8 @@ class CoordinateDescent:
             syncs=syncs,
             rejections=rejections,
             seconds=seconds,
+            collectives=collectives,
+            collective_seconds=collective_s,
         )
 
     def _guard(self, name, new_scores, solver_result, train_losses):

@@ -4,6 +4,12 @@ Counterpart of the JAX package's ``game/problem.py``: ``GLMProblem.run``
 trains one GLM over a batch (warm start and prior mapped into the
 normalization's transformed space, the solve there, the coefficients mapped
 back). ``run_streamed`` and ``run_lanes`` are not ported yet.
+
+Over a batch that ``parallel.mesh.shard_batch`` cut to one rank's rows,
+``run`` is the same call on every rank of the batch's group: every sweep is
+summed across the ranks bitwise alike (ops/fused_glm.py's ``sharded_*``),
+every rank starts from rank 0's ``w0``, and the solver's host loop then
+fetches the same scalars and takes the same decisions on every rank.
 """
 
 from __future__ import annotations
@@ -27,15 +33,20 @@ Tensor = torch.Tensor
 _KERNEL_X_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _fusion_mode(batch: LabeledBatch) -> str:
-    """Which sweeps a batch takes: ``"kernel"`` for a dense batch on a CUDA
-    device (the CUDA kernels of ops/fused_glm.py), ``"plain"`` for a batch on
-    the CPU (their plain versions). Anything else raises: nothing on the card
-    falls back to the plain versions."""
+def _fusion_mode(batch: LabeledBatch):
+    """Which sweeps a batch takes, as ``(mode, group)``: mode ``"kernel"`` for
+    a dense batch on a CUDA device (the CUDA kernels of ops/fused_glm.py),
+    ``"plain"`` for a batch on the CPU (their plain versions); ``group`` is
+    the batch's data-parallel group (None for a whole batch), over which
+    every sweep is summed. Anything else raises: nothing on the card falls
+    back to the plain versions."""
     f = batch.features
     dev = f.dense.device
+    group = batch.group
+    if group is not None and group.device != dev:
+        raise ValueError(f"a shard on {dev} for a rank whose device is {group.device}")
     if dev.type == "cpu":
-        return "plain"
+        return "plain", group
     if dev.type != "cuda":
         raise ValueError(f"batches run on a CUDA device or the CPU, got {dev}")
     if f.dense.dtype not in _KERNEL_X_DTYPES:
@@ -45,7 +56,7 @@ def _fusion_mode(batch: LabeledBatch) -> str:
     for name in ("labels", "offsets", "weights"):
         if getattr(batch, name).device != dev:
             raise ValueError(f"batch.{name} is not on the features' device {dev}")
-    return "kernel"
+    return "kernel", group
 
 
 def _pad_dim(v: Tensor, dim: int, fill: float) -> Tensor:
@@ -128,7 +139,8 @@ class GLMProblem:
 
         A dense batch on the card runs the CUDA kernels; a CPU batch their
         plain versions. ``plain=True`` runs the plain versions on the card as
-        well: a reference solve to hold the kernels' solve against.
+        well: a reference solve to hold the kernels' solve against. A
+        row-sharded batch solves on every rank of its group at once.
         """
         vt = self.config.variance_type.upper()
         if vt not in ("NONE", "SIMPLE"):
@@ -145,6 +157,8 @@ class GLMProblem:
             w0 = _pad_dim(w0, batch.dim, 0.0)
         else:
             w0 = torch.zeros(batch.dim, dtype=dtype, device=dev)
+        if batch.group is not None:
+            w0 = batch.group.broadcast(w0)
 
         result = optimize(
             obj.value_and_grad, w0, self.config.solver_config(), hvp=obj.hessian_vector

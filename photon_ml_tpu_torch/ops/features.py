@@ -80,12 +80,16 @@ class FeatureMatrix:
 
 @dataclasses.dataclass(frozen=True)
 class LabeledBatch:
-    """Label / features / offset / weight. Padded rows carry ``weight == 0``."""
+    """Label / features / offset / weight. Padded rows carry ``weight == 0``.
+
+    ``group`` is set on a batch that ``parallel.mesh.shard_batch`` cut to one
+    rank's rows: its sweeps then sum across the group's ranks."""
 
     features: FeatureMatrix
     labels: Tensor
     offsets: Tensor
     weights: Tensor
+    group: Optional[object] = None  # parallel.mesh.DataParallelGroup
 
     @property
     def n_rows(self) -> int:
@@ -155,4 +159,5 @@ def pad_batch(batch: LabeledBatch, target_rows: int) -> LabeledBatch:
         labels=pad1(batch.labels),
         offsets=pad1(batch.offsets),
         weights=pad1(batch.weights),
+        group=batch.group,
     )

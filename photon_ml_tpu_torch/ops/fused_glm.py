@@ -10,6 +10,15 @@ Counterpart of the JAX package's ``ops/pallas_glm.py``:
 - ``fused_hessian_stats``: ``s2 = (X*X)^T c`` and, with ``need_shifts``,
   ``s1 = X^T c`` and ``s0 = sum_i c_i`` (replaces ``_hd_kernel``).
 
+and, over a batch sharded across ``torch.distributed`` ranks (B4, replacing
+``_shard_psum_call`` and the ``sharded_*`` wrappers):
+
+- ``sharded_value_grad``, ``sharded_hessian_vector``, ``sharded_hessian_stats``:
+  each rank runs the kernel above on its row shard (the plain version on the
+  CPU) and the outputs are summed across ranks in rank order in float64
+  (``DataParallelGroup.slot_sum``), so that every rank gets bitwise the same
+  numbers; ``group=None`` is the one-process call.
+
 ``offsets`` already carry the normalization margin shift, so the shift and
 factor algebra stays in ``ops/glm.py``. The kernels live in
 ``csrc/fused_glm.cu``; each wrapper launches its kernel for a CUDA tensor and
@@ -21,8 +30,10 @@ coefficients round to X's dtype, and so does the per-row weight before the
 column product. ``x*x`` is taken in the compute dtype, where the square of a
 bf16 value is exact (the TPU kernel rounds it to bf16 for its bf16 dot).
 
-``LAUNCHES`` counts the kernel launches of each wrapper; nothing else
-touches it but ``reset_launch_counts``.
+``LAUNCHES`` counts the kernel launches of each wrapper, and
+``SHARDED_LAUNCHES`` those of the ``sharded_*`` wrappers over a group (one
+per call whose rank launched its kernel); nothing else touches them but
+``reset_launch_counts``.
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ from .losses import PointwiseLoss
 Tensor = torch.Tensor
 
 LAUNCHES = {"fused_value_grad": 0, "fused_hessian_vector": 0, "fused_hessian_stats": 0}
+SHARDED_LAUNCHES = {"sharded_value_grad": 0, "sharded_hessian_vector": 0, "sharded_hessian_stats": 0}
 
 # sweep modes of csrc/fused_glm.cu (enum Mode)
 VG, HV, HD, HD_SHIFTS = 0, 1, 2, 3
@@ -46,8 +58,9 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, SHARDED_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _round_like_x(v: Tensor, x_dtype: torch.dtype) -> Tensor:
@@ -273,6 +286,91 @@ def fused_hessian_stats(
     if not need_shifts:
         return out, None, None
     return out[:d], out[d : 2 * d], out[2 * d]
+
+
+def _sum_over_ranks(group, name: str, launched: bool, outs: tuple) -> tuple:
+    """B4's reduction: the rank's outputs, flattened in float64 into one
+    row, summed over the ranks in rank order (``group.slot_sum``) and cast
+    back to each output's dtype (f32 from a kernel, the batch's dtype from a
+    plain version). ``None`` outputs stay ``None``. ``launched``: this
+    rank's sweep was a kernel launch, counted in ``SHARDED_LAUNCHES``."""
+    parts = [o for o in outs if o is not None]
+    flat = torch.cat([o.reshape(-1).to(torch.float64) for o in parts])
+    total = group.slot_sum(flat)
+    if launched:
+        SHARDED_LAUNCHES[name] += 1
+    summed, at = [], 0
+    for o in parts:
+        k = o.numel()
+        summed.append(total[at : at + k].reshape(o.shape).to(o.dtype))
+        at += k
+    it = iter(summed)
+    return tuple(None if o is None else next(it) for o in outs)
+
+
+def sharded_value_grad(
+    group,
+    x: Tensor,
+    eff_coef: Tensor,
+    labels: Tensor,
+    offsets: Tensor,
+    weights: Tensor,
+    loss: PointwiseLoss,
+    plain: bool = False,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """``fused_value_grad`` over a row-sharded batch: this rank's rows
+    through the kernel (``plain=True``: through ``value_grad_plain``, the
+    reference run), then the three aggregates summed over ``group``'s
+    ranks. ``group=None`` is the unsharded call."""
+    sweep = value_grad_plain if plain else fused_value_grad
+    outs = sweep(x, eff_coef, labels, offsets, weights, loss)
+    if group is None:
+        return outs
+    launched = not plain and x.device.type == "cuda"
+    return _sum_over_ranks(group, "sharded_value_grad", launched, outs)
+
+
+def sharded_hessian_vector(
+    group,
+    x: Tensor,
+    eff_coef: Tensor,
+    eff_v: Tensor,
+    labels: Tensor,
+    offsets: Tensor,
+    weights: Tensor,
+    vshift,
+    loss: PointwiseLoss,
+    plain: bool = False,
+) -> Tuple[Tensor, Tensor]:
+    """``fused_hessian_vector`` over a row-sharded batch (see
+    ``sharded_value_grad``)."""
+    sweep = hessian_vector_plain if plain else fused_hessian_vector
+    outs = sweep(x, eff_coef, eff_v, labels, offsets, weights, vshift, loss)
+    if group is None:
+        return outs
+    launched = not plain and x.device.type == "cuda"
+    return _sum_over_ranks(group, "sharded_hessian_vector", launched, outs)
+
+
+def sharded_hessian_stats(
+    group,
+    x: Tensor,
+    eff_coef: Tensor,
+    labels: Tensor,
+    offsets: Tensor,
+    weights: Tensor,
+    loss: PointwiseLoss,
+    need_shifts: bool = False,
+    plain: bool = False,
+) -> Tuple[Tensor, Optional[Tensor], Optional[Tensor]]:
+    """``fused_hessian_stats`` over a row-sharded batch (see
+    ``sharded_value_grad``)."""
+    sweep = hessian_stats_plain if plain else fused_hessian_stats
+    outs = sweep(x, eff_coef, labels, offsets, weights, loss, need_shifts)
+    if group is None:
+        return outs
+    launched = not plain and x.device.type == "cuda"
+    return _sum_over_ranks(group, "sharded_hessian_stats", launched, outs)
 
 
 def sweep_bytes(n: int, d: int, x_dtype: torch.dtype, mode: int) -> int:

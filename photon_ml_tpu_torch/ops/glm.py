@@ -10,9 +10,12 @@ with effective_coef = w' .* factor and margin_shift = -effective_coef.shift
 from the NormalizationContext, and the prior-centred L2 of incremental
 training (mean m, precision P; plain L2 when both are absent).
 
-Every X sweep goes through ``ops/fused_glm.py``: on the card the CUDA
-kernels, on the CPU their plain versions. ``plain=True`` sends a CUDA batch
-to the plain versions too, for a reference run beside the kernels.
+Every X sweep goes through ``ops/fused_glm.py``'s ``sharded_*`` functions:
+on the card the CUDA kernels, on the CPU their plain versions, and over a
+batch sharded across ranks (``group``, set from ``batch.group``) each rank's
+sweep of its rows summed across the ranks in rank order. ``plain=True``
+sends a CUDA batch to the plain versions too, for a reference run beside
+the kernels.
 Variances: NONE and SIMPLE (``1 / diag H``); FULL is ROADMAP A6.
 """
 
@@ -24,14 +27,7 @@ from typing import Optional, Tuple
 import torch
 
 from .features import LabeledBatch
-from .fused_glm import (
-    fused_hessian_stats,
-    fused_hessian_vector,
-    fused_value_grad,
-    hessian_stats_plain,
-    hessian_vector_plain,
-    value_grad_plain,
-)
+from .fused_glm import sharded_hessian_stats, sharded_hessian_vector, sharded_value_grad
 from .losses import PointwiseLoss
 from .normalization import NormalizationContext, identity_normalization
 
@@ -53,6 +49,12 @@ class GLMObjective:
     prior_precision: Optional[Tensor] = None
     plain: bool = False
 
+    @property
+    def group(self):
+        """The batch's data-parallel group (``parallel.mesh.DataParallelGroup``):
+        every sweep is summed across its ranks. None for a whole batch."""
+        return self.batch.group
+
     def _norm(self) -> NormalizationContext:
         return self.norm if self.norm is not None else identity_normalization()
 
@@ -72,9 +74,9 @@ class GLMObjective:
         b = self.batch
         norm = self._norm()
         eff, mshift = norm.effective_coefficients(coef)
-        sweep = value_grad_plain if self.plain else fused_value_grad
-        value, grad, wdz_sum = sweep(
-            b.features.dense, eff, b.labels, b.offsets + mshift, b.weights, self.loss
+        value, grad, wdz_sum = sharded_value_grad(
+            self.group, b.features.dense, eff, b.labels, b.offsets + mshift, b.weights,
+            self.loss, plain=self.plain,
         )
         # grad_j = factor_j * (raw_grad_j - shift_j * sum_i w_i dz_i)
         if norm.shifts is not None:
@@ -95,10 +97,9 @@ class GLMObjective:
         norm = self._norm()
         eff, mshift = norm.effective_coefficients(coef)
         eff_v, vshift = norm.effective_coefficients(v)
-        sweep = hessian_vector_plain if self.plain else fused_hessian_vector
-        hv, csum = sweep(
-            b.features.dense, eff, eff_v, b.labels, b.offsets + mshift, b.weights,
-            vshift, self.loss,
+        hv, csum = sharded_hessian_vector(
+            self.group, b.features.dense, eff, eff_v, b.labels, b.offsets + mshift,
+            b.weights, vshift, self.loss, plain=self.plain,
         )
         if norm.shifts is not None:
             hv = hv - norm.shifts * csum
@@ -114,10 +115,9 @@ class GLMObjective:
         norm = self._norm()
         need_shifts = norm.shifts is not None
         eff, mshift = norm.effective_coefficients(coef)
-        stats = hessian_stats_plain if self.plain else fused_hessian_stats
-        s2, s1, s0 = stats(
-            b.features.dense, eff, b.labels, b.offsets + mshift, b.weights, self.loss,
-            need_shifts,
+        s2, s1, s0 = sharded_hessian_stats(
+            self.group, b.features.dense, eff, b.labels, b.offsets + mshift, b.weights,
+            self.loss, need_shifts, plain=self.plain,
         )
         diag = s2
         if need_shifts:

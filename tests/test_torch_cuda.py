@@ -141,7 +141,7 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(cuda):
     f64_batch = batch_from_dense(x.double(), y, dtype=torch.float64)
     with pytest.raises(TypeError):
         _fusion_mode(f64_batch)
-    assert _fusion_mode(batch_from_dense(x, y)) == "kernel"
+    assert _fusion_mode(batch_from_dense(x, y)) == ("kernel", None)
 
 
 def _card_problem(dev, optimizer, n=20_000, d=128):
@@ -263,3 +263,106 @@ def test_glmix_sweep_on_card_matches_plain(cuda):
     re_model, re_res = plain["per-user"].train(coords["global"].score(r_k.model["global"]), None)
     torch.testing.assert_close(r_k.model["per-user"].coef_values, re_model.coef_values, rtol=0, atol=5e-3)
     torch.testing.assert_close(r_k.solver_results["per-user"].loss, re_res.loss, rtol=0, atol=1e-4)
+
+
+def _ranks_for(backend):
+    """World size of a card test over ranks: two gloo ranks sharing the
+    first card, or one NCCL rank per card (NCCL takes no two ranks of one
+    card, so it needs two cards or more)."""
+    if backend == "gloo":
+        return 2
+    if torch.cuda.device_count() < 2:
+        pytest.skip("one NCCL rank per card needs two cards or more")
+    return torch.cuda.device_count()
+
+
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_b4_over_ranks_matches_float64_plain(cuda, tmp_path, backend):
+    """B4: each rank runs B1-B3 on its rows (n ragged on the ranks) and the
+    sums add in rank order; held against the float64 plain versions on the
+    whole batch, and rank against rank bitwise."""
+    import numpy as np
+    import test_torch_parallel_ranks as ranks
+
+    from photon_ml_tpu_torch.ops import cuda_lib
+    from photon_ml_tpu_torch.parallel import spawn
+
+    cuda_lib.load("fused_glm")  # build once here, not in every rank
+    n, d, seed = 20_003, 256, 5
+    outs = spawn(
+        "test_torch_parallel_ranks:b4_on_card", _ranks_for(backend), backend, "cuda", args=(n, d, seed),
+        timeout_s=300, store_dir=tmp_path,
+    )
+    case = ranks.card_case(cuda, n, d, seed)
+    t = {k: torch.from_numpy(v).to(cuda) for k, v in case.items() if isinstance(v, np.ndarray)}
+    loss, f64 = LOSSES["logistic"], torch.float64
+    rows = (t["y"], t["off"], t["wt"])
+    rv, rg, rw = fg.value_grad_plain(t["x"], t["coef"], *rows, loss, compute_dtype=f64)
+    rh, rc = fg.hessian_vector_plain(t["x"], t["coef"], t["v"], *rows, 0.25, loss, compute_dtype=f64)
+    r2, r1, r0 = fg.hessian_stats_plain(t["x"], t["coef"], *rows, loss, True, compute_dtype=f64)
+    got = {k: tuple(None if o is None else torch.from_numpy(o).to(cuda) for o in v) for k, v in outs[0]["outs"].items()}
+    assert abs(float(got["vg"][0]) - float(rv)) <= 2e-6 * abs(float(rv))
+    _assert_vec(torch.cat([got["vg"][1], got["vg"][2].reshape(1)]), torch.cat([rg, rw.reshape(1)]), "gradient")
+    _assert_vec(torch.cat([got["hv"][0], got["hv"][1].reshape(1)]), torch.cat([rh, rc.reshape(1)]), "Hv")
+    _assert_vec(got["hd"][0], r2, "s2")
+    _assert_vec(torch.cat([got["hds"][0], got["hds"][1]]), torch.cat([r2, r1]), "s2, s1")
+    assert abs(float(got["hds"][2]) - float(r0)) <= 2e-6 * abs(float(r0))
+    for out in outs:
+        assert out["launches"] == {"fused_value_grad": 1, "fused_hessian_vector": 1, "fused_hessian_stats": 2}
+        assert out["sharded"] == {"sharded_value_grad": 1, "sharded_hessian_vector": 1, "sharded_hessian_stats": 2}
+        for k, v in out["outs"].items():
+            for a, b in zip(v, outs[0]["outs"][k]):
+                assert (a is None and b is None) or np.array_equal(a, b), k
+
+
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_glmix_sweep_over_ranks_matches_one_card(cuda, tmp_path, backend):
+    """One f32 GLMix sweep over sharded datasets on the card (two gloo ranks
+    sharing it, or one NCCL rank per card) against the same sweep on one
+    card: fixed effect rtol 1e-3 / atol 1e-5, random effect atol 5e-3 and
+    loss atol 1e-4 on identical residuals (the one-card random effect
+    retrained on the ranks' fixed-effect scores); every rank alike."""
+    import numpy as np
+    import test_torch_parallel_ranks as ranks
+
+    from photon_ml_tpu_torch.ops import cuda_lib
+    from photon_ml_tpu_torch.parallel import spawn
+
+    cuda_lib.load("fused_glm")
+    world = _ranks_for(backend)
+    rng = np.random.default_rng(11)
+    n, d, users, d_re = 20_003, 64, 300, 8
+    gx = rng.standard_normal((n, d)).astype(np.float32)
+    gx[:, -1] = 1.0
+    probs = 1.0 / np.arange(1, users + 1) ** 1.1
+    assign = rng.choice(users, size=n, p=probs / probs.sum())
+    ex = rng.standard_normal((n, d_re)).astype(np.float32)
+    ex[:, -1] = 1.0
+    z = gx @ (rng.standard_normal(d) / np.sqrt(d)) + np.einsum(
+        "nd,nd->n", ex, rng.standard_normal((users, d_re))[assign] / np.sqrt(d_re)
+    )
+    y = (rng.uniform(size=n) < 1 / (1 + np.exp(-z))).astype(np.float64)
+    payload = dict(
+        raw=dict(
+            n_rows=n, labels=y, offsets=np.zeros(n), weights=np.ones(n),
+            shard_coo={"u": (np.repeat(np.arange(n), d_re), np.tile(np.arange(d_re), n), ex.reshape(-1).astype(np.float64))},
+            shard_dims={"u": d_re}, id_tags={"userId": np.char.add("u", assign.astype(str)).astype(object)},
+        ),
+        gx=gx, fe_opt=dict(optimizer_type="TRON", tolerance=1e-6, max_iterations=10),
+        fe_extra=dict(variance_type="SIMPLE"), re_opt=dict(tolerance=1e-6, max_iterations=30),
+        re_shard="u", pad_entities=world, active_cap=64, sweeps=1,
+    )
+    outs = spawn("test_torch_parallel_ranks:descent_on_card", world, backend, "cuda", args=(payload,),
+                 timeout_s=300, store_dir=tmp_path)
+    for out in outs[1:]:
+        for key in ("fe_means", "fe_variances", "re_values", "re_loss", "scores"):
+            assert np.array_equal(out[key], outs[0][key]), key
+    got = outs[0]
+    one = ranks._descent(None, dict(payload, pad_entities=1), torch.float32, sharded=False, device=cuda)
+    torch.testing.assert_close(torch.from_numpy(got["fe_means"]), torch.from_numpy(one["fe_means"]), rtol=1e-3, atol=1e-5)
+    torch.testing.assert_close(torch.from_numpy(got["fe_variances"]), torch.from_numpy(one["fe_variances"]), rtol=1e-3, atol=1e-5)
+    coords = ranks.glmix_coordinates(None, dict(payload, pad_entities=1), torch.float32, sharded=False, device=cuda)
+    re_model, re_res = coords["per-user"].train(torch.from_numpy(got["fe_scores"]).to(cuda), None)
+    E = re_model.coef_values.shape[0]
+    torch.testing.assert_close(torch.from_numpy(got["re_values"][:E]), re_model.coef_values.cpu(), rtol=0, atol=5e-3)
+    torch.testing.assert_close(torch.from_numpy(got["re_loss"][:E]), re_res.loss.cpu(), rtol=0, atol=1e-4)

@@ -1,0 +1,244 @@
+"""Rank bodies for the data-parallel tests of the PyTorch port.
+
+``photon_ml_tpu_torch.parallel.spawn`` starts each rank in a fresh process
+that imports this module by name; it imports neither JAX nor the JAX
+package, so no rank loads them. Every body takes the rank's
+``DataParallelGroup`` and numpy inputs, runs the port's sharded path and
+returns numpy results (the caller compares them with the JAX package and
+across ranks). The module defines no test of its own: pytest collects
+nothing here, and tests/test_torch_parallel.py and tests/test_torch_cuda.py
+spawn its functions.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from photon_ml_tpu_torch import convert
+from photon_ml_tpu_torch.game import (
+    CoordinateDescent,
+    FixedEffectCoordinate,
+    FixedEffectDataset,
+    GLMOptimizationConfig,
+    GLMProblem,
+    RandomEffectCoordinate,
+    build_random_effect_dataset,
+)
+from photon_ml_tpu_torch.io.data import RawDataset
+from photon_ml_tpu_torch.ops import fused_glm as fg
+from photon_ml_tpu_torch.ops.features import batch_from_dense
+from photon_ml_tpu_torch.ops.glm import GLMObjective
+from photon_ml_tpu_torch.ops.losses import LOSSES
+from photon_ml_tpu_torch.ops.regularization import RegularizationContext
+from photon_ml_tpu_torch.optimize import OptimizerConfig
+from photon_ml_tpu_torch.parallel import (
+    shard_batch,
+    shard_fixed_effect_dataset,
+    shard_random_effect_dataset,
+)
+
+
+def _np(t):
+    return None if t is None else t.detach().cpu().numpy()
+
+
+def _t(a, device="cpu"):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def b4_outputs(group, case, device="cpu"):
+    """B4's three functions on this rank's rows of one case (``x, coef, v,
+    y, off, wt, vshift`` and a loss name): the raw sums, as numpy."""
+    loss = LOSSES[case["loss"]]
+    batch = batch_from_dense(
+        case["x"], case["y"], offsets=case["off"], weights=case["wt"], device=device
+    )
+    if group is not None:
+        batch = shard_batch(batch, group)
+    x = batch.features.dense
+    coef, v = _t(case["coef"], device), _t(case["v"], device)
+    vshift = torch.tensor(case["vshift"], device=device)
+    args = (x, coef, batch.labels, batch.offsets, batch.weights)
+    vg = fg.sharded_value_grad(group, *args, loss)
+    hv = fg.sharded_hessian_vector(
+        group, x, coef, v, batch.labels, batch.offsets, batch.weights, vshift, loss
+    )
+    hd = fg.sharded_hessian_stats(group, *args, loss, False)
+    hds = fg.sharded_hessian_stats(group, *args, loss, True)
+    return {k: tuple(_np(o) for o in outs) for k, outs in (("vg", vg), ("hv", hv), ("hd", hd), ("hds", hds))}
+
+
+def gather_inputs(rank):
+    """Per-rank tensors for the exactness check of the row gather: float32,
+    float64 (wide magnitudes, inf, NaN) and integers up to 2**52."""
+    rng = np.random.default_rng(100 + rank)
+    f64 = rng.standard_normal((3, 4)) * 10.0 ** rng.integers(-300, 300, (3, 4))
+    f64[0, 0], f64[1, 1] = np.inf, np.nan
+    return [
+        f64,
+        rng.standard_normal((2, 5)).astype(np.float32),
+        rng.integers(-(2**31), 2**31 - 1, (5,), dtype=np.int64).astype(np.int32),
+        rng.integers(-(2**52), 2**52, (2, 2), dtype=np.int64),
+    ]
+
+
+def _padding_values(group, payload):
+    """The f64 objective value of a whole batch and of its row shards."""
+    x, y = payload["x"], payload["y"]
+    whole = batch_from_dense(x, y, dtype=torch.float64, device="cpu")
+    w = torch.ones(x.shape[1], dtype=torch.float64)
+    shard = shard_batch(whole, group)
+    loss = LOSSES["logistic"]
+    v_whole = float(GLMObjective(loss=loss, batch=whole).value(w))
+    v_shard = float(GLMObjective(loss=loss, batch=shard).value(w))
+    return {"whole": v_whole, "shard": v_shard, "rows": shard.n_rows}
+
+
+def _solve(group, payload):
+    """GLMProblem.run (L-BFGS) on this rank's rows."""
+    batch = batch_from_dense(
+        payload["x"], payload["y"], offsets=payload["off"], weights=payload["wt"], device="cpu"
+    )
+    if group is not None:
+        batch = shard_batch(batch, group)
+    problem = GLMProblem(
+        task="logistic_regression",
+        config=GLMOptimizationConfig(
+            optimizer=OptimizerConfig(tolerance=1e-9, max_iterations=60),
+            regularization=RegularizationContext("L2"),
+            reg_weight=1.0,
+        ),
+    )
+    model, res = problem.run(batch)
+    return {"means": _np(model.coefficients.means), "loss": float(res.loss), "iterations": res.iterations}
+
+
+def glmix_coordinates(group, payload, dtype, sharded=True, device="cpu"):
+    """The two GLMix coordinates of ``payload`` (dense ``gx``, RawDataset
+    fields, optimizer settings) on ``device``, sharded over ``group`` when
+    ``sharded``."""
+    raw = RawDataset(**payload["raw"])
+    reg = dict(regularization=RegularizationContext("L2"), reg_weight=1.0)
+    fe_cfg = GLMOptimizationConfig(optimizer=OptimizerConfig(**payload["fe_opt"]), **reg, **payload.get("fe_extra", {}))
+    re_cfg = GLMOptimizationConfig(optimizer=OptimizerConfig(**payload["re_opt"]), **reg)
+    fe_ds = FixedEffectDataset(
+        "global", "global", batch=batch_from_dense(payload["gx"], raw.labels, dtype=dtype, device=device)
+    )
+    re_ds = build_random_effect_dataset(
+        raw, "per-user", payload["re_shard"], "userId", dtype=dtype, device=device,
+        pad_entities_to_multiple=payload["pad_entities"], active_cap=payload.get("active_cap"),
+    )
+    if sharded:
+        fe_ds = shard_fixed_effect_dataset(fe_ds, group)
+        re_ds = shard_random_effect_dataset(re_ds, group)
+    return {
+        "global": FixedEffectCoordinate(dataset=fe_ds, task="logistic_regression", config=fe_cfg),
+        "per-user": RandomEffectCoordinate(dataset=re_ds, task="logistic_regression", config=re_cfg),
+    }
+
+
+def _descent(group, payload, dtype=torch.float64, sharded=True, device="cpu"):
+    coords = glmix_coordinates(group, payload, dtype, sharded, device)
+    res = CoordinateDescent(coords, n_iterations=payload["sweeps"]).run()
+    fe_scores = coords["global"].score(res.model["global"])
+    scores = fe_scores + coords["per-user"].score(res.model["per-user"])
+    fe = res.model["global"].coefficients
+    # the random effect read back from numpy has lost its provenance mark:
+    # a warm start from it and its scores take the layout-comparing paths
+    re_coord, re_model = coords["per-user"], res.model["per-user"]
+    carried = convert.game_model_from_numpy(convert.game_model_to_numpy(res.model), dtype=dtype, device=device)
+    warm = {
+        "own": _np(re_coord.train(fe_scores, re_model)[0].coef_values),
+        "carried": _np(re_coord.train(fe_scores, carried["per-user"])[0].coef_values),
+        "score_own": _np(re_coord.score(re_model)),
+        "score_carried": _np(re_coord.score(carried["per-user"])),
+    }
+    return {
+        "warm": warm,
+        "fe_scores": _np(fe_scores),
+        "fe_means": _np(fe.means),
+        "fe_variances": _np(fe.variances),
+        "re_values": _np(res.model["per-user"].coef_values),
+        "re_loss": _np(res.solver_results["per-user"].loss),
+        "scores": _np(scores),
+        "model": convert.game_model_to_numpy(res.model),
+        "collectives": dict(res.collectives),
+    }
+
+
+def checks(group, payload):
+    """Every multi-rank check the payload names, on this rank."""
+    out = {}
+    if "b4" in payload:
+        out["b4"] = [b4_outputs(group, case) for case in payload["b4"]]
+    if "gather" in payload:
+        parts = [torch.from_numpy(a) for a in gather_inputs(group.rank)]
+        before = group.collectives
+        out["gather"] = [_np(t) for t in group.gather_rows(parts)]
+        out["gather_collectives"] = group.collectives - before
+    if "pad" in payload:
+        out["pad"] = _padding_values(group, payload["pad"])
+    if "solve" in payload:
+        out["solve"] = _solve(group, payload["solve"])
+    if "cd" in payload:
+        out["cd"] = _descent(group, payload["cd"])
+    return out
+
+
+def world_one(group, payload):
+    """The same calls through a one-rank group and with no group at all:
+    (group run, unsharded run) pairs for the caller to compare bitwise."""
+    case = payload["b4"]
+    fe = dict(payload["cd"], fe_extra={"variance_type": "SIMPLE"})
+    fe["fe_opt"] = dict(fe["fe_opt"], optimizer_type="TRON")
+    return {
+        "b4": (b4_outputs(group, case), b4_outputs(None, case)),
+        "solve": (_solve(group, payload["solve"]), _solve(None, payload["solve"])),
+        "cd": (
+            _descent(group, fe, torch.float32, sharded=True),
+            _descent(group, fe, torch.float32, sharded=False),
+        ),
+    }
+
+
+def descent_on_card(group, payload):
+    """The f32 GLMix descent of ``payload`` on the rank's card, sharded."""
+    return _descent(group, payload, torch.float32, True, group.device)
+
+
+def card_case(dev, n, d, seed):
+    """A logistic B4 case made on the card from ``seed`` (the same numbers
+    in every process on the same card), as numpy."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    draw = {
+        "x": torch.randn((n, d), generator=g, device=dev),
+        "coef": torch.randn(d, generator=g, device=dev) * (0.5 / d**0.5),
+        "v": torch.randn(d, generator=g, device=dev),
+        "y": (torch.rand(n, generator=g, device=dev) > 0.5).float(),
+        "off": torch.randn(n, generator=g, device=dev) * 0.1,
+        "wt": torch.rand(n, generator=g, device=dev) + 0.5,
+    }
+    return dict({k: _np(t) for k, t in draw.items()}, loss="logistic", vshift=0.25)
+
+
+def b4_on_card(group, n, d, seed):
+    """B4 on this rank's rows of ``card_case``, with the launch counts of
+    the rank's calls."""
+    case = card_case(group.device, n, d, seed)
+    fg.reset_launch_counts()
+    out = b4_outputs(group, case, device=group.device)
+    return {"outs": out, "launches": dict(fg.LAUNCHES), "sharded": dict(fg.SHARDED_LAUNCHES)}
+
+
+def fail_on_rank_one(group):
+    if group.rank == 1:
+        raise RuntimeError("rank 1 fails on purpose")
+    group.barrier()  # rank 0 waits here until it is stopped
+
+
+def hang(group, seconds):
+    import time
+
+    time.sleep(seconds)

@@ -29,6 +29,10 @@ import photon_ml_tpu_torch.optimize.driver
 import photon_ml_tpu_torch.game.coordinate, photon_ml_tpu_torch.game.data
 import photon_ml_tpu_torch.game.descent, photon_ml_tpu_torch.models.game
 import photon_ml_tpu_torch.io.data, photon_ml_tpu_torch.evaluation.suite
+import photon_ml_tpu_torch.parallel, photon_ml_tpu_torch.parallel.mesh
+import photon_ml_tpu_torch.parallel.multihost
+sys.path.insert(0, "tests")
+import test_torch_parallel_ranks
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
@@ -49,13 +53,14 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
 
 
 def test_port_sources_name_no_jax_import():
-    """No module of the port and not chip_smoke.py has an import of jax or
-    of the JAX package (photon_ml_tpu_torch shares the prefix, so match the
+    """No module of the port, not chip_smoke.py and not the card tests or
+    the data-parallel rank bodies has an import of jax or of the JAX package (photon_ml_tpu_torch shares the prefix, so match the
     module name exactly)."""
     import ast
 
     files = sorted((ROOT / "photon_ml_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"
+        ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
+        ROOT / "tests" / "test_torch_parallel_ranks.py",
     ]
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -93,7 +98,7 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
 def test_fusion_mode_rule():
     x = np.zeros((4, 3), np.float32)
     y = np.zeros(4, np.float32)
-    assert _fusion_mode(batch_from_dense(x, y, device="cpu")) == "plain"
+    assert _fusion_mode(batch_from_dense(x, y, device="cpu")) == ("plain", None)
     meta = batch_from_dense(x, y, device="cpu")
     meta = type(meta)(
         features=type(meta.features)(dim=3, dense=torch.zeros((4, 3), device="meta")),
