@@ -64,7 +64,19 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    machine one rank, whose fixed-effect coefficients and variances must
    equal phase 5's bitwise;
 7. each kernel timed with CUDA events beside its bound (bytes over 3.35 TB/s,
-   or operations over the dtype's peak) and its plain version.
+   or operations over the dtype's peak) and its plain version; B1 and B2 in
+   turns with the previous design (the staged body and the serial finalize,
+   prev/new/new/prev), each body's main kernel and finalize alone (replayed
+   from a CUDA graph), the launch plan (grid, blocks per SM, rows per tile,
+   stages, shared bytes), and torch.mv(X, coef) as the time to read X once;
+8. diagnostic variants of the ring body (RING_VARIANTS: margins in f32, no
+   margins, no column sums, neither), each computing wrong sums, timed in
+   turns with the ring to show what each part of its work costs.
+
+    python3 chip_smoke.py --only timing    # card, build, then one phase
+
+runs a subset of phases 3-8 (check, fe, glmix, dp, timing, variants) and
+then reports not ok.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -94,6 +106,16 @@ REPLACES = {
     "sharded_hessian_stats": "photon_ml_tpu/ops/pallas_glm.py:517",
 }
 KERNELS = tuple(REPLACES)
+DESIGN = {
+    "fused_value_grad": "ring: a producer warp keeps row tiles in flight by cp.async.bulk on mbarriers "
+                        "(2 stages per consumer warp; 7 consumer warps, 16 KB tiles for f32, 11 and 8 KB "
+                        "for bf16), a consumer warp takes 4 rows at a time with the coefficients in double "
+                        "in registers and its column partials in registers; tree finalize",
+    "fused_hessian_vector": "ring, as fused_value_grad; v in double in registers (f32) or in shared "
+                            "memory (bf16); tree finalize",
+    "fused_hessian_stats": "staged: 16-byte loads into shared tiles, a warp per row, a thread per "
+                           "column; tree finalize",
+}
 # B4's per-rank compute is B1-B3 (csrc/fused_glm.cu); its wrappers and the
 # rank-order sum live in ops/fused_glm.py
 SOURCES = {
@@ -319,7 +341,7 @@ def fe_path(torch, n, d, seed):
     launches = dict(fg.LAUNCHES)
     loss = float(res.loss)
     log(f"  TRON kernels: iterations={res.iterations} reason={res.reason} loss={loss:.6f} "
-        f"auc={a:.6f} wall_s={wall:.3f} syncs={res.syncs} launches={launches}")
+        f"auc={a:.6f} wall_s={wall:.3f} syncs={res.syncs} launches={launches} by body {dict(fg.ROUTES)}")
     problems = []
     if min(launches["fused_value_grad"], launches["fused_hessian_vector"]) <= 0:
         problems.append(f"a kernel of the fixed-effect path was not launched: {launches}")
@@ -561,7 +583,7 @@ def glmix_path(torch, n, d, users, d_re, seed):
     sweep(torch, coords)
     fg.reset_launch_counts()
     runs = sorted((sweep(torch, coords) for _ in range(SWEEPS)), key=lambda rw: rw[1])
-    launches = dict(fg.LAUNCHES)
+    launches, routes = dict(fg.LAUNCHES), dict(fg.ROUTES)
     res, wall = runs[len(runs) // 2]
     walls = [w for _, w in runs]
     a, _ = training_auc(coords, res)
@@ -569,7 +591,7 @@ def glmix_path(torch, n, d, users, d_re, seed):
     log(f"  GLMix sweep (kernels), median of {SWEEPS}: wall_s={wall:.4f} examples_per_s={n / wall:.1f} "
         f"(walls {', '.join(f'{w:.4f}' for w in walls)}) "
         f"shares FE={res.seconds['global'] / wall:.3f} RE={res.seconds['per-user'] / wall:.3f} "
-        f"syncs={res.syncs} launches={launches} train_auc={a:.6f}")
+        f"syncs={res.syncs} launches={launches} by body {routes} train_auc={a:.6f}")
     log(f"  FE: iterations={fe_r.iterations} reason={fe_r.reason} loss={float(fe_r.loss):.6f}; "
         f"RE: lanes={int(re_r.loss.shape[0])} max_iterations={int(re_r.iterations.max())} "
         f"reasons={torch.bincount(re_r.reason.cpu().long(), minlength=6).tolist()} "
@@ -577,6 +599,8 @@ def glmix_path(torch, n, d, users, d_re, seed):
     problems = []
     if min(launches.values()) <= 0:
         problems.append(f"a kernel of the GLMix sweep was not launched: {launches}")
+    if routes["ring_bulk_copy"] != launches["fused_value_grad"] + launches["fused_hessian_vector"]:
+        problems.append(f"B1/B2 did not all run the ring body's bulk-copy route: {routes}")
     if launches["fused_hessian_stats"] != SWEEPS:
         problems.append(
             f"B3 launched {launches['fused_hessian_stats']} times for {SWEEPS} fixed-effect solves"
@@ -612,7 +636,7 @@ def glmix_path(torch, n, d, users, d_re, seed):
     if problems:
         raise AssertionError("; ".join(problems))
     return {
-        "launches": launches, "wall_s": wall, "walls": walls, "examples_per_s": n / wall,
+        "launches": launches, "routes": routes, "wall_s": wall, "walls": walls, "examples_per_s": n / wall,
         "fe_share": res.seconds["global"] / wall, "re_share": res.seconds["per-user"] / wall,
         "syncs": res.syncs, "train_auc": a,
         # for the data-parallel phase: the data, the one-card coordinates and
@@ -1029,9 +1053,42 @@ def time_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(torch, fn, reps):
+    """Milliseconds per call of ``fn`` replayed from a CUDA graph of ``reps``
+    calls, between CUDA events: a step as short as the finalize (a few us)
+    would otherwise measure the host's launch time (~50 us a call). Three
+    replays after a warm one; the lowest."""
+    fn()
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream), torch.cuda.graph(g, stream=stream):
+        for _ in range(reps):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    g.replay()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    del g
+    return best
+
+
 def timings(torch, n, d, seed):
     """Per-call times at the main path's shape; the X of the main path is 2 GB
-    (f32), far above the 50 MB L2, so every call reads it from device memory."""
+    (f32), far above the 50 MB L2, so every call reads it from device memory.
+    B1 and B2 are timed in turns with the previous design (the staged body
+    and the serial finalize: prev, new, new, prev), each body's main kernel
+    and finalize alone, the ring's plain-load route on the same aligned X,
+    and torch.mv(X, coef), the time to read X once (a yardstick, not a
+    library call: it computes another function)."""
     from photon_ml_tpu_torch.ops import fused_glm as fg
     from photon_ml_tpu_torch.ops.losses import LOSSES
 
@@ -1042,42 +1099,168 @@ def timings(torch, n, d, seed):
     for xname in ("float32", "bfloat16"):
         gen.manual_seed(seed + 7)
         x, coef, v, y, off, wt, vshift = make_inputs(torch, gen, n, d, "logistic", getattr(torch, xname), dev)
-        saved = dict(fg.LAUNCHES)
+        saved, saved_routes = dict(fg.LAUNCHES), dict(fg.ROUTES)
         row = {}
-        for name, kern, plain, mode in (
+        cx = coef.to(x.dtype)
+        read_a = time_ms(torch, lambda: torch.mv(x, cx), 20)
+        for name, kern, plain, mode, operands in (
             ("fused_value_grad",
              lambda: fg.fused_value_grad(x, coef, y, off, wt, loss),
-             lambda: fg.value_grad_plain(x, coef, y, off, wt, loss), fg.VG),
+             lambda: fg.value_grad_plain(x, coef, y, off, wt, loss), fg.VG,
+             (x, coef, None, y, off, wt, None, loss)),
             ("fused_hessian_vector",
              lambda: fg.fused_hessian_vector(x, coef, v, y, off, wt, vshift, loss),
-             lambda: fg.hessian_vector_plain(x, coef, v, y, off, wt, vshift, loss), fg.HV),
+             lambda: fg.hessian_vector_plain(x, coef, v, y, off, wt, vshift, loss), fg.HV,
+             (x, coef, v, y, off, wt, vshift, loss)),
             # as the main path calls it: no normalization, so no shifts
             ("fused_hessian_stats",
              lambda: fg.fused_hessian_stats(x, coef, y, off, wt, loss, False),
-             lambda: fg.hessian_stats_plain(x, coef, y, off, wt, loss, False), fg.HD),
+             lambda: fg.hessian_stats_plain(x, coef, y, off, wt, loss, False), fg.HD,
+             (x, coef, None, y, off, wt, None, loss)),
         ):
+            launch = lambda **kw: fg._launch(mode, *operands, **kw)  # noqa: E731
+            prev = lambda: launch(body=fg.STAGED, finalize=fg.FINALIZE_SERIAL)  # noqa: E731
             plain_a = time_ms(torch, plain, 10)
+            prev_a = time_ms(torch, prev, 20)
             ms_a = time_ms(torch, kern, 20)
             ms_b = time_ms(torch, kern, 20)
+            prev_b = time_ms(torch, prev, 20)
             plain_b = time_ms(torch, plain, 10)
+            main_ms = graph_ms(torch, lambda: launch(steps=fg.STEP_MAIN), 10)
+            fin_ms = graph_ms(torch, lambda: launch(steps=fg.STEP_FINALIZE), 20)
+            prev_main = graph_ms(torch, lambda: launch(body=fg.STAGED, steps=fg.STEP_MAIN), 10)
+            prev_fin = graph_ms(
+                torch, lambda: launch(body=fg.STAGED, finalize=fg.FINALIZE_SERIAL, steps=fg.STEP_FINALIZE), 20
+            )
             nbytes = fg.sweep_bytes(n, d, x.dtype, mode)
             ops = fg.sweep_flops(n, d, mode)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = ops / PEAK_OPS[xname] * 1e3
+            plan = fg.plan_of(x, mode)
+            ms = min(ms_a, ms_b)
             row[name] = {
-                "ms": min(ms_a, ms_b), "ms_runs": [ms_a, ms_b],
+                "ms": ms, "ms_runs": [ms_a, ms_b],
                 "plain_ms": min(plain_a, plain_b), "plain_ms_runs": [plain_a, plain_b],
+                "prev_ms": min(prev_a, prev_b), "prev_ms_runs": [prev_a, prev_b],
+                "main_ms": main_ms, "finalize_ms": fin_ms,
+                "prev_main_ms": prev_main, "prev_finalize_ms": prev_fin,
+                "read_x_ms": read_a,
                 "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bytes": nbytes, "ops": ops,
+                "bytes": nbytes, "ops": ops, "plan": plan,
             }
-            log(f"  time {xname:8s} {name:22s} kernel {ms_a:.4f}/{ms_b:.4f} ms  "
-                f"plain(unfused composition) {plain_a:.4f}/{plain_b:.4f} ms  "
+            log(f"  time {xname:8s} {name:22s} kernel {ms_a:.4f}/{ms_b:.4f} ms "
+                f"(graph-timed: main {main_ms:.4f} + finalize {fin_ms:.4f}; {plan['body']} body, route {plan['route']}, "
+                f"grid {plan['grid']}, {plan['blocks_per_sm']} blocks/SM, {plan['rows_per_tile']} rows/tile, "
+                f"{plan['stages']} stages, {plan['smem_bytes']} B smem)  "
+                f"previous design {prev_a:.4f}/{prev_b:.4f} ms (graph-timed: main {prev_main:.4f} + serial finalize {prev_fin:.4f})  "
+                + f"plain(unfused composition) {plain_a:.4f}/{plain_b:.4f} ms  read X once (torch.mv) {read_a:.4f} ms  "
                 f"bound {max(t_bytes, t_ops):.4f} ms ({row[name]['bound_by']}, {nbytes} B)  "
-                f"achieved {nbytes / (min(ms_a, ms_b) * 1e-3) / 1e12:.3f} TB/s")
+                f"achieved {nbytes / (ms * 1e-3) / 1e12:.3f} TB/s ({max(t_bytes, t_ops) / ms:.1%} of the bound)")
         fg.LAUNCHES.update(saved)  # timing launches are not main-path launches
+        fg.ROUTES.update(saved_routes)
         out[xname] = row
         del x
         torch.cuda.empty_cache()
+    return out
+
+
+# Diagnostic variants of the ring body (csrc/fused_glm.cu): each removes or
+# cheapens one part of the consumer's work, so that its time says what that
+# part costs. They compute wrong sums; nothing but phase 8 loads them.
+_RING_MARGIN = """                const double xd = (double)xv[e];
+                za[q] = fma(cd[i * VEC + e], xd, za[q]);
+                if constexpr (HV) ua[q] = fma(SV ? vs[(i * VEC + e) * 32 + lane] : vd[i * VEC + e], xd, ua[q]);"""
+_RING_COLUMNS = """            float xv[VEC];
+            lane_chunk<T, VEC>(xr, d, lane, i, xv);
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) acc[i * VEC + e] = fmaf(wq, xv[e], acc[i * VEC + e]);"""
+_RING_COEF = """    if constexpr (HV && !SV) lane_vector<T, VEC>(v, d, lane, vd);"""
+RING_VARIANTS = {
+    "ring": [],
+    # margins in f32 FMAs on f32 coefficients: no conversion, no double FMA
+    "f32_margins": [
+        ("double za[B], ua[B];", "float za[B], ua[B];"),
+        (_RING_MARGIN, """                za[q] = fmaf(cf[i * VEC + e], xv[e], za[q]);
+                if constexpr (HV) ua[q] = fmaf(vf[i * VEC + e], xv[e], ua[q]);"""),
+        (_RING_COEF, _RING_COEF + """
+    float cf[kLaneCols], vf[kLaneCols];
+#pragma unroll
+    for (int c = 0; c < kLaneCols; ++c) {
+      cf[c] = (float)cd[c];
+      vf[c] = SV ? (float)vs[c * 32 + lane] : (float)vd[c];
+    }"""),
+    ],
+    # each row's x read from the tile and summed, nothing multiplied
+    "no_margins": [("double za[B], ua[B];", "float za[B], ua[B];"),
+                   (_RING_MARGIN, "                za[q] += xv[e];")],
+    # the second read of each row and its column FMAs left out
+    "no_columns": [(_RING_COLUMNS, "            acc[i * VEC] += wq;")],
+    # the ring, the losses and the bookkeeping alone
+    "no_compute": [("double za[B], ua[B];", "float za[B], ua[B];"),
+                   (_RING_MARGIN, "                za[q] += xv[e];"),
+                   (_RING_COLUMNS, "            acc[i * VEC] += wq;")],
+}
+
+
+def ring_variants(torch, n, d, seed):
+    """Each RING_VARIANTS entry built from csrc/fused_glm.cu and timed (CUDA
+    events, B1 and B2 at n x d, logistic, f32 and bf16) in turns: the
+    variants in order, then in reverse."""
+    import ctypes
+    import subprocess
+
+    from photon_ml_tpu_torch.ops import cuda_lib
+    from photon_ml_tpu_torch.ops import fused_glm as fg
+    from photon_ml_tpu_torch.ops.losses import LOSSES
+
+    base = (cuda_lib.CSRC_DIR / "fused_glm.cu").read_text()
+    out_dir = cuda_lib.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, edits in RING_VARIANTS.items():
+        text = base
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"ring variant {name}: the source no longer holds {old.strip()[:60]!r}")
+            text = text.replace(old, new)
+        (out_dir / f"{name}.cu").write_text(text)
+        cmd = [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-o", str(out_dir / f"{name}.so"), str(out_dir / f"{name}.cu")]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    ref = fg._library()
+    libs = {}
+    for name, proc in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on ring variant {name}:\n{text}")
+        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
+        for fn in ("fused_glm_plan", "fused_glm_launch", "fused_glm_blocks_per_sm"):
+            getattr(lib, fn).argtypes = getattr(ref, fn).argtypes
+            getattr(lib, fn).restype = getattr(ref, fn).restype
+        libs[name] = lib
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    loss = LOSSES["logistic"]
+    library, plans = fg._library, dict(fg._PLANS)
+    out = {}
+    try:
+        for xname in ("float32", "bfloat16"):
+            gen.manual_seed(seed + 7)
+            x, coef, v, y, off, wt, vshift = make_inputs(torch, gen, n, d, "logistic", getattr(torch, xname), dev)
+            for fname, mode, operands in (
+                ("fused_value_grad", fg.VG, (x, coef, None, y, off, wt, None, loss)),
+                ("fused_hessian_vector", fg.HV, (x, coef, v, y, off, wt, vshift, loss)),
+            ):
+                runs = {}
+                for name in list(libs) + list(libs)[::-1]:
+                    fg._library, fg._PLANS = (lambda lib=libs[name]: lib), {}
+                    runs.setdefault(name, []).append(time_ms(torch, lambda: fg._launch(mode, *operands), 20))
+                out[(xname, fname)] = runs
+                log(f"  ring variants {xname:8s} {fname:22s} " + "  ".join(
+                    f"{name} {min(t):.4f} ({'/'.join(f'{u:.4f}' for u in t)})" for name, t in runs.items()) + " ms")
+            del x
+            torch.cuda.empty_cache()
+    finally:
+        fg._library, fg._PLANS = library, plans
     return out
 
 
@@ -1126,7 +1309,12 @@ def main() -> int:
     ap.add_argument("--users", type=int, default=20_000)
     ap.add_argument("--d-re", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", default="",
+                    help="comma-separated subset of check,fe,glmix,dp,timing,variants to run after "
+                         "card and build (for iterating on one phase; the result is then not ok)")
     args = ap.parse_args()
+    only = set(filter(None, args.only.split(",")))
+    want = lambda phase: not only or phase in only  # noqa: E731
 
     import torch
 
@@ -1142,21 +1330,31 @@ def main() -> int:
     phases = Phases()
     smi = phases.run("card", card, torch)
     phases.run("build", build)
-    errs = phases.run("kernels vs float64 plain", check_kernels, torch, args.n, args.d, args.seed)
-    fe_launches = phases.run("fixed-effect path", fe_path, torch, args.n, args.d, args.seed)
-    glmix = phases.run(
-        "GLMix sweep (main path)", glmix_path, torch, args.n, args.d, args.users, args.d_re, args.seed
-    )
+    errs = fe_launches = glmix = dp = times = None
+    if want("check"):
+        errs = phases.run("kernels vs float64 plain", check_kernels, torch, args.n, args.d, args.seed)
+    if want("fe"):
+        fe_launches = phases.run("fixed-effect path", fe_path, torch, args.n, args.d, args.seed)
+    if want("glmix") or want("dp"):
+        glmix = phases.run(
+            "GLMix sweep (main path)", glmix_path, torch, args.n, args.d, args.users, args.d_re, args.seed
+        )
     state = (glmix or {}).pop("state", None)
-    dp = None
-    if state is None:
+    if not want("dp"):
+        pass
+    elif state is None:
         log("== phase: data-parallel GLMix sweep needs the one-card sweep's results")
         phases.failed.append("data-parallel GLMix sweep")
     else:
         dp = phases.run("data-parallel GLMix sweep", dp_path, torch, args.n, args.d, args.seed, state)
     del state
     torch.cuda.empty_cache()
-    times = phases.run("timing", timings, torch, args.n, args.d, args.seed)
+    if want("timing"):
+        times = phases.run("timing", timings, torch, args.n, args.d, args.seed)
+    if want("variants"):
+        phases.run("ring variants", ring_variants, torch, args.n, args.d, args.seed)
+    if only:
+        phases.failed.append(f"only {sorted(only)} ran")
 
     if glmix:
         log(f"GLMix sweep: {args.n / glmix['wall_s']:.1f} examples/s (median wall {glmix['wall_s']:.4f} s "
@@ -1178,6 +1376,7 @@ def main() -> int:
             kernels.append(b4_entry(name, args.n, args.d, dp, times))
             continue
         t = (times or {}).get("float32", {}).get(name, {})
+        t16 = (times or {}).get("bfloat16", {}).get(name, {})
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": launches.get(name, 0),
@@ -1188,7 +1387,13 @@ def main() -> int:
             "max_abs_err": (errs or {}).get(name),
             "ms": t.get("ms"), "plain_ms": t.get("plain_ms"), "bound_ms": t.get("bound_ms"),
             "bound_by": t.get("bound_by"), "library_ms": None, "dtype": "float32",
-            "bf16_ms": (times or {}).get("bfloat16", {}).get(name, {}).get("ms"),
+            "design": DESIGN[name], "route_launches": {
+                k: v for k, v in ((glmix or {}).get("routes") or {}).items() if v
+            } if name != "fused_hessian_stats" else None,
+            "prev_ms": t.get("prev_ms"), "main_ms": t.get("main_ms"),
+            "finalize_ms": t.get("finalize_ms"), "prev_finalize_ms": t.get("prev_finalize_ms"),
+            "read_x_ms": t.get("read_x_ms"), "plan": t.get("plan"),
+            **{f"bf16_{k}": t16.get(k) for k in ("ms", "prev_ms", "finalize_ms", "read_x_ms", "bound_ms")},
         })
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))

@@ -32,14 +32,22 @@ bf16 value is exact (the TPU kernel rounds it to bf16 for its bf16 dot).
 
 ``LAUNCHES`` counts the kernel launches of each wrapper, and
 ``SHARDED_LAUNCHES`` those of the ``sharded_*`` wrappers over a group (one
-per call whose rank launched its kernel); nothing else touches them but
-``reset_launch_counts``.
+per call whose rank launched its kernel); ``ROUTES`` counts the same
+launches by the body that ran them: the ring body with its tiles by bulk
+copy (``ring_bulk_copy``) or by plain loads (``ring_plain_loads``, rows not
+16-byte aligned), or the staged body (``staged``: the Hessian statistics,
+and value+grad and Hv wider than ``RING_MAX_D``). Nothing else touches them
+but ``reset_launch_counts``.
+
+Launch plans are cached per (device, mode, dtype, n, d, alignment, body):
+the plan sets the kernel's shared-memory attribute and queries occupancy,
+which is host time the solvers would otherwise pay on every evaluation.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -50,15 +58,21 @@ Tensor = torch.Tensor
 
 LAUNCHES = {"fused_value_grad": 0, "fused_hessian_vector": 0, "fused_hessian_stats": 0}
 SHARDED_LAUNCHES = {"sharded_value_grad": 0, "sharded_hessian_vector": 0, "sharded_hessian_stats": 0}
+ROUTES = {"ring_bulk_copy": 0, "ring_plain_loads": 0, "staged": 0}
 
-# sweep modes of csrc/fused_glm.cu (enum Mode)
+# sweep modes, bodies, finalizes and launch steps of csrc/fused_glm.cu
+# (enum Mode, enum Body, enum Finalize, kStep*)
 VG, HV, HD, HD_SHIFTS = 0, 1, 2, 3
+STAGED, RING = 0, 1
+FINALIZE_SERIAL, FINALIZE_TREE = 0, 1
+STEP_MAIN, STEP_FINALIZE = 1, 2
+RING_MAX_D = 1024  # kRingMaxD: 32 columns per lane held in registers
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, SHARDED_LAUNCHES):
+    for counts in (LAUNCHES, SHARDED_LAUNCHES, ROUTES):
         for k in counts:
             counts[k] = 0
 
@@ -156,10 +170,13 @@ def _library() -> ctypes.CDLL:
     lib = cuda_lib.load("fused_glm")
     if lib.fused_glm_launch.argtypes is None:
         i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-        lib.fused_glm_plan.argtypes = [i, i, ll, i, ctypes.POINTER(i), ctypes.POINTER(i), ctypes.POINTER(ll)]
+        pi = ctypes.POINTER(i)
+        lib.fused_glm_plan.argtypes = [i, i, ll, i, i, i, pi, pi, pi, ctypes.POINTER(ll)]
         lib.fused_glm_plan.restype = i
+        lib.fused_glm_blocks_per_sm.argtypes = [i, i, i, i, ll, pi]
+        lib.fused_glm_blocks_per_sm.restype = i
         lib.fused_glm_launch.argtypes = [
-            i, i, p, p, p, p, p, p, p, ll, i, i, i, i, ll, i, p, p, p,
+            i, i, i, i, i, p, p, p, p, p, p, p, ll, i, i, i, i, i, ll, i, p, p, p,
         ]
         lib.fused_glm_launch.restype = i
     return lib
@@ -169,9 +186,51 @@ def _out_width(mode: int, d: int) -> int:
     return {VG: d + 2, HV: d + 1, HD: d, HD_SHIFTS: 2 * d + 1}[mode]
 
 
-def _launch(mode: int, x, coef, v, labels, offsets, weights, vshift, loss: PointwiseLoss) -> Tensor:
+def body_for(mode: int, d: int) -> int:
+    """The body a sweep runs: the ring for value+grad and Hv up to
+    ``RING_MAX_D`` columns, the staged body otherwise."""
+    return RING if mode in (VG, HV) and d <= RING_MAX_D else STAGED
+
+
+_PLANS: Dict[tuple, Tuple[int, int, int, int]] = {}
+_PLAN_CACHE_SIZE = 256
+
+
+def _plan(lib, key: tuple) -> Tuple[int, int, int, int]:
+    """``(grid, rows_per_tile, stages, smem)`` of ``key`` = (device index,
+    mode, bf16, n, d, vec16, body), from the cache or from
+    ``fused_glm_plan`` (on the current device)."""
+    hit = _PLANS.get(key)
+    if hit is not None:
+        return hit
+    _, mode, bf16, n, d, vec16, body = key
+    grid, rows, stages, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+    rc = lib.fused_glm_plan(
+        mode, bf16, n, d, body, vec16,
+        ctypes.byref(grid), ctypes.byref(rows), ctypes.byref(stages), ctypes.byref(smem),
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"fused_glm_plan failed for n={n}, d={d}, {'bf16' if bf16 else 'f32'}, body {body}: "
+            f"CUDA error {rc} (cudaErrorInvalidValue=1: one staged row of X plus its [d] "
+            "vectors does not fit in a block's shared memory)"
+        )
+    if len(_PLANS) >= _PLAN_CACHE_SIZE:
+        _PLANS.clear()
+    plan = (grid.value, rows.value, stages.value, smem.value)
+    _PLANS[key] = plan
+    return plan
+
+
+def _launch(
+    mode: int, x, coef, v, labels, offsets, weights, vshift, loss: PointwiseLoss,
+    body: Optional[int] = None, finalize: int = FINALIZE_TREE, steps: int = STEP_MAIN | STEP_FINALIZE,
+) -> Tensor:
     """Check the operands, then run one sweep of ``mode``; returns the
-    flat f32 output (see ``_out_width``)."""
+    flat f32 output (see ``_out_width``). ``body`` (default ``body_for``),
+    ``finalize`` and ``steps`` select the previous design's body, the
+    serial finalize or one step alone, for timing them against each other
+    (``chip_smoke.py``)."""
     if x.dim() != 2:
         raise ValueError(f"X must be 2-D, got shape {tuple(x.shape)}")
     if x.dtype not in _KERNEL_DTYPES:
@@ -190,31 +249,53 @@ def _launch(mode: int, x, coef, v, labels, offsets, weights, vshift, loss: Point
     wt = _vec("weights", weights, n, dev, torch.float32)
     bf16 = int(x.dtype == torch.bfloat16)
     vec16 = int((d * x.element_size()) % 16 == 0 and x.data_ptr() % 16 == 0)
+    body = body_for(mode, d) if body is None else body
 
     lib = _library()
     with torch.cuda.device(dev):
-        grid, rows, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
-        rc = lib.fused_glm_plan(
-            mode, bf16, n, d, ctypes.byref(grid), ctypes.byref(rows), ctypes.byref(smem)
-        )
-        if rc != 0:
-            raise RuntimeError(
-                f"fused_glm_plan failed for n={n}, d={d}, {x.dtype}: CUDA error {rc} "
-                "(cudaErrorInvalidValue=1: one staged row of X plus its [d] vectors "
-                "does not fit in a block's shared memory)"
-            )
+        grid, rows, stages, smem = _plan(lib, (dev.index, mode, bf16, n, d, vec16, body))
         width = _out_width(mode, d)
-        part = torch.empty((grid.value, width), dtype=torch.float32, device=dev)
+        part = torch.empty((grid, width), dtype=torch.float32, device=dev)
         out = torch.empty(width, dtype=torch.float32, device=dev)
         rc = lib.fused_glm_launch(
-            mode, bf16, x.data_ptr(), coef.data_ptr(), v.data_ptr() if hv else None,
-            y.data_ptr(), off.data_ptr(), wt.data_ptr(), vshift.data_ptr() if hv else None,
-            n, d, loss.code, grid.value, rows.value, smem.value, vec16,
+            mode, bf16, body, finalize, steps, x.data_ptr(), coef.data_ptr(),
+            v.data_ptr() if hv else None, y.data_ptr(), off.data_ptr(), wt.data_ptr(),
+            vshift.data_ptr() if hv else None, n, d, loss.code, grid, rows, stages, smem, vec16,
             part.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused_glm_launch failed: CUDA error {rc}")
+    ROUTES[route_name(body, vec16)] += 1
     return out
+
+
+def route_name(body: int, vec16: int) -> str:
+    """The ``ROUTES`` key of a launch."""
+    if body == STAGED:
+        return "staged"
+    return "ring_bulk_copy" if vec16 else "ring_plain_loads"
+
+
+def plan_of(x: Tensor, mode: int, body: Optional[int] = None) -> dict:
+    """The launch plan of a sweep of ``mode`` over the CUDA tensor ``x``,
+    with the blocks per SM that the occupancy calculator allows it: for the
+    record (``chip_smoke.py`` prints it)."""
+    n, d = x.shape
+    bf16 = int(x.dtype == torch.bfloat16)
+    vec16 = int((d * x.element_size()) % 16 == 0 and x.data_ptr() % 16 == 0)
+    body = body_for(mode, d) if body is None else body
+    lib = _library()
+    with torch.cuda.device(x.device):
+        grid, rows, stages, smem = _plan(lib, (x.device.index, mode, bf16, n, d, vec16, body))
+        per_sm = ctypes.c_int()
+        rc = lib.fused_glm_blocks_per_sm(mode, bf16, body, vec16, smem, ctypes.byref(per_sm))
+    if rc != 0:
+        raise RuntimeError(f"fused_glm_blocks_per_sm failed: CUDA error {rc}")
+    return {
+        "body": "ring" if body == RING else "staged", "route": route_name(body, vec16),
+        "grid": grid, "rows_per_tile": rows, "stages": stages, "smem_bytes": smem,
+        "blocks_per_sm": per_sm.value,
+    }
 
 
 def _require_cuda(x: Tensor) -> None:

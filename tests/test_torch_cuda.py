@@ -40,10 +40,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(dev, n, d, xdt, seed, poisson=False):
+def _inputs(dev, n, d, xdt, seed, poisson=False, base=0):
+    """``base``: X starts that many elements into its buffer (1: a base
+    pointer off 16 bytes, so the ring body stages tiles with plain loads)."""
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
-    x = torch.randn((n, d), generator=g, device=dev).to(xdt)
+    x = torch.randn((n * d + base,), generator=g, device=dev).to(xdt)[base:].view(n, d)
     coef = torch.randn(d, generator=g, device=dev) * (0.5 / math.sqrt(d))
     v = torch.randn(d, generator=g, device=dev)
     y = (torch.rand(n, generator=g, device=dev) > 0.5).float() * (2 if poisson else 1)
@@ -59,11 +61,23 @@ def _assert_vec(got, ref, what):
     assert err <= bound, f"{what}: {err:.3e} > {bound:.3e}"
 
 
+# Ring body edges (f32 d=1,024: 8 rows a tile, bf16: 16; 4 stages): fewer
+# rows than a tile, stages x rows and one either side, rows enough for every
+# block to wrap the ring; d at and above RING_MAX_D (the staged body); a base
+# pointer off 16 bytes (base=1: the ring's plain-load route).
+RING_EDGES = [
+    (5, 1024, 0), (31, 1024, 0), (32, 1024, 0), (33, 1024, 0), (63, 1024, 0), (64, 1024, 0),
+    (65, 1024, 0), (9001, 1024, 0), (300, 1025, 0), (300, 1032, 0), (777, 203, 1), (4097, 256, 1),
+]
+
+
 @pytest.mark.parametrize("loss_name", sorted(LOSSES))
 @pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,d", [(4096, 256), (4099, 256), (777, 203), (5, 1), (33, 4096)])
-def test_kernels_match_float64_plain(cuda, loss_name, xdt, n, d):
-    x, coef, v, y, off, wt, vshift = _inputs(cuda, n, d, xdt, seed=n + d, poisson=loss_name == "poisson")
+@pytest.mark.parametrize("n,d,base", [(4096, 256, 0), (4099, 256, 0), (777, 203, 0), (5, 1, 0), (33, 4096, 0)] + RING_EDGES)
+def test_kernels_match_float64_plain(cuda, loss_name, xdt, n, d, base):
+    x, coef, v, y, off, wt, vshift = _inputs(
+        cuda, n, d, xdt, seed=n + d, poisson=loss_name == "poisson", base=base
+    )
     loss = LOSSES[loss_name]
     val, grad, wdz = fg.fused_value_grad(x, coef, y, off, wt, loss)
     hv, csum = fg.fused_hessian_vector(x, coef, v, y, off, wt, vshift, loss)
@@ -76,6 +90,9 @@ def test_kernels_match_float64_plain(cuda, loss_name, xdt, n, d):
     _assert_vec(torch.cat([grad, wdz.reshape(1)]), torch.cat([rg, rw.reshape(1)]), "gradient")
     _assert_vec(torch.cat([hv, csum.reshape(1)]), torch.cat([rh, rc.reshape(1)]), "Hv")
     assert fg.LAUNCHES == {"fused_value_grad": 1, "fused_hessian_vector": 1, "fused_hessian_stats": 0}
+    aligned = (d * x.element_size()) % 16 == 0 and x.data_ptr() % 16 == 0
+    route = "staged" if d > fg.RING_MAX_D else ("ring_bulk_copy" if aligned else "ring_plain_loads")
+    assert fg.ROUTES == dict({"ring_bulk_copy": 0, "ring_plain_loads": 0, "staged": 0}, **{route: 2})
 
 
 @pytest.mark.parametrize("need_shifts", [False, True], ids=["no-shifts", "shifts"])
@@ -107,8 +124,10 @@ def test_hessian_stats_are_bitwise_stable(cuda):
         assert all(p is None and q is None or torch.equal(p, q) for p, q in zip(a, b))
 
 
-def test_kernels_are_deterministic_and_ignore_empty_batches(cuda):
-    x, coef, v, y, off, wt, vshift = _inputs(cuda, 100_003, 512, torch.float32, seed=1)
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [512, 1024])
+def test_kernels_are_deterministic_and_ignore_empty_batches(cuda, xdt, d):
+    x, coef, v, y, off, wt, vshift = _inputs(cuda, 100_003, d, xdt, seed=1)
     loss = LOSSES["logistic"]
     a = fg.fused_value_grad(x, coef, y, off, wt, loss)
     b = fg.fused_value_grad(x, coef, y, off, wt, loss)

@@ -308,3 +308,74 @@ def test_sweep_byte_and_flop_counts():
     assert fused_glm.sweep_flops(n, d, fused_glm.HV) == 6 * n * d
     assert fused_glm.sweep_flops(n, d, fused_glm.HD) == 5 * n * d
     assert fused_glm.sweep_flops(n, d, fused_glm.HD_SHIFTS) == 7 * n * d
+
+
+@pytest.mark.parametrize(
+    "mode,d,body",
+    [
+        (fused_glm.VG, 1, fused_glm.RING), (fused_glm.VG, 1024, fused_glm.RING),
+        (fused_glm.HV, 1024, fused_glm.RING), (fused_glm.VG, 1025, fused_glm.STAGED),
+        (fused_glm.HV, 4096, fused_glm.STAGED), (fused_glm.HD, 64, fused_glm.STAGED),
+        (fused_glm.HD_SHIFTS, 1024, fused_glm.STAGED),
+    ],
+)
+def test_body_choice(mode, d, body):
+    """Value+grad and Hv take the ring body up to RING_MAX_D columns, every
+    other sweep the staged body; each launch counts under its route."""
+    assert fused_glm.body_for(mode, d) == body
+    assert fused_glm.route_name(fused_glm.STAGED, 1) == "staged"
+    assert fused_glm.route_name(fused_glm.RING, 1) == "ring_bulk_copy"
+    assert fused_glm.route_name(fused_glm.RING, 0) == "ring_plain_loads"
+    assert set(fused_glm.ROUTES) == {"ring_bulk_copy", "ring_plain_loads", "staged"}
+
+
+class _PlanLibrary:
+    """Stands in for the CUDA library's fused_glm_plan: records each call
+    and writes a plan made from its arguments."""
+
+    def __init__(self, rc=0):
+        self.calls, self.rc = [], rc
+
+    def fused_glm_plan(self, mode, bf16, n, d, body, vec16, grid, rows, stages, smem):
+        self.calls.append((mode, bf16, n, d, body, vec16))
+        grid._obj.value, rows._obj.value = 100 + len(self.calls), 8
+        stages._obj.value, smem._obj.value = 14 if body else 1, 1000 * d
+        return self.rc
+
+
+def test_launch_plans_are_cached_per_shape_and_device(monkeypatch):
+    """The plan of a (device, mode, dtype, n, d, alignment, body) is asked of
+    the library once; any other key plans anew; a failed plan raises naming
+    the shape and is not cached."""
+    monkeypatch.setattr(fused_glm, "_PLANS", {})
+    lib = _PlanLibrary()
+    key = (0, fused_glm.VG, 0, 500_000, 1024, 1, fused_glm.RING)
+    first = fused_glm._plan(lib, key)
+    assert first == (101, 8, 14, 1_024_000)
+    assert fused_glm._plan(lib, key) == first and len(lib.calls) == 1
+    others = [
+        (1,) + key[1:], (0, fused_glm.HV) + key[2:], key[:2] + (1,) + key[3:],
+        key[:3] + (499_999,) + key[4:], key[:5] + (0, fused_glm.RING), key[:6] + (fused_glm.STAGED,),
+    ]
+    for other in others:
+        fused_glm._plan(lib, other)
+    assert len(lib.calls) == 1 + len(others)
+    assert fused_glm._plan(lib, key) == first and len(lib.calls) == 1 + len(others)
+    bad = _PlanLibrary(rc=1)
+    with pytest.raises(RuntimeError, match="fused_glm_plan failed for n=2, d=20000"):
+        fused_glm._plan(bad, (0, fused_glm.HV, 0, 2, 20_000, 1, fused_glm.STAGED))
+    assert (0, fused_glm.HV, 0, 2, 20_000, 1, fused_glm.STAGED) not in fused_glm._PLANS
+
+
+def test_plan_cache_is_bounded(monkeypatch):
+    monkeypatch.setattr(fused_glm, "_PLANS", {})
+    lib = _PlanLibrary()
+    for n in range(fused_glm._PLAN_CACHE_SIZE + 3):
+        fused_glm._plan(lib, (0, fused_glm.VG, 0, n + 1, 64, 1, fused_glm.RING))
+    assert 0 < len(fused_glm._PLANS) <= fused_glm._PLAN_CACHE_SIZE
+
+
+def test_reset_launch_counts_clears_routes():
+    fused_glm.ROUTES["staged"] += 3
+    fused_glm.reset_launch_counts()
+    assert fused_glm.ROUTES == {"ring_bulk_copy": 0, "ring_plain_loads": 0, "staged": 0}
