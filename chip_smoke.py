@@ -14,7 +14,10 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    ragged row counts, small shapes and the main path's n x d, the Hessian
    statistics with and without the normalization shifts. Bounds are the
    reference suite's: value and s0 rtol 2e-6; gradient, Hv (with their
-   scalar sums), s2 and s1 max-abs error <= 3e-5 * max(|ref|, 1);
+   scalar sums), s2 and s1 max-abs error <= 3e-5 * max(|ref|, 1); then B4's
+   parts: the rank-order sum kernel against its plain version (bitwise, worlds
+   1, 2, 4 and 8 at the main path's output widths) and the finalize's slot
+   form against the f32 output widened (bitwise, B1-B3 at n x d);
 4. the fixed-effect path: bench-shaped logistic data made on the card from
    --seed, batch_from_dense -> GLMProblem(TRON, tol 1e-6, 10 iterations,
    L2 1.0).run -> model.score -> auc, with every launch counter at 0 before
@@ -42,14 +45,18 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    the coordinates' shares of the wall, syncs per coordinate and the
    training AUC; then one more sweep under torch.profiler (the device's busy
    share of the sweep, the top device operations);
-6. the data-parallel GLMix sweep (kernel B4: B1-B3 on each rank's rows and a
-   rank-order float64 sum over torch.distributed), in processes started by
-   photon_ml_tpu_torch.parallel.spawn, the kernels built here first:
+6. the data-parallel GLMix sweep (kernel B4: B1-B3 on each rank's rows, the
+   finalize writing into the rank's row of a float64 slot buffer, one
+   all-gather over torch.distributed and the rank-order sum kernel), in
+   processes started by photon_ml_tpu_torch.parallel.spawn, the kernels
+   built here first:
    (a) B4 on 4 gloo ranks sharing the card against the float64 plain
    versions on the whole batch, at n and n-1 rows, f32 and bf16 X, logistic,
    Hessian statistics with and without shifts, at the bounds of phase 3;
-   every rank bitwise alike; each function's time per call and the share of
-   it that the collective takes;
+   every rank bitwise alike, and bitwise equal to the all-reduce path (the rank's
+   f32 outputs into a zero slot buffer, an all-reduce, a loop); at n rows
+   each function's time per call in turns with the all-reduce path (prev, new, new,
+   prev), its collective alone (both designs) and the rank's kernel alone;
    (b) the sweep of phase 5 on 4 gloo ranks (each rank reads its rows of the
    fixed effect's X from a memory-mapped .npy the parent wrote, builds the
    random effect and keeps its entity range), one warm-up and three timed
@@ -60,11 +67,17 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    identical residuals (phase 5's random effect retrained on the 4-rank
    fixed effect's scores); prints examples/s, shares, each rank's RE wall
    and padded work, syncs and collectives per coordinate;
-   (c) the same sweep over NCCL with one rank per card: on a one-card
+   (c) the same sweep over NCCL with one rank per card, one warm-up and
+   three timed sweeps, the median printed beside phase 5's: on a one-card
    machine one rank, whose fixed-effect coefficients and variances must
-   equal phase 5's bitwise;
+   equal phase 5's bitwise; B4's three functions timed there as in (a), a
+   B4 call of each with CUDA's sync debug mode at "error" and
+   torch.cuda.synchronize counted (no host synchronize allowed), and the
+   device operations of one profiled call;
 7. each kernel timed with CUDA events beside its bound (bytes over 3.35 TB/s,
-   or operations over the dtype's peak) and its plain version; B1 and B2 in
+   or operations over the dtype's peak) and its plain version (the rank-order
+   sum, a few microseconds, replayed from a CUDA graph, beside torch.sum over
+   the ranks); B1 and B2 in
    turns with the previous design (the staged body and the serial finalize,
    prev/new/new/prev), each body's main kernel and finalize alone (replayed
    from a CUDA graph), the launch plan (grid, blocks per SM, rows per tile,
@@ -75,8 +88,9 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
 
     python3 chip_smoke.py --only timing    # card, build, then one phase
 
-runs a subset of phases 3-8 (check, fe, glmix, dp, timing, variants) and
-then reports not ok.
+runs a subset of phases 3-8 (check, fe, glmix, dp, nccl, timing, variants)
+and then reports not ok; "nccl" is phase 6 (c) alone after phase 5 (for a
+machine with several cards: one NCCL rank per card).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -104,6 +118,7 @@ REPLACES = {
     "sharded_value_grad": "photon_ml_tpu/ops/pallas_glm.py:361",
     "sharded_hessian_vector": "photon_ml_tpu/ops/pallas_glm.py:390",
     "sharded_hessian_stats": "photon_ml_tpu/ops/pallas_glm.py:517",
+    "rank_order_sum": "photon_ml_tpu/ops/pallas_glm.py:345",
 }
 KERNELS = tuple(REPLACES)
 DESIGN = {
@@ -115,7 +130,13 @@ DESIGN = {
                             "memory (bf16); tree finalize",
     "fused_hessian_stats": "staged: 16-byte loads into shared tiles, a warp per row, a thread per "
                            "column; tree finalize",
+    "rank_order_sum": "one thread per column adds the [world, width] float64 slot rows in rank order "
+                      "in double and writes f32; no atomics",
 }
+B4_DESIGN = ("the rank's B1-B3 with its tree finalize writing the f32 totals widened to float64 into the "
+             "rank's row of the group's cached [world, width] slot buffer; one in-place all-gather (NCCL: "
+             "on the card in stream order, timed by CUDA events, no host synchronize; gloo: staged through "
+             "a host buffer); the rank_order_sum kernel into the f32 outputs")
 # B4's per-rank compute is B1-B3 (csrc/fused_glm.cu); its wrappers and the
 # rank-order sum live in ops/fused_glm.py
 SOURCES = {
@@ -123,6 +144,7 @@ SOURCES = {
     else "photon_ml_tpu_torch/csrc/fused_glm.cu"
     for name in KERNELS
 }
+SUM_WORLDS = (1, 2, 4, 8)  # worlds of phase 3's rank-order sum check
 # B4 name -> the one-rank kernel each rank runs (B1-B3)
 B4_OF = {
     "sharded_value_grad": "fused_value_grad",
@@ -277,9 +299,59 @@ def check_kernels(torch, n_full, d_full, seed):
                 main_errs["fused_hessian_stats"] = s2_abs
         del inputs
         torch.cuda.empty_cache()
+    main_errs["rank_order_sum"], parts_bad = check_b4_parts(torch, gen, n_full, d_full, seed)
+    bad += parts_bad
     if bad:
         raise AssertionError(f"kernels disagree with the float64 plain version on {bad}")
     return main_errs
+
+
+def check_b4_parts(torch, gen, n, d, seed):
+    """B4's two new parts on the card. The rank-order sum kernel against its
+    plain version, bitwise, on random float64 slots of wide magnitudes
+    (worlds SUM_WORLDS, the main path's output widths); the finalize's slot
+    form against the f32 output widened, bitwise, for B1-B3 at n x d f32.
+    Returns (the sum's max-abs error, the cases that missed)."""
+    from photon_ml_tpu_torch.ops import fused_glm as fg
+    from photon_ml_tpu_torch.ops.losses import LOSSES
+
+    dev = torch.device("cuda")
+    bad, err = [], 0.0
+    saved = dict(fg.SUM_LAUNCHES)
+    for world in SUM_WORLDS:
+        for mode in (fg.VG, fg.HV, fg.HD, fg.HD_SHIFTS):
+            width = fg._out_width(mode, d)
+            gen.manual_seed(seed * 131 + world * 7 + mode)
+            scale = 10.0 ** torch.randint(-8, 9, (world, width), generator=gen, device=dev).double()
+            slots = torch.randn((world, width), generator=gen, device=dev, dtype=torch.float64) * scale
+            got = fg.rank_order_sum(slots, torch.float32)
+            want = fg.rank_order_sum_plain(slots, torch.float32)
+            same = _same_bits(got, want)
+            err = max(err, float((got.double() - want.double()).abs().max()))
+            if not same:
+                bad.append(("rank_order_sum", world, width))
+    fg.SUM_LAUNCHES.update(saved)  # checks are not main-path launches
+    log(f"  check rank_order_sum kernel vs plain, worlds {SUM_WORLDS}, widths "
+        f"{[fg._out_width(m, d) for m in (fg.VG, fg.HV, fg.HD, fg.HD_SHIFTS)]}: bitwise equal "
+        f"{not bad} (max abs diff {err:.3e})")
+    gen.manual_seed(seed + 11)
+    x, coef, v, y, off, wt, vshift = make_inputs(torch, gen, n, d, "logistic", torch.float32, dev)
+    saved = dict(fg.ROUTES)
+    for mode in (fg.VG, fg.HV, fg.HD, fg.HD_SHIFTS):
+        hv = mode == fg.HV
+        operands = (x, coef, v if hv else None, y, off, wt, vshift if hv else None, LOSSES["logistic"])
+        out = fg._launch(mode, *operands)
+        slot = torch.empty(fg._out_width(mode, d), dtype=torch.float64, device=dev)
+        fg._launch(mode, *operands, slot=slot)
+        same = _same_bits(slot, out.double())
+        log(f"  check finalize into the slot, mode {mode}, n={n} d={d} float32: the f32 output "
+            f"widened, bitwise: {same}")
+        if not same:
+            bad.append(("slot finalize", mode))
+    fg.ROUTES.update(saved)
+    del x
+    torch.cuda.empty_cache()
+    return err, bad
 
 
 def bench_data(torch, n, d, seed, dev):
@@ -641,7 +713,7 @@ def glmix_path(torch, n, d, users, d_re, seed):
         "syncs": res.syncs, "train_auc": a,
         # for the data-parallel phase: the data, the one-card coordinates and
         # the median sweep's result
-        "state": {"data": data, "coords": coords, "result": res},
+        "state": {"data": data, "coords": coords, "result": res, "wall_s": wall},
     }
 
 
@@ -670,10 +742,58 @@ def _b4_calls(fg, group, x, coef, v, y, off, wt, vshift, loss):
     }
 
 
+def _b4_kernels(fg, x, coef, v, y, off, wt, vshift, loss):
+    """The rank's unsharded kernel of each of ``_b4_calls``: name -> (mode,
+    a call)."""
+    return {
+        "sharded_value_grad": (fg.VG, lambda: fg.fused_value_grad(x, coef, y, off, wt, loss)),
+        "sharded_hessian_vector": (fg.HV, lambda: fg.fused_hessian_vector(x, coef, v, y, off, wt, vshift, loss)),
+        "sharded_hessian_stats": (fg.HD, lambda: fg.fused_hessian_stats(x, coef, y, off, wt, loss, False)),
+        "sharded_hessian_stats_shifts": (fg.HD_SHIFTS, lambda: fg.fused_hessian_stats(x, coef, y, off, wt, loss, True)),
+    }
+
+
+def _all_reduce_slot_sum(torch, group, flat):
+    """The previous design's collective, kept here to time it in turns with the
+    redesign:
+    a device synchronize, the rank's float64 row in a zero [world, width]
+    buffer (on the host for gloo), one all_reduce(SUM), the rows added in
+    rank order, the sum back on the device, a synchronize."""
+    import torch.distributed as dist
+
+    dev = flat.device
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    host = torch.device("cpu") if group.backend == "gloo" else dev
+    buf = torch.zeros((group.world_size, flat.numel()), dtype=torch.float64, device=host)
+    buf[group.rank] = flat.to(host)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group.process_group)
+    acc = buf[0]
+    for r in range(1, group.world_size):
+        acc = acc + buf[r]
+    acc = acc.to(dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return acc
+
+
+def _all_reduce_b4(torch, group, outs):
+    """The previous design's B4 around the rank's unsharded outputs: widened
+    to float64 and concatenated, ``_all_reduce_slot_sum``, split and cast back."""
+    parts = [o for o in outs if o is not None]
+    total = _all_reduce_slot_sum(torch, group, torch.cat([o.reshape(-1).to(torch.float64) for o in parts]))
+    summed, at = [], 0
+    for o in parts:
+        summed.append(total[at : at + o.numel()].reshape(o.shape).to(o.dtype))
+        at += o.numel()
+    it = iter(summed)
+    return tuple(None if o is None else next(it) for o in outs)
+
+
 def _host_ms(torch, group, fn, reps):
-    """Per-call host milliseconds of ``fn`` on every rank at once: every B4
-    call ends in a device synchronize (its collective's), so the host clock
-    holds the whole call; the loop starts after a barrier."""
+    """Per-call host milliseconds of ``fn`` on every rank at once: the loop
+    starts after a barrier and ends in a device synchronize, so the clock
+    holds every call's device work."""
     sync = torch.cuda.synchronize if group.device.type == "cuda" else (lambda _: None)
     for _ in range(3):
         fn()
@@ -686,34 +806,113 @@ def _host_ms(torch, group, fn, reps):
     return (time.perf_counter() - t0) / reps * 1e3
 
 
+def _b4_times(torch, fg, group, d, calls, kernels, reps=20):
+    """Each B4 function on the rank's shard (``d`` columns), ms per call
+    (``_host_ms``): the call in turns with the all-reduce path (prev, new, new,
+    prev); its collective alone, the all-gather of the cached slot buffer
+    and the previous design's all-reduce path; the rank's kernel alone; and the
+    collective's own time per call as ``collective_seconds`` reads it (CUDA
+    events over NCCL, the host clock between synchronizes over gloo) over
+    ``reps`` calls."""
+    out = {}
+    for name, call in calls.items():
+        mode, kernel = kernels[name]
+        prev = lambda kernel=kernel: _all_reduce_b4(torch, group, kernel())  # noqa: E731
+        runs = [_host_ms(torch, group, f, reps) for f in (prev, call, call, prev)]
+        width = fg._out_width(mode, d)
+        slots = group.slot_buffer(width, group.device)
+        flat = torch.zeros(width, dtype=torch.float64, device=group.device)
+        c0 = (group.collectives, group.collective_seconds)
+        for _ in range(reps):
+            call()
+        c1 = (group.collectives, group.collective_seconds)
+        out[name] = {
+            "ms": min(runs[1:3]), "ms_runs": runs[1:3],
+            "prev_ms": min(runs[0], runs[3]), "prev_ms_runs": [runs[0], runs[3]],
+            "collective_ms": _host_ms(torch, group, lambda: group.gather_slots(slots), reps),
+            "prev_collective_ms": _host_ms(torch, group, lambda: _all_reduce_slot_sum(torch, group, flat), reps),
+            "kernel_ms": _host_ms(torch, group, kernel, reps),
+            "collective_own_ms": (c1[1] - c0[1]) / max(c1[0] - c0[0], 1) * 1e3,
+            "collectives_per_call": (c1[0] - c0[0]) / reps,
+        }
+    return out
+
+
+def _same_as_prev(torch, group, calls, kernels):
+    """Whether each B4 function gives bitwise the all-reduce path's outputs on this rank."""
+    same = {}
+    for name, call in calls.items():
+        new, old = call(), _all_reduce_b4(torch, group, kernels[name][1]())
+        same[name] = all(_same_bits(a, b) for a, b in zip(new, old))
+    return same
+
+
 def _staging_ms(torch, group, width):
-    """The parts of one slot sum, each alone on every rank at once (ms per
-    call): the backend's all-reduce of the [world, width] float64 buffer
-    where it lies (and of one element: the latency alone), a device
-    synchronize, and (gloo) the copies of a width-wide float64 row to the
-    host and back."""
+    """The collective's parts alone, every rank at once (ms per call): the
+    all-gather of the [world, width] float64 slot buffer where it lies
+    (host for gloo), the previous design's all-reduce of the same buffer and of one element
+    (the latency alone), a device synchronize, and (gloo) the copies of a
+    width-wide float64 row to the host and of the buffer back."""
     import torch.distributed as dist
 
     host = group.device if group.backend == "nccl" else torch.device("cpu")
-    buf = torch.zeros((group.world_size, width), dtype=torch.float64, device=host)
+    buf = group.slot_buffer(width, host)
+    zeros = torch.zeros((group.world_size, width), dtype=torch.float64, device=host)
     row = torch.zeros(width, dtype=torch.float64, device=group.device)
     one = torch.zeros(1, dtype=torch.float64, device=host)
     out = {
-        "all_reduce": _host_ms(torch, group, lambda: dist.all_reduce(buf), 20),
+        "all_gather": _host_ms(torch, group, lambda: group._all_gather(buf), 20),
+        "all_reduce": _host_ms(torch, group, lambda: dist.all_reduce(zeros), 20),
         "all_reduce_one_element": _host_ms(torch, group, lambda: dist.all_reduce(one), 20),
     }
     if group.device.type == "cuda":
         out["synchronize"] = _host_ms(torch, group, lambda: torch.cuda.synchronize(group.device), 20)
     if group.backend == "gloo" and group.device.type == "cuda":
         out["to_host"] = _host_ms(torch, group, lambda: row.to("cpu"), 20)
-        out["to_device"] = _host_ms(torch, group, lambda: buf[0].to(group.device), 20)
+        out["to_device"] = _host_ms(torch, group, lambda: buf.to(group.device), 20)
     return out
 
 
+def _host_syncs(torch, calls):
+    """Each call once with CUDA's sync debug mode at "error" and
+    torch.cuda.synchronize counting its calls: (synchronizes, the calls that
+    raised for a synchronizing CUDA operation)."""
+    real, count, raised = torch.cuda.synchronize, [0], []
+
+    def counting(*a, **k):
+        count[0] += 1
+        return real(*a, **k)
+
+    torch.cuda.synchronize = counting
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for name, call in calls.items():
+            try:
+                call()
+            except RuntimeError as e:  # the debug mode's error, reported as a check
+                raised.append(f"{name}: {str(e).splitlines()[0]}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize = real
+    return count[0], raised
+
+
+def _device_ops(torch, call):
+    """The device operations of one call under torch.profiler: (name,
+    count) pairs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return [(e.key, e.count) for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def dp_b4_rank(group, n, d, seed):
-    """Phase 6 (a), on one rank: B4 on the rank's rows of each case, and at
-    n rows the time per call of each B4 function, of its collective alone
-    (a slot sum of the same width) and of the rank's kernel alone."""
+    """Phase 6 (a), on one rank: B4 on the rank's rows of each case, bitwise
+    against the all-reduce path on the same rows, and at n rows the times of
+    ``_b4_times``."""
     import torch
 
     from photon_ml_tpu_torch.ops import fused_glm as fg
@@ -721,7 +920,7 @@ def dp_b4_rank(group, n, d, seed):
     from photon_ml_tpu_torch.parallel import row_range
 
     dev, loss = group.device, LOSSES["logistic"]
-    outs, times = {}, {}
+    outs, times, same = {}, {}, {}
     for xname in ("float32", "bfloat16"):
         for nn in (n, n - 1):
             x, coef, v, y, off, wt, vshift = _b4_inputs(torch, nn, d, xname, seed, dev)
@@ -731,32 +930,19 @@ def dp_b4_rank(group, n, d, seed):
             xs, ys, offs, wts = pad(x), pad(y), pad(off), pad(wt)
             del x
             torch.cuda.empty_cache()
-            calls = _b4_calls(fg, group, xs, coef, v, ys, offs, wts, vshift, loss)
+            operands = (xs, coef, v, ys, offs, wts, vshift, loss)
+            calls, kernels = _b4_calls(fg, group, *operands), _b4_kernels(fg, *operands)
             outs[(nn, xname)] = {
                 name: tuple(None if o is None else o.cpu() for o in call()) for name, call in calls.items()
             }
+            same[(nn, xname)] = _same_as_prev(torch, group, calls, kernels)
             if nn == n:
-                kernels = {
-                    "sharded_value_grad": (fg.VG, lambda: fg.fused_value_grad(xs, coef, ys, offs, wts, loss)),
-                    "sharded_hessian_vector": (fg.HV, lambda: fg.fused_hessian_vector(xs, coef, v, ys, offs, wts, vshift, loss)),
-                    "sharded_hessian_stats": (fg.HD, lambda: fg.fused_hessian_stats(xs, coef, ys, offs, wts, loss, False)),
-                    "sharded_hessian_stats_shifts": (fg.HD_SHIFTS, lambda: fg.fused_hessian_stats(xs, coef, ys, offs, wts, loss, True)),
-                }
-                row = {}
-                for name, call in calls.items():
-                    mode, kernel = kernels[name]
-                    flat = torch.zeros(fg._out_width(mode, d), dtype=torch.float64, device=dev)
-                    row[name] = {
-                        "ms": _host_ms(torch, group, call, 20),
-                        "collective_ms": _host_ms(torch, group, lambda: group.slot_sum(flat), 20),
-                        "kernel_ms": _host_ms(torch, group, kernel, 20),
-                    }
+                times[xname] = _b4_times(torch, fg, group, d, calls, kernels)
                 if xname == "float32":
-                    row["staging"] = _staging_ms(torch, group, fg._out_width(fg.VG, d))
-                times[xname] = row
+                    times[xname]["staging"] = _staging_ms(torch, group, fg._out_width(fg.VG, d))
             del xs
             torch.cuda.empty_cache()
-    return {"outs": outs, "times": times, "device": str(dev), "backend": group.backend}
+    return {"outs": outs, "times": times, "same_as_prev": same, "device": str(dev), "backend": group.backend}
 
 
 def dp_sweep_rank(group, data_dir, sweeps):
@@ -764,8 +950,11 @@ def dp_sweep_rank(group, data_dir, sweeps):
     datasets built from the parent's files, one untimed sweep and
     ``sweeps`` timed ones. Returns the rank's walls, per-coordinate seconds,
     syncs and collectives, launch counts, its random-effect solve (entities,
-    bucket shape, padded and real cells), and from rank 0 the model, the
-    random effect's per-entity loss and the fixed effect's scores."""
+    bucket shape, padded and real cells), B4's times on its rows
+    (``_b4_times``) and whether B4 gives the all-reduce path's bits there; over NCCL also
+    the host synchronizes of one call of each B4 function and the device
+    operations of one value+grad call; and from rank 0 the model, the random
+    effect's per-entity loss and the fixed effect's scores."""
     import torch
 
     from photon_ml_tpu_torch.evaluation.device import auc
@@ -794,14 +983,14 @@ def dp_sweep_rank(group, data_dir, sweeps):
     sweep(torch, coords)  # loads PyTorch's lazily loaded kernels
     fg.reset_launch_counts()
     runs = [sweep(torch, coords) for _ in range(sweeps)]
-    launches, sharded = dict(fg.LAUNCHES), dict(fg.SHARDED_LAUNCHES)
+    launches, sharded, sums = dict(fg.LAUNCHES), dict(fg.SHARDED_LAUNCHES), dict(fg.SUM_LAUNCHES)
     res = sorted(runs, key=lambda rw: rw[1])[len(runs) // 2][0]
     out = {
         "rank": group.rank, "world": group.world_size, "backend": group.backend,
         "device": str(group.device), "build_s": build_s,
         "walls": [w for _, w in runs], "seconds": dict(res.seconds), "syncs": dict(res.syncs),
         "collectives": dict(res.collectives), "collective_s": dict(res.collective_seconds),
-        "launches": launches, "sharded": sharded,
+        "launches": launches, "sharded": sharded, "sums": sums,
         "re": {
             "entities": (lo, hi), "buckets": [(kb, sb) for _, _, kb, sb in mine],
             "padded_cells": int(padded), "real_cells": int(np.sum(counts * sdims)),
@@ -809,19 +998,24 @@ def dp_sweep_rank(group, data_dir, sweeps):
         },
         "rejections": dict(res.rejections),
     }
-    # B4 as the sweep calls it, on this rank's rows (every rank at once)
+    # B4 as the sweep calls it, on this rank's rows (every rank at once),
+    # after the launch counts were read
     from photon_ml_tpu_torch.ops.losses import LOSSES
 
     b = coords["global"].dataset.batch
     x = b.features.dense
     coef = res.model["global"].coefficients.means.to(x.device)
-    flat = torch.zeros(fg._out_width(fg.VG, x.shape[1]), dtype=torch.float64, device=x.device)
-    loss = LOSSES["logistic"]
-    out["b4_ms"] = {  # after the launch counts were read
-        "ms": _host_ms(torch, group, lambda: fg.sharded_value_grad(group, x, coef, b.labels, b.offsets, b.weights, loss), 20),
-        "collective_ms": _host_ms(torch, group, lambda: group.slot_sum(flat), 20),
-        "kernel_ms": _host_ms(torch, group, lambda: fg.fused_value_grad(x, coef, b.labels, b.offsets, b.weights, loss), 20),
-    }
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(17)
+    v = torch.randn(x.shape[1], generator=gen, device=x.device)
+    operands = (x, coef, v, b.labels, b.offsets, b.weights, torch.tensor(0.1, device=x.device), LOSSES["logistic"])
+    calls, kernels = _b4_calls(fg, group, *operands), _b4_kernels(fg, *operands)
+    out["b4_same_as_prev"] = _same_as_prev(torch, group, calls, kernels)
+    out["b4"] = _b4_times(torch, fg, group, x.shape[1], calls, kernels)
+    if group.backend == "nccl":
+        torch.cuda.synchronize()
+        out["b4_host_syncs"], out["b4_sync_errors"] = _host_syncs(torch, calls)
+        out["b4_device_ops"] = _device_ops(torch, calls["sharded_value_grad"])
     # scoring the fixed effect gathers across the ranks: every rank scores
     fe_scores = coords["global"].score(res.model["global"])
     re_scores = coords["per-user"].score(res.model["per-user"])
@@ -889,10 +1083,33 @@ def _same_bits(a, b) -> bool:
     )
 
 
-def dp_path(torch, n, d, seed, state, device="cuda"):
+def log_b4_time(where, name, t, worst):
+    """One line of B4's times (``_b4_times``) on rank 0."""
+    log(f"  time B4 {where} {name:28s} {t['ms']:.4f} ms/call on rank 0 (runs "
+        f"{'/'.join(f'{u:.4f}' for u in t['ms_runs'])}; slowest rank {worst:.4f}); the all-reduce path "
+        f"{t['prev_ms']:.4f} ({'/'.join(f'{u:.4f}' for u in t['prev_ms_runs'])}); collective alone "
+        f"{t['collective_ms']:.4f} (all-reduce path {t['prev_collective_ms']:.4f}); its own time in the call "
+        f"{t['collective_own_ms']:.4f} ({t['collectives_per_call']:.0f} a call); rank's kernel alone "
+        f"{t['kernel_ms']:.4f}; call - kernel {t['ms'] - t['kernel_ms']:+.4f}")
+
+
+def launch_problems(ranks, backend):
+    """Every rank launched each kernel of the data-parallel sweep, and one
+    rank-order sum per B4 call whose rank launched its kernel."""
+    problems = []
+    for r in ranks:
+        if min(r["sharded"].values()) <= 0 or min(r["launches"].values()) <= 0:
+            problems.append(f"{backend} rank {r['rank']}: a kernel of the data-parallel sweep was not launched")
+        if r["sums"]["rank_order_sum"] != sum(r["sharded"].values()):
+            problems.append(f"{backend} rank {r['rank']}: {r['sums']} rank-order sums for B4 calls {r['sharded']}")
+    return problems
+
+
+def dp_path(torch, n, d, seed, state, device="cuda", gloo=True):
     """Phase 6: the data-parallel GLMix sweep; (a), (b), (c) as in the
-    module docstring. ``device="cpu"`` rehearses (a) and (b) on the CPU at
-    a small size (the plain versions, no nccl)."""
+    module docstring (``gloo=False``: (c) alone). ``device="cpu"``
+    rehearses (a) and (b) on the CPU at a small size (the plain versions,
+    no nccl)."""
     import tempfile
 
     from photon_ml_tpu_torch.ops import cuda_lib
@@ -906,49 +1123,49 @@ def dp_path(torch, n, d, seed, state, device="cuda"):
     problems = []
     report = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
-        # (a) B4 against the float64 plain versions on the whole batch
-        t0 = time.perf_counter()
-        ranks = spawn(dp_b4_rank, DP_RANKS, "gloo", device, args=(n, d, seed),
-                      timeout_s=DP_TIMEOUT_S, store_dir=tmp)
-        log(f"  (a) B4 on {DP_RANKS} gloo ranks on {ranks[0]['device']} "
-            f"(backend {ranks[0]['backend']}, world {DP_RANKS}): ranks done in {time.perf_counter() - t0:.1f}s")
-        errs = {}
-        for (nn, xname), got in ranks[0]["outs"].items():
-            x, coef, v, y, off, wt, vshift = _b4_inputs(torch, nn, d, xname, seed, dev)
-            ref = _ref_b4(torch, fg, x, coef, v, y, off, wt, vshift, LOSSES["logistic"])
-            del x
-            torch.cuda.empty_cache()
-            ok, rep = _b4_errors(torch, got, ref)
-            same = all(
-                _same_bits(a, b)
-                for r in ranks[1:] for name in got for a, b in zip(r["outs"][(nn, xname)][name], got[name])
-            )
-            for name, (err, bound, rel, good) in rep.items():
-                log(f"  check B4 gloo world={DP_RANKS} n={nn} d={d} {xname:8s} {name:28s} "
-                    f"err={err:.3e}/{bound:.3e} scalar_rel={rel:.2e} {'ok' if good else 'MISS'}")
-            log(f"  B4 gloo world={DP_RANKS} n={nn} {xname}: every rank bitwise alike: {same}")
-            if not (ok and same):
-                problems.append(f"B4 n={nn} {xname}: bounds ok {ok}, ranks alike {same}")
-            if (nn, xname) == (n, "float32"):
-                errs = {name: rep[name][0] for name in B4_OF}
-        times = {}
-        for xname, row in ranks[0]["times"].items():
-            for name, t in row.items():
-                if name == "staging":
-                    continue
-                share = t["collective_ms"] / t["ms"]
-                worst = max(r["times"][xname][name]["ms"] for r in ranks)
-                log(f"  time B4 gloo world={DP_RANKS} {xname:8s} {name:28s} {t['ms']:.4f} ms/call on rank 0 "
-                    f"(slowest rank {worst:.4f}); collective alone {t['collective_ms']:.4f} ms "
-                    f"({share:.1%}); rank's kernel alone, {DP_RANKS} ranks at once {t['kernel_ms']:.4f} ms")
-            times[xname] = row
-        st = ranks[0]["times"]["float32"]["staging"]
-        log(f"  the slot sum's parts alone, ms per call on rank 0 of {DP_RANKS} (gloo): "
-            + ", ".join(f"{k} {v:.4f}" for k, v in st.items()))
-        report["b4"] = {"errors": errs, "times": times}
-        del ranks
+        if gloo:
+            # (a) B4 against the float64 plain versions on the whole batch
+            t0 = time.perf_counter()
+            ranks = spawn(dp_b4_rank, DP_RANKS, "gloo", device, args=(n, d, seed),
+                          timeout_s=DP_TIMEOUT_S, store_dir=tmp)
+            log(f"  (a) B4 on {DP_RANKS} gloo ranks on {ranks[0]['device']} "
+                f"(backend {ranks[0]['backend']}, world {DP_RANKS}): ranks done in {time.perf_counter() - t0:.1f}s")
+            errs = {}
+            for (nn, xname), got in ranks[0]["outs"].items():
+                x, coef, v, y, off, wt, vshift = _b4_inputs(torch, nn, d, xname, seed, dev)
+                ref = _ref_b4(torch, fg, x, coef, v, y, off, wt, vshift, LOSSES["logistic"])
+                del x
+                torch.cuda.empty_cache()
+                ok, rep = _b4_errors(torch, got, ref)
+                same = all(
+                    _same_bits(a, b)
+                    for r in ranks[1:] for name in got for a, b in zip(r["outs"][(nn, xname)][name], got[name])
+                )
+                for name, (err, bound, rel, good) in rep.items():
+                    log(f"  check B4 gloo world={DP_RANKS} n={nn} d={d} {xname:8s} {name:28s} "
+                        f"err={err:.3e}/{bound:.3e} scalar_rel={rel:.2e} {'ok' if good else 'MISS'}")
+                prev = all(all(r["same_as_prev"][(nn, xname)].values()) for r in ranks)
+                log(f"  B4 gloo world={DP_RANKS} n={nn} {xname}: every rank bitwise alike: {same}; "
+                    f"every rank bitwise the all-reduce path: {prev}")
+                if not (ok and same and prev):
+                    problems.append(f"B4 n={nn} {xname}: bounds ok {ok}, ranks alike {same}, the all-reduce path's bits {prev}")
+                if (nn, xname) == (n, "float32"):
+                    errs = {name: rep[name][0] for name in B4_OF}
+            times = {}
+            for xname, row in ranks[0]["times"].items():
+                for name, t in row.items():
+                    if name == "staging":
+                        continue
+                    worst = max(r["times"][xname][name]["ms"] for r in ranks)
+                    log_b4_time(f"gloo world={DP_RANKS} {xname:8s}", name, t, worst)
+                times[xname] = row
+            st = ranks[0]["times"]["float32"]["staging"]
+            log(f"  the collective's parts alone, ms per call on rank 0 of {DP_RANKS} (gloo): "
+                + ", ".join(f"{k} {v:.4f}" for k, v in st.items()))
+            report["b4"] = {"errors": errs, "times": times}
+            del ranks
 
-        # (b) the 4-rank sweep against phase 5's one-card sweep
+        # the sweep's data for (b) and (c), and phase 5's one-card sweep
         gx, y, ex, ids = state["data"]
         t0 = time.perf_counter()
         np.save(f"{tmp}/gx.npy", gx)
@@ -957,55 +1174,59 @@ def dp_path(torch, n, d, seed, state, device="cuda"):
         np.save(f"{tmp}/ids.npy", np.asarray(ids, dtype=str))
         log(f"  wrote the sweep's data for the ranks in {time.perf_counter() - t0:.1f}s")
         one, coords = state["result"], state["coords"]
-        t0 = time.perf_counter()
-        ranks = spawn(dp_sweep_rank, DP_RANKS, "gloo", device, args=(tmp, SWEEPS),
-                      timeout_s=DP_TIMEOUT_S, store_dir=tmp)
-        log(f"  (b) sweep on {DP_RANKS} gloo ranks: ranks done in {time.perf_counter() - t0:.1f}s "
-            f"(builds {', '.join(f'{r['build_s']:.1f}' for r in ranks)} s)")
-        r0 = ranks[0]
-        walls = sorted(r0["walls"])
-        wall = walls[len(walls) // 2]
-        log(f"  data-parallel sweep (backend gloo, world {DP_RANKS}, one card), median of {SWEEPS}: "
-            f"wall_s={wall:.4f} examples_per_s={n / wall:.1f} (walls {', '.join(f'{w:.4f}' for w in r0['walls'])}) "
-            f"shares FE={r0['seconds']['global'] / wall:.3f} RE={r0['seconds']['per-user'] / wall:.3f} "
-            f"train_auc={r0['train_auc']:.6f}")
-        for r in ranks:
-            log(f"    rank {r['rank']} of {r['world']} ({r['backend']}): RE wall {r['seconds']['per-user']:.4f} s, FE {r['seconds']['global']:.4f} s; "
-                f"entities {r['re']['entities']} buckets (K, S) {r['re']['buckets']} "
-                f"padded cells {r['re']['padded_cells']} real cells {r['re']['real_cells']} rows {r['re']['rows']}; "
-                f"syncs {r['syncs']} collectives {r['collectives']} "
-                f"collective_s {{{', '.join(f'{k}: {v:.4f}' for k, v in r['collective_s'].items())}}}; "
-                f"launches {r['launches']} {r['sharded']}; B4 value+grad on its rows "
-                f"{r['b4_ms']['ms']:.4f} ms/call, collective alone {r['b4_ms']['collective_ms']:.4f}, "
-                f"kernel alone {r['b4_ms']['kernel_ms']:.4f}")
-        if any(r["rejections"] != {"global": 0, "per-user": 0} for r in ranks):
-            problems.append("the divergence guard rejected an update on a rank")
-        for r in ranks:
-            if min(r["sharded"].values()) <= 0 or min(r["launches"].values()) <= 0:
-                problems.append(f"rank {r['rank']}: a kernel of the data-parallel sweep was not launched")
-        if not (0.5 < r0["train_auc"] <= 1.0):
-            problems.append(f"data-parallel training AUC {r0['train_auc']} out of (0.5, 1]")
         f1 = one.model["global"].coefficients
-        hold(problems, "4 ranks vs one card: FE coefficients", r0["fe_means"], f1.means, 1e-3, 1e-5)
-        hold(problems, "4 ranks vs one card: FE variances", r0["fe_variances"], f1.variances, 1e-3, 1e-5)
-        E1 = one.model["per-user"].coef_values.shape[0]
-        re1, res1 = coords["per-user"].train(r0["fe_scores"].to(dev), None)
-        hold(problems, "4 ranks vs one card: RE coefficients (identical residuals)",
-             r0["re_values"][:E1], re1.coef_values, 0.0, 5e-3)
-        hold(problems, "4 ranks vs one card: RE loss (identical residuals)",
-             r0["re_loss"][:E1], res1.loss, 0.0, 1e-4)
-        _, coef = allclose(r0["re_values"][:E1], one.model["per-user"].coef_values, 0.0, 5e-3)
-        _, loss = allclose(r0["re_loss"][:E1], one.solver_results["per-user"].loss, 0.0, 1e-4)
-        log(f"  (for the record) RE chained on each sweep's own FE: max abs diff coefficients "
-            f"{coef:.3e}, loss {loss:.3e}")
-        report["sweep"] = {
-            "wall_s": wall, "walls": r0["walls"], "examples_per_s": n / wall,
-            "fe_share": r0["seconds"]["global"] / wall, "re_share": r0["seconds"]["per-user"] / wall,
-            "re_walls": [r["seconds"]["per-user"] for r in ranks],
-            "sharded": [r["sharded"] for r in ranks], "launches": [r["launches"] for r in ranks],
-            "collectives": r0["collectives"], "syncs": r0["syncs"], "b4_ms": r0["b4_ms"],
-        }
-        del ranks
+        if gloo:
+            # (b) the 4-rank sweep against phase 5's one-card sweep
+            t0 = time.perf_counter()
+            ranks = spawn(dp_sweep_rank, DP_RANKS, "gloo", device, args=(tmp, SWEEPS),
+                          timeout_s=DP_TIMEOUT_S, store_dir=tmp)
+            log(f"  (b) sweep on {DP_RANKS} gloo ranks: ranks done in {time.perf_counter() - t0:.1f}s "
+                f"(builds {', '.join(f'{r['build_s']:.1f}' for r in ranks)} s)")
+            r0 = ranks[0]
+            walls = sorted(r0["walls"])
+            wall = walls[len(walls) // 2]
+            log(f"  data-parallel sweep (backend gloo, world {DP_RANKS}, one card), median of {SWEEPS}: "
+                f"wall_s={wall:.4f} examples_per_s={n / wall:.1f} (walls {', '.join(f'{w:.4f}' for w in r0['walls'])}) "
+                f"shares FE={r0['seconds']['global'] / wall:.3f} RE={r0['seconds']['per-user'] / wall:.3f} "
+                f"train_auc={r0['train_auc']:.6f}")
+            for r in ranks:
+                log(f"    rank {r['rank']} of {r['world']} ({r['backend']}): RE wall {r['seconds']['per-user']:.4f} s, FE {r['seconds']['global']:.4f} s; "
+                    f"entities {r['re']['entities']} buckets (K, S) {r['re']['buckets']} "
+                    f"padded cells {r['re']['padded_cells']} real cells {r['re']['real_cells']} rows {r['re']['rows']}; "
+                    f"syncs {r['syncs']} collectives {r['collectives']} "
+                    f"collective_s {{{', '.join(f'{k}: {v:.4f}' for k, v in r['collective_s'].items())}}}; "
+                    f"launches {r['launches']} {r['sharded']} {r['sums']}")
+            for name, t in r0["b4"].items():
+                log_b4_time(f"gloo world={DP_RANKS} sweep rows", name, t, max(r["b4"][name]["ms"] for r in ranks))
+            if any(r["rejections"] != {"global": 0, "per-user": 0} for r in ranks):
+                problems.append("the divergence guard rejected an update on a rank")
+            problems += launch_problems(ranks, "gloo")
+            for r in ranks:
+                if not all(r["b4_same_as_prev"].values()):
+                    problems.append(f"gloo rank {r['rank']}: B4 differs from the all-reduce path {r['b4_same_as_prev']}")
+            if not (0.5 < r0["train_auc"] <= 1.0):
+                problems.append(f"data-parallel training AUC {r0['train_auc']} out of (0.5, 1]")
+            hold(problems, "4 ranks vs one card: FE coefficients", r0["fe_means"], f1.means, 1e-3, 1e-5)
+            hold(problems, "4 ranks vs one card: FE variances", r0["fe_variances"], f1.variances, 1e-3, 1e-5)
+            E1 = one.model["per-user"].coef_values.shape[0]
+            re1, res1 = coords["per-user"].train(r0["fe_scores"].to(dev), None)
+            hold(problems, "4 ranks vs one card: RE coefficients (identical residuals)",
+                 r0["re_values"][:E1], re1.coef_values, 0.0, 5e-3)
+            hold(problems, "4 ranks vs one card: RE loss (identical residuals)",
+                 r0["re_loss"][:E1], res1.loss, 0.0, 1e-4)
+            _, coef = allclose(r0["re_values"][:E1], one.model["per-user"].coef_values, 0.0, 5e-3)
+            _, loss = allclose(r0["re_loss"][:E1], one.solver_results["per-user"].loss, 0.0, 1e-4)
+            log(f"  (for the record) RE chained on each sweep's own FE: max abs diff coefficients "
+                f"{coef:.3e}, loss {loss:.3e}")
+            report["sweep"] = {
+                "wall_s": wall, "walls": r0["walls"], "examples_per_s": n / wall,
+                "fe_share": r0["seconds"]["global"] / wall, "re_share": r0["seconds"]["per-user"] / wall,
+                "re_walls": [r["seconds"]["per-user"] for r in ranks],
+                "sharded": [r["sharded"] for r in ranks], "launches": [r["launches"] for r in ranks],
+                "collectives": r0["collectives"], "syncs": r0["syncs"], "b4": r0["b4"],
+                "sums": [r["sums"] for r in ranks],
+            }
+            del ranks
 
         # (c) NCCL, one rank per card
         if dev.type != "cuda":
@@ -1014,14 +1235,30 @@ def dp_path(torch, n, d, seed, state, device="cuda"):
             return report
         world = torch.cuda.device_count()
         t0 = time.perf_counter()
-        ranks = spawn(dp_sweep_rank, world, "nccl", "cuda", args=(tmp, 1),
+        ranks = spawn(dp_sweep_rank, world, "nccl", "cuda", args=(tmp, SWEEPS),
                       timeout_s=DP_TIMEOUT_S, store_dir=tmp)
         r0 = ranks[0]
-        log(f"  (c) sweep over nccl (backend nccl, world {world}, one rank per card): wall_s={r0['walls'][0]:.4f} "
-            f"examples_per_s={n / r0['walls'][0]:.1f}, ranks done in {time.perf_counter() - t0:.1f}s; "
-            f"syncs {r0['syncs']} collectives {r0['collectives']} launches {r0['launches']} {r0['sharded']}; "
-            f"B4 value+grad {r0['b4_ms']['ms']:.4f} ms/call, collective alone {r0['b4_ms']['collective_ms']:.4f}, "
-            f"kernel alone {r0['b4_ms']['kernel_ms']:.4f}")
+        walls = sorted(r0["walls"])
+        wall = walls[len(walls) // 2]
+        log(f"  (c) sweep over nccl (backend nccl, world {world}, one rank per card), median of {SWEEPS}: "
+            f"wall_s={wall:.4f} examples_per_s={n / wall:.1f} (walls {', '.join(f'{w:.4f}' for w in r0['walls'])}); "
+            f"one card in phase 5: median wall_s={state['wall_s']:.4f}, the nccl sweep {wall / state['wall_s']:.3f}x it; "
+            f"ranks done in {time.perf_counter() - t0:.1f}s; shares FE={r0['seconds']['global'] / wall:.3f} "
+            f"RE={r0['seconds']['per-user'] / wall:.3f}; syncs {r0['syncs']} collectives {r0['collectives']} "
+            f"collective_s {{{', '.join(f'{k}: {v:.6f}' for k, v in r0['collective_s'].items())}}}; "
+            f"launches {r0['launches']} {r0['sharded']} {r0['sums']}")
+        for name, t in r0["b4"].items():
+            log_b4_time(f"nccl world={world}", name, t, max(r["b4"][name]["ms"] for r in ranks))
+        log(f"  nccl B4: host synchronizes in one call of each function: {r0['b4_host_syncs']} "
+            f"(sync debug errors: {r0['b4_sync_errors'] or 'none'}); bitwise the all-reduce path: {r0['b4_same_as_prev']}; "
+            f"device operations of one value+grad call: {r0['b4_device_ops']}")
+        problems += launch_problems(ranks, "nccl")
+        for r in ranks:
+            if r["b4_host_syncs"] or r["b4_sync_errors"]:
+                problems.append(f"nccl rank {r['rank']}: a B4 call synchronized the host "
+                                f"({r['b4_host_syncs']} synchronizes, {r['b4_sync_errors']})")
+            if not all(r["b4_same_as_prev"].values()):
+                problems.append(f"nccl rank {r['rank']}: B4 differs from the all-reduce path {r['b4_same_as_prev']}")
         if world == 1:
             for what, a, b in (("coefficients", r0["fe_means"], f1.means.cpu()),
                                ("variances", r0["fe_variances"], f1.variances.cpu())):
@@ -1032,9 +1269,11 @@ def dp_path(torch, n, d, seed, state, device="cuda"):
         else:
             hold(problems, f"nccl world {world} vs one card: FE coefficients", r0["fe_means"], f1.means, 1e-3, 1e-5)
             hold(problems, f"nccl world {world} vs one card: FE variances", r0["fe_variances"], f1.variances, 1e-3, 1e-5)
-        if min(r0["sharded"].values()) <= 0:
-            problems.append("the nccl sweep did not run through B4")
-        report["nccl"] = {"world": world, "wall_s": r0["walls"][0], "sharded": r0["sharded"], "b4_ms": r0["b4_ms"]}
+        report["nccl"] = {
+            "world": world, "wall_s": wall, "walls": r0["walls"], "one_card_wall_s": state["wall_s"],
+            "sharded": r0["sharded"], "sums": r0["sums"], "launches": r0["launches"], "b4": r0["b4"],
+            "host_syncs": r0["b4_host_syncs"], "device_ops": r0["b4_device_ops"],
+        }
     if problems:
         raise AssertionError("; ".join(problems))
     return report
@@ -1161,6 +1400,39 @@ def timings(torch, n, d, seed):
         out[xname] = row
         del x
         torch.cuda.empty_cache()
+    out["rank_order_sum"] = time_rank_order_sum(torch, d, seed)
+    return out
+
+
+def time_rank_order_sum(torch, d, seed):
+    """The rank-order sum at the data-parallel path's shapes (value+grad's
+    width d + 2, worlds 1 and DP_RANKS), each call replayed from a CUDA
+    graph: the kernel, its plain version (a loop of adds and a cast), and
+    torch.sum over the ranks (float64 out, its own order) as the library's
+    yardstick. Bound: the slots read once and the f32 row written once."""
+    from photon_ml_tpu_torch.ops import fused_glm as fg
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 5)
+    saved = dict(fg.SUM_LAUNCHES)
+    out = {}
+    width = fg._out_width(fg.VG, d)
+    for world in (1, DP_RANKS):
+        slots = torch.randn((world, width), generator=gen, device=dev, dtype=torch.float64)
+        nbytes = world * width * 8 + width * 4
+        row = {
+            "ms": graph_ms(torch, lambda: fg.rank_order_sum(slots), 50),
+            "plain_ms": graph_ms(torch, lambda: fg.rank_order_sum_plain(slots, torch.float32), 50),
+            "library_ms": graph_ms(torch, lambda: torch.sum(slots, dim=0), 50),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "bytes": nbytes,
+            "world": world, "width": width,
+        }
+        out[world] = row
+        log(f"  time rank_order_sum world={world} width={width}: kernel {row['ms']:.4f} ms (graph-timed)  "
+            f"plain {row['plain_ms']:.4f} ms  torch.sum over ranks {row['library_ms']:.4f} ms  "
+            f"bound {row['bound_ms']:.6f} ms (bytes, {nbytes} B)")
+    fg.SUM_LAUNCHES.update(saved)
     return out
 
 
@@ -1264,41 +1536,84 @@ def ring_variants(torch, n, d, seed):
     return out
 
 
-def b4_entry(name, n, d, dp, times):
-    """B4's line of the kernels JSON. ``launches``: its calls over the
-    4-rank sweeps, summed over the ranks (per rank beside). ``ms``: one call
-    at n x d f32 on rank 0 of 4 gloo ranks sharing the card (the rank's
-    kernel and the rank-order sum), with the collective's part beside.
-    ``plain_ms``: the unsharded plain version on the whole batch (phase 7).
-    ``bound_ms``: the whole padded batch's bytes over 3.35 TB/s (4 ranks
-    share one card, so all of X streams once); with P cards each would move
-    only its shard (``bound_ms_per_card_p4``). No PyTorch call computes it:
-    NCCL and gloo move bytes, they compute none of B4's sums."""
+def b4_bound_ms(n, d, mode, world):
+    """Least time of one B4 call per card, from bytes over 3.35 TB/s (the
+    operations take less): the card's rows of X and their [n] vectors read
+    once, the [d] vectors read, the slot row written, the gathered
+    [world, width] slots read by the sum and the f32 outputs written. With
+    DP_RANKS gloo ranks sharing one card, that card streams every rank's
+    rows: call it with world 1 and the whole padded n."""
     import torch
 
     from photon_ml_tpu_torch.ops import fused_glm as fg
 
+    width = fg._out_width(mode, d)
+    rows = fg.sweep_bytes(-(-n // world), d, torch.float32, mode) - 4 * width
+    return (rows + 8 * width + 8 * world * width + 4 * width) / HBM_BYTES_PER_S * 1e3
+
+
+def b4_entry(name, n, d, dp, times):
+    """B4's line of the kernels JSON. ``launches``: its calls over the
+    4-rank gloo sweeps, summed over the ranks (per rank beside), and over
+    the NCCL sweeps. ``ms``: one call at n x d f32 on rank 0 of 4 gloo ranks
+    sharing the card, with the all-reduce path timed in turns (``prev_ms``), the
+    collective alone and the rank's kernel alone beside; ``nccl_*`` the same
+    over NCCL, one rank per card (world ``nccl_world``), on the sweep's
+    rows. ``plain_ms``: the unsharded plain version on the whole batch
+    (phase 7). ``bound_ms``: the gloo configuration's (one card streams all
+    of X), ``nccl_bound_ms`` one card's of the NCCL world. No PyTorch call
+    computes it: NCCL and gloo move bytes, they compute none of B4's sums."""
+    from photon_ml_tpu_torch.ops import fused_glm as fg
+
     mode = {"sharded_value_grad": fg.VG, "sharded_hessian_vector": fg.HV, "sharded_hessian_stats": fg.HD}[name]
     share = -(-n // DP_RANKS)
-    t_bytes = fg.sweep_bytes(share * DP_RANKS, d, torch.float32, mode) / HBM_BYTES_PER_S * 1e3
-    t_ops = fg.sweep_flops(share * DP_RANKS, d, mode) / PEAK_OPS["float32"] * 1e3
     b4 = (dp or {}).get("b4", {})
     t32 = b4.get("times", {}).get("float32", {}).get(name, {})
     sweep = (dp or {}).get("sweep") or {}
+    nccl = (dp or {}).get("nccl") or {}
+    tn = nccl.get("b4", {}).get(name, {})
+    world = nccl.get("world", 1)
     per_rank = [r[name] for r in sweep.get("sharded", [])]
     plain = (times or {}).get("float32", {}).get(B4_OF[name], {})
     return {
         "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+        "sum_source": SOURCES["rank_order_sum"], "design": B4_DESIGN,
         "launches": sum(per_rank), "launches_per_rank": per_rank,
-        "launches_nccl": ((dp or {}).get("nccl") or {}).get("sharded", {}).get(name, 0),
+        "launches_nccl": nccl.get("sharded", {}).get(name, 0),
         "max_abs_err": b4.get("errors", {}).get(name),
-        "ms": t32.get("ms"), "collective_ms": t32.get("collective_ms"),
-        "rank_kernel_ms": t32.get("kernel_ms"),
-        "plain_ms": plain.get("plain_ms"), "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bound_ms_per_card_p4": fg.sweep_bytes(share, d, torch.float32, mode) / HBM_BYTES_PER_S * 1e3,
+        "ms": t32.get("ms"), "prev_ms": t32.get("prev_ms"), "collective_ms": t32.get("collective_ms"),
+        "prev_collective_ms": t32.get("prev_collective_ms"), "rank_kernel_ms": t32.get("kernel_ms"),
+        "plain_ms": plain.get("plain_ms"),
+        "bound_ms": b4_bound_ms(share * DP_RANKS, d, mode, 1), "bound_by": "bytes",
+        "bound_ms_per_card_p4": b4_bound_ms(share * DP_RANKS, d, mode, DP_RANKS),
         "library_ms": None, "dtype": "float32", "world": DP_RANKS, "backend": "gloo",
         "bf16_ms": b4.get("times", {}).get("bfloat16", {}).get(name, {}).get("ms"),
+        "nccl_world": world, "nccl_ms": tn.get("ms"), "nccl_prev_ms": tn.get("prev_ms"),
+        "nccl_collective_ms": tn.get("collective_ms"), "nccl_collective_own_ms": tn.get("collective_own_ms"),
+        "nccl_prev_collective_ms": tn.get("prev_collective_ms"), "nccl_rank_kernel_ms": tn.get("kernel_ms"),
+        "nccl_bound_ms": b4_bound_ms(n, d, mode, world),
+    }
+
+
+def sum_entry(dp, times, errs):
+    """The rank-order sum's line of the kernels JSON: launches over the
+    data-parallel sweeps (gloo, summed over the ranks; NCCL beside), its
+    time at the 4-rank value+grad shape (phase 7; world 1 beside)."""
+    t = (times or {}).get("rank_order_sum", {})
+    t4, t1 = t.get(DP_RANKS, {}), t.get(1, {})
+    sweep = (dp or {}).get("sweep") or {}
+    nccl = (dp or {}).get("nccl") or {}
+    return {
+        "name": "rank_order_sum", "route": "cuda", "source": SOURCES["rank_order_sum"],
+        "replaces": REPLACES["rank_order_sum"], "design": DESIGN["rank_order_sum"],
+        "launches": sum(r["rank_order_sum"] for r in sweep.get("sums", [])),
+        "launches_per_rank": [r["rank_order_sum"] for r in sweep.get("sums", [])],
+        "launches_nccl": nccl.get("sums", {}).get("rank_order_sum", 0),
+        "max_abs_err": (errs or {}).get("rank_order_sum"),
+        "ms": t4.get("ms"), "plain_ms": t4.get("plain_ms"), "bound_ms": t4.get("bound_ms"),
+        "bound_by": "bytes", "library_ms": t4.get("library_ms"), "dtype": "float64 in, float32 out",
+        "world": DP_RANKS, "width": t4.get("width"),
+        "world1_ms": t1.get("ms"), "world1_plain_ms": t1.get("plain_ms"), "world1_library_ms": t1.get("library_ms"),
     }
 
 
@@ -1310,7 +1625,7 @@ def main() -> int:
     ap.add_argument("--d-re", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default="",
-                    help="comma-separated subset of check,fe,glmix,dp,timing,variants to run after "
+                    help="comma-separated subset of check,fe,glmix,dp,nccl,timing,variants to run after "
                          "card and build (for iterating on one phase; the result is then not ok)")
     args = ap.parse_args()
     only = set(filter(None, args.only.split(",")))
@@ -1335,18 +1650,20 @@ def main() -> int:
         errs = phases.run("kernels vs float64 plain", check_kernels, torch, args.n, args.d, args.seed)
     if want("fe"):
         fe_launches = phases.run("fixed-effect path", fe_path, torch, args.n, args.d, args.seed)
-    if want("glmix") or want("dp"):
+    if want("glmix") or want("dp") or want("nccl"):
         glmix = phases.run(
             "GLMix sweep (main path)", glmix_path, torch, args.n, args.d, args.users, args.d_re, args.seed
         )
     state = (glmix or {}).pop("state", None)
-    if not want("dp"):
+    if not (want("dp") or want("nccl")):
         pass
     elif state is None:
         log("== phase: data-parallel GLMix sweep needs the one-card sweep's results")
         phases.failed.append("data-parallel GLMix sweep")
     else:
-        dp = phases.run("data-parallel GLMix sweep", dp_path, torch, args.n, args.d, args.seed, state)
+        dp = phases.run(
+            "data-parallel GLMix sweep", dp_path, torch, args.n, args.d, args.seed, state, "cuda", want("dp")
+        )
     del state
     torch.cuda.empty_cache()
     if want("timing"):
@@ -1362,18 +1679,26 @@ def main() -> int:
             f"FE share {glmix['fe_share']:.3f}, RE share {glmix['re_share']:.3f}, "
             f"syncs {glmix['syncs']}, train AUC {glmix['train_auc']:.6f}) on {smi}")
     if dp:
-        sw = dp["sweep"]
-        log(f"data-parallel GLMix sweep (backend gloo, world {DP_RANKS}, one card): "
-            f"{sw['examples_per_s']:.1f} examples/s (median wall {sw['wall_s']:.4f} s, "
-            f"FE share {sw['fe_share']:.3f}, RE share {sw['re_share']:.3f}, RE walls per rank "
-            f"{', '.join(f'{w:.4f}' for w in sw['re_walls'])} s, syncs {sw['syncs']}, "
-            f"collectives {sw['collectives']}); nccl world {dp['nccl']['world']}: "
-            f"wall {dp['nccl']['wall_s']:.4f} s; on {smi}")
+        sw = dp.get("sweep")
+        if sw:
+            log(f"data-parallel GLMix sweep (backend gloo, world {DP_RANKS}, one card): "
+                f"{sw['examples_per_s']:.1f} examples/s (median wall {sw['wall_s']:.4f} s, "
+                f"FE share {sw['fe_share']:.3f}, RE share {sw['re_share']:.3f}, RE walls per rank "
+                f"{', '.join(f'{w:.4f}' for w in sw['re_walls'])} s, syncs {sw['syncs']}, "
+                f"collectives {sw['collectives']})")
+        log(f"data-parallel GLMix sweep over nccl, world {dp['nccl']['world']}: "
+            f"median wall {dp['nccl']['wall_s']:.4f} s against one card's {dp['nccl']['one_card_wall_s']:.4f} s, "
+            f"B4 value+grad {dp['nccl']['b4']['sharded_value_grad']['ms']:.4f} ms/call (the all-reduce path "
+            f"{dp['nccl']['b4']['sharded_value_grad']['prev_ms']:.4f}), host synchronizes in B4 "
+            f"{dp['nccl']['host_syncs']}; on {smi}")
     launches = (glmix or {}).get("launches", {})
     kernels = []
     for name in KERNELS:
         if name in B4_OF:
             kernels.append(b4_entry(name, args.n, args.d, dp, times))
+            continue
+        if name == "rank_order_sum":
+            kernels.append(sum_entry(dp, times, errs))
             continue
         t = (times or {}).get("float32", {}).get(name, {})
         t16 = (times or {}).get("bfloat16", {}).get(name, {})

@@ -57,6 +57,15 @@
 // one thread per column over every block in order, is kept to time the
 // previous design against this one.)
 //
+// Over a data-parallel group (B4, replacing _shard_psum_call's psum), each
+// rank's finalize writes its totals, as the f32 values widened to double,
+// straight into its row of the group's [world, width] float64 slot buffer;
+// the caller fills the other rows with one all-gather (NCCL: on the card,
+// in stream order), and rank_order_sum_kernel adds the rows in rank order
+// into the f32 outputs. No host round trip and no extra copy: the call is
+// the rank's sweep, a collective of world x width doubles, and one small
+// launch.
+//
 // Numerics. The margins z (and u), the loss and its derivatives, and the
 // scalar sums are computed in double, per row: the row dot's products of f32
 // or bf16 values are exact in double, so z is the float64 margin up to
@@ -317,15 +326,26 @@ fused_glm_kernel(const T* __restrict__ x, const T* __restrict__ coef, const T* _
   }
 }
 
+// A finalize's two output forms: the f32 total into out[j], or (B4, slot
+// not null) the same f32 value widened to double into slot[j], this rank's
+// row of the group's [world, width] float64 slot buffer.
+__device__ __forceinline__ void store_total(float* out, double* slot, int j, double t) {
+  if (slot != nullptr) {
+    slot[j] = (double)(float)t;
+  } else {
+    out[j] = (float)t;
+  }
+}
+
 // The serial finalize: one thread per column sums the per-block partials,
 // blocks in order, in double. Kept only to time the previous design.
 __global__ void finalize_serial_kernel(const float* __restrict__ part, int grid, int width,
-                                       float* __restrict__ out) {
+                                       float* __restrict__ out, double* __restrict__ slot) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= width) return;
   double a = 0.0;
   for (int b = 0; b < grid; ++b) a += (double)part[(int64_t)b * width + j];
-  out[j] = (float)a;
+  store_total(out, slot, j, a);
 }
 
 constexpr int kFinalizeWarps = 8;
@@ -336,7 +356,7 @@ constexpr int kFinalizeWarps = 8;
 // then warp 0 adds the eight warps in order. Fixed order, so deterministic.
 __global__ void __launch_bounds__(kFinalizeWarps * 32)
 finalize_tree_kernel(const float* __restrict__ part, int grid, int width,
-                     float* __restrict__ out) {
+                     float* __restrict__ out, double* __restrict__ slot) {
   __shared__ double s[kFinalizeWarps][32];
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
@@ -353,8 +373,25 @@ finalize_tree_kernel(const float* __restrict__ part, int grid, int width,
   if (w == 0 && j < width) {
     double t = 0.0;
     for (int q = 0; q < kFinalizeWarps; ++q) t += s[q][lane];
-    out[j] = (float)t;
+    store_total(out, slot, j, t);
   }
+}
+
+// B4's rank-order sum (replaces the psum of _shard_psum_call in
+// photon_ml_tpu/ops/pallas_glm.py). slots is the group's [world, width]
+// float64 buffer after the all-gather: row r holds rank r's totals. Column
+// j adds the rows in rank order in double (acc = s[0]; acc += s[r]), so every
+// rank and either backend get the same bits whatever order the collective
+// took, and writes the sum as f32 into out[j]. One thread per column, no
+// atomics. It moves a few KB (world x width doubles): its time is the
+// launch's.
+__global__ void rank_order_sum_kernel(const double* __restrict__ slots, int world, int width,
+                                      float* __restrict__ out) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= width) return;
+  double acc = slots[j];
+  for (int r = 1; r < world; ++r) acc += slots[(int64_t)r * width + j];
+  out[j] = (float)acc;
 }
 
 // ---------------------------------------------------------------- ring body
@@ -848,14 +885,15 @@ int fused_glm_blocks_per_sm(int mode, int bf16, int body, int vec16, long long s
 }
 
 // One sweep as planned: the main kernel writes part[grid, width] (steps bit
-// 1), the finalize (0 serial, 1 tree) reduces it into out[width] (steps bit
-// 2). Both go on `stream`; nothing synchronises. Returns cudaGetLastError()
-// after each launch.
+// 1), the finalize (0 serial, 1 tree) reduces it into out[width] as f32 or,
+// where slot is not null, into slot[width] as the f32 values widened to
+// double (steps bit 2). Both go on `stream`; nothing synchronises. Returns
+// cudaGetLastError() after each launch.
 int fused_glm_launch(int mode, int bf16, int body, int finalize, int steps, const void* x,
                      const void* coef, const void* v, const float* y, const float* off,
                      const float* wt, const float* vshift, long long n, int d, int loss, int grid,
                      int rows_per_tile, int stages, long long smem, int vec16, float* part,
-                     float* out, void* stream) {
+                     float* out, double* slot, void* stream) {
   if (mode < kVG || mode > kHDShifts || (body != kStaged && body != kRing) ||
       (body == kRing && mode > kHV) || (finalize != kFinalizeSerial && finalize != kFinalizeTree))
     return (int)cudaErrorInvalidValue;
@@ -873,11 +911,23 @@ int fused_glm_launch(int mode, int bf16, int body, int finalize, int steps, cons
   if (steps & kStepFinalize) {
     const int width = out_width(mode, d);
     if (finalize == kFinalizeTree) {
-      finalize_tree_kernel<<<(width + 31) / 32, kFinalizeWarps * 32, 0, s>>>(part, grid, width, out);
+      finalize_tree_kernel<<<(width + 31) / 32, kFinalizeWarps * 32, 0, s>>>(part, grid, width, out, slot);
     } else {
-      finalize_serial_kernel<<<(width + 255) / 256, 256, 0, s>>>(part, grid, width, out);
+      finalize_serial_kernel<<<(width + 255) / 256, 256, 0, s>>>(part, grid, width, out, slot);
     }
   }
+  return (int)cudaGetLastError();
+}
+
+// B4's rank-order sum of slots[world, width] (float64) into the f32
+// out[width]. On `stream`; nothing synchronises. Returns
+// cudaErrorInvalidValue for world < 1 or width < 1, else cudaGetLastError()
+// after the launch.
+int rank_order_sum_launch(const double* slots, int world, int width, float* out, void* stream) {
+  if (world < 1 || width < 1) return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  rank_order_sum_kernel<<<(width + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+      slots, world, width, out);
   return (int)cudaGetLastError();
 }
 

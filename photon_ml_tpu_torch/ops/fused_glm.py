@@ -14,10 +14,15 @@ and, over a batch sharded across ``torch.distributed`` ranks (B4, replacing
 ``_shard_psum_call`` and the ``sharded_*`` wrappers):
 
 - ``sharded_value_grad``, ``sharded_hessian_vector``, ``sharded_hessian_stats``:
-  each rank runs the kernel above on its row shard (the plain version on the
-  CPU) and the outputs are summed across ranks in rank order in float64
-  (``DataParallelGroup.slot_sum``), so that every rank gets bitwise the same
-  numbers; ``group=None`` is the one-process call.
+  each rank runs the kernel above on its row shard, its finalize writing the
+  totals (the f32 values widened to float64) into the rank's row of the
+  group's cached ``[world, width]`` slot buffer; one all-gather fills the
+  other rows (``DataParallelGroup.gather_slots``: on NCCL in stream order,
+  with no host wait), and ``rank_order_sum``, a kernel of its own, adds the
+  rows in rank order in float64 into the f32 outputs, so that every rank
+  gets bitwise the same numbers. On the CPU the plain versions' outputs go
+  into the slot row and ``rank_order_sum_plain`` adds them. ``group=None``
+  is the one-process call.
 
 ``offsets`` already carry the normalization margin shift, so the shift and
 factor algebra stays in ``ops/glm.py``. The kernels live in
@@ -32,7 +37,8 @@ bf16 value is exact (the TPU kernel rounds it to bf16 for its bf16 dot).
 
 ``LAUNCHES`` counts the kernel launches of each wrapper, and
 ``SHARDED_LAUNCHES`` those of the ``sharded_*`` wrappers over a group (one
-per call whose rank launched its kernel); ``ROUTES`` counts the same
+per call whose rank launched its kernel); ``SUM_LAUNCHES`` those of the
+rank-order sum kernel; ``ROUTES`` counts the same
 launches by the body that ran them: the ring body with its tiles by bulk
 copy (``ring_bulk_copy``) or by plain loads (``ring_plain_loads``, rows not
 16-byte aligned), or the staged body (``staged``: the Hessian statistics,
@@ -58,6 +64,7 @@ Tensor = torch.Tensor
 
 LAUNCHES = {"fused_value_grad": 0, "fused_hessian_vector": 0, "fused_hessian_stats": 0}
 SHARDED_LAUNCHES = {"sharded_value_grad": 0, "sharded_hessian_vector": 0, "sharded_hessian_stats": 0}
+SUM_LAUNCHES = {"rank_order_sum": 0}
 ROUTES = {"ring_bulk_copy": 0, "ring_plain_loads": 0, "staged": 0}
 
 # sweep modes, bodies, finalizes and launch steps of csrc/fused_glm.cu
@@ -72,7 +79,7 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, SHARDED_LAUNCHES, ROUTES):
+    for counts in (LAUNCHES, SHARDED_LAUNCHES, SUM_LAUNCHES, ROUTES):
         for k in counts:
             counts[k] = 0
 
@@ -176,14 +183,37 @@ def _library() -> ctypes.CDLL:
         lib.fused_glm_blocks_per_sm.argtypes = [i, i, i, i, ll, pi]
         lib.fused_glm_blocks_per_sm.restype = i
         lib.fused_glm_launch.argtypes = [
-            i, i, i, i, i, p, p, p, p, p, p, p, ll, i, i, i, i, i, ll, i, p, p, p,
+            i, i, i, i, i, p, p, p, p, p, p, p, ll, i, i, i, i, i, ll, i, p, p, p, p,
         ]
         lib.fused_glm_launch.restype = i
+        lib.rank_order_sum_launch.argtypes = [p, i, i, p, p]
+        lib.rank_order_sum_launch.restype = i
     return lib
 
 
 def _out_width(mode: int, d: int) -> int:
     return {VG: d + 2, HV: d + 1, HD: d, HD_SHIFTS: 2 * d + 1}[mode]
+
+
+def _split(mode: int, d: int, out: Tensor) -> tuple:
+    """A wrapper's outputs as views of the flat ``[_out_width]`` output:
+    the column sums first, then the scalars (value+grad: ``(value, grad,
+    sum wt*dz)``; Hv: ``(hv, sum c*u)``; the Hessian stats: ``(s2, s1, s0)``,
+    the last two ``None`` without shifts)."""
+    if mode == VG:
+        return out[d], out[:d], out[d + 1]
+    if mode == HV:
+        return out[:d], out[d]
+    if mode == HD:
+        return out, None, None
+    return out[:d], out[d : 2 * d], out[2 * d]
+
+
+def _flat(mode: int, outs: tuple) -> Tensor:
+    """The inverse of ``_split``: a plain version's outputs as one float64
+    row in the kernel's output layout."""
+    parts = (outs[1], outs[0], outs[2]) if mode == VG else outs
+    return torch.cat([o.reshape(-1).to(torch.float64) for o in parts if o is not None])
 
 
 def body_for(mode: int, d: int) -> int:
@@ -225,9 +255,12 @@ def _plan(lib, key: tuple) -> Tuple[int, int, int, int]:
 def _launch(
     mode: int, x, coef, v, labels, offsets, weights, vshift, loss: PointwiseLoss,
     body: Optional[int] = None, finalize: int = FINALIZE_TREE, steps: int = STEP_MAIN | STEP_FINALIZE,
+    slot: Optional[Tensor] = None,
 ) -> Tensor:
     """Check the operands, then run one sweep of ``mode``; returns the
-    flat f32 output (see ``_out_width``). ``body`` (default ``body_for``),
+    flat f32 output (see ``_out_width``) or, given a ``slot`` (a contiguous
+    float64 ``[_out_width]`` CUDA row, B4's), writes the f32 totals widened
+    to float64 there and returns it. ``body`` (default ``body_for``),
     ``finalize`` and ``steps`` select the previous design's body, the
     serial finalize or one step alone, for timing them against each other
     (``chip_smoke.py``)."""
@@ -255,18 +288,27 @@ def _launch(
     with torch.cuda.device(dev):
         grid, rows, stages, smem = _plan(lib, (dev.index, mode, bf16, n, d, vec16, body))
         width = _out_width(mode, d)
+        if slot is not None and (
+            slot.shape != (width,) or slot.dtype != torch.float64 or slot.device != dev
+            or not slot.is_contiguous()
+        ):
+            raise ValueError(
+                f"the slot must be a contiguous float64 ({width},) row on {dev}, got "
+                f"{slot.dtype} {tuple(slot.shape)} on {slot.device}"
+            )
         part = torch.empty((grid, width), dtype=torch.float32, device=dev)
-        out = torch.empty(width, dtype=torch.float32, device=dev)
+        out = torch.empty(width, dtype=torch.float32, device=dev) if slot is None else None
         rc = lib.fused_glm_launch(
             mode, bf16, body, finalize, steps, x.data_ptr(), coef.data_ptr(),
             v.data_ptr() if hv else None, y.data_ptr(), off.data_ptr(), wt.data_ptr(),
             vshift.data_ptr() if hv else None, n, d, loss.code, grid, rows, stages, smem, vec16,
-            part.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            part.data_ptr(), None if out is None else out.data_ptr(),
+            None if slot is None else slot.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused_glm_launch failed: CUDA error {rc}")
     ROUTES[route_name(body, vec16)] += 1
-    return out
+    return slot if out is None else out
 
 
 def route_name(body: int, vec16: int) -> str:
@@ -320,8 +362,7 @@ def fused_value_grad(
     _require_cuda(x)
     out = _launch(VG, x, eff_coef, None, labels, offsets, weights, None, loss)
     LAUNCHES["fused_value_grad"] += 1
-    d = x.shape[1]
-    return out[d], out[:d], out[d + 1]
+    return _split(VG, x.shape[1], out)
 
 
 def fused_hessian_vector(
@@ -341,8 +382,7 @@ def fused_hessian_vector(
     _require_cuda(x)
     out = _launch(HV, x, eff_coef, eff_v, labels, offsets, weights, vshift, loss)
     LAUNCHES["fused_hessian_vector"] += 1
-    d = x.shape[1]
-    return out[:d], out[d]
+    return _split(HV, x.shape[1], out)
 
 
 def fused_hessian_stats(
@@ -361,32 +401,90 @@ def fused_hessian_stats(
     if x.device.type == "cpu":
         return hessian_stats_plain(x, eff_coef, labels, offsets, weights, loss, need_shifts)
     _require_cuda(x)
-    out = _launch(HD_SHIFTS if need_shifts else HD, x, eff_coef, None, labels, offsets, weights, None, loss)
+    mode = HD_SHIFTS if need_shifts else HD
+    out = _launch(mode, x, eff_coef, None, labels, offsets, weights, None, loss)
     LAUNCHES["fused_hessian_stats"] += 1
-    d = x.shape[1]
-    if not need_shifts:
-        return out, None, None
-    return out[:d], out[d : 2 * d], out[2 * d]
+    return _split(mode, x.shape[1], out)
 
 
-def _sum_over_ranks(group, name: str, launched: bool, outs: tuple) -> tuple:
-    """B4's reduction: the rank's outputs, flattened in float64 into one
-    row, summed over the ranks in rank order (``group.slot_sum``) and cast
-    back to each output's dtype (f32 from a kernel, the batch's dtype from a
-    plain version). ``None`` outputs stay ``None``. ``launched``: this
-    rank's sweep was a kernel launch, counted in ``SHARDED_LAUNCHES``."""
-    parts = [o for o in outs if o is not None]
-    flat = torch.cat([o.reshape(-1).to(torch.float64) for o in parts])
-    total = group.slot_sum(flat)
-    if launched:
+def rank_order_sum_plain(slots: Tensor, dtype: torch.dtype) -> Tensor:
+    """Plain version of ``rank_order_sum``: the rows of ``slots`` added in
+    rank order in float64, cast to ``dtype``; a fresh tensor, never a view
+    of ``slots``."""
+    acc = slots[0].clone()
+    for r in range(1, slots.shape[0]):
+        acc += slots[r]
+    return acc.to(dtype)
+
+
+def rank_order_sum(slots: Tensor, dtype: torch.dtype = torch.float32) -> Tensor:
+    """B4's sum over ranks: column j of the ``[world, width]`` float64
+    ``slots`` added in rank order in float64 (``s[0] + s[1] + ...``) and
+    written as ``dtype`` into a new ``[width]`` tensor: on the card one CUDA
+    launch, float32 only (the kernels' and the card's plain sweeps' outputs);
+    a CPU tensor takes ``rank_order_sum_plain`` (float64 too, for a float64
+    batch)."""
+    if slots.device.type == "cpu":
+        return rank_order_sum_plain(slots, dtype)
+    _require_cuda(slots)
+    if slots.dim() != 2 or slots.dtype != torch.float64 or not slots.is_contiguous():
+        raise ValueError(
+            f"slots must be a contiguous float64 [world, width] tensor, got {slots.dtype} "
+            f"{tuple(slots.shape)}"
+        )
+    if dtype != torch.float32:
+        raise TypeError(f"the rank-order sum kernel writes float32, got {dtype}")
+    world, width = slots.shape
+    out = torch.empty(width, dtype=dtype, device=slots.device)
+    lib = _library()
+    with torch.cuda.device(slots.device):
+        rc = lib.rank_order_sum_launch(
+            slots.data_ptr(), world, width, out.data_ptr(), torch.cuda.current_stream(slots.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"rank_order_sum_launch failed for world {world}, width {width}: CUDA error {rc}")
+    SUM_LAUNCHES["rank_order_sum"] += 1
+    return out
+
+
+_KERNEL_NAMES = {VG: "fused_value_grad", HV: "fused_hessian_vector", HD: "fused_hessian_stats",
+                 HD_SHIFTS: "fused_hessian_stats"}
+
+
+def _plain(mode: int, x, coef, v, labels, offsets, weights, vshift, loss: PointwiseLoss) -> tuple:
+    """The plain version of a sweep of ``mode``."""
+    if mode == VG:
+        return value_grad_plain(x, coef, labels, offsets, weights, loss)
+    if mode == HV:
+        return hessian_vector_plain(x, coef, v, labels, offsets, weights, vshift, loss)
+    return hessian_stats_plain(x, coef, labels, offsets, weights, loss, mode == HD_SHIFTS)
+
+
+def _sharded(group, name: str, mode: int, plain: bool, x: Tensor, coef, v, labels, offsets, weights,
+             vshift, loss: PointwiseLoss) -> tuple:
+    """B4 over ``group``: this rank's totals into its row of the group's slot
+    buffer (on the card the finalize writes them; on the CPU, or with
+    ``plain``, the plain version's outputs are copied there), the rows
+    gathered from every rank, and the rank-order sum split into the
+    wrapper's outputs. ``SHARDED_LAUNCHES`` counts the calls whose rank
+    launched its kernel."""
+    width = _out_width(mode, x.shape[1])
+    slots = group.slot_buffer(width, x.device)
+    launch = not plain and x.device.type != "cpu"
+    if launch:
+        _require_cuda(x)
+        _launch(mode, x, coef, v, labels, offsets, weights, vshift, loss, slot=slots[group.rank])
+        LAUNCHES[_KERNEL_NAMES[mode]] += 1
+        dtype = torch.float32
+    else:
+        outs = _plain(mode, x, coef, v, labels, offsets, weights, vshift, loss)
+        dtype = outs[0].dtype
+        slots[group.rank] = _flat(mode, outs)
+    group.gather_slots(slots)
+    total = rank_order_sum(slots, dtype)
+    if launch:
         SHARDED_LAUNCHES[name] += 1
-    summed, at = [], 0
-    for o in parts:
-        k = o.numel()
-        summed.append(total[at : at + k].reshape(o.shape).to(o.dtype))
-        at += k
-    it = iter(summed)
-    return tuple(None if o is None else next(it) for o in outs)
+    return _split(mode, x.shape[1], total)
 
 
 def sharded_value_grad(
@@ -403,12 +501,11 @@ def sharded_value_grad(
     through the kernel (``plain=True``: through ``value_grad_plain``, the
     reference run), then the three aggregates summed over ``group``'s
     ranks. ``group=None`` is the unsharded call."""
-    sweep = value_grad_plain if plain else fused_value_grad
-    outs = sweep(x, eff_coef, labels, offsets, weights, loss)
     if group is None:
-        return outs
-    launched = not plain and x.device.type == "cuda"
-    return _sum_over_ranks(group, "sharded_value_grad", launched, outs)
+        sweep = value_grad_plain if plain else fused_value_grad
+        return sweep(x, eff_coef, labels, offsets, weights, loss)
+    return _sharded(group, "sharded_value_grad", VG, plain, x, eff_coef, None, labels, offsets,
+                    weights, None, loss)
 
 
 def sharded_hessian_vector(
@@ -425,12 +522,11 @@ def sharded_hessian_vector(
 ) -> Tuple[Tensor, Tensor]:
     """``fused_hessian_vector`` over a row-sharded batch (see
     ``sharded_value_grad``)."""
-    sweep = hessian_vector_plain if plain else fused_hessian_vector
-    outs = sweep(x, eff_coef, eff_v, labels, offsets, weights, vshift, loss)
     if group is None:
-        return outs
-    launched = not plain and x.device.type == "cuda"
-    return _sum_over_ranks(group, "sharded_hessian_vector", launched, outs)
+        sweep = hessian_vector_plain if plain else fused_hessian_vector
+        return sweep(x, eff_coef, eff_v, labels, offsets, weights, vshift, loss)
+    return _sharded(group, "sharded_hessian_vector", HV, plain, x, eff_coef, eff_v, labels, offsets,
+                    weights, vshift, loss)
 
 
 def sharded_hessian_stats(
@@ -446,12 +542,12 @@ def sharded_hessian_stats(
 ) -> Tuple[Tensor, Optional[Tensor], Optional[Tensor]]:
     """``fused_hessian_stats`` over a row-sharded batch (see
     ``sharded_value_grad``)."""
-    sweep = hessian_stats_plain if plain else fused_hessian_stats
-    outs = sweep(x, eff_coef, labels, offsets, weights, loss, need_shifts)
     if group is None:
-        return outs
-    launched = not plain and x.device.type == "cuda"
-    return _sum_over_ranks(group, "sharded_hessian_stats", launched, outs)
+        sweep = hessian_stats_plain if plain else fused_hessian_stats
+        return sweep(x, eff_coef, labels, offsets, weights, loss, need_shifts)
+    mode = HD_SHIFTS if need_shifts else HD
+    return _sharded(group, "sharded_hessian_stats", mode, plain, x, eff_coef, None, labels, offsets,
+                    weights, None, loss)
 
 
 def sweep_bytes(n: int, d: int, x_dtype: torch.dtype, mode: int) -> int:

@@ -17,11 +17,13 @@ Everything ``[n]``-sized and every model stays whole on every rank.
 
 Every collective here is exact, so that every rank holds bitwise the same
 numbers and the replicated solver loops take the same decisions: each rank
-writes its part into its own slot of a zero ``[world, ...]`` float64 buffer
-and one ``all_reduce(SUM)`` fills every slot (each column has one nonzero,
-and ``x + 0 = x``). A sum across ranks then adds the slots in rank order in
-float64 (``slot_sum``), whatever order the backend's ring would take. Gloo
-stages the buffer through a host tensor; NCCL keeps it on the card.
+writes its part into its own row of a ``[world, width]`` float64 slot
+buffer and one all-gather fills the other rows with a copy of each rank's
+(``gather_slots``, ``gather_rows``). A sum across ranks then adds the rows
+in rank order in float64 (``ops/fused_glm.py`` ``rank_order_sum``),
+whatever order the backend's ring would take. Gloo stages the buffer
+through a host tensor; NCCL keeps it on the card and runs in stream order,
+so B4's slot gathers make the host wait for nothing.
 
 Model-axis (feature) sharding and the ELL / sorted-COO layouts are ROADMAP
 A10 and A1 and raise.
@@ -32,7 +34,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -54,10 +56,13 @@ class DataParallelGroup:
     size, device and backend (``"nccl"`` or ``"gloo"``).
 
     ``collectives`` and ``collective_seconds`` count this rank's collective
-    calls (slot sums, row gathers, broadcasts) and their host seconds. A call on a CUDA buffer synchronizes the
-    device first, so the seconds are the collective's own (staging, the
-    backend, the wait for the slowest rank and the rank-order sum) and not
-    the kernel before it."""
+    calls (slot gathers, row gathers, broadcasts) and their seconds: each
+    collective's own, including the wait for the slowest rank, and not the
+    kernel before it. A slot gather over NCCL is timed by a pair of CUDA
+    events on the current stream, resolved when ``collective_seconds`` is
+    read (the host then waits for the last one); every other call
+    synchronizes a CUDA device before and after and takes the host clock
+    (staging through the host included)."""
 
     rank: int
     world_size: int
@@ -65,7 +70,11 @@ class DataParallelGroup:
     backend: str
     process_group: Optional[object] = None  # None: torch.distributed's default group
     collectives: int = 0
-    collective_seconds: float = 0.0
+    _seconds: float = dataclasses.field(default=0.0, init=False, repr=False)
+    _pending: list = dataclasses.field(default_factory=list, init=False, repr=False)
+    _slots: Dict[Tuple[int, torch.device], Tensor] = dataclasses.field(
+        default_factory=dict, init=False, repr=False
+    )
 
     def __post_init__(self):
         if self.backend not in ("nccl", "gloo"):
@@ -79,6 +88,24 @@ class DataParallelGroup:
         # CUDA support
         return torch.device("cpu") if self.backend == "gloo" else self.device
 
+    @property
+    def collective_seconds(self) -> float:
+        self._resolve(wait=True)
+        return self._seconds
+
+    def _resolve(self, wait: bool) -> None:
+        """Add the pending NCCL event pairs' times, in order: all of them
+        (``wait``: the host waits for each end event), or those already
+        done (no wait)."""
+        while self._pending:
+            start, end = self._pending[0]
+            if wait:
+                end.synchronize()
+            elif not end.query():
+                return
+            self._seconds += start.elapsed_time(end) * 1e-3
+            self._pending.pop(0)
+
     @contextlib.contextmanager
     def _collective(self, device: torch.device):
         sync = device.type == "cuda"
@@ -89,32 +116,54 @@ class DataParallelGroup:
         if sync:
             torch.cuda.synchronize(device)
         self.collectives += 1
-        self.collective_seconds += time.perf_counter() - t0
+        self._seconds += time.perf_counter() - t0
 
-    def _all_reduce_sum(self, buf: Tensor) -> None:
+    def _all_gather(self, buf: Tensor) -> None:
+        """Row ``rank`` of ``buf`` (``[world, width]``, contiguous) into the
+        same row on every rank: one in-place all-gather."""
         import torch.distributed as dist
 
-        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=self.process_group)
+        gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+        gather(buf.view(-1), buf[self.rank], group=self.process_group)
 
-    def _slots(self, flat: Tensor) -> Tensor:
-        """``[world, width]`` float64: row r is rank r's ``flat``."""
-        buf = torch.zeros(
-            (self.world_size, flat.numel()), dtype=torch.float64, device=self._buffer_device()
-        )
-        buf[self.rank] = flat.reshape(-1).to(buf.device, torch.float64)
-        self._all_reduce_sum(buf)
+    def slot_buffer(self, width: int, device) -> Tensor:
+        """The group's ``[world, width]`` float64 slot buffer on ``device``,
+        made on first use and kept (B4 writes this rank's row of it on every
+        call); at most a few widths are in use at a time."""
+        key = (width, torch.device(device))
+        buf = self._slots.get(key)
+        if buf is None:
+            if len(self._slots) >= 16:
+                self._slots.clear()
+            buf = torch.empty((self.world_size, width), dtype=torch.float64, device=key[1])
+            self._slots[key] = buf
         return buf
 
-    def slot_sum(self, flat: Tensor) -> Tensor:
-        """The sum over ranks of a flat tensor, added in rank order in
-        float64; returned in float64 on ``flat``'s device. Bitwise the same
-        on every rank and on either backend; the identity for one rank."""
-        with self._collective(flat.device):
-            s = self._slots(flat)
-            acc = s[0]
-            for r in range(1, self.world_size):
-                acc = acc + s[r]
-            return acc.to(flat.device)
+    def gather_slots(self, slots: Tensor) -> Tensor:
+        """Fill every row of ``slots`` (a ``slot_buffer`` whose row ``rank``
+        this rank has written) with the rank that owns it; returns
+        ``slots``. Over NCCL the all-gather runs on the card in stream order:
+        the current stream waits for it and the host does not. Gloo stages
+        a CUDA buffer through the host buffer of the same width."""
+        if self.backend == "nccl":
+            stream = torch.cuda.current_stream(slots.device)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            self._all_gather(slots)
+            end.record(stream)
+            self.collectives += 1
+            self._resolve(wait=False)
+            self._pending.append((start, end))
+            return slots
+        with self._collective(slots.device):
+            if slots.device.type == "cpu":
+                self._all_gather(slots)
+            else:
+                host = self.slot_buffer(slots.shape[1], "cpu")
+                host[self.rank] = slots[self.rank]
+                self._all_gather(host)
+                slots.copy_(host)
+        return slots
 
     def gather_rows(self, tensors: Sequence[Tensor]) -> List[Tensor]:
         """Each tensor's rows from every rank, concatenated in rank order
@@ -126,7 +175,12 @@ class DataParallelGroup:
         dev = tensors[0].device
         with self._collective(dev):
             flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors])
-            s = self._slots(flat)
+            # a fresh buffer: the rows returned below may be views of it
+            s = torch.empty(
+                (self.world_size, flat.numel()), dtype=torch.float64, device=self._buffer_device()
+            )
+            s[self.rank] = flat.to(s.device)
+            self._all_gather(s)
             out, at = [], 0
             for t in tensors:
                 k = t.numel()
@@ -147,7 +201,9 @@ class DataParallelGroup:
     def barrier(self) -> None:
         """Every rank reaches this point (a one-element all-reduce, which
         works alike on both backends)."""
-        self._all_reduce_sum(torch.zeros(1, device=self._buffer_device()))
+        import torch.distributed as dist
+
+        dist.all_reduce(torch.zeros(1, device=self._buffer_device()), group=self.process_group)
 
 
 def row_range(n_rows: int, group: DataParallelGroup):

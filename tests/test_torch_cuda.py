@@ -334,6 +334,96 @@ def test_b4_over_ranks_matches_float64_plain(cuda, tmp_path, backend):
                 assert (a is None and b is None) or np.array_equal(a, b), k
 
 
+def _same_bits(a, b) -> bool:
+    """Two numpy outputs (or both None) bitwise equal, 0-d arrays too."""
+    import numpy as np
+
+    if a is None or b is None:
+        return a is None and b is None
+    bits = lambda t: np.ascontiguousarray(t).reshape(-1).view(np.uint8)  # noqa: E731
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(bits(a), bits(b))
+
+
+@pytest.mark.parametrize("width", [1, 33, 1026, 2049])
+@pytest.mark.parametrize("world", range(1, 9))
+def test_rank_order_sum_matches_plain_bitwise(cuda, world, width):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(world * 10_000 + width)
+    scale = 10.0 ** torch.randint(-8, 9, (world, width), generator=g, device=cuda).double()
+    slots = torch.randn((world, width), generator=g, device=cuda, dtype=torch.float64) * scale
+    got = fg.rank_order_sum(slots)
+    want = fg.rank_order_sum_plain(slots.cpu(), torch.float32)
+    assert got.dtype == torch.float32 and got.shape == (width,)
+    assert torch.equal(got.cpu().view(torch.uint8), want.view(torch.uint8))
+    assert fg.SUM_LAUNCHES == {"rank_order_sum": 1}
+    with pytest.raises(TypeError, match="float32"):
+        fg.rank_order_sum(slots, torch.float64)
+    with pytest.raises(ValueError, match="float64"):
+        fg.rank_order_sum(slots.float())
+    assert fg.SUM_LAUNCHES == {"rank_order_sum": 1}
+
+
+@pytest.mark.parametrize("mode", [fg.VG, fg.HV, fg.HD, fg.HD_SHIFTS], ids=["vg", "hv", "hd", "hd_shifts"])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,base", [(9001, 1024, 0), (777, 203, 1), (300, 1032, 0)])
+def test_finalize_into_the_slot_is_the_widened_f32_output(cuda, mode, xdt, n, d, base):
+    """B4's output form: the finalize's float64 slot row equals the f32
+    output widened, bitwise, for every body (ring with bulk copies or plain
+    loads, staged)."""
+    x, coef, v, y, off, wt, vshift = _inputs(cuda, n, d, xdt, seed=n + d + mode, base=base)
+    hv = mode == fg.HV
+    operands = (x, coef, v if hv else None, y, off, wt, vshift if hv else None, LOSSES["logistic"])
+    out = fg._launch(mode, *operands)
+    slots = torch.full((3, fg._out_width(mode, d)), float("nan"), dtype=torch.float64, device=cuda)
+    got = fg._launch(mode, *operands, slot=slots[1])
+    assert got.data_ptr() == slots[1].data_ptr()
+    assert torch.equal(slots[1].view(torch.int64), out.double().view(torch.int64))
+    assert bool(slots[0].isnan().all()) and bool(slots[2].isnan().all())  # other rows untouched
+    with pytest.raises(ValueError, match="slot"):
+        fg._launch(mode, *operands, slot=slots[1, 1:])
+
+
+def test_nccl_b4_call_makes_no_host_synchronize(cuda, tmp_path):
+    """One NCCL rank: each B4 call is the rank's kernel, its finalize into
+    the slot, one stream-ordered all-gather and one rank-order sum, with no
+    host synchronize (CUDA's sync debug mode at "error", and
+    torch.cuda.synchronize counted); its outputs are bitwise the unsharded
+    call's and the all-reduce formulation's, and collective_seconds then
+    reads the four collectives."""
+    from photon_ml_tpu_torch.ops import cuda_lib
+    from photon_ml_tpu_torch.parallel import spawn
+
+    cuda_lib.load("fused_glm")
+    (out,) = spawn("test_torch_parallel_ranks:b4_without_host_sync", 1, "nccl", "cuda",
+                   args=(20_003, 256, 7), timeout_s=300, store_dir=tmp_path)
+    assert out["syncs"] == 0
+    assert out["launches"] == {"fused_value_grad": 1, "fused_hessian_vector": 1, "fused_hessian_stats": 2}
+    assert out["sharded"] == {"sharded_value_grad": 1, "sharded_hessian_vector": 1, "sharded_hessian_stats": 2}
+    assert out["sums"] == {"rank_order_sum": 4}
+    assert out["collectives"] == 4 and out["seconds"] >= 0.0
+    for other in ("warm", "unsharded", "all_reduce"):
+        for k, v in out["got"].items():
+            for a, b in zip(v, out[other][k]):
+                assert _same_bits(a, b), (other, k)
+
+
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_b4_on_card_is_bitwise_the_all_reduce_formulation(cuda, tmp_path, backend):
+    """B4 over ranks on the card (two gloo ranks sharing it, or one NCCL
+    rank per card) against the zero-buffer all-reduce and its loop, on the
+    same shards: bitwise, on every rank."""
+    from photon_ml_tpu_torch.ops import cuda_lib
+    from photon_ml_tpu_torch.parallel import spawn
+
+    cuda_lib.load("fused_glm")
+    outs = spawn("test_torch_parallel_ranks:b4_on_card_both", _ranks_for(backend), backend, "cuda",
+                 args=(20_003, 256, 9), timeout_s=300, store_dir=tmp_path)
+    for out in outs:
+        for k, v in out["b4"].items():
+            for a, b, c in zip(v, out["all_reduce"][k], outs[0]["b4"][k]):
+                assert _same_bits(a, b) and _same_bits(a, c), k
+
+
 @pytest.mark.parametrize("backend", ["gloo", "nccl"])
 def test_glmix_sweep_over_ranks_matches_one_card(cuda, tmp_path, backend):
     """One f32 GLMix sweep over sharded datasets on the card (two gloo ranks

@@ -379,3 +379,15 @@ def test_reset_launch_counts_clears_routes():
     fused_glm.ROUTES["staged"] += 3
     fused_glm.reset_launch_counts()
     assert fused_glm.ROUTES == {"ring_bulk_copy": 0, "ring_plain_loads": 0, "staged": 0}
+
+
+def test_reset_launch_counts_clears_the_rank_order_sums():
+    fused_glm.SUM_LAUNCHES["rank_order_sum"] += 2
+    fused_glm.reset_launch_counts()
+    assert fused_glm.SUM_LAUNCHES == {"rank_order_sum": 0}
+
+
+def test_rank_order_sum_refuses_non_cpu_non_cuda_tensors():
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fused_glm.rank_order_sum(torch.zeros((2, 3), dtype=torch.float64, device="meta"))
+    assert fused_glm.SUM_LAUNCHES == {"rank_order_sum": 0}

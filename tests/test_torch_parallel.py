@@ -18,7 +18,11 @@ fixture spawns once and feeds several tests. Bounds are the JAX suite's:
 - the float64 two-sweep GLMix descent against the JAX mesh run: atol 1e-7
   (test_parallel.py::test_full_game_descent_on_mesh);
 - a one-rank group against no group, and every rank against every other:
-  bitwise equal.
+  bitwise equal;
+- B4 (slot rows gathered by an all-gather into the group's cached buffer,
+  then the rank-order sum) against B4 as first formulated (a zero slot
+  buffer filled by an all-reduce, the slots added by a loop), computed on
+  each rank from the same shard: bitwise equal.
 """
 
 import dataclasses
@@ -56,6 +60,7 @@ from photon_ml_tpu.testing.generators import mixed_data_to_raw_dataset
 from photon_ml_tpu_torch.game import build_random_effect_dataset
 from photon_ml_tpu_torch.game.coordinate import _size_buckets
 from photon_ml_tpu_torch.io.data import RawDataset
+from photon_ml_tpu_torch.ops import fused_glm as fg
 from photon_ml_tpu_torch.ops.features import batch_from_dense
 from photon_ml_tpu_torch.parallel import (
     DataParallelGroup,
@@ -234,6 +239,71 @@ def test_every_rank_gets_bitwise_the_same_sums(worlds, world):
     results = worlds[world]
     for r in range(1, world):
         _same(results[r]["b4"], results[0]["b4"], f"rank {r} b4")
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_b4_is_bitwise_the_all_reduce_formulation(worlds, one, world):
+    """Every function, with and without shifts, on ragged n: the
+    all-gathered slot rows and the rank-order sum give the bits of the
+    zero-buffer all-reduce and its loop, on every rank."""
+    if world == 1:
+        got, want = one["b4_all_reduce"]
+        _same(got, want, "world 1 b4")
+        return
+    for rank, out in enumerate(worlds[world]):
+        for i, (got, want) in enumerate(zip(out["b4"], out["b4_all_reduce"])):
+            _same(got, want, f"rank {rank} case {i}")
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_collective_seconds_count_every_b4_call(worlds, b4_cases, world):
+    """One collective per B4 call (four calls a case), with non-negative
+    seconds, read through ``collective_seconds``."""
+    for out in worlds[world]:
+        count, seconds = out["b4_collectives"]
+        assert count == 4 * len(b4_cases)
+        assert seconds >= 0.0
+
+
+def test_slot_buffers_are_cached_per_width_and_device():
+    g = DataParallelGroup(1, 3, "cpu", "gloo")
+    a = g.slot_buffer(10, "cpu")
+    assert a.shape == (3, 10) and a.dtype == torch.float64
+    assert g.slot_buffer(10, torch.device("cpu")) is a
+    b = g.slot_buffer(11, "cpu")
+    assert b is not a and b.shape == (3, 11) and g.slot_buffer(10, "cpu") is a
+    for w in range(12, 40):  # the cache stays bounded
+        g.slot_buffer(w, "cpu")
+    assert len(g._slots) <= 16
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("world", [1, 2, 3, 8])
+def test_rank_order_sum_plain_adds_rows_in_rank_order(world, dtype):
+    rng = np.random.default_rng(world)
+    slots = rng.standard_normal((world, 33)) * 10.0 ** rng.integers(-8, 9, (world, 33))
+    want = slots[0].copy()
+    for r in range(1, world):
+        want = want + slots[r]
+    t = torch.from_numpy(slots)
+    got = fg.rank_order_sum(t, dtype)
+    assert got.dtype == dtype
+    _same(got.numpy(), want.astype(np.float64 if dtype == torch.float64 else np.float32), "sum")
+    got += 1.0  # a fresh tensor, never a view of the slots
+    assert np.array_equal(t.numpy(), slots)
+    if world == 3:  # rank order, not any other: (1e16 + 1) - 1e16 == 0
+        order = torch.tensor([[1e16], [1.0], [-1e16]], dtype=torch.float64)
+        assert float(fg.rank_order_sum(order, torch.float64)[0]) == 0.0
+
+
+@pytest.mark.parametrize("mode", [fg.VG, fg.HV, fg.HD, fg.HD_SHIFTS], ids=["vg", "hv", "hd", "hd_shifts"])
+def test_split_and_flat_are_inverse(mode):
+    d = 5
+    flat = torch.arange(fg._out_width(mode, d), dtype=torch.float64)
+    outs = fg._split(mode, d, flat)
+    assert torch.equal(fg._flat(mode, outs), flat)
+    if mode == fg.VG:  # (value, grad, sum wt*dz), as the plain version returns them
+        assert float(outs[0]) == d and torch.equal(outs[1], flat[:d]) and float(outs[2]) == d + 1
 
 
 @pytest.mark.parametrize("world", [2, 4])

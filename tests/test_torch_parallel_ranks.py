@@ -69,6 +69,53 @@ def b4_outputs(group, case, device="cpu"):
     return {k: tuple(_np(o) for o in outs) for k, outs in (("vg", vg), ("hv", hv), ("hd", hd), ("hds", hds))}
 
 
+def _all_reduce_sum(group, outs):
+    """The B4 reduction as first written, kept here as the reference of the
+    bitwise check: the rank's outputs flattened in float64 into its slot of a
+    zero ``[world, width]`` buffer (a host buffer on gloo), one
+    ``all_reduce(SUM)`` filling every slot, the slots added in rank order in
+    float64, each sum cast back to its output's dtype."""
+    import torch.distributed as dist
+
+    parts = [o for o in outs if o is not None]
+    flat = torch.cat([o.reshape(-1).to(torch.float64) for o in parts])
+    host = torch.device("cpu") if group.backend == "gloo" else flat.device
+    buf = torch.zeros((group.world_size, flat.numel()), dtype=torch.float64, device=host)
+    buf[group.rank] = flat.to(host)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group.process_group)
+    acc = buf[0]
+    for r in range(1, group.world_size):
+        acc = acc + buf[r]
+    acc = acc.to(flat.device)
+    summed, at = [], 0
+    for o in parts:
+        summed.append(acc[at : at + o.numel()].reshape(o.shape).to(o.dtype))
+        at += o.numel()
+    it = iter(summed)
+    return tuple(None if o is None else next(it) for o in outs)
+
+
+def b4_all_reduce_outputs(group, case, device="cpu"):
+    """``b4_outputs`` through the all-reduce formulation above: the rank's
+    unsharded calls on its rows, then ``_all_reduce_sum``."""
+    loss = LOSSES[case["loss"]]
+    batch = shard_batch(
+        batch_from_dense(case["x"], case["y"], offsets=case["off"], weights=case["wt"], device=device),
+        group,
+    )
+    x = batch.features.dense
+    coef, v = _t(case["coef"], device), _t(case["v"], device)
+    vshift = torch.tensor(case["vshift"], device=device)
+    rows = (batch.labels, batch.offsets, batch.weights)
+    calls = (
+        ("vg", lambda: fg.fused_value_grad(x, coef, *rows, loss)),
+        ("hv", lambda: fg.fused_hessian_vector(x, coef, v, *rows, vshift, loss)),
+        ("hd", lambda: fg.fused_hessian_stats(x, coef, *rows, loss, False)),
+        ("hds", lambda: fg.fused_hessian_stats(x, coef, *rows, loss, True)),
+    )
+    return {k: tuple(_np(o) for o in _all_reduce_sum(group, call())) for k, call in calls}
+
+
 def gather_inputs(rank):
     """Per-rank tensors for the exactness check of the row gather: float32,
     float64 (wide magnitudes, inf, NaN) and integers up to 2**52."""
@@ -171,7 +218,10 @@ def checks(group, payload):
     """Every multi-rank check the payload names, on this rank."""
     out = {}
     if "b4" in payload:
+        before = (group.collectives, group.collective_seconds)
         out["b4"] = [b4_outputs(group, case) for case in payload["b4"]]
+        out["b4_collectives"] = (group.collectives - before[0], group.collective_seconds - before[1])
+        out["b4_all_reduce"] = [b4_all_reduce_outputs(group, case) for case in payload["b4"]]
     if "gather" in payload:
         parts = [torch.from_numpy(a) for a in gather_inputs(group.rank)]
         before = group.collectives
@@ -194,6 +244,7 @@ def world_one(group, payload):
     fe["fe_opt"] = dict(fe["fe_opt"], optimizer_type="TRON")
     return {
         "b4": (b4_outputs(group, case), b4_outputs(None, case)),
+        "b4_all_reduce": (b4_outputs(group, case), b4_all_reduce_outputs(group, case)),
         "solve": (_solve(group, payload["solve"]), _solve(None, payload["solve"])),
         "cd": (
             _descent(group, fe, torch.float32, sharded=True),
@@ -230,6 +281,64 @@ def b4_on_card(group, n, d, seed):
     fg.reset_launch_counts()
     out = b4_outputs(group, case, device=group.device)
     return {"outs": out, "launches": dict(fg.LAUNCHES), "sharded": dict(fg.SHARDED_LAUNCHES)}
+
+
+def b4_on_card_both(group, n, d, seed):
+    """``card_case`` through B4 and through ``_all_reduce_sum``, on the
+    rank's card, for the bitwise comparison."""
+    case = card_case(group.device, n, d, seed)
+    return {
+        "b4": b4_outputs(group, case, device=group.device),
+        "all_reduce": b4_all_reduce_outputs(group, case, device=group.device),
+    }
+
+
+def b4_without_host_sync(group, n, d, seed):
+    """B4's four calls on the rank's card with CUDA's sync debug mode at
+    "error" and ``torch.cuda.synchronize`` counting its calls, after a
+    warm-up of the same calls (which also makes the backend's communicator).
+    Returns the synchronizes, the collectives and their seconds, the launch
+    counts, and the outputs of both runs, of the unsharded calls and of
+    ``_all_reduce_sum``."""
+    case = card_case(group.device, n, d, seed)
+    dev = group.device
+    batch = shard_batch(
+        batch_from_dense(case["x"], case["y"], offsets=case["off"], weights=case["wt"], device=dev), group
+    )
+    x, rows = batch.features.dense, (batch.labels, batch.offsets, batch.weights)
+    coef, v = _t(case["coef"], dev), _t(case["v"], dev)
+    vshift = torch.tensor(case["vshift"], device=dev)
+    loss = LOSSES[case["loss"]]
+
+    def calls():
+        return {
+            "vg": fg.sharded_value_grad(group, x, coef, *rows, loss),
+            "hv": fg.sharded_hessian_vector(group, x, coef, v, *rows, vshift, loss),
+            "hd": fg.sharded_hessian_stats(group, x, coef, *rows, loss, False),
+            "hds": fg.sharded_hessian_stats(group, x, coef, *rows, loss, True),
+        }
+
+    warm = calls()
+    torch.cuda.synchronize(dev)
+    fg.reset_launch_counts()
+    before = (group.collectives, group.collective_seconds)
+    real, syncs = torch.cuda.synchronize, []
+    torch.cuda.synchronize = lambda *a, **k: (syncs.append(1), real(*a, **k))[1]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = calls()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize = real
+    counts = {
+        "launches": dict(fg.LAUNCHES), "sharded": dict(fg.SHARDED_LAUNCHES), "sums": dict(fg.SUM_LAUNCHES),
+        "collectives": group.collectives - before[0], "seconds": group.collective_seconds - before[1],
+    }
+    as_np = lambda outs: {k: tuple(_np(o) for o in v) for k, v in outs.items()}  # noqa: E731
+    return dict(
+        counts, syncs=len(syncs), got=as_np(got), warm=as_np(warm),
+        unsharded=b4_outputs(None, case, device=dev), all_reduce=b4_all_reduce_outputs(group, case, device=dev),
+    )
 
 
 def fail_on_rank_one(group):
