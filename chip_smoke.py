@@ -84,11 +84,34 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    stages, shared bytes), and torch.mv(X, coef) as the time to read X once;
 8. diagnostic variants of the ring body (RING_VARIANTS: margins in f32, no
    margins, no column sums, neither), each computing wrong sums, timed in
-   turns with the ring to show what each part of its work costs.
+   turns with the ring to show what each part of its work costs;
+9. the sparse fixed effects (run after phase 6 and before phase 7), every
+   sparse product one launch of the segment kernel (csrc/sparse_glm.cu):
+   (a) the kernel against its float64 plain version for all six products
+   (ELL and COO matvec, rmatvec, sq_rmatvec), f32 and bf16 values, at
+   bench.py's sparse shape (n=200,000, d=10,000,000, 32 entries a row) and a
+   small ragged one (a full column, an empty column, empty rows, repeated
+   pairs): max-abs error <= 3e-5 * max(|ref|, 1), and two launches give the
+   same bits; (b) bench.py's sparse configuration at that shape through
+   RawDataset.to_batch (COO, then ELL) and GLMProblem.run (logistic,
+   L-BFGS tol 1e-9, 20 iterations, L2 1.0): the segment kernel's launches
+   counted from 0 (the plain and dense counters must stay 0), two runs with
+   the same bits, held against the plain route on the card by loss at
+   rtol 1e-5, examples * iterations / s printed; then one OWL-QN solve (L1
+   1.0, SIMPLE variance) on COO, its nonzeros printed, its loss held the
+   same way and its variances at rtol 1e-3; (c) phase 5's
+   sweep with its global shard sparse (n=500,000 rows of 32 entries over
+   d=10,000,000, build_fixed_effect_dataset(layout="auto") picks ELL; FE
+   TRON + SIMPLE variance, RE phase 5's), a warm-up and three timed sweeps
+   with the counters at 0 before them, held against the plain route on the
+   card at phase 5's bounds. Phase 7 then times each product at the sparse
+   shape beside its bound (segment_bytes: entries, source and output once;
+   the design's pointers and a sector per gather beside), its plain version,
+   index_add_ and a cuSPARSE CSR SpMV (torch.mv on a sparse CSR tensor).
 
     python3 chip_smoke.py --only timing    # card, build, then one phase
 
-runs a subset of phases 3-8 (check, fe, glmix, dp, nccl, timing, variants)
+runs a subset of phases 3-9 (check, fe, glmix, dp, nccl, sparse, timing, variants)
 and then reports not ok; "nccl" is phase 6 (c) alone after phase 5 (for a
 machine with several cards: one NCCL rank per card).
 
@@ -106,6 +129,7 @@ import math
 import sys
 import time
 import traceback
+import warnings
 
 import numpy as np
 
@@ -121,6 +145,13 @@ REPLACES = {
     "rank_order_sum": "photon_ml_tpu/ops/pallas_glm.py:345",
 }
 KERNELS = tuple(REPLACES)
+# the segment kernel replaces the JAX package's XLA gathers and scatter-adds
+# (no Pallas kernel); by the product that each of its lines times
+SPARSE_REPLACES = {
+    "matvec": "photon_ml_tpu/ops/features.py:103",
+    "rmatvec": "photon_ml_tpu/ops/features.py:130",
+    "sq_rmatvec": "photon_ml_tpu/ops/features.py:160",
+}
 DESIGN = {
     "fused_value_grad": "ring: a producer warp keeps row tiles in flight by cp.async.bulk on mbarriers "
                         "(2 stages per consumer warp; 7 consumer warps, 16 KB tiles for f32, 11 and 8 KB "
@@ -132,6 +163,11 @@ DESIGN = {
                            "column; tree finalize",
     "rank_order_sum": "one thread per column adds the [world, width] float64 slot rows in rank order "
                       "in double and writes f32; no atomics",
+    "segment_dot": "a warp per 32 consecutive segments: a segment of at most 4 entries summed by its lane in "
+                   "order, a longer one by the whole warp (lane-strided runs in order, then a butterfly of "
+                   "shuffles); a segment of more than 4,096 entries cut into chunks of 4,096, a warp each, "
+                   "their float64 sums added in chunk order by a second small kernel; double sums, each "
+                   "output written once; no atomics",
 }
 B4_DESIGN = ("the rank's B1-B3 with its tree finalize writing the f32 totals widened to float64 into the "
              "rank's row of the group's cached [world, width] slot buffer; one in-place all-gather (NCCL: "
@@ -489,13 +525,14 @@ def build_data(n=500_000, d_fixed=1024, n_users=20_000, d_re=32, seed=0):
     return gx, y, ex, ids
 
 
-def glmix_coordinates(data, dev, plain=False, group=None):
+def glmix_coordinates(data, dev, plain=False, group=None, fe_dataset=None):
     """bench.py's product-path datasets and coordinates on ``dev``: the
     fixed effect batches the dense matrix; the random effect runs the real
     build on a userShard-only RawDataset with active cap 256. With a
     ``group``, the fixed effect's batch is this rank's rows (read from
     ``gx``, which may be memory-mapped) and the random effect keeps the
-    rank's entity range."""
+    rank's entity range. ``fe_dataset`` replaces the dense fixed effect
+    (the sparse phase's)."""
     from photon_ml_tpu_torch.game import (
         FixedEffectCoordinate, FixedEffectDataset, GLMOptimizationConfig,
         RandomEffectCoordinate, build_random_effect_dataset,
@@ -522,7 +559,9 @@ def glmix_coordinates(data, dev, plain=False, group=None):
         variance_type="SIMPLE", **reg,
     )
     cfg_re = GLMOptimizationConfig(optimizer=OptimizerConfig(tolerance=1e-6, max_iterations=30), **reg)
-    if group is None:
+    if fe_dataset is not None:
+        fe_ds = fe_dataset
+    elif group is None:
         fe_ds = FixedEffectDataset("global", "global", batch=batch_from_dense(gx, y, device=dev))
     else:
         start, stop = row_range(n, group)
@@ -1536,6 +1575,437 @@ def ring_variants(torch, n, d, seed):
     return out
 
 
+# ------------------------------------------- phase 9: sparse fixed effects
+#
+# bench.py's sparse configuration (bench_sparse_huge_d: n rows of k entries
+# over d columns, uniform columns, values N(0, 0.3^2), labels from a
+# logistic model of 1,000 hot columns), and its pairing with phase 5's
+# random effect. Every sparse product is one launch of the segment kernel
+# (csrc/sparse_glm.cu, ops/sparse.py).
+
+SPARSE_N, SPARSE_D, SPARSE_K = 200_000, 10_000_000, 32
+SPARSE_GLMIX_N = 500_000  # the GLMix pairing's rows (phase 5's n)
+SPARSE_ITERS = 20  # bench.py's L-BFGS iterations on the sparse configuration
+SPARSE_PRODUCTS = tuple(
+    f"{layout}_{product}" for layout in ("coo", "ell") for product in ("matvec", "rmatvec", "sq_rmatvec")
+)
+
+
+def sparse_triplets(n, d, k, seed):
+    """bench.py's bench_sparse_huge_d data from ``seed``: (rows, cols,
+    vals, labels, hot-column logits)."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), k).astype(np.int64)
+    cols = rng.integers(0, d, size=n * k).astype(np.int64)
+    vals = (rng.normal(size=n * k) * 0.3).astype(np.float64)
+    w_true = np.zeros(d)
+    hot = rng.integers(0, d, size=1000)
+    w_true[hot] = rng.normal(size=len(hot))
+    logits = np.bincount(rows, weights=vals * w_true[cols], minlength=n)
+    y = (rng.uniform(size=n) < 1 / (1 + np.exp(-logits))).astype(np.float64)
+    return rows, cols, vals, y, logits
+
+
+def ragged_triplets(n, d, seed):
+    """A small ragged shape with a full column (3), an empty one (d - 1),
+    empty rows and repeated (row, col) pairs, in a shuffled order."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 13, size=n)
+    counts[::7] = 0
+    rows = np.concatenate([np.repeat(np.arange(n), counts), np.arange(n)])
+    cols = np.concatenate([rng.integers(0, d - 1, size=int(counts.sum())), np.full(n, 3)])
+    pick = rng.integers(0, len(rows), size=len(rows) // 20 + 1)
+    rows, cols = np.concatenate([rows, rows[pick]]), np.concatenate([cols, cols[pick]])
+    order = rng.permutation(len(rows))
+    return rows[order], cols[order], (rng.normal(size=len(rows)) * 0.3)[order], (rng.random(n) > 0.5) * 1.0
+
+
+def _segment_calls(f, layout, src_rows, src_cols):
+    """The three products of a matrix: name -> (segments, n_seg, src, square)."""
+    return {
+        f"{layout}_matvec": (f.row_segments, f.n_rows, src_cols, False),
+        f"{layout}_rmatvec": (f.col_segments, f.dim, src_rows, False),
+        f"{layout}_sq_rmatvec": (f.col_segments, f.dim, src_rows, True),
+    }
+
+
+def sparse_check(torch, seed, n, d, k):
+    """(a) The segment kernel against its float64 plain version for all six
+    products, ELL and COO, f32 and bf16 values, at the sparse shape and a
+    small ragged one: max-abs error <= 3e-5 * max(|ref|, 1), and two
+    launches give the same bits. Returns the max-abs errors at the sparse
+    shape in f32, by product."""
+    from photon_ml_tpu_torch.ops import sparse
+    from photon_ml_tpu_torch.ops.features import batch_from_coo
+
+    dev = torch.device("cuda")
+    saved = dict(sparse.SPARSE_LAUNCHES)
+    gen = torch.Generator(device=dev)
+    shapes = {"sparse": sparse_triplets(n, d, k, seed)[:4] + (n, d), "ragged": ragged_triplets(5000, 3000, seed) + (
+        5000, 3000)}
+    bad, errs = [], {}
+    for shape, (rows, cols, vals, y, nn, dd) in shapes.items():
+        for layout in ("coo", "ell"):
+            for fname in ("float32", "bfloat16"):
+                f = batch_from_coo(rows, cols, vals, y, dd, layout=layout, feature_dtype=getattr(torch, fname)).features
+                gen.manual_seed(seed + nn)
+                w = torch.randn(dd, generator=gen, device=dev)
+                c = torch.randn(nn, generator=gen, device=dev)
+                for name, (seg, n_seg, src, square) in _segment_calls(f, layout, c, w).items():
+                    a = sparse.segment_dot(name, seg, n_seg, src, square)
+                    b = sparse.segment_dot(name, seg, n_seg, src, square)
+                    torch.cuda.synchronize()
+                    ref = sparse.segment_dot_plain(seg, n_seg, src.double(), square)
+                    err = float((a.double() - ref).abs().max())
+                    bound = 3e-5 * max(float(ref.abs().max()), 1.0)
+                    same = _same_bits(a, b)
+                    ok = err <= bound and same and bool(torch.isfinite(a).all())
+                    log(f"  check segment kernel {shape:6s} {layout} {fname:8s} {name:15s} segments={n_seg} "
+                        f"entries={seg.gather.shape[0]} err={err:.3e}/{bound:.3e} same bits twice={same} "
+                        f"{'ok' if ok else 'MISS'}")
+                    if not ok:
+                        bad.append((shape, layout, fname, name))
+                    if shape == "sparse" and fname == "float32":
+                        errs[name] = err
+                del f
+        torch.cuda.empty_cache()
+    sparse.SPARSE_LAUNCHES.update(saved)  # checks are not main-path launches
+    if bad:
+        raise AssertionError(f"the segment kernel disagrees with its float64 plain version on {bad}")
+    return errs
+
+
+def _sparse_problem(torch, optimizer, l1=0.0, variance_type="NONE"):
+    from photon_ml_tpu_torch.game.problem import GLMOptimizationConfig, GLMProblem
+    from photon_ml_tpu_torch.ops.regularization import RegularizationContext
+
+    return GLMProblem("logistic_regression", GLMOptimizationConfig(
+        optimizer=optimizer, regularization=RegularizationContext("L1" if l1 else "L2"), reg_weight=l1 or 1.0,
+        variance_type=variance_type,
+    ))
+
+
+def _counted_run(torch, problem, batch, plain=False):
+    """A solve on the card with every counter at 0 before it: (model,
+    result, wall seconds, sparse launches, dense launches, routes)."""
+    from photon_ml_tpu_torch.ops import fused_glm as fg
+    from photon_ml_tpu_torch.ops import sparse
+
+    torch.cuda.synchronize()
+    fg.reset_launch_counts()
+    t0 = time.perf_counter()
+    model, res = problem.run(batch, plain=plain)
+    float(res.loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return model, res, wall, dict(sparse.SPARSE_LAUNCHES), dict(fg.LAUNCHES), dict(fg.OBJECTIVE_ROUTES)
+
+
+def sparse_path(torch, seed, n, d, k):
+    """(b) bench.py's sparse configuration at full size through
+    RawDataset.to_batch (COO, then ELL) and GLMProblem.run: logistic loss,
+    L-BFGS tol 1e-9 for SPARSE_ITERS iterations, L2 1.0. Each solve runs
+    twice (the same bits), is held against the plain route on the card by
+    loss (rtol 1e-5), and prints examples * iterations / s; then one OWL-QN
+    solve (L1 1.0) on COO with SIMPLE variance (the COO Hessian diagonal
+    once), held the same way, its variances at rtol 1e-3."""
+    from photon_ml_tpu_torch.io.data import RawDataset
+    from photon_ml_tpu_torch.optimize import OptimizerConfig
+
+    t0 = time.perf_counter()
+    rows, cols, vals, y, _ = sparse_triplets(n, d, k, seed)
+    raw = RawDataset(n_rows=n, labels=y, offsets=np.zeros(n), weights=np.ones(n),
+                     shard_coo={"global": (rows, cols, vals)}, shard_dims={"global": d}, id_tags={})
+    log(f"  sparse data n={n} d={d} k={k} made in {time.perf_counter() - t0:.1f}s")
+    lbfgs = OptimizerConfig(tolerance=1e-9, max_iterations=SPARSE_ITERS)
+    problems, report, batches = [], {"launches": {}}, {}
+    for layout in ("coo", "ell"):
+        t0 = time.perf_counter()
+        batch = raw.to_batch("global", layout=layout)
+        torch.cuda.synchronize()
+        log(f"  {layout} batch (with its segments) built in {time.perf_counter() - t0:.1f}s")
+        problem = _sparse_problem(torch, lbfgs)
+        _counted_run(torch, problem, batch)  # loads PyTorch's lazily loaded kernels
+        model, res, wall, launches, dense, routes = _counted_run(torch, problem, batch)
+        model2, res2, wall2, *_ = _counted_run(torch, problem, batch)
+        _, res_p, wall_p, launches_p, _, routes_p = _counted_run(torch, problem, batch, plain=True)
+        loss, loss_p = float(res.loss), float(res_p.loss)
+        rel = abs(loss - loss_p) / abs(loss_p)
+        same = _same_bits(model.coefficients.means, model2.coefficients.means) and _same_bits(res.loss, res2.loss)
+        rate = n * res.iterations / min(wall, wall2)
+        log(f"  {layout} L-BFGS kernels: iterations={res.iterations} reason={res.reason} loss={loss:.6f} "
+            f"wall_s={wall:.4f}/{wall2:.4f} syncs={res.syncs} examples*iterations/s={rate:.1f} launches={launches} "
+            f"routes={ {r: v for r, v in routes.items() if v} }; plain: iterations={res_p.iterations} "
+            f"loss={loss_p:.6f} wall_s={wall_p:.4f} launches={sum(launches_p.values())}; loss rel diff {rel:.2e} "
+            f"(rtol 1e-5); same bits on two runs: {same}")
+        if launches[f"{layout}_matvec"] <= 0 or launches[f"{layout}_rmatvec"] <= 0:
+            problems.append(f"{layout}: the solve did not run through the segment kernel: {launches}")
+        if routes["sparse_kernel"] != 1 or routes["plain_float64"] or routes["plain_cpu"] or any(dense.values()):
+            problems.append(f"{layout}: a plain or dense route ran on the kernel path: {routes} {dense}")
+        if any(launches_p.values()) or routes_p["sparse_kernel"]:
+            problems.append(f"{layout}: the plain solve launched the kernel")
+        if not (rel <= 1e-5 and same and math.isfinite(loss)):
+            problems.append(f"{layout}: loss rel diff {rel:.2e} vs plain, same bits {same}")
+        report["launches"] = {p: report["launches"].get(p, 0) + v for p, v in launches.items()}
+        report[layout] = {"iterations": res.iterations, "wall_s": min(wall, wall2), "examples_iters_per_s": rate,
+                          "loss": loss, "plain_loss": loss_p, "syncs": res.syncs}
+        batches[layout] = batch
+    # OWL-QN on the COO batch, with SIMPLE variance: the COO Hessian
+    # diagonal (coo_sq_rmatvec) once
+    problem = _sparse_problem(torch, lbfgs, l1=1.0, variance_type="SIMPLE")
+    batch = batches["coo"]
+    model, res, wall, launches, _, _ = _counted_run(torch, problem, batch)
+    model_p, res_p, _, _, _, _ = _counted_run(torch, problem, batch, plain=True)
+    nnz = int((model.coefficients.means != 0).sum())
+    rel = abs(float(res.loss) - float(res_p.loss)) / abs(float(res_p.loss))
+    var, var_p = model.coefficients.variances, model_p.coefficients.variances
+    var_err = float(((var - var_p).abs() / var_p.abs()).max())
+    log(f"  coo OWL-QN (L1 1.0): iterations={res.iterations} reason={res.reason} loss={float(res.loss):.6f} "
+        f"nonzeros={nnz} of {d} wall_s={wall:.4f} launches={launches}; plain loss {float(res_p.loss):.6f}, "
+        f"rel diff {rel:.2e} (rtol 1e-5); variances max rel diff {var_err:.2e} (rtol 1e-3)")
+    if not rel <= 1e-5 or launches["coo_matvec"] <= 0 or launches["coo_sq_rmatvec"] != 1 or not var_err <= 1e-3:
+        problems.append(f"OWL-QN: loss rel diff {rel:.2e} vs plain, variances {var_err:.2e}, launches {launches}")
+    report["launches"] = {p: report["launches"].get(p, 0) + v for p, v in launches.items()}
+    report["owlqn"] = {"nonzeros": nnz, "iterations": res.iterations, "loss": float(res.loss)}
+    if problems:
+        raise AssertionError("; ".join(problems))
+    report["batches"] = batches
+    return report
+
+
+def sparse_glmix_data(n, d, k, users, d_re, seed):
+    """The GLMix pairing: bench.py's sparse rows (k entries over d columns)
+    as the global shard and build_data's Zipf(1.1) users with d_re
+    per-user features, labels from a logistic model of both."""
+    rows, cols, vals, _, z = sparse_triplets(n, d, k, seed)
+    rng = np.random.default_rng(seed + 1)
+    probs = 1.0 / np.arange(1, users + 1) ** 1.1
+    assign = rng.choice(users, size=n, p=probs / probs.sum())
+    ex = rng.standard_normal((n, d_re), dtype=np.float32)
+    ex[:, -1] = 1.0
+    w_u = (rng.standard_normal((users, d_re)) / np.sqrt(d_re)).astype(ex.dtype)
+    z = z + np.einsum("nd,nd->n", ex, w_u[assign])
+    y = (rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-z))).astype(np.float32)
+    ids = np.char.add("u", assign.astype(str)).astype(object)
+    raw_kw = dict(n_rows=n, labels=y.astype(np.float64), offsets=np.zeros(n), weights=np.ones(n),
+                  shard_coo={"global": (rows, cols, vals)}, shard_dims={"global": d}, id_tags={})
+    return raw_kw, (None, y, ex, ids)
+
+
+def sparse_glmix(torch, seed, n, d, k, users, d_re):
+    """(c) Phase 5's sweep with its global shard sparse: n rows of k entries
+    over d columns, build_fixed_effect_dataset(layout="auto") picks ELL;
+    FE TRON tol 1e-6, 10 iterations, L2 1.0, SIMPLE variance; RE phase 5's.
+    One warm-up sweep, then SWEEPS timed ones (the median), counters at 0
+    before them and read after; held against the same sweep on the plain
+    route on the card at phase 5's bounds."""
+    from photon_ml_tpu_torch.game import build_fixed_effect_dataset
+    from photon_ml_tpu_torch.io.data import RawDataset
+    from photon_ml_tpu_torch.ops import fused_glm as fg
+    from photon_ml_tpu_torch.ops import sparse
+
+    t0 = time.perf_counter()
+    raw_kw, data = sparse_glmix_data(n, d, k, users, d_re, seed)
+    fe_ds = build_fixed_effect_dataset(RawDataset(**raw_kw), "global", "global", layout="auto")
+    coords = glmix_coordinates(data, torch.device("cuda"), fe_dataset=fe_ds)
+    log(f"  sparse GLMix data + datasets built in {time.perf_counter() - t0:.1f}s: n={n} d={d} k={k} "
+        f"layout={fe_ds.batch.features.layout} users={users} d_re={d_re}")
+    problems = []
+    if fe_ds.batch.features.layout != "ell":
+        problems.append(f"layout auto picked {fe_ds.batch.features.layout}, not ell")
+    sweep(torch, coords)
+    fg.reset_launch_counts()
+    runs = [sweep(torch, coords) for _ in range(SWEEPS)]
+    launches, dense, routes = dict(sparse.SPARSE_LAUNCHES), dict(fg.LAUNCHES), dict(fg.OBJECTIVE_ROUTES)
+    same = all(_same_bits(r.model["global"].coefficients.means, runs[0][0].model["global"].coefficients.means)
+               for r, _ in runs)
+    res, wall = sorted(runs, key=lambda rw: rw[1])[len(runs) // 2]
+    walls = [w for _, w in runs]
+    a, _ = training_auc(coords, res)
+    fe_r = res.solver_results["global"]
+    log(f"  sparse GLMix sweep (kernels), median of {SWEEPS}: wall_s={wall:.4f} examples_per_s={n / wall:.1f} "
+        f"(walls {', '.join(f'{w:.4f}' for w in walls)}) shares FE={res.seconds['global'] / wall:.3f} "
+        f"RE={res.seconds['per-user'] / wall:.3f} syncs={res.syncs} launches={launches} routes="
+        f"{ {r: v for r, v in routes.items() if v} } train_auc={a:.6f}; FE iterations={fe_r.iterations} "
+        f"reason={fe_r.reason} loss={float(fe_r.loss):.6f}; FE bits equal over the sweeps: {same}")
+    if min(launches["ell_matvec"], launches["ell_rmatvec"]) <= 0 or launches["ell_sq_rmatvec"] != SWEEPS:
+        problems.append(f"the sparse sweep did not run the segment kernel as expected: {launches}")
+    if routes["sparse_kernel"] != SWEEPS or routes["plain_float64"] or routes["plain_cpu"] or any(dense.values()):
+        problems.append(f"a plain or dense route ran on the sparse sweep: {routes} {dense}")
+    var = res.model["global"].coefficients.variances
+    if var is None or not bool(torch.isfinite(var).all()) or not bool((var > 0).all()):
+        problems.append("SIMPLE variances missing, non-finite or not positive")
+    if not (0.5 < a <= 1.0):
+        problems.append(f"training AUC {a} out of (0.5, 1]")
+    plain = dict(coords, **{"global": dataclasses.replace(coords["global"], plain=True)})
+    fg.reset_launch_counts()
+    res_p, wall_p = sweep(torch, plain)
+    log(f"  sparse GLMix sweep (plain): wall_s={wall_p:.4f} launches={sum(sparse.SPARSE_LAUNCHES.values())}")
+    if any(sparse.SPARSE_LAUNCHES.values()):
+        problems.append("the plain sweep launched the segment kernel")
+    hold_sweeps(problems, "sparse kernel vs plain sweep:", res, res_p, retrain_re(coords, res, plain))
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"launches": launches, "wall_s": wall, "walls": walls, "examples_per_s": n / wall,
+            "fe_share": res.seconds["global"] / wall, "re_share": res.seconds["per-user"] / wall,
+            "syncs": res.syncs, "train_auc": a}
+
+
+def sparse_phase(torch, seed, users, d_re):
+    out = {"errors": sparse_check(torch, seed, SPARSE_N, SPARSE_D, SPARSE_K)}
+    out["path"] = sparse_path(torch, seed, SPARSE_N, SPARSE_D, SPARSE_K)
+    torch.cuda.empty_cache()
+    out["glmix"] = sparse_glmix(torch, seed, SPARSE_GLMIX_N, SPARSE_D, SPARSE_K, users, d_re)
+    return out
+
+
+def time_sparse(torch, seed, batches=None):
+    """Phase 7's row for the segment kernel: each product at the sparse
+    shape (f32 values), CUDA events over 20 launches after 3, beside its
+    bound (``segment_bytes``'s function bytes over 3.35 TB/s, or its
+    operations; the design's bytes with its pointers and the worst case of a
+    sector per gather beside), its plain version, index_add_ (the gather,
+    the product and an atomic float32 index_add_, three launches) and one
+    cuSPARSE CSR SpMV through torch.sparse computing the same product
+    (library_ms)."""
+    from photon_ml_tpu_torch.io.data import RawDataset
+    from photon_ml_tpu_torch.ops import sparse
+    from photon_ml_tpu_torch.ops.features import batch_from_coo
+
+    dev = torch.device("cuda")
+    rows, cols, vals, y, _ = sparse_triplets(SPARSE_N, SPARSE_D, SPARSE_K, seed)
+    if batches is None:
+        raw = RawDataset(n_rows=SPARSE_N, labels=y, offsets=np.zeros(SPARSE_N), weights=np.ones(SPARSE_N),
+                         shard_coo={"global": (rows, cols, vals)}, shard_dims={"global": SPARSE_D}, id_tags={})
+        batches = {layout: raw.to_batch("global", layout=layout) for layout in ("coo", "ell")}
+    # the same rows with an intercept column (d - 1, 1.0 in every row): one
+    # segment of n entries in rmatvec, a skewed case the main path lacks
+    every = np.arange(SPARSE_N)
+    batches = dict(batches, skewed=batch_from_coo(
+        np.concatenate([rows, every]), np.concatenate([cols, np.full(SPARSE_N, SPARSE_D - 1)]),
+        np.concatenate([vals, np.ones(SPARSE_N)]), y, SPARSE_D, layout="coo"))
+    saved = dict(sparse.SPARSE_LAUNCHES)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 3)
+    out = {}
+    for layout, batch in batches.items():
+        f = batch.features
+        w = torch.randn(f.dim, generator=gen, device=dev)
+        c = torch.randn(f.n_rows, generator=gen, device=dev)
+        calls = _segment_calls(f, f.layout, c, w)
+        if layout == "skewed":
+            calls = {"coo_rmatvec": calls["coo_rmatvec"]}
+        for name, (seg, n_seg, src, square) in calls.items():
+            key = name if layout != "skewed" else f"{name}_with_intercept"
+            n_src = src.shape[0]
+            ids = seg.segment_ids(n_seg)
+            gather = seg.gather.long()
+            val = seg.val * seg.val if square else seg.val
+            ptr = seg.ptr if seg.ptr is not None else torch.arange(n_seg + 1, device=dev) * seg.seg_len
+            library = lambda: torch.mv(csr, src)  # noqa: E731
+            with warnings.catch_warnings():  # torch marks its sparse CSR tensors beta
+                warnings.simplefilter("ignore")
+                csr = torch.sparse_csr_tensor(ptr.to(torch.int32), seg.gather, val, size=(n_seg, n_src))
+                library()
+            acc = torch.empty(n_seg, device=dev)
+
+            def by_index_add():
+                acc.zero_()
+                return acc.index_add_(0, ids, src[gather] * val)
+
+            kern = lambda: sparse.segment_dot(name, seg, n_seg, src, square)  # noqa: E731
+            plain = lambda: sparse.segment_dot_plain(seg, n_seg, src, square)  # noqa: E731
+            lib_err = float((library().double() - plain().double()).abs().max())
+            runs = {key: [] for key in ("ms", "plain_ms", "index_add_ms", "library_ms")}
+            for _ in range(2):  # two rounds, each in turns: plain, library, index_add_, kernel
+                runs["plain_ms"].append(time_ms(torch, plain, 5))
+                runs["library_ms"].append(time_ms(torch, library, 20))
+                runs["index_add_ms"].append(time_ms(torch, by_index_add, 20))
+                runs["ms"].append(time_ms(torch, kern, 20))
+            nbytes = segment_bytes(seg, n_seg, n_src)
+            ops = segment_flops(seg, square)
+            t_bytes, t_ops = nbytes["function"] / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS["float32"] * 1e3
+            row = {key: min(v) for key, v in runs.items()}
+            row.update({f"{key}_runs": v for key, v in runs.items()})
+            row.update({"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                        "design_bound_ms": nbytes["design"] / HBM_BYTES_PER_S * 1e3,
+                        "sector_ms": nbytes["sectors"] / HBM_BYTES_PER_S * 1e3,
+                        "bytes": nbytes["function"], "design_bytes": nbytes["design"],
+                        "sector_bytes": nbytes["sectors"], "ops": ops, "segments": n_seg,
+                        "entries": seg.gather.shape[0], "library_max_abs_diff": lib_err})
+            out[key] = row
+            log(f"  time segment kernel {key:15s} segments={n_seg} entries={seg.gather.shape[0]}: kernel "
+                f"{'/'.join(f'{t:.4f}' for t in runs['ms'])} ms  plain {'/'.join(f'{t:.4f}' for t in runs['plain_ms'])} "
+                f"ms  index_add_ (gather, product, atomic add) {'/'.join(f'{t:.4f}' for t in runs['index_add_ms'])} ms  "
+                f"cuSPARSE CSR SpMV (torch.mv on a sparse CSR tensor) "
+                f"{'/'.join(f'{t:.4f}' for t in runs['library_ms'])} ms (max abs diff {lib_err:.2e})  "
+                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, {nbytes['function']} B): "
+                f"{row['bound_ms'] / row['ms']:.1%} of it; with the design's pointers "
+                f"{row['design_bound_ms']:.4f} ms ({nbytes['design']} B): "
+                f"{row['design_bound_ms'] / row['ms']:.1%}; a sector per gather (worst case, not a bound) "
+                f"{row['sector_ms']:.4f} ms")
+            del csr, ids, gather, acc
+        torch.cuda.empty_cache()
+    sparse.SPARSE_LAUNCHES.update(saved)
+    return out
+
+
+def sparse_entries(sp, times):
+    """The segment kernel's lines of the kernels JSON, one per product:
+    ``launches`` over the sparse phase's main paths (the (b) kernel solves
+    and the (c) timed sweeps, each counted from 0), ``max_abs_err`` from
+    (a) at the sparse shape in f32, times from phase 7."""
+    sp = sp or {}
+    path = (sp.get("path") or {}).get("launches", {})
+    glmix = (sp.get("glmix") or {}).get("launches", {})
+    entries = []
+    for name in SPARSE_PRODUCTS:
+        t = (times or {}).get("sparse", {}).get(name, {})
+        entries.append({
+            "name": f"segment_dot:{name}", "route": "cuda", "source": "photon_ml_tpu_torch/csrc/sparse_glm.cu",
+            "replaces": SPARSE_REPLACES[name.split("_", 1)[1]],
+            "launches": path.get(name, 0) + glmix.get(name, 0),
+            "launches_sparse_solves": path.get(name, 0), "launches_sparse_glmix": glmix.get(name, 0),
+            "max_abs_err": (sp.get("errors") or {}).get(name),
+            "ms": t.get("ms"), "plain_ms": t.get("plain_ms"), "bound_ms": t.get("bound_ms"),
+            "bound_by": t.get("bound_by"), "design_bound_ms": t.get("design_bound_ms"),
+            "sector_ms": t.get("sector_ms"), "library_ms": t.get("library_ms"),
+            "library": "cuSPARSE CSR SpMV (torch.mv on a sparse CSR tensor)",
+            "index_add_ms": t.get("index_add_ms"), "dtype": "float32 values and src, double sums",
+            "segments": t.get("segments"), "entries": t.get("entries"), "design": DESIGN["segment_dot"],
+        })
+    return entries
+
+
+def segment_bytes(seg, n_seg, n_src):
+    """Bytes of one segment product (``ops/sparse.py`` ``Segments``), three
+    ways:
+
+    - ``function``, the bound: what the product must move. Each entry's
+      int32 source index and its value read once, the ``n_src`` float32
+      source read once, the float32 output written once. At the sparse
+      shape both sources (w, 40 MB; c, 0.8 MB) fit the 50 MB L2, so a gather
+      costs no sector of its own;
+    - ``design``: ``function`` plus what this design adds, its int64
+      segment pointers (none for uniform ELL rows) and the long segments'
+      chunk plan with its float64 partials written and read;
+    - ``sectors``: the worst case, each gathered source value a 32-byte
+      sector of its own, with the design's additions. Not a bound."""
+    nnz = seg.gather.shape[0]
+    entries = nnz * (4 + seg.val.element_size())
+    own = 0 if seg.ptr is None else 8 * (n_seg + 1)
+    if seg.long_ids is not None:
+        own += 8 * seg.long_ids.shape[0] + 8 * seg.chunk_first.shape[0] + (4 + 16) * seg.chunk_owner.shape[0]
+    function = entries + 4 * n_src + 4 * n_seg
+    return {"function": function, "design": function + own, "sectors": entries + 32 * nnz + 4 * n_seg + own}
+
+
+def segment_flops(seg, square=False):
+    """Operations of one segment product: a multiply and an add per entry
+    (one more multiply for the square)."""
+    return (3 if square else 2) * seg.gather.shape[0]
+
+
 def b4_bound_ms(n, d, mode, world):
     """Least time of one B4 call per card, from bytes over 3.35 TB/s (the
     operations take less): the card's rows of X and their [n] vectors read
@@ -1625,7 +2095,7 @@ def main() -> int:
     ap.add_argument("--d-re", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default="",
-                    help="comma-separated subset of check,fe,glmix,dp,nccl,timing,variants to run after "
+                    help="comma-separated subset of check,fe,glmix,dp,nccl,sparse,timing,variants to run after "
                          "card and build (for iterating on one phase; the result is then not ok)")
     args = ap.parse_args()
     only = set(filter(None, args.only.split(",")))
@@ -1666,8 +2136,17 @@ def main() -> int:
         )
     del state
     torch.cuda.empty_cache()
+    sp = None
+    if want("sparse"):
+        sp = phases.run("sparse fixed effects", sparse_phase, torch, args.seed, args.users, args.d_re)
+    batches = (sp or {}).get("path", {}).pop("batches", None)
     if want("timing"):
         times = phases.run("timing", timings, torch, args.n, args.d, args.seed)
+        sparse_times = phases.run("timing (segment kernel)", time_sparse, torch, args.seed, batches)
+        if times is not None:
+            times["sparse"] = sparse_times or {}
+    del batches
+    torch.cuda.empty_cache()
     if want("variants"):
         phases.run("ring variants", ring_variants, torch, args.n, args.d, args.seed)
     if only:
@@ -1720,6 +2199,15 @@ def main() -> int:
             "read_x_ms": t.get("read_x_ms"), "plan": t.get("plan"),
             **{f"bf16_{k}": t16.get(k) for k in ("ms", "prev_ms", "finalize_ms", "read_x_ms", "bound_ms")},
         })
+    kernels += sparse_entries(sp, times)
+    if sp:
+        path, sg = sp["path"], sp["glmix"]
+        log(f"sparse fixed effect (n={SPARSE_N}, d={SPARSE_D}, k={SPARSE_K}, L-BFGS at most {SPARSE_ITERS} "
+            f"iterations, ran {path['coo']['iterations']} (COO) and {path['ell']['iterations']} (ELL)): "
+            f"COO {path['coo']['examples_iters_per_s']:.1f} and ELL {path['ell']['examples_iters_per_s']:.1f} "
+            f"examples*iterations/s; OWL-QN (L1 1.0) nonzeros {path['owlqn']['nonzeros']}; sparse GLMix sweep "
+            f"(n={SPARSE_GLMIX_N}, ELL) {sg['examples_per_s']:.1f} examples/s (median wall {sg['wall_s']:.4f} s, "
+            f"FE share {sg['fe_share']:.3f}, RE share {sg['re_share']:.3f}) on {smi}")
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))
     ok = not phases.failed

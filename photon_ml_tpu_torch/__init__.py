@@ -2,12 +2,14 @@
 
 The JAX package ``photon_ml_tpu`` stays the reference; this package imports
 neither it nor JAX. Its entry points run on the CUDA card unless the caller
-passes ``device="cpu"``. Ported so far: fixed-effect GLM training on dense
-features (``game.problem.GLMProblem.run`` with TRON or L-BFGS), scoring and
-AUC, and the GLMix coordinate-descent sweep (``game``), on one card or
+passes ``device="cpu"``. Ported so far: fixed-effect GLM training on dense,
+ELL and sorted-COO features (``game.problem.GLMProblem.run`` with TRON,
+L-BFGS, OWL-QN or L-BFGS-B), scoring and AUC, and the GLMix
+coordinate-descent sweep (``game``), on one card or, with dense features,
 data-parallel over ``torch.distributed`` ranks (``parallel``), with the
-dense value+gradient, Hessian-vector and Hessian-statistics sweeps as
-hand-written CUDA kernels (``csrc/fused_glm.cu``).
+dense value+gradient, Hessian-vector and Hessian-statistics sweeps
+(``csrc/fused_glm.cu``) and the sparse products (``csrc/sparse_glm.cu``)
+as hand-written CUDA kernels.
 """
 
 __version__ = "0.1.0"

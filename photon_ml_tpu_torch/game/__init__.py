@@ -3,6 +3,7 @@ from .data import (
     EntityBlocks,
     FixedEffectDataset,
     RandomEffectDataset,
+    build_fixed_effect_dataset,
     build_random_effect_dataset,
 )
 from .descent import CoordinateDescent, CoordinateDescentResult, ValidationContext
@@ -20,5 +21,6 @@ __all__ = [
     "RandomEffectCoordinate",
     "RandomEffectDataset",
     "ValidationContext",
+    "build_fixed_effect_dataset",
     "build_random_effect_dataset",
 ]

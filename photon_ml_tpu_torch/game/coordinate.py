@@ -2,9 +2,9 @@
 
 Counterpart of the JAX package's ``game/coordinate.py``:
 
-- ``FixedEffectCoordinate``: one GLM solve over the whole resident dense
-  batch (``GLMProblem.run``: the CUDA kernels on the card), with the other
-  coordinates' scores added to the offsets;
+- ``FixedEffectCoordinate``: one GLM solve over the whole resident batch,
+  dense or sparse (``GLMProblem.run``: the CUDA kernels on the card), with
+  the other coordinates' scores added to the offsets;
 - ``RandomEffectCoordinate``: all entities' problems solved in lockstep by
   the batched L-BFGS over entity-minor stacks (``_train_blocks_packed``),
   one solve per power-of-two size bucket (``_size_buckets``); the solver
@@ -51,7 +51,7 @@ from ..ops.normalization import NormalizationContext
 from ..optimize import OptimizerType, SolverResult, SyncCounter, solve_lbfgs
 from ..optimize.common import abs_tolerances
 from .data import FixedEffectDataset, RandomEffectDataset
-from .problem import GLMOptimizationConfig, GLMProblem
+from .problem import GLMOptimizationConfig, GLMProblem, batch_route
 
 Tensor = torch.Tensor
 
@@ -83,9 +83,10 @@ class Coordinate:
 
 @dataclasses.dataclass
 class FixedEffectCoordinate(Coordinate):
-    """Whole-dataset GLM solve over a resident dense batch. ``plain=True``
-    runs the plain PyTorch versions of the kernels on the card: a reference
-    sweep to hold the kernels' sweep against."""
+    """Whole-dataset GLM solve over a resident batch (dense, ELL or sorted
+    COO). ``plain=True`` runs the plain PyTorch versions of the kernels on
+    the card, in the solve and in the scores: a reference sweep to hold the
+    kernels' sweep against."""
 
     dataset: FixedEffectDataset
     task: str
@@ -140,7 +141,9 @@ class FixedEffectCoordinate(Coordinate):
         batch = self.dataset.batch
         dtype = batch.labels.dtype
         means = model.model.coefficients.means.to(device=batch.device, dtype=dtype)
-        scores = batch.features.matvec(means)
+        # a float64 batch on the card scores by the plain versions, as it solves
+        plain = self.plain or batch_route(batch) == "plain_float64"
+        scores = batch.features.matvec(means, plain=plain)
         if batch.group is not None:
             # every rank's rows, in rank order, then the padding cut off
             (scores,) = batch.group.gather_rows([scores])

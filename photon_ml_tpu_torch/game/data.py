@@ -21,8 +21,10 @@ A dataset sharded over a data-parallel group (``parallel.mesh``'s
 ``shard_fixed_effect_dataset`` / ``shard_random_effect_dataset``) holds one
 rank's rows of the fixed effect's batch, or one rank's entity range of the
 random effect's blocks; its entity tables and scoring arrays stay whole.
-Streamed (out-of-core) datasets are ROADMAP A7 and the multi-process build
-(``game/data_mp.py``) is A10: their fields raise when set.
+``build_fixed_effect_dataset`` is the JAX package's resident path: the
+shard's batch in any layout of ``RawDataset.to_batch``. Streamed
+(out-of-core) datasets are ROADMAP A7 and the multi-process build
+(``game/data_mp.py``) is A10: their fields and arguments raise when set.
 """
 
 from __future__ import annotations
@@ -280,6 +282,36 @@ def _pearson_keep_mask(
     rank = np.empty((E, S), dtype=np.int64)
     np.put_along_axis(rank, order, np.broadcast_to(np.arange(S), (E, S)), axis=1)
     return (rank < k_keep[:, None]) & (proj_cols >= 0)
+
+
+def build_fixed_effect_dataset(
+    raw: RawDataset,
+    coordinate_id: str,
+    feature_shard: str,
+    dtype=torch.float32,
+    layout: str = "auto",
+    mesh=None,
+    feature_dtype=None,
+    hbm_budget_bytes: Optional[int] = None,
+    device: DeviceLike = None,
+) -> FixedEffectDataset:
+    """All rows of ``feature_shard`` as one resident batch on ``device`` (the
+    card unless asked otherwise), in ``layout`` (``RawDataset.to_batch``:
+    auto picks dense up to d = 4,096 and ELL above). ``hbm_budget_bytes``
+    (the streamed fixed effect) is ROADMAP A7 and ``mesh`` A10."""
+    if hbm_budget_bytes is not None:
+        raise NotImplementedError(_STREAMED_TODO)
+    if mesh is not None:
+        raise NotImplementedError(_MULTI_TODO)
+    return FixedEffectDataset(
+        coordinate_id=coordinate_id,
+        feature_shard=feature_shard,
+        batch=raw.to_batch(
+            feature_shard, dtype=dtype, layout=layout, feature_dtype=feature_dtype, device=device
+        ),
+        true_dim=raw.shard_dims[feature_shard],
+        true_n_rows=raw.n_rows,
+    )
 
 
 def _to_device(a: np.ndarray, dtype: torch.dtype, device: torch.device) -> Tensor:

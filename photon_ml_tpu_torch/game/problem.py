@@ -22,6 +22,7 @@ import torch
 from ..models.coefficients import Coefficients
 from ..models.glm import GeneralizedLinearModel, model_for_task
 from ..ops.features import LabeledBatch
+from ..ops.fused_glm import OBJECTIVE_ROUTES
 from ..ops.glm import GLMObjective, compute_variances
 from ..ops.losses import get_loss
 from ..ops.normalization import NormalizationContext
@@ -33,30 +34,55 @@ Tensor = torch.Tensor
 _KERNEL_X_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _fusion_mode(batch: LabeledBatch):
-    """Which sweeps a batch takes, as ``(mode, group)``: mode ``"kernel"`` for
-    a dense batch on a CUDA device (the CUDA kernels of ops/fused_glm.py),
-    ``"plain"`` for a batch on the CPU (their plain versions); ``group`` is
-    the batch's data-parallel group (None for a whole batch), over which
-    every sweep is summed. Anything else raises: nothing on the card falls
-    back to the plain versions."""
+def batch_route(batch: LabeledBatch) -> str:
+    """The route a batch's sweeps take, not counted (``_fusion_mode``
+    counts it once per solve):
+
+    - ``"dense_kernel"``: a dense float32/bfloat16 batch on a CUDA device
+      (kernels B1-B3 of ops/fused_glm.py);
+    - ``"sparse_kernel"``: an ELL or sorted-COO float32/bfloat16 batch on a
+      CUDA device (the segment kernel of ops/sparse.py);
+    - ``"plain_cpu"``: a batch on the CPU (the plain versions);
+    - ``"plain_float64"``: a float64 batch on a CUDA device takes the plain
+      versions on the card, as the JAX package sends float64 to its XLA
+      path (``pallas_glm.eligible``).
+
+    Anything else raises: nothing on the card falls back to the plain
+    versions."""
     f = batch.features
-    dev = f.dense.device
+    x = f.values
+    dev = x.device
     group = batch.group
-    if group is not None and group.device != dev:
-        raise ValueError(f"a shard on {dev} for a rank whose device is {group.device}")
-    if dev.type == "cpu":
-        return "plain", group
-    if dev.type != "cuda":
-        raise ValueError(f"batches run on a CUDA device or the CPU, got {dev}")
-    if f.dense.dtype not in _KERNEL_X_DTYPES:
-        raise TypeError(
-            f"the CUDA kernels take float32 or bfloat16 features, got {f.dense.dtype}"
-        )
+    if group is not None:
+        if group.device != dev:
+            raise ValueError(f"a shard on {dev} for a rank whose device is {group.device}")
+        if not f.is_dense:
+            raise NotImplementedError("a row-sharded sparse batch is not ported yet (ROADMAP A10)")
     for name in ("labels", "offsets", "weights"):
         if getattr(batch, name).device != dev:
             raise ValueError(f"batch.{name} is not on the features' device {dev}")
-    return "kernel", group
+    if dev.type == "cpu":
+        route = "plain_cpu"
+    elif dev.type != "cuda":
+        raise ValueError(f"batches run on a CUDA device or the CPU, got {dev}")
+    elif torch.float64 in (x.dtype, batch.labels.dtype):
+        route = "plain_float64"
+    elif x.dtype not in _KERNEL_X_DTYPES:
+        raise TypeError(
+            f"the CUDA kernels take float32 or bfloat16 features, got {x.dtype}"
+        )
+    else:
+        route = "dense_kernel" if f.is_dense else "sparse_kernel"
+    return route
+
+
+def _fusion_mode(batch: LabeledBatch):
+    """``(route, group)`` of a solve over ``batch``: its ``batch_route``,
+    counted in ``fused_glm.OBJECTIVE_ROUTES``, and its data-parallel group
+    (None for a whole batch), over which every sweep is summed."""
+    route = batch_route(batch)
+    OBJECTIVE_ROUTES[route] += 1
+    return route, batch.group
 
 
 def _pad_dim(v: Tensor, dim: int, fill: float) -> Tensor:
@@ -137,17 +163,19 @@ class GLMProblem:
     ) -> Tuple[GeneralizedLinearModel, SolverResult]:
         """Train; returns (model in ORIGINAL space, solver result).
 
-        A dense batch on the card runs the CUDA kernels; a CPU batch their
-        plain versions. ``plain=True`` runs the plain versions on the card as
-        well: a reference solve to hold the kernels' solve against. A
-        row-sharded batch solves on every rank of its group at once.
+        A dense or sparse float32/bfloat16 batch on the card runs the CUDA
+        kernels; a CPU batch, and a float64 batch on the card, their plain
+        versions (``_fusion_mode``). ``plain=True`` runs the plain versions on
+        the card as well: a reference solve to hold the kernels' solve
+        against. A row-sharded batch solves on every rank of its group at
+        once.
         """
         vt = self.config.variance_type.upper()
         if vt not in ("NONE", "SIMPLE"):
             # fail before the solve, not after it
             compute_variances(None, None, vt)
         if not plain:
-            _fusion_mode(batch)
+            plain = _fusion_mode(batch)[0] == "plain_float64"
         obj = self.objective(batch, plain=plain)
         dtype, dev = batch.labels.dtype, batch.device
         if initial_model is not None:

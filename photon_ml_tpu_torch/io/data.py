@@ -1,9 +1,10 @@
 """The host-side columnar dataset that GAME datasets are built from.
 
 Counterpart of the JAX package's ``io/data.py``, of which only
-``RawDataset`` (its fields and ``subset``) is copied here: numpy COO per
-feature shard plus labels, offsets, weights, uids and id tags, in a sample
-order fixed at read time. The Avro and LIBSVM readers are ROADMAP A5.
+``RawDataset`` (its fields, ``subset`` and ``to_batch``) is copied here:
+numpy COO per feature shard plus labels, offsets, weights, uids and id
+tags, in a sample order fixed at read time. The Avro and LIBSVM readers are
+ROADMAP A5; the mesh-tiled sparse layout (``layout="tiled"``) is A10.
 """
 
 from __future__ import annotations
@@ -12,6 +13,9 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
+
+from ..device import DeviceLike
 
 
 @dataclasses.dataclass
@@ -46,3 +50,43 @@ class RawDataset:
             id_tags={t: v[rows] for t, v in self.id_tags.items()},
             uids=None if self.uids is None else self.uids[rows],
         )
+
+    def to_batch(
+        self,
+        shard: str,
+        dtype=torch.float32,
+        layout: str = "auto",
+        feature_dtype=None,
+        device: DeviceLike = None,
+    ):
+        """Build a ``LabeledBatch`` of one feature shard on ``device`` (the
+        card unless asked otherwise).
+
+        layout: 'auto' (dense when d <= 4096, else ELL) | 'dense' | 'ell'
+        (alias 'sparse': row-major padded sparse, moderate d) | 'coo'
+        (column-sorted COO, huge d). ``feature_dtype`` (e.g. bfloat16) stores
+        only the feature values narrower; labels, offsets and weights stay
+        ``dtype``."""
+        from ..ops.features import batch_from_coo, batch_from_dense
+
+        rows, cols, vals = self.shard_coo[shard]
+        d = self.shard_dims[shard]
+        if layout == "auto":
+            layout = "dense" if d <= 4096 else "ell"
+        if layout == "dense":
+            x = np.zeros((self.n_rows, d), dtype=np.float64)
+            x[rows, cols] = vals
+            return batch_from_dense(
+                x, self.labels, self.offsets, self.weights, dtype=dtype,
+                feature_dtype=feature_dtype, device=device,
+            )
+        if layout in ("ell", "sparse", "coo"):
+            return batch_from_coo(
+                rows, cols, vals, self.labels, d, self.offsets, self.weights, dtype=dtype,
+                layout="coo" if layout == "coo" else "ell", feature_dtype=feature_dtype, device=device,
+            )
+        if layout == "tiled":
+            raise NotImplementedError(
+                "layout='tiled' (the (data x model)-mesh-tiled sparse batch) is not ported yet (ROADMAP A10)"
+            )
+        raise ValueError(f"unknown batch layout {layout!r}: expected auto|dense|ell|sparse|coo|tiled")

@@ -38,7 +38,8 @@ bf16 value is exact (the TPU kernel rounds it to bf16 for its bf16 dot).
 ``LAUNCHES`` counts the kernel launches of each wrapper, and
 ``SHARDED_LAUNCHES`` those of the ``sharded_*`` wrappers over a group (one
 per call whose rank launched its kernel); ``SUM_LAUNCHES`` those of the
-rank-order sum kernel; ``ROUTES`` counts the same
+rank-order sum kernel; ``OBJECTIVE_ROUTES`` the route each solve took
+(``game/problem.py``); ``ROUTES`` counts the same
 launches by the body that ran them: the ring body with its tiles by bulk
 copy (``ring_bulk_copy``) or by plain loads (``ring_plain_loads``, rows not
 16-byte aligned), or the staged body (``staged``: the Hessian statistics,
@@ -57,7 +58,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from . import cuda_lib
+from . import cuda_lib, sparse
 from .losses import PointwiseLoss
 
 Tensor = torch.Tensor
@@ -66,6 +67,8 @@ LAUNCHES = {"fused_value_grad": 0, "fused_hessian_vector": 0, "fused_hessian_sta
 SHARDED_LAUNCHES = {"sharded_value_grad": 0, "sharded_hessian_vector": 0, "sharded_hessian_stats": 0}
 SUM_LAUNCHES = {"rank_order_sum": 0}
 ROUTES = {"ring_bulk_copy": 0, "ring_plain_loads": 0, "staged": 0}
+# the objective route of each solve (game/problem.py ``_fusion_mode``)
+OBJECTIVE_ROUTES = {"dense_kernel": 0, "sparse_kernel": 0, "plain_cpu": 0, "plain_float64": 0}
 
 # sweep modes, bodies, finalizes and launch steps of csrc/fused_glm.cu
 # (enum Mode, enum Body, enum Finalize, kStep*)
@@ -79,9 +82,12 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, SHARDED_LAUNCHES, SUM_LAUNCHES, ROUTES):
+    """Zero every counter: these, the objective routes and the segment
+    kernel's ``sparse.SPARSE_LAUNCHES``."""
+    for counts in (LAUNCHES, SHARDED_LAUNCHES, SUM_LAUNCHES, ROUTES, OBJECTIVE_ROUTES):
         for k in counts:
             counts[k] = 0
+    sparse.reset_launch_counts()
 
 
 def _round_like_x(v: Tensor, x_dtype: torch.dtype) -> Tensor:

@@ -1,4 +1,4 @@
-"""The GLM objective over a fixed dense batch: value, gradient, Hessian-vector.
+"""The GLM objective over a fixed batch: value, gradient, Hessian-vector.
 
 Counterpart of the JAX package's ``ops/glm.py``. The objective is a sum, not
 a mean:
@@ -10,12 +10,17 @@ with effective_coef = w' .* factor and margin_shift = -effective_coef.shift
 from the NormalizationContext, and the prior-centred L2 of incremental
 training (mean m, precision P; plain L2 when both are absent).
 
-Every X sweep goes through ``ops/fused_glm.py``'s ``sharded_*`` functions:
-on the card the CUDA kernels, on the CPU their plain versions, and over a
-batch sharded across ranks (``group``, set from ``batch.group``) each rank's
-sweep of its rows summed across the ranks in rank order. ``plain=True``
-sends a CUDA batch to the plain versions too, for a reference run beside
-the kernels.
+Every sweep of a dense X goes through ``ops/fused_glm.py``'s ``sharded_*``
+functions: on the card the CUDA kernels, on the CPU their plain versions,
+and over a batch sharded across ranks (``group``, set from ``batch.group``)
+each rank's sweep of its rows summed across the ranks in rank order. A
+sparse batch (ELL or sorted COO) takes the JAX package's unfused branch:
+margins by ``matvec``, the loss terms as torch ops, the accumulations by
+``rmatvec`` / ``sq_rmatvec``, each product one launch of the segment kernel
+of ``ops/sparse.py`` on the card (2 launches per value+grad, 3 per
+Hessian-vector product). ``plain=True`` sends a CUDA batch to the plain
+versions too, for a reference run beside the kernels, and is how a float64
+batch runs on the card (``game/problem.py``'s ``plain_float64`` route).
 Variances: NONE and SIMPLE (``1 / diag H``); FULL is ROADMAP A6.
 """
 
@@ -70,14 +75,30 @@ class GLMObjective:
     def gradient(self, coef: Tensor) -> Tensor:
         return self.value_and_grad(coef)[1]
 
+    def _margins(self, coef: Tensor) -> Tensor:
+        """A sparse batch's margins, ``X.eff + mshift + offsets``."""
+        eff, mshift = self._norm().effective_coefficients(coef)
+        return self.batch.features.matvec(eff, plain=self.plain) + mshift + self.batch.offsets
+
+    def _d2z_weights(self, coef: Tensor) -> Tensor:
+        b = self.batch
+        return b.weights * self.loss.d2z(self._margins(coef), b.labels)
+
     def value_and_grad(self, coef: Tensor) -> Tuple[Tensor, Tensor]:
         b = self.batch
         norm = self._norm()
-        eff, mshift = norm.effective_coefficients(coef)
-        value, grad, wdz_sum = sharded_value_grad(
-            self.group, b.features.dense, eff, b.labels, b.offsets + mshift, b.weights,
-            self.loss, plain=self.plain,
-        )
+        if b.features.is_dense:
+            eff, mshift = norm.effective_coefficients(coef)
+            value, grad, wdz_sum = sharded_value_grad(
+                self.group, b.features.dense, eff, b.labels, b.offsets + mshift, b.weights,
+                self.loss, plain=self.plain,
+            )
+        else:
+            loss, dz = self.loss.loss_and_dz(self._margins(coef), b.labels)
+            wdz = b.weights * dz
+            value = torch.sum(b.weights * loss)
+            grad = b.features.rmatvec(wdz, plain=self.plain)
+            wdz_sum = torch.sum(wdz) if norm.shifts is not None else None
         # grad_j = factor_j * (raw_grad_j - shift_j * sum_i w_i dz_i)
         if norm.shifts is not None:
             grad = grad - norm.shifts * wdz_sum
@@ -95,12 +116,17 @@ class GLMObjective:
         with c_i = w_i l''_i and u_i = (x_i - shift) .* factor . v."""
         b = self.batch
         norm = self._norm()
-        eff, mshift = norm.effective_coefficients(coef)
         eff_v, vshift = norm.effective_coefficients(v)
-        hv, csum = sharded_hessian_vector(
-            self.group, b.features.dense, eff, eff_v, b.labels, b.offsets + mshift,
-            b.weights, vshift, self.loss, plain=self.plain,
-        )
+        if b.features.is_dense:
+            eff, mshift = norm.effective_coefficients(coef)
+            hv, csum = sharded_hessian_vector(
+                self.group, b.features.dense, eff, eff_v, b.labels, b.offsets + mshift,
+                b.weights, vshift, self.loss, plain=self.plain,
+            )
+        else:
+            c = self._d2z_weights(coef) * (b.features.matvec(eff_v, plain=self.plain) + vshift)
+            hv = b.features.rmatvec(c, plain=self.plain)
+            csum = torch.sum(c) if norm.shifts is not None else None
         if norm.shifts is not None:
             hv = hv - norm.shifts * csum
         if norm.factors is not None:
@@ -114,11 +140,17 @@ class GLMObjective:
         b = self.batch
         norm = self._norm()
         need_shifts = norm.shifts is not None
-        eff, mshift = norm.effective_coefficients(coef)
-        s2, s1, s0 = sharded_hessian_stats(
-            self.group, b.features.dense, eff, b.labels, b.offsets + mshift, b.weights,
-            self.loss, need_shifts, plain=self.plain,
-        )
+        if b.features.is_dense:
+            eff, mshift = norm.effective_coefficients(coef)
+            s2, s1, s0 = sharded_hessian_stats(
+                self.group, b.features.dense, eff, b.labels, b.offsets + mshift, b.weights,
+                self.loss, need_shifts, plain=self.plain,
+            )
+        else:
+            c = self._d2z_weights(coef)
+            s2 = b.features.sq_rmatvec(c, plain=self.plain)
+            s1 = b.features.rmatvec(c, plain=self.plain) if need_shifts else None
+            s0 = torch.sum(c) if need_shifts else None
         diag = s2
         if need_shifts:
             diag = s2 - 2.0 * norm.shifts * s1 + norm.shifts**2 * s0

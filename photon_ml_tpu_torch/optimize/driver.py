@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's ``optimize/driver.py``: the relative ->
 absolute tolerance conversion from the zero state, then dispatch on the
-optimizer type. One ``SyncCounter`` follows the whole solve, the tolerance
+optimizer type: LBFGS, OWLQN (an L1 weight) and LBFGSB (box constraints)
+to ``solve_lbfgs``, TRON to ``solve_tron``. One ``SyncCounter`` follows the whole solve, the tolerance
 pass included, so ``SolverResult.syncs`` counts every wait on the device.
 """
 
@@ -21,7 +22,7 @@ from .common import (
     ValueAndGradFn,
     abs_tolerances,
 )
-from .lbfgs import NOT_PORTED, solve_lbfgs
+from .lbfgs import solve_lbfgs
 from .tron import solve_tron
 
 
@@ -32,21 +33,13 @@ def optimize(
     hvp: Optional[HvpFn] = None,
 ) -> SolverResult:
     kind = config.normalized_type()
-    # refuse what is not ported before the tolerance pass sweeps the data
-    if kind == OptimizerType.OWLQN:
-        raise NotImplementedError(NOT_PORTED.format("OWL-QN (L1 regularization)"))
-    if kind == OptimizerType.LBFGSB or (
-        kind == OptimizerType.LBFGS and config.box_constraints is not None
-    ):
-        raise NotImplementedError(NOT_PORTED.format("L-BFGS-B (box constraints)"))
+    # refuse before the tolerance pass sweeps the data
     if kind == OptimizerType.TRON and hvp is None:
         raise ValueError("TRON requires a Hessian-vector-product function")
-    if kind not in (OptimizerType.LBFGS, OptimizerType.TRON):
-        raise ValueError(f"Unknown optimizer type: {config.optimizer_type!r}")
 
     syncs = SyncCounter()
     loss_tol, grad_tol = abs_tolerances(value_and_grad, w0, config.tolerance, syncs)
-    if kind == OptimizerType.LBFGS:
+    if kind in (OptimizerType.LBFGS, OptimizerType.LBFGSB, OptimizerType.OWLQN):
         return solve_lbfgs(
             value_and_grad,
             w0,
@@ -54,6 +47,8 @@ def optimize(
             grad_tol,
             max_iterations=config.max_iterations,
             num_corrections=config.num_corrections,
+            l1_weight=config.l1_weight if kind == OptimizerType.OWLQN else 0.0,
+            box_constraints=config.box_constraints,
             max_line_search_iterations=config.max_line_search_iterations,
             syncs=syncs,
         )

@@ -1,11 +1,23 @@
-"""L-BFGS with a weak-Wolfe bisection/expansion line search: one problem,
-or a batch of lanes solved in lockstep.
+"""L-BFGS, OWL-QN and L-BFGS-B with a bisection/expansion line search: one
+problem, or a batch of lanes solved in lockstep.
 
 Counterpart of the JAX package's ``optimize/lbfgs.py`` in the structure of
 its host-loop twin (``optimize/host_driver.py``): the loop runs on the host,
 the iterate, the gradient and the correction history stay on the device.
 Constants match (c1 = 1e-4, c2 = 0.9; history guard s.y > 1e-10 ||y||^2;
 steepest-descent fallback when the two-loop direction does not descend).
+
+- OWL-QN (``l1_weight`` > 0): the objective carries ``l1 * ||w||_1``; the
+  pseudo-gradient drives the two-loop direction, which is projected into
+  the orthant of ``-pg``; every trial point is projected onto the orthant
+  of the iterate (``sign(w)``, or ``-sign(pg)`` at zero), the line search
+  asks Armijo only, and convergence reads the pseudo-gradient's norm. The
+  correction pairs use the plain gradient.
+- L-BFGS-B (``box_constraints``, one problem only): the start is clamped
+  into the box; the projected gradient ``w - P(w - g)`` drives the
+  direction and the convergence test; every trial point is projected onto
+  the box and Armijo is measured on the actual displacement,
+  ``f_t <= f + c1 g.(w_t - w)``, with no curvature condition.
 
 ``batched=True`` is the JAX package's entity-minor mode: ``w`` is
 ``[S, E]``, every reduction runs over axis 0, and each lane has its own
@@ -16,16 +28,18 @@ with masks, so a converged or diverged lane freezes at its last iterate; a
 lane whose start is already non-finite freezes at ``w0`` with
 NUMERICAL_DIVERGENCE. A lane that is done before an iteration starts takes
 no part in its line search (the JAX loop runs it along and discards the
-result), which changes no lane's outcome and saves trials.
+result), which changes no lane's outcome and saves trials. The batched
+mode takes OWL-QN; box constraints there and batched TRON are ROADMAP A2.
 
 Syncs: one fetch at the start, then one per line-search trial. For one
 problem the trial's fetch also brings the correction pair's s.y and y.y and
-the trial gradient's norm; for lanes it brings two flags, "every lane's
-line search is done" and "every lane would be done if the line search ended
-here", so the iteration's commit costs no fetch of its own.
+the trial's (pseudo- or projected) gradient norm; for lanes it brings two
+flags, "every lane's line search is done" and "every lane would be done if
+the line search ended here", so the iteration's commit costs no fetch of
+its own.
 
-OWL-QN (an L1 weight), L-BFGS-B (box constraints) and batched TRON are
-ROADMAP item A2 and raise ``NotImplementedError``.
+``SolverResult.gradient`` is the gradient that the convergence test reads:
+the plain gradient, OWL-QN's pseudo-gradient or L-BFGS-B's projected one.
 """
 
 from __future__ import annotations
@@ -45,6 +59,7 @@ from .common import (
     finite_state,
     nan_history,
     norm,
+    project_box,
     vdot,
 )
 
@@ -54,23 +69,84 @@ _C1 = 1e-4  # Armijo (sufficient decrease)
 _C2 = 0.9  # curvature
 
 NOT_PORTED = (
-    "{} is not ported yet (ROADMAP A2); photon_ml_tpu_torch runs L-BFGS (single-lane "
-    "or batched) and single-lane TRON"
+    "{} is not ported yet (ROADMAP A2); photon_ml_tpu_torch runs L-BFGS and OWL-QN "
+    "(single-lane or batched), L-BFGS-B (single-lane) and single-lane TRON"
 )
+
+
+def _pseudo_gradient(w: Tensor, g: Tensor, l1: float) -> Tensor:
+    """OWL-QN pseudo-gradient of f(w) + l1*||w||_1."""
+    zero = torch.zeros((), dtype=g.dtype, device=g.device)
+    gp = g + l1
+    gm = g - l1
+    pg = torch.where(w > 0, gp, torch.where(w < 0, gm, zero))
+    at_zero = torch.where(gm > 0, gm, torch.where(gp < 0, gp, zero))
+    return torch.where(w == 0, at_zero, pg)
+
+
+class _Variant:
+    """What OWL-QN (``l1``) and L-BFGS-B (``box``) change in the plain
+    L-BFGS iteration; with neither it is plain L-BFGS."""
+
+    def __init__(self, value_and_grad: ValueAndGradFn, l1: float, box: Optional[Tuple[Tensor, Tensor]]):
+        self.value_and_grad, self.l1, self.box = value_and_grad, l1, box
+        # the curvature condition holds only for the smooth, unconstrained problem
+        self.wolfe = l1 == 0.0 and box is None
+
+    def objective(self, w: Tensor) -> Tuple[Tensor, Tensor]:
+        """(f(w) + l1 ||w||_1, the smooth part's gradient)."""
+        f, g = self.value_and_grad(w)
+        if self.l1 > 0.0:
+            f = f + self.l1 * torch.sum(torch.abs(w).to(f.dtype), dim=0)
+        return f, g
+
+    def effective_grad(self, w: Tensor, g: Tensor) -> Tensor:
+        if self.l1 > 0.0:
+            return _pseudo_gradient(w, g, self.l1)
+        if self.box is not None:
+            # zero at bound-held coordinates: the direction and the
+            # convergence test respect the active set
+            return w - project_box(w - g, self.box)
+        return g
+
+    def direction(self, raw: Tensor, pg: Tensor) -> Tuple[Tensor, Tensor]:
+        """The search direction from the two-loop result ``raw`` (projected
+        into the orthant of ``-pg`` for OWL-QN) and its slope along ``pg``;
+        steepest descent where it does not descend, decided on the device
+        so that it costs no fetch."""
+        direction = -raw
+        if self.l1 > 0.0:
+            direction = torch.where(direction * pg >= 0, torch.zeros_like(direction), direction)
+        dg = vdot(direction, pg)
+        bad = dg >= 0
+        return torch.where(bad, -pg, direction), torch.where(bad, -vdot(pg, pg), dg)
+
+    def orthant(self, w: Tensor, pg: Tensor) -> Optional[Tensor]:
+        if self.l1 == 0.0:
+            return None
+        return torch.where(w != 0, torch.sign(w), -torch.sign(pg))
+
+    def point(self, w: Tensor, t, direction: Tensor, orthant: Optional[Tensor]) -> Tensor:
+        """The trial point ``w + t d``, projected onto the orthant and the box."""
+        w_t = w + t * direction
+        if orthant is not None:
+            w_t = torch.where(w_t * orthant < 0, torch.zeros_like(w_t), w_t)
+        return project_box(w_t, self.box)
 
 
 class _Trial:
     """One line-search point with the host scalars fetched beside it."""
 
-    def __init__(self, value_and_grad, w, g, direction, dg, t, syncs):
-        self.w = w + float(t) * direction
-        self.f, self.g = value_and_grad(self.w)
+    def __init__(self, var: _Variant, w, g, direction, dg, orthant, t, syncs):
+        self.w = var.point(w, float(t), direction, orthant)
+        self.f, self.g = var.objective(self.w)
+        self.pg = var.effective_grad(self.w, self.g)
         s_vec = self.w - w
         y_vec = self.g - g
         (self.f_h, self.gd_h, finite, self.dg_h, self.sy_h, self.yy_h,
-         self.g_norm_h) = syncs.fetch(
+         self.g_norm_h, self.gs_h) = syncs.fetch(
             self.f, torch.dot(self.g, direction), finite_state(self.f, self.g), dg,
-            torch.dot(s_vec, y_vec), torch.dot(y_vec, y_vec), norm(self.g),
+            torch.dot(s_vec, y_vec), torch.dot(y_vec, y_vec), norm(self.pg), torch.dot(g, s_vec),
         )
         self.finite = bool(finite)
         self.s_vec, self.y_vec = s_vec, y_vec
@@ -94,15 +170,19 @@ def _two_loop(pairs: List[Tuple[Tensor, Tensor, np.generic, np.generic]], g: Ten
     return r
 
 
-def _line_search(value_and_grad, w, f_h, g, direction, dg, max_iters, syncs) -> Tuple[_Trial, bool]:
+def _line_search(var: _Variant, w, f_h, g, direction, dg, orthant, max_iters, syncs) -> Tuple[_Trial, bool]:
     f32 = type(f_h)  # the solver's dtype, as the on-device reference rounds
     t, lo, hi = f32(1.0), f32(0.0), f32(math.inf)
-    trial = _Trial(value_and_grad, w, g, direction, dg, t, syncs)
+    trial = _Trial(var, w, g, direction, dg, orthant, t, syncs)
     dg_h = trial.dg_h
     for n in range(max_iters):
         finite = math.isfinite(trial.f_h)
-        armijo_ok = trial.f_h <= f_h + _C1 * t * dg_h
-        curv_ok = trial.gd_h >= _C2 * dg_h
+        if var.box is not None:
+            # Armijo on the actual (projected) displacement
+            armijo_ok = trial.f_h <= f_h + _C1 * trial.gs_h
+        else:
+            armijo_ok = trial.f_h <= f_h + _C1 * t * dg_h
+        curv_ok = trial.gd_h >= _C2 * dg_h if var.wolfe else True
         if armijo_ok and curv_ok and finite:
             return trial, True
         if n + 1 >= max_iters:
@@ -115,7 +195,7 @@ def _line_search(value_and_grad, w, f_h, g, direction, dg, max_iters, syncs) -> 
             # Armijo failed (or non-finite): bisect downward
             hi = t
             t = 0.5 * (lo + t)
-        trial = _Trial(value_and_grad, w, g, direction, dg, t, syncs)
+        trial = _Trial(var, w, g, direction, dg, orthant, t, syncs)
     return trial, False
 
 
@@ -132,27 +212,28 @@ def solve_lbfgs(
     syncs: Optional[SyncCounter] = None,
     batched: bool = False,
 ) -> SolverResult:
-    """Minimize f(w) from ``w0``. ``batched=True`` solves an entity-minor
-    stack of independent problems in lockstep: ``w0`` is ``[S, E]``,
-    ``value_and_grad`` maps ``[S, E] -> ([E], [S, E])``, and the absolute
-    tolerances are per-lane ``[E]`` tensors (or scalars)."""
-    if l1_weight > 0.0:
-        raise NotImplementedError(NOT_PORTED.format("OWL-QN (L1 regularization)"))
-    if box_constraints is not None:
-        raise NotImplementedError(NOT_PORTED.format("L-BFGS-B (box constraints)"))
+    """Minimize f(w) (+ ``l1_weight * ||w||_1``, OWL-QN; within
+    ``box_constraints``, L-BFGS-B) from ``w0``. ``batched=True`` solves an
+    entity-minor stack of independent problems in lockstep: ``w0`` is
+    ``[S, E]``, ``value_and_grad`` maps ``[S, E] -> ([E], [S, E])``, and the
+    absolute tolerances are per-lane ``[E]`` tensors (or scalars)."""
     syncs = syncs or SyncCounter()
+    var = _Variant(value_and_grad, float(l1_weight), box_constraints)
     if batched:
         if w0.dim() != 2:
             raise ValueError(f"batched L-BFGS takes w0 of shape [S, E], got {tuple(w0.shape)}")
+        if box_constraints is not None:
+            raise NotImplementedError(NOT_PORTED.format("batched L-BFGS-B (box constraints over lanes)"))
         return _solve_batched(
-            value_and_grad, w0, loss_abs_tol, grad_abs_tol, max_iterations,
+            var, w0, loss_abs_tol, grad_abs_tol, max_iterations,
             num_corrections, max_line_search_iterations, syncs,
         )
     if w0.dim() != 1:
         raise ValueError(f"single-lane L-BFGS takes a 1-D w0 (batched=True for lanes), got {tuple(w0.shape)}")
-    w = w0.clone()
-    f, g = value_and_grad(w)
-    f_h, g_norm, ok = syncs.fetch(f, norm(g), finite_state(f, g))
+    w = project_box(w0, box_constraints).clone()  # start feasible
+    f, g = var.objective(w)
+    pg = var.effective_grad(w, g)
+    f_h, g_norm, ok = syncs.fetch(f, norm(pg), finite_state(f, g))
     lh, gh = [f_h], [g_norm]
 
     def result(it: int, reason: int) -> SolverResult:
@@ -160,7 +241,7 @@ def solve_lbfgs(
         return SolverResult(
             coefficients=w,
             loss=f,
-            gradient=g,
+            gradient=pg,
             iterations=it,
             reason=reason,
             loss_history=nan_history(lh, T, w),
@@ -175,16 +256,9 @@ def solve_lbfgs(
     pairs: List[Tuple[Tensor, Tensor, np.generic, np.generic]] = []
     it = 0
     while True:
-        direction = -_two_loop(pairs, g)
-        dg = torch.dot(direction, g)
-        # not a descent direction: steepest-descent fallback, decided on the
-        # device so that it costs no fetch
-        bad = dg >= 0
-        direction = torch.where(bad, -g, direction)
-        dg = torch.where(bad, -torch.dot(g, g), dg)
-
+        direction, dg = var.direction(_two_loop(pairs, pg), pg)
         trial, ls_ok = _line_search(
-            value_and_grad, w, f_h, g, direction, dg, max_line_search_iterations, syncs
+            var, w, f_h, g, direction, dg, var.orthant(w, pg), max_line_search_iterations, syncs
         )
         improved = ls_ok and (trial.f_h < f_h) and trial.finite
 
@@ -201,7 +275,7 @@ def solve_lbfgs(
             diverged=not trial.finite,
         )
         if improved:
-            w, f, g, f_h, g_norm = trial.w, trial.f, trial.g, trial.f_h, trial.g_norm_h
+            w, f, g, pg, f_h, g_norm = trial.w, trial.f, trial.g, trial.pg, trial.f_h, trial.g_norm_h
         lh.append(f_h)
         gh.append(g_norm)
         if reason != 0:
@@ -237,7 +311,7 @@ def _two_loop_batched(S: Tensor, Y: Tensor, rho: Tensor, count: int, head: int, 
 
 
 def _solve_batched(
-    value_and_grad: ValueAndGradFn,
+    var: _Variant,
     w0: Tensor,
     loss_abs_tol,
     grad_abs_tol,
@@ -246,10 +320,10 @@ def _solve_batched(
     max_ls: int,
     syncs: SyncCounter,
 ) -> SolverResult:
-    """Entity-minor lockstep L-BFGS (``photon_ml_tpu/optimize/lbfgs.py``
+    """Entity-minor lockstep L-BFGS / OWL-QN (``photon_ml_tpu/optimize/lbfgs.py``
     ``_solve`` with ``batched=True``), looped on the host."""
     w = w0.clone()
-    f, g = value_and_grad(w)
+    f, g = var.objective(w)
     # the values may be wider than the iterate (a float64 sum of float32
     # terms): step sizes and history follow the iterate's dtype
     dtype, dev = w.dtype, w.device
@@ -268,37 +342,37 @@ def _solve_batched(
     lh = torch.full((T,) + lanes, math.nan, dtype=f.dtype, device=dev)
     gh = torch.full((T,) + lanes, math.nan, dtype=g.dtype, device=dev)
     lh[0] = f
-    gh[0] = norm(g)
+    gh[0] = norm(var.effective_grad(w, g))
 
     def result() -> SolverResult:
         return SolverResult(
-            coefficients=w, loss=f, gradient=g, iterations=it, reason=reason,
+            coefficients=w, loss=f, gradient=var.effective_grad(w, g), iterations=it, reason=reason,
             loss_history=lh, grad_norm_history=gh, syncs=syncs.count,
         )
 
     (all_done,) = syncs.fetch(torch.all(done))
     k = 0
     while not all_done:
-        direction = -_two_loop_batched(S, Y, rho, count, head, g)
-        dg = vdot(direction, g)
-        # not a descent direction: steepest-descent fallback
-        bad = dg >= 0
-        direction = torch.where(bad, -g, direction)
-        dg = torch.where(bad, -vdot(g, g), dg)
+        pg = var.effective_grad(w, g)
+        direction, dg = var.direction(_two_loop_batched(S, Y, rho, count, head, pg), pg)
+        orthant = var.orthant(w, pg)
 
         # line search from t = 1; lanes already done sit it out
         t = torch.ones(lanes, dtype=dtype, device=dev)
         lo = torch.zeros_like(t)
         hi = torch.full_like(t, math.inf)
-        w_t = w + t * direction
-        f_t, g_t = value_and_grad(w_t)
+        w_t = var.point(w, t, direction, orthant)
+        f_t, g_t = var.objective(w_t)
         ls_done = done.clone()
         success = torch.zeros_like(done)
         n = 0
         while True:
             finite_t = torch.isfinite(f_t)
             armijo_ok = f_t <= f + _C1 * t * dg
-            curv_ok = vdot(g_t, direction) >= _C2 * dg
+            if var.wolfe:
+                curv_ok = vdot(g_t, direction) >= _C2 * dg
+            else:
+                curv_ok = torch.ones_like(done)
             accept = armijo_ok & curv_ok & finite_t
             success = success | (accept & ~ls_done)
             ls_done = ls_done | accept | (n + 1 >= max_ls)
@@ -306,7 +380,7 @@ def _solve_batched(
             finite_new = finite_state(f_t, g_t)
             improved = success & (f_t < f) & finite_new
             reason_new = check_convergence(
-                it + 1, max_iterations, f_t, f, norm(g_t), loss_tol, grad_tol,
+                it + 1, max_iterations, f_t, f, norm(var.effective_grad(w_t, g_t)), loss_tol, grad_tol,
                 objective_not_improving=~improved, diverged=~finite_new,
             )
             ls_all, all_done = syncs.fetch(torch.all(ls_done), torch.all(done | (reason_new != 0)))
@@ -319,8 +393,8 @@ def _solve_batched(
             new_lo = torch.where(ok & ~curv_ok, t, lo)
             new_t = torch.where(torch.isinf(new_hi), 2.0 * new_lo + 1.0, 0.5 * (new_lo + new_hi))
             new_t = torch.where(ok, new_t, 0.5 * (lo + t))
-            w_n = w + new_t * direction
-            f_n, g_n = value_and_grad(w_n)
+            w_n = var.point(w, new_t, direction, orthant)
+            f_n, g_n = var.objective(w_n)
             # lanes done keep their trial
             t = torch.where(ls_done, t, new_t)
             lo = torch.where(ls_done, lo, new_lo)
@@ -353,5 +427,5 @@ def _solve_batched(
         # history rows at the global counter: active lanes all sit at it == k
         k += 1
         lh[k] = torch.where(keep, lh[k], f)
-        gh[k] = torch.where(keep, gh[k], norm(g))
+        gh[k] = torch.where(keep, gh[k], norm(var.effective_grad(w, g)))
     return result()

@@ -25,8 +25,8 @@ whatever order the backend's ring would take. Gloo stages the buffer
 through a host tensor; NCCL keeps it on the card and runs in stream order,
 so B4's slot gathers make the host wait for nothing.
 
-Model-axis (feature) sharding and the ELL / sorted-COO layouts are ROADMAP
-A10 and A1 and raise.
+Model-axis (feature) sharding and row-sharded sparse batches are ROADMAP
+A10 and raise.
 """
 
 from __future__ import annotations
@@ -47,7 +47,12 @@ _FEATURE_AXIS_TODO = (
     "feature-axis (model-axis) sharding is not ported yet (ROADMAP A10); "
     "photon_ml_tpu_torch shards rows over the data axis only"
 )
-_SPARSE_TODO = "sharding the ELL / sorted-COO layouts is not ported yet (ROADMAP A1)"
+_SPARSE_TODO = (
+    "shard_batch takes dense batches only: the reference refuses the column-sorted COO layout "
+    "(its entries are column-major, not row-partitionable) and ELL across processes (the ELL "
+    "width is the local rows' max nnz, so the ranks' shapes would disagree), and every rank of a "
+    "group here is a process of its own; row-sharded sparse batches are ROADMAP A10"
+)
 
 
 @dataclasses.dataclass(eq=False)
@@ -231,7 +236,7 @@ def shard_batch(
     if batch.group is not None:
         raise ValueError("the batch is already sharded")
     f = batch.features
-    if f.dense is None or f.idx is not None or f.coo_cols is not None:
+    if not f.is_dense:
         raise NotImplementedError(_SPARSE_TODO)
     padded = pad_rows_for_group(batch, group)
     share = padded.n_rows // group.world_size

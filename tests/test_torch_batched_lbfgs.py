@@ -198,8 +198,11 @@ def test_batched_refusals_and_the_single_lane_driver():
         solve_lbfgs(vg, torch.zeros(4), 0.0, 0.0, batched=True)
     with pytest.raises(ValueError, match="batched=True"):
         solve_lbfgs(vg, torch.zeros((4, 3)), 0.0, 0.0)
+    # batched OWL-QN is ported (tests/test_torch_owlqn.py); batched box
+    # constraints and batched TRON are what A2 still holds
     with pytest.raises(NotImplementedError, match="A2"):
-        solve_lbfgs(vg, torch.zeros((4, 3)), 0.0, 0.0, l1_weight=0.1, batched=True)
+        solve_lbfgs(vg, torch.zeros((4, 3)), 0.0, 0.0, box_constraints=(-torch.ones((4, 3)), torch.ones((4, 3))),
+                    batched=True)
     with pytest.raises(NotImplementedError, match="A2"):
         solve_tron(vg, lambda w, v: 2 * v, torch.zeros((4, 3)), 0.0, 0.0)
     # the single-lane driver is unchanged: a 1-D solve still returns host ints

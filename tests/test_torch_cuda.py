@@ -12,7 +12,11 @@ suite's bounds: value rtol 2e-6; gradient, Hv and the Hessian statistics
 max-abs error <= 3e-5 * max(|ref|, 1); the Hessian stats' scalar s0 rtol
 2e-6. A GLMix sweep on the card is held against the plain versions' sweep
 at the solve bounds (fixed effect rtol 1e-3 / atol 1e-5; random effect
-coefficients atol 5e-3, loss atol 1e-4 on identical residuals).
+coefficients atol 5e-3, loss atol 1e-4 on identical residuals). The
+sparse segment kernel is held against its float64 plain version at the
+gradient bound and must give the same bits on two launches; a float64 batch
+on the card takes the counted ``plain_float64`` route and reaches the CPU's
+float64 solve (loss rtol 1e-9).
 """
 
 import math
@@ -22,7 +26,8 @@ import torch
 
 from photon_ml_tpu_torch.game.problem import GLMOptimizationConfig, GLMProblem, _fusion_mode
 from photon_ml_tpu_torch.ops import fused_glm as fg
-from photon_ml_tpu_torch.ops.features import batch_from_dense
+from photon_ml_tpu_torch.ops import sparse
+from photon_ml_tpu_torch.ops.features import batch_from_coo, batch_from_dense
 from photon_ml_tpu_torch.ops.losses import LOSSES
 from photon_ml_tpu_torch.ops.regularization import RegularizationContext
 from photon_ml_tpu_torch.optimize import OptimizerConfig
@@ -157,10 +162,13 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(cuda):
     with pytest.raises(RuntimeError, match="fused_glm_plan"):
         fg.fused_hessian_stats(wide, wide[0], y[:2], off[:2], wt[:2], loss, True)
     assert fg.LAUNCHES == {"fused_value_grad": 0, "fused_hessian_vector": 0, "fused_hessian_stats": 0}
+    # a float64 batch takes the plain versions on the card, counted as its route
     f64_batch = batch_from_dense(x.double(), y, dtype=torch.float64)
+    assert _fusion_mode(f64_batch) == ("plain_float64", None)
+    assert _fusion_mode(batch_from_dense(x, y)) == ("dense_kernel", None)
+    assert fg.OBJECTIVE_ROUTES == {"dense_kernel": 1, "sparse_kernel": 0, "plain_cpu": 0, "plain_float64": 1}
     with pytest.raises(TypeError):
-        _fusion_mode(f64_batch)
-    assert _fusion_mode(batch_from_dense(x, y)) == ("kernel", None)
+        _fusion_mode(batch_from_dense(x, y, feature_dtype=torch.float16))
 
 
 def _card_problem(dev, optimizer, n=20_000, d=128):
@@ -475,3 +483,157 @@ def test_glmix_sweep_over_ranks_matches_one_card(cuda, tmp_path, backend):
     E = re_model.coef_values.shape[0]
     torch.testing.assert_close(torch.from_numpy(got["re_values"][:E]), re_model.coef_values.cpu(), rtol=0, atol=5e-3)
     torch.testing.assert_close(torch.from_numpy(got["re_loss"][:E]), re_res.loss.cpu(), rtol=0, atol=1e-4)
+
+
+# ------------------------------------------------------------ sparse (S1)
+
+
+def _sparse_triplets(n, d, seed, per_row=6):
+    """Ragged rows (0 to 2 * per_row entries, every 7th row empty), column 3
+    in every row (a full column), the last column in none, some repeated
+    (row, col) pairs, in a shuffled input order."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 2 * per_row + 1, size=n)
+    counts[::7] = 0
+    rows = np.concatenate([np.repeat(np.arange(n), counts), np.arange(n)])
+    cols = np.concatenate([rng.integers(0, d - 1, size=int(counts.sum())), np.full(n, 3)])
+    pick = rng.integers(0, len(rows), size=len(rows) // 20 + 1)
+    rows, cols = np.concatenate([rows, rows[pick]]), np.concatenate([cols, cols[pick]])
+    vals = rng.normal(size=len(rows)) * 0.3
+    order = rng.permutation(len(rows))
+    y = (rng.random(n) > 0.5).astype(np.float32)
+    return rows[order], cols[order], vals[order], y
+
+
+@pytest.mark.parametrize("layout", ["ell", "coo"])
+@pytest.mark.parametrize("fdt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,d", [(37, 11), (5000, 300), (20_000, 1_000_000)])
+def test_segment_kernel_matches_float64_plain_and_repeats_its_bits(cuda, layout, fdt, n, d):
+    rows, cols, vals, y = _sparse_triplets(n, d, seed=n + d)
+    f = batch_from_coo(rows, cols, vals, y, d, layout=layout, feature_dtype=fdt).features
+    g = torch.Generator(device=cuda)
+    g.manual_seed(n)
+    w = torch.randn(d, generator=g, device=cuda)
+    c = torch.randn(n, generator=g, device=cuda)
+    for direction, seg, n_seg, src in (("matvec", f.row_segments, n, w), ("rmatvec", f.col_segments, d, c)):
+        for square in ((False,) if direction == "matvec" else (False, True)):
+            name = f"{layout}_{'sq_rmatvec' if square else direction}"
+            before = sparse.SPARSE_LAUNCHES[name]
+            a = sparse.segment_dot(name, seg, n_seg, src, square)
+            b = sparse.segment_dot(name, seg, n_seg, src, square)
+            torch.cuda.synchronize()
+            assert sparse.SPARSE_LAUNCHES[name] == before + 2
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), f"{name}: two launches differ"
+            ref = sparse.segment_dot_plain(seg, n_seg, src.double(), square)
+            _assert_vec(a, ref, name)
+            assert a.shape == (n_seg,) and a.dtype == torch.float32
+
+
+def test_segment_kernel_refuses_what_it_does_not_take(cuda):
+    rows, cols, vals, y = _sparse_triplets(50, 20, seed=1)
+    f = batch_from_coo(rows, cols, vals, y, 20, layout="coo").features
+    seg = f.col_segments
+    c = torch.randn(50, device=cuda)
+    with pytest.raises(TypeError, match="float32 src"):
+        sparse.segment_dot("coo_rmatvec", seg, 20, c.double())
+    with pytest.raises(TypeError, match="int32"):
+        sparse.segment_dot("coo_rmatvec", seg._replace(gather=seg.gather.long()), 20, c)
+    with pytest.raises(ValueError, match="ptr"):
+        sparse.segment_dot("coo_rmatvec", seg, 19, c)
+    with pytest.raises(ValueError, match="is on|are on"):
+        sparse.segment_dot("coo_rmatvec", seg._replace(val=seg.val.cpu()), 20, c)
+    assert not any(sparse.SPARSE_LAUNCHES.values())
+    # a float64 operand of a sparse product on the card is refused unless the
+    # caller asks for the plain version (the plain_float64 route does)
+    f64 = batch_from_coo(rows, cols, vals, y, 20, dtype=torch.float64, layout="ell").features
+    with pytest.raises(TypeError, match="float32 src"):
+        f64.rmatvec(c.double())
+    with pytest.raises(TypeError, match="float32 or bfloat16 values"):
+        f64.rmatvec(c)
+    with pytest.raises(TypeError, match="float32 src"):
+        f.matvec(torch.zeros(20, dtype=torch.float64, device=cuda))
+    out = f64.rmatvec(c.double(), plain=True)
+    assert out.dtype == torch.float64 and not any(sparse.SPARSE_LAUNCHES.values())
+
+
+def _sparse_problem(optimizer, l1=0.0):
+    reg = RegularizationContext("L1" if l1 else "L2")
+    return GLMProblem(
+        "logistic_regression",
+        GLMOptimizationConfig(
+            optimizer=OptimizerConfig(optimizer_type=optimizer, tolerance=1e-6, max_iterations=30),
+            regularization=reg, reg_weight=l1 or 1.0, variance_type="SIMPLE",
+        ),
+    )
+
+
+@pytest.mark.parametrize("layout", ["ell", "coo"])
+@pytest.mark.parametrize("optimizer,l1", [("TRON", 0.0), ("LBFGS", 0.0), ("LBFGS", 2.0)],
+                         ids=["tron", "lbfgs", "owlqn"])
+def test_sparse_solve_on_card_runs_the_kernel_and_matches_plain(cuda, layout, optimizer, l1):
+    """f32 on the card: the sparse solve through the segment kernel (the
+    route ``sparse_kernel``, every product's launches counted), against the
+    plain versions on the card by loss (rtol 1e-5) and coefficients at the
+    end-to-end bound; two runs give the same bits."""
+    import numpy as np
+
+    rows, cols, vals, _ = _sparse_triplets(20_000, 50_000, seed=4)
+    rng = np.random.default_rng(4)
+    z = np.bincount(rows, weights=vals * rng.normal(size=50_000)[cols] * 3, minlength=20_000)
+    y = (rng.random(20_000) < 1 / (1 + np.exp(-z))).astype(np.float32)
+    batch = batch_from_coo(rows, cols, vals, y, 50_000, layout=layout)
+    problem = _sparse_problem(optimizer, l1)
+    m_k, r_k = problem.run(batch)
+    assert fg.OBJECTIVE_ROUTES["sparse_kernel"] == 1 and fg.OBJECTIVE_ROUTES["plain_float64"] == 0
+    assert sparse.SPARSE_LAUNCHES[f"{layout}_matvec"] > 0 and sparse.SPARSE_LAUNCHES[f"{layout}_rmatvec"] > 0
+    assert sparse.SPARSE_LAUNCHES[f"{layout}_sq_rmatvec"] == 1  # SIMPLE variance, once per solve
+    m_k2, _ = problem.run(batch)
+    assert torch.equal(m_k.coefficients.means, m_k2.coefficients.means)
+    fg.reset_launch_counts()
+    m_p, r_p = problem.run(batch, plain=True)
+    assert not any(sparse.SPARSE_LAUNCHES.values())
+    assert abs(float(r_k.loss) - float(r_p.loss)) <= 1e-5 * abs(float(r_p.loss))
+    torch.testing.assert_close(m_k.coefficients.means, m_p.coefficients.means, rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("layout", ["dense", "ell", "coo"])
+def test_float64_batch_on_card_takes_the_counted_plain_route(cuda, layout):
+    """ROADMAP C6: a float64 batch trains on the card through the plain
+    versions, counted as ``plain_float64``, and reaches the CPU's float64
+    solve (loss rtol 1e-9)."""
+    rows, cols, vals, y = _sparse_triplets(3000, 40, seed=7)
+
+    def build(device):
+        if layout == "dense":
+            import numpy as np
+
+            x = np.zeros((3000, 40))
+            np.add.at(x, (rows, cols), vals)
+            return batch_from_dense(x, y, dtype=torch.float64, device=device)
+        return batch_from_coo(rows, cols, vals, y, 40, dtype=torch.float64, layout=layout, device=device)
+
+    problem = GLMProblem("logistic_regression", GLMOptimizationConfig(
+        optimizer=OptimizerConfig(optimizer_type="TRON", tolerance=1e-9, max_iterations=50),
+        regularization=RegularizationContext("L2"), reg_weight=1.0, variance_type="SIMPLE",
+    ))
+    m_g, r_g = problem.run(build(cuda))
+    assert fg.OBJECTIVE_ROUTES == {"dense_kernel": 0, "sparse_kernel": 0, "plain_cpu": 0, "plain_float64": 1}
+    assert not any(fg.LAUNCHES.values()) and not any(sparse.SPARSE_LAUNCHES.values())
+    m_c, r_c = problem.run(build("cpu"))
+    assert abs(float(r_g.loss) - float(r_c.loss)) <= 1e-9 * abs(float(r_c.loss))
+    torch.testing.assert_close(m_g.coefficients.means.cpu(), m_c.coefficients.means, rtol=1e-6, atol=1e-9)
+    assert m_g.coefficients.means.dtype == torch.float64
+    # a fixed-effect coordinate scores such a batch by the plain versions too
+    from photon_ml_tpu_torch.game import FixedEffectCoordinate
+    from photon_ml_tpu_torch.game.data import FixedEffectDataset
+    from photon_ml_tpu_torch.models.game import FixedEffectModel
+
+    fg.reset_launch_counts()
+    coords = [FixedEffectCoordinate(FixedEffectDataset("global", "global", build(dev)), "logistic_regression",
+                                    problem.config) for dev in (cuda, "cpu")]
+    scores = [c.score(FixedEffectModel(m, "global")) for c, m in zip(coords, (m_g, m_c))]
+    assert not any(fg.OBJECTIVE_ROUTES.values()) and not any(sparse.SPARSE_LAUNCHES.values())
+    assert scores[0].dtype == torch.float64
+    torch.testing.assert_close(scores[0].cpu(), scores[1], rtol=1e-6, atol=1e-9)

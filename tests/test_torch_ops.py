@@ -257,10 +257,19 @@ def test_features_dense_only(rng):
     assert p.n_rows == 40 and float(p.weights[37:].abs().sum()) == 0.0
     bf = batch_from_dense(x, y, feature_dtype=torch.bfloat16, device="cpu")
     assert bf.features.dense.dtype == torch.bfloat16 and bf.labels.dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="A1"):
-        FeatureMatrix(dim=8, idx=torch.zeros((2, 1), dtype=torch.int32), val=torch.zeros((2, 1)))
-    with pytest.raises(NotImplementedError, match="A1"):
-        FeatureMatrix(dim=8, coo_cols=torch.zeros(1), coo_rows=torch.zeros(1), coo_vals=torch.zeros(1))
+    # the sparse layouts are ported (tests/test_torch_sparse.py); what they
+    # still refuse is the streamed row slice (A7) and the lane products (A8)
+    ell = FeatureMatrix(dim=8, idx=torch.zeros((2, 1), dtype=torch.int32), val=torch.zeros((2, 1)))
+    assert ell.layout == "ell" and ell.n_rows == 2
+    with pytest.raises(NotImplementedError, match="A7"):
+        ell.slice_rows(0, 1)
+    with pytest.raises(NotImplementedError, match="A8"):
+        ell.matmat(torch.zeros((8, 2)))
+    coo = FeatureMatrix(dim=8, coo_cols=torch.zeros(1, dtype=torch.int32), coo_rows=torch.zeros(1, dtype=torch.int32),
+                        coo_vals=torch.zeros(1), coo_n_rows=2)
+    assert coo.layout == "coo" and coo.n_rows == 2
+    with pytest.raises(NotImplementedError, match="A8"):
+        coo.rmatmat(torch.zeros((2, 2)))
 
 
 def test_variances_and_hessian_matrix_name_next_slice(rng):

@@ -25,6 +25,7 @@ import photon_ml_tpu_torch
 import photon_ml_tpu_torch.convert, photon_ml_tpu_torch.device
 import photon_ml_tpu_torch.evaluation.device, photon_ml_tpu_torch.game.problem
 import photon_ml_tpu_torch.ops.cuda_lib, photon_ml_tpu_torch.ops.fused_glm
+import photon_ml_tpu_torch.ops.sparse, photon_ml_tpu_torch.ops.features, photon_ml_tpu_torch.optimize.lbfgs
 import photon_ml_tpu_torch.optimize.driver
 import photon_ml_tpu_torch.game.coordinate, photon_ml_tpu_torch.game.data
 import photon_ml_tpu_torch.game.descent, photon_ml_tpu_torch.models.game
@@ -98,7 +99,7 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
 def test_fusion_mode_rule():
     x = np.zeros((4, 3), np.float32)
     y = np.zeros(4, np.float32)
-    assert _fusion_mode(batch_from_dense(x, y, device="cpu")) == ("plain", None)
+    assert _fusion_mode(batch_from_dense(x, y, device="cpu")) == ("plain_cpu", None)
     meta = batch_from_dense(x, y, device="cpu")
     meta = type(meta)(
         features=type(meta.features)(dim=3, dense=torch.zeros((4, 3), device="meta")),
