@@ -82,11 +82,18 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    prev/new/new/prev), each body's main kernel and finalize alone (replayed
    from a CUDA graph), the launch plan (grid, blocks per SM, rows per tile,
    stages, shared bytes), and torch.mv(X, coef) as the time to read X once;
-8. diagnostic variants of the ring body (RING_VARIANTS: margins in f32, no
-   margins, no column sums, neither), each computing wrong sums, timed in
-   turns with the ring to show what each part of its work costs;
+8. diagnostic variants of the segment kernel (SEGMENT_VARIANTS: contiguous
+   reads in place of the gathers, the key walk without its output stores,
+   the gathers under an L2 evict-last policy, the earlier design as it is
+   and with streamed entries) on the sparse shape's products, replayed from CUDA
+   graphs in turns, and ELL matvec with w of 10, 20 and 30 MB beside d's
+   40; then of the ring body (RING_VARIANTS: margins in f32, no margins, no
+   column sums, neither), each computing wrong sums, timed in turns with
+   the ring to show what each part of its work costs;
 9. the sparse fixed effects (run after phase 6 and before phase 7), every
-   sparse product one launch of the segment kernel (csrc/sparse_glm.cu):
+   sparse product one launch of the segment kernel (csrc/sparse_glm.cu:
+   row groups for matvec, a key walk over int32 keys for rmatvec and
+   sq_rmatvec):
    (a) the kernel against its float64 plain version for all six products
    (ELL and COO matvec, rmatvec, sq_rmatvec), f32 and bf16 values, at
    bench.py's sparse shape (n=200,000, d=10,000,000, 32 entries a row) and a
@@ -97,7 +104,11 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    L-BFGS tol 1e-9, 20 iterations, L2 1.0): the segment kernel's launches
    counted from 0 (the plain and dense counters must stay 0), two runs with
    the same bits, held against the plain route on the card by loss at
-   rtol 1e-5, examples * iterations / s printed; then one OWL-QN solve (L1
+   rtol 1e-5, examples * iterations / s printed, each batch's companion
+   bytes (the segments' tensors beyond the layout's own arrays) printed,
+   and one more solve under torch.profiler (device time by kernel name,
+   the segment kernel's time per launch inside the solve, the card's busy
+   share of the solve's wall); then one OWL-QN solve (L1
    1.0, SIMPLE variance) on COO, its nonzeros printed, its loss held the
    same way and its variances at rtol 1e-3; (c) phase 5's
    sweep with its global shard sparse (n=500,000 rows of 32 entries over
@@ -106,8 +117,10 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    with the counters at 0 before them, held against the plain route on the
    card at phase 5's bounds. Phase 7 then times each product at the sparse
    shape beside its bound (segment_bytes: entries, source and output once;
-   the design's pointers and a sector per gather beside), its plain version,
-   index_add_ and a cuSPARSE CSR SpMV (torch.mv on a sparse CSR tensor).
+   the design's own bytes and a sector per gather beside), in turns with
+   the earlier design (csrc/sparse_glm_warp.cu: prev, new, new, prev), both
+   also replayed from a CUDA graph, its plain version, index_add_ and a
+   cuSPARSE CSR SpMV (torch.mv on a sparse CSR tensor).
 
     python3 chip_smoke.py --only timing    # card, build, then one phase
 
@@ -163,12 +176,19 @@ DESIGN = {
                            "column; tree finalize",
     "rank_order_sum": "one thread per column adds the [world, width] float64 slot rows in rank order "
                       "in double and writes f32; no atomics",
-    "segment_dot": "a warp per 32 consecutive segments: a segment of at most 4 entries summed by its lane in "
-                   "order, a longer one by the whole warp (lane-strided runs in order, then a butterfly of "
-                   "shuffles); a segment of more than 4,096 entries cut into chunks of 4,096, a warp each, "
-                   "their float64 sums added in chunk order by a second small kernel; double sums, each "
-                   "output written once; no atomics",
+    "segment_dot": "matvec: row groups of 4-32 lanes a segment (8 at 32 entries a row), each lane 4 "
+                   "consecutive entries a pass by 16-byte loads, all its gathers issued before its first add, a "
+                   "butterfly over the group; rmatvec and sq_rmatvec (and matvec with a row over 512 entries): "
+                   "a key walk over int32 keys with no per-column pointer, a warp a tile of 256 entries, 8 a "
+                   "lane, runs of equal keys added in entry order, a segmented scan over the lanes, float64 "
+                   "carries for keys that cross tiles added in tile order by a second small kernel, each tile's "
+                   "outputs (empty columns as zeros) staged in shared memory and stored coalesced; entries "
+                   "streamed with evict-first loads; double sums, each output written once; no atomics",
 }
+PREV_SEGMENT_DESIGN = (
+    "a warp per 32 consecutive segments over int64 pointers: a segment of at most 4 entries summed by its lane, "
+    "a longer one by the whole warp; segments of more than 4,096 entries cut into chunks, a warp each, added "
+    "by a second kernel (csrc/sparse_glm_warp.cu)")
 B4_DESIGN = ("the rank's B1-B3 with its tree finalize writing the f32 totals widened to float64 into the "
              "rank's row of the group's cached [world, width] slot buffer; one in-place all-gather (NCCL: "
              "on the card in stream order, timed by CUDA events, no host synchronize; gloo: staged through "
@@ -646,17 +666,16 @@ def retrain_re(coords, res_a, coords_b):
     return coords_b["per-user"].train(fe_scores.to(dev), None)
 
 
-def profile_sweep(torch, coords):
-    """One more sweep under torch.profiler: the device's busy share of the
-    sweep's wall and the device operations that fill it."""
+def device_profile(torch, fn):
+    """``fn()`` under torch.profiler: its result and the device's own events
+    (kernels, copies, memsets) as (device us, count, name) rows; the
+    operators that launched them carry the same device time again."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = sweep(torch, coords)
+        out = fn()
     rows = []
     for e in prof.key_averages():
-        # the device's own events (kernels, copies, memsets): the operators
-        # that launched them carry the same device time again
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", None)
@@ -664,12 +683,25 @@ def profile_sweep(torch, coords):
             us = getattr(e, "self_cuda_time_total", 0.0)
         if us > 0:
             rows.append((us, e.count, e.key))
+    return out, sorted(rows, reverse=True)
+
+
+def log_profile(what, wall, rows, top=12):
+    """Prints the busy share of ``wall`` and the top device operations;
+    returns the device's busy seconds."""
     busy = sum(r[0] for r in rows) * 1e-6
-    launches = sum(r[1] for r in rows)
-    log(f"  profiled sweep: wall_s={wall:.4f} device_busy_s={busy:.4f} "
-        f"busy_share={busy / wall:.3f} idle_share={1 - busy / wall:.3f} device_ops={launches}")
-    for us, count, key in sorted(rows, reverse=True)[:12]:
+    log(f"  {what}: wall_s={wall:.4f} device_busy_s={busy:.4f} busy_share={busy / wall:.3f} "
+        f"idle_share={1 - busy / wall:.3f} device_ops={sum(r[1] for r in rows)}")
+    for us, count, key in rows[:top]:
         log(f"    {us * 1e-3:9.3f} ms  x{count:6d}  {key[:90]}")
+    return busy
+
+
+def profile_sweep(torch, coords):
+    """One more sweep under torch.profiler: the device's busy share of the
+    sweep's wall and the device operations that fill it."""
+    (_, wall), rows = device_profile(torch, lambda: sweep(torch, coords))
+    log_profile("profiled sweep", wall, rows)
 
 
 def glmix_path(torch, n, d, users, d_re, seed):
@@ -1575,6 +1607,136 @@ def ring_variants(torch, n, d, seed):
     return out
 
 
+# Diagnostic variants of the segment kernel (csrc/sparse_glm.cu) and of its
+# earlier design (csrc/sparse_glm_warp.cu), built and timed like the ring's:
+# each changes one part, so that its time says what that part costs. Those
+# marked so compute wrong sums; nothing but phase 8 loads them.
+_SEG_ROW_GATHER = "x[e] = idx[e] >= 0 ? gather_src(src, idx[e]) : 0.0f;"
+_SEG_KEY_GATHER = "x[e] = e < cnt ? gather_src(src, idx[e]) : 0.0f;"
+_SEG_STORE = "for (int c = lane; c < n; c += kWarp) out[w0 + c] = win[c];"
+_SEG_GATHER_FN = "__device__ __forceinline__ float gather_src(const float* __restrict__ src, int i) { return __ldg(src + i); }"
+SEGMENT_VARIANTS = {
+    "segment": ("sparse_glm", []),
+    # wrong sums: entry j reads src[j] (row groups; j < d at the sparse
+    # shape) or src[j mod 2^17] (key walk; 2^17 < n): the stream without
+    # the gathers
+    "contiguous_src": ("sparse_glm", [
+        (_SEG_ROW_GATHER, "x[e] = idx[e] >= 0 ? gather_src(src, (int)(j + e)) : 0.0f;"),
+        (_SEG_KEY_GATHER, "x[e] = e < cnt ? gather_src(src, (int)((base + e) & 131071)) : 0.0f;"),
+    ]),
+    # wrong sums: the key walk's window built but not stored
+    "no_output_stores": ("sparse_glm", [
+        (_SEG_STORE, "for (int c = lane; c < n; c += kWarp) if (win[c] == 1234.5f) out[w0 + c] = win[c];"),
+    ]),
+    # the gathers under an L2 evict-last cache policy (same sums)
+    "l2_evict_last": ("sparse_glm", [(_SEG_GATHER_FN, """__device__ __forceinline__ float gather_src(const float* __restrict__ src, int i) {
+  unsigned long long policy;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(policy));
+  float x;
+  asm("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;" : "=f"(x) : "l"(src + i), "l"(policy));
+  return x;
+}""")]),
+    # the earlier design as it is, and with its entries streamed (__ldcs;
+    # same sums)
+    "earlier": ("sparse_glm_warp", []),
+    "earlier_streamed": ("sparse_glm_warp", [
+        ("const double v = widen(val[j]);", "const double v = widen(__ldcs(val + j));"),
+        ("return (double)src[gather[j]] * (SQ ? v * v : v);",
+         "return (double)src[__ldcs(gather + j)] * (SQ ? v * v : v);"),
+    ]),
+}
+MATVEC_W_COLUMNS = (2_500_000, 5_000_000, 7_500_000)  # w of 10, 20 and 30 MB beside d's 40
+
+
+def segment_variants(torch, seed, batches=None):
+    """Each SEGMENT_VARIANTS entry built from its source and timed on the
+    sparse shape's products (f32), each launch replayed from a CUDA graph,
+    in turns: the variants in order, then in reverse. Then ELL matvec over
+    the same rows with their columns taken modulo each MATVEC_W_COLUMNS
+    (a smaller w, the same gathers), in turns with the full d."""
+    import ctypes
+    import subprocess
+
+    from photon_ml_tpu_torch.io.data import RawDataset
+    from photon_ml_tpu_torch.ops import cuda_lib, sparse
+    from photon_ml_tpu_torch.ops.features import batch_from_coo
+
+    out_dir = cuda_lib.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, (source, edits) in SEGMENT_VARIANTS.items():
+        text = (cuda_lib.CSRC_DIR / f"{source}.cu").read_text()
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"segment variant {name}: the source no longer holds {old.strip()[:60]!r}")
+            text = text.replace(old, new)
+        (out_dir / f"{name}.cu").write_text(text)
+        cmd = [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-o", str(out_dir / f"{name}.so"), str(out_dir / f"{name}.cu")]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    ref = sparse._library()
+    libs = {}
+    for name, proc in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on segment variant {name}:\n{text}")
+        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
+        if SEGMENT_VARIANTS[name][0] == "sparse_glm":
+            for fn in ("segment_rows_launch", "segment_keys_launch"):
+                getattr(lib, fn).argtypes = getattr(ref, fn).argtypes
+                getattr(lib, fn).restype = getattr(ref, fn).restype
+        libs[name] = lib
+    dev = torch.device("cuda")
+    rows, cols, vals, y, _ = sparse_triplets(SPARSE_N, SPARSE_D, SPARSE_K, seed)
+    if batches is None:
+        raw = RawDataset(n_rows=SPARSE_N, labels=y, offsets=np.zeros(SPARSE_N), weights=np.ones(SPARSE_N),
+                         shard_coo={"global": (rows, cols, vals)}, shard_dims={"global": SPARSE_D}, id_tags={})
+        batches = {layout: raw.to_batch("global", layout=layout) for layout in ("coo", "ell")}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 5)
+    library = sparse._library
+    out = {}
+    try:
+        for layout, batch in batches.items():
+            f = batch.features
+            w = torch.randn(f.dim, generator=gen, device=dev)
+            c = torch.randn(f.n_rows, generator=gen, device=dev)
+            for name, (seg, n_seg, src, square) in _segment_calls(f, layout, c, w).items():
+                if square:
+                    continue
+                design = warp_design(torch, seg, n_seg)
+                runs = {}
+                for v in list(libs) + list(libs)[::-1]:
+                    if SEGMENT_VARIANTS[v][0] == "sparse_glm":
+                        sparse._library = lambda lib=libs[v]: lib
+                        fn = lambda: sparse.segment_dot(name, seg, n_seg, src)  # noqa: E731
+                    else:
+                        fn = lambda lib=libs[v]: warp_segment_dot(torch, design, seg, n_seg, src, lib=lib)  # noqa: E731
+                    runs.setdefault(v, []).append(graph_ms(torch, fn, 20))
+                sparse._library = library
+                out[name] = runs
+                log(f"  segment variants {name:12s} " + "  ".join(
+                    f"{v} {min(t):.4f} ({'/'.join(f'{u:.4f}' for u in t)})" for v, t in runs.items()) + " ms")
+                del design
+        # ELL matvec with a smaller w: the same rows, columns modulo d'
+        mats = {SPARSE_D: batches["ell"].features}
+        for dd in MATVEC_W_COLUMNS:
+            mats[dd] = batch_from_coo(rows, cols % dd, vals, y, dd, layout="ell").features
+        ws = {dd: torch.randn(dd, generator=gen, device=dev) for dd in mats}
+        runs = {}
+        for dd in list(mats) + list(mats)[::-1]:
+            fn = lambda dd=dd: sparse.segment_dot("ell_matvec", mats[dd].row_segments, SPARSE_N, ws[dd])  # noqa: E731
+            runs.setdefault(dd, []).append(graph_ms(torch, fn, 20))
+        out["ell_matvec_by_w"] = {dd * 4: t for dd, t in runs.items()}
+        log("  ell_matvec by the size of w: " + "  ".join(
+            f"{dd * 4 / 1e6:.0f} MB {min(t):.4f} ({'/'.join(f'{u:.4f}' for u in t)})" for dd, t in runs.items()) + " ms")
+        del mats, ws
+    finally:
+        sparse._library = library
+        sparse.reset_launch_counts()
+    torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------- phase 9: sparse fixed effects
 #
 # bench.py's sparse configuration (bench_sparse_huge_d: n rows of k entries
@@ -1701,6 +1863,53 @@ def _counted_run(torch, problem, batch, plain=False):
     return model, res, wall, dict(sparse.SPARSE_LAUNCHES), dict(fg.LAUNCHES), dict(fg.OBJECTIVE_ROUTES)
 
 
+# the segment kernel's device functions (csrc/sparse_glm.cu), as the
+# profiler names them
+S1_KERNELS = tuple(f"(anonymous namespace)::{k}" for k in (
+    "row_group_kernel", "key_walk_kernel", "join_kernel", "zero_kernel"))
+
+
+def _layout_arrays(f):
+    return [t for t in (f.idx, f.val, f.coo_cols, f.coo_rows, f.coo_vals) if t is not None]
+
+
+def companion_bytes(f):
+    """Device bytes that a sparse ``FeatureMatrix`` holds for its products
+    beyond its own arrays: the tensors of its row and column segments that
+    are neither the layout's (idx/val, or the coo_* triplets) nor views of
+    them, each counted once."""
+    own = {t.untyped_storage().data_ptr() for t in _layout_arrays(f)}
+    seen, total = set(), 0
+    for seg in (f.row_segments, f.col_segments):
+        for t in (seg.ptr, seg.gather, seg.val, seg.keys, seg.joins):
+            if t is None:
+                continue
+            ptr = t.untyped_storage().data_ptr()
+            if ptr not in own and ptr not in seen:
+                seen.add(ptr)
+                total += t.untyped_storage().nbytes()
+    return total
+
+
+def profile_sparse_solve(torch, layout, problem, batch):
+    """One sparse L-BFGS solve under torch.profiler: device time by kernel
+    name, the segment kernel's device time per launch inside the solve
+    (where the L2 holds what the solver left there) and the card's busy
+    share of the solve's wall."""
+    (_, res, wall, launches, _, _), rows = device_profile(torch, lambda: _counted_run(torch, problem, batch))
+    busy = log_profile(f"profiled {layout} L-BFGS solve ({res.iterations} iterations)", wall, rows, top=15)
+    s1 = [r for r in rows if any(k in r[2] for k in S1_KERNELS)]
+    s1_ms = sum(r[0] for r in s1) * 1e-3
+    n = sum(launches.values())
+    for us, count, key in s1:
+        log(f"    S1 {key[:70]}: {us * 1e-3 / count:.4f} ms a launch over {count}")
+    log(f"    S1 in the solve: {s1_ms:.4f} ms over {n} product launches, {s1_ms / max(n, 1):.4f} ms a product; "
+        f"{s1_ms * 1e-3 / busy:.1%} of the device's busy time, {s1_ms * 1e-3 / wall:.1%} of the wall")
+    return {"wall_s": wall, "busy_s": busy, "busy_share": busy / wall, "s1_ms": s1_ms, "s1_launches": n,
+            "s1_ms_per_launch": s1_ms / max(n, 1),
+            "by_kernel": [{"name": key, "ms": us * 1e-3, "count": count} for us, count, key in rows[:15]]}
+
+
 def sparse_path(torch, seed, n, d, k):
     """(b) bench.py's sparse configuration at full size through
     RawDataset.to_batch (COO, then ELL) and GLMProblem.run: logistic loss,
@@ -1723,7 +1932,10 @@ def sparse_path(torch, seed, n, d, k):
         t0 = time.perf_counter()
         batch = raw.to_batch("global", layout=layout)
         torch.cuda.synchronize()
-        log(f"  {layout} batch (with its segments) built in {time.perf_counter() - t0:.1f}s")
+        cb = companion_bytes(batch.features)
+        report.setdefault("companion_bytes", {})[layout] = cb
+        log(f"  {layout} batch (with its segments) built in {time.perf_counter() - t0:.1f}s; companions "
+            f"{cb / 1e6:.1f} MB beside the layout's {sum(t.numel() * t.element_size() for t in _layout_arrays(batch.features)) / 1e6:.1f} MB")
         problem = _sparse_problem(torch, lbfgs)
         _counted_run(torch, problem, batch)  # loads PyTorch's lazily loaded kernels
         model, res, wall, launches, dense, routes = _counted_run(torch, problem, batch)
@@ -1748,7 +1960,8 @@ def sparse_path(torch, seed, n, d, k):
             problems.append(f"{layout}: loss rel diff {rel:.2e} vs plain, same bits {same}")
         report["launches"] = {p: report["launches"].get(p, 0) + v for p, v in launches.items()}
         report[layout] = {"iterations": res.iterations, "wall_s": min(wall, wall2), "examples_iters_per_s": rate,
-                          "loss": loss, "plain_loss": loss_p, "syncs": res.syncs}
+                          "loss": loss, "plain_loss": loss_p, "syncs": res.syncs,
+                          "profile": profile_sparse_solve(torch, layout, problem, batch)}
         batches[layout] = batch
     # OWL-QN on the COO batch, with SIMPLE variance: the COO Hessian
     # diagonal (coo_sq_rmatvec) once
@@ -1861,13 +2074,14 @@ def sparse_phase(torch, seed, users, d_re):
 
 def time_sparse(torch, seed, batches=None):
     """Phase 7's row for the segment kernel: each product at the sparse
-    shape (f32 values), CUDA events over 20 launches after 3, beside its
-    bound (``segment_bytes``'s function bytes over 3.35 TB/s, or its
-    operations; the design's bytes with its pointers and the worst case of a
-    sector per gather beside), its plain version, index_add_ (the gather,
-    the product and an atomic float32 index_add_, three launches) and one
-    cuSPARSE CSR SpMV through torch.sparse computing the same product
-    (library_ms)."""
+    shape (f32 values), CUDA events over 20 launches after 3, two rounds,
+    the earlier design (``warp_segment_dot``) in turns with it (prev, new,
+    new, prev) and both replayed from a CUDA graph, beside its bound
+    (``segment_bytes``'s function bytes over 3.35 TB/s, or its operations;
+    the design's bytes and the worst case of a sector per gather beside),
+    its plain version, index_add_ (the gather, the product and an atomic
+    float32 index_add_, three launches) and one cuSPARSE CSR SpMV through
+    torch.sparse computing the same product (library_ms)."""
     from photon_ml_tpu_torch.io.data import RawDataset
     from photon_ml_tpu_torch.ops import sparse
     from photon_ml_tpu_torch.ops.features import batch_from_coo
@@ -1901,7 +2115,11 @@ def time_sparse(torch, seed, batches=None):
             ids = seg.segment_ids(n_seg)
             gather = seg.gather.long()
             val = seg.val * seg.val if square else seg.val
-            ptr = seg.ptr if seg.ptr is not None else torch.arange(n_seg + 1, device=dev) * seg.seg_len
+            if seg.keys is not None:  # the key form's CSR pointers, for the library call
+                ptr = torch.zeros(n_seg + 1, dtype=torch.int64, device=dev)
+                ptr[1:] = torch.cumsum(torch.bincount(ids, minlength=n_seg), 0)
+            else:
+                ptr = seg.ptr if seg.ptr is not None else torch.arange(n_seg + 1, device=dev) * seg.seg_len
             library = lambda: torch.mv(csr, src)  # noqa: E731
             with warnings.catch_warnings():  # torch marks its sparse CSR tensors beta
                 warnings.simplefilter("ignore")
@@ -1915,38 +2133,112 @@ def time_sparse(torch, seed, batches=None):
 
             kern = lambda: sparse.segment_dot(name, seg, n_seg, src, square)  # noqa: E731
             plain = lambda: sparse.segment_dot_plain(seg, n_seg, src, square)  # noqa: E731
+            design = warp_design(torch, seg, n_seg)
+            prev = lambda: warp_segment_dot(torch, design, seg, n_seg, src, square)  # noqa: E731
             lib_err = float((library().double() - plain().double()).abs().max())
-            runs = {key: [] for key in ("ms", "plain_ms", "index_add_ms", "library_ms")}
-            for _ in range(2):  # two rounds, each in turns: plain, library, index_add_, kernel
+            prev_err = float((prev().double() - plain().double()).abs().max())
+            runs = {key: [] for key in ("ms", "prev_ms", "plain_ms", "index_add_ms", "library_ms")}
+            for _ in range(2):  # two rounds, each in turns: plain, library, index_add_, prev, kernel, kernel, prev
                 runs["plain_ms"].append(time_ms(torch, plain, 5))
                 runs["library_ms"].append(time_ms(torch, library, 20))
                 runs["index_add_ms"].append(time_ms(torch, by_index_add, 20))
+                runs["prev_ms"].append(time_ms(torch, prev, 20))
                 runs["ms"].append(time_ms(torch, kern, 20))
+                runs["ms"].append(time_ms(torch, kern, 20))
+                runs["prev_ms"].append(time_ms(torch, prev, 20))
+            # each design's kernels alone, replayed from a CUDA graph (no host launch time)
+            graph = {"graph_ms": graph_ms(torch, kern, 20), "prev_graph_ms": graph_ms(torch, prev, 20)}
             nbytes = segment_bytes(seg, n_seg, n_src)
             ops = segment_flops(seg, square)
             t_bytes, t_ops = nbytes["function"] / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS["float32"] * 1e3
             row = {key: min(v) for key, v in runs.items()}
             row.update({f"{key}_runs": v for key, v in runs.items()})
+            prev_bytes = nbytes["function"] + design["bytes"]
+            row.update(graph)
             row.update({"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                         "design_bound_ms": nbytes["design"] / HBM_BYTES_PER_S * 1e3,
+                        "prev_design_bound_ms": prev_bytes / HBM_BYTES_PER_S * 1e3,
                         "sector_ms": nbytes["sectors"] / HBM_BYTES_PER_S * 1e3,
-                        "bytes": nbytes["function"], "design_bytes": nbytes["design"],
+                        "bytes": nbytes["function"], "design_bytes": nbytes["design"], "prev_design_bytes": prev_bytes,
                         "sector_bytes": nbytes["sectors"], "ops": ops, "segments": n_seg,
-                        "entries": seg.gather.shape[0], "library_max_abs_diff": lib_err})
+                        "entries": seg.gather.shape[0], "library_max_abs_diff": lib_err, "prev_max_abs_diff": prev_err,
+                        "form": "keys" if seg.keys is not None else f"row groups of {seg.group}"})
             out[key] = row
-            log(f"  time segment kernel {key:15s} segments={n_seg} entries={seg.gather.shape[0]}: kernel "
-                f"{'/'.join(f'{t:.4f}' for t in runs['ms'])} ms  plain {'/'.join(f'{t:.4f}' for t in runs['plain_ms'])} "
+            log(f"  time segment kernel {key:15s} ({row['form']}) segments={n_seg} entries={seg.gather.shape[0]}: "
+                f"kernel {'/'.join(f'{t:.4f}' for t in runs['ms'])} ms (graph {row['graph_ms']:.4f})  earlier design "
+                f"{'/'.join(f'{t:.4f}' for t in runs['prev_ms'])} ms (graph {row['prev_graph_ms']:.4f}, max abs diff "
+                f"{prev_err:.2e})  plain {'/'.join(f'{t:.4f}' for t in runs['plain_ms'])} "
                 f"ms  index_add_ (gather, product, atomic add) {'/'.join(f'{t:.4f}' for t in runs['index_add_ms'])} ms  "
                 f"cuSPARSE CSR SpMV (torch.mv on a sparse CSR tensor) "
                 f"{'/'.join(f'{t:.4f}' for t in runs['library_ms'])} ms (max abs diff {lib_err:.2e})  "
                 f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, {nbytes['function']} B): "
-                f"{row['bound_ms'] / row['ms']:.1%} of it; with the design's pointers "
+                f"{row['bound_ms'] / row['ms']:.1%} of it; with the design's own bytes "
                 f"{row['design_bound_ms']:.4f} ms ({nbytes['design']} B): "
-                f"{row['design_bound_ms'] / row['ms']:.1%}; a sector per gather (worst case, not a bound) "
-                f"{row['sector_ms']:.4f} ms")
-            del csr, ids, gather, acc
+                f"{row['design_bound_ms'] / row['ms']:.1%} (the earlier design's {row['prev_design_bound_ms']:.4f} ms); "
+                f"a sector per gather (worst case, not a bound) {row['sector_ms']:.4f} ms")
+            del csr, ids, gather, acc, design
         torch.cuda.empty_cache()
     sparse.SPARSE_LAUNCHES.update(saved)
+    return out
+
+
+# The segment kernel's earlier design (csrc/sparse_glm_warp.cu: a warp per
+# 32 segments, int64 pointers over every segment, a chunk plan for the
+# segments over WARP_CHUNK entries), timed in turns with the current one in
+# phase 7 as its yardstick. Nothing on the main path calls it.
+WARP_CHUNK = 4096
+
+
+def warp_design(torch, seg, n_seg):
+    """The earlier design's companions of a product: its int64 pointers
+    (none for the uniform ELL rows) and the chunk plan of its segments over
+    WARP_CHUNK entries, over ``seg``'s entries, gather and values."""
+    dev = seg.gather.device
+    uniform = seg.keys is None and seg.ptr is None
+    counts = np.full(n_seg, seg.seg_len) if uniform else np.bincount(
+        seg.segment_ids(n_seg).cpu().numpy(), minlength=n_seg)
+    long_ids = np.flatnonzero(counts > WARP_CHUNK)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    ptr = None
+    if not uniform or long_ids.size:
+        ptr = to(np.concatenate([[0], np.cumsum(counts)]).astype(np.int64))
+    plan = None
+    if long_ids.size:
+        n_chunks = -(-counts[long_ids] // WARP_CHUNK)
+        plan = (to(long_ids.astype(np.int64)), to(np.concatenate([[0], np.cumsum(n_chunks)]).astype(np.int64)),
+                to(np.repeat(np.arange(long_ids.size, dtype=np.int32), n_chunks)))
+    return {"ptr": ptr, "seg_len": seg.seg_len if uniform and not long_ids.size else 0, "plan": plan,
+            "bytes": (0 if ptr is None else 8 * (n_seg + 1)) + (0 if plan is None else (
+                8 * long_ids.size + 8 * (long_ids.size + 1) + (4 + 16) * int(plan[2].shape[0])))}
+
+
+def warp_segment_dot(torch, design, seg, n_seg, src, square=False, lib=None):
+    """One launch of the earlier design (and of its chunk finalize where it
+    has a plan) over ``design`` = ``warp_design(...)``: float32 out; ``lib``
+    a variant's library (phase 8) in place of csrc/sparse_glm_warp.cu's."""
+    import ctypes
+
+    from photon_ml_tpu_torch.ops import cuda_lib
+
+    lib = lib or cuda_lib.load("sparse_glm_warp")
+    if lib.segment_dot_warp_launch.argtypes is None:
+        i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+        lib.segment_dot_warp_launch.argtypes = [i, i, p, ll, ll, p, p, p, p, ll, ll, ll, p, p, p, p, p]
+        lib.segment_dot_warp_launch.restype = i
+    out = torch.empty(n_seg, dtype=torch.float32, device=src.device)
+    plan = design["plan"]
+    long_ids, chunk_first, owner = plan if plan is not None else (None, None, None)
+    n_chunks = 0 if plan is None else owner.shape[0]
+    partial = torch.empty(n_chunks, dtype=torch.float64, device=src.device)
+    addr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    rc = lib.segment_dot_warp_launch(
+        int(seg.val.dtype == torch.bfloat16), int(square), addr(design["ptr"]), design["seg_len"], n_seg,
+        seg.gather.data_ptr(), seg.val.data_ptr(), src.data_ptr(), out.data_ptr(),
+        WARP_CHUNK if plan is not None else 0, n_chunks, 0 if plan is None else long_ids.shape[0], addr(owner),
+        addr(chunk_first), addr(long_ids), addr(partial) if n_chunks else None,
+        torch.cuda.current_stream(src.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"the earlier segment design failed over {n_seg} segments: CUDA error {rc}")
     return out
 
 
@@ -1967,12 +2259,18 @@ def sparse_entries(sp, times):
             "launches": path.get(name, 0) + glmix.get(name, 0),
             "launches_sparse_solves": path.get(name, 0), "launches_sparse_glmix": glmix.get(name, 0),
             "max_abs_err": (sp.get("errors") or {}).get(name),
-            "ms": t.get("ms"), "plain_ms": t.get("plain_ms"), "bound_ms": t.get("bound_ms"),
+            "ms": t.get("ms"), "prev_ms": t.get("prev_ms"), "graph_ms": t.get("graph_ms"),
+            "prev_graph_ms": t.get("prev_graph_ms"), "plain_ms": t.get("plain_ms"), "bound_ms": t.get("bound_ms"),
             "bound_by": t.get("bound_by"), "design_bound_ms": t.get("design_bound_ms"),
+            "prev_design_bound_ms": t.get("prev_design_bound_ms"), "form": t.get("form"),
             "sector_ms": t.get("sector_ms"), "library_ms": t.get("library_ms"),
             "library": "cuSPARSE CSR SpMV (torch.mv on a sparse CSR tensor)",
             "index_add_ms": t.get("index_add_ms"), "dtype": "float32 values and src, double sums",
             "segments": t.get("segments"), "entries": t.get("entries"), "design": DESIGN["segment_dot"],
+            "prev_design": PREV_SEGMENT_DESIGN,
+            "companion_bytes": ((sp.get("path") or {}).get("companion_bytes") or {}).get(name.split("_", 1)[0]),
+            "solve_ms_per_launch": (((sp.get("path") or {}).get(name.split("_", 1)[0]) or {}).get("profile")
+                                    or {}).get("s1_ms_per_launch"),
         })
     return entries
 
@@ -1986,16 +2284,19 @@ def segment_bytes(seg, n_seg, n_src):
       source read once, the float32 output written once. At the sparse
       shape both sources (w, 40 MB; c, 0.8 MB) fit the 50 MB L2, so a gather
       costs no sector of its own;
-    - ``design``: ``function`` plus what this design adds, its int64
-      segment pointers (none for uniform ELL rows) and the long segments'
-      chunk plan with its float64 partials written and read;
+    - ``design``: ``function`` plus what this design adds: the row groups'
+      segment pointers (none for uniform ELL rows), or the key walk's int32
+      keys, its joins and their float64 carries (one written by each tile
+      of a join and read by the join);
     - ``sectors``: the worst case, each gathered source value a 32-byte
       sector of its own, with the design's additions. Not a bound."""
     nnz = seg.gather.shape[0]
     entries = nnz * (4 + seg.val.element_size())
-    own = 0 if seg.ptr is None else 8 * (n_seg + 1)
-    if seg.long_ids is not None:
-        own += 8 * seg.long_ids.shape[0] + 8 * seg.chunk_first.shape[0] + (4 + 16) * seg.chunk_owner.shape[0]
+    if seg.keys is not None:
+        tiles = int((seg.joins[:, 2] - seg.joins[:, 1] + 1).sum()) if seg.joins.shape[0] else 0
+        own = 4 * nnz + 12 * seg.joins.shape[0] + 2 * 8 * tiles
+    else:
+        own = 0 if seg.ptr is None else seg.ptr.element_size() * (n_seg + 1)
     function = entries + 4 * n_src + 4 * n_seg
     return {"function": function, "design": function + own, "sectors": entries + 32 * nnz + 4 * n_seg + own}
 
@@ -2145,6 +2446,9 @@ def main() -> int:
         sparse_times = phases.run("timing (segment kernel)", time_sparse, torch, args.seed, batches)
         if times is not None:
             times["sparse"] = sparse_times or {}
+    torch.cuda.empty_cache()
+    if want("variants"):
+        phases.run("segment kernel variants", segment_variants, torch, args.seed, batches)
     del batches
     torch.cuda.empty_cache()
     if want("variants"):

@@ -14,18 +14,19 @@ are the JAX package's numpy code, copied, and give its arrays bit for bit.
 The sparse products run through the segmented gather-dot of ``ops/sparse.py``
 (on the card its CUDA kernel; on the CPU its plain version). Each sparse
 matrix builds, once and on the host, the segments its two product
-directions need (``row_segments`` for ``matvec``, ``col_segments`` for
-``rmatvec`` and ``sq_rmatvec``):
+directions need (``row_segments`` for ``matvec``, in the row-group form;
+``col_segments`` for ``rmatvec`` and ``sq_rmatvec``, in the key form):
 
 - ELL: the rows as they are (uniform segments of k); and the entries
-  reordered by column (stable: rows in order within a column), their rows
-  and values copied in that order, with column pointers;
+  reordered by column (stable: rows in order within a column), their
+  columns as int32 keys, rows and values copied in that order;
 - COO: the entries reordered by row (stable: input order within a row),
-  their columns and values copied in that order, with row pointers; and
-  the column-sorted entries as they are, with column pointers;
+  their columns and values copied in that order, with int32 row pointers;
+  and the column-sorted entries as they are, ``coo_cols`` their keys.
 
-and, in each, the chunk plan of the segments longer than ``sparse.CHUNK``
-entries (an intercept column), which the kernel sums a warp per chunk.
+The key form carries no per-column pointer, and a long column (an
+intercept) is many lanes' runs; a row longer than ``sparse.LONG_SEGMENT``
+entries sends its matrix's ``matvec`` to the key form too.
 
 Padding entries stay in: they add ``src * 0`` as the reference does, so a
 non-finite coefficient still turns the margins of padded rows non-finite.
@@ -42,7 +43,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from .sparse import Segments, make_segments, segment_dot, segment_dot_plain
+from .sparse import Segments, key_segments, row_segments, segment_dot, segment_dot_plain
 
 Tensor = torch.Tensor
 
@@ -100,11 +101,11 @@ class FeatureMatrix:
             raise ValueError(f"ELL column indices out of [0, {self.dim})")
         order = np.argsort(flat, kind="stable")
         perm = torch.from_numpy(order).to(idx.device)
-        object.__setattr__(self, "row_segments", make_segments(
+        object.__setattr__(self, "row_segments", row_segments(
             np.full(idx.shape[0], k), idx.reshape(-1), val.reshape(-1), uniform=True,
         ))
-        object.__setattr__(self, "col_segments", make_segments(
-            np.bincount(flat, minlength=self.dim),
+        object.__setattr__(self, "col_segments", key_segments(
+            flat[order], self.dim,
             torch.from_numpy((order // max(k, 1)).astype(np.int32)).to(idx.device),
             val.reshape(-1)[perm].contiguous(),
         ))
@@ -123,10 +124,10 @@ class FeatureMatrix:
             raise ValueError(f"coo_rows out of [0, {self.coo_n_rows})")
         order = np.argsort(r, kind="stable")
         perm = torch.from_numpy(order).to(cols.device)
-        object.__setattr__(self, "row_segments", make_segments(
+        object.__setattr__(self, "row_segments", row_segments(
             np.bincount(r, minlength=self.coo_n_rows), cols[perm].contiguous(), vals[perm].contiguous(),
         ))
-        object.__setattr__(self, "col_segments", make_segments(np.bincount(c, minlength=self.dim), rows, vals))
+        object.__setattr__(self, "col_segments", key_segments(c, self.dim, rows, vals, key_tensor=cols))
 
     @property
     def layout(self) -> str:

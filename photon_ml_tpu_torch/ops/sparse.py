@@ -6,14 +6,26 @@ Every product of an ELL or sorted-COO ``FeatureMatrix`` (``ops/features.py``:
 
     out[s] = sum_{j in segment s} src[gather[j]] * val[j]     (or val[j]**2)
 
-over a ``Segments`` plan that the matrix builds once on the host: segment
-pointers ``ptr`` (int64 ``[n_seg + 1]``) or a uniform segment length, the
-gather index of every entry (int32) and its value. It replaces the XLA
-gathers and scatter-adds of the JAX package's ``ops/features.py``
-(``:103-172``; they are not Pallas kernels). The kernel (``csrc/sparse_glm.cu``)
-sums each segment in double in a fixed order and writes each output once,
-with no atomics: two launches give the same bits. ``index_add_``, the
-PyTorch call that computes the same function, adds with atomics on the card.
+over a ``Segments`` that the matrix builds once on the host: the gather
+index of every entry (int32), its value, and the segments in one of two
+forms (``csrc/sparse_glm.cu`` has a kernel for each):
+
+- **row groups** (``row_segments``, for ``matvec``): segment pointers
+  (int32 ``[n_seg + 1]``, int64 past 2**31 entries) or a uniform segment
+  length (the ELL rows), and the ``group`` of lanes that sums a segment,
+  picked from the mean segment length (``group_width``);
+- **keys** (``key_segments``, for ``rmatvec`` and ``sq_rmatvec``, and for a
+  ``matvec`` with a row longer than ``LONG_SEGMENT`` entries): the
+  entries in segment order carry their segment as an int32 key, and
+  ``joins`` lists the keys whose entries cross a tile of ``TILE`` entries
+  (``key_joins``), whose carries a second launch adds.
+
+It replaces the XLA gathers and scatter-adds of the JAX package's
+``ops/features.py`` (``:103-172``; they are not Pallas kernels). The kernel
+sums each output in double in an order that the layout alone fixes and
+writes each output once, with no atomics: two launches give the same bits.
+``index_add_``, the PyTorch call that computes the same function, adds with
+atomics on the card.
 
 ``segment_dot`` launches the kernel for CUDA tensors (float32 ``src``,
 float32 or bfloat16 values) and raises on anything it does not take; a CPU
@@ -41,59 +53,102 @@ SPARSE_LAUNCHES = {name: 0 for name in PRODUCTS}
 
 _VALUE_DTYPES = (torch.float32, torch.bfloat16)
 
-
-# a segment of more entries is cut into chunks of this many, a warp each
-# (see csrc/sparse_glm.cu)
-CHUNK = 4096
+GROUPS = (4, 8, 16, 32)  # lanes a row group may have
+LANE_ENTRIES = 4  # entries a row-group lane takes a pass (csrc/sparse_glm.cu kLaneEntries)
+TILE = 256  # entries a warp tile of the key walk (kTile)
+# a row segment of more entries sends its product to the key walk, where a
+# long segment is many lanes' runs instead of one group's passes
+LONG_SEGMENT = 512
+_INT32_MAX = 2**31 - 1
 
 
 class Segments(NamedTuple):
-    """One product's segments: ``ptr`` (int64 ``[n_seg + 1]``, or None for
-    uniform segments of ``seg_len`` entries), ``gather`` (int32 ``[nnz]``,
-    the source index of each entry) and ``val`` (``[nnz]``); and the plan
-    of the segments longer than ``CHUNK`` entries (``make_segments`` builds
-    it; None where there are none): ``long_ids`` (int64, their segment
-    ids), ``chunk_first`` (int64 ``[n_long + 1]``, each one's first chunk)
-    and ``chunk_owner`` (int32, each chunk's long segment)."""
+    """One product's segments over ``gather`` (int32 ``[nnz]``, the source
+    index of each entry) and ``val`` (``[nnz]``). Row groups: ``ptr``
+    (int32 or int64 ``[n_seg + 1]``, or None for uniform segments of
+    ``seg_len`` entries) and ``group``, the lanes that sum a segment. Keys:
+    ``keys`` (int32 ``[nnz]``, ascending, the segment of each entry, each
+    below ``n_keys``) and ``joins`` (int32 ``[n_joins, 3]``: key, first
+    tile, last tile of each key that crosses a ``TILE`` boundary)."""
 
     ptr: Optional[Tensor]
     seg_len: int
     gather: Tensor
     val: Tensor
-    long_ids: Optional[Tensor] = None
-    chunk_first: Optional[Tensor] = None
-    chunk_owner: Optional[Tensor] = None
+    group: int = 0
+    keys: Optional[Tensor] = None
+    joins: Optional[Tensor] = None
+    n_keys: int = 0
 
     def segment_ids(self, n_seg: int) -> Tensor:
         """The segment of every entry (int64 ``[nnz]``)."""
+        if self.keys is not None:
+            return self.keys.long()
         seg = torch.arange(n_seg, device=self.gather.device)
         if self.ptr is None:
             return seg.repeat_interleave(self.seg_len)
-        return seg.repeat_interleave(self.ptr.diff())
+        return seg.repeat_interleave(self.ptr.diff().long())
 
 
-def make_segments(counts: np.ndarray, gather: Tensor, val: Tensor, uniform: bool = False) -> Segments:
+def group_width(mean_len: float) -> int:
+    """The lanes of a row group: the fewest (at least 4) whose passes of
+    ``LANE_ENTRIES`` entries cover a segment of the mean length at once."""
+    for g in GROUPS:
+        if g * LANE_ENTRIES >= mean_len:
+            return g
+    return GROUPS[-1]
+
+
+def key_joins(keys: np.ndarray, tile: int = TILE) -> np.ndarray:
+    """int32 ``[n_joins, 3]``: each key whose entries cross a boundary of
+    ``tile`` entries, with the tiles of its first and last entries, in key
+    order (``keys`` ascending)."""
+    keys = np.asarray(keys)
+    b = np.arange(tile, keys.size, tile)
+    cross = b[keys[b - 1] == keys[b]]
+    if not cross.size:
+        return np.zeros((0, 3), dtype=np.int32)
+    k = keys[cross]
+    new = np.concatenate([[True], k[1:] != k[:-1]])
+    ends = np.concatenate([new[1:], [True]])
+    return np.stack([k[new], cross[new] // tile - 1, cross[ends] // tile], axis=1).astype(np.int32)
+
+
+def key_segments(keys: np.ndarray, n_seg: int, gather: Tensor, val: Tensor,
+                 key_tensor: Optional[Tensor] = None) -> Segments:
+    """The key form over entries whose segments ``keys`` (ascending, each
+    below ``n_seg``) names: the keys on ``gather``'s device (``key_tensor``
+    where the layout already holds them there, as COO's ``coo_cols``) and
+    their joins."""
+    dev = gather.device
+    keys = np.asarray(keys)
+    if keys.size and (keys[0] < 0 or keys[-1] >= n_seg or np.any(keys[1:] < keys[:-1])):
+        raise ValueError(f"keys must ascend within [0, {n_seg})")
+    if key_tensor is None:
+        key_tensor = torch.from_numpy(keys.astype(np.int32)).to(dev)
+    return Segments(None, 0, gather, val, keys=key_tensor, joins=torch.from_numpy(key_joins(keys)).to(dev),
+                    n_keys=n_seg)
+
+
+def row_segments(counts: np.ndarray, gather: Tensor, val: Tensor, uniform: bool = False) -> Segments:
     """The segments of ``counts[s]`` consecutive entries each, built on the
-    host: int64 pointers (none for ``uniform`` segments, all of
-    ``counts[0]`` entries, unless they are longer than ``CHUNK``) and the
-    long segments' chunk plan, on ``gather``'s device."""
+    host: row groups with int32 pointers (int64 past 2**31 entries; none for
+    ``uniform`` segments, all of ``counts[0]`` entries) and the group width
+    from the mean length; the key form where a segment is longer than
+    ``LONG_SEGMENT``."""
     dev = gather.device
     counts = np.asarray(counts, dtype=np.int64)
-    long_ids = np.flatnonzero(counts > CHUNK)
-    seg_len = int(counts[0]) if uniform and counts.size else 0
-    ptr = None
-    if not uniform or long_ids.size:
-        ptr = np.zeros(counts.size + 1, dtype=np.int64)
-        np.cumsum(counts, out=ptr[1:])
-        ptr = torch.from_numpy(ptr).to(dev)
-    if not long_ids.size:
-        return Segments(ptr, seg_len, gather, val)
-    n_chunks = -(-counts[long_ids] // CHUNK)
-    chunk_first = np.zeros(long_ids.size + 1, dtype=np.int64)
-    np.cumsum(n_chunks, out=chunk_first[1:])
-    owner = np.repeat(np.arange(long_ids.size, dtype=np.int32), n_chunks)
-    to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    return Segments(ptr, 0, gather, val, to(long_ids), to(chunk_first), to(owner))
+    n_seg, nnz = counts.size, int(counts.sum())
+    if n_seg and counts.max() > LONG_SEGMENT:
+        return key_segments(np.repeat(np.arange(n_seg, dtype=np.int32), counts), n_seg, gather, val)
+    group = group_width(nnz / n_seg if n_seg else 0.0)
+    if uniform:
+        return Segments(None, int(counts[0]) if n_seg else 0, gather, val, group)
+    ptr = np.zeros(n_seg + 1, dtype=np.int64)
+    np.cumsum(counts, out=ptr[1:])
+    if nnz <= _INT32_MAX:
+        ptr = ptr.astype(np.int32)
+    return Segments(torch.from_numpy(ptr).to(dev), 0, gather, val, group)
 
 
 def reset_launch_counts() -> None:
@@ -116,10 +171,16 @@ def segment_dot_plain(seg: Segments, n_seg: int, src: Tensor, square: bool = Fal
 
 def _library() -> ctypes.CDLL:
     lib = cuda_lib.load("sparse_glm")
-    if lib.segment_dot_launch.argtypes is None:
+    if lib.segment_rows_launch.argtypes is None:
         i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-        lib.segment_dot_launch.argtypes = [i, i, p, ll, ll, p, p, p, p, ll, ll, ll, p, p, p, p, p]
-        lib.segment_dot_launch.restype = i
+        lib.segment_rows_launch.argtypes = [i, i, i, p, p, ll, ll, p, p, p, p, p]
+        lib.segment_rows_launch.restype = i
+        lib.segment_keys_launch.argtypes = [i, i, p, p, p, ll, ll, p, ll, p, p, p, p, p]
+        lib.segment_keys_launch.restype = i
+        lib.segment_tile_entries.argtypes = []
+        lib.segment_tile_entries.restype = i
+        if lib.segment_tile_entries() != TILE:
+            raise RuntimeError(f"csrc/sparse_glm.cu tiles {lib.segment_tile_entries()} entries, ops/sparse.py {TILE}")
     return lib
 
 
@@ -133,17 +194,25 @@ def _check(seg: Segments, n_seg: int, src: Tensor) -> None:
         raise TypeError(f"the segment kernel takes an int32 gather index, got {seg.gather.dtype}")
     if seg.gather.shape != seg.val.shape or seg.gather.dim() != 1:
         raise ValueError(f"gather {tuple(seg.gather.shape)} and values {tuple(seg.val.shape)} must be 1-D alike")
+    nnz = seg.gather.shape[0]
     tensors = [seg.gather, seg.val]
-    if seg.long_ids is not None:
-        if seg.ptr is None or seg.chunk_first.dtype != torch.int64 or seg.chunk_owner.dtype != torch.int32:
-            raise ValueError("a long-segment plan needs ptr, int64 chunk_first and int32 chunk_owner")
-        tensors += [seg.long_ids, seg.chunk_first, seg.chunk_owner]
-    if seg.ptr is not None:
-        if seg.ptr.dtype != torch.int64 or seg.ptr.shape != (n_seg + 1,):
-            raise ValueError(f"ptr must be int64 ({n_seg + 1},), got {seg.ptr.dtype} {tuple(seg.ptr.shape)}")
-        tensors.append(seg.ptr)
-    elif n_seg * seg.seg_len != seg.gather.shape[0]:
-        raise ValueError(f"{n_seg} segments of {seg.seg_len} entries do not cover {seg.gather.shape[0]} entries")
+    if seg.keys is not None:
+        if seg.keys.dtype != torch.int32 or seg.keys.shape != (nnz,) or n_seg != seg.n_keys or n_seg > _INT32_MAX:
+            raise ValueError(f"keys must be int32 ({nnz},) over the {seg.n_keys} segments they were built for "
+                             f"(fewer than 2**31), got {seg.keys.dtype} {tuple(seg.keys.shape)} over {n_seg}")
+        if seg.joins is None or seg.joins.dtype != torch.int32 or seg.joins.dim() != 2 or seg.joins.shape[1] != 3:
+            raise ValueError("keys need their joins, int32 [n_joins, 3] (sparse.key_joins)")
+        tensors += [seg.keys, seg.joins]
+    else:
+        if seg.group not in GROUPS:
+            raise ValueError(f"row groups take {GROUPS} lanes, got {seg.group}")
+        if seg.ptr is not None:
+            if seg.ptr.dtype not in (torch.int32, torch.int64) or seg.ptr.shape != (n_seg + 1,):
+                raise ValueError(f"ptr must be int32 or int64 ({n_seg + 1},), got {seg.ptr.dtype} "
+                                 f"{tuple(seg.ptr.shape)}")
+            tensors.append(seg.ptr)
+        elif n_seg * seg.seg_len != nnz:
+            raise ValueError(f"{n_seg} segments of {seg.seg_len} entries do not cover {nnz} entries")
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"the segments are on {t.device}, src on {dev}")
@@ -154,10 +223,9 @@ def _check(seg: Segments, n_seg: int, src: Tensor) -> None:
 def segment_dot(name: str, seg: Segments, n_seg: int, src: Tensor, square: bool = False) -> Tensor:
     """``out[s] = sum_j src[gather[j]] * val[j]`` (``val**2`` with ``square``)
     over the ``n_seg`` segments of ``seg``: on the card one launch of the
-    kernel (and of its finalize where ``seg`` has long segments), float32
-    out, counted in ``SPARSE_LAUNCHES[name]``; a CPU tensor takes
-    ``segment_dot_plain``. Segments without a plan are summed a warp each,
-    whatever their length."""
+    kernel of ``seg``'s form (and of the joins' kernel where keys cross a
+    tile), float32 out, counted in ``SPARSE_LAUNCHES[name]``; a CPU tensor
+    takes ``segment_dot_plain``."""
     if src.device.type == "cpu":
         return segment_dot_plain(seg, n_seg, src, square)
     if src.device.type != "cuda":
@@ -169,20 +237,26 @@ def segment_dot(name: str, seg: Segments, n_seg: int, src: Tensor, square: bool 
     if n_seg == 0:
         return out
     lib = _library()
-    plan = seg.long_ids is not None
-    n_long = seg.long_ids.shape[0] if plan else 0
-    n_chunks = seg.chunk_owner.shape[0] if plan else 0
-    partial = torch.empty(n_chunks, dtype=torch.float64, device=src.device) if plan else None
-    addr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    bf16 = int(seg.val.dtype == torch.bfloat16)
     with torch.cuda.device(src.device):
-        rc = lib.segment_dot_launch(
-            int(seg.val.dtype == torch.bfloat16), int(square), addr(seg.ptr), seg.seg_len, n_seg,
-            seg.gather.data_ptr(), seg.val.data_ptr(), src.data_ptr(), out.data_ptr(),
-            CHUNK if plan else 0, n_chunks, n_long, addr(seg.chunk_owner), addr(seg.chunk_first),
-            addr(seg.long_ids), addr(partial), torch.cuda.current_stream(src.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(src.device).cuda_stream
+        if seg.keys is not None:
+            nnz, n_joins = seg.gather.shape[0], seg.joins.shape[0]
+            carries = torch.empty((2, -(-nnz // TILE) if n_joins else 0), dtype=torch.float64, device=src.device)
+            rc = lib.segment_keys_launch(
+                bf16, int(square), seg.keys.data_ptr(), seg.gather.data_ptr(), seg.val.data_ptr(), nnz, n_seg,
+                seg.joins.data_ptr() if n_joins else None, n_joins, src.data_ptr(), out.data_ptr(),
+                carries[0].data_ptr() if n_joins else None, carries[1].data_ptr() if n_joins else None, stream,
+            )
+        else:
+            ptr = seg.ptr
+            rc = lib.segment_rows_launch(
+                bf16, int(square), seg.group,
+                ptr.data_ptr() if ptr is not None and ptr.dtype == torch.int32 else None,
+                ptr.data_ptr() if ptr is not None and ptr.dtype == torch.int64 else None,
+                seg.seg_len, n_seg, seg.gather.data_ptr(), seg.val.data_ptr(), src.data_ptr(), out.data_ptr(), stream,
+            )
     if rc != 0:
-        raise RuntimeError(f"segment_dot_launch failed for {name} over {n_seg} segments: CUDA error {rc}")
+        raise RuntimeError(f"the segment kernel failed for {name} over {n_seg} segments: CUDA error {rc}")
     SPARSE_LAUNCHES[name] += 1
     return out
-

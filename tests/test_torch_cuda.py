@@ -531,6 +531,96 @@ def test_segment_kernel_matches_float64_plain_and_repeats_its_bits(cuda, layout,
             assert a.shape == (n_seg,) and a.dtype == torch.float32
 
 
+def _edge_matrix(case, layout, fdt):
+    """The segment kernel's edges, as a FeatureMatrix on the card:
+
+    - ``runs``: columns of 1 to 5,000 entries, so that runs of equal keys
+      cross lanes (8 entries), warps (a tile of 256) and blocks (8 tiles),
+      and a row of 3,000 entries (past LONG_SEGMENT: matvec takes the key
+      walk too);
+    - ``intercept``: an intercept column, one entry in every row, crossing
+      more tiles than one lane of the joins adds alone;
+    - ``padding``: ELL rows of 0 to 12 entries, padded in column 0; COO
+      padded to a multiple of 4,096 entries in column d - 1 / row 0;
+    - ``gaps``: the first 1,000 columns and the last ~100,000 empty, and a
+      gap of ~900,000 empty columns between the used ones.
+    """
+    import numpy as np
+
+    from photon_ml_tpu_torch.ops.features import FeatureMatrix, sorted_coo_matrix
+
+    rng = np.random.default_rng(len(case) + len(layout))
+    n, d = 6000, 20_000
+    if case == "runs":
+        lengths = [1, 7, 8, 9, 255, 256, 257, 511, 2047, 2048, 2049, 5000]
+        cols = np.concatenate([np.full(m, 10 + 37 * i) for i, m in enumerate(lengths)] +
+                              [rng.integers(0, d, size=20_000), np.arange(3000) % d])
+        rows = np.concatenate([rng.integers(0, n, size=sum(lengths) + 20_000), np.full(3000, 17)])
+    elif case == "intercept":
+        rows = np.concatenate([np.repeat(np.arange(n), 5), np.arange(n)])
+        cols = np.concatenate([rng.integers(0, d - 1, size=5 * n), np.full(n, d - 1)])
+    elif case == "padding":
+        counts = rng.integers(0, 13, size=n)
+        rows = np.repeat(np.arange(n), counts)
+        cols = rng.integers(1, d, size=rows.size)
+    else:
+        d = 1_000_000
+        rows = rng.integers(0, n, size=30_000)
+        cols = np.where(rng.random(30_000) < 0.5, rng.integers(1000, 1100, size=30_000),
+                        rng.integers(900_000, 900_010, size=30_000))
+    vals = rng.normal(size=rows.size) * 0.3
+    if layout == "coo" and case == "padding":
+        return sorted_coo_matrix(rows, cols, vals, n, d, dtype=fdt, pad_to_multiple=4096, device="cuda"), n, d
+    f = batch_from_coo(rows, cols, vals, np.zeros(n), d, layout=layout, feature_dtype=fdt).features
+    if layout == "ell" and case == "padding":
+        assert bool((f.idx == 0).any()) and isinstance(f, FeatureMatrix)
+    return f, n, d
+
+
+@pytest.mark.parametrize("case", ["runs", "intercept", "padding", "gaps"])
+@pytest.mark.parametrize("layout", ["ell", "coo"])
+@pytest.mark.parametrize("fdt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_segment_kernel_edges_match_float64_plain_and_repeat_their_bits(cuda, case, layout, fdt):
+    """Every product (the square too) at the segment kernel's edges against
+    its float64 plain version at the gradient bound, the same bits on two
+    launches, each launch counted."""
+    f, n, d = _edge_matrix(case, layout, fdt)
+    if case == "runs":
+        assert f.row_segments.keys is not None  # the 3,000-entry row
+    if case == "padding" and layout == "coo":
+        assert f.row_segments.keys is not None and int(f.coo_cols[-1]) == d - 1
+    assert f.col_segments.joins.shape[0] > 0
+    g = torch.Generator(device=cuda)
+    g.manual_seed(d)
+    w = torch.randn(d, generator=g, device=cuda)
+    c = torch.randn(n, generator=g, device=cuda)
+    for direction, seg, n_seg, src, square in (("matvec", f.row_segments, n, w, False),
+                                               ("rmatvec", f.col_segments, d, c, False),
+                                               ("sq_rmatvec", f.col_segments, d, c, True)):
+        name = f"{layout}_{direction}"
+        before = sparse.SPARSE_LAUNCHES[name]
+        a = sparse.segment_dot(name, seg, n_seg, src, square)
+        b = sparse.segment_dot(name, seg, n_seg, src, square)
+        torch.cuda.synchronize()
+        assert sparse.SPARSE_LAUNCHES[name] == before + 2
+        assert a.shape == (n_seg,) and a.dtype == torch.float32 and bool(torch.isfinite(a).all())
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), f"{case} {name}: two launches differ"
+        _assert_vec(a, sparse.segment_dot_plain(seg, n_seg, src.double(), square), f"{case} {name}")
+        if case == "gaps" and direction != "matvec":
+            assert not bool(a[:1000].any()) and not bool(a[900_010:].any()) and not bool(a[1100:900_000].any())
+
+
+def test_segment_kernel_writes_zeros_without_entries(cuda):
+    """A key walk over no entries writes every output as 0 (one launch)."""
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda)
+    import numpy as np
+
+    seg = sparse.key_segments(np.zeros(0, dtype=np.int32), 5000, empty, torch.zeros(0, device=cuda))
+    out = sparse.segment_dot("coo_rmatvec", seg, 5000, torch.randn(10, device=cuda))
+    torch.cuda.synchronize()
+    assert out.shape == (5000,) and not bool(out.any()) and sparse.SPARSE_LAUNCHES["coo_rmatvec"] == 1
+
+
 def test_segment_kernel_refuses_what_it_does_not_take(cuda):
     rows, cols, vals, y = _sparse_triplets(50, 20, seed=1)
     f = batch_from_coo(rows, cols, vals, y, 20, layout="coo").features
@@ -540,8 +630,14 @@ def test_segment_kernel_refuses_what_it_does_not_take(cuda):
         sparse.segment_dot("coo_rmatvec", seg, 20, c.double())
     with pytest.raises(TypeError, match="int32"):
         sparse.segment_dot("coo_rmatvec", seg._replace(gather=seg.gather.long()), 20, c)
-    with pytest.raises(ValueError, match="ptr"):
+    with pytest.raises(ValueError, match="keys"):
+        sparse.segment_dot("coo_rmatvec", seg._replace(keys=seg.keys.long()), 20, c)
+    with pytest.raises(ValueError, match="keys"):  # fewer outputs than the keys index
         sparse.segment_dot("coo_rmatvec", seg, 19, c)
+    with pytest.raises(ValueError, match="joins"):
+        sparse.segment_dot("coo_rmatvec", seg._replace(joins=None), 20, c)
+    with pytest.raises(ValueError, match="ptr"):
+        sparse.segment_dot("coo_matvec", f.row_segments, 49, torch.randn(20, device=cuda))
     with pytest.raises(ValueError, match="is on|are on"):
         sparse.segment_dot("coo_rmatvec", seg._replace(val=seg.val.cpu()), 20, c)
     assert not any(sparse.SPARSE_LAUNCHES.values())

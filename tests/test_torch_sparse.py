@@ -210,15 +210,37 @@ def test_build_fixed_effect_dataset_equals_jax(rng):
 
 
 def _loop(seg, n_seg, src, square=False):
-    """The segments' products by a numpy loop, segment by segment."""
+    """The segments' products by a numpy loop: segment by segment over the
+    pointers or the uniform rows, entry by entry over the keys."""
     out = np.zeros(n_seg)
     gather, val = seg.gather.numpy(), _np(seg.val).astype(np.float64)
+    term = lambda j: src[gather[j]] * (val[j] ** 2 if square else val[j])  # noqa: E731
+    if seg.keys is not None:
+        for j, key in enumerate(seg.keys.tolist()):
+            out[key] += term(j)
+        return out
     for s in range(n_seg):
         a, b = (s * seg.seg_len, (s + 1) * seg.seg_len) if seg.ptr is None else (
             int(seg.ptr[s]), int(seg.ptr[s + 1]))
         for j in range(a, b):
-            out[s] += src[gather[j]] * (val[j] ** 2 if square else val[j])
+            out[s] += term(j)
     return out
+
+
+def _joins_loop(keys, tile):
+    """The joins by a loop over the tiles: a key whose entries cross a tile
+    boundary, with the tiles of its first and last entries."""
+    joins = []
+    for b in range(tile, len(keys), tile):
+        if keys[b - 1] != keys[b]:
+            continue
+        key = int(keys[b])
+        if joins and joins[-1][0] == key:
+            joins[-1][2] = b // tile
+        else:
+            first = min(j for j in range(len(keys)) if keys[j] == key)
+            joins.append([key, first // tile, b // tile])
+    return np.array(joins, dtype=np.int32).reshape(-1, 3)
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
@@ -248,37 +270,93 @@ def test_companion_segments_reproduce_the_products(rng, layout):
     assert np.array_equal(f.matvec(_t(w)).numpy(), xw)
     assert np.array_equal(f.rmatvec(_t(c)).numpy(), xtc)
     assert np.array_equal(f.sq_rmatvec(_t(c)).numpy(), x2tc)
-    # the column segments hold every entry once, in column order
+    # the column segments hold every entry once, in column order, keyed by
+    # their column, with no per-column pointer
     seg = f.col_segments
-    assert seg.ptr[0] == 0 and seg.ptr[-1] == len(entries) and bool((seg.ptr.diff() >= 0).all())
-    assert seg.ptr.diff()[d - 2] == 0  # the empty column
-    assert int(seg.ptr.diff()[3]) >= n  # the full column
+    keys = seg.keys.numpy()
+    assert seg.ptr is None and seg.keys.dtype == torch.int32 and len(keys) == len(entries)
+    assert bool(np.all(keys[1:] >= keys[:-1]))
+    counts = np.bincount(keys, minlength=d)
+    assert counts[d - 2] == 0  # the empty column
+    assert counts[3] >= n  # the full column
+    assert np.array_equal(seg.joins.numpy(), _joins_loop(keys, sparse.TILE))
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
-def test_long_segments_get_a_chunk_plan(rng, layout, monkeypatch):
-    """Segments longer than ``sparse.CHUNK`` entries (here the full column
-    3, and with a small CHUNK the ELL rows too) carry the plan that the
-    kernel sums a warp per chunk: their ids, each one's first chunk and
-    each chunk's owner; the products stay exact."""
-    monkeypatch.setattr(sparse, "CHUNK", 5)
+def test_long_segments_take_the_key_walk(rng, layout, monkeypatch):
+    """A row longer than ``sparse.LONG_SEGMENT`` entries (here, with a small
+    threshold, the ELL rows and the longer COO rows) sends ``matvec`` to the
+    key form, its rows as keys; the columns always take it, and a long
+    column (the full column 3) is just a run of equal keys, with no plan of
+    its own beyond the joins; the products stay exact."""
+    monkeypatch.setattr(sparse, "LONG_SEGMENT", 5)
     rows, cols, vals = _triplets(rng, integer=True)
     y, _, _ = _labels(rng, 60)
     f = batch_from_coo(rows, cols, vals, y, 40, dtype=torch.float64, layout=layout, device="cpu").features
-    for seg, n_seg in ((f.col_segments, 40), (f.row_segments, 60)):
-        counts = seg.ptr.diff().numpy() if seg.ptr is not None else np.full(n_seg, seg.seg_len)
-        long_ids = np.flatnonzero(counts > 5)
-        if not long_ids.size:
-            assert seg.long_ids is None
-            continue
-        assert np.array_equal(seg.long_ids.numpy(), long_ids) and seg.ptr is not None
-        chunks = -(-counts[long_ids] // 5)
-        assert np.array_equal(seg.chunk_first.numpy(), np.concatenate([[0], np.cumsum(chunks)]))
-        assert np.array_equal(seg.chunk_owner.numpy(), np.repeat(np.arange(len(long_ids)), chunks))
-        assert seg.chunk_owner.dtype == torch.int32 and seg.chunk_first.dtype == torch.int64
-    assert 3 in f.col_segments.long_ids.tolist()
+    if layout == "ell":
+        counts = np.full(60, f.idx.shape[1])
+    else:
+        counts = np.bincount(f.coo_rows.numpy(), minlength=60)
+    assert counts.max() > 5
+    for seg, n_seg, row_counts in ((f.row_segments, 60, counts), (f.col_segments, 40, None)):
+        keys = seg.keys.numpy()
+        assert seg.ptr is None and seg.group == 0 and seg.keys.dtype == torch.int32
+        if row_counts is not None:
+            assert np.array_equal(keys, np.repeat(np.arange(n_seg), row_counts))
+        assert np.array_equal(seg.joins.numpy(), _joins_loop(keys, sparse.TILE))
+        assert np.array_equal(seg.segment_ids(n_seg).numpy(), keys)
+    assert np.bincount(f.col_segments.keys.numpy(), minlength=40)[3] >= 60
     w = rng.integers(-3, 4, size=40).astype(np.float64)
-    assert np.array_equal(f.matvec(_t(w)).numpy(), f.to_dense().numpy() @ w)
+    c = rng.integers(-3, 4, size=60).astype(np.float64)
+    dense = f.to_dense().numpy()
+    assert np.array_equal(f.matvec(_t(w)).numpy(), dense @ w)
+    assert np.array_equal(f.rmatvec(_t(c)).numpy(), dense.T @ c)
+
+
+@pytest.mark.parametrize("tile", [1, 2, 8, 256])
+@pytest.mark.parametrize("shape", ["uniform", "one_key", "runs", "intercept"])
+def test_key_joins_match_a_loop(tile, shape):
+    """The joins that the key walk's second launch adds: each key whose
+    entries cross a tile boundary with its first and last tiles, in key
+    order, as a loop over the tiles finds them."""
+    rng = np.random.default_rng(tile)
+    keys = {
+        "uniform": np.sort(rng.integers(0, 3000, 2000)),
+        "one_key": np.full(700, 5),
+        "runs": np.sort(rng.integers(0, 40, 1500)),
+        "intercept": np.sort(np.concatenate([rng.integers(0, 500, 600), np.full(900, 250)])),
+    }[shape].astype(np.int32)
+    got = sparse.key_joins(keys, tile)
+    assert got.dtype == np.int32 and np.array_equal(got, _joins_loop(keys, tile))
+    # every crossing boundary lies inside exactly one join
+    for b in range(tile, len(keys), tile):
+        inside = [(k, u, w) for k, u, w in got if u * tile < b <= w * tile]
+        assert len(inside) == (keys[b - 1] == keys[b]) and all(k == keys[b] for k, _, _ in inside)
+
+
+@pytest.mark.parametrize("mean,group", [(0.0, 4), (1.0, 4), (16.0, 4), (16.5, 8), (32.0, 8), (33.0, 16),
+                                        (64.0, 16), (100.0, 32), (5000.0, 32)])
+def test_group_width_covers_the_mean_segment(mean, group):
+    """The row groups' width: the fewest lanes, at least 4, whose passes of
+    LANE_ENTRIES entries cover a segment of the mean length."""
+    assert sparse.group_width(mean) == group
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_row_segments_are_row_groups(rng, layout):
+    """matvec's segments: the ELL rows as uniform segments, the COO rows
+    with int32 pointers, each with the group width of its mean row."""
+    rows, cols, vals = _triplets(rng)
+    y, _, _ = _labels(rng, 60)
+    f = batch_from_coo(rows, cols, vals, y, 40, layout=layout, device="cpu").features
+    seg = f.row_segments
+    assert seg.keys is None and seg.group == sparse.group_width(seg.gather.shape[0] / 60)
+    if layout == "ell":
+        assert seg.ptr is None and seg.seg_len == f.idx.shape[1]
+    else:
+        counts = np.bincount(f.coo_rows.numpy(), minlength=60)
+        assert seg.ptr.dtype == torch.int32
+        assert np.array_equal(seg.ptr.numpy(), np.concatenate([[0], np.cumsum(counts)]))
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
@@ -293,12 +371,15 @@ def test_segments_keep_a_stable_order(rng, layout):
         order = np.argsort(flat, kind="stable")
         assert np.array_equal(seg.gather.numpy(), (order // k).astype(np.int32))
         assert np.array_equal(seg.val.numpy(), f.val.reshape(-1).numpy()[order])
+        assert np.array_equal(seg.keys.numpy(), flat[order])
     else:
         seg = f.row_segments
         order = np.argsort(f.coo_rows.numpy(), kind="stable")
         assert np.array_equal(seg.gather.numpy(), f.coo_cols.numpy()[order])
         assert np.array_equal(seg.val.numpy(), f.coo_vals.numpy()[order])
-    assert seg.ptr.dtype == torch.int64
+        assert seg.ptr.dtype == torch.int32
+        # the columns' keys are coo_cols itself: no copy
+        assert f.col_segments.keys is f.coo_cols
 
 
 # ---------------------------------------------------------------- products
@@ -351,8 +432,9 @@ def _chip_smoke():
 
 def test_segment_bound_counts_what_the_product_moves():
     """chip_smoke.py's bound for the segment kernel: each entry's index and
-    value, the source and the output once; the design's pointers and chunk
-    plan apart; a sector per gathered value only as the worst case."""
+    value, the source and the output once; the design's pointers, keys,
+    joins and carries apart; a sector per gathered value only as the worst
+    case."""
     cs = _chip_smoke()
     seg = sparse.Segments(torch.tensor([0, 2, 2, 3]), 0, torch.tensor([1, 0, 1], dtype=torch.int32),
                           torch.tensor([1.0, 2.0, 3.0]))
@@ -366,12 +448,21 @@ def test_segment_bound_counts_what_the_product_moves():
     assert ell.ptr is None
     b = cs.segment_bytes(ell, 4, 5)
     assert b["function"] == b["design"] == 8 * (4 + 2) + 4 * 5 + 4 * 4
-    # a segment over sparse.CHUNK entries adds its chunk plan to the design's bytes
-    n = sparse.CHUNK + 1
-    long = sparse.make_segments(np.array([n, 1]), torch.zeros(n + 1, dtype=torch.int32), torch.ones(n + 1))
-    b = cs.segment_bytes(long, 2, 1)
+    # the key walk adds its int32 keys, the joins and their float64 carries
+    # (each tile of a join writes one and the join reads it) to the design's
+    # bytes: a segment of TILE + 1 entries crosses one boundary
+    n = sparse.TILE + 1
+    keyed = sparse.key_segments(np.repeat(np.arange(2, dtype=np.int32), [n, 1]), 2,
+                                torch.zeros(n + 1, dtype=torch.int32), torch.ones(n + 1))
+    assert keyed.joins.tolist() == [[0, 0, 1]]
+    b = cs.segment_bytes(keyed, 2, 1)
     assert b["function"] == (n + 1) * 8 + 4 + 4 * 2
-    assert b["design"] - b["function"] == 8 * 3 + 8 * 1 + 8 * 2 + (4 + 16) * 2
+    assert b["design"] - b["function"] == 4 * (n + 1) + 12 + 2 * 8 * 2
+    # COO rows: int32 pointers
+    coo = batch_from_coo(np.repeat(np.arange(4), 2), np.arange(8) % 5, np.ones(8), np.zeros(4), 5,
+                         layout="coo", device="cpu").features.row_segments
+    b = cs.segment_bytes(coo, 4, 5)
+    assert b["design"] - b["function"] == 4 * 5
 
 
 # --------------------------------------------------------------- objective
