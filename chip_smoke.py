@@ -120,12 +120,36 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    the design's own bytes and a sector per gather beside), in turns with
    the earlier design (csrc/sparse_glm_warp.cu: prev, new, new, prev), both
    also replayed from a CUDA graph, its plain version, index_add_ and a
-   cuSPARSE CSR SpMV (torch.mv on a sparse CSR tensor).
+   cuSPARSE CSR SpMV (torch.mv on a sparse CSR tensor);
+10. the solvers (run after phase 6, before phase 9), every launch counter at
+   0 before each part: (a) phase 5's data and coordinates with the fixed
+   effect's variance FULL (B1 and B2 launch, B3 must not) and the random
+   effect solved by the packed batched TRON (tol 1e-6, 30 iterations, 20
+   CG steps), a warm-up and three timed sweeps printed beside phase 5's
+   (wall, examples/s, shares, RE syncs per size bucket for TRON and phase
+   5's L-BFGS); the seconds of hessian_matrix and of _diag_of_inverse at
+   n x d; the FULL variances against a float64 Hessian built in this
+   script (rtol 1e-3); the sweep against the plain route at phase 5's
+   bounds; then one fixed-effect solve with down-sampling rate 0.5 (the
+   keep mask drawn on the card from --seed; variance NONE) against its
+   plain route by loss (rtol 1e-5); (b) bench.py's bench_billion_coef slice
+   (32,768 entities x 16 rows x 256 columns, f32, logistic, L2 1.0, tol
+   1e-6, 30 iterations), L-BFGS then TRON, each through the packed and the
+   vmapped (entity-leading, per-lane history) solves, timed, held per
+   entity at the packed bounds (coefficients atol 5e-3, loss atol 1e-4);
+   the vmapped solve of the first 4,096 entities alone (and of entity 0
+   alone, and of entities 1,000-1,010) against the same entities within
+   the slice, bit for bit (printed; held at the packed bounds); (c)
+   compute_variances("FULL"), the Hessian's build included, on 4,096
+   random logistic rows at d = 16,384, 32,768 and 65,536, float32 and
+   float64: seconds and peak device memory, float32 against float64 at
+   rtol 1e-3; the port's MAX_FULL_VARIANCE_DIM must be the largest d
+   measured here, and one column more must raise.
 
     python3 chip_smoke.py --only timing    # card, build, then one phase
 
-runs a subset of phases 3-9 (check, fe, glmix, dp, nccl, sparse, timing, variants)
-and then reports not ok; "nccl" is phase 6 (c) alone after phase 5 (for a
+runs a subset of phases 3-10 (check, fe, glmix, dp, nccl, solvers, sparse, timing,
+variants) and then reports not ok; "solvers" runs phase 5 first; "nccl" is phase 6 (c) alone after phase 5 (for a
 machine with several cards: one NCCL rank per card).
 
 The line before the last is {"kernels": [...]}; the last line is
@@ -365,7 +389,8 @@ def check_kernels(torch, n_full, d_full, seed):
 def check_b4_parts(torch, gen, n, d, seed):
     """B4's two new parts on the card. The rank-order sum kernel against its
     plain version, bitwise, on random float64 slots of wide magnitudes
-    (worlds SUM_WORLDS, the main path's output widths); the finalize's slot
+    (worlds SUM_WORLDS, the main path's output widths and the FULL
+    Hessian's d x d); the finalize's slot
     form against the f32 output widened, bitwise, for B1-B3 at n x d f32.
     Returns (the sum's max-abs error, the cases that missed)."""
     from photon_ml_tpu_torch.ops import fused_glm as fg
@@ -374,9 +399,9 @@ def check_b4_parts(torch, gen, n, d, seed):
     dev = torch.device("cuda")
     bad, err = [], 0.0
     saved = dict(fg.SUM_LAUNCHES)
+    widths = [fg._out_width(m, d) for m in (fg.VG, fg.HV, fg.HD, fg.HD_SHIFTS)] + [d * d]
     for world in SUM_WORLDS:
-        for mode in (fg.VG, fg.HV, fg.HD, fg.HD_SHIFTS):
-            width = fg._out_width(mode, d)
+        for mode, width in enumerate(widths):
             gen.manual_seed(seed * 131 + world * 7 + mode)
             scale = 10.0 ** torch.randint(-8, 9, (world, width), generator=gen, device=dev).double()
             slots = torch.randn((world, width), generator=gen, device=dev, dtype=torch.float64) * scale
@@ -387,8 +412,8 @@ def check_b4_parts(torch, gen, n, d, seed):
             if not same:
                 bad.append(("rank_order_sum", world, width))
     fg.SUM_LAUNCHES.update(saved)  # checks are not main-path launches
-    log(f"  check rank_order_sum kernel vs plain, worlds {SUM_WORLDS}, widths "
-        f"{[fg._out_width(m, d) for m in (fg.VG, fg.HV, fg.HD, fg.HD_SHIFTS)]}: bitwise equal "
+    log(f"  check rank_order_sum kernel vs plain, worlds {SUM_WORLDS}, widths {widths} (the last: FULL's "
+        f"d x d over ranks): bitwise equal "
         f"{not bad} (max abs diff {err:.3e})")
     gen.manual_seed(seed + 11)
     x, coef, v, y, off, wt, vshift = make_inputs(torch, gen, n, d, "logistic", torch.float32, dev)
@@ -2242,6 +2267,282 @@ def warp_segment_dot(torch, design, seg, n_seg, src, square=False, lib=None):
     return out
 
 
+# ------------------------------------------------------- phase 10: solvers
+#
+# The solver and variance surface at full width: phase 5's sweep with the
+# fixed effect's FULL variance and a TRON random effect, a down-sampled
+# fixed-effect solve, bench.py's billion-coefficient slice through the
+# packed and the vmapped random-effect solves, and the FULL factorization's
+# ceiling on the card.
+
+BILLION_SLICE = (32_768, 16, 256)  # bench.py bench_billion_coef: entities, rows, subspace dim
+BILLION_PREFIX = 4_096  # entities of the slice solved alone for the bitwise check
+CEILING_DIMS = (16_384, 32_768, 65_536)  # FULL widths of (c)
+CEILING_ROWS = 4_096  # rows of (c)'s batches
+DOWN_SAMPLING_RATE = 0.5
+
+
+def _timed(torch, fn):
+    """(fn(), wall seconds on the host clock between two synchronizes)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _float64_full_variances(torch, batch, coef, l2):
+    """FULL variances from a float64 Hessian built here, not by the port:
+    logistic curvature from float64 margins, X^T diag(c) X in row chunks,
+    plus l2 I; diag of its inverse through a float64 Cholesky."""
+    x = batch.features.dense
+    n, d = x.shape
+    c64 = coef.double()
+    h = torch.zeros((d, d), dtype=torch.float64, device=x.device)
+    for lo in range(0, n, 65536):
+        xc = x[lo : lo + 65536].double()
+        p = torch.sigmoid(xc @ c64 + batch.offsets[lo : lo + 65536].double())
+        c = batch.weights[lo : lo + 65536].double() * p * (1 - p)
+        h += xc.T @ (c[:, None] * xc)
+    h += l2 * torch.eye(d, dtype=torch.float64, device=x.device)
+    return torch.diagonal(torch.cholesky_inverse(torch.linalg.cholesky(h)))
+
+
+def solver_sweep(torch, state, seed):
+    """(a) phase 5's sweep with FULL variance (B1, B2; B3 at 0) and a TRON
+    random effect, against the plain route; FULL's seconds at d = 1,024 and
+    its variances against a float64 Hessian; a down-sampled FE solve."""
+    from photon_ml_tpu_torch.game import GLMProblem
+    from photon_ml_tpu_torch.game.coordinate import _size_buckets
+    from photon_ml_tpu_torch.game.sampling import down_sample
+    from photon_ml_tpu_torch.ops import fused_glm as fg
+    from photon_ml_tpu_torch.ops.glm import _diag_of_inverse
+    from photon_ml_tpu_torch.optimize import OptimizerConfig, OptimizerType
+
+    base = state["coords"]
+    fe = dataclasses.replace(base["global"], config=dataclasses.replace(base["global"].config, variance_type="FULL"))
+    re_cfg = dataclasses.replace(base["per-user"].config, optimizer=OptimizerConfig(
+        optimizer_type=OptimizerType.TRON, tolerance=1e-6, max_iterations=30, max_cg_iterations=20))
+    coords = {"global": fe, "per-user": dataclasses.replace(base["per-user"], config=re_cfg)}
+    batch = fe.dataset.batch
+    n = batch.n_rows
+    buckets = len(_size_buckets(coords["per-user"].dataset) or [None])
+
+    sweep(torch, coords)
+    fg.reset_launch_counts()
+    runs = sorted((sweep(torch, coords) for _ in range(SWEEPS)), key=lambda rw: rw[1])
+    launches = dict(fg.LAUNCHES)
+    res, wall = runs[len(runs) // 2]
+    walls = [w for _, w in runs]
+    a, _ = training_auc(coords, res)
+    lb = state["result"]
+    re_r = res.solver_results["per-user"]
+    log(f"  (a) FE TRON + FULL, RE TRON, median of {SWEEPS}: wall_s={wall:.4f} examples_per_s={n / wall:.1f} "
+        f"(walls {', '.join(f'{w:.4f}' for w in walls)}) shares FE={res.seconds['global'] / wall:.3f} "
+        f"RE={res.seconds['per-user'] / wall:.3f} syncs={res.syncs} launches={launches} train_auc={a:.6f}")
+    log(f"  phase 5 in this run (FE SIMPLE, RE L-BFGS): wall_s={state['wall_s']:.4f} "
+        f"examples_per_s={n / state['wall_s']:.1f}; RE syncs per bucket over {buckets} buckets: "
+        f"TRON {res.syncs['per-user'] / buckets:.1f}, L-BFGS {lb.syncs['per-user'] / buckets:.1f}; "
+        f"RE TRON lanes={int(re_r.loss.shape[0])} max_iterations={int(re_r.iterations.max())} "
+        f"reasons={torch.bincount(re_r.reason.cpu().long(), minlength=6).tolist()}")
+    problems = []
+    if min(launches["fused_value_grad"], launches["fused_hessian_vector"]) <= 0:
+        problems.append(f"B1 or B2 was not launched in the FULL sweep: {launches}")
+    if launches["fused_hessian_stats"] != 0:
+        problems.append(f"B3 launched {launches['fused_hessian_stats']} times in the FULL sweep")
+    if res.rejections != {"global": 0, "per-user": 0}:
+        problems.append(f"the divergence guard rejected an update: {res.rejections}")
+    if not (0.5 < a <= 1.0):
+        problems.append(f"training AUC {a} out of (0.5, 1]")
+    if not bool((re_r.reason != 0).all()) or not bool(torch.isfinite(re_r.loss).all()):
+        problems.append("a TRON random-effect lane did not finish, or its loss is not finite")
+
+    # FULL's two steps at d = 1,024, and its variances against float64
+    model = res.model["global"].coefficients
+    obj = GLMProblem(fe.task, fe.config).objective(batch)
+    h, t_h = _timed(torch, lambda: obj.hessian_matrix(model.means))
+    var, t_inv = _timed(torch, lambda: _diag_of_inverse(h))
+    log(f"  FULL variance at n={n}, d={batch.dim}: hessian_matrix {t_h:.4f} s, _diag_of_inverse {t_inv:.4f} s")
+    if not torch.equal(var, model.variances):
+        problems.append("FULL variances recomputed from the sweep's model differ from the sweep's")
+    var64 = _float64_full_variances(
+        torch, batch, model.means, fe.config.regularization.l2_weight(fe.config.reg_weight)
+    )
+    hold(problems, "FULL variances vs a float64 Hessian", var, var64, 1e-3, 0.0)
+    del h, var64
+
+    plain = dict(coords, **{"global": dataclasses.replace(fe, plain=True)})
+    fg.reset_launch_counts()
+    res_p, wall_p = sweep(torch, plain)
+    log(f"  (a) plain route: wall_s={wall_p:.4f} launches={dict(fg.LAUNCHES)}")
+    if any(fg.LAUNCHES.values()):
+        problems.append("the plain sweep launched a kernel")
+    hold_sweeps(problems, "FULL + TRON kernel vs plain sweep:", res, res_p, retrain_re(coords, res, plain))
+    del plain, res_p
+
+    # a down-sampled solve (variance NONE: FULL is timed above)
+    ds = dataclasses.replace(fe, config=dataclasses.replace(
+        fe.config, down_sampling_rate=DOWN_SAMPLING_RATE, variance_type="NONE"), down_sampling_seed=seed)
+    kept = down_sample(batch, ds.task, DOWN_SAMPLING_RATE, seed).weights
+    fg.reset_launch_counts()
+    (_, r_ds), t_ds = _timed(torch, lambda: ds.train(None))
+    ds_launches = dict(fg.LAUNCHES)
+    _, r_dp = dataclasses.replace(ds, plain=True).train(None)
+    l_k, l_p, l_full = float(r_ds.loss), float(r_dp.loss), float(res.solver_results["global"].loss)
+    rel = abs(l_k - l_p) / abs(l_p)
+    log(f"  down-sampled FE (rate {DOWN_SAMPLING_RATE}, seed {seed}, mask drawn on {kept.device}): rows kept "
+        f"{int((kept != 0).sum())} of {n}, weight sum {float(kept.sum()):.1f}; wall_s={t_ds:.4f} "
+        f"iterations={r_ds.iterations} launches={ds_launches}; loss {l_k:.6f} vs plain {l_p:.6f} rel diff "
+        f"{rel:.2e} (rtol 1e-5) {'ok' if rel <= 1e-5 else 'MISS'}; the full-rate FE loss {l_full:.6f}")
+    if rel > 1e-5:
+        problems.append(f"the down-sampled solve and its plain route disagree ({rel:.2e})")
+    if min(ds_launches["fused_value_grad"], ds_launches["fused_hessian_vector"]) <= 0:
+        problems.append(f"the down-sampled solve did not run B1 and B2: {ds_launches}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {
+        "launches": launches, "wall_s": wall, "walls": walls, "examples_per_s": n / wall,
+        "fe_share": res.seconds["global"] / wall, "re_share": res.seconds["per-user"] / wall,
+        "syncs": res.syncs, "re_syncs_per_bucket": res.syncs["per-user"] / buckets,
+        "lbfgs_re_syncs_per_bucket": lb.syncs["per-user"] / buckets, "hessian_s": t_h, "inverse_s": t_inv,
+        "down_sampled_s": t_ds,
+    }
+
+
+def _entity_gap(torch, a, b):
+    """(max abs coefficient difference, max abs loss difference, entities
+    whose results differ in any bit) between two entity-major results."""
+    differ = (a.coefficients != b.coefficients).any(dim=1) | (a.loss != b.loss) | (a.iterations != b.iterations)
+    return (float((a.coefficients - b.coefficients).abs().max()), float((a.loss - b.loss).abs().max()),
+            int(differ.sum()))
+
+
+def billion_slice(torch, seed):
+    """(b) bench.py's bench_billion_coef slice: the packed and the vmapped
+    solves, L-BFGS then TRON, held per entity at the packed solve's bounds;
+    the vmapped solve of the first BILLION_PREFIX entities alone against
+    the same entities within the slice, bit for bit."""
+    from photon_ml_tpu_torch.game.coordinate import _train_blocks, _train_blocks_packed
+
+    E, K, S = BILLION_SLICE
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    feats = torch.randn((E, K, S), generator=gen, device=dev) * 0.3
+    y = (torch.rand((E, K), generator=gen, device=dev) < 0.5).float()
+    args = (feats, y, torch.zeros((E, K), device=dev), torch.ones((E, K), device=dev),
+            torch.zeros((E, S), device=dev), torch.zeros((E, S), device=dev), torch.ones((E, S), device=dev))
+    log(f"  (b) slice E={E} K={K} S={S}: features {feats.numel() * 4 / 1e6:.1f} MB, {E * S} coefficients")
+    problems, out = [], {}
+    for opt in ("LBFGS", "TRON"):
+        kw = dict(task="logistic_regression", l2=1.0, l1=0.0, optimizer_type=opt, tolerance=1e-6,
+                  max_iterations=30, num_corrections=10, max_cg_iterations=20, max_improvement_failures=5)
+        for fn in (_train_blocks_packed, _train_blocks):  # PyTorch's lazily loaded kernels
+            fn(*(a[:64] for a in args), **kw)
+        rp, t_p = _timed(torch, lambda: _train_blocks_packed(*args, **kw))
+        rv, t_v = _timed(torch, lambda: _train_blocks(*args, **kw))
+        for name, r, t in (("packed", rp, t_p), ("vmapped", rv, t_v)):
+            log(f"  (b) {opt} {name}: wall_s={t:.4f} coefficients_per_s={E * S / t:.1f} syncs={r.syncs} "
+                f"max_iterations={int(r.iterations.max())} "
+                f"reasons={torch.bincount(r.reason.cpu().long(), minlength=6).tolist()}")
+        hold(problems, f"(b) {opt} packed vs vmapped coefficients", rp.coefficients, rv.coefficients, 0.0, 5e-3)
+        hold(problems, f"(b) {opt} packed vs vmapped loss", rp.loss, rv.loss, 0.0, 1e-4)
+        out[opt] = {"packed_s": t_p, "vmapped_s": t_v, "packed_syncs": rp.syncs, "vmapped_syncs": rv.syncs}
+        # the BILLION_PREFIX entities, then smaller stacks: one entity, and
+        # eleven from the middle
+        for label, rows in ((f"the first {BILLION_PREFIX} entities", slice(0, BILLION_PREFIX)),
+                            ("entity 0", slice(0, 1)), ("entities 1000-1010", slice(1000, 1011))):
+            alone = _train_blocks(*(a[rows] for a in args), **kw)
+            within = dataclasses.replace(rv, **{f: getattr(rv, f)[rows] for f in (
+                "coefficients", "loss", "gradient", "iterations", "reason", "loss_history", "grad_norm_history")})
+            coef_gap, loss_gap, n_diff = _entity_gap(torch, alone, within)
+            log(f"  (b) {opt} vmapped, {label} alone vs within the slice: "
+                f"{'bitwise equal' if n_diff == 0 else f'BITS DIFFER for {n_diff} entities'} (max abs diff "
+                f"coefficients {coef_gap:.3e}, loss {loss_gap:.3e})")
+            if coef_gap > 5e-3 or loss_gap > 1e-4:
+                problems.append(f"(b) {opt}: the vmapped solve of {label} moved beyond the packed bounds")
+            out[opt].setdefault("alone_bitwise", {})[label] = n_diff == 0
+            if rows.start == 0 and rows.stop == BILLION_PREFIX:
+                out[opt].update(prefix_bitwise=n_diff == 0, prefix_entities_differ=n_diff,
+                                prefix_coef_gap=coef_gap, prefix_loss_gap=loss_gap)
+            del alone, within
+        del rp, rv
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return out
+
+
+def full_ceiling(torch, seed):
+    """(c) compute_variances("FULL") end to end, the Hessian's build
+    included, on a logistic batch of CEILING_ROWS random rows at each
+    CEILING_DIMS width, float32 and float64 (the float64 route, plain):
+    seconds, the peak of device memory allocated and the part the call
+    added; variances finite, in (0, 1/l2], float32 against float64 at rtol
+    1e-3. The port's MAX_FULL_VARIANCE_DIM must be the largest d measured,
+    and one column more must raise the ValueError."""
+    from photon_ml_tpu_torch.ops import glm
+    from photon_ml_tpu_torch.ops.features import batch_from_dense
+    from photon_ml_tpu_torch.ops.losses import LOSSES
+
+    dev = torch.device("cuda")
+    out, problems = {}, []
+    for d in CEILING_DIMS:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + d)
+        x = torch.randn((CEILING_ROWS, d), generator=gen, device=dev) * 0.1
+        y = (torch.rand(CEILING_ROWS, generator=gen, device=dev) < 0.5).float()
+        got = {}
+        for dt in (torch.float32, torch.float64):
+            obj = glm.GLMObjective(loss=LOSSES["logistic"], batch=batch_from_dense(x, y, dtype=dt, device=dev),
+                                   l2=1.0, plain=dt == torch.float64)
+            w = torch.zeros(d, dtype=dt, device=dev)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            try:
+                var, secs = _timed(torch, lambda: glm.compute_variances(obj, w, "FULL"))
+                err = ""
+            except torch.cuda.OutOfMemoryError as e:
+                var, secs, err = None, float("nan"), f"out of memory: {str(e).splitlines()[0]}"
+            peak = torch.cuda.max_memory_allocated()
+            ok = var is not None and bool(torch.isfinite(var).all()) and bool(((var > 0) & (var <= 1.0)).all())
+            name = str(dt).replace("torch.", "")
+            log(f"  (c) compute_variances FULL n={CEILING_ROWS} d={d} {name}: {secs:.3f} s, peak allocated "
+                f"{peak / 2**30:.2f} GiB, of which {(peak - before) / 2**30:.2f} GiB by the call (the batch and "
+                f"the rest of this run, {before / 2**30:.2f} GiB, held before it); variances finite in (0, 1]: "
+                f"{ok}{' ' + err if err else ''}")
+            out[f"{d}_{name}"] = {"d": d, "dtype": name, "seconds": secs, "peak_gib": peak / 2**30,
+                                  "call_peak_gib": (peak - before) / 2**30, "ok": ok}
+            if not ok:
+                problems.append(f"FULL at d={d} {name}: {err or 'variances not finite in (0, 1]'}")
+            got[name] = var
+            del obj, w
+        if got["float32"] is not None and got["float64"] is not None:
+            hold(problems, f"(c) FULL d={d} float32 vs float64", got["float32"].double(), got["float64"], 1e-3, 0.0)
+        del x, y, got
+    torch.cuda.empty_cache()
+    if max(CEILING_DIMS) != glm.MAX_FULL_VARIANCE_DIM:
+        problems.append(f"the port's ceiling {glm.MAX_FULL_VARIANCE_DIM} is not the largest d measured here")
+    try:
+        glm.check_full_variance_dim(glm.MAX_FULL_VARIANCE_DIM + 1)
+        problems.append("one column above the ceiling did not raise")
+    except ValueError:
+        pass
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return out
+
+
+def solvers_phase(torch, state, seed, smi):
+    out = {"sweep": solver_sweep(torch, state, seed)}
+    torch.cuda.empty_cache()
+    out["billion"] = billion_slice(torch, seed)
+    torch.cuda.empty_cache()
+    out["ceiling"] = full_ceiling(torch, seed)
+    log(f"  on {smi}")
+    return out
+
+
 def sparse_entries(sp, times):
     """The segment kernel's lines of the kernels JSON, one per product:
     ``launches`` over the sparse phase's main paths (the (b) kernel solves
@@ -2396,7 +2697,7 @@ def main() -> int:
     ap.add_argument("--d-re", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default="",
-                    help="comma-separated subset of check,fe,glmix,dp,nccl,sparse,timing,variants to run after "
+                    help="comma-separated subset of check,fe,glmix,dp,nccl,solvers,sparse,timing,variants to run after "
                          "card and build (for iterating on one phase; the result is then not ok)")
     args = ap.parse_args()
     only = set(filter(None, args.only.split(",")))
@@ -2416,12 +2717,12 @@ def main() -> int:
     phases = Phases()
     smi = phases.run("card", card, torch)
     phases.run("build", build)
-    errs = fe_launches = glmix = dp = times = None
+    errs = fe_launches = glmix = dp = times = solvers = None
     if want("check"):
         errs = phases.run("kernels vs float64 plain", check_kernels, torch, args.n, args.d, args.seed)
     if want("fe"):
         fe_launches = phases.run("fixed-effect path", fe_path, torch, args.n, args.d, args.seed)
-    if want("glmix") or want("dp") or want("nccl"):
+    if want("glmix") or want("dp") or want("nccl") or want("solvers"):
         glmix = phases.run(
             "GLMix sweep (main path)", glmix_path, torch, args.n, args.d, args.users, args.d_re, args.seed
         )
@@ -2435,6 +2736,14 @@ def main() -> int:
         dp = phases.run(
             "data-parallel GLMix sweep", dp_path, torch, args.n, args.d, args.seed, state, "cuda", want("dp")
         )
+    if not want("solvers"):
+        pass
+    elif state is None:
+        log("== phase: solvers needs the one-card sweep's results")
+        phases.failed.append("solvers")
+    else:
+        torch.cuda.empty_cache()
+        solvers = phases.run("solvers", solvers_phase, torch, state, args.seed, smi)
     del state
     torch.cuda.empty_cache()
     sp = None
@@ -2489,6 +2798,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": launches.get(name, 0),
             "launches_fixed_effect_path": (fe_launches or {}).get(name, 0),
+            "launches_full_variance_sweep": ((solvers or {}).get("sweep") or {}).get("launches", {}).get(name, 0),
             "launches_data_parallel_per_rank": [
                 r[name] for r in ((dp or {}).get("sweep") or {}).get("launches", [])
             ],
@@ -2512,6 +2822,17 @@ def main() -> int:
             f"examples*iterations/s; OWL-QN (L1 1.0) nonzeros {path['owlqn']['nonzeros']}; sparse GLMix sweep "
             f"(n={SPARSE_GLMIX_N}, ELL) {sg['examples_per_s']:.1f} examples/s (median wall {sg['wall_s']:.4f} s, "
             f"FE share {sg['fe_share']:.3f}, RE share {sg['re_share']:.3f}) on {smi}")
+    if solvers:
+        sw, bl, ce = solvers["sweep"], solvers["billion"], solvers["ceiling"]
+        log(f"solvers: FULL + TRON GLMix sweep {sw['examples_per_s']:.1f} examples/s (median wall "
+            f"{sw['wall_s']:.4f} s, FE share {sw['fe_share']:.3f}, RE share {sw['re_share']:.3f}; RE syncs per "
+            f"bucket TRON {sw['re_syncs_per_bucket']:.1f}, L-BFGS {sw['lbfgs_re_syncs_per_bucket']:.1f}); FULL at "
+            f"d={args.d}: Hessian {sw['hessian_s']:.4f} s, inverse {sw['inverse_s']:.4f} s; billion slice "
+            + "; ".join(f"{o} packed {v['packed_s']:.3f} s vmapped {v['vmapped_s']:.3f} s prefix "
+                        f"{'bitwise' if v['prefix_bitwise'] else 'differs'}" for o, v in bl.items())
+            + "; compute_variances FULL " + ", ".join(
+                f"d={v['d']} {v['dtype']} {v['seconds']:.3f} s, {v['call_peak_gib']:.2f} GiB above what was held"
+                for v in ce.values()) + f" on {smi}")
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))
     ok = not phases.failed

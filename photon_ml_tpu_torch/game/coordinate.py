@@ -6,10 +6,13 @@ Counterpart of the JAX package's ``game/coordinate.py``:
   dense or sparse (``GLMProblem.run``: the CUDA kernels on the card), with
   the other coordinates' scores added to the offsets;
 - ``RandomEffectCoordinate``: all entities' problems solved in lockstep by
-  the batched L-BFGS over entity-minor stacks (``_train_blocks_packed``),
-  one solve per power-of-two size bucket (``_size_buckets``); the solver
-  runs as torch ops, since the JAX package's packed path is XLA code and
-  not a Pallas kernel.
+  the batched L-BFGS or TRON, one solve per power-of-two size bucket
+  (``_size_buckets``): over entity-minor stacks by default
+  (``_train_blocks_packed``), or with ``PHOTON_RE_SOLVER=vmapped`` over
+  entity-leading ones with per-lane history cursors (``_train_blocks``,
+  the JAX package's vmapped solve, whose entity results do not depend on
+  the other entities of their bucket). The solvers run as torch ops, since
+  the JAX package's random-effect path is XLA code and not a Pallas kernel.
 
 Scores returned by coordinates never include the base offsets: the
 coordinate-descent loop owns residual composition.
@@ -22,10 +25,12 @@ the rank's entity range and gathers every rank's results, so its model is
 whole on every rank and scores as an unsharded one does. Scores, residuals
 and models are the same, bitwise, on every rank.
 
+The fixed effect down-samples its training batch when its config asks
+(``game/sampling.py``: a keep mask drawn on the batch's device from a
+``torch.Generator`` seeded with ``down_sampling_seed``; over a data-parallel
+group every rank draws the whole mask and keeps its rows).
+
 Not ported yet, each raising with its ROADMAP item: streamed datasets (A7),
-fixed-effect down-sampling (A4: ``game/sampling.py`` draws with
-``jax.random``; the port needs an explicit ``torch.Generator``), the
-vmapped ``_train_blocks`` and batched TRON for random effects (A2/A4),
 and random-effect priors from a ``prior_model`` (A8). The lane-stacked
 ``train_lanes`` of both coordinates is A8 as well.
 """
@@ -48,10 +53,11 @@ from ..models.game import (
 )
 from ..ops.losses import get_loss
 from ..ops.normalization import NormalizationContext
-from ..optimize import OptimizerType, SolverResult, SyncCounter, solve_lbfgs
-from ..optimize.common import abs_tolerances
+from ..optimize import OptimizerType, SolverResult, SyncCounter, solve_lbfgs, solve_tron
+from ..optimize.common import LEADING, MINOR, abs_tolerances
 from .data import FixedEffectDataset, RandomEffectDataset
 from .problem import GLMOptimizationConfig, GLMProblem, batch_route
+from .sampling import down_sample, local_rows
 
 Tensor = torch.Tensor
 
@@ -113,17 +119,17 @@ class FixedEffectCoordinate(Coordinate):
         residual_scores: Optional[Tensor],
         initial_model: Optional[FixedEffectModel] = None,
     ) -> Tuple[FixedEffectModel, SolverResult]:
-        if self.config.down_sampling_rate < 1.0:
-            raise NotImplementedError(
-                "fixed-effect down-sampling is not ported yet (ROADMAP A4: game/sampling.py "
-                "with an explicit torch.Generator)"
-            )
         batch = self.dataset.batch
         if residual_scores is not None:
             residual = residual_scores.to(batch.offsets.dtype)
             if batch.group is not None:
-                residual = _local_rows(residual, batch.n_rows, batch.group)
+                residual = local_rows(residual, batch.n_rows, batch.group)
             batch = dataclasses.replace(batch, offsets=batch.offsets + residual)
+        if self.config.down_sampling_rate < 1.0:
+            batch = down_sample(
+                batch, self.task, self.config.down_sampling_rate, self.down_sampling_seed,
+                n_rows=self.dataset.n_rows,
+            )
         problem = GLMProblem(
             task=self.task,
             config=self.config,
@@ -149,16 +155,6 @@ class FixedEffectCoordinate(Coordinate):
             (scores,) = batch.group.gather_rows([scores])
             scores = scores[: self.dataset.n_rows]
         return scores
-
-
-def _local_rows(v: Tensor, share: int, group) -> Tensor:
-    """This rank's rows of a whole ``[n]`` vector, zero-padded to the
-    shard's ``share`` rows (``parallel.mesh.shard_batch``'s row layout)."""
-    lo = group.rank * share
-    part = v[lo : lo + share]
-    if part.shape[0] < share:
-        part = torch.cat([part, part.new_zeros(share - part.shape[0])])
-    return part
 
 
 @dataclasses.dataclass
@@ -194,7 +190,7 @@ class RandomEffectCoordinate(Coordinate):
                 "random-effect priors from a prior_model (incremental training) are not "
                 "ported yet (ROADMAP A8)"
             )
-        _re_solver_mode()
+        train = _train_blocks if _re_solver_mode() == "vmapped" else _train_blocks_packed
         ds = self.dataset
         group = ds.group
         blocks = ds.blocks
@@ -227,7 +223,7 @@ class RandomEffectCoordinate(Coordinate):
         if segments is not None and sharded:
             segments = [(0, E, kb, sb) for start, end, kb, sb in segments if start <= lo < end]
         if segments is None:
-            results = _train_blocks_packed(
+            results = train(
                 blocks.features, blocks.labels, offsets, blocks.weights,
                 w0, prior_mean, prior_prec, **solver_kwargs,
             )
@@ -238,7 +234,7 @@ class RandomEffectCoordinate(Coordinate):
             parts = []
             for start, end, kb, sb in segments:
                 parts.append(
-                    _train_blocks_packed(
+                    train(
                         blocks.features[start:end, :kb, :sb],
                         blocks.labels[start:end, :kb],
                         offsets[start:end, :kb],
@@ -353,16 +349,12 @@ def _gather_results(res: SolverResult, group) -> SolverResult:
 
 def _re_solver_mode() -> str:
     """Random-effect solver selection, as in the JAX package: 'packed'
-    (the default, entity-minor lockstep solves); 'vmapped' is ROADMAP A2/A4
-    here. Unknown values raise."""
+    (the default, entity-minor lockstep solves) or 'vmapped' (entity-leading
+    lockstep solves with per-lane history, whose entity results do not
+    depend on their bucket's other entities). Unknown values raise."""
     mode = os.environ.get("PHOTON_RE_SOLVER", "packed").strip().lower()
     if mode not in ("packed", "vmapped"):
         raise ValueError(f"PHOTON_RE_SOLVER={mode!r}: expected 'packed' or 'vmapped'")
-    if mode == "vmapped":
-        raise NotImplementedError(
-            "the vmapped per-entity random-effect solve (_train_blocks) is not ported yet "
-            "(ROADMAP A2/A4); photon_ml_tpu_torch runs the packed lockstep solve"
-        )
     return mode
 
 
@@ -473,6 +465,129 @@ def _concat_results(parts, S: int) -> SolverResult:
     )
 
 
+def _solve_blocks(
+    value_and_grad, hessian_vector, w0: Tensor, *, entity_leading: bool, l1: float, optimizer_type: str,
+    tolerance: float, max_iterations: int, num_corrections: int, max_cg_iterations: int,
+    max_improvement_failures: int,
+) -> SolverResult:
+    """The per-lane tolerances from the zero state, then one lockstep TRON
+    or L-BFGS (OWL-QN with ``l1``) over the stack ``w0``."""
+    syncs = SyncCounter()
+    loss_tol, grad_tol = abs_tolerances(
+        value_and_grad, w0, tolerance, lanes=LEADING if entity_leading else MINOR
+    )
+    if optimizer_type == OptimizerType.TRON.value:
+        return solve_tron(
+            value_and_grad, hessian_vector, w0, loss_tol, grad_tol,
+            max_iterations=max_iterations, max_cg_iterations=max_cg_iterations,
+            max_improvement_failures=max_improvement_failures, syncs=syncs,
+            entity_leading=entity_leading,
+        )
+    return solve_lbfgs(
+        value_and_grad, w0, loss_tol, grad_tol,
+        max_iterations=max_iterations, num_corrections=num_corrections, l1_weight=l1,
+        syncs=syncs, batched=True, entity_leading=entity_leading,
+    )
+
+
+# On the CPU, PyTorch computes an elementwise transcendental (exp, sigmoid,
+# ...) by SIMD for whole blocks of vector width and by scalar code for a
+# block's tail, and the two may differ in the last bit; and it cuts a
+# tensor of GRAIN elements or more into one piece per thread at offsets that
+# depend on its size. _lane_pointwise pads each lane's row to a multiple of
+# _CPU_VECTOR_BLOCK elements and calls the loss on row blocks under GRAIN
+# elements, so that every element takes the SIMD path whatever the number
+# of lanes. (On the card every element runs the same code.) Both constants
+# are ATen's: the SIMD block is ``vectorized_loop``'s ``2 * Vec::size()``
+# (ATen/native/cpu/Loops.h), 32 floats or 16 doubles under AVX-512, and
+# 64 is a multiple of it for every ISA PyTorch builds; the grain is
+# ``at::internal::GRAIN_SIZE`` (ATen/TensorIterator.h), which Python cannot
+# read. tests/test_torch_re_solvers.py holds an entity's bits alone and
+# within a bucket, and fails if either changes.
+_CPU_VECTOR_BLOCK = 64
+_CPU_GRAIN = 32768
+
+
+def _lane_pointwise(fn, z: Tensor, y: Tensor):
+    """``fn(z, y)`` (one tensor or a tuple of them) for ``[E, K]`` lanes,
+    each element's bits independent of the other lanes."""
+    E, K = z.shape
+    if z.device.type != "cpu" or E == 0:
+        return fn(z, y)
+    pad = -K % _CPU_VECTOR_BLOCK
+    zp = torch.nn.functional.pad(z, (0, pad))
+    yp = torch.nn.functional.pad(y, (0, pad))
+    rows = max(1, (_CPU_GRAIN - 1) // (K + pad))
+    parts = [fn(zp[i : i + rows], yp[i : i + rows]) for i in range(0, E, rows)]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat([p[j] for p in parts])[:, :K] for j in range(len(parts[0])))
+    return torch.cat(parts)[:, :K]
+
+
+def _train_blocks(
+    features: Tensor,  # [E, K, S]
+    labels: Tensor,
+    offsets: Tensor,
+    weights: Tensor,
+    w0: Tensor,  # [E, S]
+    prior_mean: Tensor,  # [E, S]; zeros = plain L2
+    prior_prec: Tensor,  # [E, S]; ones = plain L2
+    *,
+    task: str,
+    l2: float,
+    l1: float,
+    optimizer_type: str,
+    tolerance: float,
+    max_iterations: int,
+    num_corrections: int,
+    max_cg_iterations: int,
+    max_improvement_failures: int,
+) -> SolverResult:
+    """The JAX package's vmapped per-entity solve: entity-leading stacks
+    (features ``[E, K, S]``, coefficients ``[E, S]``), every reduction over
+    a trailing axis, one lockstep solve in which each lane keeps its own
+    L-BFGS history cursor and line search, or its own TRON radius and CG
+    state (``entity_leading=True`` of the solvers). No operation mixes
+    lanes, each lane's sums run in the same order whatever E is, and the
+    loss's elementwise functions take the same path for every element
+    (``_lane_pointwise``), so an entity's result does not depend on the
+    other entities of its stack. Each entity's objective value sums in
+    float64, as in ``_train_blocks_packed``."""
+    loss = get_loss(task)
+    X = features  # [E, K, S]; a narrower dtype promotes in the products
+    y = labels
+    off = offsets.to(labels.dtype)
+    wt = weights
+    pm, pp = prior_mean, prior_prec
+
+    def margins(w):  # [E, S] -> [E, K]
+        return torch.sum(X * w[:, None, :], dim=-1) + off
+
+    def value_and_grad(w):  # [E, S] -> ([E] float64, [E, S])
+        lvals, dz = _lane_pointwise(loss.loss_and_dz, margins(w), y)
+        grad = torch.sum(X * (wt * dz)[:, :, None], dim=1)
+        delta = w - pm
+        value = torch.sum((wt * lvals).double(), dim=-1) + 0.5 * l2 * torch.sum(
+            (pp * delta * delta).double(), dim=-1
+        )
+        return value, grad + l2 * pp * delta
+
+    def hessian_vector(w, v):  # the margins recomputed, as the JAX package does
+        c = wt * _lane_pointwise(loss.d2z, margins(w), y) * torch.sum(X * v[:, None, :], dim=-1)
+        return torch.sum(X * c[:, :, None], dim=1) + l2 * pp * v
+
+    res = _solve_blocks(
+        value_and_grad, hessian_vector, w0, entity_leading=True, l1=l1,
+        optimizer_type=optimizer_type, tolerance=tolerance, max_iterations=max_iterations,
+        num_corrections=num_corrections, max_cg_iterations=max_cg_iterations,
+        max_improvement_failures=max_improvement_failures,
+    )
+    # the solvers keep histories [T, E]; results are entity-major
+    return dataclasses.replace(
+        res, loss_history=res.loss_history.T, grad_norm_history=res.grad_norm_history.T
+    )
+
+
 def _train_blocks_packed(
     features: Tensor,  # [E, K, S]
     labels: Tensor,
@@ -504,12 +619,10 @@ def _train_blocks_packed(
     its loss in the thousands at bench shapes (about 3e4 for the largest
     user of bench.py's data): there one float32 ulp (~2e-3) exceeds the
     packed solve's loss bound (atol 1e-4), and the line search's Armijo test
-    would compare values at that resolution."""
-    if optimizer_type == OptimizerType.TRON.value:
-        raise NotImplementedError(
-            "batched TRON for random effects is not ported yet (ROADMAP A2/A4); "
-            "use L-BFGS for the random-effect coordinate"
-        )
+    would compare values at that resolution.
+
+    TRON's Hessian-vector product recomputes the margins from the iterate,
+    as the JAX package's does."""
     loss = get_loss(task)
     # features may be stored narrower (bf16); products promote to the
     # labels' (solve) dtype
@@ -534,18 +647,16 @@ def _train_blocks_packed(
         grad = grad + l2 * pp * delta
         return value, grad
 
-    syncs = SyncCounter()
-    loss_tol, grad_tol = abs_tolerances(value_and_grad, w0t, tolerance)
-    res = solve_lbfgs(
-        value_and_grad,
-        w0t,
-        loss_tol,
-        grad_tol,
-        max_iterations=max_iterations,
-        num_corrections=num_corrections,
-        l1_weight=l1,
-        syncs=syncs,
-        batched=True,
+    def hessian_vector(w, v):
+        z = torch.sum(F * w[None, :, :], dim=1) + off
+        c = wt * loss.d2z(z, y) * torch.sum(F * v[None, :, :], dim=1)  # [K, E]
+        return torch.sum(F * c[:, None, :], dim=0) + l2 * pp * v
+
+    res = _solve_blocks(
+        value_and_grad, hessian_vector, w0t, entity_leading=False, l1=l1,
+        optimizer_type=optimizer_type, tolerance=tolerance, max_iterations=max_iterations,
+        num_corrections=num_corrections, max_cg_iterations=max_cg_iterations,
+        max_improvement_failures=max_improvement_failures,
     )
     return SolverResult(
         coefficients=res.coefficients.T,

@@ -12,7 +12,8 @@ more than that): the previous model and scores stand. It costs one fetch of
 (finite flag, loss sum) per update.
 
 The result carries each coordinate's raw ``SolverResult`` where the JAX
-package builds optimization trackers (``trackers.py`` is ROADMAP A2).
+package builds optimization trackers; ``optimize.trackers.build_tracker``
+makes one from it (their metrics need the registry of ROADMAP A13).
 Checkpoints, boundary callbacks, resume, pipelining, telemetry and the
 distributed barrier are not ported.
 

@@ -23,7 +23,7 @@ from ..models.coefficients import Coefficients
 from ..models.glm import GeneralizedLinearModel, model_for_task
 from ..ops.features import LabeledBatch
 from ..ops.fused_glm import OBJECTIVE_ROUTES
-from ..ops.glm import GLMObjective, compute_variances
+from ..ops.glm import GLMObjective, check_full_variance_dim, compute_variances
 from ..ops.losses import get_loss
 from ..ops.normalization import NormalizationContext
 from ..ops.regularization import NO_REGULARIZATION, RegularizationContext
@@ -98,9 +98,9 @@ class GLMOptimizationConfig:
     optimizer: OptimizerConfig = dataclasses.field(default_factory=OptimizerConfig)
     regularization: RegularizationContext = NO_REGULARIZATION
     reg_weight: float = 0.0
-    # fixed-effect down-sampling (game/sampling.py) is ROADMAP A4: 1.0 only
+    # fixed-effect down-sampling (game/sampling.py): 1.0 keeps every row
     down_sampling_rate: float = 1.0
-    variance_type: str = "NONE"  # NONE | SIMPLE (FULL is ROADMAP A6)
+    variance_type: str = "NONE"  # NONE | SIMPLE | FULL
 
     def with_reg_weight(self, w: float) -> "GLMOptimizationConfig":
         return dataclasses.replace(self, reg_weight=w)
@@ -171,8 +171,10 @@ class GLMProblem:
         once.
         """
         vt = self.config.variance_type.upper()
-        if vt not in ("NONE", "SIMPLE"):
-            # fail before the solve, not after it
+        # fail before the solve, not after it
+        if vt == "FULL":
+            check_full_variance_dim(batch.dim)
+        elif vt not in ("NONE", "SIMPLE"):
             compute_variances(None, None, vt)
         if not plain:
             plain = _fusion_mode(batch)[0] == "plain_float64"

@@ -21,7 +21,14 @@ of ``ops/sparse.py`` on the card (2 launches per value+grad, 3 per
 Hessian-vector product). ``plain=True`` sends a CUDA batch to the plain
 versions too, for a reference run beside the kernels, and is how a float64
 batch runs on the card (``game/problem.py``'s ``plain_float64`` route).
-Variances: NONE and SIMPLE (``1 / diag H``); FULL is ROADMAP A6.
+
+Variances: NONE, SIMPLE (``1 / diag H``) and FULL (``diag H^-1``). FULL
+builds the dense Hessian ``X'^T diag(c) X'`` in row chunks, each chunk's
+product in float64 (exact whatever the TF32 settings; the chunks added in
+row order, and over a row-sharded batch the ranks' float64 partials added
+in rank order, B4's pattern), and inverts its Cholesky factor in column
+chunks. A matrix that is not positive definite gives NaN variances, as the
+JAX package's does.
 """
 
 from __future__ import annotations
@@ -32,16 +39,42 @@ from typing import Optional, Tuple
 import torch
 
 from .features import LabeledBatch
-from .fused_glm import sharded_hessian_stats, sharded_hessian_vector, sharded_value_grad
+from .fused_glm import (
+    rank_order_sum,
+    rank_order_sum_plain,
+    sharded_hessian_stats,
+    sharded_hessian_vector,
+    sharded_value_grad,
+)
 from .losses import PointwiseLoss
 from .normalization import NormalizationContext, identity_normalization
 
 Tensor = torch.Tensor
 
-_FULL_TODO = (
-    "{} is not ported yet: FULL variance (the dense Hessian and its inverse's "
-    "diagonal) is ROADMAP A6"
-)
+# FULL variance factors a [d, d] Hessian on one device: the ceiling is that
+# device's memory. Measured on an NVIDIA H100 80GB HBM3 at 700 W
+# (chip_smoke.py phase 10 (c)): compute_variances("FULL"), the Hessian's
+# build included, runs at d = 65,536 on 4,096 rows, peaking at 51.8 GiB for
+# a float32 batch and 72.8 GiB for a float64 one; the next power of two
+# needs four times the memory. Beyond the ceiling, SIMPLE is the answer.
+MAX_FULL_VARIANCE_DIM = 65536
+# bytes of each float64 chunk of the Hessian's build: a row chunk of X'
+# (and its product with c) in _xtcx, and a rank's piece of the [d, d] sum
+# over ranks in hessian_matrix
+HESSIAN_CHUNK_BYTES = 1 << 29
+# columns of the identity per triangular solve of _diag_of_inverse
+INVERSE_COL_CHUNK = 2048
+
+
+def check_full_variance_dim(dim: int) -> None:
+    """The FULL-variance ceiling: every entry point (the check before the
+    solve, hessian_matrix, compute_variances) raises the same ValueError."""
+    if dim > MAX_FULL_VARIANCE_DIM:
+        raise ValueError(
+            f"variance=FULL needs a [d, d] Hessian factorization; d={dim} "
+            f"exceeds the supported ceiling {MAX_FULL_VARIANCE_DIM} — use "
+            "variance=SIMPLE"
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,14 +192,109 @@ class GLMObjective:
         return diag + self.l2 * self._precision(diag)
 
     def hessian_matrix(self, coef: Tensor) -> Tensor:
-        raise NotImplementedError(_FULL_TODO.format("hessian_matrix"))
+        """The dense ``[d, d]`` Hessian ``X'^T diag(w l'') X' + l2 diag(P)``
+        in the batch's dtype, with X' = (X - shift) .* factor (a sparse
+        batch densified, as the JAX package does), and exact-zero diagonal
+        entries pinned to 1 (``_pin_zero_diagonal``). (The JAX package's
+        model-axis-tiled branch has no batch here: tiled batches are ROADMAP
+        A10.)"""
+        b = self.batch
+        check_full_variance_dim(b.dim)
+        c = self._d2z_weights(coef)
+        h = _xtcx(b.features.to_dense(), c, self._norm())
+        if self.group is not None:
+            h = self._sum_over_ranks(h, c.dtype)
+        else:
+            h = h.to(c.dtype)
+        dg = h.diagonal()
+        dg.add_(self.l2 * self._precision(dg))
+        _pin_zero_diagonal(h)
+        return h
+
+    def _sum_over_ranks(self, h: Tensor, dtype: torch.dtype) -> Tensor:
+        """B4's pattern for this rank's float64 partial ``h``: a piece of
+        whole rows at a time into this rank's slot, the slots gathered and
+        added in rank order into a new ``[d, d]`` tensor of ``dtype``, so
+        that every rank gets the same bits and the slots take
+        ``HESSIAN_CHUNK_BYTES`` a rank whatever the world size. The sum is
+        the CUDA kernel on the card (float32 only: a float64 batch on the
+        card comes with ``plain``) and its plain version on the CPU."""
+        group = self.group
+        d = h.shape[0]
+        plain = self.plain or h.device.type == "cpu"
+        out = torch.empty((d, d), dtype=dtype, device=h.device)
+        rows = max(1, HESSIAN_CHUNK_BYTES // (8 * d))
+        for lo in range(0, d, rows):
+            piece = h[lo : lo + rows].reshape(-1)
+            slots = torch.empty((group.world_size, piece.numel()), dtype=torch.float64, device=h.device)
+            slots[group.rank] = piece
+            group.gather_slots(slots)
+            total = rank_order_sum_plain(slots, dtype) if plain else rank_order_sum(slots, dtype)
+            out[lo : lo + rows] = total.view(-1, d)
+        return out
+
+
+def _xtcx(x: Tensor, c: Tensor, norm: NormalizationContext) -> Tensor:
+    """``X'^T diag(c) X'`` in float64: row chunks of ``HESSIAN_CHUNK_BYTES``
+    in float64, each normalized, multiplied and added into the accumulator
+    in place (``addmm_``), in row order. A float64 product takes no TF32
+    path, so the result does not depend on ``torch.backends.cuda.matmul``
+    settings."""
+    n, d = x.shape
+    h = torch.zeros((d, d), dtype=torch.float64, device=x.device)
+    shifts = None if norm.shifts is None else norm.shifts.to(torch.float64)
+    factors = None if norm.factors is None else norm.factors.to(torch.float64)
+    rows = max(1, HESSIAN_CHUNK_BYTES // (8 * d))
+    for lo in range(0, n, rows):
+        xc = x[lo : lo + rows].to(torch.float64)
+        if shifts is not None:
+            xc = xc - shifts
+        if factors is not None:
+            xc = xc * factors
+        h.addmm_(xc.T, c[lo : lo + rows, None].to(torch.float64) * xc)
+    return h
+
+
+def _pin_zero_diagonal(h: Tensor) -> Tensor:
+    """Exact-zero diagonal entries of ``h`` pinned to 1, in place, so a
+    zero-activity column with l2 = 0 keeps FULL variances finite: its row
+    and column are zero, so it becomes an isolated unit basis vector with
+    variance 1 and leaves the others alone (SIMPLE's convention for zero
+    diagonals). Returns ``h``."""
+    dg = h.diagonal()
+    dg.masked_fill_(dg == 0, 1.0)
+    return h
+
+
+def _diag_of_inverse(m: Tensor) -> Tensor:
+    """diag(m^-1) for SPD m through its Cholesky factor m = L L^T:
+    diag(m^-1)_j = ||column j of L^-1||^2, the columns of L^-1 from
+    triangular solves against ``INVERSE_COL_CHUNK`` columns of the identity
+    at a time (the peak stays at m, L and one chunk). A matrix that is not
+    positive definite gives NaN everywhere, as ``jnp.linalg.cholesky`` does:
+    the factorization's ``info`` turns L into NaN on the device, with no
+    host synchronize and no exception."""
+    d = m.shape[0]
+    L, info = torch.linalg.cholesky_ex(m)
+    L.masked_fill_(info != 0, float("nan"))
+    chunk = min(d, INVERSE_COL_CHUNK)
+    out = torch.empty(d, dtype=m.dtype, device=m.device)
+    for lo in range(0, d, chunk):
+        hi = min(d, lo + chunk)
+        rhs = torch.zeros((d, hi - lo), dtype=m.dtype, device=m.device)
+        cols = torch.arange(hi - lo, device=m.device)
+        rhs[lo + cols, cols] = 1.0
+        x = torch.linalg.solve_triangular(L, rhs, upper=False)
+        out[lo:hi] = torch.sum(x * x, dim=0)
+    return out
 
 
 def compute_variances(
     objective: GLMObjective, coef: Tensor, variance_type: str
 ) -> Optional[Tensor]:
     """Coefficient variances: NONE -> None; SIMPLE -> 1 / diag(H), a zero
-    diagonal entry (no data, no L2) pinned to variance 1. FULL raises."""
+    diagonal entry (no data, no L2) pinned to variance 1; FULL ->
+    diag(H^-1) through the Cholesky factor."""
     vt = variance_type.upper()
     if vt == "NONE":
         return None
@@ -174,5 +302,5 @@ def compute_variances(
         d = objective.hessian_diagonal(coef)
         return 1.0 / torch.where(d == 0, torch.ones_like(d), d)
     if vt == "FULL":
-        raise NotImplementedError(_FULL_TODO.format("variance FULL"))
+        return _diag_of_inverse(objective.hessian_matrix(coef))
     raise ValueError(f"Unknown variance computation type: {variance_type!r}")

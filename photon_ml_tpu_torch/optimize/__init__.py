@@ -7,6 +7,7 @@ from .common import (
     abs_tolerances,
     project_box,
 )
+from . import trackers
 from .driver import optimize
 from .lbfgs import solve_lbfgs
 from .tron import solve_tron
@@ -22,4 +23,5 @@ __all__ = [
     "optimize",
     "solve_lbfgs",
     "solve_tron",
+    "trackers",
 ]

@@ -12,7 +12,9 @@ reasons are checked in the reference's precedence order.
 The helpers are lane-generic, as the JAX package's are: a 1-D coefficient
 vector is one problem, and an entity-minor stack ``[S, E]`` is E problems
 whose reductions run over axis 0, with per-lane ``[E]`` losses, tolerances
-and reasons (the batched L-BFGS of ``lbfgs.py``).
+and reasons (the batched L-BFGS of ``lbfgs.py``, the batched TRON of
+``tron.py``). ``Lanes`` names the other layout the batched solvers take:
+entity-leading ``[E, S]``, the JAX package's vmapped per-entity solve.
 """
 
 from __future__ import annotations
@@ -117,6 +119,46 @@ class SyncCounter:
         return list(packed.cpu().numpy())
 
 
+class Lanes:
+    """Where the lanes of a batch of problems lie in a coefficient stack.
+
+    ``MINOR`` (entity-minor, the packed solve): ``[S, E]`` (or ``[d, L]``),
+    per-lane reductions are axis-0 sums and a per-lane ``[E]`` value
+    broadcasts against the stack as it is. ``LEADING`` (entity-leading, the
+    JAX package's vmapped per-entity solve): ``[E, S]``, reductions run over
+    the last axis and a per-lane value spreads as ``[E, 1]``. On the CPU a
+    last-axis sum adds each row in the same order whatever the number of
+    rows, so a lane's bits do not depend on the other lanes of its stack."""
+
+    def __init__(self, axis: int) -> None:
+        self.axis = axis
+
+    def dot(self, a: Tensor, b: Tensor) -> Tensor:
+        return torch.sum(a * b, dim=self.axis)
+
+    def norm(self, v: Tensor) -> Tensor:
+        return torch.sqrt(self.dot(v, v))
+
+    def sum(self, a: Tensor) -> Tensor:
+        return torch.sum(a, dim=self.axis)
+
+    def spread(self, x: Tensor) -> Tensor:
+        """A per-lane value shaped to broadcast against the stack."""
+        return x.unsqueeze(-1) if self.axis == -1 else x
+
+    def where(self, mask: Tensor, a, b) -> Tensor:
+        """``torch.where`` with a per-lane mask over stacks."""
+        return torch.where(self.spread(mask), a, b)
+
+    def finite(self, f: Tensor, g: Tensor) -> Tensor:
+        """``finite_state`` per lane."""
+        return torch.isfinite(f) & torch.all(torch.isfinite(g), dim=self.axis)
+
+
+MINOR = Lanes(0)
+LEADING = Lanes(-1)
+
+
 def project_box(w: Tensor, box: Optional[Tuple[Tensor, Tensor]]) -> Tensor:
     """Clamp coefficients into [lower, upper]."""
     if box is None:
@@ -186,15 +228,16 @@ def abs_tolerances(
     zero_like: Tensor,
     tolerance: float,
     syncs: Optional[SyncCounter] = None,
+    lanes: Lanes = MINOR,
 ):
     """Absolute tolerances from the state at zero coefficients: host
-    scalars for one problem (one fetch); ``[E]`` device tensors for an
-    ``[S, E]`` stack of lanes, which the batched solver keeps on the device
-    (no fetch)."""
+    scalars for one problem (one fetch); ``[E]`` device tensors for a stack
+    of lanes laid out as ``lanes`` says, which the batched solvers keep on
+    the device (no fetch)."""
     f0, g0 = value_and_grad(torch.zeros_like(zero_like))
     if zero_like.dim() > 1:
         tol = torch.as_tensor(tolerance, dtype=f0.dtype, device=f0.device)
-        return torch.abs(f0) * tol, norm(g0) * tol
+        return torch.abs(f0) * tol, lanes.norm(g0) * tol
     f0_h, g0_norm = (syncs or SyncCounter()).fetch(f0, norm(g0))
     tol = f0_h.dtype.type(tolerance)
     return abs(f0_h) * tol, g0_norm * tol

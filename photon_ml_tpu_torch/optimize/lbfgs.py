@@ -28,8 +28,16 @@ with masks, so a converged or diverged lane freezes at its last iterate; a
 lane whose start is already non-finite freezes at ``w0`` with
 NUMERICAL_DIVERGENCE. A lane that is done before an iteration starts takes
 no part in its line search (the JAX loop runs it along and discards the
-result), which changes no lane's outcome and saves trials. The batched
-mode takes OWL-QN; box constraints there and batched TRON are ROADMAP A2.
+result), which changes no lane's outcome and saves trials. Both variants
+run there: OWL-QN, and L-BFGS-B with a box broadcastable to ``w``.
+
+``batched=True, entity_leading=True`` is the JAX package's vmapped
+per-entity solve (``jax.vmap`` of the one-problem mode): ``w`` is
+``[E, S]``, the reductions run over the last axis, and each lane keeps its
+own history cursor, advanced only when that lane stores a pair, as the
+one-problem mode does. Every lane runs the same operations whatever its
+neighbours do, so an entity's result does not depend on the other lanes of
+its stack.
 
 Syncs: one fetch at the start, then one per line-search trial. For one
 problem the trial's fetch also brings the correction pair's s.y and y.y and
@@ -51,7 +59,10 @@ import numpy as np
 import torch
 
 from .common import (
+    LEADING,
+    MINOR,
     ConvergenceReason,
+    Lanes,
     SolverResult,
     SyncCounter,
     ValueAndGradFn,
@@ -68,12 +79,6 @@ Tensor = torch.Tensor
 _C1 = 1e-4  # Armijo (sufficient decrease)
 _C2 = 0.9  # curvature
 
-NOT_PORTED = (
-    "{} is not ported yet (ROADMAP A2); photon_ml_tpu_torch runs L-BFGS and OWL-QN "
-    "(single-lane or batched), L-BFGS-B (single-lane) and single-lane TRON"
-)
-
-
 def _pseudo_gradient(w: Tensor, g: Tensor, l1: float) -> Tensor:
     """OWL-QN pseudo-gradient of f(w) + l1*||w||_1."""
     zero = torch.zeros((), dtype=g.dtype, device=g.device)
@@ -88,16 +93,26 @@ class _Variant:
     """What OWL-QN (``l1``) and L-BFGS-B (``box``) change in the plain
     L-BFGS iteration; with neither it is plain L-BFGS."""
 
-    def __init__(self, value_and_grad: ValueAndGradFn, l1: float, box: Optional[Tuple[Tensor, Tensor]]):
+    def __init__(
+        self,
+        value_and_grad: ValueAndGradFn,
+        l1: float,
+        box: Optional[Tuple[Tensor, Tensor]],
+        lanes: Optional[Lanes] = None,
+    ):
         self.value_and_grad, self.l1, self.box = value_and_grad, l1, box
         # the curvature condition holds only for the smooth, unconstrained problem
         self.wolfe = l1 == 0.0 and box is None
+        # None: one problem (1-D w)
+        self.lanes = lanes
+        self.dot = vdot if lanes is None else lanes.dot
+        self.spread = (lambda x: x) if lanes is None else lanes.spread  # noqa: E731
 
     def objective(self, w: Tensor) -> Tuple[Tensor, Tensor]:
         """(f(w) + l1 ||w||_1, the smooth part's gradient)."""
         f, g = self.value_and_grad(w)
         if self.l1 > 0.0:
-            f = f + self.l1 * torch.sum(torch.abs(w).to(f.dtype), dim=0)
+            f = f + self.l1 * (self.lanes or MINOR).sum(torch.abs(w).to(f.dtype))
         return f, g
 
     def effective_grad(self, w: Tensor, g: Tensor) -> Tensor:
@@ -117,9 +132,9 @@ class _Variant:
         direction = -raw
         if self.l1 > 0.0:
             direction = torch.where(direction * pg >= 0, torch.zeros_like(direction), direction)
-        dg = vdot(direction, pg)
+        dg = self.dot(direction, pg)
         bad = dg >= 0
-        return torch.where(bad, -pg, direction), torch.where(bad, -vdot(pg, pg), dg)
+        return torch.where(self.spread(bad), -pg, direction), torch.where(bad, -self.dot(pg, pg), dg)
 
     def orthant(self, w: Tensor, pg: Tensor) -> Optional[Tensor]:
         if self.l1 == 0.0:
@@ -127,7 +142,10 @@ class _Variant:
         return torch.where(w != 0, torch.sign(w), -torch.sign(pg))
 
     def point(self, w: Tensor, t, direction: Tensor, orthant: Optional[Tensor]) -> Tensor:
-        """The trial point ``w + t d``, projected onto the orthant and the box."""
+        """The trial point ``w + t d``, projected onto the orthant and the box
+        (``t`` a host scalar, or one step per lane)."""
+        if isinstance(t, Tensor):
+            t = self.spread(t)
         w_t = w + t * direction
         if orthant is not None:
             w_t = torch.where(w_t * orthant < 0, torch.zeros_like(w_t), w_t)
@@ -211,23 +229,26 @@ def solve_lbfgs(
     max_line_search_iterations: int = 25,
     syncs: Optional[SyncCounter] = None,
     batched: bool = False,
+    entity_leading: bool = False,
 ) -> SolverResult:
     """Minimize f(w) (+ ``l1_weight * ||w||_1``, OWL-QN; within
     ``box_constraints``, L-BFGS-B) from ``w0``. ``batched=True`` solves an
     entity-minor stack of independent problems in lockstep: ``w0`` is
     ``[S, E]``, ``value_and_grad`` maps ``[S, E] -> ([E], [S, E])``, and the
-    absolute tolerances are per-lane ``[E]`` tensors (or scalars)."""
+    absolute tolerances are per-lane ``[E]`` tensors (or scalars). With
+    ``entity_leading=True`` as well the stack is ``[E, S]``, each lane with
+    its own history cursor (the JAX package's vmapped solve)."""
     syncs = syncs or SyncCounter()
-    var = _Variant(value_and_grad, float(l1_weight), box_constraints)
     if batched:
         if w0.dim() != 2:
-            raise ValueError(f"batched L-BFGS takes w0 of shape [S, E], got {tuple(w0.shape)}")
-        if box_constraints is not None:
-            raise NotImplementedError(NOT_PORTED.format("batched L-BFGS-B (box constraints over lanes)"))
+            raise ValueError(f"batched L-BFGS takes w0 of shape [S, E] (or [E, S]), got {tuple(w0.shape)}")
+        lanes = LEADING if entity_leading else MINOR
+        var = _Variant(value_and_grad, float(l1_weight), box_constraints, lanes)
         return _solve_batched(
             var, w0, loss_abs_tol, grad_abs_tol, max_iterations,
             num_corrections, max_line_search_iterations, syncs,
         )
+    var = _Variant(value_and_grad, float(l1_weight), box_constraints)
     if w0.dim() != 1:
         raise ValueError(f"single-lane L-BFGS takes a 1-D w0 (batched=True for lanes), got {tuple(w0.shape)}")
     w = project_box(w0, box_constraints).clone()  # start feasible
@@ -310,6 +331,38 @@ def _two_loop_batched(S: Tensor, Y: Tensor, rho: Tensor, count: int, head: int, 
     return r
 
 
+def _two_loop_lanes(S: Tensor, Y: Tensor, rho: Tensor, count: Tensor, head: Tensor, g: Tensor) -> Tensor:
+    """Two-loop recursion over per-lane circular histories ``S, Y [m, E, S]``,
+    ``rho [m, E]``, each lane with its own ``count`` and ``head`` ``[E]``:
+    the one-problem recursion of the JAX package (``fori_loop`` over all m
+    slots, a slot past a lane's count adding a masked zero), lane by lane."""
+    m, E = S.shape[0], S.shape[1]
+    lanes = torch.arange(E, device=g.device)
+    zero = torch.zeros((), dtype=g.dtype, device=g.device)
+    one = torch.ones((), dtype=g.dtype, device=g.device)
+
+    def slot(i: int):
+        j = torch.remainder(head - 1 - i, m)
+        return S[j, lanes], Y[j, lanes], rho[j, lanes], i < count
+
+    q = g
+    alphas = []
+    for i in range(m):
+        s_j, y_j, rho_j, valid = slot(i)
+        a = torch.where(valid, rho_j * LEADING.dot(s_j, q), zero)
+        alphas.append(a)
+        q = q - LEADING.spread(torch.where(valid, a, zero)) * y_j
+    s_n, y_n, _, _ = slot(0)
+    ys, yy = LEADING.dot(s_n, y_n), LEADING.dot(y_n, y_n)
+    gamma = torch.where((count > 0) & (yy > 0), ys / torch.where(yy > 0, yy, one), one)
+    r = LEADING.spread(gamma) * q
+    for i in reversed(range(m)):
+        s_j, y_j, rho_j, valid = slot(i)
+        b = torch.where(valid, rho_j * LEADING.dot(y_j, r), zero)
+        r = r + LEADING.spread(torch.where(valid, alphas[i] - b, zero)) * s_j
+    return r
+
+
 def _solve_batched(
     var: _Variant,
     w0: Tensor,
@@ -320,9 +373,13 @@ def _solve_batched(
     max_ls: int,
     syncs: SyncCounter,
 ) -> SolverResult:
-    """Entity-minor lockstep L-BFGS / OWL-QN (``photon_ml_tpu/optimize/lbfgs.py``
-    ``_solve`` with ``batched=True``), looped on the host."""
-    w = w0.clone()
+    """Lockstep L-BFGS / OWL-QN / L-BFGS-B over lanes, looped on the host:
+    entity-minor (``photon_ml_tpu/optimize/lbfgs.py`` ``_solve`` with
+    ``batched=True``) or entity-leading with per-lane cursors (``jax.vmap``
+    of ``_solve``)."""
+    L = var.lanes
+    per_lane = L is LEADING
+    w = project_box(w0, var.box).clone()  # start feasible
     f, g = var.objective(w)
     # the values may be wider than the iterate (a float64 sum of float32
     # terms): step sizes and history follow the iterate's dtype
@@ -332,17 +389,22 @@ def _solve_batched(
     grad_tol = torch.as_tensor(grad_abs_tol, dtype=g.dtype, device=dev)
     T = max_iterations + 1
 
-    done = ~finite_state(f, g)
+    done = ~L.finite(f, g)
     reason = torch.where(done, int(ConvergenceReason.NUMERICAL_DIVERGENCE), 0).to(torch.int32)
     it = torch.zeros(lanes, dtype=torch.int32, device=dev)
     S = torch.zeros((m,) + tuple(w.shape), dtype=dtype, device=dev)
     Y = torch.zeros_like(S)
     rho = torch.zeros((m,) + lanes, dtype=dtype, device=dev)
-    count = head = 0
+    if per_lane:
+        count = torch.zeros(lanes, dtype=torch.int64, device=dev)
+        head = torch.zeros_like(count)
+        lane_ids = torch.arange(lanes[0], device=dev)
+    else:
+        count = head = 0
     lh = torch.full((T,) + lanes, math.nan, dtype=f.dtype, device=dev)
     gh = torch.full((T,) + lanes, math.nan, dtype=g.dtype, device=dev)
     lh[0] = f
-    gh[0] = norm(var.effective_grad(w, g))
+    gh[0] = L.norm(var.effective_grad(w, g))
 
     def result() -> SolverResult:
         return SolverResult(
@@ -354,7 +416,11 @@ def _solve_batched(
     k = 0
     while not all_done:
         pg = var.effective_grad(w, g)
-        direction, dg = var.direction(_two_loop_batched(S, Y, rho, count, head, pg), pg)
+        if per_lane:
+            raw = _two_loop_lanes(S, Y, rho, count, head, pg)
+        else:
+            raw = _two_loop_batched(S, Y, rho, count, head, pg)
+        direction, dg = var.direction(raw, pg)
         orthant = var.orthant(w, pg)
 
         # line search from t = 1; lanes already done sit it out
@@ -368,19 +434,23 @@ def _solve_batched(
         n = 0
         while True:
             finite_t = torch.isfinite(f_t)
-            armijo_ok = f_t <= f + _C1 * t * dg
+            if var.box is not None:
+                # Armijo on the actual (projected) displacement
+                armijo_ok = f_t <= f + _C1 * L.dot(g, w_t - w)
+            else:
+                armijo_ok = f_t <= f + _C1 * t * dg
             if var.wolfe:
-                curv_ok = vdot(g_t, direction) >= _C2 * dg
+                curv_ok = L.dot(g_t, direction) >= _C2 * dg
             else:
                 curv_ok = torch.ones_like(done)
             accept = armijo_ok & curv_ok & finite_t
             success = success | (accept & ~ls_done)
             ls_done = ls_done | accept | (n + 1 >= max_ls)
             # what the commit would make of this trial, should it be the last
-            finite_new = finite_state(f_t, g_t)
+            finite_new = L.finite(f_t, g_t)
             improved = success & (f_t < f) & finite_new
             reason_new = check_convergence(
-                it + 1, max_iterations, f_t, f, norm(var.effective_grad(w_t, g_t)), loss_tol, grad_tol,
+                it + 1, max_iterations, f_t, f, L.norm(var.effective_grad(w_t, g_t)), loss_tol, grad_tol,
                 objective_not_improving=~improved, diverged=~finite_new,
             )
             ls_all, all_done = syncs.fetch(torch.all(ls_done), torch.all(done | (reason_new != 0)))
@@ -400,32 +470,42 @@ def _solve_batched(
             lo = torch.where(ls_done, lo, new_lo)
             hi = torch.where(ls_done, hi, new_hi)
             f_t = torch.where(ls_done, f_t, f_n)
-            g_t = torch.where(ls_done, g_t, g_n)
-            w_t = torch.where(ls_done, w_t, w_n)
+            g_t = L.where(ls_done, g_t, g_n)
+            w_t = L.where(ls_done, w_t, w_n)
             n += 1
 
-        # history: every iteration writes the shared slot; a lane that must
-        # not store writes an invalid (zero, rho = 0) pair
         s_vec = w_t - w
         y_vec = g_t - g
-        sy = vdot(s_vec, y_vec)
-        store = improved & (sy > 1e-10 * norm(y_vec) ** 2)
-        S[head] = torch.where(store, s_vec, 0.0)
-        Y[head] = torch.where(store, y_vec, 0.0)
-        rho[head] = torch.where(store, 1.0 / torch.where(sy != 0, sy, 1.0), 0.0)
-        head = (head + 1) % m
-        count = min(count + 1, m)
+        sy = L.dot(s_vec, y_vec)
+        store = improved & (sy > 1e-10 * L.norm(y_vec) ** 2)
+        inv_sy = 1.0 / torch.where(sy != 0, sy, 1.0)
+        keep = done
+        if per_lane:
+            # each lane writes its own slot, and only when it stores a pair
+            write = store & ~keep
+            S[head, lane_ids] = L.where(write, s_vec, S[head, lane_ids])
+            Y[head, lane_ids] = L.where(write, y_vec, Y[head, lane_ids])
+            rho[head, lane_ids] = torch.where(write, inv_sy, rho[head, lane_ids])
+            head = torch.where(write, torch.remainder(head + 1, m), head)
+            count = torch.where(write, torch.clamp(count + 1, max=m), count)
+        else:
+            # every iteration writes the shared slot; a lane that must not
+            # store writes an invalid (zero, rho = 0) pair
+            S[head] = torch.where(store, s_vec, 0.0)
+            Y[head] = torch.where(store, y_vec, 0.0)
+            rho[head] = torch.where(store, inv_sy, 0.0)
+            head = (head + 1) % m
+            count = min(count + 1, m)
 
         # masked commit: lanes done before this iteration keep their state
-        keep = done
-        w = torch.where(keep, w, torch.where(improved, w_t, w))
+        w = L.where(keep, w, L.where(improved, w_t, w))
         f = torch.where(keep, f, torch.where(improved, f_t, f))
-        g = torch.where(keep, g, torch.where(improved, g_t, g))
+        g = L.where(keep, g, L.where(improved, g_t, g))
         it = torch.where(keep, it, it + 1)
         reason = torch.where(keep, reason, reason_new)
         done = keep | (reason_new != 0)
         # history rows at the global counter: active lanes all sit at it == k
         k += 1
         lh[k] = torch.where(keep, lh[k], f)
-        gh[k] = torch.where(keep, gh[k], norm(var.effective_grad(w, g)))
+        gh[k] = torch.where(keep, gh[k], L.norm(var.effective_grad(w, g)))
     return result()

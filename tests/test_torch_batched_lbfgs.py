@@ -198,13 +198,16 @@ def test_batched_refusals_and_the_single_lane_driver():
         solve_lbfgs(vg, torch.zeros(4), 0.0, 0.0, batched=True)
     with pytest.raises(ValueError, match="batched=True"):
         solve_lbfgs(vg, torch.zeros((4, 3)), 0.0, 0.0)
-    # batched OWL-QN is ported (tests/test_torch_owlqn.py); batched box
-    # constraints and batched TRON are what A2 still holds
-    with pytest.raises(NotImplementedError, match="A2"):
-        solve_lbfgs(vg, torch.zeros((4, 3)), 0.0, 0.0, box_constraints=(-torch.ones((4, 3)), torch.ones((4, 3))),
-                    batched=True)
-    with pytest.raises(NotImplementedError, match="A2"):
-        solve_tron(vg, lambda w, v: 2 * v, torch.zeros((4, 3)), 0.0, 0.0)
+    # batched OWL-QN, box constraints and TRON all run now
+    # (tests/test_torch_owlqn.py, tests/test_torch_tron_batched.py): the
+    # minimum of sum((w - 2)^2) is 2, and 1 inside the box [-1, 1]
+    vg2 = lambda w: (torch.sum((w - 2) ** 2, dim=0), 2 * (w - 2))  # noqa: E731
+    res = solve_lbfgs(vg2, torch.zeros((4, 3)), 0.0, 1e-12, box_constraints=(-torch.ones((4, 3)), torch.ones((4, 3))),
+                      batched=True)
+    torch.testing.assert_close(res.coefficients, torch.ones((4, 3)), atol=1e-6, rtol=0)
+    res = solve_tron(vg2, lambda w, v: 2 * v, torch.zeros((4, 3)), 0.0, 1e-12)
+    torch.testing.assert_close(res.coefficients, torch.full((4, 3), 2.0), atol=1e-6, rtol=0)
+    assert bool((res.reason != ConvergenceReason.NOT_CONVERGED).all())
     # the single-lane driver is unchanged: a 1-D solve still returns host ints
     res = optimize(lambda w: (torch.dot(w - 1, w - 1), 2 * (w - 1)), torch.zeros(4), OptimizerConfig())
     assert isinstance(res.iterations, int) and isinstance(res.reason, int)

@@ -352,7 +352,7 @@ def _same_bits(a, b) -> bool:
     return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(bits(a), bits(b))
 
 
-@pytest.mark.parametrize("width", [1, 33, 1026, 2049])
+@pytest.mark.parametrize("width", [1, 33, 1026, 2049, 1024 * 1024])  # the last: FULL's d x d at d = 1,024
 @pytest.mark.parametrize("world", range(1, 9))
 def test_rank_order_sum_matches_plain_bitwise(cuda, world, width):
     g = torch.Generator(device=cuda)
@@ -733,3 +733,141 @@ def test_float64_batch_on_card_takes_the_counted_plain_route(cuda, layout):
     assert not any(fg.OBJECTIVE_ROUTES.values()) and not any(sparse.SPARSE_LAUNCHES.values())
     assert scores[0].dtype == torch.float64
     torch.testing.assert_close(scores[0].cpu(), scores[1], rtol=1e-6, atol=1e-9)
+
+
+# ----------------------------------------- solvers, FULL variance, sampling
+
+
+def test_hessian_matrix_on_card_ignores_tf32_and_matches_float64(cuda):
+    """FULL variance at d = 1,024: the Hessian's product runs in float64,
+    so TF32 settings leave its bits alone; against the float64 Hessian at
+    the Hessian products' bound (max-abs <= 3e-5 * max(|ref|, 1)), and the
+    variances against the float64 inverse's diagonal at rtol 1e-3."""
+    from photon_ml_tpu_torch.ops.glm import GLMObjective, compute_variances
+
+    x, coef, _, y, off, wt, _ = _inputs(cuda, 20_000, 1024, torch.float32, 41)
+    obj = GLMObjective(loss=LOSSES["logistic"], batch=batch_from_dense(x, y, off, wt, device=cuda), l2=1.0)
+    before = (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision())
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        h = obj.hessian_matrix(coef)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        h_tf32 = obj.hessian_matrix(coef)
+        var = compute_variances(obj, coef, "FULL")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before[0]
+        torch.set_float32_matmul_precision(before[1])
+    assert h.dtype == torch.float32 and torch.equal(h, h_tf32)
+    o64 = GLMObjective(loss=LOSSES["logistic"], batch=batch_from_dense(
+        x.double(), y.double(), off.double(), wt.double(), device=cuda), l2=1.0)
+    h64 = o64.hessian_matrix(coef.double())
+    _assert_vec(h.reshape(-1), h64.reshape(-1), "FULL Hessian")
+    var64 = torch.diagonal(torch.linalg.inv(h64))
+    torch.testing.assert_close(var.double(), var64, rtol=1e-3, atol=0)
+    assert fg.LAUNCHES["fused_hessian_stats"] == 0
+
+
+def test_full_hessian_over_an_nccl_rank_sums_by_the_kernel(cuda, tmp_path):
+    """One NCCL rank at d = 1,024: the float32 Hessian over the group takes
+    the rank-order sum kernel (one launch: the d x d partial in one piece)
+    and equals the plain route and the unsharded Hessian bitwise; with
+    ``plain=True`` no kernel launches; a float64 batch runs only with
+    ``plain``, and without it the kernel refuses float64."""
+    import numpy as np
+
+    from photon_ml_tpu_torch.ops import cuda_lib
+    from photon_ml_tpu_torch.parallel import spawn
+
+    cuda_lib.load("fused_glm")
+    rng = np.random.default_rng(47)
+    n, d = 5_000, 1024
+    payload = dict(x=rng.standard_normal((n, d)) * 0.1, y=(rng.random(n) > 0.5).astype(np.float64),
+                   w=rng.standard_normal(d) * 0.05)
+    (out,) = spawn("test_torch_parallel_ranks:full_variance_on_card", 1, "nccl", "cuda", args=(payload,),
+                   timeout_s=300, store_dir=tmp_path)
+    assert out["launches"] == {"rank_order_sum": 1}
+    assert out["kernel"].dtype == np.float32 and out["kernel"].shape == (d, d)
+    assert _same_bits(out["kernel"], out["plain"]) and _same_bits(out["kernel"], out["unsharded"])
+    assert "float32" in out["float64_refused"]
+    assert out["launches_after"] == {"rank_order_sum": 1}
+    np.testing.assert_allclose(out["kernel"], out["float64_plain"], rtol=0, atol=3e-5 * max(1.0, np.abs(out["float64_plain"]).max()))
+
+
+def test_full_variance_solve_on_card_runs_b1_b2_and_not_b3(cuda):
+    x, _, _, y, _, _, _ = _inputs(cuda, 30_000, 256, torch.float32, 43)
+    problem = GLMProblem("logistic_regression", GLMOptimizationConfig(
+        optimizer=OptimizerConfig(optimizer_type="TRON", tolerance=1e-6, max_iterations=10),
+        regularization=RegularizationContext("L2"), reg_weight=1.0, variance_type="FULL"))
+    model, res = problem.run(batch_from_dense(x, y, device=cuda))
+    assert fg.LAUNCHES["fused_value_grad"] > 0 and fg.LAUNCHES["fused_hessian_vector"] > 0
+    assert fg.LAUNCHES["fused_hessian_stats"] == 0
+    fg.reset_launch_counts()
+    model_p, _ = problem.run(batch_from_dense(x, y, device=cuda), plain=True)
+    assert not any(fg.LAUNCHES.values())
+    torch.testing.assert_close(model.coefficients.variances, model_p.coefficients.variances, rtol=1e-3, atol=1e-5)
+
+
+def _re_blocks(dev, dtype, seed=0, E=300, K=12, S=9):
+    g = torch.Generator(device="cpu")
+    g.manual_seed(seed)
+    F = torch.randn((E, K, S), generator=g, dtype=torch.float64)
+    z = torch.einsum("eks,es->ek", F, torch.randn((E, S), generator=g, dtype=torch.float64))
+    y = (torch.rand((E, K), generator=g, dtype=torch.float64) < torch.sigmoid(z)).double()
+    off = torch.randn((E, K), generator=g, dtype=torch.float64) * 0.1
+    wt = torch.ones((E, K), dtype=torch.float64)
+    wt[:, 10:] = 0.0
+    y[:, 10:] = 0.0
+    arrays = [F, y, off, wt, torch.zeros((E, S)), torch.zeros((E, S)), torch.ones((E, S))]
+    return [a.to(device=dev, dtype=dtype) for a in arrays]
+
+
+@pytest.mark.parametrize("mode,opt", [("packed", "TRON"), ("vmapped", "LBFGS"), ("vmapped", "TRON")])
+def test_random_effect_solvers_on_card_match_the_cpu(cuda, mode, opt):
+    """The packed TRON and the vmapped solves on the card against the same
+    solves on the CPU, at the packed solve's bounds (f32: coefficients
+    atol 5e-3, loss atol 1e-4)."""
+    from photon_ml_tpu_torch.game.coordinate import _train_blocks, _train_blocks_packed
+
+    fn = _train_blocks_packed if mode == "packed" else _train_blocks
+    kw = dict(task="logistic_regression", l2=0.1, l1=0.0, optimizer_type=opt, tolerance=1e-7, max_iterations=80,
+              num_corrections=10, max_cg_iterations=20, max_improvement_failures=5)
+    rc = fn(*_re_blocks(cuda, torch.float32), **kw)
+    rh = fn(*_re_blocks("cpu", torch.float32), **kw)
+    torch.testing.assert_close(rc.coefficients.cpu(), rh.coefficients, rtol=0, atol=5e-3)
+    torch.testing.assert_close(rc.loss.cpu(), rh.loss, rtol=0, atol=1e-4)
+    assert bool((rc.reason != 0).all())
+
+
+def test_down_sampling_draws_on_the_card(cuda):
+    """The mask is drawn on the card from the seed (the same seed, the
+    same mask), and applying a given mask gives the CPU's bits."""
+    from photon_ml_tpu_torch.game import sampling
+
+    a = sampling.draw_keep_mask(1_000_003, 0.25, 9, cuda)
+    assert a.device.type == "cuda" and torch.equal(a, sampling.draw_keep_mask(1_000_003, 0.25, 9, cuda))
+    assert abs(float(a.double().mean()) - 0.25) < 0.005
+    x, _, _, y, _, wt, _ = _inputs(cuda, 5000, 8, torch.float32, 44)
+    keep = a[:5000]
+    got = sampling.apply_keep_mask(batch_from_dense(x, y, weights=wt, device=cuda), "logistic_regression", 0.25, keep)
+    want = sampling.apply_keep_mask(batch_from_dense(x.cpu(), y.cpu(), weights=wt.cpu(), device="cpu"),
+                                    "logistic_regression", 0.25, keep.cpu())
+    assert torch.equal(got.weights.cpu(), want.weights)
+
+
+@pytest.mark.parametrize("opt", ["LBFGS", "TRON"])
+def test_vmapped_entities_on_card_do_not_depend_on_their_bucket(cuda, opt):
+    """The vmapped solve on the card: an entity solved alone, among eleven
+    others or among 512 ends with the bits it has among all 3,000. (At the
+    billion-coefficient slice's shape, 32,768 x 16 x 256, a stack of one or
+    eleven entities does not: ROADMAP C7.)"""
+    from photon_ml_tpu_torch.game.coordinate import _train_blocks
+
+    args = _re_blocks(cuda, torch.float32, seed=3, E=3000)
+    kw = dict(task="logistic_regression", l2=0.1, l1=0.0, optimizer_type=opt, tolerance=1e-7, max_iterations=80,
+              num_corrections=10, max_cg_iterations=20, max_improvement_failures=5)
+    whole = _train_blocks(*args, **kw)
+    for rows in (slice(7, 8), slice(1000, 1011), slice(0, 512)):
+        part = _train_blocks(*(a[rows] for a in args), **kw)
+        for name in ("coefficients", "loss", "iterations", "reason"):
+            assert torch.equal(getattr(part, name), getattr(whole, name)[rows]), (rows, name)

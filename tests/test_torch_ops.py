@@ -277,13 +277,14 @@ def test_variances_and_hessian_matrix_name_next_slice(rng):
     obj = GLMObjective(loss=LOSSES["logistic"], batch=batch_from_dense(x, y, device="cpu"))
     w = torch.zeros(4)
     assert compute_variances(obj, w, "none") is None
-    # SIMPLE landed with kernel B3; FULL (the dense Hessian) names its item
+    # SIMPLE landed with kernel B3, FULL (the dense Hessian) later
+    # (tests/test_torch_variance.py holds it against the JAX package)
     simple = compute_variances(obj, w, "SIMPLE")
     assert simple.shape == (4,) and bool(torch.isfinite(simple).all())
-    with pytest.raises(NotImplementedError, match="A6"):
-        compute_variances(obj, w, "FULL")
-    with pytest.raises(NotImplementedError, match="A6"):
-        obj.hessian_matrix(w)
+    full = compute_variances(obj, w, "FULL")
+    h = obj.hessian_matrix(w)
+    assert h.shape == (4, 4) and full.shape == (4,) and bool(torch.isfinite(full).all())
+    torch.testing.assert_close(full, torch.diagonal(torch.linalg.inv(h.double())).float(), rtol=1e-4, atol=0)
     with pytest.raises(ValueError):
         compute_variances(obj, w, "BOGUS")
 

@@ -255,11 +255,13 @@ def test_packed_random_effect_solve_with_l1_matches_jax(dtype, l1):
 
 def test_batched_refusals_that_remain():
     vg = lambda w: (torch.sum(w * w, dim=0), 2 * w)  # noqa: E731
-    box = (-torch.ones((4, 3)), torch.ones((4, 3)))
-    with pytest.raises(NotImplementedError, match="A2"):
-        solve_lbfgs(vg, torch.zeros((4, 3)), 0.0, 0.0, box_constraints=box, batched=True)
-    with pytest.raises(NotImplementedError, match="A2"):
-        solve_tron(vg, lambda w, v: 2 * v, torch.zeros((4, 3)), 0.0, 0.0)
+    # none remains: batched box constraints and batched TRON run
+    # (tests/test_torch_tron_batched.py holds them against the JAX package)
+    box = (0.5 * torch.ones((4, 3)), torch.ones((4, 3)))
+    res = solve_lbfgs(vg, torch.ones((4, 3)), 0.0, 1e-12, box_constraints=box, batched=True)
+    torch.testing.assert_close(res.coefficients, torch.full((4, 3), 0.5), atol=1e-6, rtol=0)
+    res = solve_tron(vg, lambda w, v: 2 * v, torch.ones((4, 3)), 0.0, 1e-12)
+    assert float(res.coefficients.abs().max()) <= 1e-6
     # batched OWL-QN runs: the minimum of sum(w^2) + l1 |w|_1 is 0
     res = solve_lbfgs(vg, torch.ones((4, 3)), 0.0, 1e-12, l1_weight=0.1, batched=True)
     assert float(res.coefficients.abs().max()) == 0.0

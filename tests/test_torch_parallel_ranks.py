@@ -28,7 +28,7 @@ from photon_ml_tpu_torch.game import (
 from photon_ml_tpu_torch.io.data import RawDataset
 from photon_ml_tpu_torch.ops import fused_glm as fg
 from photon_ml_tpu_torch.ops.features import batch_from_dense
-from photon_ml_tpu_torch.ops.glm import GLMObjective
+from photon_ml_tpu_torch.ops.glm import GLMObjective, compute_variances
 from photon_ml_tpu_torch.ops.losses import LOSSES
 from photon_ml_tpu_torch.ops.regularization import RegularizationContext
 from photon_ml_tpu_torch.optimize import OptimizerConfig
@@ -351,3 +351,65 @@ def hang(group, seconds):
     import time
 
     time.sleep(seconds)
+
+
+def full_variance(group, payload):
+    """FULL variance (the Hessian and the diagonal of its inverse) of
+    ``payload``'s logistic batch at ``w``: this rank's rows over ``group``,
+    or the whole batch with ``group=None``; with ``payload["chunk_bytes"]``
+    the Hessian is built and summed over the ranks in chunks of that many
+    bytes."""
+    from photon_ml_tpu_torch.ops import glm
+
+    if payload.get("chunk_bytes"):
+        glm.HESSIAN_CHUNK_BYTES = payload["chunk_bytes"]
+    batch = batch_from_dense(payload["x"], payload["y"], dtype=torch.float64, device="cpu")
+    if group is not None:
+        batch = shard_batch(batch, group)
+    obj = GLMObjective(loss=LOSSES["logistic"], batch=batch, l2=0.5)
+    w = _t(payload["w"])
+    return {"hessian": _np(obj.hessian_matrix(w)), "variances": _np(compute_variances(obj, w, "FULL"))}
+
+
+def full_variance_on_card(group, payload):
+    """The FULL Hessian of ``payload``'s logistic batch over ``group`` on
+    the rank's card: float32 through the rank-order sum kernel, then with
+    ``plain=True`` (no launch), and a float64 batch with and without
+    ``plain`` (without it the kernel refuses float64). Returns the
+    Hessians, the unsharded float32 one, and the kernel's launches."""
+    dev = group.device
+
+    def objective(dtype, plain=False, shard=True):
+        batch = batch_from_dense(payload["x"], payload["y"], dtype=dtype, device=dev)
+        batch = shard_batch(batch, group) if shard else batch
+        return GLMObjective(loss=LOSSES["logistic"], batch=batch, l2=1.0, plain=plain)
+
+    w = _t(payload["w"], dev)
+    fg.reset_launch_counts()
+    out = {"kernel": _np(objective(torch.float32).hessian_matrix(w.float()))}
+    out["launches"] = dict(fg.SUM_LAUNCHES)
+    out["plain"] = _np(objective(torch.float32, plain=True).hessian_matrix(w.float()))
+    out["unsharded"] = _np(objective(torch.float32, shard=False).hessian_matrix(w.float()))
+    out["float64_plain"] = _np(objective(torch.float64, plain=True).hessian_matrix(w.double()))
+    try:
+        objective(torch.float64).hessian_matrix(w.double())
+        out["float64_refused"] = ""
+    except TypeError as e:
+        out["float64_refused"] = str(e)
+    out["launches_after"] = dict(fg.SUM_LAUNCHES)
+    return out
+
+
+def down_sampled_weights(group, payload):
+    """``game/sampling.py``'s down-sampled weights of this rank's shard of
+    ``payload``'s batch (with the whole batch's row count, as the fixed
+    effect passes it), cut to the rank's real rows."""
+    from photon_ml_tpu_torch.game.sampling import down_sample
+    from photon_ml_tpu_torch.parallel import row_range
+
+    n = payload["y"].shape[0]
+    batch = batch_from_dense(payload["x"], payload["y"], weights=payload["wt"], device="cpu")
+    batch = shard_batch(batch, group)
+    out = down_sample(batch, payload["task"], payload["rate"], payload["seed"], n_rows=n)
+    start, stop = row_range(n, group)
+    return _np(out.weights[: stop - start])

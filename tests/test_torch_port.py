@@ -26,7 +26,9 @@ import photon_ml_tpu_torch.convert, photon_ml_tpu_torch.device
 import photon_ml_tpu_torch.evaluation.device, photon_ml_tpu_torch.game.problem
 import photon_ml_tpu_torch.ops.cuda_lib, photon_ml_tpu_torch.ops.fused_glm
 import photon_ml_tpu_torch.ops.sparse, photon_ml_tpu_torch.ops.features, photon_ml_tpu_torch.optimize.lbfgs
-import photon_ml_tpu_torch.optimize.driver
+import photon_ml_tpu_torch.optimize.driver, photon_ml_tpu_torch.optimize.tron
+import photon_ml_tpu_torch.optimize.trackers, photon_ml_tpu_torch.game.sampling
+import photon_ml_tpu_torch.ops.glm
 import photon_ml_tpu_torch.game.coordinate, photon_ml_tpu_torch.game.data
 import photon_ml_tpu_torch.game.descent, photon_ml_tpu_torch.models.game
 import photon_ml_tpu_torch.io.data, photon_ml_tpu_torch.evaluation.suite

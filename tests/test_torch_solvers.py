@@ -226,8 +226,10 @@ def test_unported_paths_raise(rng):
         RawDataset(n_rows=64, labels=y, offsets=np.zeros(64), weights=np.ones(64),
                    shard_coo={"s": (np.zeros(1, int), np.zeros(1, int), np.ones(1))}, shard_dims={"s": 4},
                    id_tags={}).to_batch("s", layout="tiled", device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        GLMProblem("logistic_regression", GLMOptimizationConfig(variance_type="FULL")).run(batch)
+    # FULL variance is ported (tests/test_torch_variance.py): it runs
+    model, _ = GLMProblem("logistic_regression", GLMOptimizationConfig(variance_type="FULL")).run(batch)
+    var = model.coefficients.variances
+    assert var.shape == (4,) and bool(torch.isfinite(var).all()) and bool((var > 0).all())
     for method in ("run_streamed", "run_lanes"):
         with pytest.raises(NotImplementedError):
             getattr(GLMProblem("logistic_regression", GLMOptimizationConfig()), method)(batch)
