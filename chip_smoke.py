@@ -17,7 +17,10 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    scalar sums), s2 and s1 max-abs error <= 3e-5 * max(|ref|, 1); then B4's
    parts: the rank-order sum kernel against its plain version (bitwise, worlds
    1, 2, 4 and 8 at the main path's output widths) and the finalize's slot
-   form against the f32 output widened (bitwise, B1-B3 at n x d);
+   form against the f32 output widened (bitwise, B1-B3 at n x d); then V1,
+   the lane reduction of the vmapped random-effect solve, in each of its
+   four call forms at the billion-coefficient slice's shape against its
+   plain version in float64 (max-abs error <= 3e-5 * max(|ref|, 1));
 4. the fixed-effect path: bench-shaped logistic data made on the card from
    --seed, batch_from_dense -> GLMProblem(TRON, tol 1e-6, 10 iterations,
    L2 1.0).run -> model.score -> auc, with every launch counter at 0 before
@@ -136,20 +139,47 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    (32,768 entities x 16 rows x 256 columns, f32, logistic, L2 1.0, tol
    1e-6, 30 iterations), L-BFGS then TRON, each through the packed and the
    vmapped (entity-leading, per-lane history) solves, timed, held per
-   entity at the packed bounds (coefficients atol 5e-3, loss atol 1e-4);
-   the vmapped solve of the first 4,096 entities alone (and of entity 0
-   alone, and of entities 1,000-1,010) against the same entities within
-   the slice, bit for bit (printed; held at the packed bounds); (c)
+   entity at the packed bounds (coefficients atol 5e-3, loss atol 1e-4),
+   V1's launches counted from 0 over each vmapped solve of the whole slice
+   (both axes must launch); the vmapped solve of the first 4,096 entities
+   alone, of entity 0 alone and of entities 1,000-1,010 against the same
+   entities within the slice, bit for bit (a differing bit fails the
+   phase); V1's call forms over those small stacks against the whole
+   slice through torch.sum and through V1 (the elements whose bits differ
+   printed; V1's must be none); V1 timed at the slice shape beside its
+   bound, torch.sum of the product and torch.bmm; (c)
    compute_variances("FULL"), the Hessian's build included, on 4,096
    random logistic rows at d = 16,384, 32,768 and 65,536, float32 and
    float64: seconds and peak device memory, float32 against float64 at
    rtol 1e-3; the port's MAX_FULL_VARIANCE_DIM must be the largest d
-   measured here, and one column more must raise.
+   measured here, and one column more must raise;
+11. data and model IO (run after phase 10, before phase 9; phase 5 first):
+   (a) the port's Avro writer, in worker processes, writes 200,000 training
+   and 50,000 validation rows (8 + 2 deflate parts, 32 nonzeros a row drawn
+   from 1,023 named features, values N(0, 1), logistic labels from a
+   seeded model; 8,000,000 feature entries) into a temporary directory,
+   timed; (b) read_avro_dataset_chunked over the training parts with the
+   native decoder at 1 and 4 workers, and the Python codec and the native
+   decoder on one part: rows/s each, the parts each engine decoded (the
+   native library must have built and decoded every part), the results
+   bitwise alike (across engines after sorting the entries by row and
+   column); (c) cli.glm.run_models on the card (TRON, STANDARDIZATION,
+   SIMPLE variance, L2 over 0.1|1|10, AUC on the validation parts; the
+   dense 200,000 x 1,024 f32 batch) with every counter at 0 before it:
+   each stage's wall, the launches of B1, B2 and B3 with its shift terms
+   (each must be above 0); each lambda's loss against the same grid
+   through the plain versions on the card (GLMProblem.run(plain=True), the
+   same batch, normalization and warm starts) at rtol 1e-5 and the
+   validation AUC within 1e-4; every saved Avro model reloaded through
+   load_glm bitwise equal to the trained coefficients and variances; (d)
+   phase 5's GLMix model with synthetic index maps through save_game_model
+   and load_game_model: coefficients bitwise, scores on phase 5's batch
+   equal, save and load seconds.
 
     python3 chip_smoke.py --only timing    # card, build, then one phase
 
-runs a subset of phases 3-10 (check, fe, glmix, dp, nccl, solvers, sparse, timing,
-variants) and then reports not ok; "solvers" runs phase 5 first; "nccl" is phase 6 (c) alone after phase 5 (for a
+runs a subset of phases 3-11 (check, fe, glmix, dp, nccl, solvers, io, sparse, timing,
+variants) and then reports not ok; "solvers" and "io" run phase 5 first; "nccl" is phase 6 (c) alone after phase 5 (for a
 machine with several cards: one NCCL rank per card).
 
 The line before the last is {"kernels": [...]}; the last line is
@@ -381,6 +411,9 @@ def check_kernels(torch, n_full, d_full, seed):
         torch.cuda.empty_cache()
     main_errs["rank_order_sum"], parts_bad = check_b4_parts(torch, gen, n_full, d_full, seed)
     bad += parts_bad
+    lane_errs, lane_bad = check_lane_reduce(torch, seed)
+    main_errs.update({f"lane_reduce:{k}": v for k, v in lane_errs.items()})
+    bad += lane_bad
     if bad:
         raise AssertionError(f"kernels disagree with the float64 plain version on {bad}")
     return main_errs
@@ -2423,6 +2456,7 @@ def billion_slice(torch, seed):
     the vmapped solve of the first BILLION_PREFIX entities alone against
     the same entities within the slice, bit for bit."""
     from photon_ml_tpu_torch.game.coordinate import _train_blocks, _train_blocks_packed
+    from photon_ml_tpu_torch.ops import lane_reduce as lr
 
     E, K, S = BILLION_SLICE
     dev = torch.device("cuda")
@@ -2440,14 +2474,21 @@ def billion_slice(torch, seed):
         for fn in (_train_blocks_packed, _train_blocks):  # PyTorch's lazily loaded kernels
             fn(*(a[:64] for a in args), **kw)
         rp, t_p = _timed(torch, lambda: _train_blocks_packed(*args, **kw))
+        lr.reset_launch_counts()
         rv, t_v = _timed(torch, lambda: _train_blocks(*args, **kw))
+        lane_launches = dict(lr.LANE_LAUNCHES)
+        log(f"  (b) {opt} vmapped: V1 launches {lane_launches} (the vmapped walls before V1, NVIDIA H100 80GB "
+            f"HBM3 at 700 W: L-BFGS 0.222-0.262 s, TRON 0.098-0.103 s)")
+        if min(lane_launches.values()) <= 0:
+            problems.append(f"(b) {opt}: the vmapped solve did not launch V1 on both axes: {lane_launches}")
         for name, r, t in (("packed", rp, t_p), ("vmapped", rv, t_v)):
             log(f"  (b) {opt} {name}: wall_s={t:.4f} coefficients_per_s={E * S / t:.1f} syncs={r.syncs} "
                 f"max_iterations={int(r.iterations.max())} "
                 f"reasons={torch.bincount(r.reason.cpu().long(), minlength=6).tolist()}")
         hold(problems, f"(b) {opt} packed vs vmapped coefficients", rp.coefficients, rv.coefficients, 0.0, 5e-3)
         hold(problems, f"(b) {opt} packed vs vmapped loss", rp.loss, rv.loss, 0.0, 1e-4)
-        out[opt] = {"packed_s": t_p, "vmapped_s": t_v, "packed_syncs": rp.syncs, "vmapped_syncs": rv.syncs}
+        out[opt] = {"packed_s": t_p, "vmapped_s": t_v, "packed_syncs": rp.syncs, "vmapped_syncs": rv.syncs,
+                    "lane_launches": lane_launches}
         # the BILLION_PREFIX entities, then smaller stacks: one entity, and
         # eleven from the middle
         for label, rows in ((f"the first {BILLION_PREFIX} entities", slice(0, BILLION_PREFIX)),
@@ -2459,14 +2500,24 @@ def billion_slice(torch, seed):
             log(f"  (b) {opt} vmapped, {label} alone vs within the slice: "
                 f"{'bitwise equal' if n_diff == 0 else f'BITS DIFFER for {n_diff} entities'} (max abs diff "
                 f"coefficients {coef_gap:.3e}, loss {loss_gap:.3e})")
-            if coef_gap > 5e-3 or loss_gap > 1e-4:
-                problems.append(f"(b) {opt}: the vmapped solve of {label} moved beyond the packed bounds")
+            if n_diff:
+                problems.append(f"(b) {opt}: the vmapped solve of {label} alone differs from the slice's in "
+                                f"{n_diff} entities (ROADMAP C7)")
             out[opt].setdefault("alone_bitwise", {})[label] = n_diff == 0
             if rows.start == 0 and rows.stop == BILLION_PREFIX:
                 out[opt].update(prefix_bitwise=n_diff == 0, prefix_entities_differ=n_diff,
                                 prefix_coef_gap=coef_gap, prefix_loss_gap=loss_gap)
             del alone, within
         del rp, rv
+    del args, feats, y
+    torch.cuda.empty_cache()
+    # V1's call forms: where torch.sum's bits depend on the stack and V1's
+    # do not; V1's times at this shape
+    X, w, c, g = lane_inputs(torch, seed, dev)
+    if lane_op_diagnostic(torch, X, w, c, g, (("entity 0", slice(0, 1)), ("entities 1000-1010", slice(1000, 1011)))):
+        problems.append("(b) V1's sums over a small stack differ from the whole slice's")
+    out["lane_times"] = time_lane_reduce(torch, X, w, c, g)
+    del X, w, c, g
     if problems:
         raise AssertionError("; ".join(problems))
     return out
@@ -2689,6 +2740,424 @@ def sum_entry(dp, times, errs):
     }
 
 
+# ------------------------------------- V1: the lane reduction (phases 3, 10)
+
+# V1 replaces no Pallas kernel: the JAX package's vmapped per-entity solve
+# (jax.vmap of solve_one) reduces through XLA
+LANE_REPLACES = "photon_ml_tpu/game/coordinate.py:1108"
+LANE_DESIGN = ("last axis: a warp per output, lane l adding r = l, l+32, ... in order, then a fixed xor butterfly; "
+               "middle axis: a thread per output adding r in order; operands by strides (a broadcast b read in "
+               "place), products and sums in the output type; each output written once, no atomics: the order "
+               "depends on the reduced length alone, never on the number of outputs")
+
+
+def lane_forms(X, w, c, g):
+    """V1's four call forms in the vmapped solve (game/coordinate.py
+    _train_blocks and the LEADING lanes of optimize/), at X's shape: name ->
+    (a, b, dim)."""
+    return {
+        "margins": (X, w[:, None, :], -1),  # [E, K, S] x [E, 1, S] over S
+        "gradient": (X, c[:, :, None], 1),  # [E, K, S] x [E, K, 1] over K
+        "lane_dot": (g, g, -1),  # [E, S] x [E, S] over S
+        "value_sum": (c.double(), None, -1),  # float64 [E, K] over K
+    }
+
+
+def lane_inputs(torch, seed, dev):
+    """The billion-coefficient slice's features X, an iterate w, the
+    logistic loss's derivative c at w's margins for random labels, and the
+    gradient g (the plain version's): the values of a solve's first
+    evaluation."""
+    from photon_ml_tpu_torch.ops import lane_reduce as lr
+    from photon_ml_tpu_torch.ops.losses import LOSSES
+
+    E, K, S = BILLION_SLICE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 17)
+    X = torch.randn((E, K, S), generator=gen, device=dev) * 0.3
+    w = torch.randn((E, S), generator=gen, device=dev) * 0.1
+    y = (torch.rand((E, K), generator=gen, device=dev) < 0.5).float()
+    _, c = LOSSES["logistic"].loss_and_dz(lr.lane_reduce_plain(X, w[:, None, :]), y)
+    return X, w, c, lr.lane_reduce_plain(X, c[:, :, None], 1)
+
+
+def lane_bytes(a, b, dim):
+    """What one V1 call must move: a and b read once (a broadcast b once
+    per distinct element), the output written once."""
+    out = a.numel() // a.shape[dim]
+    nb = 0 if b is None else b.numel() * b.element_size()
+    return a.numel() * a.element_size() + nb + out * (b.element_size() if b is not None else a.element_size())
+
+
+def check_lane_reduce(torch, seed):
+    """V1 against its plain version computed in float64 from the same
+    inputs, at the slice shape for each call form of the vmapped solve:
+    max-abs error <= 3e-5 * max(|ref|, 1); launches of this check are not
+    counted."""
+    from photon_ml_tpu_torch.ops import lane_reduce as lr
+
+    dev = torch.device("cuda")
+    saved = dict(lr.LANE_LAUNCHES)
+    X, w, c, g = lane_inputs(torch, seed, dev)
+    errs, bad = {}, []
+    for name, (a, b, dim) in lane_forms(X, w, c, g).items():
+        got = lr.lane_reduce(a, b, dim)
+        ref = lr.lane_reduce_plain(a.double(), None if b is None else b.double(), dim)
+        err = float((got.double() - ref).abs().max())
+        bound = 3e-5 * max(float(ref.abs().max()), 1.0)
+        errs[name] = err
+        log(f"  check lane_reduce (V1) {name} {tuple(a.shape)} dim {dim} {str(got.dtype)[6:]}: "
+            f"max_abs_err={err:.3e}/{bound:.3e} {'ok' if err <= bound else 'MISS'}")
+        if not err <= bound:
+            bad.append(("lane_reduce", name))
+        del ref
+    lr.LANE_LAUNCHES.update(saved)
+    del X, w, c, g
+    torch.cuda.empty_cache()
+    return errs, bad
+
+
+def lane_op_diagnostic(torch, X, w, c, g, stacks):
+    """The finding behind ROADMAP C7, kept as a check: each call form over a
+    small stack against the same rows of the whole slice, through
+    torch.sum (the plain version) and through V1; elements whose bits
+    differ. V1 must differ nowhere."""
+    from photon_ml_tpu_torch.ops import lane_reduce as lr
+
+    saved = dict(lr.LANE_LAUNCHES)
+    whole = {name: (lr.lane_reduce_plain(*f), lr.lane_reduce(*f)) for name, f in lane_forms(X, w, c, g).items()}
+    v1_differs = 0
+    for label, rows in stacks:
+        part = lane_forms(X[rows], w[rows], c[rows], g[rows])
+        cells = []
+        for name, f in part.items():
+            p_plain, p_v1 = lr.lane_reduce_plain(*f), lr.lane_reduce(*f)
+            n_plain = int((p_plain != whole[name][0][rows]).sum())
+            n_v1 = int((p_v1 != whole[name][1][rows]).sum())
+            v1_differs += n_v1
+            cells.append(f"{name} torch.sum {n_plain}/{p_plain.numel()} V1 {n_v1}")
+        log(f"  (b) {label} alone vs within the slice, elements whose bits differ: " + "; ".join(cells))
+    lr.LANE_LAUNCHES.update(saved)
+    return v1_differs
+
+
+def time_lane_reduce(torch, X, w, c, g):
+    """V1 at the slice shape beside its bound (bytes over 3.35 TB/s, or
+    operations over the float32 peak), its plain version and the one
+    PyTorch call that computes the same function (torch.bmm), CUDA events
+    over 20 calls; for the margins (the main entry) and the gradient."""
+    from photon_ml_tpu_torch.ops import lane_reduce as lr
+
+    saved = dict(lr.LANE_LAUNCHES)
+    forms = lane_forms(X, w, c, g)
+    library = {"margins": lambda: torch.bmm(X, w[:, :, None]), "gradient": lambda: torch.bmm(c[:, None, :], X)}
+    out = {}
+    for name in ("margins", "gradient"):
+        a, b, dim = forms[name]
+        by_bytes = lane_bytes(a, b, dim) / HBM_BYTES_PER_S * 1e3
+        by_ops = 2 * a.numel() / PEAK_OPS["float32"] * 1e3
+        t = {"ms": time_ms(torch, lambda: lr.lane_reduce(a, b, dim), 20),
+             "plain_ms": time_ms(torch, lambda: lr.lane_reduce_plain(a, b, dim), 20),
+             "library_ms": time_ms(torch, library[name], 20),
+             "bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+             "bytes": lane_bytes(a, b, dim)}
+        log(f"  (b) V1 {name} {tuple(a.shape)} dim {dim}: {t['ms']:.4f} ms (plain torch.sum {t['plain_ms']:.4f}, "
+            f"torch.bmm {t['library_ms']:.4f}; bound {t['bound_ms']:.4f} by {t['bound_by']}, "
+            f"{t['bytes'] / 1e6:.1f} MB)")
+        out[name] = t
+    lr.LANE_LAUNCHES.update(saved)
+    return out
+
+
+def lane_entry(errs, solvers):
+    """V1's line of the kernels JSON: launches over phase 10 (b)'s vmapped
+    solves of the whole slice (L-BFGS and TRON, counted from 0 before each),
+    the error from phase 3, times from phase 10 (b)."""
+    bl = (solvers or {}).get("billion") or {}
+    t = (bl.get("lane_times") or {}).get("margins", {})
+    g = (bl.get("lane_times") or {}).get("gradient", {})
+    per_solve = {opt: v.get("lane_launches") for opt, v in bl.items() if isinstance(v, dict) and "lane_launches" in v}
+    return {
+        "name": "lane_reduce", "route": "cuda", "source": "photon_ml_tpu_torch/csrc/lane_reduce.cu",
+        "replaces": LANE_REPLACES, "design": LANE_DESIGN,
+        "launches": sum(sum(v.values()) for v in per_solve.values() if v), "launches_per_solve": per_solve,
+        "max_abs_err": (errs or {}).get("lane_reduce:margins"),
+        "max_abs_err_forms": {k.split(":", 1)[1]: v for k, v in (errs or {}).items() if k.startswith("lane_reduce:")},
+        "ms": t.get("ms"), "plain_ms": t.get("plain_ms"), "bound_ms": t.get("bound_ms"),
+        "bound_by": t.get("bound_by"), "library_ms": t.get("library_ms"), "library": "torch.bmm",
+        "shape": list(BILLION_SLICE), "form": "margins: [E, K, S] x [E, 1, S] over S, float32",
+        "gradient_ms": g.get("ms"), "gradient_plain_ms": g.get("plain_ms"), "gradient_bound_ms": g.get("bound_ms"),
+        "gradient_library_ms": g.get("library_ms"),
+    }
+
+
+# --------------------------------------------------- phase 11: data and model IO
+
+IO_TRAIN = (200_000, 8)  # rows, part files
+IO_VALIDATION = (50_000, 2)
+IO_FEATURES = 1_023  # named features; the reader adds the intercept: d = 1,024
+IO_NNZ = 32  # named features a row
+IO_LAMBDAS = "0.1|1|10"
+
+
+def _io_write_part(path, seed, part, rows):
+    """One part file of phase 11's fixture, written by the port's writer in
+    a worker process: IO_NNZ distinct features of IO_FEATURES a row, values
+    N(0, 1), labels from a logistic model whose weights come from ``seed``
+    (the same in every part) and rows from ``(seed, part)``. Returns the
+    writer's seconds (records built before the clock starts)."""
+    from photon_ml_tpu_torch.io.avro import write_avro_file
+    from photon_ml_tpu_torch.io.schemas import TRAINING_EXAMPLE_AVRO
+
+    w_true = np.random.default_rng(seed).standard_normal(IO_FEATURES + 1) / np.sqrt(IO_NNZ)
+    rng = np.random.default_rng([seed, part])
+    cols = np.argpartition(rng.random((rows, IO_FEATURES)), IO_NNZ, axis=1)[:, :IO_NNZ]
+    vals = rng.standard_normal((rows, IO_NNZ))
+    z = (vals * w_true[cols]).sum(axis=1) + w_true[-1]
+    y = (rng.random(rows) < 1.0 / (1.0 + np.exp(-z))).astype(np.float64)
+    names = [f"f{j}" for j in range(IO_FEATURES)]
+    recs = [
+        {"uid": f"{part}-{i}", "label": float(y[i]),
+         "features": [{"name": names[j], "term": "", "value": v} for j, v in zip(cols[i].tolist(), vals[i].tolist())]}
+        for i in range(rows)
+    ]
+    t0 = time.perf_counter()
+    write_avro_file(path, TRAINING_EXAMPLE_AVRO, recs)
+    return time.perf_counter() - t0
+
+
+def io_write(root, seed):
+    """(a) The fixture's part files, all written at once by worker processes
+    (spawned, joined before this returns): (train dir, validation dir,
+    wall seconds, summed writer seconds)."""
+    import concurrent.futures
+    import multiprocessing
+    import os
+
+    jobs = []
+    for name, (rows, parts), base in (("train", IO_TRAIN, 0), ("validation", IO_VALIDATION, 1000)):
+        os.makedirs(os.path.join(root, name))
+        jobs += [(os.path.join(root, name, f"part-{p:05d}.avro"), seed, base + p, rows // parts) for p in range(parts)]
+    t0 = time.perf_counter()
+    workers = min(len(jobs), os.cpu_count() or 1)
+    with concurrent.futures.ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        writer_s = list(pool.map(_io_write_part, *zip(*jobs)))
+    return os.path.join(root, "train"), os.path.join(root, "validation"), time.perf_counter() - t0, sum(writer_s)
+
+
+def _same_raw(a, b, canonical=False):
+    """Two RawDatasets' equality, bit for bit: labels, offsets, weights,
+    uids, dims and the COO triples (``canonical``: after sorting the entries
+    by row and column, as the two engines order them differently)."""
+    same = a.n_rows == b.n_rows and a.shard_dims == b.shard_dims and list(a.uids) == list(b.uids)
+    for f in ("labels", "offsets", "weights"):
+        same = same and np.array_equal(getattr(a, f), getattr(b, f))
+    for s in a.shard_coo:
+        (ra, ca, va), (rb, cb, vb) = a.shard_coo[s], b.shard_coo[s]
+        if canonical:
+            oa, ob = np.lexsort((ca, ra)), np.lexsort((cb, rb))
+            ra, ca, va, rb, cb, vb = ra[oa], ca[oa], va[oa], rb[ob], cb[ob], vb[ob]
+        same = same and all(np.array_equal(x, y) for x, y in ((ra, rb), (ca, cb), (va, vb)))
+    return bool(same)
+
+
+def io_read(torch, train, problems):
+    """(b) The chunked reader: the native engine at 1 and 4 workers over
+    every part, the Python codec and the native engine on one part; rows/s
+    each, the parts each engine decoded, the results bitwise alike."""
+    import os
+
+    from photon_ml_tpu_torch import native
+    from photon_ml_tpu_torch.io import data as io_data
+
+    shards = {"global": io_data.FeatureShardConfig(("features",))}
+    t0 = time.perf_counter()
+    built = native.available()
+    log(f"  (b) native decoder built: {built} in {time.perf_counter() - t0:.1f}s ({native.library_path()})")
+    if not built or not os.path.exists(native.library_path()):
+        problems.append(f"the native decoder did not build: {native._lib_error}")
+        return None, {}
+    out, reads = {}, {}
+    n_parts = IO_TRAIN[1]
+    for label, path, engine, workers, parts in (
+        ("native, 1 worker", train, "native", 1, n_parts), ("native, 4 workers", train, "native", 4, n_parts),
+        ("python, one part", os.path.join(train, "part-00000.avro"), "python", 1, 1),
+        ("native, one part", os.path.join(train, "part-00000.avro"), "native", 4, 1),
+    ):
+        io_data.reset_decoded_parts()
+        t0 = time.perf_counter()
+        ds, maps = io_data.read_avro_dataset_chunked(path, shards, index_maps=out.get("maps"), engine=engine,
+                                                     workers=workers)
+        secs = time.perf_counter() - t0
+        decoded = dict(io_data.DECODED_PARTS)
+        entries = len(ds.shard_coo["global"][0])
+        log(f"  (b) read {label}: {ds.n_rows} rows, {entries} entries (the intercept included), d="
+            f"{ds.shard_dims['global']} in {secs:.2f} s: {ds.n_rows / secs:.1f} rows/s, "
+            f"{(entries - ds.n_rows) / secs:.1f} feature entries/s; parts decoded {decoded}")
+        if decoded != {"native": parts if engine == "native" else 0, "python": parts if engine == "python" else 0}:
+            problems.append(f"read {label}: the engine that decoded was {decoded}")
+        reads[label] = {"rows": ds.n_rows, "seconds": secs, "rows_per_s": ds.n_rows / secs,
+                        "entries_per_s": (entries - ds.n_rows) / secs, "decoded_parts": decoded}
+        out.setdefault("maps", maps)
+        out[label] = ds
+    same_workers = _same_raw(out["native, 1 worker"], out["native, 4 workers"])
+    same_engines = _same_raw(out["python, one part"], out["native, one part"], canonical=True)
+    log(f"  (b) native at 1 and 4 workers bitwise equal: {same_workers}; python and native on one part bitwise "
+        f"equal (entries sorted by row and column): {same_engines}")
+    if not (same_workers and same_engines):
+        problems.append("the readers disagree across worker counts or engines")
+    if out["native, 1 worker"].n_rows != IO_TRAIN[0] or out["native, 1 worker"].shard_dims["global"] != 1024:
+        problems.append(f"the fixture read back as {out['native, 1 worker'].n_rows} rows, "
+                        f"d={out['native, 1 worker'].shard_dims['global']}")
+    return out["maps"], reads
+
+
+def io_driver(torch, train, validation, out_dir, maps, problems, dev="cuda"):
+    """(c) cli.glm.run_models on the card (the driver's path: read, validate,
+    statistics, normalization, a TRON grid with SIMPLE variance, selection,
+    text and Avro models) with every launch counter at 0 before it; its
+    grid against the same grid through the plain versions on the card;
+    every saved Avro model reloaded through load_glm."""
+    import os
+
+    from photon_ml_tpu_torch.cli import glm
+    from photon_ml_tpu_torch.estimators import train_glm_grid
+    from photon_ml_tpu_torch.evaluation.suite import build_suite
+    from photon_ml_tpu_torch.game import GLMOptimizationConfig
+    from photon_ml_tpu_torch.io import FeatureShardConfig, load_glm, read_avro_dataset
+    from photon_ml_tpu_torch.ops import fused_glm as fg
+    from photon_ml_tpu_torch.ops.normalization import build_normalization
+    from photon_ml_tpu_torch.ops.regularization import RegularizationContext
+    from photon_ml_tpu_torch.optimize import OptimizerConfig, OptimizerType
+    from photon_ml_tpu_torch.utils.stats import compute_feature_statistics
+
+    argv = ["--input-data", train, "--validation-data", validation, "--output-dir", out_dir,
+            "--optimizer", "TRON", "--normalization", "STANDARDIZATION", "--variance-type", "SIMPLE",
+            "--regularization-type", "L2", "--regularization-weights", IO_LAMBDAS, "--evaluators", "AUC",
+            "--log-level", "WARNING", "--device", dev]
+    fg.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary, trained = glm.run_models(argv)
+    wall = time.perf_counter() - t0
+    launches, shifts = dict(fg.LAUNCHES), fg.SHIFT_LAUNCHES["fused_hessian_stats"]
+    routes = dict(fg.OBJECTIVE_ROUTES)
+    log(f"  (c) cli.glm on the card: {wall:.2f} s; stages (s) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in summary["stage_seconds"].items())
+        + f"; launches {launches}, B3 with shifts {shifts}, objective routes {routes}")
+    for m in summary["models"]:
+        log(f"  (c) lambda {m['reg_weight']}: iterations {m['iterations']} reason {m['convergence_reason']} "
+            f"loss {m['loss']:.6f} validation AUC {m['metrics']['AUC']:.6f}")
+    if min(launches["fused_value_grad"], launches["fused_hessian_vector"], shifts) <= 0:
+        problems.append(f"the driver did not launch B1, B2 and B3 with shifts: {launches}, shifts {shifts}")
+
+    # the same grid through the plain versions on the card, on the same batch
+    shards = {"global": FeatureShardConfig(("features",))}
+    raw, _ = read_avro_dataset(train, shards, index_maps=maps)
+    val, _ = read_avro_dataset(validation, shards, index_maps=maps)
+    stats = compute_feature_statistics(raw, "global")
+    batch = raw.to_batch("global", device=dev)
+    norm = build_normalization("STANDARDIZATION", stats["mean"], stats["variance"], stats["max_magnitude"],
+                               intercept_index=maps["global"].intercept_index, dtype=batch.labels.dtype,
+                               device=dev)
+    cfg = GLMOptimizationConfig(optimizer=OptimizerConfig(optimizer_type=OptimizerType.TRON),
+                                regularization=RegularizationContext("L2"), variance_type="SIMPLE")
+    fg.reset_launch_counts()
+    plain = train_glm_grid(batch, "logistic_regression", cfg, [float(w) for w in IO_LAMBDAS.split("|")],
+                           normalization=norm, plain=True)
+    if any(fg.LAUNCHES.values()):
+        problems.append("the plain grid launched a kernel")
+    suite = build_suite(["AUC"], val.labels, val.weights)
+    vbatch = val.to_batch("global", device=dev)
+    held = []
+    for m, t, p in zip(summary["models"], trained, plain):
+        l_k, l_p = float(t.solver_result.loss), float(p.solver_result.loss)
+        a_p = suite.evaluate(p.model.score(vbatch)).primary_metric
+        rel, gap = abs(l_k - l_p) / abs(l_p), abs(m["metrics"]["AUC"] - a_p)
+        ok = rel <= 1e-5 and gap <= 1e-4
+        log(f"  (c) lambda {t.reg_weight}: loss {l_k:.6f} vs plain {l_p:.6f} rel diff {rel:.2e} (rtol 1e-5); "
+            f"AUC {m['metrics']['AUC']:.6f} vs plain {a_p:.6f} diff {gap:.2e} (1e-4) {'ok' if ok else 'MISS'}")
+        if not ok:
+            problems.append(f"lambda {t.reg_weight}: the driver's grid and the plain grid disagree")
+        sub = os.path.join(out_dir, f"lambda-{t.reg_weight}")
+        back = load_glm(os.path.join(sub, "model.avro"), maps["global"], device=dev)
+        same = _same_bits(back.coefficients.means, t.model.coefficients.means) and _same_bits(
+            back.coefficients.variances, t.model.coefficients.variances)
+        held.append(same)
+        if not same:
+            problems.append(f"lambda {t.reg_weight}: the saved model does not reload bitwise")
+    log(f"  (c) every saved model reloads through load_glm bitwise (means and variances, on "
+        f"{back.coefficients.means.device}): {all(held)}")
+    return {"wall_s": wall, "stage_seconds": summary["stage_seconds"], "launches": launches,
+            "shift_launches": shifts, "models": summary["models"]}
+
+
+def io_game_model(torch, state, root, problems):
+    """(d) Phase 5's GLMix model (the fixed effect at d = 1,024 and the
+    per-user random effect) with synthetic index maps, through
+    save_game_model and load_game_model: coefficients bitwise, scores on
+    phase 5's batch equal."""
+    import os
+
+    from photon_ml_tpu_torch.io import IndexMap, load_game_model, save_game_model
+
+    coords, model = state["coords"], state["result"].model
+    fe, re_model = model["global"], model["per-user"]
+    dims = {fe.feature_shard: fe.coefficients.dim, re_model.feature_shard: state["data"][2].shape[1]}
+    maps = {s: IndexMap({f"{s}_f{j}\x01": j for j in range(d)}) for s, d in dims.items()}
+    path = os.path.join(root, "game-model")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_game_model(path, model, maps)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = load_game_model(path, maps)
+    load_s = time.perf_counter() - t0
+    bfe, bre = back["global"], back["per-user"]
+    same_fe = _same_bits(bfe.coefficients.means, fe.coefficients.means) and _same_bits(
+        bfe.coefficients.variances, fe.coefficients.variances)
+    same_re = (list(map(str, bre.entity_ids)) == list(map(str, re_model.entity_ids))
+               and _same_bits(bre.coef_indices, re_model.coef_indices)
+               and _same_bits(bre.coef_values, re_model.coef_values)
+               and _same_bits(bre.variances, re_model.variances))
+    scores = {name: (coords[name].score(model[name]), coords[name].score(back[name])) for name in coords}
+    same_scores = all(torch.equal(a, b) for a, b in scores.values())
+    n_coef = fe.coefficients.dim + int((re_model.coef_indices >= 0).sum())
+    log(f"  (d) GLMix model ({fe.coefficients.dim} fixed-effect coefficients, {re_model.num_entities} entities x "
+        f"{re_model.coef_indices.shape[1]}, {n_coef} coefficients in all): save {save_s:.2f} s, load "
+        f"{load_s:.2f} s (onto {bfe.coefficients.means.device}); fixed effect bitwise {same_fe}, random effect "
+        f"bitwise {same_re}, scores on phase 5's batch equal {same_scores}")
+    if not (same_fe and same_re and same_scores):
+        problems.append("the GLMix model did not round-trip bitwise")
+    return {"save_s": save_s, "load_s": load_s, "coefficients": n_coef}
+
+
+def io_phase(torch, state, seed, smi):
+    """Phase 11: write the fixture with the port's writer, read it back,
+    run the legacy GLM driver on the card and round-trip phase 5's GLMix
+    model. The temporary directory is removed at the end."""
+    import tempfile
+
+    problems, out = [], {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_io_") as root:
+        train, validation, wall, writer_s = io_write(root, seed)
+        entries = (IO_TRAIN[0] + IO_VALIDATION[0]) * IO_NNZ
+        rows = IO_TRAIN[0] + IO_VALIDATION[0]
+        log(f"  (a) wrote {rows} rows ({entries} feature entries) into {IO_TRAIN[1]} + {IO_VALIDATION[1]} deflate "
+            f"parts in {wall:.2f} s by worker processes: {rows / wall:.1f} rows/s, {entries / wall:.1f} entries/s "
+            f"(the writers' own seconds summed: {writer_s:.2f}, {entries / writer_s:.1f} entries/s a process)")
+        out["write"] = {"wall_s": wall, "writer_s": writer_s, "rows_per_s": rows / wall,
+                        "entries_per_s": entries / wall}
+        maps, out["read"] = io_read(torch, train, problems)
+        if maps is not None:
+            out["driver"] = io_driver(torch, train, validation, f"{root}/glm-out", maps, problems)
+        torch.cuda.empty_cache()
+        out["game_model"] = io_game_model(torch, state, root, problems)
+    log(f"  on {smi}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=500_000)
@@ -2697,7 +3166,7 @@ def main() -> int:
     ap.add_argument("--d-re", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default="",
-                    help="comma-separated subset of check,fe,glmix,dp,nccl,solvers,sparse,timing,variants to run after "
+                    help="comma-separated subset of check,fe,glmix,dp,nccl,solvers,io,sparse,timing,variants to run after "
                          "card and build (for iterating on one phase; the result is then not ok)")
     args = ap.parse_args()
     only = set(filter(None, args.only.split(",")))
@@ -2717,12 +3186,12 @@ def main() -> int:
     phases = Phases()
     smi = phases.run("card", card, torch)
     phases.run("build", build)
-    errs = fe_launches = glmix = dp = times = solvers = None
+    errs = fe_launches = glmix = dp = times = solvers = io = None
     if want("check"):
         errs = phases.run("kernels vs float64 plain", check_kernels, torch, args.n, args.d, args.seed)
     if want("fe"):
         fe_launches = phases.run("fixed-effect path", fe_path, torch, args.n, args.d, args.seed)
-    if want("glmix") or want("dp") or want("nccl") or want("solvers"):
+    if want("glmix") or want("dp") or want("nccl") or want("solvers") or want("io"):
         glmix = phases.run(
             "GLMix sweep (main path)", glmix_path, torch, args.n, args.d, args.users, args.d_re, args.seed
         )
@@ -2744,6 +3213,14 @@ def main() -> int:
     else:
         torch.cuda.empty_cache()
         solvers = phases.run("solvers", solvers_phase, torch, state, args.seed, smi)
+    torch.cuda.empty_cache()
+    if not want("io"):
+        pass
+    elif state is None:
+        log("== phase: data and model IO needs the one-card sweep's results")
+        phases.failed.append("data and model IO")
+    else:
+        io = phases.run("data and model IO", io_phase, torch, state, args.seed, smi)
     del state
     torch.cuda.empty_cache()
     sp = None
@@ -2799,6 +3276,9 @@ def main() -> int:
             "launches": launches.get(name, 0),
             "launches_fixed_effect_path": (fe_launches or {}).get(name, 0),
             "launches_full_variance_sweep": ((solvers or {}).get("sweep") or {}).get("launches", {}).get(name, 0),
+            "launches_glm_driver": ((io or {}).get("driver") or {}).get("launches", {}).get(name, 0),
+            "launches_glm_driver_with_shifts": ((io or {}).get("driver") or {}).get("shift_launches", 0)
+            if name == "fused_hessian_stats" else None,
             "launches_data_parallel_per_rank": [
                 r[name] for r in ((dp or {}).get("sweep") or {}).get("launches", [])
             ],
@@ -2814,6 +3294,7 @@ def main() -> int:
             **{f"bf16_{k}": t16.get(k) for k in ("ms", "prev_ms", "finalize_ms", "read_x_ms", "bound_ms")},
         })
     kernels += sparse_entries(sp, times)
+    kernels.append(lane_entry(errs, solvers))
     if sp:
         path, sg = sp["path"], sp["glmix"]
         log(f"sparse fixed effect (n={SPARSE_N}, d={SPARSE_D}, k={SPARSE_K}, L-BFGS at most {SPARSE_ITERS} "
@@ -2828,11 +3309,18 @@ def main() -> int:
             f"{sw['wall_s']:.4f} s, FE share {sw['fe_share']:.3f}, RE share {sw['re_share']:.3f}; RE syncs per "
             f"bucket TRON {sw['re_syncs_per_bucket']:.1f}, L-BFGS {sw['lbfgs_re_syncs_per_bucket']:.1f}); FULL at "
             f"d={args.d}: Hessian {sw['hessian_s']:.4f} s, inverse {sw['inverse_s']:.4f} s; billion slice "
-            + "; ".join(f"{o} packed {v['packed_s']:.3f} s vmapped {v['vmapped_s']:.3f} s prefix "
-                        f"{'bitwise' if v['prefix_bitwise'] else 'differs'}" for o, v in bl.items())
+            + "; ".join(f"{o} packed {bl[o]['packed_s']:.3f} s vmapped {bl[o]['vmapped_s']:.3f} s prefix "
+                        f"{'bitwise' if bl[o]['prefix_bitwise'] else 'differs'}" for o in ("LBFGS", "TRON"))
             + "; compute_variances FULL " + ", ".join(
                 f"d={v['d']} {v['dtype']} {v['seconds']:.3f} s, {v['call_peak_gib']:.2f} GiB above what was held"
                 for v in ce.values()) + f" on {smi}")
+    if io:
+        rd, dr, gm = io["read"], io.get("driver") or {}, io["game_model"]
+        log(f"data and model IO: write {io['write']['rows_per_s']:.1f} rows/s; read "
+            + ", ".join(f"{k} {v['rows_per_s']:.1f} rows/s" for k, v in rd.items())
+            + f"; cli.glm {dr.get('wall_s', float('nan')):.2f} s (stages "
+            + ", ".join(f"{k} {v:.3f}" for k, v in (dr.get("stage_seconds") or {}).items())
+            + f"); GLMix model save {gm['save_s']:.2f} s, load {gm['load_s']:.2f} s on {smi}")
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))
     ok = not phases.failed

@@ -8,8 +8,10 @@ L-BFGS, OWL-QN or L-BFGS-B), scoring and AUC, and the GLMix
 coordinate-descent sweep (``game``), on one card or, with dense features,
 data-parallel over ``torch.distributed`` ranks (``parallel``), with the
 dense value+gradient, Hessian-vector and Hessian-statistics sweeps
-(``csrc/fused_glm.cu``) and the sparse products (``csrc/sparse_glm.cu``)
-as hand-written CUDA kernels.
+(``csrc/fused_glm.cu``), the sparse products (``csrc/sparse_glm.cu``) and
+the vmapped random-effect solve's lane reduction (``csrc/lane_reduce.cu``)
+as hand-written CUDA kernels; and the data and model IO (``io``, the
+native Avro decoder ``native``) with the legacy GLM driver (``cli.glm``).
 """
 
 __version__ = "0.1.0"

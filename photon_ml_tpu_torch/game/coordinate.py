@@ -51,6 +51,7 @@ from ..models.game import (
     ell_row_subspace,
     score_entity_rows_dense,
 )
+from ..ops.lane_reduce import lane_reduce
 from ..ops.losses import get_loss
 from ..ops.normalization import NormalizationContext
 from ..optimize import OptimizerType, SolverResult, SyncCounter, solve_lbfgs, solve_tron
@@ -548,7 +549,9 @@ def _train_blocks(
     a trailing axis, one lockstep solve in which each lane keeps its own
     L-BFGS history cursor and line search, or its own TRON radius and CG
     state (``entity_leading=True`` of the solvers). No operation mixes
-    lanes, each lane's sums run in the same order whatever E is, and the
+    lanes, each lane's sums run in the same order whatever E is (every
+    reduction is the lane reduction, ``ops/lane_reduce.py``: V1 on the
+    card, whose order depends on the reduced length alone), and the
     loss's elementwise functions take the same path for every element
     (``_lane_pointwise``), so an entity's result does not depend on the
     other entities of its stack. Each entity's objective value sums in
@@ -561,20 +564,18 @@ def _train_blocks(
     pm, pp = prior_mean, prior_prec
 
     def margins(w):  # [E, S] -> [E, K]
-        return torch.sum(X * w[:, None, :], dim=-1) + off
+        return lane_reduce(X, w[:, None, :]) + off
 
     def value_and_grad(w):  # [E, S] -> ([E] float64, [E, S])
         lvals, dz = _lane_pointwise(loss.loss_and_dz, margins(w), y)
-        grad = torch.sum(X * (wt * dz)[:, :, None], dim=1)
+        grad = lane_reduce(X, (wt * dz)[:, :, None], dim=1)
         delta = w - pm
-        value = torch.sum((wt * lvals).double(), dim=-1) + 0.5 * l2 * torch.sum(
-            (pp * delta * delta).double(), dim=-1
-        )
+        value = lane_reduce((wt * lvals).double()) + 0.5 * l2 * lane_reduce((pp * delta * delta).double())
         return value, grad + l2 * pp * delta
 
     def hessian_vector(w, v):  # the margins recomputed, as the JAX package does
-        c = wt * _lane_pointwise(loss.d2z, margins(w), y) * torch.sum(X * v[:, None, :], dim=-1)
-        return torch.sum(X * c[:, :, None], dim=1) + l2 * pp * v
+        c = wt * _lane_pointwise(loss.d2z, margins(w), y) * lane_reduce(X, v[:, None, :])
+        return lane_reduce(X, c[:, :, None], dim=1) + l2 * pp * v
 
     res = _solve_blocks(
         value_and_grad, hessian_vector, w0, entity_leading=True, l1=l1,

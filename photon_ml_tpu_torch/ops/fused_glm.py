@@ -38,7 +38,8 @@ bf16 value is exact (the TPU kernel rounds it to bf16 for its bf16 dot).
 ``LAUNCHES`` counts the kernel launches of each wrapper, and
 ``SHARDED_LAUNCHES`` those of the ``sharded_*`` wrappers over a group (one
 per call whose rank launched its kernel); ``SUM_LAUNCHES`` those of the
-rank-order sum kernel; ``OBJECTIVE_ROUTES`` the route each solve took
+rank-order sum kernel; ``SHIFT_LAUNCHES`` B3's launches with the
+normalization shift terms; ``OBJECTIVE_ROUTES`` the route each solve took
 (``game/problem.py``); ``ROUTES`` counts the same
 launches by the body that ran them: the ring body with its tiles by bulk
 copy (``ring_bulk_copy``) or by plain loads (``ring_plain_loads``, rows not
@@ -58,7 +59,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from . import cuda_lib, sparse
+from . import cuda_lib, lane_reduce, sparse
 from .losses import PointwiseLoss
 
 Tensor = torch.Tensor
@@ -66,6 +67,9 @@ Tensor = torch.Tensor
 LAUNCHES = {"fused_value_grad": 0, "fused_hessian_vector": 0, "fused_hessian_stats": 0}
 SHARDED_LAUNCHES = {"sharded_value_grad": 0, "sharded_hessian_vector": 0, "sharded_hessian_stats": 0}
 SUM_LAUNCHES = {"rank_order_sum": 0}
+# B3's launches with the normalization shift terms (a part of LAUNCHES'
+# fused_hessian_stats)
+SHIFT_LAUNCHES = {"fused_hessian_stats": 0}
 ROUTES = {"ring_bulk_copy": 0, "ring_plain_loads": 0, "staged": 0}
 # the objective route of each solve (game/problem.py ``_fusion_mode``)
 OBJECTIVE_ROUTES = {"dense_kernel": 0, "sparse_kernel": 0, "plain_cpu": 0, "plain_float64": 0}
@@ -82,12 +86,14 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launch_counts() -> None:
-    """Zero every counter: these, the objective routes and the segment
-    kernel's ``sparse.SPARSE_LAUNCHES``."""
-    for counts in (LAUNCHES, SHARDED_LAUNCHES, SUM_LAUNCHES, ROUTES, OBJECTIVE_ROUTES):
+    """Zero every counter: these, the objective routes, the segment
+    kernel's ``sparse.SPARSE_LAUNCHES`` and the lane reduction's
+    ``lane_reduce.LANE_LAUNCHES``."""
+    for counts in (LAUNCHES, SHARDED_LAUNCHES, SUM_LAUNCHES, SHIFT_LAUNCHES, ROUTES, OBJECTIVE_ROUTES):
         for k in counts:
             counts[k] = 0
     sparse.reset_launch_counts()
+    lane_reduce.reset_launch_counts()
 
 
 def _round_like_x(v: Tensor, x_dtype: torch.dtype) -> Tensor:
@@ -410,6 +416,7 @@ def fused_hessian_stats(
     mode = HD_SHIFTS if need_shifts else HD
     out = _launch(mode, x, eff_coef, None, labels, offsets, weights, None, loss)
     LAUNCHES["fused_hessian_stats"] += 1
+    SHIFT_LAUNCHES["fused_hessian_stats"] += int(need_shifts)
     return _split(mode, x.shape[1], out)
 
 
@@ -481,6 +488,7 @@ def _sharded(group, name: str, mode: int, plain: bool, x: Tensor, coef, v, label
         _require_cuda(x)
         _launch(mode, x, coef, v, labels, offsets, weights, vshift, loss, slot=slots[group.rank])
         LAUNCHES[_KERNEL_NAMES[mode]] += 1
+        SHIFT_LAUNCHES["fused_hessian_stats"] += int(mode == HD_SHIFTS)
         dtype = torch.float32
     else:
         outs = _plain(mode, x, coef, v, labels, offsets, weights, vshift, loss)

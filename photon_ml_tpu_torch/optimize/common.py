@@ -27,6 +27,8 @@ from typing import Callable, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..ops.lane_reduce import lane_reduce
+
 Tensor = torch.Tensor
 
 # Callable w -> (value, gradient)
@@ -126,20 +128,26 @@ class Lanes:
     per-lane reductions are axis-0 sums and a per-lane ``[E]`` value
     broadcasts against the stack as it is. ``LEADING`` (entity-leading, the
     JAX package's vmapped per-entity solve): ``[E, S]``, reductions run over
-    the last axis and a per-lane value spreads as ``[E, 1]``. On the CPU a
-    last-axis sum adds each row in the same order whatever the number of
-    rows, so a lane's bits do not depend on the other lanes of its stack."""
+    the last axis and a per-lane value spreads as ``[E, 1]``. Its
+    reductions are the lane reduction (``ops/lane_reduce.py``: V1 on the
+    card; on the CPU a last-axis ``torch.sum``, which adds each row in the
+    same order whatever the number of rows), so a lane's bits do not depend
+    on the other lanes of its stack."""
 
     def __init__(self, axis: int) -> None:
         self.axis = axis
 
     def dot(self, a: Tensor, b: Tensor) -> Tensor:
+        if self.axis == -1:
+            return lane_reduce(a, b)
         return torch.sum(a * b, dim=self.axis)
 
     def norm(self, v: Tensor) -> Tensor:
         return torch.sqrt(self.dot(v, v))
 
     def sum(self, a: Tensor) -> Tensor:
+        if self.axis == -1:
+            return lane_reduce(a)
         return torch.sum(a, dim=self.axis)
 
     def spread(self, x: Tensor) -> Tensor:

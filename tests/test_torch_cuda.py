@@ -855,19 +855,95 @@ def test_down_sampling_draws_on_the_card(cuda):
     assert torch.equal(got.weights.cpu(), want.weights)
 
 
-@pytest.mark.parametrize("opt", ["LBFGS", "TRON"])
-def test_vmapped_entities_on_card_do_not_depend_on_their_bucket(cuda, opt):
-    """The vmapped solve on the card: an entity solved alone, among eleven
-    others or among 512 ends with the bits it has among all 3,000. (At the
-    billion-coefficient slice's shape, 32,768 x 16 x 256, a stack of one or
-    eleven entities does not: ROADMAP C7.)"""
-    from photon_ml_tpu_torch.game.coordinate import _train_blocks
+# (E, K, S) of the whole stack and the stacks solved alone: a small shape,
+# and the billion-coefficient slice's (ROADMAP C7: before the lane reduction
+# V1, a stack of one or eleven entities summed in another order there)
+BUCKET_SHAPES = [((3000, 12, 9), (slice(7, 8), slice(1000, 1011), slice(0, 512))),
+                 ((32768, 16, 256), (slice(0, 1), slice(1000, 1011)))]
 
-    args = _re_blocks(cuda, torch.float32, seed=3, E=3000)
+
+@pytest.mark.parametrize("shape,stacks", BUCKET_SHAPES, ids=["3000x12x9", "32768x16x256"])
+@pytest.mark.parametrize("opt", ["LBFGS", "TRON"])
+def test_vmapped_entities_on_card_do_not_depend_on_their_bucket(cuda, opt, shape, stacks):
+    """The vmapped solve on the card: an entity solved alone, or in a small
+    stack, ends with the bits it has within the whole stack; its sums are
+    V1's, whose order depends on the reduced length alone."""
+    from photon_ml_tpu_torch.game.coordinate import _train_blocks
+    from photon_ml_tpu_torch.ops import lane_reduce
+
+    E, K, S = shape
+    args = _re_blocks(cuda, torch.float32, seed=3, E=E, K=K, S=S)
     kw = dict(task="logistic_regression", l2=0.1, l1=0.0, optimizer_type=opt, tolerance=1e-7, max_iterations=80,
               num_corrections=10, max_cg_iterations=20, max_improvement_failures=5)
     whole = _train_blocks(*args, **kw)
-    for rows in (slice(7, 8), slice(1000, 1011), slice(0, 512)):
+    assert min(lane_reduce.LANE_LAUNCHES.values()) > 0
+    for rows in stacks:
         part = _train_blocks(*(a[rows] for a in args), **kw)
         for name in ("coefficients", "loss", "iterations", "reason"):
             assert torch.equal(getattr(part, name), getattr(whole, name)[rows]), (rows, name)
+
+
+@pytest.mark.parametrize("length", [1, 9, 16, 256, 257])
+@pytest.mark.parametrize("axis", ["last", "middle", "lanes"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+def test_lane_reduce_matches_its_plain_version(cuda, length, axis, dtype):
+    """V1 against ``torch.sum`` of the product in float64 from the same
+    rounded inputs (max-abs error <= 3e-5 * max(|ref|, 1)), with a broadcast
+    ``b`` and without one; one launch each; the same bits twice and within
+    a larger stack."""
+    from photon_ml_tpu_torch.ops import lane_reduce as lr
+
+    g = torch.Generator(device=cuda)
+    g.manual_seed(length)
+    shapes = {"last": ((37, 5, length), (37, 1, length), -1), "middle": ((37, length, 5), (37, length, 1), 1),
+              "lanes": ((37, length), (37, length), -1)}
+    a_shape, b_shape, dim = shapes[axis]
+    a = torch.randn(a_shape, generator=g, device=cuda).to(dtype)
+    b = torch.randn(b_shape, generator=g, device=cuda).to(torch.float32 if dtype == torch.bfloat16 else dtype)
+    lr.reset_launch_counts()
+    got = lr.lane_reduce(a, b, dim)
+    assert lr.LANE_LAUNCHES == {"last": int(dim == -1), "middle": int(dim == 1)}
+    assert got.dtype == b.dtype and got.shape == lr.lane_reduce_plain(a, b, dim).shape
+    _assert_vec(got, lr.lane_reduce_plain(a.double(), b.double(), dim), f"V1 {axis} {length}")
+    assert torch.equal(got, lr.lane_reduce(a, b, dim))
+    assert torch.equal(got[3:4], lr.lane_reduce(a[3:4], b[3:4], dim))
+    if dtype != torch.bfloat16:
+        _assert_vec(lr.lane_reduce(a, None, dim), lr.lane_reduce_plain(a.double(), None, dim), f"V1 {axis} sum")
+    else:
+        with pytest.raises(TypeError):
+            lr.lane_reduce(a, None, dim)
+
+
+def test_glm_driver_on_card_runs_b3_with_shifts(cuda, tmp_path):
+    """A small legacy-driver run on the card (STANDARDIZATION + SIMPLE): B1,
+    B2 and B3 with its shift terms launch, and each saved model reloads onto
+    the card bitwise."""
+    import numpy as np
+
+    from photon_ml_tpu_torch.cli import glm
+    from photon_ml_tpu_torch.io import FeatureShardConfig, load_glm, read_avro_dataset, write_avro_file
+    from photon_ml_tpu_torch.io.schemas import TRAINING_EXAMPLE_AVRO
+    from photon_ml_tpu_torch.testing import generate_glm_data
+
+    x, y, _ = generate_glm_data(n=600, d=9, seed=2, noise=1.0)
+    x = x[:, :8] * np.linspace(0.5, 4, 8) + np.linspace(-1, 3, 8)
+    recs = [{"label": float(y[i]), "features": [{"name": f"f{j}", "term": "", "value": float(x[i, j])}
+                                                for j in range(8)]} for i in range(600)]
+    train, val = str(tmp_path / "train.avro"), str(tmp_path / "val.avro")
+    write_avro_file(train, TRAINING_EXAMPLE_AVRO, recs[:450])
+    write_avro_file(val, TRAINING_EXAMPLE_AVRO, recs[450:])
+    out = str(tmp_path / "out")
+    fg.reset_launch_counts()
+    summary = glm.run(["--input-data", train, "--validation-data", val, "--output-dir", out, "--optimizer", "TRON",
+                       "--normalization", "STANDARDIZATION", "--variance-type", "SIMPLE",
+                       "--regularization-weights", "0.1|1|10", "--evaluators", "AUC", "--log-level", "WARNING"])
+    assert summary["stage"] == "VALIDATED"
+    assert min(fg.LAUNCHES.values()) > 0 and fg.SHIFT_LAUNCHES["fused_hessian_stats"] > 0
+    _, imaps = read_avro_dataset(train, {"global": FeatureShardConfig(("features",))})
+    for m in summary["models"]:
+        sub = f"{out}/lambda-{m['reg_weight']}"
+        back = load_glm(f"{sub}/model.avro", imaps["global"])
+        assert back.coefficients.means.device.type == "cuda" and back.coefficients.variances is not None
+        with open(f"{sub}/model.txt") as f:
+            text = np.asarray([np.float32(line.split("\t")[1]) for line in f.read().strip().split("\n")])
+        assert np.array_equal(back.coefficients.means.cpu().numpy(), text)

@@ -33,7 +33,14 @@ import photon_ml_tpu_torch.game.coordinate, photon_ml_tpu_torch.game.data
 import photon_ml_tpu_torch.game.descent, photon_ml_tpu_torch.models.game
 import photon_ml_tpu_torch.io.data, photon_ml_tpu_torch.evaluation.suite
 import photon_ml_tpu_torch.parallel, photon_ml_tpu_torch.parallel.mesh
-import photon_ml_tpu_torch.parallel.multihost
+import photon_ml_tpu_torch.parallel.multihost, photon_ml_tpu_torch.ops.lane_reduce
+import photon_ml_tpu_torch.io.avro, photon_ml_tpu_torch.io.index_map, photon_ml_tpu_torch.io.model_io
+import photon_ml_tpu_torch.io.validators, photon_ml_tpu_torch.io.columns, photon_ml_tpu_torch.io.schemas
+import photon_ml_tpu_torch.native, photon_ml_tpu_torch.robust.atomic, photon_ml_tpu_torch.robust.retry
+import photon_ml_tpu_torch.utils.futures, photon_ml_tpu_torch.utils.dates, photon_ml_tpu_torch.utils.logging
+import photon_ml_tpu_torch.utils.stats, photon_ml_tpu_torch.testing.generators
+import photon_ml_tpu_torch.estimators.model_training, photon_ml_tpu_torch.cli.params
+import photon_ml_tpu_torch.cli.glm, photon_ml_tpu_torch.cli.index
 sys.path.insert(0, "tests")
 import test_torch_parallel_ranks
 bad = sorted(
