@@ -174,13 +174,35 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    load_glm bitwise equal to the trained coefficients and variances; (d)
    phase 5's GLMix model with synthetic index maps through save_game_model
    and load_game_model: coefficients bitwise, scores on phase 5's batch
-   equal, save and load seconds.
+   equal, save and load seconds;
+12. the GAME driver (run after phase 11; phase 5 first): (a) worker
+   processes write phase 11's fixture with a userId over 20,000 users drawn
+   Zipf(1.1) (build_data's assignment) in metadataMap and the user's 31
+   named features in a userFeatures bag (d_re = 32 with the intercept),
+   logistic labels from both effects; (b) cli.train.run on the card
+   (global: TRON tol 1e-6, 10 iterations, L2 1.0, SIMPLE variance,
+   STANDARDIZATION; per-user: L-BFGS tol 1e-6, 30 iterations, L2 1.0,
+   active cap 256; 2 sweeps; AUC on the validation parts; a boundary
+   checkpoint every update) with every counter at 0 before it: the stage
+   walls, the launches (B1, B2, B3 with shifts and S1's ELL matvec each
+   above 0), the checkpoints' count, bytes and seconds from the run's
+   registry, the validation AUC; then the same fit in process, its best
+   model bitwise the driver's saved one, and through the plain versions on
+   the card: FE coefficients and variances rtol 1e-3 / atol 1e-5, the
+   second sweep's RE on identical residuals (coefficients atol 5e-3, loss
+   atol 1e-4), AUC within 1e-4; (c) the run killed at cd.boundary_saved
+   after the first sweep's second boundary and resumed: the saved models
+   bitwise (b)'s; (d) cli.score.run on the validation parts with (b)'s best
+   model: bitwise GameTransformer's, rtol 1e-5 of the plain route, AUC
+   within 1e-4 of (b)'s, one S1 launch, rows/s; (e) a
+   coordinate.scores:nan:1 run: the poisoned update rejected, the models
+   finite, photon_coordinate_rejections_total above 0.
 
     python3 chip_smoke.py --only timing    # card, build, then one phase
 
-runs a subset of phases 3-11 (check, fe, glmix, dp, nccl, solvers, io, sparse, timing,
-variants) and then reports not ok; "solvers" and "io" run phase 5 first; "nccl" is phase 6 (c) alone after phase 5 (for a
-machine with several cards: one NCCL rank per card).
+runs a subset of phases 3-12 (check, fe, glmix, dp, nccl, solvers, io, game, sparse, timing,
+variants) and then reports not ok; "solvers", "io" and "game" run phase 5 first; "nccl" is phase 6 (c) alone after
+phase 5 (for a machine with several cards: one NCCL rank per card).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -2594,22 +2616,27 @@ def solvers_phase(torch, state, seed, smi):
     return out
 
 
-def sparse_entries(sp, times):
+def sparse_entries(sp, times, game=None):
     """The segment kernel's lines of the kernels JSON, one per product:
-    ``launches`` over the sparse phase's main paths (the (b) kernel solves
-    and the (c) timed sweeps, each counted from 0), ``max_abs_err`` from
-    (a) at the sparse shape in f32, times from phase 7."""
+    ``launches`` over the main paths that run it (the sparse phase's (b)
+    kernel solves and (c) timed sweeps, phase 12's driver run (b) and
+    cli.score (d), each counted from 0), ``max_abs_err`` from (a) at the
+    sparse shape in f32, times from phase 7."""
     sp = sp or {}
     path = (sp.get("path") or {}).get("launches", {})
     glmix = (sp.get("glmix") or {}).get("launches", {})
+    game = game or {}
     entries = []
     for name in SPARSE_PRODUCTS:
         t = (times or {}).get("sparse", {}).get(name, {})
+        driver = (game.get("train") or {}).get("s1_launches", 0) if name == "ell_matvec" else 0
+        scorer = (game.get("score") or {}).get("s1_launches", 0) if name == "ell_matvec" else 0
         entries.append({
             "name": f"segment_dot:{name}", "route": "cuda", "source": "photon_ml_tpu_torch/csrc/sparse_glm.cu",
             "replaces": SPARSE_REPLACES[name.split("_", 1)[1]],
-            "launches": path.get(name, 0) + glmix.get(name, 0),
+            "launches": path.get(name, 0) + glmix.get(name, 0) + driver + scorer,
             "launches_sparse_solves": path.get(name, 0), "launches_sparse_glmix": glmix.get(name, 0),
+            "launches_game_driver": driver, "launches_game_score": scorer,
             "max_abs_err": (sp.get("errors") or {}).get(name),
             "ms": t.get("ms"), "prev_ms": t.get("prev_ms"), "graph_ms": t.get("graph_ms"),
             "prev_graph_ms": t.get("prev_graph_ms"), "plain_ms": t.get("plain_ms"), "bound_ms": t.get("bound_ms"),
@@ -3158,6 +3185,367 @@ def io_phase(torch, state, seed, smi):
     return out
 
 
+# ---------------------------------------------------------- phase 12: the GAME driver
+#
+# The GAME driver from Avro to saved models on the card, then batch
+# scoring: phase 11's global bag (cut from bench.py's 500,000 rows to
+# 200,000 for the script's time) with build_data's Zipf(1.1) users, each row
+# carrying its user's userFeatures bag.
+
+GAME_USERS = 20_000  # bench.py's users
+GAME_RE_FEATURES = 31  # named per-user features; the reader adds the intercept: d_re = 32
+GAME_FE = ("name=global,shard=global,optimizer=TRON,tolerance=1e-6,max.iter=10,reg.type=L2,reg.weights=1,"
+           "variance=SIMPLE")
+GAME_RE = ("name=per-user,shard=userShard,re.type=userId,optimizer=LBFGS,tolerance=1e-6,max.iter=30,"
+           "reg.type=L2,reg.weights=1,active.cap=256")
+GAME_KILL_AT = 2  # cd.boundary_saved: after the first sweep's second boundary
+
+
+def _game_write_part(path, seed, part, rows):
+    """One part file of phase 12's fixture, written by the port's writer in
+    a worker process: phase 11's global bag (IO_NNZ of IO_FEATURES named
+    features a row, N(0, 1)), a userId drawn Zipf(1.1) over GAME_USERS users
+    (build_data's assignment) in metadataMap, the user's GAME_RE_FEATURES
+    named features N(0, 1) in userFeatures, and logistic labels from both
+    effects. The models come from ``seed`` (the same in every part), the
+    rows from ``(seed, part)``. Returns the writer's seconds."""
+    from photon_ml_tpu_torch.io.avro import write_avro_file
+    from photon_ml_tpu_torch.io.schemas import TRAINING_EXAMPLE_AVRO
+
+    model = np.random.default_rng(seed)
+    w_fe = model.standard_normal(IO_FEATURES + 1) / np.sqrt(IO_NNZ)
+    w_re = model.standard_normal((GAME_USERS, GAME_RE_FEATURES + 1)) / np.sqrt(GAME_RE_FEATURES + 1)
+    rng = np.random.default_rng([seed, part])
+    cols = np.argpartition(rng.random((rows, IO_FEATURES)), IO_NNZ, axis=1)[:, :IO_NNZ]
+    vals = rng.standard_normal((rows, IO_NNZ))
+    probs = 1.0 / np.arange(1, GAME_USERS + 1) ** 1.1
+    users = rng.choice(GAME_USERS, size=rows, p=probs / probs.sum())
+    ex = rng.standard_normal((rows, GAME_RE_FEATURES))
+    z = (vals * w_fe[cols]).sum(axis=1) + w_fe[-1] + (ex * w_re[users, :-1]).sum(axis=1) + w_re[users, -1]
+    y = (rng.random(rows) < 1.0 / (1.0 + np.exp(-z))).astype(np.float64)
+    names = [f"f{j}" for j in range(IO_FEATURES)]
+    unames = [f"u{j}" for j in range(GAME_RE_FEATURES)]
+    recs = [
+        {"uid": f"{part}-{i}", "label": float(y[i]), "metadataMap": {"userId": f"u{users[i]}"},
+         "features": [{"name": names[j], "term": "", "value": v} for j, v in zip(cols[i].tolist(), vals[i].tolist())],
+         "userFeatures": [{"name": unames[j], "term": "", "value": v} for j, v in enumerate(ex[i].tolist())]}
+        for i in range(rows)
+    ]
+    schema = {**TRAINING_EXAMPLE_AVRO, "fields": TRAINING_EXAMPLE_AVRO["fields"] + [
+        {"name": "userFeatures", "type": {"type": "array", "items": "FeatureAvro"}, "default": []}]}
+    t0 = time.perf_counter()
+    write_avro_file(path, schema, recs)
+    return time.perf_counter() - t0
+
+
+def game_write(root, seed):
+    """(a) The fixture's part files, all written at once by worker processes
+    (spawned, joined before this returns): (train dir, validation dir, wall
+    seconds, summed writer seconds)."""
+    import concurrent.futures
+    import multiprocessing
+    import os
+
+    jobs = []
+    for name, (rows, parts), base in (("train", IO_TRAIN, 0), ("validation", IO_VALIDATION, 1000)):
+        os.makedirs(os.path.join(root, name))
+        jobs += [(os.path.join(root, name, f"part-{p:05d}.avro"), seed, base + p, rows // parts) for p in range(parts)]
+    t0 = time.perf_counter()
+    workers = min(len(jobs), os.cpu_count() or 1)
+    with concurrent.futures.ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        writer_s = list(pool.map(_game_write_part, *zip(*jobs)))
+    return os.path.join(root, "train"), os.path.join(root, "validation"), time.perf_counter() - t0, sum(writer_s)
+
+
+def game_argv(train, validation, out, extra=()):
+    return ["--input-data", train, "--validation-data", validation,
+            "--feature-shard", "name=global,bags=features", "--feature-shard", "name=userShard,bags=userFeatures",
+            "--coordinate", GAME_FE, "--coordinate", GAME_RE, "--normalization", "STANDARDIZATION",
+            "--coordinate-descent-iterations", "2", "--evaluators", "AUC", "--output-dir", out,
+            "--log-level", "WARNING", *extra]
+
+
+def _counted_train(torch, argv):
+    """cli.train.run with every launch counter at 0 before it; (summary,
+    wall seconds, B1-B3 launches, B3 with shifts, S1 ell_matvec launches)."""
+    from photon_ml_tpu_torch.cli import train
+    from photon_ml_tpu_torch.ops import fused_glm as fg
+    from photon_ml_tpu_torch.ops import sparse
+
+    fg.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summary = train.run(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (summary, wall, dict(fg.LAUNCHES), fg.SHIFT_LAUNCHES["fused_hessian_stats"],
+            sparse.SPARSE_LAUNCHES["ell_matvec"])
+
+
+def _run_metrics(metrics_dir):
+    import os
+
+    with open(os.path.join(metrics_dir, "run_summary.json")) as f:
+        return json.load(f)["metrics"]
+
+
+def _metric(metrics, name, field="value", **labels):
+    return sum(m.get(field, 0) for m in metrics
+               if m["name"] == name and all(m["labels"].get(k) == v for k, v in labels.items()))
+
+
+def _game_models_equal(a, b):
+    fa, fb = a["global"].model.coefficients, b["global"].model.coefficients
+    ra, rb = a["per-user"], b["per-user"]
+    return (_same_bits(fa.means, fb.means) and _same_bits(fa.variances, fb.variances)
+            and list(map(str, ra.entity_ids)) == list(map(str, rb.entity_ids))
+            and _same_bits(ra.coef_indices, rb.coef_indices) and _same_bits(ra.coef_values, rb.coef_values))
+
+
+def game_train(torch, train, validation, root, problems, smi):
+    """(b) cli.train.run on the card with boundary checkpoints, the
+    launches counted; then the same fit in process, through the kernels
+    (its best model bitwise the driver's) and through the plain versions on
+    the card, held at the sweep bounds."""
+    import os
+
+    from photon_ml_tpu_torch.cli.params import parse_coordinate
+    from photon_ml_tpu_torch.estimators import GameEstimator
+    from photon_ml_tpu_torch.game import CoordinateDescent
+    from photon_ml_tpu_torch.io import FeatureShardConfig, load_game_model, read_avro_dataset_chunked
+    from photon_ml_tpu_torch.ops.normalization import build_normalization
+    from photon_ml_tpu_torch.utils.stats import compute_feature_statistics
+
+    out, metrics_dir = os.path.join(root, "out-b"), os.path.join(root, "metrics-b")
+    argv = game_argv(train, validation, out, ["--checkpoint-dir", os.path.join(root, "ck-b"),
+                                              "--checkpoint-every", "1", "--checkpoint-keep", "4",
+                                              "--metrics-out", metrics_dir])
+    summary, wall, launches, shifts, s1 = _counted_train(torch, argv)
+    metrics = _run_metrics(metrics_dir)
+    saves = _metric(metrics, "photon_checkpoint_saves_total")
+    ck_bytes = _metric(metrics, "photon_checkpoint_bytes_total")
+    ck_s = _metric(metrics, "photon_checkpoint_save_seconds", "sum")
+    auc = summary["best"]["metrics"]["AUC"]
+    log(f"  (b) cli.train on the card: {wall:.2f} s; stages (s) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in summary["stage_seconds"].items())
+        + f"; launches {launches}, B3 with shifts {shifts}, S1 ell_matvec {s1}; boundary checkpoints {int(saves)}, "
+          f"{int(ck_bytes)} bytes, {ck_s:.3f} s in all; validation AUC {auc:.6f}; rejections "
+          f"{summary['configs'][0]['rejections']} on {smi}")
+    if min(launches["fused_value_grad"], launches["fused_hessian_vector"], shifts, s1) <= 0:
+        problems.append(f"the GAME driver did not launch B1, B2, B3 with shifts and S1: {launches}, "
+                        f"shifts {shifts}, S1 {s1}")
+    if saves != 4:
+        problems.append(f"the driver wrote {saves} boundary checkpoints, not 4")
+
+    # the same fit in process: the driver's reads, statistics and datasets
+    shards = {"global": FeatureShardConfig(("features",)), "userShard": FeatureShardConfig(("userFeatures",))}
+    raw, maps = read_avro_dataset_chunked(train, shards, id_tag_columns=["userId"])
+    val, _ = read_avro_dataset_chunked(validation, shards, index_maps=maps, id_tag_columns=["userId"])
+    coords_cfg = [parse_coordinate(GAME_FE), parse_coordinate(GAME_RE)]
+    est = GameEstimator("logistic_regression", coords_cfg, n_cd_iterations=2, evaluator_specs=["AUC"])
+    stats = compute_feature_statistics(raw, "global")
+    coords_cfg[0].normalization = build_normalization(
+        "STANDARDIZATION", stats["mean"], stats["variance"], stats["max_magnitude"],
+        intercept_index=maps["global"].intercept_index, device=est.device)
+    datasets = est.prepare_datasets(raw)
+    ctx, _ = est._validation_context(val)
+    combo = {"global": 1.0, "per-user": 1.0}
+    runs = {}
+    for label, plain in (("kernels", False), ("plain", True)):
+        coords = est._make_coordinates(datasets, combo)
+        coords["global"] = dataclasses.replace(coords["global"], plain=plain)
+        states = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = CoordinateDescent(coords, n_iterations=2, validation=ctx, boundary_fn=states.append).run()
+        torch.cuda.synchronize()
+        runs[label] = (coords, res, states, time.perf_counter() - t0)
+    (ck, rk, sk, wk), (cp, rp, sp, wp) = runs["kernels"], runs["plain"]
+    best = load_game_model(os.path.join(out, "models", "best"), maps, task="logistic_regression")
+    same = _game_models_equal(best, rk.model)
+    log(f"  (b) the same fit in process: kernels {wk:.2f} s, plain {wp:.2f} s; the driver's saved best model "
+        f"bitwise the in-process kernel fit's: {same}; best AUC {rk.best_evaluation.metrics['AUC']:.6f} "
+        f"(plain {rp.best_evaluation.metrics['AUC']:.6f})")
+    if not same:
+        problems.append("the driver's saved model differs from the same fit in process")
+    # the first sweep's fixed effect sees the same inputs on both sides; the
+    # second sweep's coordinates are held on identical residuals: the plain
+    # run's coordinate retrained on the kernel run's residual and warm start
+    # (chained, each sweep's second fixed effect inherits the other's random
+    # effect: printed, not held, as in phase 5)
+    for label, states in (("kernels", sk), ("plain", sp)):
+        r = states[0].trackers["global"].result
+        log(f"  (b) sweep-1 FE solve, {label}: iterations {r.iterations}, reason {r.reason}, "
+            f"loss {float(r.loss):.6f}")
+    fk, fp = sk[0].models["global"].model.coefficients, sp[0].models["global"].model.coefficients
+    hold(problems, "(b) kernels vs plain sweep-1 FE coefficients", fk.means, fp.means, 1e-3, 1e-5)
+    hold(problems, "(b) kernels vs plain sweep-1 FE variances", fk.variances, fp.variances, 1e-3, 1e-5)
+    st2 = sk[1]
+    fe1 = st2.models["global"]
+    fe_p, _ = cp["global"].train(st2.summed_scores - ck["global"].score(fe1), initial_model=fe1)
+    fk = sk[2].models["global"].model.coefficients
+    hold(problems, "(b) kernels vs plain sweep-2 FE coefficients (identical residuals)", fk.means,
+         fe_p.model.coefficients.means, 1e-3, 1e-5)
+    hold(problems, "(b) kernels vs plain sweep-2 FE variances (identical residuals)", fk.variances,
+         fe_p.model.coefficients.variances, 1e-3, 1e-5)
+    _, chained = allclose(fk.means, sp[2].models["global"].model.coefficients.means)
+    log(f"  (b) (for the record) sweep-2 FE chained on each run's own random effect: max abs diff {chained:.3e}")
+    st3 = sk[2]
+    re1 = st3.models["per-user"]
+    residual = st3.summed_scores - ck["per-user"].score(re1)
+    re_p, re_res_p = cp["per-user"].train(residual, initial_model=re1)
+    hold(problems, "(b) kernels vs plain RE coefficients (identical residuals)",
+         sk[-1].models["per-user"].coef_values, re_p.coef_values, 0.0, 5e-3)
+    hold(problems, "(b) kernels vs plain RE loss (identical residuals)",
+         rk.solver_results["per-user"].loss, re_res_p.loss, 0.0, 1e-4)
+    hold(problems, "(b) kernels vs plain validation AUC", torch.tensor([auc]),
+         torch.tensor([rp.best_evaluation.metrics["AUC"]]), 0.0, 1e-4)
+    return {"wall_s": wall, "stage_seconds": summary["stage_seconds"], "launches": launches,
+            "shift_launches": shifts, "s1_launches": s1, "checkpoint_saves": saves, "checkpoint_bytes": ck_bytes,
+            "checkpoint_seconds": ck_s, "auc": auc, "maps": maps, "out": out}
+
+
+def game_resume(torch, train, validation, root, problems, b):
+    """(c) The same run killed right after the first sweep's second
+    boundary checkpoint (PHOTON_FAULTS), then resumed: every saved
+    coefficient equals (b)'s bit for bit."""
+    import os
+
+    from photon_ml_tpu_torch.cli import train as cli_train
+    from photon_ml_tpu_torch.io import load_game_model
+    from photon_ml_tpu_torch.robust import SimulatedKill, faults
+
+    out = os.path.join(root, "out-c")
+    argv = game_argv(train, validation, out, ["--checkpoint-dir", os.path.join(root, "ck-c"),
+                                              "--checkpoint-every", "1"])
+    os.environ["PHOTON_FAULTS"] = f"cd.boundary_saved:kill:{GAME_KILL_AT}"
+    t0 = time.perf_counter()
+    try:
+        cli_train.run(argv)
+        problems.append("the injected kill did not fire")
+    except SimulatedKill:
+        pass
+    finally:
+        del os.environ["PHOTON_FAULTS"]
+        faults.clear()
+    killed = time.perf_counter() - t0
+    summary, wall, launches, shifts, s1 = _counted_train(torch, argv + ["--resume"])
+    same = _game_models_equal(
+        load_game_model(os.path.join(b["out"], "models", "best"), b["maps"], task="logistic_regression"),
+        load_game_model(os.path.join(out, "models", "best"), b["maps"], task="logistic_regression"))
+    log(f"  (c) killed at cd.boundary_saved call {GAME_KILL_AT} after {killed:.2f} s; the resumed run "
+        f"{wall:.2f} s (launches {launches}, B3 with shifts {shifts}, S1 {s1}); its saved coefficients "
+        f"bitwise (b)'s: {same}; best AUC {summary['best']['metrics']['AUC']:.6f}")
+    if not same:
+        problems.append("the resumed run's models differ from the straight run's")
+    if summary["best"]["metrics"]["AUC"] != b["auc"]:
+        problems.append("the resumed run's validation AUC differs from the straight run's")
+    return {"killed_s": killed, "wall_s": wall}
+
+
+def game_score(torch, validation, root, problems, b):
+    """(d) cli.score.run on the validation parts with (b)'s best model:
+    bitwise GameTransformer's, rtol 1e-5 of the plain route, AUC within
+    1e-4 of (b)'s; S1's launches counted."""
+    import os
+
+    from photon_ml_tpu_torch.cli import score
+    from photon_ml_tpu_torch.estimators import GameTransformer
+    from photon_ml_tpu_torch.io import FeatureShardConfig, load_game_model, read_avro_dataset
+    from photon_ml_tpu_torch.ops import sparse
+    from photon_ml_tpu_torch.serving import ScoreEngine
+
+    model_dir = os.path.join(b["out"], "models", "best")
+    argv = ["--input-data", validation, "--feature-shard", "name=global,bags=features",
+            "--feature-shard", "name=userShard,bags=userFeatures", "--id-tags", "userId",
+            "--model-input-dir", model_dir, "--evaluators", "AUC", "--output-dir", os.path.join(root, "scores"),
+            "--log-level", "WARNING"]
+    sparse.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores, ev = score.run(argv)
+    wall = time.perf_counter() - t0
+    s1 = sparse.SPARSE_LAUNCHES["ell_matvec"]
+    shards = {"global": FeatureShardConfig(("features",)), "userShard": FeatureShardConfig(("userFeatures",))}
+    val, maps = read_avro_dataset(validation, shards, id_tag_columns=["userId"])
+    model = load_game_model(model_dir, maps, task="logistic_regression")
+    engine = ScoreEngine.from_model(model)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    total, _ = GameTransformer(model=model).transform(val)
+    engine_s = time.perf_counter() - t1
+    plain = ScoreEngine.from_model(model, plain=True).score_dataset(val)
+    bitwise = bool(np.array_equal(scores, total))
+    ok_plain, diff = allclose(torch.from_numpy(np.asarray(scores)), torch.from_numpy(plain), 1e-5, 1e-6)
+    gap = abs(ev.metrics["AUC"] - b["auc"])
+    log(f"  (d) cli.score: {len(scores)} rows in {wall:.2f} s ({len(scores) / wall:.1f} rows/s, the read, the "
+        f"model's load and the score file included); the engine alone {engine_s:.3f} s "
+        f"({len(scores) / engine_s:.1f} rows/s); S1 ell_matvec launches {s1}; bitwise GameTransformer's "
+        f"{bitwise}; vs the plain route max abs diff {diff:.3e} (rtol 1e-5) {'ok' if ok_plain else 'MISS'}; "
+        f"AUC {ev.metrics['AUC']:.6f} vs (b)'s {b['auc']:.6f}, diff {gap:.2e} (1e-4)")
+    if not (bitwise and ok_plain and gap <= 1e-4 and s1 == 1):
+        problems.append(f"cli.score: bitwise {bitwise}, plain {ok_plain}, AUC gap {gap:.2e}, S1 launches {s1}")
+    return {"wall_s": wall, "rows_per_s": len(scores) / wall, "engine_s": engine_s, "s1_launches": s1,
+            "auc": ev.metrics["AUC"]}
+
+
+def game_fault(torch, train, validation, root, problems, b):
+    """(e) A coordinate.scores:nan:1 run: the poisoned first update is
+    rejected, the models finish finite, and the rejection shows in
+    photon_coordinate_rejections_total."""
+    import os
+
+    from photon_ml_tpu_torch.io import load_game_model
+    from photon_ml_tpu_torch.robust import faults
+
+    out, metrics_dir = os.path.join(root, "out-e"), os.path.join(root, "metrics-e")
+    os.environ["PHOTON_FAULTS"] = "coordinate.scores:nan:1"
+    try:
+        summary, wall, launches, shifts, s1 = _counted_train(
+            torch, game_argv(train, validation, out, ["--metrics-out", metrics_dir]))
+    finally:
+        del os.environ["PHOTON_FAULTS"]
+        faults.clear()
+    rejections = summary["configs"][0]["rejections"]
+    counted = _metric(_run_metrics(metrics_dir), "photon_coordinate_rejections_total")
+    model = load_game_model(os.path.join(out, "models", "best"), b["maps"], task="logistic_regression")
+    finite = bool(torch.isfinite(model["global"].model.coefficients.means).all()) and bool(
+        torch.isfinite(model["per-user"].coef_values).all())
+    log(f"  (e) coordinate.scores:nan:1: {wall:.2f} s, rejections {rejections}, "
+        f"photon_coordinate_rejections_total {counted}, models finite {finite}, best AUC "
+        f"{summary['best']['metrics']['AUC']:.6f}")
+    if not (sum(rejections.values()) > 0 and counted > 0 and finite):
+        problems.append(f"the poisoned update was not rejected cleanly: {rejections}, counted {counted}, "
+                        f"finite {finite}")
+    return {"wall_s": wall, "rejections": rejections}
+
+
+def game_phase(torch, seed, smi):
+    """Phase 12: write the fixture, run the GAME driver with boundary
+    checkpoints, kill and resume it, score with cli.score and inject a NaN.
+    The temporary directory is removed at the end."""
+    import tempfile
+
+    problems, out = [], {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_game_") as root:
+        train, validation, wall, writer_s = game_write(root, seed)
+        rows = IO_TRAIN[0] + IO_VALIDATION[0]
+        log(f"  (a) wrote {rows} rows ({IO_NNZ} global and {GAME_RE_FEATURES} per-user features a row, "
+            f"{GAME_USERS} Zipf(1.1) users) into {IO_TRAIN[1]} + {IO_VALIDATION[1]} deflate parts in {wall:.2f} s "
+            f"by worker processes ({rows / wall:.1f} rows/s; the writers' own seconds summed {writer_s:.2f})")
+        out["write"] = {"wall_s": wall, "writer_s": writer_s}
+        b = game_train(torch, train, validation, root, problems, smi)
+        torch.cuda.empty_cache()
+        out["resume"] = game_resume(torch, train, validation, root, problems, b)
+        out["score"] = game_score(torch, validation, root, problems, b)
+        out["fault"] = game_fault(torch, train, validation, root, problems, b)
+        out["train"] = {k: v for k, v in b.items() if k not in ("maps", "out")}
+    log(f"  on {smi}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=500_000)
@@ -3166,7 +3554,7 @@ def main() -> int:
     ap.add_argument("--d-re", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default="",
-                    help="comma-separated subset of check,fe,glmix,dp,nccl,solvers,io,sparse,timing,variants to run after "
+                    help="comma-separated subset of check,fe,glmix,dp,nccl,solvers,io,game,sparse,timing,variants to run after "
                          "card and build (for iterating on one phase; the result is then not ok)")
     args = ap.parse_args()
     only = set(filter(None, args.only.split(",")))
@@ -3186,12 +3574,12 @@ def main() -> int:
     phases = Phases()
     smi = phases.run("card", card, torch)
     phases.run("build", build)
-    errs = fe_launches = glmix = dp = times = solvers = io = None
+    errs = fe_launches = glmix = dp = times = solvers = io = game = None
     if want("check"):
         errs = phases.run("kernels vs float64 plain", check_kernels, torch, args.n, args.d, args.seed)
     if want("fe"):
         fe_launches = phases.run("fixed-effect path", fe_path, torch, args.n, args.d, args.seed)
-    if want("glmix") or want("dp") or want("nccl") or want("solvers") or want("io"):
+    if want("glmix") or want("dp") or want("nccl") or want("solvers") or want("io") or want("game"):
         glmix = phases.run(
             "GLMix sweep (main path)", glmix_path, torch, args.n, args.d, args.users, args.d_re, args.seed
         )
@@ -3222,6 +3610,9 @@ def main() -> int:
     else:
         io = phases.run("data and model IO", io_phase, torch, state, args.seed, smi)
     del state
+    torch.cuda.empty_cache()
+    if want("game"):
+        game = phases.run("GAME driver", game_phase, torch, args.seed, smi)
     torch.cuda.empty_cache()
     sp = None
     if want("sparse"):
@@ -3279,6 +3670,9 @@ def main() -> int:
             "launches_glm_driver": ((io or {}).get("driver") or {}).get("launches", {}).get(name, 0),
             "launches_glm_driver_with_shifts": ((io or {}).get("driver") or {}).get("shift_launches", 0)
             if name == "fused_hessian_stats" else None,
+            "launches_game_driver": ((game or {}).get("train") or {}).get("launches", {}).get(name, 0),
+            "launches_game_driver_with_shifts": ((game or {}).get("train") or {}).get("shift_launches", 0)
+            if name == "fused_hessian_stats" else None,
             "launches_data_parallel_per_rank": [
                 r[name] for r in ((dp or {}).get("sweep") or {}).get("launches", [])
             ],
@@ -3293,7 +3687,7 @@ def main() -> int:
             "read_x_ms": t.get("read_x_ms"), "plan": t.get("plan"),
             **{f"bf16_{k}": t16.get(k) for k in ("ms", "prev_ms", "finalize_ms", "read_x_ms", "bound_ms")},
         })
-    kernels += sparse_entries(sp, times)
+    kernels += sparse_entries(sp, times, game)
     kernels.append(lane_entry(errs, solvers))
     if sp:
         path, sg = sp["path"], sp["glmix"]
@@ -3321,6 +3715,14 @@ def main() -> int:
             + f"; cli.glm {dr.get('wall_s', float('nan')):.2f} s (stages "
             + ", ".join(f"{k} {v:.3f}" for k, v in (dr.get("stage_seconds") or {}).items())
             + f"); GLMix model save {gm['save_s']:.2f} s, load {gm['load_s']:.2f} s on {smi}")
+    if game:
+        tr, rs, sc = game["train"], game["resume"], game["score"]
+        log(f"GAME driver: cli.train {tr['wall_s']:.2f} s (stages "
+            + ", ".join(f"{k} {v:.3f}" for k, v in tr["stage_seconds"].items())
+            + f"), {int(tr['checkpoint_saves'])} boundary checkpoints ({int(tr['checkpoint_bytes'])} bytes, "
+              f"{tr['checkpoint_seconds']:.3f} s), validation AUC {tr['auc']:.6f}; killed and resumed "
+              f"{rs['killed_s']:.2f} + {rs['wall_s']:.2f} s; cli.score {sc['rows_per_s']:.1f} rows/s "
+              f"(engine {sc['engine_s']:.3f} s) on {smi}")
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))
     ok = not phases.failed

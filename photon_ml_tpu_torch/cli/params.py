@@ -1,21 +1,26 @@
-"""CLI parameter grammar shared by the drivers: the input and output part.
+"""CLI parameter grammar shared by the drivers.
 
-The JAX package's ``cli/params.py`` (reference: photon-client io/scopt/**,
-the scopt parsers with their comma/pipe grammar for nested configs), of
-which this copies what the IO of the drivers needs: ``parse_kv``,
-``parse_feature_shard``, ``add_common_io_args``, ``parse_ingest_workers``,
-``resolve_input_paths``, ``parse_input_columns`` and
-``build_shard_configs``. The coordinate, retrain and pipeline parsers come
-with the GAME driver (ROADMAP A12); the mesh parser and the multi-process
-row split with A10.
+The JAX package's ``cli/params.py`` on the port (reference: photon-client
+io/scopt/**, the scopt parsers with their comma/pipe grammar for nested
+configs, e.g. ``--coordinate name=global,shard=...,optimizer=LBFGS,
+reg.weights=0.1|1|10``). A device mesh (``parse_mesh_shape``) and the
+multi-process row split (``plan_host_row_split``) are ROADMAP A10: they
+raise for anything but one process on one device.
 """
 
 from __future__ import annotations
 
 import argparse
-from typing import Dict
+from typing import Dict, Optional
 
+import torch
+
+from ..estimators.game_estimator import CoordinateConfig, world_size
+from ..game.problem import GLMOptimizationConfig
 from ..io.data import FeatureShardConfig
+from ..ops.regularization import RegularizationContext
+from ..optimize import OptimizerConfig, OptimizerType
+from ..plan import PlanError, check_retrain_composition  # noqa: F401  (the drivers' import site)
 
 
 def parse_kv(spec: str) -> Dict[str, str]:
@@ -40,6 +45,68 @@ def parse_feature_shard(spec: str) -> Dict[str, FeatureShardConfig]:
     if kv:
         raise ValueError(f"unknown feature-shard keys: {sorted(kv)}")
     return {name: FeatureShardConfig(feature_bags=bags, has_intercept=intercept)}
+
+
+def parse_coordinate(spec: str) -> CoordinateConfig:
+    """``name=global,shard=globalShard[,re.type=userId],optimizer=LBFGS,
+    tolerance=1e-7,max.iter=100,reg.type=L2,reg.alpha=0.5,reg.weights=0.1|1|10,
+    down.sampling.rate=1.0,active.cap=256,active.lower.bound=1,variance=NONE,
+    features.to.samples.ratio=0.5,layout=auto,feature.dtype=bfloat16,
+    hbm.budget.mb=4096``
+
+    ``feature.dtype=bfloat16``: narrow feature storage (fixed-effect batches
+    and RE entity blocks; solver state stays wide). ``hbm.budget.mb``
+    (out-of-core streaming, ROADMAP A7) parses; the execution planner
+    refuses it."""
+    kv = parse_kv(spec)
+    name = kv.pop("name")
+    shard = kv.pop("shard")
+    re_type = kv.pop("re.type", None)
+    opt = OptimizerConfig(
+        optimizer_type=OptimizerType(kv.pop("optimizer", "LBFGS").upper()),
+        tolerance=float(kv.pop("tolerance", 1e-7)),
+        max_iterations=int(kv.pop("max.iter", 100)),
+        num_corrections=int(kv.pop("num.corrections", 10)),
+    )
+    reg = RegularizationContext(
+        reg_type=kv.pop("reg.type", "NONE"),
+        elastic_net_alpha=float(kv.pop("reg.alpha", 1.0)),
+    )
+    weights = tuple(float(w) for w in kv.pop("reg.weights", "0").split("|"))
+    cfg = GLMOptimizationConfig(
+        optimizer=opt,
+        regularization=reg,
+        reg_weight=weights[0],
+        down_sampling_rate=float(kv.pop("down.sampling.rate", 1.0)),
+        variance_type=kv.pop("variance", "NONE").upper(),
+    )
+    layout = kv.pop("layout", "auto").lower()
+    if layout not in ("auto", "dense", "ell", "sparse", "coo", "tiled"):
+        raise ValueError(f"unknown layout {layout!r} in coordinate {name!r}")
+    fdt_name = kv.pop("feature.dtype", "").lower()
+    if fdt_name not in ("", "float32", "bfloat16"):
+        raise ValueError(
+            f"unknown feature.dtype {fdt_name!r} in coordinate {name!r} "
+            "(expected float32|bfloat16)"
+        )
+    cc = CoordinateConfig(
+        name=name,
+        feature_shard=shard,
+        config=cfg,
+        random_effect_type=re_type,
+        reg_weights=weights,
+        active_cap=int(kv.pop("active.cap")) if "active.cap" in kv else None,
+        active_lower_bound=int(kv.pop("active.lower.bound", 1)),
+        features_to_samples_ratio=(
+            float(kv.pop("features.to.samples.ratio")) if "features.to.samples.ratio" in kv else None
+        ),
+        layout=layout,
+        feature_dtype=torch.bfloat16 if fdt_name == "bfloat16" else None,
+        hbm_budget_mb=int(kv.pop("hbm.budget.mb")) if "hbm.budget.mb" in kv else None,
+    )
+    if kv:
+        raise ValueError(f"unknown coordinate keys: {sorted(kv)}")
+    return cc
 
 
 def add_common_io_args(p: argparse.ArgumentParser):
@@ -141,3 +208,27 @@ def build_shard_configs(args) -> Dict[str, FeatureShardConfig]:
     if not shards:
         shards["global"] = FeatureShardConfig(feature_bags=("features",))
     return shards
+
+
+def parse_mesh_shape(spec: Optional[str]):
+    """``data=4,model=2`` -> a device mesh: ''/None is no mesh (one
+    device); any mesh is ROADMAP A10."""
+    if not spec:
+        return None
+    raise PlanError(f"a device mesh (--mesh-shape {spec}) is not ported yet (ROADMAP A10)")
+
+
+def parse_pipeline_depth(value) -> int:
+    """``--pipeline-depth N`` -> validated sweep pipelining depth (>= 1)."""
+    depth = int(value)
+    if depth < 1:
+        raise ValueError(f"pipeline depth must be >= 1: {depth}")
+    return depth
+
+
+def plan_host_row_split(input_paths):
+    """Multi-process input planning: (None, None) for one process; the row
+    split across processes is ROADMAP A10."""
+    if world_size() <= 1:
+        return None, None
+    raise PlanError("the multi-process row split is not ported yet (ROADMAP A10)")

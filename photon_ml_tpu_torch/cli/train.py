@@ -1,0 +1,697 @@
+"""GAME training driver.
+
+The JAX package's ``cli/train.py`` on the port, its single-process path.
+Reference: photon-client .../cli/game/training/GameTrainingDriver.scala:
+54-854 (§3.1 call stack): read+index data -> validate -> normalization ->
+expand optimization configs -> GameEstimator.fit -> model selection (output
+mode ALL/BEST) -> save models in Photon ML's layout.
+
+Usage:
+  python -m photon_ml_tpu_torch.cli.train \\
+    --input-data train.avro --validation-data val.avro \\
+    --task logistic_regression \\
+    --feature-shard name=globalShard,bags=features \\
+    --feature-shard name=userShard,bags=userFeatures \\
+    --coordinate name=global,shard=globalShard,optimizer=TRON,reg.type=L2,reg.weights=1|10 \\
+    --coordinate name=per-user,shard=userShard,re.type=userId,reg.type=L2,reg.weights=1 \\
+    --evaluators AUC,LOGISTIC_LOSS --output-dir out/ [--device cpu] [--dtype float64]
+
+Datasets, normalization and models live on ``--device`` (the card by
+default; without a card the driver raises unless ``--device cpu`` is given,
+which runs the kernels' plain versions). ``--dtype`` is the solve's float
+type (float32 by default; the JAX package takes its default float).
+
+``--checkpoint-dir`` saves the model after every sweep and each finished
+grid configuration (rerunning the same command resumes from the last
+completed unit); ``--checkpoint-every N`` adds boundary snapshots of the
+whole coordinate-descent state every N coordinate updates, and
+``--resume`` continues from the newest valid one bit for bit.
+``PHOTON_FAULTS`` injects faults at the port's sites
+(``robust/fault_sites.json``). ``--metrics-out DIR`` writes metrics.jsonl,
+metrics.prom and run_summary.json; ``--trace-out PATH`` writes the run's
+spans as JSON lines (one per span) with run_summary.json beside it.
+
+These flags parse and raise, naming their ROADMAP item: hyperparameter
+tuning and ``--trial-lanes`` (A8); ``--incremental-training``,
+``--partial-retrain-locked`` and a prior ``--model-input-dir`` (A8);
+``--mesh-shape``, ``--distributed``, ``--collective-timeout`` and
+``--heartbeat-*`` (A10); ``--pipeline-depth`` above 1 (A7);
+``--status-port`` and ``--report-out`` (A13). The Chrome-trace timeline of
+``--trace-out`` is A13 as well.
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+import json
+import logging
+import os
+import shutil
+import sys
+import time
+from typing import Dict, List, Optional
+
+import torch
+
+from .. import obs
+from ..device import resolve_device
+from ..estimators.game_estimator import GameEstimator, GameResult, GameTransformer
+from ..io.data import read_avro_dataset, read_avro_dataset_chunked, resolve_ingest_workers
+from ..io.model_io import load_game_model, save_game_model
+from ..ops.normalization import build_normalization
+from ..plan import PlanError, plan_fingerprint
+from ..robust import CheckpointManager, atomic_write_json, faults
+from ..utils.futures import WorkerPool
+from ..utils.logging import setup_logging
+from ..utils.stats import compute_feature_statistics, save_feature_statistics
+from .params import (
+    add_common_io_args,
+    build_shard_configs,
+    parse_coordinate,
+    parse_input_columns,
+    parse_pipeline_depth,
+    resolve_input_paths,
+)
+
+logger = logging.getLogger("photon_ml_tpu_torch")
+
+OUTPUT_MODE_ALL = "ALL"
+OUTPUT_MODE_BEST = "BEST"
+OUTPUT_MODE_TUNED = "TUNED"
+
+DTYPES = {"float32": torch.float32, "float64": torch.float64}
+_DEFAULT_COORDINATE = "name=global,shard=global,optimizer=LBFGS,reg.type=L2,reg.weights=1"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("photon-ml-tpu-torch game training driver")
+    add_common_io_args(p)
+    p.add_argument("--validation-data", default=None)
+    p.add_argument("--task", default="logistic_regression")
+    p.add_argument("--coordinate", action="append", default=[],
+                   help="coordinate configuration spec (repeatable, ordered)")
+    p.add_argument("--coordinate-descent-iterations", type=int, default=1)
+    p.add_argument("--validation-frequency", default="COORDINATE", choices=["COORDINATE", "SWEEP"],
+                   help="evaluate validation metrics after every coordinate update or once per sweep")
+    p.add_argument("--evaluators", default="", help="comma-separated evaluator specs")
+    p.add_argument("--validate-data", default="disabled", choices=["full", "sample", "quarantine", "disabled"],
+                   help="input data validation: 'full' checks every row and fails on problems, 'sample' "
+                        "~1%% of rows (seeded by --seed), 'quarantine' zero-weights offending rows "
+                        "(photon_rows_quarantined_total), 'disabled' skips it")
+    p.add_argument("--seed", type=int, default=0, help="run seed for seeded subsampling")
+    p.add_argument("--no-divergence-guard", action="store_true",
+                   help="disable the coordinate-descent divergence guard (and its fetch per update)")
+    p.add_argument("--coordinate-rejection-tolerance", type=float, default=None,
+                   help="additionally reject an update whose training loss regresses more than this")
+    p.add_argument("--pipeline-depth", type=parse_pipeline_depth, default=1,
+                   help="sweep pipelining depth; only 1 (serial) is ported (above 1: ROADMAP A7)")
+    p.add_argument("--explain-plan", action="store_true",
+                   help="dry run: resolve the execution plan from the flags alone, print it and exit 0 "
+                        "without reading data or touching a device; a refused configuration prints its "
+                        "PlanError and exits 1")
+    p.add_argument("--output-dir", required=True)
+    p.add_argument("--output-mode", default=OUTPUT_MODE_BEST,
+                   choices=[OUTPUT_MODE_ALL, OUTPUT_MODE_BEST, OUTPUT_MODE_TUNED])
+    p.add_argument("--model-input-dir", default=None, help="warm-start GAME model (ROADMAP A8)")
+    p.add_argument("--incremental-training", action="store_true", help="ROADMAP A8")
+    p.add_argument("--partial-retrain-locked", default="", help="ROADMAP A8")
+    p.add_argument("--normalization", default="NONE",
+                   choices=["NONE", "STANDARDIZATION", "SCALE_WITH_STANDARD_DEVIATION", "SCALE_WITH_MAX_MAGNITUDE"])
+    p.add_argument("--model-sparsity-threshold", type=float, default=0.0)
+    p.add_argument("--compute-feature-stats", action="store_true")
+    p.add_argument("--hyper-parameter-tuning", default="NONE", choices=["NONE", "RANDOM", "BAYESIAN"],
+                   help="ROADMAP A8")
+    p.add_argument("--hyper-parameter-tuning-iter", type=int, default=10)
+    p.add_argument("--trial-lanes", type=int, default=1, help="above 1: ROADMAP A8")
+    p.add_argument("--hyper-parameter-config", default=None, help="ROADMAP A8")
+    p.add_argument("--hyper-parameter-prior", default=None, help="ROADMAP A8")
+    p.add_argument("--hyper-parameter-shrink-radius", type=float, default=0.25)
+    p.add_argument("--mesh-shape", default="", help="ROADMAP A10")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="save the model after every coordinate-descent sweep (and each finished grid "
+                        "config); rerunning the same command resumes from the last completed unit")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="additionally snapshot the whole coordinate-descent state every N "
+                        "coordinate-update boundaries under <checkpoint-dir>/cd-boundaries; 0 disables")
+    p.add_argument("--checkpoint-keep", type=int, default=3, help="boundary checkpoints retained")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the newest VALID boundary checkpoint under "
+                        "<checkpoint-dir>/cd-boundaries, bit-identical to the uninterrupted run")
+    p.add_argument("--distributed", default=None, help="ROADMAP A10")
+    p.add_argument("--collective-timeout", type=float, default=None, help="ROADMAP A10")
+    p.add_argument("--heartbeat-interval", type=float, default=None, help="ROADMAP A10")
+    p.add_argument("--heartbeat-timeout", type=float, default=None, help="ROADMAP A10")
+    p.add_argument("--log-file", default=None)
+    p.add_argument("--log-level", default="INFO")
+    p.add_argument("--metrics-out", default=None,
+                   help="directory for run telemetry: metrics.jsonl (one line per span / per-sweep "
+                        "metrics flush), metrics.prom (Prometheus text) and run_summary.json")
+    p.add_argument("--trace-out", default=None,
+                   help="write the run's spans here as JSON lines, with run_summary.json beside it")
+    p.add_argument("--status-port", type=int, default=None, help="ROADMAP A13")
+    p.add_argument("--report-out", default=None, help="ROADMAP A13")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu (the kernels' plain versions)")
+    p.add_argument("--dtype", default="float32", choices=sorted(DTYPES))
+    return p
+
+
+def _refuse_unported(args) -> None:
+    """The flags that parse but whose paths are not ported: one PlanError
+    naming the ROADMAP item."""
+    refusals = [
+        (args.hyper_parameter_tuning != "NONE", "--hyper-parameter-tuning", "A8"),
+        (args.trial_lanes > 1, "--trial-lanes above 1", "A8"),
+        (bool(args.hyper_parameter_config or args.hyper_parameter_prior),
+         "--hyper-parameter-config / --hyper-parameter-prior", "A8"),
+        (args.output_mode == OUTPUT_MODE_TUNED, "--output-mode TUNED", "A8"),
+        (args.incremental_training, "--incremental-training", "A8"),
+        (bool(args.partial_retrain_locked), "--partial-retrain-locked", "A8"),
+        (args.model_input_dir is not None, "warm start from a prior --model-input-dir", "A8"),
+        (bool(args.mesh_shape), "--mesh-shape", "A10"),
+        (args.distributed is not None, "--distributed", "A10"),
+        (args.collective_timeout is not None, "--collective-timeout", "A10"),
+        (args.heartbeat_interval is not None or args.heartbeat_timeout is not None, "--heartbeat-*", "A10"),
+        (args.pipeline_depth > 1, "--pipeline-depth above 1", "A7"),
+        (args.status_port is not None, "--status-port", "A13"),
+        (args.report_out is not None, "--report-out", "A13"),
+    ]
+    for refused, what, item in refusals:
+        if refused:
+            raise PlanError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+def run(argv: Optional[List[str]] = None) -> Dict:
+    args = build_parser().parse_args(argv)
+    setup_logging(args.log_level, args.log_file)
+    if args.explain_plan:
+        # dry run: resolve and print the execution plan from the flags
+        # alone; no data read, no device touched
+        return _explain_plan(args)
+    _refuse_unported(args)
+    # PHOTON_FAULTS / PHOTON_FAULTS_SEED; an absent variable clears any
+    # injector a previous in-process run installed
+    faults.install_from_env()
+    device = resolve_device(args.device)
+
+    t_run0 = time.perf_counter()
+    run_t = None
+    prev_run = None
+    sinks = []
+    if args.metrics_out or args.trace_out:
+        run_t = obs.RunTelemetry()
+        obs.record_build_info(run_t.registry)
+        if args.metrics_out:
+            os.makedirs(args.metrics_out, exist_ok=True)
+            sinks += [
+                obs.JsonlSink(os.path.join(args.metrics_out, "metrics.jsonl")),
+                obs.PrometheusSink(os.path.join(args.metrics_out, "metrics.prom")),
+            ]
+        if args.trace_out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.trace_out)), exist_ok=True)
+            sinks.append(_SpanSink(args.trace_out))
+        for sink in sinks:
+            run_t.register_listener(sink)
+        prev_run = obs.set_current_run(run_t)
+    try:
+        summary = _run_training(args, device, run_t, sinks, t_run0)
+    except BaseException:
+        # crash-flush: an abort (an injected SimulatedKill included) still
+        # leaves run_summary.json, marked "aborted"
+        if run_t is not None:
+            try:
+                _write_run_summary(args, run_t, t_run0, aborted=True)
+            except Exception:
+                obs.swallowed_error("cli.run_summary_flush")
+                logger.exception("could not flush partial run summary")
+        raise
+    finally:
+        if run_t is not None:
+            run_t.close()
+            obs.set_current_run(prev_run)
+    return summary
+
+
+class _SpanSink(obs.JsonlSink):
+    """``--trace-out``: the JSONL sink, spans only."""
+
+    def handle(self, event) -> None:
+        if isinstance(event, obs.SpanEvent):
+            super().handle(event)
+
+
+def _explain_plan(args) -> Dict:
+    """``--explain-plan``: resolve the ExecutionPlan from the parsed flags and
+    print it, reading no data and touching no device. A refused
+    configuration prints its PlanError and exits 1."""
+    from ..plan import resolve as resolve_plan
+
+    try:
+        _refuse_unported(args)
+        coords = [parse_coordinate(s) for s in (args.coordinate or [_DEFAULT_COORDINATE])]
+        dims = None
+        if args.feature_index_dir:
+            from ..io.index_map import load_partitioned
+
+            try:
+                dims = {s: load_partitioned(args.feature_index_dir, s).size for s in build_shard_configs(args)}
+            except (OSError, ValueError, KeyError):
+                # the dims only enrich the printed plan; a dry run never fails on them
+                dims = None
+        plan = resolve_plan(coords, normalization=args.normalization, dims=dims)
+    except PlanError as e:
+        print(f"plan refused: {e}", file=sys.stderr)
+        raise SystemExit(1)
+    print(plan.pretty())
+    return {"plan": plan.to_dict()}
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _run_training(args, device, run_t, sinks, t_run0) -> Dict:
+    dtype = DTYPES[args.dtype]
+    stage_seconds: Dict[str, float] = {}
+    t_stage = [time.perf_counter()]
+
+    def stage_done(name):
+        _sync(device)
+        t1 = time.perf_counter()
+        stage_seconds[name] = stage_seconds.get(name, 0.0) + t1 - t_stage[0]
+        t_stage[0] = t1
+
+    shards = build_shard_configs(args)
+    id_tags = [t for t in args.id_tags.split(",") if t]
+    coords = [parse_coordinate(s) for s in (args.coordinate or [_DEFAULT_COORDINATE])]
+    for cc in coords:
+        if cc.is_random_effect and cc.random_effect_type not in id_tags:
+            id_tags.append(cc.random_effect_type)
+
+    input_paths = resolve_input_paths(args)
+    input_columns = parse_input_columns(args)
+    logger.info("reading training data from %s", input_paths)
+    index_maps = None
+    if args.feature_index_dir:
+        from ..io.index_map import load_partitioned
+
+        index_maps = {s: load_partitioned(args.feature_index_dir, s) for s in shards}
+
+    # pooled ingest: parts decode concurrently on the shared pool, and the
+    # SAME pool later runs the background validation decode
+    n_ingest_workers = resolve_ingest_workers(args.ingest_workers)
+    ingest_pool = WorkerPool(n_ingest_workers, name="photon-ingest")
+    try:
+        raw, index_maps = read_avro_dataset_chunked(
+            input_paths, shards, index_maps=index_maps, id_tag_columns=id_tags,
+            response_column=args.response_column, columns=input_columns,
+            workers=n_ingest_workers, pool=ingest_pool,
+        )
+        if args.validate_data != "disabled":
+            from ..io import validators
+
+            mode = {
+                "full": validators.VALIDATE_FULL,
+                "sample": validators.VALIDATE_SAMPLE,
+                "quarantine": validators.VALIDATE_QUARANTINE,
+            }[args.validate_data]
+            validators.validate_dataset(raw, args.task, mode, rng_seed=args.seed)
+        logger.info("training rows: %d; shard dims: %s", raw.n_rows, raw.shard_dims)
+
+        validation = None
+        if args.validation_data:
+            def _read_validation():
+                v, _ = read_avro_dataset(
+                    args.validation_data, shards, index_maps=index_maps, id_tag_columns=id_tags,
+                    response_column=args.response_column, columns=input_columns,
+                )
+                return v
+
+            # decoded on the ingest pool while the training datasets build
+            validation = ingest_pool.submit(_read_validation)
+    finally:
+        # stop accepting work; the queued validation decode still drains
+        ingest_pool.close()
+    stage_done("read")
+
+    # normalization from feature statistics (GameTrainingDriver:555-571)
+    if args.normalization != "NONE":
+        for cc in coords:
+            if not cc.is_random_effect:
+                stats = compute_feature_statistics(raw, cc.feature_shard)
+                cc.normalization = build_normalization(
+                    args.normalization, stats["mean"], stats["variance"], stats["max_magnitude"],
+                    intercept_index=index_maps[cc.feature_shard].intercept_index, dtype=dtype, device=device,
+                )
+    if args.compute_feature_stats:
+        os.makedirs(args.output_dir, exist_ok=True)
+        for shard in shards:
+            save_feature_statistics(
+                os.path.join(args.output_dir, f"feature-stats-{shard}.avro"),
+                compute_feature_statistics(raw, shard),
+                index_maps[shard],
+            )
+    stage_done("statistics")
+
+    estimator = GameEstimator(
+        task=args.task,
+        coordinate_configs=coords,
+        n_cd_iterations=args.coordinate_descent_iterations,
+        evaluator_specs=[e for e in args.evaluators.split(",") if e],
+        dtype=dtype,
+        validation_frequency=args.validation_frequency,
+        divergence_guard=not args.no_divergence_guard,
+        rejection_tolerance=args.coordinate_rejection_tolerance,
+        device=device,
+    )
+    for sink in sinks:
+        # estimator lifecycle events land in the same JSONL stream
+        estimator.register_listener(sink)
+    if run_t is not None:
+        run_t.execution_plan = estimator.execution_plan.to_dict()
+
+    # datasets are reg-weight-independent: built once, lazily (an idempotent
+    # rerun of a completed checkpoint must not pay the device build)
+    datasets_cache: Dict[str, object] = {}
+
+    def get_datasets():
+        if "d" not in datasets_cache:
+            t0 = time.perf_counter()
+            datasets_cache["d"] = estimator.prepare_datasets(raw)
+            _sync(device)
+            stage_seconds["datasets"] = time.perf_counter() - t0
+        return datasets_cache["d"]
+
+    cd_manager = None
+    resume_snap = None
+    ckpt_topology = None
+    if args.checkpoint_every or args.resume:
+        ckpt_topology = {
+            "n_processes": 1,
+            "mesh_axes": None,
+            "plan_fingerprint": plan_fingerprint(estimator.execution_plan),
+            "global_rows": int(raw.n_rows),
+        }
+    if args.checkpoint_every:
+        if not args.checkpoint_dir:
+            raise SystemExit("--checkpoint-every requires --checkpoint-dir")
+        cd_manager = CheckpointManager(
+            os.path.join(args.checkpoint_dir, "cd-boundaries"),
+            keep_last=args.checkpoint_keep,
+            every=args.checkpoint_every,
+            topology={"mesh_axes": None, "plan_fingerprint": ckpt_topology["plan_fingerprint"]},
+        )
+    if args.resume:
+        if not args.checkpoint_dir:
+            raise SystemExit("--resume requires --checkpoint-dir")
+        mgr = cd_manager or CheckpointManager(
+            os.path.join(args.checkpoint_dir, "cd-boundaries"), keep_last=args.checkpoint_keep,
+        )
+        resume_snap = mgr.latest_valid(
+            expect_coordinate_order=[cc.name for cc in coords],
+            expect_topology=ckpt_topology,
+            device=device,
+        )
+        if resume_snap is None:
+            logger.info("--resume: no valid boundary checkpoint; starting fresh")
+
+    with obs.span("train"):
+        if args.checkpoint_dir:
+            ckpt = _Checkpoint.open(args, coords, index_maps, device, dtype)
+            results = ckpt.fit_grid(
+                estimator, raw, validation, get_datasets,
+                cd_manager=cd_manager, resume_snapshot=resume_snap,
+            )
+        else:
+            results = estimator.fit(raw, validation=validation, datasets=get_datasets())
+    stage_done("train")
+    stage_seconds["train"] -= stage_seconds.get("datasets", 0.0)
+
+    best = estimator.select_best(results)
+    summary = {
+        "task": args.task,
+        "configs": [
+            {
+                "reg_weights": r.config,
+                "metrics": None if r.evaluation is None else r.evaluation.metrics,
+                "rejections": r.rejections,
+            }
+            for r in results
+        ],
+        "best": {
+            "reg_weights": best.config,
+            "metrics": None if best.evaluation is None else best.evaluation.metrics,
+        },
+    }
+    os.makedirs(args.output_dir, exist_ok=True)
+    to_save = results if args.output_mode == OUTPUT_MODE_ALL else [best]
+    for i, r in enumerate(to_save):
+        name = "best" if r is best and args.output_mode != OUTPUT_MODE_ALL else f"model-{i}"
+        save_game_model(
+            os.path.join(args.output_dir, "models", name),
+            r.model,
+            index_maps,
+            metadata={"regWeights": r.config},
+            sparsity_threshold=args.model_sparsity_threshold,
+        )
+    stage_done("write_models")
+    summary["stage_seconds"] = stage_seconds
+    summary["wall_seconds"] = time.perf_counter() - t_run0
+    atomic_write_json(os.path.join(args.output_dir, "training-summary.json"), summary, indent=2, default=float)
+    if run_t is not None:
+        _write_run_summary(args, run_t, t_run0, summary=summary)
+    logger.info("saved %d model(s) to %s", len(to_save), args.output_dir)
+    return summary
+
+
+def _write_run_summary(args, run_t, t_run0, summary=None, aborted=False) -> None:
+    """Write run_summary.json from the run's registry (beside the metrics,
+    else beside the trace). On an abort ``summary`` is None and the
+    document carries ``"aborted": true``."""
+    doc = obs.build_run_summary(run_t.registry, total_wall_seconds=time.perf_counter() - t_run0)
+    doc["task"] = args.task if summary is None else summary["task"]
+    plan = getattr(run_t, "execution_plan", None)
+    if plan is not None:
+        doc["plan"] = plan
+    if summary is not None:
+        doc["best"] = summary["best"]
+        doc["stage_seconds"] = summary["stage_seconds"]
+    if aborted:
+        doc["aborted"] = True
+    summary_dir = args.metrics_out or os.path.dirname(os.path.abspath(args.trace_out))
+    atomic_write_json(os.path.join(summary_dir, "run_summary.json"), doc, indent=2, default=float)
+
+
+def _resolve_validation(validation):
+    """Unwrap a deferred validation dataset (the background decode's future)."""
+    return validation.result() if hasattr(validation, "result") else validation
+
+
+class _Checkpoint:
+    """Per-sweep crash-recovery checkpointing across reg-weight grids.
+
+    State (``checkpoint-state.json``, version 2, atomically replaced; the
+    JAX package's layout, with ``tuning_trials`` always empty here):
+      grid           expanded combo list this run must train, in order
+      completed      per finished combo: model dir + validation metrics
+      current        mid-combo progress: index, completed sweeps, model dir
+
+    Resume = rerun the same command: finished combos reconstruct from their
+    saved models + recorded metrics, and the in-flight combo warm-starts from
+    its last completed sweep, or, with a boundary snapshot further along,
+    continues mid-sweep from it. With --validation-data, best-model tracking
+    within a combo resumed from a per-sweep record restarts at the resume
+    point (the record stores last-sweep models, not the tracked best)."""
+
+    def __init__(self, args, coords, index_maps, state, state_path, device, dtype):
+        self.args = args
+        self.coords = coords
+        self.index_maps = index_maps
+        self.state = state
+        self.state_path = state_path
+        self.dir = args.checkpoint_dir
+        self.device = device
+        self.dtype = dtype
+
+    @classmethod
+    def open(cls, args, coords, index_maps, device, dtype):
+        names = [cc.name for cc in coords]
+        combos = [dict(zip(names, map(float, c))) for c in itertools.product(*[cc.grid() for cc in coords])]
+        state_path = os.path.join(args.checkpoint_dir, "checkpoint-state.json")
+        state = None
+        if os.path.exists(state_path):
+            with open(state_path) as f:
+                state = json.load(f)
+        if state is None:
+            state = {
+                "version": 2,
+                "grid": combos,
+                "n_cd_iterations": args.coordinate_descent_iterations,
+                "completed": [],
+                "current": None,
+                "tuning_trials": [],
+            }
+        elif state.get("version") != 2:
+            raise SystemExit(
+                f"checkpoint at {args.checkpoint_dir} uses state version {state.get('version')}; this "
+                "build writes version 2 — pass a fresh --checkpoint-dir"
+            )
+        elif state.get("grid") != combos:
+            raise SystemExit(
+                f"checkpoint at {args.checkpoint_dir} was written for grid {state.get('grid')}, not "
+                f"{combos}; pass a fresh --checkpoint-dir"
+            )
+        elif state.get("n_cd_iterations") != args.coordinate_descent_iterations:
+            raise SystemExit(
+                f"checkpoint at {args.checkpoint_dir} was written for {state.get('n_cd_iterations')} "
+                "coordinate-descent iterations; resume with the same --coordinate-descent-iterations "
+                "(completed configurations trained that many sweeps)"
+            )
+        if args.validation_data:
+            logger.warning(
+                "--checkpoint-dir with --validation-data: on resume, best-model tracking only sees "
+                "post-resume sweeps of the in-flight configuration"
+            )
+        os.makedirs(args.checkpoint_dir, exist_ok=True)
+        return cls(args, coords, index_maps, state, state_path, device, dtype)
+
+    def _write(self):
+        atomic_write_json(self.state_path, self.state)
+
+    def _load_model(self, model_dir):
+        return load_game_model(
+            os.path.join(self.dir, model_dir), self.index_maps, task=self.args.task,
+            device=self.device, dtype=self.dtype,
+        )
+
+    def _save_model(self, model_dir, game_model, reg_weights):
+        save_game_model(
+            os.path.join(self.dir, model_dir), game_model, self.index_maps,
+            metadata={"regWeights": reg_weights},
+        )
+
+    def _reconstruct(self, rec):
+        ev = None
+        if rec.get("metrics"):
+            from ..evaluation.suite import EvaluationResults
+
+            ev = EvaluationResults(primary_name=rec["primary_name"], metrics=rec["metrics"])
+        return GameResult(model=self._load_model(rec["model_dir"]), config=rec["reg_weights"],
+                          evaluation=ev, trackers={})
+
+    def fit_grid(self, estimator, raw, validation, datasets_fn, cd_manager=None, resume_snapshot=None):
+        """``cd_manager`` (robust.CheckpointManager) adds coordinate-update-
+        boundary snapshots on top of the per-sweep model saves;
+        ``resume_snapshot`` resumes its combo mid-sweep, bit-identical.
+        Whichever record is further along wins; boundary manifests carry
+        ``combo_index`` / ``sweep_offset`` so a snapshot written during a
+        sweep-level-resumed run maps back to global sweep numbering."""
+        validation = _resolve_validation(validation)
+        combos = self.state["grid"]
+        n_iter = self.args.coordinate_descent_iterations
+        results: List[GameResult] = []
+        prev = None
+        for rec in self.state["completed"]:
+            r = self._reconstruct(rec)
+            results.append(r)
+            prev = r.model
+        if self.state["completed"]:
+            logger.info("checkpoint: %d/%d configurations already trained",
+                        len(self.state["completed"]), len(combos))
+
+        for k in range(len(results), len(combos)):
+            done = 0
+            cur = self.state.get("current")
+            if cur and cur.get("index") == k and cur.get("completed_sweeps", 0) > 0:
+                done = int(cur["completed_sweeps"])
+            snap = None
+            if resume_snapshot is not None and int(resume_snapshot.manifest.get("combo_index", -1)) == k:
+                snap = resume_snapshot
+                snap_global = int(snap.manifest.get("sweep_offset", 0)) + int(snap.iteration)
+                if snap_global < done:
+                    logger.info("config %d: per-sweep record (sweep %d) is ahead of the boundary snapshot "
+                                "(sweep %d); using the former", k, done, snap_global)
+                    snap = None
+            if snap is not None:
+                done = int(snap.manifest.get("sweep_offset", 0))
+                logger.info("resuming config %d from boundary snapshot %s (iter %d after coordinate %s)",
+                            k, snap.path, snap.iteration, snap.coordinate)
+            elif done > 0:
+                prev = self._load_model(cur["model_dir"])
+                logger.info("resuming config %d from sweep %d/%d", k, done, n_iter)
+
+            def sweep_fn(reg_weights, iteration, game_model, _k=k, _done=done):
+                j = _done + iteration + 1
+                model_dir = f"config-{_k:03d}-sweep-{j:04d}"
+                self._save_model(model_dir, game_model, reg_weights)
+                self.state["current"] = {"index": _k, "completed_sweeps": j, "model_dir": model_dir}
+                self._write()
+                prev_dir = os.path.join(self.dir, f"config-{_k:03d}-sweep-{j - 1:04d}")
+                if os.path.isdir(prev_dir):
+                    shutil.rmtree(prev_dir, ignore_errors=True)
+
+            boundary = None
+            if cd_manager is not None:
+                def boundary(reg_weights, st, _k=k, _done=done):
+                    cd_manager.on_boundary(st, meta={
+                        "reg_weights": reg_weights,
+                        "combo_index": _k,
+                        "sweep_offset": _done,
+                        "tuner_trials": 0,
+                    })
+
+            if snap is not None:
+                # fine-grained resume: descent continues mid-sweep from the
+                # snapshot (the iteration count of the run that wrote it)
+                r = estimator.fit(
+                    raw, validation=validation, initial_model=prev, checkpoint_fn=sweep_fn,
+                    datasets=datasets_fn(), combos=[combos[k]],
+                    n_cd_iterations=int(snap.manifest["n_iterations"]),
+                    boundary_fn=boundary, resume_state=snap,
+                )[0]
+            elif n_iter - done <= 0:
+                # crashed between the last sweep save and the completion
+                # record: the model is trained, only its metrics are lost;
+                # recover them by scoring the validation set
+                ev = None
+                if validation is not None:
+                    ev = GameTransformer(model=prev, dtype=estimator.dtype, device=estimator.device).transform(
+                        validation, evaluator_specs=estimator.evaluator_specs or ["RMSE"],
+                    )[1]
+                r = GameResult(model=prev, config=combos[k], evaluation=ev, trackers={})
+            else:
+                r = estimator.fit(
+                    raw, validation=validation, initial_model=prev, checkpoint_fn=sweep_fn,
+                    datasets=datasets_fn(), combos=[combos[k]], n_cd_iterations=n_iter - done,
+                    boundary_fn=boundary,
+                )[0]
+            self._finish_combo(k, combos, r, n_iter)
+            results.append(r)
+            prev = r.model
+        return results
+
+    def _finish_combo(self, k, combos, r: GameResult, n_iter):
+        """Record config ``k`` as completed: final model, metrics, state
+        flip, per-sweep model cleanup."""
+        final_dir = f"config-{k:03d}-final"
+        self._save_model(final_dir, r.model, combos[k])
+        self.state["completed"].append({
+            "reg_weights": combos[k],
+            "model_dir": final_dir,
+            "metrics": None if r.evaluation is None else r.evaluation.metrics,
+            "primary_name": None if r.evaluation is None else r.evaluation.primary_name,
+        })
+        self.state["current"] = None
+        self._write()
+        last = os.path.join(self.dir, f"config-{k:03d}-sweep-{n_iter:04d}")
+        if os.path.isdir(last):
+            shutil.rmtree(last, ignore_errors=True)
+
+
+def main():
+    run(sys.argv[1:])
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,16 @@
-"""Estimators: the legacy GLM driver's grid training and model selection
-(``model_training``). The GAME estimator is ROADMAP A12."""
+"""Estimators: the GAME estimator and its scoring twin (``game_estimator``)
+and the legacy GLM driver's grid training and model selection
+(``model_training``)."""
 
+from .game_estimator import CoordinateConfig, GameEstimator, GameResult, GameTransformer
 from .model_training import TrainedModel, select_best_model, train_glm_grid
 
-__all__ = ["TrainedModel", "train_glm_grid", "select_best_model"]
+__all__ = [
+    "CoordinateConfig",
+    "GameEstimator",
+    "GameResult",
+    "GameTransformer",
+    "TrainedModel",
+    "select_best_model",
+    "train_glm_grid",
+]

@@ -5,6 +5,7 @@ Counterpart (a copy) of the JAX package's ``evaluation/suite.py``. Scores
 are aligned with labels in fixed sample order; grouped evaluators pull their
 id column from the id-tag map. ``evaluate_device`` computes every ungrouped
 metric on the scores' device with one fetch (``evaluation/device.py``).
+Each evaluation is an ``evaluate.device`` or ``evaluate.host`` span.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 
+from ..obs.tracing import span
 from .evaluators import Evaluator, build_evaluator, grouped_evaluate
 
 
@@ -62,11 +64,16 @@ class EvaluationSuite:
             )
         if self._device_eval is None:
             return None
-        return EvaluationResults(
-            primary_name=self.primary.name, metrics=self._device_eval(scores)
-        )
+        with span("evaluate.device"):
+            return EvaluationResults(
+                primary_name=self.primary.name, metrics=self._device_eval(scores)
+            )
 
     def evaluate(self, scores) -> EvaluationResults:
+        with span("evaluate.host"):
+            return self._evaluate_host(scores)
+
+    def _evaluate_host(self, scores) -> EvaluationResults:
         if hasattr(scores, "detach"):  # a torch tensor
             scores = scores.detach().cpu().double().numpy()
         scores = np.asarray(scores, dtype=np.float64)

@@ -30,6 +30,9 @@ The fixed effect down-samples its training batch when its config asks
 ``torch.Generator`` seeded with ``down_sampling_seed``; over a data-parallel
 group every rank draws the whole mask and keeps its rows).
 
+Both coordinates carry the fault site ``solver.value_and_grad`` on the
+effective offsets of their solve (``robust.faults``).
+
 Not ported yet, each raising with its ROADMAP item: streamed datasets (A7),
 and random-effect priors from a ``prior_model`` (A8). The lane-stacked
 ``train_lanes`` of both coordinates is A8 as well.
@@ -56,6 +59,7 @@ from ..ops.losses import get_loss
 from ..ops.normalization import NormalizationContext
 from ..optimize import OptimizerType, SolverResult, SyncCounter, solve_lbfgs, solve_tron
 from ..optimize.common import LEADING, MINOR, abs_tolerances
+from ..robust import faults
 from .data import FixedEffectDataset, RandomEffectDataset
 from .problem import GLMOptimizationConfig, GLMProblem, batch_route
 from .sampling import down_sample, local_rows
@@ -131,6 +135,10 @@ class FixedEffectCoordinate(Coordinate):
                 batch, self.task, self.config.down_sampling_rate, self.down_sampling_seed,
                 n_rows=self.dataset.n_rows,
             )
+        if faults.active():
+            # fault site solver.value_and_grad: the effective offsets of
+            # this solve
+            batch = dataclasses.replace(batch, offsets=faults.corrupt("solver.value_and_grad", batch.offsets))
         problem = GLMProblem(
             task=self.task,
             config=self.config,
@@ -205,6 +213,10 @@ class RandomEffectCoordinate(Coordinate):
             offsets = blocks.offsets + res_blocks.to(dtype)
         else:
             offsets = blocks.offsets
+        if faults.active():
+            # the fixed effect's fault site; flat index 0 of the [E, K]
+            # offsets is entity 0's first row, so exactly one lane diverges
+            offsets = faults.corrupt("solver.value_and_grad", offsets)
         lo = 0 if group is None else group.rank * E
         if initial_model is not None:
             w0 = _project_model_values(ds, initial_model, initial_model.coef_values, dtype)

@@ -17,15 +17,17 @@ term).
 
 Two decode engines: the native C++ columnar decoder (``native``) and the
 pure-Python codec (``io/avro.py``); ``DECODED_PARTS`` counts the part files
-each engine decoded, so a run can show which one ran. Multi-process metrics
-and tracing spans of the JAX package's ingest come with ROADMAP A13; the
-mesh-tiled sparse layout (``layout="tiled"``) is A10.
+each engine decoded, so a run can show which one ran. The chunked reader
+records the JAX package's ingest metrics (``photon_ingest_*``) and spans
+(``ingest.chunked``, ``ingest.decode``) in the ``obs`` registry. The
+mesh-tiled sparse layout (``layout="tiled"``) is ROADMAP A10.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import threading
 import os
 from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Tuple, Union
 
@@ -448,13 +450,38 @@ def _pipeline_parts(
     :class:`~photon_ml_tpu_torch.utils.futures.PrefetchQueue` decodes parts
     concurrently, the sequencer re-emits them in file order (bit-stable row
     order at any worker count), and ``ingest_budget_bytes`` bounds the parts
-    in flight (queued + held + being-decoded) by compressed on-disk size."""
+    in flight (queued + held + being-decoded) by compressed on-disk size.
+    Emits ``photon_ingest_decode_seconds{worker=}``,
+    ``photon_ingest_queue_depth`` and
+    ``photon_ingest_budget_stalls_total``, and an ``ingest.decode`` span a
+    part."""
+    from .. import obs
     from ..utils.futures import PrefetchQueue
 
     n_workers = resolve_ingest_workers(workers)
+    reg = obs.current_run().registry
+    depth_gauge = reg.gauge(
+        "photon_ingest_queue_depth",
+        "decoded parts waiting in the chunked reader's prefetch queue",
+    )
+    decode_hist = reg.histogram(
+        "photon_ingest_decode_seconds",
+        "per-part decode wall inside the ingest worker pool",
+    )
+    stall_counter = reg.counter(
+        "photon_ingest_budget_stalls_total",
+        "part decodes deferred because in-flight bytes hit the ingest budget",
+    )
+    # workers run off the consumer thread: anchor their spans explicitly
+    # (contextvar span ancestry does not cross threads)
+    anchor = obs.current_span()
 
     def _decode(i: int):
-        return read_avro_file(parts[i], reader_schema)[1]
+        part = parts[i]
+        with obs.span("ingest.decode", parent=anchor, part=os.path.basename(part)) as sp:
+            records = read_avro_file(part, reader_schema)[1]
+        decode_hist.labels(worker=threading.current_thread().name).observe(sp.duration_s)
+        return records
 
     # depth >= workers so every worker can hold one part in flight;
     # at workers=1 this is exactly the pre-pool depth (max(2, 1) == 2)
@@ -475,10 +502,14 @@ def _pipeline_parts(
             if idx != i:
                 raise RuntimeError("chunked reader prefetch out of order")
             DECODED_PARTS["python"] += 1
+            depth_gauge.labels(mode="chunked").set(q.qsize())
             consume(i, records)
             del records
     finally:
+        # close first: a metrics-label error must not leave the queue's
+        # worker threads running (budget_stalls stays readable after close)
         q.close()
+        stall_counter.labels(mode="chunked").inc(q.budget_stalls)
 
 
 def scan_index_maps_pipelined(
@@ -611,9 +642,32 @@ def read_avro_dataset_chunked(
     blocks (sized as above). Identical output to ``read_avro_dataset`` in
     all cases (part order is preserved, so row order matches bit-for-bit).
     """
+    from .. import obs
+    from .avro import list_avro_parts
+
     paths = [path] if isinstance(path, str) else list(path)
     if engine not in ("auto", "native", "python"):
         raise ValueError(f"unknown engine {engine!r}")
+    n_parts = sum(len(list_avro_parts(p)) for p in paths)
+    with obs.span("ingest.chunked", n_parts=n_parts):
+        ds, maps = _read_chunked(
+            paths, shard_configs, index_maps, id_tag_columns, response_column, columns,
+            reader_schema, prefetch_depth, workers, pool, ingest_budget_bytes, engine,
+        )
+    reg = obs.current_run().registry
+    reg.counter(
+        "photon_ingest_parts_total", "part files decoded by the chunked reader"
+    ).labels(mode="chunked").inc(n_parts)
+    reg.counter(
+        "photon_ingest_rows_total", "rows produced by the chunked reader"
+    ).labels(mode="chunked").inc(ds.n_rows)
+    return ds, maps
+
+
+def _read_chunked(
+    paths, shard_configs, index_maps, id_tag_columns, response_column, columns,
+    reader_schema, prefetch_depth, workers, pool, ingest_budget_bytes, engine,
+):
     if engine != "python" and reader_schema is None:
         from .. import native
 
@@ -762,7 +816,7 @@ def _native_read(
     """C++ columnar fast path of read_avro_dataset (``native``):
     same semantics as records_to_dataset, vectorized end-to-end. Returns
     None when the native library is unavailable."""
-    from .. import native
+    from .. import native, obs
 
     if not native.available():
         return None
@@ -818,13 +872,14 @@ def _native_read(
     # chunk Columnars stitch exactly like per-file parts
     cols: List[native.Columnar] = []
     for part, window in _iter_part_windows(paths, row_range, part_counts):
-        cols.extend(
-            native.decode_file_chunks(
-                part, num_fields, str_fields, bag_fields, map_keys,
-                map_field=col_names[META_DATA_MAP], row_range=window,
-                n_threads=workers,
+        with obs.span("ingest.decode", part=os.path.basename(part), engine="native"):
+            cols.extend(
+                native.decode_file_chunks(
+                    part, num_fields, str_fields, bag_fields, map_keys,
+                    map_field=col_names[META_DATA_MAP], row_range=window,
+                    n_threads=workers,
+                )
             )
-        )
         DECODED_PARTS["native"] += 1
 
     n = sum(c.n_rows for c in cols)

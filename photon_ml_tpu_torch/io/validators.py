@@ -175,6 +175,12 @@ def _quarantine(raw: RawDataset, task: str) -> int:
                 f"QUARANTINE zero-weighted all {count} rows; nothing left "
                 "to train on"
             )
+        from .. import obs
+
+        obs.current_run().registry.counter(
+            "photon_rows_quarantined_total",
+            "input rows zero-weighted by QUARANTINE validation",
+        ).inc(count)
         logger.warning(
             "data validation quarantined %d/%d rows (zero-weighted)",
             count, raw.n_rows,

@@ -58,6 +58,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
+
 from .common import (
     LEADING,
     MINOR,
@@ -217,6 +219,13 @@ def _line_search(var: _Variant, w, f_h, g, direction, dg, orthant, max_iters, sy
     return trial, False
 
 
+def _recorded(result: SolverResult) -> SolverResult:
+    """A one-problem solve's result, recorded in the obs registry when a
+    sink listens (``obs.record_solver_metrics``)."""
+    obs.record_solver_metrics("lbfgs", result)
+    return result
+
+
 def solve_lbfgs(
     value_and_grad: ValueAndGradFn,
     w0: Tensor,
@@ -259,7 +268,7 @@ def solve_lbfgs(
 
     def result(it: int, reason: int) -> SolverResult:
         T = max_iterations + 1
-        return SolverResult(
+        return _recorded(SolverResult(
             coefficients=w,
             loss=f,
             gradient=pg,
@@ -268,7 +277,7 @@ def solve_lbfgs(
             loss_history=nan_history(lh, T, w),
             grad_norm_history=nan_history(gh, T, w),
             syncs=syncs.count,
-        )
+        ))
 
     if not ok:
         # corrupt at start: no good iterate to roll back to

@@ -5,9 +5,9 @@ tracker wraps one solve's result; a random-effect tracker aggregates the
 per-entity lanes of one lockstep solve (a histogram of convergence reasons
 and a StatCounter of iterations, over the entities with rows). The
 aggregates are lazy: building a tracker fetches nothing from the device,
-so the coordinate-descent loop can build one every sweep. (The JAX
-package's ``record_tracker_metrics`` feeds its metrics registry, which the
-port does not have yet: ROADMAP A13.)
+so the coordinate-descent loop can build one every sweep.
+``record_tracker_metrics`` folds a tracker into the ``obs`` registry (it
+fetches, so the loop calls it only when a sink listens).
 """
 
 from __future__ import annotations
@@ -130,3 +130,47 @@ def build_tracker(coordinate, result: Optional[SolverResult]):
     counts = getattr(dataset, "entity_counts", None)
     mask = None if counts is None else np.asarray(counts)[: result.reason.shape[0]] > 0
     return RandomEffectOptimizationTracker.from_result(result, entity_mask=mask)
+
+
+def record_tracker_metrics(registry, coordinate_name: str, tracker) -> None:
+    """Fold one coordinate update's tracker into the metrics registry:
+    ``photon_cd_iterations`` (StatCounter-compatible summary),
+    ``photon_cd_convergence_reason_total`` and the latest update's
+    iterations (and, for a fixed effect, its final loss) per coordinate.
+    Forces the tracker's lazy aggregates (one fetch), so callers in the CD
+    loop gate this on ``obs.active()``."""
+    if tracker is None:
+        return
+    iters = registry.summary(
+        "photon_cd_iterations", "solver iterations per coordinate update"
+    ).labels(coordinate=coordinate_name)
+    reasons = registry.counter(
+        "photon_cd_convergence_reason_total",
+        "coordinate-update solves by termination reason",
+    )
+    latest = registry.gauge(
+        "photon_cd_update_iterations",
+        "solver iterations of the latest coordinate update (entity mean "
+        "for random effects)",
+    ).labels(coordinate=coordinate_name)
+    if isinstance(tracker, RandomEffectOptimizationTracker):
+        st = tracker.iterations_stats
+        iters.merge_stat(st.count, st.mean, st.stdev, st.max, st.min)
+        latest.set(st.mean)
+        for reason, n in tracker.convergence_reasons.items():
+            reasons.labels(coordinate=coordinate_name, reason=reason).inc(n)
+    else:
+        from ..obs import add_device_fetch_bytes
+
+        r = tracker.result
+        iters_v, reason_v, loss_v = int(_host(r.iterations)), int(_host(r.reason)), float(_host(r.loss))
+        add_device_fetch_bytes("tracker_metrics", _host(r.loss).nbytes)
+        iters.observe(iters_v)
+        latest.set(iters_v)
+        reasons.labels(
+            coordinate=coordinate_name,
+            reason=ConvergenceReason(reason_v).name,
+        ).inc()
+        registry.gauge(
+            "photon_cd_final_loss", "final training loss of the latest update"
+        ).labels(coordinate=coordinate_name).set(loss_v)

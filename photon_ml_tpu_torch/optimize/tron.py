@@ -40,6 +40,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import obs
 from .common import (
     LEADING,
     MINOR,
@@ -115,6 +116,13 @@ def _truncated_cg(
     return step, r, it
 
 
+def _recorded(result: SolverResult) -> SolverResult:
+    """A one-problem solve's result, recorded in the obs registry when a
+    sink listens (``obs.record_solver_metrics``)."""
+    obs.record_solver_metrics("tron", result)
+    return result
+
+
 def solve_tron(
     value_and_grad: ValueAndGradFn,
     hvp: HvpFn,
@@ -145,7 +153,7 @@ def solve_tron(
 
     def result(it: int, reason: int) -> SolverResult:
         T = max_iterations + 1
-        return SolverResult(
+        return _recorded(SolverResult(
             coefficients=w,
             loss=f,
             gradient=g,
@@ -154,7 +162,7 @@ def solve_tron(
             loss_history=nan_history(lh, T, w),
             grad_norm_history=nan_history(gh, T, w),
             syncs=syncs.count,
-        )
+        ))
 
     if not ok:
         # corrupt at start: no good iterate to roll back to

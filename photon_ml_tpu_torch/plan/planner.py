@@ -1,0 +1,348 @@
+"""The execution planner: resolve the run's configuration up front.
+
+The JAX package's ``plan/planner.py`` on the port. ``resolve`` takes every
+per-coordinate knob (layout, feature dtype, HBM budget) and the run-level
+topology (mesh, process count, pipeline depth, trial lanes) and decides,
+before any data is read or any device memory committed, the routing each
+coordinate takes, or raises one typed :class:`PlanError`.
+
+The port resolves the compositions it runs: resident coordinates on one
+card, dense / ELL / sorted-COO fixed-effect layouts, float32 or bfloat16
+feature storage, the serial sweep. For the compositions it has not ported,
+it refuses with a ``PlanError`` that names its ROADMAP item: HBM-budget
+streaming and sweep pipelining (A7), trial lanes, incremental training and
+locked coordinates (A8), meshes, the tiled layout and multiple processes
+(A10). ``plan_fingerprint`` and ``check_checkpoint_topology`` are the JAX
+package's, so a checkpoint's manifest speaks the same topology contract.
+
+The module imports no torch: a plan resolves (``cli train --explain-plan``)
+on a host with no card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+from typing import Dict, Mapping, Optional, Sequence, Tuple
+
+
+class PlanError(ValueError):
+    """A configuration the execution planner refuses (a ``ValueError``)."""
+
+
+A7 = "ROADMAP A7"
+A8 = "ROADMAP A8"
+A10 = "ROADMAP A10"
+
+
+def not_ported(what: str, item: str) -> PlanError:
+    """The refusal of a composition the port has not ported yet."""
+    return PlanError(f"{what} is not ported yet ({item})")
+
+
+# -- resolved plan types -----------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class CoordinatePlan:
+    """The routing one coordinate takes under the resolved plan."""
+
+    name: str
+    kind: str  # "fixed-effect" | "random-effect"
+    layout: str
+    feature_dtype: str
+    residency: str  # "resident"
+    sharding: str  # "single-device"
+    pipelined: bool
+    hbm_budget_mb: Optional[int] = None
+    geometry: Dict[str, object] = dataclasses.field(default_factory=dict)
+    notes: Tuple[str, ...] = ()
+
+    def to_dict(self) -> Dict[str, object]:
+        d = dataclasses.asdict(self)
+        d["notes"] = list(self.notes)
+        return d
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutionPlan:
+    """The full resolved execution configuration for one training run."""
+
+    coordinates: Tuple[CoordinatePlan, ...]
+    mesh_axes: Optional[Dict[str, int]]
+    n_processes: int
+    pipeline_depth: int
+    trial_lanes: int
+    normalization: str
+    distributed: bool
+
+    def to_dict(self) -> Dict[str, object]:
+        return {
+            "coordinates": [c.to_dict() for c in self.coordinates],
+            "mesh_axes": dict(self.mesh_axes) if self.mesh_axes else None,
+            "n_processes": self.n_processes,
+            "pipeline_depth": self.pipeline_depth,
+            "trial_lanes": self.trial_lanes,
+            "normalization": self.normalization,
+            "distributed": self.distributed,
+        }
+
+    def pretty(self) -> str:
+        mesh = (
+            " ".join(f"{k}={v}" for k, v in self.mesh_axes.items())
+            if self.mesh_axes
+            else "none (single device)"
+        )
+        lines = [
+            "execution plan",
+            f"  topology: {self.n_processes} process(es), mesh {mesh}",
+            f"  pipeline depth: {self.pipeline_depth} (serial)",
+            f"  trial lanes: {self.trial_lanes}",
+            f"  normalization: {self.normalization}",
+            "  coordinates:",
+        ]
+        for c in self.coordinates:
+            lines.append(
+                f"    {c.name}: {c.kind}, layout={c.layout}, "
+                f"feature_dtype={c.feature_dtype}, {c.residency}, {c.sharding}"
+            )
+            for k in sorted(c.geometry):
+                lines.append(f"      {k}: {c.geometry[k]}")
+            for n in c.notes:
+                lines.append(f"      note: {n}")
+        return "\n".join(lines)
+
+
+# -- mesh introspection (dict, tuple or None) --------------------------------
+
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+
+
+def _mesh_axes(mesh) -> Optional[Dict[str, int]]:
+    """Normalize a mesh spec to {"data": n, "model": n} (None -> no mesh)."""
+    if mesh is None:
+        return None
+    if isinstance(mesh, dict):
+        return {DATA_AXIS: int(mesh.get(DATA_AXIS, 1)),
+                MODEL_AXIS: int(mesh.get(MODEL_AXIS, 1))}
+    if isinstance(mesh, (tuple, list)):
+        n_data = int(mesh[0])
+        n_model = int(mesh[1]) if len(mesh) > 1 else 1
+        return {DATA_AXIS: n_data, MODEL_AXIS: n_model}
+    raise TypeError(f"cannot interpret mesh spec {mesh!r}")
+
+
+def dtype_name(feature_dtype) -> str:
+    """"float32" for None, else the dtype's short name ("bfloat16")."""
+    if feature_dtype is None:
+        return "float32"
+    return str(feature_dtype).rsplit(".", 1)[-1]
+
+
+# -- legality checks ---------------------------------------------------------
+
+
+def _check_coordinate(cc) -> None:
+    if cc.hbm_budget_mb is not None:
+        raise not_ported(f"coordinate {cc.name}: hbm_budget_mb (out-of-core streaming)", A7)
+    if cc.layout == "tiled":
+        raise not_ported(f"coordinate {cc.name}: layout='tiled' (the mesh-tiled sparse batch)", A10)
+    if cc.regularize_by_prior:
+        raise not_ported(f"coordinate {cc.name}: regularize-by-prior (incremental training)", A8)
+    if cc.feature_dtype is not None and dtype_name(cc.feature_dtype) not in ("float32", "bfloat16"):
+        raise PlanError(f"coordinate {cc.name}: feature_dtype must be float32 or bfloat16")
+
+
+def check_multiprocess_mesh(n_processes: int, mesh) -> None:
+    """Multi-process training and device meshes are ROADMAP A10."""
+    if n_processes > 1:
+        raise not_ported("multi-process training", A10)
+    if _mesh_axes(mesh) is not None:
+        raise not_ported("a device mesh", A10)
+
+
+def check_lane_composition(coordinate_configs: Sequence, n_lanes: int) -> None:
+    """Trial lanes (``--trial-lanes``, ``fit_lanes``) are ROADMAP A8."""
+    if n_lanes < 1:
+        raise PlanError(f"trial-lanes must be >= 1: {n_lanes}")
+    if n_lanes > 1:
+        raise not_ported("trial-lanes sweeps", A8)
+
+
+def check_retrain_composition(
+    distributed: bool, trial_lanes: int, streamed_coordinates=()
+) -> None:
+    """The JAX package's refusals of the incremental-retrain compositions,
+    copied verbatim: the day chain is a local control loop, trial lanes have
+    no per-lane prior, and streamed coordinates never materialize the
+    host-resident models the per-day merge carries forward. (The retrain
+    driver itself is ROADMAP A8.)"""
+    if distributed:
+        raise PlanError(
+            "incremental retrain is single-process: not composable with "
+            "--distributed (the day chain's ledger, model merge and serving "
+            "publish are host-local; shard the feed by day across hosts "
+            "instead)"
+        )
+    if trial_lanes and trial_lanes > 1:
+        raise PlanError(
+            "incremental retrain warm-starts with regularize-by-prior: not "
+            "composable with --trial-lanes (the lane solver has no per-lane "
+            "prior operand)"
+        )
+    streamed = [str(c) for c in streamed_coordinates if c]
+    if streamed:
+        raise PlanError(
+            "incremental retrain requires HBM-resident coordinates: not "
+            "composable with hbm.budget.mb streaming (the per-day entity "
+            f"merge carries host-resident models forward) — remove "
+            f"hbm.budget.mb from {sorted(streamed)}"
+        )
+
+
+# -- checkpoint topology (resume legality across topology changes) ----------
+
+
+def plan_fingerprint(plan: ExecutionPlan) -> str:
+    """A stable digest of the plan facts that must MATCH for a checkpoint
+    to be resumable: the coordinate set and each coordinate's layout,
+    feature dtype, kind and residency, plus the normalization mode (the
+    JAX package's digest of the same facts)."""
+    facts = {
+        "coordinates": [
+            {
+                "name": c.name,
+                "kind": c.kind,
+                "layout": c.layout,
+                "feature_dtype": c.feature_dtype,
+                "residency": c.residency,
+            }
+            for c in plan.coordinates
+        ],
+        "normalization": plan.normalization,
+    }
+    blob = json.dumps(facts, sort_keys=True).encode("utf-8")
+    return hashlib.sha256(blob).hexdigest()[:16]
+
+
+def check_checkpoint_topology(saved: Mapping, current: Mapping) -> None:
+    """Judge whether a checkpoint written under ``saved`` topology may be
+    restored by a run under ``current`` topology (keys, each optional:
+    ``n_processes``, ``mesh_axes``, ``global_rows``, ``plan_fingerprint``).
+    The JAX package's rules, copied: the same topology resumes; a
+    model-axis change, a process-count change whose global row totals
+    disagree, and a changed plan fingerprint raise."""
+
+    def _axes(t: Mapping) -> Optional[Dict[str, int]]:
+        try:
+            return _mesh_axes(t.get("mesh_axes"))
+        except TypeError:
+            return None
+
+    saved_model = (_axes(saved) or {}).get(MODEL_AXIS, 1)
+    current_model = (_axes(current) or {}).get(MODEL_AXIS, 1)
+    if saved_model != current_model:
+        raise PlanError(
+            "checkpoint mesh reshape across the model axis is not "
+            f"supported: the checkpoint was saved with model={saved_model}, "
+            f"this run uses model={current_model}; resume on a mesh with "
+            "the same model axis (data-axis reshapes are the legal ones)"
+        )
+    saved_p, current_p = saved.get("n_processes"), current.get("n_processes")
+    saved_rows = saved.get("global_rows")
+    current_rows = current.get("global_rows")
+    if (
+        saved_p is not None
+        and current_p is not None
+        and int(saved_p) != int(current_p)
+        and saved_rows is not None
+        and current_rows is not None
+        and int(saved_rows) != int(current_rows)
+    ):
+        raise PlanError(
+            "cannot resume: the process count changed and no legal reshape "
+            f"exists — the padded global row totals disagree ({saved_rows} "
+            f"rows saved under {saved_p} process(es), {current_rows} under "
+            f"{current_p}: per-host padding rows would land inside the "
+            "data); rerun with the original process count, or a row count "
+            "whose per-host padding agrees"
+        )
+    saved_fp = saved.get("plan_fingerprint")
+    current_fp = current.get("plan_fingerprint")
+    if saved_fp and current_fp and saved_fp != current_fp:
+        raise PlanError(
+            "resuming across a changed execution plan is not supported: "
+            f"the checkpoint's plan fingerprint {saved_fp} != this run's "
+            f"{current_fp} (the coordinate set, a layout, a feature dtype "
+            "or a residency changed — the snapshot would silently train a "
+            "different model); rerun the original configuration or start a "
+            "fresh checkpoint directory"
+        )
+
+
+# -- the planner -------------------------------------------------------------
+
+
+def resolve(
+    coordinate_configs: Sequence,
+    *,
+    mesh=None,
+    n_processes: int = 1,
+    pipeline_depth: int = 1,
+    trial_lanes: int = 1,
+    distributed: bool = False,
+    partial_retrain_locked: Sequence[str] = (),
+    normalization: str = "NONE",
+    dims: Optional[Dict[str, int]] = None,
+) -> ExecutionPlan:
+    """Resolve the execution configuration, or raise one typed PlanError.
+
+    ``coordinate_configs`` are ``CoordinateConfig``-shaped objects (name,
+    feature_shard, layout, feature_dtype, hbm_budget_mb, is_random_effect,
+    regularize_by_prior). ``dims`` optionally maps feature-shard name ->
+    dimension; a fixed effect on ``layout=auto`` then records the layout
+    the batch build picks (dense up to d = 4,096, ELL above)."""
+    if pipeline_depth < 1:
+        raise PlanError(f"pipeline depth must be >= 1: {pipeline_depth}")
+    if distributed:
+        raise not_ported("--distributed (multi-process training)", A10)
+    check_multiprocess_mesh(n_processes, mesh)
+    check_lane_composition(coordinate_configs, trial_lanes)
+    if pipeline_depth > 1:
+        raise not_ported("sweep pipelining (pipeline_depth > 1)", A7)
+    if partial_retrain_locked:
+        raise not_ported("partial retraining (locked coordinates)", A8)
+
+    plans = []
+    for cc in coordinate_configs:
+        _check_coordinate(cc)
+        geometry: Dict[str, object] = {}
+        dim = (dims or {}).get(cc.feature_shard)
+        if dim is not None:
+            geometry["dim"] = int(dim)
+            if not cc.is_random_effect and cc.layout == "auto":
+                geometry["batch_layout"] = "dense" if dim <= 4096 else "ell"
+        plans.append(
+            CoordinatePlan(
+                name=cc.name,
+                kind="random-effect" if cc.is_random_effect else "fixed-effect",
+                layout=cc.layout,
+                feature_dtype=dtype_name(cc.feature_dtype),
+                residency="resident",
+                sharding="single-device",
+                pipelined=False,
+                geometry=geometry,
+            )
+        )
+
+    return ExecutionPlan(
+        coordinates=tuple(plans),
+        mesh_axes=None,
+        n_processes=1,
+        pipeline_depth=1,
+        trial_lanes=1,
+        normalization=normalization,
+        distributed=False,
+    )

@@ -17,9 +17,9 @@ Properties the tests pin down:
   propagates immediately;
 - seeded: jitter comes from ``random.Random(seed)``, so backoff schedules
   are reproducible in tests and across resumed runs;
-- counted and fault-injectable in the JAX package only: its obs counter
-  of retried failures and its fault-injection hook come to the port with
-  the observability and fault-tolerance slice (ROADMAP A13).
+- observable: every retried failure increments
+  ``photon_retry_attempts_total{site=}`` in the current obs registry, so a
+  flaky filesystem shows up in run_summary.json instead of only in latency.
 """
 
 from __future__ import annotations
@@ -31,6 +31,22 @@ import time
 from typing import Callable, List, Tuple, Type
 
 logger = logging.getLogger("photon_ml_tpu_torch")
+
+
+def _count_retry(site: str, delay: float) -> None:
+    # lazy import: obs's sinks import robust.atomic, so robust imports obs
+    # at call time
+    from .. import obs
+
+    reg = obs.current_run().registry
+    reg.counter(
+        "photon_retry_attempts_total",
+        "IO attempts that failed and were retried, by site",
+    ).labels(site=site).inc()
+    reg.histogram(
+        "photon_retry_backoff_seconds",
+        "backoff slept before an IO retry, by site",
+    ).labels(site=site).observe(delay)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +99,7 @@ class RetryPolicy:
             except self.retryable as e:
                 if attempt == self.max_attempts - 1:
                     raise
+                _count_retry(site, delays[attempt])
                 logger.warning(
                     "retryable failure at %s (attempt %d/%d): %s; retrying "
                     "in %.3fs",
@@ -112,5 +129,13 @@ DEFAULT_IO_POLICY = RetryPolicy()
 
 
 def io_call(fn: Callable, *args, site: str, **kwargs):
-    """``DEFAULT_IO_POLICY.call`` of ``fn`` at the IO site ``site``."""
-    return DEFAULT_IO_POLICY.call(fn, *args, site=site, **kwargs)
+    """``DEFAULT_IO_POLICY.call`` with the fault-injection hook folded in:
+    the injector fires BEFORE the real call, so an injected transient error
+    exercises the same retry path a real one would."""
+    from . import faults
+
+    def attempt():
+        faults.check(site)
+        return fn(*args, **kwargs)
+
+    return DEFAULT_IO_POLICY.call(attempt, site=site)

@@ -947,3 +947,107 @@ def test_glm_driver_on_card_runs_b3_with_shifts(cuda, tmp_path):
         with open(f"{sub}/model.txt") as f:
             text = np.asarray([np.float32(line.split("\t")[1]) for line in f.read().strip().split("\n")])
         assert np.array_equal(back.coefficients.means.cpu().numpy(), text)
+
+
+def _game_fixture(tmp_path):
+    """tests/test_cli.py's GAME fixture (900 rows, 5 global features, 15
+    users with 3 features each), written by the port's Avro writer."""
+    from photon_ml_tpu_torch.io import write_avro_file
+    from photon_ml_tpu_torch.io.schemas import TRAINING_EXAMPLE_AVRO
+    from photon_ml_tpu_torch.testing import generate_game_records, generate_mixed_effect_data
+
+    recs = generate_game_records(generate_mixed_effect_data(n=900, d_fixed=5, re_specs={"userId": (15, 3)}, seed=31))
+    schema = {**TRAINING_EXAMPLE_AVRO, "fields": TRAINING_EXAMPLE_AVRO["fields"] + [
+        {"name": "userFeatures", "type": {"type": "array", "items": "FeatureAvro"}, "default": []}]}
+    train, val = str(tmp_path / "train.avro"), str(tmp_path / "val.avro")
+    write_avro_file(train, schema, recs[:600])
+    write_avro_file(val, schema, recs[600:])
+    return train, val
+
+
+_GAME_SHARDS = ["--feature-shard", "name=globalShard,bags=features",
+                "--feature-shard", "name=userShard,bags=userFeatures"]
+
+
+def test_game_driver_on_card_launches_the_kernels_and_resumes_bitwise(cuda, tmp_path, monkeypatch):
+    """cli.train on the card (TRON + SIMPLE + STANDARDIZATION fixed effect,
+    L-BFGS per-user effect, AUC on validation): B1, B2, B3 with its shift
+    terms and S1's ELL matvec (validation scoring) launch; killed right
+    after the third boundary checkpoint and resumed, every saved
+    coefficient equals the straight run's bit for bit."""
+    from photon_ml_tpu_torch.cli import train
+    from photon_ml_tpu_torch.io import FeatureShardConfig, load_game_model, read_avro_dataset
+    from photon_ml_tpu_torch.robust import SimulatedKill, faults
+
+    train_p, val_p = _game_fixture(tmp_path)
+
+    def argv(out, extra=()):
+        return ["--input-data", train_p, "--validation-data", val_p, *_GAME_SHARDS,
+                "--coordinate", "name=global,shard=globalShard,optimizer=TRON,tolerance=1e-6,max.iter=10,"
+                                "reg.type=L2,reg.weights=1,variance=SIMPLE",
+                "--coordinate", "name=per-user,shard=userShard,re.type=userId,tolerance=1e-6,max.iter=30,"
+                                "reg.type=L2,reg.weights=1,active.cap=256",
+                "--normalization", "STANDARDIZATION", "--coordinate-descent-iterations", "2",
+                "--evaluators", "AUC", "--output-dir", out, "--log-level", "WARNING", *extra]
+
+    monkeypatch.delenv("PHOTON_FAULTS", raising=False)
+    fg.reset_launch_counts()
+    straight = train.run(argv(str(tmp_path / "straight")))
+    assert straight["best"]["metrics"]["AUC"] > 0.65
+    assert fg.LAUNCHES["fused_value_grad"] > 0 and fg.LAUNCHES["fused_hessian_vector"] > 0
+    assert fg.SHIFT_LAUNCHES["fused_hessian_stats"] > 0 and sparse.SPARSE_LAUNCHES["ell_matvec"] > 0
+    resumed_out = str(tmp_path / "resumed")
+    ck = ["--checkpoint-dir", str(tmp_path / "ck"), "--checkpoint-every", "1"]
+    monkeypatch.setenv("PHOTON_FAULTS", "cd.boundary_saved:kill:3")
+    with pytest.raises(SimulatedKill):
+        train.run(argv(resumed_out, ck))
+    monkeypatch.delenv("PHOTON_FAULTS")
+    resumed = train.run(argv(resumed_out, ck + ["--resume"]))
+    faults.clear()
+    assert resumed["best"] == straight["best"]
+    _, maps = read_avro_dataset(train_p, {"globalShard": FeatureShardConfig(("features",)),
+                                          "userShard": FeatureShardConfig(("userFeatures",))})
+    a = load_game_model(f"{tmp_path}/straight/models/best", maps, task="logistic_regression")
+    b = load_game_model(f"{resumed_out}/models/best", maps, task="logistic_regression")
+    assert b["global"].model.coefficients.means.device.type == "cuda"
+    for x, y in ((a["global"].model.coefficients.means, b["global"].model.coefficients.means),
+                 (a["global"].model.coefficients.variances, b["global"].model.coefficients.variances),
+                 (a["per-user"].coef_values, b["per-user"].coef_values)):
+        assert torch.equal(x, y)
+
+
+def test_score_engine_on_card_runs_s1_and_matches_plain(cuda, tmp_path):
+    """ScoreEngine.score_dataset on the card: one S1 launch per fixed
+    effect, scores at rtol 1e-5 of the plain route's and of the CPU's, and
+    equal bit for bit to GameTransformer's and to cli.score's."""
+    import numpy as np
+
+    from photon_ml_tpu_torch.cli import score, train
+    from photon_ml_tpu_torch.estimators import GameTransformer
+    from photon_ml_tpu_torch.io import FeatureShardConfig, load_game_model, read_avro_dataset
+    from photon_ml_tpu_torch.serving import ScoreEngine
+
+    train_p, val_p = _game_fixture(tmp_path)
+    out = str(tmp_path / "out")
+    train.run(["--input-data", train_p, *_GAME_SHARDS,
+               "--coordinate", "name=global,shard=globalShard,reg.type=L2,reg.weights=1",
+               "--coordinate", "name=per-user,shard=userShard,re.type=userId,reg.type=L2,reg.weights=1",
+               "--output-dir", out, "--log-level", "WARNING"])
+    val, maps = read_avro_dataset(val_p, {"globalShard": FeatureShardConfig(("features",)),
+                                          "userShard": FeatureShardConfig(("userFeatures",))},
+                                  id_tag_columns=["userId"])
+    model = load_game_model(f"{out}/models/best", maps, task="logistic_regression")
+    sparse.reset_launch_counts()
+    got = ScoreEngine.from_model(model).score_dataset(val)
+    assert sparse.SPARSE_LAUNCHES["ell_matvec"] == 1
+    plain = ScoreEngine.from_model(model, plain=True).score_dataset(val)
+    assert sparse.SPARSE_LAUNCHES["ell_matvec"] == 1
+    np.testing.assert_allclose(got, plain, rtol=1e-5, atol=1e-6)
+    cpu = load_game_model(f"{out}/models/best", maps, task="logistic_regression", device="cpu")
+    np.testing.assert_allclose(got, ScoreEngine.from_model(cpu).score_dataset(val), rtol=1e-5, atol=1e-6)
+    total, _ = GameTransformer(model=model).transform(val)
+    assert np.array_equal(got, total)
+    scores, _ = score.run(["--input-data", val_p, *_GAME_SHARDS, "--id-tags", "userId",
+                           "--model-input-dir", f"{out}/models/best", "--output-dir", str(tmp_path / "s"),
+                           "--log-level", "WARNING"])
+    assert np.array_equal(scores, got)

@@ -41,6 +41,12 @@ import photon_ml_tpu_torch.utils.futures, photon_ml_tpu_torch.utils.dates, photo
 import photon_ml_tpu_torch.utils.stats, photon_ml_tpu_torch.testing.generators
 import photon_ml_tpu_torch.estimators.model_training, photon_ml_tpu_torch.cli.params
 import photon_ml_tpu_torch.cli.glm, photon_ml_tpu_torch.cli.index
+import photon_ml_tpu_torch.cli.train, photon_ml_tpu_torch.cli.score, photon_ml_tpu_torch.cli.feature_bags
+import photon_ml_tpu_torch.obs, photon_ml_tpu_torch.obs.metrics, photon_ml_tpu_torch.obs.tracing
+import photon_ml_tpu_torch.obs.run, photon_ml_tpu_torch.obs.sinks, photon_ml_tpu_torch.utils.events
+import photon_ml_tpu_torch.utils.timed, photon_ml_tpu_torch.robust.faults, photon_ml_tpu_torch.robust.checkpoint
+import photon_ml_tpu_torch.plan, photon_ml_tpu_torch.plan.planner, photon_ml_tpu_torch.serving
+import photon_ml_tpu_torch.serving.engine, photon_ml_tpu_torch.estimators.game_estimator
 sys.path.insert(0, "tests")
 import test_torch_parallel_ranks
 bad = sorted(
