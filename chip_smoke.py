@@ -198,10 +198,37 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    coordinate.scores:nan:1 run: the poisoned update rejected, the models
    finite, photon_coordinate_rejections_total above 0.
 
+13. hyperparameter tuning (run after phase 12, on its fixture; phase 5
+   first): (a) S2, the lane-wide segment kernel (matmat and rmatmat), at
+   phase 9's sparse shape, COO and ELL, L = 1, 3, 4, 8 and 16: against its
+   float64 plain version (max-abs <= 3e-5 * max(|ref|, 1)), each column
+   bitwise S1's, two launches alike; timed by CUDA events and from a CUDA
+   graph beside its byte bound, L x S1, the index_add_ composition and
+   cuSPARSE's SpMM; (b) lambda-lane sweeps in process on phase 5's data
+   (bench.py's sweep protocol: L-BFGS tol 1e-7, 50 iterations, 2 sweeps,
+   variance NONE): K = 1, 4 and 8 lanes against K sequential fits (walls;
+   each lane's FE coefficients atol 5e-3 and training AUC within 1e-4 of
+   its sequential fit's; its RE on identical residuals in float64 atol
+   5e-3, the f32 pair and the chained difference printed), the RE lane
+   solve's wall and peak memory, and the K = 4 sweep's synchronizing
+   operations under the sync debug mode (beyond the solvers' own fetches
+   fewer than one a lane an update); (c) phase 9's sparse configuration
+   through GLMProblem.run_lanes with 4 L2 weights on ELL and COO, S2's
+   launches counted from 0 (each product above 0), each lane against its
+   single-lane solve (loss rtol 1e-5; coefficients atol 5e-3 in float64,
+   the f32 gaps printed); (d) cli.train on phase 12's fixture: sequential
+   BAYESIAN with phase 12's options and 4 trials (B1, B2, B3 with shifts and
+   S1 each launched), then RANDOM --trial-lanes 4 with 8 trials, variance
+   and normalization NONE (2 batches timed, 8 trials counted, the tuned
+   model reloaded bitwise, the prior file with 9 records); (e) that lane
+   run with 4 trials and --checkpoint-dir, killed by tuning.trial at the
+   second lane and resumed: candidates bitwise (d)'s, AUC within 1e-4.
+
     python3 chip_smoke.py --only timing    # card, build, then one phase
 
-runs a subset of phases 3-12 (check, fe, glmix, dp, nccl, solvers, io, game, sparse, timing,
-variants) and then reports not ok; "solvers", "io" and "game" run phase 5 first; "nccl" is phase 6 (c) alone after
+runs a subset of phases 3-13 (check, fe, glmix, dp, nccl, solvers, io, game, tuning, sparse,
+timing, variants) and then reports not ok; "solvers", "io", "game" and "tuning" run phase 5 first ("game" and
+"tuning" write phase 12's fixture first); "nccl" is phase 6 (c) alone after
 phase 5 (for a machine with several cards: one NCCL rank per card).
 
 The line before the last is {"kernels": [...]}; the last line is
@@ -240,6 +267,8 @@ SPARSE_REPLACES = {
     "matvec": "photon_ml_tpu/ops/features.py:103",
     "rmatvec": "photon_ml_tpu/ops/features.py:130",
     "sq_rmatvec": "photon_ml_tpu/ops/features.py:160",
+    "matmat": "photon_ml_tpu/ops/features.py:112",
+    "rmatmat": "photon_ml_tpu/ops/features.py:144",
 }
 DESIGN = {
     "fused_value_grad": "ring: a producer warp keeps row tiles in flight by cp.async.bulk on mbarriers "
@@ -260,6 +289,11 @@ DESIGN = {
                    "carries for keys that cross tiles added in tile order by a second small kernel, each tile's "
                    "outputs (empty columns as zeros) staged in shared memory and stored coalesced; entries "
                    "streamed with evict-first loads; double sums, each output written once; no atomics",
+    "segment_dot_lanes": "S1's row groups and key walk widened by a column chunk: a thread takes C = 4, 3, 2 or 1 "
+                         "consecutive columns (the largest that divides L; the grid's y axis is the chunk), one "
+                         "gather of C contiguous floats an entry, and runs S1's operations for each column in the "
+                         "same order (the same partition over lanes, butterfly, scan and tile joins), so column l "
+                         "is S1 on column l bit for bit; double sums, each output written once; no atomics",
 }
 PREV_SEGMENT_DESIGN = (
     "a warp per 32 consecutive segments over int64 pointers: a segment of at most 4 entries summed by its lane, "
@@ -1691,31 +1725,31 @@ def ring_variants(torch, n, d, seed):
 # earlier design (csrc/sparse_glm_warp.cu), built and timed like the ring's:
 # each changes one part, so that its time says what that part costs. Those
 # marked so compute wrong sums; nothing but phase 8 loads them.
-_SEG_ROW_GATHER = "x[e] = idx[e] >= 0 ? gather_src(src, idx[e]) : 0.0f;"
-_SEG_KEY_GATHER = "x[e] = e < cnt ? gather_src(src, idx[e]) : 0.0f;"
-_SEG_STORE = "for (int c = lane; c < n; c += kWarp) out[w0 + c] = win[c];"
-_SEG_GATHER_FN = "__device__ __forceinline__ float gather_src(const float* __restrict__ src, int i) { return __ldg(src + i); }"
+_SEG_ROW_GATHER = "        if (idx[e] >= 0) {\n          gather_src<C>(src, idx[e], L, c0, x[e]);"
+_SEG_KEY_GATHER = "      if (e < cnt) {\n        gather_src<C>(src, idx[e], L, c0, x[e]);"
+_SEG_STORE = "for (int c = lane; c < n * C; c += kWarp) out[(w0 + c / C) * L + c0 + c % C] = win[c];"
+_SEG_GATHER_SCALAR = "  for (int c = 0; c < C; ++c) x[c] = __ldg(p + c);"
 SEGMENT_VARIANTS = {
     "segment": ("sparse_glm", []),
     # wrong sums: entry j reads src[j] (row groups; j < d at the sparse
     # shape) or src[j mod 2^17] (key walk; 2^17 < n): the stream without
     # the gathers
     "contiguous_src": ("sparse_glm", [
-        (_SEG_ROW_GATHER, "x[e] = idx[e] >= 0 ? gather_src(src, (int)(j + e)) : 0.0f;"),
-        (_SEG_KEY_GATHER, "x[e] = e < cnt ? gather_src(src, (int)((base + e) & 131071)) : 0.0f;"),
+        (_SEG_ROW_GATHER, "        if (idx[e] >= 0) {\n          gather_src<C>(src, (int)(j + e), L, c0, x[e]);"),
+        (_SEG_KEY_GATHER, "      if (e < cnt) {\n        gather_src<C>(src, (int)((base + e) & 131071), L, c0, x[e]);"),
     ]),
     # wrong sums: the key walk's window built but not stored
     "no_output_stores": ("sparse_glm", [
-        (_SEG_STORE, "for (int c = lane; c < n; c += kWarp) if (win[c] == 1234.5f) out[w0 + c] = win[c];"),
+        (_SEG_STORE, "for (int c = lane; c < n * C; c += kWarp) if (win[c] == 1234.5f) "
+                     "out[(w0 + c / C) * L + c0 + c % C] = win[c];"),
     ]),
-    # the gathers under an L2 evict-last cache policy (same sums)
-    "l2_evict_last": ("sparse_glm", [(_SEG_GATHER_FN, """__device__ __forceinline__ float gather_src(const float* __restrict__ src, int i) {
-  unsigned long long policy;
-  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(policy));
-  float x;
-  asm("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;" : "=f"(x) : "l"(src + i), "l"(policy));
-  return x;
-}""")]),
+    # the gathers under an L2 evict-last cache policy (same sums; the
+    # single-column products take the scalar loads)
+    "l2_evict_last": ("sparse_glm", [(_SEG_GATHER_SCALAR, """  for (int c = 0; c < C; ++c) {
+    unsigned long long policy;
+    asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(policy));
+    asm("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;" : "=f"(x[c]) : "l"(p + c), "l"(policy));
+  }""")]),
     # the earlier design as it is, and with its entries streamed (__ldcs;
     # same sums)
     "earlier": ("sparse_glm_warp", []),
@@ -3520,30 +3554,632 @@ def game_fault(torch, train, validation, root, problems, b):
     return {"wall_s": wall, "rejections": rejections}
 
 
-def game_phase(torch, seed, smi):
-    """Phase 12: write the fixture, run the GAME driver with boundary
-    checkpoints, kill and resume it, score with cli.score and inject a NaN.
-    The temporary directory is removed at the end."""
-    import tempfile
+def game_fixture(root, seed):
+    """Phase 12 (a): the fixture's part files under ``root`` (phases 12 and
+    13 read them): (train dir, validation dir, wall seconds, summed writer
+    seconds)."""
+    train, validation, wall, writer_s = game_write(root, seed)
+    rows = IO_TRAIN[0] + IO_VALIDATION[0]
+    log(f"  (a) wrote {rows} rows ({IO_NNZ} global and {GAME_RE_FEATURES} per-user features a row, "
+        f"{GAME_USERS} Zipf(1.1) users) into {IO_TRAIN[1]} + {IO_VALIDATION[1]} deflate parts in {wall:.2f} s "
+        f"by worker processes ({rows / wall:.1f} rows/s; the writers' own seconds summed {writer_s:.2f})")
+    return {"root": root, "train": train, "validation": validation, "wall_s": wall, "writer_s": writer_s}
 
-    problems, out = [], {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_game_") as root:
-        train, validation, wall, writer_s = game_write(root, seed)
-        rows = IO_TRAIN[0] + IO_VALIDATION[0]
-        log(f"  (a) wrote {rows} rows ({IO_NNZ} global and {GAME_RE_FEATURES} per-user features a row, "
-            f"{GAME_USERS} Zipf(1.1) users) into {IO_TRAIN[1]} + {IO_VALIDATION[1]} deflate parts in {wall:.2f} s "
-            f"by worker processes ({rows / wall:.1f} rows/s; the writers' own seconds summed {writer_s:.2f})")
-        out["write"] = {"wall_s": wall, "writer_s": writer_s}
-        b = game_train(torch, train, validation, root, problems, smi)
-        torch.cuda.empty_cache()
-        out["resume"] = game_resume(torch, train, validation, root, problems, b)
-        out["score"] = game_score(torch, validation, root, problems, b)
-        out["fault"] = game_fault(torch, train, validation, root, problems, b)
-        out["train"] = {k: v for k, v in b.items() if k not in ("maps", "out")}
+
+def game_phase(torch, fixture, smi):
+    """Phase 12 (b)-(e) on the fixture of (a): the GAME driver with boundary
+    checkpoints, killed and resumed, cli.score and a NaN-injected run."""
+    problems, out = [], {"write": {"wall_s": fixture["wall_s"], "writer_s": fixture["writer_s"]}}
+    root, train, validation = fixture["root"], fixture["train"], fixture["validation"]
+    b = game_train(torch, train, validation, root, problems, smi)
+    torch.cuda.empty_cache()
+    out["resume"] = game_resume(torch, train, validation, root, problems, b)
+    out["score"] = game_score(torch, validation, root, problems, b)
+    out["fault"] = game_fault(torch, train, validation, root, problems, b)
+    out["train"] = {k: v for k, v in b.items() if k not in ("maps", "out")}
     log(f"  on {smi}")
     if problems:
         raise AssertionError("; ".join(problems))
     return out
+
+
+# ------------------------------------------------------- phase 13: tuning
+#
+# Hyperparameter tuning on the card: S2, the lane-wide segment kernel
+# (csrc/sparse_glm.cu through ops/sparse.py segment_dot_lanes), at phase 9's
+# sparse shape; lambda-lane sweeps in process at build_data's width (the
+# lanes of bench.py's --config sweep protocol, bench.py:2301); the sparse
+# fixed-effect lane solve; and cli.train's tuning on phase 12's fixture,
+# sequential and lane-batched, killed in the middle of a batch and resumed.
+
+S2_WIDTHS = (1, 3, 4, 8, 16)  # lanes of (a)
+S2_MAIN_WIDTH = 4  # the lanes of (c) and (d): each S2 line of the kernels JSON is timed at this width
+TUNING_LAMBDAS = (0.01, 0.1, 1.0, 10.0)
+SWEEP_LAMBDAS = tuple(float(x) for x in np.logspace(-2.0, 2.0, 8))  # (b)'s K = 8, bench_sweep's; K = 4 takes TUNING_LAMBDAS
+SWEEP_LANES = (1, 4, 8)
+TUNING_KILL_AT = 2  # tuning.trial: the second lane of the first batch
+# the smallest lambda whose f32 lanes (b) and (c) hold at atol 5e-3 beside
+# the float64 pair: below it the f32 solves stop at f32's resolution
+# (ROADMAP C3 for (c)'s lambda 0.01, C4 (d) for (b)'s per-user problems),
+# and their gaps are printed, not held
+F32_HELD_FROM = {"b": 0.5, "c": 0.1}
+
+
+def s2_bytes(seg, n_seg, n_src, L):
+    """Bytes S2 must move: each entry's int32 index and value once, the
+    [n_src, L] float32 source once and the [n_seg, L] float32 output once."""
+    return seg.gather.shape[0] * (4 + seg.val.element_size()) + 4 * L * (n_src + n_seg)
+
+
+def s2_check_and_time(torch, seed, batches, problems):
+    """(a) S2 at phase 9's sparse shape, COO and ELL, for every width of
+    S2_WIDTHS: matmat and rmatmat against the float64 plain version
+    (max-abs <= 3e-5 * max(|ref|, 1)), each column bitwise S1's on that
+    column, two launches bitwise alike; then the time by CUDA events (20
+    launches after 3, two rounds) and replayed from a CUDA graph, beside its
+    byte bound, L x S1's time on one column, the index_add_ composition and
+    cuSPARSE's SpMM (torch.sparse.mm on the CSR matrix) on the same inputs.
+    The launches made here are not main-path launches."""
+    from photon_ml_tpu_torch.ops import sparse
+
+    dev = torch.device("cuda")
+    saved = dict(sparse.SPARSE_LAUNCHES)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 13)
+    out = {}
+    for layout, batch in batches.items():
+        f = batch.features
+        for product, seg, n_seg, n_src in (("matmat", f.row_segments, f.n_rows, f.dim),
+                                           ("rmatmat", f.col_segments, f.dim, f.n_rows)):
+            name = f"{layout}_{product}"
+            ids = seg.segment_ids(n_seg)
+            gather = seg.gather.long()
+            ptr = torch.zeros(n_seg + 1, dtype=torch.int64, device=dev)
+            ptr[1:] = torch.cumsum(torch.bincount(ids, minlength=n_seg), 0)
+            with warnings.catch_warnings():  # torch marks its sparse CSR tensors beta
+                warnings.simplefilter("ignore")
+                csr = torch.sparse_csr_tensor(ptr.to(torch.int32), seg.gather, seg.val, size=(n_seg, n_src))
+            for L in S2_WIDTHS:
+                src = torch.randn((n_src, L), generator=gen, device=dev)
+                a = sparse.segment_dot_lanes(name, seg, n_seg, src)
+                b = sparse.segment_dot_lanes(name, seg, n_seg, src)
+                ref = sparse.segment_dot_plain(seg, n_seg, src.double())
+                err = float((a.double() - ref).abs().max())
+                bound = 3e-5 * max(float(ref.abs().max()), 1.0)
+                cols = [sparse.segment_dot(f"{layout}_{'matvec' if product == 'matmat' else 'rmatvec'}", seg,
+                                           n_seg, src[:, l].contiguous()) for l in range(L)]
+                columns_s1 = all(_same_bits(a[:, l].contiguous(), cols[l]) for l in range(L))
+                twice = _same_bits(a, b)
+                ok = err <= bound and columns_s1 and twice and bool(torch.isfinite(a).all())
+                del ref
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    lib_err = float((torch.sparse.mm(csr, src) - a).abs().max())
+                acc = torch.empty((n_seg, L), device=dev)
+
+                def by_index_add():
+                    acc.zero_()
+                    return acc.index_add_(0, ids, src[gather] * seg.val[:, None])
+
+                def library():
+                    with warnings.catch_warnings():
+                        warnings.simplefilter("ignore")
+                        return torch.sparse.mm(csr, src)
+
+                kern = lambda: sparse.segment_dot_lanes(name, seg, n_seg, src)  # noqa: E731
+                col0 = src[:, 0].contiguous()
+                single = lambda: sparse.segment_dot(  # noqa: E731
+                    f"{layout}_{'matvec' if product == 'matmat' else 'rmatvec'}", seg, n_seg, col0)
+                plain = lambda: sparse.segment_dot_plain(seg, n_seg, src)  # noqa: E731
+                runs = {k: [] for k in ("ms", "s1_ms", "index_add_ms", "library_ms")}
+                for _ in range(2):  # in turns: library, index_add_, S1, S2, S2, S1
+                    runs["library_ms"].append(time_ms(torch, library, 20))
+                    runs["index_add_ms"].append(time_ms(torch, by_index_add, 20))
+                    runs["s1_ms"].append(time_ms(torch, single, 20))
+                    runs["ms"].append(time_ms(torch, kern, 20))
+                    runs["ms"].append(time_ms(torch, kern, 20))
+                    runs["s1_ms"].append(time_ms(torch, single, 20))
+                plain_ms = time_ms(torch, plain, 3)
+                g_ms = graph_ms(torch, kern, 20)
+                nbytes = s2_bytes(seg, n_seg, n_src, L)
+                ops = 2 * seg.gather.shape[0] * L
+                t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS["float32"] * 1e3
+                row = {k: min(v) for k, v in runs.items()}
+                row.update({"plain_ms": plain_ms, "graph_ms": g_ms, "bound_ms": max(t_bytes, t_ops),
+                            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes, "ops": ops,
+                            "max_abs_err": err, "columns_bitwise_s1": columns_s1, "same_bits_twice": twice,
+                            "library_max_abs_diff": lib_err, "segments": n_seg, "entries": seg.gather.shape[0],
+                            "form": "keys" if seg.keys is not None else f"row groups of {seg.group}"})
+                row["l_times_s1_ms"] = L * row["s1_ms"]
+                out[(name, L)] = row
+                log(f"  (a) S2 {name:12s} L={L:2d} ({row['form']}) err={err:.3e}/{bound:.3e} columns bitwise "
+                    f"S1={columns_s1} same bits twice={twice} {'ok' if ok else 'MISS'}; kernel "
+                    f"{'/'.join(f'{t:.4f}' for t in runs['ms'])} ms (graph {g_ms:.4f}), L x S1 "
+                    f"{row['l_times_s1_ms']:.4f} (S1 {row['s1_ms']:.4f}), index_add_ {row['index_add_ms']:.4f}, "
+                    f"cuSPARSE SpMM {row['library_ms']:.4f} (max abs diff {lib_err:.2e}), plain {plain_ms:.4f}; "
+                    f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, {nbytes} B): "
+                    f"{row['bound_ms'] / row['ms']:.1%} of it")
+                if not ok:
+                    problems.append(f"S2 {name} L={L}: err {err:.3e} (bound {bound:.3e}), columns bitwise S1 "
+                                    f"{columns_s1}, same bits twice {twice}")
+                del src, a, b, cols, acc
+            del csr, ids, gather, ptr
+            torch.cuda.empty_cache()
+    sparse.SPARSE_LAUNCHES.update(saved)  # checks are not main-path launches
+    return out
+
+
+def _sweep_estimator(coords_cfg, device, n_iterations=2):
+    from photon_ml_tpu_torch.estimators import GameEstimator
+
+    return GameEstimator("logistic_regression", coords_cfg, n_cd_iterations=n_iterations, evaluator_specs=["AUC"],
+                         device=device)
+
+
+def _lane_configs():
+    """bench.py's sweep protocol (bench_sweep, bench.py:2301): both
+    coordinates L-BFGS tol 1e-7, 50 iterations, L2, variance NONE."""
+    from photon_ml_tpu_torch.estimators import CoordinateConfig
+    from photon_ml_tpu_torch.game import GLMOptimizationConfig
+    from photon_ml_tpu_torch.ops.regularization import RegularizationContext
+    from photon_ml_tpu_torch.optimize import OptimizerConfig
+
+    cfg = GLMOptimizationConfig(optimizer=OptimizerConfig(tolerance=1e-7, max_iterations=50),
+                                regularization=RegularizationContext("L2"))
+    return [
+        CoordinateConfig(name="global", feature_shard="global", config=cfg),
+        CoordinateConfig(name="per-user", feature_shard="userShard", random_effect_type="userId", config=cfg,
+                         active_cap=256),
+    ]
+
+
+def _lane_auc(torch, coords, model):
+    from photon_ml_tpu_torch.evaluation.device import auc
+
+    batch = coords["global"].dataset.batch
+    scores = sum(coords[name].score(model[name]) for name in coords)
+    return float(auc(scores + batch.offsets, batch.labels, batch.weights))
+
+
+def _count_syncs(torch, fn):
+    """``fn()`` under CUDA's sync debug mode at "warn": (its result, the
+    synchronizing CUDA operations it made, the solvers' fetches among them,
+    the lane guard's fetches)."""
+    from photon_ml_tpu_torch import obs
+    from photon_ml_tpu_torch.optimize import common
+
+    real, fetches = common.SyncCounter.fetch, [0]
+
+    def counting(self, *a, **k):
+        fetches[0] += 1
+        return real(self, *a, **k)
+
+    run = obs.RunTelemetry()
+    prev = obs.set_current_run(run)
+    common.SyncCounter.fetch = counting
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                result = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    finally:
+        common.SyncCounter.fetch = real
+        obs.set_current_run(prev)
+    syncs = sum("synchronizing" in str(w.message) for w in caught)
+    guard = sum(m.get("value", 0) for m in obs.build_run_summary(run.registry, total_wall_seconds=0.0)["metrics"]
+                if m["name"] == "photon_device_fetch_bytes_total" and m["labels"].get("site") == "lanes.update_guard")
+    run.close()
+    return result, syncs, fetches[0], guard
+
+
+def lane_sweep(torch, state, problems):
+    """(b) bench.py's --config sweep protocol in process at build_data's
+    width (phase 5's datasets; L-BFGS tol 1e-7, 50 iterations, L2, variance
+    NONE, bench_sweep's lambdas): 2 sweeps of K = 1, 4 and 8 lanes
+    (fit_lanes) against K sequential fits (CoordinateDescent, the kernels),
+    walls on the host clock ending in a synchronize. Each lane's fixed
+    effect against its sequential fit's (atol 5e-3) and its training AUC
+    within 1e-4 of the sequential fit's. The random effect is held on
+    identical residuals (ROADMAP C4) and in float64 (C3: at small lambdas
+    two f32 solves of these unconverged, nearly separable per-user problems
+    part at f32's resolution): the RE lane solve on each lane's fixed-effect
+    scores against the sequential (bucketed) RE solve on the same scores,
+    both on the blocks widened to float64, coefficients atol 5e-3; the same
+    pair in f32 held at atol 5e-3 from lambda F32_HELD_FROM["b"] and printed
+    below it; the chained sweeps' RE difference printed, not held; the f32
+    lane solve's wall and peak memory printed. Then the
+    K = 4 sweep's synchronizing operations under the sync debug mode: beyond
+    the solvers' own fetches, fewer than one a lane an update (the guard's
+    one fetch an update carries every lane)."""
+    from photon_ml_tpu_torch.game import CoordinateDescent, FixedEffectCoordinate, RandomEffectCoordinate
+
+    coords = state["coords"]
+    datasets = {"global": coords["global"].dataset, "per-user": coords["per-user"].dataset}
+    dev = datasets["global"].batch.device
+    cfgs = _lane_configs()
+    fe_scorer = FixedEffectCoordinate(dataset=datasets["global"], task="logistic_regression", config=cfgs[0].config)
+
+    re_ds = datasets["per-user"]
+    b = re_ds.blocks
+    re_ds64 = dataclasses.replace(re_ds, blocks=dataclasses.replace(
+        b, features=b.features.double(), labels=b.labels.double(), offsets=b.offsets.double(),
+        weights=b.weights.double()))
+
+    def re_coord(lam, ds=re_ds):
+        return RandomEffectCoordinate(dataset=ds, task="logistic_regression",
+                                      config=cfgs[1].config.with_reg_weight(lam))
+
+    lanes_of = {1: (1.0,), 4: TUNING_LAMBDAS, 8: SWEEP_LAMBDAS}
+    seq = {}
+    for lam in sorted(set().union(*lanes_of.values())):
+        cs = {
+            "global": FixedEffectCoordinate(dataset=datasets["global"], task="logistic_regression",
+                                            config=cfgs[0].config.with_reg_weight(lam)),
+            "per-user": re_coord(lam),
+        }
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = CoordinateDescent(cs, n_iterations=2).run()
+        torch.cuda.synchronize()
+        seq[lam] = (res.model, time.perf_counter() - t0, _lane_auc(torch, coords, res.model))
+    out = {"sequential_s": {lam: v[1] for lam, v in seq.items()}}
+    for K in SWEEP_LANES:
+        lams = lanes_of[K]
+        combos = [{"global": lam, "per-user": lam} for lam in lams]
+        est = _sweep_estimator(cfgs, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lane_results = est.fit_lanes(None, combos, datasets=datasets)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        seq_wall = sum(seq[lam][1] for lam in lams)
+        # the RE lane solve on each lane's fixed-effect scores, alone: its
+        # wall and the card's peak memory above what was held
+        residual = torch.stack([fe_scorer.score(r.model["global"]) for r in lane_results], dim=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        W_re, _ = re_coord(1.0).train_lanes(residual, torch.tensor(lams, dtype=residual.dtype, device=dev))
+        torch.cuda.synchronize()
+        re_wall = time.perf_counter() - t1
+        re_peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        residual64 = residual.double()
+        W_re64, _ = re_coord(1.0, re_ds64).train_lanes(residual64, torch.tensor(lams, dtype=torch.float64, device=dev))
+        gaps = []
+        for k, (r, lam) in enumerate(zip(lane_results, lams)):
+            model, _, auc_seq = seq[lam]
+            fe_gap = float((r.model["global"].model.coefficients.means
+                            - model["global"].model.coefficients.means).abs().max())
+            re_seq, _ = re_coord(lam).train(residual[:, k].contiguous())
+            re_gap32 = float((W_re[:, :, k] - re_seq.coef_values).abs().max())
+            re_seq64, _ = re_coord(lam, re_ds64).train(residual64[:, k].contiguous())
+            re_gap = float((W_re64[:, :, k] - re_seq64.coef_values).abs().max())
+            chained = float((r.model["per-user"].coef_values - model["per-user"].coef_values).abs().max())
+            auc_lane = _lane_auc(torch, coords, r.model)
+            gaps.append((lam, fe_gap, re_gap, re_gap32, chained, auc_lane, auc_seq))
+            f32_held = lam >= F32_HELD_FROM["b"]
+            if not (fe_gap <= 5e-3 and re_gap <= 5e-3 and (re_gap32 <= 5e-3 or not f32_held)
+                    and abs(auc_lane - auc_seq) <= 1e-4):
+                problems.append(f"(b) K={K} lane lambda={lam}: FE gap {fe_gap:.2e}, RE gap on identical residuals "
+                                f"in float64 {re_gap:.2e} and in f32 {re_gap32:.2e} (held: {f32_held}), AUC "
+                                f"{auc_lane:.6f} vs sequential {auc_seq:.6f}")
+        out[K] = {"wall_s": wall, "sequential_s": seq_wall, "re_lane_solve_s": re_wall, "re_peak_gib": re_peak,
+                  "gaps": gaps}
+        log(f"  (b) K={K}: lanes {wall:.3f} s against {K} sequential fits {seq_wall:.3f} s "
+            f"({wall / seq_wall:.3f} of them; {wall / K:.3f} s a trial); the RE lane solve alone {re_wall:.3f} s, "
+            f"peak {re_peak:.2f} GiB above what was held; per lane (lambda, FE gap, RE gap on identical residuals "
+            f"in float64 (held) / in f32 (held from lambda {F32_HELD_FROM['b']:g}), chained RE difference (not held), "
+            f"AUC lane / sequential): " + "; ".join(
+                f"{lam:g} {fg:.1e} {rg:.1e}/{rg32:.1e} {ch:.1e} {al:.6f}/{asq:.6f}"
+                for lam, fg, rg, rg32, ch, al, asq in gaps))
+        del residual, W_re, residual64, W_re64
+    combos = [{"global": lam, "per-user": lam} for lam in TUNING_LAMBDAS]
+    _, syncs, fetches, guard_bytes = _count_syncs(
+        torch, lambda: _sweep_estimator(cfgs, dev).fit_lanes(None, combos, datasets=datasets))
+    updates = 2 * len(cfgs)
+    extra = syncs - fetches
+    log(f"  (b) K=4 under the sync debug mode: {syncs} synchronizing operations, {fetches} of them the solvers' "
+        f"fetches, {extra} others over {updates} coordinate updates and {len(cfgs)} coordinates; the lane guard "
+        f"fetched {int(guard_bytes)} bytes")
+    if extra >= len(combos) * updates or guard_bytes <= 0:
+        problems.append(f"(b) the lane sweep synchronized {extra} times beyond its solvers' fetches over {updates} "
+                        f"updates of {len(combos)} lanes: a fetch per lane")
+    out["syncs"] = {"all": syncs, "solver_fetches": fetches, "others": extra, "updates": updates}
+    return out
+
+
+def sparse_lane_solve(torch, seed, batches, problems):
+    """(c) Phase 9's sparse configuration (logistic, L-BFGS tol 1e-9, 20
+    iterations) through GLMProblem.run_lanes with TUNING_LAMBDAS on ELL and
+    COO, S2's launches counted from 0 (above 0 for each product); each lane
+    against its single-lane solve (GLMProblem.run, S1) by loss, rtol 1e-5.
+    Coefficients atol 5e-3, as C3 holds solves at tol 1e-9: in float64 (the
+    same lanes and singles on the batch widened to float64, the plain route
+    on the card), where the stopping rule is decided above the arithmetic's
+    resolution; in f32 from lambda F32_HELD_FROM["c"], printed below it.
+    Then the walls broken down (``_solve_breakdown``): the lane solve and
+    the four singles again, warm, each profiled and counted under the sync
+    debug mode."""
+    from photon_ml_tpu_torch.game import GLMProblem
+    from photon_ml_tpu_torch.ops import fused_glm as fg
+    from photon_ml_tpu_torch.ops import sparse
+    from photon_ml_tpu_torch.optimize import OptimizerConfig
+
+    problem = _sparse_problem(torch, OptimizerConfig(tolerance=1e-9, max_iterations=SPARSE_ITERS))
+    out = {"launches": {}}
+    for layout, batch in batches.items():
+        lams = torch.tensor(TUNING_LAMBDAS, device=batch.device)
+        lane_problem = GLMProblem(problem.task, problem.config)
+        offsets = batch.offsets[:, None].repeat(1, len(TUNING_LAMBDAS))
+        fg.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        W, res = lane_problem.run_lanes(batch, offsets, lams)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in sparse.SPARSE_LAUNCHES.items() if v}
+        for k, v in launches.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+        if min(sparse.SPARSE_LAUNCHES[f"{layout}_matmat"], sparse.SPARSE_LAUNCHES[f"{layout}_rmatmat"]) <= 0:
+            problems.append(f"(c) the {layout} lane solve did not launch S2: {launches}")
+        f = batch.features
+        vals64 = f.coo_vals.double() if f.layout == "coo" else None
+        batch64 = dataclasses.replace(
+            batch, labels=batch.labels.double(), offsets=batch.offsets.double(), weights=batch.weights.double(),
+            features=type(f)(dim=f.dim, coo_cols=f.coo_cols, coo_rows=f.coo_rows, coo_vals=vals64,
+                             coo_n_rows=f.coo_n_rows) if vals64 is not None
+            else type(f)(dim=f.dim, idx=f.idx, val=f.val.double()))
+        W64, _ = lane_problem.run_lanes(batch64, batch64.offsets[:, None].repeat(1, len(TUNING_LAMBDAS)),
+                                        lams.double())
+        single_s, rows = 0.0, []
+        for k, lam in enumerate(TUNING_LAMBDAS):
+            single_problem = GLMProblem(problem.task, problem.config.with_reg_weight(lam))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            model, single = single_problem.run(batch)
+            torch.cuda.synchronize()
+            single_s += time.perf_counter() - t1
+            coef_gap32 = float((W[:, k] - model.coefficients.means).abs().max())
+            loss_gap = abs(float(res.loss[k]) - float(single.loss)) / abs(float(single.loss))
+            model64, _ = single_problem.run(batch64)
+            coef_gap = float((W64[:, k] - model64.coefficients.means).abs().max())
+            rows.append((lam, coef_gap, coef_gap32, loss_gap, int(res.iterations[k]), int(single.iterations)))
+            f32_held = lam >= F32_HELD_FROM["c"]
+            if not (coef_gap <= 5e-3 and (coef_gap32 <= 5e-3 or not f32_held) and loss_gap <= 1e-5):
+                problems.append(f"(c) {layout} lane lambda={lam}: coefficient gap in float64 {coef_gap:.2e} and in "
+                                f"f32 {coef_gap32:.2e} (held: {f32_held}), loss gap {loss_gap:.2e}")
+        log(f"  (c) {layout} lane solve of {len(TUNING_LAMBDAS)} lambdas: {wall:.3f} s (S2 launches {launches}) "
+            f"against {single_s:.3f} s of single-lane solves; per lane (lambda, coefficient gap in float64 (held) / "
+            f"in f32 (held from lambda {F32_HELD_FROM['c']:g}), relative loss gap, iterations lane / single): "
+            + "; ".join(f"{lam:g} {cg:.1e}/{cg32:.1e} {lg:.1e} {il}/{isg}" for lam, cg, cg32, lg, il, isg in rows))
+        singles = [GLMProblem(problem.task, problem.config.with_reg_weight(lam)) for lam in TUNING_LAMBDAS]
+        lane_parts = _solve_breakdown(torch, lambda: lane_problem.run_lanes(batch, offsets, lams))
+        single_parts = _solve_breakdown(torch, lambda: [p.run(batch) for p in singles])
+        for what, parts in (("lane solve", lane_parts), (f"{len(singles)} singles", single_parts)):
+            log(f"  (c) {layout} {what}, warm: {parts['wall_s']:.4f} s; profiled: device busy {parts['busy_s']:.4f} s "
+                f"({parts['busy_s'] / parts['wall_s']:.1%} of the warm wall), {parts['device_ops']} device operations, "
+                f"segment kernels (S1 / S2) {parts['segment_ms']:.3f} ms over {parts['segment_launches']} launches; "
+                f"{parts['syncs']} synchronizing operations ({parts['fetches']} the solvers' fetches); top device "
+                f"operations: " + "; ".join(f"{ms:.3f} ms x{n} {key[:60]}" for ms, n, key in parts["top"]))
+        out[layout] = {"wall_s": wall, "single_s": single_s, "rows": rows, "lane_parts": lane_parts,
+                       "single_parts": single_parts}
+        del W, res, offsets, W64, batch64
+    return out
+
+
+def _solve_breakdown(torch, fn):
+    """Where a solve's wall goes: ``fn()`` once more on the host clock
+    (warm, ending in a synchronize), once under torch.profiler (the device's
+    busy seconds, its operations, the segment kernels' device ms and
+    launches, the top five operations) and once under the sync debug mode
+    (its synchronizing operations and the solvers' fetches among them)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _, rows = device_profile(torch, fn)
+    seg = [r for r in rows if any(k in r[2] for k in S1_KERNELS)]
+    _, syncs, fetches, _ = _count_syncs(torch, fn)
+    return {"wall_s": wall, "busy_s": sum(r[0] for r in rows) * 1e-6, "device_ops": sum(r[1] for r in rows),
+            "segment_ms": sum(r[0] for r in seg) * 1e-3, "segment_launches": sum(r[1] for r in seg),
+            "top": [(us * 1e-3, count, key) for us, count, key in rows[:5]], "syncs": syncs, "fetches": fetches}
+
+
+def _saved_models(monkeypatch_target):
+    """Wrap cli.train's save_game_model to record (directory, model) of
+    every save."""
+    saved = []
+    real = monkeypatch_target.save_game_model
+
+    def recording(path, model, *a, **k):
+        saved.append((path, model))
+        return real(path, model, *a, **k)
+
+    monkeypatch_target.save_game_model = recording
+    return saved, real
+
+
+def _lane_argv(train, validation, out, extra=()):
+    """Phase 12's coordinates with variance and normalization NONE (the
+    lanes take neither), 2 sweeps, AUC on the validation parts."""
+    fe = GAME_FE.replace(",variance=SIMPLE", "")
+    return ["--input-data", train, "--validation-data", validation,
+            "--feature-shard", "name=global,bags=features", "--feature-shard", "name=userShard,bags=userFeatures",
+            "--coordinate", fe, "--coordinate", GAME_RE, "--coordinate-descent-iterations", "2",
+            "--evaluators", "AUC", "--output-dir", out, "--log-level", "WARNING", *extra]
+
+
+def tuning_driver(torch, fixture, problems, smi):
+    """(d) cli.train's tuning on phase 12's fixture: sequential BAYESIAN
+    with phase 12's options and 4 trials (the launches of B1, B2, B3 with
+    shifts and S1 each above 0); then RANDOM with --trial-lanes 4 and 8
+    trials, variance and normalization NONE, output mode TUNED: the batch
+    walls (photon_tuning_batch_wall_seconds), the tuned model reloaded
+    bitwise the model it was saved from, the prior file with 1 + 8
+    records."""
+    import os
+
+    from photon_ml_tpu_torch.cli import train as cli_train
+    from photon_ml_tpu_torch.io import FeatureShardConfig, load_game_model, read_avro_dataset_chunked
+
+    root, train, validation = fixture["root"], fixture["train"], fixture["validation"]
+    out = {}
+    argv = game_argv(train, validation, os.path.join(root, "out-13-seq"),
+                     ["--hyper-parameter-tuning", "BAYESIAN", "--hyper-parameter-tuning-iter", "4",
+                      "--output-mode", "TUNED"])
+    summary, wall, launches, shifts, s1 = _counted_train(torch, argv)
+    aucs = [c["metrics"]["AUC"] for c in summary["configs"]]
+    log(f"  (d) sequential BAYESIAN, 4 trials: {wall:.2f} s (stages "
+        + ", ".join(f"{k} {v:.3f}" for k, v in summary["stage_seconds"].items())
+        + f"); launches {launches}, B3 with shifts {shifts}, S1 ell_matvec {s1}; trials "
+        + "; ".join(f"{c['reg_weights']} AUC {c['metrics']['AUC']:.6f}" for c in summary["configs"][1:])
+        + f"; best AUC {summary['best']['metrics']['AUC']:.6f} (grid {aucs[0]:.6f})")
+    if min(launches["fused_value_grad"], launches["fused_hessian_vector"], shifts, s1) <= 0:
+        problems.append(f"(d) sequential tuning did not launch B1, B2, B3 with shifts and S1: {launches}, "
+                        f"shifts {shifts}, S1 {s1}")
+    if len(summary["configs"]) != 5:
+        problems.append(f"(d) sequential tuning ran {len(summary['configs']) - 1} trials, not 4")
+    out["sequential"] = {"wall_s": wall, "stage_seconds": summary["stage_seconds"], "launches": launches,
+                         "shift_launches": shifts, "s1_launches": s1, "best_auc": summary["best"]["metrics"]["AUC"]}
+
+    lane_out, metrics_dir = os.path.join(root, "out-13-lanes"), os.path.join(root, "metrics-13")
+    saved, real = _saved_models(cli_train)
+    try:
+        summary, wall, launches, shifts, s1 = _counted_train(torch, _lane_argv(
+            train, validation, lane_out, ["--hyper-parameter-tuning", "RANDOM", "--hyper-parameter-tuning-iter",
+                                          "8", "--trial-lanes", "4", "--output-mode", "TUNED",
+                                          "--metrics-out", metrics_dir]))
+    finally:
+        cli_train.save_game_model = real
+    metrics = _run_metrics(metrics_dir)
+    batches = [m for m in metrics if m["name"] == "photon_tuning_batch_wall_seconds"]
+    batch_n = sum(m.get("count", 0) for m in batches)
+    batch_s = sum(m.get("sum", 0.0) for m in batches)
+    trials = _metric(metrics, "photon_tuning_trials_total")
+    in_flight = _metric(metrics, "photon_tuning_lanes_in_flight")
+    # the driver's index maps: the reader's, built from the training parts
+    shards = {"global": FeatureShardConfig(("features",)), "userShard": FeatureShardConfig(("userFeatures",))}
+    _, maps = read_avro_dataset_chunked(train, shards, id_tag_columns=["userId"])
+    same = [_game_models_equal(load_game_model(path, maps, task="logistic_regression"), model.models)
+            for path, model in saved]
+    prior = os.path.join(lane_out, "hyperparameter-prior.json")
+    with open(prior) as f:
+        records = len(json.load(f)["records"])
+    log(f"  (d) RANDOM --trial-lanes 4, 8 trials: {wall:.2f} s (stages "
+        + ", ".join(f"{k} {v:.3f}" for k, v in summary["stage_seconds"].items())
+        + f"); {batch_n} batches, {batch_s:.3f} s in all (photon_tuning_batch_wall_seconds), trials counted "
+          f"{int(trials)}, lanes in flight after the run {int(in_flight)}; launches {launches}, S1 {s1}; "
+          f"{len(saved)} saved models reloaded bitwise: {all(same)}; prior file {records} records; trials "
+        + "; ".join(f"{c['reg_weights']} AUC {c['metrics']['AUC']:.6f}" for c in summary["configs"][1:]))
+    if not (batch_n == 2 and trials == 8 and in_flight == 0 and same and all(same) and records == 9):
+        problems.append(f"(d) lane tuning: batches {batch_n}, trials {trials}, in flight {in_flight}, saved "
+                        f"models bitwise {same}, prior records {records}")
+    out["lanes"] = {"wall_s": wall, "stage_seconds": summary["stage_seconds"], "batches": batch_n,
+                    "batch_seconds": batch_s, "configs": summary["configs"], "launches": launches}
+    log(f"  on {smi}")
+    return out
+
+
+def tuning_resume(torch, fixture, d, problems):
+    """(e) RANDOM --trial-lanes 4 with 4 trials and --checkpoint-dir, killed
+    by tuning.trial at the second lane of the batch, then resumed (the rest
+    of the batch as a batch of 3): the trials' candidates bitwise (d)'s
+    first 4 and their AUC within 1e-4 of (d)'s."""
+    import os
+
+    from photon_ml_tpu_torch.cli import train as cli_train
+    from photon_ml_tpu_torch.robust import SimulatedKill, faults
+
+    root, train, validation = fixture["root"], fixture["train"], fixture["validation"]
+    ckpt = os.path.join(root, "ck-13")
+    argv = _lane_argv(train, validation, os.path.join(root, "out-13-e"),
+                      ["--hyper-parameter-tuning", "RANDOM", "--hyper-parameter-tuning-iter", "4", "--trial-lanes",
+                       "4", "--output-mode", "TUNED", "--checkpoint-dir", ckpt])
+    os.environ["PHOTON_FAULTS"] = f"tuning.trial:kill:{TUNING_KILL_AT}"
+    t0 = time.perf_counter()
+    try:
+        cli_train.run(argv)
+        problems.append("(e) the injected kill did not fire")
+    except SimulatedKill:
+        pass
+    finally:
+        del os.environ["PHOTON_FAULTS"]
+        faults.clear()
+    killed = time.perf_counter() - t0
+    with open(os.path.join(ckpt, "checkpoint-state.json")) as f:
+        recorded = len(json.load(f)["tuning_trials"])
+    t1 = time.perf_counter()
+    summary = cli_train.run(argv)
+    wall = time.perf_counter() - t1
+    want = d["lanes"]["configs"][1:5]
+    got = summary["configs"][1:]
+    same = [g["reg_weights"] == w["reg_weights"] for g, w in zip(got, want)]
+    gaps = [abs(g["metrics"]["AUC"] - w["metrics"]["AUC"]) for g, w in zip(got, want)]
+    log(f"  (e) killed at tuning.trial call {TUNING_KILL_AT} after {killed:.2f} s with {recorded} trial(s) recorded; "
+        f"resumed in {wall:.2f} s; candidates bitwise (d)'s: {same}; AUC gaps "
+        + ", ".join(f"{g:.1e}" for g in gaps) + " (1e-4)")
+    if not (len(got) == 4 and all(same) and max(gaps) <= 1e-4 and 1 <= recorded < 4):
+        problems.append(f"(e) resumed trials: candidates {same}, AUC gaps {gaps}, recorded before the kill "
+                        f"{recorded}")
+    return {"killed_s": killed, "wall_s": wall, "recorded": recorded, "auc_gaps": gaps}
+
+
+def tuning_phase(torch, fixture, state, seed, smi):
+    """Phase 13: (a) S2 at the sparse shape; (b) lane sweeps in process at
+    build_data's width; (c) the sparse fixed-effect lane solve; (d) tuning
+    through cli.train on phase 12's fixture; (e) killed in the middle of a
+    lane batch and resumed."""
+    from photon_ml_tpu_torch.io.data import RawDataset
+
+    problems, out = [], {}
+    rows, cols, vals, y, _ = sparse_triplets(SPARSE_N, SPARSE_D, SPARSE_K, seed)
+    raw = RawDataset(n_rows=SPARSE_N, labels=y, offsets=np.zeros(SPARSE_N), weights=np.ones(SPARSE_N),
+                     shard_coo={"global": (rows, cols, vals)}, shard_dims={"global": SPARSE_D}, id_tags={})
+    batches = {layout: raw.to_batch("global", layout=layout) for layout in ("coo", "ell")}
+    del raw, rows, cols, vals
+    out["s2"] = s2_check_and_time(torch, seed, batches, problems)
+    out["sparse_lanes"] = sparse_lane_solve(torch, seed, batches, problems)
+    del batches
+    torch.cuda.empty_cache()
+    out["sweep"] = lane_sweep(torch, state, problems)
+    torch.cuda.empty_cache()
+    out["driver"] = tuning_driver(torch, fixture, problems, smi)
+    out["resume"] = tuning_resume(torch, fixture, out["driver"], problems)
+    log(f"  on {smi}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return out
+
+
+def s2_entries(tuning):
+    """S2's lines of the kernels JSON, one per product: ``launches`` from
+    (c)'s lane solves (counted from 0), the error and times at
+    S2_MAIN_WIDTH lanes from (a), the other widths beside."""
+    tuning = tuning or {}
+    s2 = tuning.get("s2") or {}
+    launches = (tuning.get("sparse_lanes") or {}).get("launches", {})
+    entries = []
+    for name in ("coo_matmat", "coo_rmatmat", "ell_matmat", "ell_rmatmat"):
+        t = s2.get((name, S2_MAIN_WIDTH), {})
+        entries.append({
+            "name": f"segment_dot_lanes:{name}", "route": "cuda", "source": "photon_ml_tpu_torch/csrc/sparse_glm.cu",
+            "replaces": SPARSE_REPLACES[name.split("_", 1)[1]], "launches": launches.get(name, 0),
+            "max_abs_err": t.get("max_abs_err"), "ms": t.get("ms"), "graph_ms": t.get("graph_ms"),
+            "plain_ms": t.get("plain_ms"), "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
+            "library_ms": t.get("library_ms"), "library": "cuSPARSE SpMM (torch.sparse.mm on a sparse CSR tensor)",
+            "index_add_ms": t.get("index_add_ms"), "l_times_s1_ms": t.get("l_times_s1_ms"), "lanes": S2_MAIN_WIDTH,
+            "columns_bitwise_s1": t.get("columns_bitwise_s1"), "form": t.get("form"),
+            "by_lanes": {L: {k: s2.get((name, L), {}).get(k) for k in ("ms", "graph_ms", "bound_ms", "l_times_s1_ms",
+                                                                      "index_add_ms", "library_ms", "max_abs_err")}
+                         for L in S2_WIDTHS},
+            "dtype": "float32 values and src, double sums", "design": DESIGN["segment_dot_lanes"],
+        })
+    return entries
 
 
 def main() -> int:
@@ -3554,8 +4190,8 @@ def main() -> int:
     ap.add_argument("--d-re", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default="",
-                    help="comma-separated subset of check,fe,glmix,dp,nccl,solvers,io,game,sparse,timing,variants to run after "
-                         "card and build (for iterating on one phase; the result is then not ok)")
+                    help="comma-separated subset of check,fe,glmix,dp,nccl,solvers,io,game,tuning,sparse,timing,variants "
+                         "to run after card and build (for iterating on one phase; the result is then not ok)")
     args = ap.parse_args()
     only = set(filter(None, args.only.split(",")))
     want = lambda phase: not only or phase in only  # noqa: E731
@@ -3574,12 +4210,12 @@ def main() -> int:
     phases = Phases()
     smi = phases.run("card", card, torch)
     phases.run("build", build)
-    errs = fe_launches = glmix = dp = times = solvers = io = game = None
+    errs = fe_launches = glmix = dp = times = solvers = io = game = tuning = None
     if want("check"):
         errs = phases.run("kernels vs float64 plain", check_kernels, torch, args.n, args.d, args.seed)
     if want("fe"):
         fe_launches = phases.run("fixed-effect path", fe_path, torch, args.n, args.d, args.seed)
-    if want("glmix") or want("dp") or want("nccl") or want("solvers") or want("io") or want("game"):
+    if want("glmix") or want("dp") or want("nccl") or want("solvers") or want("io") or want("game") or want("tuning"):
         glmix = phases.run(
             "GLMix sweep (main path)", glmix_path, torch, args.n, args.d, args.users, args.d_re, args.seed
         )
@@ -3609,10 +4245,28 @@ def main() -> int:
         phases.failed.append("data and model IO")
     else:
         io = phases.run("data and model IO", io_phase, torch, state, args.seed, smi)
-    del state
+    if not want("tuning"):
+        del state
     torch.cuda.empty_cache()
-    if want("game"):
-        game = phases.run("GAME driver", game_phase, torch, args.seed, smi)
+    if want("game") or want("tuning"):
+        import tempfile
+
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_game_") as root:
+            fixture = phases.run("GAME fixture (phase 12 (a))", game_fixture, root, args.seed)
+            if fixture is None:
+                phases.failed += [p for p in ("GAME driver", "tuning") if want(p.split()[0].lower())]
+            else:
+                if want("game"):
+                    game = phases.run("GAME driver", game_phase, torch, fixture, smi)
+                torch.cuda.empty_cache()
+                if not want("tuning"):
+                    pass
+                elif state is None:
+                    log("== phase: tuning needs the one-card sweep's results")
+                    phases.failed.append("tuning")
+                else:
+                    tuning = phases.run("tuning", tuning_phase, torch, fixture, state, args.seed, smi)
+        state = None
     torch.cuda.empty_cache()
     sp = None
     if want("sparse"):
@@ -3688,6 +4342,7 @@ def main() -> int:
             **{f"bf16_{k}": t16.get(k) for k in ("ms", "prev_ms", "finalize_ms", "read_x_ms", "bound_ms")},
         })
     kernels += sparse_entries(sp, times, game)
+    kernels += s2_entries(tuning)
     kernels.append(lane_entry(errs, solvers))
     if sp:
         path, sg = sp["path"], sp["glmix"]
@@ -3723,6 +4378,14 @@ def main() -> int:
               f"{tr['checkpoint_seconds']:.3f} s), validation AUC {tr['auc']:.6f}; killed and resumed "
               f"{rs['killed_s']:.2f} + {rs['wall_s']:.2f} s; cli.score {sc['rows_per_s']:.1f} rows/s "
               f"(engine {sc['engine_s']:.3f} s) on {smi}")
+    if tuning:
+        sw, dr, rs = tuning["sweep"], tuning["driver"], tuning["resume"]
+        log("tuning: lane sweeps " + ", ".join(
+            f"K={K} {sw[K]['wall_s']:.3f} s against {sw[K]['sequential_s']:.3f} s sequential" for K in SWEEP_LANES)
+            + f"; cli.train sequential BAYESIAN (4 trials) {dr['sequential']['wall_s']:.2f} s, RANDOM --trial-lanes 4 "
+              f"(8 trials) {dr['lanes']['wall_s']:.2f} s ({dr['lanes']['batches']} batches, "
+              f"{dr['lanes']['batch_seconds']:.3f} s); killed and resumed {rs['killed_s']:.2f} + {rs['wall_s']:.2f} s "
+              f"on {smi}")
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))
     ok = not phases.failed

@@ -16,6 +16,16 @@ Usage:
     --coordinate name=per-user,shard=userShard,re.type=userId,reg.type=L2,reg.weights=1 \\
     --evaluators AUC,LOGISTIC_LOSS --output-dir out/ [--device cpu] [--dtype float64]
 
+Hyperparameter tuning (GameTrainingDriver.scala:642-673): with
+``--validation-data``, ``--hyper-parameter-tuning RANDOM|BAYESIAN`` searches
+each coordinate's log regularization weight for
+``--hyper-parameter-tuning-iter`` trials after the grid, seeded with the
+grid's results; ``--trial-lanes K`` trains each batch of K candidates as
+lambda lanes of one solve (``game/lanes.py``); ``--hyper-parameter-config``
+and ``--hyper-parameter-prior`` set and shrink the search ranges; every
+observation is written to ``hyperparameter-prior.json``. ``--output-mode
+TUNED`` saves the best of the grid and the trials.
+
 Datasets, normalization and models live on ``--device`` (the card by
 default; without a card the driver raises unless ``--device cpu`` is given,
 which runs the kernels' plain versions). ``--dtype`` is the solve's float
@@ -31,9 +41,9 @@ whole coordinate-descent state every N coordinate updates, and
 metrics.prom and run_summary.json; ``--trace-out PATH`` writes the run's
 spans as JSON lines (one per span) with run_summary.json beside it.
 
-These flags parse and raise, naming their ROADMAP item: hyperparameter
-tuning and ``--trial-lanes`` (A8); ``--incremental-training``,
-``--partial-retrain-locked`` and a prior ``--model-input-dir`` (A8);
+These flags parse and raise, naming their ROADMAP item:
+``--incremental-training``, ``--partial-retrain-locked`` and a prior
+``--model-input-dir`` (A8b);
 ``--mesh-shape``, ``--distributed``, ``--collective-timeout`` and
 ``--heartbeat-*`` (A10); ``--pipeline-depth`` above 1 (A7);
 ``--status-port`` and ``--report-out`` (A13). The Chrome-trace timeline of
@@ -43,6 +53,7 @@ tuning and ``--trial-lanes`` (A8); ``--incremental-training``,
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 import json
 import logging
@@ -52,6 +63,7 @@ import sys
 import time
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from .. import obs
@@ -61,7 +73,9 @@ from ..io.data import read_avro_dataset, read_avro_dataset_chunked, resolve_inge
 from ..io.model_io import load_game_model, save_game_model
 from ..ops.normalization import build_normalization
 from ..plan import PlanError, plan_fingerprint
-from ..robust import CheckpointManager, atomic_write_json, faults
+from ..robust import CheckpointManager, atomic_write, atomic_write_json, faults
+from ..tuning.rescaling import HyperparameterConfig, ParamRange
+from ..tuning.tuner import get_tuner
 from ..utils.futures import WorkerPool
 from ..utils.logging import setup_logging
 from ..utils.stats import compute_feature_statistics, save_feature_statistics
@@ -113,19 +127,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output-dir", required=True)
     p.add_argument("--output-mode", default=OUTPUT_MODE_BEST,
                    choices=[OUTPUT_MODE_ALL, OUTPUT_MODE_BEST, OUTPUT_MODE_TUNED])
-    p.add_argument("--model-input-dir", default=None, help="warm-start GAME model (ROADMAP A8)")
-    p.add_argument("--incremental-training", action="store_true", help="ROADMAP A8")
-    p.add_argument("--partial-retrain-locked", default="", help="ROADMAP A8")
+    p.add_argument("--model-input-dir", default=None, help="warm-start GAME model (ROADMAP A8b)")
+    p.add_argument("--incremental-training", action="store_true", help="ROADMAP A8b")
+    p.add_argument("--partial-retrain-locked", default="", help="ROADMAP A8b")
     p.add_argument("--normalization", default="NONE",
                    choices=["NONE", "STANDARDIZATION", "SCALE_WITH_STANDARD_DEVIATION", "SCALE_WITH_MAX_MAGNITUDE"])
     p.add_argument("--model-sparsity-threshold", type=float, default=0.0)
     p.add_argument("--compute-feature-stats", action="store_true")
     p.add_argument("--hyper-parameter-tuning", default="NONE", choices=["NONE", "RANDOM", "BAYESIAN"],
-                   help="ROADMAP A8")
+                   help="search the coordinates' regularization weights after the grid (needs "
+                        "--validation-data): RANDOM (Sobol) or BAYESIAN (Gaussian process)")
     p.add_argument("--hyper-parameter-tuning-iter", type=int, default=10)
-    p.add_argument("--trial-lanes", type=int, default=1, help="above 1: ROADMAP A8")
-    p.add_argument("--hyper-parameter-config", default=None, help="ROADMAP A8")
-    p.add_argument("--hyper-parameter-prior", default=None, help="ROADMAP A8")
+    p.add_argument("--trial-lanes", type=int, default=1,
+                   help="tuning trials trained together as lambda lanes of one batched solve "
+                        "(game/lanes.py); 1 = the sequential trial loop")
+    p.add_argument("--hyper-parameter-config", default=None,
+                   help="JSON tuning config (tuning_mode + variables map); overrides the default "
+                        "per-coordinate log-reg-weight ranges")
+    p.add_argument("--hyper-parameter-prior", default=None,
+                   help="JSON prior observations ({'records': [...]}) that shrink the search range "
+                        "around the GP-predicted best prior candidate")
     p.add_argument("--hyper-parameter-shrink-radius", type=float, default=0.25)
     p.add_argument("--mesh-shape", default="", help="ROADMAP A10")
     p.add_argument("--checkpoint-dir", default=None,
@@ -160,14 +181,9 @@ def _refuse_unported(args) -> None:
     """The flags that parse but whose paths are not ported: one PlanError
     naming the ROADMAP item."""
     refusals = [
-        (args.hyper_parameter_tuning != "NONE", "--hyper-parameter-tuning", "A8"),
-        (args.trial_lanes > 1, "--trial-lanes above 1", "A8"),
-        (bool(args.hyper_parameter_config or args.hyper_parameter_prior),
-         "--hyper-parameter-config / --hyper-parameter-prior", "A8"),
-        (args.output_mode == OUTPUT_MODE_TUNED, "--output-mode TUNED", "A8"),
-        (args.incremental_training, "--incremental-training", "A8"),
-        (bool(args.partial_retrain_locked), "--partial-retrain-locked", "A8"),
-        (args.model_input_dir is not None, "warm start from a prior --model-input-dir", "A8"),
+        (args.incremental_training, "--incremental-training", "A8b"),
+        (bool(args.partial_retrain_locked), "--partial-retrain-locked", "A8b"),
+        (args.model_input_dir is not None, "warm start from a prior --model-input-dir", "A8b"),
         (bool(args.mesh_shape), "--mesh-shape", "A10"),
         (args.distributed is not None, "--distributed", "A10"),
         (args.collective_timeout is not None, "--collective-timeout", "A10"),
@@ -258,7 +274,7 @@ def _explain_plan(args) -> Dict:
             except (OSError, ValueError, KeyError):
                 # the dims only enrich the printed plan; a dry run never fails on them
                 dims = None
-        plan = resolve_plan(coords, normalization=args.normalization, dims=dims)
+        plan = resolve_plan(coords, trial_lanes=args.trial_lanes, normalization=args.normalization, dims=dims)
     except PlanError as e:
         print(f"plan refused: {e}", file=sys.stderr)
         raise SystemExit(1)
@@ -365,6 +381,12 @@ def _run_training(args, device, run_t, sinks, t_run0) -> Dict:
         rejection_tolerance=args.coordinate_rejection_tolerance,
         device=device,
     )
+    if args.trial_lanes > 1:
+        from ..game.lanes import check_lane_composition
+
+        # the lane refusals before any dataset build or grid training; the
+        # lane path checks again in fit_lanes
+        check_lane_composition(estimator, args.trial_lanes)
     for sink in sinks:
         # estimator lifecycle events land in the same JSONL stream
         estimator.register_listener(sink)
@@ -416,6 +438,7 @@ def _run_training(args, device, run_t, sinks, t_run0) -> Dict:
         if resume_snap is None:
             logger.info("--resume: no valid boundary checkpoint; starting fresh")
 
+    ckpt = None
     with obs.span("train"):
         if args.checkpoint_dir:
             ckpt = _Checkpoint.open(args, coords, index_maps, device, dtype)
@@ -428,7 +451,18 @@ def _run_training(args, device, run_t, sinks, t_run0) -> Dict:
     stage_done("train")
     stage_seconds["train"] -= stage_seconds.get("datasets", 0.0)
 
-    best = estimator.select_best(results)
+    # hyperparameter tuning (GameTrainingDriver:642-673)
+    tuned_results: List[GameResult] = []
+    if args.hyper_parameter_tuning != "NONE" and validation is not None:
+        with obs.span("tuning"):
+            tuned_results = _run_tuning(
+                args, estimator, raw, _resolve_validation(validation), coords, results,
+                ckpt=ckpt, datasets_fn=get_datasets, resume_snap=resume_snap,
+            )
+        stage_done("tuning")
+    all_results = list(results) + tuned_results
+
+    best = estimator.select_best(all_results)
     summary = {
         "task": args.task,
         "configs": [
@@ -437,7 +471,7 @@ def _run_training(args, device, run_t, sinks, t_run0) -> Dict:
                 "metrics": None if r.evaluation is None else r.evaluation.metrics,
                 "rejections": r.rejections,
             }
-            for r in results
+            for r in all_results
         ],
         "best": {
             "reg_weights": best.config,
@@ -445,7 +479,7 @@ def _run_training(args, device, run_t, sinks, t_run0) -> Dict:
         },
     }
     os.makedirs(args.output_dir, exist_ok=True)
-    to_save = results if args.output_mode == OUTPUT_MODE_ALL else [best]
+    to_save = all_results if args.output_mode == OUTPUT_MODE_ALL else [best]
     for i, r in enumerate(to_save):
         name = "best" if r is best and args.output_mode != OUTPUT_MODE_ALL else f"model-{i}"
         save_game_model(
@@ -488,19 +522,224 @@ def _resolve_validation(validation):
     return validation.result() if hasattr(validation, "result") else validation
 
 
+def _tuning_weights(hp: HyperparameterConfig, names: List[str], unit_vec) -> Dict[str, float]:
+    """A candidate's unit vector -> {coordinate: native reg weight}."""
+    native = hp.scale_up(unit_vec)
+    return {n.removesuffix(".reg_weight"): float(v) for n, v in zip(names, native)}
+
+
+def _run_tuning(args, estimator, raw, validation, coords, prior_results, ckpt=None, datasets_fn=None,
+                resume_snap=None) -> List[GameResult]:
+    """Random (Sobol) or Gaussian-process search over the per-coordinate
+    log10 reg weights (GameEstimatorEvaluationFunction: candidate <-> (log
+    lambda, ...)), the JAX package's ``_run_tuning``.
+
+    The grid's results seed the tuner as observations (GameTrainingDriver.
+    scala:666), so the GP starts warm. A JSON tuning config overrides the
+    ranges; prior observations shrink them around the GP-predicted best.
+    Sequential trials (``evaluate``) train one configuration each through
+    ``GameEstimator.fit``; with ``--trial-lanes K`` a batch of K candidates
+    trains as lambda lanes of one ``fit_lanes`` run (``evaluate_batch``).
+
+    With ``ckpt`` every finished trial is recorded (model, metrics, unit
+    vector; lanes in lane order), and a resumed run replays the recorded
+    trials as observations and runs only the rest: the Sobol sequence does
+    not depend on how it is chunked, so the count of recorded trials alone
+    realigns it (``skip=``), even after a kill in the middle of a batch."""
+    from ..tuning import Observation, prior_to_json
+
+    tunable = [cc.name for cc in coords if cc.name not in estimator.partial_retrain_locked]
+    hp = _build_tuning_config(args, tunable)
+    names = [p.name for p in hp.params]
+    sign = -1.0 if _higher_is_better(args.evaluators) else 1.0
+    registry = obs.current_run().registry
+    results: List[GameResult] = []
+
+    def trial_estimator(cfgs) -> GameEstimator:
+        return GameEstimator(
+            task=args.task,
+            coordinate_configs=cfgs,
+            n_cd_iterations=args.coordinate_descent_iterations,
+            evaluator_specs=[e for e in args.evaluators.split(",") if e],
+            dtype=estimator.dtype,
+            partial_retrain_locked=list(estimator.partial_retrain_locked),
+            mesh=estimator.mesh,
+            validation_frequency=estimator.validation_frequency,
+            divergence_guard=estimator.divergence_guard,
+            rejection_tolerance=estimator.rejection_tolerance,
+            pipeline_depth=estimator.pipeline_depth,
+            device=estimator.device,
+        )
+
+    def evaluate(unit_vec):
+        faults.check("tuning.trial")
+        weights = _tuning_weights(hp, names, unit_vec)
+        cfgs = [dataclasses.replace(cc, reg_weights=(weights.get(cc.name, cc.config.reg_weight),)) for cc in coords]
+        r = trial_estimator(cfgs).fit(
+            raw, validation=validation, datasets=datasets_fn() if datasets_fn is not None else None,
+        )[0]
+        results.append(r)
+        # the tuner minimizes; higher-is-better metrics are negated
+        value = sign * r.evaluation.primary_metric
+        if ckpt is not None:
+            ckpt.record_trial(unit_vec, value, r)
+        registry.counter("photon_tuning_trials_total", "tuning trials completed").inc()
+        return value, r
+
+    def evaluate_batch(cands):
+        """A whole candidate batch as lambda lanes of one run: every lane
+        shares each coordinate's data residency and solve."""
+        combos = []
+        for unit_vec in cands:
+            weights = _tuning_weights(hp, names, unit_vec)
+            combos.append({cc.name: weights.get(cc.name, cc.config.reg_weight) for cc in coords})
+        with obs.span("tuning.batch", phase="tuning", lanes=len(cands)) as span:
+            lane_results = trial_estimator(list(coords)).fit_lanes(
+                raw, combos, validation=validation, datasets=datasets_fn() if datasets_fn is not None else None,
+            )
+        registry.histogram(
+            "photon_tuning_batch_wall_seconds", "wall time of one lane-batched tuning trial batch"
+        ).observe(span.duration_s)
+        out = []
+        for unit_vec, r in zip(cands, lane_results):
+            # lanes record in lane order: a fault in the middle of a batch
+            # leaves a recorded prefix whose count realigns the candidates
+            faults.check("tuning.trial")
+            results.append(r)
+            value = sign * r.evaluation.primary_metric
+            if ckpt is not None:
+                ckpt.record_trial(unit_vec, value, r, lane=r.trackers.get("lane"))
+            registry.counter("photon_tuning_trials_total", "tuning trials completed").inc()
+            out.append((value, r))
+        return out
+
+    # the grid's results seed the tuner (convertObservations); a grid point
+    # outside the search range is skipped (scale_down would clip it to the
+    # cube's edge and attach a far-away point's metric there)
+    observations = []
+    for r in prior_results or []:
+        if r.evaluation is None:
+            continue
+        native = _native_vec(r, names)
+        if any(not (p.min <= v <= p.max) for p, v in zip(hp.params, native)):
+            continue
+        observations.append(
+            Observation(candidate=hp.scale_down(native), value=sign * r.evaluation.primary_metric, artifact=r)
+        )
+
+    # replay the checkpointed trials and run only the rest of the budget
+    n_iter = args.hyper_parameter_tuning_iter
+    if ckpt is not None:
+        for rec in ckpt.completed_trials():
+            r = ckpt._reconstruct(rec)
+            results.append(r)
+            observations.append(Observation(candidate=np.asarray(rec["unit"]), value=float(rec["value"]), artifact=r))
+        n_done = len(ckpt.completed_trials())
+        if resume_snap is not None:
+            # a boundary manifest records the trial count when it was
+            # written: candidates it proves were drawn are burnt, so that the
+            # deterministic sequence stays aligned (skip=)
+            from_manifest = int(resume_snap.manifest.get("tuner_trials", 0))
+            if from_manifest > n_done:
+                logger.warning("checkpoint manifest records %d tuning trials but state has %d; skipping the "
+                               "%d lost candidates", from_manifest, n_done, from_manifest - n_done)
+                n_done = from_manifest
+        if n_done:
+            logger.info("checkpoint: %d/%d tuning trials already run", n_done, n_iter)
+        n_iter = max(n_iter - n_done, 0)
+
+    if n_iter > 0:
+        tuner = get_tuner(args.hyper_parameter_tuning)
+        skip = args.hyper_parameter_tuning_iter - n_iter
+        if args.trial_lanes > 1:
+            from ..game.lanes import check_lane_composition
+
+            check_lane_composition(estimator, args.trial_lanes)
+            tuner.search_batched(
+                n_iter, hp.dim, evaluate_batch, args.trial_lanes, observations=observations,
+                discrete_params=hp.discrete_dims(), seed=0, skip=skip,
+            )
+        else:
+            tuner.search(
+                n_iter, hp.dim, evaluate, observations=observations, discrete_params=hp.discrete_dims(), seed=0,
+                skip=skip,
+            )
+
+    # every (grid and tuned) observation, as a reusable prior file
+    priors = [
+        (_native_vec(r, names), r.evaluation.primary_metric)
+        for r in list(prior_results or []) + results
+        if r.evaluation is not None
+    ]
+    os.makedirs(args.output_dir, exist_ok=True)
+    with atomic_write(os.path.join(args.output_dir, "hyperparameter-prior.json"), "w") as f:
+        f.write(prior_to_json(names, priors))
+    return results
+
+
+def _native_vec(result: GameResult, names: List[str]) -> np.ndarray:
+    """GameResult -> native hyperparameter vector ordered by ``names``
+    (vectorizeParams; names are '<coordinate>.reg_weight')."""
+    return np.asarray([result.config.get(n.removesuffix(".reg_weight"), 1.0) for n in names])
+
+
+def _build_tuning_config(args, tunable: List[str]) -> HyperparameterConfig:
+    """Default per-coordinate log-lambda ranges, optionally overridden by a
+    JSON tuning config and shrunk around prior observations."""
+    from ..tuning import config_from_json, get_bounds
+
+    if args.hyper_parameter_config:
+        with open(args.hyper_parameter_config) as f:
+            _, hp = config_from_json(f.read())
+        tunable_names = {f"{n}.reg_weight" for n in tunable}
+        bad = [p.name for p in hp.params if p.name not in tunable_names]
+        if bad:
+            raise SystemExit(
+                f"--hyper-parameter-config variables {bad} do not name tunable coordinates; expected names "
+                f"among {sorted(tunable_names)}"
+            )
+    else:
+        hp = HyperparameterConfig(
+            params=[ParamRange(name=f"{n}.reg_weight", min=1e-4, max=1e4, transform="LOG") for n in tunable]
+        )
+    if args.hyper_parameter_prior:
+        with open(args.hyper_parameter_prior) as f:
+            lower, upper = get_bounds(
+                hp, f.read(), radius=args.hyper_parameter_shrink_radius,
+                higher_is_better=_higher_is_better(args.evaluators),
+            )
+        hp = HyperparameterConfig(
+            params=[dataclasses.replace(p, min=float(lo), max=float(hi)) for p, lo, hi in zip(hp.params, lower, upper)]
+        )
+    return hp
+
+
+def _higher_is_better(evaluators: str) -> bool:
+    from ..evaluation.evaluators import build_evaluator
+
+    specs = [e for e in evaluators.split(",") if e]
+    if not specs:
+        return False
+    return build_evaluator(specs[0]).higher_is_better
+
+
 class _Checkpoint:
-    """Per-sweep crash-recovery checkpointing across reg-weight grids.
+    """Per-sweep crash-recovery checkpointing across reg-weight grids and
+    tuning trials.
 
     State (``checkpoint-state.json``, version 2, atomically replaced; the
-    JAX package's layout, with ``tuning_trials`` always empty here):
+    JAX package's layout):
       grid           expanded combo list this run must train, in order
       completed      per finished combo: model dir + validation metrics
       current        mid-combo progress: index, completed sweeps, model dir
+      tuning_trials  per finished tuning trial: unit vector, value, model
+                     dir (and, for lanes, the lane index and count)
 
-    Resume = rerun the same command: finished combos reconstruct from their
-    saved models + recorded metrics, and the in-flight combo warm-starts from
-    its last completed sweep, or, with a boundary snapshot further along,
-    continues mid-sweep from it. With --validation-data, best-model tracking
+    Resume = rerun the same command: finished combos and trials reconstruct
+    from their saved models + recorded metrics, the in-flight combo
+    warm-starts from its last completed sweep, or, with a boundary snapshot
+    further along, continues mid-sweep from it, and tuning resumes with the
+    recorded trials as observations. With --validation-data, best-model tracking
     within a combo resumed from a per-sweep record restarts at the resume
     point (the record stores last-sweep models, not the tracked best)."""
 
@@ -633,12 +872,14 @@ class _Checkpoint:
 
             boundary = None
             if cd_manager is not None:
-                def boundary(reg_weights, st, _k=k, _done=done):
+                n_trials = len(self.state.get("tuning_trials", []))
+
+                def boundary(reg_weights, st, _k=k, _done=done, _n=n_trials):
                     cd_manager.on_boundary(st, meta={
                         "reg_weights": reg_weights,
                         "combo_index": _k,
                         "sweep_offset": _done,
-                        "tuner_trials": 0,
+                        "tuner_trials": _n,
                     })
 
             if snap is not None:
@@ -687,6 +928,31 @@ class _Checkpoint:
         last = os.path.join(self.dir, f"config-{k:03d}-sweep-{n_iter:04d}")
         if os.path.isdir(last):
             shutil.rmtree(last, ignore_errors=True)
+
+    # -- tuning trials --------------------------------------------------------
+
+    def completed_trials(self):
+        return list(self.state.get("tuning_trials", []))
+
+    def record_trial(self, unit_vec, value, result: GameResult, lane=None):
+        """Save a finished trial's model and record it. ``lane``: a lane
+        batch's trial passes its lane tracker; lanes record in lane order,
+        so the trial count alone realigns the candidate sequence."""
+        i = len(self.state["tuning_trials"])
+        model_dir = f"tuning-{i:03d}"
+        self._save_model(model_dir, result.model, result.config)
+        rec = {
+            "unit": [float(x) for x in np.asarray(unit_vec).ravel()],
+            "value": float(value),
+            "reg_weights": result.config,
+            "model_dir": model_dir,
+            "metrics": None if result.evaluation is None else result.evaluation.metrics,
+            "primary_name": None if result.evaluation is None else result.evaluation.primary_name,
+        }
+        if lane is not None:
+            rec["lane"] = {"index": int(lane.get("index", 0)), "n_lanes": int(lane.get("n_lanes", 1))}
+        self.state["tuning_trials"].append(rec)
+        self._write()
 
 
 def main():

@@ -11,11 +11,17 @@ A GAME model travels as a plain dict, the same both ways:
     part = {"kind": "fixed", "feature_shard", "task", "means", "variances"}
          | {"kind": "random", "random_effect_type", "feature_shard", "task",
             "entity_ids", "coef_indices", "coef_values", "variances"}
+
+The lambda-lane sweeps carry lane-stacked coefficients (``[d, L]`` for a
+fixed effect, ``[E, S, L]`` for a random effect: ``lanes_from_numpy`` /
+``lanes_to_numpy``) and the tuner's observations (``observations_to_numpy``
+/ ``observations_from_numpy``: ``(candidate, value)`` pairs, which either
+package's ``tuning.Observation`` takes).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -157,3 +163,29 @@ def game_model_to_numpy(model: GameModel) -> Dict[str, object]:
         else:
             out[name] = random_effect_model_to_numpy(m)
     return {"task": model.task, "models": out}
+
+
+def lanes_from_numpy(coeffs: np.ndarray, dtype=torch.float32, device: DeviceLike = None) -> torch.Tensor:
+    """Lane-stacked coefficients (``[d, L]`` or ``[E, S, L]``) as a tensor
+    on ``device``."""
+    a = np.asarray(coeffs)
+    if a.ndim not in (2, 3):
+        raise ValueError(f"lane-stacked coefficients are [d, L] or [E, S, L], got shape {a.shape}")
+    return _tensor(a, dtype, resolve_device(device))
+
+
+def lanes_to_numpy(coeffs: torch.Tensor) -> np.ndarray:
+    return _numpy(coeffs)
+
+
+def observations_to_numpy(observations: Sequence) -> List[Tuple[np.ndarray, float]]:
+    """The tuner's observations (either package's ``tuning.Observation``)
+    as ``(candidate float64 [dim], value)`` pairs; artifacts stay behind."""
+    return [(np.asarray(o.candidate, dtype=np.float64), float(o.value)) for o in observations]
+
+
+def observations_from_numpy(pairs: Sequence[Tuple[np.ndarray, float]]) -> List:
+    """``(candidate, value)`` pairs as this package's ``tuning.Observation``."""
+    from .tuning import Observation
+
+    return [Observation(candidate=np.asarray(c, dtype=np.float64), value=float(v)) for c, v in pairs]

@@ -8,7 +8,19 @@
 //   out[s] = sum_{j in segment s} src[gather[j]] * val[j]     (or val[j]^2)
 //
 // each output summed in double and rounded to float once, written exactly
-// once, with no float atomics. ops/features.py builds each product's
+// once, with no float atomics. The same kernels compute S2, the lane-wide
+// products of the lambda-lane sweeps (FeatureMatrix.matmat and rmatmat,
+// :112 and :144 there):
+//
+//   out[s, l] = sum_{j in segment s} src[gather[j], l] * val[j]
+//
+// over a row-major src [n_src, L] and out [n_seg, L]. A thread takes C
+// consecutive columns of one chunk (C = 4, 3, 2 or 1, the largest that
+// divides L; blockIdx.y is the chunk) with one gather of C contiguous floats
+// an entry, and runs for each column exactly the operations S1 runs for its
+// one: the same partition of entries over lanes, the same adds in the same
+// order, the same butterfly and scan. S1 is the case L = C = 1, so column l
+// of S2 is, bit for bit, S1 on column l of src. ops/features.py builds each product's
 // companions once per matrix on the host (ops/sparse.py), in one of two
 // forms, and each form has its kernel:
 //
@@ -76,8 +88,31 @@ constexpr int kSerialTiles = 32;               // joins: a chain of more tiles i
 constexpr long long kMaxBlocks = 1LL << 20;
 constexpr unsigned kFull = 0xffffffffu;
 
-// src[i] through the read-only path
-__device__ __forceinline__ float gather_src(const float* __restrict__ src, int i) { return __ldg(src + i); }
+// the C columns from c0 of src's row i (rows of L floats) through the
+// read-only path, one vector load where the address allows
+template <int C>
+__device__ __forceinline__ void gather_src(const float* __restrict__ src, int i, int L, int c0, float (&x)[C]) {
+  const float* p = src + (long long)i * L + c0;
+  if constexpr (C == 4) {
+    if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+      x[0] = q.x;
+      x[1] = q.y;
+      x[2] = q.z;
+      x[3] = q.w;
+      return;
+    }
+  } else if constexpr (C == 2) {
+    if ((reinterpret_cast<uintptr_t>(p) & 7) == 0) {
+      const float2 q = __ldg(reinterpret_cast<const float2*>(p));
+      x[0] = q.x;
+      x[1] = q.y;
+      return;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) x[c] = __ldg(p + c);
+}
 
 __device__ __forceinline__ double bf16_bits(unsigned bits) { return (double)__uint_as_float(bits << 16); }
 
@@ -114,12 +149,13 @@ __device__ __forceinline__ double term(float x, double v) {
 
 // ------------------------------------------------------------ row groups
 
-template <typename V, bool SQ, int G>
+template <typename V, bool SQ, int G, int C>
 __global__ void __launch_bounds__(kThreads)
     row_group_kernel(const int* __restrict__ ptr32, const long long* __restrict__ ptr64, long long seg_len,
                      long long n_seg, const int* __restrict__ gather, const V* __restrict__ val,
-                     const float* __restrict__ src, float* __restrict__ out) {
+                     const float* __restrict__ src, float* __restrict__ out, int L) {
   constexpr int kPerWarp = kWarp / G;
+  const int c0 = blockIdx.y * C;
   const int lane = threadIdx.x & (kWarp - 1);
   const int q = lane & (G - 1);
   const long long warp = (long long)blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
@@ -141,7 +177,9 @@ __global__ void __launch_bounds__(kThreads)
         end = start + seg_len;
       }
     }
-    double acc = 0.0;
+    double acc[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[c] = 0.0;
 #pragma unroll 2
     for (long long j = start + q * kLaneEntries; j < end; j += G * kLaneEntries) {
       int idx[kLaneEntries];
@@ -161,28 +199,47 @@ __global__ void __launch_bounds__(kThreads)
           v[e] = live ? load_value(val, j + e) : 0.0;
         }
       }
-      float x[kLaneEntries];
+      float x[kLaneEntries][C];
 #pragma unroll
-      for (int e = 0; e < kLaneEntries; ++e) x[e] = idx[e] >= 0 ? gather_src(src, idx[e]) : 0.0f;
+      for (int e = 0; e < kLaneEntries; ++e) {
+        if (idx[e] >= 0) {
+          gather_src<C>(src, idx[e], L, c0, x[e]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < C; ++c) x[e][c] = 0.0f;
+        }
+      }
 #pragma unroll
       for (int e = 0; e < kLaneEntries; ++e)
-        if (idx[e] >= 0) acc += term<SQ>(x[e], v[e]);
+        if (idx[e] >= 0) {
+#pragma unroll
+          for (int c = 0; c < C; ++c) acc[c] += term<SQ>(x[e][c], v[e]);
+        }
     }
 #pragma unroll
-    for (int off = G / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(kFull, acc, off);
-    if (q == 0 && s < n_seg) out[s] = (float)acc;
+    for (int off = G / 2; off > 0; off >>= 1) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[c] += __shfl_xor_sync(kFull, acc[c], off);
+    }
+    if (q == 0 && s < n_seg) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) out[s * L + c0 + c] = (float)acc[c];
+    }
   }
 }
 
 // -------------------------------------------------------------- key walk
 
-template <typename V, bool SQ>
+template <typename V, bool SQ, int C>
 __global__ void __launch_bounds__(kThreads)
     key_walk_kernel(const int* __restrict__ keys, const int* __restrict__ gather, const V* __restrict__ val,
                     long long nnz, int n_seg, int vector_loads, const float* __restrict__ src,
-                    float* __restrict__ out, double* __restrict__ head, double* __restrict__ tail) {
+                    float* __restrict__ out, double* __restrict__ head, double* __restrict__ tail, int L) {
+  // a warp stages kWindow / C output rows of its C columns at a time
+  constexpr int kRows = kWindow / C;
   __shared__ float window[kWarpsPerBlock][kWindow];
   const int lane = threadIdx.x & (kWarp - 1);
+  const int c0 = blockIdx.y * C;
   float* win = window[threadIdx.x / kWarp];
   const long long n_tiles = (nnz + kTile - 1) / kTile;
   const long long warps = (long long)gridDim.x * kWarpsPerBlock;
@@ -220,9 +277,16 @@ __global__ void __launch_bounds__(kThreads)
         v[e] = live ? load_value(val, base + e) : 0.0;
       }
     }
-    float x[kRunEntries];
+    float x[kRunEntries][C];
 #pragma unroll
-    for (int e = 0; e < kRunEntries; ++e) x[e] = e < cnt ? gather_src(src, idx[e]) : 0.0f;
+    for (int e = 0; e < kRunEntries; ++e) {
+      if (e < cnt) {
+        gather_src<C>(src, idx[e], L, c0, x[e]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < C; ++c) x[e][c] = 0.0f;
+      }
+    }
 
     // the keys around the lane's entries: n_seg past the last entry, -1
     // before the first
@@ -238,26 +302,33 @@ __global__ void __launch_bounds__(kThreads)
 
     // runs of equal keys, in entry order
     const bool open_left = cnt > 0 && prev == first;
-    double acc = 0.0, first_sum = 0.0;
+    double acc[C], first_sum[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[c] = first_sum[c] = 0.0;
     bool in_first = true;
     bool first_closes = false;  // an open-left first run closes in this lane
     unsigned closed = 0u;       // bit e: the run ending at entry e is this lane's to write
-    float res[kRunEntries];
+    float res[kRunEntries][C];
 #pragma unroll
     for (int e = 0; e < kRunEntries; ++e) {
-      res[e] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) res[e][c] = 0.0f;
       if (e < cnt) {
-        acc += term<SQ>(x[e], v[e]);
+#pragma unroll
+        for (int c = 0; c < C; ++c) acc[c] += term<SQ>(x[e][c], v[e]);
         const int after = e + 1 < cnt ? key[e + 1] : next;
         if (after != key[e]) {
           if (in_first && open_left) {
-            first_sum = acc;
+#pragma unroll
+            for (int c = 0; c < C; ++c) first_sum[c] = acc[c];
             first_closes = true;
           } else {
-            res[e] = (float)acc;
+#pragma unroll
+            for (int c = 0; c < C; ++c) res[e][c] = (float)acc[c];
             closed |= 1u << e;
           }
-          acc = 0.0;
+#pragma unroll
+          for (int c = 0; c < C; ++c) acc[c] = 0.0;
           in_first = false;
         }
       }
@@ -267,34 +338,54 @@ __global__ void __launch_bounds__(kThreads)
 
     // segmented inclusive scan of the open-right partials over the lanes:
     // a lane that runs through adds the chain on its left, earlier first
-    double s = open_right ? acc : 0.0;
+    double s[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) s[c] = open_right ? acc[c] : 0.0;
     bool chained = through;
 #pragma unroll
     for (int d = 1; d < kWarp; d <<= 1) {
-      const double up = __shfl_up_sync(kFull, s, d);
+      double up[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) up[c] = __shfl_up_sync(kFull, s[c], d);
       const int up_chained = __shfl_up_sync(kFull, (int)chained, d);
       if (chained && lane >= d) {
-        s = up + s;
+#pragma unroll
+        for (int c = 0; c < C; ++c) s[c] = up[c] + s[c];
         chained = up_chained != 0;
       }
     }
-    const double carry = __shfl_up_sync(kFull, s, 1);
+    double carry[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) carry[c] = __shfl_up_sync(kFull, s[c], 1);
     const unsigned through_mask = __ballot_sync(kFull, through);
     const unsigned below = (1u << lane) - 1u;
     bool write_first = false;  // the open-left first run's key (key[0]) is this lane's to write
-    float first_res = 0.0f;
+    float first_res[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) first_res[c] = 0.0f;
     if (first_closes) {
-      const double total = (lane > 0 ? carry : 0.0) + first_sum;
+      double total[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) total[c] = (lane > 0 ? carry[c] : 0.0) + first_sum[c];
       if ((through_mask & below) == below) {
-        if (head != nullptr) head[tile] = total;  // the key began in an earlier tile: its join adds the rest
+        // the key began in an earlier tile: its join adds the rest
+        if (head != nullptr) {
+#pragma unroll
+          for (int c = 0; c < C; ++c) head[tile * L + c0 + c] = total[c];
+        }
       } else {
-        first_res = (float)total;
+#pragma unroll
+        for (int c = 0; c < C; ++c) first_res[c] = (float)total[c];
         write_first = true;
       }
     }
     const unsigned holders = __ballot_sync(kFull, cnt > 0);
     const int last_lane = kWarp - 1 - __clz(holders);
-    if (lane == last_lane && open_right && tail != nullptr) tail[tile] = s;  // the key goes on into the next tile
+    if (lane == last_lane && open_right && tail != nullptr) {
+      // the key goes on into the next tile
+#pragma unroll
+      for (int c = 0; c < C; ++c) tail[tile * L + c0 + c] = s[c];
+    }
 
     // the tile's outputs: from one past the key before it to its last key
     // (less that key if it goes on; to the end for the last tile)
@@ -303,18 +394,24 @@ __global__ void __launch_bounds__(kThreads)
     const int tile_next = __shfl_sync(kFull, next, last_lane);
     const long long lo = (long long)tile_prev + 1;
     const long long hi = tile_next == n_seg ? n_seg : (tile_next == tile_last ? tile_last : (long long)tile_last + 1);
-    for (long long w0 = lo; w0 < hi; w0 += kWindow) {
-      const int n = hi - w0 < kWindow ? (int)(hi - w0) : kWindow;
-      for (int c = lane; c < n; c += kWarp) win[c] = 0.0f;
+    for (long long w0 = lo; w0 < hi; w0 += kRows) {
+      const int n = hi - w0 < kRows ? (int)(hi - w0) : kRows;
+      for (int c = lane; c < n * C; c += kWarp) win[c] = 0.0f;
       __syncwarp();
 #pragma unroll
       for (int e = 0; e < kRunEntries; ++e) {
         const long long r = (long long)key[e] - w0;
-        if (((closed >> e) & 1u) && r >= 0 && r < n) win[r] = res[e];
+        if (((closed >> e) & 1u) && r >= 0 && r < n) {
+#pragma unroll
+          for (int c = 0; c < C; ++c) win[r * C + c] = res[e][c];
+        }
       }
-      if (write_first && first - w0 >= 0 && first - w0 < n) win[first - w0] = first_res;
+      if (write_first && first - w0 >= 0 && first - w0 < n) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) win[(first - w0) * C + c] = first_res[c];
+      }
       __syncwarp();
-      for (int c = lane; c < n; c += kWarp) out[w0 + c] = win[c];
+      for (int c = lane; c < n * C; c += kWarp) out[(w0 + c / C) * L + c0 + c % C] = win[c];
       __syncwarp();
     }
   }
@@ -322,12 +419,15 @@ __global__ void __launch_bounds__(kThreads)
 
 // out[key] for each key that crosses a tile boundary: its first tile's
 // tail, the tails of the tiles it runs through and its last tile's head,
-// added in tile order. A lane per join; a chain of more than kSerialTiles
-// tiles is added by the whole warp (lane-strided runs, then a butterfly).
+// added in tile order, column by column. A lane per join; a chain of more
+// than kSerialTiles tiles is added by the whole warp (lane-strided runs,
+// then a butterfly).
+template <int C>
 __global__ void __launch_bounds__(kThreads)
     join_kernel(const int* __restrict__ joins, long long n_joins, const double* __restrict__ head,
-                const double* __restrict__ tail, float* __restrict__ out) {
+                const double* __restrict__ tail, float* __restrict__ out, int L) {
   const int lane = threadIdx.x & (kWarp - 1);
+  const int c0 = blockIdx.y * C;
   const long long stride = (long long)gridDim.x * kThreads;
   for (long long first = ((long long)blockIdx.x * kThreads + threadIdx.x) & ~(long long)(kWarp - 1);
        first < n_joins; first += stride) {
@@ -341,10 +441,15 @@ __global__ void __launch_bounds__(kThreads)
       w = joins[3 * i + 2];
     }
     const bool wide = live && w - u > kSerialTiles;
-    double acc = 0.0;
+    double acc[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[c] = 0.0;
     if (live && !wide) {
-      for (long long t = u; t < w; ++t) acc += tail[t];
-      acc += head[w];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        for (long long t = u; t < w; ++t) acc[c] += tail[t * L + c0 + c];
+        acc[c] += head[w * L + c0 + c];
+      }
     }
     unsigned pending = __ballot_sync(kFull, wide);
     while (pending != 0u) {
@@ -352,13 +457,19 @@ __global__ void __launch_bounds__(kThreads)
       pending &= pending - 1u;
       const long long a = __shfl_sync(kFull, u, owner);
       const long long b = __shfl_sync(kFull, w, owner);
-      double part = 0.0;
-      for (long long t = a + lane; t < b; t += kWarp) part += tail[t];
 #pragma unroll
-      for (int off = kWarp / 2; off > 0; off >>= 1) part += __shfl_xor_sync(kFull, part, off);
-      if (lane == owner) acc = part + head[b];
+      for (int c = 0; c < C; ++c) {
+        double part = 0.0;
+        for (long long t = a + lane; t < b; t += kWarp) part += tail[t * L + c0 + c];
+#pragma unroll
+        for (int off = kWarp / 2; off > 0; off >>= 1) part += __shfl_xor_sync(kFull, part, off);
+        if (lane == owner) acc[c] = part + head[b * L + c0 + c];
+      }
     }
-    if (live) out[key] = (float)acc;
+    if (live) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) out[(long long)key * L + c0 + c] = (float)acc[c];
+    }
   }
 }
 
@@ -373,41 +484,93 @@ long long blocks_for(long long work_items, long long per_block) {
   return blocks < 1 ? 1 : blocks;
 }
 
-template <typename V, bool SQ>
+// the columns a thread takes: the widest chunk that divides L (a column
+// chunk of its own re-reads every entry, and its gathers miss the sectors
+// the other chunks' fetched)
+int chunk_for(int L) { return L % 4 == 0 ? 4 : (L % 3 == 0 ? 3 : (L % 2 == 0 ? 2 : 1)); }
+
+template <typename V, bool SQ, int C>
 cudaError_t launch_rows(int group, const int* ptr32, const long long* ptr64, long long seg_len, long long n_seg,
-                        const int* gather, const void* val, const float* src, float* out, cudaStream_t st) {
+                        const int* gather, const void* val, const float* src, float* out, int L, cudaStream_t st) {
   const V* v = static_cast<const V*>(val);
-  const unsigned blocks = (unsigned)blocks_for(n_seg * group, kThreads);
+  const dim3 grid((unsigned)blocks_for(n_seg * group, kThreads), (unsigned)(L / C));
   switch (group) {
     case 4:
-      row_group_kernel<V, SQ, 4><<<blocks, kThreads, 0, st>>>(ptr32, ptr64, seg_len, n_seg, gather, v, src, out);
+      row_group_kernel<V, SQ, 4, C><<<grid, kThreads, 0, st>>>(ptr32, ptr64, seg_len, n_seg, gather, v, src, out, L);
       break;
     case 8:
-      row_group_kernel<V, SQ, 8><<<blocks, kThreads, 0, st>>>(ptr32, ptr64, seg_len, n_seg, gather, v, src, out);
+      row_group_kernel<V, SQ, 8, C><<<grid, kThreads, 0, st>>>(ptr32, ptr64, seg_len, n_seg, gather, v, src, out, L);
       break;
     case 16:
-      row_group_kernel<V, SQ, 16><<<blocks, kThreads, 0, st>>>(ptr32, ptr64, seg_len, n_seg, gather, v, src, out);
+      row_group_kernel<V, SQ, 16, C><<<grid, kThreads, 0, st>>>(ptr32, ptr64, seg_len, n_seg, gather, v, src, out, L);
       break;
     default:
-      row_group_kernel<V, SQ, 32><<<blocks, kThreads, 0, st>>>(ptr32, ptr64, seg_len, n_seg, gather, v, src, out);
+      row_group_kernel<V, SQ, 32, C><<<grid, kThreads, 0, st>>>(ptr32, ptr64, seg_len, n_seg, gather, v, src, out, L);
   }
   return cudaGetLastError();
 }
 
-template <typename V, bool SQ>
+template <typename V, bool SQ, int C>
 cudaError_t launch_keys(const int* keys, const int* gather, const void* val, long long nnz, long long n_seg,
                         const int* joins, long long n_joins, const float* src, float* out, double* head,
-                        double* tail, cudaStream_t st) {
+                        double* tail, int L, cudaStream_t st) {
   const V* v = static_cast<const V*>(val);
   const int vector_loads = ((reinterpret_cast<uintptr_t>(keys) | reinterpret_cast<uintptr_t>(gather) |
                              reinterpret_cast<uintptr_t>(val)) & 15) == 0;
   const long long n_tiles = (nnz + kTile - 1) / kTile;
-  key_walk_kernel<V, SQ><<<(unsigned)blocks_for(n_tiles, kWarpsPerBlock), kThreads, 0, st>>>(
-      keys, gather, v, nnz, (int)n_seg, vector_loads, src, out, head, tail);
+  key_walk_kernel<V, SQ, C><<<dim3((unsigned)blocks_for(n_tiles, kWarpsPerBlock), (unsigned)(L / C)), kThreads, 0,
+                              st>>>(keys, gather, v, nnz, (int)n_seg, vector_loads, src, out, head, tail, L);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_joins == 0) return err;
-  join_kernel<<<(unsigned)blocks_for(n_joins, kThreads), kThreads, 0, st>>>(joins, n_joins, head, tail, out);
+  join_kernel<C><<<dim3((unsigned)blocks_for(n_joins, kThreads), (unsigned)(L / C)), kThreads, 0, st>>>(
+      joins, n_joins, head, tail, out, L);
   return cudaGetLastError();
+}
+
+template <typename V>
+cudaError_t launch_rows_lanes(int group, const int* ptr32, const long long* ptr64, long long seg_len,
+                              long long n_seg, const int* gather, const void* val, const float* src, float* out,
+                              int L, cudaStream_t st) {
+  switch (chunk_for(L)) {
+    case 4:
+      return launch_rows<V, false, 4>(group, ptr32, ptr64, seg_len, n_seg, gather, val, src, out, L, st);
+    case 3:
+      return launch_rows<V, false, 3>(group, ptr32, ptr64, seg_len, n_seg, gather, val, src, out, L, st);
+    case 2:
+      return launch_rows<V, false, 2>(group, ptr32, ptr64, seg_len, n_seg, gather, val, src, out, L, st);
+    default:
+      return launch_rows<V, false, 1>(group, ptr32, ptr64, seg_len, n_seg, gather, val, src, out, L, st);
+  }
+}
+
+template <typename V>
+cudaError_t launch_keys_lanes(const int* keys, const int* gather, const void* val, long long nnz, long long n_seg,
+                              const int* joins, long long n_joins, const float* src, float* out, double* head,
+                              double* tail, int L, cudaStream_t st) {
+  switch (chunk_for(L)) {
+    case 4:
+      return launch_keys<V, false, 4>(keys, gather, val, nnz, n_seg, joins, n_joins, src, out, head, tail, L, st);
+    case 3:
+      return launch_keys<V, false, 3>(keys, gather, val, nnz, n_seg, joins, n_joins, src, out, head, tail, L, st);
+    case 2:
+      return launch_keys<V, false, 2>(keys, gather, val, nnz, n_seg, joins, n_joins, src, out, head, tail, L, st);
+    default:
+      return launch_keys<V, false, 1>(keys, gather, val, nnz, n_seg, joins, n_joins, src, out, head, tail, L, st);
+  }
+}
+
+bool bad_rows(int group, const int* ptr32, const long long* ptr64, long long seg_len, long long n_seg) {
+  return n_seg < 0 || seg_len < 0 || (ptr32 != nullptr && ptr64 != nullptr) ||
+         (group != 4 && group != 8 && group != 16 && group != 32);
+}
+
+// the grid's y axis holds the column chunks; the squared values take one lane
+bool bad_lanes(int square, int n_lanes) { return n_lanes < 1 || n_lanes > 65535 || (square && n_lanes != 1); }
+
+bool bad_keys(long long nnz, long long n_seg, const int* joins, long long n_joins, const double* head,
+              const double* tail) {
+  return nnz < 0 || n_seg < 0 || n_seg > 0x7fffffffLL || n_joins < 0 ||
+         (n_joins > 0 && (joins == nullptr || head == nullptr || tail == nullptr));
 }
 
 }  // namespace
@@ -417,55 +580,58 @@ extern "C" {
 // The key walk's tile (entries a warp), which the host's joins follow.
 int segment_tile_entries() { return kTile; }
 
-// Row groups: out[s] for s < n_seg over the segments [ptr[s], ptr[s + 1])
-// (ptr32: int32, or ptr64: int64, [n_seg + 1]; both null for uniform
-// segments of seg_len entries), `group` lanes a segment (4, 8, 16 or 32).
-// gather: int32 [nnz] source index of each entry; val: [nnz] float32
-// (bf16 = 0) or bfloat16 (bf16 = 1); src: float32; out: float32 [n_seg].
-// square = 1 sums src * val^2. Launches on `stream`; returns a cudaError_t
-// (cudaErrorInvalidValue for a bad argument; 0 and no launch for n_seg 0).
+// Row groups: out[s, l] for s < n_seg, l < n_lanes over the segments
+// [ptr[s], ptr[s + 1]) (ptr32: int32, or ptr64: int64, [n_seg + 1]; both
+// null for uniform segments of seg_len entries), `group` lanes a segment
+// (4, 8, 16 or 32). gather: int32 [nnz] source index of each entry; val:
+// [nnz] float32 (bf16 = 0) or bfloat16 (bf16 = 1); src: row-major float32
+// [n_src, n_lanes]; out: row-major float32 [n_seg, n_lanes]. square = 1
+// sums src * val^2 (one lane only). S1 is n_lanes = 1. Launches on
+// `stream`; returns a cudaError_t (cudaErrorInvalidValue for a bad
+// argument; 0 and no launch for n_seg 0).
 int segment_rows_launch(int bf16, int square, int group, const int* ptr32, const long long* ptr64,
                         long long seg_len, long long n_seg, const int* gather, const void* val, const float* src,
-                        float* out, void* stream) {
-  if (n_seg < 0 || seg_len < 0 || (ptr32 != nullptr && ptr64 != nullptr) ||
-      (group != 4 && group != 8 && group != 16 && group != 32))
-    return (int)cudaErrorInvalidValue;
+                        float* out, int n_lanes, void* stream) {
+  if (bad_rows(group, ptr32, ptr64, seg_len, n_seg) || bad_lanes(square, n_lanes)) return (int)cudaErrorInvalidValue;
   if (n_seg == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return (int)(square ? launch_rows<uint16_t, true>(group, ptr32, ptr64, seg_len, n_seg, gather, val, src, out, st)
-                        : launch_rows<uint16_t, false>(group, ptr32, ptr64, seg_len, n_seg, gather, val, src, out, st));
-  return (int)(square ? launch_rows<float, true>(group, ptr32, ptr64, seg_len, n_seg, gather, val, src, out, st)
-                      : launch_rows<float, false>(group, ptr32, ptr64, seg_len, n_seg, gather, val, src, out, st));
+  if (square)
+    return (int)(bf16 ? launch_rows<uint16_t, true, 1>(group, ptr32, ptr64, seg_len, n_seg, gather, val, src, out, 1,
+                                                       st)
+                      : launch_rows<float, true, 1>(group, ptr32, ptr64, seg_len, n_seg, gather, val, src, out, 1, st));
+  return (int)(bf16 ? launch_rows_lanes<uint16_t>(group, ptr32, ptr64, seg_len, n_seg, gather, val, src, out,
+                                                  n_lanes, st)
+                    : launch_rows_lanes<float>(group, ptr32, ptr64, seg_len, n_seg, gather, val, src, out, n_lanes,
+                                               st));
 }
 
-// Key walk: out[s] for s < n_seg (< 2^31) over nnz entries whose int32
-// keys (ascending, each < n_seg) name their segment; gather, val, src,
-// out and square as above. joins: int32 [n_joins, 3], (key, first tile,
-// last tile) of each key whose entries cross a boundary of kTile entries,
-// in key order; head and tail: float64 [ceil(nnz / kTile)] scratch, null
-// when n_joins is 0. A second launch adds the joins when n_joins > 0.
+// Key walk: out[s, l] for s < n_seg (< 2^31), l < n_lanes over nnz entries
+// whose int32 keys (ascending, each < n_seg) name their segment; gather,
+// val, src, out, square and n_lanes as above. joins: int32 [n_joins, 3],
+// (key, first tile, last tile) of each key whose entries cross a boundary
+// of kTile entries, in key order; head and tail: float64
+// [ceil(nnz / kTile) * n_lanes] scratch, null when n_joins is 0. A second
+// launch adds the joins when n_joins > 0.
 int segment_keys_launch(int bf16, int square, const int* keys, const int* gather, const void* val, long long nnz,
                         long long n_seg, const int* joins, long long n_joins, const float* src, float* out,
-                        double* head, double* tail, void* stream) {
-  if (nnz < 0 || n_seg < 0 || n_seg > 0x7fffffffLL || n_joins < 0 ||
-      (n_joins > 0 && (joins == nullptr || head == nullptr || tail == nullptr)))
+                        double* head, double* tail, int n_lanes, void* stream) {
+  if (bad_keys(nnz, n_seg, joins, n_joins, head, tail) || bad_lanes(square, n_lanes))
     return (int)cudaErrorInvalidValue;
   if (n_seg == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (nnz == 0) {
-    zero_kernel<<<(unsigned)blocks_for(n_seg, kThreads), kThreads, 0, st>>>(n_seg, out);
+    zero_kernel<<<(unsigned)blocks_for(n_seg * n_lanes, kThreads), kThreads, 0, st>>>(n_seg * n_lanes, out);
     return (int)cudaGetLastError();
   }
-  if (bf16)
-    return (int)(square ? launch_keys<uint16_t, true>(keys, gather, val, nnz, n_seg, joins, n_joins, src, out, head,
-                                                      tail, st)
-                        : launch_keys<uint16_t, false>(keys, gather, val, nnz, n_seg, joins, n_joins, src, out, head,
-                                                       tail, st));
-  return (int)(square ? launch_keys<float, true>(keys, gather, val, nnz, n_seg, joins, n_joins, src, out, head, tail,
-                                                 st)
-                      : launch_keys<float, false>(keys, gather, val, nnz, n_seg, joins, n_joins, src, out, head,
-                                                  tail, st));
+  if (square)
+    return (int)(bf16 ? launch_keys<uint16_t, true, 1>(keys, gather, val, nnz, n_seg, joins, n_joins, src, out, head,
+                                                       tail, 1, st)
+                      : launch_keys<float, true, 1>(keys, gather, val, nnz, n_seg, joins, n_joins, src, out, head,
+                                                    tail, 1, st));
+  return (int)(bf16 ? launch_keys_lanes<uint16_t>(keys, gather, val, nnz, n_seg, joins, n_joins, src, out, head,
+                                                  tail, n_lanes, st)
+                    : launch_keys_lanes<float>(keys, gather, val, nnz, n_seg, joins, n_joins, src, out, head, tail,
+                                               n_lanes, st));
 }
 
 }  // extern "C"

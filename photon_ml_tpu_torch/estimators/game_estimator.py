@@ -14,11 +14,13 @@ Validation scoring puts each feature shard's validation rows in ELL layout
 once: a fixed effect's validation margins are one S1 launch
 (``serving.engine.EllRows``), a random effect's ``score_entity_ell``.
 
+``fit_lanes`` trains several configurations as lambda lanes of one
+coordinate-descent run (``game/lanes.py``).
+
 The composition checks are the execution planner's (``plan.resolve``):
 multi-process runs and meshes (the world comes from ``torch.distributed``
 when it is initialised) are ROADMAP A10, streaming budgets and pipelining
-A7, locked coordinates, priors and ``fit_lanes`` A8; each raises naming its
-item.
+A7, locked coordinates and priors A8b; each raises naming its item.
 """
 
 from __future__ import annotations
@@ -68,7 +70,7 @@ class CoordinateConfig:
     # narrower storage for the feature values only (torch.bfloat16)
     feature_dtype: Optional[torch.dtype] = None
     normalization: Optional[NormalizationContext] = None
-    # incremental training (ROADMAP A8)
+    # incremental training (ROADMAP A8b)
     regularize_by_prior: bool = False
     # out-of-core streaming budget (ROADMAP A7)
     hbm_budget_mb: Optional[int] = None
@@ -319,9 +321,25 @@ class GameEstimator(EventEmitter):
         self.send_event(TrainingFinishEvent(time=time.time()))
         return results
 
-    def fit_lanes(self, *args, **kwargs) -> List[GameResult]:
-        """Lane-batched configurations (the JAX package's ``game/lanes.py``)."""
-        raise NotImplementedError("trial-lanes sweeps (fit_lanes) are not ported yet (ROADMAP A8)")
+    def fit_lanes(
+        self,
+        raw: RawDataset,
+        combos: Sequence[Mapping[str, float]],
+        validation: Optional[RawDataset] = None,
+        datasets: Optional[Dict[str, object]] = None,
+        n_cd_iterations: Optional[int] = None,
+    ) -> List[GameResult]:
+        """Train ``len(combos)`` reg-weight configurations as lambda lanes of
+        one batched coordinate-descent run (``game/lanes.py``): every lane
+        shares each coordinate's data residency and solve, the per-lane
+        weight a tensor operand. Returns one GameResult per combo, in order;
+        the batched counterpart of calling :meth:`fit` once per combo.
+        ``game.lanes.check_lane_composition`` lists what it refuses."""
+        from ..game.lanes import fit_lanes as _fit_lanes
+
+        return _fit_lanes(
+            self, raw, combos, validation=validation, datasets=datasets, n_cd_iterations=n_cd_iterations,
+        )
 
     def select_best(self, results: Sequence[GameResult]) -> GameResult:
         """Best result by primary validation metric (falls back to the last)."""

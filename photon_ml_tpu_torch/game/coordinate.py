@@ -33,9 +33,15 @@ group every rank draws the whole mask and keeps its rows).
 Both coordinates carry the fault site ``solver.value_and_grad`` on the
 effective offsets of their solve (``robust.faults``).
 
+Both coordinates train lambda lanes too (``train_lanes`` / ``score_lanes``,
+the sweep executor ``game/lanes.py``): the fixed effect through
+``GLMProblem.run_lanes`` (``[d, L]``), the random effect through
+``_train_blocks_packed_lanes``, one entity-minor ``[S, E, L]`` solve over
+the full ``[E, K, S]`` blocks without size buckets, as the JAX package
+does (a bucket's padding would land on the lane axis).
+
 Not ported yet, each raising with its ROADMAP item: streamed datasets (A7),
-and random-effect priors from a ``prior_model`` (A8). The lane-stacked
-``train_lanes`` of both coordinates is A8 as well.
+and random-effect priors from a ``prior_model`` (A8b).
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ from ..models.game import (
     RandomEffectModel,
     ell_row_subspace,
     score_entity_rows_dense,
+    score_entity_rows_dense_lanes,
 )
 from ..ops.lane_reduce import lane_reduce
 from ..ops.losses import get_loss
@@ -165,6 +172,49 @@ class FixedEffectCoordinate(Coordinate):
             scores = scores[: self.dataset.n_rows]
         return scores
 
+    def train_lanes(
+        self,
+        residual_lanes: Tensor,  # f[n, L] per-lane residual scores
+        l2_lanes,  # f[L] per-lane L2 weights
+        w0_lanes: Optional[Tensor] = None,  # f[d_true, L] warm start
+    ) -> Tuple[Tensor, SolverResult]:
+        """Lane-stacked train: L lambda candidates share this batch and one
+        solve. Returns (coefficients f[d_true, L], per-lane SolverResult).
+        The fault site mirrors :meth:`train`: flat index 0 of the ``[n, L]``
+        offsets is row 0 of lane 0, so an injected NaN poisons one lane."""
+        if self.config.down_sampling_rate < 1.0:
+            raise ValueError("down-sampling is not supported with trial-lanes")
+        batch = self.dataset.batch
+        L = residual_lanes.shape[1]
+        residual_lanes = residual_lanes.to(batch.offsets.dtype)
+        n_pad = batch.n_rows - residual_lanes.shape[0]
+        if n_pad > 0:
+            residual_lanes = torch.cat([residual_lanes, residual_lanes.new_zeros((n_pad, L))])
+        offsets_lanes = batch.offsets[:, None] + residual_lanes
+        if faults.active():
+            offsets_lanes = faults.corrupt("solver.value_and_grad", offsets_lanes)
+        if w0_lanes is not None and w0_lanes.shape[0] < batch.dim:
+            w0_lanes = torch.cat([w0_lanes, w0_lanes.new_zeros((batch.dim - w0_lanes.shape[0], L))])
+        problem = GLMProblem(
+            task=self.task,
+            config=self.config,
+            normalization=self.normalization,
+            prior=self.prior_model.model.coefficients if self.prior_model else None,
+        )
+        W, result = problem.run_lanes(batch, offsets_lanes, l2_lanes, w0=w0_lanes, plain=self.plain)
+        return W[: self.dataset.dim], result
+
+    def score_lanes(self, W: Tensor) -> Tensor:
+        """Per-sample scores ``[n, L]`` of lane-stacked coefficients
+        ``W[d, L]``: one ``matmat`` for every lane."""
+        batch = self.dataset.batch
+        W = W.to(device=batch.device, dtype=batch.labels.dtype)
+        d_pad = batch.dim - W.shape[0]
+        if d_pad > 0:
+            W = torch.cat([W, W.new_zeros((d_pad, W.shape[1]))])
+        plain = self.plain or batch_route(batch) == "plain_float64"
+        return batch.features.matmat(W, plain=plain)[: self.dataset.n_rows]
+
 
 @dataclasses.dataclass
 class RandomEffectCoordinate(Coordinate):
@@ -175,7 +225,7 @@ class RandomEffectCoordinate(Coordinate):
     dataset: RandomEffectDataset
     task: str
     config: GLMOptimizationConfig
-    # incremental training: per-entity prior means/precisions (ROADMAP A8)
+    # incremental training: per-entity prior means/precisions (ROADMAP A8b)
     prior_model: Optional[RandomEffectModel] = None
 
     def __post_init__(self):
@@ -197,7 +247,7 @@ class RandomEffectCoordinate(Coordinate):
         if self.prior_model is not None:
             raise NotImplementedError(
                 "random-effect priors from a prior_model (incremental training) are not "
-                "ported yet (ROADMAP A8)"
+                "ported yet (ROADMAP A8b)"
             )
         train = _train_blocks if _re_solver_mode() == "vmapped" else _train_blocks_packed
         ds = self.dataset
@@ -276,6 +326,67 @@ class RandomEffectCoordinate(Coordinate):
         # score() takes the cached fast path without comparing index arrays
         object.__setattr__(model, "_support_layout_of", weakref.ref(ds))
         return model, results
+
+    def train_lanes(
+        self,
+        residual_lanes: Tensor,  # f[n, L] per-lane residual scores
+        l2_lanes,  # f[L] per-lane L2 weights
+        w0_lanes: Optional[Tensor] = None,  # f[E, S, L] warm start
+    ) -> Tuple[Tensor, SolverResult]:
+        """Lane-stacked train: every (entity, lambda) pair is one lockstep
+        solver lane. Returns (coef_values f[E, S, L] zeroed outside each
+        entity's support, SolverResult with loss and reason ``[E, L]``).
+
+        No size buckets: they pad the trailing axis, which here is the lane
+        axis; one full-shape solve keeps the layout plain, as in the JAX
+        package. The fault site mirrors :meth:`train`: flat index 0 of the
+        ``[E, K, L]`` offsets is entity 0, row 0, lane 0."""
+        if self.prior_model is not None:
+            raise ValueError("regularize-by-prior is not supported with trial-lanes")
+        ds = self.dataset
+        if ds.group is not None:
+            raise ValueError("trial-lanes sweeps are single-process: an entity-sharded dataset takes no lanes")
+        blocks = ds.blocks
+        E, K, S = blocks.features.shape
+        dtype, dev = blocks.labels.dtype, blocks.labels.device
+        L = residual_lanes.shape[1]
+        rows = torch.clamp(blocks.active_rows, min=0).long()
+        res = residual_lanes[rows] * (blocks.active_rows >= 0)[:, :, None]
+        offsets_lanes = blocks.offsets[:, :, None] + res.to(dtype)
+        if faults.active():
+            offsets_lanes = faults.corrupt("solver.value_and_grad", offsets_lanes)
+        if w0_lanes is None:
+            w0 = torch.zeros((E, S, L), dtype=dtype, device=dev)
+        else:
+            w0 = w0_lanes.to(device=dev, dtype=dtype)
+        solver_kwargs = self._solver_kwargs()
+        if solver_kwargs.pop("l1") > 0.0:
+            raise ValueError(
+                "trial-lanes sweeps support L2 regularization only (the "
+                "OWL-QN l1 weight is compile-time static, not a per-lane "
+                "operand)"
+            )
+        del solver_kwargs["l2"]  # replaced by the per-lane l2_lanes operand
+        results = _train_blocks_packed_lanes(
+            blocks.features, blocks.labels, offsets_lanes, blocks.weights, w0,
+            torch.as_tensor(l2_lanes, dtype=dtype, device=dev), **solver_kwargs,
+        )
+        valid = blocks.proj_cols >= 0
+        W = torch.where(valid[:, :, None], results.coefficients, torch.zeros((), dtype=dtype, device=dev))
+        return W, results
+
+    def score_lanes(self, coef_values: Tensor) -> Tensor:
+        """Per-sample scores ``[n, L]`` of lane-stacked per-entity
+        coefficients ``[E, S, L]``, through the dataset's cached densified
+        subspace (one row gather and a dot for all L lanes)."""
+        ds = self.dataset
+        cache = getattr(ds, "_score_xsub_cache", None)
+        if cache is None:
+            cache = ell_row_subspace(_layout(ds), ds.row_entity, ds.ell_idx, ds.ell_val)
+            object.__setattr__(ds, "_score_xsub_cache", cache)
+        score_dt = torch.promote_types(ds.ell_val.dtype, ds.blocks.labels.dtype)
+        vals = coef_values.to(device=ds.device, dtype=score_dt)
+        return score_entity_rows_dense_lanes(vals, ds.row_entity, cache.to(score_dt))
 
     def _solver_kwargs(self) -> dict:
         cfg = self.config
@@ -679,5 +790,79 @@ def _train_blocks_packed(
         reason=res.reason,
         loss_history=res.loss_history.T,
         grad_norm_history=res.grad_norm_history.T,
+        syncs=res.syncs,
+    )
+
+
+def _train_blocks_packed_lanes(
+    features: Tensor,  # [E, K, S]
+    labels: Tensor,  # [E, K]
+    offsets_lanes: Tensor,  # [E, K, L] residual-composed per-lane offsets
+    weights: Tensor,  # [E, K]
+    w0: Tensor,  # [E, S, L]
+    l2_lanes: Tensor,  # f[L]
+    *,
+    task: str,
+    optimizer_type: str,
+    tolerance: float,
+    max_iterations: int,
+    num_corrections: int,
+    max_cg_iterations: int,
+    max_improvement_failures: int,
+) -> SolverResult:
+    """The entity-minor lockstep solve widened by the lambda-lane axis (the
+    JAX package's ``_train_blocks_packed_lanes``): the solver lanes are the
+    (entity, lambda) pairs, coefficients ``[S, E, L]``, every per-problem
+    reduction axis 0, the L2 weights broadcast from the trailing lane axis.
+    The products are batched matrix products over the entities
+    (``[E, K, S] @ [E, S, L]``, as the JAX package's einsums), so no
+    ``[K, S, E, L]`` term is ever formed. Each value sums in float64, as in
+    ``_train_blocks_packed``. Returns the result entity-major:
+    coefficients ``[E, S, L]``, loss and reason ``[E, L]``, histories
+    ``[E, L, T]``."""
+    loss = get_loss(task)
+    dtype = labels.dtype
+    X = features.to(dtype)  # [E, K, S]; a narrower storage dtype widens once
+    Xt = X.transpose(1, 2)  # [E, S, K]
+    y = labels[:, :, None]  # [E, K, 1]
+    off = offsets_lanes.to(dtype)  # [E, K, L]
+    wt = weights[:, :, None]
+    E, _, S = X.shape
+    L = w0.shape[2]
+    # the solvers take the (entity, lambda) lanes flattened: [S, E * L]
+    w0t = w0.permute(1, 0, 2).to(dtype).reshape(S, E * L)
+
+    def margins(w):  # [S, E, L] -> [E, K, L]
+        return torch.bmm(X, w.permute(1, 0, 2))
+
+    def value_and_grad(wf):  # [S, E * L] -> ([E * L] float64, [S, E * L])
+        w = wf.reshape(S, E, L)
+        lvals, dz = loss.loss_and_dz(margins(w) + off, y)
+        grad = torch.bmm(Xt, wt * dz).permute(1, 0, 2)
+        value = torch.sum((wt * lvals).double(), dim=1) + 0.5 * l2_lanes.double() * torch.sum(
+            (w * w).double(), dim=0
+        )
+        return value.reshape(E * L), (grad + l2_lanes * w).reshape(S, E * L)
+
+    def hessian_vector(wf, vf):
+        w, v = wf.reshape(S, E, L), vf.reshape(S, E, L)
+        c = wt * loss.d2z(margins(w) + off, y) * margins(v)  # [E, K, L]
+        return (torch.bmm(Xt, c).permute(1, 0, 2) + l2_lanes * v).reshape(S, E * L)
+
+    res = _solve_blocks(
+        value_and_grad, hessian_vector, w0t, entity_leading=False, l1=0.0,
+        optimizer_type=optimizer_type, tolerance=tolerance, max_iterations=max_iterations,
+        num_corrections=num_corrections, max_cg_iterations=max_cg_iterations,
+        max_improvement_failures=max_improvement_failures,
+    )
+    T = res.loss_history.shape[0]
+    return SolverResult(
+        coefficients=res.coefficients.reshape(S, E, L).permute(1, 0, 2),
+        loss=res.loss.reshape(E, L),
+        gradient=res.gradient.reshape(S, E, L).permute(1, 0, 2),
+        iterations=res.iterations.reshape(E, L),
+        reason=res.reason.reshape(E, L),
+        loss_history=res.loss_history.reshape(T, E, L).permute(1, 2, 0),
+        grad_norm_history=res.grad_norm_history.reshape(T, E, L).permute(1, 2, 0),
         syncs=res.syncs,
     )

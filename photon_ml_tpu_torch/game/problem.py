@@ -3,7 +3,11 @@
 Counterpart of the JAX package's ``game/problem.py``: ``GLMProblem.run``
 trains one GLM over a batch (warm start and prior mapped into the
 normalization's transformed space, the solve there, the coefficients mapped
-back). ``run_streamed`` and ``run_lanes`` are not ported yet.
+back). ``run_lanes`` solves L regularization candidates of one batch at
+once: the ``[d, L]`` objective on the lane-generic batched TRON and L-BFGS,
+its products one ``matmat`` / ``rmatmat`` for all lanes (S2 on a sparse
+batch on the card), the per-lane L2 weight a tensor operand.
+``run_streamed`` is not ported yet (ROADMAP A7).
 
 Over a batch that ``parallel.mesh.shard_batch`` cut to one rank's rows,
 ``run`` is the same call on every rank of the batch's group: every sweep is
@@ -27,7 +31,8 @@ from ..ops.glm import GLMObjective, check_full_variance_dim, compute_variances
 from ..ops.losses import get_loss
 from ..ops.normalization import NormalizationContext
 from ..ops.regularization import NO_REGULARIZATION, RegularizationContext
-from ..optimize import OptimizerConfig, SolverResult, optimize
+from ..optimize import OptimizerConfig, OptimizerType, SolverResult, optimize, solve_lbfgs, solve_tron
+from ..optimize.common import SyncCounter, abs_tolerances
 
 Tensor = torch.Tensor
 
@@ -209,7 +214,114 @@ class GLMProblem:
             "run_streamed (out-of-core fixed effect) is not ported yet (ROADMAP A7)"
         )
 
-    def run_lanes(self, *args, **kwargs):
-        raise NotImplementedError(
-            "run_lanes (lane-stacked sweeps) is not ported yet (ROADMAP A8)"
+    def run_lanes(
+        self,
+        batch: LabeledBatch,
+        offsets_lanes: Tensor,  # f[n, L] effective offsets per lambda lane
+        l2_lanes,  # f[L] per-lane L2 weights (a tensor operand)
+        w0: Optional[Tensor] = None,  # f[d, L] warm start; None = zeros
+        plain: bool = False,
+    ) -> Tuple[Tensor, SolverResult]:
+        """Lane-stacked solve: L regularization candidates share one data
+        residency and one solve. Returns (coefficients f[d, L], per-lane
+        SolverResult: loss, reason and iterations ``[L]``). A lane that is
+        born corrupt or diverges freezes at its warm start with
+        ``NUMERICAL_DIVERGENCE`` without stalling its neighbours (the batched
+        solvers' masked commit).
+
+        Composition limits (the JAX package's, with its messages): L2 only,
+        variance NONE, no normalization, no prior. ``plain=True`` (and a
+        float64 batch on the card) runs the plain versions of the sparse
+        products."""
+        solver_cfg = self.config.solver_config()
+        if solver_cfg.l1_weight > 0.0:
+            raise ValueError(
+                "trial-lanes sweeps support L2 regularization only (the "
+                "OWL-QN l1 weight is compile-time static, not a per-lane "
+                "operand)"
+            )
+        if self.config.variance_type.upper() != "NONE":
+            raise ValueError(
+                "trial-lanes sweeps require variance=NONE (per-lane "
+                "Hessian inversion is not lane-stacked)"
+            )
+        if self.normalization is not None:
+            raise ValueError("feature normalization is not supported with trial-lanes")
+        if self.prior is not None:
+            raise ValueError("regularize-by-prior is not supported with trial-lanes")
+        if batch.group is not None:
+            raise ValueError("trial-lanes sweeps are single-process: a row-sharded batch takes no lanes")
+        if not plain:
+            plain = batch_route(batch) == "plain_float64"
+        dtype, dev = batch.labels.dtype, batch.device
+        L = offsets_lanes.shape[1]
+        w0 = torch.zeros((batch.dim, L), dtype=dtype, device=dev) if w0 is None else w0.to(device=dev, dtype=dtype)
+        result = _train_fe_lanes(
+            batch.features, batch.labels, offsets_lanes.to(dtype), batch.weights, w0,
+            torch.as_tensor(l2_lanes, dtype=dtype, device=dev),
+            task=self.task,
+            optimizer_type=OptimizerType(solver_cfg.normalized_type()).value,
+            tolerance=solver_cfg.tolerance,
+            max_iterations=solver_cfg.max_iterations,
+            num_corrections=solver_cfg.num_corrections,
+            max_cg_iterations=solver_cfg.max_cg_iterations,
+            max_improvement_failures=solver_cfg.max_improvement_failures,
+            plain=plain,
         )
+        return result.coefficients, result
+
+
+def _train_fe_lanes(
+    features,  # FeatureMatrix
+    labels: Tensor,  # f[n]
+    offsets_lanes: Tensor,  # f[n, L]
+    weights: Tensor,  # f[n]
+    w0: Tensor,  # f[d, L]
+    l2_lanes: Tensor,  # f[L]
+    *,
+    task: str,
+    optimizer_type: str,
+    tolerance: float,
+    max_iterations: int,
+    num_corrections: int,
+    max_cg_iterations: int,
+    max_improvement_failures: int,
+    plain: bool = False,
+) -> SolverResult:
+    """The fixed-effect objective widened over the lambda-lane axis (the
+    JAX package's ``_train_fe_lanes``): margins are one ``matmat``
+    (``[n, L]``), the gradient one ``rmatmat`` (``[d, L]``), the L2 term
+    broadcasts the per-lane weights, and every solver reduction is axis 0,
+    so the lanes ride through the batched TRON / L-BFGS (entity-minor
+    layout, ``optimize.common.MINOR``). Each lane's value sums in the
+    batch's dtype, as the JAX package's lane objective and the port's
+    single-lane sparse objective do, so that a lane's line search compares
+    values at the single-lane solve's resolution."""
+    loss = get_loss(task)
+    y = labels[:, None]
+    wt = weights[:, None]
+
+    def value_and_grad(w):  # [d, L] -> ([L], [d, L])
+        z = features.matmat(w, plain=plain) + offsets_lanes
+        lvals, dz = loss.loss_and_dz(z, y)
+        value = torch.sum(wt * lvals, dim=0) + 0.5 * l2_lanes * torch.sum(w * w, dim=0)
+        grad = features.rmatmat(wt * dz, plain=plain) + l2_lanes * w
+        return value, grad
+
+    def hessian_vector(w, v):
+        z = features.matmat(w, plain=plain) + offsets_lanes
+        c = wt * loss.d2z(z, y) * features.matmat(v, plain=plain)
+        return features.rmatmat(c, plain=plain) + l2_lanes * v
+
+    syncs = SyncCounter()
+    loss_tol, grad_tol = abs_tolerances(value_and_grad, w0, tolerance)
+    if optimizer_type == OptimizerType.TRON.value:
+        return solve_tron(
+            value_and_grad, hessian_vector, w0, loss_tol, grad_tol,
+            max_iterations=max_iterations, max_cg_iterations=max_cg_iterations,
+            max_improvement_failures=max_improvement_failures, syncs=syncs,
+        )
+    return solve_lbfgs(
+        value_and_grad, w0, loss_tol, grad_tol,
+        max_iterations=max_iterations, num_corrections=num_corrections, syncs=syncs, batched=True,
+    )

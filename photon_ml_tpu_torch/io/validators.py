@@ -9,9 +9,9 @@ This port adds a third active mode the reference lacks: QUARANTINE scans
 every row like FULL, but instead of failing the job it zero-weights the
 offending rows (and zeroes their non-finite labels/offsets/feature values —
 a zero weight alone is not enough, ``0 * NaN`` is still NaN in the weighted
-loss) and lets training proceed on the clean remainder. The JAX package
-also counts those rows in its metrics registry; the port logs the count, and
-the counter comes with ROADMAP A13.
+loss) and lets training proceed on the clean remainder. It logs the count
+and adds it to ``photon_rows_quarantined_total`` in the run's metrics
+registry, as the JAX package does.
 """
 
 from __future__ import annotations

@@ -79,6 +79,18 @@ def score_entity_rows_dense(
     return torch.where(entity_rows >= 0, scores, torch.zeros_like(scores))
 
 
+def score_entity_rows_dense_lanes(
+    coef_values: Tensor,  # f[E, S, L] lane-stacked per-entity coefficients
+    entity_rows: Tensor,  # i32[n], -1 = unseen entity
+    x_sub: Tensor,  # f[n, S] from ell_row_subspace
+) -> Tensor:
+    """Lane-stacked :func:`score_entity_rows_dense`: ``[n, L]`` scores of L
+    lambda lanes from one densified-subspace cache."""
+    safe_rows = torch.clamp(entity_rows, min=0).long()
+    scores = torch.sum(coef_values[safe_rows] * x_sub[:, :, None], dim=1)  # [n, L]
+    return torch.where((entity_rows >= 0)[:, None], scores, torch.zeros_like(scores))
+
+
 def score_entity_ell_at(
     coef_values: Tensor,  # f[E, S]
     entity_rows: Tensor,  # i32[n]

@@ -30,8 +30,15 @@ entries sends its matrix's ``matvec`` to the key form too.
 
 Padding entries stay in: they add ``src * 0`` as the reference does, so a
 non-finite coefficient still turns the margins of padded rows non-finite.
-Padded rows carry weight 0. Row slicing (``slice_rows``) is ROADMAP A7 and
-the lane-stacked products (``matmat``, ``rmatmat``) A8: they raise.
+Padded rows carry weight 0. Row slicing (``slice_rows``) is ROADMAP A7: it
+raises.
+
+The lane-stacked products of the lambda-lane sweeps (``matmat`` ``X @ W``
+and ``rmatmat`` ``X^T @ C`` over ``[d, L]`` / ``[n, L]`` operands) run on
+the same segments through S2, the lane-wide segment kernel
+(``sparse.segment_dot_lanes``), whose column l is the single-lane product
+of column l bit for bit; on a dense matrix they are ``torch.matmul``, as
+the JAX package computes them outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -43,7 +50,14 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from .sparse import Segments, key_segments, row_segments, segment_dot, segment_dot_plain
+from .sparse import (
+    Segments,
+    key_segments,
+    row_segments,
+    segment_dot,
+    segment_dot_lanes,
+    segment_dot_plain,
+)
 
 Tensor = torch.Tensor
 
@@ -157,10 +171,13 @@ class FeatureMatrix:
         return self.val if self.idx is not None else self.coo_vals
 
     def _segment_product(self, direction: str, src: Tensor, square: bool, plain: bool) -> Tensor:
-        seg = self.row_segments if direction == "matvec" else self.col_segments
-        n_seg = self.n_rows if direction == "matvec" else self.dim
+        rows = direction in ("matvec", "matmat")
+        seg = self.row_segments if rows else self.col_segments
+        n_seg = self.n_rows if rows else self.dim
         if plain:
             return segment_dot_plain(seg, n_seg, src, square)
+        if direction.endswith("matmat"):
+            return segment_dot_lanes(f"{self.layout}_{direction}", seg, n_seg, src.contiguous())
         name = f"{self.layout}_{'sq_rmatvec' if square else direction}"
         return segment_dot(name, seg, n_seg, src.contiguous(), square)
 
@@ -215,15 +232,22 @@ class FeatureMatrix:
             "FeatureMatrix.slice_rows serves the streamed fixed effect, not ported yet (ROADMAP A7)"
         )
 
-    def matmat(self, w: Tensor):
-        raise NotImplementedError(
-            "FeatureMatrix.matmat serves the lambda-lane sweeps, not ported yet (ROADMAP A8)"
-        )
+    def matmat(self, w: Tensor, plain: bool = False) -> Tensor:
+        """x @ w -> [n, L] for lane-stacked coefficients ``w[d, L]``: one
+        product for all L lanes (S2 on a sparse matrix). ``plain`` as in
+        :meth:`matvec`."""
+        if self.dense is None:
+            return self._segment_product("matmat", w, False, plain)
+        x, w = self._promoted(self.dense, w)
+        return x @ w
 
-    def rmatmat(self, c: Tensor):
-        raise NotImplementedError(
-            "FeatureMatrix.rmatmat serves the lambda-lane sweeps, not ported yet (ROADMAP A8)"
-        )
+    def rmatmat(self, c: Tensor, plain: bool = False) -> Tensor:
+        """x^T @ c -> [d, L] for lane-stacked per-row weights ``c[n, L]``: the
+        gradient accumulation of the lane sweeps."""
+        if self.dense is None:
+            return self._segment_product("rmatmat", c, False, plain)
+        x, c = self._promoted(self.dense, c)
+        return x.T @ c
 
 
 @dataclasses.dataclass(frozen=True)

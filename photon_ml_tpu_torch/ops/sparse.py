@@ -32,6 +32,17 @@ float32 or bfloat16 values) and raises on anything it does not take; a CPU
 tensor takes ``segment_dot_plain`` (gather, multiply, ``index_add_`` in
 float64). ``SPARSE_LAUNCHES`` counts the kernel's launches by product;
 ``fused_glm.reset_launch_counts`` clears it with the other counters.
+
+S2, the lane-wide products of the lambda-lane sweeps (``matmat`` and
+``rmatmat``), is ``segment_dot_lanes``: the same segments over a row-major
+``src [n_src, L]``,
+
+    out[s, l] = sum_{j in segment s} src[gather[j], l] * val[j],
+
+``[n_seg, L]`` float32 out, from the same kernels and the same launch,
+widened by a column chunk (``csrc/sparse_glm.cu``), so that column l is, bit
+for bit, the product ``segment_dot`` gives for column l alone: ``segment_dot``
+is the launch at L = 1. Both share the plain version ``segment_dot_plain``.
 """
 
 from __future__ import annotations
@@ -47,8 +58,12 @@ from . import cuda_lib
 Tensor = torch.Tensor
 
 PRODUCTS = tuple(
-    f"{layout}_{product}" for layout in ("ell", "coo") for product in ("matvec", "rmatvec", "sq_rmatvec")
+    f"{layout}_{product}"
+    for layout in ("ell", "coo")
+    for product in ("matvec", "rmatvec", "sq_rmatvec", "matmat", "rmatmat")
 )
+LANE_PRODUCTS = tuple(name for name in PRODUCTS if name.endswith("matmat"))
+SINGLE_PRODUCTS = tuple(name for name in PRODUCTS if name not in LANE_PRODUCTS)
 SPARSE_LAUNCHES = {name: 0 for name in PRODUCTS}
 
 _VALUE_DTYPES = (torch.float32, torch.bfloat16)
@@ -157,14 +172,18 @@ def reset_launch_counts() -> None:
 
 
 def segment_dot_plain(seg: Segments, n_seg: int, src: Tensor, square: bool = False) -> Tensor:
-    """Plain version of ``segment_dot``: the terms gathered and multiplied in
-    float64, added by ``index_add_`` into a float64 ``[n_seg]``, cast to the
-    product's dtype (the wider of ``src``'s and the values')."""
+    """Plain version of ``segment_dot`` (``src [n_src]``) and of
+    ``segment_dot_lanes`` (``src [n_src, L]``): the terms gathered and
+    multiplied in float64, added by ``index_add_`` into a float64
+    ``[n_seg]`` or ``[n_seg, L]``, cast to the product's dtype (the wider of
+    ``src``'s and the values'). Column l takes the operations that column l
+    alone takes."""
     v = seg.val.to(torch.float64)
     if square:
         v = v * v
-    terms = src.to(torch.float64)[seg.gather.long()] * v
-    out = torch.zeros(n_seg, dtype=torch.float64, device=src.device)
+    terms = src.to(torch.float64)[seg.gather.long()]
+    terms = terms * (v if src.dim() == 1 else v[:, None])
+    out = torch.zeros((n_seg, *src.shape[1:]), dtype=torch.float64, device=src.device)
     out.index_add_(0, seg.segment_ids(n_seg), terms)
     return out.to(torch.promote_types(src.dtype, seg.val.dtype))
 
@@ -173,9 +192,9 @@ def _library() -> ctypes.CDLL:
     lib = cuda_lib.load("sparse_glm")
     if lib.segment_rows_launch.argtypes is None:
         i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-        lib.segment_rows_launch.argtypes = [i, i, i, p, p, ll, ll, p, p, p, p, p]
+        lib.segment_rows_launch.argtypes = [i, i, i, p, p, ll, ll, p, p, p, p, i, p]
         lib.segment_rows_launch.restype = i
-        lib.segment_keys_launch.argtypes = [i, i, p, p, p, ll, ll, p, ll, p, p, p, p, p]
+        lib.segment_keys_launch.argtypes = [i, i, p, p, p, ll, ll, p, ll, p, p, p, p, i, p]
         lib.segment_keys_launch.restype = i
         lib.segment_tile_entries.argtypes = []
         lib.segment_tile_entries.restype = i
@@ -184,10 +203,18 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check(seg: Segments, n_seg: int, src: Tensor) -> None:
+_MAX_LANES = 65535  # the kernel's grid puts lane chunks on its y axis
+
+
+def _check(seg: Segments, n_seg: int, src: Tensor, lanes: bool) -> None:
     dev = src.device
-    if src.dtype != torch.float32 or src.dim() != 1 or not src.is_contiguous():
-        raise TypeError(f"the segment kernel takes a contiguous 1-D float32 src, got {src.dtype} {tuple(src.shape)}")
+    ndim = 2 if lanes else 1
+    if src.dtype != torch.float32 or src.dim() != ndim or not src.is_contiguous():
+        raise TypeError(
+            f"the segment kernel takes a contiguous {ndim}-D float32 src, got {src.dtype} {tuple(src.shape)}"
+        )
+    if lanes and not 1 <= src.shape[1] <= _MAX_LANES:
+        raise ValueError(f"the lane-wide segment kernel takes 1 to {_MAX_LANES} lanes, got {src.shape[1]}")
     if seg.val.dtype not in _VALUE_DTYPES:
         raise TypeError(f"the segment kernel takes float32 or bfloat16 values, got {seg.val.dtype}")
     if seg.gather.dtype != torch.int32:
@@ -226,37 +253,55 @@ def segment_dot(name: str, seg: Segments, n_seg: int, src: Tensor, square: bool 
     kernel of ``seg``'s form (and of the joins' kernel where keys cross a
     tile), float32 out, counted in ``SPARSE_LAUNCHES[name]``; a CPU tensor
     takes ``segment_dot_plain``."""
+    return _segment_dot(name, SINGLE_PRODUCTS, seg, n_seg, src, square)
+
+
+def segment_dot_lanes(name: str, seg: Segments, n_seg: int, src: Tensor) -> Tensor:
+    """S2: ``out[s, l] = sum_j src[gather[j], l] * val[j]`` over the
+    ``n_seg`` segments of ``seg`` for a row-major ``src [n_src, L]``: the
+    launch of ``segment_dot`` at L columns, float32 ``[n_seg, L]`` out,
+    counted in ``SPARSE_LAUNCHES[name]``; a CPU tensor takes
+    ``segment_dot_plain``. Column l equals ``segment_dot`` on column l bit
+    for bit."""
+    return _segment_dot(name, LANE_PRODUCTS, seg, n_seg, src, False)
+
+
+def _segment_dot(name: str, names: tuple, seg: Segments, n_seg: int, src: Tensor, square: bool) -> Tensor:
     if src.device.type == "cpu":
         return segment_dot_plain(seg, n_seg, src, square)
     if src.device.type != "cuda":
         raise ValueError(f"the segment kernel runs on CUDA tensors (plain version on CPU only), got {src.device}")
-    if name not in SPARSE_LAUNCHES:
-        raise KeyError(f"unknown sparse product {name!r}; one of {PRODUCTS}")
-    _check(seg, n_seg, src)
-    out = torch.empty(n_seg, dtype=torch.float32, device=src.device)
-    if n_seg == 0:
-        return out
-    lib = _library()
-    bf16 = int(seg.val.dtype == torch.bfloat16)
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        if seg.keys is not None:
-            nnz, n_joins = seg.gather.shape[0], seg.joins.shape[0]
-            carries = torch.empty((2, -(-nnz // TILE) if n_joins else 0), dtype=torch.float64, device=src.device)
-            rc = lib.segment_keys_launch(
-                bf16, int(square), seg.keys.data_ptr(), seg.gather.data_ptr(), seg.val.data_ptr(), nnz, n_seg,
-                seg.joins.data_ptr() if n_joins else None, n_joins, src.data_ptr(), out.data_ptr(),
-                carries[0].data_ptr() if n_joins else None, carries[1].data_ptr() if n_joins else None, stream,
-            )
-        else:
-            ptr = seg.ptr
-            rc = lib.segment_rows_launch(
-                bf16, int(square), seg.group,
-                ptr.data_ptr() if ptr is not None and ptr.dtype == torch.int32 else None,
-                ptr.data_ptr() if ptr is not None and ptr.dtype == torch.int64 else None,
-                seg.seg_len, n_seg, seg.gather.data_ptr(), seg.val.data_ptr(), src.data_ptr(), out.data_ptr(), stream,
-            )
-    if rc != 0:
-        raise RuntimeError(f"the segment kernel failed for {name} over {n_seg} segments: CUDA error {rc}")
-    SPARSE_LAUNCHES[name] += 1
-    return out
+    if name not in names:
+        raise KeyError(f"unknown sparse product {name!r}; one of {names}")
+    lanes = names is LANE_PRODUCTS
+    _check(seg, n_seg, src, lanes)
+    L = src.shape[1] if lanes else 1
+    out = torch.empty((n_seg, L), dtype=torch.float32, device=src.device)
+    if n_seg:
+        lib = _library()
+        bf16 = int(seg.val.dtype == torch.bfloat16)
+        with torch.cuda.device(src.device):
+            stream = torch.cuda.current_stream(src.device).cuda_stream
+            if seg.keys is not None:
+                nnz, n_joins = seg.gather.shape[0], seg.joins.shape[0]
+                carries = torch.empty((2, -(-nnz // TILE) * L if n_joins else 0), dtype=torch.float64,
+                                      device=src.device)
+                rc = lib.segment_keys_launch(
+                    bf16, int(square), seg.keys.data_ptr(), seg.gather.data_ptr(), seg.val.data_ptr(), nnz, n_seg,
+                    seg.joins.data_ptr() if n_joins else None, n_joins, src.data_ptr(), out.data_ptr(),
+                    carries[0].data_ptr() if n_joins else None, carries[1].data_ptr() if n_joins else None, L,
+                    stream,
+                )
+            else:
+                ptr = seg.ptr
+                rc = lib.segment_rows_launch(
+                    bf16, int(square), seg.group,
+                    ptr.data_ptr() if ptr is not None and ptr.dtype == torch.int32 else None,
+                    ptr.data_ptr() if ptr is not None and ptr.dtype == torch.int64 else None,
+                    seg.seg_len, n_seg, seg.gather.data_ptr(), seg.val.data_ptr(), src.data_ptr(), out.data_ptr(), L,
+                    stream,
+                )
+        if rc != 0:
+            raise RuntimeError(f"the segment kernel failed for {name} over {n_seg} segments: CUDA error {rc}")
+        SPARSE_LAUNCHES[name] += 1
+    return out if lanes else out.view(n_seg)

@@ -244,8 +244,9 @@ def abs_tolerances(
     the device (no fetch)."""
     f0, g0 = value_and_grad(torch.zeros_like(zero_like))
     if zero_like.dim() > 1:
-        tol = torch.as_tensor(tolerance, dtype=f0.dtype, device=f0.device)
-        return torch.abs(f0) * tol, lanes.norm(g0) * tol
+        # a Python scalar: no upload (and the same products as a 0-dim
+        # tensor of the value's dtype)
+        return torch.abs(f0) * tolerance, lanes.norm(g0) * tolerance
     f0_h, g0_norm = (syncs or SyncCounter()).fetch(f0, norm(g0))
     tol = f0_h.dtype.type(tolerance)
     return abs(f0_h) * tol, g0_norm * tol

@@ -8,11 +8,12 @@ coordinate takes, or raises one typed :class:`PlanError`.
 
 The port resolves the compositions it runs: resident coordinates on one
 card, dense / ELL / sorted-COO fixed-effect layouts, float32 or bfloat16
-feature storage, the serial sweep. For the compositions it has not ported,
-it refuses with a ``PlanError`` that names its ROADMAP item: HBM-budget
-streaming and sweep pipelining (A7), trial lanes, incremental training and
-locked coordinates (A8), meshes, the tiled layout and multiple processes
-(A10). ``plan_fingerprint`` and ``check_checkpoint_topology`` are the JAX
+feature storage, the serial sweep, and trial lanes (``check_lane_composition``
+refuses what the lane path does not compose with, in the JAX package's
+words). For the compositions it has not ported, it refuses with a
+``PlanError`` that names its ROADMAP item: HBM-budget streaming and sweep
+pipelining (A7), incremental training and locked coordinates (A8b), meshes,
+the tiled layout and multiple processes (A10). ``plan_fingerprint`` and ``check_checkpoint_topology`` are the JAX
 package's, so a checkpoint's manifest speaks the same topology contract.
 
 The module imports no torch: a plan resolves (``cli train --explain-plan``)
@@ -32,7 +33,7 @@ class PlanError(ValueError):
 
 
 A7 = "ROADMAP A7"
-A8 = "ROADMAP A8"
+A8b = "ROADMAP A8b"
 A10 = "ROADMAP A10"
 
 
@@ -150,7 +151,7 @@ def _check_coordinate(cc) -> None:
     if cc.layout == "tiled":
         raise not_ported(f"coordinate {cc.name}: layout='tiled' (the mesh-tiled sparse batch)", A10)
     if cc.regularize_by_prior:
-        raise not_ported(f"coordinate {cc.name}: regularize-by-prior (incremental training)", A8)
+        raise not_ported(f"coordinate {cc.name}: regularize-by-prior (incremental training)", A8b)
     if cc.feature_dtype is not None and dtype_name(cc.feature_dtype) not in ("float32", "bfloat16"):
         raise PlanError(f"coordinate {cc.name}: feature_dtype must be float32 or bfloat16")
 
@@ -163,12 +164,74 @@ def check_multiprocess_mesh(n_processes: int, mesh) -> None:
         raise not_ported("a device mesh", A10)
 
 
-def check_lane_composition(coordinate_configs: Sequence, n_lanes: int) -> None:
-    """Trial lanes (``--trial-lanes``, ``fit_lanes``) are ROADMAP A8."""
+def check_lane_composition(
+    coordinate_configs: Sequence,
+    n_lanes: int,
+    *,
+    mesh=None,
+    n_processes: int = 1,
+    distributed: bool = False,
+    pipeline_depth: int = 1,
+    partial_retrain_locked: Sequence[str] = (),
+) -> None:
+    """Refuse compositions the trial-lane path does not support. The
+    messages are the JAX package's, verbatim (its README support matrix and
+    tests/test_support_matrix.py pin them)."""
     if n_lanes < 1:
         raise PlanError(f"trial-lanes must be >= 1: {n_lanes}")
-    if n_lanes > 1:
-        raise not_ported("trial-lanes sweeps", A8)
+    if _mesh_axes(mesh) is not None:
+        raise PlanError(
+            "trial-lanes sweeps are single-chip: not composable with a "
+            "device mesh (the lane axis already fills the chip; shard "
+            "trials across hosts instead)"
+        )
+    if distributed or n_processes > 1:
+        raise PlanError(
+            "trial-lanes sweeps are single-process: not composable with "
+            "multi-process training"
+        )
+    if pipeline_depth > 1:
+        raise PlanError(
+            "trial-lanes sweeps drive their own lane schedule: not "
+            "composable with pipeline_depth > 1"
+        )
+    if partial_retrain_locked:
+        raise PlanError(
+            "partial retraining (locked coordinates) is not supported "
+            "with trial-lanes"
+        )
+    for cc in coordinate_configs:
+        where = f"coordinate {cc.name}"
+        if cc.hbm_budget_mb is not None:
+            raise PlanError(
+                f"{where}: trial-lanes sweeps require HBM-resident "
+                "coordinates (hbm_budget_mb streams the data; the lane "
+                "axis multiplies its residency)"
+            )
+        if cc.config.regularization.reg_type in ("L1", "ELASTIC_NET"):
+            raise PlanError(
+                f"{where}: trial-lanes sweeps support L2 regularization "
+                "only (the OWL-QN l1 weight is compile-time static, not a "
+                "per-lane operand)"
+            )
+        if cc.config.variance_type.upper() != "NONE":
+            raise PlanError(
+                f"{where}: trial-lanes sweeps require variance=NONE"
+            )
+        if cc.config.down_sampling_rate < 1.0:
+            raise PlanError(
+                f"{where}: down-sampling is not supported with trial-lanes"
+            )
+        if cc.normalization is not None:
+            raise PlanError(
+                f"{where}: feature normalization is not supported with "
+                "trial-lanes"
+            )
+        if cc.regularize_by_prior:
+            raise PlanError(
+                f"{where}: regularize-by-prior is not supported with "
+                "trial-lanes"
+            )
 
 
 def check_retrain_composition(
@@ -178,7 +241,7 @@ def check_retrain_composition(
     copied verbatim: the day chain is a local control loop, trial lanes have
     no per-lane prior, and streamed coordinates never materialize the
     host-resident models the per-day merge carries forward. (The retrain
-    driver itself is ROADMAP A8.)"""
+    driver itself is ROADMAP A8b.)"""
     if distributed:
         raise PlanError(
             "incremental retrain is single-process: not composable with "
@@ -309,11 +372,17 @@ def resolve(
     if distributed:
         raise not_ported("--distributed (multi-process training)", A10)
     check_multiprocess_mesh(n_processes, mesh)
-    check_lane_composition(coordinate_configs, trial_lanes)
+    if trial_lanes > 1:
+        check_lane_composition(
+            coordinate_configs, trial_lanes, pipeline_depth=pipeline_depth,
+            partial_retrain_locked=partial_retrain_locked,
+        )
+    elif trial_lanes < 1:
+        raise PlanError(f"trial-lanes must be >= 1: {trial_lanes}")
     if pipeline_depth > 1:
         raise not_ported("sweep pipelining (pipeline_depth > 1)", A7)
     if partial_retrain_locked:
-        raise not_ported("partial retraining (locked coordinates)", A8)
+        raise not_ported("partial retraining (locked coordinates)", A8b)
 
     plans = []
     for cc in coordinate_configs:
@@ -342,7 +411,7 @@ def resolve(
         mesh_axes=None,
         n_processes=1,
         pipeline_depth=1,
-        trial_lanes=1,
+        trial_lanes=trial_lanes,
         normalization=normalization,
         distributed=False,
     )

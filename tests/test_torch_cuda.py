@@ -610,6 +610,72 @@ def test_segment_kernel_edges_match_float64_plain_and_repeat_their_bits(cuda, ca
             assert not bool(a[:1000].any()) and not bool(a[900_010:].any()) and not bool(a[1100:900_000].any())
 
 
+@pytest.mark.parametrize("L", [1, 3, 4, 8, 16])
+@pytest.mark.parametrize("case", ["runs", "intercept", "padding", "gaps"])
+@pytest.mark.parametrize("layout", ["ell", "coo"])
+@pytest.mark.parametrize("fdt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_lane_segment_kernel_matches_float64_plain_and_s1_columns(cuda, case, layout, fdt, L):
+    """S2 (matmat and rmatmat) at the segment kernel's edges: against its
+    float64 plain version at the gradient bound, each column bitwise S1's
+    on that column, the same bits on two launches, each launch counted."""
+    f, n, d = _edge_matrix(case, layout, fdt)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(d + L)
+    for direction, single, seg, n_seg, n_src in (("matmat", "matvec", f.row_segments, n, d),
+                                                 ("rmatmat", "rmatvec", f.col_segments, d, n)):
+        src = torch.randn((n_src, L), generator=g, device=cuda)
+        name = f"{layout}_{direction}"
+        before = sparse.SPARSE_LAUNCHES[name]
+        a = sparse.segment_dot_lanes(name, seg, n_seg, src)
+        b = sparse.segment_dot_lanes(name, seg, n_seg, src)
+        torch.cuda.synchronize()
+        assert sparse.SPARSE_LAUNCHES[name] == before + 2
+        assert a.shape == (n_seg, L) and a.dtype == torch.float32 and bool(torch.isfinite(a).all())
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), f"{case} {name}: two launches differ"
+        _assert_vec(a, sparse.segment_dot_plain(seg, n_seg, src.double()), f"{case} {name} L={L}")
+        for col in range(L):
+            s1 = sparse.segment_dot(f"{layout}_{single}", seg, n_seg, src[:, col].contiguous())
+            assert torch.equal(a[:, col].contiguous().view(torch.int32), s1.view(torch.int32)), (
+                f"{case} {name} L={L}: column {col} differs from S1's")
+
+
+def test_lane_segment_kernel_refuses_what_it_does_not_take(cuda):
+    f, n, d = _edge_matrix("runs", "coo", torch.float32)
+    with pytest.raises(TypeError):
+        sparse.segment_dot_lanes("coo_rmatmat", f.col_segments, d, torch.randn(n, device=cuda))
+    with pytest.raises(TypeError):
+        sparse.segment_dot_lanes("coo_rmatmat", f.col_segments, d, torch.randn((n, 2), device=cuda).double())
+    with pytest.raises(KeyError):
+        sparse.segment_dot_lanes("coo_rmatvec", f.col_segments, d, torch.randn((n, 2), device=cuda))
+    with pytest.raises(KeyError):
+        sparse.segment_dot("coo_rmatmat", f.col_segments, d, torch.randn(n, device=cuda))
+
+
+def test_lane_fit_on_card_matches_the_cpu(cuda):
+    """fit_lanes on the card (dense FE and the RE lane solve) against the
+    same fit on the CPU: coefficients at the packed solve's bound."""
+    import numpy as np
+
+    from photon_ml_tpu_torch.estimators import CoordinateConfig, GameEstimator
+    from photon_ml_tpu_torch.testing import generate_mixed_effect_data
+    from photon_ml_tpu_torch.testing.generators import mixed_data_to_raw_dataset
+
+    raw = mixed_data_to_raw_dataset(generate_mixed_effect_data(n=900, d_fixed=6, re_specs={"userId": (12, 3)},
+                                                               seed=29))
+    opt = OptimizerConfig(tolerance=1e-8, max_iterations=100)
+    cfg = GLMOptimizationConfig(optimizer=opt, regularization=RegularizationContext("L2"))
+    ccs = [CoordinateConfig(name="global", feature_shard="global", config=cfg),
+           CoordinateConfig(name="per-user", feature_shard="userShard", random_effect_type="userId", config=cfg)]
+    combos = [{"global": lam, "per-user": lam} for lam in (0.01, 0.1, 1.0, 10.0)]
+    fits = {dev: GameEstimator("logistic_regression", ccs, n_cd_iterations=2, device=dev).fit_lanes(raw, combos)
+            for dev in ("cuda", "cpu")}
+    for card, cpu in zip(fits["cuda"], fits["cpu"]):
+        np.testing.assert_allclose(card.model["global"].model.coefficients.means.cpu().numpy(),
+                                   cpu.model["global"].model.coefficients.means.numpy(), atol=5e-3, rtol=0)
+        np.testing.assert_allclose(card.model["per-user"].coef_values.cpu().numpy(),
+                                   cpu.model["per-user"].coef_values.numpy(), atol=5e-3, rtol=0)
+
+
 def test_segment_kernel_writes_zeros_without_entries(cuda):
     """A key walk over no entries writes every output as 0 (one launch)."""
     empty = torch.zeros(0, dtype=torch.int32, device=cuda)

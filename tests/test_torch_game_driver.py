@@ -346,13 +346,9 @@ def test_explain_plan_prints_without_reading_data(tmp_path, capsys):
 
 
 REFUSED = {
-    "hyper-parameter-tuning": (["--hyper-parameter-tuning", "BAYESIAN"], "A8"),
-    "trial-lanes": (["--trial-lanes", "4"], "A8"),
-    "hyper-parameter-config": (["--hyper-parameter-config", "cfg.json"], "A8"),
-    "output-mode-tuned": (["--output-mode", "TUNED"], "A8"),
-    "incremental-training": (["--incremental-training"], "A8"),
-    "partial-retrain-locked": (["--partial-retrain-locked", "global"], "A8"),
-    "model-input-dir": (["--model-input-dir", "prior"], "A8"),
+    "incremental-training": (["--incremental-training"], "A8b"),
+    "partial-retrain-locked": (["--partial-retrain-locked", "global"], "A8b"),
+    "model-input-dir": (["--model-input-dir", "prior"], "A8b"),
     "mesh-shape": (["--mesh-shape", "data=2"], "A10"),
     "distributed": (["--distributed", "auto"], "A10"),
     "collective-timeout": (["--collective-timeout", "30"], "A10"),
@@ -372,6 +368,41 @@ def test_refused_flags_name_their_roadmap_item(tmp_path, case):
         train.run(argv + ["--device", "cpu"])
 
 
+TUNING_CONFIG = json.dumps({"tuning_mode": "RANDOM", "variables": {
+    "global.reg_weight": {"type": "DOUBLE", "min": 0.01, "max": 100.0, "transform": "LOG"}}})
+
+# the tuning flags that were refused until the tuning path was ported: each
+# now runs, on the CPU, through cli.train
+TUNING_FLAGS = {
+    "hyper-parameter-tuning": ["--hyper-parameter-tuning", "BAYESIAN", "--hyper-parameter-tuning-iter", "2"],
+    "trial-lanes": ["--hyper-parameter-tuning", "RANDOM", "--hyper-parameter-tuning-iter", "4", "--trial-lanes", "4"],
+    "hyper-parameter-config": ["--hyper-parameter-tuning", "RANDOM", "--hyper-parameter-tuning-iter", "2",
+                               "--hyper-parameter-config", "CONFIG"],
+    "output-mode-tuned": ["--hyper-parameter-tuning", "RANDOM", "--hyper-parameter-tuning-iter", "2",
+                          "--output-mode", "TUNED"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(TUNING_FLAGS))
+def test_tuning_flags_run(avro_paths, tmp_path, case):
+    train_p, val_p = avro_paths
+    cfg = tmp_path / "tuning.json"
+    cfg.write_text(TUNING_CONFIG)
+    flags = [str(cfg) if f == "CONFIG" else f for f in TUNING_FLAGS[case]]
+    out = str(tmp_path / "o")
+    got = train.run(_train_args(train_p, val_p, out, ["--device", "cpu", *flags]))
+    n_trials = int(flags[flags.index("--hyper-parameter-tuning-iter") + 1])
+    assert len(got["configs"]) == 1 + n_trials  # the grid's one configuration, then the trials
+    assert all(c["metrics"]["AUC"] > 0.5 for c in got["configs"])
+    with open(os.path.join(out, "hyperparameter-prior.json")) as f:
+        assert len(json.load(f)["records"]) == 1 + n_trials
+    if case == "hyper-parameter-config":
+        # only the configured coordinate is tuned, inside its range
+        for c in got["configs"][1:]:
+            assert 0.01 <= c["reg_weights"]["global"] <= 100.0 and c["reg_weights"]["per-user"] == 1.0
+    assert os.path.exists(os.path.join(out, "models", "best", "model-metadata.json"))
+
+
 @pytest.mark.parametrize("spec,item", [
     (FE_SPEC + ",hbm.budget.mb=64", "A7"), (FE_SPEC + ",layout=tiled", "A10"),
 ])
@@ -386,10 +417,12 @@ def test_planner_refusals_and_helpers():
     assert plan.coordinates[0].geometry == {"dim": 5000, "batch_layout": "ell"}
     assert plan_fingerprint(plan) == ref_plan_fingerprint(ref_resolve([ref_parse_coordinate(FE_SPEC)]))
     for kwargs, item in (({"mesh": {"data": 2}}, "A10"), ({"n_processes": 2}, "A10"),
-                         ({"pipeline_depth": 2}, "A7"), ({"trial_lanes": 2}, "A8"),
-                         ({"partial_retrain_locked": ("global",)}, "A8"), ({"distributed": True}, "A10")):
+                         ({"pipeline_depth": 2}, "A7"),
+                         ({"partial_retrain_locked": ("global",)}, "A8b"), ({"distributed": True}, "A10")):
         with pytest.raises(PlanError, match=f"ROADMAP {item}"):
             resolve([cc], **kwargs)
+    # trial lanes are ported: the plan carries them as the JAX package's does
+    assert resolve([cc], trial_lanes=2).trial_lanes == ref_resolve([ref_parse_coordinate(FE_SPEC)], trial_lanes=2).trial_lanes == 2
     for args in ((True, 1, ()), (False, 4, ()), (False, 1, ("global",))):
         with pytest.raises(PlanError) as ours:
             check_retrain_composition(*args)
@@ -401,7 +434,7 @@ def test_planner_refusals_and_helpers():
     with pytest.raises(PlanError, match="A10"):
         parse_mesh_shape("data=4")
     assert plan_host_row_split("x") == (None, None)
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(PlanError, match="trial-lanes must be >= 1: 0"):
         GameEstimator("logistic_regression", [cc], device="cpu").fit_lanes(None, [])
 
 

@@ -531,7 +531,7 @@ def test_unported_glmix_paths_raise():
     model, res = dataclasses.replace(fe, config=dataclasses.replace(fe.config, down_sampling_rate=0.5)).train(None)
     assert bool(torch.isfinite(res.loss)) and res.reason != 0
     model, _ = re_.train(None, None)
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="A8b"):
         dataclasses.replace(re_, prior_model=model).train(None)
     tron = dataclasses.replace(
         re_.config, optimizer=dataclasses.replace(re_.config.optimizer, optimizer_type="TRON")

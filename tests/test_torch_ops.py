@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from photon_ml_tpu.ops import pallas_glm
+from photon_ml_tpu.ops.features import FeatureMatrix as JaxFeatureMatrix
 from photon_ml_tpu.ops.features import batch_from_dense as jax_batch
 from photon_ml_tpu.ops.glm import GLMObjective as JaxObjective
 from photon_ml_tpu.ops.losses import LOSSES as JAX_LOSSES
@@ -258,18 +259,27 @@ def test_features_dense_only(rng):
     bf = batch_from_dense(x, y, feature_dtype=torch.bfloat16, device="cpu")
     assert bf.features.dense.dtype == torch.bfloat16 and bf.labels.dtype == torch.float32
     # the sparse layouts are ported (tests/test_torch_sparse.py); what they
-    # still refuse is the streamed row slice (A7) and the lane products (A8)
+    # still refuse is the streamed row slice (A7). The lane products are
+    # held against the JAX package's, dense here and sparse in
+    # tests/test_torch_lanes.py
+    W = rng.standard_normal((8, 3)).astype(F32)
+    C = rng.standard_normal((37, 3)).astype(F32)
+    np.testing.assert_allclose(b.features.matmat(_t(W)).numpy(), np.asarray(jb.features.matmat(jnp.asarray(W))),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(b.features.rmatmat(_t(C)).numpy(), np.asarray(jb.features.rmatmat(jnp.asarray(C))),
+                               rtol=1e-5, atol=1e-5)
     ell = FeatureMatrix(dim=8, idx=torch.zeros((2, 1), dtype=torch.int32), val=torch.zeros((2, 1)))
     assert ell.layout == "ell" and ell.n_rows == 2
     with pytest.raises(NotImplementedError, match="A7"):
         ell.slice_rows(0, 1)
-    with pytest.raises(NotImplementedError, match="A8"):
-        ell.matmat(torch.zeros((8, 2)))
+    jell = JaxFeatureMatrix(dim=8, idx=jnp.zeros((2, 1), jnp.int32), val=jnp.zeros((2, 1), jnp.float32))
+    np.testing.assert_array_equal(ell.matmat(_t(W)).numpy(), np.asarray(jell.matmat(jnp.asarray(W))))
     coo = FeatureMatrix(dim=8, coo_cols=torch.zeros(1, dtype=torch.int32), coo_rows=torch.zeros(1, dtype=torch.int32),
                         coo_vals=torch.zeros(1), coo_n_rows=2)
     assert coo.layout == "coo" and coo.n_rows == 2
-    with pytest.raises(NotImplementedError, match="A8"):
-        coo.rmatmat(torch.zeros((2, 2)))
+    jcoo = JaxFeatureMatrix(dim=8, coo_cols=jnp.zeros(1, jnp.int32), coo_rows=jnp.zeros(1, jnp.int32),
+                            coo_vals=jnp.zeros(1, jnp.float32), coo_n_rows=2)
+    np.testing.assert_array_equal(coo.rmatmat(_t(C[:2])).numpy(), np.asarray(jcoo.rmatmat(jnp.asarray(C[:2]))))
 
 
 def test_variances_and_hessian_matrix_name_next_slice(rng):

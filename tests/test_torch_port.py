@@ -47,6 +47,8 @@ import photon_ml_tpu_torch.obs.run, photon_ml_tpu_torch.obs.sinks, photon_ml_tpu
 import photon_ml_tpu_torch.utils.timed, photon_ml_tpu_torch.robust.faults, photon_ml_tpu_torch.robust.checkpoint
 import photon_ml_tpu_torch.plan, photon_ml_tpu_torch.plan.planner, photon_ml_tpu_torch.serving
 import photon_ml_tpu_torch.serving.engine, photon_ml_tpu_torch.estimators.game_estimator
+import photon_ml_tpu_torch.game.lanes, photon_ml_tpu_torch.tuning, photon_ml_tpu_torch.tuning.tuner
+import photon_ml_tpu_torch.tuning.search, photon_ml_tpu_torch.tuning.shrink, photon_ml_tpu_torch.tuning.serialization
 sys.path.insert(0, "tests")
 import test_torch_parallel_ranks
 bad = sorted(

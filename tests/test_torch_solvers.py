@@ -230,9 +230,17 @@ def test_unported_paths_raise(rng):
     model, _ = GLMProblem("logistic_regression", GLMOptimizationConfig(variance_type="FULL")).run(batch)
     var = model.coefficients.variances
     assert var.shape == (4,) and bool(torch.isfinite(var).all()) and bool((var > 0).all())
-    for method in ("run_streamed", "run_lanes"):
-        with pytest.raises(NotImplementedError):
-            getattr(GLMProblem("logistic_regression", GLMOptimizationConfig()), method)(batch)
+    with pytest.raises(NotImplementedError):
+        GLMProblem("logistic_regression", GLMOptimizationConfig()).run_streamed(batch)
+    # the lane solve is ported (tests/test_torch_lanes.py): each lane is its
+    # single-lane solve at the packed solve's bound
+    l2 = GLMOptimizationConfig(regularization=RegularizationContext("L2"))
+    W, res = GLMProblem("logistic_regression", l2).run_lanes(
+        batch, torch.zeros((64, 2)), torch.tensor([0.5, 5.0]))
+    assert W.shape == (4, 2) and res.reason.shape == (2,)
+    for k, lam in enumerate((0.5, 5.0)):
+        model, _ = GLMProblem("logistic_regression", l2.with_reg_weight(lam)).run(batch)
+        torch.testing.assert_close(W[:, k], model.coefficients.means, atol=5e-3, rtol=0)
 
 
 def test_tron_with_box_projects(rng):

@@ -632,14 +632,15 @@ def test_sweep_with_an_ell_fixed_effect_matches_jax():
 
 
 def test_the_remaining_sparse_refusals_name_their_items(rng):
-    _, tb = _pair(rng, "ell", "float32")
+    jb, tb = _pair(rng, "ell", "float32")
     f = tb.features
     with pytest.raises(NotImplementedError, match="A7"):
         f.slice_rows(0, 4)
-    with pytest.raises(NotImplementedError, match="A8"):
-        f.matmat(torch.zeros((40, 2)))
-    with pytest.raises(NotImplementedError, match="A8"):
-        f.rmatmat(torch.zeros((60, 2)))
+    # the lane products are ported (S2's plain version on the CPU)
+    W = rng.standard_normal((40, 2)).astype(np.float32)
+    C = rng.standard_normal((60, 2)).astype(np.float32)
+    _close_vec(f.matmat(_t(W)).numpy(), jb.features.matmat(jnp.asarray(W)), "ell matmat")
+    _close_vec(f.rmatmat(_t(C)).numpy(), jb.features.rmatmat(jnp.asarray(C)), "ell rmatmat")
     _, traw = _raw_pair(rng, 10, 8)
     with pytest.raises(NotImplementedError, match="A10"):
         traw.to_batch("s", layout="tiled", device="cpu")
