@@ -90,7 +90,9 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    the gathers under an L2 evict-last policy, the earlier design as it is
    and with streamed entries) on the sparse shape's products, replayed from CUDA
    graphs in turns, and ELL matvec with w of 10, 20 and 30 MB beside d's
-   40; then of the ring body (RING_VARIANTS: margins in f32, no margins, no
+   40 (with --prev-segment-source PATH, an earlier csrc/sparse_glm.cu too:
+   S1's products and S2 at L = 1, 4, 8 and 16 in turns with it, bits
+   compared); then of the ring body (RING_VARIANTS: margins in f32, no margins, no
    column sums, neither), each computing wrong sums, timed in turns with
    the ring to show what each part of its work costs;
 9. the sparse fixed effects (run after phase 6 and before phase 7), every
@@ -200,11 +202,12 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
 
 13. hyperparameter tuning (run after phase 12, on its fixture; phase 5
    first): (a) S2, the lane-wide segment kernel (matmat and rmatmat), at
-   phase 9's sparse shape, COO and ELL, L = 1, 3, 4, 8 and 16: against its
-   float64 plain version (max-abs <= 3e-5 * max(|ref|, 1)), each column
-   bitwise S1's, two launches alike; timed by CUDA events and from a CUDA
-   graph beside its byte bound, L x S1, the index_add_ composition and
-   cuSPARSE's SpMM; (b) lambda-lane sweeps in process on phase 5's data
+   phase 9's sparse shape, COO and ELL, L = 1, 3, 4, 7, 8, 16 and 40 (7: a
+   tail sub-chunk; 40: past the panel of 16 columns): against its float64
+   plain version (max-abs <= 3e-5 * max(|ref|, 1)), each column bitwise
+   S1's, two launches alike; timed by CUDA events and from a CUDA graph
+   beside its byte bound (the distinct gathered source rows counted),
+   L x S1, the index_add_ composition and cuSPARSE's SpMM; (b) lambda-lane sweeps in process on phase 5's data
    (bench.py's sweep protocol: L-BFGS tol 1e-7, 50 iterations, 2 sweeps,
    variance NONE): K = 1, 4 and 8 lanes against K sequential fits (walls;
    each lane's FE coefficients atol 5e-3 and training AUC within 1e-4 of
@@ -216,7 +219,9 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    through GLMProblem.run_lanes with 4 L2 weights on ELL and COO, S2's
    launches counted from 0 (each product above 0), each lane against its
    single-lane solve (loss rtol 1e-5; coefficients atol 5e-3 in float64,
-   the f32 gaps printed); (d) cli.train on phase 12's fixture: sequential
+   the f32 gaps printed), then, warm and profiled, the 4-lane solve, its 4
+   singles and the 8-lane solve of bench.py's protocol lambdas (S2's device
+   ms, launches and share of the busy time beside the top operations); (d) cli.train on phase 12's fixture: sequential
    BAYESIAN with phase 12's options and 4 trials (B1, B2, B3 with shifts and
    S1 each launched), then RANDOM --trial-lanes 4 with 8 trials, variance
    and normalization NONE (2 batches timed, 8 trials counted, the tuned
@@ -226,8 +231,8 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
 
     python3 chip_smoke.py --only timing    # card, build, then one phase
 
-runs a subset of phases 3-13 (check, fe, glmix, dp, nccl, solvers, io, game, tuning, sparse,
-timing, variants) and then reports not ok; "solvers", "io", "game" and "tuning" run phase 5 first ("game" and
+runs a subset of phases 3-13 (check, fe, glmix, dp, nccl, solvers, io, game, tuning, s2, sparse,
+timing, variants) and then reports not ok; "s2" is phase 13 (a) alone; "solvers", "io", "game" and "tuning" run phase 5 first ("game" and
 "tuning" write phase 12's fixture first); "nccl" is phase 6 (c) alone after
 phase 5 (for a machine with several cards: one NCCL rank per card).
 
@@ -242,6 +247,8 @@ import argparse
 import dataclasses
 import json
 import math
+import pathlib
+import re
 import sys
 import time
 import traceback
@@ -289,11 +296,14 @@ DESIGN = {
                    "carries for keys that cross tiles added in tile order by a second small kernel, each tile's "
                    "outputs (empty columns as zeros) staged in shared memory and stored coalesced; entries "
                    "streamed with evict-first loads; double sums, each output written once; no atomics",
-    "segment_dot_lanes": "S1's row groups and key walk widened by a column chunk: a thread takes C = 4, 3, 2 or 1 "
-                         "consecutive columns (the largest that divides L; the grid's y axis is the chunk), one "
-                         "gather of C contiguous floats an entry, and runs S1's operations for each column in the "
-                         "same order (the same partition over lanes, butterfly, scan and tile joins), so column l "
-                         "is S1 on column l bit for bit; double sums, each output written once; no atomics",
+    "segment_dot_lanes": "S1's row groups and key walk over panels of up to 16 columns (one pass over the entries "
+                         "a panel; wider L in panels of 16, then the rest), a thread's entries loaded once and its "
+                         "columns walked in sub-chunks of 4 (float4 gathers along the source row), each column by "
+                         "S1's operations in S1's order (the same partition over lanes, fused multiply-adds, "
+                         "butterfly, scan and tile joins), so column l is S1 on column l bit for bit; output rows "
+                         "written whole: the row group's lanes share out the panel's sums, the key walk stages its "
+                         "closed runs' sums in shared memory and stores the tile's rows contiguously, empty rows as "
+                         "zeros; double sums, each output written once; no atomics",
 }
 PREV_SEGMENT_DESIGN = (
     "a warp per 32 consecutive segments over int64 pointers: a segment of at most 4 entries summed by its lane, "
@@ -1725,30 +1735,32 @@ def ring_variants(torch, n, d, seed):
 # earlier design (csrc/sparse_glm_warp.cu), built and timed like the ring's:
 # each changes one part, so that its time says what that part costs. Those
 # marked so compute wrong sums; nothing but phase 8 loads them.
-_SEG_ROW_GATHER = "        if (idx[e] >= 0) {\n          gather_src<C>(src, idx[e], L, c0, x[e]);"
-_SEG_KEY_GATHER = "      if (e < cnt) {\n        gather_src<C>(src, idx[e], L, c0, x[e]);"
-_SEG_STORE = "for (int c = lane; c < n * C; c += kWarp) out[(w0 + c / C) * L + c0 + c % C] = win[c];"
-_SEG_GATHER_SCALAR = "  for (int c = 0; c < C; ++c) x[c] = __ldg(p + c);"
+_SEG_ROW_GATHER = "gather_cols<SW>(row + k * SW, width - k * SW, vec, x[e][k]);"
+_SEG_KEY_GATHER = "gather_cols<S>(src + (long long)idx[e] * L + c0, n, vec, x[e]);"
+_SEG_STORE = "for (int r = lane; r < n; r += kWarp) out[(w0 + r) * L + c0] = win[r];"
+_SEG_GATHER_SCALAR = "  for (int c = 0; c < S; ++c) x[c] = c < n ? __ldg(p + c) : 0.0f;"
 SEGMENT_VARIANTS = {
     "segment": ("sparse_glm", []),
     # wrong sums: entry j reads src[j] (row groups; j < d at the sparse
-    # shape) or src[j mod 2^17] (key walk; 2^17 < n): the stream without
-    # the gathers
+    # shape) or entry e of thread t src[(8 t + e) mod 2^17] (key walk;
+    # 2^17 < n): the stream without the gathers
     "contiguous_src": ("sparse_glm", [
-        (_SEG_ROW_GATHER, "        if (idx[e] >= 0) {\n          gather_src<C>(src, (int)(j + e), L, c0, x[e]);"),
-        (_SEG_KEY_GATHER, "      if (e < cnt) {\n        gather_src<C>(src, (int)((base + e) & 131071), L, c0, x[e]);"),
+        (_SEG_ROW_GATHER, "gather_cols<SW>(src + (j + e) * L + c0 + k * SW, width - k * SW, vec, x[e][k]);"),
+        (_SEG_KEY_GATHER, "gather_cols<S>(src + ((((long long)blockIdx.x * blockDim.x + threadIdx.x) * kRunEntries + e) "
+                          "& 131071) * L + c0, n, vec, x[e]);"),
     ]),
     # wrong sums: the key walk's window built but not stored
     "no_output_stores": ("sparse_glm", [
-        (_SEG_STORE, "for (int c = lane; c < n * C; c += kWarp) if (win[c] == 1234.5f) "
-                     "out[(w0 + c / C) * L + c0 + c % C] = win[c];"),
+        (_SEG_STORE, "for (int r = lane; r < n; r += kWarp) if (win[r] == 1234.5f) out[(w0 + r) * L + c0] = win[r];"),
     ]),
     # the gathers under an L2 evict-last cache policy (same sums; the
     # single-column products take the scalar loads)
-    "l2_evict_last": ("sparse_glm", [(_SEG_GATHER_SCALAR, """  for (int c = 0; c < C; ++c) {
+    "l2_evict_last": ("sparse_glm", [(_SEG_GATHER_SCALAR, """  for (int c = 0; c < S; ++c) {
     unsigned long long policy;
     asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(policy));
-    asm("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;" : "=f"(x[c]) : "l"(p + c), "l"(policy));
+    float y = 0.0f;
+    if (c < n) asm("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;" : "=f"(y) : "l"(p + c), "l"(policy));
+    x[c] = y;
   }""")]),
     # the earlier design as it is, and with its entries streamed (__ldcs;
     # same sums)
@@ -1760,14 +1772,50 @@ SEGMENT_VARIANTS = {
     ]),
 }
 MATVEC_W_COLUMNS = (2_500_000, 5_000_000, 7_500_000)  # w of 10, 20 and 30 MB beside d's 40
+PREVIOUS_WIDTHS = (1, 4, 8, 16)  # S2's lanes timed against an earlier source
 
 
-def segment_variants(torch, seed, batches=None):
+def _previous_lanes(torch, f, layout, libs, gen):
+    """S2 (matmat, rmatmat) of one matrix at PREVIOUS_WIDTHS, each from a
+    CUDA graph, in turns: this source, the earlier one, the earlier one,
+    this source; and whether the two give the same bits."""
+    from photon_ml_tpu_torch.ops import sparse
+
+    library, out = sparse._library, {}
+    try:
+        for product, seg, n_seg, n_src in (("matmat", f.row_segments, f.n_rows, f.dim),
+                                           ("rmatmat", f.col_segments, f.dim, f.n_rows)):
+            name = f"{layout}_{product}"
+            for L in PREVIOUS_WIDTHS:
+                src = torch.randn((n_src, L), generator=gen, device="cuda")
+                fn = lambda: sparse.segment_dot_lanes(name, seg, n_seg, src)  # noqa: E731
+                runs, outs = {}, {}
+                for v in ("segment", "previous", "previous", "segment"):
+                    sparse._library = lambda lib=libs[v]: lib
+                    outs.setdefault(v, fn())
+                    runs.setdefault(v, []).append(graph_ms(torch, fn, 20))
+                same = _same_bits(outs["segment"], outs["previous"])
+                out[(name, L)] = {"runs": runs, "same_bits": same}
+                log(f"  S2 {name:12s} L={L:2d} this source {min(runs['segment']):.4f} "
+                    f"({'/'.join(f'{u:.4f}' for u in runs['segment'])}) ms, the previous "
+                    f"{min(runs['previous']):.4f} ({'/'.join(f'{u:.4f}' for u in runs['previous'])}); same bits {same}")
+                del src, outs
+    finally:
+        sparse._library = library
+    return out
+
+
+
+def segment_variants(torch, seed, batches=None, previous=None):
     """Each SEGMENT_VARIANTS entry built from its source and timed on the
     sparse shape's products (f32), each launch replayed from a CUDA graph,
-    in turns: the variants in order, then in reverse. Then ELL matvec over
-    the same rows with their columns taken modulo each MATVEC_W_COLUMNS
-    (a smaller w, the same gathers), in turns with the full d."""
+    in turns: the variants in order, then in reverse. With ``previous``
+    (the path of an earlier csrc/sparse_glm.cu with the same C interface)
+    that source too, as the variant "previous", and S2 at PREVIOUS_WIDTHS
+    in turns with it (segment, previous, previous, segment), its bits
+    compared. Then ELL matvec over the same rows with their columns taken
+    modulo each MATVEC_W_COLUMNS (a smaller w, the same gathers), in turns
+    with the full d."""
     import ctypes
     import subprocess
 
@@ -1785,6 +1833,11 @@ def segment_variants(torch, seed, batches=None):
                 raise RuntimeError(f"segment variant {name}: the source no longer holds {old.strip()[:60]!r}")
             text = text.replace(old, new)
         (out_dir / f"{name}.cu").write_text(text)
+    sources = dict(SEGMENT_VARIANTS)
+    if previous:
+        (out_dir / "previous.cu").write_text(pathlib.Path(previous).read_text())
+        sources["previous"] = ("sparse_glm", [])
+    for name in sources:
         cmd = [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-o", str(out_dir / f"{name}.so"), str(out_dir / f"{name}.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     ref = sparse._library()
@@ -1794,7 +1847,7 @@ def segment_variants(torch, seed, batches=None):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on segment variant {name}:\n{text}")
         lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
-        if SEGMENT_VARIANTS[name][0] == "sparse_glm":
+        if sources[name][0] == "sparse_glm":
             for fn in ("segment_rows_launch", "segment_keys_launch"):
                 getattr(lib, fn).argtypes = getattr(ref, fn).argtypes
                 getattr(lib, fn).restype = getattr(ref, fn).restype
@@ -1820,7 +1873,7 @@ def segment_variants(torch, seed, batches=None):
                 design = warp_design(torch, seg, n_seg)
                 runs = {}
                 for v in list(libs) + list(libs)[::-1]:
-                    if SEGMENT_VARIANTS[v][0] == "sparse_glm":
+                    if sources[v][0] == "sparse_glm":
                         sparse._library = lambda lib=libs[v]: lib
                         fn = lambda: sparse.segment_dot(name, seg, n_seg, src)  # noqa: E731
                     else:
@@ -1831,6 +1884,8 @@ def segment_variants(torch, seed, batches=None):
                 log(f"  segment variants {name:12s} " + "  ".join(
                     f"{v} {min(t):.4f} ({'/'.join(f'{u:.4f}' for u in t)})" for v, t in runs.items()) + " ms")
                 del design
+            if previous:
+                out.update(_previous_lanes(torch, f, layout, libs, gen))
         # ELL matvec with a smaller w: the same rows, columns modulo d'
         mats = {SPARSE_D: batches["ell"].features}
         for dd in MATVEC_W_COLUMNS:
@@ -2688,15 +2743,25 @@ def sparse_entries(sp, times, game=None):
     return entries
 
 
+def gathered_rows(seg, n_src):
+    """The distinct source rows that ``seg``'s entries gather (at most
+    ``n_src``), counted on the host."""
+    rows = int(np.unique(seg.gather.cpu().numpy()).size)
+    if rows > n_src:
+        raise ValueError(f"the gather reaches {rows} rows of a source of {n_src}")
+    return rows
+
+
 def segment_bytes(seg, n_seg, n_src):
-    """Bytes of one segment product (``ops/sparse.py`` ``Segments``), three
-    ways:
+    """Bytes of one segment product (``ops/sparse.py`` ``Segments``) over a
+    source of ``n_src`` floats, three ways:
 
     - ``function``, the bound: what the product must move. Each entry's
-      int32 source index and its value read once, the ``n_src`` float32
-      source read once, the float32 output written once. At the sparse
-      shape both sources (w, 40 MB; c, 0.8 MB) fit the 50 MB L2, so a gather
-      costs no sector of its own;
+      int32 source index and its value read once, each float32 source value
+      that an entry gathers read once (the distinct gathered rows: 4,726,611
+      of w's 10 M at the sparse shape, every one of c's), the float32 output
+      written once. At the sparse shape both sources (w, 40 MB; c, 0.8 MB)
+      fit the 50 MB L2, so a gather costs no sector of its own;
     - ``design``: ``function`` plus what this design adds: the row groups'
       segment pointers (none for uniform ELL rows), or the key walk's int32
       keys, its joins and their float64 carries (one written by each tile
@@ -2710,7 +2775,7 @@ def segment_bytes(seg, n_seg, n_src):
         own = 4 * nnz + 12 * seg.joins.shape[0] + 2 * 8 * tiles
     else:
         own = 0 if seg.ptr is None else seg.ptr.element_size() * (n_seg + 1)
-    function = entries + 4 * n_src + 4 * n_seg
+    function = entries + 4 * gathered_rows(seg, n_src) + 4 * n_seg
     return {"function": function, "design": function + own, "sectors": entries + 32 * nnz + 4 * n_seg + own}
 
 
@@ -3592,7 +3657,7 @@ def game_phase(torch, fixture, smi):
 # fixed-effect lane solve; and cli.train's tuning on phase 12's fixture,
 # sequential and lane-batched, killed in the middle of a batch and resumed.
 
-S2_WIDTHS = (1, 3, 4, 8, 16)  # lanes of (a)
+S2_WIDTHS = (1, 3, 4, 7, 8, 16, 40)  # lanes of (a): 7 ends in a sub-chunk of 3, 40 runs panels of 16, 16 and 8
 S2_MAIN_WIDTH = 4  # the lanes of (c) and (d): each S2 line of the kernels JSON is timed at this width
 TUNING_LAMBDAS = (0.01, 0.1, 1.0, 10.0)
 SWEEP_LAMBDAS = tuple(float(x) for x in np.logspace(-2.0, 2.0, 8))  # (b)'s K = 8, bench_sweep's; K = 4 takes TUNING_LAMBDAS
@@ -3605,10 +3670,13 @@ TUNING_KILL_AT = 2  # tuning.trial: the second lane of the first batch
 F32_HELD_FROM = {"b": 0.5, "c": 0.1}
 
 
-def s2_bytes(seg, n_seg, n_src, L):
-    """Bytes S2 must move: each entry's int32 index and value once, the
-    [n_src, L] float32 source once and the [n_seg, L] float32 output once."""
-    return seg.gather.shape[0] * (4 + seg.val.element_size()) + 4 * L * (n_src + n_seg)
+def s2_bytes(seg, n_seg, n_src, L, rows=None):
+    """Bytes S2 must move: each entry's int32 index and value once, the L
+    float32 columns of each gathered source row once (``rows``, the distinct
+    rows of the [n_src, L] source that the entries reach: ``gathered_rows``)
+    and the [n_seg, L] float32 output once."""
+    rows = gathered_rows(seg, n_src) if rows is None else rows
+    return seg.gather.shape[0] * (4 + seg.val.element_size()) + 4 * L * (rows + n_seg)
 
 
 def s2_check_and_time(torch, seed, batches, problems):
@@ -3639,6 +3707,7 @@ def s2_check_and_time(torch, seed, batches, problems):
             with warnings.catch_warnings():  # torch marks its sparse CSR tensors beta
                 warnings.simplefilter("ignore")
                 csr = torch.sparse_csr_tensor(ptr.to(torch.int32), seg.gather, seg.val, size=(n_seg, n_src))
+            rows = gathered_rows(seg, n_src)
             for L in S2_WIDTHS:
                 src = torch.randn((n_src, L), generator=gen, device=dev)
                 a = sparse.segment_dot_lanes(name, seg, n_seg, src)
@@ -3681,7 +3750,7 @@ def s2_check_and_time(torch, seed, batches, problems):
                     runs["s1_ms"].append(time_ms(torch, single, 20))
                 plain_ms = time_ms(torch, plain, 3)
                 g_ms = graph_ms(torch, kern, 20)
-                nbytes = s2_bytes(seg, n_seg, n_src, L)
+                nbytes = s2_bytes(seg, n_seg, n_src, L, rows)
                 ops = 2 * seg.gather.shape[0] * L
                 t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS["float32"] * 1e3
                 row = {k: min(v) for k, v in runs.items()}
@@ -3689,6 +3758,7 @@ def s2_check_and_time(torch, seed, batches, problems):
                             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes, "ops": ops,
                             "max_abs_err": err, "columns_bitwise_s1": columns_s1, "same_bits_twice": twice,
                             "library_max_abs_diff": lib_err, "segments": n_seg, "entries": seg.gather.shape[0],
+                            "gathered_rows": rows,
                             "form": "keys" if seg.keys is not None else f"row groups of {seg.group}"})
                 row["l_times_s1_ms"] = L * row["s1_ms"]
                 out[(name, L)] = row
@@ -3903,7 +3973,9 @@ def sparse_lane_solve(torch, seed, batches, problems):
     resolution; in f32 from lambda F32_HELD_FROM["c"], printed below it.
     Then the walls broken down (``_solve_breakdown``): the lane solve and
     the four singles again, warm, each profiled and counted under the sync
-    debug mode."""
+    debug mode; and the same for the lane solve of SWEEP_LAMBDAS (8 lanes,
+    bench.py's tuning protocol), with S2's device ms, kernel launches and
+    share of the busy time, and its calls counted over one warm solve."""
     from photon_ml_tpu_torch.game import GLMProblem
     from photon_ml_tpu_torch.ops import fused_glm as fg
     from photon_ml_tpu_torch.ops import sparse
@@ -3965,18 +4037,47 @@ def sparse_lane_solve(torch, seed, batches, problems):
                 f"segment kernels (S1 / S2) {parts['segment_ms']:.3f} ms over {parts['segment_launches']} launches; "
                 f"{parts['syncs']} synchronizing operations ({parts['fetches']} the solvers' fetches); top device "
                 f"operations: " + "; ".join(f"{ms:.3f} ms x{n} {key[:60]}" for ms, n, key in parts["top"]))
+        lams8 = torch.tensor(SWEEP_LAMBDAS, device=batch.device)
+        offsets8 = batch.offsets[:, None].repeat(1, len(SWEEP_LAMBDAS))
+        lane_problem.run_lanes(batch, offsets8, lams8)  # the first call of this width
+        sparse.reset_launch_counts()
+        lane_problem.run_lanes(batch, offsets8, lams8)
+        calls8 = {k: v for k, v in sparse.SPARSE_LAUNCHES.items() if v}
+        parts8 = _solve_breakdown(torch, lambda: lane_problem.run_lanes(batch, offsets8, lams8))
+        parts8["calls"] = calls8
+        log(f"  (c) {layout} lane solve of {len(SWEEP_LAMBDAS)} lambdas, warm: {parts8['wall_s']:.4f} s; profiled: "
+            f"device busy {parts8['busy_s']:.4f} s ({parts8['busy_s'] / parts8['wall_s']:.1%} of the warm wall), "
+            f"{parts8['device_ops']} device operations; S2 {parts8['s2_ms']:.3f} ms over "
+            f"{parts8['s2_launches']} kernel launches ({calls8} product calls), "
+            f"{parts8['s2_ms'] * 1e-3 / parts8['busy_s']:.1%} of the busy time; all segment kernels "
+            f"{parts8['segment_ms']:.3f} ms over {parts8['segment_launches']}; {parts8['syncs']} synchronizing "
+            f"operations; top device operations: "
+            + "; ".join(f"{ms:.3f} ms x{n} {key[:60]}" for ms, n, key in parts8["top"]))
         out[layout] = {"wall_s": wall, "single_s": single_s, "rows": rows, "lane_parts": lane_parts,
-                       "single_parts": single_parts}
-        del W, res, offsets, W64, batch64
+                       "single_parts": single_parts, "lanes8": parts8}
+        del W, res, offsets, W64, batch64, offsets8
     return out
+
+
+# a segment kernel's name as the profiler gives it, up to its template
+# arguments, the last of which is its panel's capacity (1: S1)
+_SEGMENT_TEMPLATE = re.compile(r"(?:row_group_kernel|key_walk_kernel|join_kernel)<([^<>]*)>")
+
+
+def _is_s2_kernel(key):
+    """Whether a profiled segment kernel ran a panel of more than one
+    column: S2's launches, not S1's."""
+    m = _SEGMENT_TEMPLATE.search(key)
+    return m is not None and int(m.group(1).split(",")[-1]) > 1
 
 
 def _solve_breakdown(torch, fn):
     """Where a solve's wall goes: ``fn()`` once more on the host clock
     (warm, ending in a synchronize), once under torch.profiler (the device's
     busy seconds, its operations, the segment kernels' device ms and
-    launches, the top five operations) and once under the sync debug mode
-    (its synchronizing operations and the solvers' fetches among them)."""
+    launches, S2's among them, the top five operations) and once under the
+    sync debug mode (its synchronizing operations and the solvers' fetches
+    among them)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
@@ -3984,9 +4085,11 @@ def _solve_breakdown(torch, fn):
     wall = time.perf_counter() - t0
     _, rows = device_profile(torch, fn)
     seg = [r for r in rows if any(k in r[2] for k in S1_KERNELS)]
+    s2 = [r for r in seg if _is_s2_kernel(r[2])]
     _, syncs, fetches, _ = _count_syncs(torch, fn)
     return {"wall_s": wall, "busy_s": sum(r[0] for r in rows) * 1e-6, "device_ops": sum(r[1] for r in rows),
             "segment_ms": sum(r[0] for r in seg) * 1e-3, "segment_launches": sum(r[1] for r in seg),
+            "s2_ms": sum(r[0] for r in s2) * 1e-3, "s2_launches": sum(r[1] for r in s2),
             "top": [(us * 1e-3, count, key) for us, count, key in rows[:5]], "syncs": syncs, "fetches": fetches}
 
 
@@ -4129,19 +4232,32 @@ def tuning_resume(torch, fixture, d, problems):
     return {"killed_s": killed, "wall_s": wall, "recorded": recorded, "auc_gaps": gaps}
 
 
+def sparse_batches(seed):
+    """Phase 9's sparse shape from ``seed`` as COO and ELL batches on the card."""
+    from photon_ml_tpu_torch.io.data import RawDataset
+
+    rows, cols, vals, y, _ = sparse_triplets(SPARSE_N, SPARSE_D, SPARSE_K, seed)
+    raw = RawDataset(n_rows=SPARSE_N, labels=y, offsets=np.zeros(SPARSE_N), weights=np.ones(SPARSE_N),
+                     shard_coo={"global": (rows, cols, vals)}, shard_dims={"global": SPARSE_D}, id_tags={})
+    return {layout: raw.to_batch("global", layout=layout) for layout in ("coo", "ell")}
+
+
+def s2_phase(torch, seed):
+    """Phase 13 (a) alone (``--only s2``), for iterating on S2."""
+    problems = []
+    out = {"s2": s2_check_and_time(torch, seed, sparse_batches(seed), problems)}
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return out
+
+
 def tuning_phase(torch, fixture, state, seed, smi):
     """Phase 13: (a) S2 at the sparse shape; (b) lane sweeps in process at
     build_data's width; (c) the sparse fixed-effect lane solve; (d) tuning
     through cli.train on phase 12's fixture; (e) killed in the middle of a
     lane batch and resumed."""
-    from photon_ml_tpu_torch.io.data import RawDataset
-
     problems, out = [], {}
-    rows, cols, vals, y, _ = sparse_triplets(SPARSE_N, SPARSE_D, SPARSE_K, seed)
-    raw = RawDataset(n_rows=SPARSE_N, labels=y, offsets=np.zeros(SPARSE_N), weights=np.ones(SPARSE_N),
-                     shard_coo={"global": (rows, cols, vals)}, shard_dims={"global": SPARSE_D}, id_tags={})
-    batches = {layout: raw.to_batch("global", layout=layout) for layout in ("coo", "ell")}
-    del raw, rows, cols, vals
+    batches = sparse_batches(seed)
     out["s2"] = s2_check_and_time(torch, seed, batches, problems)
     out["sparse_lanes"] = sparse_lane_solve(torch, seed, batches, problems)
     del batches
@@ -4174,6 +4290,7 @@ def s2_entries(tuning):
             "library_ms": t.get("library_ms"), "library": "cuSPARSE SpMM (torch.sparse.mm on a sparse CSR tensor)",
             "index_add_ms": t.get("index_add_ms"), "l_times_s1_ms": t.get("l_times_s1_ms"), "lanes": S2_MAIN_WIDTH,
             "columns_bitwise_s1": t.get("columns_bitwise_s1"), "form": t.get("form"),
+            "gathered_rows": t.get("gathered_rows"),
             "by_lanes": {L: {k: s2.get((name, L), {}).get(k) for k in ("ms", "graph_ms", "bound_ms", "l_times_s1_ms",
                                                                       "index_add_ms", "library_ms", "max_abs_err")}
                          for L in S2_WIDTHS},
@@ -4189,8 +4306,11 @@ def main() -> int:
     ap.add_argument("--users", type=int, default=20_000)
     ap.add_argument("--d-re", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--prev-segment-source", default=None,
+                    help="an earlier csrc/sparse_glm.cu to time in turns with this one in phase 8 (S1 and S2)")
     ap.add_argument("--only", default="",
-                    help="comma-separated subset of check,fe,glmix,dp,nccl,solvers,io,game,tuning,sparse,timing,variants "
+                    help="comma-separated subset of check,fe,glmix,dp,nccl,solvers,io,game,tuning,s2,sparse,timing,"
+                         "variants "
                          "to run after card and build (for iterating on one phase; the result is then not ok)")
     args = ap.parse_args()
     only = set(filter(None, args.only.split(",")))
@@ -4268,6 +4388,9 @@ def main() -> int:
                     tuning = phases.run("tuning", tuning_phase, torch, fixture, state, args.seed, smi)
         state = None
     torch.cuda.empty_cache()
+    if want("s2") and not want("tuning"):
+        tuning = phases.run("S2 (phase 13 (a))", s2_phase, torch, args.seed)
+        torch.cuda.empty_cache()
     sp = None
     if want("sparse"):
         sp = phases.run("sparse fixed effects", sparse_phase, torch, args.seed, args.users, args.d_re)
@@ -4279,7 +4402,7 @@ def main() -> int:
             times["sparse"] = sparse_times or {}
     torch.cuda.empty_cache()
     if want("variants"):
-        phases.run("segment kernel variants", segment_variants, torch, args.seed, batches)
+        phases.run("segment kernel variants", segment_variants, torch, args.seed, batches, args.prev_segment_source)
     del batches
     torch.cuda.empty_cache()
     if want("variants"):
@@ -4378,7 +4501,7 @@ def main() -> int:
               f"{tr['checkpoint_seconds']:.3f} s), validation AUC {tr['auc']:.6f}; killed and resumed "
               f"{rs['killed_s']:.2f} + {rs['wall_s']:.2f} s; cli.score {sc['rows_per_s']:.1f} rows/s "
               f"(engine {sc['engine_s']:.3f} s) on {smi}")
-    if tuning:
+    if tuning and "sweep" in tuning:
         sw, dr, rs = tuning["sweep"], tuning["driver"], tuning["resume"]
         log("tuning: lane sweeps " + ", ".join(
             f"K={K} {sw[K]['wall_s']:.3f} s against {sw[K]['sequential_s']:.3f} s sequential" for K in SWEEP_LANES)

@@ -39,10 +39,13 @@ S2, the lane-wide products of the lambda-lane sweeps (``matmat`` and
 
     out[s, l] = sum_{j in segment s} src[gather[j], l] * val[j],
 
-``[n_seg, L]`` float32 out, from the same kernels and the same launch,
-widened by a column chunk (``csrc/sparse_glm.cu``), so that column l is, bit
-for bit, the product ``segment_dot`` gives for column l alone: ``segment_dot``
-is the launch at L = 1. Both share the plain version ``segment_dot_plain``.
+``[n_seg, L]`` float32 out, from the same kernels and the same launch
+(``csrc/sparse_glm.cu``): each pass over the entries takes a panel of up to
+``PANEL`` columns, walked in sub-chunks of ``SUB`` columns, every column by
+S1's operations in S1's order, so that column l is, bit for bit, the product
+``segment_dot`` gives for column l alone: ``segment_dot`` is the launch at
+L = 1. ``lane_plan`` mirrors the kernel's panels and sub-chunks. Both share
+the plain version ``segment_dot_plain``.
 """
 
 from __future__ import annotations
@@ -71,6 +74,8 @@ _VALUE_DTYPES = (torch.float32, torch.bfloat16)
 GROUPS = (4, 8, 16, 32)  # lanes a row group may have
 LANE_ENTRIES = 4  # entries a row-group lane takes a pass (csrc/sparse_glm.cu kLaneEntries)
 TILE = 256  # entries a warp tile of the key walk (kTile)
+PANEL = 16  # S2: columns a pass over the entries (kPanel)
+SUB = 4  # S2: columns a sub-chunk of a panel (kSub)
 # a row segment of more entries sends its product to the key walk, where a
 # long segment is many lanes' runs instead of one group's passes
 LONG_SEGMENT = 512
@@ -166,6 +171,41 @@ def row_segments(counts: np.ndarray, gather: Tensor, val: Tensor, uniform: bool 
     return Segments(torch.from_numpy(ptr).to(dev), 0, gather, val, group)
 
 
+class Panel(NamedTuple):
+    """One pass of S2 over the entries: columns ``[first, first + width)``
+    in a kernel of ``capacity`` columns, walked in ``subs``, the
+    ``(first column, width)`` of each sub-chunk."""
+
+    first: int
+    width: int
+    capacity: int
+    subs: tuple
+
+
+def panel_capacity(width: int) -> int:
+    """The kernel a panel of ``width`` (1 to ``PANEL``) columns takes: one
+    column (S1), else the multiple of ``SUB`` that holds it."""
+    if not 1 <= width <= PANEL:
+        raise ValueError(f"a panel has 1 to {PANEL} columns, got {width}")
+    return 1 if width == 1 else -(-width // SUB) * SUB
+
+
+def lane_plan(L: int) -> tuple:
+    """The panels S2 runs for ``L`` columns, as ``csrc/sparse_glm.cu``
+    ``run_panels`` does: ``L // PANEL`` full panels (one launch, the grid's
+    y axis), then one of the ``L % PANEL`` columns left; each panel's
+    columns in sub-chunks of ``SUB``, the last of ``width % SUB``."""
+    if not 1 <= L <= _MAX_LANES:
+        raise ValueError(f"the lane-wide segment kernel takes 1 to {_MAX_LANES} lanes, got {L}")
+    widths = [PANEL] * (L // PANEL) + ([L % PANEL] if L % PANEL else [])
+    panels, first = [], 0
+    for width in widths:
+        subs = tuple((first + c, min(SUB, width - c)) for c in range(0, width, SUB))
+        panels.append(Panel(first, width, panel_capacity(width), subs))
+        first += width
+    return tuple(panels)
+
+
 def reset_launch_counts() -> None:
     for k in SPARSE_LAUNCHES:
         SPARSE_LAUNCHES[k] = 0
@@ -196,14 +236,23 @@ def _library() -> ctypes.CDLL:
         lib.segment_rows_launch.restype = i
         lib.segment_keys_launch.argtypes = [i, i, p, p, p, ll, ll, p, ll, p, p, p, p, i, p]
         lib.segment_keys_launch.restype = i
-        lib.segment_tile_entries.argtypes = []
-        lib.segment_tile_entries.restype = i
+        for fn in ("segment_tile_entries", "segment_panel_columns", "segment_sub_columns"):
+            getattr(lib, fn).argtypes = []
+            getattr(lib, fn).restype = i
+        lib.segment_panel_capacity.argtypes = [i]
+        lib.segment_panel_capacity.restype = i
         if lib.segment_tile_entries() != TILE:
             raise RuntimeError(f"csrc/sparse_glm.cu tiles {lib.segment_tile_entries()} entries, ops/sparse.py {TILE}")
+        kernel = (lib.segment_panel_columns(), lib.segment_sub_columns(),
+                  [lib.segment_panel_capacity(w) for w in range(1, PANEL + 1)])
+        mirror = (PANEL, SUB, [panel_capacity(w) for w in range(1, PANEL + 1)])
+        if kernel != mirror:
+            raise RuntimeError(f"csrc/sparse_glm.cu plans its panels as {kernel} (panel, sub-chunk, capacities), "
+                               f"ops/sparse.py as {mirror}")
     return lib
 
 
-_MAX_LANES = 65535  # the kernel's grid puts lane chunks on its y axis
+_MAX_LANES = 65535 * PANEL  # the kernel's grid puts the full panels on its y axis
 
 
 def _check(seg: Segments, n_seg: int, src: Tensor, lanes: bool) -> None:

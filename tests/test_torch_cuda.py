@@ -610,7 +610,7 @@ def test_segment_kernel_edges_match_float64_plain_and_repeat_their_bits(cuda, ca
             assert not bool(a[:1000].any()) and not bool(a[900_010:].any()) and not bool(a[1100:900_000].any())
 
 
-@pytest.mark.parametrize("L", [1, 3, 4, 8, 16])
+@pytest.mark.parametrize("L", [1, 3, 4, 7, 8, 16, 40])
 @pytest.mark.parametrize("case", ["runs", "intercept", "padding", "gaps"])
 @pytest.mark.parametrize("layout", ["ell", "coo"])
 @pytest.mark.parametrize("fdt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

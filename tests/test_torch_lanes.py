@@ -1,7 +1,7 @@
 """The port's lambda-lane sweeps against the JAX package, on the CPU.
 
 - The lane products ``FeatureMatrix.matmat`` / ``rmatmat`` (dense, ELL,
-  sorted COO; L = 1, 3, 4, 8, 16) against the JAX package's at rtol 1e-5
+  sorted COO; L = 1, 3, 4, 7, 8, 16, 40) against the JAX package's at rtol 1e-5
   (max-abs <= 1e-5 * max(|ref|, 1), as tests/test_torch_ops.py holds the
   single-lane products);
 - S2's plain version, column by column, against S1's plain version, bitwise
@@ -63,7 +63,7 @@ from photon_ml_tpu_torch.tuning.search import GaussianProcessSearch, Observation
 
 COEF_TOL = 5e-3  # the packed solve's bound (tests/test_sweep_lanes.py:40)
 LAMBDAS = (0.01, 0.1, 1.0, 10.0)
-LANE_WIDTHS = (1, 3, 4, 8, 16)
+LANE_WIDTHS = (1, 3, 4, 7, 8, 16, 40)  # 7: a tail sub-chunk; 40: past the panel
 
 
 @pytest.fixture(autouse=True)
@@ -174,6 +174,34 @@ def test_segment_dot_lanes_runs_on_cuda_or_cpu_only():
         sparse.segment_dot_lanes("coo_matmat", f.row_segments, 2, torch.zeros((3, 2), device="meta"))
     assert set(sparse.LANE_PRODUCTS) == {"ell_matmat", "ell_rmatmat", "coo_matmat", "coo_rmatmat"}
     assert set(sparse.LANE_PRODUCTS) <= set(sparse.SPARSE_LAUNCHES)
+    # the full panels go on the kernel's grid y axis (at most 65,535)
+    assert sparse._MAX_LANES == 65535 * sparse.PANEL
+    assert sum(p.width == sparse.PANEL for p in sparse.lane_plan(sparse._MAX_LANES)) == 65535
+    for bad in (0, sparse._MAX_LANES + 1):
+        with pytest.raises(ValueError, match="lanes"):
+            sparse.lane_plan(bad)
+
+
+@pytest.mark.parametrize("L", range(1, 71))
+def test_lane_plan_covers_every_column_once_in_pieces_the_kernel_takes(L):
+    """S2's panels and sub-chunks (the mirror of csrc/sparse_glm.cu's
+    run_panels): every column once, in order; full panels of PANEL columns,
+    then at most one narrower; each panel in the kernel of the narrowest
+    capacity that holds it (1, or a multiple of SUB up to PANEL), walked in
+    sub-chunks of SUB columns, only the last narrower (the width mod SUB)."""
+    plan = sparse.lane_plan(L)
+    subs = [s for p in plan for s in p.subs]
+    assert [c for first, width in subs for c in range(first, first + width)] == list(range(L))
+    assert [p.width for p in plan[:-1]] == [sparse.PANEL] * (L // sparse.PANEL if L % sparse.PANEL else
+                                                             L // sparse.PANEL - 1)
+    assert len(plan) == -(-L // sparse.PANEL)
+    for p in plan:
+        assert 1 <= p.width <= p.capacity <= sparse.PANEL
+        assert p.capacity == (1 if p.width == 1 else -(-p.width // sparse.SUB) * sparse.SUB)
+        assert p.capacity == sparse.panel_capacity(p.width)
+        assert p.subs[0][0] == p.first and sum(w for _, w in p.subs) == p.width
+        assert all(w == sparse.SUB for _, w in p.subs[:-1])
+        assert p.subs[-1][1] == (p.width % sparse.SUB or min(sparse.SUB, p.width))
 
 
 def test_lane_state_carries_across_packages():

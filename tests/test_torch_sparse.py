@@ -465,6 +465,23 @@ def test_segment_bound_counts_what_the_product_moves():
     assert b["design"] - b["function"] == 4 * 5
 
 
+def test_segment_bound_counts_each_gathered_source_row_once():
+    """A gather that skips source rows and repeats others: the bound reads
+    each gathered row once (S1: one float; S2: its L floats) and no row
+    that no entry reaches."""
+    cs = _chip_smoke()
+    gather = torch.tensor([3, 3, 0, 5, 3, 0], dtype=torch.int32)
+    seg = sparse.Segments(torch.tensor([0, 2, 2, 6]), 0, gather, torch.ones(6))
+    assert cs.gathered_rows(seg, 8) == 3
+    entries = 6 * (4 + 4)
+    assert cs.segment_bytes(seg, 3, 8)["function"] == entries + 4 * 3 + 4 * 3
+    for L in (1, 7, 40):
+        assert cs.s2_bytes(seg, 3, 8, L) == entries + 4 * L * (3 + 3)
+        assert cs.s2_bytes(seg, 3, 8, L, rows=3) == cs.s2_bytes(seg, 3, 8, L)
+    with pytest.raises(ValueError, match="rows of a source of 2"):
+        cs.gathered_rows(seg, 2)
+
+
 # --------------------------------------------------------------- objective
 
 
