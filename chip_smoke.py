@@ -228,12 +228,37 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    model reloaded bitwise, the prior file with 9 records); (e) that lane
    run with 4 trials and --checkpoint-dir, killed by tuning.trial at the
    second lane and resumed: candidates bitwise (d)'s, AUC within 1e-4.
+14. the retrain chain (run after phase 13, on phase 12's fixture): the
+   feed laid out as three days under <feed>/2026/01/01..03 (days 1 and 2
+   link phase 12's training parts 0-3 and 4-7; day 3 holds new rows of the
+   even-numbered half of the 20,000 users, written by worker processes), the
+   feature index built by cli.index and pinned; (a) cli.retrain on the card
+   (per-user first: phase 12's L-BFGS with active cap 256; then global:
+   phase 12's TRON + SIMPLE + STANDARDIZATION; both regularize-by-prior
+   from day 2; 2 sweeps a day; the gate AUC,AUC:userId with margin RETRAIN_MARGIN; a
+   serving root; a boundary checkpoint every update) with every counter at
+   0 before it and read at each day's gate decision: per-day launches (B1,
+   B2, B3 with shifts and S1 each above 0 over the run), day and stage
+   walls (read, train, merge, gate, save, publish), every day accepted;
+   each day replayed from its boundary checkpoints on identical inputs: the
+   fixed effect's first update through the kernels (bitwise the chain's)
+   against the plain versions (means and variances rtol 1e-3 / atol 1e-5),
+   the random effect's last update in f32 (bitwise the chain's) against
+   float64 on the widened blocks (atol 5e-3); (b) the odd-numbered users
+   after day 3's merge bitwise their day-2 rows; (c) the live snapshot
+   reopened with open_current, its arrays bitwise the accepted model's; (d)
+   day 3 with its labels flipped against day 2's model in a second serving
+   root: refused, counted, CURRENT still day 2's; (e)
+   PHOTON_FAULTS=retrain.publish:io:2,retrain.day:kill:3: CURRENT stays day
+   1's, then the resumed run repairs the publish and ends with (a)'s ledger
+   bit for bit and day 3 live.
 
     python3 chip_smoke.py --only timing    # card, build, then one phase
 
-runs a subset of phases 3-13 (check, fe, glmix, dp, nccl, solvers, io, game, tuning, s2, sparse,
-timing, variants) and then reports not ok; "s2" is phase 13 (a) alone; "solvers", "io", "game" and "tuning" run phase 5 first ("game" and
-"tuning" write phase 12's fixture first); "nccl" is phase 6 (c) alone after
+runs a subset of phases 3-14 (check, fe, glmix, dp, nccl, solvers, io, game, tuning, s2, sparse,
+timing, variants, retrain) and then reports not ok; "s2" is phase 13 (a) alone; "solvers", "io", "game" and "tuning" run phase 5 first ("game" and
+"tuning" write phase 12's fixture first); "retrain" writes phase 12's
+fixture and runs phase 14; "nccl" is phase 6 (c) alone after
 phase 5 (for a machine with several cards: one NCCL rank per card).
 
 The line before the last is {"kernels": [...]}; the last line is
@@ -2705,27 +2730,30 @@ def solvers_phase(torch, state, seed, smi):
     return out
 
 
-def sparse_entries(sp, times, game=None):
+def sparse_entries(sp, times, game=None, retrain=None):
     """The segment kernel's lines of the kernels JSON, one per product:
     ``launches`` over the main paths that run it (the sparse phase's (b)
     kernel solves and (c) timed sweeps, phase 12's driver run (b) and
-    cli.score (d), each counted from 0), ``max_abs_err`` from (a) at the
-    sparse shape in f32, times from phase 7."""
+    cli.score (d), phase 14's chain (a), each counted from 0),
+    ``max_abs_err`` from (a) at the sparse shape in f32, times from phase
+    7."""
     sp = sp or {}
     path = (sp.get("path") or {}).get("launches", {})
     glmix = (sp.get("glmix") or {}).get("launches", {})
     game = game or {}
+    chain_days = ((retrain or {}).get("chain") or {}).get("launches", [])
     entries = []
     for name in SPARSE_PRODUCTS:
         t = (times or {}).get("sparse", {}).get(name, {})
         driver = (game.get("train") or {}).get("s1_launches", 0) if name == "ell_matvec" else 0
         scorer = (game.get("score") or {}).get("s1_launches", 0) if name == "ell_matvec" else 0
+        chain = [d.get(name, 0) for d in chain_days]
         entries.append({
             "name": f"segment_dot:{name}", "route": "cuda", "source": "photon_ml_tpu_torch/csrc/sparse_glm.cu",
             "replaces": SPARSE_REPLACES[name.split("_", 1)[1]],
-            "launches": path.get(name, 0) + glmix.get(name, 0) + driver + scorer,
+            "launches": path.get(name, 0) + glmix.get(name, 0) + driver + scorer + sum(chain),
             "launches_sparse_solves": path.get(name, 0), "launches_sparse_glmix": glmix.get(name, 0),
-            "launches_game_driver": driver, "launches_game_score": scorer,
+            "launches_game_driver": driver, "launches_game_score": scorer, "launches_retrain_chain_per_day": chain,
             "max_abs_err": (sp.get("errors") or {}).get(name),
             "ms": t.get("ms"), "prev_ms": t.get("prev_ms"), "graph_ms": t.get("graph_ms"),
             "prev_graph_ms": t.get("prev_graph_ms"), "plain_ms": t.get("plain_ms"), "bound_ms": t.get("bound_ms"),
@@ -3300,14 +3328,16 @@ GAME_RE = ("name=per-user,shard=userShard,re.type=userId,optimizer=LBFGS,toleran
 GAME_KILL_AT = 2  # cd.boundary_saved: after the first sweep's second boundary
 
 
-def _game_write_part(path, seed, part, rows):
+def _game_write_part(path, seed, part, rows, even_users=False):
     """One part file of phase 12's fixture, written by the port's writer in
     a worker process: phase 11's global bag (IO_NNZ of IO_FEATURES named
     features a row, N(0, 1)), a userId drawn Zipf(1.1) over GAME_USERS users
     (build_data's assignment) in metadataMap, the user's GAME_RE_FEATURES
     named features N(0, 1) in userFeatures, and logistic labels from both
     effects. The models come from ``seed`` (the same in every part), the
-    rows from ``(seed, part)``. Returns the writer's seconds."""
+    rows from ``(seed, part)``; ``even_users`` keeps only the rows of the
+    users with an even number (phase 14's day 3). Returns the writer's
+    seconds."""
     from photon_ml_tpu_torch.io.avro import write_avro_file
     from photon_ml_tpu_torch.io.schemas import TRAINING_EXAMPLE_AVRO
 
@@ -3328,7 +3358,7 @@ def _game_write_part(path, seed, part, rows):
         {"uid": f"{part}-{i}", "label": float(y[i]), "metadataMap": {"userId": f"u{users[i]}"},
          "features": [{"name": names[j], "term": "", "value": v} for j, v in zip(cols[i].tolist(), vals[i].tolist())],
          "userFeatures": [{"name": unames[j], "term": "", "value": v} for j, v in enumerate(ex[i].tolist())]}
-        for i in range(rows)
+        for i in range(rows) if not even_users or users[i] % 2 == 0
     ]
     schema = {**TRAINING_EXAMPLE_AVRO, "fields": TRAINING_EXAMPLE_AVRO["fields"] + [
         {"name": "userFeatures", "type": {"type": "array", "items": "FeatureAvro"}, "default": []}]}
@@ -4299,6 +4329,458 @@ def s2_entries(tuning):
     return entries
 
 
+# ------------------------------------------------- phase 14: the retrain chain
+#
+# The day-chained incremental retrain on the card (cli.retrain over
+# game/incremental.py): phase 12's fixture laid out as three day partitions
+# under <feed>/yyyy/MM/dd, each day warm-started from the accepted model with
+# prior-centred L2 (the fixed effect: TRON, SIMPLE variance,
+# STANDARDIZATION, B1, B2 and B3 with shifts; the per-user effect: the
+# packed L-BFGS with the day's entities' prior means), merged into the
+# accepted model, gated against the live model on the validation parts
+# (GameTransformer: S1 for the fixed effect) and published as an mmap store
+# snapshot.
+
+RETRAIN_RANGE = "20260101-20260103"
+RETRAIN_LABELS = ("20260101", "20260102", "20260103")
+RETRAIN_DAY3 = (8, 12_500)  # day 3's parts and the rows each draws before it keeps the even users' rows
+RETRAIN_EVALUATORS = "AUC,AUC:userId"
+# the gate tolerates this drop of either metric (noise of a day's update);
+# the label-flipped day of (d) falls far below it
+RETRAIN_MARGIN = 0.01
+RETRAIN_TORN_AT = 2  # retrain.publish: day 2's publish fails
+RETRAIN_KILL_AT = 3  # retrain.day: killed before day 3
+RETRAIN_SHARDS = {"global": ("features",), "userShard": ("userFeatures",)}
+# per-user first: on a warm-started day the live fixed effect is already
+# good, and every snapshot the day's descent evaluates then holds the day's
+# random effect. With the fixed effect first, the first snapshot keeps the
+# live random effect, and at this phase's size (NVIDIA H100, float32) it
+# stayed the best by validation AUC on days 2 and 3, so the merge carried
+# it whole.
+RETRAIN_COORDINATES = (GAME_RE, GAME_FE)
+
+
+def retrain_fixture(fixture, seed):
+    """The feed: day 1 links phase 12's training parts 0-3, day 2 parts
+    4-7, day 3 holds new rows of the even-numbered users only (written by
+    worker processes); the feature index built by cli.index from one
+    validation part (it holds every feature) and pinned for the chain."""
+    import concurrent.futures
+    import multiprocessing
+    import os
+
+    from photon_ml_tpu_torch.cli import index
+
+    root = fixture["root"]
+    feed = os.path.join(root, "feed")
+    days = [os.path.join(feed, "2026", "01", d[-2:]) for d in RETRAIN_LABELS]
+    n_parts = IO_TRAIN[1]
+    for day, parts in zip(days[:2], (range(n_parts // 2), range(n_parts // 2, n_parts))):
+        os.makedirs(day)
+        for p in parts:
+            name = f"part-{p:05d}.avro"
+            os.symlink(os.path.join(fixture["train"], name), os.path.join(day, name))
+    os.makedirs(days[2])
+    parts, rows = RETRAIN_DAY3
+    t0 = time.perf_counter()
+    jobs = [(os.path.join(days[2], f"part-{p:05d}.avro"), seed, 2000 + p, rows, True) for p in range(parts)]
+    with concurrent.futures.ProcessPoolExecutor(parts, mp_context=multiprocessing.get_context("spawn")) as pool:
+        list(pool.map(_game_write_part, *zip(*jobs)))
+    write_s = time.perf_counter() - t0
+    idx = os.path.join(root, "index")
+    t1 = time.perf_counter()
+    maps = index.run(["--input-data", os.path.join(fixture["validation"], "part-00000.avro"),
+                      "--feature-shard", "name=global,bags=features",
+                      "--feature-shard", "name=userShard,bags=userFeatures",
+                      "--output-dir", idx, "--num-partitions", "4", "--log-level", "WARNING"])
+    index_s = time.perf_counter() - t1
+    sizes = {k: len(v) for k, v in maps.items()}
+    log(f"  set-up: days 1 and 2 link phase 12's parts 0-{n_parts // 2 - 1} and {n_parts // 2}-{n_parts - 1}; day 3 "
+        f"written in {write_s:.2f} s ({parts} parts of {rows} drawn rows, the even users' kept); the index "
+        f"{sizes} built in {index_s:.2f} s")
+    if sizes != {"global": IO_FEATURES + 1, "userShard": GAME_RE_FEATURES + 1}:
+        raise AssertionError(f"the index misses features: {sizes}")
+    return {"feed": feed, "days": days, "index": idx, "write_s": write_s, "index_s": index_s}
+
+
+def retrain_argv(fixture, fx, out, srv, extra=()):
+    return ["--input-data", fx["feed"], "--input-data-date-range", RETRAIN_RANGE,
+            "--validation-data", fixture["validation"], "--feature-index-dir", fx["index"],
+            "--feature-shard", "name=global,bags=features", "--feature-shard", "name=userShard,bags=userFeatures",
+            *[a for spec in RETRAIN_COORDINATES for a in ("--coordinate", spec)],
+            "--normalization", "STANDARDIZATION", "--coordinate-descent-iterations", "2",
+            "--evaluators", RETRAIN_EVALUATORS,
+            "--gate-margin", str(RETRAIN_MARGIN), "--output-dir", out, "--serving-root", srv,
+            "--log-level", "WARNING", *extra]
+
+
+def _launch_counts():
+    from photon_ml_tpu_torch.ops import fused_glm as fg
+    from photon_ml_tpu_torch.ops import sparse
+
+    return {"fused_value_grad": fg.LAUNCHES["fused_value_grad"],
+            "fused_hessian_vector": fg.LAUNCHES["fused_hessian_vector"],
+            "fused_hessian_stats": fg.LAUNCHES["fused_hessian_stats"],
+            "fused_hessian_stats_with_shifts": fg.SHIFT_LAUNCHES["fused_hessian_stats"],
+            "ell_matvec": sparse.SPARSE_LAUNCHES["ell_matvec"]}
+
+
+def _chain_state(out):
+    import os
+
+    with open(os.path.join(out, "chain-state.json")) as f:
+        return json.load(f)
+
+
+def _day_payloads(out, day_index):
+    """The day's boundary checkpoints (every update's models and summed
+    scores, on the host), oldest first."""
+    import os
+
+    from photon_ml_tpu_torch.robust import CheckpointManager
+
+    mgr = CheckpointManager(os.path.join(out, "checkpoints", f"day-{day_index:04d}"), keep_last=4)
+    return [mgr._load_validated(d)[1] for d in mgr.checkpoints()]
+
+
+def retrain_replay(torch, fixture, fx, maps, out, k, problems):
+    """(a) Day ``k`` replayed on identical inputs from its boundary
+    checkpoints: the fixed effect's first update through the kernels
+    (bitwise the chain's) and through the plain versions (rtol 1e-3, atol
+    1e-5, means and variances); the random effect's last update through the
+    chain's f32 solve (bitwise) and in float64 on the blocks widened (atol
+    5e-3, ROADMAP C4). Each update's residual is the descent's: the summed
+    scores before it less the coordinate's own (from the models of the
+    boundary before it, or the prior's at the day's start). The prior is the
+    accepted model of day k - 1, reloaded from the chain's store (bitwise:
+    f32 written as double)."""
+    import os
+
+    from photon_ml_tpu_torch.cli.params import parse_coordinate
+    from photon_ml_tpu_torch.cli.train import normalize_fixed_effects
+    from photon_ml_tpu_torch.estimators import GameEstimator
+    from photon_ml_tpu_torch.io import FeatureShardConfig, load_game_model, read_avro_dataset
+    from photon_ml_tpu_torch.robust.checkpoint import to_device
+
+    dev = torch.device("cuda")
+    shards = {k_: FeatureShardConfig(v) for k_, v in RETRAIN_SHARDS.items()}
+    raw, _ = read_avro_dataset(fx["days"][k], shards, index_maps=maps, id_tag_columns=["userId"])
+    cfgs = [parse_coordinate(spec) for spec in RETRAIN_COORDINATES]
+    normalize_fixed_effects("STANDARDIZATION", cfgs, raw, maps, torch.float32, dev)
+    prior = None
+    if k > 0:
+        prior = load_game_model(os.path.join(out, "models", f"day-{RETRAIN_LABELS[k - 1]}"), maps,
+                                task="logistic_regression", device=dev)
+        for c in cfgs:
+            c.regularize_by_prior = True
+    est = GameEstimator("logistic_regression", cfgs, n_cd_iterations=2, device=dev)
+    order = [c.name for c in cfgs]
+    coords = est._make_coordinates(est.prepare_datasets(raw), {name: 1.0 for name in order},
+                                   {} if prior is None else dict(prior.models))
+    states = _day_payloads(out, k)
+    if [st["coordinate"] for st in states] != order * 2:
+        raise AssertionError(f"day {k + 1}: boundary checkpoints {[st['coordinate'] for st in states]}")
+
+    def update_inputs(i, name):
+        """(residual, current model) of the day's update ``i``."""
+        if i == 0:
+            if prior is None:
+                return None, None
+            scores = {c: coords[c].score(prior[c]) for c in order}
+            summed = scores[order[0]] + scores[order[1]]
+            return summed - scores[name], prior[name]
+        before = states[i - 1]
+        model = before["models"].get(name)
+        model = None if model is None else to_device(model, dev)
+        summed = before["summed_scores"].to(dev)
+        return (summed if model is None else summed - coords[name].score(model)), model
+
+    i_fe = order.index("global")
+    residual, initial = update_inputs(i_fe, "global")
+    fe_chain = to_device(states[i_fe]["models"]["global"], dev).model.coefficients
+    fe_k, _ = coords["global"].train(residual, initial_model=initial)
+    fe_p, _ = dataclasses.replace(coords["global"], plain=True).train(residual, initial_model=initial)
+    same_fe = _same_bits(fe_k.model.coefficients.means, fe_chain.means)
+    label = f"(a) day {k + 1}"
+    hold(problems, f"{label} FE kernels vs plain, identical inputs (means)", fe_chain.means,
+         fe_p.model.coefficients.means, 1e-3, 1e-5)
+    hold(problems, f"{label} FE kernels vs plain, identical inputs (variances)", fe_chain.variances,
+         fe_p.model.coefficients.variances, 1e-3, 1e-5)
+    i_re = len(order) + order.index("per-user")
+    res_re, re_prev = update_inputs(i_re, "per-user")
+    re_coord = coords["per-user"]
+    re_chain = to_device(states[i_re]["models"]["per-user"], dev)
+    re_k, _ = re_coord.train(res_re, initial_model=re_prev)
+    ds = re_coord.dataset
+    b = ds.blocks
+    ds64 = dataclasses.replace(ds, blocks=dataclasses.replace(
+        b, features=b.features.double(), labels=b.labels.double(), offsets=b.offsets.double(),
+        weights=b.weights.double()))
+    re64, _ = dataclasses.replace(re_coord, dataset=ds64).train(res_re.double(), initial_model=re_prev)
+    same_re = _same_bits(re_k.coef_values, re_chain.coef_values)
+    hold(problems, f"{label} RE f32 chain vs float64, identical residuals", re_chain.coef_values,
+         re64.coef_values, 0.0, 5e-3)
+    log(f"  {label}: {raw.n_rows} rows, {ds.num_entities} users; the replays bitwise the chain's: FE {same_fe}, "
+        f"RE {same_re}")
+    if not (same_fe and same_re):
+        problems.append(f"{label}: the replay on the checkpoints' inputs is not bitwise the chain's "
+                        f"(FE {same_fe}, RE {same_re})")
+    return {"rows": raw.n_rows, "users": ds.num_entities, "replay_bitwise": same_fe and same_re}
+
+
+def retrain_chain(torch, fixture, fx, root, problems, smi):
+    """(a) cli.retrain on the card over the three days, every counter at 0
+    before it and read after each day's gate; per-day and stage walls; the
+    days replayed on identical inputs (retrain_replay)."""
+    import os
+
+    from photon_ml_tpu_torch.cli import retrain
+    from photon_ml_tpu_torch.game import incremental
+    from photon_ml_tpu_torch.ops import fused_glm as fg
+
+    out, srv, metrics_dir = (os.path.join(root, "chain-a"), os.path.join(root, "serving-a"),
+                             os.path.join(root, "metrics-a"))
+    argv = retrain_argv(fixture, fx, out, srv, ["--checkpoint-every", "1", "--checkpoint-keep", "4",
+                                               "--metrics-out", metrics_dir])
+    per_day = []
+    record = incremental._record_decision
+
+    def counted(decision, day_index):
+        torch.cuda.synchronize()
+        per_day.append(_launch_counts())
+        record(decision, day_index)
+
+    incremental._record_decision = counted
+    try:
+        fg.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary = retrain.run(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        incremental._record_decision = record
+    total = _launch_counts()
+    launches = [{k: v - (per_day[i - 1][k] if i else 0) for k, v in c.items()} for i, c in enumerate(per_day)]
+    state = _chain_state(out)
+    for i, d in enumerate(summary["days"]):
+        secs = summary["day_seconds"][d["day"]]
+        log(f"  (a) day {d['day']}: {d['rows']} rows, {d['reason']}, touched {state['days'][i]['touched_entities']}, "
+            f"metrics {d['metrics']}; {secs['day']:.2f} s (stages "
+            + ", ".join(f"{s} {secs[s]:.3f}" for s in ("read", "train", "merge", "gate", "save", "publish")
+                        if s in secs)
+            + f"); launches {launches[i]} on {smi}")
+    log(f"  (a) cli.retrain: {wall:.2f} s for {len(summary['days'])} days; launches {total}")
+    if min(total["fused_value_grad"], total["fused_hessian_vector"], total["fused_hessian_stats_with_shifts"],
+           total["ell_matvec"]) <= 0:
+        problems.append(f"the retrain chain did not launch B1, B2, B3 with shifts and S1: {total}")
+    if [d["accepted"] for d in summary["days"]] != [True, True, True]:
+        problems.append(f"the chain did not accept every day: {[d['reason'] for d in summary['days']]}")
+    metrics = _run_metrics_prom(metrics_dir)
+    return {"out": out, "srv": srv, "summary": summary, "wall_s": wall, "launches": launches, "total": total,
+            "state": state, "metrics": metrics}
+
+
+def _run_metrics_prom(metrics_dir):
+    """The photon_retrain_* lines of a run's metrics.prom (the stage
+    histograms by their sums and counts)."""
+    import os
+
+    with open(os.path.join(metrics_dir, "metrics.prom")) as f:
+        return [ln for ln in f.read().splitlines() if ln.startswith("photon_retrain_")
+                and not re.search(r"_bucket\{|_p\d\d\{", ln)]
+
+
+def _tables(opened):
+    """An opened ModelStore's coordinate tables by coordinate name."""
+    return {c.name: c for c in opened.coords}
+
+
+def retrain_untouched(a, problems):
+    """(b) The odd-numbered users (absent from day 3) in day 3's published
+    store, bitwise their rows in day 2's (widened with -1 / 0)."""
+    from photon_ml_tpu_torch.serving import refresh, store
+
+    s2, s3 = (_tables(store.ModelStore.open(refresh.snapshot_path(a["srv"], f"retrain-{d}")))["per-user"]
+              for d in RETRAIN_LABELS[1:])
+    odd = [f"u{u}" for u in range(1, GAME_USERS, 2)]
+    r2, r3 = s2.rows_for(odd), s3.rows_for(odd)
+    kept = r2 >= 0
+    if not kept.any() or (r3[kept] < 0).any():
+        problems.append("(b) untouched users are missing from day 3's model")
+        return {}
+    S2 = s2.coef_indices.shape[1]
+    i2, v2 = np.asarray(s2.coef_indices)[r2[kept]], np.asarray(s2.coef_values)[r2[kept]]
+    i3, v3 = np.asarray(s3.coef_indices)[r3[kept]], np.asarray(s3.coef_values)[r3[kept]]
+    same = (np.array_equal(i3[:, :S2], i2) and np.array_equal(v3[:, :S2].view(np.uint32), v2.view(np.uint32))
+            and bool((i3[:, S2:] == -1).all()) and bool((v3[:, S2:] == 0).all()))
+    even_touched = a["state"]["days"][2]["touched_entities"]["per-user"]
+    log(f"  (b) {int(kept.sum())} odd-numbered users carried through day 3 ({even_touched} even-numbered users "
+        f"re-solved): bitwise their day-2 rows {same}")
+    if even_touched >= GAME_USERS // 2:
+        problems.append(f"(b) day 3's model re-solved {even_touched} users, not its own even-numbered ones")
+    if not same:
+        problems.append("(b) untouched users differ from their day-2 rows after day 3's merge")
+    return {"carried": int(kept.sum()), "touched_day3": even_touched, "bitwise": same}
+
+
+def retrain_snapshot(torch, a, maps, problems):
+    """(c) The live snapshot reopened with open_current: its arrays equal
+    the accepted model's (the chain's saved model of the last day, f32
+    written as double in Avro) bitwise, the random effect compared as dense
+    [users, d_re] tables."""
+    import os
+
+    from photon_ml_tpu_torch.io import load_game_model
+    from photon_ml_tpu_torch.serving import refresh
+
+    t0 = time.perf_counter()
+    name, opened = refresh.open_current(a["srv"])
+    open_s = time.perf_counter() - t0
+    last = RETRAIN_LABELS[-1]
+    model = load_game_model(os.path.join(a["out"], "models", f"day-{last}"), maps, task="logistic_regression",
+                            device="cpu")
+    fe, re_ = _tables(opened)["global"], _tables(opened)["per-user"]
+    same_fe = np.array_equal(np.asarray(fe.weights).view(np.uint32),
+                             model["global"].model.coefficients.means.numpy().view(np.uint32))
+    d_re = GAME_RE_FEATURES + 1
+    rm = model["per-user"]
+    rows = re_.rows_for(list(rm.entity_ids))
+    idx, val = np.asarray(re_.coef_indices), np.asarray(re_.coef_values)
+    dense = np.zeros((len(rows), d_re), dtype=np.float32)
+    ok_rows = rows >= 0
+    r, c = np.nonzero(idx[rows[ok_rows]] >= 0)
+    dense[np.flatnonzero(ok_rows)[r], idx[rows[ok_rows]][r, c]] = val[rows[ok_rows]][r, c]
+    want = rm.dense_coefficients(d_re).astype(np.float32)
+    same_re = bool(ok_rows.all()) and len(rows) == re_.coef_indices.shape[0] and np.array_equal(
+        dense.view(np.uint32), want.view(np.uint32))
+    log(f"  (c) open_current: {name} opened in {open_s * 1e3:.2f} ms ({len(rows)} users); bitwise the accepted "
+        f"model: fixed effect {same_fe}, random effect {same_re}")
+    if name != f"retrain-{last}" or not (same_fe and same_re):
+        problems.append(f"(c) the live snapshot {name} differs from the accepted model (FE {same_fe}, RE {same_re})")
+    return {"snapshot": name, "open_ms": open_s * 1e3, "bitwise": same_fe and same_re}
+
+
+def retrain_degraded(torch, fixture, fx, a, maps, root, problems):
+    """(d) Day 3 with its labels flipped, gated against day 2's accepted
+    model in a second serving root (day 2's snapshot published there first):
+    rejected, counted in photon_retrain_rejected_total, CURRENT still day
+    2's."""
+    import os
+
+    from photon_ml_tpu_torch import obs
+    from photon_ml_tpu_torch.cli.params import parse_coordinate
+    from photon_ml_tpu_torch.cli.train import normalize_fixed_effects
+    from photon_ml_tpu_torch.estimators import GameEstimator
+    from photon_ml_tpu_torch.game import incremental
+    from photon_ml_tpu_torch.io import FeatureShardConfig, load_game_model, read_avro_dataset
+    from photon_ml_tpu_torch.serving import refresh
+
+    dev = torch.device("cuda")
+    shards = {k: FeatureShardConfig(v) for k, v in RETRAIN_SHARDS.items()}
+    raw, _ = read_avro_dataset(fx["days"][2], shards, index_maps=maps, id_tag_columns=["userId"])
+    raw = dataclasses.replace(raw, labels=1.0 - raw.labels)
+    val, _ = read_avro_dataset(fixture["validation"], shards, index_maps=maps, id_tag_columns=["userId"])
+    cfgs = [parse_coordinate(spec) for spec in RETRAIN_COORDINATES]
+    normalize_fixed_effects("STANDARDIZATION", cfgs, raw, maps, torch.float32, dev)
+    est = GameEstimator("logistic_regression", cfgs, n_cd_iterations=2,
+                        evaluator_specs=RETRAIN_EVALUATORS.split(","), device=dev)
+    live = load_game_model(os.path.join(a["out"], "models", f"day-{RETRAIN_LABELS[1]}"), maps,
+                           task="logistic_regression", device=dev)
+    srv = os.path.join(root, "serving-d")
+    before = f"retrain-{RETRAIN_LABELS[1]}"
+    refresh.publish_snapshot(srv, before, game_model=live)
+    run_t = obs.RunTelemetry()
+    t0 = time.perf_counter()
+    with obs.use_run(run_t):
+        res = incremental.run_chain(est, [(RETRAIN_LABELS[2], raw)], val, initial_model=live,
+                                    chain_dir=os.path.join(root, "chain-d"), serving_root=srv,
+                                    gate_margin=RETRAIN_MARGIN, index_maps=maps)
+    wall = time.perf_counter() - t0
+    rec = res.ledger[0]
+    counted = sum(m["value"] for m in run_t.registry.snapshot() if m["name"] == "photon_retrain_rejected_total")
+    current = refresh.current_snapshot(srv)
+    log(f"  (d) day 3 with flipped labels: {rec.reason} (candidate {rec.metrics}) in {wall:.2f} s; "
+        f"photon_retrain_rejected_total {counted}; CURRENT {current}")
+    if rec.accepted or not rec.reason.startswith("degraded:") or counted != 1 or current != before:
+        problems.append(f"(d) the degraded day was not refused cleanly: {rec.reason}, counted {counted}, "
+                        f"CURRENT {current}")
+    return {"reason": rec.reason, "wall_s": wall, "rejected_counted": counted}
+
+
+def retrain_drills(torch, fixture, fx, a, root, problems):
+    """(e) PHOTON_FAULTS=retrain.publish:io:2,retrain.day:kill:3: day 2's
+    publish torn (CURRENT stays day 1's), the run killed before day 3; the
+    resumed run repairs the publish first and ends with the straight run's
+    ledger, bit for bit, and day 3 live."""
+    import os
+
+    from photon_ml_tpu_torch.cli import retrain
+    from photon_ml_tpu_torch.robust import SimulatedKill, faults
+    from photon_ml_tpu_torch.serving import refresh
+
+    out, srv, metrics_dir = os.path.join(root, "chain-e"), os.path.join(root, "serving-e"), os.path.join(root, "m-e")
+    argv = retrain_argv(fixture, fx, out, srv)
+    os.environ["PHOTON_FAULTS"] = f"retrain.publish:io:{RETRAIN_TORN_AT},retrain.day:kill:{RETRAIN_KILL_AT}"
+    t0 = time.perf_counter()
+    try:
+        retrain.run(argv)
+        problems.append("(e) the injected kill did not fire")
+    except SimulatedKill:
+        pass
+    finally:
+        del os.environ["PHOTON_FAULTS"]
+        faults.clear()
+    killed = time.perf_counter() - t0
+    torn = _chain_state(out)["days"]
+    live_after_kill = refresh.current_snapshot(srv)
+    t1 = time.perf_counter()
+    summary = retrain.run(argv + ["--metrics-out", metrics_dir])
+    resumed = time.perf_counter() - t1
+    same = _chain_state(out)["days"] == a["state"]["days"]
+    current = refresh.current_snapshot(srv)
+    published = [ln for ln in _run_metrics_prom(metrics_dir) if ln.startswith("photon_retrain_published_total")]
+    log(f"  (e) killed before day 3 after {killed:.2f} s with {len(torn)} days decided (day 2 published: "
+        f"{torn[-1]['published'] if torn else None}; CURRENT {live_after_kill}); resumed in {resumed:.2f} s "
+        f"(days run {list(summary['day_seconds'])}): ledger bitwise the straight run's {same}; CURRENT {current}; "
+        f"{published}")
+    if not (len(torn) == 2 and not torn[1]["published"] and live_after_kill == f"retrain-{RETRAIN_LABELS[0]}"
+            and same and current == f"retrain-{RETRAIN_LABELS[2]}"):
+        problems.append(f"(e) drills: decided before the kill {len(torn)}, CURRENT after it {live_after_kill}, "
+                        f"resumed ledger identical {same}, CURRENT {current}")
+    return {"killed_s": killed, "resumed_s": resumed, "ledger_identical": same}
+
+
+def retrain_phase(torch, fixture, seed, smi):
+    """Phase 14: (a) cli.retrain over three days with launches, walls and
+    each day held on identical inputs; (b) untouched users bitwise; (c) the
+    live snapshot bitwise the accepted model; (d) a label-flipped day
+    refused; (e) the torn-publish and kill-between-days drills."""
+    from photon_ml_tpu_torch.io.index_map import load_partitioned
+
+    problems, out = [], {}
+    fx = retrain_fixture(fixture, seed)
+    out["setup"] = {"write_s": fx["write_s"], "index_s": fx["index_s"]}
+    maps = {s: load_partitioned(fx["index"], s) for s in RETRAIN_SHARDS}
+    root = fixture["root"]
+    a = retrain_chain(torch, fixture, fx, root, problems, smi)
+    out["chain"] = {"wall_s": a["wall_s"], "launches": a["launches"], "total": a["total"],
+                    "day_seconds": a["summary"]["day_seconds"], "days": a["summary"]["days"], "metrics": a["metrics"]}
+    torch.cuda.empty_cache()
+    out["replays"] = [retrain_replay(torch, fixture, fx, maps, a["out"], k, problems) for k in range(3)]
+    torch.cuda.empty_cache()
+    out["untouched"] = retrain_untouched(a, problems)
+    out["snapshot"] = retrain_snapshot(torch, a, maps, problems)
+    out["degraded"] = retrain_degraded(torch, fixture, fx, a, maps, root, problems)
+    torch.cuda.empty_cache()
+    out["drills"] = retrain_drills(torch, fixture, fx, a, root, problems)
+    log(f"  photon_retrain_* of (a): {a['metrics']}")
+    log(f"  on {smi}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=500_000)
@@ -4310,7 +4792,7 @@ def main() -> int:
                     help="an earlier csrc/sparse_glm.cu to time in turns with this one in phase 8 (S1 and S2)")
     ap.add_argument("--only", default="",
                     help="comma-separated subset of check,fe,glmix,dp,nccl,solvers,io,game,tuning,s2,sparse,timing,"
-                         "variants "
+                         "variants,retrain "
                          "to run after card and build (for iterating on one phase; the result is then not ok)")
     args = ap.parse_args()
     only = set(filter(None, args.only.split(",")))
@@ -4330,7 +4812,7 @@ def main() -> int:
     phases = Phases()
     smi = phases.run("card", card, torch)
     phases.run("build", build)
-    errs = fe_launches = glmix = dp = times = solvers = io = game = tuning = None
+    errs = fe_launches = glmix = dp = times = solvers = io = game = tuning = retrain = None
     if want("check"):
         errs = phases.run("kernels vs float64 plain", check_kernels, torch, args.n, args.d, args.seed)
     if want("fe"):
@@ -4368,13 +4850,14 @@ def main() -> int:
     if not want("tuning"):
         del state
     torch.cuda.empty_cache()
-    if want("game") or want("tuning"):
+    if want("game") or want("tuning") or want("retrain"):
         import tempfile
 
         with tempfile.TemporaryDirectory(prefix="chip_smoke_game_") as root:
             fixture = phases.run("GAME fixture (phase 12 (a))", game_fixture, root, args.seed)
             if fixture is None:
-                phases.failed += [p for p in ("GAME driver", "tuning") if want(p.split()[0].lower())]
+                phases.failed += [p for p, key in (("GAME driver", "game"), ("tuning", "tuning"),
+                                                   ("retrain chain", "retrain")) if want(key)]
             else:
                 if want("game"):
                     game = phases.run("GAME driver", game_phase, torch, fixture, smi)
@@ -4386,6 +4869,10 @@ def main() -> int:
                     phases.failed.append("tuning")
                 else:
                     tuning = phases.run("tuning", tuning_phase, torch, fixture, state, args.seed, smi)
+                state = None
+                torch.cuda.empty_cache()
+                if want("retrain"):
+                    retrain = phases.run("retrain chain", retrain_phase, torch, fixture, args.seed, smi)
         state = None
     torch.cuda.empty_cache()
     if want("s2") and not want("tuning"):
@@ -4450,6 +4937,11 @@ def main() -> int:
             "launches_game_driver": ((game or {}).get("train") or {}).get("launches", {}).get(name, 0),
             "launches_game_driver_with_shifts": ((game or {}).get("train") or {}).get("shift_launches", 0)
             if name == "fused_hessian_stats" else None,
+            "launches_retrain_chain_per_day": [d[name] for d in ((retrain or {}).get("chain") or {}).get(
+                "launches", [])],
+            "launches_retrain_chain_per_day_with_shifts": [
+                d["fused_hessian_stats_with_shifts"] for d in ((retrain or {}).get("chain") or {}).get("launches", [])
+            ] if name == "fused_hessian_stats" else None,
             "launches_data_parallel_per_rank": [
                 r[name] for r in ((dp or {}).get("sweep") or {}).get("launches", [])
             ],
@@ -4464,7 +4956,7 @@ def main() -> int:
             "read_x_ms": t.get("read_x_ms"), "plan": t.get("plan"),
             **{f"bf16_{k}": t16.get(k) for k in ("ms", "prev_ms", "finalize_ms", "read_x_ms", "bound_ms")},
         })
-    kernels += sparse_entries(sp, times, game)
+    kernels += sparse_entries(sp, times, game, retrain)
     kernels += s2_entries(tuning)
     kernels.append(lane_entry(errs, solvers))
     if sp:
@@ -4509,6 +5001,12 @@ def main() -> int:
               f"(8 trials) {dr['lanes']['wall_s']:.2f} s ({dr['lanes']['batches']} batches, "
               f"{dr['lanes']['batch_seconds']:.3f} s); killed and resumed {rs['killed_s']:.2f} + {rs['wall_s']:.2f} s "
               f"on {smi}")
+    if retrain:
+        ch, dr = retrain["chain"], retrain["drills"]
+        log(f"retrain chain: cli.retrain {ch['wall_s']:.2f} s for 3 days (day walls "
+            + ", ".join(f"{d} {v['day']:.2f}" for d, v in ch["day_seconds"].items())
+            + f" s), launches per day {ch['launches']}; the label-flipped day {retrain['degraded']['reason']}; "
+              f"killed and resumed {dr['killed_s']:.2f} + {dr['resumed_s']:.2f} s on {smi}")
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))
     ok = not phases.failed

@@ -41,9 +41,15 @@ whole coordinate-descent state every N coordinate updates, and
 metrics.prom and run_summary.json; ``--trace-out PATH`` writes the run's
 spans as JSON lines (one per span) with run_summary.json beside it.
 
+Incremental training (GameTrainingDriver's warm start): ``--model-input-dir``
+warm-starts every coordinate from a saved GAME model; with
+``--incremental-training`` (which requires it) each coordinate's L2 is
+centred on that model, after ``io.model_io.check_prior_compatibility`` has
+checked the model's features against the current index (logged);
+``--partial-retrain-locked a,b`` keeps those coordinates at the loaded
+model and trains the rest. ``cli.retrain`` chains this day by day.
+
 These flags parse and raise, naming their ROADMAP item:
-``--incremental-training``, ``--partial-retrain-locked`` and a prior
-``--model-input-dir`` (A8b);
 ``--mesh-shape``, ``--distributed``, ``--collective-timeout`` and
 ``--heartbeat-*`` (A10); ``--pipeline-depth`` above 1 (A7);
 ``--status-port`` and ``--report-out`` (A13). The Chrome-trace timeline of
@@ -95,7 +101,8 @@ OUTPUT_MODE_BEST = "BEST"
 OUTPUT_MODE_TUNED = "TUNED"
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
-_DEFAULT_COORDINATE = "name=global,shard=global,optimizer=LBFGS,reg.type=L2,reg.weights=1"
+NORMALIZATIONS = ["NONE", "STANDARDIZATION", "SCALE_WITH_STANDARD_DEVIATION", "SCALE_WITH_MAX_MAGNITUDE"]
+DEFAULT_COORDINATE = "name=global,shard=global,optimizer=LBFGS,reg.type=L2,reg.weights=1"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -127,11 +134,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output-dir", required=True)
     p.add_argument("--output-mode", default=OUTPUT_MODE_BEST,
                    choices=[OUTPUT_MODE_ALL, OUTPUT_MODE_BEST, OUTPUT_MODE_TUNED])
-    p.add_argument("--model-input-dir", default=None, help="warm-start GAME model (ROADMAP A8b)")
-    p.add_argument("--incremental-training", action="store_true", help="ROADMAP A8b")
-    p.add_argument("--partial-retrain-locked", default="", help="ROADMAP A8b")
-    p.add_argument("--normalization", default="NONE",
-                   choices=["NONE", "STANDARDIZATION", "SCALE_WITH_STANDARD_DEVIATION", "SCALE_WITH_MAX_MAGNITUDE"])
+    p.add_argument("--model-input-dir", default=None,
+                   help="warm-start GAME model directory (every coordinate starts from it)")
+    p.add_argument("--incremental-training", action="store_true",
+                   help="regularize each coordinate toward the --model-input-dir model (prior-centred L2)")
+    p.add_argument("--partial-retrain-locked", default="",
+                   help="comma-separated coordinates kept at the --model-input-dir model, not retrained")
+    p.add_argument("--normalization", default="NONE", choices=NORMALIZATIONS)
     p.add_argument("--model-sparsity-threshold", type=float, default=0.0)
     p.add_argument("--compute-feature-stats", action="store_true")
     p.add_argument("--hyper-parameter-tuning", default="NONE", choices=["NONE", "RANDOM", "BAYESIAN"],
@@ -181,9 +190,6 @@ def _refuse_unported(args) -> None:
     """The flags that parse but whose paths are not ported: one PlanError
     naming the ROADMAP item."""
     refusals = [
-        (args.incremental_training, "--incremental-training", "A8b"),
-        (bool(args.partial_retrain_locked), "--partial-retrain-locked", "A8b"),
-        (args.model_input_dir is not None, "warm start from a prior --model-input-dir", "A8b"),
         (bool(args.mesh_shape), "--mesh-shape", "A10"),
         (args.distributed is not None, "--distributed", "A10"),
         (args.collective_timeout is not None, "--collective-timeout", "A10"),
@@ -264,7 +270,10 @@ def _explain_plan(args) -> Dict:
 
     try:
         _refuse_unported(args)
-        coords = [parse_coordinate(s) for s in (args.coordinate or [_DEFAULT_COORDINATE])]
+        coords = [parse_coordinate(s) for s in (args.coordinate or [DEFAULT_COORDINATE])]
+        if args.incremental_training:
+            for cc in coords:
+                cc.regularize_by_prior = True
         dims = None
         if args.feature_index_dir:
             from ..io.index_map import load_partitioned
@@ -274,12 +283,33 @@ def _explain_plan(args) -> Dict:
             except (OSError, ValueError, KeyError):
                 # the dims only enrich the printed plan; a dry run never fails on them
                 dims = None
-        plan = resolve_plan(coords, trial_lanes=args.trial_lanes, normalization=args.normalization, dims=dims)
+        plan = resolve_plan(
+            coords, trial_lanes=args.trial_lanes, normalization=args.normalization, dims=dims,
+            partial_retrain_locked=_locked(args),
+        )
     except PlanError as e:
         print(f"plan refused: {e}", file=sys.stderr)
         raise SystemExit(1)
     print(plan.pretty())
     return {"plan": plan.to_dict()}
+
+
+def normalize_fixed_effects(normalization: str, coords, raw, index_maps, dtype, device) -> None:
+    """Set each fixed-effect coordinate's normalization (``NONE`` leaves
+    them unnormalized) from the feature statistics of ``raw``."""
+    if normalization == "NONE":
+        return
+    for cc in coords:
+        if not cc.is_random_effect:
+            stats = compute_feature_statistics(raw, cc.feature_shard)
+            cc.normalization = build_normalization(
+                normalization, stats["mean"], stats["variance"], stats["max_magnitude"],
+                intercept_index=index_maps[cc.feature_shard].intercept_index, dtype=dtype, device=device,
+            )
+
+
+def _locked(args) -> List[str]:
+    return [c for c in args.partial_retrain_locked.split(",") if c]
 
 
 def _sync(device) -> None:
@@ -300,7 +330,7 @@ def _run_training(args, device, run_t, sinks, t_run0) -> Dict:
 
     shards = build_shard_configs(args)
     id_tags = [t for t in args.id_tags.split(",") if t]
-    coords = [parse_coordinate(s) for s in (args.coordinate or [_DEFAULT_COORDINATE])]
+    coords = [parse_coordinate(s) for s in (args.coordinate or [DEFAULT_COORDINATE])]
     for cc in coords:
         if cc.is_random_effect and cc.random_effect_type not in id_tags:
             id_tags.append(cc.random_effect_type)
@@ -352,14 +382,7 @@ def _run_training(args, device, run_t, sinks, t_run0) -> Dict:
     stage_done("read")
 
     # normalization from feature statistics (GameTrainingDriver:555-571)
-    if args.normalization != "NONE":
-        for cc in coords:
-            if not cc.is_random_effect:
-                stats = compute_feature_statistics(raw, cc.feature_shard)
-                cc.normalization = build_normalization(
-                    args.normalization, stats["mean"], stats["variance"], stats["max_magnitude"],
-                    intercept_index=index_maps[cc.feature_shard].intercept_index, dtype=dtype, device=device,
-                )
+    normalize_fixed_effects(args.normalization, coords, raw, index_maps, dtype, device)
     if args.compute_feature_stats:
         os.makedirs(args.output_dir, exist_ok=True)
         for shard in shards:
@@ -370,6 +393,31 @@ def _run_training(args, device, run_t, sinks, t_run0) -> Dict:
             )
     stage_done("statistics")
 
+    initial_model = None
+    if args.model_input_dir:
+        if args.incremental_training:
+            # the prior's features against the current index BEFORE the
+            # load: load_game_model keys coefficients by (name, term) and
+            # drops features the index cannot host, harmless for a warm
+            # start, fatal for a prior (a dropped feature's prior would
+            # re-centre at zero); a permuted index remaps, a missing
+            # feature raises
+            from ..io.model_io import check_prior_compatibility
+
+            compat = check_prior_compatibility(args.model_input_dir, index_maps)
+            logger.info(
+                "incremental prior feature-index compatibility: %s",
+                ", ".join(f"{s}={v}" for s, v in sorted(compat.items())),
+            )
+        initial_model = load_game_model(args.model_input_dir, index_maps, task=args.task, device=device, dtype=dtype)
+    if args.incremental_training:
+        if initial_model is None:
+            raise SystemExit("--incremental-training requires --model-input-dir")
+        for cc in coords:
+            cc.regularize_by_prior = True
+    if initial_model is not None:
+        stage_done("model_input")
+
     estimator = GameEstimator(
         task=args.task,
         coordinate_configs=coords,
@@ -379,6 +427,7 @@ def _run_training(args, device, run_t, sinks, t_run0) -> Dict:
         validation_frequency=args.validation_frequency,
         divergence_guard=not args.no_divergence_guard,
         rejection_tolerance=args.coordinate_rejection_tolerance,
+        partial_retrain_locked=_locked(args),
         device=device,
     )
     if args.trial_lanes > 1:
@@ -443,11 +492,11 @@ def _run_training(args, device, run_t, sinks, t_run0) -> Dict:
         if args.checkpoint_dir:
             ckpt = _Checkpoint.open(args, coords, index_maps, device, dtype)
             results = ckpt.fit_grid(
-                estimator, raw, validation, get_datasets,
+                estimator, raw, validation, get_datasets, initial_model,
                 cd_manager=cd_manager, resume_snapshot=resume_snap,
             )
         else:
-            results = estimator.fit(raw, validation=validation, datasets=get_datasets())
+            results = estimator.fit(raw, validation=validation, initial_model=initial_model, datasets=get_datasets())
     stage_done("train")
     stage_seconds["train"] -= stage_seconds.get("datasets", 0.0)
 
@@ -819,8 +868,10 @@ class _Checkpoint:
         return GameResult(model=self._load_model(rec["model_dir"]), config=rec["reg_weights"],
                           evaluation=ev, trackers={})
 
-    def fit_grid(self, estimator, raw, validation, datasets_fn, cd_manager=None, resume_snapshot=None):
-        """``cd_manager`` (robust.CheckpointManager) adds coordinate-update-
+    def fit_grid(self, estimator, raw, validation, datasets_fn, initial_model=None, cd_manager=None,
+                 resume_snapshot=None):
+        """``initial_model`` warm-starts the first configuration (and is the
+        prior of an incremental run). ``cd_manager`` (robust.CheckpointManager) adds coordinate-update-
         boundary snapshots on top of the per-sweep model saves;
         ``resume_snapshot`` resumes its combo mid-sweep, bit-identical.
         Whichever record is further along wins; boundary manifests carry
@@ -830,7 +881,7 @@ class _Checkpoint:
         combos = self.state["grid"]
         n_iter = self.args.coordinate_descent_iterations
         results: List[GameResult] = []
-        prev = None
+        prev = initial_model
         for rec in self.state["completed"]:
             r = self._reconstruct(rec)
             results.append(r)

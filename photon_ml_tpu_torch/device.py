@@ -9,8 +9,9 @@ card's.
 from __future__ import annotations
 
 import subprocess
-from typing import Optional, Union
+from typing import List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -27,6 +28,25 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "PyTorch path on the CPU"
         )
     return dev
+
+
+def fetch(site: str, tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
+    """``tensors`` on the host in their own dtypes and shapes, bit for bit,
+    moved in one device-to-host copy (their bytes concatenated where they
+    lie) and counted as one fetch at ``site``
+    (``photon_device_fetch_bytes_total{site=}``)."""
+    from . import obs
+
+    flat = [t.detach().contiguous().reshape(-1).view(torch.uint8) for t in tensors]
+    host = (torch.cat(flat) if len(flat) > 1 else flat[0]).cpu().numpy()
+    obs.add_device_fetch_bytes(site, int(host.nbytes))
+    out, start = [], 0
+    for t, f in zip(tensors, flat):
+        n = f.numel()
+        dt = torch.empty((), dtype=t.dtype).numpy().dtype
+        out.append(host[start : start + n].view(dt).reshape(tuple(t.shape)))
+        start += n
+    return out
 
 
 def nvidia_smi_identity() -> Optional[str]:

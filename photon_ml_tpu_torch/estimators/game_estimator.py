@@ -17,10 +17,16 @@ once: a fixed effect's validation margins are one S1 launch
 ``fit_lanes`` trains several configurations as lambda lanes of one
 coordinate-descent run (``game/lanes.py``).
 
+Incremental training: a coordinate with ``regularize_by_prior`` centres
+its L2 on the model it warm-starts from (``fit``'s ``initial_model``, then
+each configuration's predecessor), and a coordinate named in
+``partial_retrain_locked`` scores its pretrained model without retraining
+(``ModelCoordinate``).
+
 The composition checks are the execution planner's (``plan.resolve``):
 multi-process runs and meshes (the world comes from ``torch.distributed``
 when it is initialised) are ROADMAP A10, streaming budgets and pipelining
-A7, locked coordinates and priors A8b; each raises naming its item.
+A7; each raises naming its item.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ import torch
 from .. import plan as execution_plan
 from ..device import DeviceLike, resolve_device
 from ..evaluation.suite import EvaluationResults, build_suite
-from ..game.coordinate import Coordinate, FixedEffectCoordinate, RandomEffectCoordinate
+from ..game.coordinate import Coordinate, FixedEffectCoordinate, ModelCoordinate, RandomEffectCoordinate
 from ..game.data import _rows_to_ell, build_fixed_effect_dataset, build_random_effect_dataset
 from ..game.descent import CoordinateDescent, ValidationContext
 from ..game.problem import GLMOptimizationConfig
@@ -70,7 +76,7 @@ class CoordinateConfig:
     # narrower storage for the feature values only (torch.bfloat16)
     feature_dtype: Optional[torch.dtype] = None
     normalization: Optional[NormalizationContext] = None
-    # incremental training (ROADMAP A8b)
+    # incremental training: L2 centred on the warm-start model
     regularize_by_prior: bool = False
     # out-of-core streaming budget (ROADMAP A7)
     hbm_budget_mb: Optional[int] = None
@@ -219,16 +225,33 @@ class GameEstimator(EventEmitter):
             score_fns[cc.name] = fn
         return ValidationContext(suite=suite, score_fns=score_fns, offsets=val_raw.offsets), score_fns
 
-    def _make_coordinates(self, datasets, reg_weights: Mapping[str, float]) -> Dict[str, Coordinate]:
+    def _make_coordinates(
+        self, datasets, reg_weights: Mapping[str, float], initial_models: Optional[Mapping[str, object]] = None,
+    ) -> Dict[str, Coordinate]:
+        """The coordinates of one configuration: a coordinate with
+        ``regularize_by_prior`` takes its initial model as its prior, and a
+        locked one wraps its initial model in a ``ModelCoordinate``."""
+        initial_models = initial_models or {}
         coords: Dict[str, Coordinate] = {}
         for cc in self.coordinate_configs:
             cfg = cc.config.with_reg_weight(reg_weights[cc.name])
+            prior = initial_models.get(cc.name) if cc.regularize_by_prior else None
             if cc.is_random_effect:
-                coords[cc.name] = RandomEffectCoordinate(dataset=datasets[cc.name], task=self.task, config=cfg)
-            else:
-                coords[cc.name] = FixedEffectCoordinate(
-                    dataset=datasets[cc.name], task=self.task, config=cfg, normalization=cc.normalization,
+                inner: Coordinate = RandomEffectCoordinate(
+                    dataset=datasets[cc.name], task=self.task, config=cfg, prior_model=prior,
                 )
+            else:
+                inner = FixedEffectCoordinate(
+                    dataset=datasets[cc.name], task=self.task, config=cfg, normalization=cc.normalization,
+                    prior_model=prior,
+                )
+            if cc.name in self.partial_retrain_locked:
+                locked = initial_models.get(cc.name)
+                if locked is None:
+                    raise ValueError(f"locked coordinate {cc.name} needs a pretrained model")
+                coords[cc.name] = ModelCoordinate(inner=inner, locked_model=locked)
+            else:
+                coords[cc.name] = inner
         return coords
 
     # -- fit -------------------------------------------------------------------
@@ -283,7 +306,7 @@ class GameEstimator(EventEmitter):
         self.send_event(TrainingStartEvent(time=time.time()))
         for combo_index, reg_weights in enumerate(combos):
             reg_weights = dict(reg_weights)
-            coords = self._make_coordinates(datasets, reg_weights)
+            coords = self._make_coordinates(datasets, reg_weights, prev_models)
             cd_ckpt = None
             if checkpoint_fn is not None:
                 task = self.task

@@ -160,11 +160,16 @@ def grouped_evaluate(
     s, y = _as_np(scores), _as_np(labels)
     w = np.ones_like(s) if weights is None else _as_np(weights)
     gids = np.asarray(group_ids)
-    uniq, inv = np.unique(gids, return_inverse=True)
+    if gids.size == 0:
+        return float("nan")
+    _, inv = np.unique(gids, return_inverse=True)
+    # one stable sort by group: each group's rows are a contiguous slice in
+    # their original order (what a boolean mask per group would select)
+    order = np.argsort(inv, kind="stable")
+    bounds = np.flatnonzero(np.diff(inv[order])) + 1
     vals = []
-    for g in range(len(uniq)):
-        m = inv == g
-        v = local_metric(s[m], y[m], w[m])
+    for rows in np.split(order, bounds):
+        v = local_metric(s[rows], y[rows], w[rows])
         if np.isfinite(v):
             vals.append(v)
     return float(np.mean(vals)) if vals else float("nan")

@@ -1,4 +1,4 @@
-from .coordinate import Coordinate, FixedEffectCoordinate, RandomEffectCoordinate
+from .coordinate import Coordinate, FixedEffectCoordinate, ModelCoordinate, RandomEffectCoordinate
 from .data import (
     EntityBlocks,
     FixedEffectDataset,
@@ -18,6 +18,7 @@ __all__ = [
     "FixedEffectDataset",
     "GLMOptimizationConfig",
     "GLMProblem",
+    "ModelCoordinate",
     "RandomEffectCoordinate",
     "RandomEffectDataset",
     "ValidationContext",

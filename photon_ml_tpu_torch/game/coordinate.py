@@ -40,8 +40,12 @@ the sweep executor ``game/lanes.py``): the fixed effect through
 the full ``[E, K, S]`` blocks without size buckets, as the JAX package
 does (a bucket's padding would land on the lane axis).
 
-Not ported yet, each raising with its ROADMAP item: streamed datasets (A7),
-and random-effect priors from a ``prior_model`` (A8b).
+Incremental training: a ``prior_model`` centres each coordinate's L2 on a
+prior model (the fixed effect's through ``GLMProblem``'s prior, the random
+effect's as per-entity prior means and precisions projected into the day's
+blocks), and ``ModelCoordinate`` locks a pretrained model (partial
+retraining). Not ported yet, raising with its ROADMAP item: streamed
+datasets (A7).
 """
 
 from __future__ import annotations
@@ -49,7 +53,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import weakref
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -225,7 +229,7 @@ class RandomEffectCoordinate(Coordinate):
     dataset: RandomEffectDataset
     task: str
     config: GLMOptimizationConfig
-    # incremental training: per-entity prior means/precisions (ROADMAP A8b)
+    # incremental training: per-entity prior means and precisions
     prior_model: Optional[RandomEffectModel] = None
 
     def __post_init__(self):
@@ -244,11 +248,6 @@ class RandomEffectCoordinate(Coordinate):
         residual_scores: Optional[Tensor],
         initial_model: Optional[RandomEffectModel] = None,
     ) -> Tuple[RandomEffectModel, SolverResult]:
-        if self.prior_model is not None:
-            raise NotImplementedError(
-                "random-effect priors from a prior_model (incremental training) are not "
-                "ported yet (ROADMAP A8b)"
-            )
         train = _train_blocks if _re_solver_mode() == "vmapped" else _train_blocks_packed
         ds = self.dataset
         group = ds.group
@@ -273,8 +272,8 @@ class RandomEffectCoordinate(Coordinate):
             w0 = w0[lo : lo + E]
         else:
             w0 = torch.zeros((E, S), dtype=dtype, device=dev)
-        prior_mean = torch.zeros((E, S), dtype=dtype, device=dev)
-        prior_prec = torch.ones((E, S), dtype=dtype, device=dev)
+        prior_mean, prior_prec = self._prior(dtype)
+        prior_mean, prior_prec = prior_mean[lo : lo + E], prior_prec[lo : lo + E]
 
         solver_kwargs = self._solver_kwargs()
         # over several ranks the segments come from the global counts with
@@ -388,6 +387,26 @@ class RandomEffectCoordinate(Coordinate):
         vals = coef_values.to(device=ds.device, dtype=score_dt)
         return score_entity_rows_dense_lanes(vals, ds.row_entity, cache.to(score_dt))
 
+    def _prior(self, dtype) -> Tuple[Tensor, Tensor]:
+        """Per-entity prior means and precisions ``[E, S]`` in the dataset's
+        block layout: zeros and ones (plain L2) without a prior model, else
+        the prior's values projected by (entity, feature column), and
+        ``1 / max(variance, 1e-12)`` where the prior carries a variance for
+        the entry. An entry the prior lacks (an entity new to the day, or a
+        column new to a known entity) takes mean 0 and precision 1."""
+        layout = _layout(self.dataset)
+        E, S = layout.shape
+        dev = self.dataset.blocks.labels.device
+        prior = self.prior_model
+        if prior is None:
+            return (torch.zeros((E, S), dtype=dtype, device=dev),
+                    torch.ones((E, S), dtype=dtype, device=dev))
+        mean = _project_model_values(self.dataset, prior, prior.coef_values, dtype)
+        if prior.variances is None:
+            return mean, torch.ones((E, S), dtype=dtype, device=dev)
+        var = _project_model_values(self.dataset, prior, prior.variances, dtype, fill=1.0)
+        return mean, 1.0 / torch.clamp(var, min=1e-12)
+
     def _solver_kwargs(self) -> dict:
         cfg = self.config
         solver_cfg = cfg.solver_config()
@@ -450,6 +469,33 @@ class RandomEffectCoordinate(Coordinate):
         return scoring.score_ell_rows(row_entity, ds.ell_idx, ds.ell_val.to(score_dt))
 
 
+@dataclasses.dataclass
+class ModelCoordinate(Coordinate):
+    """A locked coordinate (partial retraining): scores a pretrained model
+    through its inner coordinate and never retrains, training to
+    ``(locked_model, None)``."""
+
+    inner: Coordinate
+    locked_model: Union[FixedEffectModel, RandomEffectModel]
+
+    def __post_init__(self):
+        self.coordinate_id = self.inner.coordinate_id
+
+    @property
+    def n_rows(self) -> int:
+        return self.inner.n_rows
+
+    @property
+    def group(self):
+        return self.inner.group
+
+    def train(self, residual_scores, initial_model=None):
+        return self.locked_model, None
+
+    def score(self, model=None) -> Tensor:
+        return self.inner.score(self.locked_model)
+
+
 def _layout(ds: RandomEffectDataset) -> Tensor:
     """The dataset's whole support layout ``[E, S]`` on its device: the
     blocks' own, or for entity-sharded blocks ``host_proj_cols`` (uploaded
@@ -483,12 +529,13 @@ def _re_solver_mode() -> str:
 
 
 def _project_model_values(
-    dataset: RandomEffectDataset, model: RandomEffectModel, values: Tensor, dtype
+    dataset: RandomEffectDataset, model: RandomEffectModel, values: Tensor, dtype, fill: float = 0.0
 ) -> Tensor:
     """Project per-entity values stored in ``model``'s (entity, support)
-    layout into this dataset's entity/subspace block layout. The same layout
-    is reused directly; any other goes through one vectorized sorted-key
-    lookup on the host."""
+    layout into this dataset's entity/subspace block layout; an entry the
+    model lacks (an entity or a column it does not carry) takes
+    ``fill``. The same layout is reused as it is; any other goes through one
+    vectorized sorted-key lookup on the host."""
     dev = dataset.blocks.labels.device
     layout = _layout(dataset)
     E, S = layout.shape
@@ -514,7 +561,7 @@ def _project_model_values(
     rows = model.rows_for(dataset.entity_ids)  # [E] model row or -1
     de, dsl = np.nonzero((pc_host >= 0) & (rows[:, None] >= 0))
     dkeys = rows[de].astype(np.int64) * dim + pc_host[de, dsl]
-    w0 = np.zeros((E, S))
+    w0 = np.full((E, S), fill)
     if len(mkeys_s) and len(dkeys):
         # side='right' - 1: among duplicate support columns the last stored
         # value wins

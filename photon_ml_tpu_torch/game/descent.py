@@ -52,7 +52,7 @@ from ..optimize import SolverResult
 from ..optimize.trackers import build_tracker, record_tracker_metrics
 from ..robust import faults
 from ..utils.timed import timed
-from .coordinate import Coordinate
+from .coordinate import Coordinate, ModelCoordinate
 
 logger = logging.getLogger("photon_ml_tpu_torch")
 
@@ -171,6 +171,10 @@ class CoordinateDescent:
         self.resume_state = resume_state
         self.divergence_guard = divergence_guard
         self.rejection_tolerance = rejection_tolerance
+        # locked coordinates (ModelCoordinate) score their pretrained model
+        # and never train: at least one coordinate must train
+        if all(isinstance(c, ModelCoordinate) for c in self.coordinates.values()):
+            raise ValueError("all coordinates are locked; nothing to train")
         if len(self.order) == 1 and n_iterations > 1:
             logger.warning("single-coordinate descent with %d iterations is wasteful", n_iterations)
 
@@ -244,8 +248,9 @@ class CoordinateDescent:
                     with obs.span("cd.coordinate", iteration=it, coordinate=name):
                         with timed(f"cd iter {it} coordinate {name}: train", phase="solve", coordinate=name):
                             model, solver_result = coordinate.train(residual, initial_model=models.get(name))
-                        results[name] = solver_result
-                        syncs[name] += solver_result.syncs
+                        if solver_result is not None:  # None: a locked coordinate
+                            results[name] = solver_result
+                            syncs[name] += solver_result.syncs
                         tracker = build_tracker(coordinate, solver_result)
                         if tracker is not None:
                             trackers[name] = tracker
@@ -330,12 +335,16 @@ class CoordinateDescent:
     def _guard(self, name, new_scores, solver_result, train_losses):
         """One fetch of (all new scores finite, total train loss): accepts
         unless either is non-finite or the loss regressed beyond
-        ``rejection_tolerance``. Returns ``(accepted, train_loss)``."""
+        ``rejection_tolerance``. Returns ``(accepted, train_loss)``; a
+        locked coordinate (no solver result) fetches the finite flag alone
+        and returns no loss, so the regression ledger keeps real solves
+        only."""
+        finite = torch.all(torch.isfinite(new_scores)).to(torch.float64)
+        if solver_result is None:
+            obs.add_device_fetch_bytes("cd.update_guard", 8)
+            return bool(finite.item()), None
         finite_h, loss_h = (
-            torch.stack([
-                torch.all(torch.isfinite(new_scores)).to(torch.float64),
-                torch.sum(solver_result.loss).to(torch.float64),
-            ]).cpu().numpy()
+            torch.stack([finite, torch.sum(solver_result.loss).to(torch.float64)]).cpu().numpy()
         )
         obs.add_device_fetch_bytes("cd.update_guard", 16)
         if not bool(finite_h):
@@ -383,8 +392,10 @@ class CoordinateDescent:
         return best_eval, best_models
 
     def _infer_task(self) -> str:
+        """The task from the coordinates (a locked coordinate's from its
+        inner one)."""
         for c in self.coordinates.values():
-            task = getattr(c, "task", None)
+            task = getattr(c.inner if isinstance(c, ModelCoordinate) else c, "task", None)
             if task:
                 return task
         return "linear_regression"

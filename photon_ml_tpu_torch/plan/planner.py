@@ -8,11 +8,12 @@ coordinate takes, or raises one typed :class:`PlanError`.
 
 The port resolves the compositions it runs: resident coordinates on one
 card, dense / ELL / sorted-COO fixed-effect layouts, float32 or bfloat16
-feature storage, the serial sweep, and trial lanes (``check_lane_composition``
-refuses what the lane path does not compose with, in the JAX package's
-words). For the compositions it has not ported, it refuses with a
-``PlanError`` that names its ROADMAP item: HBM-budget streaming and sweep
-pipelining (A7), incremental training and locked coordinates (A8b), meshes,
+feature storage, the serial sweep, incremental training (regularize-by-prior
+and locked coordinates) and trial lanes (``check_lane_composition`` and
+``check_retrain_composition`` refuse what the lane path and the retrain
+chain do not compose with, in the JAX package's words). For the
+compositions it has not ported, it refuses with a ``PlanError`` that names
+its ROADMAP item: HBM-budget streaming and sweep pipelining (A7), meshes,
 the tiled layout and multiple processes (A10). ``plan_fingerprint`` and ``check_checkpoint_topology`` are the JAX
 package's, so a checkpoint's manifest speaks the same topology contract.
 
@@ -33,7 +34,6 @@ class PlanError(ValueError):
 
 
 A7 = "ROADMAP A7"
-A8b = "ROADMAP A8b"
 A10 = "ROADMAP A10"
 
 
@@ -150,8 +150,6 @@ def _check_coordinate(cc) -> None:
         raise not_ported(f"coordinate {cc.name}: hbm_budget_mb (out-of-core streaming)", A7)
     if cc.layout == "tiled":
         raise not_ported(f"coordinate {cc.name}: layout='tiled' (the mesh-tiled sparse batch)", A10)
-    if cc.regularize_by_prior:
-        raise not_ported(f"coordinate {cc.name}: regularize-by-prior (incremental training)", A8b)
     if cc.feature_dtype is not None and dtype_name(cc.feature_dtype) not in ("float32", "bfloat16"):
         raise PlanError(f"coordinate {cc.name}: feature_dtype must be float32 or bfloat16")
 
@@ -240,8 +238,7 @@ def check_retrain_composition(
     """The JAX package's refusals of the incremental-retrain compositions,
     copied verbatim: the day chain is a local control loop, trial lanes have
     no per-lane prior, and streamed coordinates never materialize the
-    host-resident models the per-day merge carries forward. (The retrain
-    driver itself is ROADMAP A8b.)"""
+    host-resident models the per-day merge carries forward."""
     if distributed:
         raise PlanError(
             "incremental retrain is single-process: not composable with "
@@ -381,8 +378,6 @@ def resolve(
         raise PlanError(f"trial-lanes must be >= 1: {trial_lanes}")
     if pipeline_depth > 1:
         raise not_ported("sweep pipelining (pipeline_depth > 1)", A7)
-    if partial_retrain_locked:
-        raise not_ported("partial retraining (locked coordinates)", A8b)
 
     plans = []
     for cc in coordinate_configs:

@@ -19,6 +19,7 @@ on the card takes the counted ``plain_float64`` route and reaches the CPU's
 float64 solve (loss rtol 1e-9).
 """
 
+import dataclasses
 import math
 
 import pytest
@@ -1080,6 +1081,83 @@ def test_game_driver_on_card_launches_the_kernels_and_resumes_bitwise(cuda, tmp_
                  (a["global"].model.coefficients.variances, b["global"].model.coefficients.variances),
                  (a["per-user"].coef_values, b["per-user"].coef_values)):
         assert torch.equal(x, y)
+
+
+def test_retrain_chain_on_card_day_fixed_effects_match_plain(cuda, tmp_path):
+    """A three-day chain (``game.incremental.run_chain``) on the card: a
+    TRON + SIMPLE fixed effect and a per-user L-BFGS effect, both centred on
+    the accepted model from day 2, a boundary checkpoint every update. B1,
+    B2, B3 and S1 (the gate's scoring) launch; each day's first fixed-effect
+    update, replayed on its identical inputs (the prior reloaded from the
+    chain's saved model), is bitwise the chain's through the kernels and
+    within rtol 1e-3 / atol 1e-5 of the plain route (means and variances);
+    the published snapshot holds the live model's fixed effect bitwise."""
+    import os
+
+    import numpy as np
+
+    from photon_ml_tpu_torch.estimators import CoordinateConfig, GameEstimator
+    from photon_ml_tpu_torch.game import incremental
+    from photon_ml_tpu_torch.io import load_game_model
+    from photon_ml_tpu_torch.io.index_map import IndexMap
+    from photon_ml_tpu_torch.robust import CheckpointManager
+    from photon_ml_tpu_torch.robust.checkpoint import to_device
+    from photon_ml_tpu_torch.serving import refresh
+    from photon_ml_tpu_torch.testing import generate_mixed_effect_data
+    from photon_ml_tpu_torch.testing.generators import mixed_data_to_raw_dataset
+
+    d_fixed, d_re, per_day = 16, 4, 6000
+    data = generate_mixed_effect_data(n=4 * per_day, d_fixed=d_fixed, re_specs={"userId": (40, d_re)}, seed=7)
+    raw = mixed_data_to_raw_dataset(data)
+    rows = np.arange(data.n)
+    days = [(f"2026010{k + 1}", raw.subset(rows[k * per_day:(k + 1) * per_day])) for k in range(3)]
+    val = raw.subset(rows[3 * per_day:])
+    maps = {"global": IndexMap.from_name_terms([(f"g{j}", "") for j in range(d_fixed)], add_intercept=False),
+            "userShard": IndexMap.from_name_terms([(f"u{j}", "") for j in range(d_re)], add_intercept=False)}
+
+    def estimator(prior=False):
+        from photon_ml_tpu_torch.game.problem import GLMOptimizationConfig as Cfg
+
+        fe = Cfg(optimizer=OptimizerConfig(optimizer_type="TRON", tolerance=1e-7, max_iterations=30),
+                 regularization=RegularizationContext("L2"), reg_weight=1.0, variance_type="SIMPLE")
+        re_ = Cfg(optimizer=OptimizerConfig(tolerance=1e-6, max_iterations=30),
+                  regularization=RegularizationContext("L2"), reg_weight=1.0)
+        cfgs = [CoordinateConfig(name="global", feature_shard="global", config=fe, regularize_by_prior=prior),
+                CoordinateConfig(name="per-user", feature_shard="userShard", random_effect_type="userId", config=re_,
+                                 regularize_by_prior=prior)]
+        return GameEstimator("logistic_regression", cfgs, n_cd_iterations=2, evaluator_specs=["AUC"], device=cuda)
+
+    chain, srv = str(tmp_path / "chain"), str(tmp_path / "serving")
+    fg.reset_launch_counts()
+    res = incremental.run_chain(estimator(), days, val, chain_dir=chain, serving_root=srv, gate_margin=0.05,
+                                checkpoint_every=1, checkpoint_keep=4, index_maps=maps)
+    assert fg.LAUNCHES["fused_value_grad"] > 0 and fg.LAUNCHES["fused_hessian_vector"] > 0
+    assert fg.LAUNCHES["fused_hessian_stats"] > 0 and sparse.SPARSE_LAUNCHES["ell_matvec"] > 0
+    assert all(r.accepted for r in res.ledger)
+    prior = None
+    for k, (label, day) in enumerate(days):
+        mgr = CheckpointManager(os.path.join(chain, "checkpoints", f"day-{k:04d}"), keep_last=4)
+        first = to_device(mgr._load_validated(mgr.checkpoints()[0])[1]["models"]["global"], cuda)
+        est = estimator(prior is not None)
+        coords = est._make_coordinates(est.prepare_datasets(day), {"global": 1.0, "per-user": 1.0},
+                                       {} if prior is None else dict(prior.models))
+        residual = initial = None
+        if prior is not None:
+            fe_s = coords["global"].score(prior["global"])
+            residual = (fe_s + coords["per-user"].score(prior["per-user"])) - fe_s
+            initial = prior["global"]
+        got, _ = coords["global"].train(residual, initial_model=initial)
+        plain, _ = dataclasses.replace(coords["global"], plain=True).train(residual, initial_model=initial)
+        want = first.model.coefficients
+        assert torch.equal(got.model.coefficients.means, want.means), label
+        for a, b in ((want.means, plain.model.coefficients.means),
+                     (want.variances, plain.model.coefficients.variances)):
+            torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)
+        prior = load_game_model(os.path.join(chain, "models", f"day-{label}"), maps, task="logistic_regression",
+                                device=cuda)
+    _, opened = refresh.open_current(srv)
+    assert torch.equal(torch.from_numpy(np.array(opened.coords[0].weights)),
+                       res.model["global"].model.coefficients.means.cpu())
 
 
 def test_score_engine_on_card_runs_s1_and_matches_plain(cuda, tmp_path):

@@ -13,7 +13,10 @@ against the JAX package's on tests/test_cli.py's fixture
 - the checkpoint, grid-resume and kill-and-resume cases of
   tests/test_cli.py through the port (boundary resume bit for bit);
 - ``--explain-plan``, and the PlanError of every refused flag, which
-  names its ROADMAP item."""
+  names its ROADMAP item;
+- ``--model-input-dir``, ``--incremental-training`` and
+  ``--partial-retrain-locked``, warm-started from a model the JAX package
+  trained, at the float32 bounds above."""
 
 import json
 import os
@@ -346,9 +349,6 @@ def test_explain_plan_prints_without_reading_data(tmp_path, capsys):
 
 
 REFUSED = {
-    "incremental-training": (["--incremental-training"], "A8b"),
-    "partial-retrain-locked": (["--partial-retrain-locked", "global"], "A8b"),
-    "model-input-dir": (["--model-input-dir", "prior"], "A8b"),
     "mesh-shape": (["--mesh-shape", "data=2"], "A10"),
     "distributed": (["--distributed", "auto"], "A10"),
     "collective-timeout": (["--collective-timeout", "30"], "A10"),
@@ -366,6 +366,60 @@ def test_refused_flags_name_their_roadmap_item(tmp_path, case):
     argv = ["--input-data", str(tmp_path / "absent.avro"), "--output-dir", str(tmp_path / "o"), *flags]
     with pytest.raises(PlanError, match=f"ROADMAP {item}"):
         train.run(argv + ["--device", "cpu"])
+
+
+# the incremental-training flags that were refused until the retrain path
+# was ported: each now runs, on the CPU, through cli.train, warm-started from
+# a model the JAX package trained, and matches the JAX package's run
+INCREMENTAL_FLAGS = {
+    "model-input-dir": [],
+    "incremental-training": ["--incremental-training"],
+    "partial-retrain-locked": ["--partial-retrain-locked", "global"],
+}
+
+
+@pytest.fixture(scope="module")
+def prior_model_dir(avro_paths, tmp_path_factory):
+    train_p, val_p = avro_paths
+    out = str(tmp_path_factory.mktemp("prior") / "out")
+    ref_train.run(_train_args(train_p, val_p, out))
+    return os.path.join(out, "models", "best")
+
+
+@pytest.mark.parametrize("case", sorted(INCREMENTAL_FLAGS))
+def test_incremental_flags_match_the_reference(avro_paths, prior_model_dir, tmp_path, caplog, case):
+    import logging
+
+    train_p, val_p = avro_paths
+    flags = ["--model-input-dir", prior_model_dir, *INCREMENTAL_FLAGS[case]]
+    port_out, ref_out = str(tmp_path / "port"), str(tmp_path / "ref")
+    with caplog.at_level(logging.INFO, logger="photon_ml_tpu_torch"):
+        got = train.run(_train_args(train_p, val_p, port_out, [*flags, "--metrics-out", str(tmp_path / "pm"),
+                                                               "--device", "cpu", "--log-level", "INFO"]))
+    ref = ref_train.run(_train_args(train_p, val_p, ref_out, [*flags, "--metrics-out", str(tmp_path / "rm")]))
+    assert abs(got["best"]["metrics"]["AUC"] - ref["best"]["metrics"]["AUC"]) <= 1e-4
+    ours, theirs = _accepted_losses(str(tmp_path / "pm")), _accepted_losses(str(tmp_path / "rm"))
+    locked = case == "partial-retrain-locked"
+    assert set(ours) == set(theirs) == ({"per-user"} if locked else {"global", "per-user"})
+    for name in ours:
+        assert ours[name] == pytest.approx(theirs[name], rel=1e-5)
+    assert "model_input" in got["stage_seconds"]
+    logged = [r.getMessage() for r in caplog.records if "prior feature-index compatibility" in r.getMessage()]
+    if case == "incremental-training":
+        assert logged == ["incremental prior feature-index compatibility: globalShard=exact, userShard=exact"]
+    else:
+        assert not logged
+    if locked:
+        # the locked fixed effect is saved as it was loaded
+        _, maps = read_avro_dataset(train_p, _shards(FeatureShardConfig), id_tag_columns=["userId"])
+        prior = load_game_model(prior_model_dir, maps, task="logistic_regression", device="cpu")
+        best = load_game_model(os.path.join(port_out, "models", "best"), maps, task="logistic_regression",
+                               device="cpu")
+        assert torch.equal(best["global"].model.coefficients.means, prior["global"].model.coefficients.means)
+    if case == "incremental-training":
+        with pytest.raises(SystemExit, match="--incremental-training requires --model-input-dir"):
+            train.run(_train_args(train_p, val_p, str(tmp_path / "none"), ["--incremental-training", "--device",
+                                                                            "cpu"]))
 
 
 TUNING_CONFIG = json.dumps({"tuning_mode": "RANDOM", "variables": {
@@ -417,10 +471,19 @@ def test_planner_refusals_and_helpers():
     assert plan.coordinates[0].geometry == {"dim": 5000, "batch_layout": "ell"}
     assert plan_fingerprint(plan) == ref_plan_fingerprint(ref_resolve([ref_parse_coordinate(FE_SPEC)]))
     for kwargs, item in (({"mesh": {"data": 2}}, "A10"), ({"n_processes": 2}, "A10"),
-                         ({"pipeline_depth": 2}, "A7"),
-                         ({"partial_retrain_locked": ("global",)}, "A8b"), ({"distributed": True}, "A10")):
+                         ({"pipeline_depth": 2}, "A7"), ({"distributed": True}, "A10")):
         with pytest.raises(PlanError, match=f"ROADMAP {item}"):
             resolve([cc], **kwargs)
+    # locked coordinates and regularize-by-prior resolve as in the JAX package
+    locked = [parse_coordinate(FE_SPEC), parse_coordinate(RE_SPEC)]
+    ref_locked = [ref_parse_coordinate(FE_SPEC), ref_parse_coordinate(RE_SPEC)]
+    for c in locked + ref_locked:
+        c.regularize_by_prior = True
+    ours = resolve(locked, partial_retrain_locked=("global",))
+    theirs = ref_resolve(ref_locked, partial_retrain_locked=("global",))
+    assert [(c.name, c.kind, c.layout, c.residency) for c in ours.coordinates] == [
+        (c.name, c.kind, c.layout, c.residency) for c in theirs.coordinates]
+    assert plan_fingerprint(ours) == ref_plan_fingerprint(theirs)
     # trial lanes are ported: the plan carries them as the JAX package's does
     assert resolve([cc], trial_lanes=2).trial_lanes == ref_resolve([ref_parse_coordinate(FE_SPEC)], trial_lanes=2).trial_lanes == 2
     for args in ((True, 1, ()), (False, 4, ()), (False, 1, ("global",))):

@@ -531,8 +531,12 @@ def test_unported_glmix_paths_raise():
     model, res = dataclasses.replace(fe, config=dataclasses.replace(fe.config, down_sampling_rate=0.5)).train(None)
     assert bool(torch.isfinite(res.loss)) and res.reason != 0
     model, _ = re_.train(None, None)
-    with pytest.raises(NotImplementedError, match="A8b"):
-        dataclasses.replace(re_, prior_model=model).train(None)
+    # the prior-model solve runs (tests/test_torch_incremental.py holds it
+    # against the JAX package): a strong prior weight pins it at the prior
+    pinned = dataclasses.replace(re_.config, reg_weight=1e6)
+    again, res = dataclasses.replace(re_, config=pinned, prior_model=model).train(None)
+    assert bool(torch.isfinite(res.loss).all()) and bool((res.reason != 0).all())
+    assert float((again.coef_values - model.coef_values).abs().max()) < 1e-3
     tron = dataclasses.replace(
         re_.config, optimizer=dataclasses.replace(re_.config.optimizer, optimizer_type="TRON")
     )

@@ -49,6 +49,8 @@ import photon_ml_tpu_torch.plan, photon_ml_tpu_torch.plan.planner, photon_ml_tpu
 import photon_ml_tpu_torch.serving.engine, photon_ml_tpu_torch.estimators.game_estimator
 import photon_ml_tpu_torch.game.lanes, photon_ml_tpu_torch.tuning, photon_ml_tpu_torch.tuning.tuner
 import photon_ml_tpu_torch.tuning.search, photon_ml_tpu_torch.tuning.shrink, photon_ml_tpu_torch.tuning.serialization
+import photon_ml_tpu_torch.game.incremental, photon_ml_tpu_torch.cli.retrain
+import photon_ml_tpu_torch.serving.store, photon_ml_tpu_torch.serving.refresh
 sys.path.insert(0, "tests")
 import test_torch_parallel_ranks
 bad = sorted(
