@@ -252,11 +252,37 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    PHOTON_FAULTS=retrain.publish:io:2,retrain.day:kill:3: CURRENT stays day
    1's, then the resumed run repairs the publish and ends with (a)'s ledger
    bit for bit and day 3 live.
+15. resident serving (bench.py _serving_workload's configuration made in
+   the port from --seed: d_fixed 1,024, 20,000 users with d_re 32 and
+   support 8, 4,096 requests of 16 + 4 nonzeros, 20% from unseen users),
+   published into a serving root: (a) ModelStore -> ScoreEngine.from_store
+   on the card -> warm(); at rungs 1, 8, 64, 256 and 4,096 every score
+   against the plain route and a float64 numpy oracle (max-abs error <=
+   3e-5 * max(|ref|, 1)), cold starts equal to the unseen requests, one S1
+   launch a batch; the resident path against the batch path at the rung's
+   width (bitwise) and padded to width 64; per rung a batch's ms split into
+   host assembly, upload + device (CUDA events) and fetch, and S1 alone
+   beside its plain version, cuSPARSE's SpMV and its bound; the
+   one-request-at-a-time rate; (b) bench_serving's protocol through
+   ScoringServer: 8 closed-loop clients for 3 s, max_batch 256,
+   max_latency 2 ms (scores/s, p50 and p99 from the server's latency
+   histogram, mean batch), with (c) a second snapshot (fixed effect
+   shifted) published and flipped mid-stream: nothing lost or failed, every
+   response before the flip v1's and after it v2's; (b') a diagnostic: the
+   clients against a batcher that takes what is queued once the first
+   request's budget is spent (not the port's policy); (d) the open-loop knee
+   (a capacity probe, then Poisson arrivals at 0.5, 1 and 1.5 times it for
+   1 s each, 100 ms budgets; counted sheds equal to observed); S1's
+   launches counted from 0 over (b)-(d); (e) two `python -m
+   photon_ml_tpu_torch.cli.serve --listen --status-port` replicas:
+   /healthz 200, /metrics with the request counter, then open-loop load
+   through a LeastLoadedFront over both with replica 0 killed mid-stream:
+   every request answered or shed with a type.
 
     python3 chip_smoke.py --only timing    # card, build, then one phase
 
-runs a subset of phases 3-14 (check, fe, glmix, dp, nccl, solvers, io, game, tuning, s2, sparse,
-timing, variants, retrain) and then reports not ok; "s2" is phase 13 (a) alone; "solvers", "io", "game" and "tuning" run phase 5 first ("game" and
+runs a subset of phases 3-15 (check, fe, glmix, dp, nccl, solvers, io, game, tuning, s2, sparse,
+timing, variants, retrain, serving) and then reports not ok; "s2" is phase 13 (a) alone; "solvers", "io", "game" and "tuning" run phase 5 first ("game" and
 "tuning" write phase 12's fixture first); "retrain" writes phase 12's
 fixture and runs phase 14; "nccl" is phase 6 (c) alone after
 phase 5 (for a machine with several cards: one NCCL rank per card).
@@ -2730,13 +2756,14 @@ def solvers_phase(torch, state, seed, smi):
     return out
 
 
-def sparse_entries(sp, times, game=None, retrain=None):
+def sparse_entries(sp, times, game=None, retrain=None, served=None):
     """The segment kernel's lines of the kernels JSON, one per product:
     ``launches`` over the main paths that run it (the sparse phase's (b)
     kernel solves and (c) timed sweeps, phase 12's driver run (b) and
-    cli.score (d), phase 14's chain (a), each counted from 0),
-    ``max_abs_err`` from (a) at the sparse shape in f32, times from phase
-    7."""
+    cli.score (d), phase 14's chain (a), phase 15's serving path (b)-(d),
+    each counted from 0), ``max_abs_err`` from (a) at the sparse shape in
+    f32, times from phase 7; S1's line adds its times at phase 15's
+    serving rungs."""
     sp = sp or {}
     path = (sp.get("path") or {}).get("launches", {})
     glmix = (sp.get("glmix") or {}).get("launches", {})
@@ -2748,10 +2775,14 @@ def sparse_entries(sp, times, game=None, retrain=None):
         driver = (game.get("train") or {}).get("s1_launches", 0) if name == "ell_matvec" else 0
         scorer = (game.get("score") or {}).get("s1_launches", 0) if name == "ell_matvec" else 0
         chain = [d.get(name, 0) for d in chain_days]
+        serve = ((served or {}).get("launches") or {}).get(name, 0)
         entries.append({
             "name": f"segment_dot:{name}", "route": "cuda", "source": "photon_ml_tpu_torch/csrc/sparse_glm.cu",
             "replaces": SPARSE_REPLACES[name.split("_", 1)[1]],
-            "launches": path.get(name, 0) + glmix.get(name, 0) + driver + scorer + sum(chain),
+            "launches": path.get(name, 0) + glmix.get(name, 0) + driver + scorer + sum(chain) + serve,
+            "launches_serving": serve,
+            "serving_rungs": {n: r["s1"] for n, r in (((served or {}).get("engine") or {}).get("rungs") or {}).items()}
+            if name == "ell_matvec" else None,
             "launches_sparse_solves": path.get(name, 0), "launches_sparse_glmix": glmix.get(name, 0),
             "launches_game_driver": driver, "launches_game_score": scorer, "launches_retrain_chain_per_day": chain,
             "max_abs_err": (sp.get("errors") or {}).get(name),
@@ -4781,6 +4812,516 @@ def retrain_phase(torch, fixture, seed, smi):
     return out
 
 
+SERVING_D = 1_024  # bench.py _serving_workload: the fixed effect's width
+SERVING_USERS = 20_000
+SERVING_D_RE = 32
+SERVING_SUPPORT = 8  # each user's coefficients
+SERVING_UNSEEN = 0.2  # share of requests from users the model has not seen
+SERVING_REQUESTS = 4_096
+SERVING_NNZ = (16, 4)  # nonzeros a request: fixed effect, random effect
+SERVING_RUNGS = (1, 8, 64, 256, 4_096)  # (a)'s batch sizes, each a rung of the engine's ladder
+SERVING_CLIENTS = 8  # bench_serving's closed-loop clients
+SERVING_SECONDS = 3.0
+SERVING_MAX_BATCH = 256
+SERVING_MAX_LATENCY_MS = 2.0
+SERVING_KNEE = (0.5, 1.0, 1.5)  # (d)'s offered rates, as shares of the probed capacity
+SERVING_KNEE_SECONDS = 1.0
+SERVING_DEADLINE_MS = 100.0  # bench_serving_openloop's budget
+SERVING_FRONT_QPS = 300.0  # (e)'s offered load through the front, under one replica's capacity
+SERVING_SHIFT = 0.5  # (c): the second snapshot's fixed effect, shifted
+S1_BOUND = 3e-5  # S1's bound: max-abs error <= 3e-5 * max(|ref|, 1)
+
+
+def serving_workload(seed, fe_shift=0.0):
+    """bench.py _serving_workload's model and requests, made in the port
+    from ``seed`` with numpy: the model as ``convert``'s dict (float32
+    tables, as the card serves them) and the requests, with the number of
+    unseen users among them."""
+    from photon_ml_tpu_torch.serving import ScoreRequest
+
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal(SERVING_D) / np.sqrt(SERVING_D)
+    idx = np.sort(rng.integers(0, SERVING_D_RE, size=(SERVING_USERS, SERVING_SUPPORT), dtype=np.int32), axis=1)
+    val = rng.standard_normal((SERVING_USERS, SERVING_SUPPORT)) * 0.3
+    parts = {"task": "logistic_regression", "models": {
+        "global": {"kind": "fixed", "feature_shard": "globalShard", "task": "logistic_regression",
+                   "means": (w + fe_shift).astype(np.float32), "variances": None},
+        "per-user": {"kind": "random", "random_effect_type": "userId", "feature_shard": "userShard",
+                     "task": "logistic_regression",
+                     "entity_ids": np.asarray([f"u{i}" for i in range(SERVING_USERS)], dtype=object),
+                     "coef_indices": idx, "coef_values": val.astype(np.float32), "variances": None},
+    }}
+    requests, unseen = [], []
+    nnz_fe, nnz_re = SERVING_NNZ
+    for i in range(SERVING_REQUESTS):
+        cold = rng.uniform() < SERVING_UNSEEN
+        uid = f"cold{i}" if cold else f"u{rng.integers(0, SERVING_USERS)}"
+        unseen.append(cold)
+        requests.append(ScoreRequest(
+            features={
+                "globalShard": (tuple(rng.integers(0, SERVING_D, size=nnz_fe).tolist()),
+                                tuple(rng.standard_normal(nnz_fe).tolist())),
+                "userShard": (tuple(rng.integers(0, SERVING_D_RE, size=nnz_re).tolist()),
+                              tuple(rng.standard_normal(nnz_re).tolist())),
+            },
+            ids={"userId": uid},
+        ))
+    return parts, requests, np.asarray(unseen)
+
+
+def serving_oracle(parts, requests):
+    """Each request's score in float64 numpy from the served inputs (the
+    float32 tables, the feature values rounded to float32): the fixed
+    effect's dot, and the random effect's through the first support entry
+    of each feature (the searchsorted of ``score_entity_ell``), 0 unseen."""
+    fe, re = parts["models"]["global"], parts["models"]["per-user"]
+    w = fe["means"].astype(np.float64)
+    rows = {e: i for i, e in enumerate(re["entity_ids"])}
+    out = np.zeros(len(requests))
+    for k, r in enumerate(requests):
+        gi, gv = r.features["globalShard"]
+        out[k] = float(np.dot(w[np.asarray(gi)], np.asarray(gv, np.float32).astype(np.float64)))
+        e = rows.get(r.ids["userId"])
+        if e is None:
+            continue
+        sup, coef = re["coef_indices"][e], re["coef_values"][e].astype(np.float64)
+        for f, v in zip(*r.features["userShard"]):
+            p = int(np.searchsorted(sup, f))
+            if p < sup.size and sup[p] == f:
+                out[k] += float(coef[p]) * float(np.float32(v))
+    return out + np.asarray([r.offset for r in requests])
+
+
+def hold_s1(problems, what, got, ref):
+    """``got`` against ``ref`` at S1's bound; returns the worst error."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    err = float(np.max(np.abs(got - ref))) if got.size else 0.0
+    ok = bool(np.all(np.abs(got - ref) <= S1_BOUND * np.maximum(np.abs(ref), 1.0)))
+    if not ok:
+        problems.append(f"{what}: max abs error {err:.3e} past S1's bound")
+    return err
+
+
+def _counter(run, name):
+    return sum(m["value"] for m in run.registry.snapshot() if m["name"] == name and m["kind"] == "counter")
+
+
+def serving_split(torch, engine, reqs, reps=20):
+    """One request batch's milliseconds by stage, each the mean of ``reps``,
+    through the engine's own halves of ``score_requests``: host assembly
+    (``assemble``: the padding loop and the entity lookups), the upload and
+    the launches (``device_margins``, between CUDA events), and the fetch
+    and float64 sum (``fetch_scores``, host clock, after the launches
+    finished)."""
+    from photon_ml_tpu_torch import obs
+
+    with obs.use_run(obs.RunTelemetry()):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            offsets, shard_ell, entity_rows = engine.assemble(reqs, count_cold=False)
+        host_ms = (time.perf_counter() - t0) / reps * 1e3
+        device_ms = fetch_ms = 0.0
+        for _ in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            margins = engine.device_margins(shard_ell, entity_rows)
+            end.record()
+            end.synchronize()
+            device_ms += start.elapsed_time(end) / reps
+            t1 = time.perf_counter()
+            engine.fetch_scores(offsets, margins)
+            fetch_ms += (time.perf_counter() - t1) * 1e3 / reps
+    return {"host_ms": host_ms, "device_ms": device_ms, "fetch_ms": fetch_ms}
+
+
+def s1_at_rung(torch, engine, reqs):
+    """S1 alone at a rung's fixed-effect rows: ms per launch (CUDA events
+    over back-to-back calls, and replayed from a CUDA graph: the device's
+    own time), its plain version's, cuSPARSE's CSR SpMV on the same rows
+    (back to back and from a graph, like S1), and the bound from the bytes these rows need (the distinct gathered weights
+    counted) or their operations."""
+    from photon_ml_tpu_torch.ops.sparse import segment_dot, segment_dot_plain
+    from photon_ml_tpu_torch.serving.engine import EllRows, _FixedCoord
+
+    _, shard_ell, _ = engine.assemble(reqs, count_cold=False)
+    fe = next(c for c in engine._coords if isinstance(c, _FixedCoord))
+    idx, val = shard_ell[fe.feature_shard]
+    ell = EllRows(idx, val, torch.float32, engine.device)
+    seg, n, w = ell.segments, ell.n_rows, fe.weights
+    reps = 200
+    ms = time_ms(torch, lambda: segment_dot("ell_matvec", seg, n, w), reps)
+    graph = graph_ms(torch, lambda: segment_dot("ell_matvec", seg, n, w), reps)
+    plain_ms = time_ms(torch, lambda: segment_dot_plain(seg, n, w), 50)
+    width = idx.shape[1]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # sparse CSR's beta and invariant-check notices
+        csr = torch.sparse_csr_tensor(
+            torch.arange(0, n * width + 1, width, device=w.device), ell.idx.reshape(-1).long(), ell.val.reshape(-1),
+            size=(n, w.shape[0]),
+        )
+    library_ms = time_ms(torch, lambda: csr @ w, reps)
+    library_graph_ms = graph_ms(torch, lambda: csr @ w, reps)
+    bytes_ms = segment_bytes(seg, n, w.shape[0])["function"] / HBM_BYTES_PER_S * 1e3
+    ops_ms = segment_flops(seg) / PEAK_OPS["float32"] * 1e3
+    return {"rows": n, "width": width, "ms": ms, "graph_ms": graph, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_graph_ms": library_graph_ms, "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def serving_engine_checks(torch, store, parts, requests, unseen, problems, smi):
+    """(a) ModelStore -> ScoreEngine.from_store on the card -> warm(); at
+    each rung every score against the plain route and the float64 oracle
+    at S1's bound, the cold starts against the unseen requests, one S1
+    launch a batch; the resident path against the batch path at the
+    rung's width and a wider one; the stage split and S1 alone per rung;
+    the one-request-at-a-time rate."""
+    from photon_ml_tpu_torch import obs
+    from photon_ml_tpu_torch.ops import sparse
+    from photon_ml_tpu_torch.serving import ScoreEngine
+
+    engine = ScoreEngine.from_store(store)
+    t0 = time.perf_counter()
+    engine.warm()
+    warm_s = time.perf_counter() - t0
+    plain = ScoreEngine.from_store(store, plain=True)
+    oracle = serving_oracle(parts, requests)
+    rungs = {}
+    for n in SERVING_RUNGS:
+        reqs = requests[:n]
+        run = obs.RunTelemetry()
+        sparse.reset_launch_counts()
+        with obs.use_run(run):
+            got = engine.score_requests(reqs)
+        s1 = sparse.SPARSE_LAUNCHES["ell_matvec"]
+        cold = int(_counter(run, "photon_serving_cold_start_total"))
+        with obs.use_run(obs.RunTelemetry()):
+            ref = plain.score_requests(reqs)
+        e_plain = hold_s1(problems, f"rung {n} vs the plain route", got, ref)
+        e_oracle = hold_s1(problems, f"rung {n} vs the float64 oracle", got, oracle[:n])
+        if cold != int(unseen[:n].sum()):
+            problems.append(f"rung {n}: {cold} cold starts counted, {int(unseen[:n].sum())} unseen requests")
+        if s1 != 1:
+            problems.append(f"rung {n}: {s1} S1 launches for one batch")
+        rungs[n] = {"max_abs_err_plain": e_plain, "max_abs_err_oracle": e_oracle, "cold": cold, "s1_launches": s1,
+                    **serving_split(torch, engine, reqs), "s1": s1_at_rung(torch, engine, reqs)}
+        r = rungs[n]
+        log(f"  (a) rung {n}: vs plain {e_plain:.3e}, vs oracle {e_oracle:.3e} (bound {S1_BOUND:g} * max(|ref|, 1)); "
+            f"cold starts {cold} of {int(unseen[:n].sum())} unseen; S1 launches {s1}; batch ms: host assembly "
+            f"{r['host_ms']:.4f}, upload + device {r['device_ms']:.4f}, fetch {r['fetch_ms']:.4f}; S1 alone "
+            f"{r['s1']['ms']:.5f} ms/launch (graph {r['s1']['graph_ms']:.5f}; {r['s1']['rows']} x {r['s1']['width']}), "
+            f"plain {r['s1']['plain_ms']:.5f}, "
+            f"cuSPARSE {r['s1']['library_ms']:.5f} (graph {r['s1']['library_graph_ms']:.5f}), "
+            f"bound {r['s1']['bound_ms']:.3e} ({r['s1']['bound_by']})")
+    # resident against batch: the same rows through score_ell at the rung's
+    # width (16: one row group of 4 lanes) and padded to 64 (16 lanes)
+    reqs = requests[:SERVING_RUNGS[-1]]
+    with obs.use_run(obs.RunTelemetry()):
+        resident = engine.score_requests(reqs)
+        offsets, shard_ell, entity_rows = engine.assemble(reqs, count_cold=False)
+        same = engine.score_ell(offsets, shard_ell, entity_rows)[: len(reqs)]
+        idx, val = shard_ell["globalShard"]
+        wide = dict(shard_ell, globalShard=(np.pad(idx, ((0, 0), (0, 48))), np.pad(val, ((0, 0), (0, 48)))))
+        wider = engine.score_ell(offsets, wide, entity_rows)[: len(reqs)]
+    parity = {"same_width_bitwise": bool(np.array_equal(resident, same)),
+              "wider_bitwise_rows": int(np.sum(resident == wider)),
+              "wider_max_abs_diff": hold_s1(problems, "resident vs batch at width 64", resident, wider)}
+    if not parity["same_width_bitwise"]:
+        problems.append("resident vs batch at the rung's width: not bitwise")
+    log(f"  (a) resident vs batch: same width bitwise {parity['same_width_bitwise']}; padded to width 64: "
+        f"{parity['wider_bitwise_rows']} of {len(reqs)} rows bitwise, max abs diff {parity['wider_max_abs_diff']:.3e}")
+    t0 = time.perf_counter()
+    n_seq = 0
+    with obs.use_run(obs.RunTelemetry()):
+        while time.perf_counter() - t0 < 1.0:
+            engine.score_requests([requests[n_seq % len(requests)]])
+            n_seq += 1
+    seq_rate = n_seq / (time.perf_counter() - t0)
+    log(f"  (a) warm() {warm_s:.3f} s; one request at a time: {seq_rate:.1f} scores/s on {smi}")
+    return engine, {"warm_s": warm_s, "rungs": rungs, "parity": parity, "one_request_per_s": seq_rate}
+
+
+def _histogram(run, name):
+    for m in run.registry.snapshot():
+        if m["name"] == name and m["kind"] == "histogram":
+            return m
+    return None
+
+
+def serving_closed_loop(torch, root, parts2, requests, v1, v2, problems, smi):
+    """(b) bench_serving's protocol through ScoringServer over a serving
+    root on the card, with (c) a second snapshot published and flipped
+    while the clients run: scores/s, p50 and p99 from the server's own
+    latency histogram, the mean batch; no request lost or failed, every
+    response before the flip v1's and every one after it v2's."""
+    import threading
+
+    from photon_ml_tpu_torch import convert, obs, serving
+
+    run = obs.RunTelemetry()
+    with obs.use_run(run):
+        server = serving.ScoringServer(serving_root=root, max_batch=SERVING_MAX_BATCH,
+                                       max_latency_ms=SERVING_MAX_LATENCY_MS, poll_seconds=3600.0)
+        try:
+            server.submit(requests[0]).result(timeout=60.0)
+            results = [[] for _ in range(SERVING_CLIENTS)]
+            failures = []
+            flip = {}
+            stop_at = time.perf_counter() + SERVING_SECONDS
+
+            def client(k):
+                i = k
+                while time.perf_counter() < stop_at:
+                    t_sub = time.perf_counter()
+                    try:
+                        s = server.submit(requests[i % len(requests)]).result(timeout=60.0)
+                    except Exception as exc:  # counted: a lost or failed request fails the phase
+                        failures.append(repr(exc))
+                    else:
+                        results[k].append((i % len(requests), s, t_sub, time.perf_counter()))
+                    i += SERVING_CLIENTS
+
+            def flipper():
+                time.sleep(SERVING_SECONDS / 2)
+                flip["t0"] = time.perf_counter()
+                serving.publish_snapshot(root, "v2", game_model=convert.game_model_from_numpy(parts2, device="cpu"))
+                server.poke_refresh()
+                flip["t1"] = time.perf_counter()
+
+            threads = [threading.Thread(target=client, args=(k,)) for k in range(SERVING_CLIENTS)]
+            threads.append(threading.Thread(target=flipper))
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            wall = time.perf_counter() - t0
+            snapshot = server.snapshot_name
+            queue_at_end = server.queue_stats()
+        finally:
+            server.close()
+    done = [x for r in results for x in r]
+    lat = _histogram(run, "photon_serving_request_latency_seconds")
+    batch = _histogram(run, "photon_serving_batch_size")
+    p50 = obs.histogram_quantile(lat["buckets"], lat["count"], 0.5)
+    p99 = obs.histogram_quantile(lat["buckets"], lat["count"], 0.99)
+    before = [(i, s) for i, s, ts, td in done if td < flip["t0"]]
+    after = [(i, s) for i, s, ts, td in done if ts > flip["t1"]]
+    e1 = hold_s1(problems, "(c) responses before the flip vs v1", [s for _, s in before], [v1[i] for i, _ in before])
+    e2 = hold_s1(problems, "(c) responses after the flip vs v2", [s for _, s in after], [v2[i] for i, _ in after])
+    if failures or snapshot != "v2" or not after or not before:
+        problems.append(f"(b)/(c): {len(failures)} failed ({failures[:3]}), live snapshot {snapshot}, "
+                        f"{len(before)} before and {len(after)} after the flip")
+    out = {"scores_per_s": len(done) / wall, "requests": len(done), "wall_s": wall, "p50_s": p50, "p99_s": p99,
+           "mean_batch": batch["sum"] / max(batch["count"], 1), "failed": len(failures),
+           "flip_s": flip["t1"] - flip["t0"], "before": len(before), "after": len(after),
+           "in_flight_at_flip": len(done) - len(before) - len(after), "err_v1": e1, "err_v2": e2,
+           "cold": int(_counter(run, "photon_serving_cold_start_total")),
+           "ewma_service_s": queue_at_end["ewma_service_seconds"]}
+    log(f"  (b) {SERVING_CLIENTS} closed-loop clients for {wall:.2f} s: {out['scores_per_s']:.1f} scores/s "
+        f"({len(done)} requests, {out['cold']} cold starts), p50 {p50 * 1e3:.3f} ms, p99 {p99 * 1e3:.3f} ms, mean "
+        f"batch {out['mean_batch']:.2f} (max_batch {SERVING_MAX_BATCH}, max_latency {SERVING_MAX_LATENCY_MS} ms), "
+        f"service EWMA {out['ewma_service_s'] * 1e3:.3f} ms a request on {smi}")
+    log(f"  (c) live flip to v2 in {out['flip_s']:.3f} s mid-stream: {len(failures)} failed or lost; {len(before)} "
+        f"responses before it (vs v1 {e1:.3e}), {len(after)} after it (vs v2 {e2:.3e}), "
+        f"{out['in_flight_at_flip']} in flight across it")
+    return out
+
+
+def serving_knee(torch, root, requests, problems, smi):
+    """(d) bench.py's open-loop protocol, shortened: a capacity probe, then
+    Poisson arrivals at SERVING_KNEE shares of it for
+    SERVING_KNEE_SECONDS each, every request with a SERVING_DEADLINE_MS
+    budget; the knee, and the sheds the server counted against those the
+    clients saw."""
+    from photon_ml_tpu_torch import obs, serving
+
+    run = obs.RunTelemetry()
+    with obs.use_run(run):
+        server = serving.ScoringServer(serving_root=root, max_batch=SERVING_MAX_BATCH,
+                                       max_latency_ms=SERVING_MAX_LATENCY_MS, poll_seconds=3600.0)
+        try:
+            server.submit(requests[0], deadline_s=60.0).result(timeout=60.0)
+            t0 = time.perf_counter()
+            n = 0
+            for lo in range(0, 4 * SERVING_MAX_BATCH, SERVING_MAX_BATCH):
+                for f in [server.submit(r, deadline_s=60.0) for r in requests[lo: lo + SERVING_MAX_BATCH]]:
+                    f.result(timeout=60.0)
+                n += SERVING_MAX_BATCH
+            capacity = n / (time.perf_counter() - t0)
+            shed0 = _counter(run, "photon_serving_shed_total")
+            steps = [serving.run_open_loop(server.submit, requests, offered_qps=max(frac * capacity, 1.0),
+                                           duration_s=SERVING_KNEE_SECONDS, seed=i,
+                                           deadline_s=SERVING_DEADLINE_MS / 1e3)
+                     for i, frac in enumerate(SERVING_KNEE)]
+            counted = _counter(run, "photon_serving_shed_total") - shed0
+        finally:
+            server.close()
+    seen = sum(s.shed_total for s in steps)
+    lost = sum(s.sent - s.completed - s.shed_total - s.errors for s in steps)
+    knee = serving.find_knee(steps) or steps[0]
+    if counted != seen or lost or any(s.errors for s in steps):
+        problems.append(f"(d): counted sheds {counted}, observed {seen}, lost {lost}, "
+                        f"errors {[s.errors for s in steps]}")
+    log(f"  (d) capacity probe {capacity:.1f} scores/s; " + "; ".join(
+        f"offered {s.offered_qps:.0f}/s: served {s.served_qps:.1f}/s, shed {s.shed_total}, p99 "
+        f"{s.latency_p99_s * 1e3:.3f} ms" for s in steps)
+        + f"; knee {knee.offered_qps:.0f} qps (p99 {knee.latency_p99_s * 1e3:.3f} ms); sheds counted {int(counted)}, "
+          f"observed {seen} on {smi}")
+    return {"capacity_per_s": capacity, "knee_qps": knee.offered_qps, "knee_p99_s": knee.latency_p99_s,
+            "steps": [dataclasses.asdict(s) for s in steps], "sheds_counted": counted, "sheds_seen": seen}
+
+
+def _wait_for_line(path, needle, proc, timeout_s=180.0):
+    import os
+
+    deadline = time.perf_counter() + timeout_s
+    while time.perf_counter() < deadline:
+        if proc.poll() is not None:
+            raise RuntimeError(f"a cli.serve replica exited with {proc.returncode} before '{needle}'")
+        if os.path.exists(path):
+            for line in open(path):
+                if needle in line:
+                    return line
+        time.sleep(0.05)
+    raise RuntimeError(f"no '{needle}' in {path} after {timeout_s:.0f} s")
+
+
+def serving_replicas(torch, root, requests, v2, problems, smi):
+    """(e) Two ``python -m photon_ml_tpu_torch.cli.serve`` replicas on the
+    card over (c)'s serving root, with --listen and --status-port: /healthz
+    200 and /metrics with the request counter; then open-loop load through
+    a LeastLoadedFront over both, replica 0 killed mid-stream: every
+    request answered (against v2 at S1's bound) or shed with a type."""
+    import json as _json
+    import os
+    import re as _re
+    import signal
+    import socket
+    import subprocess
+    import tempfile
+    import threading
+    import urllib.request
+
+    from photon_ml_tpu_torch import obs, serving
+
+    repo = str(pathlib.Path(__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=repo)
+    procs, addrs, healthz = [], [], []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_replicas_") as tmp:
+        try:
+            t0 = time.perf_counter()
+            logs = [os.path.join(tmp, f"replica-{k}.log") for k in range(2)]
+            for k in range(2):
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "photon_ml_tpu_torch.cli.serve", "--serving-root", root, "--listen",
+                     "127.0.0.1:0", "--status-port", "0", "--replica-id", str(k), "--poll-seconds", "3600",
+                     "--max-latency-ms", str(SERVING_MAX_LATENCY_MS), "--log-file", logs[k]],
+                    cwd=repo, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+                ))
+            for k in range(2):
+                bound = _wait_for_line(logs[k], "socket front bound", procs[k])
+                status = _wait_for_line(logs[k], "introspection endpoints", procs[k])
+                addrs.append("127.0.0.1:" + _re.search(r"(\d+)\)\s*$", bound.strip()).group(1))
+                healthz.append("127.0.0.1:" + _re.search(r"127\.0\.0\.1:(\d+)/", status).group(1))
+            start_s = time.perf_counter() - t0
+            for k in range(2):
+                host, port = addrs[k].split(":")
+                with socket.create_connection((host, int(port))) as c, c.makefile("rwb") as f:
+                    r = requests[k]
+                    doc = {"features": {s: [list(i), list(v)] for s, (i, v) in r.features.items()}, "ids": r.ids}
+                    f.write((_json.dumps(doc) + "\n").encode())
+                    f.flush()
+                    got = _json.loads(f.readline())
+                hold_s1(problems, f"(e) replica {k}'s response vs v2", [got.get("score", np.nan)], [v2[k]])
+                with urllib.request.urlopen(f"http://{healthz[k]}/healthz", timeout=10) as h:
+                    if h.status != 200:
+                        problems.append(f"(e) replica {k}: /healthz {h.status}")
+                with urllib.request.urlopen(f"http://{healthz[k]}/metrics", timeout=10) as m:
+                    if b"photon_serving_requests_total" not in m.read():
+                        problems.append(f"(e) replica {k}: no photon_serving_requests_total on /metrics")
+            run = obs.RunTelemetry()
+            with obs.use_run(run):
+                front = serving.LeastLoadedFront(addrs, healthz=healthz, connections_per_replica=4,
+                                                  health_poll_seconds=0.1)
+                try:
+                    holder = {}
+                    drive = threading.Thread(target=lambda: holder.update(r=serving.run_open_loop(
+                        front.submit, requests, offered_qps=SERVING_FRONT_QPS, duration_s=SERVING_SECONDS, seed=7)))
+                    drive.start()
+                    time.sleep(SERVING_SECONDS / 3)
+                    procs[0].kill()  # replica 0 dies mid-stream
+                    drive.join()
+                    res = holder["r"]
+                    routed = {a: int(sum(m["value"] for m in run.registry.snapshot()
+                                         if m["name"] == "photon_serving_route_total"
+                                         and m["labels"].get("replica", "").split("#")[0] == a)) for a in addrs}
+                    resubmits = int(_counter(run, "photon_serving_failover_resubmits_total"))
+                    check = [requests[i] for i in range(8)]
+                    scores = [front.score(r) for r in check]
+                finally:
+                    front.close()
+            hold_s1(problems, "(e) scores through the front after the kill vs v2", scores, v2[:8])
+            procs[1].send_signal(signal.SIGTERM)
+            rc1 = procs[1].wait(timeout=60)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    lost = res.sent - res.completed - res.shed_total - res.errors
+    if lost or res.errors or not res.completed or rc1 != 0 or not all(routed.values()):
+        problems.append(f"(e): sent {res.sent}, completed {res.completed}, shed {res.shed_total}, errors "
+                        f"{res.errors}, lost {lost}, routed {routed}, replica 1 exit {rc1}")
+    log(f"  (e) two cli.serve replicas up in {start_s:.1f} s; through the front at {SERVING_FRONT_QPS:.0f}/s offered "
+        f"for {SERVING_SECONDS:.0f} s with replica 0 killed at {SERVING_SECONDS / 3:.1f} s: sent {res.sent}, "
+        f"answered {res.completed}, shed {res.shed_total} ({res.shed_admission}, expired {res.shed_expired}), errors "
+        f"{res.errors}, lost {lost}; resubmitted {resubmits}; routed {routed}; p99 {res.latency_p99_s * 1e3:.3f} ms; "
+        f"replica 1 stopped with exit {rc1} on {smi}")
+    return {"start_s": start_s, "sent": res.sent, "completed": res.completed, "shed": res.shed_total,
+            "errors": res.errors, "lost": lost, "resubmits": resubmits, "routed": routed,
+            "p99_s": res.latency_p99_s}
+
+
+def serving_phase(torch, seed, smi):
+    """Phase 15: (a) the engine's checks; (b) and (c) the closed-loop
+    protocol with a live flip; (d) the open-loop knee; (e) cli.serve
+    replicas behind the front, one killed. S1's launches counted from 0
+    over (b)-(d), the in-process serving path."""
+    import os
+    import tempfile
+
+    from photon_ml_tpu_torch import convert, serving
+    from photon_ml_tpu_torch.ops import sparse
+
+    problems, out = [], {}
+    t0 = time.perf_counter()
+    parts, requests, unseen = serving_workload(seed)
+    parts2 = serving_workload(seed, fe_shift=SERVING_SHIFT)[0]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serving_") as tmp:
+        root = os.path.join(tmp, "serving")
+        serving.publish_snapshot(root, "v1", game_model=convert.game_model_from_numpy(parts, device="cpu"))
+        out["setup_s"] = time.perf_counter() - t0
+        store = serving.open_current(root)[1]
+        engine, out["engine"] = serving_engine_checks(torch, store, parts, requests, unseen, problems, smi)
+        v1 = engine.score_requests(requests, count_cold=False)
+        v2_store = serving.build_store_from_model(convert.game_model_from_numpy(parts2, device="cpu"),
+                                                  os.path.join(tmp, "v2-reference"))
+        v2 = serving.ScoreEngine.from_store(serving.ModelStore.open(v2_store)).score_requests(
+            requests, count_cold=False)
+        del engine
+        sparse.reset_launch_counts()
+        out["closed_loop"] = serving_closed_loop(torch, root, parts2, requests, v1, v2, problems, smi)
+        out["knee"] = serving_knee(torch, root, requests, problems, smi)
+        out["launches"] = dict(sparse.SPARSE_LAUNCHES)
+        log(f"  S1 launches over (b)-(d): {out['launches']['ell_matvec']} for "
+            f"{int(out['closed_loop']['requests'] + sum(s['sent'] for s in out['knee']['steps']))} requests")
+        if not out["launches"]["ell_matvec"]:
+            problems.append("the serving path launched no S1")
+        out["replicas"] = serving_replicas(torch, root, requests, v2, problems, smi)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=500_000)
@@ -4792,7 +5333,7 @@ def main() -> int:
                     help="an earlier csrc/sparse_glm.cu to time in turns with this one in phase 8 (S1 and S2)")
     ap.add_argument("--only", default="",
                     help="comma-separated subset of check,fe,glmix,dp,nccl,solvers,io,game,tuning,s2,sparse,timing,"
-                         "variants,retrain "
+                         "variants,retrain,serving "
                          "to run after card and build (for iterating on one phase; the result is then not ok)")
     args = ap.parse_args()
     only = set(filter(None, args.only.split(",")))
@@ -4812,7 +5353,7 @@ def main() -> int:
     phases = Phases()
     smi = phases.run("card", card, torch)
     phases.run("build", build)
-    errs = fe_launches = glmix = dp = times = solvers = io = game = tuning = retrain = None
+    errs = fe_launches = glmix = dp = times = solvers = io = game = tuning = retrain = served = None
     if want("check"):
         errs = phases.run("kernels vs float64 plain", check_kernels, torch, args.n, args.d, args.seed)
     if want("fe"):
@@ -4875,6 +5416,9 @@ def main() -> int:
                     retrain = phases.run("retrain chain", retrain_phase, torch, fixture, args.seed, smi)
         state = None
     torch.cuda.empty_cache()
+    if want("serving"):
+        served = phases.run("serving", serving_phase, torch, args.seed, smi)
+        torch.cuda.empty_cache()
     if want("s2") and not want("tuning"):
         tuning = phases.run("S2 (phase 13 (a))", s2_phase, torch, args.seed)
         torch.cuda.empty_cache()
@@ -4956,7 +5500,7 @@ def main() -> int:
             "read_x_ms": t.get("read_x_ms"), "plan": t.get("plan"),
             **{f"bf16_{k}": t16.get(k) for k in ("ms", "prev_ms", "finalize_ms", "read_x_ms", "bound_ms")},
         })
-    kernels += sparse_entries(sp, times, game, retrain)
+    kernels += sparse_entries(sp, times, game, retrain, served)
     kernels += s2_entries(tuning)
     kernels.append(lane_entry(errs, solvers))
     if sp:
@@ -5007,6 +5551,13 @@ def main() -> int:
             + ", ".join(f"{d} {v['day']:.2f}" for d, v in ch["day_seconds"].items())
             + f" s), launches per day {ch['launches']}; the label-flipped day {retrain['degraded']['reason']}; "
               f"killed and resumed {dr['killed_s']:.2f} + {dr['resumed_s']:.2f} s on {smi}")
+    if served:
+        cl, kn, rp = served["closed_loop"], served["knee"], served["replicas"]
+        log(f"serving: {cl['scores_per_s']:.1f} scores/s ({SERVING_CLIENTS} closed-loop clients, p50 "
+            f"{cl['p50_s'] * 1e3:.3f} ms, p99 {cl['p99_s'] * 1e3:.3f} ms, mean batch {cl['mean_batch']:.2f}); one "
+            f"request at a time {served['engine']['one_request_per_s']:.1f} scores/s; live flip with "
+            f"{cl['failed']} failed; knee {kn['knee_qps']:.0f} qps (p99 {kn['knee_p99_s'] * 1e3:.3f} ms); replica "
+            f"kill through the front: {rp['completed']} answered, {rp['shed']} shed, {rp['lost']} lost on {smi}")
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))
     ok = not phases.failed

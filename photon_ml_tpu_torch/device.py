@@ -30,6 +30,16 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def pin_device(device: DeviceLike = None) -> torch.device:
+    """``resolve_device`` with a CUDA device's index filled in from the
+    calling thread's current card, so that work begun later on another
+    thread (a batcher's worker, a refresh watcher) lands on the same card."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def fetch(site: str, tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
     """``tensors`` on the host in their own dtypes and shapes, bit for bit,
     moved in one device-to-host copy (their bytes concatenated where they

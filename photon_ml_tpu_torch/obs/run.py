@@ -7,8 +7,8 @@ record into without threading a handle through every call. The default
 current run is PASSIVE (a registry, no listeners), so instrumented code can
 always record cheap host-known numbers, while anything that needs a device
 fetch gates on ``active()``: with no sink registered the coordinate-descent
-loop makes no fetch for telemetry. The JAX package's ``StatusBoard`` feeds
-its ``/statusz`` endpoint, which the port does not have (ROADMAP A13).
+loop makes no fetch for telemetry. The run's ``StatusBoard`` feeds the
+``/statusz`` endpoint of ``obs/http.py``.
 """
 
 from __future__ import annotations
@@ -22,6 +22,28 @@ import numpy as np
 
 from ..utils.events import Event, EventEmitter
 from .metrics import MetricsRegistry
+
+
+class StatusBoard:
+    """Thread-safe key/value board holding the run's *current position*
+    (the live snapshot, a refresh in flight, the overload threshold, ...)
+    for the ``/statusz`` endpoint.
+
+    Updates are cheap host-only dict writes, so instrumentation sites update
+    it unconditionally (passive runs too), and a scrape thread can snapshot
+    it while the serving threads move on."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._state: Dict[str, object] = {}
+
+    def update(self, **kv) -> None:
+        with self._lock:
+            self._state.update(kv)
+
+    def snapshot(self) -> Dict[str, object]:
+        with self._lock:
+            return dict(self._state)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +62,7 @@ class RunTelemetry(EventEmitter):
     def __init__(self, registry: Optional[MetricsRegistry] = None):
         super().__init__()
         self.registry = registry if registry is not None else MetricsRegistry()
+        self.status = StatusBoard()
 
     def flush_metrics(self) -> List[dict]:
         snap = self.registry.snapshot()
@@ -52,8 +75,9 @@ class RunTelemetry(EventEmitter):
         self.clear_listeners()
 
 
-# guards _current: a reader's worker threads record into it while use_run
-# swaps it on the training thread
+# guards _current: worker threads (a reader's pool, the refresh watcher,
+# batcher workers, HTTP scrape handlers) record into it while use_run swaps
+# it on the driving thread
 _current_lock = threading.Lock()
 _current = RunTelemetry()
 
@@ -154,12 +178,12 @@ def record_solver_metrics(solver: str, result) -> None:
 
 def collect_build_info() -> Dict[str, str]:
     """Build/runtime identity of this process: package version, torch and
-    CUDA versions, the card's name (``none`` without one) and the process
-    index."""
+    CUDA versions, the card's name (``none`` without one), the process index
+    and the serving replica (empty outside a fleet)."""
     import torch
 
     from .. import __version__
-    from .tracing import get_process_index
+    from .tracing import get_process_index, get_replica_id
 
     return {
         "version": str(__version__),
@@ -167,6 +191,7 @@ def collect_build_info() -> Dict[str, str]:
         "cuda": str(torch.version.cuda or "none"),
         "device": torch.cuda.get_device_name(0) if torch.cuda.is_available() else "none",
         "process": str(get_process_index()),
+        "replica": get_replica_id() or "",
     }
 
 
@@ -185,8 +210,10 @@ def record_build_info(registry: Optional[MetricsRegistry] = None) -> Dict[str, s
 def build_run_summary(registry: MetricsRegistry, total_wall_seconds: float) -> dict:
     """The ``run_summary.json`` document: total wall time, per-coordinate
     iteration StatCounters, convergence-reason histograms and rejections,
-    and the full final metrics snapshot. (The JAX package adds memory
-    watermarks from its ``obs/memory.py``, ROADMAP A13.)"""
+    memory watermarks (when the run sampled any) and the full final metrics
+    snapshot."""
+    from .memory import memory_block
+
     snap = registry.snapshot()
     coordinates: dict = {}
     for m in snap:
@@ -201,9 +228,13 @@ def build_run_summary(registry: MetricsRegistry, total_wall_seconds: float) -> d
             ] = int(m["value"])
         elif m["name"] == "photon_coordinate_rejections_total":
             coordinates.setdefault(coord, {})["rejections"] = int(m["value"])
-    return {
+    doc = {
         "total_wall_seconds": float(total_wall_seconds),
         "build": collect_build_info(),
         "coordinates": coordinates,
         "metrics": snap,
     }
+    mem = memory_block(snap)
+    if mem:
+        doc["memory"] = mem
+    return doc

@@ -21,8 +21,7 @@ shallowly (no ``dataclasses.asdict`` recursion, which would deep-copy the
 device tensors inside tracker/solver results) and any non-JSON value renders
 as a ``<TypeName>`` placeholder instead of ``str(value)``.
 
-The JAX package's ``obs/sinks.py`` on the port (without its serving-replica
-identity, which the port does not have).
+The JAX package's ``obs/sinks.py`` on the port.
 """
 
 from __future__ import annotations
@@ -38,7 +37,7 @@ from ..robust.atomic import atomic_write
 from ..utils.events import EventListener
 from .metrics import render_prometheus
 from .run import MetricsSnapshotEvent
-from .tracing import SpanEvent, get_process_index
+from .tracing import SpanEvent, get_process_index, get_replica_id
 
 _HOSTNAME = socket.gethostname()
 
@@ -100,6 +99,9 @@ class JsonlSink(EventListener):
         # multi-process run can be merged and stay attributable; read at
         # write time
         header = {"process_index": get_process_index(), "host": _HOSTNAME}
+        replica = get_replica_id()
+        if replica is not None:
+            header["replica"] = replica
         if isinstance(event, SpanEvent):
             s = event.span
             return {

@@ -30,13 +30,35 @@ from . import run as _run
 _ctx: contextvars.ContextVar = contextvars.ContextVar("photon_torch_obs_span", default=None)
 _ids = itertools.count(1)
 
-# Lane identity for multi-process timelines: the port runs one process
-# (multi-process runs are ROADMAP A10), so every span carries index 0.
+# Lane identity for multi-process timelines: pushed in from outside
+# (``cli serve --replica-id 3`` stamps it); a single process keeps 0.
 _process_index = 0
+
+# Serving-fleet identity: which replica of an N-replica fleet this process
+# is. ``cli serve --replica-id`` pushes it in; spans and JSONL lines stamp it.
+_replica_id: Optional[str] = None
+
+
+def set_process_index(index: int) -> None:
+    global _process_index
+    # set once at startup, before any sink, server or recorder thread
+    # exists; a reference assignment is atomic, so a late reader sees the
+    # old or the new index, never a torn value
+    _process_index = int(index)
 
 
 def get_process_index() -> int:
     return _process_index
+
+
+def set_replica_id(replica: Optional[str]) -> None:
+    global _replica_id
+    # the same set-once-at-startup discipline as set_process_index
+    _replica_id = None if replica is None else str(replica)
+
+
+def get_replica_id() -> Optional[str]:
+    return _replica_id
 
 
 @dataclasses.dataclass
@@ -90,6 +112,8 @@ def span(name: str, parent: Optional[Span] = None, **attrs):
         yield s
     finally:
         s.duration_s = time.perf_counter() - t0
+        if _replica_id is not None:
+            s.attrs.setdefault("replica", _replica_id)
         _ctx.reset(token)
         run = _run.current_run()
         if run.has_listeners():
@@ -123,6 +147,8 @@ def record_span(
         process_index=_process_index,
         start_perf=float(start_perf),
     )
+    if _replica_id is not None:
+        s.attrs.setdefault("replica", _replica_id)
     run.send_event(SpanEvent(span=s))
     return s
 

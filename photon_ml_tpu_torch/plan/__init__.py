@@ -9,6 +9,7 @@ from .planner import (
     ExecutionPlan,
     PlanError,
     check_checkpoint_topology,
+    check_fleet_composition,
     check_lane_composition,
     check_multiprocess_mesh,
     check_retrain_composition,
@@ -21,6 +22,7 @@ __all__ = [
     "ExecutionPlan",
     "PlanError",
     "check_checkpoint_topology",
+    "check_fleet_composition",
     "check_lane_composition",
     "check_multiprocess_mesh",
     "check_retrain_composition",

@@ -262,6 +262,37 @@ def check_retrain_composition(
         )
 
 
+def check_fleet_composition(
+    model_names: Sequence[str],
+    front_replicas: Optional[Sequence[str]] = None,
+) -> None:
+    """The JAX package's refusals of the illegal serving-fleet compositions,
+    copied: the multi-model ``ModelSet`` and the replica front
+    (``serving/fleet.py``, ``serving/front.py``) both route by name, so
+    ambiguous names and unroutable replica addresses are plan errors.
+
+    ``model_names`` is the fleet's model list as given (ordered, possibly
+    repeated: ``--models`` flags, ModelSet pairs); ``front_replicas`` is
+    the replica address list handed to the least-loaded front."""
+    seen = set()
+    for name in model_names:
+        if name in seen:
+            raise PlanError(
+                f"duplicate model name in the serving fleet: {name!r} — "
+                "request-protocol model= routing needs one bulkhead per "
+                "name; give each resident snapshot a distinct --models name"
+            )
+        seen.add(name)
+    for addr in front_replicas or ():
+        host, sep, port = str(addr).rpartition(":")
+        if not sep or not host or not port.isdigit():
+            raise PlanError(
+                "the replica front routes over TCP replicas: not composable "
+                f"with AF_UNIX socket paths (got {addr!r}; give each "
+                "replica a host:port --listen address)"
+            )
+
+
 # -- checkpoint topology (resume legality across topology changes) ----------
 
 

@@ -1,6 +1,6 @@
-"""The GLMix score assembly of batch scoring (``cli.score`` and
-``GameTransformer.transform``): the JAX package's ``serving/engine.py``,
-its batch part.
+"""The one GLMix score assembly, shared by batch scoring (``cli.score`` and
+``GameTransformer.transform``) and the resident request path
+(``serving.server``): the JAX package's ``serving/engine.py`` on the port.
 
 Scoring semantics are the reference's (GameTransformer.scala:39-318): total
 score = offsets + sum of per-coordinate margins, fixed effects as a dot
@@ -16,26 +16,70 @@ with float64 coefficients, its plain version. A random effect's margins are
 host in one counted fetch and add into a float64 host sum in coordinate
 order, as the reference does.
 
-The resident request path (``from_store``, ``score_requests``, ``warm``
-and the padding ladders) is ROADMAP A9.
+The resident request path (``from_store``, ``score_requests``, ``warm``)
+stages a published store's coefficient tables on the device once and pads
+every request batch to a small ladder of (rows, feature-width) shapes, the
+JAX package's ladder, so that a request batch is a handful of launches of
+known shapes. Unseen entities fall back to the fixed effect and count in
+``photon_serving_cold_start_total{coordinate=}``. ``warm`` loads S1's
+library (``ops/cuda_lib.py`` builds it with nvcc at first use) and scores
+the smallest rung before traffic, so no request pays for a build.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .. import obs
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, pin_device
 from ..models.game import FixedEffectModel, RandomEffectModel, score_entity_ell
 from ..ops.sparse import Segments, row_segments, segment_dot, segment_dot_plain
 
 Tensor = torch.Tensor
 
-_RESIDENT_TODO = "the resident request path of the serving engine is not ported yet (ROADMAP A9)"
+# Padding ladders for the resident request path. Rows round up to the next
+# rung (bigger batches chunk at the top rung); the per-shard ELL feature
+# width rounds up likewise: at most len(LADDER_ROWS) * len(LADDER_WIDTH)
+# batch shapes per shard.
+LADDER_ROWS: Tuple[int, ...] = (1, 8, 64, 256, 1024, 4096, 16384)
+LADDER_WIDTH: Tuple[int, ...] = (4, 16, 64, 256, 512)
+
+
+def _ladder_rows(n: int) -> int:
+    for rung in LADDER_ROWS:
+        if n <= rung:
+            return rung
+    return LADDER_ROWS[-1]
+
+
+def _ladder_width(f: int) -> int:
+    for rung in LADDER_WIDTH:
+        if f <= rung:
+            return rung
+    raise ValueError(
+        f"request feature width {f} exceeds the serving engine's padded "
+        f"feature-width ladder (max {LADDER_WIDTH[-1]} features per row per "
+        "shard); score such rows through the batch path (cli.score)"
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class ScoreRequest:
+    """One scoring request: per-shard sparse features (already through the
+    feature index map) plus the entity id per random-effect type.
+
+    ``model`` routes the request in a multi-model fleet (``serving.fleet``):
+    the name of the resident model to score against, or None for the
+    server's default model. The engine itself ignores it."""
+
+    features: Mapping[str, Tuple[Sequence[int], Sequence[float]]]
+    ids: Mapping[str, object] = dataclasses.field(default_factory=dict)
+    offset: float = 0.0
+    model: Optional[str] = None
 
 
 class EllRows:
@@ -93,7 +137,8 @@ class ScoreEngine:
         self._coords = coords
         self.task = task
         self.dtype = dtype
-        self.device = resolve_device(device)
+        # pinned, so that a batcher's worker thread can select it
+        self.device = pin_device(device)
         self.plain = plain
 
     # -- construction --------------------------------------------------------
@@ -120,16 +165,39 @@ class ScoreEngine:
         return cls(coords, game_model.task, dtype=dtype, device=device, plain=plain)
 
     @classmethod
-    def from_store(cls, *args, **kwargs):
-        raise NotImplementedError(_RESIDENT_TODO)
+    def from_store(cls, store, dtype=torch.float32, device: DeviceLike = None,
+                   plain: bool = False) -> "ScoreEngine":
+        """Engine over an opened mmap ModelStore (the resident entry), on
+        ``device`` (the card if None). The coefficient tables are staged to
+        the device once here, in ``dtype``; entity-row lookups stay on the
+        store's mmap index. The store's arrays are read-only maps, so each
+        is copied before it becomes a tensor."""
+        from .store import FixedStoreCoord, RandomStoreCoord
 
-    def score_requests(self, *args, **kwargs):
-        raise NotImplementedError(_RESIDENT_TODO)
+        dev = pin_device(device)
 
-    def warm(self, *args, **kwargs):
-        raise NotImplementedError(_RESIDENT_TODO)
+        def stage(arr: np.ndarray, dt: Optional[torch.dtype] = None) -> Tensor:
+            t = torch.from_numpy(np.array(arr))
+            return t.to(device=dev, dtype=dt or t.dtype)
+
+        coords: List[object] = []
+        for c in store.coords:
+            if isinstance(c, FixedStoreCoord):
+                coords.append(_FixedCoord(c.name, c.feature_shard, stage(c.weights, dtype)))
+            elif isinstance(c, RandomStoreCoord):
+                coords.append(_RandomCoord(
+                    c.name, c.feature_shard, c.random_effect_type, stage(c.coef_indices),
+                    stage(c.coef_values, dtype), c.rows_for,
+                ))
+            else:
+                raise TypeError(f"unknown store coordinate type: {type(c)}")
+        return cls(coords, store.task, dtype=dtype, device=dev, plain=plain)
 
     # -- introspection -------------------------------------------------------
+
+    @property
+    def random_effect_types(self) -> List[str]:
+        return [c.random_effect_type for c in self._coords if isinstance(c, _RandomCoord)]
 
     @property
     def feature_shards(self) -> List[str]:
@@ -153,8 +221,17 @@ class ScoreEngine:
         name -> i32[n] entity rows (-1 = unseen -> contributes 0). Scores
         accumulate in float64 on the host, one counted fetch per coordinate.
         """
-        total = np.array(offsets, dtype=np.float64)
+        return self.fetch_scores(offsets, self.device_margins(shard_ell, entity_rows))
+
+    def device_margins(
+        self,
+        shard_ell: Mapping[str, Tuple[np.ndarray, np.ndarray]],
+        entity_rows: Mapping[str, np.ndarray],
+    ) -> List[Tuple[str, Tensor]]:
+        """The device half of ``score_ell``: upload the rows and launch each
+        coordinate's margins, left on the device as ``(name, margins)``."""
         rows: Dict[str, EllRows] = {}
+        margins: List[Tuple[str, Tensor]] = []
         for c in self._coords:
             ell = rows.get(c.feature_shard)
             if ell is None:
@@ -169,8 +246,17 @@ class ScoreEngine:
                     ell.idx,
                     ell.val,
                 )
+            margins.append((c.name, margin))
+        return margins
+
+    @staticmethod
+    def fetch_scores(offsets: np.ndarray, margins: Sequence[Tuple[str, Tensor]]) -> np.ndarray:
+        """The host half of ``score_ell``: fetch each coordinate's margins
+        (one counted fetch each) and sum them onto the offsets in float64."""
+        total = np.array(offsets, dtype=np.float64)
+        for name, margin in margins:
             host = margin.detach().cpu()
-            obs.add_device_fetch_bytes(f"serving.score.{c.name}", host.numel() * host.element_size())
+            obs.add_device_fetch_bytes(f"serving.score.{name}", host.numel() * host.element_size())
             total += host.double().numpy()
         return total
 
@@ -189,3 +275,64 @@ class ScoreEngine:
             if isinstance(c, _RandomCoord):
                 entity_rows[c.name] = c.rows_for(raw.id_tags[c.random_effect_type]).astype(np.int32)
         return self.score_ell(raw.offsets, shard_ell, entity_rows)
+
+    # -- resident request path ----------------------------------------------
+
+    def score_requests(self, requests: Sequence[ScoreRequest], count_cold: bool = True) -> np.ndarray:
+        """Score a microbatch of requests at the ladder's shapes; unseen
+        entities fall back to the fixed effect and count in
+        ``photon_serving_cold_start_total{coordinate=}`` (``count_cold=False``
+        for synthetic warm-up traffic that must not pollute the metric)."""
+        n = len(requests)
+        if n == 0:
+            return np.zeros(0, dtype=np.float64)
+        top = LADDER_ROWS[-1]
+        if n > top:
+            return np.concatenate(
+                [self.score_requests(requests[i : i + top], count_cold) for i in range(0, n, top)]
+            )
+        return self.score_ell(*self.assemble(requests, count_cold))[:n]
+
+    def assemble(self, requests: Sequence[ScoreRequest], count_cold: bool = True):
+        """The host half of ``score_requests`` for at most one top rung of
+        requests: ``(offsets, shard_ell, entity_rows)`` padded to the
+        ladder, for ``score_ell``; counts the cold starts."""
+        n = len(requests)
+        pad_n = _ladder_rows(n)
+        shard_ell: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
+        for shard in self.feature_shards:
+            feats = [r.features.get(shard, ((), ())) for r in requests]
+            width = _ladder_width(max((len(f[0]) for f in feats), default=1))
+            idx = np.zeros((pad_n, width), dtype=np.int32)
+            val = np.zeros((pad_n, width), dtype=np.float64)
+            for i, (fi, fv) in enumerate(feats):
+                k = len(fi)
+                idx[i, :k] = fi
+                val[i, :k] = fv
+            shard_ell[shard] = (idx, val)
+
+        entity_rows: Dict[str, np.ndarray] = {}
+        cold = obs.current_run().registry.counter(
+            "photon_serving_cold_start_total",
+            "requests scored fixed-effect-only because the entity was unseen",
+        )
+        for c in self._coords:
+            if not isinstance(c, _RandomCoord):
+                continue
+            rows = c.rows_for([r.ids.get(c.random_effect_type) for r in requests])
+            n_cold = int(np.count_nonzero(rows < 0))
+            if n_cold and count_cold:
+                cold.labels(coordinate=c.name).inc(n_cold)
+            erow = np.full(pad_n, -1, dtype=np.int32)
+            erow[:n] = rows.astype(np.int32)
+            entity_rows[c.name] = erow
+
+        offsets = np.zeros(pad_n, dtype=np.float64)
+        offsets[:n] = [r.offset for r in requests]
+        return offsets, shard_ell, entity_rows
+
+    def warm(self) -> None:
+        """Score the ladder's smallest shapes ahead of traffic: on the card
+        this loads (and, on a fresh checkout, builds) S1's library."""
+        req = ScoreRequest(features={s: ((0,), (0.0,)) for s in self.feature_shards})
+        self.score_requests([req], count_cold=False)

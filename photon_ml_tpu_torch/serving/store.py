@@ -23,8 +23,9 @@ byte-compatible with the JAX package's stores.
 
 Each coordinate's coefficients leave the card in one counted fetch
 (``serving.store_build`` in ``photon_device_fetch_bytes_total``), in the
-model's own dtype, so the tables hold the model's bits. Opening a store for
-the resident scoring engine (``ScoreEngine.from_store``) is ROADMAP A9.
+model's own dtype, so the tables hold the model's bits.
+``ScoreEngine.from_store`` stages an opened store's tables on the device
+for the resident request path.
 """
 
 from __future__ import annotations

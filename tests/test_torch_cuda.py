@@ -1195,3 +1195,131 @@ def test_score_engine_on_card_runs_s1_and_matches_plain(cuda, tmp_path):
                            "--model-input-dir", f"{out}/models/best", "--output-dir", str(tmp_path / "s"),
                            "--log-level", "WARNING"])
     assert np.array_equal(scores, got)
+
+
+def _serving_parts(seed, d=64, users=50, d_re=8, fe_shift=0.0):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {"task": "logistic_regression", "models": {
+        "global": {"kind": "fixed", "feature_shard": "globalShard", "task": "logistic_regression",
+                   "means": (rng.standard_normal(d) + fe_shift).astype(np.float32), "variances": None},
+        "per-user": {"kind": "random", "random_effect_type": "userId", "feature_shard": "userShard",
+                     "task": "logistic_regression",
+                     "entity_ids": np.asarray([f"u{i}" for i in range(users)], dtype=object),
+                     "coef_indices": np.sort(rng.integers(0, d_re, size=(users, 4), dtype=np.int32), axis=1),
+                     "coef_values": rng.standard_normal((users, 4)).astype(np.float32), "variances": None},
+    }}
+
+
+def _serving_requests(seed, n, d=64, d_re=8, users=50):
+    import numpy as np
+
+    from photon_ml_tpu_torch.serving import ScoreRequest
+
+    rng = np.random.default_rng(seed)
+    return [ScoreRequest(
+        features={"globalShard": (tuple(rng.integers(0, d, size=16).tolist()), tuple(rng.standard_normal(16).tolist())),
+                  "userShard": (tuple(rng.integers(0, d_re, size=4).tolist()), tuple(rng.standard_normal(4).tolist()))},
+        ids={"userId": f"u{rng.integers(0, users + 10)}"}, offset=float(rng.standard_normal()),
+    ) for _ in range(n)]
+
+
+def test_resident_engine_on_card_one_s1_a_batch_and_matches_plain(cuda, tmp_path):
+    """ScoreEngine.from_store on the card: warm() then one S1 launch a
+    request batch at every rung, scores at S1's bound (3e-5 * max(|ref|, 1))
+    of the plain route and of the CPU engine's, the resident path bitwise
+    the batch path at the rung's width."""
+    import numpy as np
+
+    from photon_ml_tpu_torch import convert, serving
+
+    store = serving.ModelStore.open(serving.build_store_from_model(
+        convert.game_model_from_numpy(_serving_parts(0), device="cpu"), str(tmp_path / "s")))
+    engine = serving.ScoreEngine.from_store(store)
+    assert engine.device.type == "cuda" and engine.device.index is not None
+    engine.warm()
+    plain = serving.ScoreEngine.from_store(store, plain=True)
+    cpu = serving.ScoreEngine.from_store(store, device="cpu")
+    for n in (1, 8, 64, 256, 1024):
+        reqs = _serving_requests(n, n)
+        sparse.reset_launch_counts()
+        got = engine.score_requests(reqs)
+        assert sparse.SPARSE_LAUNCHES["ell_matvec"] == 1
+        for ref in (plain.score_requests(reqs), cpu.score_requests(reqs)):
+            assert np.all(np.abs(got - ref) <= 3e-5 * np.maximum(np.abs(ref), 1.0))
+        assert np.array_equal(got, engine.score_ell(*engine.assemble(reqs, count_cold=False))[:n])
+
+
+def test_same_shape_models_load_s1_once(cuda, tmp_path, monkeypatch):
+    """The card's half of tests/test_torch_serving_fleet.py's
+    shared-executables case: once one engine is warm, warming the Nth
+    same-shape model neither builds nor loads a library, and its ladder
+    batches need no segment pointers."""
+    from photon_ml_tpu_torch import convert, serving
+    from photon_ml_tpu_torch.ops import cuda_lib
+
+    stores = [serving.ModelStore.open(serving.build_store_from_model(
+        convert.game_model_from_numpy(_serving_parts(0, fe_shift=k), device="cpu"), str(tmp_path / f"m{k}")))
+        for k in range(3)]
+    serving.ScoreEngine.from_store(stores[0]).warm()
+    loaded = dict(cuda_lib._loaded)
+    builds = []
+    monkeypatch.setattr(cuda_lib, "build", lambda names: builds.append(names))
+    sparse.reset_launch_counts()
+    for store in stores[1:]:
+        engine = serving.ScoreEngine.from_store(store)
+        engine.warm()
+        engine.score_requests(_serving_requests(1, 100))
+    assert builds == [] and cuda_lib._loaded == loaded
+    assert sparse.SPARSE_LAUNCHES["ell_matvec"] == 4
+
+
+def test_serving_fleet_on_card_threads_and_a_live_flip(cuda, tmp_path):
+    """Two resident models behind their own batcher threads on the card,
+    each request scored on its own model; a flip of one model mid-stream
+    loses nothing and lands every later response on the new snapshot."""
+    import numpy as np
+
+    from photon_ml_tpu_torch import convert, obs, serving
+
+    roots = {m: str(tmp_path / m) for m in ("a", "b")}
+    for k, (m, root) in enumerate(roots.items()):
+        serving.publish_snapshot(root, "v1", game_model=convert.game_model_from_numpy(
+            _serving_parts(k), device="cpu"))
+    reqs = _serving_requests(5, 64)
+    want = {m: serving.ScoreEngine.from_store(serving.open_current(r)[1]).score_requests(reqs, count_cold=False)
+            for m, r in roots.items()}
+    with obs.use_run(obs.RunTelemetry()):
+        server = serving.ScoringServer(models=roots, max_latency_ms=1.0, poll_seconds=3600.0)
+        try:
+            for m in roots:
+                got = [f.result(timeout=60.0) for f in [server.submit(r, model=m) for r in reqs]]
+                assert np.all(np.abs(np.asarray(got) - want[m]) <= 3e-5 * np.maximum(np.abs(want[m]), 1.0))
+            serving.publish_snapshot(roots["a"], "v2", game_model=convert.game_model_from_numpy(
+                _serving_parts(0, fe_shift=1.0), device="cpu"))
+            server.poke_refresh("a")
+            assert server.snapshot_names == {"a": "v2", "b": "v1"}
+            # the flip built its engine on the watcher's thread, on the set's card
+            card = torch.device("cuda", torch.cuda.current_device())
+            assert {e.engine.device for e in server._models._entries.values()} == {card}
+            v2 = serving.ScoreEngine.from_store(serving.open_current(roots["a"])[1]).score_requests(
+                reqs, count_cold=False)
+            got = [f.result(timeout=60.0) for f in [server.submit(r, model="a") for r in reqs]]
+            assert np.all(np.abs(np.asarray(got) - v2) <= 3e-5 * np.maximum(np.abs(v2), 1.0))
+        finally:
+            server.close()
+
+
+def test_memory_sample_reads_the_card(cuda):
+    """obs.sample_memory's device block from the caching allocator: bytes
+    in use, the peak and the card's total memory, in photon_mem_device_*."""
+    from photon_ml_tpu_torch import obs
+
+    x = torch.ones(1 << 20, device="cuda")
+    reg = obs.MetricsRegistry()
+    obs.sample_memory(reg, devices=[torch.device("cuda", 0)])
+    block = obs.memory_block(reg.snapshot())["devices"]["cuda:0"]
+    assert block["bytes_in_use"] >= x.numel() * 4
+    assert block["peak_bytes_in_use"] >= block["bytes_in_use"]
+    assert block["bytes_limit"] == torch.cuda.get_device_properties(0).total_memory

@@ -8,6 +8,7 @@ spans and the coordinate-descent spans."""
 
 import json
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -91,9 +92,14 @@ def test_prometheus_text_and_snapshot_match_the_reference():
 
 
 def _span_tree(mod):
+    """The span tree, metrics and durations of one nested sequence, as the
+    calling thread recorded them: spans another thread closed while this
+    run was current (a worker some earlier test left behind) and metrics
+    under other names are not the sequence's."""
     run = mod.RunTelemetry()
     sink = _Collect()
     run.register_listener(sink)
+    me = threading.get_ident()
     with mod.use_run(run):
         with mod.span("train", phase="all"):
             with mod.span("cd.sweep", iteration=0):
@@ -103,18 +109,30 @@ def _span_tree(mod):
                     pass
             mod.record_span("stitched", 1.0, 1.5, parent=mod.current_span(), lane="worker")
         run.flush_metrics()
-    spans = [e.span for e in sink.events if type(e).__name__ == "SpanEvent"]
+    spans = [e.span for e in sink.events if type(e).__name__ == "SpanEvent" and e.span.thread_id == me]
     ids = {s.span_id: s.name for s in spans}
     tree = [(s.name, ids.get(s.parent_id), {k: v for k, v in s.attrs.items()}) for s in spans]
-    metrics = [e.metrics for e in sink.events if type(e).__name__ == "MetricsSnapshotEvent"]
+    metrics = [[m for m in e.metrics if m["name"] == "photon_device_fetch_bytes_total"]
+               for e in sink.events if type(e).__name__ == "MetricsSnapshotEvent"]
     return tree, metrics, [s.duration_s for s in spans]
 
 
-def test_span_tree_and_fetch_bytes_match_the_reference():
+def test_span_tree_and_fetch_bytes_match_the_reference(monkeypatch):
+    # the process-wide inputs a span reads, pinned to a fresh process's: a
+    # replica id (cli serve --replica-id) or a compile-seconds total that
+    # moves under a JAX compile on another thread (once a file installed
+    # the compile hook) would otherwise stamp attributes this tree lacks
+    from photon_ml_tpu.obs import tracing as ref_tracing
+    from photon_ml_tpu_torch.obs import tracing
+
+    monkeypatch.setattr(ref_tracing, "_replica_id", None)
+    monkeypatch.setattr(ref_tracing, "compile_seconds_total", lambda: 0.0)
+    monkeypatch.setattr(tracing, "_replica_id", None)
     ours, ours_metrics, durations = _span_tree(obs)
     ref, ref_metrics, _ = _span_tree(ref_obs)
     assert ours == ref
     assert ours_metrics == ref_metrics
+    assert ours_metrics and ours_metrics[0][0]["value"] == 16
     assert ours[0] == ("cd.coordinate", "cd.sweep", {"coordinate": "global", "fetch_bytes": 16})
     assert all(d is not None and d >= 0 for d in durations)
     # no listener: spans and record_span are host bookkeeping only
@@ -333,3 +351,32 @@ def test_run_summary_document():
     info = obs.record_build_info(reg)
     assert reg.gauge("photon_build_info").labels(**info).value == 1
     assert os.path.basename(__file__) == "test_torch_obs.py"
+
+
+def test_memory_sample_and_block_match_the_reference():
+    """obs.memory: the host reading and the memory document are the JAX
+    package's; a CPU device has no allocator statistics and is skipped."""
+    from photon_ml_tpu.obs import memory as ref_memory
+    from photon_ml_tpu_torch.obs import memory
+
+    reg, ref_reg = obs.MetricsRegistry(), ref_obs.MetricsRegistry()
+    host = obs.sample_memory(reg, devices=[torch.device("cpu")])
+    ref_obs.sample_memory(ref_reg)
+    assert host["rss_bytes"] > 0 and host["peak_rss_bytes"] >= host["rss_bytes"]
+    assert memory.read_device_memory("cpu") is None
+    assert {m["name"] for m in reg.snapshot()} == {m["name"] for m in ref_reg.snapshot()}
+    snaps = []
+    for mod in (obs, ref_obs):
+        r = mod.MetricsRegistry()
+        r.gauge("photon_mem_host_rss_bytes").set(10)
+        r.gauge("photon_mem_device_bytes_in_use").labels(device="cuda:0").set(5)
+        r.gauge("photon_mem_device_peak_bytes_in_use").labels(device="cuda:0").set(7)
+        r.gauge("photon_stream_budget_bytes").labels(site="fe").set(3)
+        snaps.append(r.snapshot())
+    assert memory.memory_block(snaps[0]) == ref_memory.memory_block(snaps[1]) == {
+        "host": {"rss_bytes": 10}, "devices": {"cuda:0": {"bytes_in_use": 5, "peak_bytes_in_use": 7}},
+        "streaming": {"fe": {"hbm_budget_bytes": 3}},
+    }
+    doc = obs.build_run_summary(reg, 1.0)
+    assert doc["memory"]["host"]["rss_bytes"] == host["rss_bytes"]
+    assert doc["build"]["replica"] == ""

@@ -20,37 +20,13 @@ from photon_ml_tpu_torch.ops.normalization import build_normalization
 ROOT = Path(__file__).resolve().parents[1]
 
 _IMPORT_CHECK = r"""
+import importlib
+import pkgutil
 import sys
 import photon_ml_tpu_torch
-import photon_ml_tpu_torch.convert, photon_ml_tpu_torch.device
-import photon_ml_tpu_torch.evaluation.device, photon_ml_tpu_torch.game.problem
-import photon_ml_tpu_torch.ops.cuda_lib, photon_ml_tpu_torch.ops.fused_glm
-import photon_ml_tpu_torch.ops.sparse, photon_ml_tpu_torch.ops.features, photon_ml_tpu_torch.optimize.lbfgs
-import photon_ml_tpu_torch.optimize.driver, photon_ml_tpu_torch.optimize.tron
-import photon_ml_tpu_torch.optimize.trackers, photon_ml_tpu_torch.game.sampling
-import photon_ml_tpu_torch.ops.glm
-import photon_ml_tpu_torch.game.coordinate, photon_ml_tpu_torch.game.data
-import photon_ml_tpu_torch.game.descent, photon_ml_tpu_torch.models.game
-import photon_ml_tpu_torch.io.data, photon_ml_tpu_torch.evaluation.suite
-import photon_ml_tpu_torch.parallel, photon_ml_tpu_torch.parallel.mesh
-import photon_ml_tpu_torch.parallel.multihost, photon_ml_tpu_torch.ops.lane_reduce
-import photon_ml_tpu_torch.io.avro, photon_ml_tpu_torch.io.index_map, photon_ml_tpu_torch.io.model_io
-import photon_ml_tpu_torch.io.validators, photon_ml_tpu_torch.io.columns, photon_ml_tpu_torch.io.schemas
-import photon_ml_tpu_torch.native, photon_ml_tpu_torch.robust.atomic, photon_ml_tpu_torch.robust.retry
-import photon_ml_tpu_torch.utils.futures, photon_ml_tpu_torch.utils.dates, photon_ml_tpu_torch.utils.logging
-import photon_ml_tpu_torch.utils.stats, photon_ml_tpu_torch.testing.generators
-import photon_ml_tpu_torch.estimators.model_training, photon_ml_tpu_torch.cli.params
-import photon_ml_tpu_torch.cli.glm, photon_ml_tpu_torch.cli.index
-import photon_ml_tpu_torch.cli.train, photon_ml_tpu_torch.cli.score, photon_ml_tpu_torch.cli.feature_bags
-import photon_ml_tpu_torch.obs, photon_ml_tpu_torch.obs.metrics, photon_ml_tpu_torch.obs.tracing
-import photon_ml_tpu_torch.obs.run, photon_ml_tpu_torch.obs.sinks, photon_ml_tpu_torch.utils.events
-import photon_ml_tpu_torch.utils.timed, photon_ml_tpu_torch.robust.faults, photon_ml_tpu_torch.robust.checkpoint
-import photon_ml_tpu_torch.plan, photon_ml_tpu_torch.plan.planner, photon_ml_tpu_torch.serving
-import photon_ml_tpu_torch.serving.engine, photon_ml_tpu_torch.estimators.game_estimator
-import photon_ml_tpu_torch.game.lanes, photon_ml_tpu_torch.tuning, photon_ml_tpu_torch.tuning.tuner
-import photon_ml_tpu_torch.tuning.search, photon_ml_tpu_torch.tuning.shrink, photon_ml_tpu_torch.tuning.serialization
-import photon_ml_tpu_torch.game.incremental, photon_ml_tpu_torch.cli.retrain
-import photon_ml_tpu_torch.serving.store, photon_ml_tpu_torch.serving.refresh
+names = sorted(m.name for m in pkgutil.walk_packages(photon_ml_tpu_torch.__path__, "photon_ml_tpu_torch."))
+for name in names:
+    importlib.import_module(name)
 sys.path.insert(0, "tests")
 import test_torch_parallel_ranks
 bad = sorted(
@@ -58,6 +34,7 @@ bad = sorted(
     if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
     or m == "photon_ml_tpu" or m.startswith("photon_ml_tpu.")
 )
+print("MODULES:" + ",".join(names))
 print("BAD:" + ",".join(bad))
 """
 
@@ -70,6 +47,15 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
     ).stdout
     line = [l for l in out.splitlines() if l.startswith("BAD:")][-1]
     assert line == "BAD:", f"photon_ml_tpu_torch imported {line[4:]}"
+    # every module of the package was imported, the serving stack included
+    modules = set([l for l in out.splitlines() if l.startswith("MODULES:")][-1][8:].split(","))
+    files = {
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+        for p in (ROOT / "photon_ml_tpu_torch").rglob("*.py")
+    } - {"photon_ml_tpu_torch"}
+    assert modules == files
+    assert {"photon_ml_tpu_torch.serving.batcher", "photon_ml_tpu_torch.cli.serve",
+            "photon_ml_tpu_torch.obs.http"} <= modules
 
 
 def test_port_sources_name_no_jax_import():
