@@ -198,7 +198,20 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    model: bitwise GameTransformer's, rtol 1e-5 of the plain route, AUC
    within 1e-4 of (b)'s, one S1 launch, rows/s; (e) a
    coordinate.scores:nan:1 run: the poisoned update rejected, the models
-   finite, photon_coordinate_rejections_total above 0.
+   finite, photon_coordinate_rejections_total above 0, one flight-recorder
+   dump under its metrics directory, listed by cli.report; (f) (b)'s fit
+   without checkpoints and with every telemetry flag on (--metrics-out,
+   --trace-out, --status-port, --report-out), cli.train.run on a thread
+   while /statusz, /metrics and /healthz are polled: at least one 200 from
+   /statusz and /metrics, B1, B2, B3 with shifts and S1 launched as often
+   as in (b), the best model bitwise (b)'s, run_summary.json's timeline one
+   entry a sweep with critical_path + other == wall (rel 1e-6), the Chrome
+   trace one complete event per closed span and one cd.sweep a sweep, the
+   card's peak allocator bytes (photon_mem_device_peak_bytes_in_use
+   {device="cuda:N"}) in (0, total memory), report.json rebuilt byte for
+   byte by `python -m photon_ml_tpu_torch.cli.report`, no flight dump; its
+   wall beside (b)'s, the report build's seconds and the per-sweep phase
+   attribution beside phase 5's profiled busy share.
 
 13. hyperparameter tuning (run after phase 12, on its fixture; phase 5
    first): (a) S2, the lane-wide segment kernel (matmat and rmatmat), at
@@ -244,7 +257,9 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    fixed effect's first update through the kernels (bitwise the chain's)
    against the plain versions (means and variances rtol 1e-3 / atol 1e-5),
    the random effect's last update in f32 (bitwise the chain's) against
-   float64 on the widened blocks (atol 5e-3); (b) the odd-numbered users
+   float64 on the widened blocks (atol 5e-3); --status-port on, /healthz
+   polled from another thread: at least one 200 during the chain; (b) the
+   odd-numbered users
    after day 3's merge bitwise their day-2 rows; (c) the live snapshot
    reopened with open_current, its arrays bitwise the accepted model's; (d)
    day 3 with its labels flipped against day 2's model in a second serving
@@ -268,14 +283,16 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    max_latency 2 ms (scores/s, p50 and p99 from the server's latency
    histogram, mean batch), with (c) a second snapshot (fixed effect
    shifted) published and flipped mid-stream: nothing lost or failed, every
-   response before the flip v1's and after it v2's; (b') a diagnostic: the
-   clients against a batcher that takes what is queued once the first
-   request's budget is spent (not the port's policy); (d) the open-loop knee
+   response before the flip v1's and after it v2's; (d) the open-loop knee
    (a capacity probe, then Poisson arrivals at 0.5, 1 and 1.5 times it for
    1 s each, 100 ms budgets; counted sheds equal to observed); S1's
    launches counted from 0 over (b)-(d); (e) two `python -m
    photon_ml_tpu_torch.cli.serve --listen --status-port` replicas:
-   /healthz 200, /metrics with the request counter, then open-loop load
+   /healthz 200, /metrics with the request counter; `python -m
+   photon_ml_tpu_torch.cli.fleetz` over their status ports (the merged
+   request counter the sum of the replicas' own, bit for bit) and in
+   artifacts mode over phase 12 (b)'s and (f)'s metrics directories (every
+   merged counter the sum of the two runs', as rendered); then open-loop load
    through a LeastLoadedFront over both with replica 0 killed mid-stream:
    every request answered or shed with a type.
 
@@ -874,9 +891,9 @@ def log_profile(what, wall, rows, top=12):
 
 def profile_sweep(torch, coords):
     """One more sweep under torch.profiler: the device's busy share of the
-    sweep's wall and the device operations that fill it."""
+    sweep's wall and the device operations that fill it; returns the share."""
     (_, wall), rows = device_profile(torch, lambda: sweep(torch, coords))
-    log_profile("profiled sweep", wall, rows)
+    return log_profile("profiled sweep", wall, rows) / wall
 
 
 def glmix_path(torch, n, d, users, d_re, seed):
@@ -930,7 +947,7 @@ def glmix_path(torch, n, d, users, d_re, seed):
         problems.append(f"training AUC {a} out of (0.5, 1]")
     if res.rejections != {"global": 0, "per-user": 0}:
         problems.append(f"the divergence guard rejected an update: {res.rejections}")
-    profile_sweep(torch, coords)
+    busy_share = profile_sweep(torch, coords)
 
     # the same sweep with the plain versions forced
     plain = dict(coords, **{"global": dataclasses.replace(coords["global"], plain=True)})
@@ -956,7 +973,7 @@ def glmix_path(torch, n, d, users, d_re, seed):
     return {
         "launches": launches, "routes": routes, "wall_s": wall, "walls": walls, "examples_per_s": n / wall,
         "fe_share": res.seconds["global"] / wall, "re_share": res.seconds["per-user"] / wall,
-        "syncs": res.syncs, "train_auc": a,
+        "syncs": res.syncs, "train_auc": a, "busy_share": busy_share,
         # for the data-parallel phase: the data, the one-card coordinates and
         # the median sweep's result
         "state": {"data": data, "coords": coords, "result": res, "wall_s": wall},
@@ -3652,9 +3669,12 @@ def game_score(torch, validation, root, problems, b):
 def game_fault(torch, train, validation, root, problems, b):
     """(e) A coordinate.scores:nan:1 run: the poisoned first update is
     rejected, the models finish finite, and the rejection shows in
-    photon_coordinate_rejections_total."""
+    photon_coordinate_rejections_total; the flight recorder leaves one dump
+    under the metrics directory, and cli.report over it lists the dump."""
+    import glob
     import os
 
+    from photon_ml_tpu_torch.cli import report as report_cli
     from photon_ml_tpu_torch.io import load_game_model
     from photon_ml_tpu_torch.robust import faults
 
@@ -3677,7 +3697,164 @@ def game_fault(torch, train, validation, root, problems, b):
     if not (sum(rejections.values()) > 0 and counted > 0 and finite):
         problems.append(f"the poisoned update was not rejected cleanly: {rejections}, counted {counted}, "
                         f"finite {finite}")
-    return {"wall_s": wall, "rejections": rejections}
+    dumps = sorted(os.path.relpath(p, metrics_dir) for p in glob.glob(os.path.join(metrics_dir, "flight", "flight-*.json")))
+    listed = report_cli.run([metrics_dir, "--out", os.path.join(root, "report-e"), "--log-level", "WARNING"])["flight"]
+    log(f"  (e) flight dumps {dumps}; cli.report lists {[(d['trigger'], d['path']) for d in listed]}")
+    if len(dumps) != 1 or [d["path"] for d in listed] != dumps:
+        problems.append(f"(e): flight dumps {dumps}, listed by cli.report {listed}")
+    return {"wall_s": wall, "rejections": rejections, "flight_dumps": dumps}
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _poll_endpoints(base, alive, paths=("/statusz", "/metrics", "/healthz"), stop=None):
+    """GETs each of ``paths`` under ``base`` every 0.1 s while ``alive()``
+    (and ``stop`` is unset): the count of 200 answers by path."""
+    import urllib.error
+    import urllib.request
+
+    answered = dict.fromkeys(paths, 0)
+    while alive() and not (stop is not None and stop.is_set()):
+        for path in paths:
+            try:
+                with urllib.request.urlopen(base + path, timeout=5) as r:
+                    answered[path] += r.status == 200
+            except (urllib.error.URLError, ConnectionError, OSError):
+                pass
+        time.sleep(0.1)
+    return answered
+
+
+def game_observed(torch, train, validation, root, problems, b, busy_share):
+    """(f) (b)'s fit with every telemetry flag on (--metrics-out,
+    --trace-out, --status-port, --report-out; no checkpoints, so that the
+    report's directory holds what cli.report reads), cli.train.run on a
+    thread with every counter at 0 before it while this thread polls the
+    endpoints: the same launches and the same best model as (b), the
+    timeline's per-sweep identity, the Chrome trace, the card's peak memory,
+    the report rebuilt byte for byte and no flight dump. First the same
+    fit with no flag at all, so that the telemetry's cost reads as the
+    difference of two walls of one configuration (the peak allocator bytes
+    reset before each)."""
+    import glob
+    import os
+    import subprocess
+    import tempfile
+    import threading
+
+    from photon_ml_tpu_torch.io import load_game_model
+    from photon_ml_tpu_torch.obs import report as report_mod
+
+    torch.cuda.reset_peak_memory_stats()
+    _, bare_wall, *bare_launches = _counted_train(torch, game_argv(train, validation, os.path.join(root, "out-f-bare")))
+    bare_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    froot = os.path.join(root, "observed-f")
+    out, metrics_dir, report_dir = (os.path.join(froot, k) for k in ("out", "metrics", "report"))
+    trace = os.path.join(froot, "trace.json")
+    port = _free_port()
+    argv = game_argv(train, validation, out, ["--metrics-out", metrics_dir, "--trace-out", trace,
+                                              "--status-port", str(port), "--report-out", report_dir])
+    result = {}
+
+    def body():
+        try:
+            result["run"] = _counted_train(torch, argv)
+        except BaseException as e:  # re-raised on this thread below
+            result["error"] = e
+
+    t = threading.Thread(target=body, name="chip-smoke-train-f")
+    t.start()
+    answered = _poll_endpoints(f"http://127.0.0.1:{port}", t.is_alive)
+    t.join()
+    if "error" in result:
+        raise result["error"]
+    summary, wall, launches, shifts, s1 = result["run"]
+    same_launches = [launches, shifts, s1] == [b["launches"], b["shift_launches"], b["s1_launches"]] == bare_launches
+    same_model = _game_models_equal(
+        load_game_model(os.path.join(b["out"], "models", "best"), b["maps"], task="logistic_regression"),
+        load_game_model(os.path.join(out, "models", "best"), b["maps"], task="logistic_regression"))
+
+    with open(os.path.join(metrics_dir, "run_summary.json")) as f:
+        rs = json.load(f)
+    tl = rs["timeline"]
+    identity = [math.isclose(w["critical_path_seconds"] + w["other_seconds"], w["wall_seconds"], rel_tol=1e-6)
+                for w in tl["sweeps"]]
+    with open(trace) as f:
+        xs = [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
+    with open(os.path.join(metrics_dir, "metrics.jsonl")) as f:
+        closed = sum(json.loads(line).get("type") == "span" for line in f)
+    n_sweeps = sum(e["name"] == "cd.sweep" for e in xs)
+    card = torch.cuda.current_device()
+    peak = _metric(rs["metrics"], "photon_mem_device_peak_bytes_in_use", device=f"cuda:{card}")
+    total = torch.cuda.get_device_properties(card).total_memory
+    flight = glob.glob(os.path.join(metrics_dir, "flight", "flight-*.json"))
+
+    # the report: built in process from the same directory, then rebuilt by
+    # cli.report in a process of its own
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_report_") as tmp:
+        t0 = time.perf_counter()
+        report_mod.write_report(report_mod.build_report(report_mod.discover(froot)), os.path.join(tmp, "in-process"))
+        build_s = time.perf_counter() - t0
+        rebuilt = os.path.join(tmp, "cli")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "photon_ml_tpu_torch.cli.report", froot, "--out", rebuilt,
+                               "--log-level", "WARNING"], cwd=str(pathlib.Path(__file__).resolve().parent),
+                              capture_output=True, text=True, timeout=300)
+        cli_s = time.perf_counter() - t0
+        with open(os.path.join(report_dir, "report.json"), "rb") as f:
+            trained_bytes = f.read()
+        rebuilt_bytes = open(os.path.join(rebuilt, "report.json"), "rb").read() if proc.returncode == 0 else b""
+    same_report = proc.returncode == 0 and rebuilt_bytes == trained_bytes
+
+    log(f"  (f) every telemetry flag on: {wall:.2f} s; the same fit with no flag {bare_wall:.2f} s; (b) "
+        f"{b['wall_s']:.2f} s (with --checkpoint-dir: the model saved in Avro after each sweep and at the end, and "
+        f"{int(b['checkpoint_saves'])} boundary checkpoints); each wall ends in a synchronize; stages (s) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in summary["stage_seconds"].items())
+        + f"; 200 answers while training {answered}; launches {launches}, B3 with shifts {shifts}, S1 ell_matvec "
+          f"{s1}: (b)'s and the bare fit's {same_launches}; best model bitwise (b)'s {same_model}")
+    log(f"  (f) Chrome trace: {len(xs)} complete events for {closed} closed spans, {n_sweeps} cd.sweep; timeline "
+        f"identity critical_path + other == wall (rel 1e-6) per sweep {identity}; peak memory on cuda:{card} "
+        f"{int(peak)} of {total} bytes (the bare fit's max_memory_allocated {bare_peak}); flight dumps {len(flight)}; report.json {len(trained_bytes)} bytes, built in "
+        f"{build_s:.3f} s in process, rebuilt by cli.report in {cli_s:.2f} s (a process of its own): byte for "
+        f"byte {same_report}")
+    for w in tl["sweeps"]:
+        log(f"  (f) sweep {w['iteration']}: wall {w['wall_seconds']:.3f} s, phases (s) "
+            + ", ".join(f"{k} {v:.3f}" for k, v in sorted(w["phases"].items()))
+            + f", other {w['other_seconds']:.3f} s, overlap {w['overlap_factor']:.3f}; per coordinate "
+            + "; ".join(f"{c}: " + ", ".join(f"{k} {v:.3f}" for k, v in sorted(ph.items()))
+                        for c, ph in sorted(w["coordinates"].items())))
+    log(f"  (f) beside phase 5's profiled sweep, which kept the card busy "
+        f"{busy_share if busy_share is not None else float('nan'):.3f} of its wall: a span closes on the host "
+        f"clock, so each phase above holds the card's work that the host waited for while it was open")
+    if not (answered["/statusz"] and answered["/metrics"]):
+        problems.append(f"(f): no 200 from /statusz or /metrics while training: {answered}")
+    if not same_launches:
+        problems.append(f"(f): launches {launches}, shifts {shifts}, S1 {s1} against (b)'s {b['launches']}, "
+                        f"{b['shift_launches']}, {b['s1_launches']}")
+    if not same_model:
+        problems.append("(f): the best model differs from (b)'s")
+    if tl["n_sweeps"] != 2 or not all(identity) or n_sweeps != 2 or len(xs) != closed:
+        problems.append(f"(f): timeline sweeps {tl['n_sweeps']}, identity {identity}, trace cd.sweep {n_sweeps}, "
+                        f"events {len(xs)} for {closed} spans")
+    if not 0 < peak < total:
+        problems.append(f"(f): peak memory {peak} on cuda:{card} not in (0, {total})")
+    if flight:
+        problems.append(f"(f): a clean run left flight dumps {flight}")
+    if not same_report:
+        problems.append(f"(f): cli.report did not rebuild report.json byte for byte (exit {proc.returncode}: "
+                        f"{proc.stderr[-2000:]})")
+    return {"wall_s": wall, "bare_wall_s": bare_wall, "bare_peak_bytes": bare_peak,
+            "stage_seconds": summary["stage_seconds"], "launches": launches, "shift_launches": shifts,
+            "s1_launches": s1, "answered": answered, "timeline": tl, "peak_bytes": peak, "report_build_s": build_s,
+            "report_cli_s": cli_s, "metrics_dir": metrics_dir}
 
 
 def game_fixture(root, seed):
@@ -3692,9 +3869,14 @@ def game_fixture(root, seed):
     return {"root": root, "train": train, "validation": validation, "wall_s": wall, "writer_s": writer_s}
 
 
-def game_phase(torch, fixture, smi):
-    """Phase 12 (b)-(e) on the fixture of (a): the GAME driver with boundary
-    checkpoints, killed and resumed, cli.score and a NaN-injected run."""
+def game_phase(torch, fixture, smi, busy_share=None, keep=None):
+    """Phase 12 (b)-(f) on the fixture of (a): the GAME driver with boundary
+    checkpoints, killed and resumed, cli.score, a NaN-injected run and the
+    driver with every telemetry flag on. (b)'s and (f)'s metrics
+    directories are copied under ``keep`` for phase 15's cli.fleetz."""
+    import os
+    import shutil
+
     problems, out = [], {"write": {"wall_s": fixture["wall_s"], "writer_s": fixture["writer_s"]}}
     root, train, validation = fixture["root"], fixture["train"], fixture["validation"]
     b = game_train(torch, train, validation, root, problems, smi)
@@ -3702,7 +3884,12 @@ def game_phase(torch, fixture, smi):
     out["resume"] = game_resume(torch, train, validation, root, problems, b)
     out["score"] = game_score(torch, validation, root, problems, b)
     out["fault"] = game_fault(torch, train, validation, root, problems, b)
+    torch.cuda.empty_cache()
+    out["observed"] = game_observed(torch, train, validation, root, problems, b, busy_share)
     out["train"] = {k: v for k, v in b.items() if k not in ("maps", "out")}
+    if keep is not None:
+        for name, src in (("metrics-b", os.path.join(root, "metrics-b")), ("metrics-f", out["observed"]["metrics_dir"])):
+            shutil.copytree(src, os.path.join(keep, name))
     log(f"  on {smi}")
     if problems:
         raise AssertionError("; ".join(problems))
@@ -4561,9 +4748,11 @@ def retrain_replay(torch, fixture, fx, maps, out, k, problems):
 
 def retrain_chain(torch, fixture, fx, root, problems, smi):
     """(a) cli.retrain on the card over the three days, every counter at 0
-    before it and read after each day's gate; per-day and stage walls; the
-    days replayed on identical inputs (retrain_replay)."""
+    before it and read after each day's gate, with --status-port: /healthz
+    polled from another thread while the chain runs; per-day and stage
+    walls; the days replayed on identical inputs (retrain_replay)."""
     import os
+    import threading
 
     from photon_ml_tpu_torch.cli import retrain
     from photon_ml_tpu_torch.game import incremental
@@ -4571,8 +4760,13 @@ def retrain_chain(torch, fixture, fx, root, problems, smi):
 
     out, srv, metrics_dir = (os.path.join(root, "chain-a"), os.path.join(root, "serving-a"),
                              os.path.join(root, "metrics-a"))
+    port = _free_port()
     argv = retrain_argv(fixture, fx, out, srv, ["--checkpoint-every", "1", "--checkpoint-keep", "4",
-                                               "--metrics-out", metrics_dir])
+                                               "--metrics-out", metrics_dir, "--status-port", str(port)])
+    stop, healthz = threading.Event(), {}
+    poller = threading.Thread(target=lambda: healthz.update(_poll_endpoints(
+        f"http://127.0.0.1:{port}", lambda: True, paths=("/healthz",), stop=stop)), name="chip-smoke-healthz")
+    poller.start()
     per_day = []
     record = incremental._record_decision
 
@@ -4591,6 +4785,8 @@ def retrain_chain(torch, fixture, fx, root, problems, smi):
         wall = time.perf_counter() - t0
     finally:
         incremental._record_decision = record
+        stop.set()
+        poller.join()
     total = _launch_counts()
     launches = [{k: v - (per_day[i - 1][k] if i else 0) for k, v in c.items()} for i, c in enumerate(per_day)]
     state = _chain_state(out)
@@ -4601,7 +4797,10 @@ def retrain_chain(torch, fixture, fx, root, problems, smi):
             + ", ".join(f"{s} {secs[s]:.3f}" for s in ("read", "train", "merge", "gate", "save", "publish")
                         if s in secs)
             + f"); launches {launches[i]} on {smi}")
-    log(f"  (a) cli.retrain: {wall:.2f} s for {len(summary['days'])} days; launches {total}")
+    log(f"  (a) cli.retrain: {wall:.2f} s for {len(summary['days'])} days; launches {total}; /healthz answered 200 "
+        f"{healthz.get('/healthz', 0)} times during the chain (--status-port)")
+    if not healthz.get("/healthz"):
+        problems.append("(a): /healthz never answered 200 during the chain")
     if min(total["fused_value_grad"], total["fused_hessian_vector"], total["fused_hessian_stats_with_shifts"],
            total["ell_matvec"]) <= 0:
         problems.append(f"the retrain chain did not launch B1, B2, B3 with shifts and S1: {total}")
@@ -5185,12 +5384,76 @@ def _wait_for_line(path, needle, proc, timeout_s=180.0):
     raise RuntimeError(f"no '{needle}' in {path} after {timeout_s:.0f} s")
 
 
-def serving_replicas(torch, root, requests, v2, problems, smi):
+def fleetz_checks(repo, env, healthz, keep, problems):
+    """Phase 15 (e)'s ``python -m photon_ml_tpu_torch.cli.fleetz``: one
+    scrape of the replicas' status ports, whose merged request counter must
+    equal the sum of the replicas' own bit for bit; then artifacts mode over
+    phase 12 (b)'s and (f)'s metrics directories (under ``keep``), whose
+    merged counters must equal the sums of the two runs' final snapshots."""
+    import os
+    import subprocess
+    import tempfile
+    import urllib.request
+
+    from photon_ml_tpu_torch.obs import fleet
+
+    def counters(snapshot, prefix="photon_serving_requests_total"):
+        return {(m["name"], tuple(sorted(m["labels"].items()))): m["value"] for m in snapshot
+                if m["kind"] == "counter" and m["name"].startswith(prefix)}
+
+    cmd = [sys.executable, "-m", "photon_ml_tpu_torch.cli.fleetz", "--log-level", "WARNING"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd + [a for h in healthz for a in ("--scrape", f"http://{h}")], cwd=repo, env=env,
+                          capture_output=True, text=True, timeout=120)
+    scrape_s = time.perf_counter() - t0
+    own = {}
+    for h in healthz:
+        with urllib.request.urlopen(f"http://{h}/metrics", timeout=10) as m:
+            for key, v in counters(fleet.parse_prometheus(m.read().decode())).items():
+                own[key] = own.get(key, 0.0) + v
+    merged = counters(fleet.parse_prometheus(proc.stdout)) if proc.returncode == 0 else {}
+    log(f"  (e) cli.fleetz over {len(healthz)} replicas in {scrape_s:.2f} s (a process of its own): merged "
+        f"{merged}, the replicas' own summed {own}")
+    if proc.returncode != 0 or not merged or merged != own:
+        problems.append(f"(e) cli.fleetz: exit {proc.returncode}, merged {merged} against summed {own}: "
+                        f"{proc.stderr[-2000:]}")
+    dirs = [os.path.join(keep, d) for d in ("metrics-b", "metrics-f")] if keep else []
+    if not dirs or not all(os.path.isdir(d) for d in dirs):
+        log("  (e) cli.fleetz artifacts mode skipped: phase 12's metrics directories are not there")
+        return {"scrape_s": scrape_s, "merged": merged}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleetz_") as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd + dirs + ["--out", tmp], cwd=repo, env=env, capture_output=True, text=True,
+                              timeout=120)
+        artifacts_s = time.perf_counter() - t0
+        prom = open(os.path.join(tmp, "fleet.prom")).read() if proc.returncode == 0 else ""
+        trace = json.load(open(os.path.join(tmp, "fleet_trace.json"))) if proc.returncode == 0 else {}
+    got = counters(fleet.parse_prometheus(prom), prefix="photon_")
+    got = {k: v for k, v in got.items() if not k[0].startswith("photon_fleet_")}
+    want = {}
+    for d in dirs:
+        for key, v in counters(fleet.load_metrics_jsonl(os.path.join(d, "metrics.jsonl")).snapshot,
+                               prefix="photon_").items():
+            want[key] = want.get(key, 0.0) + v
+    # as the exposition renders them: 10 significant digits
+    want = {k: float(f"{v:.10g}") for k, v in want.items()}
+    n_spans = sum(e.get("ph") == "X" for e in trace.get("traceEvents", []))
+    log(f"  (e) cli.fleetz artifacts mode over phase 12 (b) and (f): {len(got)} merged counter series in "
+        f"{artifacts_s:.2f} s, the runs' sums {'equal' if got == want else 'DIFFER'}; stitched trace {n_spans} spans")
+    if proc.returncode != 0 or not got or got != want:
+        problems.append(f"(e) cli.fleetz artifacts mode: exit {proc.returncode}, {len(got)} series against "
+                        f"{len(want)}: {proc.stderr[-2000:]}")
+    return {"scrape_s": scrape_s, "merged": merged, "artifacts_s": artifacts_s, "series": len(got)}
+
+
+def serving_replicas(torch, root, requests, v2, problems, smi, keep=None):
     """(e) Two ``python -m photon_ml_tpu_torch.cli.serve`` replicas on the
     card over (c)'s serving root, with --listen and --status-port: /healthz
-    200 and /metrics with the request counter; then open-loop load through
-    a LeastLoadedFront over both, replica 0 killed mid-stream: every
-    request answered (against v2 at S1's bound) or shed with a type."""
+    200 and /metrics with the request counter; cli.fleetz over their status
+    ports and over phase 12's metrics directories (fleetz_checks); then
+    open-loop load through a LeastLoadedFront over both, replica 0 killed
+    mid-stream: every request answered (against v2 at S1's bound) or shed
+    with a type."""
     import json as _json
     import os
     import re as _re
@@ -5238,6 +5501,7 @@ def serving_replicas(torch, root, requests, v2, problems, smi):
                 with urllib.request.urlopen(f"http://{healthz[k]}/metrics", timeout=10) as m:
                     if b"photon_serving_requests_total" not in m.read():
                         problems.append(f"(e) replica {k}: no photon_serving_requests_total on /metrics")
+            fleet_out = fleetz_checks(repo, env, healthz, keep, problems)
             run = obs.RunTelemetry()
             with obs.use_run(run):
                 front = serving.LeastLoadedFront(addrs, healthz=healthz, connections_per_replica=4,
@@ -5278,10 +5542,10 @@ def serving_replicas(torch, root, requests, v2, problems, smi):
         f"replica 1 stopped with exit {rc1} on {smi}")
     return {"start_s": start_s, "sent": res.sent, "completed": res.completed, "shed": res.shed_total,
             "errors": res.errors, "lost": lost, "resubmits": resubmits, "routed": routed,
-            "p99_s": res.latency_p99_s}
+            "p99_s": res.latency_p99_s, "fleetz": fleet_out}
 
 
-def serving_phase(torch, seed, smi):
+def serving_phase(torch, seed, smi, keep=None):
     """Phase 15: (a) the engine's checks; (b) and (c) the closed-loop
     protocol with a live flip; (d) the open-loop knee; (e) cli.serve
     replicas behind the front, one killed. S1's launches counted from 0
@@ -5316,7 +5580,7 @@ def serving_phase(torch, seed, smi):
             f"{int(out['closed_loop']['requests'] + sum(s['sent'] for s in out['knee']['steps']))} requests")
         if not out["launches"]["ell_matvec"]:
             problems.append("the serving path launched no S1")
-        out["replicas"] = serving_replicas(torch, root, requests, v2, problems, smi)
+        out["replicas"] = serving_replicas(torch, root, requests, v2, problems, smi, keep)
     if problems:
         raise AssertionError("; ".join(problems))
     return out
@@ -5353,6 +5617,11 @@ def main() -> int:
     phases = Phases()
     smi = phases.run("card", card, torch)
     phases.run("build", build)
+    import shutil
+    import tempfile
+
+    # phase 12's metrics directories, kept for phase 15's cli.fleetz
+    keep = tempfile.mkdtemp(prefix="chip_smoke_keep_")
     errs = fe_launches = glmix = dp = times = solvers = io = game = tuning = retrain = served = None
     if want("check"):
         errs = phases.run("kernels vs float64 plain", check_kernels, torch, args.n, args.d, args.seed)
@@ -5392,8 +5661,6 @@ def main() -> int:
         del state
     torch.cuda.empty_cache()
     if want("game") or want("tuning") or want("retrain"):
-        import tempfile
-
         with tempfile.TemporaryDirectory(prefix="chip_smoke_game_") as root:
             fixture = phases.run("GAME fixture (phase 12 (a))", game_fixture, root, args.seed)
             if fixture is None:
@@ -5401,7 +5668,8 @@ def main() -> int:
                                                    ("retrain chain", "retrain")) if want(key)]
             else:
                 if want("game"):
-                    game = phases.run("GAME driver", game_phase, torch, fixture, smi)
+                    game = phases.run("GAME driver", game_phase, torch, fixture, smi,
+                                      (glmix or {}).get("busy_share"), keep)
                 torch.cuda.empty_cache()
                 if not want("tuning"):
                     pass
@@ -5417,7 +5685,7 @@ def main() -> int:
         state = None
     torch.cuda.empty_cache()
     if want("serving"):
-        served = phases.run("serving", serving_phase, torch, args.seed, smi)
+        served = phases.run("serving", serving_phase, torch, args.seed, smi, keep)
         torch.cuda.empty_cache()
     if want("s2") and not want("tuning"):
         tuning = phases.run("S2 (phase 13 (a))", s2_phase, torch, args.seed)
@@ -5438,6 +5706,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     if want("variants"):
         phases.run("ring variants", ring_variants, torch, args.n, args.d, args.seed)
+    shutil.rmtree(keep, ignore_errors=True)
     if only:
         phases.failed.append(f"only {sorted(only)} ran")
 
@@ -5536,7 +5805,8 @@ def main() -> int:
             + f"), {int(tr['checkpoint_saves'])} boundary checkpoints ({int(tr['checkpoint_bytes'])} bytes, "
               f"{tr['checkpoint_seconds']:.3f} s), validation AUC {tr['auc']:.6f}; killed and resumed "
               f"{rs['killed_s']:.2f} + {rs['wall_s']:.2f} s; cli.score {sc['rows_per_s']:.1f} rows/s "
-              f"(engine {sc['engine_s']:.3f} s) on {smi}")
+              f"(engine {sc['engine_s']:.3f} s); every telemetry flag on {game['observed']['wall_s']:.2f} s, "
+              f"the report built in {game['observed']['report_build_s']:.3f} s on {smi}")
     if tuning and "sweep" in tuning:
         sw, dr, rs = tuning["sweep"], tuning["driver"], tuning["resume"]
         log("tuning: lane sweeps " + ", ".join(

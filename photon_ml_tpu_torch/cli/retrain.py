@@ -33,9 +33,10 @@ the kernels' plain versions) in ``--dtype``. ``--normalization`` is the
 port's addition (the JAX package's retrain driver trains unnormalized): each
 day's fixed effects are normalized from that day's feature statistics, as
 ``cli.train`` does for its input; models, priors and warm starts stay in the
-original space. ``--status-port`` parses and raises (ROADMAP A13);
-``--distributed`` and ``--trial-lanes`` above 1 are refused by
-``plan.check_retrain_composition``, in the JAX package's words.
+original space. ``--status-port P`` serves ``/metrics``, ``/healthz`` and
+``/statusz`` while the chain runs (0: a free port); ``--distributed`` and
+``--trial-lanes`` above 1 are refused by ``plan.check_retrain_composition``,
+in the JAX package's words.
 """
 
 from __future__ import annotations
@@ -50,7 +51,6 @@ from ..device import resolve_device
 from ..estimators.game_estimator import GameEstimator
 from ..game import incremental
 from ..io.data import read_avro_dataset
-from ..plan import PlanError
 from ..robust import atomic_write_json, faults
 from ..utils.logging import setup_logging
 from .params import (
@@ -109,7 +109,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="directory for run telemetry (metrics.jsonl + metrics.prom): "
                         "photon_retrain_days_total{outcome}, photon_retrain_rejected_total{reason}, "
                         "photon_retrain_published_total, photon_retrain_stage_seconds{stage}")
-    p.add_argument("--status-port", type=int, default=None, help="ROADMAP A13")
+    p.add_argument("--status-port", type=int, default=None,
+                   help="serve live /metrics, /healthz and /statusz (with a `retrain` block: day index, "
+                        "outcomes, rejection reasons) while the chain runs (0 = a free port)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu (the kernels' plain versions)")
     p.add_argument("--dtype", default="float32", choices=sorted(DTYPES))
     return p
@@ -135,8 +137,6 @@ def run(argv: Optional[List[str]] = None) -> Dict:
     args = build_parser().parse_args(argv)
     setup_logging(args.log_level, args.log_file)
     faults.install_from_env()
-    if args.status_port is not None:
-        raise PlanError("--status-port is not ported yet (ROADMAP A13)")
 
     coords = [parse_coordinate(s) for s in (args.coordinate or [DEFAULT_COORDINATE])]
     # the illegal compositions are refused before any expensive set-up
@@ -212,14 +212,19 @@ def run(argv: Optional[List[str]] = None) -> Dict:
         device=device,
     )
 
-    run_t = prev_run = None
-    if args.metrics_out:
+    run_t = prev_run = status_server = None
+    if args.metrics_out or args.status_port is not None:
         run_t = obs.RunTelemetry()
-        os.makedirs(args.metrics_out, exist_ok=True)
-        for sink in (obs.JsonlSink(os.path.join(args.metrics_out, "metrics.jsonl")),
-                     obs.PrometheusSink(os.path.join(args.metrics_out, "metrics.prom"))):
-            run_t.register_listener(sink)
+        if args.metrics_out:
+            os.makedirs(args.metrics_out, exist_ok=True)
+            for sink in (obs.JsonlSink(os.path.join(args.metrics_out, "metrics.jsonl")),
+                         obs.PrometheusSink(os.path.join(args.metrics_out, "metrics.prom"))):
+                run_t.register_listener(sink)
         prev_run = obs.set_current_run(run_t)
+        if args.status_port is not None:
+            status_server = obs.IntrospectionServer(run_t, port=args.status_port)
+            logger.info("introspection endpoints -> http://127.0.0.1:%d/{metrics,healthz,statusz}",
+                        status_server.port)
     try:
         result = incremental.run_chain(
             estimator,
@@ -235,6 +240,8 @@ def run(argv: Optional[List[str]] = None) -> Dict:
             index_maps=index_maps,
         )
     finally:
+        if status_server is not None:
+            status_server.stop()
         if run_t is not None:
             run_t.close()
             obs.set_current_run(prev_run)

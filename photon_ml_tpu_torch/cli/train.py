@@ -37,9 +37,21 @@ completed unit); ``--checkpoint-every N`` adds boundary snapshots of the
 whole coordinate-descent state every N coordinate updates, and
 ``--resume`` continues from the newest valid one bit for bit.
 ``PHOTON_FAULTS`` injects faults at the port's sites
-(``robust/fault_sites.json``). ``--metrics-out DIR`` writes metrics.jsonl,
-metrics.prom and run_summary.json; ``--trace-out PATH`` writes the run's
-spans as JSON lines (one per span) with run_summary.json beside it.
+(``robust/fault_sites.json``).
+
+Telemetry, as in the JAX package: ``--metrics-out DIR`` writes
+metrics.jsonl, metrics.prom and run_summary.json, and installs a flight
+recorder that dumps ``DIR/flight/flight-<kind>-<n>.json`` when a solver
+diverges, an update is rejected or the run crashes; ``--trace-out PATH``
+writes the run's Chrome trace (one complete event per span, loadable at
+ui.perfetto.dev) and puts the per-sweep phase attribution under
+``timeline`` in run_summary.json (beside the trace without
+``--metrics-out``); ``--status-port P`` serves ``/metrics``, ``/healthz``
+and ``/statusz`` while the run lasts (0: a free port); ``--report-out DIR``
+writes report.json and report.html after the run, built from the artifacts
+on disk as ``cli.report`` rebuilds them (the metrics directory defaults to
+it). Memory is sampled at every sweep boundary and once at the end: host
+RSS and the run's card's allocator counters.
 
 Incremental training (GameTrainingDriver's warm start): ``--model-input-dir``
 warm-starts every coordinate from a saved GAME model; with
@@ -51,9 +63,7 @@ model and trains the rest. ``cli.retrain`` chains this day by day.
 
 These flags parse and raise, naming their ROADMAP item:
 ``--mesh-shape``, ``--distributed``, ``--collective-timeout`` and
-``--heartbeat-*`` (A10); ``--pipeline-depth`` above 1 (A7);
-``--status-port`` and ``--report-out`` (A13). The Chrome-trace timeline of
-``--trace-out`` is A13 as well.
+``--heartbeat-*`` (A10); ``--pipeline-depth`` above 1 (A7).
 """
 
 from __future__ import annotations
@@ -73,7 +83,7 @@ import numpy as np
 import torch
 
 from .. import obs
-from ..device import resolve_device
+from ..device import pin_device, resolve_device
 from ..estimators.game_estimator import GameEstimator, GameResult, GameTransformer
 from ..io.data import read_avro_dataset, read_avro_dataset_chunked, resolve_ingest_workers
 from ..io.model_io import load_game_model, save_game_model
@@ -176,11 +186,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log-level", default="INFO")
     p.add_argument("--metrics-out", default=None,
                    help="directory for run telemetry: metrics.jsonl (one line per span / per-sweep "
-                        "metrics flush), metrics.prom (Prometheus text) and run_summary.json")
+                        "metrics flush), metrics.prom (Prometheus text), run_summary.json and flight/ "
+                        "(flight-recorder postmortems of divergences, rejections and crashes)")
     p.add_argument("--trace-out", default=None,
-                   help="write the run's spans here as JSON lines, with run_summary.json beside it")
-    p.add_argument("--status-port", type=int, default=None, help="ROADMAP A13")
-    p.add_argument("--report-out", default=None, help="ROADMAP A13")
+                   help="write the run's Chrome trace here (ui.perfetto.dev); the per-sweep phase "
+                        "attribution goes under 'timeline' in run_summary.json")
+    p.add_argument("--status-port", type=int, default=None,
+                   help="serve live /metrics, /healthz and /statusz on this port while the run lasts "
+                        "(0 = a free port)")
+    p.add_argument("--report-out", default=None,
+                   help="write report.json and report.html here after the run, from the artifacts on "
+                        "disk (--metrics-out defaults to this directory)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu (the kernels' plain versions)")
     p.add_argument("--dtype", default="float32", choices=sorted(DTYPES))
     return p
@@ -195,8 +211,6 @@ def _refuse_unported(args) -> None:
         (args.collective_timeout is not None, "--collective-timeout", "A10"),
         (args.heartbeat_interval is not None or args.heartbeat_timeout is not None, "--heartbeat-*", "A10"),
         (args.pipeline_depth > 1, "--pipeline-depth above 1", "A7"),
-        (args.status_port is not None, "--status-port", "A13"),
-        (args.report_out is not None, "--report-out", "A13"),
     ]
     for refused, what, item in refusals:
         if refused:
@@ -220,46 +234,67 @@ def run(argv: Optional[List[str]] = None) -> Dict:
     run_t = None
     prev_run = None
     sinks = []
-    if args.metrics_out or args.trace_out:
+    recorder = None
+    flight = None
+    status_server = None
+    if args.report_out and not args.metrics_out:
+        # the report is rebuilt from the artifacts on disk: without a
+        # metrics directory its trajectories would have nothing to read, so
+        # the report directory doubles as it
+        args.metrics_out = args.report_out
+    if args.metrics_out or args.trace_out or args.status_port is not None:
         run_t = obs.RunTelemetry()
         obs.record_build_info(run_t.registry)
         if args.metrics_out:
             os.makedirs(args.metrics_out, exist_ok=True)
+            # anomaly postmortems (solver divergence, coordinate rejection,
+            # crash): the last window of spans and metrics, one dump an
+            # incident
+            flight = obs.FlightRecorder(os.path.join(args.metrics_out, "flight"), run=run_t)
             sinks += [
                 obs.JsonlSink(os.path.join(args.metrics_out, "metrics.jsonl")),
                 obs.PrometheusSink(os.path.join(args.metrics_out, "metrics.prom")),
+                flight,
             ]
         if args.trace_out:
             os.makedirs(os.path.dirname(os.path.abspath(args.trace_out)), exist_ok=True)
-            sinks.append(_SpanSink(args.trace_out))
+            recorder = obs.TimelineRecorder()
+            sinks.append(recorder)
         for sink in sinks:
             run_t.register_listener(sink)
         prev_run = obs.set_current_run(run_t)
+        if args.status_port is not None:
+            status_server = obs.IntrospectionServer(run_t, port=args.status_port)
+            logger.info("introspection endpoints -> http://127.0.0.1:%d/{metrics,healthz,statusz}",
+                        status_server.port)
     try:
-        summary = _run_training(args, device, run_t, sinks, t_run0)
-    except BaseException:
+        summary = _run_training(args, device, run_t, sinks, t_run0, recorder)
+    except BaseException as exc:
         # crash-flush: an abort (an injected SimulatedKill included) still
-        # leaves run_summary.json, marked "aborted"
+        # dumps its postmortem and leaves run_summary.json, marked
+        # "aborted", with the timeline of the spans that closed before it
+        if flight is not None:
+            try:
+                flight.trigger("crash", detail=f"{type(exc).__name__}: {exc}")
+            except Exception:
+                obs.swallowed_error("cli.flightrec_crash_dump")
         if run_t is not None:
             try:
-                _write_run_summary(args, run_t, t_run0, aborted=True)
+                _write_run_summary(args, run_t, recorder, t_run0, aborted=True)
             except Exception:
                 obs.swallowed_error("cli.run_summary_flush")
                 logger.exception("could not flush partial run summary")
         raise
     finally:
+        if status_server is not None:
+            status_server.stop()
         if run_t is not None:
+            # the final flush: the last metrics.jsonl line and metrics.prom
             run_t.close()
             obs.set_current_run(prev_run)
+    if args.report_out:
+        _emit_report(args)
     return summary
-
-
-class _SpanSink(obs.JsonlSink):
-    """``--trace-out``: the JSONL sink, spans only."""
-
-    def handle(self, event) -> None:
-        if isinstance(event, obs.SpanEvent):
-            super().handle(event)
 
 
 def _explain_plan(args) -> Dict:
@@ -317,7 +352,7 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _run_training(args, device, run_t, sinks, t_run0) -> Dict:
+def _run_training(args, device, run_t, sinks, t_run0, recorder) -> Dict:
     dtype = DTYPES[args.dtype]
     stage_seconds: Dict[str, float] = {}
     t_stage = [time.perf_counter()]
@@ -543,15 +578,21 @@ def _run_training(args, device, run_t, sinks, t_run0) -> Dict:
     summary["wall_seconds"] = time.perf_counter() - t_run0
     atomic_write_json(os.path.join(args.output_dir, "training-summary.json"), summary, indent=2, default=float)
     if run_t is not None:
-        _write_run_summary(args, run_t, t_run0, summary=summary)
+        _write_run_summary(args, run_t, recorder, t_run0, summary=summary)
     logger.info("saved %d model(s) to %s", len(to_save), args.output_dir)
     return summary
 
 
-def _write_run_summary(args, run_t, t_run0, summary=None, aborted=False) -> None:
+def _write_run_summary(args, run_t, recorder, t_run0, summary=None, aborted=False) -> None:
     """Write run_summary.json from the run's registry (beside the metrics,
-    else beside the trace). On an abort ``summary`` is None and the
-    document carries ``"aborted": true``."""
+    else beside the trace) and the Chrome trace. On an abort ``summary`` is
+    None, the document carries ``"aborted": true`` and the timeline holds
+    every span that closed before the abort."""
+    # a final sample, so that the watermarks are there even for a run that
+    # never reached a sweep boundary: the run's card, its index filled in on
+    # the thread that ran it
+    card = pin_device(args.device)
+    obs.sample_memory(run_t.registry, devices=[card] if card.type == "cuda" else ())
     doc = obs.build_run_summary(run_t.registry, total_wall_seconds=time.perf_counter() - t_run0)
     doc["task"] = args.task if summary is None else summary["task"]
     plan = getattr(run_t, "execution_plan", None)
@@ -562,8 +603,41 @@ def _write_run_summary(args, run_t, t_run0, summary=None, aborted=False) -> None
         doc["stage_seconds"] = summary["stage_seconds"]
     if aborted:
         doc["aborted"] = True
-    summary_dir = args.metrics_out or os.path.dirname(os.path.abspath(args.trace_out))
-    atomic_write_json(os.path.join(summary_dir, "run_summary.json"), doc, indent=2, default=float)
+    if recorder is not None:
+        # on the normal path the "train" span has closed by here, so the
+        # timeline holds the whole run
+        doc["timeline"] = recorder.phase_attribution()
+        recorder.write_chrome_trace(args.trace_out)
+        logger.info("chrome trace -> %s (load at ui.perfetto.dev)", args.trace_out)
+    if args.metrics_out or args.trace_out:
+        # --trace-out without --metrics-out: beside the trace
+        summary_dir = args.metrics_out or os.path.dirname(os.path.abspath(args.trace_out))
+        atomic_write_json(os.path.join(summary_dir, "run_summary.json"), doc, indent=2, default=float)
+
+
+def _emit_report(args) -> None:
+    """Build report.json and report.html under --report-out from the
+    artifacts just written to disk (run_summary.json, metrics.jsonl,
+    training-summary.json, the saved models), not from any in-memory state,
+    so that a later ``cli.report`` over the same directory rebuilds
+    report.json byte for byte."""
+    from ..obs import report as report_mod
+
+    try:
+        inputs = report_mod.collect_training_inputs(
+            summary_dir=args.metrics_out,
+            output_dir=args.output_dir,
+            checkpoint_dir=args.checkpoint_dir,
+            feature_index_dir=args.feature_index_dir,
+        )
+        paths = report_mod.write_report(report_mod.build_report(inputs), args.report_out)
+    except Exception:
+        # the report is a post-hoc convenience: a rendering fault must not
+        # turn a finished (and saved) training run into a failure
+        obs.swallowed_error("cli.report_out")
+        logger.exception("training report generation failed")
+        return
+    logger.info("training report -> %s", paths["html"])
 
 
 def _resolve_validation(validation):

@@ -24,10 +24,14 @@ an update's fresh scores (``robust.faults``).
 Telemetry: the ``cd.sweep``, ``cd.coordinate``, ``cd.eval`` and
 ``cd.checkpoint`` spans, the timed train and score sections, and, when a
 sink listens (``obs.active()``), each update's tracker metrics and one
-metrics flush per sweep. The result carries each coordinate's raw
-``SolverResult`` and its tracker. Sweep pipelining (``pipeline_depth`` > 1)
-is ROADMAP A7; the distributed sweep barrier and memory sampling are A10
-and A13.
+metrics flush per sweep. The run's status board (``/statusz``) holds the
+current sweep and coordinate and the accepted losses. At every sweep
+boundary ``obs.sample_memory`` records host RSS and, for the cards the
+scores live on, the caching allocator's counters (host-side reads, no
+device fetch) into the ``photon_mem_*`` gauges, with or without a sink.
+The result carries each coordinate's raw ``SolverResult`` and its
+tracker. Sweep pipelining (``pipeline_depth`` > 1) is ROADMAP A7; the
+distributed sweep barrier is A10.
 
 Over coordinates sharded across a data-parallel group, every rank runs this
 loop alike: scores, residuals, models and the guard's fetch are replicated
@@ -57,6 +61,13 @@ from .coordinate import Coordinate, ModelCoordinate
 logger = logging.getLogger("photon_ml_tpu_torch")
 
 Tensor = torch.Tensor
+
+
+def _score_cards(scores: Mapping[str, Tensor]) -> List[torch.device]:
+    """The cards the coordinates' scores live on, each with its index (a
+    CUDA tensor's device carries one), for memory sampling; none on the
+    CPU, where only host memory is sampled."""
+    return sorted({t.device for t in scores.values() if t.device.type == "cuda"}, key=str)
 
 
 @dataclasses.dataclass
@@ -171,6 +182,7 @@ class CoordinateDescent:
         self.resume_state = resume_state
         self.divergence_guard = divergence_guard
         self.rejection_tolerance = rejection_tolerance
+        self.pipeline_depth = pipeline_depth
         # locked coordinates (ModelCoordinate) score their pretrained model
         # and never train: at least one coordinate must train
         if all(isinstance(c, ModelCoordinate) for c in self.coordinates.values()):
@@ -231,9 +243,10 @@ class CoordinateDescent:
             best_models = dict(models)
 
         registry = obs.current_run().registry
+        status = obs.current_run().status
         for it in range(start_it, self.n_iterations):
             first = start_idx if it == start_it else 0
-            with obs.span("cd.sweep", iteration=it):
+            with obs.span("cd.sweep", iteration=it, pipeline_depth=self.pipeline_depth):
                 for idx in range(first, len(self.order)):
                     name = self.order[idx]
                     coordinate = coords[name]
@@ -244,6 +257,9 @@ class CoordinateDescent:
                         residual = summed - own if own is not None else summed
                     group = getattr(coordinate, "group", None)
                     c0 = (group.collectives, group.collective_seconds) if group is not None else None
+                    # the current position for /statusz scrapes: host dict
+                    # writes, live with or without a sink
+                    status.update(sweep=it, n_sweeps=self.n_iterations, coordinate=name, coordinate_index=idx)
                     t0 = time.perf_counter()
                     with obs.span("cd.coordinate", iteration=it, coordinate=name):
                         with timed(f"cd iter {it} coordinate {name}: train", phase="solve", coordinate=name):
@@ -283,6 +299,7 @@ class CoordinateDescent:
                             registry.gauge(
                                 "photon_cd_accepted_loss", "last accepted total train loss per coordinate"
                             ).labels(coordinate=name).set(train_loss)
+                            status.update(accepted_losses={k: float(v) for k, v in train_losses.items()})
                         if self.validation is not None and self.validation_frequency == "COORDINATE":
                             best_eval, best_models = self._track_best(
                                 models, evaluations, best_eval, best_models, it, name
@@ -314,6 +331,10 @@ class CoordinateDescent:
                 if self.checkpoint_fn is not None:
                     with obs.span("cd.checkpoint", phase="checkpoint"):
                         self.checkpoint_fn(it, dict(models))
+            # memory watermarks at the sweep boundary: the allocator's
+            # counters and /proc, read on the host, so that the peaks land
+            # in run_summary.json for every run
+            obs.sample_memory(registry, devices=_score_cards(scores))
             if obs.active():
                 # one metrics line per sweep in the JSONL stream
                 obs.current_run().flush_metrics()

@@ -267,6 +267,8 @@ def fit_lanes(
                             ):
                                 best_eval[lane] = res
                                 best_models[lane] = models_l
+            # the sweep boundary's memory watermarks, as in coordinate descent
+            obs.sample_memory(registry, devices=[summed.device] if summed.is_cuda else ())
     finally:
         lanes_gauge.set(0)
 

@@ -19,10 +19,15 @@ nothing that would need a device fetch runs. ``cli.train --metrics-out DIR``
 and ``cli.serve --metrics-out DIR`` wire this up end to end; ``cli.serve
 --status-port`` mounts the live ``/metrics``, ``/healthz`` and ``/statusz``
 endpoints (``http``), ``memory`` samples host and device memory, and
-``flightrec`` dumps a postmortem when the shed rate spikes. The timeline
-profiler, diagnostics, fleet aggregation and the report are ROADMAP A13.
+``flightrec`` dumps a postmortem when the shed rate spikes, a solver
+diverges, an update is rejected or a run crashes. ``cli.train --trace-out``
+writes the run's Chrome trace and per-sweep phase attribution
+(``timeline``); ``report`` and ``diagnostics`` build the training report
+from the artifacts on disk (``cli.train --report-out``, ``cli.report``);
+``fleet`` merges K processes' metrics and span streams (``cli.fleetz``).
 """
 
+from . import fleet
 from .flightrec import FlightRecorder
 from .http import IntrospectionServer, compose_statusz
 from .memory import memory_block, read_host_memory, sample_memory
@@ -42,6 +47,7 @@ from .run import (
     use_run,
 )
 from .sinks import JsonlSink, PrometheusSink
+from .timeline import TimelineRecorder, interval_overlap_seconds, overlap_ratio
 from .tracing import (
     Span,
     SpanEvent,
@@ -67,6 +73,7 @@ __all__ = [
     "Span",
     "StatusBoard",
     "SpanEvent",
+    "TimelineRecorder",
     "active",
     "add_device_fetch_bytes",
     "build_run_summary",
@@ -74,10 +81,13 @@ __all__ = [
     "compose_statusz",
     "current_run",
     "current_span",
+    "fleet",
     "get_process_index",
     "get_replica_id",
     "histogram_quantile",
+    "interval_overlap_seconds",
     "memory_block",
+    "overlap_ratio",
     "read_host_memory",
     "record_build_info",
     "record_solver_metrics",

@@ -1083,6 +1083,62 @@ def test_game_driver_on_card_launches_the_kernels_and_resumes_bitwise(cuda, tmp_
         assert torch.equal(x, y)
 
 
+def test_game_driver_on_card_observed_run_launches_and_saves_the_same(cuda, tmp_path, monkeypatch):
+    """cli.train with --metrics-out, --trace-out, --status-port and
+    --report-out launches B1, B2, B3 with shifts and S1 as often as the bare
+    run and saves the same bits; run_summary.json holds the run's card's
+    allocator peak under its cuda:N label, and the timeline one entry a
+    sweep; a memory sample from another thread with the pinned device reads
+    that card."""
+    import json
+    import threading
+
+    from photon_ml_tpu_torch import obs
+    from photon_ml_tpu_torch.cli import train
+    from photon_ml_tpu_torch.device import pin_device
+    from photon_ml_tpu_torch.io import FeatureShardConfig, load_game_model, read_avro_dataset
+
+    monkeypatch.delenv("PHOTON_FAULTS", raising=False)
+    train_p, val_p = _game_fixture(tmp_path)
+    argv = ["--input-data", train_p, "--validation-data", val_p, *_GAME_SHARDS,
+            "--coordinate", "name=global,shard=globalShard,optimizer=TRON,tolerance=1e-6,max.iter=10,"
+                            "reg.type=L2,reg.weights=1,variance=SIMPLE",
+            "--coordinate", "name=per-user,shard=userShard,re.type=userId,tolerance=1e-6,max.iter=30,"
+                            "reg.type=L2,reg.weights=1",
+            "--normalization", "STANDARDIZATION", "--coordinate-descent-iterations", "2",
+            "--evaluators", "AUC", "--log-level", "WARNING"]
+    counts = []
+    for out, extra in (("bare", []), ("observed", ["--metrics-out", str(tmp_path / "m"), "--trace-out",
+                                                   str(tmp_path / "t.json"), "--status-port", "0",
+                                                   "--report-out", str(tmp_path / "r")])):
+        fg.reset_launch_counts()
+        sparse.reset_launch_counts()
+        train.run(argv + ["--output-dir", str(tmp_path / out), *extra])
+        counts.append((dict(fg.LAUNCHES), fg.SHIFT_LAUNCHES["fused_hessian_stats"],
+                       sparse.SPARSE_LAUNCHES["ell_matvec"]))
+    assert counts[0] == counts[1] and counts[0][1] > 0 and counts[0][2] > 0
+    _, maps = read_avro_dataset(train_p, {"globalShard": FeatureShardConfig(("features",)),
+                                          "userShard": FeatureShardConfig(("userFeatures",))})
+    a, b = (load_game_model(str(tmp_path / o / "models" / "best"), maps, task="logistic_regression")
+            for o in ("bare", "observed"))
+    assert torch.equal(a["global"].model.coefficients.means, b["global"].model.coefficients.means)
+    assert torch.equal(a["per-user"].coef_values, b["per-user"].coef_values)
+
+    card = pin_device("cuda")
+    rs = json.load(open(tmp_path / "m" / "run_summary.json"))
+    peak = [m["value"] for m in rs["metrics"]
+            if m["name"] == "photon_mem_device_peak_bytes_in_use" and m["labels"] == {"device": str(card)}]
+    assert len(peak) == 1 and 0 < peak[0] <= torch.cuda.get_device_properties(card).total_memory
+    assert rs["timeline"]["n_sweeps"] == 2 and (tmp_path / "r" / "report.json").exists()
+    registry = obs.MetricsRegistry()
+    reader = threading.Thread(target=obs.sample_memory, args=(registry,), kwargs={"devices": [card]})
+    reader.start()
+    reader.join(timeout=60)
+    assert not reader.is_alive()
+    assert [m["labels"] for m in registry.snapshot() if m["name"] == "photon_mem_device_bytes_limit"] == [
+        {"device": str(card)}]
+
+
 def test_retrain_chain_on_card_day_fixed_effects_match_plain(cuda, tmp_path):
     """A three-day chain (``game.incremental.run_chain``) on the card: a
     TRON + SIMPLE fixed effect and a per-user L-BFGS effect, both centred on

@@ -723,5 +723,7 @@ def test_retrain_cli_refusals(retrain_feed, tmp_path):
         with pytest.raises(ValueError) as theirs:
             ref_retrain.run(common + extra)
         assert str(ours.value) == str(theirs.value)
-    with pytest.raises(PlanError, match="ROADMAP A13"):
-        retrain.run(common + ["--status-port", "0", "--device", "cpu"])
+    # --status-port is no refusal: the composition check still runs first,
+    # before the server starts
+    with pytest.raises(PlanError, match="not composable with --trial-lanes"):
+        retrain.run(common + ["--status-port", "0", "--trial-lanes", "4", "--device", "cpu"])
