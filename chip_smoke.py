@@ -295,11 +295,34 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    merged counter the sum of the two runs', as rendered); then open-loop load
    through a LeastLoadedFront over both with replica 0 killed mid-stream:
    every request answered or shed with a type.
+16. out-of-core training (run after phase 12, on its fixture; phase 5
+   first), at phase 5's full width with its X (2.05 GB) in page-locked host
+   memory: (a) the streamed objective under a 256 MiB budget (16 slices of
+   32,768 rows) against the resident one at w = 0 and at the resident
+   solve's w (value rtol 2e-6; gradient and Hv max-abs <= 3e-5 * max(|ref|,
+   1), the gradient at the solution held against the float64 plain version
+   no further than the resident kernel's), two passes bitwise alike, each
+   slice's slot row against its plain version, B1 / B2 launched slices x
+   passes and the sum once a pass, a pass's wall and copy rate beside a 1
+   GiB pinned copy_'s; (b) the streamed TRON solve at depth 1 and 2
+   against the resident solve (rtol 1e-3 / atol 1e-5; launches, staged
+   bytes, overlap ratio, the solve's peak allocator bytes, two slices
+   within the budget), then an L-BFGS solve over ELL slices at phase 9's
+   shape through S1 against the resident ELL solve (loss rtol 1e-5); (c)
+   the random effect in entity slices, its largest size bucket cut into 5:
+   the vmapped solve bitwise the in-memory one (V1 launched on both axes),
+   the packed one at the packed bound; (d) a two-sweep fit over both
+   streamed coordinates at depth 1 and 2, models and ledger bitwise alike,
+   the evaluations on the lane's thread; (e) cli.train on phase 12's
+   fixture with hbm.budget.mb=256 on both coordinates and --pipeline-depth
+   2: the best model against (b)'s of phase 12 at the solve bounds, the
+   report's streaming block filled.
 
     python3 chip_smoke.py --only timing    # card, build, then one phase
 
-runs a subset of phases 3-15 (check, fe, glmix, dp, nccl, solvers, io, game, tuning, s2, sparse,
-timing, variants, retrain, serving) and then reports not ok; "s2" is phase 13 (a) alone; "solvers", "io", "game" and "tuning" run phase 5 first ("game" and
+runs a subset of phases 3-16 (check, fe, glmix, dp, nccl, solvers, io, game, streaming, tuning, s2,
+sparse, timing, variants, retrain, serving) and then reports not ok; "streaming" runs phase 5,
+writes phase 12's fixture and runs its (b) before phase 16; "s2" is phase 13 (a) alone; "solvers", "io", "game" and "tuning" run phase 5 first ("game" and
 "tuning" write phase 12's fixture first); "retrain" writes phase 12's
 fixture and runs phase 14; "nccl" is phase 6 (c) alone after
 phase 5 (for a machine with several cards: one NCCL rank per card).
@@ -3887,6 +3910,8 @@ def game_phase(torch, fixture, smi, busy_share=None, keep=None):
     torch.cuda.empty_cache()
     out["observed"] = game_observed(torch, train, validation, root, problems, b, busy_share)
     out["train"] = {k: v for k, v in b.items() if k not in ("maps", "out")}
+    # phase 16 (e) holds its streamed fit against (b)'s best model
+    out["best"] = {"maps": b["maps"], "out": b["out"], "auc": b["auc"]}
     if keep is not None:
         for name, src in (("metrics-b", os.path.join(root, "metrics-b")), ("metrics-f", out["observed"]["metrics_dir"])):
             shutil.copytree(src, os.path.join(keep, name))
@@ -5586,6 +5611,609 @@ def serving_phase(torch, seed, smi, keep=None):
     return out
 
 
+# ------------------------------------------- phase 16: out-of-core training
+#
+# The streamed fixed effect (game/fe_streaming.py: row slices of the host
+# batch through B1 / B2 in slot mode and the rank-order sum; ELL slices
+# through S1), the streamed random effect (game/streaming.py: entity slices
+# through the vmapped solve's V1 or the packed solve) and the pipelined
+# sweep (game/pipeline.py), at phase 5's full width.
+
+STREAM_FE_BUDGET = 256 << 20  # 16 slices of 32,768 rows of phase 5's X
+STREAM_ELL_BUDGET = 64 << 20  # 5 slices of phase 9's ELL rows
+STREAM_RE_SLICES = 4  # entity slices the budget of (c) cuts the largest size bucket into
+STREAM_PASSES = 5  # timed value+grad passes of (a)
+STREAM_GAME_BUDGET_MB = 256  # hbm.budget.mb of (e) on both coordinates
+
+
+def _host_rows(torch, data):
+    """Phase 5's fixed-effect rows as a streamed batch's page-locked host
+    planes (the pinning timed)."""
+    from photon_ml_tpu_torch.game.data import HostRowBatch
+
+    gx, y, _, _ = data
+    n, d = gx.shape
+    t0 = time.perf_counter()
+    host = HostRowBatch(dim=d, labels=torch.from_numpy(y), offsets=torch.zeros(n), weights=torch.ones(n),
+                        dense=torch.from_numpy(gx).pin_memory())
+    return host, time.perf_counter() - t0
+
+
+def pinned_copy_gbps(torch, src, dst, reps=3):
+    """A page-locked host-to-card ``copy_``'s rate (GB/s, CUDA events) from
+    ``src`` into ``dst``: the ceiling of a streamed pass."""
+    dst.copy_(src, non_blocking=True)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        dst.copy_(src, non_blocking=True)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / reps
+    return src.numel() * src.element_size() / (ms / 1e3) / 1e9
+
+
+def _vec_err(got, ref):
+    """(max-abs error, bound 3e-5 * max(|ref|, 1))."""
+    got, ref = got.double().cpu(), ref.double().cpu()
+    return float((got - ref).abs().max()), 3e-5 * max(float(ref.abs().max()), 1.0)
+
+
+def stream_objective(torch, state, host, problems):
+    """(a) One value+grad and one Hv at the resident solve's w, streamed
+    against resident; two passes bitwise alike; each slice's slot row
+    against the plain version's; the launches; the pass's wall."""
+    from photon_ml_tpu_torch.game.fe_streaming import StreamedFEObjective
+    from photon_ml_tpu_torch.ops import fused_glm as fg
+    from photon_ml_tpu_torch.ops.features import FeatureMatrix, LabeledBatch
+    from photon_ml_tpu_torch.ops.glm import GLMObjective
+    from photon_ml_tpu_torch.ops.losses import get_loss
+
+    dev = torch.device("cuda")
+    loss = get_loss("logistic_regression")
+    batch = state["coords"]["global"].dataset.batch
+    w = state["result"].model["global"].coefficients.means.to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    v = torch.randn(host.dim, generator=gen, device=dev)
+    obj = StreamedFEObjective(loss, host, STREAM_FE_BUDGET, l2_weight=1.0, device=dev)
+    ref = GLMObjective(loss=loss, batch=batch, l2=1.0)
+    fg.reset_launch_counts()
+    (v1, g1), (v2, g2) = obj.value_and_grad(w), obj.value_and_grad(w)
+    hv1, hv2 = obj.hessian_vector(w, v), obj.hessian_vector(w, v)
+    torch.cuda.synchronize()
+    launches = {"B1": fg.LAUNCHES["fused_value_grad"], "B2": fg.LAUNCHES["fused_hessian_vector"],
+                "B3": fg.LAUNCHES["fused_hessian_stats"], "rank_order_sum": fg.SUM_LAUNCHES["rank_order_sum"],
+                "ring_bulk_copy": fg.ROUTES["ring_bulk_copy"]}
+    k = obj.n_slices
+    log(f"  (a) streamed objective: n={obj.n_rows} d={obj.dim}, budget {STREAM_FE_BUDGET} bytes -> "
+        f"{obj.step} rows a slice, {k} slices; 2 value+grad and 2 Hv passes launched {launches}")
+    if (launches["B1"], launches["B2"], launches["B3"], launches["rank_order_sum"]) != (2 * k, 2 * k, 0, 4):
+        problems.append(f"(a) B1 / B2 / sum launches {launches} are not slices x passes ({k} x 2, 4 sums)")
+    if launches["ring_bulk_copy"] != 4 * k:
+        problems.append(f"(a) the slices did not all run the ring's bulk-copy route: {launches}")
+    same = float(v1) == float(v2) and torch.equal(g1, g2) and torch.equal(hv1, hv2)
+    log(f"  (a) two passes bitwise alike: {same}")
+    if not same:
+        problems.append("(a) two streamed passes differ")
+    # streamed against resident, at the solve's first evaluation (w = 0)
+    # and at its last (the resident solve's w): the value at rtol 2e-6, the
+    # gradient and Hv at max-abs <= 3e-5 * max(|ref|, 1). At the solution
+    # the gradient's column sums cancel to |g| < 1, where that bound is an
+    # absolute 3e-5, below the f32 rounding of either path's column sums
+    # (about 1e-4 for 500,000 rows of terms of 0.1-1): there both are held
+    # against the float64 plain version, the streamed gradient no further
+    # from it than the resident kernel's
+    x64 = LabeledBatch(FeatureMatrix(dim=batch.dim, dense=batch.features.dense.double()), batch.labels.double(),
+                       batch.offsets.double(), batch.weights.double())
+    exact = GLMObjective(loss=loss, batch=x64, l2=1.0, plain=True)
+    errs = {}
+    for where, at in (("w=0", torch.zeros_like(w)), ("w*", w)):
+        (sv, sg), (rv, rg) = obj.value_and_grad(at), ref.value_and_grad(at)
+        shv, rhv = obj.hessian_vector(at, v), ref.hessian_vector(at, v)
+        rel = abs(float(sv) - float(rv)) / abs(float(rv))
+        e = {"value_rel": rel, "grad": _vec_err(sg, rg), "hv": _vec_err(shv, rhv)}
+        held = rel <= 2e-6 and e["hv"][0] <= e["hv"][1]
+        if where == "w*":
+            _, xg = exact.value_and_grad(at.double())
+            e["grad_vs_float64"] = {"streamed": _vec_err(sg, xg), "resident": _vec_err(rg, xg)}
+            held = held and e["grad_vs_float64"]["streamed"][0] <= e["grad_vs_float64"]["resident"][0]
+        else:
+            held = held and e["grad"][0] <= e["grad"][1]
+        log(f"  (a) streamed vs resident at {where}: value rel {rel:.3e} (rtol 2e-6), grad {e['grad'][0]:.3e} "
+            f"(bound {e['grad'][1]:.3e}), Hv {e['hv'][0]:.3e} (bound {e['hv'][1]:.3e})"
+            + ("" if where != "w*" else f"; grad vs float64: streamed {e['grad_vs_float64']['streamed'][0]:.3e}, "
+               f"resident {e['grad_vs_float64']['resident'][0]:.3e} (bound {e['grad_vs_float64']['resident'][1]:.3e})")
+            + f" {'ok' if held else 'MISS'}")
+        if not held:
+            problems.append(f"(a) streamed and resident objectives disagree at {where}: {e}")
+        errs[where] = e
+    del x64, exact
+    # each slice's kernel against its plain version: the slot rows
+    plain = StreamedFEObjective(loss, host, STREAM_FE_BUDGET, l2_weight=1.0, device=dev, plain=True)
+    plain.value_and_grad(w)
+    plain.hessian_vector(w, v)
+    worst = {}
+    d = obj.dim
+    for mode, name in ((fg.VG, "fused_value_grad"), (fg.HV, "fused_hessian_vector")):
+        got, want = obj._slots[mode], plain._slots[mode]
+        e = 0.0
+        for s in range(k):
+            err, bound = _vec_err(got[s, :d], want[s, :d])
+            e = max(e, err)
+            if err > bound:
+                problems.append(f"(a) slice {s}'s {name} disagrees with its plain version ({err:.3e} > {bound:.3e})")
+        if mode == fg.VG:
+            vrel = float(((got[:, d] - want[:, d]).abs() / want[:, d].abs()).max())
+            if vrel > 2e-6:
+                problems.append(f"(a) a slice's value disagrees with its plain version (rel {vrel:.3e})")
+        worst[name] = e
+    log(f"  (a) each slice's slot row vs its plain version: worst max-abs {worst}")
+    del plain
+    # the pass's wall (host clock around a synchronize) in turns with a
+    # 1 GiB pinned copy_'s rate, so that both see the same state of the
+    # host link; the achieved rate over the batch's own n*d*itemsize bytes
+    src = torch.empty(1 << 30, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    walls, rates = [], []
+    useful = obj.n_rows * obj.dim * host.dense.element_size()
+    for _ in range(STREAM_PASSES):
+        before = obj.stats["staged_bytes"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        obj.value_and_grad(w)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if obj.stats["staged_bytes"] - before != useful:
+            problems.append(f"(a) a pass staged {obj.stats['staged_bytes'] - before} bytes, not the batch's {useful}")
+        rates.append(pinned_copy_gbps(torch, src, dst))
+    del src, dst
+    pass_s = sorted(walls)[len(walls) // 2]
+    ceiling = sorted(rates)[len(rates) // 2]
+    achieved = useful / pass_s / 1e9
+    predicted_s = useful / (ceiling * 1e9)
+    log(f"  (a) value+grad pass: median wall {pass_s * 1e3:.3f} ms of {STREAM_PASSES} "
+        f"({', '.join(f'{w_ * 1e3:.3f}' for w_ in walls)}), {useful} bytes (n*d*itemsize) staged a pass: "
+        f"{achieved:.2f} GB/s against a 1 GiB pinned copy_'s median {ceiling:.2f} GB/s, taken in turns with the "
+        f"passes ({', '.join(f'{r:.2f}' for r in rates)}); n*d*itemsize at that rate {predicted_s * 1e3:.3f} ms "
+        f"(ratio {pass_s / predicted_s:.3f})")
+    return {"n_slices": k, "step": obj.step, "launches": launches, "errors": errs, "slice_errors": worst,
+            "pass_ms": pass_s * 1e3, "pass_walls_ms": [x * 1e3 for x in walls], "staged_bytes_per_pass": useful,
+            "achieved_gbps": achieved, "pinned_copy_gbps": ceiling, "pinned_copy_gbps_runs": rates,
+            "predicted_pass_ms": predicted_s * 1e3}
+
+
+def _stream_metrics(run, site):
+    """The photon_stream_* series of ``site`` in ``run``'s registry."""
+    out = {}
+    for m in run.registry.snapshot():
+        if m["name"].startswith("photon_stream_") and m["labels"].get("site") == site:
+            key = m["name"][len("photon_stream_"):]
+            kind = m["labels"].get("kind")
+            out[f"{key}:{kind}" if kind else key] = m.get("value")
+    return out
+
+
+def stream_solves(torch, state, host, seed, problems):
+    """(b) The streamed TRON solve against the resident solve (launches,
+    wall, staged bytes, peak allocator bytes; depth 2's overlap), then an
+    L-BFGS solve over ELL slices at phase 9's sparse shape through S1,
+    against the resident ELL solve."""
+    from photon_ml_tpu_torch import obs
+    from photon_ml_tpu_torch.game import GLMOptimizationConfig, GLMProblem, pipeline
+    from photon_ml_tpu_torch.game.data import HostRowBatch
+    from photon_ml_tpu_torch.io.data import RawDataset
+    from photon_ml_tpu_torch.ops import fused_glm as fg
+    from photon_ml_tpu_torch.ops import sparse
+    from photon_ml_tpu_torch.ops.regularization import RegularizationContext
+    from photon_ml_tpu_torch.optimize import OptimizerConfig, OptimizerType
+
+    reg = dict(regularization=RegularizationContext("L2"), reg_weight=1.0)
+    tron = GLMProblem("logistic_regression", GLMOptimizationConfig(
+        optimizer=OptimizerConfig(optimizer_type=OptimizerType.TRON, tolerance=1e-6, max_iterations=10), **reg))
+    batch = state["coords"]["global"].dataset.batch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model_r, res_r = tron.run(batch)
+    torch.cuda.synchronize()
+    resident_s = time.perf_counter() - t0
+    out = {"resident_s": resident_s}
+    for depth in (1, 2):
+        run = obs.RunTelemetry()
+        fg.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with obs.use_run(run), pipeline.pipelined(depth):
+            model_s, res_s = tron.run_streamed(host, STREAM_FE_BUDGET, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        m = _stream_metrics(run, "fe.train")
+        vg, hvp = int(m["passes_total:vg"]), int(m["passes_total:hvp"])
+        slices = int(m["slices_total"]) // (vg + hvp)
+        launches = {"B1": fg.LAUNCHES["fused_value_grad"], "B2": fg.LAUNCHES["fused_hessian_vector"],
+                    "rank_order_sum": fg.SUM_LAUNCHES["rank_order_sum"]}
+        log(f"  (b) streamed TRON, depth {depth}: {wall:.3f} s (resident {resident_s:.3f} s), iterations "
+            f"{res_s.iterations} reason {res_s.reason}; {vg} value+grad and {hvp} Hv passes of {slices} slices; "
+            f"launches {launches}; staged {int(m['staged_bytes_total'])} bytes ("
+            f"{m['staged_bytes_total'] / wall / 1e9:.2f} GB/s over the solve's wall); overlap ratio "
+            f"{m['overlap_ratio']:.3f}; largest slice {int(m['actual_slice_bytes'])} bytes, headroom "
+            f"{int(m['budget_headroom_bytes'])} of {STREAM_FE_BUDGET}; peak allocator bytes above what was held "
+            f"{peak}")
+        if (launches["B1"], launches["B2"], launches["rank_order_sum"]) != (vg * slices, hvp * slices, vg + hvp):
+            problems.append(f"(b) depth {depth}: launches {launches} are not slices x passes ({slices} x {vg}, {hvp})")
+        if 2 * m["actual_slice_bytes"] > STREAM_FE_BUDGET:
+            problems.append(f"(b) two slices ({2 * m['actual_slice_bytes']} bytes) exceed the budget")
+        hold(problems, f"(b) depth {depth} streamed vs resident TRON coefficients", model_s.coefficients.means,
+             model_r.coefficients.means, 1e-3, 1e-5)
+        out[f"depth{depth}"] = {"wall_s": wall, "iterations": int(res_s.iterations), "vg_passes": vg,
+                                "hv_passes": hvp, "slices": slices, "launches": launches, "peak_bytes": peak,
+                                "metrics": m}
+        if depth == 1:
+            means_1 = model_s.coefficients.means
+        elif not _same_bits(model_s.coefficients.means, means_1):
+            problems.append("(b) the depth-2 streamed solve differs from depth 1's bits")
+    # ELL slices through S1 at phase 9's sparse shape
+    rows, cols, vals, y, _ = sparse_triplets(SPARSE_N, SPARSE_D, SPARSE_K, seed)
+    raw = RawDataset(n_rows=SPARSE_N, labels=y, offsets=np.zeros(SPARSE_N), weights=np.ones(SPARSE_N),
+                     shard_coo={"global": (rows, cols, vals)}, shard_dims={"global": SPARSE_D}, id_tags={})
+    ell = raw.to_batch("global", layout="ell")
+    hell = HostRowBatch(dim=SPARSE_D, labels=ell.labels.cpu(), offsets=ell.offsets.cpu(), weights=ell.weights.cpu(),
+                        ell_idx=ell.features.idx.cpu().pin_memory(), ell_val=ell.features.val.cpu().pin_memory())
+    lbfgs = GLMProblem("logistic_regression", GLMOptimizationConfig(
+        optimizer=OptimizerConfig(tolerance=1e-9, max_iterations=SPARSE_ITERS), **reg))
+    _, res_e = lbfgs.run(ell)
+    run = obs.RunTelemetry()
+    fg.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with obs.use_run(run):
+        model_se, res_se = lbfgs.run_streamed(hell, STREAM_ELL_BUDGET, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = _stream_metrics(run, "fe.train")
+    vg = int(m["passes_total:vg"])
+    slices = int(m["slices_total"]) // max(vg + int(m["passes_total:hvp"]), 1)
+    s1 = {k_: sparse.SPARSE_LAUNCHES[k_] for k_ in ("ell_matvec", "ell_rmatvec")}
+    rel = abs(float(res_se.loss) - float(res_e.loss)) / abs(float(res_e.loss))
+    log(f"  (b) streamed ELL L-BFGS (n={SPARSE_N}, d={SPARSE_D}, k={SPARSE_K}): {wall:.3f} s, {vg} passes of "
+        f"{slices} slices, S1 launches {s1}, sums {fg.SUM_LAUNCHES['rank_order_sum']}, loss {float(res_se.loss):.6f} "
+        f"against the resident solve's {float(res_e.loss):.6f} (rel {rel:.2e}, rtol 1e-5); staged "
+        f"{int(m['staged_bytes_total'])} bytes, largest slice {int(m['actual_slice_bytes'])}")
+    if s1["ell_matvec"] != vg * slices or s1["ell_rmatvec"] != vg * slices:
+        problems.append(f"(b) S1 launches {s1} are not slices x passes ({slices} x {vg})")
+    if rel > 1e-5:
+        problems.append(f"(b) the streamed ELL solve's loss is {rel:.2e} from the resident one's")
+    out["ell"] = {"wall_s": wall, "passes": vg, "slices": slices, "s1_launches": s1, "loss_rel": rel,
+                  "sums": fg.SUM_LAUNCHES["rank_order_sum"]}
+    out["ell_fit"] = stream_ell_fit(torch, hell, lbfgs.config, res_se, problems)
+    del ell, hell
+    return out
+
+
+def stream_ell_fit(torch, hell, config, solved, problems):
+    """A two-sweep coordinate-descent fit of the streamed ELL fixed effect
+    on a batch object of its own (so its column segments are not built
+    yet): each sweep's wall, the second without the host build of the
+    slices' column segments, which the batch keeps (one entry), and the
+    fit's loss against the single solve's. Before it, the streamed
+    objective built twice over another fresh batch object: the first
+    construction builds the segments, the second finds them kept."""
+    from photon_ml_tpu_torch import obs
+    from photon_ml_tpu_torch.game import CoordinateDescent, FixedEffectCoordinate, FixedEffectDataset
+    from photon_ml_tpu_torch.game.data import HostRowBatch
+    from photon_ml_tpu_torch.game.fe_streaming import StreamedFEObjective
+    from photon_ml_tpu_torch.obs.timeline import TimelineRecorder
+    from photon_ml_tpu_torch.ops import fused_glm as fg
+    from photon_ml_tpu_torch.ops import sparse
+    from photon_ml_tpu_torch.ops.losses import get_loss
+
+    def fresh():
+        return HostRowBatch(dim=hell.dim, labels=hell.labels, offsets=hell.offsets, weights=hell.weights,
+                            ell_idx=hell.ell_idx, ell_val=hell.ell_val)
+
+    other, builds = fresh(), []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        StreamedFEObjective(get_loss("logistic_regression"), other, STREAM_ELL_BUDGET, device="cuda")
+        torch.cuda.synchronize()
+        builds.append(time.perf_counter() - t0)
+    log(f"  (b) streamed ELL objective built on a fresh batch: {builds[0]:.3f} s (the slices' column segments "
+        f"built on the host), again {builds[1]:.3f} s (kept with the batch: {len(other.cache())} set)")
+    del other
+    hb = fresh()
+    ds = FixedEffectDataset("global", "global", batch=None, true_dim=hb.dim, true_n_rows=hb.n_rows, host_batch=hb,
+                            streamed=True, hbm_budget_bytes=STREAM_ELL_BUDGET, device=torch.device("cuda"))
+    coord = FixedEffectCoordinate(dataset=ds, task="logistic_regression", config=config)
+    run, rec = obs.RunTelemetry(), TimelineRecorder()
+    run.register_listener(rec)
+    fg.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with obs.use_run(run):
+        res = CoordinateDescent({"global": coord}, n_iterations=2).run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sweeps = [float(s_.duration_s) for s_ in rec.spans() if s_.name == "cd.sweep"]
+    s1 = {k_: sparse.SPARSE_LAUNCHES[k_] for k_ in ("ell_matvec", "ell_rmatvec")}
+    sums = fg.SUM_LAUNCHES["rank_order_sum"]
+    entries = len(hb.cache())
+    loss, single = float(res.solver_results["global"].loss), float(solved.loss)
+    log(f"  (b) two-sweep streamed ELL fit: {wall:.3f} s, sweeps {', '.join(f'{x:.3f}' for x in sweeps)} s "
+        f"(the first builds the slices' column segments on the host, the second reuses them); cached segment "
+        f"sets {entries}; S1 launches {s1}, sums {sums}; the second sweep's loss {loss:.6f} from the single "
+        f"solve's model (that solve {single:.6f})")
+    if len(sweeps) != 2 or entries != 1:
+        problems.append(f"(b) the two-sweep ELL fit ran {len(sweeps)} sweeps and built {entries} segment sets")
+    if min(s1.values()) <= 0 or sums <= 0:
+        problems.append(f"(b) the two-sweep ELL fit did not launch S1 and the sum: {s1}, {sums}")
+    # the second sweep starts from the first's model, the single solve's
+    if not loss <= single * (1 + 1e-6):
+        problems.append(f"(b) the two-sweep ELL fit ends at loss {loss} above the single solve's {single}")
+    return {"wall_s": wall, "sweep_s": sweeps, "segment_sets": entries, "s1_launches": s1, "sums": sums,
+            "loss": loss, "objective_build_s": builds}
+
+
+def _re_raw(data):
+    from photon_ml_tpu_torch.io.data import RawDataset
+
+    _, y, ex, ids = data
+    n, d_re = ex.shape
+    return RawDataset(
+        n_rows=n, labels=y.astype(np.float64), offsets=np.zeros(n), weights=np.ones(n),
+        shard_coo={"userShard": (np.repeat(np.arange(n), d_re), np.tile(np.arange(d_re), n),
+                                 ex.reshape(-1).astype(np.float64))},
+        shard_dims={"userShard": d_re}, id_tags={"userId": ids},
+    )
+
+
+def stream_random_effect(torch, state, problems):
+    """(c) The random effect streamed in entity slices, the largest size
+    bucket cut into STREAM_RE_SLICES or more: the vmapped solve bitwise the
+    in-memory one, V1 launched; the packed solve at the packed bound."""
+    import os
+
+    from photon_ml_tpu_torch.game import RandomEffectCoordinate, build_random_effect_dataset
+    from photon_ml_tpu_torch.game.coordinate import _size_buckets
+    from photon_ml_tpu_torch.game.streaming import entities_per_slice
+    from photon_ml_tpu_torch.ops import lane_reduce
+
+    coords = state["coords"]
+    mem = coords["per-user"]
+    start, end, kb, sb = (_size_buckets(mem.dataset) or [(0, mem.dataset.num_entities, *mem.dataset.blocks.features.shape[1:])])[0]
+    step = max(8, (end - start) // STREAM_RE_SLICES // 8 * 8)
+    per_entity = 2 * (kb * sb * 4 + 3 * kb * 4 + (sb + kb) * 4) + 4 * sb * 4
+    budget = step * per_entity
+    assert entities_per_slice(budget, kb, sb) == step
+    t0 = time.perf_counter()
+    sds = build_random_effect_dataset(_re_raw(state["data"]), "per-user", "userShard", "userId", active_cap=256,
+                                      device="cuda", hbm_budget_bytes=budget)
+    build_s = time.perf_counter() - t0
+    n_largest = -(-(end - start) // step)
+    log(f"  (c) streamed random effect: budget {budget} bytes, {step} entities a slice of the largest bucket "
+        f"({end - start} entities, K={kb}, S={sb}): {n_largest} slices; host blocks built in {build_s:.1f} s")
+    if not sds.streamed or n_largest < STREAM_RE_SLICES:
+        problems.append(f"(c) the budget did not cut the largest bucket into {STREAM_RE_SLICES} slices")
+    streamed = RandomEffectCoordinate(dataset=sds, task="logistic_regression", config=mem.config)
+    residual = coords["global"].score(state["result"].model["global"])
+    out = {"budget_bytes": budget, "largest_bucket_slices": n_largest}
+    for solver in ("vmapped", "packed"):
+        os.environ["PHOTON_RE_SOLVER"] = solver
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m_mem, r_mem = mem.train(residual)
+            torch.cuda.synchronize()
+            mem_s = time.perf_counter() - t0
+            lane_reduce.reset_launch_counts()
+            t0 = time.perf_counter()
+            m_str, r_str = streamed.train(residual)
+            torch.cuda.synchronize()
+            str_s = time.perf_counter() - t0
+            v1 = dict(lane_reduce.LANE_LAUNCHES)
+        finally:
+            del os.environ["PHOTON_RE_SOLVER"]
+        coef_gap = float((m_str.coef_values.double() - m_mem.coef_values.double().cpu()).abs().max())
+        loss_gap = float((r_str.loss.double() - r_mem.loss.double().cpu()).abs().max())
+        log(f"  (c) {solver}: in memory {mem_s:.3f} s, streamed {str_s:.3f} s; V1 launches over the streamed solve "
+            f"{v1}; largest coefficient gap {coef_gap:.3e}, loss gap {loss_gap:.3e}")
+        if solver == "vmapped":
+            bitwise = _same_bits(m_str.coef_values, m_mem.coef_values.cpu()) and _same_bits(
+                r_str.iterations, r_mem.iterations.cpu())
+            log(f"  (c) vmapped streamed bitwise the in-memory solve: {bitwise}")
+            if not bitwise:
+                problems.append("(c) the vmapped streamed solve differs from the in-memory one's bits")
+            if min(v1.values()) <= 0:
+                problems.append(f"(c) V1 was not launched on both axes: {v1}")
+        else:
+            if coef_gap > 5e-3 or loss_gap > 1e-4:
+                problems.append(f"(c) packed streamed vs in memory: coefficients {coef_gap:.3e} (atol 5e-3), loss "
+                                f"{loss_gap:.3e} (atol 1e-4)")
+        out[solver] = {"memory_s": mem_s, "streamed_s": str_s, "v1_launches": v1, "coef_gap": coef_gap,
+                       "loss_gap": loss_gap}
+    out["dataset"] = sds
+    return out
+
+
+def stream_pipeline(torch, state, host, sds, problems):
+    """(d) A two-sweep GLMix fit over the streamed fixed effect and random
+    effect at depth 1 and 2: models and ledger bitwise alike, the
+    evaluations on the lane's thread, both walls."""
+    import threading
+
+    from photon_ml_tpu_torch import obs
+    from photon_ml_tpu_torch.evaluation import build_suite
+    from photon_ml_tpu_torch.game import (
+        CoordinateDescent, FixedEffectCoordinate, FixedEffectDataset, RandomEffectCoordinate, ValidationContext,
+    )
+    from photon_ml_tpu_torch.obs.timeline import TimelineRecorder
+
+    coords0 = state["coords"]
+    fe_cfg = dataclasses.replace(coords0["global"].config, variance_type="NONE")
+    fe_ds = FixedEffectDataset("global", "global", batch=None, true_dim=host.dim, true_n_rows=host.n_rows,
+                               host_batch=host, streamed=True, hbm_budget_bytes=STREAM_FE_BUDGET,
+                               device=torch.device("cuda"))
+    runs = {}
+    for depth in (1, 2):
+        coords = {"global": FixedEffectCoordinate(dataset=fe_ds, task="logistic_regression", config=fe_cfg),
+                  "per-user": RandomEffectCoordinate(dataset=sds, task="logistic_regression",
+                                                     config=coords0["per-user"].config)}
+        val = ValidationContext(suite=build_suite(["AUC"], host.labels.numpy()), offsets=np.zeros(host.n_rows),
+                                score_fns={k: c.score for k, c in coords.items()})
+        run = obs.RunTelemetry()
+        rec = TimelineRecorder()
+        run.register_listener(rec)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with obs.use_run(run):
+            res = CoordinateDescent(coords, n_iterations=2, validation=val, pipeline_depth=depth).run()
+        torch.cuda.synchronize()
+        runs[depth] = (coords, res, time.perf_counter() - t0, rec.spans())
+    (c1, r1, w1, _), (_, r2, w2, spans) = runs[1], runs[2]
+    same_fe = _same_bits(r1.model["global"].coefficients.means, r2.model["global"].coefficients.means)
+    same_re = _same_bits(r1.model["per-user"].coef_values, r2.model["per-user"].coef_values)
+    ledger = [(n, e.primary_metric) for n, e in r1.evaluations] == [(n, e.primary_metric) for n, e in r2.evaluations]
+    evals = [s for s in spans if s.name == "cd.eval"]
+    stages = [s for s in spans if s.name in ("fe_stream.stage", "re_stream.stage")]
+    main = threading.main_thread().ident
+    off_main = bool(evals) and all(s.thread_id != main and s.thread_name.startswith("photon-eval") for s in evals)
+    staged_off = sorted({s.thread_name for s in stages if s.thread_id != main})
+    log(f"  (d) two-sweep streamed GLMix fit: depth 1 {w1:.3f} s, depth 2 {w2:.3f} s; models bitwise alike: FE "
+        f"{same_fe}, RE {same_re}; ledger alike {ledger} (best AUC {r1.best_evaluation.metrics['AUC']:.6f}); "
+        f"{len(evals)} evaluations off the main thread: {off_main}; staging threads {staged_off}")
+    if not (same_fe and same_re and ledger):
+        problems.append("(d) depth 2 differs from depth 1")
+    if not off_main:
+        problems.append("(d) the depth-2 evaluations did not run on the eval lane's thread")
+    return {"depth1_s": w1, "depth2_s": w2, "evaluations": len(evals), "staging_threads": staged_off,
+            "best_auc": r1.best_evaluation.metrics["AUC"]}
+
+
+def stream_cli(torch, fixture, game, problems, smi):
+    """(e) cli.train on phase 12's fixture with hbm.budget.mb on both
+    coordinates (variance NONE: a streamed fixed effect never forms its
+    Hessian) and --pipeline-depth 2: the best model against phase 12 (b)'s
+    at the solve bound, the report's streaming block."""
+    import os
+
+    from photon_ml_tpu_torch.io import load_game_model
+    from photon_ml_tpu_torch.ops import fused_glm as fg
+    from photon_ml_tpu_torch.ops import lane_reduce
+
+    root = fixture["root"]
+    out, metrics_dir, report_dir = (os.path.join(root, f"stream-{x}") for x in ("out", "metrics", "report"))
+    fe = GAME_FE.replace("variance=SIMPLE", "variance=NONE") + f",hbm.budget.mb={STREAM_GAME_BUDGET_MB}"
+    re_ = GAME_RE + f",hbm.budget.mb={STREAM_GAME_BUDGET_MB}"
+    argv = [a for a in game_argv(fixture["train"], fixture["validation"], out)]
+    argv[argv.index(GAME_FE)], argv[argv.index(GAME_RE)] = fe, re_
+    argv += ["--pipeline-depth", "2", "--metrics-out", metrics_dir, "--report-out", report_dir]
+    lane_reduce.reset_launch_counts()
+    summary, wall, launches, _, s1 = _counted_train(torch, argv)
+    sums = fg.SUM_LAUNCHES["rank_order_sum"]
+    with open(os.path.join(report_dir, "report.json")) as f:
+        streaming = json.load(f)["performance"]["streaming"]
+    log(f"  (e) cli.train, hbm.budget.mb={STREAM_GAME_BUDGET_MB} on both coordinates, --pipeline-depth 2: "
+        f"{wall:.2f} s; launches {launches}, sums {sums}, S1 ell_matvec {s1}; validation AUC "
+        f"{summary['best']['metrics']['AUC']:.6f}; the report's streaming block "
+        + json.dumps({k: {f: v.get(f) for f in ('slices_staged', 'staged_bytes', 'budget_utilization')}
+                      for k, v in streaming.items()}) + f" on {smi}")
+    if set(streaming) < {"fe.train", "re.train"} or not all(v.get("slices_staged") for v in streaming.values()):
+        problems.append(f"(e) the report's streaming block is not populated: {sorted(streaming)}")
+    if min(launches["fused_value_grad"], launches["fused_hessian_vector"], sums) <= 0:
+        problems.append(f"(e) the streamed fixed effect did not launch B1, B2 and the sum: {launches}, {sums}")
+    best = game.get("best") or {}
+    if best:
+        ours = load_game_model(os.path.join(out, "models", "best"), best["maps"], task="logistic_regression")
+        theirs = load_game_model(os.path.join(best["out"], "models", "best"), best["maps"], task="logistic_regression")
+        hold(problems, "(e) streamed vs phase 12 (b) FE coefficients", ours["global"].model.coefficients.means,
+             theirs["global"].model.coefficients.means, 1e-3, 1e-5)
+        hold(problems, "(e) streamed vs phase 12 (b) RE coefficients", ours["per-user"].coef_values,
+             theirs["per-user"].coef_values, 0.0, 5e-3)
+        log(f"  (e) validation AUC {summary['best']['metrics']['AUC']:.6f} against (b)'s {best['auc']:.6f}")
+    else:
+        problems.append("(e) phase 12 (b)'s model is missing")
+    return {"wall_s": wall, "launches": launches, "sums": sums, "s1_launches": s1,
+            "auc": summary["best"]["metrics"]["AUC"], "streaming": streaming}
+
+
+def game_b_only(torch, fixture, smi):
+    """Phase 12 (b) alone (``--only streaming``): the model phase 16 (e)
+    holds its streamed fit against."""
+    problems = []
+    b = game_train(torch, fixture["train"], fixture["validation"], fixture["root"], problems, smi)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"best": {"maps": b["maps"], "out": b["out"], "auc": b["auc"]}}
+
+
+def streaming_phase(torch, state, fixture, game, seed, smi):
+    """Phase 16 (a)-(e). Each part's launches are counted from 0 before it;
+    the streamed paths' totals go into the kernels line."""
+    problems, out = [], {}
+    host, pin_s = _host_rows(torch, state["data"])
+    log(f"  phase 5's X pinned in host memory ({host.dense.numel() * host.dense.element_size()} bytes) in "
+        f"{pin_s:.2f} s")
+    out["objective"] = stream_objective(torch, state, host, problems)
+    torch.cuda.empty_cache()
+    out["solves"] = stream_solves(torch, state, host, seed, problems)
+    torch.cuda.empty_cache()
+    re_ = stream_random_effect(torch, state, problems)
+    sds = re_.pop("dataset")
+    out["random_effect"] = re_
+    torch.cuda.empty_cache()
+    out["pipeline"] = stream_pipeline(torch, state, host, sds, problems)
+    del sds
+    torch.cuda.empty_cache()
+    if fixture is not None:
+        out["cli"] = stream_cli(torch, fixture, game or {}, problems, smi)
+    else:
+        problems.append("(e) needs phase 12's fixture")
+    log(f"  on {smi}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return out
+
+
+def streamed_launches(streaming):
+    """The streamed paths' launches by kernel, for the kernels line: (a)'s
+    passes, (b)'s solves (depth 1 and 2, the ELL solve's and the two-sweep
+    ELL fit's S1), (c)'s V1 and (e)'s driver run."""
+    st = streaming or {}
+    a = st.get("objective") or {}
+    b = st.get("solves") or {}
+    c = st.get("random_effect") or {}
+    e = st.get("cli") or {}
+    total = {"fused_value_grad": 0, "fused_hessian_vector": 0, "rank_order_sum": 0, "lane_reduce": 0,
+             "ell_matvec": 0, "ell_rmatvec": 0}
+    la = a.get("launches") or {}
+    total["fused_value_grad"] += la.get("B1", 0)
+    total["fused_hessian_vector"] += la.get("B2", 0)
+    total["rank_order_sum"] += la.get("rank_order_sum", 0)
+    for depth in ("depth1", "depth2"):
+        lb = (b.get(depth) or {}).get("launches") or {}
+        total["fused_value_grad"] += lb.get("B1", 0)
+        total["fused_hessian_vector"] += lb.get("B2", 0)
+        total["rank_order_sum"] += lb.get("rank_order_sum", 0)
+    ell = b.get("ell") or {}
+    for k in ("ell_matvec", "ell_rmatvec"):
+        total[k] += (ell.get("s1_launches") or {}).get(k, 0)
+    total["rank_order_sum"] += ell.get("sums", 0)
+    fit = b.get("ell_fit") or {}
+    for k in ("ell_matvec", "ell_rmatvec"):
+        total[k] += (fit.get("s1_launches") or {}).get(k, 0)
+    total["rank_order_sum"] += fit.get("sums", 0)
+    total["lane_reduce"] += sum(((c.get("vmapped") or {}).get("v1_launches") or {}).values())
+    le = e.get("launches") or {}
+    total["fused_value_grad"] += le.get("fused_value_grad", 0)
+    total["fused_hessian_vector"] += le.get("fused_hessian_vector", 0)
+    total["rank_order_sum"] += e.get("sums", 0)
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=500_000)
@@ -5596,8 +6224,8 @@ def main() -> int:
     ap.add_argument("--prev-segment-source", default=None,
                     help="an earlier csrc/sparse_glm.cu to time in turns with this one in phase 8 (S1 and S2)")
     ap.add_argument("--only", default="",
-                    help="comma-separated subset of check,fe,glmix,dp,nccl,solvers,io,game,tuning,s2,sparse,timing,"
-                         "variants,retrain,serving "
+                    help="comma-separated subset of check,fe,glmix,dp,nccl,solvers,io,game,streaming,tuning,s2,"
+                         "sparse,timing,variants,retrain,serving "
                          "to run after card and build (for iterating on one phase; the result is then not ok)")
     args = ap.parse_args()
     only = set(filter(None, args.only.split(",")))
@@ -5622,12 +6250,13 @@ def main() -> int:
 
     # phase 12's metrics directories, kept for phase 15's cli.fleetz
     keep = tempfile.mkdtemp(prefix="chip_smoke_keep_")
-    errs = fe_launches = glmix = dp = times = solvers = io = game = tuning = retrain = served = None
+    errs = fe_launches = glmix = dp = times = solvers = io = game = streaming = tuning = retrain = served = None
     if want("check"):
         errs = phases.run("kernels vs float64 plain", check_kernels, torch, args.n, args.d, args.seed)
     if want("fe"):
         fe_launches = phases.run("fixed-effect path", fe_path, torch, args.n, args.d, args.seed)
-    if want("glmix") or want("dp") or want("nccl") or want("solvers") or want("io") or want("game") or want("tuning"):
+    if (want("glmix") or want("dp") or want("nccl") or want("solvers") or want("io") or want("game")
+            or want("streaming") or want("tuning")):
         glmix = phases.run(
             "GLMix sweep (main path)", glmix_path, torch, args.n, args.d, args.users, args.d_re, args.seed
         )
@@ -5657,10 +6286,10 @@ def main() -> int:
         phases.failed.append("data and model IO")
     else:
         io = phases.run("data and model IO", io_phase, torch, state, args.seed, smi)
-    if not want("tuning"):
+    if not (want("tuning") or want("streaming")):
         del state
     torch.cuda.empty_cache()
-    if want("game") or want("tuning") or want("retrain"):
+    if want("game") or want("streaming") or want("tuning") or want("retrain"):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_game_") as root:
             fixture = phases.run("GAME fixture (phase 12 (a))", game_fixture, root, args.seed)
             if fixture is None:
@@ -5670,6 +6299,17 @@ def main() -> int:
                 if want("game"):
                     game = phases.run("GAME driver", game_phase, torch, fixture, smi,
                                       (glmix or {}).get("busy_share"), keep)
+                elif want("streaming"):
+                    game = phases.run("GAME driver (phase 12 (b))", game_b_only, torch, fixture, smi)
+                torch.cuda.empty_cache()
+                if not want("streaming"):
+                    pass
+                elif state is None:
+                    log("== phase: out-of-core training needs the one-card sweep's results")
+                    phases.failed.append("out-of-core training")
+                else:
+                    streaming = phases.run("out-of-core training", streaming_phase, torch, state, fixture, game,
+                                           args.seed, smi)
                 torch.cuda.empty_cache()
                 if not want("tuning"):
                     pass
@@ -5772,6 +6412,13 @@ def main() -> int:
     kernels += sparse_entries(sp, times, game, retrain, served)
     kernels += s2_entries(tuning)
     kernels.append(lane_entry(errs, solvers))
+    # the streamed paths of phase 16: their launches join each kernel's
+    st_launches = streamed_launches(streaming)
+    for entry in kernels:
+        key = entry["name"].split(":", 1)[-1]
+        if key in st_launches:
+            entry["launches_streamed"] = st_launches[key]
+            entry["launches"] = (entry.get("launches") or 0) + st_launches[key]
     if sp:
         path, sg = sp["path"], sp["glmix"]
         log(f"sparse fixed effect (n={SPARSE_N}, d={SPARSE_D}, k={SPARSE_K}, L-BFGS at most {SPARSE_ITERS} "
@@ -5798,7 +6445,7 @@ def main() -> int:
             + f"; cli.glm {dr.get('wall_s', float('nan')):.2f} s (stages "
             + ", ".join(f"{k} {v:.3f}" for k, v in (dr.get("stage_seconds") or {}).items())
             + f"); GLMix model save {gm['save_s']:.2f} s, load {gm['load_s']:.2f} s on {smi}")
-    if game:
+    if game and "resume" in game:
         tr, rs, sc = game["train"], game["resume"], game["score"]
         log(f"GAME driver: cli.train {tr['wall_s']:.2f} s (stages "
             + ", ".join(f"{k} {v:.3f}" for k, v in tr["stage_seconds"].items())
@@ -5828,6 +6475,19 @@ def main() -> int:
             f"request at a time {served['engine']['one_request_per_s']:.1f} scores/s; live flip with "
             f"{cl['failed']} failed; knee {kn['knee_qps']:.0f} qps (p99 {kn['knee_p99_s'] * 1e3:.3f} ms); replica "
             f"kill through the front: {rp['completed']} answered, {rp['shed']} shed, {rp['lost']} lost on {smi}")
+    if streaming:
+        a, b, c, d = (streaming.get(k) or {} for k in ("objective", "solves", "random_effect", "pipeline"))
+        log(f"out-of-core training: {a.get('n_slices')} slices of {a.get('step')} rows, value+grad pass "
+            f"{a.get('pass_ms', float('nan')):.3f} ms ({a.get('achieved_gbps', float('nan')):.2f} GB/s of a pinned "
+            f"copy_'s {a.get('pinned_copy_gbps', float('nan')):.2f}); streamed TRON "
+            f"{(b.get('depth1') or {}).get('wall_s', float('nan')):.3f} s (depth 2 "
+            f"{(b.get('depth2') or {}).get('wall_s', float('nan')):.3f} s, overlap "
+            f"{((b.get('depth2') or {}).get('metrics') or {}).get('overlap_ratio', float('nan')):.3f}) against "
+            f"resident {b.get('resident_s', float('nan')):.3f} s; streamed RE vmapped "
+            f"{(c.get('vmapped') or {}).get('streamed_s', float('nan')):.3f} s, packed "
+            f"{(c.get('packed') or {}).get('streamed_s', float('nan')):.3f} s; two-sweep fit depth 1 "
+            f"{d.get('depth1_s', float('nan')):.3f} s, depth 2 {d.get('depth2_s', float('nan')):.3f} s; streamed "
+            f"launches {st_launches} on {smi}")
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))
     ok = not phases.failed

@@ -55,9 +55,9 @@ def parse_coordinate(spec: str) -> CoordinateConfig:
     hbm.budget.mb=4096``
 
     ``feature.dtype=bfloat16``: narrow feature storage (fixed-effect batches
-    and RE entity blocks; solver state stays wide). ``hbm.budget.mb``
-    (out-of-core streaming, ROADMAP A7) parses; the execution planner
-    refuses it."""
+    and RE entity blocks; solver state stays wide). ``hbm.budget.mb``: the
+    coordinate's device budget in MiB; it streams (out of core) when its
+    device bytes exceed it."""
     kv = parse_kv(spec)
     name = kv.pop("name")
     shard = kv.pop("shard")

@@ -61,9 +61,16 @@ checked the model's features against the current index (logged);
 ``--partial-retrain-locked a,b`` keeps those coordinates at the loaded
 model and trains the rest. ``cli.retrain`` chains this day by day.
 
+Out-of-core training: ``hbm.budget.mb=N`` in a ``--coordinate`` spec streams
+that coordinate when its device bytes exceed N MiB (the fixed effect's row
+slices, the random effect's entity slices, through the card), and
+``--pipeline-depth 2`` overlaps staging, solve and validation across the
+sweep (``game/pipeline.py``); the report's streaming block reads their
+``photon_stream_*`` series.
+
 These flags parse and raise, naming their ROADMAP item:
 ``--mesh-shape``, ``--distributed``, ``--collective-timeout`` and
-``--heartbeat-*`` (A10); ``--pipeline-depth`` above 1 (A7).
+``--heartbeat-*`` (A10).
 """
 
 from __future__ import annotations
@@ -136,7 +143,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--coordinate-rejection-tolerance", type=float, default=None,
                    help="additionally reject an update whose training loss regresses more than this")
     p.add_argument("--pipeline-depth", type=parse_pipeline_depth, default=1,
-                   help="sweep pipelining depth; only 1 (serial) is ported (above 1: ROADMAP A7)")
+                   help="sweep pipelining depth: 1 is the serial sweep; 2 or more overlaps streamed "
+                        "staging, the solve and validation evaluation, with the serial run's bits")
     p.add_argument("--explain-plan", action="store_true",
                    help="dry run: resolve the execution plan from the flags alone, print it and exit 0 "
                         "without reading data or touching a device; a refused configuration prints its "
@@ -210,7 +218,6 @@ def _refuse_unported(args) -> None:
         (args.distributed is not None, "--distributed", "A10"),
         (args.collective_timeout is not None, "--collective-timeout", "A10"),
         (args.heartbeat_interval is not None or args.heartbeat_timeout is not None, "--heartbeat-*", "A10"),
-        (args.pipeline_depth > 1, "--pipeline-depth above 1", "A7"),
     ]
     for refused, what, item in refusals:
         if refused:
@@ -320,7 +327,7 @@ def _explain_plan(args) -> Dict:
                 dims = None
         plan = resolve_plan(
             coords, trial_lanes=args.trial_lanes, normalization=args.normalization, dims=dims,
-            partial_retrain_locked=_locked(args),
+            partial_retrain_locked=_locked(args), pipeline_depth=args.pipeline_depth,
         )
     except PlanError as e:
         print(f"plan refused: {e}", file=sys.stderr)
@@ -463,6 +470,7 @@ def _run_training(args, device, run_t, sinks, t_run0, recorder) -> Dict:
         divergence_guard=not args.no_divergence_guard,
         rejection_tolerance=args.coordinate_rejection_tolerance,
         partial_retrain_locked=_locked(args),
+        pipeline_depth=args.pipeline_depth,
         device=device,
     )
     if args.trial_lanes > 1:

@@ -23,10 +23,14 @@ each configuration's predecessor), and a coordinate named in
 ``partial_retrain_locked`` scores its pretrained model without retraining
 (``ModelCoordinate``).
 
+A coordinate with ``hbm_budget_mb`` builds streamed when its device bytes
+exceed the budget (``game/fe_streaming.py``, ``game/streaming.py``), and
+``pipeline_depth`` > 1 pipelines the sweeps (``game/pipeline.py``).
+
 The composition checks are the execution planner's (``plan.resolve``):
 multi-process runs and meshes (the world comes from ``torch.distributed``
-when it is initialised) are ROADMAP A10, streaming budgets and pipelining
-A7; each raises naming its item.
+when it is initialised) are ROADMAP A10, streaming and pipelining over them
+included; each raises naming its item.
 """
 
 from __future__ import annotations
@@ -78,8 +82,13 @@ class CoordinateConfig:
     normalization: Optional[NormalizationContext] = None
     # incremental training: L2 centred on the warm-start model
     regularize_by_prior: bool = False
-    # out-of-core streaming budget (ROADMAP A7)
+    # out-of-core streaming budget: the coordinate streams when its device
+    # bytes exceed it
     hbm_budget_mb: Optional[int] = None
+
+    @property
+    def hbm_budget_bytes(self) -> Optional[int]:
+        return None if self.hbm_budget_mb is None else int(self.hbm_budget_mb) * (1 << 20)
 
     @property
     def is_random_effect(self) -> bool:
@@ -181,6 +190,7 @@ class GameEstimator(EventEmitter):
                         pad_entities_to_multiple=self.entity_pad_multiple,
                         features_to_samples_ratio=cc.features_to_samples_ratio,
                         feature_dtype=cc.feature_dtype,
+                        hbm_budget_bytes=cc.hbm_budget_bytes,
                         device=self.device,
                     )
                 else:
@@ -191,6 +201,7 @@ class GameEstimator(EventEmitter):
                         dtype=self.dtype,
                         layout=cc.layout,
                         feature_dtype=cc.feature_dtype,
+                        hbm_budget_bytes=cc.hbm_budget_bytes,
                         device=self.device,
                     )
         return datasets

@@ -44,8 +44,16 @@ Incremental training: a ``prior_model`` centres each coordinate's L2 on a
 prior model (the fixed effect's through ``GLMProblem``'s prior, the random
 effect's as per-entity prior means and precisions projected into the day's
 blocks), and ``ModelCoordinate`` locks a pretrained model (partial
-retraining). Not ported yet, raising with its ROADMAP item: streamed
-datasets (A7).
+retraining).
+
+Streamed (out-of-core) datasets, the JAX package's: the fixed effect trains
+through ``GLMProblem.run_streamed`` (row slices of the host batch through
+the card, ``game/fe_streaming.py``) and scores by streaming the same
+slices; the random effect solves entity slices of its host blocks one after
+another with the same solvers (``game/streaming.py``), its model a table in
+host memory, and scores by streaming that table. Neither takes trial lanes.
+The streamed fixed effect refuses down-sampling (and, in
+``run_streamed``, variances), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -58,6 +66,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..device import fetch
 from ..models.game import (
     FixedEffectModel,
     RandomEffectModel,
@@ -128,13 +137,15 @@ class FixedEffectCoordinate(Coordinate):
 
     @property
     def group(self):
-        return self.dataset.batch.group
+        return None if self.dataset.streamed else self.dataset.batch.group
 
     def train(
         self,
         residual_scores: Optional[Tensor],
         initial_model: Optional[FixedEffectModel] = None,
     ) -> Tuple[FixedEffectModel, SolverResult]:
+        if self.dataset.streamed:
+            return self._train_streamed(residual_scores, initial_model)
         batch = self.dataset.batch
         if residual_scores is not None:
             residual = residual_scores.to(batch.offsets.dtype)
@@ -150,18 +161,53 @@ class FixedEffectCoordinate(Coordinate):
             # fault site solver.value_and_grad: the effective offsets of
             # this solve
             batch = dataclasses.replace(batch, offsets=faults.corrupt("solver.value_and_grad", batch.offsets))
-        problem = GLMProblem(
+        glm, result = self._problem().run(
+            batch, initial_model=initial_model.model if initial_model else None, plain=self.plain
+        )
+        return FixedEffectModel(model=glm, feature_shard=self.dataset.feature_shard), result
+
+    def _problem(self) -> GLMProblem:
+        return GLMProblem(
             task=self.task,
             config=self.config,
             normalization=self.normalization,
             prior=self.prior_model.model.coefficients if self.prior_model else None,
         )
-        glm, result = problem.run(
-            batch, initial_model=initial_model.model if initial_model else None, plain=self.plain
+
+    def _train_streamed(
+        self,
+        residual_scores: Optional[Tensor],
+        initial_model: Optional[FixedEffectModel] = None,
+    ) -> Tuple[FixedEffectModel, SolverResult]:
+        """The out-of-core solve: the host rows streamed through the card in
+        double-buffered row slices (``GLMProblem.run_streamed``)."""
+        ds = self.dataset
+        hb = ds.host_batch
+        if self.config.down_sampling_rate < 1.0:
+            raise ValueError(
+                f"coordinate {self.coordinate_id}: down_sampling_rate < 1 is"
+                " not supported on the streamed fixed-effect path; raise"
+                " hbm.budget.mb so the batch is HBM-resident, or disable"
+                " down-sampling"
+            )
+        if faults.active():
+            # the resident path's fault site, on the host offsets of this solve
+            hb = dataclasses.replace(hb, offsets=faults.corrupt("solver.value_and_grad", hb.offsets))
+        glm, result = self._problem().run_streamed(
+            hb, ds.hbm_budget_bytes, residual_scores=residual_scores,
+            initial_model=initial_model.model if initial_model else None, device=ds.device, plain=self.plain,
         )
-        return FixedEffectModel(model=glm, feature_shard=self.dataset.feature_shard), result
+        return FixedEffectModel(model=glm, feature_shard=ds.feature_shard), result
 
     def score(self, model: FixedEffectModel) -> Tensor:
+        if self.dataset.streamed:
+            from .fe_streaming import score_streamed_fe
+
+            ds = self.dataset
+            dtype = ds.host_batch.labels.dtype
+            means = model.model.coefficients.means.to(device=ds.device, dtype=dtype)
+            plain = self.plain or dtype == torch.float64
+            return score_streamed_fe(ds.host_batch, means, ds.hbm_budget_bytes, dtype, device=ds.device, plain=plain)
         # compute in the dataset's dtype: a warm-start model in another dtype
         # must not change the dtype of the score stream
         batch = self.dataset.batch
@@ -186,6 +232,7 @@ class FixedEffectCoordinate(Coordinate):
         solve. Returns (coefficients f[d_true, L], per-lane SolverResult).
         The fault site mirrors :meth:`train`: flat index 0 of the ``[n, L]``
         offsets is row 0 of lane 0, so an injected NaN poisons one lane."""
+        _refuse_streamed_lanes(self)
         if self.config.down_sampling_rate < 1.0:
             raise ValueError("down-sampling is not supported with trial-lanes")
         batch = self.dataset.batch
@@ -199,13 +246,7 @@ class FixedEffectCoordinate(Coordinate):
             offsets_lanes = faults.corrupt("solver.value_and_grad", offsets_lanes)
         if w0_lanes is not None and w0_lanes.shape[0] < batch.dim:
             w0_lanes = torch.cat([w0_lanes, w0_lanes.new_zeros((batch.dim - w0_lanes.shape[0], L))])
-        problem = GLMProblem(
-            task=self.task,
-            config=self.config,
-            normalization=self.normalization,
-            prior=self.prior_model.model.coefficients if self.prior_model else None,
-        )
-        W, result = problem.run_lanes(batch, offsets_lanes, l2_lanes, w0=w0_lanes, plain=self.plain)
+        W, result = self._problem().run_lanes(batch, offsets_lanes, l2_lanes, w0=w0_lanes, plain=self.plain)
         return W[: self.dataset.dim], result
 
     def score_lanes(self, W: Tensor) -> Tensor:
@@ -248,7 +289,9 @@ class RandomEffectCoordinate(Coordinate):
         residual_scores: Optional[Tensor],
         initial_model: Optional[RandomEffectModel] = None,
     ) -> Tuple[RandomEffectModel, SolverResult]:
-        train = _train_blocks if _re_solver_mode() == "vmapped" else _train_blocks_packed
+        if self.dataset.streamed:
+            return self._train_streamed(residual_scores, initial_model)
+        train = _train_fn()
         ds = self.dataset
         group = ds.group
         blocks = ds.blocks
@@ -340,6 +383,7 @@ class RandomEffectCoordinate(Coordinate):
         axis; one full-shape solve keeps the layout plain, as in the JAX
         package. The fault site mirrors :meth:`train`: flat index 0 of the
         ``[E, K, L]`` offsets is entity 0, row 0, lane 0."""
+        _refuse_streamed_lanes(self)
         if self.prior_model is not None:
             raise ValueError("regularize-by-prior is not supported with trial-lanes")
         ds = self.dataset
@@ -386,6 +430,67 @@ class RandomEffectCoordinate(Coordinate):
         score_dt = torch.promote_types(ds.ell_val.dtype, ds.blocks.labels.dtype)
         vals = coef_values.to(device=ds.device, dtype=score_dt)
         return score_entity_rows_dense_lanes(vals, ds.row_entity, cache.to(score_dt))
+
+    def _train_streamed(
+        self,
+        residual_scores: Optional[Tensor],
+        initial_model: Optional[RandomEffectModel] = None,
+    ) -> Tuple[RandomEffectModel, SolverResult]:
+        """The out-of-core solve: host blocks streamed through the card in
+        double-buffered entity slices (``game/streaming.py``); the model's
+        tables stay in host memory."""
+        from .streaming import solve_streamed
+
+        ds = self.dataset
+        blocks = ds.blocks  # host tensors
+        E, K, S = blocks.features.shape
+        dtype = blocks.labels.dtype  # the solve dtype (features may be narrower)
+        if initial_model is not None:
+            w0 = _project_model_values(ds, initial_model, initial_model.coef_values, dtype)
+        else:
+            w0 = torch.zeros((E, S), dtype=dtype)
+        prior_mean, prior_prec = self._prior(dtype)
+        segments = _size_buckets(ds) or [(0, E, K, S)]
+        results = solve_streamed(
+            blocks, segments, residual_scores, w0, prior_mean, prior_prec, ds.hbm_budget_bytes,
+            _train_fn(), self._solver_kwargs(), device=ds.device,
+        )
+        valid = blocks.proj_cols >= 0
+        model = RandomEffectModel(
+            random_effect_type=ds.random_effect_type,
+            feature_shard=ds.feature_shard,
+            task=self.task,
+            entity_ids=ds.entity_ids,
+            coef_indices=blocks.proj_cols,
+            coef_values=torch.where(valid, results.coefficients, torch.zeros((), dtype=results.coefficients.dtype)),
+        )
+        object.__setattr__(model, "_support_layout_of", weakref.ref(ds))
+        return model, results
+
+    def _score_streamed(self, model: RandomEffectModel) -> Tensor:
+        """Scores of a streamed dataset's rows: the model's table, in this
+        dataset's layout and in host memory, streamed through the rows'
+        device (``streaming.score_streamed``, its cache on the dataset)."""
+        from .streaming import score_streamed
+
+        ds = self.dataset
+        sdt = ds.blocks.labels.dtype
+        same_ids = model.entity_ids is ds.entity_ids or list(map(str, ds.entity_ids)) == list(
+            map(str, model.entity_ids))
+        if same_ids and self._support_layout_matches(model):
+            vals = model.coef_values
+            if vals.device.type != "cpu":
+                (host,) = fetch("coordinate.stream_score_model", [vals])
+                vals = torch.from_numpy(host)
+            vals = vals.to(sdt)
+        else:
+            vals = _project_model_values(ds, model, model.coef_values, sdt)
+        scores, cache = score_streamed(
+            vals, ds.blocks.proj_cols, ds.row_entity, ds.ell_idx, ds.ell_val, ds.hbm_budget_bytes,
+            getattr(ds, "_stream_xsub_cache", None), score_dtype=torch.promote_types(ds.ell_val.dtype, sdt),
+        )
+        object.__setattr__(ds, "_stream_xsub_cache", cache)
+        return scores
 
     def _prior(self, dtype) -> Tuple[Tensor, Tensor]:
         """Per-entity prior means and precisions ``[E, S]`` in the dataset's
@@ -438,6 +543,8 @@ class RandomEffectCoordinate(Coordinate):
 
     def score(self, model: RandomEffectModel) -> Tensor:
         ds = self.dataset
+        if ds.streamed:
+            return self._score_streamed(model)
         row_entity = ds.row_entity
         score_dt = torch.promote_types(ds.ell_val.dtype, ds.blocks.labels.dtype)
         ds_ids = list(map(str, ds.entity_ids))
@@ -517,6 +624,19 @@ def _gather_results(res: SolverResult, group) -> SolverResult:
     return SolverResult(**dict(zip(fields, whole)), syncs=res.syncs)
 
 
+def _refuse_streamed_lanes(coordinate) -> None:
+    if coordinate.dataset.streamed:
+        raise ValueError(
+            "trial-lanes sweeps require HBM-resident coordinates"
+            f" (coordinate {coordinate.coordinate_id} is streamed)"
+        )
+
+
+def _train_fn():
+    """The random-effect solve ``_re_solver_mode`` selects."""
+    return _train_blocks if _re_solver_mode() == "vmapped" else _train_blocks_packed
+
+
 def _re_solver_mode() -> str:
     """Random-effect solver selection, as in the JAX package: 'packed'
     (the default, entity-minor lockstep solves) or 'vmapped' (entity-leading
@@ -586,7 +706,7 @@ def _size_buckets(dataset: RandomEffectDataset, min_dim: int = 8, align: int = 1
     entity chunk, so that no segment splits a rank's range (counts are
     non-increasing, so the merged head of the next run still fits the larger
     preceding block shape). (The JAX package's ``entity_range`` serves
-    streamed blocks, ROADMAP A7.)"""
+    streamed blocks over several hosts, ROADMAP A10.)"""
     counts = dataset.entity_counts
     svec = dataset.entity_subspace_dims
     if counts is None or svec is None or len(counts) == 0:

@@ -22,9 +22,19 @@ A dataset sharded over a data-parallel group (``parallel.mesh``'s
 rank's rows of the fixed effect's batch, or one rank's entity range of the
 random effect's blocks; its entity tables and scoring arrays stay whole.
 ``build_fixed_effect_dataset`` is the JAX package's resident path: the
-shard's batch in any layout of ``RawDataset.to_batch``. Streamed
-(out-of-core) datasets are ROADMAP A7 and the multi-process build
-(``game/data_mp.py``) is A10: their fields and arguments raise when set.
+shard's batch in any layout of ``RawDataset.to_batch``.
+
+Streamed (out-of-core) datasets, the JAX package's: given
+``hbm_budget_bytes`` and a batch whose device estimate exceeds it, the
+fixed effect keeps its rows in a :class:`HostRowBatch` (dense or ELL planes
+in host memory, page-locked when built for a card, so that the row slices
+of ``game/fe_streaming.py`` copy to the card asynchronously), and the random
+effect keeps its entity blocks in host memory (``game/streaming.py``
+stages entity slices). ``build_fixed_effect_dataset_from_disk`` decodes
+part files straight into preallocated host planes through the pooled
+readers of ``io/data.py``, never materializing a ``RawDataset``. The
+multi-process build (``game/data_mp.py``) and streamed datasets over a
+mesh are ROADMAP A10: their fields and arguments raise when set.
 """
 
 from __future__ import annotations
@@ -41,7 +51,6 @@ from ..ops.features import LabeledBatch
 
 Tensor = torch.Tensor
 
-_STREAMED_TODO = "streamed (out-of-core) datasets are not ported yet (ROADMAP A7)"
 _MULTI_TODO = (
     "multi-process-built and streamed mesh-sharded datasets are not ported yet "
     "(ROADMAP A10); shard a whole dataset with parallel.mesh instead"
@@ -49,8 +58,101 @@ _MULTI_TODO = (
 
 
 @dataclasses.dataclass(frozen=True)
+class HostRowBatch:
+    """Host-resident row-major fixed-effect training data for the streamed
+    (out-of-core) path: dense ``[n, d]`` or ELL ``idx/val [n, F]`` CPU
+    tensors, whose row axis slices into budget-sized windows
+    (``game/fe_streaming.py``). The planes are torch tensors (a bfloat16
+    feature plane has no numpy dtype); a batch built for a card holds them
+    in page-locked memory (``pinned``). COO (column-sorted) and tiled
+    layouts are not row-sliceable and are refused upstream."""
+
+    dim: int
+    labels: Tensor  # f[n] solve dtype
+    offsets: Tensor  # f[n]
+    weights: Tensor  # f[n]
+    dense: Optional[Tensor] = None  # f[n, d] feature dtype
+    ell_idx: Optional[Tensor] = None  # i32[n, F]
+    ell_val: Optional[Tensor] = None  # f[n, F] feature dtype
+
+    def __post_init__(self):
+        if (self.dense is None) == (self.ell_idx is None):
+            raise ValueError("a HostRowBatch holds exactly one of dense / (ell_idx, ell_val)")
+        for name in ("labels", "offsets", "weights", "dense", "ell_idx", "ell_val"):
+            t = getattr(self, name)
+            if t is not None and t.device.type != "cpu":
+                raise ValueError(f"HostRowBatch.{name} must lie in host memory, got {t.device}")
+
+    @property
+    def n_rows(self) -> int:
+        return int(self.labels.shape[0])
+
+    @property
+    def layout(self) -> str:
+        return "dense" if self.dense is not None else "ell"
+
+    def feature_row_nbytes(self) -> int:
+        if self.dense is not None:
+            return self.dim * self.dense.element_size()
+        return self.ell_idx.shape[1] * (self.ell_val.element_size() + self.ell_idx.element_size())
+
+    def is_pinned(self) -> bool:
+        planes = (self.dense,) if self.dense is not None else (self.ell_idx, self.ell_val)
+        return all(t.is_pinned() for t in planes)
+
+    def cache(self) -> dict:
+        """A dict kept with this batch object (a pinned copy has its own):
+        what the streamed path builds once per batch, as each ELL slice's
+        column segments (``game/fe_streaming.py``)."""
+        cached = getattr(self, "_cache", None)
+        if cached is None:
+            cached = {}
+            object.__setattr__(self, "_cache", cached)
+        return cached
+
+    def pinned(self) -> "HostRowBatch":
+        """This batch with its feature planes in page-locked memory (one
+        copy, made once and cached; a pinned batch is returned as it is),
+        so that a row slice copies to the card with ``non_blocking=True``
+        on a copy stream."""
+        if self.is_pinned():
+            return self
+        cached = getattr(self, "_pinned", None)
+        if cached is None:
+            pin = lambda t: None if t is None else t.pin_memory()  # noqa: E731
+            cached = dataclasses.replace(
+                self, dense=pin(self.dense), ell_idx=pin(self.ell_idx), ell_val=pin(self.ell_val)
+            )
+            object.__setattr__(self, "_pinned", cached)
+        return cached
+
+
+def _host_plane(a: np.ndarray, dtype: torch.dtype, pinned: bool) -> Tensor:
+    """Host numpy -> a CPU tensor of ``dtype`` (f64 narrows through f32 to
+    bfloat16, as ``_to_device`` does), page-locked when ``pinned``."""
+    if dtype == torch.bfloat16:
+        t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(torch.bfloat16)
+    else:
+        np_dtype = {torch.float32: np.float32, torch.float64: np.float64, torch.int32: np.int32}[dtype]
+        t = torch.from_numpy(np.ascontiguousarray(a, dtype=np_dtype))
+    return t.pin_memory() if pinned else t
+
+
+def _dense_rows(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray, n: int, d: int) -> np.ndarray:
+    """COO -> dense ``[n, d]`` float64, duplicates summed in input order:
+    ``np.add.at``'s result bit for bit (the JAX package's streamed build),
+    by ``np.bincount``, which adds in the same order and runs far faster."""
+    flat = np.bincount(
+        rows.astype(np.int64) * d + cols.astype(np.int64), weights=vals.astype(np.float64), minlength=n * d
+    )
+    return flat.reshape(n, d)
+
+
+@dataclasses.dataclass(frozen=True)
 class FixedEffectDataset:
-    """All samples' features from one shard, resident on the device.
+    """All samples' features from one shard: resident on the device, or
+    streamed (``streamed=True``: ``batch`` None, ``host_batch`` the host
+    rows, slices staged under ``hbm_budget_bytes``).
 
     ``true_dim`` / ``true_n_rows`` are the unpadded shard dimension and
     sample count; they default to the batch's. A row-sharded batch
@@ -62,16 +164,24 @@ class FixedEffectDataset:
     batch: Optional[LabeledBatch]
     true_dim: Optional[int] = None
     true_n_rows: Optional[int] = None
-    host_batch: Optional[object] = None
+    host_batch: Optional[HostRowBatch] = None
     streamed: bool = False
     hbm_budget_bytes: Optional[int] = None
     mesh: Optional[object] = None
+    # the device of a streamed dataset's resident planes and slices
+    device: Optional[torch.device] = None
 
     def __post_init__(self):
-        if self.streamed or self.host_batch is not None or self.hbm_budget_bytes is not None:
-            raise NotImplementedError(_STREAMED_TODO)
         if self.mesh is not None:
             raise NotImplementedError(_MULTI_TODO)
+        if self.streamed:
+            if self.batch is not None or self.host_batch is None or self.hbm_budget_bytes is None:
+                raise ValueError("a streamed FixedEffectDataset holds host_batch and hbm_budget_bytes, no batch")
+            if self.device is None:
+                raise ValueError("a streamed FixedEffectDataset needs the device its slices stream to")
+            return
+        if self.host_batch is not None:
+            raise ValueError("a resident FixedEffectDataset holds no host_batch")
         if self.batch is None:
             raise ValueError("a resident FixedEffectDataset needs its batch")
         if self.batch.group is not None and self.true_n_rows is None:
@@ -79,16 +189,21 @@ class FixedEffectDataset:
 
     @property
     def n_rows(self) -> int:
-        return self.true_n_rows if self.true_n_rows is not None else self.batch.n_rows
+        if self.true_n_rows is not None:
+            return self.true_n_rows
+        return self.batch.n_rows if self.batch is not None else self.host_batch.n_rows
 
     @property
     def dim(self) -> int:
-        return self.true_dim if self.true_dim is not None else self.batch.dim
+        if self.true_dim is not None:
+            return self.true_dim
+        return self.batch.dim if self.batch is not None else self.host_batch.dim
 
 
 @dataclasses.dataclass(frozen=True)
 class EntityBlocks:
-    """Device-side entity-blocked training data (see module docstring)."""
+    """Entity-blocked training data (see module docstring): on the device,
+    or in host memory for a streamed dataset."""
 
     features: Tensor  # f[E, K, S]
     labels: Tensor  # f[E, K]
@@ -138,8 +253,13 @@ class RandomEffectDataset:
     group: Optional[object] = None  # parallel.mesh.DataParallelGroup
 
     def __post_init__(self):
-        if self.streamed or self.hbm_budget_bytes is not None:
-            raise NotImplementedError(_STREAMED_TODO)
+        if self.streamed:
+            if self.hbm_budget_bytes is None or self.group is not None:
+                raise ValueError("a streamed RandomEffectDataset needs hbm_budget_bytes and no group")
+            if self.blocks.features.device.type != "cpu":
+                raise ValueError("a streamed RandomEffectDataset keeps its blocks in host memory")
+        elif self.hbm_budget_bytes is not None:
+            raise ValueError("hbm_budget_bytes is set on streamed datasets only")
         if self.entity_shard_range is not None or self.mesh is not None:
             raise NotImplementedError(_MULTI_TODO)
         if (self.host_proj_cols is None) != (self.group is None):
@@ -154,7 +274,7 @@ class RandomEffectDataset:
 
     @property
     def device(self) -> torch.device:
-        return self.blocks.features.device
+        return self.row_entity.device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -297,21 +417,185 @@ def build_fixed_effect_dataset(
 ) -> FixedEffectDataset:
     """All rows of ``feature_shard`` as one resident batch on ``device`` (the
     card unless asked otherwise), in ``layout`` (``RawDataset.to_batch``:
-    auto picks dense up to d = 4,096 and ELL above). ``hbm_budget_bytes``
-    (the streamed fixed effect) is ROADMAP A7 and ``mesh`` A10."""
-    if hbm_budget_bytes is not None:
-        raise NotImplementedError(_STREAMED_TODO)
+    auto picks dense up to d = 4,096 and ELL above).
+
+    ``hbm_budget_bytes``: when set and the resident batch's device bytes
+    (``fe_streaming.estimate_fe_batch_bytes``) exceed it, the dataset is
+    built streamed: the rows stay in a :class:`HostRowBatch` (dense, or ELL
+    with the global row-nnz width; page-locked for a card) and training and
+    scoring stream row slices through ``device``. Only the row-sliceable
+    layouts (auto, dense, ell) take a budget. ``mesh`` is ROADMAP A10."""
     if mesh is not None:
         raise NotImplementedError(_MULTI_TODO)
+    dev = resolve_device(device)
+    d = raw.shard_dims[feature_shard]
+    if hbm_budget_bytes is not None:
+        from .fe_streaming import estimate_fe_batch_bytes
+
+        eff_layout = _row_sliceable_layout(coordinate_id, layout, d, "hbm_budget_mb on a fixed effect")
+        fdt = feature_dtype or dtype
+        rows, cols, vals = raw.shard_coo[feature_shard]
+        n = raw.n_rows
+        width = 0
+        if eff_layout == "ell":
+            counts = np.bincount(rows, minlength=n) if n else np.zeros(0, np.int64)
+            width = max(int(counts.max()) if n else 1, 1)
+        est = estimate_fe_batch_bytes(
+            n, d, eff_layout, ell_width=width, feature_itemsize=_itemsize(fdt),
+            scalar_itemsize=_itemsize(dtype),
+        )
+        if est > hbm_budget_bytes:
+            pinned = dev.type == "cuda"
+            planes = dict(
+                labels=_host_plane(raw.labels, dtype, False),
+                offsets=_host_plane(raw.offsets, dtype, False),
+                weights=_host_plane(raw.weights, dtype, False),
+            )
+            if eff_layout == "dense":
+                host = HostRowBatch(dim=d, dense=_host_plane(_dense_rows(rows, cols, vals, n, d), fdt, pinned),
+                                    **planes)
+            else:
+                ell_idx, ell_val = _rows_to_ell(rows, cols, vals, n, width=width)
+                host = HostRowBatch(dim=d, ell_idx=_host_plane(ell_idx, torch.int32, pinned),
+                                    ell_val=_host_plane(ell_val, fdt, pinned), **planes)
+            return FixedEffectDataset(
+                coordinate_id=coordinate_id, feature_shard=feature_shard, batch=None, true_dim=d,
+                true_n_rows=n, host_batch=host, streamed=True, hbm_budget_bytes=int(hbm_budget_bytes),
+                device=dev,
+            )
     return FixedEffectDataset(
         coordinate_id=coordinate_id,
         feature_shard=feature_shard,
         batch=raw.to_batch(
-            feature_shard, dtype=dtype, layout=layout, feature_dtype=feature_dtype, device=device
+            feature_shard, dtype=dtype, layout=layout, feature_dtype=feature_dtype, device=dev
         ),
-        true_dim=raw.shard_dims[feature_shard],
+        true_dim=d,
         true_n_rows=raw.n_rows,
     )
+
+
+def _itemsize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def _row_sliceable_layout(coordinate_id: str, layout: str, d: int, what: str) -> str:
+    """``layout`` resolved as ``RawDataset.to_batch`` resolves auto (dense up
+    to d = 4,096, ELL above); anything but dense / ELL raises."""
+    eff_layout = ("dense" if d <= 4096 else "ell") if layout == "auto" else layout
+    if eff_layout not in ("dense", "ell"):
+        raise ValueError(
+            f"coordinate {coordinate_id}: {what} requires a row-sliceable layout "
+            f"(auto|dense|ell), got layout={layout!r}"
+        )
+    return eff_layout
+
+
+def build_fixed_effect_dataset_from_disk(
+    path,
+    shard_configs,
+    coordinate_id: str,
+    feature_shard: str,
+    hbm_budget_bytes: int,
+    *,
+    index_maps=None,
+    id_tag_columns=(),
+    response_column: str = "label",
+    columns=None,
+    reader_schema=None,
+    dtype=torch.float32,
+    layout: str = "auto",
+    feature_dtype=None,
+    workers=None,
+    pool=None,
+    ingest_budget_bytes: Optional[int] = None,
+    prefetch_depth: int = 2,
+    device: DeviceLike = None,
+):
+    """Disk -> :class:`HostRowBatch` without materializing the whole
+    ``RawDataset``: part files decode across the ingest worker pool
+    (``io.data.read_avro_part_pieces``) and each part's rows are written
+    straight into the preallocated host planes. Returns ``(dataset,
+    index_maps)``, the dataset always streamed under ``hbm_budget_bytes``
+    (use ``read_avro_dataset_chunked`` + :func:`build_fixed_effect_dataset`
+    for a resident batch).
+
+    Bitwise the in-memory builder's planes: parts arrive in file order with
+    contiguous ascending row blocks, so the per-part dense fills and
+    ``_rows_to_ell(width=global)`` give the global constructions' arrays.
+    The dense layout keeps one part's COO alive at a time; the ELL layout
+    buffers the parts' compact COO until the global row-nnz width is known
+    (O(nnz) host memory, never the records)."""
+    from .. import obs
+    from ..io.avro import count_avro_rows, list_avro_parts
+    from ..io.data import read_avro_part_pieces, scan_index_maps_pipelined
+
+    dev = resolve_device(device)
+    paths = [path] if isinstance(path, str) else list(path)
+    parts = [part for p in paths for part in list_avro_parts(p)]
+    if not parts:
+        raise ValueError(f"no .avro part files under {paths!r}")
+    read_kw = dict(
+        id_tag_columns=id_tag_columns, response_column=response_column, columns=columns,
+        reader_schema=reader_schema, prefetch_depth=prefetch_depth, workers=workers, pool=pool,
+        ingest_budget_bytes=ingest_budget_bytes,
+    )
+    with obs.span("ingest.disk_slice", n_parts=len(parts)):
+        if index_maps is None:
+            index_maps = scan_index_maps_pipelined(
+                parts, shard_configs, reader_schema, prefetch_depth=prefetch_depth, workers=workers,
+                pool=pool, ingest_budget_bytes=ingest_budget_bytes,
+            )
+        d = len(index_maps[feature_shard])
+        eff_layout = _row_sliceable_layout(coordinate_id, layout, d, "the disk-to-slice ingest path")
+        # header-only row counts: block counts, no decompression
+        n = sum(count_avro_rows(part) for part in parts)
+        fdt = feature_dtype or dtype
+        pinned = dev.type == "cuda"
+        scalars = {name: np.empty(n, np.float64) for name in ("labels", "offsets", "weights")}
+        coo_parts = []
+        dense = np.zeros((n, d), np.float64) if eff_layout == "dense" else None
+        row0 = 0
+
+        def _drain(_i, piece) -> None:
+            nonlocal row0
+            m = piece.n_rows
+            for name, plane in scalars.items():
+                plane[row0:row0 + m] = getattr(piece, name)
+            rows, cols, vals = piece.shard_coo[feature_shard]
+            if dense is not None:
+                dense[row0:row0 + m] = _dense_rows(rows, cols, vals, m, d)
+            else:
+                coo_parts.append((m, (rows, cols, vals)))
+            row0 += m
+
+        read_avro_part_pieces(paths, shard_configs, _drain, index_maps, **read_kw)
+        planes = {name: _host_plane(plane, dtype, False) for name, plane in scalars.items()}
+        if dense is not None:
+            host = HostRowBatch(dim=d, dense=_host_plane(dense, fdt, pinned), **planes)
+        else:
+            width = 1
+            for m, (rows, _c, _v) in coo_parts:
+                if m:
+                    width = max(width, int(np.bincount(rows, minlength=m).max()))
+            ell_idx = np.zeros((n, width), np.int32)
+            ell_val = np.zeros((n, width), np.float64)
+            r0 = 0
+            for m, (rows, cols, vals) in coo_parts:
+                ell_idx[r0:r0 + m], ell_val[r0:r0 + m] = _rows_to_ell(rows, cols, vals, m, width=width)
+                r0 += m
+            del coo_parts[:]
+            host = HostRowBatch(dim=d, ell_idx=_host_plane(ell_idx, torch.int32, pinned),
+                                ell_val=_host_plane(ell_val, fdt, pinned), **planes)
+        reg = obs.current_run().registry
+        reg.counter("photon_ingest_parts_total", "part files decoded by the chunked reader").labels(
+            mode="disk_slice").inc(len(parts))
+        reg.counter("photon_ingest_rows_total", "rows produced by the chunked reader").labels(
+            mode="disk_slice").inc(n)
+    dataset = FixedEffectDataset(
+        coordinate_id=coordinate_id, feature_shard=feature_shard, batch=None, true_dim=d, true_n_rows=n,
+        host_batch=host, streamed=True, hbm_budget_bytes=int(hbm_budget_bytes), device=dev,
+    )
+    return dataset, dict(index_maps)
 
 
 def _to_device(a: np.ndarray, dtype: torch.dtype, device: torch.device) -> Tensor:
@@ -349,10 +633,12 @@ def build_random_effect_dataset(
     feature_dtype: narrower storage (e.g. bfloat16) for the block features
     and the ELL scoring values only; labels, offsets, weights and solver
     state stay ``dtype``.
-    hbm_budget_bytes: the streamed build, ROADMAP A7 (raises).
+    hbm_budget_bytes: when set and the blocks' device bytes
+    (``streaming.estimate_block_bytes``) exceed it, the dataset is built
+    streamed: the blocks stay in host memory (page-locked for a card) and
+    training and scoring stream entity slices through ``device``
+    (``game/streaming.py``); the scoring arrays go to ``device`` as ever.
     """
-    if hbm_budget_bytes is not None:
-        raise NotImplementedError(_STREAMED_TODO)
     dev = resolve_device(device)
     n = raw.n_rows
     ids = raw.id_tags[random_effect_type]
@@ -447,14 +733,30 @@ def build_random_effect_dataset(
         feats = feats[:, :, :S]
 
     fdt = feature_dtype or dtype
-    blocks = EntityBlocks(
-        features=_to_device(feats, fdt, dev),
-        labels=_to_device(labels_b, dtype, dev),
-        offsets=_to_device(offsets_b, dtype, dev),
-        weights=_to_device(weights_b, dtype, dev),
-        proj_cols=_to_device(proj_cols_np, torch.int32, dev),
-        active_rows=_to_device(active_rows_np, torch.int32, dev),
-    )
+    streamed = False
+    if hbm_budget_bytes is not None:
+        from .streaming import estimate_block_bytes
+
+        streamed = estimate_block_bytes(*feats.shape, feature_itemsize=_itemsize(fdt)) > hbm_budget_bytes
+    if streamed:
+        pinned = dev.type == "cuda"
+        blocks = EntityBlocks(
+            features=_host_plane(feats, fdt, pinned),
+            labels=_host_plane(labels_b, dtype, pinned),
+            offsets=_host_plane(offsets_b, dtype, pinned),
+            weights=_host_plane(weights_b, dtype, pinned),
+            proj_cols=_host_plane(proj_cols_np, torch.int32, pinned),
+            active_rows=_host_plane(active_rows_np, torch.int32, pinned),
+        )
+    else:
+        blocks = EntityBlocks(
+            features=_to_device(feats, fdt, dev),
+            labels=_to_device(labels_b, dtype, dev),
+            offsets=_to_device(offsets_b, dtype, dev),
+            weights=_to_device(weights_b, dtype, dev),
+            proj_cols=_to_device(proj_cols_np, torch.int32, dev),
+            active_rows=_to_device(active_rows_np, torch.int32, dev),
+        )
     del feats
 
     row_entity = np.where(entity_of_row >= 0, entity_of_row, -1).astype(np.int32)
@@ -475,4 +777,6 @@ def build_random_effect_dataset(
         passive_rows=passive,
         entity_counts=np.sum(active_rows_np >= 0, axis=1).astype(np.int64),
         entity_subspace_dims=per_entity_s.astype(np.int64),
+        streamed=streamed,
+        hbm_budget_bytes=int(hbm_budget_bytes) if streamed else None,
     )

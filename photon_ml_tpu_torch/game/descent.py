@@ -30,8 +30,19 @@ boundary ``obs.sample_memory`` records host RSS and, for the cards the
 scores live on, the caching allocator's counters (host-side reads, no
 device fetch) into the ``photon_mem_*`` gauges, with or without a sink.
 The result carries each coordinate's raw ``SolverResult`` and its
-tracker. Sweep pipelining (``pipeline_depth`` > 1) is ROADMAP A7; the
-distributed sweep barrier is A10.
+tracker. The distributed sweep barrier is ROADMAP A10.
+
+Sweep pipelining (``pipeline_depth`` > 1, the JAX package's): the sweep
+runs inside ``pipeline.pipelined(depth)``, so streamed coordinates stage
+their slices on a background thread, and with per-coordinate validation the
+evaluations run on an ``EvalLane`` (one worker thread on the loop's card
+and stream), coordinate k's evaluation overlapping coordinate k+1's solve.
+Results drain in submit order, before every boundary and at the sweep's
+end, so the evaluation ledger, the best model and every boundary state are
+the serial loop's bit for bit. The lane gets the models dict of an accepted
+update: their tensors are never written in place afterwards. Over
+coordinates sharded across ranks the evaluations stay on the main thread
+(every rank must call its collectives in one order).
 
 Over coordinates sharded across a data-parallel group, every rank runs this
 loop alike: scores, residuals, models and the guard's fetch are replicated
@@ -41,6 +52,7 @@ branch and calls the same collectives in the same order.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
 import time
@@ -56,11 +68,28 @@ from ..optimize import SolverResult
 from ..optimize.trackers import build_tracker, record_tracker_metrics
 from ..robust import faults
 from ..utils.timed import timed
+from . import pipeline
 from .coordinate import Coordinate, ModelCoordinate
 
 logger = logging.getLogger("photon_ml_tpu_torch")
 
 Tensor = torch.Tensor
+
+
+def _loop_device(coordinates) -> Optional[torch.device]:
+    """The device the coordinates' data lie on (the eval lane binds it), or
+    None where none says."""
+    for c in coordinates:
+        ds = getattr(getattr(c, "inner", c), "dataset", None)
+        if ds is None:
+            continue
+        batch = getattr(ds, "batch", None)
+        if batch is not None:
+            return batch.device
+        dev = getattr(ds, "device", None)
+        if dev is not None:
+            return dev
+    return None
 
 
 def _score_cards(scores: Mapping[str, Tensor]) -> List[torch.device]:
@@ -157,7 +186,8 @@ class CoordinateDescent:
         ``validation_frequency``: 'COORDINATE' evaluates after every
         coordinate update, 'SWEEP' once per full sweep (same best-model
         tracking). ``divergence_guard=False`` drops the guard and its fetch.
-        ``pipeline_depth`` must be 1 (pipelining is ROADMAP A7)."""
+        ``pipeline_depth`` > 1 pipelines the sweep (see the module
+        docstring)."""
         if not coordinates:
             raise ValueError("CoordinateDescent needs at least one coordinate")
         if n_iterations < 1:
@@ -170,8 +200,6 @@ class CoordinateDescent:
             raise ValueError(f"rejection_tolerance must be >= 0: {rejection_tolerance}")
         if pipeline_depth < 1:
             raise ValueError(f"pipeline_depth must be >= 1: {pipeline_depth}")
-        if pipeline_depth > 1:
-            raise NotImplementedError("sweep pipelining (pipeline_depth > 1) is not ported yet (ROADMAP A7)")
         self.coordinates = dict(coordinates)
         self.order = list(coordinates)
         self.n_iterations = n_iterations
@@ -244,86 +272,126 @@ class CoordinateDescent:
 
         registry = obs.current_run().registry
         status = obs.current_run().status
+        sharded = any(getattr(c, "group", None) is not None for c in coords.values())
         for it in range(start_it, self.n_iterations):
             first = start_idx if it == start_it else 0
-            with obs.span("cd.sweep", iteration=it, pipeline_depth=self.pipeline_depth):
-                for idx in range(first, len(self.order)):
-                    name = self.order[idx]
-                    coordinate = coords[name]
-                    own = scores.get(name)
-                    if summed is None:
-                        residual = None
-                    else:
-                        residual = summed - own if own is not None else summed
-                    group = getattr(coordinate, "group", None)
-                    c0 = (group.collectives, group.collective_seconds) if group is not None else None
-                    # the current position for /statusz scrapes: host dict
-                    # writes, live with or without a sink
-                    status.update(sweep=it, n_sweeps=self.n_iterations, coordinate=name, coordinate_index=idx)
-                    t0 = time.perf_counter()
-                    with obs.span("cd.coordinate", iteration=it, coordinate=name):
-                        with timed(f"cd iter {it} coordinate {name}: train", phase="solve", coordinate=name):
-                            model, solver_result = coordinate.train(residual, initial_model=models.get(name))
-                        if solver_result is not None:  # None: a locked coordinate
-                            results[name] = solver_result
-                            syncs[name] += solver_result.syncs
-                        tracker = build_tracker(coordinate, solver_result)
-                        if tracker is not None:
-                            trackers[name] = tracker
-                            # both fetch from the device: gated so that a run
-                            # with no sink and no INFO log makes no fetch here
-                            if logger.isEnabledFor(logging.INFO):
-                                logger.info("cd iter %d coordinate %s optimization summary:\n%s",
-                                            it, name, tracker.to_summary_string())
-                            if obs.active():
-                                record_tracker_metrics(registry, name, tracker)
-                        with timed(f"cd iter {it} coordinate {name}: score", phase="score", coordinate=name):
-                            new_scores = coordinate.score(model)
-                        if faults.active():
-                            new_scores = faults.corrupt("coordinate.scores", new_scores)
-                        accepted, train_loss = True, None
-                        if self.divergence_guard:
-                            syncs[name] += 1
-                            accepted, train_loss = self._guard(name, new_scores, solver_result, train_losses)
-                    seconds[name] += time.perf_counter() - t0
-                    if c0 is not None:
-                        collectives[name] += group.collectives - c0[0]
-                        collective_s[name] += group.collective_seconds - c0[1]
-                    if accepted:
-                        models[name] = model
-                        # summedScores - oldScores + newScores
-                        summed = new_scores if residual is None else residual + new_scores
-                        scores[name] = new_scores
-                        if train_loss is not None:
-                            train_losses[name] = train_loss
-                            registry.gauge(
-                                "photon_cd_accepted_loss", "last accepted total train loss per coordinate"
-                            ).labels(coordinate=name).set(train_loss)
-                            status.update(accepted_losses={k: float(v) for k, v in train_losses.items()})
-                        if self.validation is not None and self.validation_frequency == "COORDINATE":
-                            best_eval, best_models = self._track_best(
-                                models, evaluations, best_eval, best_models, it, name
-                            )
-                    else:
-                        # the previous model, scores and summed scores stand
-                        rejections[name] += 1
-                        self._reject(it, name)
-                    if self.boundary_fn is not None:
-                        with obs.span("cd.checkpoint", phase="checkpoint", coordinate=name):
-                            self.boundary_fn(CDBoundaryState(
-                                iteration=it,
-                                coordinate_index=idx,
-                                coordinate=name,
-                                coordinate_order=list(self.order),
-                                n_iterations=self.n_iterations,
-                                models=dict(models),
-                                summed_scores=summed,
-                                best_eval=best_eval,
-                                best_models=dict(best_models),
-                                evaluations=list(evaluations),
-                                trackers=dict(trackers),
-                                train_losses=dict(train_losses),
-                            ))
+            with obs.span("cd.sweep", iteration=it, pipeline_depth=self.pipeline_depth) as sweep_span:
+                # depth >= 2 with per-coordinate validation: the eval lane
+                lane = None
+                lane_snaps: collections.deque = collections.deque()
+                if (
+                    self.pipeline_depth > 1
+                    and self.validation is not None
+                    and self.validation_frequency == "COORDINATE"
+                    and not sharded
+                ):
+                    lane = pipeline.EvalLane(
+                        self._evaluate, capacity=self.pipeline_depth - 1, anchor=sweep_span,
+                        device=_loop_device(coords.values()),
+                    )
+
+                def _absorb(drained):
+                    nonlocal best_eval, best_models
+                    for eit, ename, res in drained:
+                        best_eval, best_models = self._absorb_eval(
+                            eit, ename, res, lane_snaps.popleft(), evaluations, best_eval, best_models
+                        )
+
+                with pipeline.pipelined(self.pipeline_depth, anchor=sweep_span), pipeline.closing(lane):
+                    for idx in range(first, len(self.order)):
+                        name = self.order[idx]
+                        coordinate = coords[name]
+                        own = scores.get(name)
+                        if summed is None:
+                            residual = None
+                        else:
+                            residual = summed - own if own is not None else summed
+                        group = getattr(coordinate, "group", None)
+                        c0 = (group.collectives, group.collective_seconds) if group is not None else None
+                        # the current position for /statusz scrapes: host dict
+                        # writes, live with or without a sink
+                        status.update(sweep=it, n_sweeps=self.n_iterations, coordinate=name, coordinate_index=idx)
+                        t0 = time.perf_counter()
+                        with obs.span("cd.coordinate", iteration=it, coordinate=name):
+                            with timed(f"cd iter {it} coordinate {name}: train", phase="solve", coordinate=name):
+                                model, solver_result = coordinate.train(residual, initial_model=models.get(name))
+                            if solver_result is not None:  # None: a locked coordinate
+                                results[name] = solver_result
+                                syncs[name] += solver_result.syncs
+                            tracker = build_tracker(coordinate, solver_result)
+                            if tracker is not None:
+                                trackers[name] = tracker
+                                # both fetch from the device: gated so that a run
+                                # with no sink and no INFO log makes no fetch here
+                                if logger.isEnabledFor(logging.INFO):
+                                    logger.info("cd iter %d coordinate %s optimization summary:\n%s",
+                                                it, name, tracker.to_summary_string())
+                                if obs.active():
+                                    record_tracker_metrics(registry, name, tracker)
+                            with timed(f"cd iter {it} coordinate {name}: score", phase="score", coordinate=name):
+                                new_scores = coordinate.score(model)
+                            if faults.active():
+                                new_scores = faults.corrupt("coordinate.scores", new_scores)
+                            # the accepted-score sum is queued before the
+                            # guard's fetch waits; a rejection drops it
+                            candidate = new_scores if residual is None else residual + new_scores
+                            accepted, train_loss = True, None
+                            if self.divergence_guard:
+                                syncs[name] += 1
+                                accepted, train_loss = self._guard(name, new_scores, solver_result, train_losses)
+                        seconds[name] += time.perf_counter() - t0
+                        if c0 is not None:
+                            collectives[name] += group.collectives - c0[0]
+                            collective_s[name] += group.collective_seconds - c0[1]
+                        if accepted:
+                            models[name] = model
+                            # summedScores - oldScores + newScores
+                            summed = candidate
+                            scores[name] = new_scores
+                            if train_loss is not None:
+                                train_losses[name] = train_loss
+                                registry.gauge(
+                                    "photon_cd_accepted_loss", "last accepted total train loss per coordinate"
+                                ).labels(coordinate=name).set(train_loss)
+                                status.update(accepted_losses={k: float(v) for k, v in train_losses.items()})
+                            if self.validation is not None and self.validation_frequency == "COORDINATE":
+                                if lane is not None:
+                                    snapshot = dict(models)
+                                    lane_snaps.append(snapshot)
+                                    lane.submit(it, name, snapshot)
+                                    _absorb(lane.drain_ready())
+                                else:
+                                    best_eval, best_models = self._track_best(
+                                        models, evaluations, best_eval, best_models, it, name
+                                    )
+                        else:
+                            # the previous model, scores and summed scores stand
+                            rejections[name] += 1
+                            self._reject(it, name)
+                        if self.boundary_fn is not None:
+                            # in-flight evaluations land first: the boundary
+                            # state holds the serial loop's ledger
+                            if lane is not None:
+                                _absorb(lane.drain_all())
+                            with obs.span("cd.checkpoint", phase="checkpoint", coordinate=name):
+                                self.boundary_fn(CDBoundaryState(
+                                    iteration=it,
+                                    coordinate_index=idx,
+                                    coordinate=name,
+                                    coordinate_order=list(self.order),
+                                    n_iterations=self.n_iterations,
+                                    models=dict(models),
+                                    summed_scores=summed,
+                                    best_eval=best_eval,
+                                    best_models=dict(best_models),
+                                    evaluations=list(evaluations),
+                                    trackers=dict(trackers),
+                                    train_losses=dict(train_losses),
+                                ))
+                    if lane is not None:
+                        # the sweep's end is a serial point: everything
+                        # submitted lands in the ledger before the span closes
+                        _absorb(lane.drain_all())
                 if self.validation is not None and self.validation_frequency == "SWEEP":
                     best_eval, best_models = self._track_best(
                         models, evaluations, best_eval, best_models, it, self.order[-1]
@@ -365,7 +433,8 @@ class CoordinateDescent:
             obs.add_device_fetch_bytes("cd.update_guard", 8)
             return bool(finite.item()), None
         finite_h, loss_h = (
-            torch.stack([finite, torch.sum(solver_result.loss).to(torch.float64)]).cpu().numpy()
+            torch.stack([finite, torch.sum(solver_result.loss).to(device=finite.device, dtype=torch.float64)])
+            .cpu().numpy()
         )
         obs.add_device_fetch_bytes("cd.update_guard", 16)
         if not bool(finite_h):
@@ -395,14 +464,21 @@ class CoordinateDescent:
     def _track_best(self, models, evaluations, best_eval, best_models, it, name):
         with obs.span("cd.eval", phase="eval", iteration=it, coordinate=name):
             res = self._evaluate(models)
+        return self._absorb_eval(it, name, res, models, evaluations, best_eval, best_models)
+
+    def _absorb_eval(self, it, name, res, snapshot, evaluations, best_eval, best_models):
+        """Fold one evaluation into the ledger: right after it in the serial
+        loop, when the eval lane drains in the pipelined one (the same
+        order, so the same ledger). ``snapshot`` is the models dict of the
+        evaluated update."""
         evaluations.append((name, res))
         primary = self.validation.suite.primary
         # only snapshots with every coordinate trained are candidates: a
         # mid-first-sweep partial model is not a valid GAME model
-        complete = len(models) == len(self.order)
+        complete = len(snapshot) == len(self.order)
         if complete and (best_eval is None or primary.better(res.primary_metric, best_eval.primary_metric)):
             best_eval = res
-            best_models = dict(models)
+            best_models = dict(snapshot)
         if obs.active():
             gauge = obs.current_run().registry.gauge(
                 "photon_validation_metric", "validation metric after an update"

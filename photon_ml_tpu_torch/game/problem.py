@@ -7,7 +7,9 @@ back). ``run_lanes`` solves L regularization candidates of one batch at
 once: the ``[d, L]`` objective on the lane-generic batched TRON and L-BFGS,
 its products one ``matmat`` / ``rmatmat`` for all lanes (S2 on a sparse
 batch on the card), the per-lane L2 weight a tensor operand.
-``run_streamed`` is not ported yet (ROADMAP A7).
+``run_streamed`` trains out of core: the fixed effect's rows stay in host
+memory and every evaluation streams them through the card in row slices
+(``game/fe_streaming.py``).
 
 Over a batch that ``parallel.mesh.shard_batch`` cut to one rank's rows,
 ``run`` is the same call on every rank of the batch's group: every sweep is
@@ -25,6 +27,7 @@ import torch
 
 from ..models.coefficients import Coefficients
 from ..models.glm import GeneralizedLinearModel, model_for_task
+from ..device import resolve_device
 from ..ops.features import LabeledBatch
 from ..ops.fused_glm import OBJECTIVE_ROUTES
 from ..ops.glm import GLMObjective, check_full_variance_dim, compute_variances
@@ -209,10 +212,76 @@ class GLMProblem:
     def zero_model(self, dim: int, dtype=torch.float32, device="cuda") -> GeneralizedLinearModel:
         return model_for_task(self.task, Coefficients.zeros(dim, dtype, device))
 
-    def run_streamed(self, *args, **kwargs):
-        raise NotImplementedError(
-            "run_streamed (out-of-core fixed effect) is not ported yet (ROADMAP A7)"
+    def run_streamed(
+        self,
+        host_batch,  # game.data.HostRowBatch
+        budget_bytes: int,
+        residual_scores: Optional[Tensor] = None,  # device f[n] or None
+        initial_model: Optional[GeneralizedLinearModel] = None,
+        device=None,
+        plain: bool = False,
+    ) -> Tuple[GeneralizedLinearModel, SolverResult]:
+        """Train out of core: row slices of the host batch stream through
+        ``device`` double-buffered (``game/fe_streaming.py``) while the
+        port's host-loop optimizer takes one streamed pass per evaluation.
+        The normalization, warm start and prior as in ``run``; variances are
+        refused (a streamed pass never forms the Hessian). The route counts
+        in ``OBJECTIVE_ROUTES`` once per solve, as ``run``'s does;
+        ``plain=True`` runs the plain versions on the card."""
+        from .. import obs
+        from .fe_streaming import StreamedFEObjective
+
+        vt = self.config.variance_type.upper()
+        if vt != "NONE":
+            raise ValueError(
+                f"variance={vt} is not supported on the streamed fixed-effect"
+                " path (out-of-core row slices never materialize the Hessian);"
+                " use variance=NONE or raise hbm.budget.mb so the batch is"
+                " HBM-resident"
+            )
+        dim = host_batch.dim
+        dtype = host_batch.labels.dtype
+        dev = resolve_device(device)
+        norm = None
+        if self.normalization is not None:
+            norm = self.normalization.to(dev).padded(dim)
+        prior_mean = prior_precision = None
+        if self.prior is not None:
+            prior_mean = self.prior.means.to(device=dev, dtype=dtype)
+            if norm is not None:
+                prior_mean = norm.model_to_transformed_space(prior_mean)
+            if self.prior.variances is not None:
+                var = self.prior.variances.to(device=dev, dtype=dtype)
+                prior_precision = 1.0 / torch.clamp(var, min=1e-12)
+            else:
+                prior_precision = torch.ones_like(prior_mean)
+        if initial_model is not None:
+            w0 = initial_model.coefficients.means.to(device=dev, dtype=dtype)
+            if norm is not None:
+                w0 = norm.model_to_transformed_space(w0)
+        else:
+            w0 = torch.zeros(dim, dtype=dtype, device=dev)
+
+        obj = StreamedFEObjective(
+            get_loss(self.task), host_batch, budget_bytes, norm=norm,
+            l2_weight=self.config.regularization.l2_weight(self.config.reg_weight),
+            prior_mean=prior_mean, prior_precision=prior_precision,
+            residual_scores=residual_scores, device=dev, plain=plain,
         )
+        OBJECTIVE_ROUTES[obj.route] += 1
+        try:
+            with obs.span(
+                "fe_stream.solve", phase="solve", n_slices=obj.n_slices, budget_bytes=int(budget_bytes)
+            ) as solve_span:
+                result = optimize(obj.value_and_grad, w0, self.config.solver_config(), hvp=obj.hessian_vector)
+            obj.record_metrics("fe.train", solve_span.duration_s)
+        finally:
+            obj.close()
+        means = result.coefficients
+        if norm is not None:
+            means = norm.model_to_original_space(means)
+        model = model_for_task(self.task, Coefficients(means=means, variances=None))
+        return model, result
 
     def run_lanes(
         self,

@@ -176,8 +176,11 @@ class RandomEffectModel:
 
     def score_ell_rows(self, entity_rows: Tensor, feat_idx: Tensor, feat_val: Tensor) -> Tensor:
         """Score rows in ELL layout: row i has features (feat_idx[i],
-        feat_val[i]) and entity row entity_rows[i] (-1 => unseen => 0)."""
-        return score_entity_ell(self.coef_indices, self.coef_values, entity_rows, feat_idx, feat_val)
+        feat_val[i]) and entity row entity_rows[i] (-1 => unseen => 0).
+        A table held in host memory (a streamed coordinate's) is copied to
+        the rows' device first."""
+        dev = feat_val.device
+        return score_entity_ell(self.coef_indices.to(dev), self.coef_values.to(dev), entity_rows, feat_idx, feat_val)
 
 
 @dataclasses.dataclass

@@ -52,6 +52,7 @@ from .tracing import (
     Span,
     SpanEvent,
     add_device_fetch_bytes,
+    add_device_put_bytes,
     current_span,
     get_process_index,
     get_replica_id,
@@ -76,6 +77,7 @@ __all__ = [
     "TimelineRecorder",
     "active",
     "add_device_fetch_bytes",
+    "add_device_put_bytes",
     "build_run_summary",
     "collect_build_info",
     "compose_statusz",

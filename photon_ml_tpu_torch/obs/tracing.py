@@ -5,7 +5,8 @@ contextvar (so the tree survives generators and is isolated per thread /
 async context), carry wall time on the host clock, and pick up the
 device-to-host byte counters (``add_device_fetch_bytes``) that the port's
 counted fetches feed (the divergence guard's, the validation scores', the
-batch scorer's). The JAX package's compile-second attribution, fed by JAX's
+batch scorer's), and the host-to-device ones (``add_device_put_bytes``) of
+the streamed slices. The JAX package's compile-second attribution, fed by JAX's
 compilation monitor, has no counterpart here: the port compiles its kernels
 once with nvcc, outside any span.
 
@@ -153,15 +154,27 @@ def record_span(
     return s
 
 
+def _add_transfer_bytes(direction: str, site: str, nbytes: int) -> None:
+    nbytes = int(nbytes)
+    _run.current_run().registry.counter(
+        f"photon_device_{direction}_bytes_total",
+        f"bytes transferred at instrumented device-{direction} sites",
+    ).labels(site=site).inc(nbytes)
+    s = _ctx.get()
+    if s is not None:
+        key = f"{direction}_bytes"
+        s.attrs[key] = int(s.attrs.get(key, 0)) + nbytes
+
+
 def add_device_fetch_bytes(site: str, nbytes: int) -> None:
     """Count a device->host fetch of ``nbytes`` (host-known: no extra
     sync) at ``site``, in ``photon_device_fetch_bytes_total{site=}`` and in
     the current span's ``fetch_bytes``."""
-    nbytes = int(nbytes)
-    _run.current_run().registry.counter(
-        "photon_device_fetch_bytes_total",
-        "bytes transferred at instrumented device-fetch sites",
-    ).labels(site=site).inc(nbytes)
-    s = _ctx.get()
-    if s is not None:
-        s.attrs["fetch_bytes"] = int(s.attrs.get("fetch_bytes", 0)) + nbytes
+    _add_transfer_bytes("fetch", site, nbytes)
+
+
+def add_device_put_bytes(site: str, nbytes: int) -> None:
+    """Count a host->device copy of ``nbytes`` at ``site`` (the streamed
+    slices' staging), in ``photon_device_put_bytes_total{site=}`` and in the
+    current span's ``put_bytes``."""
+    _add_transfer_bytes("put", site, nbytes)

@@ -30,8 +30,9 @@ entries sends its matrix's ``matvec`` to the key form too.
 
 Padding entries stay in: they add ``src * 0`` as the reference does, so a
 non-finite coefficient still turns the margins of padded rows non-finite.
-Padded rows carry weight 0. Row slicing (``slice_rows``) is ROADMAP A7: it
-raises.
+Padded rows carry weight 0. Row slicing (``slice_rows``, the streamed
+fixed effect's row windows) takes the dense and ELL layouts; COO, sorted by
+column, refuses.
 
 The lane-stacked products of the lambda-lane sweeps (``matmat`` ``X @ W``
 and ``rmatmat`` ``X^T @ C`` over ``[d, L]`` / ``[n, L]`` operands) run on
@@ -143,6 +144,19 @@ class FeatureMatrix:
         ))
         object.__setattr__(self, "col_segments", key_segments(c, self.dim, rows, vals, key_tensor=cols))
 
+    @classmethod
+    def from_segments(cls, dim: int, idx: Tensor, val: Tensor, row_segments: Segments,
+                      col_segments: Segments) -> "FeatureMatrix":
+        """An ELL matrix over ``idx`` / ``val`` whose segments were built
+        elsewhere: a streamed slice's, built once on the host and copied to
+        the card beside its planes (``game/fe_streaming.py``)."""
+        m = object.__new__(cls)
+        fields = dict(dim=int(dim), dense=None, idx=idx, val=val, coo_cols=None, coo_rows=None,
+                      coo_vals=None, coo_n_rows=0, row_segments=row_segments, col_segments=col_segments)
+        for name, value in fields.items():
+            object.__setattr__(m, name, value)
+        return m
+
     @property
     def layout(self) -> str:
         if self.dense is not None:
@@ -227,10 +241,22 @@ class FeatureMatrix:
         out = torch.zeros((self.n_rows, self.dim), dtype=vals.dtype, device=vals.device)
         return out.index_put_((rows.long(), cols.long()), vals, accumulate=True)
 
-    def slice_rows(self, start: int, size: int):
-        raise NotImplementedError(
-            "FeatureMatrix.slice_rows serves the streamed fixed effect, not ported yet (ROADMAP A7)"
-        )
+    def slice_rows(self, start: int, size: int) -> "FeatureMatrix":
+        """Rows ``[start, start + size)`` as a matrix of their own, ``start``
+        clamped as the JAX package's ``dynamic_slice`` does: a view of the
+        dense rows, or an ELL matrix over views of ``idx`` / ``val`` with
+        its own segments. The column-sorted COO layout is not row-major
+        and refuses, in the words of the streamed builders."""
+        if self.dense is None and self.idx is None:
+            raise ValueError(
+                "FeatureMatrix.slice_rows requires a row-sliceable layout "
+                "(dense|ell), got layout='coo'"
+            )
+        start = min(max(int(start), 0), max(self.n_rows - int(size), 0))
+        stop = start + int(size)
+        if self.dense is not None:
+            return FeatureMatrix(dim=self.dim, dense=self.dense[start:stop])
+        return FeatureMatrix(dim=self.dim, idx=self.idx[start:stop], val=self.val[start:stop])
 
     def matmat(self, w: Tensor, plain: bool = False) -> Tensor:
         """x @ w -> [n, L] for lane-stacked coefficients ``w[d, L]``: one

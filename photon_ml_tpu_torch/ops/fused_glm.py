@@ -24,6 +24,16 @@ and, over a batch sharded across ``torch.distributed`` ranks (B4, replacing
   into the slot row and ``rank_order_sum_plain`` adds them. ``group=None``
   is the one-process call.
 
+and over the row slices of a streamed batch (``game/fe_streaming.py``):
+
+- ``slice_value_grad``, ``slice_hessian_vector``: slice k's kernel writes its
+  totals into row k of the pass's ``[n_slices, width]`` float64 slot buffer
+  (``slice_slots``), the same finalize-into-slot mode; at the end of the
+  pass ``slices_total`` adds the rows in slice order with the same
+  ``rank_order_sum`` kernel, a fixed left-to-right order with no float
+  atomics. A sparse slice's products (the segment kernel) go into the slots
+  through ``fill_slot``.
+
 ``offsets`` already carry the normalization margin shift, so the shift and
 factor algebra stays in ``ops/glm.py``. The kernels live in
 ``csrc/fused_glm.cu``; each wrapper launches its kernel for a CUDA tensor and
@@ -562,6 +572,86 @@ def sharded_hessian_stats(
     mode = HD_SHIFTS if need_shifts else HD
     return _sharded(group, "sharded_hessian_stats", mode, plain, x, eff_coef, None, labels, offsets,
                     weights, None, loss)
+
+
+def slice_slots(n_slices: int, mode: int, d: int, device) -> Tensor:
+    """The ``[n_slices, width]`` float64 slot buffer of a streamed pass: row
+    k takes slice k's totals (``slice_value_grad`` /
+    ``slice_hessian_vector`` / ``fill_slot``), ``slices_total`` adds the
+    rows in slice order. Allocate it once and reuse it for every pass."""
+    return torch.zeros((n_slices, _out_width(mode, d)), dtype=torch.float64, device=device)
+
+
+def fill_slot(slots: Tensor, k: int, mode: int, outs: tuple) -> None:
+    """Row k of ``slots`` from a sweep's outputs in the wrappers' order
+    (value+grad: ``(value, grad, sum wt*dz)``; Hv: ``(hv, sum c*u)``),
+    widened to float64: the sparse slices' products and the plain
+    versions go into the slots this way."""
+    slots[k].copy_(_flat(mode, outs))
+
+
+def _slice(slots: Tensor, k: int, mode: int, plain: bool, x: Tensor, coef, v, labels,
+           offsets, weights, vshift, loss: PointwiseLoss) -> None:
+    """One row slice's sweep of ``mode`` into row k of ``slots``: on the card
+    the kernel's finalize writes its f32 totals widened to float64 there
+    (B4's slot mode); on the CPU, or with ``plain``, the plain version's
+    outputs are copied there."""
+    if slots.device != x.device:
+        raise ValueError(f"the slots are on {slots.device}, X on {x.device}")
+    if not plain and x.device.type != "cpu":
+        _require_cuda(x)
+        _launch(mode, x, coef, v, labels, offsets, weights, vshift, loss, slot=slots[k])
+        LAUNCHES[_KERNEL_NAMES[mode]] += 1
+        return
+    fill_slot(slots, k, mode, _plain(mode, x, coef, v, labels, offsets, weights, vshift, loss))
+
+
+def slice_value_grad(
+    slots: Tensor,
+    k: int,
+    x: Tensor,
+    eff_coef: Tensor,
+    labels: Tensor,
+    offsets: Tensor,
+    weights: Tensor,
+    loss: PointwiseLoss,
+    plain: bool = False,
+) -> None:
+    """``fused_value_grad`` over row slice k of a streamed batch, its totals
+    into row k of ``slots`` (``slice_slots(.., VG, ..)``); ``plain=True``
+    runs ``value_grad_plain`` on the card, the reference run."""
+    _slice(slots, k, VG, plain, x, eff_coef, None, labels, offsets, weights, None, loss)
+
+
+def slice_hessian_vector(
+    slots: Tensor,
+    k: int,
+    x: Tensor,
+    eff_coef: Tensor,
+    eff_v: Tensor,
+    labels: Tensor,
+    offsets: Tensor,
+    weights: Tensor,
+    vshift,
+    loss: PointwiseLoss,
+    plain: bool = False,
+) -> None:
+    """``fused_hessian_vector`` over row slice k of a streamed batch (see
+    ``slice_value_grad``)."""
+    _slice(slots, k, HV, plain, x, eff_coef, eff_v, labels, offsets, weights, vshift, loss)
+
+
+def slices_total(slots: Tensor, mode: int, d: int, dtype: torch.dtype) -> tuple:
+    """The pass's totals: the rows of ``slots`` added in slice order in
+    float64 (``rank_order_sum``: one launch on the card for float32
+    outputs; the plain version on the CPU and for a float64 batch), split
+    into the wrapper's outputs (``_split``). A fixed left-to-right order, so
+    a pass's bits do not change from run to run."""
+    if slots.device.type == "cpu" or dtype != torch.float32:
+        total = rank_order_sum_plain(slots, dtype)
+    else:
+        total = rank_order_sum(slots, dtype)
+    return _split(mode, d, total)
 
 
 def sweep_bytes(n: int, d: int, x_dtype: torch.dtype, mode: int) -> int:

@@ -22,6 +22,19 @@ Hessian-vector product). ``plain=True`` sends a CUDA batch to the plain
 versions too, for a reference run beside the kernels, and is how a float64
 batch runs on the card (``game/problem.py``'s ``plain_float64`` route).
 
+The out-of-core fixed effect (``game/fe_streaming.py``) splits the objective
+into per-row-slice partial sums (``slice_value_grad_into`` /
+``slice_hessian_vector_into``) and one finalize of the accumulated
+totals (``finalize_value_grad`` / ``finalize_hessian_vector``): value,
+``X^T(w dz)``, ``sum w dz``, ``X^T c`` and ``sum c`` are plain row sums,
+while the normalization algebra, the prior delta and the L2 term depend on
+the coefficients alone, so they apply once to the totals. Each slice's
+sums go into its row of the pass's slot buffer: a dense slice's sweep
+writes its totals there (``fused_glm.slice_*``: the kernel's slot mode on
+the card), a sparse slice's products (the segment kernel) are copied there.
+``slice_*_partials`` are the JAX package's signatures over the same route:
+a one-slice pass, its totals returned.
+
 Variances: NONE, SIMPLE (``1 / diag H``) and FULL (``diag H^-1``). FULL
 builds the dense Hessian ``X'^T diag(c) X'`` in row chunks, each chunk's
 product in float64 (exact whatever the TF32 settings; the chunks added in
@@ -40,11 +53,18 @@ import torch
 
 from .features import LabeledBatch
 from .fused_glm import (
+    HV,
+    VG,
+    fill_slot,
     rank_order_sum,
     rank_order_sum_plain,
     sharded_hessian_stats,
     sharded_hessian_vector,
     sharded_value_grad,
+    slice_hessian_vector,
+    slice_slots,
+    slice_value_grad,
+    slices_total,
 )
 from .losses import PointwiseLoss
 from .normalization import NormalizationContext, identity_normalization
@@ -304,3 +324,126 @@ def compute_variances(
     if vt == "FULL":
         return _diag_of_inverse(objective.hessian_matrix(coef))
     raise ValueError(f"Unknown variance computation type: {variance_type!r}")
+
+
+# ---------------------------------------------------------------------------
+# Sliced aggregators: the out-of-core fixed-effect objective
+
+
+def slice_value_grad_into(
+    slots: Tensor,
+    k: int,
+    loss: PointwiseLoss,
+    batch_slice: LabeledBatch,
+    eff: Tensor,
+    mshift,
+    plain: bool = False,
+) -> None:
+    """A row slice's partial sums of the objective, ``(sum w l, X^T(w dz),
+    sum w dz)`` at the normalization-effective coefficients ``eff`` and
+    margin shift ``mshift`` (computed once per evaluation), written into
+    row k of the pass's slot buffer (``fused_glm.slice_slots(.., VG, ..)``):
+    a dense slice's B1 writes them there, a sparse slice's S1 products are
+    copied there."""
+    b = batch_slice
+    f = b.features
+    if f.is_dense:
+        slice_value_grad(slots, k, f.dense, eff, b.labels, b.offsets + mshift, b.weights, loss, plain=plain)
+        return
+    z = f.matvec(eff, plain=plain) + mshift + b.offsets
+    lvals, dz = loss.loss_and_dz(z, b.labels)
+    wdz = b.weights * dz
+    fill_slot(slots, k, VG, (torch.sum(b.weights * lvals), f.rmatvec(wdz, plain=plain), torch.sum(wdz)))
+
+
+def slice_hessian_vector_into(
+    slots: Tensor,
+    k: int,
+    loss: PointwiseLoss,
+    batch_slice: LabeledBatch,
+    eff: Tensor,
+    mshift,
+    eff_v: Tensor,
+    vshift,
+    plain: bool = False,
+) -> None:
+    """A row slice's partial sums of H v, ``(X^T c, sum c)`` with
+    ``c = w l''(z) u`` and ``u = x.eff_v + vshift``, written into row k of
+    ``slots`` (see ``slice_value_grad_into``)."""
+    b = batch_slice
+    f = b.features
+    if f.is_dense:
+        slice_hessian_vector(slots, k, f.dense, eff, eff_v, b.labels, b.offsets + mshift, b.weights, vshift,
+                             loss, plain=plain)
+        return
+    z = f.matvec(eff, plain=plain) + mshift + b.offsets
+    c = b.weights * loss.d2z(z, b.labels) * (f.matvec(eff_v, plain=plain) + vshift)
+    fill_slot(slots, k, HV, (f.rmatvec(c, plain=plain), torch.sum(c)))
+
+
+def slice_value_grad_partials(
+    loss: PointwiseLoss, batch_slice: LabeledBatch, eff: Tensor, mshift, plain: bool = False
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """One slice's ``(sum w l, X^T(w dz), sum w dz)`` returned: a pass of
+    one slice, through a one-row slot buffer and ``slices_total``, the
+    streamed objective's route."""
+    d = batch_slice.features.dim
+    slots = slice_slots(1, VG, d, batch_slice.labels.device)
+    slice_value_grad_into(slots, 0, loss, batch_slice, eff, mshift, plain=plain)
+    value, grad, wdz = slices_total(slots, VG, d, batch_slice.labels.dtype)
+    return value, grad, wdz
+
+
+def slice_hessian_vector_partials(
+    loss: PointwiseLoss, batch_slice: LabeledBatch, eff: Tensor, mshift, eff_v: Tensor, vshift,
+    plain: bool = False,
+) -> Tuple[Tensor, Tensor]:
+    """One slice's ``(X^T c, sum c)`` returned (see
+    ``slice_value_grad_partials``)."""
+    d = batch_slice.features.dim
+    slots = slice_slots(1, HV, d, batch_slice.labels.device)
+    slice_hessian_vector_into(slots, 0, loss, batch_slice, eff, mshift, eff_v, vshift, plain=plain)
+    hv, csum = slices_total(slots, HV, d, batch_slice.labels.dtype)
+    return hv, csum
+
+
+def finalize_value_grad(
+    coef: Tensor,
+    value_sum: Tensor,
+    raw_grad_sum: Tensor,
+    wdz_sum: Tensor,
+    norm: NormalizationContext,
+    l2,
+    prior_mean: Optional[Tensor],
+    prior_precision: Optional[Tensor],
+) -> Tuple[Tensor, Tensor]:
+    """``GLMObjective.value_and_grad``'s per-evaluation algebra applied to
+    the accumulated slice partials."""
+    grad = raw_grad_sum
+    if norm.shifts is not None:
+        grad = grad - norm.shifts * wdz_sum
+    if norm.factors is not None:
+        grad = grad * norm.factors
+    delta = coef if prior_mean is None else coef - prior_mean
+    prec = torch.ones_like(coef) if prior_precision is None else prior_precision
+    value = value_sum + 0.5 * l2 * torch.dot(delta, prec * delta)
+    return value, grad + l2 * prec * delta
+
+
+def finalize_hessian_vector(
+    v: Tensor,
+    hv_sum: Tensor,
+    csum: Tensor,
+    norm: NormalizationContext,
+    l2,
+    prior_precision: Optional[Tensor],
+) -> Tensor:
+    """``GLMObjective.hessian_vector``'s post-accumulation algebra applied
+    to the accumulated slice partials."""
+    hv = hv_sum
+    if norm.shifts is not None:
+        hv = hv - norm.shifts * csum
+    if norm.factors is not None:
+        hv = hv * norm.factors
+    prec = torch.ones_like(v) if prior_precision is None else prior_precision
+    return hv + l2 * prec * v

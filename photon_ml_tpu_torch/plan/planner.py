@@ -6,16 +6,20 @@ topology (mesh, process count, pipeline depth, trial lanes) and decides,
 before any data is read or any device memory committed, the routing each
 coordinate takes, or raises one typed :class:`PlanError`.
 
-The port resolves the compositions it runs: resident coordinates on one
-card, dense / ELL / sorted-COO fixed-effect layouts, float32 or bfloat16
-feature storage, the serial sweep, incremental training (regularize-by-prior
-and locked coordinates) and trial lanes (``check_lane_composition`` and
-``check_retrain_composition`` refuse what the lane path and the retrain
-chain do not compose with, in the JAX package's words). For the
-compositions it has not ported, it refuses with a ``PlanError`` that names
-its ROADMAP item: HBM-budget streaming and sweep pipelining (A7), meshes,
-the tiled layout and multiple processes (A10). ``plan_fingerprint`` and ``check_checkpoint_topology`` are the JAX
-package's, so a checkpoint's manifest speaks the same topology contract.
+The port resolves the compositions it runs on one card: resident and
+streamed (``hbm_budget_mb``: out-of-core row slices of a fixed effect, entity
+slices of a random effect) coordinates, dense / ELL / sorted-COO
+fixed-effect layouts, float32 or bfloat16 feature storage, the serial and
+the pipelined sweep (``pipeline_depth`` > 1), incremental training
+(regularize-by-prior and locked coordinates) and trial lanes
+(``check_lane_composition`` and ``check_retrain_composition`` refuse what
+the lane path and the retrain chain do not compose with, and
+``_check_coordinate`` what the streamed fixed effect does not, in the JAX
+package's words). For the compositions it has not ported, it refuses with a
+``PlanError`` that names its ROADMAP item: meshes, the tiled layout and
+multiple processes (A10), streaming and pipelining over them included.
+``plan_fingerprint`` and ``check_checkpoint_topology`` are the JAX package's,
+so a checkpoint's manifest speaks the same topology contract.
 
 The module imports no torch: a plan resolves (``cli train --explain-plan``)
 on a host with no card.
@@ -33,8 +37,9 @@ class PlanError(ValueError):
     """A configuration the execution planner refuses (a ``ValueError``)."""
 
 
-A7 = "ROADMAP A7"
 A10 = "ROADMAP A10"
+# slice row counts round to this multiple (game/fe_streaming.py's)
+_ROW_MULTIPLE = 8
 
 
 def not_ported(what: str, item: str) -> PlanError:
@@ -53,7 +58,7 @@ class CoordinatePlan:
     kind: str  # "fixed-effect" | "random-effect"
     layout: str
     feature_dtype: str
-    residency: str  # "resident"
+    residency: str  # "resident" | "streamed"
     sharding: str  # "single-device"
     pipelined: bool
     hbm_budget_mb: Optional[int] = None
@@ -98,16 +103,20 @@ class ExecutionPlan:
         lines = [
             "execution plan",
             f"  topology: {self.n_processes} process(es), mesh {mesh}",
-            f"  pipeline depth: {self.pipeline_depth} (serial)",
+            f"  pipeline depth: {self.pipeline_depth}"
+            + (" (staging/solve/eval overlap)" if self.pipeline_depth > 1 else " (serial)"),
             f"  trial lanes: {self.trial_lanes}",
             f"  normalization: {self.normalization}",
             "  coordinates:",
         ]
         for c in self.coordinates:
-            lines.append(
+            head = (
                 f"    {c.name}: {c.kind}, layout={c.layout}, "
                 f"feature_dtype={c.feature_dtype}, {c.residency}, {c.sharding}"
             )
+            if c.pipelined:
+                head += ", pipelined"
+            lines.append(head)
             for k in sorted(c.geometry):
                 lines.append(f"      {k}: {c.geometry[k]}")
             for n in c.notes:
@@ -146,12 +155,40 @@ def dtype_name(feature_dtype) -> str:
 
 
 def _check_coordinate(cc) -> None:
-    if cc.hbm_budget_mb is not None:
-        raise not_ported(f"coordinate {cc.name}: hbm_budget_mb (out-of-core streaming)", A7)
+    if cc.hbm_budget_mb is not None and not cc.is_random_effect:
+        # the streamed fixed effect slices the row axis: only row-major
+        # layouts stream; a streamed pass never forms the Hessian; down-
+        # sampling is a resident-batch operation (the JAX package's words)
+        if cc.layout not in ("auto", "dense", "ell"):
+            raise PlanError(
+                f"coordinate {cc.name}: hbm_budget_mb on a fixed "
+                "effect requires a row-sliceable layout "
+                f"(auto|dense|ell), got layout={cc.layout!r}"
+            )
+        if cc.config.variance_type.upper() != "NONE":
+            raise PlanError(
+                f"coordinate {cc.name}: variance="
+                f"{cc.config.variance_type.upper()} is not supported "
+                "with hbm_budget_mb on a fixed effect (out-of-core "
+                "row slices never materialize the Hessian); use "
+                "variance=NONE"
+            )
+        if cc.config.down_sampling_rate < 1.0:
+            raise PlanError(
+                f"coordinate {cc.name}: down_sampling_rate < 1 is not "
+                "supported with hbm_budget_mb on a fixed effect"
+            )
     if cc.layout == "tiled":
         raise not_ported(f"coordinate {cc.name}: layout='tiled' (the mesh-tiled sparse batch)", A10)
     if cc.feature_dtype is not None and dtype_name(cc.feature_dtype) not in ("float32", "bfloat16"):
         raise PlanError(f"coordinate {cc.name}: feature_dtype must be float32 or bfloat16")
+
+
+def _rows_per_slice(budget_bytes: int, row_bytes: int) -> int:
+    """``game.fe_streaming.rows_per_slice`` for a dense row of
+    ``row_bytes`` (copied: the planner imports no torch)."""
+    r = max(budget_bytes // max(2 * row_bytes, 1), _ROW_MULTIPLE)
+    return int(r // _ROW_MULTIPLE * _ROW_MULTIPLE)
 
 
 def check_multiprocess_mesh(n_processes: int, mesh) -> None:
@@ -397,6 +434,14 @@ def resolve(
     the batch build picks (dense up to d = 4,096, ELL above)."""
     if pipeline_depth < 1:
         raise PlanError(f"pipeline depth must be >= 1: {pipeline_depth}")
+    multi = distributed or n_processes > 1
+    if pipeline_depth > 1 and multi:
+        raise not_ported("sweep pipelining (pipeline_depth > 1) with multi-process training", A10)
+    streamed = [cc.name for cc in coordinate_configs if cc.hbm_budget_mb is not None]
+    if streamed and (multi or _mesh_axes(mesh) is not None):
+        raise not_ported(
+            f"hbm_budget_mb streaming of {streamed} under a device mesh or multi-process training", A10
+        )
     if distributed:
         raise not_ported("--distributed (multi-process training)", A10)
     check_multiprocess_mesh(n_processes, mesh)
@@ -407,8 +452,6 @@ def resolve(
         )
     elif trial_lanes < 1:
         raise PlanError(f"trial-lanes must be >= 1: {trial_lanes}")
-    if pipeline_depth > 1:
-        raise not_ported("sweep pipelining (pipeline_depth > 1)", A7)
 
     plans = []
     for cc in coordinate_configs:
@@ -419,16 +462,27 @@ def resolve(
             geometry["dim"] = int(dim)
             if not cc.is_random_effect and cc.layout == "auto":
                 geometry["batch_layout"] = "dense" if dim <= 4096 else "ell"
+        notes: Tuple[str, ...] = ()
+        if cc.hbm_budget_mb is not None:
+            budget = int(cc.hbm_budget_mb) * (1 << 20)
+            geometry["budget_bytes"] = budget
+            if dim is not None and not cc.is_random_effect:
+                row_bytes = int(dim) * (2 if dtype_name(cc.feature_dtype) == "bfloat16" else 4)
+                geometry["rows_per_slice"] = _rows_per_slice(budget, row_bytes)
+                geometry["slice_row_bytes"] = row_bytes
+            notes = ("streams only when the build estimate exceeds the budget; a batch that fits stays resident",)
         plans.append(
             CoordinatePlan(
                 name=cc.name,
                 kind="random-effect" if cc.is_random_effect else "fixed-effect",
                 layout=cc.layout,
                 feature_dtype=dtype_name(cc.feature_dtype),
-                residency="resident",
+                residency="streamed" if cc.hbm_budget_mb is not None else "resident",
                 sharding="single-device",
-                pipelined=False,
+                pipelined=pipeline_depth > 1,
+                hbm_budget_mb=cc.hbm_budget_mb,
                 geometry=geometry,
+                notes=notes,
             )
         )
 
@@ -436,7 +490,7 @@ def resolve(
         coordinates=tuple(plans),
         mesh_axes=None,
         n_processes=1,
-        pipeline_depth=1,
+        pipeline_depth=pipeline_depth,
         trial_lanes=trial_lanes,
         normalization=normalization,
         distributed=False,

@@ -226,14 +226,11 @@ def test_bf16_solve_on_card_reaches_the_f32_optimum(cuda, optimizer):
     assert math.isfinite(l16) and l16 <= l32 * 1.01
 
 
-def _glmix_on(dev, n=20_000, d=64, users=300, d_re=8, seed=9):
-    """A small bench-shaped GLMix problem built on ``dev``."""
+def _glmix_draws(n=20_000, d=64, users=300, d_re=8, seed=9):
+    """A small bench-shaped GLMix problem's host arrays: the fixed effect's
+    X and labels, and the random effect's rows as a RawDataset."""
     import numpy as np
 
-    from photon_ml_tpu_torch.game import (
-        FixedEffectCoordinate, FixedEffectDataset, RandomEffectCoordinate,
-        build_random_effect_dataset,
-    )
     from photon_ml_tpu_torch.io.data import RawDataset
 
     rng = np.random.default_rng(seed)
@@ -252,6 +249,17 @@ def _glmix_on(dev, n=20_000, d=64, users=300, d_re=8, seed=9):
         shard_coo={"u": (np.repeat(np.arange(n), d_re), np.tile(np.arange(d_re), n), ex.reshape(-1).astype(np.float64))},
         shard_dims={"u": d_re}, id_tags={"userId": np.char.add("u", assign.astype(str)).astype(object)},
     )
+    return gx, y, raw
+
+
+def _glmix_on(dev, n=20_000, d=64, users=300, d_re=8, seed=9):
+    """A small bench-shaped GLMix problem built on ``dev``."""
+    from photon_ml_tpu_torch.game import (
+        FixedEffectCoordinate, FixedEffectDataset, RandomEffectCoordinate,
+        build_random_effect_dataset,
+    )
+
+    gx, y, raw = _glmix_draws(n, d, users, d_re, seed)
     reg = dict(regularization=RegularizationContext("L2"), reg_weight=1.0)
     fe_cfg = GLMOptimizationConfig(
         optimizer=OptimizerConfig(optimizer_type="TRON", tolerance=1e-6, max_iterations=10),
@@ -1379,3 +1387,162 @@ def test_memory_sample_reads_the_card(cuda):
     assert block["bytes_in_use"] >= x.numel() * 4
     assert block["peak_bytes_in_use"] >= block["bytes_in_use"]
     assert block["bytes_limit"] == torch.cuda.get_device_properties(0).total_memory
+
+
+# -------------------------------------------------- out-of-core training
+
+
+def _host_rows(dev, n, d, xdt, seed):
+    """A dense streamed batch's host rows (page-locked) and the same rows
+    resident on ``dev``."""
+    from photon_ml_tpu_torch.game.data import HostRowBatch
+
+    x, _, _, y, off, wt, _ = _inputs(torch.device("cpu"), n, d, xdt, seed)
+    host = HostRowBatch(dim=d, labels=y, offsets=off, weights=wt, dense=x.pin_memory())
+    return host, batch_from_dense(x.to(dev), y.to(dev), off.to(dev), wt.to(dev), feature_dtype=xdt, device=dev)
+
+
+# (rows, budget in rows of the double buffer): 1, 3 and 16 slices; a step
+# that leaves a short tail
+SLICE_CASES = [(4096, 4096), (3 * 1024, 1024), (16 * 512, 512), (5000, 1024)]
+
+
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,rows", SLICE_CASES, ids=["1-slice", "3-slices", "16-slices", "short-tail"])
+def test_slot_mode_slices_match_plain_and_the_resident_objective(cuda, n, rows, xdt):
+    """Each slice's B1 / B2 writes its totals into its slot row: every row
+    against the slice's plain version computed in float64 from the same
+    rounded inputs (the kernel bounds), the pass against the resident
+    objective, B1 and B2 launched once a slice a pass and the sum kernel
+    once a pass; the plain pass launches nothing."""
+    from photon_ml_tpu_torch.game.fe_streaming import StreamedFEObjective
+    from photon_ml_tpu_torch.ops.glm import GLMObjective
+
+    d = 256
+    host, batch = _host_rows(cuda, n, d, xdt, seed=5)
+    budget = 2 * rows * host.feature_row_nbytes()
+    loss = LOSSES["logistic"]
+    obj = StreamedFEObjective(loss, host, budget, l2_weight=0.5, device=cuda)
+    ref = StreamedFEObjective(loss, host, budget, l2_weight=0.5, device=cuda, plain=True)
+    assert obj.n_slices == -(-n // rows) and obj.route == "dense_kernel"
+    w = torch.randn(d, generator=torch.Generator().manual_seed(1)).to(cuda) * 0.05
+    fg.reset_launch_counts()
+    v, g = obj.value_and_grad(w)
+    hv = obj.hessian_vector(w, w)
+    assert fg.LAUNCHES["fused_value_grad"] == fg.LAUNCHES["fused_hessian_vector"] == obj.n_slices
+    assert fg.SUM_LAUNCHES["rank_order_sum"] == 2
+    launches = dict(fg.LAUNCHES)
+    ref.value_and_grad(w)
+    ref.hessian_vector(w, w)
+    assert fg.LAUNCHES == launches  # the plain pass launches nothing
+    for k in range(obj.n_slices):
+        x = obj._stager._host_planes(k)[0].to(cuda)
+        y, off, wt = obj._scalar_slices[k]
+        f64 = dict(compute_dtype=torch.float64)
+        rv, rg, _ = fg.value_grad_plain(x, w, y, off, wt, loss, **f64)
+        rh, _ = fg.hessian_vector_plain(x, w, w, y, off, wt, 0.0, loss, **f64)
+        got_vg, got_hv = obj._slots[fg.VG][k], obj._slots[fg.HV][k]
+        _assert_vec(got_vg[:d], rg, f"slice {k} gradient")
+        _assert_vec(got_hv[:d], rh, f"slice {k} Hv")
+        assert abs(float(got_vg[d]) - float(rv)) <= 2e-6 * abs(float(rv)), f"slice {k} value"
+    rv, rg = GLMObjective(loss=loss, batch=batch, l2=0.5).value_and_grad(w)
+    rhv = GLMObjective(loss=loss, batch=batch, l2=0.5).hessian_vector(w, w)
+    assert abs(float(v) - float(rv)) <= 2e-6 * abs(float(rv))
+    _assert_vec(g, rg.double(), "streamed grad")
+    _assert_vec(hv, rhv.double(), "streamed Hv")
+
+
+def test_double_buffer_under_the_copy_stream_is_bitwise_stable(cuda):
+    """Three passes over 16 slices through the two buffers and the copy
+    stream, the compute stream kept busy between them: the same bits each
+    time, and the stager's bytes at most the budget."""
+    from photon_ml_tpu_torch.game.fe_streaming import StreamedFEObjective
+
+    host, _ = _host_rows(cuda, 16 * 512, 512, torch.float32, seed=7)
+    budget = 2 * 512 * host.feature_row_nbytes()
+    obj = StreamedFEObjective(LOSSES["logistic"], host, budget, device=cuda)
+    w = torch.full((512,), 0.01, device=cuda)
+    passes = []
+    for _ in range(3):
+        # long work queued on the compute stream: a copy that did not wait
+        # for the kernel two slices back would overwrite its buffer
+        torch.cuda._sleep(1_000_000)
+        passes.append(obj.value_and_grad(w))
+    for v, g in passes[1:]:
+        assert float(v) == float(passes[0][0]) and torch.equal(g, passes[0][1])
+    assert 2 * obj.stats["max_slice_bytes"] <= budget
+    assert sum(b.numel() * b.element_size() for b in obj._stager.buffers) <= budget
+
+
+def test_streamed_random_effect_vmapped_is_bitwise_the_in_memory_solve(cuda, monkeypatch):
+    """The vmapped solve over streamed entity slices (V1 on the card) ends
+    with the in-memory solve's bits."""
+    import dataclasses
+
+    from photon_ml_tpu_torch.game import build_random_effect_dataset
+    from photon_ml_tpu_torch.ops import lane_reduce
+
+    monkeypatch.setenv("PHOTON_RE_SOLVER", "vmapped")
+    coords = _glmix_on(cuda)
+    re_ = coords["per-user"]
+    ds = re_.dataset
+    _, _, raw = _glmix_draws()
+    streamed = build_random_effect_dataset(raw, "per-user", "u", "userId", active_cap=64, device=cuda,
+                                           hbm_budget_bytes=64 << 10)
+    assert streamed.streamed
+    residual = coords["global"].score(coords["global"].train(None)[0])
+    lane_reduce.reset_launch_counts()
+    m_mem, r_mem = re_.train(residual)
+    m_str, r_str = dataclasses.replace(re_, dataset=streamed).train(residual)
+    assert min(lane_reduce.LANE_LAUNCHES.values()) > 0
+    assert torch.equal(m_str.coef_values, m_mem.coef_values.cpu())
+    assert torch.equal(r_str.iterations, r_mem.iterations.cpu())
+    assert ds.blocks.features.shape == streamed.blocks.features.shape
+
+
+def test_pipeline_depth_2_on_card_is_bitwise_depth_1(cuda):
+    """A two-sweep GLMix fit with a streamed fixed effect and a streamed
+    random effect on the card: depth 2 (background stagers, the eval lane)
+    gives depth 1's models and ledger bit for bit."""
+    import numpy as np
+
+    from photon_ml_tpu_torch.evaluation import build_suite
+    from photon_ml_tpu_torch.game import (
+        CoordinateDescent, FixedEffectCoordinate, RandomEffectCoordinate, ValidationContext,
+        build_fixed_effect_dataset, build_random_effect_dataset,
+    )
+
+    from photon_ml_tpu_torch.io.data import RawDataset
+
+    gx, _, raw = _glmix_draws()
+    n, d = gx.shape
+    gx_raw = RawDataset(
+        n_rows=n, labels=raw.labels, offsets=raw.offsets, weights=raw.weights,
+        shard_coo={"global": (np.repeat(np.arange(n), d), np.tile(np.arange(d), n), gx.reshape(-1).astype(np.float64))},
+        shard_dims={"global": d}, id_tags={},
+    )
+
+    def make():
+        coords = _glmix_on(cuda)
+        fe = build_fixed_effect_dataset(gx_raw, "global", "global", hbm_budget_bytes=256 << 10, device=cuda)
+        re_ds = build_random_effect_dataset(raw, "per-user", "u", "userId", active_cap=64, device=cuda,
+                                            hbm_budget_bytes=64 << 10)
+        assert fe.streamed and re_ds.streamed
+        fe_cfg = dataclasses.replace(coords["global"].config, variance_type="NONE")
+        coords = {
+            "global": FixedEffectCoordinate(dataset=fe, task="logistic_regression", config=fe_cfg),
+            "per-user": RandomEffectCoordinate(dataset=re_ds, task="logistic_regression",
+                                               config=coords["per-user"].config),
+        }
+        val = ValidationContext(suite=build_suite(["AUC"], raw.labels), offsets=np.zeros(raw.n_rows),
+                                score_fns={k: c.score for k, c in coords.items()})
+        return coords, val
+
+    runs = []
+    for depth in (1, 2):
+        coords, val = make()
+        runs.append((coords, CoordinateDescent(coords, n_iterations=2, validation=val, pipeline_depth=depth).run()))
+    (c1, r1), (_, r2) = runs
+    for name in c1:
+        assert torch.equal(c1[name].score(r1.model[name]), c1[name].score(r2.model[name]))
+    assert [(n, e.primary_metric) for n, e in r1.evaluations] == [(n, e.primary_metric) for n, e in r2.evaluations]

@@ -358,7 +358,8 @@ REFUSED = {
     "collective-timeout": (["--collective-timeout", "30"], "A10"),
     "heartbeat-interval": (["--heartbeat-interval", "1"], "A10"),
     "heartbeat-timeout": (["--heartbeat-timeout", "5"], "A10"),
-    "pipeline-depth": (["--pipeline-depth", "2"], "A7"),
+    # sweep pipelining is ported: the flag resolves a pipelined plan
+    "pipeline-depth": (["--pipeline-depth", "2"], None),
 }
 
 
@@ -366,6 +367,12 @@ REFUSED = {
 def test_refused_flags_name_their_roadmap_item(tmp_path, case):
     flags, item = REFUSED[case]
     argv = ["--input-data", str(tmp_path / "absent.avro"), "--output-dir", str(tmp_path / "o"), *flags]
+    if item is None:
+        doc = train.run(argv + ["--device", "cpu", "--explain-plan"])
+        ref = ref_train.run(argv + ["--explain-plan"])
+        assert doc["plan"]["pipeline_depth"] == ref["plan"]["pipeline_depth"] == 2
+        assert all(c["pipelined"] for c in doc["plan"]["coordinates"])
+        return
     with pytest.raises(PlanError, match=f"ROADMAP {item}"):
         train.run(argv + ["--device", "cpu"])
 
@@ -460,9 +467,19 @@ def test_tuning_flags_run(avro_paths, tmp_path, case):
 
 
 @pytest.mark.parametrize("spec,item", [
-    (FE_SPEC + ",hbm.budget.mb=64", "A7"), (FE_SPEC + ",layout=tiled", "A10"),
+    (FE_SPEC + ",hbm.budget.mb=64", None), (FE_SPEC + ",layout=tiled", "A10"),
 ])
 def test_refused_coordinates_name_their_roadmap_item(tmp_path, spec, item):
+    if item is None:
+        # streaming is ported: the budget resolves a streamed coordinate, as
+        # in the JAX package
+        (ours,) = resolve([parse_coordinate(spec)], dims={"globalShard": 5000}).coordinates
+        (theirs,) = ref_resolve([ref_parse_coordinate(spec)], dims={"globalShard": 5000}).coordinates
+        assert ours.residency == theirs.residency == "streamed"
+        assert ours.geometry["rows_per_slice"] == theirs.geometry["rows_per_slice"]
+        with pytest.raises(PlanError, match="ROADMAP A10"):
+            resolve([parse_coordinate(spec)], mesh={"data": 2})
+        return
     with pytest.raises(PlanError, match=f"ROADMAP {item}"):
         resolve([parse_coordinate(spec)])
 
@@ -473,9 +490,15 @@ def test_planner_refusals_and_helpers():
     assert plan.coordinates[0].geometry == {"dim": 5000, "batch_layout": "ell"}
     assert plan_fingerprint(plan) == ref_plan_fingerprint(ref_resolve([ref_parse_coordinate(FE_SPEC)]))
     for kwargs, item in (({"mesh": {"data": 2}}, "A10"), ({"n_processes": 2}, "A10"),
-                         ({"pipeline_depth": 2}, "A7"), ({"distributed": True}, "A10")):
+                         ({"pipeline_depth": 2, "distributed": True}, "A10"), ({"distributed": True}, "A10")):
         with pytest.raises(PlanError, match=f"ROADMAP {item}"):
             resolve([cc], **kwargs)
+    # sweep pipelining resolves as in the JAX package
+    piped = resolve([cc], pipeline_depth=2)
+    ref_piped = ref_resolve([ref_parse_coordinate(FE_SPEC)], pipeline_depth=2)
+    assert piped.pipeline_depth == ref_piped.pipeline_depth == 2
+    assert piped.coordinates[0].pipelined and ref_piped.coordinates[0].pipelined
+    assert "pipelined" in piped.pretty() and "staging/solve/eval overlap" in piped.pretty()
     # locked coordinates and regularize-by-prior resolve as in the JAX package
     locked = [parse_coordinate(FE_SPEC), parse_coordinate(RE_SPEC)]
     ref_locked = [ref_parse_coordinate(FE_SPEC), ref_parse_coordinate(RE_SPEC)]

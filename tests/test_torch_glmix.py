@@ -542,12 +542,16 @@ def test_unported_glmix_paths_raise():
     )
     _, res = dataclasses.replace(re_, config=tron).train(None)
     assert bool(torch.isfinite(res.loss).all()) and bool((res.reason != 0).all())
-    with pytest.raises(NotImplementedError, match="A7"):
+    # streamed datasets are ported (tests/test_torch_streaming.py): a
+    # streamed dataset holds its host rows, not a batch, and a budget below
+    # the blocks streams them; the vmapped streamed solve is the in-memory
+    # one's bits
+    with pytest.raises(ValueError, match="host_batch"):
         FixedEffectDataset("g", "g", batch=fe.dataset.batch, streamed=True)
-    with pytest.raises(NotImplementedError, match="A7"):
-        build_random_effect_dataset(
-            _raw_pair(gx, y, ex, ids)[1], "r", "userShard", "userId", hbm_budget_bytes=1, device="cpu"
-        )
+    traw = _raw_pair(gx, y, ex, ids)[1]
+    streamed = build_random_effect_dataset(traw, "r", "userShard", "userId", hbm_budget_bytes=1, device="cpu")
+    resident = build_random_effect_dataset(traw, "r", "userShard", "userId", device="cpu")
+    assert streamed.streamed and streamed.blocks.features.device.type == "cpu"
     with pytest.raises(NotImplementedError, match="A10"):
         dataclasses.replace(re_.dataset, entity_shard_range=(0, 1))
     import os
@@ -555,9 +559,12 @@ def test_unported_glmix_paths_raise():
     os.environ["PHOTON_RE_SOLVER"] = "vmapped"
     try:
         _, res = re_.train(None)
+        r_model, _ = dataclasses.replace(re_, dataset=resident).train(None)
+        s_model, _ = dataclasses.replace(re_, dataset=streamed).train(None)
     finally:
         del os.environ["PHOTON_RE_SOLVER"]
     assert bool(torch.isfinite(res.loss).all()) and bool((res.reason != 0).all())
+    assert torch.equal(s_model.coef_values, r_model.coef_values)
     b = re_.dataset.blocks
     res = _train_blocks_packed(
         b.features, b.labels, b.offsets, b.weights, torch.zeros(b.proj_cols.shape),

@@ -267,6 +267,44 @@ def test_random_effect_prior_matches_jax(dt, variances):
         np.testing.assert_allclose(dense_b[k], dense_a[r] if r >= 0 else 0.0, atol=1e-3)
 
 
+def test_new_entity_under_a_prior_with_variances_in_both_packages():
+    """ROADMAP C8, the deliberate departure, recorded in both packages: an
+    entity new to day B under a prior that carries variances. The JAX
+    package projects the variance 0 for an entry its prior lacks, so the
+    entry's precision is 1 / max(0, 1e-12) = 1e12 and the new entity's
+    coefficients are pinned at 0. The port gives the entry mean 0 and
+    precision 1, so the new entity's solve is the plain-L2 solve: the port's
+    solve of day B with no prior at all, for those entities."""
+    ta, ja, tb, jb = _re_feed()
+    tcfg, jcfg = _re_cfgs()
+    jds_a = ref_build_re(ja, "per-user", "userShard", "userId", dtype=jnp.float64)
+    prior_j, _ = RefREC(dataset=jds_a, task="logistic_regression", config=jcfg).train(None)
+    idx, val = np.array(prior_j.coef_indices), np.array(prior_j.coef_values)
+    var = np.where(idx >= 0, np.random.default_rng(1).uniform(0.2, 2.0, size=idx.shape), 0.0)
+    prior_j = dataclasses.replace(prior_j, variances=jnp.asarray(var))
+    prior_t = RandomEffectModel(
+        random_effect_type="userId", feature_shard="userShard", task="logistic_regression",
+        entity_ids=np.asarray(prior_j.entity_ids, dtype=object), coef_indices=torch.as_tensor(idx),
+        coef_values=torch.as_tensor(val), variances=torch.as_tensor(var),
+    )
+    tds_b = build_random_effect_dataset(tb, "per-user", "userShard", "userId", dtype=torch.float64, device="cpu")
+    jds_b = ref_build_re(jb, "per-user", "userShard", "userId", dtype=jnp.float64)
+    ours, _ = RandomEffectCoordinate(dataset=tds_b, task="logistic_regression", config=tcfg,
+                                     prior_model=prior_t).train(None)
+    theirs, _ = RefREC(dataset=jds_b, task="logistic_regression", config=jcfg, prior_model=prior_j).train(None)
+    plain, _ = RandomEffectCoordinate(dataset=tds_b, task="logistic_regression", config=tcfg).train(None)
+    new = np.asarray([prior_t.entity_row(e) < 0 for e in ours.entity_ids])
+    assert new.any()
+    support = np.asarray(ours.coef_indices) >= 0
+    # the JAX package: pinned at 0 by the precision 1e12
+    theirs_new = np.asarray(theirs.coef_values)[new]
+    assert np.abs(theirs_new).max() <= 1e-9
+    # the port: the plain-L2 solve, away from 0
+    ours_new = ours.coef_values.numpy()[new]
+    np.testing.assert_allclose(ours_new, plain.coef_values.numpy()[new], atol=1e-9)
+    assert np.abs(ours_new[support[new]]).max() > 1e-2
+
+
 # -- locked coordinates ----------------------------------------------------------
 
 

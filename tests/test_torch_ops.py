@@ -258,8 +258,8 @@ def test_features_dense_only(rng):
     assert p.n_rows == 40 and float(p.weights[37:].abs().sum()) == 0.0
     bf = batch_from_dense(x, y, feature_dtype=torch.bfloat16, device="cpu")
     assert bf.features.dense.dtype == torch.bfloat16 and bf.labels.dtype == torch.float32
-    # the sparse layouts are ported (tests/test_torch_sparse.py); what they
-    # still refuse is the streamed row slice (A7). The lane products are
+    # the sparse layouts are ported (tests/test_torch_sparse.py), the
+    # streamed row slice with them. The lane products are
     # held against the JAX package's, dense here and sparse in
     # tests/test_torch_lanes.py
     W = rng.standard_normal((8, 3)).astype(F32)
@@ -270,9 +270,10 @@ def test_features_dense_only(rng):
                                rtol=1e-5, atol=1e-5)
     ell = FeatureMatrix(dim=8, idx=torch.zeros((2, 1), dtype=torch.int32), val=torch.zeros((2, 1)))
     assert ell.layout == "ell" and ell.n_rows == 2
-    with pytest.raises(NotImplementedError, match="A7"):
-        ell.slice_rows(0, 1)
     jell = JaxFeatureMatrix(dim=8, idx=jnp.zeros((2, 1), jnp.int32), val=jnp.zeros((2, 1), jnp.float32))
+    # the streamed row slice is ported: an ELL window, as the JAX package's
+    np.testing.assert_array_equal(ell.slice_rows(1, 1).to_dense().numpy(),
+                                  np.asarray(jell.slice_rows(1, 1).to_dense()))
     np.testing.assert_array_equal(ell.matmat(_t(W)).numpy(), np.asarray(jell.matmat(jnp.asarray(W))))
     coo = FeatureMatrix(dim=8, coo_cols=torch.zeros(1, dtype=torch.int32), coo_rows=torch.zeros(1, dtype=torch.int32),
                         coo_vals=torch.zeros(1), coo_n_rows=2)

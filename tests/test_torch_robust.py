@@ -571,7 +571,10 @@ def test_divergence_guard_off_lets_nan_poison_downstream(cd_factory, run):
 
 def test_descent_refuses_pipelining_and_bad_tolerance(cd_factory):
     coords, _ = cd_factory()
-    with pytest.raises(NotImplementedError, match="A7"):
-        CoordinateDescent(coords, pipeline_depth=2)
+    # pipelining is ported (tests/test_torch_pipeline.py): depth 2
+    # constructs, depth 0 refuses
+    assert CoordinateDescent(coords, pipeline_depth=2).pipeline_depth == 2
+    with pytest.raises(ValueError, match="pipeline_depth"):
+        CoordinateDescent(coords, pipeline_depth=0)
     with pytest.raises(ValueError, match="rejection_tolerance"):
         CoordinateDescent(coords, rejection_tolerance=-0.5)

@@ -230,8 +230,15 @@ def test_unported_paths_raise(rng):
     model, _ = GLMProblem("logistic_regression", GLMOptimizationConfig(variance_type="FULL")).run(batch)
     var = model.coefficients.variances
     assert var.shape == (4,) and bool(torch.isfinite(var).all()) and bool((var > 0).all())
-    with pytest.raises(NotImplementedError):
-        GLMProblem("logistic_regression", GLMOptimizationConfig()).run_streamed(batch)
+    # the streamed solve is ported (tests/test_torch_fe_streaming.py): over
+    # the batch's rows in host memory it is the resident solve
+    from photon_ml_tpu_torch.game.data import HostRowBatch
+
+    host = HostRowBatch(dim=4, labels=batch.labels, offsets=batch.offsets, weights=batch.weights,
+                        dense=batch.features.dense)
+    resident, _ = GLMProblem("logistic_regression", GLMOptimizationConfig()).run(batch)
+    streamed, _ = GLMProblem("logistic_regression", GLMOptimizationConfig()).run_streamed(host, 256, device="cpu")
+    torch.testing.assert_close(streamed.coefficients.means, resident.coefficients.means, rtol=1e-3, atol=1e-5)
     # the lane solve is ported (tests/test_torch_lanes.py): each lane is its
     # single-lane solve at the packed solve's bound
     l2 = GLMOptimizationConfig(regularization=RegularizationContext("L2"))
