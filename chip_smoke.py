@@ -94,7 +94,8 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    S1's products and S2 at L = 1, 4, 8 and 16 in turns with it, bits
    compared); then of the ring body (RING_VARIANTS: margins in f32, no margins, no
    column sums, neither), each computing wrong sums, timed in turns with
-   the ring to show what each part of its work costs;
+   the ring to show what each part of its work costs. Phase 8 runs only
+   under --only variants, not in a whole run;
 9. the sparse fixed effects (run after phase 6 and before phase 7), every
    sparse product one launch of the segment kernel (csrc/sparse_glm.cu:
    row groups for matvec, a key walk over int32 keys for rmatvec and
@@ -181,7 +182,8 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    processes write phase 11's fixture with a userId over 20,000 users drawn
    Zipf(1.1) (build_data's assignment) in metadataMap and the user's 31
    named features in a userFeatures bag (d_re = 32 with the intercept),
-   logistic labels from both effects; (b) cli.train.run on the card
+   logistic labels from both effects (and, in the same pool, phase 14's
+   day 3); (b) cli.train.run on the card
    (global: TRON tol 1e-6, 10 iterations, L2 1.0, SIMPLE variance,
    STANDARDIZATION; per-user: L-BFGS tol 1e-6, 30 iterations, L2 1.0,
    active cap 256; 2 sweeps; AUC on the validation parts; a boundary
@@ -223,8 +225,10 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    L x S1, the index_add_ composition and cuSPARSE's SpMM; (b) lambda-lane sweeps in process on phase 5's data
    (bench.py's sweep protocol: L-BFGS tol 1e-7, 50 iterations, 2 sweeps,
    variance NONE): K = 1, 4 and 8 lanes against K sequential fits (walls;
-   each lane's FE coefficients atol 5e-3 and training AUC within 1e-4 of
-   its sequential fit's; its RE on identical residuals in float64 atol
+   K = 8 against 8 times K = 4's mean sequential trial, its
+   lanes not held one by one; each lane of K = 1 and 4: its FE
+   coefficients atol 5e-3 and training AUC within 1e-4 of its sequential
+   fit's; its RE on identical residuals in float64 atol
    5e-3, the f32 pair and the chained difference printed), the RE lane
    solve's wall and peak memory, and the K = 4 sweep's synchronizing
    operations under the sync debug mode (beyond the solvers' own fetches
@@ -235,7 +239,7 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    the f32 gaps printed), then, warm and profiled, the 4-lane solve, its 4
    singles and the 8-lane solve of bench.py's protocol lambdas (S2's device
    ms, launches and share of the busy time beside the top operations); (d) cli.train on phase 12's fixture: sequential
-   BAYESIAN with phase 12's options and 4 trials (B1, B2, B3 with shifts and
+   BAYESIAN with phase 12's options and 2 trials (B1, B2, B3 with shifts and
    S1 each launched), then RANDOM --trial-lanes 4 with 8 trials, variance
    and normalization NONE (2 batches timed, 8 trials counted, the tuned
    model reloaded bitwise, the prior file with 9 records); (e) that lane
@@ -244,7 +248,7 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
 14. the retrain chain (run after phase 13, on phase 12's fixture): the
    feed laid out as three days under <feed>/2026/01/01..03 (days 1 and 2
    link phase 12's training parts 0-3 and 4-7; day 3 holds new rows of the
-   even-numbered half of the 20,000 users, written by worker processes), the
+   even-numbered half of the 20,000 users, written with phase 12's), the
    feature index built by cli.index and pinned; (a) cli.retrain on the card
    (per-user first: phase 12's L-BFGS with active cap 256; then global:
    phase 12's TRON + SIMPLE + STANDARDIZATION; both regularize-by-prior
@@ -317,12 +321,35 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    fixture with hbm.budget.mb=256 on both coordinates and --pipeline-depth
    2: the best model against (b)'s of phase 12 at the solve bounds, the
    report's streaming block filled.
+17. distributed (run right after phase 12, on its fixture and against its
+   (b)): (a) two `cli.train --distributed coordinator=127.0.0.1:PORT,
+   process=I,n=2` ranks sharing the card over gloo, each reading its
+   100,000 rows (the index of phase 12 (b) pinned), a two-phase boundary
+   checkpoint every update, --metrics-out: each rank's launches of B1, B2,
+   B3 with shifts, B4 and the rank-order sum above 0, its walls and its
+   photon_re_build_* series; the coordinator's best model against phase 12
+   (b)'s (FE coefficients and variances rtol 1e-3 / atol 1e-5; the RE
+   retrained on one card from the two-rank run's last residual and warm
+   start, atol 5e-3, per-entity loss atol 1e-4; the chained difference
+   printed; validation AUC within 2e-3); each rank's normalization inputs
+   bitwise alike; (b) the kill-a-worker drill: rank 1 killed at its second
+   sweep boundary (dist.collective:kill:2), --collective-timeout 10,
+   heartbeats every 0.5 s stale after 3 s: rank 0 exits non-zero with a
+   typed error naming process 1 within 15 s of the kill and a peer_lost
+   dump; both ranks resume and the final model equals (a)'s within 1e-9,
+   its differing bits printed; (c) cli.score --distributed on two ranks
+   over the validation parts with (a)'s model against the one-process
+   scores of that model (rtol 1e-5, bitwise rows counted, AUC within 1e-4),
+   S1 launched on each rank; (d) cli.fleetz over (a)'s two streams, every
+   merged counter the ranks' sum; (e) one rank over NCCL, beside (c) and
+   (d): the saved models bitwise phase 12 (b)'s.
 
     python3 chip_smoke.py --only timing    # card, build, then one phase
 
-runs a subset of phases 3-16 (check, fe, glmix, dp, nccl, solvers, io, game, streaming, tuning, s2,
-sparse, timing, variants, retrain, serving) and then reports not ok; "streaming" runs phase 5,
-writes phase 12's fixture and runs its (b) before phase 16; "s2" is phase 13 (a) alone; "solvers", "io", "game" and "tuning" run phase 5 first ("game" and
+runs a subset of phases 3-17 (check, fe, glmix, dp, nccl, solvers, io, game, streaming, tuning, s2,
+sparse, timing, variants, retrain, serving, distributed) and then reports not ok; "streaming" runs phase 5,
+writes phase 12's fixture and runs its (b) before phase 16; "distributed" writes phase 12's fixture
+and runs its (b) before phase 17; "s2" is phase 13 (a) alone; "solvers", "io", "game" and "tuning" run phase 5 first ("game" and
 "tuning" write phase 12's fixture first); "retrain" writes phase 12's
 fixture and runs phase 14; "nccl" is phase 6 (c) alone after
 phase 5 (for a machine with several cards: one NCCL rank per card).
@@ -3439,9 +3466,10 @@ def _game_write_part(path, seed, part, rows, even_users=False):
 
 
 def game_write(root, seed):
-    """(a) The fixture's part files, all written at once by worker processes
-    (spawned, joined before this returns): (train dir, validation dir, wall
-    seconds, summed writer seconds)."""
+    """(a) The fixture's part files, and phase 14's day 3 under
+    ``root/day3``, all written at once by worker processes (spawned, joined
+    before this returns): (train dir, validation dir, day 3 dir, wall
+    seconds, summed writer seconds of the fixture's parts)."""
     import concurrent.futures
     import multiprocessing
     import os
@@ -3449,12 +3477,18 @@ def game_write(root, seed):
     jobs = []
     for name, (rows, parts), base in (("train", IO_TRAIN, 0), ("validation", IO_VALIDATION, 1000)):
         os.makedirs(os.path.join(root, name))
-        jobs += [(os.path.join(root, name, f"part-{p:05d}.avro"), seed, base + p, rows // parts) for p in range(parts)]
+        jobs += [(os.path.join(root, name, f"part-{p:05d}.avro"), seed, base + p, rows // parts, False)
+                 for p in range(parts)]
+    n_fixture = len(jobs)
+    os.makedirs(os.path.join(root, "day3"))
+    parts, rows = RETRAIN_DAY3
+    jobs += [(os.path.join(root, "day3", f"part-{p:05d}.avro"), seed, 2000 + p, rows, True) for p in range(parts)]
     t0 = time.perf_counter()
     workers = min(len(jobs), os.cpu_count() or 1)
     with concurrent.futures.ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
         writer_s = list(pool.map(_game_write_part, *zip(*jobs)))
-    return os.path.join(root, "train"), os.path.join(root, "validation"), time.perf_counter() - t0, sum(writer_s)
+    return (os.path.join(root, "train"), os.path.join(root, "validation"), os.path.join(root, "day3"),
+            time.perf_counter() - t0, sum(writer_s[:n_fixture]))
 
 
 def game_argv(train, validation, out, extra=()):
@@ -3602,7 +3636,7 @@ def game_train(torch, train, validation, root, problems, smi):
          torch.tensor([rp.best_evaluation.metrics["AUC"]]), 0.0, 1e-4)
     return {"wall_s": wall, "stage_seconds": summary["stage_seconds"], "launches": launches,
             "shift_launches": shifts, "s1_launches": s1, "checkpoint_saves": saves, "checkpoint_bytes": ck_bytes,
-            "checkpoint_seconds": ck_s, "auc": auc, "maps": maps, "out": out}
+            "checkpoint_seconds": ck_s, "auc": auc, "maps": maps, "out": out, "coords": ck}
 
 
 def game_resume(torch, train, validation, root, problems, b):
@@ -3820,18 +3854,25 @@ def game_observed(torch, train, validation, root, problems, b, busy_share):
     total = torch.cuda.get_device_properties(card).total_memory
     flight = glob.glob(os.path.join(metrics_dir, "flight", "flight-*.json"))
 
-    # the report: built in process from the same directory, then rebuilt by
-    # cli.report in a process of its own
+    # the report: rebuilt by cli.report in a process of its own, beside
+    # its build in process from the same directory
     with tempfile.TemporaryDirectory(prefix="chip_smoke_report_") as tmp:
-        t0 = time.perf_counter()
-        report_mod.write_report(report_mod.build_report(report_mod.discover(froot)), os.path.join(tmp, "in-process"))
-        build_s = time.perf_counter() - t0
         rebuilt = os.path.join(tmp, "cli")
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "photon_ml_tpu_torch.cli.report", froot, "--out", rebuilt,
-                               "--log-level", "WARNING"], cwd=str(pathlib.Path(__file__).resolve().parent),
-                              capture_output=True, text=True, timeout=300)
-        cli_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "photon_ml_tpu_torch.cli.report", froot, "--out", rebuilt,
+                                 "--log-level", "WARNING"], cwd=str(pathlib.Path(__file__).resolve().parent),
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            t0 = time.perf_counter()
+            report_mod.write_report(report_mod.build_report(report_mod.discover(froot)),
+                                    os.path.join(tmp, "in-process"))
+            build_s = time.perf_counter() - t0
+            proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        cli_s = time.perf_counter() - t1
         with open(os.path.join(report_dir, "report.json"), "rb") as f:
             trained_bytes = f.read()
         rebuilt_bytes = open(os.path.join(rebuilt, "report.json"), "rb").read() if proc.returncode == 0 else b""
@@ -3846,7 +3887,7 @@ def game_observed(torch, train, validation, root, problems, b, busy_share):
     log(f"  (f) Chrome trace: {len(xs)} complete events for {closed} closed spans, {n_sweeps} cd.sweep; timeline "
         f"identity critical_path + other == wall (rel 1e-6) per sweep {identity}; peak memory on cuda:{card} "
         f"{int(peak)} of {total} bytes (the bare fit's max_memory_allocated {bare_peak}); flight dumps {len(flight)}; report.json {len(trained_bytes)} bytes, built in "
-        f"{build_s:.3f} s in process, rebuilt by cli.report in {cli_s:.2f} s (a process of its own): byte for "
+        f"{build_s:.3f} s in process, rebuilt by cli.report in {cli_s:.2f} s (a process of its own, beside it): byte for "
         f"byte {same_report}")
     for w in tl["sweeps"]:
         log(f"  (f) sweep {w['iteration']}: wall {w['wall_seconds']:.3f} s, phases (s) "
@@ -3884,12 +3925,14 @@ def game_fixture(root, seed):
     """Phase 12 (a): the fixture's part files under ``root`` (phases 12 and
     13 read them): (train dir, validation dir, wall seconds, summed writer
     seconds)."""
-    train, validation, wall, writer_s = game_write(root, seed)
+    train, validation, day3, wall, writer_s = game_write(root, seed)
     rows = IO_TRAIN[0] + IO_VALIDATION[0]
     log(f"  (a) wrote {rows} rows ({IO_NNZ} global and {GAME_RE_FEATURES} per-user features a row, "
-        f"{GAME_USERS} Zipf(1.1) users) into {IO_TRAIN[1]} + {IO_VALIDATION[1]} deflate parts in {wall:.2f} s "
-        f"by worker processes ({rows / wall:.1f} rows/s; the writers' own seconds summed {writer_s:.2f})")
-    return {"root": root, "train": train, "validation": validation, "wall_s": wall, "writer_s": writer_s}
+        f"{GAME_USERS} Zipf(1.1) users) into {IO_TRAIN[1]} + {IO_VALIDATION[1]} deflate parts, and phase 14's "
+        f"day 3 ({RETRAIN_DAY3[0]} parts of {RETRAIN_DAY3[1]} drawn rows, the even users' kept), in {wall:.2f} s "
+        f"by worker processes (the fixture's writers' own seconds summed {writer_s:.2f})")
+    return {"root": root, "train": train, "validation": validation, "day3": day3, "wall_s": wall,
+            "writer_s": writer_s}
 
 
 def game_phase(torch, fixture, smi, busy_share=None, keep=None):
@@ -3909,12 +3952,492 @@ def game_phase(torch, fixture, smi, busy_share=None, keep=None):
     out["fault"] = game_fault(torch, train, validation, root, problems, b)
     torch.cuda.empty_cache()
     out["observed"] = game_observed(torch, train, validation, root, problems, b, busy_share)
-    out["train"] = {k: v for k, v in b.items() if k not in ("maps", "out")}
-    # phase 16 (e) holds its streamed fit against (b)'s best model
+    out["train"] = {k: v for k, v in b.items() if k not in ("maps", "out", "coords")}
+    # phase 16 (e) holds its streamed fit against (b)'s best model, phase 17
+    # its two-rank fit (main drops "b", and the card memory of its
+    # coordinates, after phase 17)
     out["best"] = {"maps": b["maps"], "out": b["out"], "auc": b["auc"]}
+    out["b"] = b
     if keep is not None:
         for name, src in (("metrics-b", os.path.join(root, "metrics-b")), ("metrics-f", out["observed"]["metrics_dir"])):
             shutil.copytree(src, os.path.join(keep, name))
+    log(f"  on {smi}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return out
+
+
+# ------------------------------------------------- phase 17: distributed
+#
+# GAME training and scoring across processes on phase 12's fixture:
+# ``python -m photon_ml_tpu_torch.cli.train --distributed
+# coordinator=127.0.0.1:PORT,process=I,n=2``, two ranks sharing the card over
+# gloo, each reading its 100,000 rows (per-host reads, the cross-rank random-
+# effect build of game/data_mp.py, B1-B3 joined by B4); the kill-a-worker
+# drill and its resume; cli.score --distributed; cli.fleetz over the ranks'
+# streams; and one rank over NCCL.
+
+DIST_WORLD = 2
+DIST_BUDGET_S = 10.0  # (b)'s --collective-timeout
+DIST_KILL_AT = 2  # dist.collective on rank 1: its second sweep boundary
+DIST_TIMEOUT_S = 300.0  # each launch of ranks, start to exit
+DIST_DEVICE = "cuda"  # every rank's --device and the device of the models phase 17 loads
+# a rank: cli.train.run or cli.score.run on argv, then its launch counts, its
+# wall and (train) its stage seconds and the sha256 of every normalization's
+# inputs as JSON to the first argument; no JAX, as every rank of the port
+RANK_RUNNER = r"""
+import hashlib, json, sys, time
+t0 = time.perf_counter()
+import numpy as np
+from photon_ml_tpu_torch.cli import score, train
+from photon_ml_tpu_torch.ops import fused_glm as fg, sparse
+out_path, cli, argv = sys.argv[1], sys.argv[2], sys.argv[3:]
+digests = []
+real = train.build_normalization
+def recording(kind, mean, variance, max_magnitude, **kw):
+    digests.append(hashlib.sha256(b"".join(np.ascontiguousarray(a, dtype=np.float64).tobytes()
+                                           for a in (mean, variance, max_magnitude))).hexdigest())
+    return real(kind, mean, variance, max_magnitude, **kw)
+train.build_normalization = recording
+result = (train if cli == "train" else score).run(argv)
+doc = {"wall_s": time.perf_counter() - t0, "launches": dict(fg.LAUNCHES), "shifts": dict(fg.SHIFT_LAUNCHES),
+       "sharded": dict(fg.SHARDED_LAUNCHES), "sums": dict(fg.SUM_LAUNCHES), "sparse": dict(sparse.SPARSE_LAUNCHES),
+       "normalization": digests}
+if cli == "train":
+    doc["stage_seconds"] = result["stage_seconds"]
+with open(out_path, "w") as f:
+    json.dump(doc, f)
+"""
+
+
+def _start_ranks(root, name, argv, world=DIST_WORLD, module=None, env_by_rank=None):
+    """Start ``world`` ranks on the card, joined at a free local port:
+    through RANK_RUNNER (``module`` None: its JSON under
+    ``root/name-r<i>.json``) or as ``python -m
+    photon_ml_tpu_torch.cli.<module>``. Returns (name, the processes, the
+    start time on the host clock) for ``_wait_ranks``."""
+    import os
+    import subprocess
+
+    repo = str(pathlib.Path(__file__).resolve().parent)
+    port = _free_port()
+    procs = []
+    t0 = time.perf_counter()
+    for i in range(world):
+        env = dict(os.environ, PYTHONPATH=repo)
+        env.pop("PHOTON_FAULTS", None)
+        env.update((env_by_rank or {}).get(i, {}))
+        head = ([sys.executable, "-m", f"photon_ml_tpu_torch.cli.{module}"] if module else
+                [sys.executable, "-c", RANK_RUNNER, os.path.join(root, f"{name}-r{i}.json"), name.split("-")[0]])
+        procs.append(subprocess.Popen(
+            head + argv + ["--device", DIST_DEVICE, "--distributed", f"coordinator=127.0.0.1:{port},process={i},n={world}"],
+            cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    return name, procs, t0
+
+
+def _wait_ranks(started):
+    """Wait for the ranks of ``_start_ranks``: (each rank's (exit code,
+    stdout, stderr, exit time on the host clock), the start time); every
+    rank still running DIST_TIMEOUT_S after the start is killed."""
+    name, procs, t0 = started
+    ended = [None] * len(procs)
+    try:
+        while any(e is None for e in ended):
+            for i, p in enumerate(procs):
+                if ended[i] is None and p.poll() is not None:
+                    ended[i] = time.perf_counter()
+            if time.perf_counter() - t0 > DIST_TIMEOUT_S:
+                raise TimeoutError(f"ranks {[i for i, e in enumerate(ended) if e is None]} of {name} still running "
+                                   f"after {DIST_TIMEOUT_S:.0f} s")
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    return [(p.returncode, p.stdout.read(), p.stderr.read(), ended[i]) for i, p in enumerate(procs)], t0
+
+
+def _dist_ranks(root, name, argv, world=DIST_WORLD, module=None, env_by_rank=None):
+    """``_start_ranks`` and ``_wait_ranks`` in one."""
+    return _wait_ranks(_start_ranks(root, name, argv, world, module, env_by_rank))
+
+
+def _rank_docs(root, name, world=DIST_WORLD):
+    import os
+
+    docs = []
+    for i in range(world):
+        with open(os.path.join(root, f"{name}-r{i}.json")) as f:
+            docs.append(json.load(f))
+    return docs
+
+
+def _prom_series(path, prefix):
+    """``{(name, labels): value}`` of the series under ``prefix`` in a
+    Prometheus text file."""
+    from photon_ml_tpu_torch.obs import fleet
+
+    with open(path) as f:
+        return {(m["name"], tuple(sorted(m["labels"].items()))): m.get("value") for m in fleet.parse_prometheus(f.read())
+                if m["name"].startswith(prefix)}
+
+
+def _ranks_failed(outs, what):
+    bad = [(i, rc, err[-3000:]) for i, (rc, _, err, _) in enumerate(outs) if rc != 0]
+    return f"{what}: ranks exited {[(i, rc) for i, rc, _ in bad]}:\n" + "\n".join(e for _, _, e in bad) if bad else None
+
+
+def _differing_bits(a, b):
+    """Bits that differ between two tensors of one dtype and shape."""
+    import torch
+
+    x = a.reshape(-1).contiguous().view(torch.uint8).cpu().numpy()
+    y = b.reshape(-1).contiguous().view(torch.uint8).cpu().numpy()
+    return int(np.unpackbits(np.bitwise_xor(x, y)).sum())
+
+
+def _model_bit_gap(a, b):
+    """(differing bits, max abs difference) over two GAME models' fixed- and
+    random-effect values (the random effect keyed by entity id)."""
+    import torch
+
+    fa, fb = a["global"].model.coefficients, b["global"].model.coefficients
+    bits = _differing_bits(fa.means, fb.means) + _differing_bits(fa.variances, fb.variances)
+    gap = max(float((fa.means - fb.means).abs().max()), float((fa.variances - fb.variances).abs().max()))
+    ra, rb = a["per-user"], b["per-user"]
+    ids = [str(e) for e in rb.entity_ids if not str(e).startswith("__pad")]
+    rows_a = torch.as_tensor(ra.rows_for(ids), dtype=torch.long)
+    rows_b = torch.as_tensor(rb.rows_for(ids), dtype=torch.long)
+    if bool((rows_a < 0).any()):
+        return None, float("inf")
+    dim = int(max(int(ra.coef_indices.max()), int(rb.coef_indices.max()))) + 1
+    da, db = ra.dense_coefficients(dim)[rows_a], rb.dense_coefficients(dim)[rows_b]
+    da, db = torch.as_tensor(np.asarray(da)), torch.as_tensor(np.asarray(db))
+    return bits + _differing_bits(da, db), max(gap, float((da - db).abs().max()))
+
+
+def _re_losses(torch, coord, model, residual, l2):
+    """Each entity's L2-regularized logistic loss, in float64 on the
+    coordinate's blocks, at ``model``'s coefficients (projected by entity
+    id and feature) on ``residual``: one function for both sides of a
+    comparison."""
+    from photon_ml_tpu_torch.game.coordinate import _project_model_values
+
+    ds = coord.dataset
+    b = ds.blocks
+    w = _project_model_values(ds, model, model.coef_values, torch.float64)
+    valid = b.active_rows >= 0
+    off = b.offsets.double() + residual.double()[b.active_rows.clamp(min=0).long()] * valid
+    z = torch.einsum("eks,es->ek", b.features.double(), w) + off
+    ll = b.weights.double() * (torch.nn.functional.softplus(z) - b.labels.double() * z)
+    return ll.sum(dim=1) + 0.5 * l2 * (w * w).sum(dim=1)
+
+
+def _load_boundary(directory, step):
+    """A boundary checkpoint's validated payload (the two-phase shards
+    concatenated), by its sequence number."""
+    import os
+
+    from photon_ml_tpu_torch.robust import CheckpointManager
+
+    mgr = CheckpointManager(directory)
+    _, payload = mgr._load_validated(os.path.join(directory, f"ckpt-{step:06d}"))
+    return payload
+
+
+def dist_train(torch, fixture, b, index_dir, problems, smi):
+    """(a) Two cli.train ranks sharing the card over gloo, every update a
+    two-phase boundary checkpoint, --metrics-out: each rank's launches of
+    B1, B2, B3 with shifts and B4, its walls and its photon_re_build_*
+    series; the coordinator's best model against phase 12 (b)'s (FE
+    coefficients and variances rtol 1e-3 / atol 1e-5; the RE retrained on
+    one card on the two-rank run's last residual and warm start, atol 5e-3,
+    per-entity loss atol 1e-4; the chained RE difference printed;
+    validation AUC within 2e-3); each rank's normalization inputs bitwise
+    alike."""
+    import os
+
+    from photon_ml_tpu_torch.io import load_game_model
+
+    root, train, validation = fixture["root"], fixture["train"], fixture["validation"]
+    out, ck, metrics = (os.path.join(root, p) for p in ("out-17a", "ck-17a", "metrics-17a"))
+    argv = game_argv(train, validation, out, ["--feature-index-dir", index_dir, "--checkpoint-dir", ck,
+                                              "--checkpoint-every", "1", "--checkpoint-keep", "4",
+                                              "--metrics-out", metrics])
+    outs, t0 = _dist_ranks(root, "train-17a", argv)
+    wall = max(o[3] for o in outs) - t0
+    failed = _ranks_failed(outs, "(a) cli.train --distributed")
+    if failed:
+        raise AssertionError(failed)
+    docs = _rank_docs(root, "train-17a")
+    with open(os.path.join(metrics, "run_summary.json")) as f:
+        summary = json.load(f)
+    auc = summary["best"]["metrics"]["AUC"]
+    builds = [_prom_series(os.path.join(metrics, "metrics.prom" if r == 0 else f"metrics.p{r}.prom"),
+                           "photon_re_build") for r in range(DIST_WORLD)]
+    for r, d in enumerate(docs):
+        mine = {k[0].removeprefix("photon_re_build_"): v for k, v in builds[r].items()
+                if dict(k[1]).get("process", str(r)) == str(r)}
+        log(f"  (a) rank {r}: wall {d['wall_s']:.2f} s (stages "
+            + ", ".join(f"{k} {v:.3f}" for k, v in d["stage_seconds"].items())
+            + f"); launches {d['launches']}, B3 with shifts {d['shifts']['fused_hessian_stats']}, B4 {d['sharded']}, "
+              f"rank-order sums {d['sums']}; RE build {mine}")
+        if min(d["launches"]["fused_value_grad"], d["launches"]["fused_hessian_vector"],
+               d["shifts"]["fused_hessian_stats"], *d["sharded"].values()) <= 0:
+            problems.append(f"(a) rank {r} did not launch B1, B2, B3 with shifts and every B4: {d}")
+    alike = len({tuple(d["normalization"]) for d in docs}) == 1 and bool(docs[0]["normalization"])
+    log(f"  (a) two ranks over {summary.get('distributed')}: {wall:.2f} s from the first start to the last exit; "
+        f"normalization inputs bitwise alike on every rank: {alike}; validation AUC {auc:.6f} (phase 12 (b) "
+        f"{b['auc']:.6f}) on {smi}")
+    if summary.get("distributed") != {"backend": "gloo", "world_size": DIST_WORLD}:
+        problems.append(f"(a) the run summary records {summary.get('distributed')}, not gloo over {DIST_WORLD}")
+    if not alike:
+        problems.append(f"(a) the ranks' normalization inputs differ: {[d['normalization'] for d in docs]}")
+    if abs(auc - b["auc"]) > 2e-3:
+        problems.append(f"(a) validation AUC {auc:.6f} against phase 12 (b)'s {b['auc']:.6f} (2e-3)")
+    maps = b["maps"]
+    best = load_game_model(os.path.join(out, "models", "best"), maps, task="logistic_regression", device=DIST_DEVICE)
+    ref = load_game_model(os.path.join(b["out"], "models", "best"), maps, task="logistic_regression", device=DIST_DEVICE)
+    fa, fb = best["global"].model.coefficients, ref["global"].model.coefficients
+    hold(problems, "(a) two ranks vs phase 12 (b): FE coefficients", fa.means, fb.means, 1e-3, 1e-5)
+    hold(problems, "(a) two ranks vs phase 12 (b): FE variances", fa.variances, fb.variances, 1e-3, 1e-5)
+    # the random effect on identical residuals: the two-rank run's last RE
+    # update retrained on one card from its residual and warm start (the
+    # boundary checkpoint before it; shards concatenated), both models'
+    # per-entity losses evaluated alike
+    boundaries = os.path.join(ck, "cd-boundaries")
+    state, last = _load_boundary(boundaries, 2), _load_boundary(boundaries, 3)
+    re_coord = b["coords"]["per-user"]
+    dev = re_coord.dataset.device
+
+    def on_card(m):
+        return dataclasses.replace(m, coef_indices=m.coef_indices.to(dev), coef_values=m.coef_values.to(dev))
+
+    re1 = on_card(state["models"]["per-user"])
+    residual = state["summed_scores"].to(dev) - re_coord.score(re1)
+    one, _ = re_coord.train(residual, initial_model=re1)
+    two = on_card(last["models"]["per-user"])
+    from photon_ml_tpu_torch.game.coordinate import _project_model_values
+
+    ds = re_coord.dataset
+    hold(problems, "(a) two ranks vs one card: RE coefficients (identical residuals)",
+         _project_model_values(ds, two, two.coef_values, torch.float32), one.coef_values, 0.0, 5e-3)
+    l2 = float(re_coord.config.reg_weight)
+    hold(problems, "(a) two ranks vs one card: RE per-entity loss (identical residuals)",
+         _re_losses(torch, re_coord, two, residual, l2), _re_losses(torch, re_coord, one, residual, l2), 0.0, 1e-4)
+    rb = on_card(ref["per-user"])
+    _, chained = allclose(_project_model_values(ds, two, two.coef_values, torch.float32),
+                          _project_model_values(ds, rb, rb.coef_values, torch.float32), 0.0, 5e-3)
+    log(f"  (a) (for the record) RE chained on each run's own fixed effect: max abs diff {chained:.3e}")
+    return {"wall_s": wall, "ranks": docs, "auc": auc, "out": out, "metrics": metrics, "re_build": builds,
+            "normalization_alike": alike}
+
+
+def dist_drill(torch, fixture, a, index_dir, problems, smi):
+    """(b) The kill-a-worker drill: rank 1 dies at its second sweep boundary
+    (PHOTON_FAULTS=dist.collective:kill:2), --collective-timeout 10,
+    heartbeats every 0.5 s, stale after 3 s. Rank 0 must exit non-zero with
+    DistributedTimeoutError or PeerLostError naming process 1 within the
+    budget plus 5 s of rank 1's death and leave a peer_lost dump; both ranks
+    then resume and the final model must equal (a)'s within 1e-9 (the
+    differing bits printed; bitwise is expected)."""
+    import glob
+    import os
+
+    from photon_ml_tpu_torch.io import load_game_model
+
+    root, train, validation = fixture["root"], fixture["train"], fixture["validation"]
+    out, ck, metrics = (os.path.join(root, p) for p in ("out-17b", "ck-17b", "metrics-17b"))
+    argv = game_argv(train, validation, out, [
+        "--feature-index-dir", index_dir, "--checkpoint-dir", ck, "--checkpoint-every", "1", "--metrics-out", metrics,
+        "--collective-timeout", f"{DIST_BUDGET_S:g}", "--heartbeat-interval", "0.5", "--heartbeat-timeout", "3",
+    ])
+    outs, t0 = _dist_ranks(root, "drill-17b", argv, module="train",
+                           env_by_rank={1: {"PHOTON_FAULTS": f"dist.collective:kill:{DIST_KILL_AT}"}})
+    (rc0, _, err0, end0), (rc1, _, err1, end1) = outs
+    detect = end0 - end1
+    typed = next((t for t in ("DistributedTimeoutError", "PeerLostError") if f"{t}:" in err0), None)
+    named = "[1]" in (err0.strip().splitlines() or [""])[-1]
+    dumps = glob.glob(os.path.join(metrics, "flight", "flight-peer_lost-*.json"))
+    last = (err0.strip().splitlines() or [""])[-1]
+    log(f"  (b) rank 1 killed at dist.collective call {DIST_KILL_AT} (exit {rc1}, SimulatedKill "
+        f"{'SimulatedKill' in err1}) {end1 - t0:.2f} s after the start; rank 0 exited {rc0} {detect:.2f} s after "
+        f"it (budget {DIST_BUDGET_S:g} s + 5): {last[:400]}; peer_lost dumps {len(dumps)}")
+    if not (rc1 != 0 and rc0 != 0 and typed and named and detect <= DIST_BUDGET_S + 5 and dumps):
+        problems.append(f"(b) the drill: rank 0 exit {rc0}, typed {typed}, names process 1 {named}, "
+                        f"{detect:.2f} s after the kill, dumps {len(dumps)}; rank 0's end:\n{err0[-2000:]}")
+        return {"detect_s": detect}
+    t1 = time.perf_counter()
+    outs, _ = _dist_ranks(root, "resume-17b", argv + ["--resume"], module="train")
+    resume_s = time.perf_counter() - t1
+    failed = _ranks_failed(outs, "(b) the resumed ranks")
+    if failed:
+        problems.append(failed)
+        return {"detect_s": detect}
+    maps = a["maps"]
+    resumed = load_game_model(os.path.join(out, "models", "best"), maps, task="logistic_regression", device=DIST_DEVICE)
+    straight = load_game_model(os.path.join(a["out"], "models", "best"), maps, task="logistic_regression", device=DIST_DEVICE)
+    bits, gap = _model_bit_gap(resumed.models, straight.models)
+    log(f"  (b) both ranks resumed in {resume_s:.2f} s; the final model against (a)'s: {bits} differing bits, "
+        f"max abs diff {gap:.3e} (1e-9) on {smi}")
+    if bits is None or gap > 1e-9:
+        problems.append(f"(b) the resumed model differs from (a)'s by {gap:.3e} ({bits} bits)")
+    return {"detect_s": detect, "killed_at_s": end1 - t0, "resume_s": resume_s, "differing_bits": bits}
+
+
+def dist_score(torch, fixture, a, index_dir, problems, smi):
+    """(c) cli.score --distributed on two ranks over the validation parts
+    with (a)'s best model: the union of the ranks' part files against the
+    one-process scores of the same model (phase 12 (d)'s path,
+    GameTransformer.transform) at rtol 1e-5, the bitwise-equal rows
+    counted; the AUC over every rank's rows within 1e-4 of the one-process
+    AUC; S1 launched on each rank."""
+    import os
+
+    from photon_ml_tpu_torch.estimators import GameTransformer
+    from photon_ml_tpu_torch.io import FeatureShardConfig, load_game_model, read_avro_dataset, read_avro_file
+
+    root, validation = fixture["root"], fixture["validation"]
+    model_dir, out = os.path.join(a["out"], "models", "best"), os.path.join(root, "scores-17c")
+    argv = ["--input-data", validation, "--feature-shard", "name=global,bags=features",
+            "--feature-shard", "name=userShard,bags=userFeatures", "--id-tags", "userId", "--feature-index-dir",
+            index_dir, "--model-input-dir", model_dir, "--evaluators", "AUC", "--output-dir", out,
+            "--log-level", "WARNING"]
+    outs, t0 = _dist_ranks(root, "score-17c", argv)
+    wall = max(o[3] for o in outs) - t0
+    failed = _ranks_failed(outs, "(c) cli.score --distributed")
+    if failed:
+        raise AssertionError(failed)
+    docs = _rank_docs(root, "score-17c")
+    got = np.concatenate([
+        np.asarray([r["predictionScore"] for r in read_avro_file(os.path.join(out, f"scores-part-{i:04d}.avro"))[1]])
+        for i in range(DIST_WORLD)])
+    with open(os.path.join(out, "evaluation.json")) as f:
+        auc = json.load(f)["AUC"]
+    shards = {"global": FeatureShardConfig(("features",)), "userShard": FeatureShardConfig(("userFeatures",))}
+    val, _ = read_avro_dataset(validation, shards, index_maps=a["maps"], id_tag_columns=["userId"])
+    model = load_game_model(model_dir, a["maps"], task="logistic_regression", device=DIST_DEVICE)
+    want, ev = GameTransformer(model=model, device=DIST_DEVICE).transform(val, evaluator_specs=["AUC"])
+    ok, diff = allclose(torch.from_numpy(got), torch.from_numpy(np.asarray(want)), 1e-5, 1e-6)
+    same = int(np.sum(got == np.asarray(want))) if got.shape == np.asarray(want).shape else 0
+    s1 = [d["sparse"]["ell_matvec"] for d in docs]
+    gap = abs(auc - ev.metrics["AUC"])
+    log(f"  (c) cli.score --distributed: {len(got)} rows in {wall:.2f} s over {DIST_WORLD} ranks; against the "
+        f"one-process scores of the same model: max abs diff {diff:.3e} (rtol 1e-5) {'ok' if ok else 'MISS'}, "
+        f"{same} of {len(got)} rows bitwise equal; AUC {auc:.6f} vs {ev.metrics['AUC']:.6f} ({gap:.2e}, 1e-4); "
+        f"S1 ell_matvec launches per rank {s1} on {smi}")
+    if not (ok and gap <= 1e-4 and min(s1) > 0):
+        problems.append(f"(c) distributed scores: rtol {ok} ({diff:.3e}), AUC gap {gap:.2e}, S1 launches {s1}")
+    return {"wall_s": wall, "rows": len(got), "bitwise_rows": same, "auc": auc, "s1_launches": s1}
+
+
+def dist_fleetz(torch, a, problems):
+    """(d) cli.fleetz in artifacts mode (its ``run``, in process) over (a)'s
+    metrics directory, the coordinator's stream and metrics.p1.jsonl: every
+    merged counter is the sum of the two ranks' final snapshots, bit for
+    bit (as the exposition renders them)."""
+    import os
+    import tempfile
+
+    from photon_ml_tpu_torch.cli import fleetz
+    from photon_ml_tpu_torch.obs import fleet
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleetz17_") as tmp:
+        t0 = time.perf_counter()
+        fleetz.run([a["metrics"], "--out", tmp, "--log-level", "WARNING"])
+        wall = time.perf_counter() - t0
+        with open(os.path.join(tmp, "fleet.prom")) as f:
+            prom = f.read()
+    merged = {(m["name"], tuple(sorted(m["labels"].items()))): m["value"] for m in fleet.parse_prometheus(prom)
+              if m["kind"] == "counter" and not m["name"].startswith("photon_fleet_")}
+    streams = fleet.discover_streams([a["metrics"]])
+    want = {}
+    for s in streams:
+        for m in s.snapshot:
+            if m["kind"] == "counter":
+                key = (m["name"], tuple(sorted(m["labels"].items())))
+                want[key] = want.get(key, 0.0) + m["value"]
+    # as the exposition renders them: 10 significant digits
+    want = {k: float(f"{v:.10g}") for k, v in want.items()}
+    log(f"  (d) cli.fleetz over (a)'s {len(streams)} rank streams (processes "
+        f"{sorted(s.process_index for s in streams)}) in {wall:.2f} s: {len(merged)} merged counter series, the "
+        f"ranks' sums {'equal' if merged == want else 'DIFFER'}")
+    if not merged or merged != want or len(streams) != DIST_WORLD:
+        problems.append(f"(d) cli.fleetz: {len(merged)} series against {len(want)}, {len(streams)} streams")
+    return {"wall_s": wall, "series": len(merged)}
+
+
+def dist_nccl_start(fixture, index_dir):
+    """(e)'s rank, started before (c) and (d) so that it runs beside them:
+    neither reads anything of it, and the walls printed are walls beside
+    another run."""
+    import os
+
+    root, train, validation = fixture["root"], fixture["train"], fixture["validation"]
+    out, metrics = os.path.join(root, "out-17e"), os.path.join(root, "metrics-17e")
+    argv = game_argv(train, validation, out, ["--feature-index-dir", index_dir, "--metrics-out", metrics])
+    return _start_ranks(root, "train-17e", argv, world=1)
+
+
+def dist_nccl(torch, fixture, b, started, problems, smi):
+    """(e) One rank over NCCL (--distributed ...,n=1 on the card), started
+    by ``dist_nccl_start``: the saved models bitwise phase 12 (b)'s (B4 of
+    one rank is B1-B3's bits; the one-rank build is the one-process
+    build's)."""
+    import os
+
+    from photon_ml_tpu_torch.io import load_game_model
+
+    root = fixture["root"]
+    out, metrics = os.path.join(root, "out-17e"), os.path.join(root, "metrics-17e")
+    outs, t0 = _wait_ranks(started)
+    failed = _ranks_failed(outs, "(e) cli.train over NCCL at world 1")
+    if failed:
+        raise AssertionError(failed)
+    (doc,) = _rank_docs(root, "train-17e", world=1)
+    with open(os.path.join(metrics, "run_summary.json")) as f:
+        backend = json.load(f).get("distributed")
+    maps = b["maps"]
+    got = load_game_model(os.path.join(out, "models", "best"), maps, task="logistic_regression", device=DIST_DEVICE)
+    ref = load_game_model(os.path.join(b["out"], "models", "best"), maps, task="logistic_regression", device=DIST_DEVICE)
+    bits, gap = _model_bit_gap(got.models, ref.models)
+    log(f"  (e) one rank over {backend}: wall {doc['wall_s']:.2f} s (beside (c) and (d)); launches {doc['launches']}, B4 "
+        f"{doc['sharded']}, rank-order sums {doc['sums']}; the saved models against phase 12 (b)'s: {bits} differing "
+        f"bits (max abs diff {gap:.3e}) on {smi}")
+    if backend != {"backend": "nccl", "world_size": 1}:
+        problems.append(f"(e) the one-rank run ran over {backend}, not NCCL")
+    if bits != 0 or min(doc["sharded"].values()) <= 0:
+        problems.append(f"(e) NCCL at world 1: {bits} bits differ from phase 12 (b)'s models; B4 {doc['sharded']}")
+    return {"wall_s": doc["wall_s"], "launches": doc["launches"], "sharded": doc["sharded"], "sums": doc["sums"],
+            "differing_bits": bits}
+
+
+def distributed_phase(torch, fixture, game, smi):
+    """Phase 17 (a)-(e) on phase 12's fixture; ``game`` carries phase 12
+    (b)'s best model, index maps and in-process coordinates."""
+    import os
+
+    from photon_ml_tpu_torch.io.index_map import save_partitioned
+
+    problems, out = [], {}
+    b = game["b"]
+    index_dir = os.path.join(fixture["root"], "index-17")
+    for shard, imap in b["maps"].items():
+        save_partitioned(imap, index_dir, 1, shard)
+    a = dist_train(torch, fixture, b, index_dir, problems, smi)
+    a["maps"] = b["maps"]
+    out["train"] = {k: v for k, v in a.items() if k not in ("maps", "out", "metrics")}
+    out["drill"] = dist_drill(torch, fixture, a, index_dir, problems, smi)
+    # (e)'s one NCCL rank runs beside (c)'s two scoring ranks and (d)
+    nccl = dist_nccl_start(fixture, index_dir)
+    try:
+        out["score"] = dist_score(torch, fixture, a, index_dir, problems, smi)
+        out["fleetz"] = dist_fleetz(torch, a, problems)
+    except BaseException:
+        for p in nccl[1]:
+            p.kill()
+        raise
+    out["nccl"] = dist_nccl(torch, fixture, b, nccl, problems, smi)
     log(f"  on {smi}")
     if problems:
         raise AssertionError("; ".join(problems))
@@ -4122,8 +4645,10 @@ def lane_sweep(torch, state, problems):
     """(b) bench.py's --config sweep protocol in process at build_data's
     width (phase 5's datasets; L-BFGS tol 1e-7, 50 iterations, L2, variance
     NONE, bench_sweep's lambdas): 2 sweeps of K = 1, 4 and 8 lanes
-    (fit_lanes) against K sequential fits (CoordinateDescent, the kernels),
-    walls on the host clock ending in a synchronize. Each lane's fixed
+    (fit_lanes) against K sequential fits (CoordinateDescent, the kernels;
+    for K = 8 against 8 times K = 4's mean sequential trial,
+    its lanes not held one by one), walls on the host clock ending in a
+    synchronize. Each lane's fixed
     effect against its sequential fit's (atol 5e-3) and its training AUC
     within 1e-4 of the sequential fit's. The random effect is held on
     identical residuals (ROADMAP C4) and in float64 (C3: at small lambdas
@@ -4157,7 +4682,10 @@ def lane_sweep(torch, state, problems):
 
     lanes_of = {1: (1.0,), 4: TUNING_LAMBDAS, 8: SWEEP_LAMBDAS}
     seq = {}
-    for lam in sorted(set().union(*lanes_of.values())):
+    # the sequential fits of K = 1 and 4 only: K = 8's lanes are timed
+    # against 8 times K = 4's mean sequential trial and not held lane by
+    # lane (cut to make room for phase 17)
+    for lam in sorted(set(lanes_of[1]) | set(lanes_of[4])):
         cs = {
             "global": FixedEffectCoordinate(dataset=datasets["global"], task="logistic_regression",
                                             config=cfgs[0].config.with_reg_weight(lam)),
@@ -4178,7 +4706,9 @@ def lane_sweep(torch, state, problems):
         lane_results = est.fit_lanes(None, combos, datasets=datasets)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        seq_wall = sum(seq[lam][1] for lam in lams)
+        held_lanes = all(lam in seq for lam in lams)
+        seq_wall = (sum(seq[lam][1] for lam in lams) if held_lanes
+                    else K * float(np.mean([seq[lam][1] for lam in lanes_of[4]])))
         # the RE lane solve on each lane's fixed-effect scores, alone: its
         # wall and the card's peak memory above what was held
         residual = torch.stack([fe_scorer.score(r.model["global"]) for r in lane_results], dim=1)
@@ -4190,10 +4720,11 @@ def lane_sweep(torch, state, problems):
         torch.cuda.synchronize()
         re_wall = time.perf_counter() - t1
         re_peak = (torch.cuda.max_memory_allocated() - held) / 2**30
-        residual64 = residual.double()
-        W_re64, _ = re_coord(1.0, re_ds64).train_lanes(residual64, torch.tensor(lams, dtype=torch.float64, device=dev))
+        residual64 = residual.double() if held_lanes else None
+        W_re64 = re_coord(1.0, re_ds64).train_lanes(
+            residual64, torch.tensor(lams, dtype=torch.float64, device=dev))[0] if held_lanes else None
         gaps = []
-        for k, (r, lam) in enumerate(zip(lane_results, lams)):
+        for k, (r, lam) in enumerate(zip(lane_results, lams) if held_lanes else ()):
             model, _, auc_seq = seq[lam]
             fe_gap = float((r.model["global"].model.coefficients.means
                             - model["global"].model.coefficients.means).abs().max())
@@ -4212,7 +4743,8 @@ def lane_sweep(torch, state, problems):
                                 f"{auc_lane:.6f} vs sequential {auc_seq:.6f}")
         out[K] = {"wall_s": wall, "sequential_s": seq_wall, "re_lane_solve_s": re_wall, "re_peak_gib": re_peak,
                   "gaps": gaps}
-        log(f"  (b) K={K}: lanes {wall:.3f} s against {K} sequential fits {seq_wall:.3f} s "
+        log(f"  (b) K={K}: lanes {wall:.3f} s against {K} sequential fits "
+            f"{'' if held_lanes else '(K = 4 mean, not run) '}{seq_wall:.3f} s "
             f"({wall / seq_wall:.3f} of them; {wall / K:.3f} s a trial); the RE lane solve alone {re_wall:.3f} s, "
             f"peak {re_peak:.2f} GiB above what was held; per lane (lambda, FE gap, RE gap on identical residuals "
             f"in float64 (held) / in f32 (held from lambda {F32_HELD_FROM['b']:g}), chained RE difference (not held), "
@@ -4392,7 +4924,7 @@ def _lane_argv(train, validation, out, extra=()):
 
 def tuning_driver(torch, fixture, problems, smi):
     """(d) cli.train's tuning on phase 12's fixture: sequential BAYESIAN
-    with phase 12's options and 4 trials (the launches of B1, B2, B3 with
+    with phase 12's options and 2 trials (the launches of B1, B2, B3 with
     shifts and S1 each above 0); then RANDOM with --trial-lanes 4 and 8
     trials, variance and normalization NONE, output mode TUNED: the batch
     walls (photon_tuning_batch_wall_seconds), the tuned model reloaded
@@ -4406,11 +4938,11 @@ def tuning_driver(torch, fixture, problems, smi):
     root, train, validation = fixture["root"], fixture["train"], fixture["validation"]
     out = {}
     argv = game_argv(train, validation, os.path.join(root, "out-13-seq"),
-                     ["--hyper-parameter-tuning", "BAYESIAN", "--hyper-parameter-tuning-iter", "4",
+                     ["--hyper-parameter-tuning", "BAYESIAN", "--hyper-parameter-tuning-iter", "2",
                       "--output-mode", "TUNED"])
     summary, wall, launches, shifts, s1 = _counted_train(torch, argv)
     aucs = [c["metrics"]["AUC"] for c in summary["configs"]]
-    log(f"  (d) sequential BAYESIAN, 4 trials: {wall:.2f} s (stages "
+    log(f"  (d) sequential BAYESIAN, 2 trials: {wall:.2f} s (stages "
         + ", ".join(f"{k} {v:.3f}" for k, v in summary["stage_seconds"].items())
         + f"); launches {launches}, B3 with shifts {shifts}, S1 ell_matvec {s1}; trials "
         + "; ".join(f"{c['reg_weights']} AUC {c['metrics']['AUC']:.6f}" for c in summary["configs"][1:])
@@ -4418,8 +4950,8 @@ def tuning_driver(torch, fixture, problems, smi):
     if min(launches["fused_value_grad"], launches["fused_hessian_vector"], shifts, s1) <= 0:
         problems.append(f"(d) sequential tuning did not launch B1, B2, B3 with shifts and S1: {launches}, "
                         f"shifts {shifts}, S1 {s1}")
-    if len(summary["configs"]) != 5:
-        problems.append(f"(d) sequential tuning ran {len(summary['configs']) - 1} trials, not 4")
+    if len(summary["configs"]) != 3:
+        problems.append(f"(d) sequential tuning ran {len(summary['configs']) - 1} trials, not 2")
     out["sequential"] = {"wall_s": wall, "stage_seconds": summary["stage_seconds"], "launches": launches,
                          "shift_launches": shifts, "s1_launches": s1, "best_auc": summary["best"]["metrics"]["AUC"]}
 
@@ -4603,13 +5135,11 @@ RETRAIN_SHARDS = {"global": ("features",), "userShard": ("userFeatures",)}
 RETRAIN_COORDINATES = (GAME_RE, GAME_FE)
 
 
-def retrain_fixture(fixture, seed):
+def retrain_fixture(fixture):
     """The feed: day 1 links phase 12's training parts 0-3, day 2 parts
-    4-7, day 3 holds new rows of the even-numbered users only (written by
-    worker processes); the feature index built by cli.index from one
+    4-7, day 3 the new rows of the even-numbered users only (written with
+    phase 12 (a)'s fixture); the feature index built by cli.index from one
     validation part (it holds every feature) and pinned for the chain."""
-    import concurrent.futures
-    import multiprocessing
     import os
 
     from photon_ml_tpu_torch.cli import index
@@ -4625,11 +5155,9 @@ def retrain_fixture(fixture, seed):
             os.symlink(os.path.join(fixture["train"], name), os.path.join(day, name))
     os.makedirs(days[2])
     parts, rows = RETRAIN_DAY3
-    t0 = time.perf_counter()
-    jobs = [(os.path.join(days[2], f"part-{p:05d}.avro"), seed, 2000 + p, rows, True) for p in range(parts)]
-    with concurrent.futures.ProcessPoolExecutor(parts, mp_context=multiprocessing.get_context("spawn")) as pool:
-        list(pool.map(_game_write_part, *zip(*jobs)))
-    write_s = time.perf_counter() - t0
+    for p in range(parts):
+        name = f"part-{p:05d}.avro"
+        os.symlink(os.path.join(fixture["day3"], name), os.path.join(days[2], name))
     idx = os.path.join(root, "index")
     t1 = time.perf_counter()
     maps = index.run(["--input-data", os.path.join(fixture["validation"], "part-00000.avro"),
@@ -4638,12 +5166,12 @@ def retrain_fixture(fixture, seed):
                       "--output-dir", idx, "--num-partitions", "4", "--log-level", "WARNING"])
     index_s = time.perf_counter() - t1
     sizes = {k: len(v) for k, v in maps.items()}
-    log(f"  set-up: days 1 and 2 link phase 12's parts 0-{n_parts // 2 - 1} and {n_parts // 2}-{n_parts - 1}; day 3 "
-        f"written in {write_s:.2f} s ({parts} parts of {rows} drawn rows, the even users' kept); the index "
+    log(f"  set-up: days 1 and 2 link phase 12's parts 0-{n_parts // 2 - 1} and {n_parts // 2}-{n_parts - 1}, day 3 "
+        f"the {parts} parts of {rows} drawn rows (the even users' kept) written with phase 12 (a)'s; the index "
         f"{sizes} built in {index_s:.2f} s")
     if sizes != {"global": IO_FEATURES + 1, "userShard": GAME_RE_FEATURES + 1}:
         raise AssertionError(f"the index misses features: {sizes}")
-    return {"feed": feed, "days": days, "index": idx, "write_s": write_s, "index_s": index_s}
+    return {"feed": feed, "days": days, "index": idx, "index_s": index_s}
 
 
 def retrain_argv(fixture, fx, out, srv, extra=()):
@@ -5006,7 +5534,7 @@ def retrain_drills(torch, fixture, fx, a, root, problems):
     return {"killed_s": killed, "resumed_s": resumed, "ledger_identical": same}
 
 
-def retrain_phase(torch, fixture, seed, smi):
+def retrain_phase(torch, fixture, smi):
     """Phase 14: (a) cli.retrain over three days with launches, walls and
     each day held on identical inputs; (b) untouched users bitwise; (c) the
     live snapshot bitwise the accepted model; (d) a label-flipped day
@@ -5014,8 +5542,8 @@ def retrain_phase(torch, fixture, seed, smi):
     from photon_ml_tpu_torch.io.index_map import load_partitioned
 
     problems, out = [], {}
-    fx = retrain_fixture(fixture, seed)
-    out["setup"] = {"write_s": fx["write_s"], "index_s": fx["index_s"]}
+    fx = retrain_fixture(fixture)
+    out["setup"] = {"index_s": fx["index_s"]}
     maps = {s: load_partitioned(fx["index"], s) for s in RETRAIN_SHARDS}
     root = fixture["root"]
     a = retrain_chain(torch, fixture, fx, root, problems, smi)
@@ -5416,6 +5944,7 @@ def fleetz_checks(repo, env, healthz, keep, problems):
     phase 12 (b)'s and (f)'s metrics directories (under ``keep``), whose
     merged counters must equal the sums of the two runs' final snapshots."""
     import os
+    import shutil
     import subprocess
     import tempfile
     import urllib.request
@@ -5427,32 +5956,49 @@ def fleetz_checks(repo, env, healthz, keep, problems):
                 if m["kind"] == "counter" and m["name"].startswith(prefix)}
 
     cmd = [sys.executable, "-m", "photon_ml_tpu_torch.cli.fleetz", "--log-level", "WARNING"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd + [a for h in healthz for a in ("--scrape", f"http://{h}")], cwd=repo, env=env,
-                          capture_output=True, text=True, timeout=120)
-    scrape_s = time.perf_counter() - t0
-    own = {}
-    for h in healthz:
-        with urllib.request.urlopen(f"http://{h}/metrics", timeout=10) as m:
-            for key, v in counters(fleet.parse_prometheus(m.read().decode())).items():
-                own[key] = own.get(key, 0.0) + v
+    # the artifacts-mode process runs beside the scrape's (it reads files only)
+    dirs = [os.path.join(keep, d) for d in ("metrics-b", "metrics-f")] if keep else []
+    have_dirs = bool(dirs) and all(os.path.isdir(d) for d in dirs)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleetz_")
+    t1 = time.perf_counter()
+    artifacts = subprocess.Popen(cmd + dirs + ["--out", tmp], cwd=repo, env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True) if have_dirs else None
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd + [a for h in healthz for a in ("--scrape", f"http://{h}")], cwd=repo, env=env,
+                              capture_output=True, text=True, timeout=120)
+        scrape_s = time.perf_counter() - t0
+        own = {}
+        for h in healthz:
+            with urllib.request.urlopen(f"http://{h}/metrics", timeout=10) as m:
+                for key, v in counters(fleet.parse_prometheus(m.read().decode())).items():
+                    own[key] = own.get(key, 0.0) + v
+    except BaseException:
+        if artifacts is not None:
+            artifacts.kill()
+            artifacts.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
     merged = counters(fleet.parse_prometheus(proc.stdout)) if proc.returncode == 0 else {}
     log(f"  (e) cli.fleetz over {len(healthz)} replicas in {scrape_s:.2f} s (a process of its own): merged "
         f"{merged}, the replicas' own summed {own}")
     if proc.returncode != 0 or not merged or merged != own:
         problems.append(f"(e) cli.fleetz: exit {proc.returncode}, merged {merged} against summed {own}: "
                         f"{proc.stderr[-2000:]}")
-    dirs = [os.path.join(keep, d) for d in ("metrics-b", "metrics-f")] if keep else []
-    if not dirs or not all(os.path.isdir(d) for d in dirs):
+    if artifacts is None:
+        shutil.rmtree(tmp, ignore_errors=True)
         log("  (e) cli.fleetz artifacts mode skipped: phase 12's metrics directories are not there")
         return {"scrape_s": scrape_s, "merged": merged}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleetz_") as tmp:
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd + dirs + ["--out", tmp], cwd=repo, env=env, capture_output=True, text=True,
-                              timeout=120)
-        artifacts_s = time.perf_counter() - t0
-        prom = open(os.path.join(tmp, "fleet.prom")).read() if proc.returncode == 0 else ""
-        trace = json.load(open(os.path.join(tmp, "fleet_trace.json"))) if proc.returncode == 0 else {}
+    try:
+        _, stderr = artifacts.communicate(timeout=120)
+        artifacts_s = time.perf_counter() - t1
+        ok = artifacts.returncode == 0
+        prom = open(os.path.join(tmp, "fleet.prom")).read() if ok else ""
+        trace = json.load(open(os.path.join(tmp, "fleet_trace.json"))) if ok else {}
+    finally:
+        if artifacts.poll() is None:
+            artifacts.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
     got = counters(fleet.parse_prometheus(prom), prefix="photon_")
     got = {k: v for k, v in got.items() if not k[0].startswith("photon_fleet_")}
     want = {}
@@ -5464,10 +6010,11 @@ def fleetz_checks(repo, env, healthz, keep, problems):
     want = {k: float(f"{v:.10g}") for k, v in want.items()}
     n_spans = sum(e.get("ph") == "X" for e in trace.get("traceEvents", []))
     log(f"  (e) cli.fleetz artifacts mode over phase 12 (b) and (f): {len(got)} merged counter series in "
-        f"{artifacts_s:.2f} s, the runs' sums {'equal' if got == want else 'DIFFER'}; stitched trace {n_spans} spans")
-    if proc.returncode != 0 or not got or got != want:
-        problems.append(f"(e) cli.fleetz artifacts mode: exit {proc.returncode}, {len(got)} series against "
-                        f"{len(want)}: {proc.stderr[-2000:]}")
+        f"{artifacts_s:.2f} s (beside the scrape), the runs' sums {'equal' if got == want else 'DIFFER'}; stitched "
+        f"trace {n_spans} spans")
+    if not ok or not got or got != want:
+        problems.append(f"(e) cli.fleetz artifacts mode: exit {artifacts.returncode}, {len(got)} series against "
+                        f"{len(want)}: {stderr[-2000:]}")
     return {"scrape_s": scrape_s, "merged": merged, "artifacts_s": artifacts_s, "series": len(got)}
 
 
@@ -6141,13 +6688,13 @@ def stream_cli(torch, fixture, game, problems, smi):
 
 
 def game_b_only(torch, fixture, smi):
-    """Phase 12 (b) alone (``--only streaming``): the model phase 16 (e)
-    holds its streamed fit against."""
+    """Phase 12 (b) alone (``--only streaming`` or ``distributed``): the
+    model phase 16 (e) and phase 17 hold their fits against."""
     problems = []
     b = game_train(torch, fixture["train"], fixture["validation"], fixture["root"], problems, smi)
     if problems:
         raise AssertionError("; ".join(problems))
-    return {"best": {"maps": b["maps"], "out": b["out"], "auc": b["auc"]}}
+    return {"best": {"maps": b["maps"], "out": b["out"], "auc": b["auc"]}, "b": b}
 
 
 def streaming_phase(torch, state, fixture, game, seed, smi):
@@ -6225,7 +6772,7 @@ def main() -> int:
                     help="an earlier csrc/sparse_glm.cu to time in turns with this one in phase 8 (S1 and S2)")
     ap.add_argument("--only", default="",
                     help="comma-separated subset of check,fe,glmix,dp,nccl,solvers,io,game,streaming,tuning,s2,"
-                         "sparse,timing,variants,retrain,serving "
+                         "sparse,timing,variants,retrain,serving,distributed "
                          "to run after card and build (for iterating on one phase; the result is then not ok)")
     args = ap.parse_args()
     only = set(filter(None, args.only.split(",")))
@@ -6251,6 +6798,7 @@ def main() -> int:
     # phase 12's metrics directories, kept for phase 15's cli.fleetz
     keep = tempfile.mkdtemp(prefix="chip_smoke_keep_")
     errs = fe_launches = glmix = dp = times = solvers = io = game = streaming = tuning = retrain = served = None
+    dist = None
     if want("check"):
         errs = phases.run("kernels vs float64 plain", check_kernels, torch, args.n, args.d, args.seed)
     if want("fe"):
@@ -6289,18 +6837,28 @@ def main() -> int:
     if not (want("tuning") or want("streaming")):
         del state
     torch.cuda.empty_cache()
-    if want("game") or want("streaming") or want("tuning") or want("retrain"):
+    if want("game") or want("streaming") or want("tuning") or want("retrain") or want("distributed"):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_game_") as root:
             fixture = phases.run("GAME fixture (phase 12 (a))", game_fixture, root, args.seed)
             if fixture is None:
                 phases.failed += [p for p, key in (("GAME driver", "game"), ("tuning", "tuning"),
-                                                   ("retrain chain", "retrain")) if want(key)]
+                                                   ("retrain chain", "retrain"), ("distributed", "distributed"))
+                                  if want(key)]
             else:
                 if want("game"):
                     game = phases.run("GAME driver", game_phase, torch, fixture, smi,
                                       (glmix or {}).get("busy_share"), keep)
-                elif want("streaming"):
+                elif want("streaming") or want("distributed"):
                     game = phases.run("GAME driver (phase 12 (b))", game_b_only, torch, fixture, smi)
+                torch.cuda.empty_cache()
+                if not want("distributed"):
+                    pass
+                elif not (game or {}).get("b"):
+                    log("== phase: distributed needs phase 12 (b)'s model")
+                    phases.failed.append("distributed")
+                else:
+                    dist = phases.run("distributed", distributed_phase, torch, fixture, game, smi)
+                (game or {}).pop("b", None)
                 torch.cuda.empty_cache()
                 if not want("streaming"):
                     pass
@@ -6321,7 +6879,7 @@ def main() -> int:
                 state = None
                 torch.cuda.empty_cache()
                 if want("retrain"):
-                    retrain = phases.run("retrain chain", retrain_phase, torch, fixture, args.seed, smi)
+                    retrain = phases.run("retrain chain", retrain_phase, torch, fixture, smi)
         state = None
     torch.cuda.empty_cache()
     if want("serving"):
@@ -6340,11 +6898,18 @@ def main() -> int:
         if times is not None:
             times["sparse"] = sparse_times or {}
     torch.cuda.empty_cache()
-    if want("variants"):
+    # phase 8's diagnostic builds (wrong sums by design; they check nothing
+    # of the main path) run when asked for: a whole run leaves them out, so
+    # that a slow host (one whole run saw the GLMix sweep at 0.54x its
+    # usual rate) does not push the script past its limit
+    variants = "variants" in only
+    if not only:
+        log("== phases segment kernel variants and ring variants: left out of a whole run (--only variants)")
+    if variants:
         phases.run("segment kernel variants", segment_variants, torch, args.seed, batches, args.prev_segment_source)
     del batches
     torch.cuda.empty_cache()
-    if want("variants"):
+    if variants:
         phases.run("ring variants", ring_variants, torch, args.n, args.d, args.seed)
     shutil.rmtree(keep, ignore_errors=True)
     if only:
@@ -6412,6 +6977,16 @@ def main() -> int:
     kernels += sparse_entries(sp, times, game, retrain, served)
     kernels += s2_entries(tuning)
     kernels.append(lane_entry(errs, solvers))
+    # phase 17 (a): each rank's launches in the two-rank fit (B1-B3, B3
+    # with shifts, B4, the rank-order sum); (e): the one NCCL rank's
+    dist_ranks = ((dist or {}).get("train") or {}).get("ranks") or []
+    nccl_one = (dist or {}).get("nccl") or {}
+    for entry in kernels:
+        name = entry["name"]
+        if name in KERNELS:
+            table = "sharded" if name in B4_OF else "sums" if name == "rank_order_sum" else "launches"
+            entry["launches_distributed_per_rank"] = [d[table].get(name, 0) for d in dist_ranks]
+            entry["launches_nccl_world_1"] = nccl_one.get(table, {}).get(name)
     # the streamed paths of phase 16: their launches join each kernel's
     st_launches = streamed_launches(streaming)
     for entry in kernels:
@@ -6458,7 +7033,7 @@ def main() -> int:
         sw, dr, rs = tuning["sweep"], tuning["driver"], tuning["resume"]
         log("tuning: lane sweeps " + ", ".join(
             f"K={K} {sw[K]['wall_s']:.3f} s against {sw[K]['sequential_s']:.3f} s sequential" for K in SWEEP_LANES)
-            + f"; cli.train sequential BAYESIAN (4 trials) {dr['sequential']['wall_s']:.2f} s, RANDOM --trial-lanes 4 "
+            + f"; cli.train sequential BAYESIAN (2 trials) {dr['sequential']['wall_s']:.2f} s, RANDOM --trial-lanes 4 "
               f"(8 trials) {dr['lanes']['wall_s']:.2f} s ({dr['lanes']['batches']} batches, "
               f"{dr['lanes']['batch_seconds']:.3f} s); killed and resumed {rs['killed_s']:.2f} + {rs['wall_s']:.2f} s "
               f"on {smi}")
@@ -6488,6 +7063,14 @@ def main() -> int:
             f"{(c.get('packed') or {}).get('streamed_s', float('nan')):.3f} s; two-sweep fit depth 1 "
             f"{d.get('depth1_s', float('nan')):.3f} s, depth 2 {d.get('depth2_s', float('nan')):.3f} s; streamed "
             f"launches {st_launches} on {smi}")
+    if dist:
+        a, dr, sc = dist["train"], dist["drill"], dist["score"]
+        log(f"distributed: two gloo ranks sharing the card, cli.train {a['wall_s']:.2f} s (validation AUC "
+            f"{a['auc']:.6f}); the kill-a-worker drill detected in {dr.get('detect_s', float('nan')):.2f} s, resumed "
+            f"in {dr.get('resume_s', float('nan')):.2f} s with {dr.get('differing_bits')} differing bits; "
+            f"cli.score --distributed {sc['wall_s']:.2f} s ({sc['bitwise_rows']} of {sc['rows']} rows bitwise); "
+            f"one NCCL rank {dist['nccl']['wall_s']:.2f} s with {dist['nccl']['differing_bits']} differing bits "
+            f"on {smi}")
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))
     ok = not phases.failed

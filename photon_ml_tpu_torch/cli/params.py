@@ -3,9 +3,9 @@
 The JAX package's ``cli/params.py`` on the port (reference: photon-client
 io/scopt/**, the scopt parsers with their comma/pipe grammar for nested
 configs, e.g. ``--coordinate name=global,shard=...,optimizer=LBFGS,
-reg.weights=0.1|1|10``). A device mesh (``parse_mesh_shape``) and the
-multi-process row split (``plan_host_row_split``) are ROADMAP A10: they
-raise for anything but one process on one device.
+reg.weights=0.1|1|10``). ``parse_mesh_shape`` gives a mesh's axes (the
+planner takes a data axis of the process count, one card a process) and
+``plan_host_row_split`` each process's row range of the input.
 """
 
 from __future__ import annotations
@@ -211,11 +211,18 @@ def build_shard_configs(args) -> Dict[str, FeatureShardConfig]:
 
 
 def parse_mesh_shape(spec: Optional[str]):
-    """``data=4,model=2`` -> a device mesh: ''/None is no mesh (one
-    device); any mesh is ROADMAP A10."""
+    """``data=4,model=2`` -> the mesh's axes ``{"data": 4, "model": 2}``;
+    ''/None is no mesh (one device a process). The port runs one card a
+    process, so the planner takes a data axis of the process count and
+    refuses a model axis (ROADMAP A10)."""
     if not spec:
         return None
-    raise PlanError(f"a device mesh (--mesh-shape {spec}) is not ported yet (ROADMAP A10)")
+    kv = parse_kv(spec)
+    n_data = int(kv.pop("data", 1))
+    n_model = int(kv.pop("model", 1))
+    if kv:
+        raise ValueError(f"unknown mesh keys: {sorted(kv)}")
+    return {"data": n_data, "model": n_model}
 
 
 def parse_pipeline_depth(value) -> int:
@@ -227,8 +234,15 @@ def parse_pipeline_depth(value) -> int:
 
 
 def plan_host_row_split(input_paths):
-    """Multi-process input planning: (None, None) for one process; the row
-    split across processes is ROADMAP A10."""
+    """Multi-process input planning shared by ``cli.train`` and ``cli.score``:
+    the rows of every part file counted once (block headers only) and the
+    global row space split evenly across the processes. Returns
+    ``(row_range, part_counts)``, or ``(None, None)`` for one process."""
     if world_size() <= 1:
         return None, None
-    raise PlanError("the multi-process row split is not ported yet (ROADMAP A10)")
+    from ..io.avro import count_avro_rows, list_avro_parts
+    from ..parallel import multihost
+
+    paths = [input_paths] if isinstance(input_paths, str) else input_paths
+    part_counts = {part: count_avro_rows(part) for p in paths for part in list_avro_parts(p)}
+    return multihost.host_row_range(sum(part_counts.values())), part_counts

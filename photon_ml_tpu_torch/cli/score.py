@@ -1,14 +1,22 @@
 """GAME scoring driver.
 
-The JAX package's ``cli/score.py`` on the port, single-process. Reference:
+The JAX package's ``cli/score.py`` on the port. Reference:
 photon-client .../cli/game/scoring/GameScoringDriver.scala:25-284 (§3.2):
 read data -> load GAME model -> score through the ``ScoreEngine`` (the same
 assembly as ``GameTransformer.transform``, so the scores are equal bit for
 bit) -> optional evaluation -> write ScoringResultAvro records.
 
 The model loads onto ``--device`` (the card by default; ``--device cpu``
-runs the plain versions) in ``--dtype``. ``--distributed`` (one row range
-per process) is ROADMAP A10.
+runs the plain versions) in ``--dtype``.
+
+``--distributed coordinator=HOST:PORT,process=I,n=P`` (or ``auto``): every
+process reads and scores its own row range through the ``ScoreEngine``
+(``--feature-index-dir`` required) and writes its own part file
+(``scores-part-<i>.avro``); the ``(score, label, weight, id tags)`` columns
+are gathered and evaluated alike on every process, and the coordinator
+writes ``evaluation.json``. Scoring is embarrassingly parallel: the one
+exchange is that gather, and the group is gloo or NCCL as in
+``cli.train``.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ import os
 import sys
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -29,9 +38,15 @@ from ..io.data import read_avro_dataset
 from ..io.index_map import load_partitioned
 from ..io.model_io import load_game_model
 from ..io.schemas import SCORING_RESULT_AVRO
-from ..plan import PlanError
+from ..parallel import multihost
 from ..utils.logging import setup_logging
-from .params import add_common_io_args, build_shard_configs, parse_input_columns, resolve_input_paths
+from .params import (
+    add_common_io_args,
+    build_shard_configs,
+    parse_input_columns,
+    plan_host_row_split,
+    resolve_input_paths,
+)
 
 logger = logging.getLogger("photon_ml_tpu_torch")
 
@@ -46,7 +61,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--task", default=None, help="override model task type")
     p.add_argument("--evaluators", default="")
     p.add_argument("--model-id", default="", help="modelId stamped on score records")
-    p.add_argument("--distributed", default=None, help="ROADMAP A10")
+    p.add_argument("--distributed", default=None,
+                   help="several processes: 'coordinator=HOST:PORT,process=I,n=P' (or 'auto'); each process "
+                        "scores its own row range and writes its own part file; the metrics are computed over "
+                        "every process's rows")
     p.add_argument("--log-file", default=None)
     p.add_argument("--log-level", default="INFO")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu (the kernels' plain versions)")
@@ -55,22 +73,42 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def run(argv: Optional[List[str]] = None):
-    """Score; returns (scores float64[n], EvaluationResults or None)."""
+    """Score; returns (scores float64[n] of this process's rows,
+    EvaluationResults over every process's rows, or None)."""
     args = build_parser().parse_args(argv)
     setup_logging(args.log_level, args.log_file)
-    if args.distributed is not None:
-        raise PlanError("--distributed is not ported yet (ROADMAP A10)")
     device = resolve_device(args.device)
+    if not args.distributed:
+        return _score(args, device)
+    multihost.initialize_from_spec(args.distributed, device=device)
+    try:
+        return _score(args, device)
+    finally:
+        multihost.shutdown()
+
+
+def _score(args, device):
     dtype = DTYPES[args.dtype]
+    multiprocess = multihost.process_count() > 1
 
     shards = build_shard_configs(args)
     id_tags = [t for t in args.id_tags.split(",") if t]
     index_maps = None
     if args.feature_index_dir:
         index_maps = {s: load_partitioned(args.feature_index_dir, s) for s in shards}
+    if multiprocess and index_maps is None:
+        raise SystemExit(
+            "multi-process scoring requires --feature-index-dir (index maps built per process would disagree "
+            "across processes)"
+        )
+    input_paths = resolve_input_paths(args)
+    row_range, part_counts = plan_host_row_split(input_paths)
+    if row_range is not None:
+        logger.info("process %d scores rows [%d, %d)", multihost.process_index(), row_range[0], row_range[1])
     raw, index_maps = read_avro_dataset(
-        resolve_input_paths(args), shards, index_maps=index_maps, id_tag_columns=id_tags,
+        input_paths, shards, index_maps=index_maps, id_tag_columns=id_tags,
         response_column=args.response_column, columns=parse_input_columns(args),
+        row_range=row_range, part_counts=part_counts,
     )
     model = load_game_model(args.model_input_dir, index_maps, task=args.task, device=device, dtype=dtype)
     # random-effect types must be available as id tags
@@ -84,8 +122,22 @@ def run(argv: Optional[List[str]] = None):
 
     evaluators = [e for e in args.evaluators.split(",") if e]
     scores, evaluation = GameTransformer(model=model, dtype=dtype, device=device).transform(
-        raw, evaluator_specs=evaluators
+        raw, evaluator_specs=[] if multiprocess else evaluators
     )
+    if multiprocess and evaluators:
+        # the global metrics need every process's (score, label, weight,
+        # tags): the scored columns are gathered (bytes a row, not
+        # features) and evaluated alike on every process
+        from ..evaluation.suite import build_suite
+
+        parts = multihost.allgather_object((scores, raw.labels, raw.weights, dict(raw.id_tags)))
+        suite = build_suite(
+            evaluators,
+            np.concatenate([p[1] for p in parts]),
+            np.concatenate([p[2] for p in parts]),
+            id_tags={t: np.concatenate([p[3][t] for p in parts]) for t in raw.id_tags},
+        )
+        evaluation = suite.evaluate(np.concatenate([p[0] for p in parts]))
 
     os.makedirs(args.output_dir, exist_ok=True)
 
@@ -100,8 +152,9 @@ def run(argv: Optional[List[str]] = None):
                 "metadataMap": None,
             }
 
-    write_avro_file(os.path.join(args.output_dir, "scores.avro"), SCORING_RESULT_AVRO, records())
-    if evaluation is not None:
+    part_name = f"scores-part-{multihost.process_index():04d}.avro" if multiprocess else "scores.avro"
+    write_avro_file(os.path.join(args.output_dir, part_name), SCORING_RESULT_AVRO, records())
+    if evaluation is not None and multihost.is_coordinator():
         with open(os.path.join(args.output_dir, "evaluation.json"), "w") as f:
             json.dump(evaluation.metrics, f, indent=2, default=float)
         logger.info("evaluation: %s", evaluation.metrics)

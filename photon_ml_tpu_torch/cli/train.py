@@ -1,10 +1,10 @@
 """GAME training driver.
 
-The JAX package's ``cli/train.py`` on the port, its single-process path.
-Reference: photon-client .../cli/game/training/GameTrainingDriver.scala:
-54-854 (§3.1 call stack): read+index data -> validate -> normalization ->
-expand optimization configs -> GameEstimator.fit -> model selection (output
-mode ALL/BEST) -> save models in Photon ML's layout.
+The JAX package's ``cli/train.py`` on the port. Reference: photon-client
+.../cli/game/training/GameTrainingDriver.scala:54-854 (§3.1 call stack):
+read+index data -> validate -> normalization -> expand optimization
+configs -> GameEstimator.fit -> model selection (output mode ALL/BEST) ->
+save models in Photon ML's layout.
 
 Usage:
   python -m photon_ml_tpu_torch.cli.train \\
@@ -68,9 +68,29 @@ slices, the random effect's entity slices, through the card), and
 sweep (``game/pipeline.py``); the report's streaming block reads their
 ``photon_stream_*`` series.
 
-These flags parse and raise, naming their ROADMAP item:
-``--mesh-shape``, ``--distributed``, ``--collective-timeout`` and
-``--heartbeat-*`` (A10).
+Several processes: ``--distributed coordinator=HOST:PORT,process=I,n=P``
+(or ``auto`` under torchrun) joins P processes, one card each (the backend
+follows from the devices: NCCL where every rank on the host has a card of
+its own, gloo where ranks share one or run on the CPU; run_summary.json
+records which ran). Each process reads its own row range of the input
+(``--feature-index-dir`` is required, so that every process indexes
+alike), pads it to the common share, and builds its shard of the fixed
+effect and its entity range of the random effect (the cross-process build,
+``game/data_mp.py``); every sweep's B1-B3 sums are joined by B4, so every
+process holds the same models. The validation data is read whole on every
+process. Only process 0 writes outputs, summaries and checkpoint state;
+resume state and checkpointed models load on process 0 and are broadcast,
+so no shared file system is needed (a boundary checkpoint is the two-phase
+save of ``robust/checkpoint.py``). ``--mesh-shape data=P`` names the same
+topology; a model axis is ROADMAP A10. Liveness (``robust/distributed.py``):
+``--collective-timeout`` bounds every barrier (the sweep boundaries and
+the object collectives' entries; 0 disarms), ``--heartbeat-interval`` and
+``--heartbeat-timeout`` run the heartbeat plane under
+``<checkpoint-dir|metrics-out>/heartbeats``; a dead peer ends the run with
+a typed ``DistributedTimeoutError`` or ``PeerLostError``, a ``peer_lost``
+flight-recorder dump and a non-zero exit. Process i > 0 streams its
+telemetry to ``metrics.p<i>.jsonl`` / ``.prom`` and ``flight.p<i>/`` beside
+the coordinator's (``cli.fleetz`` merges them).
 """
 
 from __future__ import annotations
@@ -95,8 +115,11 @@ from ..estimators.game_estimator import GameEstimator, GameResult, GameTransform
 from ..io.data import read_avro_dataset, read_avro_dataset_chunked, resolve_ingest_workers
 from ..io.model_io import load_game_model, save_game_model
 from ..ops.normalization import build_normalization
+from ..parallel import multihost
 from ..plan import PlanError, plan_fingerprint
 from ..robust import CheckpointManager, atomic_write, atomic_write_json, faults
+from ..robust import distributed as robust_dist
+from ..robust.checkpoint import to_device
 from ..tuning.rescaling import HyperparameterConfig, ParamRange
 from ..tuning.tuner import get_tuner
 from ..utils.futures import WorkerPool
@@ -107,7 +130,9 @@ from .params import (
     build_shard_configs,
     parse_coordinate,
     parse_input_columns,
+    parse_mesh_shape,
     parse_pipeline_depth,
+    plan_host_row_split,
     resolve_input_paths,
 )
 
@@ -175,7 +200,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="JSON prior observations ({'records': [...]}) that shrink the search range "
                         "around the GP-predicted best prior candidate")
     p.add_argument("--hyper-parameter-shrink-radius", type=float, default=0.25)
-    p.add_argument("--mesh-shape", default="", help="ROADMAP A10")
+    p.add_argument("--mesh-shape", default="",
+                   help="data=P: the P processes of --distributed, one card each (a model axis is ROADMAP A10)")
     p.add_argument("--checkpoint-dir", default=None,
                    help="save the model after every coordinate-descent sweep (and each finished grid "
                         "config); rerunning the same command resumes from the last completed unit")
@@ -186,10 +212,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="resume from the newest VALID boundary checkpoint under "
                         "<checkpoint-dir>/cd-boundaries, bit-identical to the uninterrupted run")
-    p.add_argument("--distributed", default=None, help="ROADMAP A10")
-    p.add_argument("--collective-timeout", type=float, default=None, help="ROADMAP A10")
-    p.add_argument("--heartbeat-interval", type=float, default=None, help="ROADMAP A10")
-    p.add_argument("--heartbeat-timeout", type=float, default=None, help="ROADMAP A10")
+    p.add_argument("--distributed", default=None,
+                   help="several processes: 'coordinator=HOST:PORT,process=I,n=P' (or 'auto' for torchrun's "
+                        "environment); each process reads its own row range and only process 0 writes outputs")
+    p.add_argument("--collective-timeout", type=float, default=60.0,
+                   help="several processes: budget in seconds for the guarded collectives and the per-sweep "
+                        "liveness barrier; a dead peer raises a typed DistributedTimeoutError within it (and a "
+                        "peer_lost flight-recorder dump) instead of hanging. 0 disables")
+    p.add_argument("--heartbeat-interval", type=float, default=1.0,
+                   help="several processes: seconds between the liveness records each process writes under "
+                        "<checkpoint-dir|metrics-out>/heartbeats (the photon_dist_heartbeat_age_seconds{process=} "
+                        "gauge; they name the stale peer in a timeout). 0 disables the heartbeat plane")
+    p.add_argument("--heartbeat-timeout", type=float, default=10.0,
+                   help="several processes: a peer whose newest heartbeat is older than this many seconds is "
+                        "reported as presumed lost")
     p.add_argument("--log-file", default=None)
     p.add_argument("--log-level", default="INFO")
     p.add_argument("--metrics-out", default=None,
@@ -210,20 +246,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args) -> None:
-    """The flags that parse but whose paths are not ported: one PlanError
-    naming the ROADMAP item."""
-    refusals = [
-        (bool(args.mesh_shape), "--mesh-shape", "A10"),
-        (args.distributed is not None, "--distributed", "A10"),
-        (args.collective_timeout is not None, "--collective-timeout", "A10"),
-        (args.heartbeat_interval is not None or args.heartbeat_timeout is not None, "--heartbeat-*", "A10"),
-    ]
-    for refused, what, item in refusals:
-        if refused:
-            raise PlanError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 def run(argv: Optional[List[str]] = None) -> Dict:
     args = build_parser().parse_args(argv)
     setup_logging(args.log_level, args.log_file)
@@ -231,11 +253,37 @@ def run(argv: Optional[List[str]] = None) -> Dict:
         # dry run: resolve and print the execution plan from the flags
         # alone; no data read, no device touched
         return _explain_plan(args)
-    _refuse_unported(args)
     # PHOTON_FAULTS / PHOTON_FAULTS_SEED; an absent variable clears any
     # injector a previous in-process run installed
     faults.install_from_env()
     device = resolve_device(args.device)
+    group = None
+    if args.distributed:
+        # the rank binds its card before the group forms; a rank whose
+        # card is missing raised in resolve_device above
+        group = multihost.initialize_from_spec(args.distributed, device=device)
+        logger.info("distributed: process %d/%d over %s on %s", group.rank, group.world_size, group.backend,
+                    group.device)
+        # span and JSONL lane identity, so that merged telemetry stays
+        # attributable
+        obs.set_process_index(group.rank)
+    try:
+        return _run_group(args, device, group)
+    except robust_dist.DistributedError:
+        # a dead peer: tearing the group down would wait on it
+        group = None
+        raise
+    finally:
+        if group is not None:
+            multihost.shutdown()
+
+
+def _run_group(args, device, group) -> Dict:
+    """The run once this process has joined its group (or runs alone)."""
+    coordinator = multihost.is_coordinator()
+    # every process streams its own telemetry, so that cli.fleetz can merge
+    # the fleet's view; the coordinator keeps the bare file names
+    suffix = "" if coordinator else f".p{multihost.process_index()}"
 
     t_run0 = time.perf_counter()
     run_t = None
@@ -255,25 +303,38 @@ def run(argv: Optional[List[str]] = None) -> Dict:
         if args.metrics_out:
             os.makedirs(args.metrics_out, exist_ok=True)
             # anomaly postmortems (solver divergence, coordinate rejection,
-            # crash): the last window of spans and metrics, one dump an
-            # incident
-            flight = obs.FlightRecorder(os.path.join(args.metrics_out, "flight"), run=run_t)
+            # crash, a lost peer): the last window of spans and metrics, one
+            # dump an incident
+            flight = obs.FlightRecorder(os.path.join(args.metrics_out, f"flight{suffix}"), run=run_t)
             sinks += [
-                obs.JsonlSink(os.path.join(args.metrics_out, "metrics.jsonl")),
-                obs.PrometheusSink(os.path.join(args.metrics_out, "metrics.prom")),
+                obs.JsonlSink(os.path.join(args.metrics_out, f"metrics{suffix}.jsonl")),
+                obs.PrometheusSink(os.path.join(args.metrics_out, f"metrics{suffix}.prom")),
                 flight,
             ]
-        if args.trace_out:
+        if args.trace_out and coordinator:
             os.makedirs(os.path.dirname(os.path.abspath(args.trace_out)), exist_ok=True)
             recorder = obs.TimelineRecorder()
             sinks.append(recorder)
         for sink in sinks:
             run_t.register_listener(sink)
         prev_run = obs.set_current_run(run_t)
-        if args.status_port is not None:
+        if group is not None:
+            run_t.distributed = {"backend": group.backend, "world_size": group.world_size}
+        if args.status_port is not None and coordinator:
             status_server = obs.IntrospectionServer(run_t, port=args.status_port)
             logger.info("introspection endpoints -> http://127.0.0.1:%d/{metrics,healthz,statusz}",
                         status_server.port)
+    # the liveness plane (robust.distributed): heartbeat records in a shared
+    # directory and a process-wide collective budget, so that a dead peer is
+    # a bounded-time typed failure instead of a hang
+    hb_writer = None
+    if group is not None and group.world_size > 1:
+        hb_root = args.checkpoint_dir or args.metrics_out
+        hb_dir = os.path.join(hb_root, "heartbeats") if hb_root else None
+        if hb_dir and args.heartbeat_interval > 0:
+            hb_writer = robust_dist.HeartbeatWriter(hb_dir, group.rank, interval_s=args.heartbeat_interval).start()
+        robust_dist.configure_collectives(args.collective_timeout, run_dir=hb_dir,
+                                          stale_after_s=args.heartbeat_timeout)
     try:
         summary = _run_training(args, device, run_t, sinks, t_run0, recorder)
     except BaseException as exc:
@@ -281,11 +342,14 @@ def run(argv: Optional[List[str]] = None) -> Dict:
         # dumps its postmortem and leaves run_summary.json, marked
         # "aborted", with the timeline of the spans that closed before it
         if flight is not None:
+            # a collective timeout or a stale peer is this process's view of
+            # a PEER's death: its own trigger kind
+            kind = "peer_lost" if isinstance(exc, robust_dist.DistributedError) else "crash"
             try:
-                flight.trigger("crash", detail=f"{type(exc).__name__}: {exc}")
+                flight.trigger(kind, detail=f"{type(exc).__name__}: {exc}")
             except Exception:
                 obs.swallowed_error("cli.flightrec_crash_dump")
-        if run_t is not None:
+        if run_t is not None and coordinator:
             try:
                 _write_run_summary(args, run_t, recorder, t_run0, aborted=True)
             except Exception:
@@ -293,13 +357,16 @@ def run(argv: Optional[List[str]] = None) -> Dict:
                 logger.exception("could not flush partial run summary")
         raise
     finally:
+        if hb_writer is not None:
+            hb_writer.stop()
+        robust_dist.clear_collectives()
         if status_server is not None:
             status_server.stop()
         if run_t is not None:
             # the final flush: the last metrics.jsonl line and metrics.prom
             run_t.close()
             obs.set_current_run(prev_run)
-    if args.report_out:
+    if args.report_out and coordinator:
         _emit_report(args)
     return summary
 
@@ -311,8 +378,10 @@ def _explain_plan(args) -> Dict:
     from ..plan import resolve as resolve_plan
 
     try:
-        _refuse_unported(args)
         coords = [parse_coordinate(s) for s in (args.coordinate or [DEFAULT_COORDINATE])]
+        n_processes = 1
+        if args.distributed and args.distributed != "auto":
+            n_processes = multihost.parse_spec(args.distributed)["n"]
         if args.incremental_training:
             for cc in coords:
                 cc.regularize_by_prior = True
@@ -328,6 +397,7 @@ def _explain_plan(args) -> Dict:
         plan = resolve_plan(
             coords, trial_lanes=args.trial_lanes, normalization=args.normalization, dims=dims,
             partial_retrain_locked=_locked(args), pipeline_depth=args.pipeline_depth,
+            mesh=parse_mesh_shape(args.mesh_shape), n_processes=n_processes, distributed=bool(args.distributed),
         )
     except PlanError as e:
         print(f"plan refused: {e}", file=sys.stderr)
@@ -386,16 +456,43 @@ def _run_training(args, device, run_t, sinks, t_run0, recorder) -> Dict:
 
         index_maps = {s: load_partitioned(args.feature_index_dir, s) for s in shards}
 
-    # pooled ingest: parts decode concurrently on the shared pool, and the
-    # SAME pool later runs the background validation decode
-    n_ingest_workers = resolve_ingest_workers(args.ingest_workers)
-    ingest_pool = WorkerPool(n_ingest_workers, name="photon-ingest")
+    n_proc = multihost.process_count()
+    row_range = equal_share = part_counts = None
+    if n_proc > 1:
+        if index_maps is None:
+            raise SystemExit(
+                "multi-process training requires --feature-index-dir (index maps built per process would "
+                "disagree across processes)"
+            )
+        row_range, part_counts = plan_host_row_split(input_paths)
+        total_rows = sum(part_counts.values())
+        # every process pads its range to one share, so that the padded
+        # global row space is the processes' shares in process order
+        equal_share = multihost.equal_host_share(total_rows)
+        logger.info("process %d reads rows [%d, %d) of %d (padded to %d)", multihost.process_index(),
+                    row_range[0], row_range[1], total_rows, equal_share)
+    ingest_pool = None
+    if n_proc == 1:
+        # pooled ingest: parts decode concurrently on the shared pool, and
+        # the SAME pool later runs the background validation decode
+        n_ingest_workers = resolve_ingest_workers(args.ingest_workers)
+        ingest_pool = WorkerPool(n_ingest_workers, name="photon-ingest")
     try:
-        raw, index_maps = read_avro_dataset_chunked(
-            input_paths, shards, index_maps=index_maps, id_tag_columns=id_tags,
-            response_column=args.response_column, columns=input_columns,
-            workers=n_ingest_workers, pool=ingest_pool,
-        )
+        if ingest_pool is not None:
+            raw, index_maps = read_avro_dataset_chunked(
+                input_paths, shards, index_maps=index_maps, id_tag_columns=id_tags,
+                response_column=args.response_column, columns=input_columns,
+                workers=n_ingest_workers, pool=ingest_pool,
+            )
+        else:
+            # several processes: this process's row range, read on the main
+            # thread (the collectives' order must not depend on a pool)
+            raw, index_maps = read_avro_dataset(
+                input_paths, shards, index_maps=index_maps, id_tag_columns=id_tags,
+                response_column=args.response_column, columns=input_columns,
+                row_range=row_range, part_counts=part_counts,
+            )
+            raw.global_row_start = row_range[0]
         if args.validate_data != "disabled":
             from ..io import validators
 
@@ -405,6 +502,10 @@ def _run_training(args, device, run_t, sinks, t_run0, recorder) -> Dict:
                 "quarantine": validators.VALIDATE_QUARANTINE,
             }[args.validate_data]
             validators.validate_dataset(raw, args.task, mode, rng_seed=args.seed)
+        if equal_share is not None:
+            # after validation: pad rows are zero-weight rows that would
+            # dilute a sample and trip nothing
+            raw = raw.pad_rows(equal_share)
         logger.info("training rows: %d; shard dims: %s", raw.n_rows, raw.shard_dims)
 
         validation = None
@@ -416,23 +517,30 @@ def _run_training(args, device, run_t, sinks, t_run0, recorder) -> Dict:
                 )
                 return v
 
-            # decoded on the ingest pool while the training datasets build
-            validation = ingest_pool.submit(_read_validation)
+            if ingest_pool is not None:
+                # decoded on the ingest pool while the training datasets build
+                validation = ingest_pool.submit(_read_validation)
+            else:
+                # several processes: whole on every process, on the main thread
+                validation = _read_validation()
     finally:
-        # stop accepting work; the queued validation decode still drains
-        ingest_pool.close()
+        if ingest_pool is not None:
+            # stop accepting work; the queued validation decode still drains
+            ingest_pool.close()
     stage_done("read")
 
     # normalization from feature statistics (GameTrainingDriver:555-571)
     normalize_fixed_effects(args.normalization, coords, raw, index_maps, dtype, device)
     if args.compute_feature_stats:
-        os.makedirs(args.output_dir, exist_ok=True)
         for shard in shards:
-            save_feature_statistics(
-                os.path.join(args.output_dir, f"feature-stats-{shard}.avro"),
-                compute_feature_statistics(raw, shard),
-                index_maps[shard],
-            )
+            # a collective over several processes: every process computes,
+            # the coordinator writes
+            stats = compute_feature_statistics(raw, shard)
+            if multihost.is_coordinator():
+                os.makedirs(args.output_dir, exist_ok=True)
+                save_feature_statistics(
+                    os.path.join(args.output_dir, f"feature-stats-{shard}.avro"), stats, index_maps[shard],
+                )
     stage_done("statistics")
 
     initial_model = None
@@ -470,6 +578,7 @@ def _run_training(args, device, run_t, sinks, t_run0, recorder) -> Dict:
         divergence_guard=not args.no_divergence_guard,
         rejection_tolerance=args.coordinate_rejection_tolerance,
         partial_retrain_locked=_locked(args),
+        mesh=parse_mesh_shape(args.mesh_shape),
         pipeline_depth=args.pipeline_depth,
         device=device,
     )
@@ -478,7 +587,7 @@ def _run_training(args, device, run_t, sinks, t_run0, recorder) -> Dict:
 
         # the lane refusals before any dataset build or grid training; the
         # lane path checks again in fit_lanes
-        check_lane_composition(estimator, args.trial_lanes)
+        check_lane_composition(estimator, args.trial_lanes, distributed=bool(args.distributed))
     for sink in sinks:
         # estimator lifecycle events land in the same JSONL stream
         estimator.register_listener(sink)
@@ -501,11 +610,14 @@ def _run_training(args, device, run_t, sinks, t_run0, recorder) -> Dict:
     resume_snap = None
     ckpt_topology = None
     if args.checkpoint_every or args.resume:
+        # the topology both sides of a checkpoint speak: global_rows is the
+        # PADDED total (one share a process), so the number itself says
+        # whether the processes' shard boundaries agree across counts
         ckpt_topology = {
-            "n_processes": 1,
-            "mesh_axes": None,
+            "n_processes": n_proc,
+            "mesh_axes": estimator.execution_plan.mesh_axes,
             "plan_fingerprint": plan_fingerprint(estimator.execution_plan),
-            "global_rows": int(raw.n_rows),
+            "global_rows": int(raw.n_rows) * n_proc,
         }
     if args.checkpoint_every:
         if not args.checkpoint_dir:
@@ -514,7 +626,9 @@ def _run_training(args, device, run_t, sinks, t_run0, recorder) -> Dict:
             os.path.join(args.checkpoint_dir, "cd-boundaries"),
             keep_last=args.checkpoint_keep,
             every=args.checkpoint_every,
-            topology={"mesh_axes": None, "plan_fingerprint": ckpt_topology["plan_fingerprint"]},
+            process=multihost.process_index(),
+            n_processes=n_proc,
+            topology={"mesh_axes": ckpt_topology["mesh_axes"], "plan_fingerprint": ckpt_topology["plan_fingerprint"]},
         )
     if args.resume:
         if not args.checkpoint_dir:
@@ -522,11 +636,16 @@ def _run_training(args, device, run_t, sinks, t_run0, recorder) -> Dict:
         mgr = cd_manager or CheckpointManager(
             os.path.join(args.checkpoint_dir, "cd-boundaries"), keep_last=args.checkpoint_keep,
         )
-        resume_snap = mgr.latest_valid(
-            expect_coordinate_order=[cc.name for cc in coords],
-            expect_topology=ckpt_topology,
-            device=device,
-        )
+        # boundary checkpoints are the coordinator's: it reads, and the
+        # snapshot is broadcast, so no shared file system is needed
+        if multihost.is_coordinator():
+            resume_snap = mgr.latest_valid(
+                expect_coordinate_order=[cc.name for cc in coords],
+                expect_topology=ckpt_topology,
+                device="cpu" if n_proc > 1 else device,
+            )
+        if n_proc > 1:
+            resume_snap = to_device(multihost.broadcast_object(resume_snap), device)
         if resume_snap is None:
             logger.info("--resume: no valid boundary checkpoint; starting fresh")
 
@@ -570,6 +689,11 @@ def _run_training(args, device, run_t, sinks, t_run0, recorder) -> Dict:
             "metrics": None if best.evaluation is None else best.evaluation.metrics,
         },
     }
+    if not multihost.is_coordinator():
+        # only process 0 writes outputs (the reference's driver-to-HDFS
+        # role); run_summary.json is one document a run
+        summary["stage_seconds"] = stage_seconds
+        return summary
     os.makedirs(args.output_dir, exist_ok=True)
     to_save = all_results if args.output_mode == OUTPUT_MODE_ALL else [best]
     for i, r in enumerate(to_save):
@@ -606,6 +730,10 @@ def _write_run_summary(args, run_t, recorder, t_run0, summary=None, aborted=Fals
     plan = getattr(run_t, "execution_plan", None)
     if plan is not None:
         doc["plan"] = plan
+    # a run of several processes: the backend that joined them
+    distributed = getattr(run_t, "distributed", None)
+    if distributed is not None:
+        doc["distributed"] = distributed
     if summary is not None:
         doc["best"] = summary["best"]
         doc["stage_seconds"] = summary["stage_seconds"]
@@ -802,9 +930,10 @@ def _run_tuning(args, estimator, raw, validation, coords, prior_results, ckpt=No
         for r in list(prior_results or []) + results
         if r.evaluation is not None
     ]
-    os.makedirs(args.output_dir, exist_ok=True)
-    with atomic_write(os.path.join(args.output_dir, "hyperparameter-prior.json"), "w") as f:
-        f.write(prior_to_json(names, priors))
+    if multihost.is_coordinator():
+        os.makedirs(args.output_dir, exist_ok=True)
+        with atomic_write(os.path.join(args.output_dir, "hyperparameter-prior.json"), "w") as f:
+            f.write(prior_to_json(names, priors))
     return results
 
 
@@ -893,6 +1022,15 @@ class _Checkpoint:
         if os.path.exists(state_path):
             with open(state_path) as f:
                 state = json.load(f)
+        if multihost.process_count() > 1:
+            # the coordinator's state is authoritative (it is the only
+            # writer): every process runs the coordinator's, so the
+            # collective schedules stay aligned without a shared file system
+            views = multihost.allgather_object(json.dumps(state, sort_keys=True))
+            if len(set(views)) != 1:
+                logger.warning("checkpoint states differ across processes (no shared file system); adopting "
+                               "the coordinator's state")
+            state = json.loads(views[0])
         if state is None:
             state = {
                 "version": 2,
@@ -927,19 +1065,31 @@ class _Checkpoint:
         return cls(args, coords, index_maps, state, state_path, device, dtype)
 
     def _write(self):
-        atomic_write_json(self.state_path, self.state)
+        if multihost.is_coordinator():
+            atomic_write_json(self.state_path, self.state)
 
     def _load_model(self, model_dir):
+        if multihost.process_count() > 1:
+            # the model files exist where the coordinator wrote them: it
+            # loads, and one broadcast carries the model to the others
+            model = None
+            if multihost.is_coordinator():
+                model = load_game_model(
+                    os.path.join(self.dir, model_dir), self.index_maps, task=self.args.task, device="cpu",
+                    dtype=self.dtype,
+                )
+            return to_device(multihost.broadcast_object(model), self.device)
         return load_game_model(
             os.path.join(self.dir, model_dir), self.index_maps, task=self.args.task,
             device=self.device, dtype=self.dtype,
         )
 
     def _save_model(self, model_dir, game_model, reg_weights):
-        save_game_model(
-            os.path.join(self.dir, model_dir), game_model, self.index_maps,
-            metadata={"regWeights": reg_weights},
-        )
+        if multihost.is_coordinator():
+            save_game_model(
+                os.path.join(self.dir, model_dir), game_model, self.index_maps,
+                metadata={"regWeights": reg_weights},
+            )
 
     def _reconstruct(self, rec):
         ev = None
@@ -980,10 +1130,15 @@ class _Checkpoint:
             snap = None
             if resume_snapshot is not None and int(resume_snapshot.manifest.get("combo_index", -1)) == k:
                 snap = resume_snapshot
-                snap_global = int(snap.manifest.get("sweep_offset", 0)) + int(snap.iteration)
+                # the sweeps the snapshot has completed: a snapshot after a
+                # sweep's last coordinate is as far along as that sweep's
+                # per-sweep record, and it also carries the best-model
+                # ledger, which the per-sweep record does not
+                last = int(snap.coordinate_index) == len(snap.manifest["coordinate_order"]) - 1
+                snap_global = int(snap.manifest.get("sweep_offset", 0)) + int(snap.iteration) + int(last)
                 if snap_global < done:
-                    logger.info("config %d: per-sweep record (sweep %d) is ahead of the boundary snapshot "
-                                "(sweep %d); using the former", k, done, snap_global)
+                    logger.info("config %d: per-sweep record (%d sweeps) is ahead of the boundary snapshot "
+                                "(%d sweeps); using the former", k, done, snap_global)
                     snap = None
             if snap is not None:
                 done = int(snap.manifest.get("sweep_offset", 0))
@@ -1000,7 +1155,7 @@ class _Checkpoint:
                 self.state["current"] = {"index": _k, "completed_sweeps": j, "model_dir": model_dir}
                 self._write()
                 prev_dir = os.path.join(self.dir, f"config-{_k:03d}-sweep-{j - 1:04d}")
-                if os.path.isdir(prev_dir):
+                if multihost.is_coordinator() and os.path.isdir(prev_dir):
                     shutil.rmtree(prev_dir, ignore_errors=True)
 
             boundary = None
@@ -1008,7 +1163,7 @@ class _Checkpoint:
                 n_trials = len(self.state.get("tuning_trials", []))
 
                 def boundary(reg_weights, st, _k=k, _done=done, _n=n_trials):
-                    cd_manager.on_boundary(st, meta={
+                    cd_manager.on_boundary(_local_boundary_state(st), meta={
                         "reg_weights": reg_weights,
                         "combo_index": _k,
                         "sweep_offset": _done,
@@ -1059,7 +1214,7 @@ class _Checkpoint:
         self.state["current"] = None
         self._write()
         last = os.path.join(self.dir, f"config-{k:03d}-sweep-{n_iter:04d}")
-        if os.path.isdir(last):
+        if multihost.is_coordinator() and os.path.isdir(last):
             shutil.rmtree(last, ignore_errors=True)
 
     # -- tuning trials --------------------------------------------------------
@@ -1088,8 +1243,28 @@ class _Checkpoint:
         self._write()
 
 
+def _local_boundary_state(state):
+    """The boundary state a process checkpoints: over several processes
+    its own rows of the summed scores, which every process holds whole
+    over the padded global row space (the two-phase save's shard)."""
+    n = multihost.process_count()
+    if n == 1 or state.summed_scores is None:
+        return state
+    share = state.summed_scores.shape[0] // n
+    lo = multihost.process_index() * share
+    return dataclasses.replace(state, summed_scores=state.summed_scores[lo : lo + share])
+
+
 def main():
-    run(sys.argv[1:])
+    try:
+        run(sys.argv[1:])
+    except robust_dist.DistributedError as e:
+        # a lost peer: the typed error, then a hard exit, since an orderly
+        # interpreter exit would tear down a process group that waits on it
+        logger.exception("distributed run failed: %s", type(e).__name__)
+        print(f"{type(e).__name__}: {e}", file=sys.stderr, flush=True)
+        sys.stdout.flush()
+        os._exit(70)
 
 
 if __name__ == "__main__":

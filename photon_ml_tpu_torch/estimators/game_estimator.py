@@ -27,10 +27,18 @@ A coordinate with ``hbm_budget_mb`` builds streamed when its device bytes
 exceed the budget (``game/fe_streaming.py``, ``game/streaming.py``), and
 ``pipeline_depth`` > 1 pipelines the sweeps (``game/pipeline.py``).
 
-The composition checks are the execution planner's (``plan.resolve``):
-multi-process runs and meshes (the world comes from ``torch.distributed``
-when it is initialised) are ROADMAP A10, streaming and pipelining over them
-included; each raises naming its item.
+The composition checks are the execution planner's (``plan.resolve``; the
+world comes from ``torch.distributed`` when it is initialised).
+
+Across processes (a group joined through ``parallel.multihost.initialize``,
+as ``cli.train --distributed`` does): ``raw`` holds this rank's rows, padded
+to the share every rank holds, and ``prepare_datasets`` builds the fixed
+effect as the rank's dense row shard and the random effect across the ranks
+(``game/data_mp.py``), entity-sharded; every rank then runs the same
+coordinate descent (B1-B3 on its rows, joined by B4) and holds the same
+models. Streaming, pipelining, sparse fixed effects, a model axis and trial
+lanes over processes are refused by the planner (ROADMAP A10; lanes as the
+JAX package refuses them).
 """
 
 from __future__ import annotations
@@ -49,10 +57,12 @@ from ..device import DeviceLike, resolve_device
 from ..evaluation.suite import EvaluationResults, build_suite
 from ..game.coordinate import Coordinate, FixedEffectCoordinate, ModelCoordinate, RandomEffectCoordinate
 from ..game.data import _rows_to_ell, build_fixed_effect_dataset, build_random_effect_dataset
+from ..game.data_mp import build_random_effect_dataset_global
 from ..game.descent import CoordinateDescent, ValidationContext
 from ..game.problem import GLMOptimizationConfig
 from ..io.data import RawDataset
 from ..models.game import GameModel
+from ..parallel import multihost
 from ..ops.normalization import NormalizationContext
 from ..serving.engine import EllRows, ScoreEngine
 from ..utils.events import EventEmitter, OptimizationLogEvent, TrainingFinishEvent, TrainingStartEvent
@@ -166,6 +176,7 @@ class GameEstimator(EventEmitter):
             mesh=mesh,
             n_processes=world_size(),
             pipeline_depth=self.pipeline_depth,
+            distributed=multihost.current_group() is not None,
             partial_retrain_locked=tuple(self.partial_retrain_locked),
         )
 
@@ -175,10 +186,29 @@ class GameEstimator(EventEmitter):
         # re-checked here: the process group can be initialised between
         # construction and the first fit
         execution_plan.check_multiprocess_mesh(world_size(), self.mesh)
+        group = multihost.current_group()
         datasets = {}
         for cc in self.coordinate_configs:
             with timed(f"prepare dataset {cc.name}"):
-                if cc.is_random_effect:
+                if group is not None and cc.is_random_effect:
+                    # entity planning across the ranks and the shuffle of
+                    # every row to its entity's owner
+                    datasets[cc.name] = build_random_effect_dataset_global(
+                        raw,
+                        cc.name,
+                        cc.feature_shard,
+                        cc.random_effect_type,
+                        group,
+                        active_cap=cc.active_cap,
+                        active_lower_bound=cc.active_lower_bound,
+                        dtype=self.dtype,
+                        pad_entities_to_multiple=self.entity_pad_multiple,
+                        features_to_samples_ratio=cc.features_to_samples_ratio,
+                        feature_dtype=cc.feature_dtype,
+                        hbm_budget_bytes=cc.hbm_budget_bytes,
+                        device=self.device,
+                    )
+                elif cc.is_random_effect:
                     datasets[cc.name] = build_random_effect_dataset(
                         raw,
                         cc.name,
@@ -203,6 +233,7 @@ class GameEstimator(EventEmitter):
                         feature_dtype=cc.feature_dtype,
                         hbm_budget_bytes=cc.hbm_budget_bytes,
                         device=self.device,
+                        group=group,
                     )
         return datasets
 

@@ -22,8 +22,10 @@ rank runs the same calls: the fixed effect solves over its row shard with
 every sweep summed across the ranks and returns the same model on every
 rank, its scores gathered into the whole ``[n]``; the random effect solves
 the rank's entity range and gathers every rank's results, so its model is
-whole on every rank and scores as an unsharded one does. Scores, residuals
-and models are the same, bitwise, on every rank.
+whole on every rank and scores as an unsharded one does (a dataset built
+across processes, ``game/data_mp.py``, scores its rank's rows and gathers
+every rank's). Scores, residuals and models are the same, bitwise, on every
+rank.
 
 The fixed effect down-samples its training batch when its config asks
 (``game/sampling.py``: a keep mask drawn on the batch's device from a
@@ -278,7 +280,7 @@ class RandomEffectCoordinate(Coordinate):
 
     @property
     def n_rows(self) -> int:
-        return self.dataset.row_entity.shape[0]
+        return self.dataset.n_rows
 
     @property
     def group(self):
@@ -545,6 +547,15 @@ class RandomEffectCoordinate(Coordinate):
         ds = self.dataset
         if ds.streamed:
             return self._score_streamed(model)
+        scores = self._score_rows(model)
+        if ds.local_rows:
+            # built across processes: every rank's padded rows, in rank order
+            (scores,) = ds.group.gather_rows([scores])
+        return scores
+
+    def _score_rows(self, model: RandomEffectModel) -> Tensor:
+        """Scores of the rows the dataset's scoring arrays hold."""
+        ds = self.dataset
         row_entity = ds.row_entity
         score_dt = torch.promote_types(ds.ell_val.dtype, ds.blocks.labels.dtype)
         ds_ids = list(map(str, ds.entity_ids))

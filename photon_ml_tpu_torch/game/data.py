@@ -22,7 +22,14 @@ A dataset sharded over a data-parallel group (``parallel.mesh``'s
 rank's rows of the fixed effect's batch, or one rank's entity range of the
 random effect's blocks; its entity tables and scoring arrays stay whole.
 ``build_fixed_effect_dataset`` is the JAX package's resident path: the
-shard's batch in any layout of ``RawDataset.to_batch``.
+shard's batch in any layout of ``RawDataset.to_batch``; given a ``group``,
+the rows a process read itself become its dense row shard.
+
+Built across processes (each rank read only its own rows): the fixed
+effect's batch is the rank's padded rows, and ``game/data_mp.py`` builds the
+random effect's blocks for the rank's entity range with its scoring arrays
+over the rank's padded rows (``local_rows``); the padded global row space
+is the ranks' padded shares in rank order.
 
 Streamed (out-of-core) datasets, the JAX package's: given
 ``hbm_budget_bytes`` and a batch whose device estimate exceeds it, the
@@ -32,9 +39,9 @@ of ``game/fe_streaming.py`` copy to the card asynchronously), and the random
 effect keeps its entity blocks in host memory (``game/streaming.py``
 stages entity slices). ``build_fixed_effect_dataset_from_disk`` decodes
 part files straight into preallocated host planes through the pooled
-readers of ``io/data.py``, never materializing a ``RawDataset``. The
-multi-process build (``game/data_mp.py``) and streamed datasets over a
-mesh are ROADMAP A10: their fields and arguments raise when set.
+readers of ``io/data.py``, never materializing a ``RawDataset``. Streamed
+datasets over processes or a mesh are ROADMAP A10: their fields and
+arguments raise when set.
 """
 
 from __future__ import annotations
@@ -52,8 +59,7 @@ from ..ops.features import LabeledBatch
 Tensor = torch.Tensor
 
 _MULTI_TODO = (
-    "multi-process-built and streamed mesh-sharded datasets are not ported yet "
-    "(ROADMAP A10); shard a whole dataset with parallel.mesh instead"
+    "streamed datasets over a mesh or several processes are not ported yet (ROADMAP A10)"
 )
 
 
@@ -251,6 +257,10 @@ class RandomEffectDataset:
     # entity-sharded over a data-parallel group: ``blocks`` hold this rank's
     # contiguous entity range, ``host_proj_cols`` the whole support layout
     group: Optional[object] = None  # parallel.mesh.DataParallelGroup
+    # built across processes (game/data_mp.py): the scoring arrays hold this
+    # rank's padded rows of the padded global row space, and scores gather
+    # every rank's rows in rank order
+    local_rows: bool = False
 
     def __post_init__(self):
         if self.streamed:
@@ -267,10 +277,18 @@ class RandomEffectDataset:
                 "an entity-sharded dataset carries both its group and host_proj_cols "
                 "(parallel.mesh.shard_random_effect_dataset)"
             )
+        if self.local_rows and self.group is None:
+            raise ValueError("a dataset whose scoring arrays hold one rank's rows needs its group")
 
     @property
     def num_entities(self) -> int:
         return len(self.entity_ids)
+
+    @property
+    def n_rows(self) -> int:
+        """Rows of the (padded global) row space the dataset scores."""
+        n = int(self.row_entity.shape[0])
+        return n * self.group.world_size if self.local_rows else n
 
     @property
     def device(self) -> torch.device:
@@ -414,10 +432,18 @@ def build_fixed_effect_dataset(
     feature_dtype=None,
     hbm_budget_bytes: Optional[int] = None,
     device: DeviceLike = None,
+    group=None,
 ) -> FixedEffectDataset:
     """All rows of ``feature_shard`` as one resident batch on ``device`` (the
     card unless asked otherwise), in ``layout`` (``RawDataset.to_batch``:
     auto picks dense up to d = 4,096 and ELL above).
+
+    ``group`` (a ``parallel.mesh.DataParallelGroup``): ``raw`` holds only
+    this rank's rows, padded to the share every rank holds
+    (``RawDataset.pad_rows(equal_host_share(N))``), and the dataset is the
+    rank's dense row shard of the padded global row space
+    (``parallel.mesh.local_batch``); its sweeps sum across the ranks. A
+    sparse layout or a budget over processes is ROADMAP A10.
 
     ``hbm_budget_bytes``: when set and the resident batch's device bytes
     (``fe_streaming.estimate_fe_batch_bytes``) exceed it, the dataset is
@@ -429,6 +455,24 @@ def build_fixed_effect_dataset(
         raise NotImplementedError(_MULTI_TODO)
     dev = resolve_device(device)
     d = raw.shard_dims[feature_shard]
+    if group is not None:
+        from ..parallel.mesh import local_batch
+        from ..plan.planner import A10, not_ported
+
+        if hbm_budget_bytes is not None:
+            raise not_ported(f"coordinate {coordinate_id}: hbm_budget_mb over several processes", A10)
+        eff_layout = ("dense" if d <= 4096 else "ell") if layout == "auto" else layout
+        if eff_layout != "dense":
+            raise not_ported(
+                f"coordinate {coordinate_id}: a sparse fixed effect (d = {d}, layout={layout!r}) over several "
+                "processes", A10,
+            )
+        batch = raw.to_batch(feature_shard, dtype=dtype, layout="dense", feature_dtype=feature_dtype, device=dev)
+        n_global = raw.n_rows * group.world_size
+        return FixedEffectDataset(
+            coordinate_id=coordinate_id, feature_shard=feature_shard, true_dim=d, true_n_rows=n_global,
+            batch=local_batch(batch, n_global, group),
+        )
     if hbm_budget_bytes is not None:
         from .fe_streaming import estimate_fe_batch_bytes
 

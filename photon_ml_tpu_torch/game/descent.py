@@ -30,7 +30,11 @@ boundary ``obs.sample_memory`` records host RSS and, for the cards the
 scores live on, the caching allocator's counters (host-side reads, no
 device fetch) into the ``photon_mem_*`` gauges, with or without a sink.
 The result carries each coordinate's raw ``SolverResult`` and its
-tracker. The distributed sweep barrier is ROADMAP A10.
+tracker. At every sweep boundary every process meets at
+``robust.distributed.sweep_barrier``: with a collective budget armed (a run
+of several processes), a peer that died within the sweep surfaces there as
+a typed timeout and not as a hang in the next sweep's collectives; it is
+also the once-a-sweep ``dist.collective`` fault site.
 
 Sweep pipelining (``pipeline_depth`` > 1, the JAX package's): the sweep
 runs inside ``pipeline.pipelined(depth)``, so streamed coordinates stage
@@ -66,6 +70,7 @@ from ..evaluation.suite import EvaluationResults, EvaluationSuite
 from ..models.game import GameModel
 from ..optimize import SolverResult
 from ..optimize.trackers import build_tracker, record_tracker_metrics
+from ..robust import distributed as robust_dist
 from ..robust import faults
 from ..utils.timed import timed
 from . import pipeline
@@ -399,6 +404,9 @@ class CoordinateDescent:
                 if self.checkpoint_fn is not None:
                     with obs.span("cd.checkpoint", phase="checkpoint"):
                         self.checkpoint_fn(it, dict(models))
+            # the sweep-boundary liveness rendezvous (and the drill's
+            # dist.collective fault site)
+            robust_dist.sweep_barrier(it)
             # memory watermarks at the sweep boundary: the allocator's
             # counters and /proc, read on the host, so that the peaks land
             # in run_summary.json for every run

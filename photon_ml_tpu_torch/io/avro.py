@@ -218,6 +218,103 @@ def _read_datum(r: _Reader, schema: Schema, env: SchemaEnv) -> Any:
     raise ValueError(f"Unsupported Avro type: {t!r}")
 
 
+_UNPACK_FLOAT = struct.Struct("<f").unpack_from
+_UNPACK_DOUBLE = struct.Struct("<d").unpack_from
+
+
+def _decoder(schema: Schema, env: SchemaEnv, r: _Reader, compiled: Optional[dict] = None):
+    """Compile ``schema`` into ``decode()``, which reads one datum at
+    ``r``'s position (what ``_read_datum(r, schema, env)`` returns): the
+    schema is walked once, not once a datum, and ``r``'s buffer may be
+    swapped between calls. A named record refers to its own decoder by a
+    cell, so recursive schemas compile."""
+    compiled = {} if compiled is None else compiled
+    schema = env.resolve(schema)
+    read_long = r.read_long
+    if isinstance(schema, list):
+        branches = [_decoder(s, env, r, compiled) for s in schema]
+        return lambda: branches[read_long()]()
+    t = schema if isinstance(schema, str) else schema["type"]
+    if isinstance(t, (dict, list)):
+        return _decoder(t, env, r, compiled)
+    if t == "union":  # nonstandard {"type": "union", "types": [...]} spelling
+        return _decoder(schema["types"], env, r, compiled)
+    if t == "null":
+        return lambda: None
+    if t == "boolean":
+        return lambda: r.read(1) == b"\x01"
+    if t in ("int", "long"):
+        return read_long
+    if t == "float":
+        def float_():
+            p = r.pos
+            r.pos = p + 4
+            return _UNPACK_FLOAT(r.buf, p)[0]
+
+        return float_
+    if t == "double":
+        def double():
+            p = r.pos
+            r.pos = p + 8
+            return _UNPACK_DOUBLE(r.buf, p)[0]
+
+        return double
+    if t == "bytes":
+        return r.read_bytes
+    if t == "string":
+        def string():
+            n = read_long()
+            p = r.pos
+            r.pos = p + n
+            return r.buf[p:p + n].decode("utf-8")
+
+        return string
+    if t in ("record", "error"):
+        key = id(schema)
+        if key in compiled:
+            cell = compiled[key]
+            return lambda: cell[0]()
+        cell = compiled[key] = [None]
+        fields = [(f["name"], _decoder(f["type"], env, r, compiled)) for f in schema["fields"]]
+
+        def record():
+            return {name: dec() for name, dec in fields}
+
+        cell[0] = record
+        return record
+    if t == "enum":
+        symbols = schema["symbols"]
+        return lambda: symbols[read_long()]
+    if t == "fixed":
+        size = schema["size"]
+        return lambda: r.read(size)
+    if t == "array":
+        items = _decoder(schema["items"], env, r, compiled)
+
+        def array():
+            out: List[Any] = []
+            for count in _iter_block_counts(r):
+                for _ in range(count):
+                    out.append(items())
+            return out
+
+        return array
+    if t == "map":
+        values = _decoder(schema["values"], env, r, compiled)
+        key_ = _decoder("string", env, r, compiled)
+
+        def map_():
+            m: Dict[str, Any] = {}
+            for count in _iter_block_counts(r):
+                for _ in range(count):
+                    k = key_()  # the key decodes before the value
+                    m[k] = values()
+            return m
+
+        return map_
+    raise ValueError(f"Unsupported Avro type: {t!r}")
+
+
 # ---------------------------------------------------------------------------
 # reader-vs-writer schema resolution (Avro spec "Schema Resolution")
 # ---------------------------------------------------------------------------
@@ -401,6 +498,40 @@ def _default_value(schema: Schema, default: Any, env: SchemaEnv) -> Any:
 # ---------------------------------------------------------------------------
 
 
+def _zigzag_varint(n: int) -> bytes:
+    n = (n << 1) ^ (n >> 63) if n < 0 else n << 1
+    out = bytearray()
+    while n > 0x7F:
+        out.append((n & 0x7F) | 0x80)
+        n >>= 7
+    out.append(n)
+    return bytes(out)
+
+
+# the encodings of the longs most often written (counts, lengths, branch
+# indexes), looked up instead of computed
+_SMALL_LONGS = 4096
+_LONG_BYTES = [_zigzag_varint(n) for n in range(_SMALL_LONGS)]
+_STRING_CACHE = 1 << 16
+_PACK_FLOAT = struct.Struct("<f").pack
+_PACK_DOUBLE = struct.Struct("<d").pack
+
+
+def _long_bytes(n: int) -> bytes:
+    return _LONG_BYTES[n] if 0 <= n < _SMALL_LONGS else _zigzag_varint(n)
+
+
+def avro_long(n: int) -> bytes:
+    """An int or long in Avro's binary encoding (zigzag varint)."""
+    return _long_bytes(n)
+
+
+def avro_string(s: str) -> bytes:
+    """A string in Avro's binary encoding (its UTF-8 length, then the bytes)."""
+    b = s.encode("utf-8")
+    return _long_bytes(len(b)) + b
+
+
 class _Writer:
     __slots__ = ("out",)
 
@@ -411,120 +542,150 @@ class _Writer:
         self.out.write(b)
 
     def write_long(self, n: int):
-        n = (n << 1) ^ (n >> 63) if n < 0 else n << 1
-        while True:
-            b = n & 0x7F
-            n >>= 7
-            if n:
-                self.out.write(bytes([b | 0x80]))
-            else:
-                self.out.write(bytes([b]))
-                break
-
-    def write_float(self, v: float):
-        self.out.write(struct.pack("<f", v))
-
-    def write_double(self, v: float):
-        self.out.write(struct.pack("<d", v))
-
-    def write_bytes(self, b: bytes):
-        self.write_long(len(b))
-        self.out.write(b)
-
-    def write_string(self, s: str):
-        self.write_bytes(s.encode("utf-8"))
+        self.out.write(_long_bytes(n))
 
     def getvalue(self) -> bytes:
         return self.out.getvalue()
 
 
-def _union_branch(schema: list, datum: Any, env: SchemaEnv) -> int:
-    """Pick the union branch for a datum (null vs first matching type)."""
-    for i, s in enumerate(schema):
-        rs = env.resolve(s)
-        t = rs if isinstance(rs, str) else rs.get("type")
-        if datum is None and t == "null":
-            return i
-        if datum is not None and t != "null":
-            if t == "string" and isinstance(datum, str):
-                return i
-            if t in ("int", "long") and isinstance(datum, int) and not isinstance(datum, bool):
-                return i
-            if t in ("float", "double") and isinstance(datum, (int, float)) and not isinstance(datum, bool):
-                return i
-            if t == "boolean" and isinstance(datum, bool):
-                return i
-            if t == "bytes" and isinstance(datum, bytes):
-                return i
-            if t in ("record", "error", "map") and isinstance(datum, dict):
-                return i
-            if t == "array" and isinstance(datum, (list, tuple)):
-                return i
-            if t in ("enum",) and isinstance(datum, str):
-                return i
-            if t == "fixed" and isinstance(datum, bytes):
-                return i
-    raise ValueError(f"No union branch for datum {datum!r} in {schema}")
+def _branch_matcher(schema: Schema, env: SchemaEnv):
+    """The test that picks a union branch for a datum: null vs the first
+    branch whose type fits the datum's Python type."""
+    rs = env.resolve(schema)
+    t = rs if isinstance(rs, str) else rs.get("type") if isinstance(rs, dict) else None
+    if t == "null":
+        return lambda d: d is None
+    kinds = {
+        "string": str, "enum": str, "bytes": bytes, "fixed": bytes,
+        "record": dict, "error": dict, "map": dict, "array": (list, tuple),
+    }
+    if t in ("int", "long"):
+        return lambda d: isinstance(d, int) and not isinstance(d, bool)
+    if t in ("float", "double"):
+        return lambda d: isinstance(d, (int, float)) and not isinstance(d, bool)
+    if t == "boolean":
+        return lambda d: isinstance(d, bool)
+    if t in kinds:
+        kind = kinds[t]
+        return lambda d: isinstance(d, kind)
+    return lambda d: False
+
+
+def _encoder(schema: Schema, env: SchemaEnv, compiled: Optional[dict] = None):
+    """Compile ``schema`` into ``encode(append, datum)``, which appends the
+    datum's Avro binary encoding to a list of byte strings by ``append``:
+    the schema is walked once, not once a datum. A named record refers to
+    its own encoder by a cell, so recursive schemas compile."""
+    compiled = {} if compiled is None else compiled
+    schema = env.resolve(schema)
+    if isinstance(schema, list):
+        branches = [
+            (_branch_matcher(s, env), _long_bytes(i), _encoder(s, env, compiled)) for i, s in enumerate(schema)
+        ]
+
+        def union(append, d):
+            for match, index, enc in branches:
+                if match(d):
+                    append(index)
+                    enc(append, d)
+                    return
+            raise ValueError(f"No union branch for datum {d!r} in {schema}")
+
+        return union
+    t = schema if isinstance(schema, str) else schema["type"]
+    if isinstance(t, (dict, list)):
+        return _encoder(t, env, compiled)
+    if t == "union":  # nonstandard {"type": "union", "types": [...]} spelling
+        return _encoder(schema["types"], env, compiled)
+    if t == "null":
+        return lambda append, d: None
+    if t == "boolean":
+        return lambda append, d: append(b"\x01" if d else b"\x00")
+    if t in ("int", "long"):
+        return lambda append, d: append(_long_bytes(int(d)))
+    if t == "float":
+        return lambda append, d: append(_PACK_FLOAT(float(d)))
+    if t == "double":
+        return lambda append, d: append(_PACK_DOUBLE(float(d)))
+    if t == "bytes":
+        def bytes_(append, d):
+            append(_long_bytes(len(d)))
+            append(d)
+
+        return bytes_
+    if t == "string":
+        # names and terms repeat from record to record: each string's
+        # encoding is kept, up to _STRING_CACHE of them an encoder
+        cache: Dict[str, bytes] = compiled.setdefault("strings", {})
+
+        def string(append, d):
+            b = cache.get(d)
+            if b is None:
+                b = d.encode("utf-8")
+                b = _long_bytes(len(b)) + b
+                if len(cache) < _STRING_CACHE:
+                    cache[d] = b
+            append(b)
+
+        return string
+    if t in ("record", "error"):
+        key = id(schema)
+        if key in compiled:
+            cell = compiled[key]
+            return lambda append, d: cell[0](append, d)
+        cell = compiled[key] = [None]
+        fields = [
+            (f["name"], "default" in f, f.get("default"), _encoder(f["type"], env, compiled))
+            for f in schema["fields"]
+        ]
+
+        def record(append, d):
+            for name, has_default, default, enc in fields:
+                if name in d:
+                    enc(append, d[name])
+                elif has_default:
+                    enc(append, default)
+                else:
+                    raise KeyError(f"Record missing field {name!r}")
+
+        cell[0] = record
+        return record
+    if t == "enum":
+        symbols = schema["symbols"]
+        return lambda append, d: append(_long_bytes(symbols.index(d)))
+    if t == "fixed":
+        return lambda append, d: append(d)
+    if t == "array":
+        items = _encoder(schema["items"], env, compiled)
+
+        def array(append, d):
+            if d:
+                append(_long_bytes(len(d)))
+                for item in d:
+                    items(append, item)
+            append(b"\x00")
+
+        return array
+    if t == "map":
+        values = _encoder(schema["values"], env, compiled)
+        string = _encoder("string", env, compiled)
+
+        def map_(append, d):
+            if d:
+                append(_long_bytes(len(d)))
+                for k, v in d.items():
+                    string(append, k)
+                    values(append, v)
+            append(b"\x00")
+
+        return map_
+    raise ValueError(f"Unsupported Avro type: {t!r}")
 
 
 def _write_datum(w: _Writer, schema: Schema, datum: Any, env: SchemaEnv):
-    schema = env.resolve(schema)
-    if isinstance(schema, list):
-        idx = _union_branch(schema, datum, env)
-        w.write_long(idx)
-        _write_datum(w, schema[idx], datum, env)
-        return
-    t = schema if isinstance(schema, str) else schema["type"]
-    if isinstance(t, (dict, list)):
-        _write_datum(w, t, datum, env)
-        return
-    if t == "union":  # nonstandard {"type": "union", "types": [...]} spelling
-        _write_datum(w, schema["types"], datum, env)
-        return
-
-    if t == "null":
-        return
-    if t == "boolean":
-        w.write(b"\x01" if datum else b"\x00")
-    elif t in ("int", "long"):
-        w.write_long(int(datum))
-    elif t == "float":
-        w.write_float(float(datum))
-    elif t == "double":
-        w.write_double(float(datum))
-    elif t == "bytes":
-        w.write_bytes(datum)
-    elif t == "string":
-        w.write_string(datum)
-    elif t in ("record", "error"):
-        for f in schema["fields"]:
-            name = f["name"]
-            if name in datum:
-                value = datum[name]
-            elif "default" in f:
-                value = f["default"]
-            else:
-                raise KeyError(f"Record missing field {name!r}")
-            _write_datum(w, f["type"], value, env)
-    elif t == "enum":
-        w.write_long(schema["symbols"].index(datum))
-    elif t == "fixed":
-        w.write(datum)
-    elif t == "array":
-        if datum:
-            w.write_long(len(datum))
-            for item in datum:
-                _write_datum(w, schema["items"], item, env)
-        w.write_long(0)
-    elif t == "map":
-        if datum:
-            w.write_long(len(datum))
-            for k, v in datum.items():
-                w.write_string(k)
-                _write_datum(w, schema["values"], v, env)
-        w.write_long(0)
-    else:
-        raise ValueError(f"Unsupported Avro type: {t!r}")
+    chunks: List[bytes] = []
+    _encoder(schema, env)(chunks.append, datum)
+    w.write(b"".join(chunks))
 
 
 # ---------------------------------------------------------------------------
@@ -586,6 +747,9 @@ def _read_avro_file(
 
             records: List[dict] = []
             row_idx = 0
+            # one reader over each block's payload in turn, and the schema's
+            # decoder over it, compiled at the first block decoded
+            block_reader, decode = _Reader(b""), None
             while not r.at_end():
                 count = r.read_long()
                 size = r.read_long()
@@ -606,12 +770,15 @@ def _read_avro_file(
                     payload = zlib.decompress(payload, -15)
                 elif codec != "null":
                     raise ValueError(f"Unsupported Avro codec: {codec}")
-                br = _Reader(payload)
                 block: List[dict] = []
                 if reader_schema is None:
+                    if decode is None:
+                        decode = _decoder(schema, env, block_reader)
+                    block_reader.buf, block_reader.pos = payload, 0
                     for _ in range(count):
-                        block.append(_read_datum(br, schema, env))
+                        block.append(decode())
                 else:
+                    br = _Reader(payload)
                     for _ in range(count):
                         block.append(_read_resolved(br, schema, rschema, env, renv))
                 if row_range is not None:
@@ -690,7 +857,11 @@ def write_avro_file(
     records: Iterable[dict],
     codec: str = "deflate",
     sync_interval_records: int = 4000,
+    encoded: bool = False,
 ):
+    """Write ``records`` as an Object Container File of ``schema``;
+    ``encoded``: each record is already its datum's binary encoding
+    (bytes), written as it is."""
     schema_obj, env = parse_schema(schema)
     schema_json = json.dumps(schema_obj)
     sync = os.urandom(SYNC_SIZE)
@@ -705,10 +876,10 @@ def write_avro_file(
     )
     header.write(sync)
 
-    def flush_block(out, buf: _Writer, count: int):
+    def flush_block(out, chunks: List[bytes], count: int):
         if count == 0:
             return
-        payload = buf.getvalue()
+        payload = b"".join(chunks)
         if codec == "deflate":
             co = zlib.compressobj(level=6, wbits=-15)
             payload = co.compress(payload) + co.flush()
@@ -726,13 +897,14 @@ def write_avro_file(
     # container (the reference gets this from the HDFS output committer)
     with atomic_write(path, "wb") as out:
         out.write(header.getvalue())
-        buf = _Writer()
+        encode = (lambda append, rec: append(rec)) if encoded else _encoder(schema_obj, env)
+        chunks: List[bytes] = []
         count = 0
         for rec in records:
-            _write_datum(buf, schema_obj, rec, env)
+            encode(chunks.append, rec)
             count += 1
             if count >= sync_interval_records:
-                flush_block(out, buf, count)
-                buf = _Writer()
+                flush_block(out, chunks, count)
+                chunks = []
                 count = 0
-        flush_block(out, buf, count)
+        flush_block(out, chunks, count)

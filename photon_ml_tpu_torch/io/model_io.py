@@ -24,9 +24,11 @@ its bits, since the records hold doubles.
 from __future__ import annotations
 
 import hashlib
+import itertools
 import json
+import operator
 import os
-from typing import Dict, Mapping, Optional
+from typing import Dict, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
@@ -38,6 +40,8 @@ from ..models.game import FixedEffectModel, GameModel, RandomEffectModel
 from ..models.glm import GeneralizedLinearModel, model_for_task
 from ..robust.atomic import atomic_write, atomic_write_json
 from ..robust.retry import io_call
+from .avro import avro_long as _avro_long
+from .avro import avro_string as _avro_string
 from .avro import iter_avro_directory, write_avro_file
 from .index_map import IndexMap, feature_key, split_feature_key
 from .schemas import BAYESIAN_LINEAR_MODEL_AVRO
@@ -310,61 +314,50 @@ def save_game_model(
                 sub.random_effect_type + "\n" + sub.feature_shard + "\n",
                 site="io.model_save",
             )
-            imap = index_maps[sub.feature_shard]
-            idx = _host(sub.coef_indices)
-            val = _host(sub.coef_values)
-            var = None if sub.variances is None else _host(sub.variances)
-
-            def entity_records():
-                for e, ent in enumerate(sub.entity_ids):
-                    m = idx[e] >= 0
-                    means = [
-                        {
-                            "name": (kv := split_feature_key(imap.get_feature_name(int(j))))[0],
-                            "term": kv[1],
-                            "value": float(v),
-                        }
-                        for j, v in zip(idx[e][m], val[e][m])
-                        if abs(v) > sparsity_threshold
-                    ]
-                    variances = None
-                    if var is not None:
-                        variances = [
-                            {
-                                "name": (kv := split_feature_key(imap.get_feature_name(int(j))))[0],
-                                "term": kv[1],
-                                "value": float(v),
-                            }
-                            for j, v in zip(idx[e][m], var[e][m])
-                        ]
-                    yield {
-                        "modelId": str(ent),
-                        "modelClass": _MODEL_CLASS_NAMES.get(sub.task),
-                        "means": means,
-                        "variances": variances,
-                        "lossFunction": None,
-                    }
-
-            # chunk into part files
-            part = 0
-            chunk = []
-            for rec in entity_records():
-                chunk.append(rec)
-                if len(chunk) >= records_per_file:
-                    write_avro_file(
-                        os.path.join(base, "coefficients", f"part-{part:05d}.avro"),
-                        BAYESIAN_LINEAR_MODEL_AVRO,
-                        chunk,
-                    )
-                    part += 1
-                    chunk = []
-            write_avro_file(
-                os.path.join(base, "coefficients", f"part-{part:05d}.avro"),
-                BAYESIAN_LINEAR_MODEL_AVRO,
-                chunk,
-            )
+            records = _entity_records(sub, index_maps[sub.feature_shard], sparsity_threshold)
+            # part files of records_per_file records, and one more for the rest
+            # (empty when they divide evenly)
+            for part in range(sub.num_entities // records_per_file + 1):
+                write_avro_file(
+                    os.path.join(base, "coefficients", f"part-{part:05d}.avro"),
+                    BAYESIAN_LINEAR_MODEL_AVRO,
+                    itertools.islice(records, records_per_file),
+                    encoded=True,
+                )
         else:
             raise TypeError(f"Unknown sub-model type for {name}: {type(sub)}")
+
+
+def _entity_records(sub: RandomEffectModel, imap: IndexMap, sparsity_threshold: float) -> Iterator[bytes]:
+    """One BayesianLinearModelAvro record an entity, each already in its
+    Avro binary encoding (what ``write_avro_file(..., encoded=True)``
+    takes): a (name, term, value) triple is its feature's name and term,
+    encoded once a feature, followed by the value's 8 little-endian bytes."""
+    heads = []
+    for j in range(len(imap)):
+        name, term = split_feature_key(imap.get_feature_name(j))
+        heads.append(_avro_string(name) + _avro_string(term))
+
+    def triples(js, vs) -> bytes:
+        if not len(js):
+            return b"\x00"
+        raw = np.asarray(vs, dtype="<f8").tobytes()
+        values = [raw[k:k + 8] for k in range(0, len(raw), 8)]
+        return _avro_long(len(js)) + b"".join(map(operator.add, map(heads.__getitem__, js.tolist()), values)) + b"\x00"
+
+    model_class = _MODEL_CLASS_NAMES.get(sub.task)
+    model_class = b"\x00" if model_class is None else b"\x02" + _avro_string(model_class)
+    idx = _host(sub.coef_indices)
+    val = _host(sub.coef_values)
+    var = None if sub.variances is None else _host(sub.variances)
+    for e, ent in enumerate(sub.entity_ids):
+        m = idx[e] >= 0
+        js, vs = idx[e][m], val[e][m]
+        keep = np.abs(vs) > sparsity_threshold
+        means = triples(js[keep], vs[keep])
+        variances = b"\x00" if var is None else b"\x02" + triples(js, var[e][m])
+        # modelId, modelClass, means, variances, lossFunction (null)
+        yield _avro_string(str(ent)) + model_class + means + variances + b"\x00"
 
 
 def load_game_model(

@@ -254,14 +254,18 @@ def shard_batch(
 def local_batch(
     batch: LabeledBatch, n_rows: int, group: DataParallelGroup
 ) -> LabeledBatch:
-    """Mark a batch that holds only this rank's ``row_range(n_rows)`` rows
-    (read by the rank itself, as from a memory-mapped file) as the rank's
-    shard: pad it to ``equal_host_share`` rows and set ``group``. The same shard
-    ``shard_batch`` cuts from the whole batch."""
+    """Mark a batch that holds only this rank's rows (read by the rank
+    itself, as from a memory-mapped file or a per-host row range) as the
+    rank's shard: pad it to ``equal_host_share`` rows and set ``group``.
+    Its ``row_range(n_rows)`` rows make the same shard ``shard_batch`` cuts
+    from the whole batch; a batch of ``equal_host_share(n_rows)`` rows is
+    already padded (``cli.train``'s per-host read pads its own range, so the
+    padded global row space is the ranks' shares in rank order)."""
+    share = equal_host_share(n_rows, group.world_size)
     start, stop = row_range(n_rows, group)
-    if batch.n_rows != stop - start:
+    if batch.n_rows not in (share, stop - start):
         raise ValueError(f"rank {group.rank} holds rows [{start}, {stop}), got {batch.n_rows} rows")
-    padded = pad_batch(batch, equal_host_share(n_rows, group.world_size))
+    padded = pad_batch(batch, share)
     return dataclasses.replace(padded, group=group)
 
 

@@ -11,6 +11,18 @@ the CPU or, staged through the host, for several ranks sharing one card.
 Run under torchrun (``torchrun --standalone --nproc-per-node=N script.py``
 and ``initialize("nccl")`` in the script, which reads ``RANK``,
 ``WORLD_SIZE`` and ``LOCAL_RANK``), or start the ranks with ``spawn``.
+
+``cli.train`` and ``cli.score`` join through ``initialize_from_spec`` (``--distributed
+coordinator=HOST:PORT,process=I,n=P``, or ``auto`` for torchrun's
+environment). The backend follows from the devices (``choose_backend``):
+NCCL where every rank on the host has a card of its own, gloo where ranks
+share a card or run on the CPU. Over NCCL a gloo side group is made as
+well, so that the object collectives (``allgather_object``,
+``broadcast_object``: small pickled planning data, never row data) and the
+bounded barrier of ``robust/distributed.py`` (``monitored_barrier``, a gloo
+operation) run on the host beside the card's collectives. Both object
+collectives are guarded: with a collective budget armed, every rank first
+meets at a bounded barrier, so a dead peer is a typed error and not a hang.
 """
 
 from __future__ import annotations
@@ -24,13 +36,18 @@ import time
 import traceback
 import uuid
 from pathlib import Path
-from typing import Callable, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from ..device import resolve_device
 
 DEFAULT_TIMEOUT_S = 300.0
+
+# the group this process joined through initialize(), and its gloo side
+# group (None: the default group is gloo itself)
+_group = None
+_side_group = None
 
 
 def initialize(
@@ -69,21 +86,96 @@ def initialize(
         torch.cuda.set_device(dev)
     elif backend == "nccl":
         raise ValueError("the nccl backend needs a CUDA device")
+    timeout = datetime.timedelta(seconds=timeout_s)
     dist.init_process_group(
         backend,
         init_method=init_method or "env://",
         rank=rank,
         world_size=world_size,
-        timeout=datetime.timedelta(seconds=timeout_s),
+        timeout=timeout,
     )
-    return DataParallelGroup(rank=rank, world_size=world_size, device=dev, backend=backend)
+    global _group, _side_group
+    # every rank makes the side group, in the same order: a collective call
+    _side_group = dist.new_group(backend="gloo", timeout=timeout) if backend == "nccl" else None
+    _group = DataParallelGroup(rank=rank, world_size=world_size, device=dev, backend=backend)
+    return _group
+
+
+def choose_backend(device, world_size: int) -> str:
+    """The backend the devices call for: gloo on the CPU; on the card NCCL
+    when every rank of this host has a card of its own, else gloo (NCCL
+    refuses two ranks of one communicator on one card). The ranks on this
+    host are ``LOCAL_WORLD_SIZE`` (torchrun sets it), else the whole world
+    (the ``coordinator=...`` spec starts every rank on one host)."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return "gloo"
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", world_size))
+    return "nccl" if local <= torch.cuda.device_count() else "gloo"
+
+
+def parse_spec(spec: str) -> dict:
+    """``coordinator=HOST:PORT,process=I,n=P`` -> its fields (the JAX
+    package's spec); unknown keys raise."""
+    parts = dict(p.split("=", 1) for p in spec.split(",") if p)
+    unknown = set(parts) - {"coordinator", "process", "n"}
+    if unknown:
+        raise ValueError(
+            f"unknown --distributed keys {sorted(unknown)}; "
+            "expected coordinator=HOST:PORT,process=I,n=P"
+        )
+    missing = {"coordinator", "process", "n"} - set(parts)
+    if missing:
+        raise ValueError(f"--distributed {spec!r} lacks {sorted(missing)}; expected coordinator=HOST:PORT,process=I,n=P")
+    return {"coordinator": parts["coordinator"], "process": int(parts["process"]), "n": int(parts["n"])}
+
+
+def initialize_from_spec(spec: str, device=None, timeout_s: float = DEFAULT_TIMEOUT_S):
+    """Join the group a CLI's ``--distributed`` names and return this
+    rank's ``DataParallelGroup``: ``coordinator=HOST:PORT,process=I,n=P``
+    meets at ``tcp://HOST:PORT`` (process 0 listens there), ``auto`` reads
+    torchrun's ``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT``.
+    The backend follows from ``device`` (``choose_backend``); a rank whose
+    card is missing raises (``resolve_device``). Joined already: the group
+    this process holds."""
+    import torch.distributed as dist
+
+    if _group is not None and dist.is_initialized():
+        return _group
+    if spec == "auto":
+        rank, world, init_method = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]), "env://"
+    else:
+        fields = parse_spec(spec)
+        rank, world, init_method = fields["process"], fields["n"], f"tcp://{fields['coordinator']}"
+        if not 0 <= rank < world:
+            raise ValueError(f"--distributed process={rank} outside n={world}")
+    return initialize(
+        choose_backend(device, world), rank=rank, world_size=world, init_method=init_method,
+        device=device, timeout_s=timeout_s,
+    )
+
+
+def current_group():
+    """The ``DataParallelGroup`` this process joined through
+    ``initialize``, or None."""
+    import torch.distributed as dist
+
+    return _group if _group is not None and dist.is_initialized() else None
+
+
+def side_group():
+    """The gloo group of the object collectives and the bounded barrier:
+    the side group over NCCL, None (the default group) over gloo."""
+    return _side_group
 
 
 def shutdown() -> None:
     import torch.distributed as dist
 
+    global _group, _side_group
     if dist.is_initialized():
         dist.destroy_process_group()
+    _group = _side_group = None
 
 
 def process_index() -> int:
@@ -96,6 +188,12 @@ def process_count() -> int:
     import torch.distributed as dist
 
     return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def is_coordinator() -> bool:
+    """True on process 0, the only process that writes models and
+    summaries (the reference's driver-writes-to-HDFS role)."""
+    return process_index() == 0
 
 
 def host_row_range(
@@ -116,6 +214,40 @@ def equal_host_share(n_rows: int, count: Optional[int] = None) -> int:
     ``ceil(n_rows / P)`` (zero-weight rows, invisible to the objectives)."""
     p = process_count() if count is None else count
     return -(-n_rows // p)
+
+
+def allgather_object(obj: Any) -> list:
+    """One picklable object from every process, in process order, on every
+    process (one process: ``[obj]``). For planning data (entity tables,
+    shape agreements, checkpoint confirmations), not row data. Guarded:
+    with a collective budget armed, a bounded barrier comes first
+    (``robust.distributed.guard_collective``)."""
+    if process_count() == 1:
+        return [obj]
+    import torch.distributed as dist
+
+    from ..robust import distributed as robust_dist
+
+    robust_dist.guard_collective("allgather_object")
+    out = [None] * process_count()
+    dist.all_gather_object(out, obj, group=_side_group)
+    return out
+
+
+def broadcast_object(obj: Any) -> Any:
+    """Process 0's ``obj`` on every process (the others' is ignored): one
+    copy of a coordinator-owned payload, as a checkpoint's models. One
+    process: ``obj``. Guarded as ``allgather_object`` is."""
+    if process_count() == 1:
+        return obj
+    import torch.distributed as dist
+
+    from ..robust import distributed as robust_dist
+
+    robust_dist.guard_collective("broadcast_object")
+    box = [obj if process_index() == 0 else None]
+    dist.broadcast_object_list(box, src=0, group=_side_group)
+    return box[0]
 
 
 def fully_replicate(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:

@@ -15,9 +15,14 @@ the pipelined sweep (``pipeline_depth`` > 1), incremental training
 (``check_lane_composition`` and ``check_retrain_composition`` refuse what
 the lane path and the retrain chain do not compose with, and
 ``_check_coordinate`` what the streamed fixed effect does not, in the JAX
-package's words). For the compositions it has not ported, it refuses with a
-``PlanError`` that names its ROADMAP item: meshes, the tiled layout and
-multiple processes (A10), streaming and pipelining over them included.
+package's words). Several processes (``n_processes`` > 1, ``--distributed``)
+resolve with no mesh or with a data axis of the world size (one card a
+rank: the JAX mesh's counterpart), every coordinate resident and the fixed
+effects dense. For the compositions it has not ported, it refuses with a
+``PlanError`` that names its ROADMAP item (A10): a model axis, a data axis
+other than the process count, the tiled layout, a resident ELL, COO or
+tiled fixed effect over processes, and streaming (``hbm_budget_mb``) or
+pipelining (``pipeline_depth`` > 1) with processes or a mesh.
 ``plan_fingerprint`` and ``check_checkpoint_topology`` are the JAX package's,
 so a checkpoint's manifest speaks the same topology contract.
 
@@ -59,7 +64,7 @@ class CoordinatePlan:
     layout: str
     feature_dtype: str
     residency: str  # "resident" | "streamed"
-    sharding: str  # "single-device"
+    sharding: str  # "single-device" | "row-sharded" | "entity-sharded"
     pipelined: bool
     hbm_budget_mb: Optional[int] = None
     geometry: Dict[str, object] = dataclasses.field(default_factory=dict)
@@ -192,11 +197,31 @@ def _rows_per_slice(budget_bytes: int, row_bytes: int) -> int:
 
 
 def check_multiprocess_mesh(n_processes: int, mesh) -> None:
-    """Multi-process training and device meshes are ROADMAP A10."""
-    if n_processes > 1:
-        raise not_ported("multi-process training", A10)
-    if _mesh_axes(mesh) is not None:
-        raise not_ported("a device mesh", A10)
+    """The topologies the port runs: one process, or ``n_processes`` ranks
+    of one card each, with no mesh or a mesh whose data axis is the process
+    count (the JAX mesh's data axis, one device a rank). A model axis, or a
+    data axis of another size, is ROADMAP A10."""
+    axes = _mesh_axes(mesh)
+    if axes is None:
+        return
+    if axes[MODEL_AXIS] > 1:
+        raise not_ported(f"a model axis (mesh model={axes[MODEL_AXIS]})", A10)
+    if axes[DATA_AXIS] != max(int(n_processes), 1):
+        raise not_ported(
+            f"a data axis of {axes[DATA_AXIS]} devices over {n_processes} process(es) (the port runs one card a "
+            "process: data must equal the process count)", A10,
+        )
+
+
+def _check_multiprocess_coordinate(cc) -> None:
+    """A coordinate over several processes: the fixed effect dense (the
+    JAX package refuses a resident ELL across processes too: its width is
+    the local rows' max nnz, so the ranks' shapes would disagree)."""
+    if not cc.is_random_effect and cc.layout not in ("auto", "dense"):
+        raise not_ported(
+            f"coordinate {cc.name}: layout={cc.layout!r} over several processes (a row-sharded sparse fixed "
+            "effect; use a dense layout, d <= 4096)", A10,
+        )
 
 
 def check_lane_composition(
@@ -221,9 +246,10 @@ def check_lane_composition(
             "trials across hosts instead)"
         )
     if distributed or n_processes > 1:
+        # the JAX package's words; it refuses the composition as well
         raise PlanError(
             "trial-lanes sweeps are single-process: not composable with "
-            "multi-process training"
+            f"multi-process training ({A10})"
         )
     if pipeline_depth > 1:
         raise PlanError(
@@ -442,13 +468,11 @@ def resolve(
         raise not_ported(
             f"hbm_budget_mb streaming of {streamed} under a device mesh or multi-process training", A10
         )
-    if distributed:
-        raise not_ported("--distributed (multi-process training)", A10)
     check_multiprocess_mesh(n_processes, mesh)
     if trial_lanes > 1:
         check_lane_composition(
-            coordinate_configs, trial_lanes, pipeline_depth=pipeline_depth,
-            partial_retrain_locked=partial_retrain_locked,
+            coordinate_configs, trial_lanes, mesh=mesh, n_processes=n_processes, distributed=distributed,
+            pipeline_depth=pipeline_depth, partial_retrain_locked=partial_retrain_locked,
         )
     elif trial_lanes < 1:
         raise PlanError(f"trial-lanes must be >= 1: {trial_lanes}")
@@ -456,6 +480,8 @@ def resolve(
     plans = []
     for cc in coordinate_configs:
         _check_coordinate(cc)
+        if multi:
+            _check_multiprocess_coordinate(cc)
         geometry: Dict[str, object] = {}
         dim = (dims or {}).get(cc.feature_shard)
         if dim is not None:
@@ -478,7 +504,7 @@ def resolve(
                 layout=cc.layout,
                 feature_dtype=dtype_name(cc.feature_dtype),
                 residency="streamed" if cc.hbm_budget_mb is not None else "resident",
-                sharding="single-device",
+                sharding=("entity-sharded" if cc.is_random_effect else "row-sharded") if multi else "single-device",
                 pipelined=pipeline_depth > 1,
                 hbm_budget_mb=cc.hbm_budget_mb,
                 geometry=geometry,
@@ -488,10 +514,10 @@ def resolve(
 
     return ExecutionPlan(
         coordinates=tuple(plans),
-        mesh_axes=None,
-        n_processes=1,
+        mesh_axes=_mesh_axes(mesh),
+        n_processes=int(n_processes),
         pipeline_depth=pipeline_depth,
         trial_lanes=trial_lanes,
         normalization=normalization,
-        distributed=False,
+        distributed=bool(distributed),
     )

@@ -1,5 +1,5 @@
 """Fault tolerance for the port's training runs (the JAX package's
-``robust``, single-process):
+``robust``):
 
 - :mod:`robust.atomic`: write-temp + fsync + atomic-rename file creation
   (readers never see a torn file);
@@ -10,11 +10,13 @@
   rotation (kill the process anywhere and ``--resume`` replays the
   remaining updates bit for bit);
 - :mod:`robust.faults`: a deterministic, seeded fault injector (default
-  off, env-activated) that makes the other three testable.
+  off, env-activated) that makes the others testable;
+- :mod:`robust.distributed`: the liveness plane of a run of several
+  processes (heartbeats, bounded-time barriers, typed peer-loss errors);
+  the checkpoint's two-phase save covers such runs.
 
 ``cli.train --checkpoint-dir D --checkpoint-every N`` / ``--resume`` wire
-this end to end. The distributed liveness plane (heartbeats, bounded-time
-barriers) and the two-phase multi-process checkpoint are ROADMAP A10.
+this end to end, with ``--distributed`` across processes.
 """
 
 from .atomic import atomic_write, atomic_write_bytes, atomic_write_json, atomic_write_text

@@ -1,6 +1,6 @@
 """Crash-safe coordinate-descent checkpoints: digest manifests, keep-last-K.
 
-The JAX package's ``robust/checkpoint.py`` on the port, single-process. The
+The JAX package's ``robust/checkpoint.py`` on the port. The
 reference's fault tolerance is RDD lineage: lose an executor mid-sweep and
 Spark recomputes the lost partitions. A process has no lineage, so the
 replacement is snapshot-based: at coordinate-update boundaries (between
@@ -32,9 +32,22 @@ Counters in the obs registry: ``photon_checkpoint_saves_total``,
 ``photon_checkpoint_restore_total``, and
 ``photon_checkpoint_skipped_total{reason=}`` for restore fallbacks.
 
-The JAX package's two-phase multi-process save (per-process score shards
-confirmed over a collective) is ROADMAP A10: a manager for more than one
-process raises.
+**Several processes** save by the JAX package's two-phase protocol: every
+process constructs a manager over the same directory name (its own disk or
+a shared one) and calls :meth:`CheckpointManager.on_boundary`. Phase one,
+each process writes its rows of the summed scores (``shard-p<i>.pkl``) and
+confirms the shard's sha256 over ``parallel.multihost.allgather_object``;
+phase two, the coordinator alone, after every shard confirmed, writes the
+payload and then the manifest, which records every shard's digest and the
+run's topology (process count, mesh axes, plan fingerprint, padded global
+rows). The manifest is the commit point: a save torn at any stage (a shard,
+the payload, or a kill just before the manifest; the ``dist.commit`` fault
+site brackets both phases) leaves no manifest, so restore falls back to the
+previous consistent step as it does past a corrupt single-process save.
+Restore checks every shard's digest and concatenates the shards in process
+order into the padded global row space; ``plan.check_checkpoint_topology``
+judges the recorded topology. The coordinator alone reads a checkpoint in
+``cli.train`` and broadcasts it, so no shared file system is needed.
 """
 
 from __future__ import annotations
@@ -49,6 +62,7 @@ import shutil
 import time
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..device import DeviceLike
@@ -60,12 +74,9 @@ logger = logging.getLogger("photon_ml_tpu_torch")
 
 MANIFEST_NAME = "MANIFEST.json"
 PAYLOAD_NAME = "state.pkl"
+SHARD_PREFIX = "shard-p"
 MANIFEST_VERSION = 1
 _DIR_PREFIX = "ckpt-"
-_MULTI_TODO = (
-    "multi-process checkpoints (the two-phase save of per-process score "
-    "shards) are not ported yet (ROADMAP A10)"
-)
 
 
 class CheckpointError(Exception):
@@ -138,7 +149,13 @@ class CheckpointManager:
     speed, production leaves it on). ``base_meta`` is merged into every
     manifest; ``topology`` (the plan fingerprint, the process count) is
     stamped into every manifest and judged on restore by
-    ``plan.check_checkpoint_topology``."""
+    ``plan.check_checkpoint_topology``.
+
+    ``process`` / ``n_processes`` select the two-phase protocol (module
+    docstring): a boundary state then carries this process's rows of the
+    summed scores, and the confirmations ride ``exchange``, by default the
+    guarded ``parallel.multihost.allgather_object`` (a test passes its
+    own)."""
 
     def __init__(
         self,
@@ -150,19 +167,24 @@ class CheckpointManager:
         process: int = 0,
         n_processes: int = 1,
         topology: Optional[dict] = None,
+        exchange=None,
     ):
         if keep_last < 1:
             raise ValueError(f"keep_last must be >= 1: {keep_last}")
         if every < 1:
             raise ValueError(f"every must be >= 1: {every}")
-        if n_processes != 1 or process != 0:
-            raise NotImplementedError(_MULTI_TODO)
+        if n_processes < 1:
+            raise ValueError(f"n_processes must be >= 1: {n_processes}")
+        if not 0 <= process < n_processes:
+            raise ValueError(f"process must be in [0, {n_processes}): {process}")
         self.directory = directory
         self.keep_last = keep_last
         self.every = every
         self.fsync = fsync
-        self.n_processes = 1
+        self.process = int(process)
+        self.n_processes = int(n_processes)
         self.topology = dict(topology or {})
+        self.exchange = exchange
         self.base_meta = dict(base_meta or {})
         self._boundaries = 0
         os.makedirs(directory, exist_ok=True)
@@ -185,7 +207,10 @@ class CheckpointManager:
         return path
 
     def save(self, state, meta: Optional[dict] = None) -> str:
-        """Persist one boundary state; returns the checkpoint directory."""
+        """Persist one boundary state; returns the checkpoint directory.
+        A manager of several processes saves by the two-phase protocol."""
+        if self.n_processes > 1:
+            return self._save_distributed(state, meta)
         t0 = time.perf_counter()
         payload = self._payload_dict(state)
         blob = pickle.dumps(payload, protocol=pickle.HIGHEST_PROTOCOL)
@@ -213,11 +238,7 @@ class CheckpointManager:
             "sha256": digest,
             "bytes": len(blob),
             "created_unix": time.time(),
-            "topology": {
-                **self.topology,
-                "n_processes": self.n_processes,
-                "global_rows": 0 if summed is None else int(summed.shape[0]),
-            },
+            "topology": self._topology_meta(0 if summed is None else int(summed.shape[0])),
             **self.base_meta,
             **(meta or {}),
         }
@@ -230,33 +251,124 @@ class CheckpointManager:
             site="checkpoint.manifest",
         )
         self._seq += 1
-        save_seconds = time.perf_counter() - t0
-        reg = _registry()
-        reg.counter(
-            "photon_checkpoint_saves_total", "boundary checkpoints written"
-        ).inc()
-        reg.counter(
-            "photon_checkpoint_bytes_total", "checkpoint payload bytes written"
-        ).inc(len(blob))
-        reg.histogram(
-            "photon_checkpoint_save_seconds", "wall per boundary checkpoint save"
-        ).observe(save_seconds)
+        self._count_save(len(blob), time.perf_counter() - t0)
         self._rotate()
         logger.info(
             "checkpoint %s: iter %d coordinate %s (%d bytes, %.3fs)",
             name, payload["iteration"], payload["coordinate"], len(blob),
-            save_seconds,
+            time.perf_counter() - t0,
         )
         return ckpt_dir
 
     @staticmethod
-    def _payload_dict(state) -> dict:
+    def _count_save(n_bytes: int, seconds: float) -> None:
+        reg = _registry()
+        reg.counter("photon_checkpoint_saves_total", "boundary checkpoints written").inc()
+        reg.counter("photon_checkpoint_bytes_total", "checkpoint payload bytes written").inc(n_bytes)
+        reg.histogram("photon_checkpoint_save_seconds", "wall per boundary checkpoint save").observe(seconds)
+
+    def _topology_meta(self, global_rows: int) -> dict:
+        return {**self.topology, "n_processes": self.n_processes, "global_rows": int(global_rows)}
+
+    def _save_distributed(self, state, meta: Optional[dict] = None) -> str:
+        """The two-phase save across ``n_processes`` (module docstring).
+        Phase one (every process): write the local summed-score shard and
+        confirm its digest over the exchange. Phase two (the coordinator):
+        the payload, then the commit point, the manifest. The
+        ``dist.commit`` fault site fires at phase one's entry and again on
+        the coordinator right before the manifest."""
+        t0 = time.perf_counter()
+        faults.check("dist.commit")
+        name = f"{_DIR_PREFIX}{self._seq:06d}"
+        ckpt_dir = os.path.join(self.directory, name)
+        os.makedirs(ckpt_dir, exist_ok=True)
+        local = to_device(state.summed_scores, "cpu")
+        shard_blob = pickle.dumps(
+            {"process": self.process, "summed_scores": local}, protocol=pickle.HIGHEST_PROTOCOL
+        )
+        shard_name = f"{SHARD_PREFIX}{self.process}.pkl"
+        io_call(
+            atomic_write_bytes,
+            os.path.join(ckpt_dir, shard_name),
+            shard_blob,
+            fsync=self.fsync,
+            site="checkpoint.write",
+        )
+        confirm = {
+            "process": self.process,
+            "file": shard_name,
+            "sha256": hashlib.sha256(shard_blob).hexdigest(),
+            "bytes": len(shard_blob),
+            "rows": 0 if local is None else int(local.shape[0]),
+        }
+        exchange = self.exchange
+        if exchange is None:
+            from ..parallel import multihost
+
+            exchange = multihost.allgather_object
+        confirms = sorted(exchange(confirm), key=lambda c: c["process"])
+        # every process passes the exchange in lockstep, so the next
+        # boundary's directory name agrees even if this commit tears
+        self._seq += 1
+        if self.process != 0:
+            return ckpt_dir
+        payload = self._payload_dict(state, summed_scores=None)
+        blob = pickle.dumps(payload, protocol=pickle.HIGHEST_PROTOCOL)
+        io_call(
+            atomic_write_bytes,
+            os.path.join(ckpt_dir, PAYLOAD_NAME),
+            blob,
+            fsync=self.fsync,
+            site="checkpoint.write",
+        )
+        # the commit point: shards and payload are durable, the manifest is
+        # not; a kill here is the torn save restore must survive
+        faults.check("dist.commit")
+        manifest = {
+            "version": MANIFEST_VERSION,
+            "step": self._seq - 1,
+            "iteration": int(state.iteration),
+            "coordinate_index": int(state.coordinate_index),
+            "coordinate": state.coordinate,
+            "coordinate_order": list(state.coordinate_order),
+            "n_iterations": int(state.n_iterations),
+            "payload": PAYLOAD_NAME,
+            "sha256": hashlib.sha256(blob).hexdigest(),
+            "bytes": len(blob),
+            "created_unix": time.time(),
+            "shards": confirms,
+            "topology": self._topology_meta(sum(c["rows"] for c in confirms)),
+            **self.base_meta,
+            **(meta or {}),
+        }
+        io_call(
+            atomic_write_json,
+            os.path.join(ckpt_dir, MANIFEST_NAME),
+            manifest,
+            fsync=self.fsync,
+            indent=2,
+            site="checkpoint.manifest",
+        )
+        total_bytes = len(blob) + sum(c["bytes"] for c in confirms)
+        self._count_save(total_bytes, time.perf_counter() - t0)
+        self._rotate()
+        logger.info(
+            "checkpoint %s: iter %d coordinate %s (%d processes, %d bytes, %.3fs)",
+            name, manifest["iteration"], manifest["coordinate"], self.n_processes, total_bytes,
+            time.perf_counter() - t0,
+        )
+        return ckpt_dir
+
+    @staticmethod
+    def _payload_dict(state, summed_scores=True) -> dict:
+        """The boundary state for the payload, its tensors on the host;
+        ``summed_scores=None``: without them (they live in the shards)."""
         return {
             "iteration": int(state.iteration),
             "coordinate_index": int(state.coordinate_index),
             "coordinate": state.coordinate,
             "models": to_device(dict(state.models), "cpu"),
-            "summed_scores": to_device(state.summed_scores, "cpu"),
+            "summed_scores": None if summed_scores is None else to_device(state.summed_scores, "cpu"),
             "best_eval": state.best_eval,
             "best_models": to_device(dict(state.best_models), "cpu"),
             "evaluations": list(state.evaluations),
@@ -376,8 +488,6 @@ class CheckpointManager:
         for key in ("sha256", "payload", "coordinate_order", "n_iterations"):
             if key not in manifest:
                 raise KeyError(f"manifest missing {key!r}")
-        if manifest.get("shards"):
-            raise ValueError(_MULTI_TODO)
 
         def read_payload():
             with open(os.path.join(ckpt_dir, manifest["payload"]), "rb") as f:
@@ -391,7 +501,36 @@ class CheckpointManager:
                 f"{manifest['sha256'][:12]}... (truncated or corrupt write)"
             )
         # the digest certifies the bytes this program wrote
-        return manifest, pickle.loads(blob)
+        payload = pickle.loads(blob)
+        shards = manifest.get("shards")
+        if shards:
+            # a two-phase save: the summed scores live in the per-process
+            # shards; each digest is checked, and the shards concatenate in
+            # process order into the padded global row order (which is also
+            # how a legal reshape under another process count reassembles)
+            parts = []
+            for rec in sorted(shards, key=lambda r: r["process"]):
+                shard_path = os.path.join(ckpt_dir, rec["file"])
+
+                def read_shard(path=shard_path):
+                    with open(path, "rb") as f:
+                        return f.read()
+
+                sblob = io_call(read_shard, site="checkpoint.read")
+                sdigest = hashlib.sha256(sblob).hexdigest()
+                if sdigest != rec["sha256"]:
+                    raise ValueError(
+                        f"shard {rec['file']} digest {sdigest[:12]}... != manifest "
+                        f"{rec['sha256'][:12]}... (torn multi-process save)"
+                    )
+                parts.append(pickle.loads(sblob)["summed_scores"])
+            if all(p is None for p in parts):
+                payload["summed_scores"] = None
+            elif all(isinstance(p, torch.Tensor) for p in parts):
+                payload["summed_scores"] = torch.cat(parts)
+            else:
+                payload["summed_scores"] = np.concatenate([np.asarray(p) for p in parts])
+        return manifest, payload
 
     def checkpoints(self) -> List[str]:
         """Checkpoint directories on disk, oldest first (for tests/tools)."""

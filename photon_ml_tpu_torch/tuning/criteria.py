@@ -7,11 +7,12 @@ ExpectedImprovement.scala:33-58, ConfidenceBound.scala:48.
 from __future__ import annotations
 
 import numpy as np
-from scipy.stats import norm
 
 
 def expected_improvement(best: float, mean: np.ndarray, var: np.ndarray) -> np.ndarray:
     """EI of improving BELOW ``best`` (we minimize the evaluation metric)."""
+    from scipy.stats import norm  # here, not at import: scipy.stats takes seconds to import
+
     std = np.sqrt(var)
     gamma = (best - mean) / std
     return std * (gamma * norm.cdf(gamma) + norm.pdf(gamma))

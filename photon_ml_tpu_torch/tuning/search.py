@@ -17,7 +17,6 @@ import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
-from scipy.stats import qmc
 
 from .criteria import confidence_bound, constant_liar, expected_improvement
 from .gp import GaussianProcessEstimator
@@ -65,6 +64,8 @@ class RandomSearch:
         self.evaluation_function = evaluation_function
         self.discrete_params = discrete_params or {}
         self.seed = seed
+        from scipy.stats import qmc  # here, not at import: scipy.stats takes seconds to import
+
         self._sobol = qmc.Sobol(d=n_params, scramble=True, seed=seed)
 
     def draw_candidates(self, n: int) -> np.ndarray:

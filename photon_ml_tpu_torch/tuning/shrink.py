@@ -13,7 +13,6 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
-from scipy.stats import qmc
 
 from .gp import GaussianProcessEstimator
 from .kernels import Matern52
@@ -50,6 +49,8 @@ def get_bounds(
     posterior = GaussianProcessEstimator(kernel=Matern52(), seed=seed).fit(
         x, y_centered
     )
+    from scipy.stats import qmc  # here, not at import: scipy.stats takes seconds to import
+
     # draw a power-of-two pool (Sobol balance), then trim
     pool = 1 << int(np.ceil(np.log2(max(candidate_pool_size, 2))))
     candidates = qmc.Sobol(d=hyper_params.dim, scramble=True, seed=seed).random(pool)[

@@ -24,9 +24,11 @@ def compute_feature_statistics(raw: RawDataset, shard: str) -> Dict[str, np.ndar
     """Weighted-count statistics over a shard's COO features (zeros included
     in mean/variance via implicit zero entries, matching a dense summary).
 
-    One process only: the JAX package's multi-process branch (moment sums
-    over each host's rows, gathered and combined) is ROADMAP A10's, and a
-    world of more than one process raises."""
+    Several processes: each computes the moment sums over its own rows;
+    every process's sums are gathered (``parallel.multihost.allgather_object``)
+    and added in process order in float64 (the minima and maxima taken the
+    same way), so that every process returns the global statistics, bitwise
+    alike on every process."""
     rows, cols, vals = raw.shard_coo[shard]
     d = raw.shard_dims[shard]
     # padded rows (multi-process equal-share) carry no features and must not
@@ -42,12 +44,15 @@ def compute_feature_statistics(raw: RawDataset, shard: str) -> Dict[str, np.ndar
     np.minimum.at(fmin, cols, vals)
     np.maximum.at(fmax, cols, vals)
 
-    import torch.distributed as dist
+    from ..parallel import multihost
 
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "feature statistics over several processes (the gathered moment sums) are not ported yet (ROADMAP A10)"
-        )
+    if multihost.process_count() > 1:
+        parts = multihost.allgather_object((s1, s2, nnz, fmin, fmax, n))
+        s1, s2, nnz, fmin, fmax, n = parts[0]
+        for p1, p2, pn, pmin, pmax, pc in parts[1:]:
+            s1, s2, nnz = s1 + p1, s2 + p2, nnz + pn
+            fmin, fmax = np.minimum(fmin, pmin), np.maximum(fmax, pmax)
+            n = n + pc
 
     mean = s1 / max(n, 1)
     var = np.maximum(s2 / max(n, 1) - mean**2, 0.0)

@@ -16,7 +16,11 @@ coefficients atol 5e-3, loss atol 1e-4 on identical residuals). The
 sparse segment kernel is held against its float64 plain version at the
 gradient bound and must give the same bits on two launches; a float64 batch
 on the card takes the counted ``plain_float64`` route and reaches the CPU's
-float64 solve (loss rtol 1e-9).
+float64 solve (loss rtol 1e-9). Across processes: ``cli.train
+--distributed`` on two gloo ranks sharing the card against the one-process
+card fit (each coordinate's accepted loss rtol 1e-5, validation AUC within
+2e-3, the random effect keyed by entity id at atol 5e-3), and the
+cross-rank random-effect build on the card bitwise its CPU build.
 """
 
 import dataclasses
@@ -1546,3 +1550,85 @@ def test_pipeline_depth_2_on_card_is_bitwise_depth_1(cuda):
     for name in c1:
         assert torch.equal(c1[name].score(r1.model[name]), c1[name].score(r2.model[name]))
     assert [(n, e.primary_metric) for n, e in r1.evaluations] == [(n, e.primary_metric) for n, e in r2.evaluations]
+
+
+def test_distributed_cli_train_over_ranks_on_card_matches_one_card(cuda, tmp_path):
+    """Two ``cli.train --distributed`` ranks sharing the card over gloo (each
+    reads its own rows; B1-B3 on each rank joined by B4) against the
+    one-process fit on the card, in float32 and so at ROADMAP C5's bounds
+    (two float32 solves that sum in different orders stop at the loss's
+    resolution): each coordinate's last accepted training loss at rtol
+    1e-5, the validation AUC within 2e-3, the random effect keyed by entity
+    id at atol 5e-3; B1, B2, B3 with shifts launch in the one-process fit."""
+    import json
+
+    from _torch_mp_common import assert_ok, build_index, launch
+    from photon_ml_tpu_torch.cli import train
+    from photon_ml_tpu_torch.io.index_map import load_partitioned
+    from photon_ml_tpu_torch.io.model_io import load_game_model
+
+    train_p, val_p = _game_fixture(tmp_path)
+    index_dir = build_index(train_p, _GAME_SHARDS, tmp_path / "index")
+    argv = ["--input-data", train_p, "--validation-data", val_p, *_GAME_SHARDS, "--feature-index-dir", index_dir,
+            "--coordinate", "name=global,shard=globalShard,optimizer=TRON,tolerance=1e-6,max.iter=10,"
+                            "reg.type=L2,reg.weights=1,variance=SIMPLE",
+            "--coordinate", "name=per-user,shard=userShard,re.type=userId,tolerance=1e-6,max.iter=30,"
+                            "reg.type=L2,reg.weights=1,active.cap=256",
+            "--normalization", "STANDARDIZATION", "--coordinate-descent-iterations", "2",
+            "--evaluators", "AUC", "--log-level", "WARNING", "--device", "cuda"]
+    assert_ok(launch("train", argv + ["--output-dir", str(tmp_path / "two"), "--metrics-out", str(tmp_path / "m2")]))
+    one = train.run(argv + ["--output-dir", str(tmp_path / "one"), "--metrics-out", str(tmp_path / "m1")])
+    assert fg.LAUNCHES["fused_value_grad"] > 0 and fg.SHIFT_LAUNCHES["fused_hessian_stats"] > 0
+    docs = []
+    for m in ("m2", "m1"):
+        with open(tmp_path / m / "run_summary.json") as f:
+            docs.append(json.load(f))
+    assert docs[0]["distributed"] == {"backend": "gloo", "world_size": 2} and "distributed" not in docs[1]
+    losses = [{m["labels"]["coordinate"]: m["value"] for m in d["metrics"] if m["name"] == "photon_cd_accepted_loss"}
+              for d in docs]
+    assert set(losses[0]) == set(losses[1]) == {"global", "per-user"}
+    for name in losses[0]:
+        assert losses[0][name] == pytest.approx(losses[1][name], rel=1e-5), name
+    assert abs(docs[0]["best"]["metrics"]["AUC"] - one["best"]["metrics"]["AUC"]) <= 2e-3
+    maps = {s: load_partitioned(index_dir, s) for s in ("globalShard", "userShard")}
+    a = load_game_model(str(tmp_path / "two" / "models" / "best"), maps, task="logistic_regression")
+    b = load_game_model(str(tmp_path / "one" / "models" / "best"), maps, task="logistic_regression")
+    ra, rb = a["per-user"], b["per-user"]
+    ids = [str(e) for e in rb.entity_ids if not str(e).startswith("__pad")]
+    dim = len(maps["userShard"])
+    da = torch.as_tensor(ra.dense_coefficients(dim))[torch.as_tensor(ra.rows_for(ids))]
+    db = torch.as_tensor(rb.dense_coefficients(dim))[torch.as_tensor(rb.rows_for(ids))]
+    torch.testing.assert_close(da, db, rtol=0, atol=5e-3)
+
+
+def test_cross_rank_re_build_on_card_is_bitwise_its_cpu_build(cuda, tmp_path):
+    """``game.data_mp.build_random_effect_dataset_global`` on two gloo ranks
+    sharing the card: every block array, scoring array and table bitwise the
+    same two ranks' build on the CPU."""
+    import numpy as np
+
+    from photon_ml_tpu_torch.parallel import spawn
+    from photon_ml_tpu_torch.testing import generate_mixed_effect_data
+    from photon_ml_tpu_torch.testing.generators import mixed_data_to_raw_dataset
+
+    raw = mixed_data_to_raw_dataset(
+        generate_mixed_effect_data(n=2001, d_fixed=4, re_specs={"userId": (120, 9)}, seed=5, entity_skew=1.4))
+    raw = {f: getattr(raw, f) for f in ("n_rows", "labels", "offsets", "weights", "shard_coo", "shard_dims", "id_tags")}
+    cases = [dict(active_cap=None, pad_entities_to_multiple=8), dict(active_cap=8, active_lower_bound=3),
+             dict(active_cap=8, features_to_samples_ratio=0.5)]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        payload = dict(raw=raw, shard="userShard", re_type="userId", cases=cases, device=device)
+        runs[device] = spawn("_torch_mp_ranks:builds", 2, "gloo", device, args=(payload,), timeout_s=300.0,
+                             store_dir=tmp_path)
+    for rank in range(2):
+        for case in range(len(cases)):
+            got, want = runs["cuda"][rank][case], runs["cpu"][rank][case]
+            assert set(got) == set(want)
+            for key, value in got.items():
+                if isinstance(value, torch.Tensor):
+                    assert _same_bits(value, want[key]), (rank, case, key)
+                elif isinstance(value, np.ndarray):
+                    assert np.array_equal(value, want[key]), (rank, case, key)
+                else:
+                    assert value == want[key], (rank, case, key)

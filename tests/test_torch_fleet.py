@@ -1,8 +1,9 @@
 """The port's fleet plane (``photon_ml_tpu_torch.obs.fleet``,
 ``cli.fleetz``) and flight recorder against the JAX package's, on the CPU:
 the non-slow cases of tests/test_fleet.py, each run through both packages on
-the same Prometheus text, snapshots and JSONL streams. The two-process
-drill of that file is the multi-process path (ROADMAP A10) and stays there.
+the same Prometheus text, snapshots and JSONL streams, and that file's
+two-process drill over two gloo CPU ranks of the port's ``cli.train
+--distributed``.
 
 Bounds: parsing, merging, loading and stitching are host Python copied from
 the JAX package, so both packages' results are held equal (``==``).
@@ -521,6 +522,44 @@ def test_cli_fleetz_is_jax_free(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert "JAXFREE_OK" in proc.stdout
     assert os.path.exists(tmp_path / "fleet" / "fleet.prom")
+
+
+def test_two_process_fleet_merge_parity(tmp_path):
+    """tests/test_fleet.py's two-process drill through the port: two gloo
+    CPU ranks of ``cli.train --distributed`` leave their own streams
+    (``metrics.jsonl`` and ``metrics.p1.jsonl``); every merged counter is
+    the sum of the two, bit for bit, in both packages' merges, and the
+    stitched trace holds both pid lanes with no span dropped."""
+    from _torch_mp_common import assert_ok, build_index, launch, write_logistic_avro
+
+    data = write_logistic_avro(tmp_path / "train.avro", n=320, d=6, seed=5)
+    common = ["--input-data", data, "--feature-shard", "name=global,bags=features"]
+    index_dir = build_index(data, common[2:], tmp_path / "index")
+    metrics_dir = str(tmp_path / "metrics")
+    assert_ok(launch("train", common + [
+        "--task", "logistic_regression", "--coordinate",
+        "name=global,shard=global,optimizer=LBFGS,max.iter=40,reg.type=L2,reg.weights=1",
+        "--feature-index-dir", index_dir, "--output-dir", str(tmp_path / "out"), "--metrics-out", metrics_dir,
+        "--device", "cpu",
+    ]))
+    assert os.path.exists(os.path.join(metrics_dir, "metrics.jsonl"))
+    assert os.path.exists(os.path.join(metrics_dir, "metrics.p1.jsonl"))
+    streams = fleet.discover_streams([metrics_dir])
+    assert sorted(s.process_index for s in streams) == [0, 1]
+    merged = _by_key(fleet.merge_snapshots([(s.identity, s.snapshot) for s in streams]))
+    ref_streams = ref_fleet.discover_streams([metrics_dir])
+    assert _by_key(ref_fleet.merge_snapshots([(s.identity, s.snapshot) for s in ref_streams])) == merged
+    per_process = [_by_key(s.snapshot) for s in streams]
+    checked = 0
+    for key, m in merged.items():
+        if m["kind"] != "counter":
+            continue
+        assert m["value"] == sum(float(pp[key]["value"]) for pp in per_process if key in pp), key
+        checked += 1
+    assert checked > 0
+    events = [e for e in fleet.stitch_spans(streams)["traceEvents"] if e["ph"] == "X"]
+    assert len(events) == sum(len(s.spans) for s in streams)
+    assert {e["pid"] for e in events} == {0, 1}
 
 
 def test_zz_no_thread_outlives_the_file():

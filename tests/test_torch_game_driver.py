@@ -352,29 +352,42 @@ def test_explain_plan_prints_without_reading_data(tmp_path, capsys):
     assert "ROADMAP A10" in capsys.readouterr().err
 
 
+TWO_PROCESSES = ["--mesh-shape", "data=2", "--distributed", "coordinator=127.0.0.1:1,process=0,n=2"]
 REFUSED = {
-    "mesh-shape": (["--mesh-shape", "data=2"], "A10"),
-    "distributed": (["--distributed", "auto"], "A10"),
-    "collective-timeout": (["--collective-timeout", "30"], "A10"),
-    "heartbeat-interval": (["--heartbeat-interval", "1"], "A10"),
-    "heartbeat-timeout": (["--heartbeat-timeout", "5"], "A10"),
-    # sweep pipelining is ported: the flag resolves a pipelined plan
+    # a model axis stays refused; a data axis of the process count runs
+    "mesh-shape": (["--mesh-shape", "data=2,model=2", "--distributed", "coordinator=127.0.0.1:1,process=0,n=2"],
+                   "A10"),
+    # the multi-process flags are ported: each resolves the JAX package's
+    # two-process plan (the runs themselves: tests/test_torch_multihost.py,
+    # tests/test_torch_distributed.py)
+    "distributed": (TWO_PROCESSES, None),
+    "collective-timeout": (["--collective-timeout", "30", *TWO_PROCESSES], None),
+    "heartbeat-interval": (["--heartbeat-interval", "1", *TWO_PROCESSES], None),
+    "heartbeat-timeout": (["--heartbeat-timeout", "5", *TWO_PROCESSES], None),
+    # sweep pipelining is ported: the flag resolves a pipelined plan; over
+    # processes it stays refused
     "pipeline-depth": (["--pipeline-depth", "2"], None),
+    "pipeline-depth-distributed": (["--pipeline-depth", "2", *TWO_PROCESSES], "A10"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
-def test_refused_flags_name_their_roadmap_item(tmp_path, case):
+def test_refused_flags_name_their_roadmap_item(tmp_path, case, capsys):
     flags, item = REFUSED[case]
-    argv = ["--input-data", str(tmp_path / "absent.avro"), "--output-dir", str(tmp_path / "o"), *flags]
+    argv = ["--input-data", str(tmp_path / "absent.avro"), "--output-dir", str(tmp_path / "o"), *flags,
+            "--explain-plan"]
     if item is None:
-        doc = train.run(argv + ["--device", "cpu", "--explain-plan"])
-        ref = ref_train.run(argv + ["--explain-plan"])
-        assert doc["plan"]["pipeline_depth"] == ref["plan"]["pipeline_depth"] == 2
-        assert all(c["pipelined"] for c in doc["plan"]["coordinates"])
+        doc = train.run(argv + ["--device", "cpu"])
+        ref = ref_train.run(argv)
+        for key in ("pipeline_depth", "n_processes", "mesh_axes", "distributed"):
+            assert doc["plan"][key] == ref["plan"][key], key
+        assert [c["pipelined"] for c in doc["plan"]["coordinates"]] == [
+            c["pipelined"] for c in ref["plan"]["coordinates"]]
+        assert doc["plan"]["pipeline_depth"] == (2 if "--pipeline-depth" in flags else 1)
         return
-    with pytest.raises(PlanError, match=f"ROADMAP {item}"):
+    with pytest.raises(SystemExit) as e:
         train.run(argv + ["--device", "cpu"])
+    assert e.value.code == 1 and f"ROADMAP {item}" in capsys.readouterr().err
 
 
 # the incremental-training flags that were refused until the retrain path
@@ -489,10 +502,17 @@ def test_planner_refusals_and_helpers():
     plan = resolve([cc], dims={"globalShard": 5000})
     assert plan.coordinates[0].geometry == {"dim": 5000, "batch_layout": "ell"}
     assert plan_fingerprint(plan) == ref_plan_fingerprint(ref_resolve([ref_parse_coordinate(FE_SPEC)]))
-    for kwargs, item in (({"mesh": {"data": 2}}, "A10"), ({"n_processes": 2}, "A10"),
-                         ({"pipeline_depth": 2, "distributed": True}, "A10"), ({"distributed": True}, "A10")):
+    for kwargs, item in (({"mesh": {"data": 2}}, "A10"), ({"mesh": {"data": 2, "model": 2}, "n_processes": 2}, "A10"),
+                         ({"pipeline_depth": 2, "distributed": True}, "A10")):
         with pytest.raises(PlanError, match=f"ROADMAP {item}"):
             resolve([cc], **kwargs)
+    # several processes resolve as the JAX package's mesh of their data axis
+    for kwargs in ({"n_processes": 2}, {"distributed": True, "n_processes": 2}, {"mesh": {"data": 2}, "n_processes": 2}):
+        ours = resolve([cc], **kwargs)
+        theirs = ref_resolve([ref_parse_coordinate(FE_SPEC)], **{**kwargs, "mesh": {"data": 2, "model": 1}})
+        assert ours.n_processes == theirs.n_processes == 2
+        assert ours.coordinates[0].sharding == theirs.coordinates[0].sharding == "row-sharded"
+        assert plan_fingerprint(ours) == ref_plan_fingerprint(theirs)
     # sweep pipelining resolves as in the JAX package
     piped = resolve([cc], pipeline_depth=2)
     ref_piped = ref_resolve([ref_parse_coordinate(FE_SPEC)], pipeline_depth=2)
@@ -519,8 +539,9 @@ def test_planner_refusals_and_helpers():
         assert str(ours.value) == str(theirs.value)
     check_retrain_composition(False, 1, ())
     assert parse_mesh_shape("") is None
-    with pytest.raises(PlanError, match="A10"):
-        parse_mesh_shape("data=4")
+    assert parse_mesh_shape("data=4") == {"data": 4, "model": 1}
+    with pytest.raises(ValueError, match="unknown mesh keys"):
+        parse_mesh_shape("data=4,rows=2")
     assert plan_host_row_split("x") == (None, None)
     with pytest.raises(PlanError, match="trial-lanes must be >= 1: 0"):
         GameEstimator("logistic_regression", [cc], device="cpu").fit_lanes(None, [])

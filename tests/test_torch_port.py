@@ -55,18 +55,19 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
     } - {"photon_ml_tpu_torch"}
     assert modules == files
     assert {"photon_ml_tpu_torch.serving.batcher", "photon_ml_tpu_torch.cli.serve",
-            "photon_ml_tpu_torch.obs.http"} <= modules
+            "photon_ml_tpu_torch.obs.http", "photon_ml_tpu_torch.robust.distributed",
+            "photon_ml_tpu_torch.game.data_mp"} <= modules
 
 
 def test_port_sources_name_no_jax_import():
     """No module of the port, not chip_smoke.py and not the card tests or
-    the data-parallel rank bodies has an import of jax or of the JAX package (photon_ml_tpu_torch shares the prefix, so match the
+    the data-parallel and cross-process build rank bodies has an import of jax or of the JAX package (photon_ml_tpu_torch shares the prefix, so match the
     module name exactly)."""
     import ast
 
     files = sorted((ROOT / "photon_ml_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
-        ROOT / "tests" / "test_torch_parallel_ranks.py",
+        ROOT / "tests" / "test_torch_parallel_ranks.py", ROOT / "tests" / "_torch_mp_ranks.py",
     ]
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
