@@ -58,8 +58,9 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    Hessian statistics with and without shifts, at the bounds of phase 3;
    every rank bitwise alike, and bitwise equal to the all-reduce path (the rank's
    f32 outputs into a zero slot buffer, an all-reduce, a loop); at n rows
-   each function's time per call in turns with the all-reduce path (prev, new, new,
-   prev), its collective alone (both designs) and the rank's kernel alone;
+   and f32 X each function's time per call in turns with the all-reduce path
+   (prev, new, new, prev), its collective alone (both designs) and the rank's
+   kernel alone (the bf16 turns were cut to make room for phase 18);
    (b) the sweep of phase 5 on 4 gloo ranks (each rank reads its rows of the
    fixed effect's X from a memory-mapped .npy the parent wrote, builds the
    random effect and keeps its entity range), one warm-up and three timed
@@ -157,7 +158,8 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    rtol 1e-3; the port's MAX_FULL_VARIANCE_DIM must be the largest d
    measured here, and one column more must raise;
 11. data and model IO (run after phase 10, before phase 9; phase 5 first):
-   (a) the port's Avro writer, in worker processes, writes 200,000 training
+   (a) the port's Avro writer, in worker processes (started beside phase
+   2's build since PR 19, so their start is not timed), writes 200,000 training
    and 50,000 validation rows (8 + 2 deflate parts, 32 nonzeros a row drawn
    from 1,023 named features, values N(0, 1), logistic labels from a
    seeded model; 8,000,000 feature entries) into a temporary directory,
@@ -217,16 +219,18 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
 
 13. hyperparameter tuning (run after phase 12, on its fixture; phase 5
    first): (a) S2, the lane-wide segment kernel (matmat and rmatmat), at
-   phase 9's sparse shape, COO and ELL, L = 1, 3, 4, 7, 8, 16 and 40 (7: a
-   tail sub-chunk; 40: past the panel of 16 columns): against its float64
+   phase 9's sparse shape, COO and ELL, L = 1, 4, 7, 8, 16 and 40 (7: a
+   tail sub-chunk; 40: past the panel of 16 columns; L = 3 cut to make room
+   for phase 18): against its float64
    plain version (max-abs <= 3e-5 * max(|ref|, 1)), each column bitwise
-   S1's, two launches alike; timed by CUDA events and from a CUDA graph
-   beside its byte bound (the distinct gathered source rows counted),
+   S1's, two launches alike; at L = 4 and 16 timed by CUDA events (one
+   round of turns; two rounds at every width before phase 18 joined the
+   run's time limit) and from a CUDA graph beside its byte bound (the
+   distinct gathered source rows counted),
    L x S1, the index_add_ composition and cuSPARSE's SpMM; (b) lambda-lane sweeps in process on phase 5's data
    (bench.py's sweep protocol: L-BFGS tol 1e-7, 50 iterations, 2 sweeps,
-   variance NONE): K = 1, 4 and 8 lanes against K sequential fits (walls;
-   K = 8 against 8 times K = 4's mean sequential trial, its
-   lanes not held one by one; each lane of K = 1 and 4: its FE
+   variance NONE): K = 1 and 4 lanes against K sequential fits (walls;
+   K = 8, timed only, was cut to make room for phase 18; each lane: its FE
    coefficients atol 5e-3 and training AUC within 1e-4 of its sequential
    fit's; its RE on identical residuals in float64 atol
    5e-3, the f32 pair and the chained difference printed), the RE lane
@@ -239,10 +243,11 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    the f32 gaps printed), then, warm and profiled, the 4-lane solve, its 4
    singles and the 8-lane solve of bench.py's protocol lambdas (S2's device
    ms, launches and share of the busy time beside the top operations); (d) cli.train on phase 12's fixture: sequential
-   BAYESIAN with phase 12's options and 2 trials (B1, B2, B3 with shifts and
-   S1 each launched), then RANDOM --trial-lanes 4 with 8 trials, variance
-   and normalization NONE (2 batches timed, 8 trials counted, the tuned
-   model reloaded bitwise, the prior file with 9 records); (e) that lane
+   BAYESIAN with phase 12's options and 1 trial (B1, B2, B3 with shifts and
+   S1 each launched), then RANDOM --trial-lanes 4 with 4 trials, variance
+   and normalization NONE (1 batch timed, 4 trials counted, the tuned
+   model reloaded bitwise, the prior file with 5 records; 2 and 8 trials
+   before phase 18 joined the run's time limit); (e) that lane
    run with 4 trials and --checkpoint-dir, killed by tuning.trial at the
    second lane and resumed: candidates bitwise (d)'s, AUC within 1e-4.
 14. the retrain chain (run after phase 13, on phase 12's fixture): the
@@ -257,7 +262,9 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    0 before it and read at each day's gate decision: per-day launches (B1,
    B2, B3 with shifts and S1 each above 0 over the run), day and stage
    walls (read, train, merge, gate, save, publish), every day accepted;
-   each day replayed from its boundary checkpoints on identical inputs: the
+   days 1 and 3 (the first day, and the last with its prior and its
+   untouched users; day 2's replay was cut to make room for phase 18)
+   replayed from their boundary checkpoints on identical inputs: the
    fixed effect's first update through the kernels (bitwise the chain's)
    against the plain versions (means and variances rtol 1e-3 / atol 1e-5),
    the random effect's last update in f32 (bitwise the chain's) against
@@ -343,13 +350,43 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    S1 launched on each rank; (d) cli.fleetz over (a)'s two streams, every
    merged counter the ranks' sum; (e) one rank over NCCL, beside (c) and
    (d): the saved models bitwise phase 12 (b)'s.
+18. the (data x model)-tiled fixed effect (run after phase 17, on phase
+   12's fixture and its (b)'s coordinates) on a 2 x 2 grid of 4 gloo ranks
+   sharing the card (parallel.spawn; NCCL refuses two ranks of one
+   communicator on one card), every counter at 0 before each part: (a)
+   phase 9's sparse data (n=200,000, d=10,000,000, 32 entries a row), each
+   rank its 100,000 x 5,000,000 tile: matvec, rmatvec and sq_rmatvec
+   against float64 plain products of the whole batch (max-abs <= 3e-5 *
+   max(|ref|, 1)), the ranks of a data row bitwise alike in z and of a
+   model column in their gradient slices, one S1 launch a product and one
+   rank-order sum, no dense kernel; (b) phase 9's L-BFGS solve as
+   GLMProblem.run on the tiled batch, twice (the same bits), against the
+   one-card COO solve by loss (rtol 1e-5), every rank with the same
+   iterations, reason, loss and model bits, its slice bitwise within its
+   model column, the route tiled_kernel; per rank its wall, collectives by
+   subgroup and their seconds, launches and the allocator's peak; then
+   bench.py's tiled measure printed (S1's value+grad on one card at the
+   whole nnz against the (2 x 4) tile (0, 0)'s share); (c) FULL variances
+   on tiles at d = 8,191 (padded to 8,192: one pinned column, its variance
+   1 / (1 + l2)), 24,576 rows in three chunks a data row, against the
+   one-card dense FULL path (rtol 1e-3), every rank bitwise alike; (d)
+   cli.train --distributed --mesh-shape data=2,model=2 with phase 12 (b)'s
+   options and the fixed effect tiled (TRON, SIMPLE variance,
+   STANDARDIZATION), every update a boundary checkpoint, beside the
+   one-process cli.train on a 1 x 1 grid: fixed-effect means and variances
+   rtol 1e-3 / atol 1e-5, the random effect retrained on one card on the
+   grid's last residual (atol 5e-3, per-entity loss atol 1e-4), AUC within
+   1e-4, the saved fixed effect of the shard's true dimension, every rank
+   on the tiled route with S1 and the sum launched and no dense kernel;
+   then a resume on data=2,model=1 refused on every rank in the JAX
+   package's words.
 
     python3 chip_smoke.py --only timing    # card, build, then one phase
 
-runs a subset of phases 3-17 (check, fe, glmix, dp, nccl, solvers, io, game, streaming, tuning, s2,
-sparse, timing, variants, retrain, serving, distributed) and then reports not ok; "streaming" runs phase 5,
-writes phase 12's fixture and runs its (b) before phase 16; "distributed" writes phase 12's fixture
-and runs its (b) before phase 17; "s2" is phase 13 (a) alone; "solvers", "io", "game" and "tuning" run phase 5 first ("game" and
+runs a subset of phases 3-18 (check, fe, glmix, dp, nccl, solvers, io, game, streaming, tuning, s2,
+sparse, timing, variants, retrain, serving, distributed, tiled) and then reports not ok; "streaming" runs phase 5,
+writes phase 12's fixture and runs its (b) before phase 16; "distributed" and "tiled" write phase 12's fixture
+and run its (b) before phases 17 and 18; "s2" is phase 13 (a) alone; "solvers", "io", "game" and "tuning" run phase 5 first ("game" and
 "tuning" write phase 12's fixture first); "retrain" writes phase 12's
 fixture and runs phase 14; "nccl" is phase 6 (c) alone after
 phase 5 (for a machine with several cards: one NCCL rank per card).
@@ -1249,10 +1286,10 @@ def dp_b4_rank(group, n, d, seed):
                 name: tuple(None if o is None else o.cpu() for o in call()) for name, call in calls.items()
             }
             same[(nn, xname)] = _same_as_prev(torch, group, calls, kernels)
-            if nn == n:
+            if nn == n and xname == "float32":
+                # the bf16 turns were cut to make room for phase 18
                 times[xname] = _b4_times(torch, fg, group, d, calls, kernels)
-                if xname == "float32":
-                    times[xname]["staging"] = _staging_ms(torch, group, fg._out_width(fg.VG, d))
+                times[xname]["staging"] = _staging_ms(torch, group, fg._out_width(fg.VG, d))
             del xs
             torch.cuda.empty_cache()
     return {"outs": outs, "times": times, "same_as_prev": same, "device": str(dev), "backend": group.backend}
@@ -1472,6 +1509,7 @@ def dp_path(torch, n, d, seed, state, device="cuda", gloo=True):
                     worst = max(r["times"][xname][name]["ms"] for r in ranks)
                     log_b4_time(f"gloo world={DP_RANKS} {xname:8s}", name, t, worst)
                 times[xname] = row
+            log("  (a) cut to make room for phase 18: B4 timed with f32 X only (the bf16 turns dropped)")
             st = ranks[0]["times"]["float32"]["staging"]
             log(f"  the collective's parts alone, ms per call on rank 0 of {DP_RANKS} (gloo): "
                 + ", ".join(f"{k} {v:.4f}" for k, v in st.items()))
@@ -3178,12 +3216,55 @@ def _io_write_part(path, seed, part, rows):
     return time.perf_counter() - t0
 
 
+_WRITER_POOL = None
+
+
+def writer_pool():
+    """The worker processes that write the fixtures' part files (phases 11
+    (a) and 12 (a)), spawned on first use (``warm_writer_pool``, beside the
+    build) and kept until ``close_writer_pool`` (or the interpreter's
+    exit): neither fixture pays a process start (cut to make room for
+    phase 18)."""
+    global _WRITER_POOL
+    if _WRITER_POOL is None:
+        import atexit
+        import concurrent.futures
+        import multiprocessing
+        import os
+
+        _WRITER_POOL = concurrent.futures.ProcessPoolExecutor(
+            os.cpu_count() or 1, mp_context=multiprocessing.get_context("spawn"))
+        atexit.register(close_writer_pool)
+    return _WRITER_POOL
+
+
+def _warm_writer() -> None:
+    """A writer process's imports, done before its first part."""
+    import photon_ml_tpu_torch.io.avro  # noqa: F401
+
+
+def warm_writer_pool() -> None:
+    """Start ``writer_pool``'s processes and their imports now, without
+    waiting (the build phase runs meanwhile), so that the fixtures' writes
+    pay no process start (cut to make room for phase 18)."""
+    import os
+
+    pool = writer_pool()
+    for _ in range(os.cpu_count() or 1):
+        pool.submit(_warm_writer)
+
+
+def close_writer_pool():
+    global _WRITER_POOL
+    if _WRITER_POOL is not None:
+        _WRITER_POOL.shutdown()
+        _WRITER_POOL = None
+
+
 def io_write(root, seed):
-    """(a) The fixture's part files, all written at once by worker processes
-    (spawned, joined before this returns): (train dir, validation dir,
-    wall seconds, summed writer seconds)."""
-    import concurrent.futures
-    import multiprocessing
+    """(a) The fixture's part files, all written at once by the worker
+    processes of ``writer_pool``: (train dir, validation dir, wall seconds,
+    summed writer seconds)."""
     import os
 
     jobs = []
@@ -3191,9 +3272,7 @@ def io_write(root, seed):
         os.makedirs(os.path.join(root, name))
         jobs += [(os.path.join(root, name, f"part-{p:05d}.avro"), seed, base + p, rows // parts) for p in range(parts)]
     t0 = time.perf_counter()
-    workers = min(len(jobs), os.cpu_count() or 1)
-    with concurrent.futures.ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
-        writer_s = list(pool.map(_io_write_part, *zip(*jobs)))
+    writer_s = list(writer_pool().map(_io_write_part, *zip(*jobs)))
     return os.path.join(root, "train"), os.path.join(root, "validation"), time.perf_counter() - t0, sum(writer_s)
 
 
@@ -3467,11 +3546,10 @@ def _game_write_part(path, seed, part, rows, even_users=False):
 
 def game_write(root, seed):
     """(a) The fixture's part files, and phase 14's day 3 under
-    ``root/day3``, all written at once by worker processes (spawned, joined
-    before this returns): (train dir, validation dir, day 3 dir, wall
-    seconds, summed writer seconds of the fixture's parts)."""
-    import concurrent.futures
-    import multiprocessing
+    ``root/day3``, all written at once by the worker processes of
+    ``writer_pool`` (phase 11 (a)'s, when it ran): (train dir, validation
+    dir, day 3 dir, wall seconds, summed writer seconds of the fixture's
+    parts)."""
     import os
 
     jobs = []
@@ -3484,9 +3562,7 @@ def game_write(root, seed):
     parts, rows = RETRAIN_DAY3
     jobs += [(os.path.join(root, "day3", f"part-{p:05d}.avro"), seed, 2000 + p, rows, True) for p in range(parts)]
     t0 = time.perf_counter()
-    workers = min(len(jobs), os.cpu_count() or 1)
-    with concurrent.futures.ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
-        writer_s = list(pool.map(_game_write_part, *zip(*jobs)))
+    writer_s = list(writer_pool().map(_game_write_part, *zip(*jobs)))
     return (os.path.join(root, "train"), os.path.join(root, "validation"), os.path.join(root, "day3"),
             time.perf_counter() - t0, sum(writer_s[:n_fixture]))
 
@@ -3925,7 +4001,11 @@ def game_fixture(root, seed):
     """Phase 12 (a): the fixture's part files under ``root`` (phases 12 and
     13 read them): (train dir, validation dir, wall seconds, summed writer
     seconds)."""
+    reused = _WRITER_POOL is not None
     train, validation, day3, wall, writer_s = game_write(root, seed)
+    if reused:
+        log("  (a) cut to make room for phase 18: written by the writer processes started beside the build, kept "
+            "(no process start here)")
     rows = IO_TRAIN[0] + IO_VALIDATION[0]
     log(f"  (a) wrote {rows} rows ({IO_NNZ} global and {GAME_RE_FEATURES} per-user features a row, "
         f"{GAME_USERS} Zipf(1.1) users) into {IO_TRAIN[1]} + {IO_VALIDATION[1]} deflate parts, and phase 14's "
@@ -4002,7 +4082,7 @@ train.build_normalization = recording
 result = (train if cli == "train" else score).run(argv)
 doc = {"wall_s": time.perf_counter() - t0, "launches": dict(fg.LAUNCHES), "shifts": dict(fg.SHIFT_LAUNCHES),
        "sharded": dict(fg.SHARDED_LAUNCHES), "sums": dict(fg.SUM_LAUNCHES), "sparse": dict(sparse.SPARSE_LAUNCHES),
-       "normalization": digests}
+       "routes": dict(fg.OBJECTIVE_ROUTES), "normalization": digests}
 if cli == "train":
     doc["stage_seconds"] = result["stage_seconds"]
 with open(out_path, "w") as f:
@@ -4453,12 +4533,19 @@ def distributed_phase(torch, fixture, game, smi):
 # fixed-effect lane solve; and cli.train's tuning on phase 12's fixture,
 # sequential and lane-batched, killed in the middle of a batch and resumed.
 
-S2_WIDTHS = (1, 3, 4, 7, 8, 16, 40)  # lanes of (a): 7 ends in a sub-chunk of 3, 40 runs panels of 16, 16 and 8
+# lanes of (a): 7 ends in a sub-chunk of 3, 40 runs panels of 16, 16 and 8
+# (L = 3 was cut to make room for phase 18)
+S2_WIDTHS = (1, 4, 7, 8, 16, 40)
+# the widths (a) times (every width before phase 18 joined the run's time limit)
+S2_TIMED_WIDTHS = (4, 16)
 S2_MAIN_WIDTH = 4  # the lanes of (c) and (d): each S2 line of the kernels JSON is timed at this width
 TUNING_LAMBDAS = (0.01, 0.1, 1.0, 10.0)
 SWEEP_LAMBDAS = tuple(float(x) for x in np.logspace(-2.0, 2.0, 8))  # (b)'s K = 8, bench_sweep's; K = 4 takes TUNING_LAMBDAS
-SWEEP_LANES = (1, 4, 8)
+SWEEP_LANES = (1, 4)  # K = 8 (timed against 8 times K = 4's mean trial) cut to make room for phase 18
 TUNING_KILL_AT = 2  # tuning.trial: the second lane of the first batch
+# (d)'s trials, cut to make room for phase 18 (2 and 8 before)
+TUNING_SEQ_TRIALS = 1
+TUNING_LANE_TRIALS = 4
 # the smallest lambda whose f32 lanes (b) and (c) hold at atol 5e-3 beside
 # the float64 pair: below it the f32 solves stop at f32's resolution
 # (ROADMAP C3 for (c)'s lambda 0.01, C4 (d) for (b)'s per-user problems),
@@ -4475,15 +4562,45 @@ def s2_bytes(seg, n_seg, n_src, L, rows=None):
     return seg.gather.shape[0] * (4 + seg.val.element_size()) + 4 * L * (rows + n_seg)
 
 
+def _s2_times(torch, sparse, name, layout, product, seg, n_seg, src, ids, gather, csr):
+    """(a)'s times of S2 at one width: in turns, cuSPARSE's SpMM, the
+    index_add_ composition, S1 on one column, S2, S2, S1 (CUDA events over
+    20 calls after 3); S2 from a CUDA graph; the plain version."""
+    L = src.shape[1]
+    acc = torch.empty((n_seg, L), device=src.device)
+
+    def by_index_add():
+        acc.zero_()
+        return acc.index_add_(0, ids, src[gather] * seg.val[:, None])
+
+    def library():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return torch.sparse.mm(csr, src)
+
+    kern = lambda: sparse.segment_dot_lanes(name, seg, n_seg, src)  # noqa: E731
+    col0 = src[:, 0].contiguous()
+    single = lambda: sparse.segment_dot(  # noqa: E731
+        f"{layout}_{'matvec' if product == 'matmat' else 'rmatvec'}", seg, n_seg, col0)
+    runs = {"library_ms": [time_ms(torch, library, 20)], "index_add_ms": [time_ms(torch, by_index_add, 20)]}
+    runs["s1_ms"] = [time_ms(torch, single, 20)]
+    runs["ms"] = [time_ms(torch, kern, 20), time_ms(torch, kern, 20)]
+    runs["s1_ms"].append(time_ms(torch, single, 20))
+    row = {k: min(v) for k, v in runs.items()}
+    row.update({"ms_runs": runs["ms"], "graph_ms": graph_ms(torch, kern, 20),
+                "plain_ms": time_ms(torch, lambda: sparse.segment_dot_plain(seg, n_seg, src), 3)})
+    row["l_times_s1_ms"] = L * row["s1_ms"]
+    return row
+
+
 def s2_check_and_time(torch, seed, batches, problems):
     """(a) S2 at phase 9's sparse shape, COO and ELL, for every width of
     S2_WIDTHS: matmat and rmatmat against the float64 plain version
     (max-abs <= 3e-5 * max(|ref|, 1)), each column bitwise S1's on that
-    column, two launches bitwise alike; then the time by CUDA events (20
-    launches after 3, two rounds) and replayed from a CUDA graph, beside its
-    byte bound, L x S1's time on one column, the index_add_ composition and
-    cuSPARSE's SpMM (torch.sparse.mm on the CSR matrix) on the same inputs.
-    The launches made here are not main-path launches."""
+    column, two launches bitwise alike, cuSPARSE's SpMM (torch.sparse.mm
+    on the CSR matrix) on the same inputs beside; at S2_TIMED_WIDTHS the
+    times of ``_s2_times`` beside its byte bound. The launches made here
+    are not main-path launches."""
     from photon_ml_tpu_torch.ops import sparse
 
     dev = torch.device("cuda")
@@ -4504,6 +4621,9 @@ def s2_check_and_time(torch, seed, batches, problems):
                 warnings.simplefilter("ignore")
                 csr = torch.sparse_csr_tensor(ptr.to(torch.int32), seg.gather, seg.val, size=(n_seg, n_src))
             rows = gathered_rows(seg, n_src)
+            if name == "coo_matmat":
+                log(f"  (a) cut to make room for phase 18: L = 3 left out; timed at L = {S2_TIMED_WIDTHS} only (every "
+                    f"width before), one round of turns (two before)")
             for L in S2_WIDTHS:
                 src = torch.randn((n_src, L), generator=gen, device=dev)
                 a = sparse.segment_dot_lanes(name, seg, n_seg, src)
@@ -4520,55 +4640,30 @@ def s2_check_and_time(torch, seed, batches, problems):
                 with warnings.catch_warnings():
                     warnings.simplefilter("ignore")
                     lib_err = float((torch.sparse.mm(csr, src) - a).abs().max())
-                acc = torch.empty((n_seg, L), device=dev)
-
-                def by_index_add():
-                    acc.zero_()
-                    return acc.index_add_(0, ids, src[gather] * seg.val[:, None])
-
-                def library():
-                    with warnings.catch_warnings():
-                        warnings.simplefilter("ignore")
-                        return torch.sparse.mm(csr, src)
-
-                kern = lambda: sparse.segment_dot_lanes(name, seg, n_seg, src)  # noqa: E731
-                col0 = src[:, 0].contiguous()
-                single = lambda: sparse.segment_dot(  # noqa: E731
-                    f"{layout}_{'matvec' if product == 'matmat' else 'rmatvec'}", seg, n_seg, col0)
-                plain = lambda: sparse.segment_dot_plain(seg, n_seg, src)  # noqa: E731
-                runs = {k: [] for k in ("ms", "s1_ms", "index_add_ms", "library_ms")}
-                for _ in range(2):  # in turns: library, index_add_, S1, S2, S2, S1
-                    runs["library_ms"].append(time_ms(torch, library, 20))
-                    runs["index_add_ms"].append(time_ms(torch, by_index_add, 20))
-                    runs["s1_ms"].append(time_ms(torch, single, 20))
-                    runs["ms"].append(time_ms(torch, kern, 20))
-                    runs["ms"].append(time_ms(torch, kern, 20))
-                    runs["s1_ms"].append(time_ms(torch, single, 20))
-                plain_ms = time_ms(torch, plain, 3)
-                g_ms = graph_ms(torch, kern, 20)
                 nbytes = s2_bytes(seg, n_seg, n_src, L, rows)
                 ops = 2 * seg.gather.shape[0] * L
                 t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS["float32"] * 1e3
-                row = {k: min(v) for k, v in runs.items()}
-                row.update({"plain_ms": plain_ms, "graph_ms": g_ms, "bound_ms": max(t_bytes, t_ops),
-                            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes, "ops": ops,
-                            "max_abs_err": err, "columns_bitwise_s1": columns_s1, "same_bits_twice": twice,
-                            "library_max_abs_diff": lib_err, "segments": n_seg, "entries": seg.gather.shape[0],
-                            "gathered_rows": rows,
-                            "form": "keys" if seg.keys is not None else f"row groups of {seg.group}"})
-                row["l_times_s1_ms"] = L * row["s1_ms"]
+                row = {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                       "bytes": nbytes, "ops": ops, "max_abs_err": err, "columns_bitwise_s1": columns_s1,
+                       "same_bits_twice": twice, "library_max_abs_diff": lib_err, "segments": n_seg,
+                       "entries": seg.gather.shape[0], "gathered_rows": rows,
+                       "form": "keys" if seg.keys is not None else f"row groups of {seg.group}"}
+                head = (f"  (a) S2 {name:12s} L={L:2d} ({row['form']}) err={err:.3e}/{bound:.3e} columns bitwise "
+                        f"S1={columns_s1} same bits twice={twice} {'ok' if ok else 'MISS'}")
+                if L in S2_TIMED_WIDTHS:
+                    row.update(_s2_times(torch, sparse, name, layout, product, seg, n_seg, src, ids, gather, csr))
+                    log(f"{head}; kernel {'/'.join(f'{t:.4f}' for t in row['ms_runs'])} ms (graph "
+                        f"{row['graph_ms']:.4f}), L x S1 {row['l_times_s1_ms']:.4f} (S1 {row['s1_ms']:.4f}), "
+                        f"index_add_ {row['index_add_ms']:.4f}, cuSPARSE SpMM {row['library_ms']:.4f} (max abs diff "
+                        f"{lib_err:.2e}), plain {row['plain_ms']:.4f}; bound {row['bound_ms']:.4f} ms "
+                        f"({row['bound_by']}, {nbytes} B): {row['bound_ms'] / row['ms']:.1%} of it")
+                else:
+                    log(f"{head}; cuSPARSE SpMM max abs diff {lib_err:.2e}; not timed")
                 out[(name, L)] = row
-                log(f"  (a) S2 {name:12s} L={L:2d} ({row['form']}) err={err:.3e}/{bound:.3e} columns bitwise "
-                    f"S1={columns_s1} same bits twice={twice} {'ok' if ok else 'MISS'}; kernel "
-                    f"{'/'.join(f'{t:.4f}' for t in runs['ms'])} ms (graph {g_ms:.4f}), L x S1 "
-                    f"{row['l_times_s1_ms']:.4f} (S1 {row['s1_ms']:.4f}), index_add_ {row['index_add_ms']:.4f}, "
-                    f"cuSPARSE SpMM {row['library_ms']:.4f} (max abs diff {lib_err:.2e}), plain {plain_ms:.4f}; "
-                    f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, {nbytes} B): "
-                    f"{row['bound_ms'] / row['ms']:.1%} of it")
                 if not ok:
                     problems.append(f"S2 {name} L={L}: err {err:.3e} (bound {bound:.3e}), columns bitwise S1 "
                                     f"{columns_s1}, same bits twice {twice}")
-                del src, a, b, cols, acc
+                del src, a, b, cols
             del csr, ids, gather, ptr
             torch.cuda.empty_cache()
     sparse.SPARSE_LAUNCHES.update(saved)  # checks are not main-path launches
@@ -4644,10 +4739,10 @@ def _count_syncs(torch, fn):
 def lane_sweep(torch, state, problems):
     """(b) bench.py's --config sweep protocol in process at build_data's
     width (phase 5's datasets; L-BFGS tol 1e-7, 50 iterations, L2, variance
-    NONE, bench_sweep's lambdas): 2 sweeps of K = 1, 4 and 8 lanes
+    NONE, bench_sweep's lambdas): 2 sweeps of K = 1 and 4 lanes
     (fit_lanes) against K sequential fits (CoordinateDescent, the kernels;
-    for K = 8 against 8 times K = 4's mean sequential trial,
-    its lanes not held one by one), walls on the host clock ending in a
+    K = 8 against 8 times K = 4's mean sequential trial was cut to make
+    room for phase 18), walls on the host clock ending in a
     synchronize. Each lane's fixed
     effect against its sequential fit's (atol 5e-3) and its training AUC
     within 1e-4 of the sequential fit's. The random effect is held on
@@ -4697,6 +4792,7 @@ def lane_sweep(torch, state, problems):
         torch.cuda.synchronize()
         seq[lam] = (res.model, time.perf_counter() - t0, _lane_auc(torch, coords, res.model))
     out = {"sequential_s": {lam: v[1] for lam, v in seq.items()}}
+    log("  (b) cut to make room for phase 18: K = 8 lanes (timed only) left out; K = 1 and 4 run")
     for K in SWEEP_LANES:
         lams = lanes_of[K]
         combos = [{"global": lam, "per-user": lam} for lam in lams]
@@ -4924,11 +5020,12 @@ def _lane_argv(train, validation, out, extra=()):
 
 def tuning_driver(torch, fixture, problems, smi):
     """(d) cli.train's tuning on phase 12's fixture: sequential BAYESIAN
-    with phase 12's options and 2 trials (the launches of B1, B2, B3 with
-    shifts and S1 each above 0); then RANDOM with --trial-lanes 4 and 8
-    trials, variance and normalization NONE, output mode TUNED: the batch
-    walls (photon_tuning_batch_wall_seconds), the tuned model reloaded
-    bitwise the model it was saved from, the prior file with 1 + 8
+    with phase 12's options and TUNING_SEQ_TRIALS trials (the launches of
+    B1, B2, B3 with shifts and S1 each above 0); then RANDOM with
+    --trial-lanes 4 and TUNING_LANE_TRIALS trials, variance and
+    normalization NONE, output mode TUNED: the batch walls
+    (photon_tuning_batch_wall_seconds), the tuned model reloaded bitwise the
+    model it was saved from, the prior file with 1 + TUNING_LANE_TRIALS
     records."""
     import os
 
@@ -4937,12 +5034,14 @@ def tuning_driver(torch, fixture, problems, smi):
 
     root, train, validation = fixture["root"], fixture["train"], fixture["validation"]
     out = {}
+    log(f"  (d) cut to make room for phase 18: {TUNING_SEQ_TRIALS} sequential trial (2 before) and "
+        f"{TUNING_LANE_TRIALS} lane trials, one batch (8 in two batches before)")
     argv = game_argv(train, validation, os.path.join(root, "out-13-seq"),
-                     ["--hyper-parameter-tuning", "BAYESIAN", "--hyper-parameter-tuning-iter", "2",
+                     ["--hyper-parameter-tuning", "BAYESIAN", "--hyper-parameter-tuning-iter", str(TUNING_SEQ_TRIALS),
                       "--output-mode", "TUNED"])
     summary, wall, launches, shifts, s1 = _counted_train(torch, argv)
     aucs = [c["metrics"]["AUC"] for c in summary["configs"]]
-    log(f"  (d) sequential BAYESIAN, 2 trials: {wall:.2f} s (stages "
+    log(f"  (d) sequential BAYESIAN, {TUNING_SEQ_TRIALS} trial(s): {wall:.2f} s (stages "
         + ", ".join(f"{k} {v:.3f}" for k, v in summary["stage_seconds"].items())
         + f"); launches {launches}, B3 with shifts {shifts}, S1 ell_matvec {s1}; trials "
         + "; ".join(f"{c['reg_weights']} AUC {c['metrics']['AUC']:.6f}" for c in summary["configs"][1:])
@@ -4950,8 +5049,8 @@ def tuning_driver(torch, fixture, problems, smi):
     if min(launches["fused_value_grad"], launches["fused_hessian_vector"], shifts, s1) <= 0:
         problems.append(f"(d) sequential tuning did not launch B1, B2, B3 with shifts and S1: {launches}, "
                         f"shifts {shifts}, S1 {s1}")
-    if len(summary["configs"]) != 3:
-        problems.append(f"(d) sequential tuning ran {len(summary['configs']) - 1} trials, not 2")
+    if len(summary["configs"]) != 1 + TUNING_SEQ_TRIALS:
+        problems.append(f"(d) sequential tuning ran {len(summary['configs']) - 1} trials, not {TUNING_SEQ_TRIALS}")
     out["sequential"] = {"wall_s": wall, "stage_seconds": summary["stage_seconds"], "launches": launches,
                          "shift_launches": shifts, "s1_launches": s1, "best_auc": summary["best"]["metrics"]["AUC"]}
 
@@ -4960,7 +5059,7 @@ def tuning_driver(torch, fixture, problems, smi):
     try:
         summary, wall, launches, shifts, s1 = _counted_train(torch, _lane_argv(
             train, validation, lane_out, ["--hyper-parameter-tuning", "RANDOM", "--hyper-parameter-tuning-iter",
-                                          "8", "--trial-lanes", "4", "--output-mode", "TUNED",
+                                          str(TUNING_LANE_TRIALS), "--trial-lanes", "4", "--output-mode", "TUNED",
                                           "--metrics-out", metrics_dir]))
     finally:
         cli_train.save_game_model = real
@@ -4978,13 +5077,14 @@ def tuning_driver(torch, fixture, problems, smi):
     prior = os.path.join(lane_out, "hyperparameter-prior.json")
     with open(prior) as f:
         records = len(json.load(f)["records"])
-    log(f"  (d) RANDOM --trial-lanes 4, 8 trials: {wall:.2f} s (stages "
+    log(f"  (d) RANDOM --trial-lanes 4, {TUNING_LANE_TRIALS} trials: {wall:.2f} s (stages "
         + ", ".join(f"{k} {v:.3f}" for k, v in summary["stage_seconds"].items())
         + f"); {batch_n} batches, {batch_s:.3f} s in all (photon_tuning_batch_wall_seconds), trials counted "
           f"{int(trials)}, lanes in flight after the run {int(in_flight)}; launches {launches}, S1 {s1}; "
           f"{len(saved)} saved models reloaded bitwise: {all(same)}; prior file {records} records; trials "
         + "; ".join(f"{c['reg_weights']} AUC {c['metrics']['AUC']:.6f}" for c in summary["configs"][1:]))
-    if not (batch_n == 2 and trials == 8 and in_flight == 0 and same and all(same) and records == 9):
+    if not (batch_n == TUNING_LANE_TRIALS // 4 and trials == TUNING_LANE_TRIALS and in_flight == 0 and same
+            and all(same) and records == 1 + TUNING_LANE_TRIALS):
         problems.append(f"(d) lane tuning: batches {batch_n}, trials {trials}, in flight {in_flight}, saved "
                         f"models bitwise {same}, prior records {records}")
     out["lanes"] = {"wall_s": wall, "stage_seconds": summary["stage_seconds"], "batches": batch_n,
@@ -5550,7 +5650,8 @@ def retrain_phase(torch, fixture, smi):
     out["chain"] = {"wall_s": a["wall_s"], "launches": a["launches"], "total": a["total"],
                     "day_seconds": a["summary"]["day_seconds"], "days": a["summary"]["days"], "metrics": a["metrics"]}
     torch.cuda.empty_cache()
-    out["replays"] = [retrain_replay(torch, fixture, fx, maps, a["out"], k, problems) for k in range(3)]
+    log("  (a) cut to make room for phase 18: days 1 and 3 replayed (day 2's replay left out)")
+    out["replays"] = [retrain_replay(torch, fixture, fx, maps, a["out"], k, problems) for k in RETRAIN_REPLAYED]
     torch.cuda.empty_cache()
     out["untouched"] = retrain_untouched(a, problems)
     out["snapshot"] = retrain_snapshot(torch, a, maps, problems)
@@ -5564,6 +5665,7 @@ def retrain_phase(torch, fixture, smi):
     return out
 
 
+RETRAIN_REPLAYED = (0, 2)  # (a)'s replayed days (day 2's cut to make room for phase 18)
 SERVING_D = 1_024  # bench.py _serving_workload: the fixed effect's width
 SERVING_USERS = 20_000
 SERVING_D_RE = 32
@@ -6761,6 +6863,475 @@ def streamed_launches(streaming):
     return total
 
 
+# --------------------------------- phase 18: the tiled fixed effect on a grid
+
+TILED_GRID = (2, 2)  # (data, model): 4 gloo ranks sharing the card
+TILED_TIMEOUT_S = 300.0  # the spawn, start to join
+# (a), (b): bench.py's sparse configuration; (c): d = 8,191, padded to
+# 8,192 on the model axis of 2 (one pinned column), 24,576 rows (12,288 a
+# data row: three chunks of the default 4,096) of 16 entries
+TILED_SIZES = dict(n=SPARSE_N, d=SPARSE_D, k=SPARSE_K, full_d=8191, full_rows=24_576, full_k=16)
+TILED_L2 = 1.0
+
+
+def _tiled_full_case(seed, sizes):
+    """(c)'s data: ``full_rows`` rows of ``full_k`` entries over ``full_d``
+    columns, labels and a coefficient vector, from ``seed``."""
+    rng = np.random.default_rng(seed + 18)
+    n, d, k = sizes["full_rows"], sizes["full_d"], sizes["full_k"]
+    rows = np.repeat(np.arange(n), k).astype(np.int64)
+    cols = rng.integers(0, d, size=n * k).astype(np.int64)
+    vals = (rng.normal(size=n * k) * 0.3).astype(np.float32).astype(np.float64)
+    y = (rng.uniform(size=n) < 0.5).astype(np.float64)
+    w = (rng.normal(size=d) * 0.05).astype(np.float32).astype(np.float64)
+    return rows, cols, vals, y, w
+
+
+def _same_np(a, b) -> bool:
+    """Two numpy arrays of the same dtype and shape, bitwise."""
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+def _digest(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()[:16]
+
+
+def _cuda_sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _peak_reset(torch, dev) -> int:
+    """Reset the allocator's peak on a card; the bytes held now (0 on the CPU)."""
+    if dev.type != "cuda":
+        return 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.memory_allocated(dev)
+
+
+def _peak_gib(torch, dev, base=0) -> float:
+    return (torch.cuda.max_memory_allocated(dev) - base) / 2**30 if dev.type == "cuda" else 0.0
+
+
+def tiled_rank(group, path, sizes):
+    """One rank of phase 18 on the (2 x 2) grid: (a) its tile's products,
+    (b) the L-BFGS solve through GLMProblem.run, (c) FULL variances on
+    tiles; counters from 0 before each, read after. ``sizes``: the widths
+    (``TILED_SIZES``; a CPU rehearsal passes small ones)."""
+    import torch
+
+    from photon_ml_tpu_torch.ops import fused_glm as fg
+    from photon_ml_tpu_torch.ops import sparse
+    from photon_ml_tpu_torch.ops.glm import GLMObjective, compute_variances
+    from photon_ml_tpu_torch.ops.losses import LOSSES
+    from photon_ml_tpu_torch.optimize import OptimizerConfig
+    from photon_ml_tpu_torch.parallel.mesh import make_mesh
+    from photon_ml_tpu_torch.parallel.sparse import replicated_coefficients, tiled_sparse_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data = np.load(path)
+    mesh = make_mesh(*TILED_GRID, group=group)
+    dev = mesh.device
+    out = {"pos": (mesh.data_index, mesh.model_index)}
+    t0 = time.perf_counter()
+    tb = tiled_sparse_batch(data["rows"], data["cols"], data["vals"], data["y"], sizes["d"], mesh)
+    _cuda_sync(torch, dev)
+    f = tb.features
+    out["build_s"] = time.perf_counter() - t0
+    out["tile"] = {"rows": f.n_local_rows, "cols": f.d_local, "entries": int(f.tile.coo_vals.numel())}
+    w = replicated_coefficients(data["w"], mesh)
+    lo = mesh.data_index * f.n_local_rows
+    c = torch.zeros(f.n_local_rows, dtype=torch.float32)
+    part = torch.as_tensor(data["c"][lo : lo + f.n_local_rows], dtype=torch.float32)
+    c[: part.numel()] = part
+    c = c.to(mesh.device)
+
+    # (a) the products, each one S1 launch and one rank-order sum
+    fg.reset_launch_counts()
+    z, g, g2 = f.matvec(w), f.rmatvec(c), f.sq_rmatvec(c)
+    _cuda_sync(torch, dev)
+    out["a"] = {
+        "z": z.cpu().numpy(), "g": g.cpu().numpy(), "g2": g2.cpu().numpy(),
+        "s1": {k: v for k, v in sparse.SPARSE_LAUNCHES.items() if v}, "sums": dict(fg.SUM_LAUNCHES),
+        "dense": sum(fg.LAUNCHES.values()),
+    }
+    del z, g, g2
+
+    # (b) phase 9's L-BFGS solve, twice (the same bits), the second counted
+    problem = _sparse_problem(torch, OptimizerConfig(tolerance=1e-9, max_iterations=SPARSE_ITERS))
+    runs = []
+    for _ in range(2):
+        _cuda_sync(torch, dev)
+        fg.reset_launch_counts()
+        base = _peak_reset(torch, dev)
+        before = (mesh.data.collectives, mesh.model.collectives, mesh.data.collective_seconds,
+                  mesh.model.collective_seconds)
+        t0 = time.perf_counter()
+        model, res = problem.run(tb)
+        float(res.loss)
+        _cuda_sync(torch, dev)
+        wall = time.perf_counter() - t0
+        runs.append({
+            "wall_s": wall, "loss": float(res.loss), "iterations": int(res.iterations), "reason": int(res.reason),
+            "means": _digest(model.coefficients.means), "slice": _digest(mesh.model_slice(model.coefficients.means)),
+            "collectives": {"data": mesh.data.collectives - before[0], "model": mesh.model.collectives - before[1]},
+            "collective_s": {"data": mesh.data.collective_seconds - before[2],
+                             "model": mesh.model.collective_seconds - before[3]},
+            "s1": {k: v for k, v in sparse.SPARSE_LAUNCHES.items() if v}, "sums": dict(fg.SUM_LAUNCHES),
+            "routes": {k: v for k, v in fg.OBJECTIVE_ROUTES.items() if v}, "dense": sum(fg.LAUNCHES.values()),
+            "peak_gib": _peak_gib(torch, dev, base), "held_gib": base / 2**30, "syncs": res.syncs,
+        })
+        del model, res
+    out["b"] = runs
+    del tb, f, w, c
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (c) FULL variances on tiles
+    d_full = sizes["full_d"]
+    tb = tiled_sparse_batch(data["f_rows"], data["f_cols"], data["f_vals"], data["f_y"], d_full, mesh)
+    obj = GLMObjective(loss=LOSSES["logistic"], batch=tb, l2=TILED_L2)
+    wf = np.zeros(tb.dim)
+    wf[:d_full] = data["f_w"]
+    coef = replicated_coefficients(wf, mesh)
+    _cuda_sync(torch, dev)
+    fg.reset_launch_counts()
+    base = _peak_reset(torch, dev)
+    t0 = time.perf_counter()
+    var = compute_variances(obj, coef, "FULL")
+    _cuda_sync(torch, dev)
+    out["c"] = {
+        "wall_s": time.perf_counter() - t0, "var": var.cpu().numpy(), "dim": tb.dim,
+        "chunk": tb.features.default_row_chunk(), "rows_local": tb.features.n_local_rows,
+        "peak_gib": _peak_gib(torch, dev, base),
+        "s1": {k: v for k, v in sparse.SPARSE_LAUNCHES.items() if v}, "sums": dict(fg.SUM_LAUNCHES),
+    }
+    return out
+
+
+def _tiled_vg_times(torch, whole, rows, cols, vals, y, d):
+    """bench.py's ``tiled`` measure, printed: S1's value+grad (one matvec,
+    one rmatvec) on one card at the whole nnz (the COO batch ``whole``) and
+    at the (2 x 4) grid's tile (0, 0), CUDA events over 20 calls after 3."""
+    from photon_ml_tpu_torch.ops.features import batch_from_coo
+    from photon_ml_tpu_torch.ops.glm import GLMObjective
+    from photon_ml_tpu_torch.ops.losses import LOSSES
+
+    n = len(y)
+    sel = (rows < n // 2) & (cols < d // 4)
+    tile = batch_from_coo(rows[sel], cols[sel], vals[sel], y[: n // 2], d // 4, layout="coo")
+    out = {}
+    for name, batch, dim in (("whole", whole, d), ("tile_0_0_of_2x4", tile, d // 4)):
+        obj = GLMObjective(loss=LOSSES["logistic"], batch=batch, l2=1.0)
+        wz = torch.zeros(dim, device="cuda")
+        out[name] = {"ms": time_ms(torch, lambda: obj.value_and_grad(wz), 20), "entries": int(batch.features.coo_vals.numel())}
+    out["ratio"] = out["whole"]["ms"] / out["tile_0_0_of_2x4"]["ms"]
+    return out
+
+
+def tiled_phase(torch, seed, smi, fixture=None, game=None, device="cuda", sizes=None):
+    """Phase 18: the (data x model)-tiled fixed effect on a 2 x 2 grid of
+    gloo ranks sharing the card; (a)-(d) as in the module docstring, (d)
+    on phase 12's fixture with its (b)'s coordinates (left out without
+    them). ``device="cpu"`` with small ``sizes`` rehearses (a)-(c) on the
+    CPU through the plain versions."""
+    import concurrent.futures
+    import tempfile
+
+    from photon_ml_tpu_torch.io.data import RawDataset
+    from photon_ml_tpu_torch.ops import cuda_lib
+    from photon_ml_tpu_torch.ops.features import batch_from_dense
+    from photon_ml_tpu_torch.ops.glm import GLMObjective, compute_variances
+    from photon_ml_tpu_torch.ops.losses import LOSSES
+    from photon_ml_tpu_torch.optimize import OptimizerConfig
+    from photon_ml_tpu_torch.parallel import spawn
+
+    sizes = dict(TILED_SIZES, **(sizes or {}))
+    dev = torch.device(device)
+    problems, report = [], {}
+    n, d = sizes["n"], sizes["d"]
+    t0 = time.perf_counter()
+    rows, cols, vals, y, _ = sparse_triplets(n, d, sizes["k"], seed)
+    vals = vals.astype(np.float32).astype(np.float64)  # the tiles' float32 values
+    rng = np.random.default_rng(seed + 19)
+    w = (rng.normal(size=d) * 0.1).astype(np.float32).astype(np.float64)
+    c = rng.normal(size=n).astype(np.float32).astype(np.float64)
+    f_rows, f_cols, f_vals, f_y, f_w = _tiled_full_case(seed, sizes)
+    d_full = sizes["full_d"]
+    if dev.type == "cuda":
+        for lib in ("sparse_glm", "fused_glm"):
+            cuda_lib.load(lib)  # built here, so that no two ranks run nvcc
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tiled_") as tmp:
+        path = f"{tmp}/data.npz"
+        np.savez(path, rows=rows, cols=cols, vals=vals, y=y, w=w, c=c, f_rows=f_rows, f_cols=f_cols,
+                 f_vals=f_vals, f_y=f_y, f_w=f_w)
+        log(f"  data made in {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(1) as waiter:
+            pending = waiter.submit(spawn, tiled_rank, TILED_GRID[0] * TILED_GRID[1], "gloo", device,
+                                    args=(path, sizes), timeout_s=TILED_TIMEOUT_S, store_dir=tmp)
+            # while the ranks run, this process builds the references'
+            # inputs on the host (nothing timed runs here until they end)
+            z_ref = np.bincount(rows, weights=vals * w[cols], minlength=n)
+            g_ref = np.bincount(cols, weights=vals * c[rows], minlength=d)
+            g2_ref = np.bincount(cols, weights=vals * vals * c[rows], minlength=d)
+            raw = RawDataset(n_rows=n, labels=y, offsets=np.zeros(n), weights=np.ones(n),
+                             shard_coo={"global": (rows, cols, vals)}, shard_dims={"global": d}, id_tags={})
+            batch = raw.to_batch("global", layout="coo", device=dev)
+            del raw
+            x = np.zeros((sizes["full_rows"], d_full), dtype=np.float32)
+            np.add.at(x, (f_rows, f_cols), f_vals.astype(np.float32))
+            dense = batch_from_dense(x, f_y, device=dev)
+            del x
+            ranks = pending.result()
+        report["ranks_s"] = time.perf_counter() - t0
+    log(f"  {len(ranks)} gloo ranks on a {TILED_GRID[0]} x {TILED_GRID[1]} grid done in {report['ranks_s']:.1f}s "
+        "(this process built the references' inputs meanwhile); "
+        + "; ".join(f"rank {r} at {o['pos']}: tile {o['tile']['rows']} x {o['tile']['cols']} with "
+                    f"{o['tile']['entries']} entries built in {o['build_s']:.1f}s" for r, o in enumerate(ranks)))
+
+    # (a) against float64 plain products of the whole batch
+    t0 = time.perf_counter()
+    by_pos = {o["pos"]: o for o in ranks}
+    D, M = TILED_GRID
+    same_rows = all(_same_np(by_pos[(i, j)]["a"]["z"], by_pos[(i, 0)]["a"]["z"]) for i in range(D) for j in range(M))
+    same_cols = all(_same_np(by_pos[(i, j)]["a"][k], by_pos[(0, j)]["a"][k])
+                    for i in range(D) for j in range(M) for k in ("g", "g2"))
+    z = np.concatenate([by_pos[(i, 0)]["a"]["z"] for i in range(D)])[:n]
+    errs = {}
+    for name, got, ref in (("matvec", z, z_ref),
+                           ("rmatvec", np.concatenate([by_pos[(0, j)]["a"]["g"] for j in range(M)])[:d], g_ref),
+                           ("sq_rmatvec", np.concatenate([by_pos[(0, j)]["a"]["g2"] for j in range(M)])[:d], g2_ref)):
+        err = float(np.abs(got.astype(np.float64) - ref).max())
+        bound = 3e-5 * max(float(np.abs(ref).max()), 1.0)
+        errs[name] = err
+        log(f"  (a) tiled {name}: max-abs err {err:.3e} (bound {bound:.3e}) {'ok' if err <= bound else 'MISS'}")
+        if not err <= bound:
+            problems.append(f"(a) {name} err {err:.3e} > {bound:.3e}")
+    a_launches = [o["a"]["s1"] for o in ranks]
+    a_sums = [o["a"]["sums"]["rank_order_sum"] for o in ranks]
+    log(f"  (a) data rows bitwise alike (z): {same_rows}; model columns bitwise alike (gradient slices): "
+        f"{same_cols}; S1 launches per rank {a_launches}; sums per rank {a_sums}; dense launches "
+        f"{[o['a']['dense'] for o in ranks]} (held in {time.perf_counter() - t0:.1f}s)")
+    if not (same_rows and same_cols):
+        problems.append("(a) ranks of a subgroup differ")
+    if any(l != {"coo_matvec": 1, "coo_rmatvec": 1, "coo_sq_rmatvec": 1} for l in a_launches) or any(
+            o["a"]["dense"] for o in ranks) or any(s != 3 for s in a_sums):
+        problems.append(f"(a) launches: S1 {a_launches}, sums {a_sums}")
+    report["a"] = {"errors": errs, "s1": a_launches, "sums": a_sums}
+    del z_ref, g_ref, g2_ref, z
+
+    # (b) against phase 9's one-card COO solve, by loss at rtol 1e-5
+    problem = _sparse_problem(torch, OptimizerConfig(tolerance=1e-9, max_iterations=SPARSE_ITERS))
+    t0 = time.perf_counter()
+    _, res1 = problem.run(batch)
+    loss1 = float(res1.loss)
+    wall1 = time.perf_counter() - t0
+    last = [o["b"][-1] for o in ranks]
+    keys = ("loss", "iterations", "reason", "means")
+    alike = all(r[k] == last[0][k] for r in last for k in keys)
+    twice = all(o["b"][0][k] == o["b"][1][k] for o in ranks for k in keys)
+    slices = all(by_pos[(i, j)]["b"][-1]["slice"] == by_pos[(0, j)]["b"][-1]["slice"]
+                 for i in range(D) for j in range(M))
+    rel = abs(last[0]["loss"] - loss1) / abs(loss1)
+    walls = [r["wall_s"] for r in last]
+    log(f"  (b) tiled L-BFGS on {D} x {M}: iterations={last[0]['iterations']} reason={last[0]['reason']} "
+        f"loss={last[0]['loss']:.6f} wall {max(walls):.3f} s (first run {max(o['b'][0]['wall_s'] for o in ranks):.3f} s); "
+        f"one-card COO: iterations={res1.iterations} loss={loss1:.6f} wall {wall1:.4f} s; loss rel diff {rel:.2e} "
+        f"(rtol 1e-5); every rank alike (iterations, reason, loss, whole model bits): {alike}; slices bitwise "
+        f"within each model column: {slices}; two runs the same bits: {twice}")
+    for r, o in enumerate(ranks):
+        b = o["b"][-1]
+        log(f"  (b) rank {r} at {o['pos']}: wall {b['wall_s']:.3f} s, collectives data {b['collectives']['data']} "
+            f"({b['collective_s']['data']:.3f} s) model {b['collectives']['model']} ({b['collective_s']['model']:.3f} s), "
+            f"S1 {b['s1']}, sums {b['sums']['rank_order_sum']}, routes {b['routes']}, dense {b['dense']}, "
+            f"syncs {b['syncs']}, allocator peak {b['peak_gib']:.3f} GiB")
+    if not (rel <= 1e-5 and alike and twice and slices and math.isfinite(last[0]["loss"])):
+        problems.append(f"(b) loss rel diff {rel:.2e}, ranks alike {alike}, twice {twice}, slices {slices}")
+    for b in last:
+        if b["routes"] != {"tiled_kernel": 1} or b["dense"] or not b["s1"].get("coo_matvec") or not b["s1"].get(
+                "coo_rmatvec") or not b["sums"]["rank_order_sum"]:
+            problems.append(f"(b) launches or routes off the tiled kernel path: {b['routes']} {b['s1']} {b['sums']}")
+    report["b"] = {"ranks": last, "loss_rel": rel, "one_card_loss": loss1, "one_card_wall_s": wall1,
+                   "iterations": last[0]["iterations"]}
+    if dev.type == "cuda":
+        report["vg_times"] = vt = _tiled_vg_times(torch, batch, rows, cols, vals, y, d)
+        log(f"  (b) bench.py's tiled measure on one card: S1 value+grad {vt['whole']['ms']:.4f} ms at the whole nnz "
+            f"({vt['whole']['entries']} entries) against {vt['tile_0_0_of_2x4']['ms']:.4f} ms at the (2 x 4) tile "
+            f"(0, 0) ({vt['tile_0_0_of_2x4']['entries']} entries): {vt['ratio']:.2f}x (8.0 = linear)")
+    del batch, rows, cols, vals, y
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (c) against the one-card dense FULL path at rtol 1e-3
+    t0 = time.perf_counter()
+    obj = GLMObjective(loss=LOSSES["logistic"], batch=dense, l2=TILED_L2)
+    var_ref = compute_variances(obj, torch.as_tensor(f_w, dtype=torch.float32, device=dev), "FULL")
+    var_ref = var_ref.cpu().numpy().astype(np.float64)
+    ref_s = time.perf_counter() - t0
+    del dense, obj
+    cs = [o["c"] for o in ranks]
+    alike = all(_same_np(x_["var"], cs[0]["var"]) for x_ in cs)
+    var = cs[0]["var"].astype(np.float64)
+    rel_each = float((np.abs(var[:d_full] - var_ref) / np.abs(var_ref)).max())
+    pinned = var[d_full:]
+    pin_ok = bool(np.allclose(pinned, 1.0 / (1.0 + TILED_L2), rtol=1e-6))
+    log(f"  (c) FULL on tiles d={d_full} (padded {cs[0]['dim']}), {sizes['full_rows']} rows ({cs[0]['rows_local']} a "
+        f"data row, chunks of {cs[0]['chunk']}): wall {max(x_['wall_s'] for x_ in cs):.2f} s a rank, peak "
+        f"{max(x_['peak_gib'] for x_ in cs):.2f} GiB above what was held; one-card dense FULL {ref_s:.2f} s; max rel "
+        f"diff {rel_each:.2e} (rtol 1e-3); ranks bitwise alike {alike}; padded variances {pinned} (1/(1+l2) "
+        f"{'ok' if pin_ok else 'MISS'}); S1 {[x_['s1'] for x_ in cs]}, sums {[x_['sums']['rank_order_sum'] for x_ in cs]}")
+    if not (rel_each <= 1e-3 and alike and pin_ok and np.all(np.isfinite(var))):
+        problems.append(f"(c) FULL rel diff {rel_each:.2e}, ranks alike {alike}, pinned {pinned}")
+    report["c"] = {"rel": rel_each, "wall_s": max(x_["wall_s"] for x_ in cs), "ref_s": ref_s,
+                   "peak_gib": max(x_["peak_gib"] for x_ in cs), "chunk": cs[0]["chunk"]}
+    if fixture is not None and (game or {}).get("b"):
+        report["d"] = tiled_driver(torch, fixture, game["b"], problems, smi)
+    d_s1 = (report.get("d") or {}).get("s1_per_rank") or [{} for _ in ranks]
+    d_sums = (report.get("d") or {}).get("sums_per_rank") or [0 for _ in ranks]
+    report["launches"] = {
+        "s1_per_rank": [{k: o["a"]["s1"].get(k, 0) + o["b"][-1]["s1"].get(k, 0) + o["c"]["s1"].get(k, 0)
+                         + d_s1[r].get(k, 0) for k in SPARSE_PRODUCTS if k.startswith("coo_")}
+                        for r, o in enumerate(ranks)],
+        "sums_per_rank": [o["a"]["sums"]["rank_order_sum"] + o["b"][-1]["sums"]["rank_order_sum"]
+                          + o["c"]["sums"]["rank_order_sum"] + d_sums[r] for r, o in enumerate(ranks)],
+    }
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return report
+
+
+TILED_GAME_FE = GAME_FE + ",layout=tiled"  # phase 12 (b)'s fixed effect on the grid's tiles
+TILED_DRIVER_GRID = "data=2,model=2"
+TILED_RESUME_GRID = "data=2,model=1"  # the refused resume: another model axis
+
+
+def _tiled_argv(fixture, out, extra=()):
+    """Phase 12 (b)'s options with the fixed effect tiled."""
+    argv = game_argv(fixture["train"], fixture["validation"], out, extra)
+    return [TILED_GAME_FE if a == GAME_FE else a for a in argv]
+
+
+def tiled_driver(torch, fixture, b, problems, smi):
+    """(d) cli.train --distributed on the 2 x 2 grid (4 gloo ranks sharing
+    the card) with phase 12 (b)'s options, the fixed effect tiled, every
+    update a boundary checkpoint; beside it the one-process cli.train on a
+    1 x 1 grid. Held at phase 17 (a)'s bounds: the fixed effect's means and
+    SIMPLE variances rtol 1e-3 / atol 1e-5, the random effect retrained on
+    one card on the grid's last residual (atol 5e-3, per-entity loss atol
+    1e-4), validation AUC within 1e-4; the saved model's fixed effect has
+    the shard's true dimension; each rank launched S1 and the rank-order
+    sum and no dense kernel, its solves on the tiled route. Beside those
+    holds a resume on data=2,model=1 must be refused in the JAX package's
+    words."""
+    import os
+
+    from photon_ml_tpu_torch.io.index_map import save_partitioned
+
+    root = fixture["root"]
+    index_dir = os.path.join(root, "index-18")
+    for shard, imap in b["maps"].items():
+        save_partitioned(imap, index_dir, 1, shard)
+    out, ck, metrics = (os.path.join(root, p) for p in ("out-18d", "ck-18d", "metrics-18d"))
+    common = ["--feature-index-dir", index_dir]
+    grid_argv = _tiled_argv(fixture, out, common + ["--mesh-shape", TILED_DRIVER_GRID, "--checkpoint-dir", ck,
+                                                    "--checkpoint-every", "1", "--checkpoint-keep", "4",
+                                                    "--metrics-out", metrics])
+    world = 4
+    started = _start_ranks(root, "train-18d", grid_argv, world=world)
+    ref_out = os.path.join(root, "out-18d-one")
+    try:
+        ref_summary, ref_wall, ref_launches, _, _ = _counted_train(
+            torch, _tiled_argv(fixture, ref_out, common + ["--mesh-shape", "data=1,model=1", "--device", DIST_DEVICE]))
+    finally:
+        outs, t0 = _wait_ranks(started)
+    wall = max(o[3] for o in outs) - t0
+    failed = _ranks_failed(outs, "(d) cli.train --distributed on the grid")
+    if failed:
+        raise AssertionError(failed)
+    # the refused resume (the checkpoint carries the model axis) runs
+    # beside the holds below
+    resume_started = _start_ranks(root, "train-18r", _tiled_argv(fixture, os.path.join(root, "out-18r"), common + [
+        "--mesh-shape", TILED_RESUME_GRID, "--checkpoint-dir", ck, "--checkpoint-every", "1", "--resume"]))
+    try:
+        out_d = _tiled_driver_holds(torch, out, ref_out, metrics, ck, b, _rank_docs(root, "train-18d", world=world),
+                                    ref_summary, ref_wall, ref_launches, wall, problems, smi)
+    finally:
+        resume, t1 = _wait_ranks(resume_started)
+    words = "checkpoint mesh reshape across the model axis is not supported"
+    refused = [rc != 0 and words in err for rc, _, err, _ in resume]
+    log(f"  (d) resume on {TILED_RESUME_GRID}: exit codes {[o[0] for o in resume]}, every rank refused in the JAX "
+        f"package's words: {all(refused)} ({max(o[3] for o in resume) - t1:.2f} s, beside the holds)")
+    if not all(refused):
+        problems.append(f"(d) the resume across the model axis was not refused on every rank: {refused}")
+    return out_d
+
+
+def _tiled_driver_holds(torch, out, ref_out, metrics, ck, b, docs, ref_summary, ref_wall, ref_launches, wall,
+                        problems, smi):
+    """(d)'s holds of the grid's run against the one process's."""
+    import os
+
+    from photon_ml_tpu_torch.io import load_game_model
+
+    with open(os.path.join(metrics, "run_summary.json")) as f:
+        auc = json.load(f)["best"]["metrics"]["AUC"]
+    ref_auc = ref_summary["best"]["metrics"]["AUC"]
+    for r, d in enumerate(docs):
+        s1 = {k: v for k, v in d["sparse"].items() if v}
+        log(f"  (d) rank {r}: wall {d['wall_s']:.2f} s (stages "
+            + ", ".join(f"{k} {v:.3f}" for k, v in d["stage_seconds"].items())
+            + f"); S1 {s1}, rank-order sums {d['sums']['rank_order_sum']}, dense launches "
+              f"{sum(d['launches'].values())}, routes { {k: v for k, v in d['routes'].items() if v} }")
+        if (not s1.get("coo_matvec") or not s1.get("coo_rmatvec") or not d["sums"]["rank_order_sum"]
+                or any(d["launches"].values()) or not d["routes"]["tiled_kernel"]
+                or any(v for k, v in d["routes"].items() if k != "tiled_kernel")):
+            problems.append(f"(d) rank {r} ran off the tiled kernel path: S1 {s1}, sums {d['sums']}, "
+                            f"dense {d['launches']}, routes {d['routes']}")
+    log(f"  (d) {len(docs)} ranks on a 2 x 2 grid: {wall:.2f} s from the first start to the last exit; one process "
+        f"on a 1 x 1 grid {ref_wall:.2f} s (dense launches {sum(ref_launches.values())}); validation AUC "
+        f"{auc:.6f} against {ref_auc:.6f} on {smi}")
+    if abs(auc - ref_auc) > 1e-4:
+        problems.append(f"(d) validation AUC {auc:.6f} against the one process's {ref_auc:.6f} (1e-4)")
+    maps = b["maps"]
+    best = load_game_model(os.path.join(out, "models", "best"), maps, task="logistic_regression", device=DIST_DEVICE)
+    ref = load_game_model(os.path.join(ref_out, "models", "best"), maps, task="logistic_regression",
+                          device=DIST_DEVICE)
+    fa, fb = best["global"].model.coefficients, ref["global"].model.coefficients
+    d_true = maps["global"].size
+    log(f"  (d) the saved fixed effects: {fa.means.shape[0]} and {fb.means.shape[0]} coefficients (the shard's "
+        f"{d_true})")
+    if fa.means.shape[0] != d_true or fb.means.shape[0] != d_true:
+        problems.append(f"(d) saved fixed effects of {fa.means.shape[0]} / {fb.means.shape[0]}, not {d_true}")
+    hold(problems, "(d) grid vs one process: FE coefficients", fa.means, fb.means, 1e-3, 1e-5)
+    hold(problems, "(d) grid vs one process: FE variances", fa.variances, fb.variances, 1e-3, 1e-5)
+    # the random effect on identical residuals, as phase 17 (a) holds it
+    boundaries = os.path.join(ck, "cd-boundaries")
+    state, last = _load_boundary(boundaries, 2), _load_boundary(boundaries, 3)
+    re_coord = b["coords"]["per-user"]
+    dev = re_coord.dataset.device
+
+    def on_card(m):
+        return dataclasses.replace(m, coef_indices=m.coef_indices.to(dev), coef_values=m.coef_values.to(dev))
+
+    from photon_ml_tpu_torch.game.coordinate import _project_model_values
+
+    re1 = on_card(state["models"]["per-user"])
+    residual = state["summed_scores"].to(dev) - re_coord.score(re1)
+    one, _ = re_coord.train(residual, initial_model=re1)
+    two = on_card(last["models"]["per-user"])
+    hold(problems, "(d) grid vs one card: RE coefficients (identical residuals)",
+         _project_model_values(re_coord.dataset, two, two.coef_values, torch.float32), one.coef_values, 0.0, 5e-3)
+    l2 = float(re_coord.config.reg_weight)
+    hold(problems, "(d) grid vs one card: RE per-entity loss (identical residuals)",
+         _re_losses(torch, re_coord, two, residual, l2), _re_losses(torch, re_coord, one, residual, l2), 0.0, 1e-4)
+
+    return {"wall_s": wall, "one_process_s": ref_wall, "auc": auc, "one_process_auc": ref_auc,
+            "s1_per_rank": [d["sparse"] for d in docs], "sums_per_rank": [d["sums"]["rank_order_sum"] for d in docs]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=500_000)
@@ -6772,7 +7343,7 @@ def main() -> int:
                     help="an earlier csrc/sparse_glm.cu to time in turns with this one in phase 8 (S1 and S2)")
     ap.add_argument("--only", default="",
                     help="comma-separated subset of check,fe,glmix,dp,nccl,solvers,io,game,streaming,tuning,s2,"
-                         "sparse,timing,variants,retrain,serving,distributed "
+                         "sparse,timing,variants,retrain,serving,distributed,tiled "
                          "to run after card and build (for iterating on one phase; the result is then not ok)")
     args = ap.parse_args()
     only = set(filter(None, args.only.split(",")))
@@ -6791,6 +7362,10 @@ def main() -> int:
 
     phases = Phases()
     smi = phases.run("card", card, torch)
+    if want("io") or any(want(k) for k in ("game", "streaming", "tuning", "retrain", "distributed", "tiled")):
+        # the fixtures' writers start beside the build
+        warm_writer_pool()
+        log("  the fixtures' writer processes start beside the build (cut to make room for phase 18)")
     phases.run("build", build)
     import shutil
     import tempfile
@@ -6798,7 +7373,7 @@ def main() -> int:
     # phase 12's metrics directories, kept for phase 15's cli.fleetz
     keep = tempfile.mkdtemp(prefix="chip_smoke_keep_")
     errs = fe_launches = glmix = dp = times = solvers = io = game = streaming = tuning = retrain = served = None
-    dist = None
+    dist = tiled = None
     if want("check"):
         errs = phases.run("kernels vs float64 plain", check_kernels, torch, args.n, args.d, args.seed)
     if want("fe"):
@@ -6837,9 +7412,11 @@ def main() -> int:
     if not (want("tuning") or want("streaming")):
         del state
     torch.cuda.empty_cache()
-    if want("game") or want("streaming") or want("tuning") or want("retrain") or want("distributed"):
+    if (want("game") or want("streaming") or want("tuning") or want("retrain") or want("distributed")
+            or want("tiled")):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_game_") as root:
             fixture = phases.run("GAME fixture (phase 12 (a))", game_fixture, root, args.seed)
+            close_writer_pool()
             if fixture is None:
                 phases.failed += [p for p, key in (("GAME driver", "game"), ("tuning", "tuning"),
                                                    ("retrain chain", "retrain"), ("distributed", "distributed"))
@@ -6848,7 +7425,7 @@ def main() -> int:
                 if want("game"):
                     game = phases.run("GAME driver", game_phase, torch, fixture, smi,
                                       (glmix or {}).get("busy_share"), keep)
-                elif want("streaming") or want("distributed"):
+                elif want("streaming") or want("distributed") or want("tiled"):
                     game = phases.run("GAME driver (phase 12 (b))", game_b_only, torch, fixture, smi)
                 torch.cuda.empty_cache()
                 if not want("distributed"):
@@ -6858,6 +7435,9 @@ def main() -> int:
                     phases.failed.append("distributed")
                 else:
                     dist = phases.run("distributed", distributed_phase, torch, fixture, game, smi)
+                if want("tiled"):
+                    torch.cuda.empty_cache()
+                    tiled = phases.run("tiled fixed effect", tiled_phase, torch, args.seed, smi, fixture, game)
                 (game or {}).pop("b", None)
                 torch.cuda.empty_cache()
                 if not want("streaming"):
@@ -6994,6 +7574,21 @@ def main() -> int:
         if key in st_launches:
             entry["launches_streamed"] = st_launches[key]
             entry["launches"] = (entry.get("launches") or 0) + st_launches[key]
+    # phase 18: each rank's launches on the 2 x 2 grid, (a)-(d), join S1's
+    # COO products and the rank-order sum
+    tl = (tiled or {}).get("launches") or {}
+    for entry in kernels:
+        key = entry["name"].split(":", 1)[-1]
+        per_rank = None
+        if entry["name"].startswith("segment_dot:coo_") and tl:
+            per_rank = [r.get(key, 0) for r in tl["s1_per_rank"]]
+            # on the grid S1 replaces the tiled products' XLA gathers too
+            entry["replaces_tiled"] = "photon_ml_tpu/parallel/sparse.py:" + ("87" if key == "coo_matvec" else "109")
+        elif key == "rank_order_sum" and tl:
+            per_rank = tl["sums_per_rank"]
+        if per_rank is not None:
+            entry["launches_tiled_per_rank"] = per_rank
+            entry["launches"] = (entry.get("launches") or 0) + sum(per_rank)
     if sp:
         path, sg = sp["path"], sp["glmix"]
         log(f"sparse fixed effect (n={SPARSE_N}, d={SPARSE_D}, k={SPARSE_K}, L-BFGS at most {SPARSE_ITERS} "
@@ -7071,6 +7666,13 @@ def main() -> int:
             f"cli.score --distributed {sc['wall_s']:.2f} s ({sc['bitwise_rows']} of {sc['rows']} rows bitwise); "
             f"one NCCL rank {dist['nccl']['wall_s']:.2f} s with {dist['nccl']['differing_bits']} differing bits "
             f"on {smi}")
+    if tiled:
+        b, c, d = tiled["b"], tiled["c"], tiled.get("d") or {}
+        log(f"tiled fixed effect on a 2 x 2 grid of gloo ranks sharing the card: the L-BFGS solve "
+            f"{max(r['wall_s'] for r in b['ranks']):.3f} s ({b['iterations']} iterations; one card's COO solve "
+            f"{b['one_card_wall_s']:.4f} s), FULL on tiles at d=8,191 {c['wall_s']:.2f} s, cli.train on the grid "
+            f"{d.get('wall_s', float('nan')):.2f} s (one process {d.get('one_process_s', float('nan')):.2f} s); "
+            f"launches per rank S1 {tl.get('s1_per_rank')}, sums {tl.get('sums_per_rank')} on {smi}")
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))
     ok = not phases.failed

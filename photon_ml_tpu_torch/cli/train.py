@@ -82,15 +82,21 @@ process. Only process 0 writes outputs, summaries and checkpoint state;
 resume state and checkpointed models load on process 0 and are broadcast,
 so no shared file system is needed (a boundary checkpoint is the two-phase
 save of ``robust/checkpoint.py``). ``--mesh-shape data=P`` names the same
-topology; a model axis is ROADMAP A10. Liveness (``robust/distributed.py``):
+topology. ``--mesh-shape data=D,model=M`` over ``n=D*M`` processes lays
+them out as a (data x model) grid (``parallel.mesh.make_mesh``): a
+``layout=tiled`` fixed effect solves on every rank of the grid, each data
+row of M processes reads its rows, the random effects are built over the
+data axis, and the ranks of a data row hold the same models; only world
+rank 0 writes (a non-tiled fixed effect under a model axis is ROADMAP
+A10). Liveness (``robust/distributed.py``):
 ``--collective-timeout`` bounds every barrier (the sweep boundaries and
 the object collectives' entries; 0 disarms), ``--heartbeat-interval`` and
 ``--heartbeat-timeout`` run the heartbeat plane under
 ``<checkpoint-dir|metrics-out>/heartbeats``; a dead peer ends the run with
 a typed ``DistributedTimeoutError`` or ``PeerLostError``, a ``peer_lost``
-flight-recorder dump and a non-zero exit. Process i > 0 streams its
-telemetry to ``metrics.p<i>.jsonl`` / ``.prom`` and ``flight.p<i>/`` beside
-the coordinator's (``cli.fleetz`` merges them).
+flight-recorder dump and a non-zero exit. Process i > 0 (its world rank)
+streams its telemetry to ``metrics.p<i>.jsonl`` / ``.prom`` and
+``flight.p<i>/`` beside the coordinator's (``cli.fleetz`` merges them).
 """
 
 from __future__ import annotations
@@ -119,7 +125,7 @@ from ..parallel import multihost
 from ..plan import PlanError, plan_fingerprint
 from ..robust import CheckpointManager, atomic_write, atomic_write_json, faults
 from ..robust import distributed as robust_dist
-from ..robust.checkpoint import to_device
+from ..robust.checkpoint import CheckpointIncompatibleError, to_device
 from ..tuning.rescaling import HyperparameterConfig, ParamRange
 from ..tuning.tuner import get_tuner
 from ..utils.futures import WorkerPool
@@ -201,7 +207,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "around the GP-predicted best prior candidate")
     p.add_argument("--hyper-parameter-shrink-radius", type=float, default=0.25)
     p.add_argument("--mesh-shape", default="",
-                   help="data=P: the P processes of --distributed, one card each (a model axis is ROADMAP A10)")
+                   help="data=D[,model=M]: the D*M processes of --distributed as a (data x model) grid, one "
+                        "card each (a model axis takes layout=tiled fixed effects)")
     p.add_argument("--checkpoint-dir", default=None,
                    help="save the model after every coordinate-descent sweep (and each finished grid "
                         "config); rerunning the same command resumes from the last completed unit")
@@ -267,6 +274,17 @@ def run(argv: Optional[List[str]] = None) -> Dict:
         # span and JSONL lane identity, so that merged telemetry stays
         # attributable
         obs.set_process_index(group.rank)
+        axes = parse_mesh_shape(args.mesh_shape)
+        if axes is not None and axes["model"] > 1:
+            # the grid before the reads: each data row reads its own rows
+            from ..parallel.mesh import make_mesh
+            from ..plan.planner import check_multiprocess_mesh
+
+            check_multiprocess_mesh(group.world_size, axes)
+            mesh = make_mesh(axes["data"], axes["model"], group=group)
+            multihost.set_grid(mesh)
+            logger.info("grid: process %d at data %d, model %d of data=%d x model=%d", group.rank,
+                        mesh.data_index, mesh.model_index, mesh.n_data, mesh.n_model)
     try:
         return _run_group(args, device, group)
     except robust_dist.DistributedError:
@@ -283,7 +301,7 @@ def _run_group(args, device, group) -> Dict:
     coordinator = multihost.is_coordinator()
     # every process streams its own telemetry, so that cli.fleetz can merge
     # the fleet's view; the coordinator keeps the bare file names
-    suffix = "" if coordinator else f".p{multihost.process_index()}"
+    suffix = "" if coordinator else f".p{multihost.world_rank()}"
 
     t_run0 = time.perf_counter()
     run_t = None
@@ -578,7 +596,7 @@ def _run_training(args, device, run_t, sinks, t_run0, recorder) -> Dict:
         divergence_guard=not args.no_divergence_guard,
         rejection_tolerance=args.coordinate_rejection_tolerance,
         partial_retrain_locked=_locked(args),
-        mesh=parse_mesh_shape(args.mesh_shape),
+        mesh=multihost.current_grid() or parse_mesh_shape(args.mesh_shape),
         pipeline_depth=args.pipeline_depth,
         device=device,
     )
@@ -628,6 +646,7 @@ def _run_training(args, device, run_t, sinks, t_run0, recorder) -> Dict:
             every=args.checkpoint_every,
             process=multihost.process_index(),
             n_processes=n_proc,
+            replica=multihost.model_index() > 0,
             topology={"mesh_axes": ckpt_topology["mesh_axes"], "plan_fingerprint": ckpt_topology["plan_fingerprint"]},
         )
     if args.resume:
@@ -637,15 +656,25 @@ def _run_training(args, device, run_t, sinks, t_run0, recorder) -> Dict:
             os.path.join(args.checkpoint_dir, "cd-boundaries"), keep_last=args.checkpoint_keep,
         )
         # boundary checkpoints are the coordinator's: it reads, and the
-        # snapshot is broadcast, so no shared file system is needed
+        # snapshot (or its refusal) is broadcast, so no shared file system
+        # is needed and every process stops on a refused topology
+        many = multihost.world_size() > 1
         if multihost.is_coordinator():
-            resume_snap = mgr.latest_valid(
-                expect_coordinate_order=[cc.name for cc in coords],
-                expect_topology=ckpt_topology,
-                device="cpu" if n_proc > 1 else device,
-            )
-        if n_proc > 1:
-            resume_snap = to_device(multihost.broadcast_object(resume_snap), device)
+            try:
+                resume_snap = mgr.latest_valid(
+                    expect_coordinate_order=[cc.name for cc in coords],
+                    expect_topology=ckpt_topology,
+                    device="cpu" if many else device,
+                )
+            except (PlanError, CheckpointIncompatibleError) as e:
+                if not many:
+                    raise
+                resume_snap = e
+        if many:
+            resume_snap = multihost.broadcast_object(resume_snap)
+            if isinstance(resume_snap, (PlanError, CheckpointIncompatibleError)):
+                raise resume_snap
+            resume_snap = to_device(resume_snap, device)
         if resume_snap is None:
             logger.info("--resume: no valid boundary checkpoint; starting fresh")
 
@@ -1022,7 +1051,7 @@ class _Checkpoint:
         if os.path.exists(state_path):
             with open(state_path) as f:
                 state = json.load(f)
-        if multihost.process_count() > 1:
+        if multihost.world_size() > 1:
             # the coordinator's state is authoritative (it is the only
             # writer): every process runs the coordinator's, so the
             # collective schedules stay aligned without a shared file system
@@ -1030,7 +1059,8 @@ class _Checkpoint:
             if len(set(views)) != 1:
                 logger.warning("checkpoint states differ across processes (no shared file system); adopting "
                                "the coordinator's state")
-            state = json.loads(views[0])
+            # on a grid the views are the rank's model column's
+            state = json.loads(views[0] if multihost.current_grid() is None else multihost.broadcast_object(views[0]))
         if state is None:
             state = {
                 "version": 2,
@@ -1069,7 +1099,7 @@ class _Checkpoint:
             atomic_write_json(self.state_path, self.state)
 
     def _load_model(self, model_dir):
-        if multihost.process_count() > 1:
+        if multihost.world_size() > 1:
             # the model files exist where the coordinator wrote them: it
             # loads, and one broadcast carries the model to the others
             model = None

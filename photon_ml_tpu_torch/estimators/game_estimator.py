@@ -36,9 +36,16 @@ to the share every rank holds, and ``prepare_datasets`` builds the fixed
 effect as the rank's dense row shard and the random effect across the ranks
 (``game/data_mp.py``), entity-sharded; every rank then runs the same
 coordinate descent (B1-B3 on its rows, joined by B4) and holds the same
-models. Streaming, pipelining, sparse fixed effects, a model axis and trial
-lanes over processes are refused by the planner (ROADMAP A10; lanes as the
-JAX package refuses them).
+models. On a (data x model) grid of ranks (``mesh`` with a model axis, or
+any mesh with a ``layout="tiled"`` fixed effect: ``parallel.mesh.make_mesh``
+over the world, made on the first fit unless ``mesh`` is one already) a
+tiled fixed effect solves on every rank of the grid, and everything else
+runs over the grid's data axis: ``raw`` holds the rank's data row's rows
+(or, in one process, the whole batch), the random effects are built across
+the data axis, and the ranks of a data row hold the same models. Streaming,
+pipelining, ELL / COO fixed effects over processes, a non-tiled fixed
+effect under a model axis and trial lanes over processes are refused by
+the planner (ROADMAP A10; lanes as the JAX package refuses them).
 """
 
 from __future__ import annotations
@@ -85,7 +92,8 @@ class CoordinateConfig:
     active_lower_bound: int = 1
     # Pearson feature selection: keep ceil(ratio * n_rows) features per entity
     features_to_samples_ratio: Optional[float] = None
-    # fixed-effect batch layout: auto|dense|ell|sparse|coo ('tiled' is A10)
+    # fixed-effect batch layout: auto|dense|ell|sparse|coo|tiled (tiled:
+    # the (data x model)-tiled batch; needs a mesh)
     layout: str = "auto"
     # narrower storage for the feature values only (torch.bfloat16)
     feature_dtype: Optional[torch.dtype] = None
@@ -164,6 +172,7 @@ class GameEstimator(EventEmitter):
         self.dtype = dtype
         self.partial_retrain_locked = set(partial_retrain_locked)
         self.mesh = mesh
+        self._grid_group = None
         self.validation_frequency = validation_frequency
         self.divergence_guard = divergence_guard
         self.rejection_tolerance = rejection_tolerance
@@ -186,7 +195,10 @@ class GameEstimator(EventEmitter):
         # re-checked here: the process group can be initialised between
         # construction and the first fit
         execution_plan.check_multiprocess_mesh(world_size(), self.mesh)
+        grid = self.grid()
         group = multihost.current_group()
+        if grid is not None and grid.world is not None:
+            group = grid.data
         datasets = {}
         for cc in self.coordinate_configs:
             with timed(f"prepare dataset {cc.name}"):
@@ -234,8 +246,32 @@ class GameEstimator(EventEmitter):
                         hbm_budget_bytes=cc.hbm_budget_bytes,
                         device=self.device,
                         group=group,
+                        mesh=grid if cc.layout == "tiled" else None,
                     )
         return datasets
+
+    def grid(self):
+        """The (data x model) grid the estimator runs on
+        (``parallel.mesh.MeshGroup``), or None: ``mesh`` when it is one,
+        else made over the world from the plan's axes on first use when the
+        mesh has a model axis or a fixed effect is tiled. A grid over
+        ranks with a model axis becomes the process-level helpers' grid
+        (``parallel.multihost.set_grid``)."""
+        from ..parallel.mesh import MeshGroup, make_mesh
+
+        if self._grid_group is None:
+            axes = self.execution_plan.mesh_axes
+            if isinstance(self.mesh, MeshGroup):
+                self._grid_group = self.mesh
+            elif axes is not None and (
+                axes["model"] > 1 or any(c.layout == "tiled" for c in self.coordinate_configs)
+            ):
+                self._grid_group = make_mesh(axes["data"], axes["model"], device=self.device)
+            else:
+                return None
+            if self._grid_group.n_model > 1:
+                multihost.set_grid(self._grid_group)
+        return self._grid_group
 
     def _validation_context(self, val_raw: RawDataset) -> Tuple[ValidationContext, Dict[str, object]]:
         suite = build_suite(

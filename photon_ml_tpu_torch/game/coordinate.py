@@ -17,6 +17,14 @@ Counterpart of the JAX package's ``game/coordinate.py``:
 Scores returned by coordinates never include the base offsets: the
 coordinate-descent loop owns residual composition.
 
+A tiled fixed effect (``parallel/sparse.py``) solves on every rank of its
+(data x model) grid and scores through its tiles: the model comes back
+whole on every rank and is trimmed to the shard's true dimension, and the
+scores are its data row's block, gathered over the data axis as a row
+shard's are. Random effects keep the data axis only (the JAX package
+shards entity blocks over "data"): the ranks of a data row hold the same
+entities and end bitwise alike.
+
 On datasets sharded over a data-parallel group (``parallel.mesh``), every
 rank runs the same calls: the fixed effect solves over its row shard with
 every sweep summed across the ranks and returns the same model on every
@@ -69,6 +77,7 @@ import numpy as np
 import torch
 
 from ..device import fetch
+from ..models.coefficients import Coefficients
 from ..models.game import (
     FixedEffectModel,
     RandomEffectModel,
@@ -166,6 +175,14 @@ class FixedEffectCoordinate(Coordinate):
         glm, result = self._problem().run(
             batch, initial_model=initial_model.model if initial_model else None, plain=self.plain
         )
+        # models live in the shard's true feature space: a tiled batch's
+        # solution (whole on every rank of its grid) loses its padding
+        d_true = self.dataset.dim
+        if glm.coefficients.means.shape[0] > d_true:
+            c = glm.coefficients
+            glm = dataclasses.replace(glm, coefficients=Coefficients(
+                means=c.means[:d_true], variances=None if c.variances is None else c.variances[:d_true],
+            ))
         return FixedEffectModel(model=glm, feature_shard=self.dataset.feature_shard), result
 
     def _problem(self) -> GLMProblem:
@@ -217,7 +234,13 @@ class FixedEffectCoordinate(Coordinate):
         means = model.model.coefficients.means.to(device=batch.device, dtype=dtype)
         # a float64 batch on the card scores by the plain versions, as it solves
         plain = self.plain or batch_route(batch) == "plain_float64"
-        scores = batch.features.matvec(means, plain=plain)
+        f = batch.features
+        if f.layout == "tiled":
+            # the rank's model slice of the padded means
+            if means.shape[0] < f.dim:
+                means = torch.cat([means, means.new_zeros(f.dim - means.shape[0])])
+            means = f.mesh.model_slice(means)
+        scores = f.matvec(means, plain=plain)
         if batch.group is not None:
             # every rank's rows, in rank order, then the padding cut off
             (scores,) = batch.group.gather_rows([scores])

@@ -442,19 +442,54 @@ def build_fixed_effect_dataset(
     this rank's rows, padded to the share every rank holds
     (``RawDataset.pad_rows(equal_host_share(N))``), and the dataset is the
     rank's dense row shard of the padded global row space
-    (``parallel.mesh.local_batch``); its sweeps sum across the ranks. A
-    sparse layout or a budget over processes is ROADMAP A10.
+    (``parallel.mesh.local_batch``); its sweeps sum across the ranks. An
+    ELL or COO layout or a budget over processes is ROADMAP A10.
+
+    ``mesh`` (a ``parallel.mesh.MeshGroup``) with ``layout="tiled"``: the
+    rank's tile of the (data x model)-tiled batch (``RawDataset.to_batch``;
+    ``raw`` holds the whole batch, or its data row's rows when read per
+    host), its rows the data row's block of the padded global row space.
+    Any other layout under a mesh takes its data axis as ``group`` (a
+    model axis beyond 1 is the dense feature-axis shard, ROADMAP A10).
 
     ``hbm_budget_bytes``: when set and the resident batch's device bytes
     (``fe_streaming.estimate_fe_batch_bytes``) exceed it, the dataset is
     built streamed: the rows stay in a :class:`HostRowBatch` (dense, or ELL
     with the global row-nnz width; page-locked for a card) and training and
     scoring stream row slices through ``device``. Only the row-sliceable
-    layouts (auto, dense, ell) take a budget. ``mesh`` is ROADMAP A10."""
-    if mesh is not None:
-        raise NotImplementedError(_MULTI_TODO)
+    layouts (auto, dense, ell) take a budget."""
     dev = resolve_device(device)
     d = raw.shard_dims[feature_shard]
+    if layout == "tiled":
+        from ..plan.planner import PlanError
+
+        if mesh is None:
+            raise PlanError(
+                f"coordinate {coordinate_id}: layout='tiled' requires the "
+                "estimator to be built with a device mesh"
+            )
+        if hbm_budget_bytes is not None:
+            raise PlanError(
+                f"coordinate {coordinate_id}: hbm_budget_mb on a fixed "
+                "effect requires a row-sliceable layout "
+                f"(auto|dense|ell), got layout={layout!r}"
+            )
+        batch = raw.to_batch(feature_shard, dtype=dtype, layout="tiled", feature_dtype=feature_dtype, mesh=mesh)
+        local = raw.global_row_start is not None
+        return FixedEffectDataset(
+            coordinate_id=coordinate_id, feature_shard=feature_shard, batch=batch, true_dim=d,
+            true_n_rows=raw.n_rows * mesh.n_data if local else raw.n_rows,
+        )
+    if mesh is not None:
+        from ..plan.planner import A10, not_ported
+
+        if mesh.n_model > 1:
+            raise not_ported(
+                f"coordinate {coordinate_id}: a fixed effect of layout={layout!r} under a model axis (the dense "
+                "feature-axis shard; a huge-d fixed effect takes layout='tiled')", A10,
+            )
+        if mesh.world is not None:
+            group = mesh.data
     if group is not None:
         from ..parallel.mesh import local_batch
         from ..plan.planner import A10, not_ported

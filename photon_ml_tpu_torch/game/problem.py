@@ -16,11 +16,19 @@ Over a batch that ``parallel.mesh.shard_batch`` cut to one rank's rows,
 summed across the ranks bitwise alike (ops/fused_glm.py's ``sharded_*``),
 every rank starts from rank 0's ``w0``, and the solver's host loop then
 fetches the same scalars and takes the same decisions on every rank.
+
+Over a (data x model)-tiled batch (``parallel/sparse.py``) ``run`` is the
+same call on every rank of the grid: the warm start and the prior are
+padded to the batch's padded dim and cut to the rank's model slice, the
+solver state is ``[d_loc]`` (its reductions summed over the data row,
+``GLMObjective.coefficient_axis``), and the model comes back whole on every
+rank, in the original space, still padded (the coordinate trims it).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -50,6 +58,9 @@ def batch_route(batch: LabeledBatch) -> str:
       (kernels B1-B3 of ops/fused_glm.py);
     - ``"sparse_kernel"``: an ELL or sorted-COO float32/bfloat16 batch on a
       CUDA device (the segment kernel of ops/sparse.py);
+    - ``"tiled_kernel"``: a (data x model)-tiled float32 batch on a CUDA
+      device (the segment kernel on the rank's tile, the rank-order sum
+      over the grid's subgroups);
     - ``"plain_cpu"``: a batch on the CPU (the plain versions);
     - ``"plain_float64"``: a float64 batch on a CUDA device takes the plain
       versions on the card, as the JAX package sends float64 to its XLA
@@ -61,11 +72,15 @@ def batch_route(batch: LabeledBatch) -> str:
     x = f.values
     dev = x.device
     group = batch.group
+    tiled = f.layout == "tiled"
     if group is not None:
         if group.device != dev:
             raise ValueError(f"a shard on {dev} for a rank whose device is {group.device}")
-        if not f.is_dense:
-            raise NotImplementedError("a row-sharded sparse batch is not ported yet (ROADMAP A10)")
+        if not f.is_dense and not tiled:
+            raise NotImplementedError(
+                "a row-sharded ELL or COO batch is not ported yet (ROADMAP A10); a huge-d batch over ranks is "
+                "layout='tiled'"
+            )
     for name in ("labels", "offsets", "weights"):
         if getattr(batch, name).device != dev:
             raise ValueError(f"batch.{name} is not on the features' device {dev}")
@@ -80,7 +95,7 @@ def batch_route(batch: LabeledBatch) -> str:
             f"the CUDA kernels take float32 or bfloat16 features, got {x.dtype}"
         )
     else:
-        route = "dense_kernel" if f.is_dense else "sparse_kernel"
+        route = "dense_kernel" if f.is_dense else ("tiled_kernel" if tiled else "sparse_kernel")
     return route
 
 
@@ -97,6 +112,11 @@ def _pad_dim(v: Tensor, dim: int, fill: float) -> Tensor:
     if v.shape[0] >= dim:
         return v
     return torch.cat([v, torch.full((dim - v.shape[0],), fill, dtype=v.dtype, device=v.device)])
+
+
+def _mesh_of(batch: LabeledBatch):
+    """The grid of a tiled batch (``parallel.mesh.MeshGroup``), else None."""
+    return batch.features.mesh if batch.features.layout == "tiled" else None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,10 +153,18 @@ class GLMProblem:
     # its precisions
     prior: Optional[Coefficients] = None
 
-    def _norm_for(self, batch: LabeledBatch) -> Optional[NormalizationContext]:
+    def _norm_for(self, batch: LabeledBatch, whole: bool = False) -> Optional[NormalizationContext]:
+        """The normalization padded to the batch's dim (identity entries on
+        the padding); a tiled batch's objective takes its model slice of it
+        (``whole=False``)."""
         if self.normalization is None:
             return None
-        return self.normalization.to(batch.device).padded(batch.dim)
+        norm = self.normalization.to(batch.device).padded(batch.dim)
+        mesh = _mesh_of(batch)
+        if mesh is not None and not whole:
+            d_loc = batch.dim // mesh.n_model
+            norm = norm.sliced(mesh.model_index * d_loc, (mesh.model_index + 1) * d_loc)
+        return norm
 
     def objective(self, batch: LabeledBatch, plain: bool = False) -> GLMObjective:
         norm = self._norm_for(batch)
@@ -144,15 +172,22 @@ class GLMProblem:
         if self.prior is not None:
             dtype, dev = batch.labels.dtype, batch.device
             prior_mean = self.prior.means.to(device=dev, dtype=dtype)
-            if norm is not None:
-                prior_mean = norm.model_to_transformed_space(prior_mean)
+            if self.normalization is not None:
+                prior_mean = self._norm_for(batch, whole=True).model_to_transformed_space(
+                    _pad_dim(prior_mean, batch.dim, 0.0)
+                )
             if self.prior.variances is not None:
                 var = self.prior.variances.to(device=dev, dtype=dtype)
                 prior_precision = 1.0 / torch.clamp(var, min=1e-12)
             else:
                 prior_precision = torch.ones_like(prior_mean)
+            # padded coordinates have no data: prior mean 0, precision 1
+            # pins them at zero
             prior_mean = _pad_dim(prior_mean, batch.dim, 0.0)
             prior_precision = _pad_dim(prior_precision, batch.dim, 1.0)
+            mesh = _mesh_of(batch)
+            if mesh is not None:
+                prior_mean, prior_precision = mesh.model_slice(prior_mean), mesh.model_slice(prior_precision)
         return GLMObjective(
             loss=get_loss(self.task),
             batch=batch,
@@ -176,7 +211,7 @@ class GLMProblem:
         versions (``_fusion_mode``). ``plain=True`` runs the plain versions on
         the card as well: a reference solve to hold the kernels' solve
         against. A row-sharded batch solves on every rank of its group at
-        once.
+        once, a tiled batch on every rank of its grid.
         """
         vt = self.config.variance_type.upper()
         # fail before the solve, not after it
@@ -188,24 +223,40 @@ class GLMProblem:
             plain = _fusion_mode(batch)[0] == "plain_float64"
         obj = self.objective(batch, plain=plain)
         dtype, dev = batch.labels.dtype, batch.device
+        norm = self._norm_for(batch, whole=True)
         if initial_model is not None:
             w0 = initial_model.coefficients.means.to(device=dev, dtype=dtype)
-            if obj.norm is not None:
-                w0 = obj.norm.model_to_transformed_space(w0)
             w0 = _pad_dim(w0, batch.dim, 0.0)
+            if norm is not None:
+                w0 = norm.model_to_transformed_space(w0)
         else:
             w0 = torch.zeros(batch.dim, dtype=dtype, device=dev)
         if batch.group is not None:
             w0 = batch.group.broadcast(w0)
+        mesh = _mesh_of(batch)
+        solver_config = self.config.solver_config()
+        if mesh is not None:
+            w0 = mesh.model_slice(w0).clone()
+            box = solver_config.box_constraints
+            if box is not None:
+                lower, upper = (_pad_dim(b.to(device=dev, dtype=dtype), batch.dim, fill)
+                                for b, fill in zip(box, (-math.inf, math.inf)))
+                solver_config = dataclasses.replace(
+                    solver_config, box_constraints=(mesh.model_slice(lower), mesh.model_slice(upper))
+                )
 
         result = optimize(
-            obj.value_and_grad, w0, self.config.solver_config(), hvp=obj.hessian_vector
+            obj.value_and_grad, w0, solver_config, hvp=obj.hessian_vector, axis=obj.coefficient_axis
         )
         # variances stay in the transformed space, as in the reference
         variances = compute_variances(obj, result.coefficients, vt)
+        if mesh is not None:
+            # the model-sharded solution whole on every rank of the grid
+            coef, grad = mesh.gather_model([result.coefficients, result.gradient])
+            result = dataclasses.replace(result, coefficients=coef, gradient=grad)
         means = result.coefficients
-        if obj.norm is not None:
-            means = obj.norm.model_to_original_space(means)
+        if norm is not None:
+            means = norm.model_to_original_space(means)
         model = model_for_task(self.task, Coefficients(means=means, variances=variances))
         return model, result
 

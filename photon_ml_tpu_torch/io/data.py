@@ -139,21 +139,32 @@ class RawDataset:
         layout: str = "auto",
         feature_dtype=None,
         device: DeviceLike = None,
+        mesh=None,
     ):
         """Build a ``LabeledBatch`` of one feature shard on ``device`` (the
         card unless asked otherwise).
 
         layout: 'auto' (dense when d <= 4096, else ELL) | 'dense' | 'ell'
         (alias 'sparse': row-major padded sparse, moderate d) | 'coo'
-        (column-sorted COO, huge d). ``feature_dtype`` (e.g. bfloat16) stores
-        only the feature values narrower; labels, offsets and weights stay
-        ``dtype``."""
+        (column-sorted COO, huge d) | 'tiled' ((data x model)-tiled sparse,
+        huge d sharded over the ranks of ``mesh``, a
+        ``parallel.mesh.MeshGroup``: this rank's tile on the mesh's device;
+        see parallel/sparse.py). A dataset read per host
+        (``global_row_start`` set) holds its data row's rows, else every
+        rank holds the whole batch and keeps its block. ``feature_dtype``
+        (e.g. bfloat16) stores only the feature values narrower (not on the
+        tiled layout); labels, offsets and weights stay ``dtype``."""
         from ..ops.features import batch_from_coo, batch_from_dense
 
         rows, cols, vals = self.shard_coo[shard]
         d = self.shard_dims[shard]
         if layout == "auto":
             layout = "dense" if d <= 4096 else "ell"
+        if feature_dtype is not None and layout == "tiled":
+            raise ValueError(
+                "feature_dtype is not supported on the tiled layout "
+                "(shard_map value arrays stay in the solve dtype)"
+            )
         if layout == "dense":
             x = np.zeros((self.n_rows, d), dtype=np.float64)
             x[rows, cols] = vals
@@ -167,8 +178,13 @@ class RawDataset:
                 layout="coo" if layout == "coo" else "ell", feature_dtype=feature_dtype, device=device,
             )
         if layout == "tiled":
-            raise NotImplementedError(
-                "layout='tiled' (the (data x model)-mesh-tiled sparse batch) is not ported yet (ROADMAP A10)"
+            if mesh is None:
+                raise ValueError("layout='tiled' requires a device mesh")
+            from ..parallel.sparse import tiled_sparse_batch
+
+            return tiled_sparse_batch(
+                rows, cols, vals, self.labels, d, mesh, offsets=self.offsets, weights=self.weights, dtype=dtype,
+                local=self.global_row_start is not None,
             )
         raise ValueError(f"unknown batch layout {layout!r}: expected auto|dense|ell|sparse|coo|tiled")
 

@@ -291,7 +291,10 @@ class LabeledBatch:
 
     @property
     def n_rows(self) -> int:
-        return self.features.n_rows
+        """The rows this batch holds: the whole batch's, or a rank's shard's
+        (a tiled batch's data row block; its ``features.n_rows`` is the
+        padded global count)."""
+        return self.labels.shape[0]
 
     @property
     def dim(self) -> int:

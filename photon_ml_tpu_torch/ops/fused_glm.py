@@ -82,7 +82,7 @@ SUM_LAUNCHES = {"rank_order_sum": 0}
 SHIFT_LAUNCHES = {"fused_hessian_stats": 0}
 ROUTES = {"ring_bulk_copy": 0, "ring_plain_loads": 0, "staged": 0}
 # the objective route of each solve (game/problem.py ``_fusion_mode``)
-OBJECTIVE_ROUTES = {"dense_kernel": 0, "sparse_kernel": 0, "plain_cpu": 0, "plain_float64": 0}
+OBJECTIVE_ROUTES = {"dense_kernel": 0, "sparse_kernel": 0, "tiled_kernel": 0, "plain_cpu": 0, "plain_float64": 0}
 
 # sweep modes, bodies, finalizes and launch steps of csrc/fused_glm.cu
 # (enum Mode, enum Body, enum Finalize, kStep*)

@@ -42,6 +42,21 @@ row order, and over a row-sharded batch the ranks' float64 partials added
 in rank order, B4's pattern), and inverts its Cholesky factor in column
 chunks. A matrix that is not positive definite gives NaN variances, as the
 JAX package's does.
+
+A (data x model)-tiled batch (``parallel/sparse.py``) takes the JAX
+package's unfused branch over its tile: the coefficients, gradient and
+normalization stats are this rank's ``[d_loc]`` model slice, the margins
+its data row's ``[n_loc]`` block. Each evaluation sums over the grid's
+subgroups in two collectives, the reductions that do not depend on each
+other gathered into one: the tile's margins with the coefficient dots
+(``eff . shift``, the L2 term) over the data row, then the tile's
+``X^T c`` with the row sums (the loss, ``sum w dz``) over the model column.
+``hessian_matrix`` adds each rank's float64 ``[d_loc, dim]`` block over its
+model column (the normalization's rank-one terms applied to the rank's
+share first, as they are linear in its rows), pins only the structural
+padding (``>= dim_true``) and gathers the whole ``[dim, dim]`` matrix onto
+every rank for the inversion; ``compute_variances`` returns the whole
+``[dim]`` vector on every rank.
 """
 
 from __future__ import annotations
@@ -113,6 +128,20 @@ class GLMObjective:
         every sweep is summed across its ranks. None for a whole batch."""
         return self.batch.group
 
+    @property
+    def tiled(self) -> bool:
+        """The batch is a (data x model)-tiled one (``parallel/sparse.py``)."""
+        return self.batch.features.layout == "tiled"
+
+    @property
+    def coefficient_axis(self):
+        """Where the solver's coefficient vector lies (``optimize.common``):
+        a tiled batch's model slice (``ModelAxis`` over its data row), else
+        ``LOCAL``."""
+        from ..optimize.common import LOCAL, ModelAxis
+
+        return ModelAxis(self.batch.features.mesh.model) if self.tiled else LOCAL
+
     def _norm(self) -> NormalizationContext:
         return self.norm if self.norm is not None else identity_normalization()
 
@@ -135,11 +164,66 @@ class GLMObjective:
 
     def _d2z_weights(self, coef: Tensor) -> Tensor:
         b = self.batch
-        return b.weights * self.loss.d2z(self._margins(coef), b.labels)
+        if self.tiled:
+            (z,), _ = self._tiled_margins((coef,))
+        else:
+            z = self._margins(coef)
+        return b.weights * self.loss.d2z(z, b.labels)
+
+    def _tiled_margins(self, vecs, dots=()):
+        """A tiled batch's margins ``X.eff(v) + vshift(v)`` of each
+        coefficient slice in ``vecs`` (the first one's with the offsets)
+        and the totals of the partial ``dots`` (0-dim tensors over this
+        rank's slice), all summed over the data row in one collective."""
+        b = self.batch
+        f = b.features
+        norm = self._norm()
+        effs = [v if norm.factors is None else v * norm.factors for v in vecs]
+        parts = [f.tile.matvec(e, plain=self.plain) for e in effs]
+        extra = [-torch.dot(e, norm.shifts) for e in effs] if norm.shifts is not None else []
+        extra += list(dots)
+        n = parts[0].shape[0]
+        flat = torch.cat(parts + [torch.stack(extra).to(parts[0].dtype)] if extra else parts)
+        tot = f.mesh.model.sum(flat, plain=self.plain)
+        k = len(vecs)
+        zs = [tot[i * n : (i + 1) * n] for i in range(k)]
+        rest = tot[k * n :]
+        if norm.shifts is not None:
+            zs = [z + rest[i] for i, z in enumerate(zs)]
+            rest = rest[k:]
+        zs[0] = zs[0] + b.offsets
+        return zs, rest
+
+    def _tiled_column_sum(self, vecs, scalars=()):
+        """This rank's ``[d_loc]`` partials ``vecs`` and 0-dim partials
+        ``scalars``, summed over the model column in one collective."""
+        f = self.batch.features
+        d = vecs[0].shape[0]
+        parts = list(vecs) + ([torch.stack(list(scalars)).to(vecs[0].dtype)] if scalars else [])
+        tot = f.mesh.data.sum(torch.cat(parts), plain=self.plain)
+        return [tot[i * d : (i + 1) * d] for i in range(len(vecs))], tot[len(vecs) * d :]
+
+    def _tiled_value_and_grad(self, coef: Tensor) -> Tuple[Tensor, Tensor]:
+        b = self.batch
+        norm = self._norm()
+        delta = self._reg_delta(coef)
+        prec = self._precision(coef)
+        (z,), (reg,) = self._tiled_margins((coef,), (torch.dot(delta, prec * delta),))
+        lvals, dz = self.loss.loss_and_dz(z, b.labels)
+        wdz = b.weights * dz
+        sums = [torch.sum(b.weights * lvals)] + ([torch.sum(wdz)] if norm.shifts is not None else [])
+        (grad,), tot = self._tiled_column_sum((b.features.tile.rmatvec(wdz, plain=self.plain),), sums)
+        if norm.shifts is not None:
+            grad = grad - norm.shifts * tot[1]
+        if norm.factors is not None:
+            grad = grad * norm.factors
+        return tot[0] + 0.5 * self.l2 * reg, grad + self.l2 * prec * delta
 
     def value_and_grad(self, coef: Tensor) -> Tuple[Tensor, Tensor]:
         b = self.batch
         norm = self._norm()
+        if self.tiled:
+            return self._tiled_value_and_grad(coef)
         if b.features.is_dense:
             eff, mshift = norm.effective_coefficients(coef)
             value, grad, wdz_sum = sharded_value_grad(
@@ -169,14 +253,21 @@ class GLMObjective:
         with c_i = w_i l''_i and u_i = (x_i - shift) .* factor . v."""
         b = self.batch
         norm = self._norm()
-        eff_v, vshift = norm.effective_coefficients(v)
-        if b.features.is_dense:
+        if self.tiled:
+            (z, u), _ = self._tiled_margins((coef, v))
+            c = b.weights * self.loss.d2z(z, b.labels) * u
+            sums = [torch.sum(c)] if norm.shifts is not None else []
+            (hv,), tot = self._tiled_column_sum((b.features.tile.rmatvec(c, plain=self.plain),), sums)
+            csum = tot[0] if sums else None
+        elif b.features.is_dense:
+            eff_v, vshift = norm.effective_coefficients(v)
             eff, mshift = norm.effective_coefficients(coef)
             hv, csum = sharded_hessian_vector(
                 self.group, b.features.dense, eff, eff_v, b.labels, b.offsets + mshift,
                 b.weights, vshift, self.loss, plain=self.plain,
             )
         else:
+            eff_v, vshift = norm.effective_coefficients(v)
             c = self._d2z_weights(coef) * (b.features.matvec(eff_v, plain=self.plain) + vshift)
             hv = b.features.rmatvec(c, plain=self.plain)
             csum = torch.sum(c) if norm.shifts is not None else None
@@ -193,7 +284,16 @@ class GLMObjective:
         b = self.batch
         norm = self._norm()
         need_shifts = norm.shifts is not None
-        if b.features.is_dense:
+        if self.tiled:
+            c = self._d2z_weights(coef)
+            t = b.features.tile
+            vecs = [t.sq_rmatvec(c, plain=self.plain)]
+            if need_shifts:
+                vecs.append(t.rmatvec(c, plain=self.plain))
+            sums, tot = self._tiled_column_sum(vecs, [torch.sum(c)] if need_shifts else [])
+            s2 = sums[0]
+            s1, s0 = (sums[1], tot[0]) if need_shifts else (None, None)
+        elif b.features.is_dense:
             eff, mshift = norm.effective_coefficients(coef)
             s2, s1, s0 = sharded_hessian_stats(
                 self.group, b.features.dense, eff, b.labels, b.offsets + mshift, b.weights,
@@ -215,15 +315,16 @@ class GLMObjective:
         """The dense ``[d, d]`` Hessian ``X'^T diag(w l'') X' + l2 diag(P)``
         in the batch's dtype, with X' = (X - shift) .* factor (a sparse
         batch densified, as the JAX package does), and exact-zero diagonal
-        entries pinned to 1 (``_pin_zero_diagonal``). (The JAX package's
-        model-axis-tiled branch has no batch here: tiled batches are ROADMAP
-        A10.)"""
+        entries pinned to 1 (``_pin_zero_diagonal``). A tiled batch takes
+        ``_tiled_hessian_matrix``."""
         b = self.batch
         check_full_variance_dim(b.dim)
         c = self._d2z_weights(coef)
+        if self.tiled:
+            return self._tiled_hessian_matrix(c)
         h = _xtcx(b.features.to_dense(), c, self._norm())
         if self.group is not None:
-            h = self._sum_over_ranks(h, c.dtype)
+            h = sum_over_ranks(self.group, h, c.dtype, plain=self.plain)
         else:
             h = h.to(c.dtype)
         dg = h.diagonal()
@@ -231,27 +332,63 @@ class GLMObjective:
         _pin_zero_diagonal(h)
         return h
 
-    def _sum_over_ranks(self, h: Tensor, dtype: torch.dtype) -> Tensor:
-        """B4's pattern for this rank's float64 partial ``h``: a piece of
-        whole rows at a time into this rank's slot, the slots gathered and
-        added in rank order into a new ``[d, d]`` tensor of ``dtype``, so
-        that every rank gets the same bits and the slots take
-        ``HESSIAN_CHUNK_BYTES`` a rank whatever the world size. The sum is
-        the CUDA kernel on the card (float32 only: a float64 batch on the
-        card comes with ``plain``) and its plain version on the CPU."""
-        group = self.group
-        d = h.shape[0]
-        plain = self.plain or h.device.type == "cpu"
-        out = torch.empty((d, d), dtype=dtype, device=h.device)
-        rows = max(1, HESSIAN_CHUNK_BYTES // (8 * d))
-        for lo in range(0, d, rows):
-            piece = h[lo : lo + rows].reshape(-1)
-            slots = torch.empty((group.world_size, piece.numel()), dtype=torch.float64, device=h.device)
-            slots[group.rank] = piece
-            group.gather_slots(slots)
-            total = rank_order_sum_plain(slots, dtype) if plain else rank_order_sum(slots, dtype)
-            out[lo : lo + rows] = total.view(-1, d)
-        return out
+    def _tiled_hessian_matrix(self, c: Tensor) -> Tensor:
+        """The JAX package's tiled branch, term by term: this rank's float64
+        share of ``X^T diag(c) X`` (``xtcx_partial``), its normalization
+        without densifying X, ``H' = F (H - s S1^T - S1 s^T + S0 s s^T) F``
+        with ``S1 = X^T c`` and ``S0 = sum c`` of the rank's rows (linear in
+        them, so it applies to each share), summed over the model column;
+        then ``l2 P`` and a unit pin on the structural padding
+        (``>= dim_true``) only, the whole matrix gathered over the data row,
+        and ``_pin_zero_diagonal``."""
+        b = self.batch
+        f = b.features
+        mesh = f.mesh
+        norm = self._norm()
+        d_loc, dim = f.d_local, f.dim
+        h = f.xtcx_partial(c)
+        if not norm.is_identity:
+            f64 = lambda v: v.to(torch.float64)  # noqa: E731
+            if norm.shifts is not None:
+                s1 = f.tile.rmatvec(c, plain=self.plain).to(torch.float64)
+                s0 = torch.sum(c).to(torch.float64)
+                sh = f64(norm.shifts)
+                s1_all, sh_all = mesh.gather_model([s1, sh])
+                h = h - sh[:, None] * s1_all[None, :] - s1[:, None] * sh_all[None, :]
+                h = h + s0 * sh[:, None] * sh_all[None, :]
+            if norm.factors is not None:
+                (fac_all,) = mesh.gather_model([f64(norm.factors)])
+                h = h * f64(norm.factors)[:, None] * fac_all[None, :]
+        h = h.to(c.dtype) if mesh.n_data == 1 else sum_over_ranks(mesh.data, h, c.dtype, plain=self.plain)
+        lo = mesh.model_index * d_loc
+        cols = torch.arange(lo, lo + d_loc, device=h.device)
+        d_true = f.dim_true or dim
+        pad_pin = (cols >= d_true).to(h.dtype)
+        h[torch.arange(d_loc, device=h.device), cols] += self.l2 * self._precision(pad_pin) + pad_pin
+        (whole,) = mesh.gather_model([h])
+        return _pin_zero_diagonal(whole)
+
+
+def sum_over_ranks(group, h: Tensor, dtype: torch.dtype, plain: bool = False) -> Tensor:
+    """B4's pattern for this rank's float64 partial ``h`` (``[rows,
+    width]``): a piece of whole rows at a time into this rank's slot, the
+    slots gathered and added in rank order into a new tensor of ``dtype``,
+    so that every rank gets the same bits and the slots take
+    ``HESSIAN_CHUNK_BYTES`` a rank whatever the world size. The sum is the
+    CUDA kernel on the card (float32 only: a float64 batch on the card
+    comes with ``plain``) and its plain version on the CPU."""
+    width = h.shape[1]
+    plain = plain or h.device.type == "cpu"
+    out = torch.empty(h.shape, dtype=dtype, device=h.device)
+    rows = max(1, HESSIAN_CHUNK_BYTES // (8 * width))
+    for lo in range(0, h.shape[0], rows):
+        piece = h[lo : lo + rows].reshape(-1)
+        slots = torch.empty((group.world_size, piece.numel()), dtype=torch.float64, device=h.device)
+        slots[group.rank] = piece
+        group.gather_slots(slots)
+        total = rank_order_sum_plain(slots, dtype) if plain else rank_order_sum(slots, dtype)
+        out[lo : lo + rows] = total.view(-1, width)
+    return out
 
 
 def _xtcx(x: Tensor, c: Tensor, norm: NormalizationContext) -> Tensor:
@@ -320,7 +457,11 @@ def compute_variances(
         return None
     if vt == "SIMPLE":
         d = objective.hessian_diagonal(coef)
-        return 1.0 / torch.where(d == 0, torch.ones_like(d), d)
+        var = 1.0 / torch.where(d == 0, torch.ones_like(d), d)
+        if objective.tiled:
+            # the whole vector on every rank, as the FULL branch gives it
+            (var,) = objective.batch.features.mesh.gather_model([var])
+        return var
     if vt == "FULL":
         return _diag_of_inverse(objective.hessian_matrix(coef))
     raise ValueError(f"Unknown variance computation type: {variance_type!r}")

@@ -103,6 +103,18 @@ class NormalizationContext:
             intercept_index=self.intercept_index,
         )
 
+    def sliced(self, lo: int, hi: int) -> "NormalizationContext":
+        """The stats of coefficients ``[lo, hi)``: a model-axis slice of
+        a (padded) context, as a tiled batch's objective takes it; the
+        intercept index re-based where it falls inside, else None (the
+        slice's objective never moves the intercept)."""
+        if self.is_identity:
+            return self
+        cut = lambda v: None if v is None else v[lo:hi]  # noqa: E731
+        ii = self.intercept_index
+        inside = ii is not None and lo <= ii < hi
+        return NormalizationContext(cut(self.factors), cut(self.shifts), ii - lo if inside else None)
+
     def effective_coefficients(self, coef: Tensor) -> tuple[Tensor, Tensor]:
         """(effective_coef, margin_shift) with margin = effective_coef.x + margin_shift:
         effective_coef = coef .* factor, margin_shift = -effective_coef.shift."""

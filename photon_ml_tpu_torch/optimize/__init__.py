@@ -1,5 +1,8 @@
 from .common import (
+    LOCAL,
+    CoefficientAxis,
     ConvergenceReason,
+    ModelAxis,
     OptimizerConfig,
     OptimizerType,
     SolverResult,
@@ -13,7 +16,10 @@ from .lbfgs import solve_lbfgs
 from .tron import solve_tron
 
 __all__ = [
+    "LOCAL",
+    "CoefficientAxis",
     "ConvergenceReason",
+    "ModelAxis",
     "OptimizerConfig",
     "OptimizerType",
     "SolverResult",

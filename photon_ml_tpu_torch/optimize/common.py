@@ -15,6 +15,16 @@ whose reductions run over axis 0, with per-lane ``[E]`` losses, tolerances
 and reasons (the batched L-BFGS of ``lbfgs.py``, the batched TRON of
 ``tron.py``). ``Lanes`` names the other layout the batched solvers take:
 entity-leading ``[E, S]``, the JAX package's vmapped per-entity solve.
+
+One problem's reductions over its coefficient vector (dots, norms, the
+finite check, OWL-QN's ``||w||_1``) go through one hook, a
+``CoefficientAxis``: ``LOCAL`` where the whole vector is on this rank (a
+total is the rank's own ``torch.dot``, the bits the solvers always had),
+``ModelAxis`` where it is sharded over a model axis of ranks (a tiled
+batch's ``[d_loc]`` slice, ``parallel/sparse.py``): the rank's partials
+summed over its data row, those that do not depend on each other in one
+collective, so that every rank fetches the same scalars and takes the same
+decisions.
 """
 
 from __future__ import annotations
@@ -167,6 +177,47 @@ MINOR = Lanes(0)
 LEADING = Lanes(-1)
 
 
+class CoefficientAxis:
+    """Where one problem's coefficient vector lies: whole on this rank. The
+    solvers reduce over it only through ``total``: partial sums this rank
+    computed over its coefficients in, their totals over every coefficient
+    out, in one call for all of them. Here a total is its partial."""
+
+    def total(self, *partials: Tensor) -> Tuple[Tensor, ...]:
+        return partials
+
+    def dot(self, a: Tensor, b: Tensor) -> Tensor:
+        return self.total(torch.dot(a, b))[0]
+
+    def norm(self, v: Tensor) -> Tensor:
+        return torch.sqrt(self.dot(v, v))
+
+    @staticmethod
+    def nonfinite(g: Tensor) -> Tensor:
+        """A partial whose total is 0 exactly when every coefficient of
+        ``g`` is finite (its non-finite entries, counted in ``g``'s dtype)."""
+        return torch.sum(~torch.isfinite(g)).to(g.dtype)
+
+
+class ModelAxis(CoefficientAxis):
+    """A coefficient vector sharded over the ranks of ``group`` (a
+    ``parallel.mesh.DataParallelGroup``: a data row of the grid, whose
+    ranks hold the model axis's slices): the partials of one ``total`` are
+    summed over the group in one exact collective (``group.sum``: float64
+    slots, the rank-order sum), every rank the same bits."""
+
+    def __init__(self, group) -> None:
+        self.group = group
+
+    def total(self, *partials: Tensor) -> Tuple[Tensor, ...]:
+        dtype = partials[0].dtype
+        stacked = torch.stack([p.reshape(()).to(dtype) for p in partials])
+        return tuple(self.group.sum(stacked).unbind())
+
+
+LOCAL = CoefficientAxis()
+
+
 def project_box(w: Tensor, box: Optional[Tuple[Tensor, Tensor]]) -> Tensor:
     """Clamp coefficients into [lower, upper]."""
     if box is None:
@@ -237,17 +288,18 @@ def abs_tolerances(
     tolerance: float,
     syncs: Optional[SyncCounter] = None,
     lanes: Lanes = MINOR,
+    axis: CoefficientAxis = LOCAL,
 ):
     """Absolute tolerances from the state at zero coefficients: host
-    scalars for one problem (one fetch); ``[E]`` device tensors for a stack
-    of lanes laid out as ``lanes`` says, which the batched solvers keep on
-    the device (no fetch)."""
+    scalars for one problem (one fetch; ``axis`` where its coefficients
+    lie); ``[E]`` device tensors for a stack of lanes laid out as ``lanes``
+    says, which the batched solvers keep on the device (no fetch)."""
     f0, g0 = value_and_grad(torch.zeros_like(zero_like))
     if zero_like.dim() > 1:
         # a Python scalar: no upload (and the same products as a 0-dim
         # tensor of the value's dtype)
         return torch.abs(f0) * tolerance, lanes.norm(g0) * tolerance
-    f0_h, g0_norm = (syncs or SyncCounter()).fetch(f0, norm(g0))
+    f0_h, g0_norm = (syncs or SyncCounter()).fetch(f0, axis.norm(g0))
     tol = f0_h.dtype.type(tolerance)
     return abs(f0_h) * tol, g0_norm * tol
 

@@ -14,6 +14,8 @@ from typing import Optional
 import torch
 
 from .common import (
+    LOCAL,
+    CoefficientAxis,
     HvpFn,
     OptimizerConfig,
     OptimizerType,
@@ -31,14 +33,19 @@ def optimize(
     w0: torch.Tensor,
     config: OptimizerConfig,
     hvp: Optional[HvpFn] = None,
+    axis: CoefficientAxis = LOCAL,
 ) -> SolverResult:
+    """Solve from ``w0`` as ``config`` says. ``axis`` is where the
+    coefficient vector lies (``optimize.common``): ``LOCAL``, or a
+    ``ModelAxis`` for a tiled batch's model-sharded slice, whose
+    reductions every solver routes through it."""
     kind = config.normalized_type()
     # refuse before the tolerance pass sweeps the data
     if kind == OptimizerType.TRON and hvp is None:
         raise ValueError("TRON requires a Hessian-vector-product function")
 
     syncs = SyncCounter()
-    loss_tol, grad_tol = abs_tolerances(value_and_grad, w0, config.tolerance, syncs)
+    loss_tol, grad_tol = abs_tolerances(value_and_grad, w0, config.tolerance, syncs, axis=axis)
     if kind in (OptimizerType.LBFGS, OptimizerType.LBFGSB, OptimizerType.OWLQN):
         return solve_lbfgs(
             value_and_grad,
@@ -51,6 +58,7 @@ def optimize(
             box_constraints=config.box_constraints,
             max_line_search_iterations=config.max_line_search_iterations,
             syncs=syncs,
+            axis=axis,
         )
     return solve_tron(
         value_and_grad,
@@ -63,4 +71,5 @@ def optimize(
         max_improvement_failures=config.max_improvement_failures,
         box_constraints=config.box_constraints,
         syncs=syncs,
+        axis=axis,
     )

@@ -62,18 +62,17 @@ from .. import obs
 
 from .common import (
     LEADING,
+    LOCAL,
     MINOR,
+    CoefficientAxis,
     ConvergenceReason,
     Lanes,
     SolverResult,
     SyncCounter,
     ValueAndGradFn,
     check_convergence,
-    finite_state,
     nan_history,
-    norm,
     project_box,
-    vdot,
 )
 
 Tensor = torch.Tensor
@@ -93,7 +92,10 @@ def _pseudo_gradient(w: Tensor, g: Tensor, l1: float) -> Tensor:
 
 class _Variant:
     """What OWL-QN (``l1``) and L-BFGS-B (``box``) change in the plain
-    L-BFGS iteration; with neither it is plain L-BFGS."""
+    L-BFGS iteration; with neither it is plain L-BFGS. Every reduction over
+    one problem's coefficients goes through ``axis`` (``optimize.common``:
+    ``LOCAL``, or a model-sharded slice's ``ModelAxis``); a stack of lanes
+    reduces through its ``Lanes``."""
 
     def __init__(
         self,
@@ -101,20 +103,26 @@ class _Variant:
         l1: float,
         box: Optional[Tuple[Tensor, Tensor]],
         lanes: Optional[Lanes] = None,
+        axis: CoefficientAxis = LOCAL,
     ):
         self.value_and_grad, self.l1, self.box = value_and_grad, l1, box
         # the curvature condition holds only for the smooth, unconstrained problem
         self.wolfe = l1 == 0.0 and box is None
         # None: one problem (1-D w)
         self.lanes = lanes
-        self.dot = vdot if lanes is None else lanes.dot
+        self.axis = axis
+        self.dot = axis.dot if lanes is None else lanes.dot
         self.spread = (lambda x: x) if lanes is None else lanes.spread  # noqa: E731
 
     def objective(self, w: Tensor) -> Tuple[Tensor, Tensor]:
         """(f(w) + l1 ||w||_1, the smooth part's gradient)."""
         f, g = self.value_and_grad(w)
         if self.l1 > 0.0:
-            f = f + self.l1 * (self.lanes or MINOR).sum(torch.abs(w).to(f.dtype))
+            if self.lanes is None:
+                (l1_norm,) = self.axis.total(MINOR.sum(torch.abs(w).to(f.dtype)))
+            else:
+                l1_norm = self.lanes.sum(torch.abs(w).to(f.dtype))
+            f = f + self.l1 * l1_norm
         return f, g
 
     def effective_grad(self, w: Tensor, g: Tensor) -> Tensor:
@@ -134,9 +142,12 @@ class _Variant:
         direction = -raw
         if self.l1 > 0.0:
             direction = torch.where(direction * pg >= 0, torch.zeros_like(direction), direction)
-        dg = self.dot(direction, pg)
+        if self.lanes is None:
+            dg, pgpg = self.axis.total(torch.dot(direction, pg), torch.dot(pg, pg))
+        else:
+            dg, pgpg = self.dot(direction, pg), self.dot(pg, pg)
         bad = dg >= 0
-        return torch.where(self.spread(bad), -pg, direction), torch.where(bad, -self.dot(pg, pg), dg)
+        return torch.where(self.spread(bad), -pg, direction), torch.where(bad, -pgpg, dg)
 
     def orthant(self, w: Tensor, pg: Tensor) -> Optional[Tensor]:
         if self.l1 == 0.0:
@@ -155,7 +166,8 @@ class _Variant:
 
 
 class _Trial:
-    """One line-search point with the host scalars fetched beside it."""
+    """One line-search point with the host scalars fetched beside it (its
+    five coefficient reductions and the finite check in one ``total``)."""
 
     def __init__(self, var: _Variant, w, g, direction, dg, orthant, t, syncs):
         self.w = var.point(w, float(t), direction, orthant)
@@ -163,29 +175,35 @@ class _Trial:
         self.pg = var.effective_grad(self.w, self.g)
         s_vec = self.w - w
         y_vec = self.g - g
+        gd, sy, yy, pgpg, gs, bad = var.axis.total(
+            torch.dot(self.g, direction), torch.dot(s_vec, y_vec), torch.dot(y_vec, y_vec),
+            torch.dot(self.pg, self.pg), torch.dot(g, s_vec), var.axis.nonfinite(self.g),
+        )
         (self.f_h, self.gd_h, finite, self.dg_h, self.sy_h, self.yy_h,
          self.g_norm_h, self.gs_h) = syncs.fetch(
-            self.f, torch.dot(self.g, direction), finite_state(self.f, self.g), dg,
-            torch.dot(s_vec, y_vec), torch.dot(y_vec, y_vec), norm(self.pg), torch.dot(g, s_vec),
+            self.f, gd, torch.isfinite(self.f) & (bad == 0), dg, sy, yy, torch.sqrt(pgpg), gs,
         )
         self.finite = bool(finite)
         self.s_vec, self.y_vec = s_vec, y_vec
 
 
-def _two_loop(pairs: List[Tuple[Tensor, Tensor, np.generic, np.generic]], g: Tensor) -> Tensor:
+def _two_loop(
+    pairs: List[Tuple[Tensor, Tensor, np.generic, np.generic]], g: Tensor, axis: CoefficientAxis = LOCAL
+) -> Tensor:
     """Two-loop recursion over the (s, y, rho, gamma) history, oldest to
     newest: newest-first pass 1, oldest-first pass 2, gamma from the newest
-    pair (1 without history)."""
+    pair (1 without history). Each dot depends on the one before it: one
+    ``axis`` total each."""
     q = g.clone()
     alphas = []
     for s, y, rho, _ in reversed(pairs):
-        a = float(rho) * torch.dot(s, q)
+        a = float(rho) * axis.dot(s, q)
         alphas.append(a)
         q = q - a * y
     gamma = pairs[-1][3] if pairs else 1.0
     r = float(gamma) * q
     for (s, y, rho, _), a in zip(pairs, reversed(alphas)):
-        b = float(rho) * torch.dot(y, r)
+        b = float(rho) * axis.dot(y, r)
         r = r + (a - b) * s
     return r
 
@@ -239,6 +257,7 @@ def solve_lbfgs(
     syncs: Optional[SyncCounter] = None,
     batched: bool = False,
     entity_leading: bool = False,
+    axis: CoefficientAxis = LOCAL,
 ) -> SolverResult:
     """Minimize f(w) (+ ``l1_weight * ||w||_1``, OWL-QN; within
     ``box_constraints``, L-BFGS-B) from ``w0``. ``batched=True`` solves an
@@ -246,7 +265,8 @@ def solve_lbfgs(
     ``[S, E]``, ``value_and_grad`` maps ``[S, E] -> ([E], [S, E])``, and the
     absolute tolerances are per-lane ``[E]`` tensors (or scalars). With
     ``entity_leading=True`` as well the stack is ``[E, S]``, each lane with
-    its own history cursor (the JAX package's vmapped solve)."""
+    its own history cursor (the JAX package's vmapped solve). ``axis``:
+    where one problem's coefficients lie (``optimize.common``)."""
     syncs = syncs or SyncCounter()
     if batched:
         if w0.dim() != 2:
@@ -257,13 +277,14 @@ def solve_lbfgs(
             var, w0, loss_abs_tol, grad_abs_tol, max_iterations,
             num_corrections, max_line_search_iterations, syncs,
         )
-    var = _Variant(value_and_grad, float(l1_weight), box_constraints)
+    var = _Variant(value_and_grad, float(l1_weight), box_constraints, axis=axis)
     if w0.dim() != 1:
         raise ValueError(f"single-lane L-BFGS takes a 1-D w0 (batched=True for lanes), got {tuple(w0.shape)}")
     w = project_box(w0, box_constraints).clone()  # start feasible
     f, g = var.objective(w)
     pg = var.effective_grad(w, g)
-    f_h, g_norm, ok = syncs.fetch(f, norm(pg), finite_state(f, g))
+    pgpg, bad = axis.total(torch.dot(pg, pg), axis.nonfinite(g))
+    f_h, g_norm, ok = syncs.fetch(f, torch.sqrt(pgpg), torch.isfinite(f) & (bad == 0))
     lh, gh = [f_h], [g_norm]
 
     def result(it: int, reason: int) -> SolverResult:
@@ -286,7 +307,7 @@ def solve_lbfgs(
     pairs: List[Tuple[Tensor, Tensor, np.generic, np.generic]] = []
     it = 0
     while True:
-        direction, dg = var.direction(_two_loop(pairs, pg), pg)
+        direction, dg = var.direction(_two_loop(pairs, pg, axis), pg)
         trial, ls_ok = _line_search(
             var, w, f_h, g, direction, dg, var.orthant(w, pg), max_line_search_iterations, syncs
         )
@@ -323,19 +344,19 @@ def _two_loop_batched(S: Tensor, Y: Tensor, rho: Tensor, count: int, head: int, 
     q = g
     alphas = []
     for j in newest_first:
-        a = rho[j] * vdot(S[j], q)
+        a = rho[j] * MINOR.dot(S[j], q)
         alphas.append(a)
         q = q - a * Y[j]
     one = torch.ones((), dtype=g.dtype, device=g.device)
     if count > 0:
         j0 = newest_first[0]
-        ys, yy = vdot(S[j0], Y[j0]), vdot(Y[j0], Y[j0])
+        ys, yy = MINOR.dot(S[j0], Y[j0]), MINOR.dot(Y[j0], Y[j0])
         gamma = torch.where(yy > 0, ys / torch.where(yy > 0, yy, one), one)
     else:
         gamma = one
     r = gamma * q
     for j, a in zip(reversed(newest_first), reversed(alphas)):
-        b = rho[j] * vdot(Y[j], r)
+        b = rho[j] * MINOR.dot(Y[j], r)
         r = r + (a - b) * S[j]
     return r
 

@@ -43,7 +43,9 @@ import torch
 from .. import obs
 from .common import (
     LEADING,
+    LOCAL,
     MINOR,
+    CoefficientAxis,
     ConvergenceReason,
     Lanes,
     HvpFn,
@@ -51,9 +53,7 @@ from .common import (
     SyncCounter,
     ValueAndGradFn,
     check_convergence,
-    finite_state,
     nan_history,
-    norm,
     project_box,
 )
 
@@ -75,30 +75,30 @@ def _truncated_cg(
     delta,
     max_cg_iterations: int,
     syncs: SyncCounter,
+    axis: CoefficientAxis = LOCAL,
 ) -> Tuple[Tensor, Tensor, int]:
     """Approximately solve H step = -gradient within ||step|| <= delta.
     Returns (step, residual, cg_iterations); the residual r = -g - H step
-    feeds the predicted reduction."""
+    feeds the predicted reduction. The reductions that do not depend on
+    each other share one ``axis`` total."""
     tol = 0.1 * grad_norm
     step = torch.zeros_like(gradient)
     r = -gradient
     d = r.clone()
-    rtr = torch.dot(r, r)
+    rtr = axis.dot(r, r)
     if grad_norm <= tol:
         return step, r, 0
     it = 0
     while it < max_cg_iterations:
         hd = hvp(w, d)
-        alpha = rtr / _nonzero(torch.dot(d, hd))
+        alpha = rtr / _nonzero(axis.dot(d, hd))
         step_try = step + alpha * d
         r_new = r - alpha * hd
-        rtr_new = torch.dot(r_new, r_new)
-        step_norm, r_norm = syncs.fetch(norm(step_try), torch.sqrt(rtr_new))
+        sts_try, rtr_new = axis.total(torch.dot(step_try, step_try), torch.dot(r_new, r_new))
+        step_norm, r_norm = syncs.fetch(torch.sqrt(sts_try), torch.sqrt(rtr_new))
         if step_norm > delta:
             # hit the trust-region boundary: back off to the crossing
-            std = torch.dot(step, d)
-            sts = torch.dot(step, step)
-            dtd = torch.dot(d, d)
+            std, sts, dtd = axis.total(torch.dot(step, d), torch.dot(step, step), torch.dot(d, d))
             delta_t = torch.as_tensor(delta, dtype=gradient.dtype, device=gradient.device)
             dsq = delta_t * delta_t
             rad = torch.sqrt(torch.clamp(std * std + dtd * (dsq - sts), min=0.0))
@@ -135,10 +135,12 @@ def solve_tron(
     box_constraints: Optional[Tuple[Tensor, Tensor]] = None,
     syncs: Optional[SyncCounter] = None,
     entity_leading: bool = False,
+    axis: CoefficientAxis = LOCAL,
 ) -> SolverResult:
     """Minimize f(w) from ``w0``: one problem for a 1-D ``w0``, else a stack
     of lanes (``entity_leading`` picks the layout; see the module's
-    docstring), with per-lane ``[E]`` absolute tolerances or scalars."""
+    docstring), with per-lane ``[E]`` absolute tolerances or scalars.
+    ``axis``: where one problem's coefficients lie (``optimize.common``)."""
     syncs = syncs or SyncCounter()
     if w0.dim() != 1:
         return _solve_batched(
@@ -148,7 +150,8 @@ def solve_tron(
         )
     w = w0.clone()
     f, g = value_and_grad(w)
-    f_h, g_norm, ok = syncs.fetch(f, norm(g), finite_state(f, g))
+    gg, bad = axis.total(torch.dot(g, g), axis.nonfinite(g))
+    f_h, g_norm, ok = syncs.fetch(f, torch.sqrt(gg), torch.isfinite(f) & (bad == 0))
     lh, gh = [f_h], [g_norm]
 
     def result(it: int, reason: int) -> SolverResult:
@@ -172,13 +175,16 @@ def solve_tron(
     it = 0
     failures = 0
     while True:
-        step, residual, _ = _truncated_cg(hvp, w, g, g_norm, delta, max_cg_iterations, syncs)
+        step, residual, _ = _truncated_cg(hvp, w, g, g_norm, delta, max_cg_iterations, syncs, axis)
         w_try = w + step
-        gs = torch.dot(g, step)
-        predicted = -0.5 * (gs - torch.dot(step, residual))
         f_try, g_try = value_and_grad(w_try)
+        gs, s_res, ss, gg_try, bad = axis.total(
+            torch.dot(g, step), torch.dot(step, residual), torch.dot(step, step), torch.dot(g_try, g_try),
+            axis.nonfinite(g_try),
+        )
+        predicted = -0.5 * (gs - s_res)
         f_try_h, gs_h, predicted_h, step_norm, g_try_norm, finite_try = syncs.fetch(
-            f_try, gs, predicted, norm(step), norm(g_try), finite_state(f_try, g_try)
+            f_try, gs, predicted, torch.sqrt(ss), torch.sqrt(gg_try), torch.isfinite(f_try) & (bad == 0)
         )
         finite_try = bool(finite_try)
         actual = f_h - f_try_h

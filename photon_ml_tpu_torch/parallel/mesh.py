@@ -1,10 +1,18 @@
-"""Data-parallel groups and the sharding helpers of the data axis.
+"""Data-parallel groups, the (data x model) rank grid, and the sharding
+helpers of the data axis.
 
-Counterpart of the JAX package's ``parallel/mesh.py`` for its data axis.
-There one controller places arrays on a device mesh and XLA inserts the
-collectives; here every rank is a process of its own (SPMD over
-``torch.distributed``) and a ``DataParallelGroup`` takes the place of the
-mesh's data axis:
+Counterpart of the JAX package's ``parallel/mesh.py``. There one controller
+places arrays on a device mesh and XLA inserts the collectives; here every
+rank is a process of its own (SPMD over ``torch.distributed``) and a
+``DataParallelGroup`` takes the place of one mesh axis. ``make_mesh(D, M)``
+lays ``D * M`` ranks out as the JAX package's
+``devices.reshape(n_data, n_model)`` does, row-major: rank r sits at data
+index ``i = r // M`` and model index ``j = r % M``. Its ``MeshGroup`` holds
+the rank's two subgroups, the ranks of its model column ``{i' * M + j}``
+(``data``: the JAX ``psum(..., "data")``) and of its data row
+``{i * M + j'}`` (``model``: ``psum(..., "model")``); the (data x model)
+tiled sparse batch of ``parallel/sparse.py`` runs over it. Helpers of the
+data axis alone:
 
 - ``shard_batch``: a dense batch zero-weight-padded to a multiple of the
   world size, each rank keeping its contiguous row range (the JAX package's
@@ -25,8 +33,12 @@ whatever order the backend's ring would take. Gloo stages the buffer
 through a host tensor; NCCL keeps it on the card and runs in stream order,
 so B4's slot gathers make the host wait for nothing.
 
-Model-axis (feature) sharding and row-sharded sparse batches are ROADMAP
-A10 and raise.
+``DataParallelGroup.sum`` is the exact sum over a group: the rank's float64
+slot row, one slot gather, the rank-order sum, so that every rank of the
+group holds the same bits.
+
+The dense feature-axis shard (``shard_batch(shard_features_dim=True)``) and
+row-sharded ELL / COO batches are ROADMAP A10 and raise.
 """
 
 from __future__ import annotations
@@ -38,20 +50,27 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..device import resolve_device
 from ..ops.features import FeatureMatrix, LabeledBatch, pad_batch
+from ..ops.fused_glm import rank_order_sum, rank_order_sum_plain
 from .multihost import equal_host_share
 
 Tensor = torch.Tensor
 
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+
 _FEATURE_AXIS_TODO = (
-    "feature-axis (model-axis) sharding is not ported yet (ROADMAP A10); "
-    "photon_ml_tpu_torch shards rows over the data axis only"
+    "the dense feature-axis shard (shard_batch(shard_features_dim=True)) is not ported yet "
+    "(ROADMAP A10); a huge-d fixed effect shards its coefficients over the model axis as "
+    "layout='tiled' (parallel.sparse.tiled_sparse_batch)"
 )
 _SPARSE_TODO = (
     "shard_batch takes dense batches only: the reference refuses the column-sorted COO layout "
-    "(its entries are column-major, not row-partitionable) and ELL across processes (the ELL "
+    "(its entries are column-major, not row-partitionable; for a mesh-sharded huge-d batch build "
+    "layout='tiled', parallel.sparse.tiled_sparse_batch) and ELL across processes (the ELL "
     "width is the local rows' max nnz, so the ranks' shapes would disagree), and every rank of a "
-    "group here is a process of its own; row-sharded sparse batches are ROADMAP A10"
+    "group here is a process of its own; row-sharded ELL batches are ROADMAP A10"
 )
 
 
@@ -194,13 +213,34 @@ class DataParallelGroup:
                 at += k
             return out
 
+    def sum(self, t: Tensor, plain: bool = False) -> Tensor:
+        """``t`` summed over the group's ranks, every rank the same bits: the
+        rank's float64 slot row (``slot_buffer``), one ``gather_slots``, then
+        the rows added in rank order (``rank_order_sum``: the CUDA kernel for
+        a float32 ``t`` on the card, its plain version on the CPU, for
+        float64 and with ``plain``), in ``t``'s dtype and shape. One rank:
+        ``t`` itself, with no collective."""
+        if self.world_size == 1:
+            return t
+        flat = t.reshape(-1)
+        slots = self.slot_buffer(flat.numel(), t.device)
+        slots[self.rank] = flat
+        self.gather_slots(slots)
+        if plain or t.device.type == "cpu" or t.dtype == torch.float64:
+            total = rank_order_sum_plain(slots, t.dtype)
+        else:
+            total = rank_order_sum(slots, t.dtype)
+        return total.view(t.shape)
+
     def broadcast(self, t: Tensor) -> Tensor:
         """Rank 0's value of ``t`` on every rank (same shape and dtype)."""
         import torch.distributed as dist
 
         with self._collective(t.device):
             buf = t.detach().to(self._buffer_device(), copy=True).contiguous()
-            dist.broadcast(buf, src=0, group=self.process_group)
+            # a subgroup's rank 0 by its rank in the default group
+            src = 0 if self.process_group is None else dist.get_global_rank(self.process_group, 0)
+            dist.broadcast(buf, src=src, group=self.process_group)
             return buf.to(t.device)
 
     def barrier(self) -> None:
@@ -209,6 +249,111 @@ class DataParallelGroup:
         import torch.distributed as dist
 
         dist.all_reduce(torch.zeros(1, device=self._buffer_device()), group=self.process_group)
+
+
+@dataclasses.dataclass(eq=False)
+class MeshGroup:
+    """One rank's place on a (data x model) grid of ``n_data * n_model``
+    ranks, each with one device: its indices ``(data_index, model_index)``
+    and its two subgroups, ``data`` (the ranks of its model column, summed
+    over by the JAX package's ``psum(..., "data")``) and ``model`` (the
+    ranks of its data row: ``psum(..., "model")``). ``world`` is the whole
+    grid's group, None in a single process (a 1 x 1 grid, where neither
+    subgroup ever collects)."""
+
+    n_data: int
+    n_model: int
+    data_index: int
+    model_index: int
+    data: DataParallelGroup
+    model: DataParallelGroup
+    world: Optional[DataParallelGroup] = None
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """The JAX ``Mesh.shape``: ``{"data": D, "model": M}``."""
+        return {DATA_AXIS: self.n_data, MODEL_AXIS: self.n_model}
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    def gather_model(self, tensors: Sequence[Tensor]) -> List[Tensor]:
+        """Model-sharded ``[d_loc, ...]`` slices made whole, ``[M * d_loc,
+        ...]``, in model order on every rank of the data row: one exact
+        row gather for all of them (the JAX package's replication of a
+        model-sharded array)."""
+        if self.n_model == 1:
+            return list(tensors)
+        return self.model.gather_rows(tensors)
+
+    def model_slice(self, v: Tensor) -> Tensor:
+        """This rank's model-axis slice of a whole ``[dim, ...]`` tensor
+        (``dim`` a multiple of ``n_model``): the JAX package's reshard to
+        ``P("model")``."""
+        d_loc = v.shape[0] // self.n_model
+        return v[self.model_index * d_loc : (self.model_index + 1) * d_loc]
+
+
+def make_mesh(
+    n_data: Optional[int] = None, n_model: int = 1, group: Optional[DataParallelGroup] = None, device=None
+) -> MeshGroup:
+    """This rank's ``MeshGroup`` on a (``n_data`` x ``n_model``) grid of the
+    ranks of ``group`` (default: the group this process joined through
+    ``parallel.multihost.initialize``), laid out row-major as the JAX
+    package's ``make_mesh`` reshapes its devices. ``n_data`` defaults to
+    ``world // n_model``; ``n_data * n_model`` must equal the world size.
+    Every rank must call it, with the same shape: every rank makes every
+    subgroup, in the same order, as ``torch.distributed.new_group``
+    requires. With no group (one process) the grid is 1 x 1 on ``device``
+    (the card unless asked otherwise)."""
+    from . import multihost
+
+    world = group if group is not None else multihost.current_group()
+    if world is None:
+        if (n_data or 1) != 1 or n_model != 1:
+            raise ValueError(
+                f"a ({n_data} x {n_model}) grid needs {(n_data or 1) * n_model} ranks: join a process group "
+                "first (parallel.multihost.initialize, or parallel.spawn)"
+            )
+        dev = resolve_device(device)
+        solo = lambda: DataParallelGroup(0, 1, dev, "gloo")  # noqa: E731
+        return MeshGroup(1, 1, 0, 0, solo(), solo())
+    if n_data is None:
+        n_data = world.world_size // n_model
+    if n_data < 1 or n_model < 1 or n_data * n_model != world.world_size:
+        raise ValueError(
+            f"a ({n_data} x {n_model}) grid needs data * model = {world.world_size} ranks (the world size)"
+        )
+    import torch.distributed as dist
+
+    i, j = divmod(world.rank, n_model)
+
+    def subgroups(members_of, count, mine):
+        # every rank makes every subgroup, in the same order; the whole
+        # world reuses the default group
+        out = None
+        for k in range(count):
+            members = members_of(k)
+            if len(members) == world.world_size:
+                pg = world.process_group
+            else:
+                pg = dist.new_group(ranks=members)
+            if k == mine:
+                out = DataParallelGroup(
+                    rank=members.index(world.rank), world_size=len(members), device=world.device,
+                    backend=world.backend, process_group=pg,
+                )
+        return out
+
+    data = subgroups(lambda jj: [ii * n_model + jj for ii in range(n_data)], n_model, j)
+    model = subgroups(lambda ii: [ii * n_model + jj for jj in range(n_model)], n_data, i)
+    return MeshGroup(n_data, n_model, i, j, data, model, world)
+
+
+def _data_axis(group):
+    """A ``MeshGroup``'s data axis, or the ``DataParallelGroup`` itself."""
+    return group.data if isinstance(group, MeshGroup) else group
 
 
 def row_range(n_rows: int, group: DataParallelGroup):
@@ -275,7 +420,9 @@ def replicate(t: Tensor, group: DataParallelGroup) -> Tensor:
 
 
 def entity_range(num_entities: int, group: DataParallelGroup):
-    """This rank's ``[lo, hi)`` of the entity blocks."""
+    """This rank's ``[lo, hi)`` of the entity blocks (over a grid's data
+    axis for a ``MeshGroup``: the ranks of a data row hold the same range)."""
+    group = _data_axis(group)
     if num_entities % group.world_size != 0:
         raise ValueError(
             f"entity count {num_entities} must divide the world size ({group.world_size}); "
@@ -286,7 +433,9 @@ def entity_range(num_entities: int, group: DataParallelGroup):
 
 
 def shard_entity_blocks(blocks, group: DataParallelGroup):
-    """This rank's contiguous entity range of ``EntityBlocks``, copied."""
+    """This rank's contiguous entity range of ``EntityBlocks``, copied (a
+    ``MeshGroup`` shards over its data axis, as the JAX package shards
+    entity blocks over "data")."""
     lo, hi = entity_range(blocks.features.shape[0], group)
     return type(blocks)(**{
         f.name: getattr(blocks, f.name)[lo:hi].clone() for f in dataclasses.fields(blocks)

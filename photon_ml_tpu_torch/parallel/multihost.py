@@ -23,6 +23,16 @@ bounded barrier of ``robust/distributed.py`` (``monitored_barrier``, a gloo
 operation) run on the host beside the card's collectives. Both object
 collectives are guarded: with a collective budget armed, every rank first
 meets at a bounded barrier, so a dead peer is a typed error and not a hang.
+
+On a (data x model) grid of ranks (``set_grid``, after
+``parallel.mesh.make_mesh``) the M ranks of a data row hold the same rows
+and run the same host program, so the process-level helpers speak of the
+data axis: ``process_index`` / ``process_count`` are the rank's data index
+and the data axis's size (each data row reads its own rows), and
+``allgather_object`` returns the objects of the rank's model column, in
+data order (every rank still takes part in one collective over the whole
+world). ``world_rank`` / ``world_size`` are the world's, and the
+coordinator, the one process that writes, is world rank 0.
 """
 
 from __future__ import annotations
@@ -48,6 +58,8 @@ DEFAULT_TIMEOUT_S = 300.0
 # group (None: the default group is gloo itself)
 _group = None
 _side_group = None
+# the (data x model) grid the process-level helpers speak of (set_grid)
+_grid = None
 
 
 def initialize(
@@ -172,28 +184,57 @@ def side_group():
 def shutdown() -> None:
     import torch.distributed as dist
 
-    global _group, _side_group
+    global _group, _side_group, _grid
     if dist.is_initialized():
         dist.destroy_process_group()
-    _group = _side_group = None
+    _group = _side_group = _grid = None
 
 
-def process_index() -> int:
+def set_grid(mesh) -> None:
+    """Make the process-level helpers speak of the data axis of ``mesh``
+    (a ``parallel.mesh.MeshGroup`` over the world; see the module's
+    docstring). None clears it."""
+    global _grid
+    _grid = mesh if mesh is not None and mesh.world is not None else None
+
+
+def current_grid():
+    """The grid ``set_grid`` set, or None."""
+    return _grid
+
+
+def world_rank() -> int:
     import torch.distributed as dist
 
     return dist.get_rank() if dist.is_initialized() else 0
 
 
-def process_count() -> int:
+def world_size() -> int:
     import torch.distributed as dist
 
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
+def model_index() -> int:
+    """This rank's index on the grid's model axis (0 without a grid)."""
+    return _grid.model_index if _grid is not None else 0
+
+
+def process_index() -> int:
+    """This process's index among the processes that read rows: its world
+    rank, or on a grid its data index."""
+    return _grid.data_index if _grid is not None else world_rank()
+
+
+def process_count() -> int:
+    """The processes that read rows: the world, or on a grid its data axis."""
+    return _grid.n_data if _grid is not None else world_size()
+
+
 def is_coordinator() -> bool:
-    """True on process 0, the only process that writes models and
+    """True on world rank 0, the only process that writes models and
     summaries (the reference's driver-writes-to-HDFS role)."""
-    return process_index() == 0
+    return world_rank() == 0
 
 
 def host_row_range(
@@ -222,15 +263,18 @@ def allgather_object(obj: Any) -> list:
     shape agreements, checkpoint confirmations), not row data. Guarded:
     with a collective budget armed, a bounded barrier comes first
     (``robust.distributed.guard_collective``)."""
-    if process_count() == 1:
+    if world_size() == 1:
         return [obj]
     import torch.distributed as dist
 
     from ..robust import distributed as robust_dist
 
     robust_dist.guard_collective("allgather_object")
-    out = [None] * process_count()
+    out = [None] * world_size()
     dist.all_gather_object(out, obj, group=_side_group)
+    if _grid is not None:
+        # the rank's model column, in data order
+        return out[_grid.model_index :: _grid.n_model]
     return out
 
 
@@ -238,14 +282,14 @@ def broadcast_object(obj: Any) -> Any:
     """Process 0's ``obj`` on every process (the others' is ignored): one
     copy of a coordinator-owned payload, as a checkpoint's models. One
     process: ``obj``. Guarded as ``allgather_object`` is."""
-    if process_count() == 1:
+    if world_size() == 1:
         return obj
     import torch.distributed as dist
 
     from ..robust import distributed as robust_dist
 
     robust_dist.guard_collective("broadcast_object")
-    box = [obj if process_index() == 0 else None]
+    box = [obj if world_rank() == 0 else None]
     dist.broadcast_object_list(box, src=0, group=_side_group)
     return box[0]
 

@@ -16,13 +16,16 @@ the pipelined sweep (``pipeline_depth`` > 1), incremental training
 the lane path and the retrain chain do not compose with, and
 ``_check_coordinate`` what the streamed fixed effect does not, in the JAX
 package's words). Several processes (``n_processes`` > 1, ``--distributed``)
-resolve with no mesh or with a data axis of the world size (one card a
-rank: the JAX mesh's counterpart), every coordinate resident and the fixed
-effects dense. For the compositions it has not ported, it refuses with a
-``PlanError`` that names its ROADMAP item (A10): a model axis, a data axis
-other than the process count, the tiled layout, a resident ELL, COO or
-tiled fixed effect over processes, and streaming (``hbm_budget_mb``) or
-pipelining (``pipeline_depth`` > 1) with processes or a mesh.
+resolve with no mesh or with a (data x model) grid of the world size (one
+card a rank: the JAX mesh's counterpart), every coordinate resident; a
+fixed effect is dense, or ``layout='tiled'`` (the (data x model)-tiled
+sparse batch, which needs a mesh, in the JAX package's words, and takes no
+``feature_dtype``). For the compositions it has not ported, it refuses with
+a ``PlanError`` that names its ROADMAP item (A10): a grid other than the
+process count, a dense or other non-tiled fixed effect under a model axis
+(the dense feature-axis shard), a resident ELL or COO fixed effect over
+processes, and streaming (``hbm_budget_mb``) or pipelining
+(``pipeline_depth`` > 1) with processes or a mesh.
 ``plan_fingerprint`` and ``check_checkpoint_topology`` are the JAX package's,
 so a checkpoint's manifest speaks the same topology contract.
 
@@ -146,6 +149,9 @@ def _mesh_axes(mesh) -> Optional[Dict[str, int]]:
         n_data = int(mesh[0])
         n_model = int(mesh[1]) if len(mesh) > 1 else 1
         return {DATA_AXIS: n_data, MODEL_AXIS: n_model}
+    shape = getattr(mesh, "shape", None)  # a parallel.mesh.MeshGroup
+    if isinstance(shape, Mapping):
+        return _mesh_axes(dict(shape))
     raise TypeError(f"cannot interpret mesh spec {mesh!r}")
 
 
@@ -159,7 +165,13 @@ def dtype_name(feature_dtype) -> str:
 # -- legality checks ---------------------------------------------------------
 
 
-def _check_coordinate(cc) -> None:
+def _check_coordinate(cc, axes=None) -> None:
+    if cc.feature_dtype is not None and cc.layout == "tiled":
+        # the JAX package's words
+        raise PlanError(
+            f"coordinate {cc.name}: feature_dtype is not supported "
+            "with layout='tiled'"
+        )
     if cc.hbm_budget_mb is not None and not cc.is_random_effect:
         # the streamed fixed effect slices the row axis: only row-major
         # layouts stream; a streamed pass never forms the Hessian; down-
@@ -183,8 +195,16 @@ def _check_coordinate(cc) -> None:
                 f"coordinate {cc.name}: down_sampling_rate < 1 is not "
                 "supported with hbm_budget_mb on a fixed effect"
             )
-    if cc.layout == "tiled":
-        raise not_ported(f"coordinate {cc.name}: layout='tiled' (the mesh-tiled sparse batch)", A10)
+    if cc.layout == "tiled" and axes is None:
+        raise PlanError(
+            f"coordinate {cc.name}: layout='tiled' requires the "
+            "estimator to be built with a device mesh"
+        )
+    if axes is not None and axes[MODEL_AXIS] > 1 and not cc.is_random_effect and cc.layout != "tiled":
+        raise not_ported(
+            f"coordinate {cc.name}: a fixed effect of layout={cc.layout!r} under a model axis (the dense "
+            "feature-axis shard; a huge-d fixed effect takes layout='tiled')", A10,
+        )
     if cc.feature_dtype is not None and dtype_name(cc.feature_dtype) not in ("float32", "bfloat16"):
         raise PlanError(f"coordinate {cc.name}: feature_dtype must be float32 or bfloat16")
 
@@ -198,26 +218,34 @@ def _rows_per_slice(budget_bytes: int, row_bytes: int) -> int:
 
 def check_multiprocess_mesh(n_processes: int, mesh) -> None:
     """The topologies the port runs: one process, or ``n_processes`` ranks
-    of one card each, with no mesh or a mesh whose data axis is the process
-    count (the JAX mesh's data axis, one device a rank). A model axis, or a
-    data axis of another size, is ROADMAP A10."""
+    of one card each, with no mesh or a (data x model) grid of
+    ``data * model`` = the process count (the JAX mesh, one device a rank,
+    laid out row-major: ``parallel.mesh.make_mesh``). A grid of another
+    size is ROADMAP A10."""
     axes = _mesh_axes(mesh)
     if axes is None:
         return
-    if axes[MODEL_AXIS] > 1:
-        raise not_ported(f"a model axis (mesh model={axes[MODEL_AXIS]})", A10)
-    if axes[DATA_AXIS] != max(int(n_processes), 1):
+    if axes[DATA_AXIS] * axes[MODEL_AXIS] != max(int(n_processes), 1):
         raise not_ported(
-            f"a data axis of {axes[DATA_AXIS]} devices over {n_processes} process(es) (the port runs one card a "
-            "process: data must equal the process count)", A10,
+            f"a mesh of data={axes[DATA_AXIS]} x model={axes[MODEL_AXIS]} devices over {n_processes} process(es) "
+            "(the port runs one card a process: data * model must equal the process count)", A10,
         )
 
 
+def _sharding(cc, axes, multi: bool) -> str:
+    """The JAX package's sharding label of a resident coordinate."""
+    if cc.is_random_effect:
+        return "entity-sharded" if multi else "single-device"
+    if cc.layout == "tiled" or (axes is not None and axes[MODEL_AXIS] > 1):
+        return "row+model-sharded"
+    return "row-sharded" if multi else "single-device"
+
+
 def _check_multiprocess_coordinate(cc) -> None:
-    """A coordinate over several processes: the fixed effect dense (the
-    JAX package refuses a resident ELL across processes too: its width is
-    the local rows' max nnz, so the ranks' shapes would disagree)."""
-    if not cc.is_random_effect and cc.layout not in ("auto", "dense"):
+    """A coordinate over several processes: the fixed effect dense or
+    tiled (the JAX package refuses a resident ELL across processes too: its
+    width is the local rows' max nnz, so the ranks' shapes would disagree)."""
+    if not cc.is_random_effect and cc.layout not in ("auto", "dense", "tiled"):
         raise not_ported(
             f"coordinate {cc.name}: layout={cc.layout!r} over several processes (a row-sharded sparse fixed "
             "effect; use a dense layout, d <= 4096)", A10,
@@ -478,8 +506,9 @@ def resolve(
         raise PlanError(f"trial-lanes must be >= 1: {trial_lanes}")
 
     plans = []
+    axes = _mesh_axes(mesh)
     for cc in coordinate_configs:
-        _check_coordinate(cc)
+        _check_coordinate(cc, axes)
         if multi:
             _check_multiprocess_coordinate(cc)
         geometry: Dict[str, object] = {}
@@ -488,6 +517,12 @@ def resolve(
             geometry["dim"] = int(dim)
             if not cc.is_random_effect and cc.layout == "auto":
                 geometry["batch_layout"] = "dense" if dim <= 4096 else "ell"
+        if not cc.is_random_effect and cc.layout == "tiled":
+            geometry["grid"] = f"data={axes[DATA_AXIS]} x model={axes[MODEL_AXIS]}"
+            if dim is not None:
+                # the rank's tile: its data row's rows, its model slice's columns
+                geometry["tile_columns"] = -(-int(dim) // axes[MODEL_AXIS])
+                geometry["dim_padded"] = geometry["tile_columns"] * axes[MODEL_AXIS]
         notes: Tuple[str, ...] = ()
         if cc.hbm_budget_mb is not None:
             budget = int(cc.hbm_budget_mb) * (1 << 20)
@@ -504,7 +539,7 @@ def resolve(
                 layout=cc.layout,
                 feature_dtype=dtype_name(cc.feature_dtype),
                 residency="streamed" if cc.hbm_budget_mb is not None else "resident",
-                sharding=("entity-sharded" if cc.is_random_effect else "row-sharded") if multi else "single-device",
+                sharding=_sharding(cc, axes, multi),
                 pipelined=pipeline_depth > 1,
                 hbm_budget_mb=cc.hbm_budget_mb,
                 geometry=geometry,

@@ -48,6 +48,12 @@ Restore checks every shard's digest and concatenates the shards in process
 order into the padded global row space; ``plan.check_checkpoint_topology``
 judges the recorded topology. The coordinator alone reads a checkpoint in
 ``cli.train`` and broadcasts it, so no shared file system is needed.
+
+On a (data x model) grid the process index is the data index, and the
+ranks of a data row beyond the first model index hold the same state as
+the first: their managers are ``replica``, take part in every exchange
+and write nothing (the manifest's ``mesh_axes`` carries the model axis, and
+a resume across a changed model axis is refused).
 """
 
 from __future__ import annotations
@@ -155,7 +161,9 @@ class CheckpointManager:
     docstring): a boundary state then carries this process's rows of the
     summed scores, and the confirmations ride ``exchange``, by default the
     guarded ``parallel.multihost.allgather_object`` (a test passes its
-    own)."""
+    own). ``replica``: another process holds and saves this state (see the
+    module's docstring): the manager confirms over the exchange and writes
+    nothing."""
 
     def __init__(
         self,
@@ -168,6 +176,7 @@ class CheckpointManager:
         n_processes: int = 1,
         topology: Optional[dict] = None,
         exchange=None,
+        replica: bool = False,
     ):
         if keep_last < 1:
             raise ValueError(f"keep_last must be >= 1: {keep_last}")
@@ -185,6 +194,7 @@ class CheckpointManager:
         self.n_processes = int(n_processes)
         self.topology = dict(topology or {})
         self.exchange = exchange
+        self.replica = bool(replica)
         self.base_meta = dict(base_meta or {})
         self._boundaries = 0
         os.makedirs(directory, exist_ok=True)
@@ -211,11 +221,14 @@ class CheckpointManager:
         A manager of several processes saves by the two-phase protocol."""
         if self.n_processes > 1:
             return self._save_distributed(state, meta)
+        name = f"{_DIR_PREFIX}{self._seq:06d}"
+        if self.replica:
+            self._seq += 1
+            return os.path.join(self.directory, name)
         t0 = time.perf_counter()
         payload = self._payload_dict(state)
         blob = pickle.dumps(payload, protocol=pickle.HIGHEST_PROTOCOL)
         digest = hashlib.sha256(blob).hexdigest()
-        name = f"{_DIR_PREFIX}{self._seq:06d}"
         ckpt_dir = os.path.join(self.directory, name)
         os.makedirs(ckpt_dir, exist_ok=True)
         io_call(
@@ -287,13 +300,14 @@ class CheckpointManager:
             {"process": self.process, "summed_scores": local}, protocol=pickle.HIGHEST_PROTOCOL
         )
         shard_name = f"{SHARD_PREFIX}{self.process}.pkl"
-        io_call(
-            atomic_write_bytes,
-            os.path.join(ckpt_dir, shard_name),
-            shard_blob,
-            fsync=self.fsync,
-            site="checkpoint.write",
-        )
+        if not self.replica:
+            io_call(
+                atomic_write_bytes,
+                os.path.join(ckpt_dir, shard_name),
+                shard_blob,
+                fsync=self.fsync,
+                site="checkpoint.write",
+            )
         confirm = {
             "process": self.process,
             "file": shard_name,
@@ -310,7 +324,7 @@ class CheckpointManager:
         # every process passes the exchange in lockstep, so the next
         # boundary's directory name agrees even if this commit tears
         self._seq += 1
-        if self.process != 0:
+        if self.process != 0 or self.replica:
             return ckpt_dir
         payload = self._payload_dict(state, summed_scores=None)
         blob = pickle.dumps(payload, protocol=pickle.HIGHEST_PROTOCOL)

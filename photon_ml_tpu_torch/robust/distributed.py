@@ -285,9 +285,11 @@ def collective_timeout() -> Optional[float]:
 
 
 def _process_count() -> int:
+    """Every process of the world (on a grid as well: each rank beats and
+    meets at the barriers)."""
     from ..parallel import multihost
 
-    return multihost.process_count()
+    return multihost.world_size()
 
 
 class _MonitoredBarrier:
@@ -388,7 +390,7 @@ def _stale_within(g: CollectiveGuard, deadline: float) -> List[int]:
     from ..parallel import multihost
 
     while True:
-        stale = stale_peers(g.run_dir, _process_count(), g.stale_after_s, self_process=multihost.process_index())
+        stale = stale_peers(g.run_dir, _process_count(), g.stale_after_s, self_process=multihost.world_rank())
         if stale or time.perf_counter() >= deadline:
             return stale
         time.sleep(0.1)

@@ -171,7 +171,7 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(cuda):
     f64_batch = batch_from_dense(x.double(), y, dtype=torch.float64)
     assert _fusion_mode(f64_batch) == ("plain_float64", None)
     assert _fusion_mode(batch_from_dense(x, y)) == ("dense_kernel", None)
-    assert fg.OBJECTIVE_ROUTES == {"dense_kernel": 1, "sparse_kernel": 0, "plain_cpu": 0, "plain_float64": 1}
+    assert fg.OBJECTIVE_ROUTES == {"dense_kernel": 1, "sparse_kernel": 0, "tiled_kernel": 0, "plain_cpu": 0, "plain_float64": 1}
     with pytest.raises(TypeError):
         _fusion_mode(batch_from_dense(x, y, feature_dtype=torch.float16))
 
@@ -794,7 +794,7 @@ def test_float64_batch_on_card_takes_the_counted_plain_route(cuda, layout):
         regularization=RegularizationContext("L2"), reg_weight=1.0, variance_type="SIMPLE",
     ))
     m_g, r_g = problem.run(build(cuda))
-    assert fg.OBJECTIVE_ROUTES == {"dense_kernel": 0, "sparse_kernel": 0, "plain_cpu": 0, "plain_float64": 1}
+    assert fg.OBJECTIVE_ROUTES == {"dense_kernel": 0, "sparse_kernel": 0, "tiled_kernel": 0, "plain_cpu": 0, "plain_float64": 1}
     assert not any(fg.LAUNCHES.values()) and not any(sparse.SPARSE_LAUNCHES.values())
     m_c, r_c = problem.run(build("cpu"))
     assert abs(float(r_g.loss) - float(r_c.loss)) <= 1e-9 * abs(float(r_c.loss))

@@ -493,8 +493,26 @@ def test_refused_coordinates_name_their_roadmap_item(tmp_path, spec, item):
         with pytest.raises(PlanError, match="ROADMAP A10"):
             resolve([parse_coordinate(spec)], mesh={"data": 2})
         return
+    # the tiled layout is ported: it needs a mesh in the JAX package's
+    # words, resolves on one as the JAX package's plan does, and its
+    # streaming or pipelining over a grid of processes stays in A10
+    tiled = parse_coordinate(spec)
+    with pytest.raises(PlanError, match="layout='tiled' requires the estimator to be built with a device mesh"):
+        resolve([tiled])
+    with pytest.raises(Exception, match="layout='tiled' requires the estimator to be built with a device mesh"):
+        ref_resolve([ref_parse_coordinate(spec)])
+    for mesh, n in (({"data": 1, "model": 1}, 1), ({"data": 2, "model": 2}, 4)):
+        (ours,) = resolve([tiled], mesh=mesh, n_processes=n, dims={"globalShard": 10}).coordinates
+        (theirs,) = ref_resolve([ref_parse_coordinate(spec)], mesh=mesh).coordinates
+        assert ours.sharding == theirs.sharding == "row+model-sharded"
+        assert ours.geometry["tile_columns"] == -(-10 // mesh["model"])
+    assert plan_fingerprint(resolve([tiled], mesh={"data": 1, "model": 1})) == ref_plan_fingerprint(
+        ref_resolve([ref_parse_coordinate(spec)], mesh={"data": 1, "model": 1}))
+    for kwargs in (dict(pipeline_depth=2, distributed=True), dict(pipeline_depth=2)):
+        with pytest.raises(PlanError, match=f"ROADMAP {item}"):
+            resolve([tiled], mesh={"data": 2, "model": 2}, n_processes=4, **kwargs)
     with pytest.raises(PlanError, match=f"ROADMAP {item}"):
-        resolve([parse_coordinate(spec)])
+        resolve([parse_coordinate(spec + ",hbm.budget.mb=64")], mesh={"data": 2, "model": 2}, n_processes=4)
 
 
 def test_planner_refusals_and_helpers():
@@ -503,9 +521,19 @@ def test_planner_refusals_and_helpers():
     assert plan.coordinates[0].geometry == {"dim": 5000, "batch_layout": "ell"}
     assert plan_fingerprint(plan) == ref_plan_fingerprint(ref_resolve([ref_parse_coordinate(FE_SPEC)]))
     for kwargs, item in (({"mesh": {"data": 2}}, "A10"), ({"mesh": {"data": 2, "model": 2}, "n_processes": 2}, "A10"),
-                         ({"pipeline_depth": 2, "distributed": True}, "A10")):
+                         ({"pipeline_depth": 2, "distributed": True}, "A10"),
+                         # a dense fixed effect under a model axis: the dense feature-axis shard stays in A10
+                         ({"mesh": {"data": 2, "model": 2}, "n_processes": 4}, "A10")):
         with pytest.raises(PlanError, match=f"ROADMAP {item}"):
             resolve([cc], **kwargs)
+    # the model axis is ported for a tiled fixed effect: a (data x model)
+    # grid of data * model processes, the random effects over its data axis
+    re_cc = parse_coordinate("name=per-user,shard=userShard,re.type=userId,reg.type=L2,reg.weights=1")
+    grid = resolve([parse_coordinate(FE_SPEC + ",layout=tiled"), re_cc], mesh={"data": 2, "model": 2}, n_processes=4,
+                   distributed=True)
+    assert grid.mesh_axes == {"data": 2, "model": 2} and grid.n_processes == 4
+    assert [c.sharding for c in grid.coordinates] == ["row+model-sharded", "entity-sharded"]
+    assert "mesh data=2 model=2" in grid.pretty()
     # several processes resolve as the JAX package's mesh of their data axis
     for kwargs in ({"n_processes": 2}, {"distributed": True, "n_processes": 2}, {"mesh": {"data": 2}, "n_processes": 2}):
         ours = resolve([cc], **kwargs)

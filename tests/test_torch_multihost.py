@@ -166,9 +166,21 @@ def test_multiprocess_plans_and_the_refusals_that_stay():
     for kw in refused:
         with pytest.raises(PlanError, match="ROADMAP A10"):
             resolve([cc], **kw)
-    for spec in (FE + ",layout=ell", FE + ",layout=coo", FE + ",layout=tiled", FE + ",hbm.budget.mb=64"):
+    for spec in (FE + ",layout=ell", FE + ",layout=coo", FE + ",hbm.budget.mb=64"):
         with pytest.raises(PlanError, match="ROADMAP A10"):
             resolve([parse_coordinate(spec)], n_processes=2, distributed=True)
+    # a tiled fixed effect over processes is ported: it needs a mesh (the
+    # JAX package's words), and resolves on a grid of the process count,
+    # the random effect over its data axis; a dense one under a model axis
+    # stays in A10
+    tiled = parse_coordinate(FE + ",layout=tiled")
+    with pytest.raises(PlanError, match="layout='tiled' requires the estimator to be built with a device mesh"):
+        resolve([tiled], n_processes=2, distributed=True)
+    for mesh in ({"data": 1, "model": 2}, {"data": 2, "model": 1}):
+        grid = resolve([tiled, re_cc], mesh=mesh, n_processes=2, distributed=True)
+        assert [c.sharding for c in grid.coordinates] == ["row+model-sharded", "entity-sharded"]
+    with pytest.raises(PlanError, match="ROADMAP A10"):
+        resolve([cc], mesh={"data": 1, "model": 2}, n_processes=2, distributed=True)
     # lanes over processes: refused in the JAX package's words
     with pytest.raises(PlanError, match="trial-lanes sweeps are single-process"):
         resolve([cc], n_processes=2, distributed=True, trial_lanes=4)
@@ -183,6 +195,13 @@ def test_explain_plan_over_processes(capsys):
         train.run(["--input-data", "x", "--output-dir", "o", "--mesh-shape", "data=2,model=2",
                    "--distributed", "coordinator=h:1,process=0,n=2", "--explain-plan"])
     assert "ROADMAP A10" in capsys.readouterr().err
+    # the grid of a tiled fixed effect: data * model processes
+    doc = train.run(["--input-data", "x", "--output-dir", "o", "--coordinate", FE + ",layout=tiled",
+                     "--mesh-shape", "data=2,model=2", "--distributed", "coordinator=h:1,process=0,n=4",
+                     "--explain-plan"])
+    assert doc["plan"]["mesh_axes"] == {"data": 2, "model": 2} and doc["plan"]["n_processes"] == 4
+    printed = capsys.readouterr().out
+    assert "4 process(es), mesh data=2 model=2" in printed and "row+model-sharded" in printed
 
 
 def _passive_raw(n_total):
@@ -364,3 +383,72 @@ def test_two_process_checkpoint_resume_without_shared_fs(fe_fixture, tmp_path):
     assert_ok(outs)
     assert all("2/2 configurations already trained" in err for _, _, err in outs)
     assert not os.path.exists(tmp_path / "out-p1" / "models")
+
+
+# ------------------------------------------------ the (data x model) grid
+
+
+def test_tiled_glmix_on_a_grid_matches_single_process(tmp_path):
+    """tests/test_multihost.py's tiled case on the port's grid, with a random
+    effect: cli.train --mesh-shape data=2,model=2 over 4 ranks (each data
+    row reads its rows, the tiled fixed effect solves on every rank, the
+    per-user random effect over the data axis) against the JAX package's
+    one process (FE rtol 1e-3 / atol 1e-5, AUC within 1e-4, RE by entity
+    atol 5e-3), every update a two-phase checkpoint written by the first
+    model index only; then a resume on data=2,model=1 refused on every
+    rank in the JAX package's words."""
+    data = write_glmix_avro(tmp_path / "glmix.avro", n=641)
+    index_dir = build_index(data, GLMIX_SHARDS, tmp_path / "index")
+    specs = ["name=global,shard=globalShard,optimizer=LBFGS,tolerance=1e-12,max.iter=300,reg.type=L2,reg.weights=1",
+             "name=per-user,shard=userShard,re.type=userId,optimizer=LBFGS,tolerance=1e-12,max.iter=300,"
+             "reg.type=L2,reg.weights=1"]
+    common = [*GLMIX_SHARDS, "--input-data", data, "--validation-data", data, "--task", "logistic_regression",
+              "--coordinate", specs[0] + ",layout=tiled", "--coordinate", specs[1], "--coordinate-descent-iterations",
+              "2", "--evaluators", "AUC,LOGISTIC_LOSS", "--feature-index-dir", index_dir, *PORT,
+              "--checkpoint-dir", str(tmp_path / "ck"), "--checkpoint-every", "1"]
+    out = str(tmp_path / "grid")
+    outs = launch("train", common + ["--output-dir", out, "--mesh-shape", "data=2,model=2"], world=4)
+    assert_ok(outs)
+    errs = "".join(err for _, _, err in outs)
+    assert "reads rows [0, 321) of 641 (padded to 321)" in errs and "reads rows [321, 641) of 641" in errs
+    ref = _jax_fit(data, index_dir, {"globalShard": "features", "userShard": "userFeatures"}, specs, n_iter=2)
+    m = _port_model(out, index_dir, ("globalShard", "userShard"))
+    w = m.models["global"].model.coefficients.means.numpy()
+    assert w.shape[0] == load_partitioned(index_dir, "globalShard").size  # the padding trimmed
+    np.testing.assert_allclose(w, np.asarray(ref.model["global"].model.coefficients.means), rtol=1e-3, atol=1e-5)
+    metrics = _summary(out)["best"]["metrics"]
+    assert abs(metrics["AUC"] - ref.evaluation.metrics["AUC"]) <= 1e-4
+    re_m, re_r = m.models["per-user"], ref.model["per-user"]
+    dim = int(np.asarray(re_r.coef_indices).max()) + 1
+    ids = [str(e) for e in re_r.entity_ids if not str(e).startswith("__pad")]
+    rows_m, rows_r = re_m.rows_for(ids), re_r.rows_for(ids)
+    assert np.all(rows_m >= 0), "the grid's model is missing entities"
+    np.testing.assert_allclose(np.asarray(re_m.dense_coefficients(dim))[rows_m],
+                               np.asarray(re_r.dense_coefficients(dim))[rows_r], rtol=0, atol=5e-3)
+    last = sorted(os.listdir(tmp_path / "ck" / "cd-boundaries"))[-1]
+    assert sorted(os.listdir(tmp_path / "ck" / "cd-boundaries" / last)) == [
+        "MANIFEST.json", "shard-p0.pkl", "shard-p1.pkl", "state.pkl"]
+    with open(tmp_path / "ck" / "cd-boundaries" / last / "MANIFEST.json") as f:
+        assert json.load(f)["topology"]["mesh_axes"] == {"data": 2, "model": 2}
+    outs = launch("train", common + ["--output-dir", str(tmp_path / "again"), "--mesh-shape", "data=2,model=1",
+                                     "--resume"], world=2)
+    for rc, _, err in outs:
+        assert rc != 0 and "checkpoint mesh reshape across the model axis is not supported" in err
+
+
+def test_full_variance_on_tiled_through_cli_on_8_ranks(fe_fixture, tmp_path):
+    """tests/test_cli.py's FULL-on-tiled case: cli.train --mesh-shape
+    data=4,model=2 --distributed on 8 ranks with variance=FULL on a tiled
+    fixed effect, against the JAX package's one-process dense FULL fit
+    (means and variances rtol 1e-3 / atol 1e-5, AUC within 1e-4)."""
+    _, data, index_dir = fe_fixture
+    spec = FE + ",variance=FULL"
+    out = str(tmp_path / "grid")
+    assert_ok(launch("train", [*GLOBAL, "--input-data", data, "--validation-data", data, "--task",
+                               "logistic_regression", "--coordinate", spec + ",layout=tiled", "--evaluators",
+                               "AUC,LOGISTIC_LOSS", "--feature-index-dir", index_dir, *PORT, "--output-dir", out,
+                               "--mesh-shape", "data=4,model=2"], world=8))
+    ref = _jax_fit(data, index_dir, {"global": "features"}, [spec])
+    _hold_fe(out, index_dir, ref)
+    got = _port_model(out, index_dir, ["global"]).models["global"].model.coefficients.variances.numpy()
+    np.testing.assert_allclose(got, np.asarray(ref.model["global"].model.coefficients.variances), rtol=1e-3, atol=1e-5)

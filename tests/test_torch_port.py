@@ -29,6 +29,7 @@ for name in names:
     importlib.import_module(name)
 sys.path.insert(0, "tests")
 import test_torch_parallel_ranks
+import _torch_tiled_ranks
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
@@ -56,7 +57,7 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
     assert modules == files
     assert {"photon_ml_tpu_torch.serving.batcher", "photon_ml_tpu_torch.cli.serve",
             "photon_ml_tpu_torch.obs.http", "photon_ml_tpu_torch.robust.distributed",
-            "photon_ml_tpu_torch.game.data_mp"} <= modules
+            "photon_ml_tpu_torch.game.data_mp", "photon_ml_tpu_torch.parallel.sparse"} <= modules
 
 
 def test_port_sources_name_no_jax_import():
@@ -68,7 +69,9 @@ def test_port_sources_name_no_jax_import():
     files = sorted((ROOT / "photon_ml_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
         ROOT / "tests" / "test_torch_parallel_ranks.py", ROOT / "tests" / "_torch_mp_ranks.py",
+        ROOT / "tests" / "_torch_tiled_ranks.py",
     ]
+    assert ROOT / "photon_ml_tpu_torch" / "parallel" / "sparse.py" in files
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -113,3 +116,33 @@ def test_fusion_mode_rule():
     )
     with pytest.raises(ValueError):
         _fusion_mode(meta)
+
+
+@pytest.mark.parametrize("kind", ["LBFGS", "OWLQN", "LBFGSB", "TRON"])
+def test_one_process_solves_keep_their_bits_through_the_axis_hook(kind):
+    """Every reduction of a one-problem solve goes through the coefficient
+    axis hook (optimize.common): on one process (LOCAL, and a ModelAxis over
+    a group of one rank) a total is its partial, so the solve's bits are
+    those of the solve without the hook, on the solver tests' problem
+    (tests/test_torch_solvers.py's logistic data)."""
+    from photon_ml_tpu_torch.ops.glm import GLMObjective
+    from photon_ml_tpu_torch.ops.losses import LOSSES
+    from photon_ml_tpu_torch.optimize import LOCAL, ModelAxis, OptimizerConfig, optimize
+    from photon_ml_tpu_torch.parallel import DataParallelGroup
+
+    rng = np.random.default_rng(0)
+    n, d = 200, 12
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    y = (rng.random(n) < 1 / (1 + np.exp(-x @ rng.standard_normal(d)))).astype(np.float32)
+    obj = GLMObjective(loss=LOSSES["logistic"], batch=batch_from_dense(x, y, device="cpu"), l2=0.5)
+    box = (torch.full((d,), -0.2), torch.full((d,), 0.2)) if kind == "LBFGSB" else None
+    cfg = OptimizerConfig(optimizer_type="TRON" if kind == "TRON" else "LBFGS", tolerance=1e-9,
+                          max_iterations=40, l1_weight=0.3 if kind == "OWLQN" else 0.0, box_constraints=box)
+    w0 = torch.zeros(d)
+    runs = [optimize(obj.value_and_grad, w0, cfg, hvp=obj.hessian_vector, **kw) for kw in (
+        {}, {"axis": LOCAL}, {"axis": ModelAxis(DataParallelGroup(0, 1, "cpu", "gloo"))})]
+    for r in runs[1:]:
+        assert torch.equal(r.coefficients, runs[0].coefficients) and torch.equal(r.loss, runs[0].loss)
+        assert (r.iterations, r.reason, r.syncs) == (runs[0].iterations, runs[0].reason, runs[0].syncs)
+    parts = (torch.tensor(1.5), torch.tensor(-2.0))
+    assert all(a is b for a, b in zip(LOCAL.total(*parts), parts))

@@ -530,7 +530,7 @@ def test_objective_counts_its_products_on_the_plain_route(rng):
     fused_glm.reset_launch_counts()
     assert batch_route(tb) == "plain_cpu" and not any(fused_glm.OBJECTIVE_ROUTES.values())
     assert _fusion_mode(tb) == ("plain_cpu", None)
-    assert fused_glm.OBJECTIVE_ROUTES == {"dense_kernel": 0, "sparse_kernel": 0, "plain_cpu": 1, "plain_float64": 0}
+    assert fused_glm.OBJECTIVE_ROUTES == {"dense_kernel": 0, "sparse_kernel": 0, "tiled_kernel": 0, "plain_cpu": 1, "plain_float64": 0}
     GLMObjective(loss=LOSSES["logistic"], batch=tb).value_and_grad(torch.zeros(40))
     assert not any(sparse.SPARSE_LAUNCHES.values())
 
@@ -658,15 +658,41 @@ def test_the_remaining_sparse_refusals_name_their_items(rng):
     C = rng.standard_normal((60, 2)).astype(np.float32)
     _close_vec(f.matmat(_t(W)).numpy(), jb.features.matmat(jnp.asarray(W)), "ell matmat")
     _close_vec(f.rmatmat(_t(C)).numpy(), jb.features.rmatmat(jnp.asarray(C)), "ell rmatmat")
-    _, traw = _raw_pair(rng, 10, 8)
-    with pytest.raises(NotImplementedError, match="A10"):
-        traw.to_batch("s", layout="tiled", device="cpu")
+    jraw, traw = _raw_pair(rng, 10, 8)
+    # the tiled layout is ported (tests/test_torch_tiled.py): on a 1 x 1
+    # grid the tile is the JAX package's whole tile, and without a mesh
+    # both packages refuse in the same words
+    from photon_ml_tpu.parallel import make_mesh as jax_make_mesh
+    from photon_ml_tpu_torch.parallel.mesh import make_mesh
+
+    grid = make_mesh(1, 1, device="cpu")
+    tt = traw.to_batch("s", layout="tiled", mesh=grid)
+    jt = jraw.to_batch("s", dtype=jnp.float32, layout="tiled", mesh=jax_make_mesh(n_data=1, n_model=1))
+    assert tt.features.layout == "tiled" and (tt.features.dim, tt.features.n_rows) == (jt.features.dim, jt.features.n_rows)
+    for ours, theirs in (("coo_cols", "lcol"), ("coo_rows", "lrow"), ("coo_vals", "lval")):
+        want = np.asarray(getattr(jt.features, theirs)).reshape(-1)
+        got = getattr(tt.features.tile, ours).numpy()
+        assert np.array_equal(got[: want.size], want) and np.all(got[want.size:] == 0 if ours != "coo_cols" else True)
+    for bad, words in ((dict(layout="tiled"), "requires a device mesh"),
+                       (dict(layout="tiled", mesh=grid, feature_dtype=torch.bfloat16), "feature_dtype")):
+        with pytest.raises(ValueError, match=words):
+            traw.to_batch("s", **bad)
+        with pytest.raises(ValueError, match=words):
+            jraw.to_batch("s", **{**bad, "mesh": jax_make_mesh(n_data=1, n_model=1) if "mesh" in bad else None,
+                                  "feature_dtype": jnp.bfloat16 if "feature_dtype" in bad else None})
     with pytest.raises(ValueError, match="layout"):
         traw.to_batch("s", layout="csr", device="cpu")
     # a budget below the batch streams it (tests/test_torch_fe_streaming.py)
     assert build_fixed_effect_dataset(traw, "fe", "s", hbm_budget_bytes=1, device="cpu").streamed
-    with pytest.raises(NotImplementedError, match="A10"):
-        build_fixed_effect_dataset(traw, "fe", "s", mesh=object(), device="cpu")
+    ds = build_fixed_effect_dataset(traw, "fe", "s", layout="tiled", mesh=grid, device="cpu")
+    assert ds.batch.features.layout == "tiled" and (ds.n_rows, ds.dim) == (10, 8)
+
+    class _Grid:
+        n_model, n_data, world = 2, 1, None
+
+    # what stays in A10: a non-tiled fixed effect under a model axis
+    with pytest.raises(ValueError, match="A10"):
+        build_fixed_effect_dataset(traw, "fe", "s", mesh=_Grid(), device="cpu")
 
     class _Group:
         world_size, rank, device = 2, 0, torch.device("cpu")
