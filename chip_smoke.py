@@ -81,11 +81,12 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
 7. each kernel timed with CUDA events beside its bound (bytes over 3.35 TB/s,
    or operations over the dtype's peak) and its plain version (the rank-order
    sum, a few microseconds, replayed from a CUDA graph, beside torch.sum over
-   the ranks); B1 and B2 in
-   turns with the previous design (the staged body and the serial finalize,
-   prev/new/new/prev), each body's main kernel and finalize alone (replayed
-   from a CUDA graph), the launch plan (grid, blocks per SM, rows per tile,
-   stages, shared bytes), and torch.mv(X, coef) as the time to read X once;
+   the ranks); B3 in turns with its serial finalize (prev/new/new/prev;
+   B1's and B2's turns with the earlier staged body left the script to
+   make room for phase 17 (f)),
+   each kernel's main step and finalize alone (replayed from a CUDA graph),
+   the launch plan (grid, blocks per SM, rows per tile, stages, shared
+   bytes), and torch.mv(X, coef) as the time to read X once;
 8. diagnostic variants of the segment kernel (SEGMENT_VARIANTS: contiguous
    reads in place of the gathers, the key walk without its output stores,
    the gathers under an L2 evict-last policy, the earlier design as it is
@@ -124,10 +125,10 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    with the counters at 0 before them, held against the plain route on the
    card at phase 5's bounds. Phase 7 then times each product at the sparse
    shape beside its bound (segment_bytes: entries, source and output once;
-   the design's own bytes and a sector per gather beside), in turns with
-   the earlier design (csrc/sparse_glm_warp.cu: prev, new, new, prev), both
-   also replayed from a CUDA graph, its plain version, index_add_ and a
-   cuSPARSE CSR SpMV (torch.mv on a sparse CSR tensor);
+   the design's own bytes and a sector per gather beside), also replayed
+   from a CUDA graph, its plain version, index_add_ and a cuSPARSE CSR SpMV
+   (torch.mv on a sparse CSR tensor) (the earlier design,
+   csrc/sparse_glm_warp.cu, is timed by --only variants alone);
 10. the solvers (run after phase 6, before phase 9), every launch counter at
    0 before each part: (a) phase 5's data and coordinates with the fixed
    effect's variance FULL (B1 and B2 launch, B3 must not) and the random
@@ -242,12 +243,12 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    single-lane solve (loss rtol 1e-5; coefficients atol 5e-3 in float64,
    the f32 gaps printed), then, warm and profiled, the 4-lane solve, its 4
    singles and the 8-lane solve of bench.py's protocol lambdas (S2's device
-   ms, launches and share of the busy time beside the top operations); (d) cli.train on phase 12's fixture: sequential
-   BAYESIAN with phase 12's options and 1 trial (B1, B2, B3 with shifts and
-   S1 each launched), then RANDOM --trial-lanes 4 with 4 trials, variance
-   and normalization NONE (1 batch timed, 4 trials counted, the tuned
-   model reloaded bitwise, the prior file with 5 records; 2 and 8 trials
-   before phase 18 joined the run's time limit); (e) that lane
+   ms, launches and share of the busy time beside the top operations); (d) cli.train on phase 12's fixture:
+   RANDOM --trial-lanes 4 with 4 trials, variance and normalization NONE
+   (1 batch timed, 4 trials counted, the tuned model reloaded bitwise, the
+   prior file with 5 records; 8 trials before phase 18 joined the run's
+   time limit; a sequential BAYESIAN run beside it until phase 17 (f)
+   did); (e) that lane
    run with 4 trials and --checkpoint-dir, killed by tuning.trial at the
    second lane and resumed: candidates bitwise (d)'s, AUC within 1e-4.
 14. the retrain chain (run after phase 13, on phase 12's fixture): the
@@ -306,7 +307,7 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    merged counter the sum of the two runs', as rendered); then open-loop load
    through a LeastLoadedFront over both with replica 0 killed mid-stream:
    every request answered or shed with a type.
-16. out-of-core training (run after phase 12, on its fixture; phase 5
+16. out-of-core training (run right after phase 12, on its fixture; phase 5
    first), at phase 5's full width with its X (2.05 GB) in page-locked host
    memory: (a) the streamed objective under a 256 MiB budget (16 slices of
    32,768 rows) against the resident one at w = 0 and at the resident
@@ -325,10 +326,10 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    the packed one at the packed bound; (d) a two-sweep fit over both
    streamed coordinates at depth 1 and 2, models and ledger bitwise alike,
    the evaluations on the lane's thread; (e) cli.train on phase 12's
-   fixture with hbm.budget.mb=256 on both coordinates and --pipeline-depth
+   fixture with hbm.budget.mb=224 on both coordinates and --pipeline-depth
    2: the best model against (b)'s of phase 12 at the solve bounds, the
    report's streaming block filled.
-17. distributed (run right after phase 12, on its fixture and against its
+17. distributed (run after phase 16, on phase 12's fixture and against its
    (b)): (a) two `cli.train --distributed coordinator=127.0.0.1:PORT,
    process=I,n=2` ranks sharing the card over gloo, each reading its
    100,000 rows (the index of phase 12 (b) pinned), a two-phase boundary
@@ -349,7 +350,18 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    scores of that model (rtol 1e-5, bitwise rows counted, AUC within 1e-4),
    S1 launched on each rank; (d) cli.fleetz over (a)'s two streams, every
    merged counter the ranks' sum; (e) one rank over NCCL, beside (c) and
-   (d): the saved models bitwise phase 12 (b)'s.
+   (d): the saved models bitwise phase 12 (b)'s; (f) beside (b)'s resume
+   and (c)-(e), out of core across processes: two gloo ranks through phase 16 (e)'s argv
+   (hbm.budget.mb=224 on both coordinates, variance NONE, --pipeline-depth
+   2), a boundary checkpoint every update: both coordinates stream on each
+   rank (the plan, and each rank's photon_stream_slices_total per site),
+   each rank's B1 + B2 launches its slices x passes and one rank-order sum
+   a pass (over both ranks' slot rows), S1 and its stage walls printed, the
+   two ranks' best models bitwise alike; the coordinator's model against
+   phase 12 (b)'s (FE rtol 1e-3 / atol 1e-5, the RE retrained on one card
+   from the two-rank run's last residual atol 5e-3, per-entity loss atol
+   1e-4, validation AUC within 2e-3); (g) beside (f), one NCCL rank through
+   the same argv: its saved models bitwise phase 16 (e)'s.
 18. the (data x model)-tiled fixed effect (run after phase 17, on phase
    12's fixture and its (b)'s coordinates) on a 2 x 2 grid of 4 gloo ranks
    sharing the card (parallel.spawn; NCCL refuses two ranks of one
@@ -386,7 +398,7 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
 runs a subset of phases 3-18 (check, fe, glmix, dp, nccl, solvers, io, game, streaming, tuning, s2,
 sparse, timing, variants, retrain, serving, distributed, tiled) and then reports not ok; "streaming" runs phase 5,
 writes phase 12's fixture and runs its (b) before phase 16; "distributed" and "tiled" write phase 12's fixture
-and run its (b) before phases 17 and 18; "s2" is phase 13 (a) alone; "solvers", "io", "game" and "tuning" run phase 5 first ("game" and
+and run its (b) before phases 17 and 18 ("distributed" runs phase 16 (e) too, 17 (g)'s reference); "s2" is phase 13 (a) alone; "solvers", "io", "game" and "tuning" run phase 5 first ("game" and
 "tuning" write phase 12's fixture first); "retrain" writes phase 12's
 fixture and runs phase 14; "nccl" is phase 6 (c) alone after
 phase 5 (for a machine with several cards: one NCCL rank per card).
@@ -1156,19 +1168,20 @@ def _host_ms(torch, group, fn, reps):
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def _b4_times(torch, fg, group, d, calls, kernels, reps=20):
+def _b4_times(torch, fg, group, d, calls, kernels, reps=20, turns=True):
     """Each B4 function on the rank's shard (``d`` columns), ms per call
-    (``_host_ms``): the call in turns with the all-reduce path (prev, new, new,
-    prev); its collective alone, the all-gather of the cached slot buffer
-    and the previous design's all-reduce path; the rank's kernel alone; and the
-    collective's own time per call as ``collective_seconds`` reads it (CUDA
-    events over NCCL, the host clock between synchronizes over gloo) over
-    ``reps`` calls."""
+    (``_host_ms``): the call twice, with ``turns`` in turns with the
+    all-reduce path (prev, new, new, prev); its collective alone, the
+    all-gather of the cached slot buffer (with ``turns`` beside the previous
+    design's all-reduce path); the rank's kernel alone; and the collective's
+    own time per call as ``collective_seconds`` reads it (CUDA events over
+    NCCL, the host clock between synchronizes over gloo) over ``reps``
+    calls."""
     out = {}
     for name, call in calls.items():
         mode, kernel = kernels[name]
         prev = lambda kernel=kernel: _all_reduce_b4(torch, group, kernel())  # noqa: E731
-        runs = [_host_ms(torch, group, f, reps) for f in (prev, call, call, prev)]
+        runs = [_host_ms(torch, group, f, reps) for f in ((prev, call, call, prev) if turns else (call, call))]
         width = fg._out_width(mode, d)
         slots = group.slot_buffer(width, group.device)
         flat = torch.zeros(width, dtype=torch.float64, device=group.device)
@@ -1176,15 +1189,19 @@ def _b4_times(torch, fg, group, d, calls, kernels, reps=20):
         for _ in range(reps):
             call()
         c1 = (group.collectives, group.collective_seconds)
+        mine = runs[1:3] if turns else runs
         out[name] = {
-            "ms": min(runs[1:3]), "ms_runs": runs[1:3],
-            "prev_ms": min(runs[0], runs[3]), "prev_ms_runs": [runs[0], runs[3]],
+            "ms": min(mine), "ms_runs": mine,
             "collective_ms": _host_ms(torch, group, lambda: group.gather_slots(slots), reps),
-            "prev_collective_ms": _host_ms(torch, group, lambda: _all_reduce_slot_sum(torch, group, flat), reps),
             "kernel_ms": _host_ms(torch, group, kernel, reps),
             "collective_own_ms": (c1[1] - c0[1]) / max(c1[0] - c0[0], 1) * 1e3,
             "collectives_per_call": (c1[0] - c0[0]) / reps,
         }
+        if turns:
+            out[name].update({
+                "prev_ms": min(runs[0], runs[3]), "prev_ms_runs": [runs[0], runs[3]],
+                "prev_collective_ms": _host_ms(torch, group, lambda: _all_reduce_slot_sum(torch, group, flat), reps),
+            })
     return out
 
 
@@ -1200,21 +1217,12 @@ def _same_as_prev(torch, group, calls, kernels):
 def _staging_ms(torch, group, width):
     """The collective's parts alone, every rank at once (ms per call): the
     all-gather of the [world, width] float64 slot buffer where it lies
-    (host for gloo), the previous design's all-reduce of the same buffer and of one element
-    (the latency alone), a device synchronize, and (gloo) the copies of a
+    (host for gloo), a device synchronize, and (gloo) the copies of a
     width-wide float64 row to the host and of the buffer back."""
-    import torch.distributed as dist
-
     host = group.device if group.backend == "nccl" else torch.device("cpu")
     buf = group.slot_buffer(width, host)
-    zeros = torch.zeros((group.world_size, width), dtype=torch.float64, device=host)
     row = torch.zeros(width, dtype=torch.float64, device=group.device)
-    one = torch.zeros(1, dtype=torch.float64, device=host)
-    out = {
-        "all_gather": _host_ms(torch, group, lambda: group._all_gather(buf), 20),
-        "all_reduce": _host_ms(torch, group, lambda: dist.all_reduce(zeros), 20),
-        "all_reduce_one_element": _host_ms(torch, group, lambda: dist.all_reduce(one), 20),
-    }
+    out = {"all_gather": _host_ms(torch, group, lambda: group._all_gather(buf), 20)}
     if group.device.type == "cuda":
         out["synchronize"] = _host_ms(torch, group, lambda: torch.cuda.synchronize(group.device), 20)
     if group.backend == "gloo" and group.device.type == "cuda":
@@ -1287,8 +1295,10 @@ def dp_b4_rank(group, n, d, seed):
             }
             same[(nn, xname)] = _same_as_prev(torch, group, calls, kernels)
             if nn == n and xname == "float32":
-                # the bf16 turns were cut to make room for phase 18
-                times[xname] = _b4_times(torch, fg, group, d, calls, kernels)
+                # the bf16 turns were cut to make room for phase 18, the
+                # all-reduce path's turns for phase 17 (f) (its bits are
+                # still held above)
+                times[xname] = _b4_times(torch, fg, group, d, calls, kernels, turns=False)
                 times[xname]["staging"] = _staging_ms(torch, group, fg._out_width(fg.VG, d))
             del xs
             torch.cuda.empty_cache()
@@ -1435,12 +1445,15 @@ def _same_bits(a, b) -> bool:
 
 def log_b4_time(where, name, t, worst):
     """One line of B4's times (``_b4_times``) on rank 0."""
+    turns = "prev_ms" in t
     log(f"  time B4 {where} {name:28s} {t['ms']:.4f} ms/call on rank 0 (runs "
-        f"{'/'.join(f'{u:.4f}' for u in t['ms_runs'])}; slowest rank {worst:.4f}); the all-reduce path "
-        f"{t['prev_ms']:.4f} ({'/'.join(f'{u:.4f}' for u in t['prev_ms_runs'])}); collective alone "
-        f"{t['collective_ms']:.4f} (all-reduce path {t['prev_collective_ms']:.4f}); its own time in the call "
-        f"{t['collective_own_ms']:.4f} ({t['collectives_per_call']:.0f} a call); rank's kernel alone "
-        f"{t['kernel_ms']:.4f}; call - kernel {t['ms'] - t['kernel_ms']:+.4f}")
+        f"{'/'.join(f'{u:.4f}' for u in t['ms_runs'])}; slowest rank {worst:.4f}); "
+        + (f"the all-reduce path {t['prev_ms']:.4f} ({'/'.join(f'{u:.4f}' for u in t['prev_ms_runs'])}); "
+           if turns else "")
+        + f"collective alone {t['collective_ms']:.4f}"
+        + (f" (all-reduce path {t['prev_collective_ms']:.4f})" if turns else "")
+        + f"; its own time in the call {t['collective_own_ms']:.4f} ({t['collectives_per_call']:.0f} a call); "
+          f"rank's kernel alone {t['kernel_ms']:.4f}; call - kernel {t['ms'] - t['kernel_ms']:+.4f}")
 
 
 def launch_problems(ranks, backend):
@@ -1509,7 +1522,9 @@ def dp_path(torch, n, d, seed, state, device="cuda", gloo=True):
                     worst = max(r["times"][xname][name]["ms"] for r in ranks)
                     log_b4_time(f"gloo world={DP_RANKS} {xname:8s}", name, t, worst)
                 times[xname] = row
-            log("  (a) cut to make room for phase 18: B4 timed with f32 X only (the bf16 turns dropped)")
+            log("  (a) cut to make room for phase 18: B4 timed with f32 X only (the bf16 turns dropped); cut to make "
+                "room for phase 17 (f): the all-reduce path's timed turns and collective times dropped (its bits "
+                "still held)")
             st = ranks[0]["times"]["float32"]["staging"]
             log(f"  the collective's parts alone, ms per call on rank 0 of {DP_RANKS} (gloo): "
                 + ", ".join(f"{k} {v:.4f}" for k, v in st.items()))
@@ -1674,11 +1689,13 @@ def graph_ms(torch, fn, reps):
 def timings(torch, n, d, seed):
     """Per-call times at the main path's shape; the X of the main path is 2 GB
     (f32), far above the 50 MB L2, so every call reads it from device memory.
-    B1 and B2 are timed in turns with the previous design (the staged body
-    and the serial finalize: prev, new, new, prev), each body's main kernel
-    and finalize alone, the ring's plain-load route on the same aligned X,
-    and torch.mv(X, coef), the time to read X once (a yardstick, not a
-    library call: it computes another function)."""
+    Each kernel is timed twice between two runs of its plain version, with
+    its main kernel and finalize alone and torch.mv(X, coef), the time to
+    read X once (a yardstick, not a library call: it computes another
+    function). B3 is timed in turns with its previous finalize (the serial
+    one: prev, new, new, prev); B1's and B2's turns with the earlier staged
+    body left the script to make room for phase 17 (f) (their "prev" columns in
+    PERF.md stay as recorded)."""
     from photon_ml_tpu_torch.ops import fused_glm as fg
     from photon_ml_tpu_torch.ops.losses import LOSSES
 
@@ -1710,18 +1727,20 @@ def timings(torch, n, d, seed):
         ):
             launch = lambda **kw: fg._launch(mode, *operands, **kw)  # noqa: E731
             prev = lambda: launch(body=fg.STAGED, finalize=fg.FINALIZE_SERIAL)  # noqa: E731
+            turns = name == "fused_hessian_stats"
+            nan = float("nan")
             plain_a = time_ms(torch, plain, 10)
-            prev_a = time_ms(torch, prev, 20)
+            prev_a = time_ms(torch, prev, 20) if turns else nan
             ms_a = time_ms(torch, kern, 20)
             ms_b = time_ms(torch, kern, 20)
-            prev_b = time_ms(torch, prev, 20)
+            prev_b = time_ms(torch, prev, 20) if turns else nan
             plain_b = time_ms(torch, plain, 10)
             main_ms = graph_ms(torch, lambda: launch(steps=fg.STEP_MAIN), 10)
             fin_ms = graph_ms(torch, lambda: launch(steps=fg.STEP_FINALIZE), 20)
-            prev_main = graph_ms(torch, lambda: launch(body=fg.STAGED, steps=fg.STEP_MAIN), 10)
+            prev_main = graph_ms(torch, lambda: launch(body=fg.STAGED, steps=fg.STEP_MAIN), 10) if turns else nan
             prev_fin = graph_ms(
                 torch, lambda: launch(body=fg.STAGED, finalize=fg.FINALIZE_SERIAL, steps=fg.STEP_FINALIZE), 20
-            )
+            ) if turns else nan
             nbytes = fg.sweep_bytes(n, d, x.dtype, mode)
             ops = fg.sweep_flops(n, d, mode)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1731,9 +1750,9 @@ def timings(torch, n, d, seed):
             row[name] = {
                 "ms": ms, "ms_runs": [ms_a, ms_b],
                 "plain_ms": min(plain_a, plain_b), "plain_ms_runs": [plain_a, plain_b],
-                "prev_ms": min(prev_a, prev_b), "prev_ms_runs": [prev_a, prev_b],
+                "prev_ms": min(prev_a, prev_b) if turns else None, "prev_ms_runs": [prev_a, prev_b] if turns else None,
                 "main_ms": main_ms, "finalize_ms": fin_ms,
-                "prev_main_ms": prev_main, "prev_finalize_ms": prev_fin,
+                "prev_main_ms": prev_main if turns else None, "prev_finalize_ms": prev_fin if turns else None,
                 "read_x_ms": read_a,
                 "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes": nbytes, "ops": ops, "plan": plan,
@@ -1742,7 +1761,8 @@ def timings(torch, n, d, seed):
                 f"(graph-timed: main {main_ms:.4f} + finalize {fin_ms:.4f}; {plan['body']} body, route {plan['route']}, "
                 f"grid {plan['grid']}, {plan['blocks_per_sm']} blocks/SM, {plan['rows_per_tile']} rows/tile, "
                 f"{plan['stages']} stages, {plan['smem_bytes']} B smem)  "
-                f"previous design {prev_a:.4f}/{prev_b:.4f} ms (graph-timed: main {prev_main:.4f} + serial finalize {prev_fin:.4f})  "
+                + (f"previous design {prev_a:.4f}/{prev_b:.4f} ms (graph-timed: main {prev_main:.4f} + serial finalize "
+                   f"{prev_fin:.4f})  " if turns else "")
                 + f"plain(unfused composition) {plain_a:.4f}/{plain_b:.4f} ms  read X once (torch.mv) {read_a:.4f} ms  "
                 f"bound {max(t_bytes, t_ops):.4f} ms ({row[name]['bound_by']}, {nbytes} B)  "
                 f"achieved {nbytes / (ms * 1e-3) / 1e12:.3f} TB/s ({max(t_bytes, t_ops) / ms:.1%} of the bound)")
@@ -2400,8 +2420,9 @@ def sparse_phase(torch, seed, users, d_re):
 def time_sparse(torch, seed, batches=None):
     """Phase 7's row for the segment kernel: each product at the sparse
     shape (f32 values), CUDA events over 20 launches after 3, two rounds,
-    the earlier design (``warp_segment_dot``) in turns with it (prev, new,
-    new, prev) and both replayed from a CUDA graph, beside its bound
+    and replayed from a CUDA graph (the earlier design's turns,
+    ``warp_segment_dot``, left the script to make room for phase 17 (f):
+    ``--only variants`` still builds and times it), beside its bound
     (``segment_bytes``'s function bytes over 3.35 TB/s, or its operations;
     the design's bytes and the worst case of a sector per gather beside),
     its plain version, index_add_ (the gather, the product and an atomic
@@ -2458,50 +2479,42 @@ def time_sparse(torch, seed, batches=None):
 
             kern = lambda: sparse.segment_dot(name, seg, n_seg, src, square)  # noqa: E731
             plain = lambda: sparse.segment_dot_plain(seg, n_seg, src, square)  # noqa: E731
-            design = warp_design(torch, seg, n_seg)
-            prev = lambda: warp_segment_dot(torch, design, seg, n_seg, src, square)  # noqa: E731
             lib_err = float((library().double() - plain().double()).abs().max())
-            prev_err = float((prev().double() - plain().double()).abs().max())
-            runs = {key: [] for key in ("ms", "prev_ms", "plain_ms", "index_add_ms", "library_ms")}
-            for _ in range(2):  # two rounds, each in turns: plain, library, index_add_, prev, kernel, kernel, prev
+            runs = {key: [] for key in ("ms", "plain_ms", "index_add_ms", "library_ms")}
+            for _ in range(2):  # two rounds, each in turns: plain, library, index_add_, kernel, kernel
                 runs["plain_ms"].append(time_ms(torch, plain, 5))
                 runs["library_ms"].append(time_ms(torch, library, 20))
                 runs["index_add_ms"].append(time_ms(torch, by_index_add, 20))
-                runs["prev_ms"].append(time_ms(torch, prev, 20))
                 runs["ms"].append(time_ms(torch, kern, 20))
                 runs["ms"].append(time_ms(torch, kern, 20))
-                runs["prev_ms"].append(time_ms(torch, prev, 20))
-            # each design's kernels alone, replayed from a CUDA graph (no host launch time)
-            graph = {"graph_ms": graph_ms(torch, kern, 20), "prev_graph_ms": graph_ms(torch, prev, 20)}
+            # the kernels alone, replayed from a CUDA graph (no host launch time)
+            graph = {"graph_ms": graph_ms(torch, kern, 20)}
             nbytes = segment_bytes(seg, n_seg, n_src)
             ops = segment_flops(seg, square)
             t_bytes, t_ops = nbytes["function"] / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS["float32"] * 1e3
             row = {key: min(v) for key, v in runs.items()}
             row.update({f"{key}_runs": v for key, v in runs.items()})
-            prev_bytes = nbytes["function"] + design["bytes"]
             row.update(graph)
             row.update({"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                         "design_bound_ms": nbytes["design"] / HBM_BYTES_PER_S * 1e3,
-                        "prev_design_bound_ms": prev_bytes / HBM_BYTES_PER_S * 1e3,
                         "sector_ms": nbytes["sectors"] / HBM_BYTES_PER_S * 1e3,
-                        "bytes": nbytes["function"], "design_bytes": nbytes["design"], "prev_design_bytes": prev_bytes,
+                        "bytes": nbytes["function"], "design_bytes": nbytes["design"],
                         "sector_bytes": nbytes["sectors"], "ops": ops, "segments": n_seg,
-                        "entries": seg.gather.shape[0], "library_max_abs_diff": lib_err, "prev_max_abs_diff": prev_err,
+                        "entries": seg.gather.shape[0], "library_max_abs_diff": lib_err,
                         "form": "keys" if seg.keys is not None else f"row groups of {seg.group}"})
             out[key] = row
             log(f"  time segment kernel {key:15s} ({row['form']}) segments={n_seg} entries={seg.gather.shape[0]}: "
-                f"kernel {'/'.join(f'{t:.4f}' for t in runs['ms'])} ms (graph {row['graph_ms']:.4f})  earlier design "
-                f"{'/'.join(f'{t:.4f}' for t in runs['prev_ms'])} ms (graph {row['prev_graph_ms']:.4f}, max abs diff "
-                f"{prev_err:.2e})  plain {'/'.join(f'{t:.4f}' for t in runs['plain_ms'])} "
+                f"kernel {'/'.join(f'{t:.4f}' for t in runs['ms'])} ms (graph {row['graph_ms']:.4f})  "
+                f"plain {'/'.join(f'{t:.4f}' for t in runs['plain_ms'])} "
                 f"ms  index_add_ (gather, product, atomic add) {'/'.join(f'{t:.4f}' for t in runs['index_add_ms'])} ms  "
                 f"cuSPARSE CSR SpMV (torch.mv on a sparse CSR tensor) "
                 f"{'/'.join(f'{t:.4f}' for t in runs['library_ms'])} ms (max abs diff {lib_err:.2e})  "
                 f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, {nbytes['function']} B): "
                 f"{row['bound_ms'] / row['ms']:.1%} of it; with the design's own bytes "
                 f"{row['design_bound_ms']:.4f} ms ({nbytes['design']} B): "
-                f"{row['design_bound_ms'] / row['ms']:.1%} (the earlier design's {row['prev_design_bound_ms']:.4f} ms); "
+                f"{row['design_bound_ms'] / row['ms']:.1%}; "
                 f"a sector per gather (worst case, not a bound) {row['sector_ms']:.4f} ms")
-            del csr, ids, gather, acc, design
+            del csr, ids, gather, acc
         torch.cuda.empty_cache()
     sparse.SPARSE_LAUNCHES.update(saved)
     return out
@@ -2509,8 +2522,9 @@ def time_sparse(torch, seed, batches=None):
 
 # The segment kernel's earlier design (csrc/sparse_glm_warp.cu: a warp per
 # 32 segments, int64 pointers over every segment, a chunk plan for the
-# segments over WARP_CHUNK entries), timed in turns with the current one in
-# phase 7 as its yardstick. Nothing on the main path calls it.
+# segments over WARP_CHUNK entries), timed as a variant in phase 8 (--only
+# variants; phase 7 no longer times it in turns). Nothing on the main path
+# calls it.
 WARP_CHUNK = 4096
 
 
@@ -2969,8 +2983,9 @@ def b4_entry(name, n, d, dp, times):
     """B4's line of the kernels JSON. ``launches``: its calls over the
     4-rank gloo sweeps, summed over the ranks (per rank beside), and over
     the NCCL sweeps. ``ms``: one call at n x d f32 on rank 0 of 4 gloo ranks
-    sharing the card, with the all-reduce path timed in turns (``prev_ms``), the
-    collective alone and the rank's kernel alone beside; ``nccl_*`` the same
+    sharing the card, the collective alone and the rank's kernel alone
+    beside (the all-reduce path's turns, ``prev_ms``, left the script to
+    make room for phase 17 (f): null); ``nccl_*`` the same
     over NCCL, one rank per card (world ``nccl_world``), on the sweep's
     rows. ``plain_ms``: the unsharded plain version on the whole batch
     (phase 7). ``bound_ms``: the gloo configuration's (one card streams all
@@ -4055,7 +4070,8 @@ def game_phase(torch, fixture, smi, busy_share=None, keep=None):
 # gloo, each reading its 100,000 rows (per-host reads, the cross-rank random-
 # effect build of game/data_mp.py, B1-B3 joined by B4); the kill-a-worker
 # drill and its resume; cli.score --distributed; cli.fleetz over the ranks'
-# streams; and one rank over NCCL.
+# streams; one rank over NCCL; and out of core across processes (phase 16
+# (e)'s argv on two gloo ranks and on one NCCL rank).
 
 DIST_WORLD = 2
 DIST_BUDGET_S = 10.0  # (b)'s --collective-timeout
@@ -4085,6 +4101,7 @@ doc = {"wall_s": time.perf_counter() - t0, "launches": dict(fg.LAUNCHES), "shift
        "routes": dict(fg.OBJECTIVE_ROUTES), "normalization": digests}
 if cli == "train":
     doc["stage_seconds"] = result["stage_seconds"]
+    doc["model_sha256"] = result["best"]["model_sha256"]
 with open(out_path, "w") as f:
     json.dump(doc, f)
 """
@@ -4313,10 +4330,11 @@ def dist_train(torch, fixture, b, index_dir, problems, smi):
             "normalization_alike": alike}
 
 
-def dist_drill(torch, fixture, a, index_dir, problems, smi):
+def dist_drill(torch, fixture, a, index_dir, problems, smi, before_resume=None):
     """(b) The kill-a-worker drill: rank 1 dies at its second sweep boundary
     (PHOTON_FAULTS=dist.collective:kill:2), --collective-timeout 10,
-    heartbeats every 0.5 s, stale after 3 s. Rank 0 must exit non-zero with
+    heartbeats every 0.5 s, stale after 3 s (``before_resume`` is called
+    once the drill is judged, before the resume). Rank 0 must exit non-zero with
     DistributedTimeoutError or PeerLostError naming process 1 within the
     budget plus 5 s of rank 1's death and leave a peer_lost dump; both ranks
     then resume and the final model must equal (a)'s within 1e-9 (the
@@ -4347,6 +4365,8 @@ def dist_drill(torch, fixture, a, index_dir, problems, smi):
         problems.append(f"(b) the drill: rank 0 exit {rc0}, typed {typed}, names process 1 {named}, "
                         f"{detect:.2f} s after the kill, dumps {len(dumps)}; rank 0's end:\n{err0[-2000:]}")
         return {"detect_s": detect}
+    if before_resume is not None:
+        before_resume()
     t1 = time.perf_counter()
     outs, _ = _dist_ranks(root, "resume-17b", argv + ["--resume"], module="train")
     resume_s = time.perf_counter() - t1
@@ -4492,32 +4512,206 @@ def dist_nccl(torch, fixture, b, started, problems, smi):
             "differing_bits": bits}
 
 
-def distributed_phase(torch, fixture, game, smi):
-    """Phase 17 (a)-(e) on phase 12's fixture; ``game`` carries phase 12
-    (b)'s best model, index maps and in-process coordinates."""
+def dist_stream_start(fixture, index_dir):
+    """(f)'s two ranks and (g)'s one, started at once (beside (b)'s resume
+    and (c)-(e)): each through phase 16 (e)'s argv (``stream_game_argv``)."""
+    import os
+
+    root, train, validation = fixture["root"], fixture["train"], fixture["validation"]
+    out, ck, metrics = (os.path.join(root, p) for p in ("out-17f", "ck-17f", "metrics-17f"))
+    two = _start_ranks(root, "train-17f", stream_game_argv(train, validation, out, [
+        "--feature-index-dir", index_dir, "--checkpoint-dir", ck, "--checkpoint-every", "1", "--checkpoint-keep", "4",
+        "--metrics-out", metrics]))
+    try:
+        one = _start_ranks(root, "train-17g", stream_game_argv(
+            train, validation, os.path.join(root, "out-17g"), ["--feature-index-dir", index_dir, "--metrics-out",
+                                                              os.path.join(root, "metrics-17g")]), world=1)
+    except BaseException:
+        for p in two[1]:
+            p.kill()
+        raise
+    return two, one
+
+
+def _stream_series(path):
+    """A rank's streamed slices per site and the fixed effect's passes per
+    kind, from its Prometheus file."""
+    series = _prom_series(path, "photon_stream_")
+    slices = {dict(k[1]).get("site"): v for k, v in series.items() if k[0] == "photon_stream_slices_total"}
+    passes = {dict(k[1]).get("kind"): v for k, v in series.items()
+              if k[0] == "photon_stream_passes_total" and dict(k[1]).get("site") == "fe.train"}
+    return {k: int(v) for k, v in slices.items()}, {k: int(v) for k, v in passes.items()}
+
+
+def dist_stream(torch, fixture, b, started, problems, smi):
+    """(f) Out of core across processes: the two gloo ranks of
+    ``dist_stream_start`` through phase 16 (e)'s argv. Both coordinates
+    stream on each rank (the plan; each rank's photon_stream_slices_total
+    per site); each rank launches B1 + B2 once a slice a pass and one
+    rank-order sum a pass (over both ranks' slot rows in (rank, slice)
+    order); the ranks' best models bitwise alike; the coordinator's model
+    against phase 12 (b)'s: FE rtol 1e-3 / atol 1e-5, the RE retrained on
+    one card from the two-rank run's last residual and warm start (atol
+    5e-3, per-entity loss atol 1e-4), validation AUC within 2e-3."""
+    import os
+
+    from photon_ml_tpu_torch.game.coordinate import _project_model_values
+    from photon_ml_tpu_torch.io import load_game_model
+
+    root = fixture["root"]
+    out, ck, metrics = (os.path.join(root, p) for p in ("out-17f", "ck-17f", "metrics-17f"))
+    outs, t0 = _wait_ranks(started)
+    wall = max(o[3] for o in outs) - t0
+    failed = _ranks_failed(outs, "(f) cli.train --distributed, streamed")
+    if failed:
+        raise AssertionError(failed)
+    docs = _rank_docs(root, "train-17f")
+    with open(os.path.join(metrics, "run_summary.json")) as f:
+        summary = json.load(f)
+    plan = {c["name"]: c for c in summary["plan"]["coordinates"]}
+    shardings = {k: (c["residency"], c["sharding"]) for k, c in plan.items()}
+    want = {"global": ("streamed", "host-sharded rows (streamed slices)"),
+            "per-user": ("streamed", "entity-sharded (host-resident blocks)")}
+    if shardings != want or summary["plan"]["pipeline_depth"] != 2 or summary["plan"]["n_processes"] != DIST_WORLD:
+        problems.append(f"(f) the plan: {shardings}, depth {summary['plan']['pipeline_depth']}")
+    auc = summary["best"]["metrics"]["AUC"]
+    launches = []
+    for r, d in enumerate(docs):
+        slices, passes = _stream_series(os.path.join(metrics, "metrics.prom" if r == 0 else f"metrics.p{r}.prom"))
+        b1, b2 = d["launches"]["fused_value_grad"], d["launches"]["fused_hessian_vector"]
+        sums, s1 = d["sums"]["rank_order_sum"], d["sparse"]["ell_matvec"]
+        n_passes = passes.get("vg", 0) + passes.get("hvp", 0)
+        launches.append({"fused_value_grad": b1, "fused_hessian_vector": b2, "rank_order_sum": sums,
+                         "ell_matvec": s1, "slices": slices, "passes": passes})
+        log(f"  (f) rank {r}: wall {d['wall_s']:.2f} s (stages "
+            + ", ".join(f"{k} {v:.3f}" for k, v in d["stage_seconds"].items())
+            + f"); streamed slices {slices}; FE passes {passes}; B1 {b1} + B2 {b2} launches (slices x passes "
+              f"{slices.get('fe.train')}), rank-order sums {sums} (passes {n_passes}), S1 ell_matvec {s1}; "
+              f"best model sha256 {d['model_sha256'][:16]}")
+        if not (slices.get("fe.train", 0) > 0 and slices.get("re.train", 0) > 0):
+            problems.append(f"(f) rank {r} did not stream both coordinates: {slices}")
+        if b1 <= 0 or b2 <= 0 or b1 + b2 != slices.get("fe.train") or sums != n_passes:
+            problems.append(f"(f) rank {r}: B1 {b1} + B2 {b2} against {slices.get('fe.train')} slices, {sums} sums "
+                            f"against {n_passes} passes")
+    alike = len({d["model_sha256"] for d in docs}) == 1
+    log(f"  (f) two gloo ranks, both coordinates streamed under {STREAM_GAME_BUDGET_MB} MiB a rank, depth 2: "
+        f"{wall:.2f} s from the first start to the last exit (beside (b)'s resume, (c)-(e) and (g)); best models "
+        f"bitwise alike on "
+        f"every rank: {alike}; validation AUC {auc:.6f} (phase 12 (b) {b['auc']:.6f}) on {smi}")
+    if not alike:
+        problems.append(f"(f) the ranks' best models differ: {[d['model_sha256'] for d in docs]}")
+    if abs(auc - b["auc"]) > 2e-3:
+        problems.append(f"(f) validation AUC {auc:.6f} against phase 12 (b)'s {b['auc']:.6f} (2e-3)")
+    maps = b["maps"]
+    best = load_game_model(os.path.join(out, "models", "best"), maps, task="logistic_regression", device=DIST_DEVICE)
+    ref = load_game_model(os.path.join(b["out"], "models", "best"), maps, task="logistic_regression", device=DIST_DEVICE)
+    hold(problems, "(f) two streamed ranks vs phase 12 (b): FE coefficients", best["global"].model.coefficients.means,
+         ref["global"].model.coefficients.means, 1e-3, 1e-5)
+    # the random effect on identical residuals, as (a): the last RE update
+    # retrained on one card from the boundary before it
+    boundaries = os.path.join(ck, "cd-boundaries")
+    state, last = _load_boundary(boundaries, 2), _load_boundary(boundaries, 3)
+    re_coord = b["coords"]["per-user"]
+    dev = re_coord.dataset.device
+
+    def on_card(m):
+        return dataclasses.replace(m, coef_indices=m.coef_indices.to(dev), coef_values=m.coef_values.to(dev))
+
+    re1 = on_card(state["models"]["per-user"])
+    residual = state["summed_scores"].to(dev) - re_coord.score(re1)
+    one, _ = re_coord.train(residual, initial_model=re1)
+    two = on_card(last["models"]["per-user"])
+    ds = re_coord.dataset
+    hold(problems, "(f) two streamed ranks vs one card: RE coefficients (identical residuals)",
+         _project_model_values(ds, two, two.coef_values, torch.float32), one.coef_values, 0.0, 5e-3)
+    l2 = float(re_coord.config.reg_weight)
+    hold(problems, "(f) two streamed ranks vs one card: RE per-entity loss (identical residuals)",
+         _re_losses(torch, re_coord, two, residual, l2), _re_losses(torch, re_coord, one, residual, l2), 0.0, 1e-4)
+    return {"wall_s": wall, "auc": auc, "launches": launches, "alike": alike,
+            "stage_seconds": [d["stage_seconds"] for d in docs], "rank_walls_s": [d["wall_s"] for d in docs]}
+
+
+def dist_stream_nccl(torch, fixture, b, started, reference, problems, smi):
+    """(g) One NCCL rank through (f)'s argv: its saved models bitwise phase
+    16 (e)'s (``reference``: its output directory and its best model's
+    digest), the world-1 identity of the streamed pass over ranks."""
+    import os
+
+    from photon_ml_tpu_torch.io import load_game_model
+
+    root = fixture["root"]
+    outs, t0 = _wait_ranks(started)
+    failed = _ranks_failed(outs, "(g) cli.train over NCCL at world 1, streamed")
+    if failed:
+        raise AssertionError(failed)
+    (doc,) = _rank_docs(root, "train-17g", world=1)
+    with open(os.path.join(root, "metrics-17g", "run_summary.json")) as f:
+        backend = json.load(f).get("distributed")
+    maps = b["maps"]
+    got = load_game_model(os.path.join(root, "out-17g", "models", "best"), maps, task="logistic_regression",
+                          device=DIST_DEVICE)
+    ref = load_game_model(os.path.join(reference["out"], "models", "best"), maps, task="logistic_regression",
+                          device=DIST_DEVICE)
+    bits = _differing_bits(got["global"].model.coefficients.means, ref["global"].model.coefficients.means)
+    ga, ra = got["per-user"], ref["per-user"]
+    ids = [str(e) for e in ra.entity_ids]
+    rows = torch.as_tensor(ga.rows_for(ids), dtype=torch.long)
+    if bool((rows < 0).any()):
+        bits = None
+    else:
+        bits += _differing_bits(ga.coef_values[rows.to(ga.coef_values.device)], ra.coef_values)
+    same_digest = doc["model_sha256"] == reference["model_sha256"]
+    log(f"  (g) one rank over {backend}, streamed: wall {doc['wall_s']:.2f} s (beside (f)); launches "
+        f"{doc['launches']}, rank-order sums {doc['sums']}; the saved models against phase 16 (e)'s: {bits} differing "
+        f"bits, best model digests equal: {same_digest} on {smi}")
+    if backend != {"backend": "nccl", "world_size": 1}:
+        problems.append(f"(g) the one-rank run ran over {backend}, not NCCL")
+    if bits != 0 or not same_digest:
+        problems.append(f"(g) NCCL at world 1, streamed: {bits} bits differ from phase 16 (e)'s models "
+                        f"(digests equal: {same_digest})")
+    return {"wall_s": doc["wall_s"], "launches": doc["launches"], "sums": doc["sums"], "differing_bits": bits}
+
+
+def distributed_phase(torch, fixture, game, smi, streamed=None):
+    """Phase 17 (a)-(g) on phase 12's fixture; ``game`` carries phase 12
+    (b)'s best model, index maps and in-process coordinates, ``streamed``
+    phase 16 (e)'s output directory and digest (17 (g)'s reference; run
+    here when phase 16 did not run)."""
     import os
 
     from photon_ml_tpu_torch.io.index_map import save_partitioned
 
     problems, out = [], {}
     b = game["b"]
+    if streamed is None:
+        streamed = stream_cli(torch, fixture, game, problems, smi)
     index_dir = os.path.join(fixture["root"], "index-17")
     for shard, imap in b["maps"].items():
         save_partitioned(imap, index_dir, 1, shard)
     a = dist_train(torch, fixture, b, index_dir, problems, smi)
     a["maps"] = b["maps"]
     out["train"] = {k: v for k, v in a.items() if k not in ("maps", "out", "metrics")}
-    out["drill"] = dist_drill(torch, fixture, a, index_dir, problems, smi)
-    # (e)'s one NCCL rank runs beside (c)'s two scoring ranks and (d)
-    nccl = dist_nccl_start(fixture, index_dir)
+    # (f)'s two streamed ranks and (g)'s one start once the drill is judged:
+    # they run beside (b)'s resume, then beside (e)'s one NCCL rank, (c)'s
+    # two scoring ranks and (d)
+    streams = []
     try:
+        out["drill"] = dist_drill(torch, fixture, a, index_dir, problems, smi,
+                                  before_resume=lambda: streams.extend(dist_stream_start(fixture, index_dir)))
+        if not streams:
+            streams.extend(dist_stream_start(fixture, index_dir))
+        streams.append(dist_nccl_start(fixture, index_dir))
         out["score"] = dist_score(torch, fixture, a, index_dir, problems, smi)
         out["fleetz"] = dist_fleetz(torch, a, problems)
     except BaseException:
-        for p in nccl[1]:
-            p.kill()
+        for ranks in streams:
+            for p in ranks[1]:
+                p.kill()
         raise
+    two, one, nccl = streams
     out["nccl"] = dist_nccl(torch, fixture, b, nccl, problems, smi)
+    out["stream"] = dist_stream(torch, fixture, b, two, problems, smi)
+    out["stream_nccl"] = dist_stream_nccl(torch, fixture, b, one, streamed, problems, smi)
     log(f"  on {smi}")
     if problems:
         raise AssertionError("; ".join(problems))
@@ -4543,8 +4737,7 @@ TUNING_LAMBDAS = (0.01, 0.1, 1.0, 10.0)
 SWEEP_LAMBDAS = tuple(float(x) for x in np.logspace(-2.0, 2.0, 8))  # (b)'s K = 8, bench_sweep's; K = 4 takes TUNING_LAMBDAS
 SWEEP_LANES = (1, 4)  # K = 8 (timed against 8 times K = 4's mean trial) cut to make room for phase 18
 TUNING_KILL_AT = 2  # tuning.trial: the second lane of the first batch
-# (d)'s trials, cut to make room for phase 18 (2 and 8 before)
-TUNING_SEQ_TRIALS = 1
+# (d)'s lane trials, cut to make room for phase 18 (8 before)
 TUNING_LANE_TRIALS = 4
 # the smallest lambda whose f32 lanes (b) and (c) hold at atol 5e-3 beside
 # the float64 pair: below it the f32 solves stop at f32's resolution
@@ -5019,14 +5212,14 @@ def _lane_argv(train, validation, out, extra=()):
 
 
 def tuning_driver(torch, fixture, problems, smi):
-    """(d) cli.train's tuning on phase 12's fixture: sequential BAYESIAN
-    with phase 12's options and TUNING_SEQ_TRIALS trials (the launches of
-    B1, B2, B3 with shifts and S1 each above 0); then RANDOM with
+    """(d) cli.train's tuning on phase 12's fixture: RANDOM with
     --trial-lanes 4 and TUNING_LANE_TRIALS trials, variance and
     normalization NONE, output mode TUNED: the batch walls
     (photon_tuning_batch_wall_seconds), the tuned model reloaded bitwise the
     model it was saved from, the prior file with 1 + TUNING_LANE_TRIALS
-    records."""
+    records. (The sequential BAYESIAN run with phase 12's options left the
+    script to make room for phase 17 (f); tests/test_torch_tuning.py holds
+    BAYESIAN tuning against the JAX package on the CPU.)"""
     import os
 
     from photon_ml_tpu_torch.cli import train as cli_train
@@ -5034,26 +5227,8 @@ def tuning_driver(torch, fixture, problems, smi):
 
     root, train, validation = fixture["root"], fixture["train"], fixture["validation"]
     out = {}
-    log(f"  (d) cut to make room for phase 18: {TUNING_SEQ_TRIALS} sequential trial (2 before) and "
-        f"{TUNING_LANE_TRIALS} lane trials, one batch (8 in two batches before)")
-    argv = game_argv(train, validation, os.path.join(root, "out-13-seq"),
-                     ["--hyper-parameter-tuning", "BAYESIAN", "--hyper-parameter-tuning-iter", str(TUNING_SEQ_TRIALS),
-                      "--output-mode", "TUNED"])
-    summary, wall, launches, shifts, s1 = _counted_train(torch, argv)
-    aucs = [c["metrics"]["AUC"] for c in summary["configs"]]
-    log(f"  (d) sequential BAYESIAN, {TUNING_SEQ_TRIALS} trial(s): {wall:.2f} s (stages "
-        + ", ".join(f"{k} {v:.3f}" for k, v in summary["stage_seconds"].items())
-        + f"); launches {launches}, B3 with shifts {shifts}, S1 ell_matvec {s1}; trials "
-        + "; ".join(f"{c['reg_weights']} AUC {c['metrics']['AUC']:.6f}" for c in summary["configs"][1:])
-        + f"; best AUC {summary['best']['metrics']['AUC']:.6f} (grid {aucs[0]:.6f})")
-    if min(launches["fused_value_grad"], launches["fused_hessian_vector"], shifts, s1) <= 0:
-        problems.append(f"(d) sequential tuning did not launch B1, B2, B3 with shifts and S1: {launches}, "
-                        f"shifts {shifts}, S1 {s1}")
-    if len(summary["configs"]) != 1 + TUNING_SEQ_TRIALS:
-        problems.append(f"(d) sequential tuning ran {len(summary['configs']) - 1} trials, not {TUNING_SEQ_TRIALS}")
-    out["sequential"] = {"wall_s": wall, "stage_seconds": summary["stage_seconds"], "launches": launches,
-                         "shift_launches": shifts, "s1_launches": s1, "best_auc": summary["best"]["metrics"]["AUC"]}
-
+    log(f"  (d) cut to make room for phase 18: {TUNING_LANE_TRIALS} lane trials, one batch (8 in two batches "
+        f"before); cut to make room for phase 17 (f): the sequential BAYESIAN run (1 trial)")
     lane_out, metrics_dir = os.path.join(root, "out-13-lanes"), os.path.join(root, "metrics-13")
     saved, real = _saved_models(cli_train)
     try:
@@ -6272,7 +6447,13 @@ STREAM_FE_BUDGET = 256 << 20  # 16 slices of 32,768 rows of phase 5's X
 STREAM_ELL_BUDGET = 64 << 20  # 5 slices of phase 9's ELL rows
 STREAM_RE_SLICES = 4  # entity slices the budget of (c) cuts the largest size bucket into
 STREAM_PASSES = 5  # timed value+grad passes of (a)
-STREAM_GAME_BUDGET_MB = 256  # hbm.budget.mb of (e) on both coordinates
+# hbm.budget.mb of (e) on both coordinates, and of phase 17 (f) and (g): a
+# rank's share of phase 12's fixture (100,000 rows of the fixed effect,
+# 409.6 MB; 7,099 users' blocks, 262.6 MB) exceeds it on both coordinates,
+# and the fixed effect keeps (e)'s 7 slices a pass in one process (4 a
+# rank); at 256 MiB a rank's random effect fit the budget and stayed
+# resident
+STREAM_GAME_BUDGET_MB = 224
 
 
 def _host_rows(torch, data):
@@ -6755,11 +6936,8 @@ def stream_cli(torch, fixture, game, problems, smi):
 
     root = fixture["root"]
     out, metrics_dir, report_dir = (os.path.join(root, f"stream-{x}") for x in ("out", "metrics", "report"))
-    fe = GAME_FE.replace("variance=SIMPLE", "variance=NONE") + f",hbm.budget.mb={STREAM_GAME_BUDGET_MB}"
-    re_ = GAME_RE + f",hbm.budget.mb={STREAM_GAME_BUDGET_MB}"
-    argv = [a for a in game_argv(fixture["train"], fixture["validation"], out)]
-    argv[argv.index(GAME_FE)], argv[argv.index(GAME_RE)] = fe, re_
-    argv += ["--pipeline-depth", "2", "--metrics-out", metrics_dir, "--report-out", report_dir]
+    argv = stream_game_argv(fixture["train"], fixture["validation"], out,
+                            ["--metrics-out", metrics_dir, "--report-out", report_dir])
     lane_reduce.reset_launch_counts()
     summary, wall, launches, _, s1 = _counted_train(torch, argv)
     sums = fg.SUM_LAUNCHES["rank_order_sum"]
@@ -6786,7 +6964,20 @@ def stream_cli(torch, fixture, game, problems, smi):
     else:
         problems.append("(e) phase 12 (b)'s model is missing")
     return {"wall_s": wall, "launches": launches, "sums": sums, "s1_launches": s1,
-            "auc": summary["best"]["metrics"]["AUC"], "streaming": streaming}
+            "auc": summary["best"]["metrics"]["AUC"], "streaming": streaming, "out": out,
+            "model_sha256": summary["best"]["model_sha256"]}
+
+
+def stream_game_argv(train, validation, out, extra=()):
+    """Phase 16 (e)'s cli.train argv (phase 17 (f) and (g) run it across
+    processes): phase 12's, both coordinates under hbm.budget.mb, the fixed
+    effect's variance NONE (a streamed fixed effect never forms its
+    Hessian), --pipeline-depth 2."""
+    fe = GAME_FE.replace("variance=SIMPLE", "variance=NONE") + f",hbm.budget.mb={STREAM_GAME_BUDGET_MB}"
+    re_ = GAME_RE + f",hbm.budget.mb={STREAM_GAME_BUDGET_MB}"
+    argv = game_argv(train, validation, out, ["--pipeline-depth", "2", *extra])
+    argv[argv.index(GAME_FE)], argv[argv.index(GAME_RE)] = fe, re_
+    return argv
 
 
 def game_b_only(torch, fixture, smi):
@@ -7428,26 +7619,28 @@ def main() -> int:
                 elif want("streaming") or want("distributed") or want("tiled"):
                     game = phases.run("GAME driver (phase 12 (b))", game_b_only, torch, fixture, smi)
                 torch.cuda.empty_cache()
-                if not want("distributed"):
-                    pass
-                elif not (game or {}).get("b"):
-                    log("== phase: distributed needs phase 12 (b)'s model")
-                    phases.failed.append("distributed")
-                else:
-                    dist = phases.run("distributed", distributed_phase, torch, fixture, game, smi)
-                if want("tiled"):
-                    torch.cuda.empty_cache()
-                    tiled = phases.run("tiled fixed effect", tiled_phase, torch, args.seed, smi, fixture, game)
-                (game or {}).pop("b", None)
-                torch.cuda.empty_cache()
                 if not want("streaming"):
                     pass
                 elif state is None:
                     log("== phase: out-of-core training needs the one-card sweep's results")
                     phases.failed.append("out-of-core training")
                 else:
+                    # before phase 17: its (g) holds its models against (e)'s
                     streaming = phases.run("out-of-core training", streaming_phase, torch, state, fixture, game,
                                            args.seed, smi)
+                torch.cuda.empty_cache()
+                if not want("distributed"):
+                    pass
+                elif not (game or {}).get("b"):
+                    log("== phase: distributed needs phase 12 (b)'s model")
+                    phases.failed.append("distributed")
+                else:
+                    dist = phases.run("distributed", distributed_phase, torch, fixture, game, smi,
+                                      (streaming or {}).get("cli"))
+                if want("tiled"):
+                    torch.cuda.empty_cache()
+                    tiled = phases.run("tiled fixed effect", tiled_phase, torch, args.seed, smi, fixture, game)
+                (game or {}).pop("b", None)
                 torch.cuda.empty_cache()
                 if not want("tuning"):
                     pass
@@ -7567,6 +7760,13 @@ def main() -> int:
             table = "sharded" if name in B4_OF else "sums" if name == "rank_order_sum" else "launches"
             entry["launches_distributed_per_rank"] = [d[table].get(name, 0) for d in dist_ranks]
             entry["launches_nccl_world_1"] = nccl_one.get(table, {}).get(name)
+    # phase 17 (f): each rank's launches in the two-rank streamed fit (B1,
+    # B2, the rank-order sum over both ranks' slot rows, S1)
+    stream_ranks = ((dist or {}).get("stream") or {}).get("launches") or []
+    for entry in kernels:
+        key = entry["name"].split(":", 1)[-1]
+        if stream_ranks and key in ("fused_value_grad", "fused_hessian_vector", "rank_order_sum", "ell_matvec"):
+            entry["launches_streamed_per_rank"] = [r[key] for r in stream_ranks]
     # the streamed paths of phase 16: their launches join each kernel's
     st_launches = streamed_launches(streaming)
     for entry in kernels:
@@ -7628,7 +7828,7 @@ def main() -> int:
         sw, dr, rs = tuning["sweep"], tuning["driver"], tuning["resume"]
         log("tuning: lane sweeps " + ", ".join(
             f"K={K} {sw[K]['wall_s']:.3f} s against {sw[K]['sequential_s']:.3f} s sequential" for K in SWEEP_LANES)
-            + f"; cli.train sequential BAYESIAN (2 trials) {dr['sequential']['wall_s']:.2f} s, RANDOM --trial-lanes 4 "
+            + f"; cli.train RANDOM --trial-lanes 4 "
               f"(8 trials) {dr['lanes']['wall_s']:.2f} s ({dr['lanes']['batches']} batches, "
               f"{dr['lanes']['batch_seconds']:.3f} s); killed and resumed {rs['killed_s']:.2f} + {rs['wall_s']:.2f} s "
               f"on {smi}")
@@ -7664,8 +7864,11 @@ def main() -> int:
             f"{a['auc']:.6f}); the kill-a-worker drill detected in {dr.get('detect_s', float('nan')):.2f} s, resumed "
             f"in {dr.get('resume_s', float('nan')):.2f} s with {dr.get('differing_bits')} differing bits; "
             f"cli.score --distributed {sc['wall_s']:.2f} s ({sc['bitwise_rows']} of {sc['rows']} rows bitwise); "
-            f"one NCCL rank {dist['nccl']['wall_s']:.2f} s with {dist['nccl']['differing_bits']} differing bits "
-            f"on {smi}")
+            f"one NCCL rank {dist['nccl']['wall_s']:.2f} s with {dist['nccl']['differing_bits']} differing bits; "
+            f"streamed over two ranks {dist['stream']['wall_s']:.2f} s (validation AUC {dist['stream']['auc']:.6f}, "
+            f"launches per rank {[{k: r[k] for k in ('fused_value_grad', 'fused_hessian_vector', 'rank_order_sum')} for r in dist['stream']['launches']]}), "
+            f"streamed on one NCCL rank {dist['stream_nccl']['wall_s']:.2f} s with "
+            f"{dist['stream_nccl']['differing_bits']} differing bits from phase 16 (e)'s on {smi}")
     if tiled:
         b, c, d = tiled["b"], tiled["c"], tiled.get("d") or {}
         log(f"tiled fixed effect on a 2 x 2 grid of gloo ranks sharing the card: the L-BFGS solve "

@@ -66,7 +66,11 @@ that coordinate when its device bytes exceed N MiB (the fixed effect's row
 slices, the random effect's entity slices, through the card), and
 ``--pipeline-depth 2`` overlaps staging, solve and validation across the
 sweep (``game/pipeline.py``); the report's streaming block reads their
-``photon_stream_*`` series.
+``photon_stream_*`` series. Both compose with ``--distributed``: each
+process streams its own rows and its own entity range under the budget
+(a process's own ``photon_stream_*`` series go to its ``metrics.p<i>.*``),
+each pass of the fixed effect is summed over the processes, and the
+validation runs on the main thread.
 
 Several processes: ``--distributed coordinator=HOST:PORT,process=I,n=P``
 (or ``auto`` under torchrun) joins P processes, one card each (the backend
@@ -103,6 +107,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import itertools
 import json
 import logging
@@ -718,6 +723,9 @@ def _run_training(args, device, run_t, sinks, t_run0, recorder) -> Dict:
             "metrics": None if best.evaluation is None else best.evaluation.metrics,
         },
     }
+    # every process's best model by its bits: the processes must agree
+    summary["best"]["model_sha256"] = model_digest(best.model)
+    logger.info("best model sha256 %s (process %d)", summary["best"]["model_sha256"], multihost.world_rank())
     if not multihost.is_coordinator():
         # only process 0 writes outputs (the reference's driver-to-HDFS
         # role); run_summary.json is one document a run
@@ -814,6 +822,25 @@ def _tuning_weights(hp: HyperparameterConfig, names: List[str], unit_vec) -> Dic
     """A candidate's unit vector -> {coordinate: native reg weight}."""
     native = hp.scale_up(unit_vec)
     return {n.removesuffix(".reg_weight"): float(v) for n, v in zip(names, native)}
+
+
+def model_digest(model) -> str:
+    """The sha256 of a GAME model's bits: each coordinate's name, then a
+    fixed effect's means and variances, or a random effect's entity ids,
+    support columns and values."""
+    h = hashlib.sha256()
+    for name in sorted(model.models):
+        m = model.models[name]
+        h.update(name.encode())
+        if hasattr(m, "coef_values"):
+            h.update("\0".join(map(str, m.entity_ids)).encode())
+            tensors = (m.coef_indices, m.coef_values)
+        else:
+            tensors = (m.model.coefficients.means, m.model.coefficients.variances)
+        for t in tensors:
+            if t is not None:
+                h.update(torch.as_tensor(t).detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
 
 
 def _run_tuning(args, estimator, raw, validation, coords, prior_results, ckpt=None, datasets_fn=None,

@@ -42,10 +42,14 @@ over the world, made on the first fit unless ``mesh`` is one already) a
 tiled fixed effect solves on every rank of the grid, and everything else
 runs over the grid's data axis: ``raw`` holds the rank's data row's rows
 (or, in one process, the whole batch), the random effects are built across
-the data axis, and the ranks of a data row hold the same models. Streaming,
-pipelining, ELL / COO fixed effects over processes, a non-tiled fixed
-effect under a model axis and trial lanes over processes are refused by
-the planner (ROADMAP A10; lanes as the JAX package refuses them).
+the data axis, and the ranks of a data row hold the same models. A
+coordinate with ``hbm_budget_mb`` streams over processes too: each rank
+its own rows of the fixed effect (dense or ELL) and its own entity range of
+the random effect, under the per-rank budget, and ``pipeline_depth`` > 1
+pipelines each rank's staging. The planner refuses a resident ELL / COO
+fixed effect over processes (in the JAX package's words), a non-tiled
+fixed effect under a model axis (ROADMAP A10) and trial lanes over
+processes (as the JAX package refuses them).
 """
 
 from __future__ import annotations

@@ -62,6 +62,11 @@ the card, ``game/fe_streaming.py``) and scores by streaming the same
 slices; the random effect solves entity slices of its host blocks one after
 another with the same solvers (``game/streaming.py``), its model a table in
 host memory, and scores by streaming that table. Neither takes trial lanes.
+Across processes each rank streams its own share: the fixed effect its
+true rows (each pass summed over the ranks in (rank, slice) order), the
+random effect its ``entity_shard_range`` (the results gathered in rank
+order, so every rank holds the whole table); both score the rank's rows
+and gather every rank's into the padded global row space.
 The streamed fixed effect refuses down-sampling (and, in
 ``run_streamed``, variances), as the JAX package does.
 """
@@ -148,7 +153,7 @@ class FixedEffectCoordinate(Coordinate):
 
     @property
     def group(self):
-        return None if self.dataset.streamed else self.dataset.batch.group
+        return self.dataset.group if self.dataset.streamed else self.dataset.batch.group
 
     def train(
         self,
@@ -199,9 +204,14 @@ class FixedEffectCoordinate(Coordinate):
         initial_model: Optional[FixedEffectModel] = None,
     ) -> Tuple[FixedEffectModel, SolverResult]:
         """The out-of-core solve: the host rows streamed through the card in
-        double-buffered row slices (``GLMProblem.run_streamed``)."""
+        double-buffered row slices (``GLMProblem.run_streamed``). Over a
+        group the objective gets the rank's block of the global residual,
+        trimmed of the padding rows, and each pass sums every rank's."""
         ds = self.dataset
         hb = ds.host_batch
+        if ds.group is not None and residual_scores is not None:
+            share = ds.n_rows // ds.group.world_size
+            residual_scores = local_rows(residual_scores, share, ds.group)[: hb.n_rows]
         if self.config.down_sampling_rate < 1.0:
             raise ValueError(
                 f"coordinate {self.coordinate_id}: down_sampling_rate < 1 is"
@@ -215,6 +225,7 @@ class FixedEffectCoordinate(Coordinate):
         glm, result = self._problem().run_streamed(
             hb, ds.hbm_budget_bytes, residual_scores=residual_scores,
             initial_model=initial_model.model if initial_model else None, device=ds.device, plain=self.plain,
+            group=ds.group,
         )
         return FixedEffectModel(model=glm, feature_shard=ds.feature_shard), result
 
@@ -226,7 +237,14 @@ class FixedEffectCoordinate(Coordinate):
             dtype = ds.host_batch.labels.dtype
             means = model.model.coefficients.means.to(device=ds.device, dtype=dtype)
             plain = self.plain or dtype == torch.float64
-            return score_streamed_fe(ds.host_batch, means, ds.hbm_budget_bytes, dtype, device=ds.device, plain=plain)
+            scores = score_streamed_fe(ds.host_batch, means, ds.hbm_budget_bytes, dtype, device=ds.device, plain=plain)
+            if ds.group is not None:
+                # the rank's rows padded to its share, then every rank's in
+                # rank order: the padded global row space
+                share = ds.n_rows // ds.group.world_size
+                scores = torch.cat([scores, scores.new_zeros(share - scores.shape[0])])
+                (scores,) = ds.group.gather_rows([scores])
+            return scores
         # compute in the dataset's dtype: a warm-start model in another dtype
         # must not change the dtype of the score stream
         batch = self.dataset.batch
@@ -463,39 +481,53 @@ class RandomEffectCoordinate(Coordinate):
     ) -> Tuple[RandomEffectModel, SolverResult]:
         """The out-of-core solve: host blocks streamed through the card in
         double-buffered entity slices (``game/streaming.py``); the model's
-        tables stay in host memory."""
+        tables stay in host memory. Built across processes
+        (``entity_shard_range``): the warm start and the priors are
+        projected in the global entity layout and cut to the rank's range,
+        the residual stays whole (the blocks index the padded global rows),
+        the rank solves its range and every rank's results are gathered in
+        rank order, so every rank holds the whole table."""
         from .streaming import solve_streamed
 
         ds = self.dataset
-        blocks = ds.blocks  # host tensors
+        blocks = ds.blocks  # host tensors: the rank's range when sharded
         E, K, S = blocks.features.shape
         dtype = blocks.labels.dtype  # the solve dtype (features may be narrower)
+        shard = ds.entity_shard_range
         if initial_model is not None:
             w0 = _project_model_values(ds, initial_model, initial_model.coef_values, dtype)
         else:
-            w0 = torch.zeros((E, S), dtype=dtype)
+            w0 = torch.zeros((ds.num_entities, S), dtype=dtype)
         prior_mean, prior_prec = self._prior(dtype)
-        segments = _size_buckets(ds) or [(0, E, K, S)]
+        if shard is not None:
+            lo, hi = shard
+            w0, prior_mean, prior_prec = w0[lo:hi], prior_mean[lo:hi], prior_prec[lo:hi]
+        segments = _size_buckets(ds, entity_range=shard) or [(0, E, K, S)]
         results = solve_streamed(
             blocks, segments, residual_scores, w0, prior_mean, prior_prec, ds.hbm_budget_bytes,
             _train_fn(), self._solver_kwargs(), device=ds.device,
         )
-        valid = blocks.proj_cols >= 0
+        coef_indices = blocks.proj_cols
+        if shard is not None:
+            results = _gather_results(results, ds.group)
+            coef_indices = torch.as_tensor(ds.host_proj_cols, dtype=torch.int32)
+        valid = coef_indices >= 0
         model = RandomEffectModel(
             random_effect_type=ds.random_effect_type,
             feature_shard=ds.feature_shard,
             task=self.task,
             entity_ids=ds.entity_ids,
-            coef_indices=blocks.proj_cols,
+            coef_indices=coef_indices,
             coef_values=torch.where(valid, results.coefficients, torch.zeros((), dtype=results.coefficients.dtype)),
         )
         object.__setattr__(model, "_support_layout_of", weakref.ref(ds))
         return model, results
 
     def _score_streamed(self, model: RandomEffectModel) -> Tensor:
-        """Scores of a streamed dataset's rows: the model's table, in this
-        dataset's layout and in host memory, streamed through the rows'
-        device (``streaming.score_streamed``, its cache on the dataset)."""
+        """Scores of the rows a streamed dataset's scoring arrays hold: the
+        model's table, in this dataset's whole layout and in host memory,
+        streamed through the rows' device (``streaming.score_streamed``, its
+        cache on the dataset)."""
         from .streaming import score_streamed
 
         ds = self.dataset
@@ -510,8 +542,9 @@ class RandomEffectCoordinate(Coordinate):
             vals = vals.to(sdt)
         else:
             vals = _project_model_values(ds, model, model.coef_values, sdt)
+        # the rows index global block rows: the whole layout
         scores, cache = score_streamed(
-            vals, ds.blocks.proj_cols, ds.row_entity, ds.ell_idx, ds.ell_val, ds.hbm_budget_bytes,
+            vals, _layout(ds), ds.row_entity, ds.ell_idx, ds.ell_val, ds.hbm_budget_bytes,
             getattr(ds, "_stream_xsub_cache", None), score_dtype=torch.promote_types(ds.ell_val.dtype, sdt),
         )
         object.__setattr__(ds, "_stream_xsub_cache", cache)
@@ -568,9 +601,7 @@ class RandomEffectCoordinate(Coordinate):
 
     def score(self, model: RandomEffectModel) -> Tensor:
         ds = self.dataset
-        if ds.streamed:
-            return self._score_streamed(model)
-        scores = self._score_rows(model)
+        scores = self._score_streamed(model) if ds.streamed else self._score_rows(model)
         if ds.local_rows:
             # built across processes: every rank's padded rows, in rank order
             (scores,) = ds.group.gather_rows([scores])
@@ -731,7 +762,8 @@ def _pow2_ceil(x: np.ndarray) -> np.ndarray:
     return np.int64(1) << np.frexp(v.astype(np.float64))[1].astype(np.int64)
 
 
-def _size_buckets(dataset: RandomEffectDataset, min_dim: int = 8, align: int = 1):
+def _size_buckets(dataset: RandomEffectDataset, min_dim: int = 8, align: int = 1,
+                  entity_range: Optional[Tuple[int, int]] = None):
     """Contiguous entity segments with power-of-2-rounded (K, S) block shapes.
 
     Returns [(start, end, K_b, S_b)] over all the dataset's entities, or
@@ -739,8 +771,11 @@ def _size_buckets(dataset: RandomEffectDataset, min_dim: int = 8, align: int = 1
     anything. ``align`` snaps segment bounds up to multiples of the ranks'
     entity chunk, so that no segment splits a rank's range (counts are
     non-increasing, so the merged head of the next run still fits the larger
-    preceding block shape). (The JAX package's ``entity_range`` serves
-    streamed blocks over several hosts, ROADMAP A10.)"""
+    preceding block shape). ``entity_range`` (a streamed dataset's
+    ``entity_shard_range``): the segments cut to ``[lo, hi)``, relative to
+    ``lo``, each keeping its whole-dataset shape, so that an entity solves
+    in the block shape it has in one process. (The JAX package buckets the
+    range's own entities instead.)"""
     counts = dataset.entity_counts
     svec = dataset.entity_subspace_dims
     if counts is None or svec is None or len(counts) == 0:
@@ -766,6 +801,9 @@ def _size_buckets(dataset: RandomEffectDataset, min_dim: int = 8, align: int = 1
     ]
     if len(segments) == 1 and segments[0][2] >= K and segments[0][3] >= S:
         return None
+    if entity_range is not None:
+        lo, hi = entity_range
+        segments = [(max(s, lo) - lo, min(e, hi) - lo, kb, sb) for s, e, kb, sb in segments if s < hi and e > lo]
     return segments
 
 

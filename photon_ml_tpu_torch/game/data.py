@@ -39,9 +39,17 @@ of ``game/fe_streaming.py`` copy to the card asynchronously), and the random
 effect keeps its entity blocks in host memory (``game/streaming.py``
 stages entity slices). ``build_fixed_effect_dataset_from_disk`` decodes
 part files straight into preallocated host planes through the pooled
-readers of ``io/data.py``, never materializing a ``RawDataset``. Streamed
-datasets over processes or a mesh are ROADMAP A10: their fields and
-arguments raise when set.
+readers of ``io/data.py``, never materializing a ``RawDataset``.
+
+Streamed across processes (the JAX package's "streamed under a mesh"): each
+rank keeps only its own rows and its own entity range in host memory and
+stages them through its card. A streamed fixed effect over a ``group``
+holds the rank's true rows (dense, or ELL at the width of the rank's own
+rows: per-rank ELL widths stay private) and counts the padded global rows
+in ``true_n_rows``; a streamed random effect built across processes
+(``game/data_mp.py``) holds the blocks of its ``entity_shard_range`` and
+the scoring arrays of the rank's padded rows. The port's datasets carry
+their ``group`` where the JAX package's carry a mesh.
 """
 
 from __future__ import annotations
@@ -58,8 +66,8 @@ from ..ops.features import LabeledBatch
 
 Tensor = torch.Tensor
 
-_MULTI_TODO = (
-    "streamed datasets over a mesh or several processes are not ported yet (ROADMAP A10)"
+_MESH_FIELD = (
+    "the port's datasets are sharded by their data-parallel group (group=...), not by a mesh"
 )
 
 
@@ -163,7 +171,9 @@ class FixedEffectDataset:
     ``true_dim`` / ``true_n_rows`` are the unpadded shard dimension and
     sample count; they default to the batch's. A row-sharded batch
     (``batch.group`` set) holds one rank's padded rows, so ``true_n_rows``
-    is then required: the global row count."""
+    is then required: the global row count. A streamed dataset over a
+    ``group`` holds the rank's true rows in ``host_batch`` and the padded
+    global row count in ``true_n_rows``."""
 
     coordinate_id: str
     feature_shard: str
@@ -176,16 +186,22 @@ class FixedEffectDataset:
     mesh: Optional[object] = None
     # the device of a streamed dataset's resident planes and slices
     device: Optional[torch.device] = None
+    # streamed across processes: the rank's DataParallelGroup
+    group: Optional[object] = None
 
     def __post_init__(self):
         if self.mesh is not None:
-            raise NotImplementedError(_MULTI_TODO)
+            raise ValueError(_MESH_FIELD)
         if self.streamed:
             if self.batch is not None or self.host_batch is None or self.hbm_budget_bytes is None:
                 raise ValueError("a streamed FixedEffectDataset holds host_batch and hbm_budget_bytes, no batch")
             if self.device is None:
                 raise ValueError("a streamed FixedEffectDataset needs the device its slices stream to")
+            if self.group is not None and self.true_n_rows is None:
+                raise ValueError("a streamed dataset over a group needs true_n_rows, the padded global row count")
             return
+        if self.group is not None:
+            raise ValueError("a resident FixedEffectDataset's group is its batch's")
         if self.host_batch is not None:
             raise ValueError("a resident FixedEffectDataset holds no host_batch")
         if self.batch is None:
@@ -252,6 +268,7 @@ class RandomEffectDataset:
     host_proj_cols: Optional[np.ndarray] = None
     streamed: bool = False
     hbm_budget_bytes: Optional[int] = None
+    # streamed across processes: the [lo, hi) block rows ``blocks`` hold
     entity_shard_range: Optional[Tuple[int, int]] = None
     mesh: Optional[object] = None
     # entity-sharded over a data-parallel group: ``blocks`` hold this rank's
@@ -264,14 +281,20 @@ class RandomEffectDataset:
 
     def __post_init__(self):
         if self.streamed:
-            if self.hbm_budget_bytes is None or self.group is not None:
-                raise ValueError("a streamed RandomEffectDataset needs hbm_budget_bytes and no group")
+            if self.hbm_budget_bytes is None:
+                raise ValueError("a streamed RandomEffectDataset needs hbm_budget_bytes")
             if self.blocks.features.device.type != "cpu":
                 raise ValueError("a streamed RandomEffectDataset keeps its blocks in host memory")
+            if (self.group is None) != (self.entity_shard_range is None):
+                raise ValueError(
+                    "a streamed RandomEffectDataset over a group holds the blocks of its entity_shard_range"
+                )
         elif self.hbm_budget_bytes is not None:
             raise ValueError("hbm_budget_bytes is set on streamed datasets only")
-        if self.entity_shard_range is not None or self.mesh is not None:
-            raise NotImplementedError(_MULTI_TODO)
+        elif self.entity_shard_range is not None:
+            raise ValueError("entity_shard_range is set on streamed datasets over a group only")
+        if self.mesh is not None:
+            raise ValueError(_MESH_FIELD)
         if (self.host_proj_cols is None) != (self.group is None):
             raise ValueError(
                 "an entity-sharded dataset carries both its group and host_proj_cols "
@@ -442,8 +465,10 @@ def build_fixed_effect_dataset(
     this rank's rows, padded to the share every rank holds
     (``RawDataset.pad_rows(equal_host_share(N))``), and the dataset is the
     rank's dense row shard of the padded global row space
-    (``parallel.mesh.local_batch``); its sweeps sum across the ranks. An
-    ELL or COO layout or a budget over processes is ROADMAP A10.
+    (``parallel.mesh.local_batch``); its sweeps sum across the ranks. A
+    resident ELL or COO layout over processes is refused in the JAX
+    package's words; with a budget the rank streams its own true rows
+    (below).
 
     ``mesh`` (a ``parallel.mesh.MeshGroup``) with ``layout="tiled"``: the
     rank's tile of the (data x model)-tiled batch (``RawDataset.to_batch``;
@@ -457,7 +482,10 @@ def build_fixed_effect_dataset(
     built streamed: the rows stay in a :class:`HostRowBatch` (dense, or ELL
     with the global row-nnz width; page-locked for a card) and training and
     scoring stream row slices through ``device``. Only the row-sliceable
-    layouts (auto, dense, ell) take a budget."""
+    layouts (auto, dense, ell) take a budget. Over a ``group`` the estimate
+    is the rank's share (every rank streams when the largest share does
+    not fit) and the host batch holds the rank's true rows, ELL at the
+    width of its own rows; ``true_n_rows`` is the padded global count."""
     dev = resolve_device(device)
     d = raw.shard_dims[feature_shard]
     if layout == "tiled":
@@ -491,55 +519,44 @@ def build_fixed_effect_dataset(
         if mesh.world is not None:
             group = mesh.data
     if group is not None:
+        from ..parallel import multihost
         from ..parallel.mesh import local_batch
-        from ..plan.planner import A10, not_ported
+        from ..plan.planner import MULTI_ELL_REFUSAL, SHARD_COO_REFUSAL, PlanError
 
-        if hbm_budget_bytes is not None:
-            raise not_ported(f"coordinate {coordinate_id}: hbm_budget_mb over several processes", A10)
         eff_layout = ("dense" if d <= 4096 else "ell") if layout == "auto" else layout
-        if eff_layout != "dense":
-            raise not_ported(
-                f"coordinate {coordinate_id}: a sparse fixed effect (d = {d}, layout={layout!r}) over several "
-                "processes", A10,
-            )
-        batch = raw.to_batch(feature_shard, dtype=dtype, layout="dense", feature_dtype=feature_dtype, device=dev)
         n_global = raw.n_rows * group.world_size
+        if hbm_budget_bytes is not None:
+            eff_layout = _row_sliceable_layout(coordinate_id, layout, d, "hbm_budget_mb on a fixed effect")
+            est, width = _resident_estimate(raw, feature_shard, eff_layout, feature_dtype or dtype, dtype)
+            # every rank decides alike: the largest share's estimate (ELL
+            # widths differ from rank to rank)
+            if max(multihost.allgather_object(est)) > hbm_budget_bytes:
+                n_true = raw.true_rows if raw.true_rows is not None else raw.n_rows
+                host = _host_row_batch(raw, feature_shard, n_true, eff_layout, width, dtype, feature_dtype or dtype,
+                                       pinned=dev.type == "cuda")
+                return FixedEffectDataset(
+                    coordinate_id=coordinate_id, feature_shard=feature_shard, batch=None, true_dim=d,
+                    true_n_rows=n_global, host_batch=host, streamed=True, hbm_budget_bytes=int(hbm_budget_bytes),
+                    device=dev, group=group,
+                )
+        if eff_layout in ("coo", "sparse"):
+            raise PlanError(SHARD_COO_REFUSAL)
+        if eff_layout != "dense":
+            raise PlanError(MULTI_ELL_REFUSAL)
+        batch = raw.to_batch(feature_shard, dtype=dtype, layout="dense", feature_dtype=feature_dtype, device=dev)
         return FixedEffectDataset(
             coordinate_id=coordinate_id, feature_shard=feature_shard, true_dim=d, true_n_rows=n_global,
             batch=local_batch(batch, n_global, group),
         )
     if hbm_budget_bytes is not None:
-        from .fe_streaming import estimate_fe_batch_bytes
-
         eff_layout = _row_sliceable_layout(coordinate_id, layout, d, "hbm_budget_mb on a fixed effect")
-        fdt = feature_dtype or dtype
-        rows, cols, vals = raw.shard_coo[feature_shard]
-        n = raw.n_rows
-        width = 0
-        if eff_layout == "ell":
-            counts = np.bincount(rows, minlength=n) if n else np.zeros(0, np.int64)
-            width = max(int(counts.max()) if n else 1, 1)
-        est = estimate_fe_batch_bytes(
-            n, d, eff_layout, ell_width=width, feature_itemsize=_itemsize(fdt),
-            scalar_itemsize=_itemsize(dtype),
-        )
+        est, width = _resident_estimate(raw, feature_shard, eff_layout, feature_dtype or dtype, dtype)
         if est > hbm_budget_bytes:
-            pinned = dev.type == "cuda"
-            planes = dict(
-                labels=_host_plane(raw.labels, dtype, False),
-                offsets=_host_plane(raw.offsets, dtype, False),
-                weights=_host_plane(raw.weights, dtype, False),
-            )
-            if eff_layout == "dense":
-                host = HostRowBatch(dim=d, dense=_host_plane(_dense_rows(rows, cols, vals, n, d), fdt, pinned),
-                                    **planes)
-            else:
-                ell_idx, ell_val = _rows_to_ell(rows, cols, vals, n, width=width)
-                host = HostRowBatch(dim=d, ell_idx=_host_plane(ell_idx, torch.int32, pinned),
-                                    ell_val=_host_plane(ell_val, fdt, pinned), **planes)
+            host = _host_row_batch(raw, feature_shard, raw.n_rows, eff_layout, width, dtype, feature_dtype or dtype,
+                                   pinned=dev.type == "cuda")
             return FixedEffectDataset(
                 coordinate_id=coordinate_id, feature_shard=feature_shard, batch=None, true_dim=d,
-                true_n_rows=n, host_batch=host, streamed=True, hbm_budget_bytes=int(hbm_budget_bytes),
+                true_n_rows=raw.n_rows, host_batch=host, streamed=True, hbm_budget_bytes=int(hbm_budget_bytes),
                 device=dev,
             )
     return FixedEffectDataset(
@@ -551,6 +568,46 @@ def build_fixed_effect_dataset(
         true_dim=d,
         true_n_rows=raw.n_rows,
     )
+
+
+def _resident_estimate(raw: RawDataset, feature_shard: str, eff_layout: str, fdt, dtype) -> Tuple[int, int]:
+    """(device bytes of ``raw``'s rows as a resident batch of
+    ``eff_layout``, the ELL width: the rows' max nnz, 0 for dense)."""
+    from .fe_streaming import estimate_fe_batch_bytes
+
+    n = raw.n_rows
+    width = 0
+    if eff_layout == "ell":
+        rows = raw.shard_coo[feature_shard][0]
+        counts = np.bincount(rows, minlength=n) if n else np.zeros(0, np.int64)
+        width = max(int(counts.max()) if n else 1, 1)
+    est = estimate_fe_batch_bytes(
+        n, raw.shard_dims[feature_shard], eff_layout, ell_width=width, feature_itemsize=_itemsize(fdt),
+        scalar_itemsize=_itemsize(dtype),
+    )
+    return est, width
+
+
+def _host_row_batch(raw: RawDataset, feature_shard: str, n: int, eff_layout: str, width: int, dtype, fdt,
+                    pinned: bool) -> "HostRowBatch":
+    """The first ``n`` rows of ``raw`` as host planes: dense, or ELL of
+    ``width`` entries a row; the feature planes page-locked when
+    ``pinned``."""
+    rows, cols, vals = raw.shard_coo[feature_shard]
+    d = raw.shard_dims[feature_shard]
+    if n < raw.n_rows:
+        keep = rows < n
+        rows, cols, vals = rows[keep], cols[keep], vals[keep]
+    planes = dict(
+        labels=_host_plane(raw.labels[:n], dtype, False),
+        offsets=_host_plane(raw.offsets[:n], dtype, False),
+        weights=_host_plane(raw.weights[:n], dtype, False),
+    )
+    if eff_layout == "dense":
+        return HostRowBatch(dim=d, dense=_host_plane(_dense_rows(rows, cols, vals, n, d), fdt, pinned), **planes)
+    ell_idx, ell_val = _rows_to_ell(rows, cols, vals, n, width=width)
+    return HostRowBatch(dim=d, ell_idx=_host_plane(ell_idx, torch.int32, pinned),
+                        ell_val=_host_plane(ell_val, fdt, pinned), **planes)
 
 
 def _itemsize(dtype: torch.dtype) -> int:
@@ -675,6 +732,21 @@ def build_fixed_effect_dataset_from_disk(
         host_batch=host, streamed=True, hbm_budget_bytes=int(hbm_budget_bytes), device=dev,
     )
     return dataset, dict(index_maps)
+
+
+def _entity_blocks(feats, labels, offsets, weights, proj_cols, active_rows, dtype, fdt, device: torch.device,
+                  host: bool) -> EntityBlocks:
+    """Host numpy block arrays as :class:`EntityBlocks` on ``device`` (the
+    features in ``fdt``, the row planes in ``dtype``), or with ``host`` in
+    host memory, page-locked for a card (a streamed dataset's)."""
+    if host:
+        put = lambda a, t: _host_plane(a, t, device.type == "cuda")  # noqa: E731
+    else:
+        put = lambda a, t: _to_device(a, t, device)  # noqa: E731
+    return EntityBlocks(
+        features=put(feats, fdt), labels=put(labels, dtype), offsets=put(offsets, dtype), weights=put(weights, dtype),
+        proj_cols=put(proj_cols, torch.int32), active_rows=put(active_rows, torch.int32),
+    )
 
 
 def _to_device(a: np.ndarray, dtype: torch.dtype, device: torch.device) -> Tensor:
@@ -817,25 +889,8 @@ def build_random_effect_dataset(
         from .streaming import estimate_block_bytes
 
         streamed = estimate_block_bytes(*feats.shape, feature_itemsize=_itemsize(fdt)) > hbm_budget_bytes
-    if streamed:
-        pinned = dev.type == "cuda"
-        blocks = EntityBlocks(
-            features=_host_plane(feats, fdt, pinned),
-            labels=_host_plane(labels_b, dtype, pinned),
-            offsets=_host_plane(offsets_b, dtype, pinned),
-            weights=_host_plane(weights_b, dtype, pinned),
-            proj_cols=_host_plane(proj_cols_np, torch.int32, pinned),
-            active_rows=_host_plane(active_rows_np, torch.int32, pinned),
-        )
-    else:
-        blocks = EntityBlocks(
-            features=_to_device(feats, fdt, dev),
-            labels=_to_device(labels_b, dtype, dev),
-            offsets=_to_device(offsets_b, dtype, dev),
-            weights=_to_device(weights_b, dtype, dev),
-            proj_cols=_to_device(proj_cols_np, torch.int32, dev),
-            active_rows=_to_device(active_rows_np, torch.int32, dev),
-        )
+    blocks = _entity_blocks(feats, labels_b, offsets_b, weights_b, proj_cols_np, active_rows_np, dtype, fdt, dev,
+                           host=streamed)
     del feats
 
     row_entity = np.where(entity_of_row >= 0, entity_of_row, -1).astype(np.int32)

@@ -31,7 +31,8 @@ padded to the share every rank holds), so the build runs in four steps:
    rows projected onto its feature subspace; Pearson selection in float64
    on the 1e-12 grid. The subspace width S is the maximum over every
    rank's entities (gathered), so that every rank's blocks have one shape.
-4. **Assembly**: the rank's blocks on its device, the whole support layout
+4. **Assembly**: the rank's blocks on its device (in host memory when
+   streamed under a budget), the whole support layout
    (``host_proj_cols``), entity counts and subspace dims on every rank; the
    scoring arrays (``row_entity``, ``ell_idx``, ``ell_val``) over the rank's
    own padded rows (``local_rows``: scores gather every rank's).
@@ -65,10 +66,11 @@ from ..io.data import RawDataset
 from ..parallel import multihost
 from ..parallel.mesh import entity_range
 from .data import (
-    EntityBlocks,
     RandomEffectDataset,
+    _entity_blocks,
     _entity_plan,
     _hash64,
+    _itemsize,
     _pearson_keep_mask,
     _rows_to_ell,
     _to_device,
@@ -104,11 +106,14 @@ def build_random_effect_dataset_global(
     entity count pads to a multiple of both ``pad_entities_to_multiple`` and
     the world size, and the rank keeps its ``entity_range`` of the blocks on
     ``device``. The other arguments are ``build_random_effect_dataset``'s.
-    A budget (``hbm_budget_bytes``) over processes is ROADMAP A10."""
-    from ..plan.planner import A10, not_ported
 
-    if hbm_budget_bytes is not None:
-        raise not_ported(f"coordinate {coordinate_id}: hbm_budget_mb over several processes", A10)
+    ``hbm_budget_bytes``: when the blocks of a rank's share of the entities
+    (``ceil(E / world)`` of them, ``streaming.estimate_block_bytes``, the
+    JAX package's per-host estimate) exceed it, the dataset is built
+    streamed: the rank's blocks stay in host memory (page-locked for a
+    card) with ``entity_shard_range = (lo, hi)``, and training and scoring
+    stream them (``game/streaming.py``). Every rank decides alike: E, K and
+    S are the plan's."""
     world, rank = group.world_size, group.rank
     if world > 1 and raw.global_row_start is None:
         raise ValueError(
@@ -237,14 +242,13 @@ def build_random_effect_dataset_global(
     passive_rows = np.sort(np.concatenate([w[3] for w in whole]))
 
     fdt = feature_dtype or dtype
-    blocks = EntityBlocks(
-        features=_to_device(feats, fdt, dev),
-        labels=_to_device(labels_b, dtype, dev),
-        offsets=_to_device(offsets_b, dtype, dev),
-        weights=_to_device(weights_b, dtype, dev),
-        proj_cols=_to_device(proj_cols_np, torch.int32, dev),
-        active_rows=_to_device(active_rows_np, torch.int32, dev),
-    )
+    streamed = False
+    if hbm_budget_bytes is not None:
+        from .streaming import estimate_block_bytes
+
+        streamed = estimate_block_bytes(-(-E // world), K, S, feature_itemsize=_itemsize(fdt)) > hbm_budget_bytes
+    blocks = _entity_blocks(feats, labels_b, offsets_b, weights_b, proj_cols_np, active_rows_np, dtype, fdt, dev,
+                           host=streamed)
     del feats
     row_entity = np.full(n_local, -1, dtype=np.int32)
     row_entity[:true_local] = local_block
@@ -279,6 +283,9 @@ def build_random_effect_dataset_global(
         entity_counts=entity_counts,
         entity_subspace_dims=entity_subspace_dims,
         host_proj_cols=host_proj_cols,
+        streamed=streamed,
+        hbm_budget_bytes=int(hbm_budget_bytes) if streamed else None,
+        entity_shard_range=(lo, hi) if streamed else None,
         group=group,
         local_rows=True,
     )

@@ -46,6 +46,18 @@ uses at most two). The optimizer is the port's host loop
 (``optimize.optimize``), its O(d) vectors on the device; each value+grad or
 Hessian-vector product is one pass.
 
+Across processes (``group``, a ``parallel.mesh.DataParallelGroup`` of more
+than one rank) each rank streams its own rows, and a pass's slot rows are
+every rank's: the rank writes its ``[n_slots, width]`` block of a
+``[world * n_slots, width]`` float64 buffer, one ``gather_slots`` fills the
+other ranks' blocks, and one ``rank_order_sum`` adds all the rows in (rank,
+slice) order and casts once, so every rank holds the same bits and a pass
+launches one sum, as in one process. ``n_slots`` is the largest slice count
+of any rank (the ranks' row counts and ELL widths differ); a rank's rows
+past its own slices stay zero, which adds nothing. (The JAX package sums
+the per-host totals on the host in process order.) With one rank the pass
+is the one-process pass.
+
 At pipeline depth >= 2 (``game/pipeline.py``) staging moves to a background
 thread (``utils.futures.PrefetchQueue``) under the same byte budget, with
 the same copy stream and events, cycling over the slices so that the next
@@ -290,7 +302,9 @@ class StreamedFEObjective:
     ``value_and_grad(w)`` / ``hessian_vector(w, v)`` take coefficients on
     the device (or host arrays) and return device tensors, each call one
     full streamed pass over the batch. ``plain=True`` runs the plain
-    versions of the kernels on the card, a reference pass."""
+    versions of the kernels on the card, a reference pass. Over a ``group``
+    ``host_batch`` holds this rank's rows and ``residual_scores`` their
+    residual, and each pass sums every rank's (module docstring)."""
 
     def __init__(
         self,
@@ -305,6 +319,7 @@ class StreamedFEObjective:
         pipeline_depth: Optional[int] = None,  # None -> pipeline.active_depth()
         device: DeviceLike = None,
         plain: bool = False,
+        group=None,  # parallel.mesh.DataParallelGroup: this rank's rows of a pass over every rank's
     ):
         dev = resolve_device(device)
         self.device = dev
@@ -339,10 +354,17 @@ class StreamedFEObjective:
             (dl[k * step : (k + 1) * step], do[k * step : (k + 1) * step], dw[k * step : (k + 1) * step])
             for k in range(self.n_slices)
         ]
-        self._slots = {
-            VG: slice_slots(self.n_slices, VG, self.dim, dev),
-            HV: slice_slots(self.n_slices, HV, self.dim, dev),
-        }
+        self.group = group if group is not None and group.world_size > 1 else None
+        if self.group is None:
+            self._slots = {mode: slice_slots(self.n_slices, mode, self.dim, dev) for mode in (VG, HV)}
+        else:
+            # every rank's slot rows in one buffer, this rank's block of it
+            # written by its slices: (rank, slice) order
+            world, rank = self.group.world_size, self.group.rank
+            (counts,) = self.group.gather_rows([torch.tensor([self.n_slices], dtype=torch.float64)])
+            n_slots = int(counts.max())
+            self._rank_slots = {mode: slice_slots(world * n_slots, mode, self.dim, dev) for mode in (VG, HV)}
+            self._slots = {mode: buf[rank * n_slots : (rank + 1) * n_slots] for mode, buf in self._rank_slots.items()}
         self.stats = {
             "vg_passes": 0,
             "hvp_passes": 0,
@@ -419,7 +441,8 @@ class StreamedFEObjective:
 
     def _pass(self, kind: str, mode: int, partials) -> tuple:
         """One pass: each slice's sweep writes its slot row, then the rows
-        are added in slice order. Inline, slice k+1's copy is issued before
+        are added in slice order (over a group: every rank's rows, in
+        (rank, slice) order). Inline, slice k+1's copy is issued before
         slice k's kernel; from the background stager slice k+1 is taken
         after slice k's kernel is queued, which releases the buffer of
         slice k-1 to the stager only once its reader is queued."""
@@ -436,6 +459,10 @@ class StreamedFEObjective:
                 partials(LabeledBatch(staged.features, labels, offsets, weights), slots, k)
                 self._stager.after_use(staged)
                 staged = self._acquire(k + 1) if more and background else nxt
+            if self.group is not None:
+                full = self._rank_slots[mode]
+                self.group.gather_slots(full.view(self.group.world_size, -1))
+                slots = full
             totals = slices_total(slots, mode, self.dim, self.sdt)
         self._intervals["pass"].append((pp.start_perf, pp.start_perf + pp.duration_s))
         with obs.span("fe_stream.collect", phase="collect", kind=kind) as cp:

@@ -271,6 +271,7 @@ class GLMProblem:
         initial_model: Optional[GeneralizedLinearModel] = None,
         device=None,
         plain: bool = False,
+        group=None,
     ) -> Tuple[GeneralizedLinearModel, SolverResult]:
         """Train out of core: row slices of the host batch stream through
         ``device`` double-buffered (``game/fe_streaming.py``) while the
@@ -278,7 +279,11 @@ class GLMProblem:
         The normalization, warm start and prior as in ``run``; variances are
         refused (a streamed pass never forms the Hessian). The route counts
         in ``OBJECTIVE_ROUTES`` once per solve, as ``run``'s does;
-        ``plain=True`` runs the plain versions on the card."""
+        ``plain=True`` runs the plain versions on the card. ``group`` (a
+        ``parallel.mesh.DataParallelGroup``): ``host_batch`` and
+        ``residual_scores`` are this rank's rows and each pass sums every
+        rank's, so the solver's loop, unchanged, sees the same numbers on
+        every rank."""
         from .. import obs
         from .fe_streaming import StreamedFEObjective
 
@@ -317,7 +322,7 @@ class GLMProblem:
             get_loss(self.task), host_batch, budget_bytes, norm=norm,
             l2_weight=self.config.regularization.l2_weight(self.config.reg_weight),
             prior_mean=prior_mean, prior_precision=prior_precision,
-            residual_scores=residual_scores, device=dev, plain=plain,
+            residual_scores=residual_scores, device=dev, plain=plain, group=group,
         )
         OBJECTIVE_ROUTES[obj.route] += 1
         try:

@@ -17,15 +17,19 @@ the lane path and the retrain chain do not compose with, and
 ``_check_coordinate`` what the streamed fixed effect does not, in the JAX
 package's words). Several processes (``n_processes`` > 1, ``--distributed``)
 resolve with no mesh or with a (data x model) grid of the world size (one
-card a rank: the JAX mesh's counterpart), every coordinate resident; a
-fixed effect is dense, or ``layout='tiled'`` (the (data x model)-tiled
-sparse batch, which needs a mesh, in the JAX package's words, and takes no
-``feature_dtype``). For the compositions it has not ported, it refuses with
-a ``PlanError`` that names its ROADMAP item (A10): a grid other than the
-process count, a dense or other non-tiled fixed effect under a model axis
-(the dense feature-axis shard), a resident ELL or COO fixed effect over
-processes, and streaming (``hbm_budget_mb``) or pipelining
-(``pipeline_depth`` > 1) with processes or a mesh.
+card a rank: the JAX mesh's counterpart); a fixed effect is dense, or
+``layout='tiled'`` (the (data x model)-tiled sparse batch, which needs a
+mesh, in the JAX package's words, and takes no ``feature_dtype``). Over
+processes a coordinate streams as well (each rank streams its own rows, or
+its own entity range, under the per-rank budget: the JAX package's
+"host-sharded rows (streamed slices)" and "entity-sharded (host-resident
+blocks)"), a streamed fixed effect dense or ELL, and the sweep pipelines
+(also on the tiled grid). What the JAX package refuses stays refused in its
+words: a resident ELL or COO fixed effect over processes, and a budget on a
+fixed effect that is not row-sliceable. What the port has not ported is
+refused with a ``PlanError`` that names its ROADMAP item (A10): a grid other
+than the process count, and a dense or other non-tiled fixed effect under a
+model axis (the dense feature-axis shard).
 ``plan_fingerprint`` and ``check_checkpoint_topology`` are the JAX package's,
 so a checkpoint's manifest speaks the same topology contract.
 
@@ -233,7 +237,13 @@ def check_multiprocess_mesh(n_processes: int, mesh) -> None:
 
 
 def _sharding(cc, axes, multi: bool) -> str:
-    """The JAX package's sharding label of a resident coordinate."""
+    """The JAX package's sharding label of a coordinate: a streamed one
+    spread over processes or a mesh streams each rank's own share."""
+    spread = multi or axes is not None
+    if cc.hbm_budget_mb is not None and spread:
+        if cc.is_random_effect:
+            return "entity-sharded (host-resident blocks)"
+        return "host-sharded rows (streamed slices)"
     if cc.is_random_effect:
         return "entity-sharded" if multi else "single-device"
     if cc.layout == "tiled" or (axes is not None and axes[MODEL_AXIS] > 1):
@@ -241,15 +251,34 @@ def _sharding(cc, axes, multi: bool) -> str:
     return "row-sharded" if multi else "single-device"
 
 
-def _check_multiprocess_coordinate(cc) -> None:
-    """A coordinate over several processes: the fixed effect dense or
-    tiled (the JAX package refuses a resident ELL across processes too: its
-    width is the local rows' max nnz, so the ranks' shapes would disagree)."""
-    if not cc.is_random_effect and cc.layout not in ("auto", "dense", "tiled"):
-        raise not_ported(
-            f"coordinate {cc.name}: layout={cc.layout!r} over several processes (a row-sharded sparse fixed "
-            "effect; use a dense layout, d <= 4096)", A10,
-        )
+# the JAX package's refusals of a resident sparse fixed effect over several
+# processes or a mesh (its parallel.mesh.shard_batch's, raised at plan time)
+MULTI_ELL_REFUSAL = (
+    "multi-process ELL sharding is not supported: the ELL width "
+    "is the max nnz of the LOCAL rows, so per-host shapes (and "
+    "the compiled programs) would disagree; use a dense layout "
+    "(d <= 4096) for multi-process runs"
+)
+SHARD_COO_REFUSAL = (
+    "shard_batch does not support the column-sorted COO layout (its "
+    "nnz axis is column-major, not row-partitionable); for a "
+    "mesh-sharded huge-d batch build layout='tiled' "
+    "(parallel.sparse.tiled_sparse_batch)"
+)
+
+
+def _check_multiprocess_coordinate(cc, axes, multi: bool) -> None:
+    """A resident sparse fixed effect over several processes or a mesh, in
+    the JAX package's words: a COO batch is not row-partitionable, and a
+    resident ELL batch's width is its local rows' max nnz, so the ranks'
+    shapes would disagree (a streamed ELL never crosses a rank: its width
+    is the rank's own)."""
+    if cc.is_random_effect or cc.hbm_budget_mb is not None:
+        return
+    if cc.layout in ("coo", "sparse") and (multi or axes is not None):
+        raise PlanError(SHARD_COO_REFUSAL)
+    if cc.layout == "ell" and multi:
+        raise PlanError(MULTI_ELL_REFUSAL)
 
 
 def check_lane_composition(
@@ -489,13 +518,6 @@ def resolve(
     if pipeline_depth < 1:
         raise PlanError(f"pipeline depth must be >= 1: {pipeline_depth}")
     multi = distributed or n_processes > 1
-    if pipeline_depth > 1 and multi:
-        raise not_ported("sweep pipelining (pipeline_depth > 1) with multi-process training", A10)
-    streamed = [cc.name for cc in coordinate_configs if cc.hbm_budget_mb is not None]
-    if streamed and (multi or _mesh_axes(mesh) is not None):
-        raise not_ported(
-            f"hbm_budget_mb streaming of {streamed} under a device mesh or multi-process training", A10
-        )
     check_multiprocess_mesh(n_processes, mesh)
     if trial_lanes > 1:
         check_lane_composition(
@@ -509,8 +531,7 @@ def resolve(
     axes = _mesh_axes(mesh)
     for cc in coordinate_configs:
         _check_coordinate(cc, axes)
-        if multi:
-            _check_multiprocess_coordinate(cc)
+        _check_multiprocess_coordinate(cc, axes, multi)
         geometry: Dict[str, object] = {}
         dim = (dims or {}).get(cc.feature_shard)
         if dim is not None:
@@ -523,6 +544,9 @@ def resolve(
                 # the rank's tile: its data row's rows, its model slice's columns
                 geometry["tile_columns"] = -(-int(dim) // axes[MODEL_AXIS])
                 geometry["dim_padded"] = geometry["tile_columns"] * axes[MODEL_AXIS]
+        if cc.is_random_effect and (axes is not None or multi):
+            # the JAX package's: the data axis, here the process count
+            geometry["entity_shards"] = axes[DATA_AXIS] if axes is not None else int(n_processes)
         notes: Tuple[str, ...] = ()
         if cc.hbm_budget_mb is not None:
             budget = int(cc.hbm_budget_mb) * (1 << 20)
@@ -531,7 +555,16 @@ def resolve(
                 row_bytes = int(dim) * (2 if dtype_name(cc.feature_dtype) == "bfloat16" else 4)
                 geometry["rows_per_slice"] = _rows_per_slice(budget, row_bytes)
                 geometry["slice_row_bytes"] = row_bytes
-            notes = ("streams only when the build estimate exceeds the budget; a batch that fits stays resident",)
+            # the JAX package's: a fixed effect's with its slice geometry
+            if n_processes > 1 and (cc.is_random_effect or dim is not None):
+                geometry["hosts_streaming"] = int(n_processes)
+            if multi or axes is not None:
+                notes += (
+                    "streamed under a mesh: each host streams its own shard "
+                    "(FE: local row slices; RE: local entity blocks) under the "
+                    "per-host budget",
+                )
+            notes += ("streams only when the build estimate exceeds the budget; a batch that fits stays resident",)
         plans.append(
             CoordinatePlan(
                 name=cc.name,

@@ -1601,6 +1601,62 @@ def test_distributed_cli_train_over_ranks_on_card_matches_one_card(cuda, tmp_pat
     torch.testing.assert_close(da, db, rtol=0, atol=5e-3)
 
 
+def _streamed_fields(n=40001, d=128, seed=13):
+    """n rows of d features, 4-12 entries a row (the second half's rows
+    carry more, so the ranks' ELL widths differ), as RawDataset fields."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    nnz = np.where(np.arange(n) < (n + 1) // 2, rng.integers(4, 8, n), rng.integers(8, 13, n))
+    rows = np.repeat(np.arange(n), nnz)
+    cols = np.concatenate([np.sort(rng.choice(d, k, replace=False)) for k in nnz])
+    return dict(
+        n_rows=n, labels=(rng.uniform(size=n) < 0.5).astype(np.float64), offsets=0.1 * rng.normal(size=n),
+        weights=rng.uniform(0.5, 2.0, n), shard_coo={"g": (rows, cols, rng.normal(size=len(rows)))},
+        shard_dims={"g": d}, id_tags={},
+    )
+
+
+def test_streamed_objective_over_ranks_on_card(cuda, tmp_path):
+    """The streamed fixed effect over two gloo ranks sharing the card, dense
+    and ELL, float32: each rank streams its own rows (B1 / B2 into its slot
+    rows, S1 on ELL slices) and each pass adds both ranks' slot rows by one
+    rank-order sum; the ranks bitwise alike; value, gradient and Hv against
+    the same two ranks' float64 pass on the CPU at the kernels' bounds
+    (value rtol 2e-6; gradient and Hv max-abs <= 3e-5 * max(|ref|, 1))."""
+    import numpy as np
+
+    from photon_ml_tpu_torch.parallel import spawn
+
+    fields = _streamed_fields()
+    d = fields["shard_dims"]["g"]
+    rng = np.random.default_rng(3)
+    base = dict(raw=fields, shard="g", layouts=("dense", "ell"), budget=1 << 20, l2=0.7,
+                w=rng.normal(size=d) / np.sqrt(d), v=rng.normal(size=d), residual=0.3 * rng.normal(size=fields["n_rows"]))
+    runs = {}
+    for device, dtype in (("cuda", "float32"), ("cpu", "float64")):
+        runs[device] = spawn("_torch_mp_ranks:streamed_objective", 2, "gloo", device,
+                             args=(dict(base, device=device, dtype=dtype),), timeout_s=300.0, store_dir=tmp_path)
+    for layout in ("dense", "ell"):
+        (a, b), (ref, _) = runs["cuda"], runs["cpu"]
+        a, b, ref = a[layout], b[layout], ref[layout]
+        for key in ("value", "grad", "hv"):
+            assert _same_bits(a[key].numpy(), b[key].numpy()), (layout, key)
+        torch.testing.assert_close(a["value"].double(), ref["value"], rtol=2e-6, atol=0)
+        for key in ("grad", "hv"):
+            err = float((a[key].double() - ref[key]).abs().max())
+            assert err <= 3e-5 * max(float(ref[key].abs().max()), 1.0), (layout, key, err)
+        for r in runs["cuda"]:
+            got = r[layout]["launches"]
+            assert got["rank_order_sum"] == 2, (layout, got)  # one a pass, over both ranks' slot rows
+            if layout == "dense":
+                k = r[layout]["n_slices"]
+                assert k > 1 and got["fused_value_grad"] == got["fused_hessian_vector"] == k, got
+            else:
+                assert got.get("ell_matvec", 0) > 0 and got.get("ell_rmatvec", 0) > 0 and "fused_value_grad" not in got
+    assert runs["cuda"][0]["ell"]["ell_width"] < runs["cuda"][1]["ell"]["ell_width"]
+
+
 def test_cross_rank_re_build_on_card_is_bitwise_its_cpu_build(cuda, tmp_path):
     """``game.data_mp.build_random_effect_dataset_global`` on two gloo ranks
     sharing the card: every block array, scoring array and table bitwise the

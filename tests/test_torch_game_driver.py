@@ -364,10 +364,10 @@ REFUSED = {
     "collective-timeout": (["--collective-timeout", "30", *TWO_PROCESSES], None),
     "heartbeat-interval": (["--heartbeat-interval", "1", *TWO_PROCESSES], None),
     "heartbeat-timeout": (["--heartbeat-timeout", "5", *TWO_PROCESSES], None),
-    # sweep pipelining is ported: the flag resolves a pipelined plan; over
-    # processes it stays refused
+    # sweep pipelining is ported: the flag resolves a pipelined plan, over
+    # processes too (each rank pipelines its own staging)
     "pipeline-depth": (["--pipeline-depth", "2"], None),
-    "pipeline-depth-distributed": (["--pipeline-depth", "2", *TWO_PROCESSES], "A10"),
+    "pipeline-depth-distributed": (["--pipeline-depth", "2", *TWO_PROCESSES], None),
 }
 
 
@@ -490,12 +490,22 @@ def test_refused_coordinates_name_their_roadmap_item(tmp_path, spec, item):
         (theirs,) = ref_resolve([ref_parse_coordinate(spec)], dims={"globalShard": 5000}).coordinates
         assert ours.residency == theirs.residency == "streamed"
         assert ours.geometry["rows_per_slice"] == theirs.geometry["rows_per_slice"]
+        # over processes it streams each rank's rows, as the JAX package's
+        # plan over a mesh of the process count; two devices in one process
+        # stay in A10 (one card a process)
+        (ours,) = resolve([parse_coordinate(spec)], mesh={"data": 2}, n_processes=2, dims={"globalShard": 5000},
+                          distributed=True).coordinates
+        (theirs,) = ref_resolve([ref_parse_coordinate(spec)], mesh={"data": 2}, n_processes=2,
+                                dims={"globalShard": 5000}, distributed=True).coordinates
+        assert ours.sharding == theirs.sharding == "host-sharded rows (streamed slices)"
+        assert ours.geometry["hosts_streaming"] == theirs.geometry["hosts_streaming"] == 2
         with pytest.raises(PlanError, match="ROADMAP A10"):
             resolve([parse_coordinate(spec)], mesh={"data": 2})
         return
     # the tiled layout is ported: it needs a mesh in the JAX package's
-    # words, resolves on one as the JAX package's plan does, and its
-    # streaming or pipelining over a grid of processes stays in A10
+    # words, resolves on one as the JAX package's plan does, pipelines on a
+    # grid of processes, and takes no budget (the JAX package's words); a
+    # dense fixed effect under the grid's model axis stays in A10
     tiled = parse_coordinate(spec)
     with pytest.raises(PlanError, match="layout='tiled' requires the estimator to be built with a device mesh"):
         resolve([tiled])
@@ -509,10 +519,17 @@ def test_refused_coordinates_name_their_roadmap_item(tmp_path, spec, item):
     assert plan_fingerprint(resolve([tiled], mesh={"data": 1, "model": 1})) == ref_plan_fingerprint(
         ref_resolve([ref_parse_coordinate(spec)], mesh={"data": 1, "model": 1}))
     for kwargs in (dict(pipeline_depth=2, distributed=True), dict(pipeline_depth=2)):
-        with pytest.raises(PlanError, match=f"ROADMAP {item}"):
-            resolve([tiled], mesh={"data": 2, "model": 2}, n_processes=4, **kwargs)
-    with pytest.raises(PlanError, match=f"ROADMAP {item}"):
+        (ours,) = resolve([tiled], mesh={"data": 2, "model": 2}, n_processes=4, **kwargs).coordinates
+        (theirs,) = ref_resolve([ref_parse_coordinate(spec)], mesh={"data": 2, "model": 2},
+                                pipeline_depth=2).coordinates
+        assert ours.pipelined and theirs.pipelined and ours.sharding == theirs.sharding
+    with pytest.raises(PlanError) as ours:
         resolve([parse_coordinate(spec + ",hbm.budget.mb=64")], mesh={"data": 2, "model": 2}, n_processes=4)
+    with pytest.raises(Exception) as theirs:
+        ref_resolve([ref_parse_coordinate(spec + ",hbm.budget.mb=64")], mesh={"data": 2, "model": 2})
+    assert str(ours.value) == str(theirs.value) and "row-sliceable layout" in str(ours.value)
+    with pytest.raises(PlanError, match=f"ROADMAP {item}"):
+        resolve([parse_coordinate(FE_SPEC)], mesh={"data": 2, "model": 2}, n_processes=4)
 
 
 def test_planner_refusals_and_helpers():
@@ -521,11 +538,16 @@ def test_planner_refusals_and_helpers():
     assert plan.coordinates[0].geometry == {"dim": 5000, "batch_layout": "ell"}
     assert plan_fingerprint(plan) == ref_plan_fingerprint(ref_resolve([ref_parse_coordinate(FE_SPEC)]))
     for kwargs, item in (({"mesh": {"data": 2}}, "A10"), ({"mesh": {"data": 2, "model": 2}, "n_processes": 2}, "A10"),
-                         ({"pipeline_depth": 2, "distributed": True}, "A10"),
                          # a dense fixed effect under a model axis: the dense feature-axis shard stays in A10
                          ({"mesh": {"data": 2, "model": 2}, "n_processes": 4}, "A10")):
         with pytest.raises(PlanError, match=f"ROADMAP {item}"):
             resolve([cc], **kwargs)
+    # sweep pipelining over processes resolves as in the JAX package
+    piped = resolve([cc], pipeline_depth=2, distributed=True, n_processes=2)
+    ref_piped = ref_resolve([ref_parse_coordinate(FE_SPEC)], pipeline_depth=2, distributed=True, n_processes=2,
+                            mesh={"data": 2})
+    assert piped.pipeline_depth == ref_piped.pipeline_depth == 2
+    assert piped.coordinates[0].pipelined and ref_piped.coordinates[0].pipelined
     # the model axis is ported for a tiled fixed effect: a (data x model)
     # grid of data * model processes, the random effects over its data axis
     re_cc = parse_coordinate("name=per-user,shard=userShard,re.type=userId,reg.type=L2,reg.weights=1")

@@ -552,7 +552,9 @@ def test_unported_glmix_paths_raise():
     streamed = build_random_effect_dataset(traw, "r", "userShard", "userId", hbm_budget_bytes=1, device="cpu")
     resident = build_random_effect_dataset(traw, "r", "userShard", "userId", device="cpu")
     assert streamed.streamed and streamed.blocks.features.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="A10"):
+    # an entity range is a streamed dataset's over a group of ranks
+    # (tests/test_torch_stream_ranks.py), never a resident one's
+    with pytest.raises(ValueError, match="entity_shard_range is set on streamed datasets over a group only"):
         dataclasses.replace(re_.dataset, entity_shard_range=(0, 1))
     import os
 

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import photon_ml_tpu.io.model_io  # noqa: F401  (ref_io.model_io below: the submodule is no package attribute until imported)
 from photon_ml_tpu import io as ref_io
 from photon_ml_tpu import native as ref_native
 from photon_ml_tpu.io import index_map as ref_index_map

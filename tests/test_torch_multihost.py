@@ -20,7 +20,9 @@ CLI's scores rtol 1e-5 / atol 1e-6 (float32 resolution) and AUC within
 1e-4.
 
 Also: ``host_row_range`` and the spec parser, the backend choice, the
-planner's multi-process plans and the refusals that stay (each naming
+planner's multi-process plans (streamed and pipelined ones among them, as
+the JAX package's) and the refusals that stay (the JAX package's in its
+words, the port's topology limits and the dense feature-axis shard naming
 ROADMAP A10), resume without a shared file system, and the passive rows of
 the padded global row space."""
 
@@ -46,6 +48,7 @@ from photon_ml_tpu.ops.normalization import build_normalization as ref_build_nor
 from photon_ml_tpu.utils.stats import compute_feature_statistics as ref_feature_statistics
 from photon_ml_tpu.parallel.multihost import equal_host_share as ref_equal_host_share
 from photon_ml_tpu.parallel.multihost import host_row_range as ref_host_row_range
+from photon_ml_tpu.plan import plan_fingerprint as ref_plan_fingerprint
 from photon_ml_tpu.plan import resolve as ref_resolve
 from photon_ml_tpu.cli.params import parse_coordinate as ref_parse_coordinate
 from photon_ml_tpu_torch.cli import score, train
@@ -64,7 +67,7 @@ from photon_ml_tpu_torch.parallel import (
     spawn,
 )
 from photon_ml_tpu_torch.parallel.multihost import parse_spec
-from photon_ml_tpu_torch.plan import PlanError, resolve
+from photon_ml_tpu_torch.plan import PlanError, plan_fingerprint, resolve
 
 GLOBAL = ["--feature-shard", "name=global,bags=features"]
 GLMIX_SHARDS = ["--feature-shard", "name=globalShard,bags=features", "--feature-shard", "name=userShard,bags=userFeatures"]
@@ -161,14 +164,39 @@ def test_multiprocess_plans_and_the_refusals_that_stay():
         dict(mesh={"data": 2, "model": 2}, n_processes=2),  # a model axis
         dict(mesh={"data": 4}, n_processes=2),  # a data axis other than the process count
         dict(mesh={"data": 2}),  # several devices in one process
-        dict(n_processes=2, pipeline_depth=2),
     ]
     for kw in refused:
         with pytest.raises(PlanError, match="ROADMAP A10"):
             resolve([cc], **kw)
-    for spec in (FE + ",layout=ell", FE + ",layout=coo", FE + ",hbm.budget.mb=64"):
-        with pytest.raises(PlanError, match="ROADMAP A10"):
+    # streaming and pipelining over processes resolve as the JAX package's
+    # plan over a data axis of the process count
+    for spec in (FE + ",hbm.budget.mb=64", FE + ",layout=ell,hbm.budget.mb=64"):
+        re_s = "name=per-user,shard=userShard,re.type=userId,reg.type=L2,reg.weights=1,hbm.budget.mb=64"
+        kw = dict(n_processes=2, distributed=True, pipeline_depth=2, dims={"global": 6, "userShard": 3})
+        ours = resolve([parse_coordinate(spec), parse_coordinate(re_s)], **kw)
+        theirs = ref_resolve([ref_parse_coordinate(spec), ref_parse_coordinate(re_s)], mesh={"data": 2, "model": 1},
+                             **kw)
+        assert [c.sharding for c in ours.coordinates] == [c.sharding for c in theirs.coordinates] == [
+            "host-sharded rows (streamed slices)", "entity-sharded (host-resident blocks)"]
+        for mine, ref in zip(ours.coordinates, theirs.coordinates):
+            assert (mine.residency, mine.pipelined, mine.notes) == (ref.residency, ref.pipelined, ref.notes)
+            assert {k: mine.geometry[k] for k in ref.geometry} == ref.geometry
+        assert ours.pipeline_depth == theirs.pipeline_depth == 2
+        assert plan_fingerprint(ours) == ref_plan_fingerprint(theirs)
+    # what the JAX package refuses stays refused, in its words: a resident
+    # ELL or COO fixed effect over processes, a budget on a tiled one
+    for spec in (FE + ",layout=ell", FE + ",layout=coo"):
+        with pytest.raises(PlanError) as ours:
             resolve([parse_coordinate(spec)], n_processes=2, distributed=True)
+        with pytest.raises(Exception) as theirs:
+            ref_resolve([ref_parse_coordinate(spec)], mesh={"data": 2, "model": 1}, n_processes=2, distributed=True)
+        assert str(ours.value) == str(theirs.value) and "A10" not in str(ours.value)
+    spec = FE + ",layout=tiled,hbm.budget.mb=64"
+    with pytest.raises(PlanError) as ours:
+        resolve([parse_coordinate(spec)], mesh={"data": 2, "model": 1}, n_processes=2, distributed=True)
+    with pytest.raises(Exception) as theirs:
+        ref_resolve([ref_parse_coordinate(spec)], mesh={"data": 2, "model": 1})
+    assert str(ours.value) == str(theirs.value) and "row-sliceable layout" in str(ours.value)
     # a tiled fixed effect over processes is ported: it needs a mesh (the
     # JAX package's words), and resolves on a grid of the process count,
     # the random effect over its data axis; a dense one under a model axis

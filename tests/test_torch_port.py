@@ -61,15 +61,17 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
 
 
 def test_port_sources_name_no_jax_import():
-    """No module of the port, not chip_smoke.py and not the card tests or
-    the data-parallel and cross-process build rank bodies has an import of jax or of the JAX package (photon_ml_tpu_torch shares the prefix, so match the
-    module name exactly)."""
+    """No module of the port, not chip_smoke.py and not the card tests, the
+    data-parallel, cross-process build and streamed rank bodies or the
+    launcher of the multi-process tests has an import of jax or of the JAX
+    package (photon_ml_tpu_torch shares the prefix, so match the module name
+    exactly)."""
     import ast
 
     files = sorted((ROOT / "photon_ml_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
         ROOT / "tests" / "test_torch_parallel_ranks.py", ROOT / "tests" / "_torch_mp_ranks.py",
-        ROOT / "tests" / "_torch_tiled_ranks.py",
+        ROOT / "tests" / "_torch_tiled_ranks.py", ROOT / "tests" / "_torch_mp_common.py",
     ]
     assert ROOT / "photon_ml_tpu_torch" / "parallel" / "sparse.py" in files
     for path in files:

@@ -141,7 +141,9 @@ def test_estimator_streamed_fixed_policy_and_mesh():
     """A streamed fixed effect constructs on the row-sliceable layouts with
     variance NONE and full sampling, and the planner resolves it streamed;
     the JAX package refuses the same configurations with the same messages.
-    Streamed coordinates under a mesh are ROADMAP A10 on the port."""
+    Over processes streamed coordinates resolve as the JAX package's plan
+    over a data axis of the process count; a mesh of another size than the
+    process count stays ROADMAP A10 on the port (one card a process)."""
     from photon_ml_tpu.estimators.game_estimator import CoordinateConfig as JaxCC
     from photon_ml_tpu.estimators.game_estimator import GameEstimator as JaxEstimator
     from photon_ml_tpu_torch.estimators.game_estimator import CoordinateConfig, GameEstimator
@@ -166,10 +168,22 @@ def test_estimator_streamed_fixed_policy_and_mesh():
         with pytest.raises(ValueError, match=match) as theirs:
             JaxEstimator(task="logistic_regression", coordinate_configs=[JaxCC(**jkw)])
         assert str(ours.value) == str(theirs.value)
-    for extra in (dict(), dict(random_effect_type="userId")):
+    from photon_ml_tpu.plan import plan_fingerprint as jax_fingerprint
+    from photon_ml_tpu.plan import resolve as jax_resolve
+    from photon_ml_tpu_torch.plan import plan_fingerprint, resolve
+
+    for extra, sharding in ((dict(), "host-sharded rows (streamed slices)"),
+                            (dict(random_effect_type="userId"), "entity-sharded (host-resident blocks)")):
+        cc = CoordinateConfig(name="c", feature_shard="s", config=_cfg(), hbm_budget_mb=64, **extra)
         with pytest.raises(PlanError, match="ROADMAP A10"):
-            GameEstimator(task="logistic_regression", device="cpu", mesh={"data": 8}, coordinate_configs=[
-                CoordinateConfig(name="c", feature_shard="s", config=_cfg(), hbm_budget_mb=64, **extra)])
+            GameEstimator(task="logistic_regression", device="cpu", mesh={"data": 8}, coordinate_configs=[cc])
+        jcc = JaxCC(name="c", feature_shard="s", config=_jcfg(), hbm_budget_mb=64, **extra)
+        for mesh in (None, {"data": 2}):
+            (ours,) = resolve([cc], mesh=mesh, n_processes=2, distributed=True, pipeline_depth=2).coordinates
+            theirs = jax_resolve([jcc], mesh={"data": 2}, n_processes=2, distributed=True, pipeline_depth=2)
+            assert ours.sharding == theirs.coordinates[0].sharding == sharding
+            assert ours.residency == "streamed" and ours.pipelined and ours.notes == theirs.coordinates[0].notes
+        assert plan_fingerprint(resolve([cc], n_processes=2)) == jax_fingerprint(theirs)
 
 
 def test_cli_trains_streamed_re_with_parity(tmp_path):
