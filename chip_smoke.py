@@ -230,8 +230,9 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    distinct gathered source rows counted),
    L x S1, the index_add_ composition and cuSPARSE's SpMM; (b) lambda-lane sweeps in process on phase 5's data
    (bench.py's sweep protocol: L-BFGS tol 1e-7, 50 iterations, 2 sweeps,
-   variance NONE): K = 1 and 4 lanes against K sequential fits (walls;
-   K = 8, timed only, was cut to make room for phase 18; each lane: its FE
+   variance NONE): K = 4 lanes against K sequential fits (walls; K = 8,
+   timed only, was cut to make room for phase 18, K = 1 for phase 18 (e)
+   and (f); each lane: its FE
    coefficients atol 5e-3 and training AUC within 1e-4 of its sequential
    fit's; its RE on identical residuals in float64 atol
    5e-3, the f32 pair and the chained difference printed), the RE lane
@@ -241,16 +242,20 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    through GLMProblem.run_lanes with 4 L2 weights on ELL and COO, S2's
    launches counted from 0 (each product above 0), each lane against its
    single-lane solve (loss rtol 1e-5; coefficients atol 5e-3 in float64,
-   the f32 gaps printed), then, warm and profiled, the 4-lane solve, its 4
-   singles and the 8-lane solve of bench.py's protocol lambdas (S2's device
-   ms, launches and share of the busy time beside the top operations); (d) cli.train on phase 12's fixture:
-   RANDOM --trial-lanes 4 with 4 trials, variance and normalization NONE
-   (1 batch timed, 4 trials counted, the tuned model reloaded bitwise, the
-   prior file with 5 records; 8 trials before phase 18 joined the run's
-   time limit; a sequential BAYESIAN run beside it until phase 17 (f)
-   did); (e) that lane
-   run with 4 trials and --checkpoint-dir, killed by tuning.trial at the
-   second lane and resumed: candidates bitwise (d)'s, AUC within 1e-4.
+   the f32 gaps printed), then, on COO (ELL's cut to make room for phase
+   18 (e) and (f)), warm and profiled, the 8-lane solve of bench.py's
+   protocol lambdas (S2's device ms, launches and share of the busy time
+   beside the top operations; the 4-lane solve's and its 4 singles'
+   breakdowns cut to make room for (b)'s four held lanes); (d)
+   cli.train on phase 12's fixture:
+   RANDOM --trial-lanes 3 with 3 trials, variance and normalization NONE
+   (1 batch timed, 3 trials counted, the tuned model reloaded bitwise, the
+   prior file with 4 records; 4 lanes and trials until phase 18 (e) and (f),
+   8 trials before phase 18 joined the run's time limit; a sequential
+   BAYESIAN run beside it until phase 17 (f) did); (e) that lane run with
+   --checkpoint-dir, killed by tuning.trial at the second lane and resumed
+   (the other two lanes as a batch of 2): candidates bitwise (d)'s, AUC
+   within 1e-4.
 14. the retrain chain (run after phase 13, on phase 12's fixture): the
    feed laid out as three days under <feed>/2026/01/01..03 (days 1 and 2
    link phase 12's training parts 0-3 and 4-7; day 3 holds new rows of the
@@ -383,15 +388,40 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    1 / (1 + l2)), 24,576 rows in three chunks a data row, against the
    one-card dense FULL path (rtol 1e-3), every rank bitwise alike; (d)
    cli.train --distributed --mesh-shape data=2,model=2 with phase 12 (b)'s
-   options and the fixed effect tiled (TRON, SIMPLE variance,
-   STANDARDIZATION), every update a boundary checkpoint, beside the
-   one-process cli.train on a 1 x 1 grid: fixed-effect means and variances
-   rtol 1e-3 / atol 1e-5, the random effect retrained on one card on the
-   grid's last residual (atol 5e-3, per-entity loss atol 1e-4), AUC within
-   1e-4, the saved fixed effect of the shard's true dimension, every rank
-   on the tiled route with S1 and the sum launched and no dense kernel;
-   then a resume on data=2,model=1 refused on every rank in the JAX
-   package's words.
+   options, the fixed effect tiled (TRON, SIMPLE variance,
+   STANDARDIZATION) and (f)'s dense fixed effect, every update a boundary
+   checkpoint, beside the one-process cli.train on a 1 x 1 grid, in four
+   cases whose grids start together: the dense fixed effect after and
+   before the random effect, each in float32 (the kernels) and in float64
+   (the plain versions on the card); in every case the fixed effects'
+   variances rtol 1e-3 / atol 1e-5, AUC within 1e-4, the saved fixed
+   effect of the shard's true dimension; the tiled fixed effect (ROADMAP
+   C4 (e)): in float64 its chained means against the one process and its
+   last update against one card's (phase 12 (b)'s global coordinate
+   widened to float64) on the very residual the grid's rank 0 was handed,
+   both rtol 1e-3 / atol 1e-5; in float32 the same gaps printed, with the
+   one-card update in float32 and float64, the residual rebuilt from the
+   boundary and both solves' loss histories; in float32 the random
+   effect's last update retrained on one card from the grid's boundary
+   before it (atol 5e-3, per-entity loss atol 1e-4), every rank on the
+   tiled route with S1 and the sum launched;
+   then a resume of the first case on data=2,model=1 refused on every rank
+   in the JAX package's words; (e) the dense feature-axis shard in
+   (a)-(c)'s ranks: phase 5's X (bench.py's build_data, n=500,000, d=1,024, f32; made anew
+   without phase 5) written once to a .npy each rank memory-maps,
+   shard_batch(shard_features_dim=True) cutting a 250,000 x 512 tile a
+   rank onto the card, phase 5's fixed-effect TRON + SIMPLE solve through
+   GLMProblem.run on the tiles (torch.mv on the tile, the rank-order sum
+   over each subgroup, route tiled_dense, no B1-B4) against the same solve
+   on one card through B1, B2 and B3 from the same w0 (coefficients and
+   variances rtol 1e-3 / atol 1e-5), every rank with the same iterations,
+   reason, loss and model bits; per rank the solve's wall, its collectives
+   and their seconds by subgroup, its launches; (f) (d)'s runs' dense fixed
+   effect (userShard, TRON, SIMPLE, STANDARDIZATION): on the grid it is
+   each data row's rows replicated over the model axis (B1-B3 through B4
+   over each model column), held against the one process at rtol 1e-3 /
+   atol 1e-5 in each case, the grid's four best-model digests equal, each
+   rank's B1-B3, B4 and sum launches printed.
 
     python3 chip_smoke.py --only timing    # card, build, then one phase
 
@@ -865,10 +895,7 @@ def glmix_coordinates(data, dev, plain=False, group=None, fe_dataset=None):
         shard_dims={"userShard": d_re}, id_tags={"userId": ids},
     )
     reg = dict(regularization=RegularizationContext("L2"), reg_weight=1.0)
-    cfg_fe = GLMOptimizationConfig(
-        optimizer=OptimizerConfig(optimizer_type=OptimizerType.TRON, tolerance=1e-6, max_iterations=10),
-        variance_type="SIMPLE", **reg,
-    )
+    cfg_fe = dense_fe_config()
     cfg_re = GLMOptimizationConfig(optimizer=OptimizerConfig(tolerance=1e-6, max_iterations=30), **reg)
     if fe_dataset is not None:
         fe_ds = fe_dataset
@@ -4080,9 +4107,11 @@ DIST_TIMEOUT_S = 300.0  # each launch of ranks, start to exit
 DIST_DEVICE = "cuda"  # every rank's --device and the device of the models phase 17 loads
 # a rank: cli.train.run or cli.score.run on argv, then its launch counts, its
 # wall and (train) its stage seconds and the sha256 of every normalization's
-# inputs as JSON to the first argument; no JAX, as every rank of the port
+# inputs as JSON to the first argument (with SMOKE_RECORD_RESIDUALS
+# "<coordinate>:<dir>", also the residual each solve of that fixed effect is
+# handed); no JAX, as every rank of the port
 RANK_RUNNER = r"""
-import hashlib, json, sys, time
+import hashlib, json, os, sys, time
 t0 = time.perf_counter()
 import numpy as np
 from photon_ml_tpu_torch.cli import score, train
@@ -4095,7 +4124,27 @@ def recording(kind, mean, variance, max_magnitude, **kw):
                                            for a in (mean, variance, max_magnitude))).hexdigest())
     return real(kind, mean, variance, max_magnitude, **kw)
 train.build_normalization = recording
-result = (train if cli == "train" else score).run(argv)
+record = os.environ.get("SMOKE_RECORD_RESIDUALS")
+if record:
+    # "<coordinate>:<dir>": the residual each solve of that fixed effect is
+    # handed (.npy) and the solve's histories (.json), numbered from 1
+    from photon_ml_tpu_torch.game import coordinate as co
+    watched, directory = record.split(":", 1)
+    real_train, calls = co.FixedEffectCoordinate.train, []
+    def recording_train(self, residual_scores, *args, **kwargs):
+        out = real_train(self, residual_scores, *args, **kwargs)
+        if self.coordinate_id == watched and residual_scores is not None:
+            calls.append(1)
+            stem = os.path.join(directory, f"{watched}-{len(calls)}")
+            np.save(stem + ".npy", residual_scores.detach().cpu().numpy())
+            r = out[1]
+            hist = lambda h: [x for x in np.asarray(h.detach().cpu(), dtype=np.float64).tolist() if x == x]
+            with open(stem + ".json", "w") as f:
+                json.dump({"iterations": int(r.iterations), "reason": int(r.reason),
+                           "losses": hist(r.loss_history), "grad_norms": hist(r.grad_norm_history)}, f)
+        return out
+    co.FixedEffectCoordinate.train = recording_train
+result =(train if cli == "train" else score).run(argv)
 doc = {"wall_s": time.perf_counter() - t0, "launches": dict(fg.LAUNCHES), "shifts": dict(fg.SHIFT_LAUNCHES),
        "sharded": dict(fg.SHARDED_LAUNCHES), "sums": dict(fg.SUM_LAUNCHES), "sparse": dict(sparse.SPARSE_LAUNCHES),
        "routes": dict(fg.OBJECTIVE_ROUTES), "normalization": digests}
@@ -4734,11 +4783,21 @@ S2_WIDTHS = (1, 4, 7, 8, 16, 40)
 S2_TIMED_WIDTHS = (4, 16)
 S2_MAIN_WIDTH = 4  # the lanes of (c) and (d): each S2 line of the kernels JSON is timed at this width
 TUNING_LAMBDAS = (0.01, 0.1, 1.0, 10.0)
+# (c)'s layouts whose solves are broken down under the profiler (ELL's cut
+# to make room for phase 18 (e) and (f); its breakdown read as COO's)
+SPARSE_LANE_BREAKDOWN = ("coo",)
 SWEEP_LAMBDAS = tuple(float(x) for x in np.logspace(-2.0, 2.0, 8))  # (b)'s K = 8, bench_sweep's; K = 4 takes TUNING_LAMBDAS
-SWEEP_LANES = (1, 4)  # K = 8 (timed against 8 times K = 4's mean trial) cut to make room for phase 18
-TUNING_KILL_AT = 2  # tuning.trial: the second lane of the first batch
-# (d)'s lane trials, cut to make room for phase 18 (8 before)
-TUNING_LANE_TRIALS = 4
+# K = 8 (timed against 8 times K = 4's mean trial) cut to make room for
+# phase 18, K = 1 for phase 18 (e) and (f)
+SWEEP_LANES = (4,)
+# tuning.trial: the second lane of the first batch, so that the resumed
+# batch holds the other two
+TUNING_KILL_AT = 2
+# (d)'s and (e)'s lanes and trials: one batch of 3, cut to make room for
+# phase 18 (e) and (f) (one batch of 4 before, and 8 trials in two batches
+# before phase 18)
+TUNING_LANES = 3
+TUNING_LANE_TRIALS = 3
 # the smallest lambda whose f32 lanes (b) and (c) hold at atol 5e-3 beside
 # the float64 pair: below it the f32 solves stop at f32's resolution
 # (ROADMAP C3 for (c)'s lambda 0.01, C4 (d) for (b)'s per-user problems),
@@ -4932,11 +4991,10 @@ def _count_syncs(torch, fn):
 def lane_sweep(torch, state, problems):
     """(b) bench.py's --config sweep protocol in process at build_data's
     width (phase 5's datasets; L-BFGS tol 1e-7, 50 iterations, L2, variance
-    NONE, bench_sweep's lambdas): 2 sweeps of K = 1 and 4 lanes
-    (fit_lanes) against K sequential fits (CoordinateDescent, the kernels;
-    K = 8 against 8 times K = 4's mean sequential trial was cut to make
-    room for phase 18), walls on the host clock ending in a
-    synchronize. Each lane's fixed
+    NONE, bench_sweep's lambdas): 2 sweeps of K = 4 lanes (fit_lanes)
+    against K sequential fits (CoordinateDescent, the kernels; K = 8 was
+    cut to make room for phase 18, K = 1 for phase 18 (e) and (f)), walls
+    on the host clock ending in a synchronize. Each lane's fixed
     effect against its sequential fit's (atol 5e-3) and its training AUC
     within 1e-4 of the sequential fit's. The random effect is held on
     identical residuals (ROADMAP C4) and in float64 (C3: at small lambdas
@@ -4970,10 +5028,9 @@ def lane_sweep(torch, state, problems):
 
     lanes_of = {1: (1.0,), 4: TUNING_LAMBDAS, 8: SWEEP_LAMBDAS}
     seq = {}
-    # the sequential fits of K = 1 and 4 only: K = 8's lanes are timed
-    # against 8 times K = 4's mean sequential trial and not held lane by
-    # lane (cut to make room for phase 17)
-    for lam in sorted(set(lanes_of[1]) | set(lanes_of[4])):
+    # the sequential fits of K = 4's lanes (K = 8's, timed against 8 times
+    # their mean and not held lane by lane, cut to make room for phase 17)
+    for lam in lanes_of[4]:
         cs = {
             "global": FixedEffectCoordinate(dataset=datasets["global"], task="logistic_regression",
                                             config=cfgs[0].config.with_reg_weight(lam)),
@@ -4985,7 +5042,8 @@ def lane_sweep(torch, state, problems):
         torch.cuda.synchronize()
         seq[lam] = (res.model, time.perf_counter() - t0, _lane_auc(torch, coords, res.model))
     out = {"sequential_s": {lam: v[1] for lam, v in seq.items()}}
-    log("  (b) cut to make room for phase 18: K = 8 lanes (timed only) left out; K = 1 and 4 run")
+    log("  (b) cut to make room for phase 18: K = 8 lanes (timed only) left out; cut to make room for phase 18 (e) "
+        "and (f): K = 1 left out (its lambda 1 held in K = 4)")
     for K in SWEEP_LANES:
         lams = lanes_of[K]
         combos = [{"global": lam, "per-user": lam} for lam in lams]
@@ -4996,8 +5054,7 @@ def lane_sweep(torch, state, problems):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         held_lanes = all(lam in seq for lam in lams)
-        seq_wall = (sum(seq[lam][1] for lam in lams) if held_lanes
-                    else K * float(np.mean([seq[lam][1] for lam in lanes_of[4]])))
+        seq_wall = sum(seq[lam][1] for lam in lams)
         # the RE lane solve on each lane's fixed-effect scores, alone: its
         # wall and the card's peak memory above what was held
         residual = torch.stack([fe_scorer.score(r.model["global"]) for r in lane_results], dim=1)
@@ -5032,8 +5089,7 @@ def lane_sweep(torch, state, problems):
                                 f"{auc_lane:.6f} vs sequential {auc_seq:.6f}")
         out[K] = {"wall_s": wall, "sequential_s": seq_wall, "re_lane_solve_s": re_wall, "re_peak_gib": re_peak,
                   "gaps": gaps}
-        log(f"  (b) K={K}: lanes {wall:.3f} s against {K} sequential fits "
-            f"{'' if held_lanes else '(K = 4 mean, not run) '}{seq_wall:.3f} s "
+        log(f"  (b) K={K}: lanes {wall:.3f} s against {K} sequential fits {seq_wall:.3f} s "
             f"({wall / seq_wall:.3f} of them; {wall / K:.3f} s a trial); the RE lane solve alone {re_wall:.3f} s, "
             f"peak {re_peak:.2f} GiB above what was held; per lane (lambda, FE gap, RE gap on identical residuals "
             f"in float64 (held) / in f32 (held from lambda {F32_HELD_FROM['b']:g}), chained RE difference (not held), "
@@ -5065,11 +5121,13 @@ def sparse_lane_solve(torch, seed, batches, problems):
     same lanes and singles on the batch widened to float64, the plain route
     on the card), where the stopping rule is decided above the arithmetic's
     resolution; in f32 from lambda F32_HELD_FROM["c"], printed below it.
-    Then the walls broken down (``_solve_breakdown``): the lane solve and
-    the four singles again, warm, each profiled and counted under the sync
-    debug mode; and the same for the lane solve of SWEEP_LAMBDAS (8 lanes,
-    bench.py's tuning protocol), with S2's device ms, kernel launches and
-    share of the busy time, and its calls counted over one warm solve."""
+    Then, on the layouts of SPARSE_LANE_BREAKDOWN, the wall broken down
+    (``_solve_breakdown``: warm, profiled and counted under the sync debug
+    mode) of the lane solve of SWEEP_LAMBDAS (8 lanes, bench.py's tuning
+    protocol), with S2's device ms, kernel launches and share of the busy
+    time, and its calls counted over one warm solve (the 4-lane solve's and
+    its four singles' breakdowns cut to make room for (b)'s four held
+    lanes)."""
     from photon_ml_tpu_torch.game import GLMProblem
     from photon_ml_tpu_torch.ops import fused_glm as fg
     from photon_ml_tpu_torch.ops import sparse
@@ -5077,6 +5135,9 @@ def sparse_lane_solve(torch, seed, batches, problems):
 
     problem = _sparse_problem(torch, OptimizerConfig(tolerance=1e-9, max_iterations=SPARSE_ITERS))
     out = {"launches": {}}
+    log(f"  (c) cut to make room for phase 18 (e) and (f): the profiled breakdown on {SPARSE_LANE_BREAKDOWN} only "
+        "(ELL's as well before); cut to make room for (b)'s four held lanes: the 4-lane solve's and its four "
+        "singles' breakdowns (the 8-lane solve's kept)")
     for layout, batch in batches.items():
         lams = torch.tensor(TUNING_LAMBDAS, device=batch.device)
         lane_problem = GLMProblem(problem.task, problem.config)
@@ -5122,15 +5183,10 @@ def sparse_lane_solve(torch, seed, batches, problems):
             f"against {single_s:.3f} s of single-lane solves; per lane (lambda, coefficient gap in float64 (held) / "
             f"in f32 (held from lambda {F32_HELD_FROM['c']:g}), relative loss gap, iterations lane / single): "
             + "; ".join(f"{lam:g} {cg:.1e}/{cg32:.1e} {lg:.1e} {il}/{isg}" for lam, cg, cg32, lg, il, isg in rows))
-        singles = [GLMProblem(problem.task, problem.config.with_reg_weight(lam)) for lam in TUNING_LAMBDAS]
-        lane_parts = _solve_breakdown(torch, lambda: lane_problem.run_lanes(batch, offsets, lams))
-        single_parts = _solve_breakdown(torch, lambda: [p.run(batch) for p in singles])
-        for what, parts in (("lane solve", lane_parts), (f"{len(singles)} singles", single_parts)):
-            log(f"  (c) {layout} {what}, warm: {parts['wall_s']:.4f} s; profiled: device busy {parts['busy_s']:.4f} s "
-                f"({parts['busy_s'] / parts['wall_s']:.1%} of the warm wall), {parts['device_ops']} device operations, "
-                f"segment kernels (S1 / S2) {parts['segment_ms']:.3f} ms over {parts['segment_launches']} launches; "
-                f"{parts['syncs']} synchronizing operations ({parts['fetches']} the solvers' fetches); top device "
-                f"operations: " + "; ".join(f"{ms:.3f} ms x{n} {key[:60]}" for ms, n, key in parts["top"]))
+        out[layout] = {"wall_s": wall, "single_s": single_s, "rows": rows}
+        if layout not in SPARSE_LANE_BREAKDOWN:
+            del W, res, offsets, W64, batch64
+            continue
         lams8 = torch.tensor(SWEEP_LAMBDAS, device=batch.device)
         offsets8 = batch.offsets[:, None].repeat(1, len(SWEEP_LAMBDAS))
         lane_problem.run_lanes(batch, offsets8, lams8)  # the first call of this width
@@ -5147,8 +5203,7 @@ def sparse_lane_solve(torch, seed, batches, problems):
             f"{parts8['segment_ms']:.3f} ms over {parts8['segment_launches']}; {parts8['syncs']} synchronizing "
             f"operations; top device operations: "
             + "; ".join(f"{ms:.3f} ms x{n} {key[:60]}" for ms, n, key in parts8["top"]))
-        out[layout] = {"wall_s": wall, "single_s": single_s, "rows": rows, "lane_parts": lane_parts,
-                       "single_parts": single_parts, "lanes8": parts8}
+        out[layout].update(lanes8=parts8)
         del W, res, offsets, W64, batch64, offsets8
     return out
 
@@ -5213,7 +5268,7 @@ def _lane_argv(train, validation, out, extra=()):
 
 def tuning_driver(torch, fixture, problems, smi):
     """(d) cli.train's tuning on phase 12's fixture: RANDOM with
-    --trial-lanes 4 and TUNING_LANE_TRIALS trials, variance and
+    --trial-lanes TUNING_LANES and TUNING_LANE_TRIALS trials, variance and
     normalization NONE, output mode TUNED: the batch walls
     (photon_tuning_batch_wall_seconds), the tuned model reloaded bitwise the
     model it was saved from, the prior file with 1 + TUNING_LANE_TRIALS
@@ -5227,14 +5282,16 @@ def tuning_driver(torch, fixture, problems, smi):
 
     root, train, validation = fixture["root"], fixture["train"], fixture["validation"]
     out = {}
-    log(f"  (d) cut to make room for phase 18: {TUNING_LANE_TRIALS} lane trials, one batch (8 in two batches "
-        f"before); cut to make room for phase 17 (f): the sequential BAYESIAN run (1 trial)")
+    log(f"  (d) cut to make room for phase 18 (e) and (f): {TUNING_LANE_TRIALS} trials in one batch of "
+        f"{TUNING_LANES} lanes (4 in one batch of 4 before, 8 in two batches before phase 18); cut to make room for "
+        "phase 17 (f): the sequential BAYESIAN run (1 trial)")
     lane_out, metrics_dir = os.path.join(root, "out-13-lanes"), os.path.join(root, "metrics-13")
     saved, real = _saved_models(cli_train)
     try:
         summary, wall, launches, shifts, s1 = _counted_train(torch, _lane_argv(
             train, validation, lane_out, ["--hyper-parameter-tuning", "RANDOM", "--hyper-parameter-tuning-iter",
-                                          str(TUNING_LANE_TRIALS), "--trial-lanes", "4", "--output-mode", "TUNED",
+                                          str(TUNING_LANE_TRIALS), "--trial-lanes", str(TUNING_LANES),
+                                          "--output-mode", "TUNED",
                                           "--metrics-out", metrics_dir]))
     finally:
         cli_train.save_game_model = real
@@ -5252,13 +5309,13 @@ def tuning_driver(torch, fixture, problems, smi):
     prior = os.path.join(lane_out, "hyperparameter-prior.json")
     with open(prior) as f:
         records = len(json.load(f)["records"])
-    log(f"  (d) RANDOM --trial-lanes 4, {TUNING_LANE_TRIALS} trials: {wall:.2f} s (stages "
+    log(f"  (d) RANDOM --trial-lanes {TUNING_LANES}, {TUNING_LANE_TRIALS} trials: {wall:.2f} s (stages "
         + ", ".join(f"{k} {v:.3f}" for k, v in summary["stage_seconds"].items())
         + f"); {batch_n} batches, {batch_s:.3f} s in all (photon_tuning_batch_wall_seconds), trials counted "
           f"{int(trials)}, lanes in flight after the run {int(in_flight)}; launches {launches}, S1 {s1}; "
           f"{len(saved)} saved models reloaded bitwise: {all(same)}; prior file {records} records; trials "
         + "; ".join(f"{c['reg_weights']} AUC {c['metrics']['AUC']:.6f}" for c in summary["configs"][1:]))
-    if not (batch_n == TUNING_LANE_TRIALS // 4 and trials == TUNING_LANE_TRIALS and in_flight == 0 and same
+    if not (batch_n == TUNING_LANE_TRIALS // TUNING_LANES and trials == TUNING_LANE_TRIALS and in_flight == 0 and same
             and all(same) and records == 1 + TUNING_LANE_TRIALS):
         problems.append(f"(d) lane tuning: batches {batch_n}, trials {trials}, in flight {in_flight}, saved "
                         f"models bitwise {same}, prior records {records}")
@@ -5269,10 +5326,11 @@ def tuning_driver(torch, fixture, problems, smi):
 
 
 def tuning_resume(torch, fixture, d, problems):
-    """(e) RANDOM --trial-lanes 4 with 4 trials and --checkpoint-dir, killed
-    by tuning.trial at the second lane of the batch, then resumed (the rest
-    of the batch as a batch of 3): the trials' candidates bitwise (d)'s
-    first 4 and their AUC within 1e-4 of (d)'s."""
+    """(e) (d)'s lane run (TUNING_LANE_TRIALS trials, --trial-lanes
+    TUNING_LANES) with --checkpoint-dir, killed by tuning.trial at the
+    second lane of the batch, then resumed (the rest of the batch, two
+    lanes or more, as one batch): the trials' candidates bitwise (d)'s and
+    their AUC within 1e-4 of (d)'s."""
     import os
 
     from photon_ml_tpu_torch.cli import train as cli_train
@@ -5281,8 +5339,8 @@ def tuning_resume(torch, fixture, d, problems):
     root, train, validation = fixture["root"], fixture["train"], fixture["validation"]
     ckpt = os.path.join(root, "ck-13")
     argv = _lane_argv(train, validation, os.path.join(root, "out-13-e"),
-                      ["--hyper-parameter-tuning", "RANDOM", "--hyper-parameter-tuning-iter", "4", "--trial-lanes",
-                       "4", "--output-mode", "TUNED", "--checkpoint-dir", ckpt])
+                      ["--hyper-parameter-tuning", "RANDOM", "--hyper-parameter-tuning-iter", str(TUNING_LANE_TRIALS),
+                       "--trial-lanes", str(TUNING_LANES), "--output-mode", "TUNED", "--checkpoint-dir", ckpt])
     os.environ["PHOTON_FAULTS"] = f"tuning.trial:kill:{TUNING_KILL_AT}"
     t0 = time.perf_counter()
     try:
@@ -5299,14 +5357,16 @@ def tuning_resume(torch, fixture, d, problems):
     t1 = time.perf_counter()
     summary = cli_train.run(argv)
     wall = time.perf_counter() - t1
-    want = d["lanes"]["configs"][1:5]
+    want = d["lanes"]["configs"][1 : 1 + TUNING_LANE_TRIALS]
     got = summary["configs"][1:]
     same = [g["reg_weights"] == w["reg_weights"] for g, w in zip(got, want)]
     gaps = [abs(g["metrics"]["AUC"] - w["metrics"]["AUC"]) for g, w in zip(got, want)]
     log(f"  (e) killed at tuning.trial call {TUNING_KILL_AT} after {killed:.2f} s with {recorded} trial(s) recorded; "
-        f"resumed in {wall:.2f} s; candidates bitwise (d)'s: {same}; AUC gaps "
+        f"resumed in {wall:.2f} s ({TUNING_LANE_TRIALS - recorded} lanes left for the resumed batch); candidates bitwise (d)'s: {same}; AUC gaps "
         + ", ".join(f"{g:.1e}" for g in gaps) + " (1e-4)")
-    if not (len(got) == 4 and all(same) and max(gaps) <= 1e-4 and 1 <= recorded < 4):
+    # the resumed batch holds two lanes or more
+    if not (len(got) == TUNING_LANE_TRIALS and all(same) and max(gaps) <= 1e-4
+            and 1 <= recorded <= TUNING_LANE_TRIALS - 2):
         problems.append(f"(e) resumed trials: candidates {same}, AUC gaps {gaps}, recorded before the kill "
                         f"{recorded}")
     return {"killed_s": killed, "wall_s": wall, "recorded": recorded, "auc_gaps": gaps}
@@ -7106,11 +7166,13 @@ def _peak_gib(torch, dev, base=0) -> float:
     return (torch.cuda.max_memory_allocated(dev) - base) / 2**30 if dev.type == "cuda" else 0.0
 
 
-def tiled_rank(group, path, sizes):
+def tiled_rank(group, path, sizes, dense_dir=None):
     """One rank of phase 18 on the (2 x 2) grid: (a) its tile's products,
     (b) the L-BFGS solve through GLMProblem.run, (c) FULL variances on
-    tiles; counters from 0 before each, read after. ``sizes``: the widths
-    (``TILED_SIZES``; a CPU rehearsal passes small ones)."""
+    tiles, (e) the dense feature-axis shard's TRON solve (with ``dense_dir``,
+    the directory of phase 5's ``gx.npy`` and ``y.npy``); counters from 0
+    before each, read after. ``sizes``: the widths (``TILED_SIZES``; a CPU
+    rehearsal passes small ones)."""
     import torch
 
     from photon_ml_tpu_torch.ops import fused_glm as fg
@@ -7199,7 +7261,71 @@ def tiled_rank(group, path, sizes):
         "peak_gib": _peak_gib(torch, dev, base),
         "s1": {k: v for k, v in sparse.SPARSE_LAUNCHES.items() if v}, "sums": dict(fg.SUM_LAUNCHES),
     }
+    del tb, obj, coef, var
+    if dense_dir is not None:
+        out["e"] = _dense_shard_rank(torch, mesh, dense_dir)
     return out
+
+
+def _dense_shard_rank(torch, mesh, dense_dir):
+    """(e) on one rank: phase 5's whole fixed-effect batch as a view of the
+    memory-mapped X (copy-on-write: nothing is read but the tile), the
+    rank's dense tile cut by shard_batch(shard_features_dim=True) onto the
+    card, and phase 5's fixed-effect TRON + SIMPLE solve through
+    GLMProblem.run on it, counters from 0 before the solve."""
+    from photon_ml_tpu_torch.game.problem import GLMProblem
+    from photon_ml_tpu_torch.ops import fused_glm as fg
+    from photon_ml_tpu_torch.ops import sparse
+    from photon_ml_tpu_torch.ops.features import FeatureMatrix, LabeledBatch
+    from photon_ml_tpu_torch.parallel.mesh import shard_batch
+
+    dev = mesh.device
+    gx = np.load(f"{dense_dir}/gx.npy", mmap_mode="c")
+    y = torch.from_numpy(np.load(f"{dense_dir}/y.npy"))
+    n, d = gx.shape
+    whole = LabeledBatch(features=FeatureMatrix(dim=d, dense=torch.from_numpy(gx)), labels=y,
+                         offsets=torch.zeros(n), weights=torch.ones(n))
+    t0 = time.perf_counter()
+    tb = shard_batch(whole, mesh, shard_features_dim=True)
+    _cuda_sync(torch, dev)
+    build_s = time.perf_counter() - t0
+    del whole, gx
+    problem = GLMProblem("logistic_regression", dense_fe_config())
+    fg.reset_launch_counts()
+    base = _peak_reset(torch, dev)
+    before = (mesh.data.collectives, mesh.model.collectives, mesh.data.collective_seconds,
+              mesh.model.collective_seconds)
+    t0 = time.perf_counter()
+    model, res = problem.run(tb)
+    float(res.loss)
+    _cuda_sync(torch, dev)
+    wall = time.perf_counter() - t0
+    co = model.coefficients
+    return {
+        "tile": tuple(tb.features.tile.dense.shape), "tile_gb": tb.features.tile.dense.numel() * 4 / 1e9,
+        "build_s": build_s, "wall_s": wall, "loss": float(res.loss), "iterations": int(res.iterations),
+        "reason": int(res.reason), "syncs": res.syncs, "means": co.means.cpu().numpy(),
+        "variances": co.variances.cpu().numpy(),
+        "collectives": {"data": mesh.data.collectives - before[0], "model": mesh.model.collectives - before[1]},
+        "collective_s": {"data": mesh.data.collective_seconds - before[2],
+                         "model": mesh.model.collective_seconds - before[3]},
+        "launches": dict(fg.LAUNCHES), "sharded": dict(fg.SHARDED_LAUNCHES), "sums": dict(fg.SUM_LAUNCHES),
+        "s1": sum(sparse.SPARSE_LAUNCHES.values()), "routes": {k: v for k, v in fg.OBJECTIVE_ROUTES.items() if v},
+        "peak_gib": _peak_gib(torch, dev, base),
+    }
+
+
+def dense_fe_config():
+    """Phase 5's fixed-effect solve (glmix_coordinates' ``cfg_fe``): TRON
+    tol 1e-6, 10 iterations, L2 1.0, SIMPLE variance."""
+    from photon_ml_tpu_torch.game import GLMOptimizationConfig
+    from photon_ml_tpu_torch.ops.regularization import RegularizationContext
+    from photon_ml_tpu_torch.optimize import OptimizerConfig, OptimizerType
+
+    return GLMOptimizationConfig(
+        optimizer=OptimizerConfig(optimizer_type=OptimizerType.TRON, tolerance=1e-6, max_iterations=10),
+        variance_type="SIMPLE", regularization=RegularizationContext("L2"), reg_weight=1.0,
+    )
 
 
 def _tiled_vg_times(torch, whole, rows, cols, vals, y, d):
@@ -7222,12 +7348,14 @@ def _tiled_vg_times(torch, whole, rows, cols, vals, y, d):
     return out
 
 
-def tiled_phase(torch, seed, smi, fixture=None, game=None, device="cuda", sizes=None):
+def tiled_phase(torch, seed, smi, fixture=None, game=None, device="cuda", sizes=None, fe_xy=None, dense_args=None):
     """Phase 18: the (data x model)-tiled fixed effect on a 2 x 2 grid of
-    gloo ranks sharing the card; (a)-(d) as in the module docstring, (d)
-    on phase 12's fixture with its (b)'s coordinates (left out without
-    them). ``device="cpu"`` with small ``sizes`` rehearses (a)-(c) on the
-    CPU through the plain versions."""
+    gloo ranks sharing the card; (a)-(f) as in the module docstring, (d)
+    and (f) on phase 12's fixture with its (b)'s coordinates (left out
+    without them), (e) on ``fe_xy``, phase 5's ``(gx, y)``, or on
+    ``build_data(*dense_args)`` without phase 5 (left out without
+    either). ``device="cpu"`` with small ``sizes`` rehearses (a)-(c) and
+    (e) on the CPU through the plain versions."""
     import concurrent.futures
     import tempfile
 
@@ -7243,6 +7371,10 @@ def tiled_phase(torch, seed, smi, fixture=None, game=None, device="cuda", sizes=
     dev = torch.device(device)
     problems, report = [], {}
     n, d = sizes["n"], sizes["d"]
+    if fe_xy is None and dense_args is not None:
+        t0 = time.perf_counter()
+        fe_xy = build_data(*dense_args)[:2]
+        log(f"  (e)'s data: bench.py's build_data without phase 5, made in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     rows, cols, vals, y, _ = sparse_triplets(n, d, sizes["k"], seed)
     vals = vals.astype(np.float32).astype(np.float64)  # the tiles' float32 values
@@ -7258,11 +7390,18 @@ def tiled_phase(torch, seed, smi, fixture=None, game=None, device="cuda", sizes=
         path = f"{tmp}/data.npz"
         np.savez(path, rows=rows, cols=cols, vals=vals, y=y, w=w, c=c, f_rows=f_rows, f_cols=f_cols,
                  f_vals=f_vals, f_y=f_y, f_w=f_w)
-        log(f"  data made in {time.perf_counter() - t0:.1f}s")
+        dense_dir = None
+        if fe_xy is not None:
+            # (e)'s X once on disk, memory-mapped by every rank (phase 6 (b)'s way)
+            dense_dir = tmp
+            np.save(f"{tmp}/gx.npy", fe_xy[0])
+            np.save(f"{tmp}/y.npy", fe_xy[1])
+        log(f"  data made in {time.perf_counter() - t0:.1f}s" + (
+            f" ((e)'s {fe_xy[0].shape[0]} x {fe_xy[0].shape[1]} X written for the ranks)" if fe_xy else ""))
         t0 = time.perf_counter()
         with concurrent.futures.ThreadPoolExecutor(1) as waiter:
             pending = waiter.submit(spawn, tiled_rank, TILED_GRID[0] * TILED_GRID[1], "gloo", device,
-                                    args=(path, sizes), timeout_s=TILED_TIMEOUT_S, store_dir=tmp)
+                                    args=(path, sizes, dense_dir), timeout_s=TILED_TIMEOUT_S, store_dir=tmp)
             # while the ranks run, this process builds the references'
             # inputs on the host (nothing timed runs here until they end)
             z_ref = np.bincount(rows, weights=vals * w[cols], minlength=n)
@@ -7378,44 +7517,133 @@ def tiled_phase(torch, seed, smi, fixture=None, game=None, device="cuda", sizes=
         problems.append(f"(c) FULL rel diff {rel_each:.2e}, ranks alike {alike}, pinned {pinned}")
     report["c"] = {"rel": rel_each, "wall_s": max(x_["wall_s"] for x_ in cs), "ref_s": ref_s,
                    "peak_gib": max(x_["peak_gib"] for x_ in cs), "chunk": cs[0]["chunk"]}
+    if fe_xy is not None:
+        report["e"] = dense_shard_holds(torch, ranks, fe_xy, dev, problems, smi)
+        fe_xy = None
     if fixture is not None and (game or {}).get("b"):
         report["d"] = tiled_driver(torch, fixture, game["b"], problems, smi)
     d_s1 = (report.get("d") or {}).get("s1_per_rank") or [{} for _ in ranks]
     d_sums = (report.get("d") or {}).get("sums_per_rank") or [0 for _ in ranks]
+    e_sums = [o.get("e", {}).get("sums", {}).get("rank_order_sum", 0) for o in ranks]
+    # B1-B3 and B4 a rank: (e) runs none (torch.mv on the tile), (f) the
+    # dense fixed effect's over its model column's data subgroup
+    d_dense = (report.get("d") or {}).get("dense_per_rank") or [{} for _ in ranks]
+    d_sharded = (report.get("d") or {}).get("sharded_per_rank") or [{} for _ in ranks]
     report["launches"] = {
         "s1_per_rank": [{k: o["a"]["s1"].get(k, 0) + o["b"][-1]["s1"].get(k, 0) + o["c"]["s1"].get(k, 0)
                          + d_s1[r].get(k, 0) for k in SPARSE_PRODUCTS if k.startswith("coo_")}
                         for r, o in enumerate(ranks)],
         "sums_per_rank": [o["a"]["sums"]["rank_order_sum"] + o["b"][-1]["sums"]["rank_order_sum"]
-                          + o["c"]["sums"]["rank_order_sum"] + d_sums[r] for r, o in enumerate(ranks)],
+                          + o["c"]["sums"]["rank_order_sum"] + d_sums[r] + e_sums[r] for r, o in enumerate(ranks)],
+        "dense_per_rank": [{k: d_dense[r].get(k, 0) + o.get("e", {}).get("launches", {}).get(k, 0)
+                            for k in ("fused_value_grad", "fused_hessian_vector", "fused_hessian_stats")}
+                           for r, o in enumerate(ranks)],
+        "sharded_per_rank": [{k: d_sharded[r].get(k, 0) + o.get("e", {}).get("sharded", {}).get(k, 0)
+                              for k in B4_OF} for r, o in enumerate(ranks)],
     }
     if problems:
         raise AssertionError("; ".join(problems))
     return report
 
 
+def dense_shard_holds(torch, ranks, dense, dev, problems, smi):
+    """(e)'s holds: phase 5's fixed-effect solve on one card (B1, B2, B3 on
+    the whole X, from the same w0 = 0) against the grid's solve on dense
+    tiles, coefficients and SIMPLE variances at rtol 1e-3 / atol 1e-5;
+    every rank with the same iterations, reason, loss and model bits; each
+    rank on the ``tiled_dense`` route with the rank-order sum and no B1-B4
+    launch. Per rank: the solve's wall, its collectives and their seconds
+    by subgroup, its launches."""
+    from photon_ml_tpu_torch.game.problem import GLMProblem
+    from photon_ml_tpu_torch.ops import fused_glm as fg
+    from photon_ml_tpu_torch.ops.features import batch_from_dense
+
+    es = [o["e"] for o in ranks]
+    gx, y = dense
+    batch = batch_from_dense(gx, y, device=dev)
+    fg.reset_launch_counts()
+    _cuda_sync(torch, dev)
+    t0 = time.perf_counter()
+    model, res = GLMProblem("logistic_regression", dense_fe_config()).run(batch)
+    float(res.loss)
+    _cuda_sync(torch, dev)
+    wall = time.perf_counter() - t0
+    one_launches = dict(fg.LAUNCHES)
+    ref_means, ref_var = model.coefficients.means, model.coefficients.variances
+    del batch, model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    keys = ("loss", "iterations", "reason")
+    alike = all(e[k] == es[0][k] for e in es for k in keys) and all(
+        _same_np(e["means"], es[0]["means"]) and _same_np(e["variances"], es[0]["variances"]) for e in es)
+    log(f"  (e) the dense feature-axis shard: phase 5's {gx.shape[0]} x {gx.shape[1]} X, a {es[0]['tile'][0]} x "
+        f"{es[0]['tile'][1]} tile a rank ({es[0]['tile_gb']:.3f} GB, cut in "
+        f"{max(e['build_s'] for e in es):.2f} s); TRON + SIMPLE on {TILED_GRID[0]} x {TILED_GRID[1]}: iterations="
+        f"{es[0]['iterations']} reason={es[0]['reason']} loss={es[0]['loss']:.6f} wall {max(e['wall_s'] for e in es):.3f} "
+        f"s; one card (B1/B2/B3 {one_launches}): iterations={res.iterations} loss={float(res.loss):.6f} wall "
+        f"{wall:.4f} s; every rank alike (iterations, reason, loss, model bits): {alike}")
+    for r, (o, e) in enumerate(zip(ranks, es)):
+        log(f"  (e) rank {r} at {o['pos']}: wall {e['wall_s']:.3f} s, collectives data {e['collectives']['data']} "
+            f"({e['collective_s']['data']:.3f} s) model {e['collectives']['model']} "
+            f"({e['collective_s']['model']:.3f} s), B1-B3 {e['launches']}, B4 {e['sharded']}, sums "
+            f"{e['sums']['rank_order_sum']}, S1 {e['s1']}, routes {e['routes']}, syncs {e['syncs']}, allocator peak "
+            f"{e['peak_gib']:.3f} GiB")
+        if (e["routes"] != {"tiled_dense": 1} or any(e["launches"].values()) or any(e["sharded"].values())
+                or e["s1"] or not e["sums"]["rank_order_sum"]):
+            problems.append(f"(e) rank {r} off the dense-tile path: routes {e['routes']}, B1-B3 {e['launches']}, "
+                            f"B4 {e['sharded']}, S1 {e['s1']}, sums {e['sums']}")
+    if not alike:
+        problems.append("(e) the ranks' solves differ")
+    hold(problems, "(e) dense tiles vs one card: FE coefficients", torch.from_numpy(es[0]["means"]), ref_means.cpu(),
+         1e-3, 1e-5)
+    hold(problems, "(e) dense tiles vs one card: FE variances", torch.from_numpy(es[0]["variances"]),
+         ref_var.cpu(), 1e-3, 1e-5)
+    log(f"  (e) on {smi}")
+    return {"ranks": [{k: v for k, v in e.items() if k not in ("means", "variances")} for e in es],
+            "one_card_wall_s": wall, "one_card_launches": one_launches, "iterations": es[0]["iterations"],
+            "wall_s": max(e["wall_s"] for e in es)}
+
+
 TILED_GAME_FE = GAME_FE + ",layout=tiled"  # phase 12 (b)'s fixed effect on the grid's tiles
+# (f): a dense fixed effect on the userShard bag: replicated over the model
+# axis, B1-B3 through B4 over each model column
+TILED_DENSE_FE = ("name=user-fixed,shard=userShard,optimizer=TRON,tolerance=1e-6,max.iter=10,reg.type=L2,"
+                  "reg.weights=1,variance=SIMPLE")
 TILED_DRIVER_GRID = "data=2,model=2"
 TILED_RESUME_GRID = "data=2,model=1"  # the refused resume: another model axis
+# (d) and (f)'s runs, each on the grid and in one process: (name, the dense
+# fixed effect's place against the random effect, --dtype). Both orders in
+# float32 (the kernels) and in float64 (the plain versions on the card),
+# where the tiled fixed effect's coefficients are held (ROADMAP C4 (e))
+TILED_CASES = (("after", "after", "float32"), ("before", "before", "float32"), ("after64", "after", "float64"),
+               ("before64", "before", "float64"))
+TILED_FIRST_CASE = TILED_CASES[0][0]  # its checkpoint is the refused resume's
 
 
-def _tiled_argv(fixture, out, extra=()):
-    """Phase 12 (b)'s options with the fixed effect tiled."""
-    argv = game_argv(fixture["train"], fixture["validation"], out, extra)
-    return [TILED_GAME_FE if a == GAME_FE else a for a in argv]
+def _tiled_argv(fixture, out, extra=(), dense_at="after"):
+    """Phase 12 (b)'s options with the fixed effect tiled and, (f), the
+    dense fixed effect ``dense_at`` ("before" or "after") the random
+    effect."""
+    dense = ["--coordinate", TILED_DENSE_FE]
+    argv = []
+    for a in game_argv(fixture["train"], fixture["validation"], out, extra):
+        if a == GAME_RE and dense_at == "before":
+            argv[-1:-1] = dense  # ahead of the random effect's --coordinate
+        argv.append(TILED_GAME_FE if a == GAME_FE else a)
+        if a == GAME_RE and dense_at == "after":
+            argv += dense
+    return argv
 
 
 def tiled_driver(torch, fixture, b, problems, smi):
     """(d) cli.train --distributed on the 2 x 2 grid (4 gloo ranks sharing
-    the card) with phase 12 (b)'s options, the fixed effect tiled, every
-    update a boundary checkpoint; beside it the one-process cli.train on a
-    1 x 1 grid. Held at phase 17 (a)'s bounds: the fixed effect's means and
-    SIMPLE variances rtol 1e-3 / atol 1e-5, the random effect retrained on
-    one card on the grid's last residual (atol 5e-3, per-entity loss atol
-    1e-4), validation AUC within 1e-4; the saved model's fixed effect has
-    the shard's true dimension; each rank launched S1 and the rank-order
-    sum and no dense kernel, its solves on the tiled route. Beside those
-    holds a resume on data=2,model=1 must be refused in the JAX package's
+    the card) with phase 12 (b)'s options, the fixed effect tiled and, (f),
+    a dense fixed effect (``TILED_DENSE_FE``) beside it, in each case of
+    ``TILED_CASES``, every update a boundary checkpoint; beside each the
+    one-process cli.train on a 1 x 1 grid. The grids start together; the one-process runs go one after
+    another meanwhile. Held at phase 17 (a)'s bounds in each case (see
+    ``_tiled_case_holds``). Beside those holds a resume of the first case's
+    checkpoint on data=2,model=1 must be refused in the JAX package's
     words."""
     import os
 
@@ -7423,32 +7651,45 @@ def tiled_driver(torch, fixture, b, problems, smi):
 
     root = fixture["root"]
     index_dir = os.path.join(root, "index-18")
-    for shard, imap in b["maps"].items():
+    maps = dict(b["maps"])
+    for shard, imap in maps.items():
         save_partitioned(imap, index_dir, 1, shard)
-    out, ck, metrics = (os.path.join(root, p) for p in ("out-18d", "ck-18d", "metrics-18d"))
-    common = ["--feature-index-dir", index_dir]
-    grid_argv = _tiled_argv(fixture, out, common + ["--mesh-shape", TILED_DRIVER_GRID, "--checkpoint-dir", ck,
-                                                    "--checkpoint-every", "1", "--checkpoint-keep", "4",
-                                                    "--metrics-out", metrics])
-    world = 4
-    started = _start_ranks(root, "train-18d", grid_argv, world=world)
-    ref_out = os.path.join(root, "out-18d-one")
+    world, cases, started, refs = 4, {}, {}, {}
+    for name, at, dtype in TILED_CASES:
+        paths = {k: os.path.join(root, f"{k}-18{name}") for k in ("out", "one", "ck", "metrics", "residuals")}
+        common = ["--feature-index-dir", index_dir] + (["--dtype", dtype] if dtype != "float32" else [])
+        # every update a boundary checkpoint; rank 0 records the residual each
+        # solve of the tiled fixed effect was handed (RANK_RUNNER)
+        grid = common + ["--mesh-shape", TILED_DRIVER_GRID, "--metrics-out", paths["metrics"], "--checkpoint-dir",
+                         paths["ck"], "--checkpoint-every", "1", "--checkpoint-keep", "4"]
+        os.makedirs(paths["residuals"], exist_ok=True)
+        env = {0: {"SMOKE_RECORD_RESIDUALS": f"global:{paths['residuals']}"}}
+        cases[name] = (at, dtype, paths, common)
+        started[name] = _start_ranks(root, f"train-18{name}", _tiled_argv(fixture, paths["out"], grid, at),
+                                     world=world, env_by_rank=env)
+    outs = {}
     try:
-        ref_summary, ref_wall, ref_launches, _, _ = _counted_train(
-            torch, _tiled_argv(fixture, ref_out, common + ["--mesh-shape", "data=1,model=1", "--device", DIST_DEVICE]))
+        for name, (at, dtype, paths, common) in cases.items():
+            refs[name] = _counted_train(torch, _tiled_argv(
+                fixture, paths["one"], common + ["--mesh-shape", "data=1,model=1", "--device", DIST_DEVICE], at))
     finally:
-        outs, t0 = _wait_ranks(started)
-    wall = max(o[3] for o in outs) - t0
-    failed = _ranks_failed(outs, "(d) cli.train --distributed on the grid")
+        for name, s in started.items():
+            outs[name] = _wait_ranks(s)
+    failed = [f for f in (_ranks_failed(o, f"(d) {name}: cli.train --distributed on the grid")
+                          for name, (o, _) in outs.items()) if f]
     if failed:
-        raise AssertionError(failed)
+        raise AssertionError("\n".join(failed))
     # the refused resume (the checkpoint carries the model axis) runs
     # beside the holds below
-    resume_started = _start_ranks(root, "train-18r", _tiled_argv(fixture, os.path.join(root, "out-18r"), common + [
-        "--mesh-shape", TILED_RESUME_GRID, "--checkpoint-dir", ck, "--checkpoint-every", "1", "--resume"]))
+    first = cases[TILED_FIRST_CASE]
+    resume_started = _start_ranks(root, "train-18r", _tiled_argv(fixture, os.path.join(root, "out-18r"), [
+        "--feature-index-dir", index_dir, "--mesh-shape", TILED_RESUME_GRID, "--checkpoint-dir", first[2]["ck"],
+        "--checkpoint-every", "1", "--resume"], first[0]))
     try:
-        out_d = _tiled_driver_holds(torch, out, ref_out, metrics, ck, b, _rank_docs(root, "train-18d", world=world),
-                                    ref_summary, ref_wall, ref_launches, wall, problems, smi)
+        out_d = {name: _tiled_case_holds(torch, name, case, b, _rank_docs(root, f"train-18{name}", world=world),
+                                         refs[name], max(o[3] for o in outs[name][0]) - outs[name][1], problems,
+                                         smi, maps)
+                 for name, case in cases.items()}
     finally:
         resume, t1 = _wait_ranks(resume_started)
     words = "checkpoint mesh reshape across the model axis is not supported"
@@ -7457,70 +7698,209 @@ def tiled_driver(torch, fixture, b, problems, smi):
         f"package's words: {all(refused)} ({max(o[3] for o in resume) - t1:.2f} s, beside the holds)")
     if not all(refused):
         problems.append(f"(d) the resume across the model axis was not refused on every rank: {refused}")
-    return out_d
+    t_first = min(o[1] for o in outs.values())
+    wall = max(max(e[3] for e in o[0]) for o in outs.values()) - t_first
+
+    def per_rank(key):
+        """Each rank's counts summed over the cases."""
+        total = []
+        for r in range(world):
+            vals = [c[key][r] for c in out_d.values()]
+            total.append(sum(vals) if isinstance(vals[0], int) else
+                         {k: sum(v.get(k, 0) for v in vals) for k in vals[0]})
+        return total
+
+    log(f"  (d) the {len(cases)} grids started together: {wall:.2f} s from the first start to the last exit; "
+        f"the one-process runs {sum(r[1] for r in refs.values()):.2f} s one after another meanwhile")
+    return {"wall_s": wall, "one_process_s": sum(r[1] for r in refs.values()), "cases": out_d,
+            **{k: per_rank(k) for k in ("s1_per_rank", "sums_per_rank", "dense_per_rank", "sharded_per_rank")}}
 
 
-def _tiled_driver_holds(torch, out, ref_out, metrics, ck, b, docs, ref_summary, ref_wall, ref_launches, wall,
-                        problems, smi):
-    """(d)'s holds of the grid's run against the one process's."""
+def _boundaries(directory):
+    """Every boundary checkpoint left in ``directory``, in order: (step,
+    payload)."""
     import os
 
+    steps = sorted(int(p[5:]) for p in os.listdir(directory) if re.fullmatch(r"ckpt-\d+", p))
+    return [(s, _load_boundary(directory, s)) for s in steps]
+
+
+def _around(boundaries, coordinate):
+    """The payloads of the boundaries before and after ``coordinate``'s
+    last update."""
+    k = max(i for i, (_, p) in enumerate(boundaries) if p["coordinate"] == coordinate)
+    return boundaries[k - 1][1], boundaries[k][1]
+
+
+def _float64_batch(batch):
+    """``batch`` widened to float64 (its features in their layout, labels,
+    offsets and weights): the same problem for the plain versions."""
+    from photon_ml_tpu_torch.ops.features import FeatureMatrix
+
+    f = batch.features
+    if f.is_dense:
+        feats = FeatureMatrix(dim=f.dim, dense=f.dense.double())
+    elif f.layout == "coo":
+        feats = FeatureMatrix(dim=f.dim, coo_cols=f.coo_cols, coo_rows=f.coo_rows, coo_vals=f.coo_vals.double(),
+                              coo_n_rows=f.coo_n_rows)
+    else:
+        feats = FeatureMatrix(dim=f.dim, idx=f.idx, val=f.val.double())
+    return dataclasses.replace(batch, features=feats, labels=batch.labels.double(),
+                               offsets=batch.offsets.double(), weights=batch.weights.double())
+
+
+def _float64_coordinate(coord):
+    """A fixed-effect coordinate on its batch and normalization widened to
+    float64 (the same problem, for the plain versions)."""
+    norm = coord.normalization
+    if norm is not None:
+        wide = lambda t: None if t is None else t.double()  # noqa: E731
+        norm = dataclasses.replace(norm, factors=wide(norm.factors), shifts=wide(norm.shifts))
+    dataset = dataclasses.replace(coord.dataset, batch=_float64_batch(coord.dataset.batch))
+    return dataclasses.replace(coord, dataset=dataset, normalization=norm)
+
+
+def _tiled_case_holds(torch, name, case, b, docs, ref, wall, problems, smi, maps):
+    """(d) and (f)'s holds of one case's grid run against its one process:
+    the dense fixed effect's means and both fixed effects' SIMPLE variances
+    rtol 1e-3 / atol 1e-5; validation AUC within 1e-4; the saved tiled
+    fixed effect of the shard's true dimension; every rank's best model the
+    same digest; in float32 every rank on the tiled kernel route (S1 and the
+    rank-order sum) and the dense kernel route (B1-B3 through B4), in
+    float64 on the plain versions. The tiled fixed effect (ROADMAP C4 (e)):
+    in float64 its chained means against the one process, and its last
+    update against phase 12 (b)'s global coordinate (one card, widened to
+    float64) retrained from the boundary before it on the very residual the
+    grid's rank 0 handed that solve, both at rtol 1e-3 / atol 1e-5; in
+    float32 the same gaps printed (the one-card update in float32 and in
+    float64; beside them the residual rebuilt from the boundary, its summed
+    scores less one card's scores of the model, and the update on it; both
+    solves' loss histories). In float32 also the random effect's last update
+    retrained on one card from the boundary before it (atol 5e-3,
+    per-entity loss atol 1e-4)."""
+    import glob
+    import os
+
+    from photon_ml_tpu_torch.game.coordinate import _project_model_values
     from photon_ml_tpu_torch.io import load_game_model
 
-    with open(os.path.join(metrics, "run_summary.json")) as f:
+    at, dtype, paths, _ = case
+    f64 = dtype == "float64"
+    tag = f"(d) {name} ({dtype}, the dense fixed effect {at} the random effect)"
+    ref_summary, ref_wall, ref_launches = ref[0], ref[1], ref[2]
+    with open(os.path.join(paths["metrics"], "run_summary.json")) as f:
         auc = json.load(f)["best"]["metrics"]["AUC"]
     ref_auc = ref_summary["best"]["metrics"]["AUC"]
     for r, d in enumerate(docs):
         s1 = {k: v for k, v in d["sparse"].items() if v}
-        log(f"  (d) rank {r}: wall {d['wall_s']:.2f} s (stages "
+        routes = {k: v for k, v in d["routes"].items() if v}
+        log(f"  {tag} rank {r}: wall {d['wall_s']:.2f} s (stages "
             + ", ".join(f"{k} {v:.3f}" for k, v in d["stage_seconds"].items())
-            + f"); S1 {s1}, rank-order sums {d['sums']['rank_order_sum']}, dense launches "
-              f"{sum(d['launches'].values())}, routes { {k: v for k, v in d['routes'].items() if v} }")
-        if (not s1.get("coo_matvec") or not s1.get("coo_rmatvec") or not d["sums"]["rank_order_sum"]
-                or any(d["launches"].values()) or not d["routes"]["tiled_kernel"]
-                or any(v for k, v in d["routes"].items() if k != "tiled_kernel")):
-            problems.append(f"(d) rank {r} ran off the tiled kernel path: S1 {s1}, sums {d['sums']}, "
-                            f"dense {d['launches']}, routes {d['routes']}")
-    log(f"  (d) {len(docs)} ranks on a 2 x 2 grid: {wall:.2f} s from the first start to the last exit; one process "
-        f"on a 1 x 1 grid {ref_wall:.2f} s (dense launches {sum(ref_launches.values())}); validation AUC "
-        f"{auc:.6f} against {ref_auc:.6f} on {smi}")
+            + f"); S1 {s1}, rank-order sums {d['sums']['rank_order_sum']}, (f) B1-B3 {d['launches']} (with shifts "
+              f"{d['shifts']['fused_hessian_stats']}), B4 {d['sharded']}, routes {routes}")
+        if f64:
+            if set(routes) != {"plain_float64"}:
+                problems.append(f"{tag} rank {r} off the plain float64 route: {routes}")
+        elif (not s1.get("coo_matvec") or not s1.get("coo_rmatvec") or not d["sums"]["rank_order_sum"]
+                or set(routes) != {"tiled_kernel", "dense_kernel"} or not all(d["launches"].values())
+                or not all(d["sharded"].values())):
+            problems.append(f"{tag} rank {r} ran off the tiled kernel path and B1-B4: S1 {s1}, sums {d['sums']}, "
+                            f"B1-B3 {d['launches']}, B4 {d['sharded']}, routes {routes}")
+    digests = [d["model_sha256"] for d in docs]
+    log(f"  {tag}: 4 ranks on a 2 x 2 grid {wall:.2f} s from their start to the last exit; one process on a 1 x 1 "
+        f"grid {ref_wall:.2f} s (B1-B3 {ref_launches}); validation AUC {auc:.6f} against {ref_auc:.6f}; (f) best "
+        f"models' digests: grid {digests}, one process {ref_summary['best']['model_sha256']} on {smi}")
+    if len(set(digests)) != 1:
+        problems.append(f"{tag}: the grid's ranks saved different best models: {digests}")
     if abs(auc - ref_auc) > 1e-4:
-        problems.append(f"(d) validation AUC {auc:.6f} against the one process's {ref_auc:.6f} (1e-4)")
-    maps = b["maps"]
-    best = load_game_model(os.path.join(out, "models", "best"), maps, task="logistic_regression", device=DIST_DEVICE)
-    ref = load_game_model(os.path.join(ref_out, "models", "best"), maps, task="logistic_regression",
-                          device=DIST_DEVICE)
-    fa, fb = best["global"].model.coefficients, ref["global"].model.coefficients
+        problems.append(f"{tag}: validation AUC {auc:.6f} against the one process's {ref_auc:.6f} (1e-4)")
+    load = dict(task="logistic_regression", device=DIST_DEVICE, dtype=torch.float64 if f64 else torch.float32)
+    best = load_game_model(os.path.join(paths["out"], "models", "best"), maps, **load)
+    one = load_game_model(os.path.join(paths["one"], "models", "best"), maps, **load)
+    fa, fb = best["global"].model.coefficients, one["global"].model.coefficients
     d_true = maps["global"].size
-    log(f"  (d) the saved fixed effects: {fa.means.shape[0]} and {fb.means.shape[0]} coefficients (the shard's "
+    log(f"  {tag}: the saved fixed effects: {fa.means.shape[0]} and {fb.means.shape[0]} coefficients (the shard's "
         f"{d_true})")
     if fa.means.shape[0] != d_true or fb.means.shape[0] != d_true:
-        problems.append(f"(d) saved fixed effects of {fa.means.shape[0]} / {fb.means.shape[0]}, not {d_true}")
-    hold(problems, "(d) grid vs one process: FE coefficients", fa.means, fb.means, 1e-3, 1e-5)
-    hold(problems, "(d) grid vs one process: FE variances", fa.variances, fb.variances, 1e-3, 1e-5)
-    # the random effect on identical residuals, as phase 17 (a) holds it
-    boundaries = os.path.join(ck, "cd-boundaries")
-    state, last = _load_boundary(boundaries, 2), _load_boundary(boundaries, 3)
+        problems.append(f"{tag}: saved fixed effects of {fa.means.shape[0]} / {fb.means.shape[0]}, not {d_true}")
+    if f64:
+        hold(problems, f"{tag} grid vs one process: FE coefficients", fa.means, fb.means, 1e-3, 1e-5)
+    else:
+        log(f"  {tag} grid vs one process: FE coefficients chained (printed; held in float64): max abs diff "
+            f"{float((fa.means.double() - fb.means.double()).abs().max()):.3e}")
+    hold(problems, f"{tag} grid vs one process: FE variances", fa.variances, fb.variances, 1e-3, 1e-5)
+    ua, ub = best["user-fixed"].model.coefficients, one["user-fixed"].model.coefficients
+    hold(problems, f"{tag} grid vs one process: dense FE coefficients", ua.means, ub.means, 1e-3, 1e-5)
+    hold(problems, f"{tag} grid vs one process: dense FE variances", ua.variances, ub.variances, 1e-3, 1e-5)
+    counts = {"s1_per_rank": [d["sparse"] for d in docs], "sums_per_rank": [d["sums"]["rank_order_sum"] for d in docs],
+              "dense_per_rank": [d["launches"] for d in docs], "sharded_per_rank": [d["sharded"] for d in docs]}
+    out = {"wall_s": wall, "one_process_s": ref_wall, "auc": auc, "one_process_auc": ref_auc, "digests": digests,
+           "one_process_digest": ref_summary["best"]["model_sha256"], **counts}
+
+    bounds = _boundaries(os.path.join(paths["ck"], "cd-boundaries"))
+    log(f"  {tag}: the boundaries kept (step: sweep, coordinate): "
+        + ", ".join(f"{s}: {p['iteration']}, {p['coordinate']}" for s, p in bounds))
     re_coord = b["coords"]["per-user"]
     dev = re_coord.dataset.device
+    if not f64:
+        def on_card(m):
+            return dataclasses.replace(m, coef_indices=m.coef_indices.to(dev), coef_values=m.coef_values.to(dev))
 
-    def on_card(m):
-        return dataclasses.replace(m, coef_indices=m.coef_indices.to(dev), coef_values=m.coef_values.to(dev))
-
-    from photon_ml_tpu_torch.game.coordinate import _project_model_values
-
-    re1 = on_card(state["models"]["per-user"])
-    residual = state["summed_scores"].to(dev) - re_coord.score(re1)
-    one, _ = re_coord.train(residual, initial_model=re1)
-    two = on_card(last["models"]["per-user"])
-    hold(problems, "(d) grid vs one card: RE coefficients (identical residuals)",
-         _project_model_values(re_coord.dataset, two, two.coef_values, torch.float32), one.coef_values, 0.0, 5e-3)
-    l2 = float(re_coord.config.reg_weight)
-    hold(problems, "(d) grid vs one card: RE per-entity loss (identical residuals)",
-         _re_losses(torch, re_coord, two, residual, l2), _re_losses(torch, re_coord, one, residual, l2), 0.0, 1e-4)
-
-    return {"wall_s": wall, "one_process_s": ref_wall, "auc": auc, "one_process_auc": ref_auc,
-            "s1_per_rank": [d["sparse"] for d in docs], "sums_per_rank": [d["sums"]["rank_order_sum"] for d in docs]}
+        # the random effect on identical residuals, as phase 17 (a) holds it
+        state, last = _around(bounds, "per-user")
+        re1 = on_card(state["models"]["per-user"])
+        residual = state["summed_scores"].to(dev) - re_coord.score(re1)
+        re_one, _ = re_coord.train(residual, initial_model=re1)
+        two = on_card(last["models"]["per-user"])
+        hold(problems, f"{tag} grid vs one card: RE coefficients (identical residuals)",
+             _project_model_values(re_coord.dataset, two, two.coef_values, torch.float32), re_one.coef_values, 0.0,
+             5e-3)
+        l2 = float(re_coord.config.reg_weight)
+        hold(problems, f"{tag} grid vs one card: RE per-entity loss (identical residuals)",
+             _re_losses(torch, re_coord, two, residual, l2), _re_losses(torch, re_coord, re_one, residual, l2), 0.0,
+             1e-4)
+    # the tiled fixed effect's last update from the boundary before it, on
+    # the residual the grid's rank 0 handed that solve (its last recording)
+    fe32 = b["coords"]["global"]
+    fe64 = _float64_coordinate(fe32)
+    before_fe, after_fe = _around(bounds, "global")
+    g0 = before_fe["models"]["global"]
+    recorded = sorted(glob.glob(os.path.join(paths["residuals"], "global-*.npy")),
+                      key=lambda p: int(p.rsplit("-", 1)[1][:-4]))
+    if not recorded:
+        problems.append(f"{tag}: rank 0 recorded no residual of the tiled fixed effect")
+        return out
+    with open(recorded[-1][:-4] + ".json") as f:
+        grid_solve = json.load(f)
+    r_grid = torch.from_numpy(np.load(recorded[-1])).to(dev)
+    grid_means = after_fe["models"]["global"].model.coefficients.means.to(dev)
+    one64, res64 = fe64.train(r_grid.double(), initial_model=g0)
+    m64 = one64.model.coefficients.means
+    # a solve's accepted losses, from its NaN-padded history
+    fmt = lambda h: "/".join(f"{x:.6f}" for x in h if x == x)  # noqa: E731
+    if f64:
+        hold(problems, f"{tag} grid vs one card: FE coefficients (the grid's residual)", grid_means, m64, 1e-3, 1e-5)
+        log(f"  {tag}: the update's solves (iterations, reason, losses): grid {grid_solve['iterations']}, "
+            f"{grid_solve['reason']}, {fmt(grid_solve['losses'])}; one card {int(res64.iterations)}, "
+            f"{int(res64.reason)}, {fmt(res64.loss_history.tolist())}")
+        return out
+    r_rebuilt = before_fe["summed_scores"].to(dev) - fe32.score(g0)
+    one32, res32 = fe32.train(r_grid, initial_model=g0)
+    rebuilt32, res_re = fe32.train(r_rebuilt, initial_model=g0)
+    m32, m_re = one32.model.coefficients.means, rebuilt32.model.coefficients.means
+    gap = lambda a, c: float((a.double() - c.double()).abs().max())  # noqa: E731
+    log(f"  {tag} grid vs one card: FE coefficients on the grid's residual (printed; held in float64): float32 "
+        f"{gap(grid_means, m32):.3e}; from one card's float64 update: the grid's {gap(grid_means, m64):.3e}, one "
+        f"card's float32 {gap(m32, m64):.3e}; the solves (iterations, reason, losses): grid "
+        f"{grid_solve['iterations']}, {grid_solve['reason']}, {fmt(grid_solve['losses'])}; one card "
+        f"{int(res32.iterations)}, {int(res32.reason)}, {fmt(res32.loss_history.tolist())}; "
+        f"float64 {int(res64.iterations)}, {int(res64.reason)}, "
+        f"{fmt(res64.loss_history.tolist())}")
+    log(f"  {tag}: the grid's residual ({len(recorded)} recorded) against the one rebuilt from the boundary (summed "
+        f"scores less one card's scores of its model): max abs diff {float((r_grid - r_rebuilt).abs().max()):.3e}; "
+        f"one card's float32 updates on the two {gap(m32, m_re):.3e} apart (iterations {int(res_re.iterations)}, "
+        f"reason {int(res_re.reason)})")
+    return out
 
 
 def main() -> int:
@@ -7600,8 +7980,8 @@ def main() -> int:
         phases.failed.append("data and model IO")
     else:
         io = phases.run("data and model IO", io_phase, torch, state, args.seed, smi)
-    if not (want("tuning") or want("streaming")):
-        del state
+    if not (want("tuning") or want("streaming") or want("tiled")):
+        state = None
     torch.cuda.empty_cache()
     if (want("game") or want("streaming") or want("tuning") or want("retrain") or want("distributed")
             or want("tiled")):
@@ -7639,7 +8019,11 @@ def main() -> int:
                                       (streaming or {}).get("cli"))
                 if want("tiled"):
                     torch.cuda.empty_cache()
-                    tiled = phases.run("tiled fixed effect", tiled_phase, torch, args.seed, smi, fixture, game)
+                    # (e) on phase 5's X, or on build_data's without phase 5
+                    fe_xy = tuple(state["data"][:2]) if state else None
+                    tiled = phases.run("tiled fixed effect", tiled_phase, torch, args.seed, smi, fixture, game,
+                                       "cuda", None, fe_xy, (args.n, args.d, args.users, args.d_re, args.seed))
+                    fe_xy = None
                 (game or {}).pop("b", None)
                 torch.cuda.empty_cache()
                 if not want("tuning"):
@@ -7774,8 +8158,9 @@ def main() -> int:
         if key in st_launches:
             entry["launches_streamed"] = st_launches[key]
             entry["launches"] = (entry.get("launches") or 0) + st_launches[key]
-    # phase 18: each rank's launches on the 2 x 2 grid, (a)-(d), join S1's
-    # COO products and the rank-order sum
+    # phase 18: each rank's launches on the 2 x 2 grid, (a)-(f), join S1's
+    # COO products, the rank-order sum and, from (f)'s dense fixed effect
+    # over each model column, B1-B3 and B4
     tl = (tiled or {}).get("launches") or {}
     for entry in kernels:
         key = entry["name"].split(":", 1)[-1]
@@ -7786,6 +8171,10 @@ def main() -> int:
             entry["replaces_tiled"] = "photon_ml_tpu/parallel/sparse.py:" + ("87" if key == "coo_matvec" else "109")
         elif key == "rank_order_sum" and tl:
             per_rank = tl["sums_per_rank"]
+        elif key in B4_OF and tl:
+            per_rank = [r.get(key, 0) for r in tl["sharded_per_rank"]]
+        elif key in B4_OF.values() and tl:
+            per_rank = [r.get(key, 0) for r in tl["dense_per_rank"]]
         if per_rank is not None:
             entry["launches_tiled_per_rank"] = per_rank
             entry["launches"] = (entry.get("launches") or 0) + sum(per_rank)
@@ -7828,8 +8217,8 @@ def main() -> int:
         sw, dr, rs = tuning["sweep"], tuning["driver"], tuning["resume"]
         log("tuning: lane sweeps " + ", ".join(
             f"K={K} {sw[K]['wall_s']:.3f} s against {sw[K]['sequential_s']:.3f} s sequential" for K in SWEEP_LANES)
-            + f"; cli.train RANDOM --trial-lanes 4 "
-              f"(8 trials) {dr['lanes']['wall_s']:.2f} s ({dr['lanes']['batches']} batches, "
+            + f"; cli.train RANDOM --trial-lanes {TUNING_LANES} "
+              f"({TUNING_LANE_TRIALS} trials) {dr['lanes']['wall_s']:.2f} s ({dr['lanes']['batches']} batches, "
               f"{dr['lanes']['batch_seconds']:.3f} s); killed and resumed {rs['killed_s']:.2f} + {rs['wall_s']:.2f} s "
               f"on {smi}")
     if retrain:
@@ -7870,12 +8259,15 @@ def main() -> int:
             f"streamed on one NCCL rank {dist['stream_nccl']['wall_s']:.2f} s with "
             f"{dist['stream_nccl']['differing_bits']} differing bits from phase 16 (e)'s on {smi}")
     if tiled:
-        b, c, d = tiled["b"], tiled["c"], tiled.get("d") or {}
+        b, c, d, e = tiled["b"], tiled["c"], tiled.get("d") or {}, tiled.get("e") or {}
         log(f"tiled fixed effect on a 2 x 2 grid of gloo ranks sharing the card: the L-BFGS solve "
             f"{max(r['wall_s'] for r in b['ranks']):.3f} s ({b['iterations']} iterations; one card's COO solve "
-            f"{b['one_card_wall_s']:.4f} s), FULL on tiles at d=8,191 {c['wall_s']:.2f} s, cli.train on the grid "
-            f"{d.get('wall_s', float('nan')):.2f} s (one process {d.get('one_process_s', float('nan')):.2f} s); "
-            f"launches per rank S1 {tl.get('s1_per_rank')}, sums {tl.get('sums_per_rank')} on {smi}")
+            f"{b['one_card_wall_s']:.4f} s), FULL on tiles at d=8,191 {c['wall_s']:.2f} s, the dense feature-axis "
+            f"shard's TRON solve {e.get('wall_s', float('nan')):.3f} s ({e.get('iterations')} iterations; one "
+            f"card's {e.get('one_card_wall_s', float('nan')):.4f} s), cli.train on the grid with the dense fixed "
+            f"effect beside {d.get('wall_s', float('nan')):.2f} s (one process "
+            f"{d.get('one_process_s', float('nan')):.2f} s); launches per rank S1 {tl.get('s1_per_rank')}, sums "
+            f"{tl.get('sums_per_rank')}, B1-B3 {tl.get('dense_per_rank')}, B4 {tl.get('sharded_per_rank')} on {smi}")
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))
     ok = not phases.failed

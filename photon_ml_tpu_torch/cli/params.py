@@ -213,8 +213,9 @@ def build_shard_configs(args) -> Dict[str, FeatureShardConfig]:
 def parse_mesh_shape(spec: Optional[str]):
     """``data=4,model=2`` -> the mesh's axes ``{"data": 4, "model": 2}``;
     ''/None is no mesh (one device a process). The port runs one card a
-    process, so the planner takes a data axis of the process count and
-    refuses a model axis (ROADMAP A10)."""
+    process, so the planner takes a grid of ``data * model`` = the process
+    count (a model axis: tiled fixed effects on the whole grid, dense ones
+    replicated over the model axis)."""
     if not spec:
         return None
     kv = parse_kv(spec)

@@ -89,10 +89,11 @@ save of ``robust/checkpoint.py``). ``--mesh-shape data=P`` names the same
 topology. ``--mesh-shape data=D,model=M`` over ``n=D*M`` processes lays
 them out as a (data x model) grid (``parallel.mesh.make_mesh``): a
 ``layout=tiled`` fixed effect solves on every rank of the grid, each data
-row of M processes reads its rows, the random effects are built over the
+row of M processes reads its rows, a dense fixed effect is that data row's
+row shard replicated over the model axis (each model column runs B1-B3
+through B4 over its data subgroup), the random effects are built over the
 data axis, and the ranks of a data row hold the same models; only world
-rank 0 writes (a non-tiled fixed effect under a model axis is ROADMAP
-A10). Liveness (``robust/distributed.py``):
+rank 0 writes. Liveness (``robust/distributed.py``):
 ``--collective-timeout`` bounds every barrier (the sweep boundaries and
 the object collectives' entries; 0 disarms), ``--heartbeat-interval`` and
 ``--heartbeat-timeout`` run the heartbeat plane under
@@ -213,7 +214,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hyper-parameter-shrink-radius", type=float, default=0.25)
     p.add_argument("--mesh-shape", default="",
                    help="data=D[,model=M]: the D*M processes of --distributed as a (data x model) grid, one "
-                        "card each (a model axis takes layout=tiled fixed effects)")
+                        "card each (a model axis shards layout=tiled fixed effects over the whole grid and "
+                        "replicates dense ones over the model axis)")
     p.add_argument("--checkpoint-dir", default=None,
                    help="save the model after every coordinate-descent sweep (and each finished grid "
                         "config); rerunning the same command resumes from the last completed unit")

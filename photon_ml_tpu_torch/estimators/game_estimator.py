@@ -41,15 +41,18 @@ any mesh with a ``layout="tiled"`` fixed effect: ``parallel.mesh.make_mesh``
 over the world, made on the first fit unless ``mesh`` is one already) a
 tiled fixed effect solves on every rank of the grid, and everything else
 runs over the grid's data axis: ``raw`` holds the rank's data row's rows
-(or, in one process, the whole batch), the random effects are built across
-the data axis, and the ranks of a data row hold the same models. A
+(or, in one process, the whole batch), a dense fixed effect is the rank's
+row shard over its ``data`` subgroup, replicated over the model axis (each
+model column runs B1-B3 through B4, the JAX package's
+``shard_batch(ds.batch, mesh)``; the M replicas end bitwise alike), the
+random effects are built across the data axis, and the ranks of a data
+row hold the same models. A
 coordinate with ``hbm_budget_mb`` streams over processes too: each rank
 its own rows of the fixed effect (dense or ELL) and its own entity range of
 the random effect, under the per-rank budget, and ``pipeline_depth`` > 1
 pipelines each rank's staging. The planner refuses a resident ELL / COO
-fixed effect over processes (in the JAX package's words), a non-tiled
-fixed effect under a model axis (ROADMAP A10) and trial lanes over
-processes (as the JAX package refuses them).
+fixed effect over processes and trial lanes over processes, in the JAX
+package's words.
 """
 
 from __future__ import annotations

@@ -474,8 +474,11 @@ def build_fixed_effect_dataset(
     rank's tile of the (data x model)-tiled batch (``RawDataset.to_batch``;
     ``raw`` holds the whole batch, or its data row's rows when read per
     host), its rows the data row's block of the padded global row space.
-    Any other layout under a mesh takes its data axis as ``group`` (a
-    model axis beyond 1 is the dense feature-axis shard, ROADMAP A10).
+    Any other layout under a mesh takes its data axis as ``group``: the
+    JAX package's ``shard_batch(batch, mesh)``, rows over the data axis and
+    replicated over the model axis, so the M ranks of a data row hold the
+    same rows and each model column runs B1-B3 through B4 over its ``data``
+    subgroup.
 
     ``hbm_budget_bytes``: when set and the resident batch's device bytes
     (``fe_streaming.estimate_fe_batch_bytes``) exceed it, the dataset is
@@ -508,20 +511,13 @@ def build_fixed_effect_dataset(
             coordinate_id=coordinate_id, feature_shard=feature_shard, batch=batch, true_dim=d,
             true_n_rows=raw.n_rows * mesh.n_data if local else raw.n_rows,
         )
-    if mesh is not None:
-        from ..plan.planner import A10, not_ported
-
-        if mesh.n_model > 1:
-            raise not_ported(
-                f"coordinate {coordinate_id}: a fixed effect of layout={layout!r} under a model axis (the dense "
-                "feature-axis shard; a huge-d fixed effect takes layout='tiled')", A10,
-            )
-        if mesh.world is not None:
-            group = mesh.data
+    if mesh is not None and mesh.world is not None:
+        # rows over the data axis, replicated over the model axis
+        group = mesh.data
     if group is not None:
         from ..parallel import multihost
-        from ..parallel.mesh import local_batch
-        from ..plan.planner import MULTI_ELL_REFUSAL, SHARD_COO_REFUSAL, PlanError
+        from ..parallel.mesh import MULTI_ELL_REFUSAL, SHARD_COO_REFUSAL, local_batch
+        from ..plan.planner import PlanError
 
         eff_layout = ("dense" if d <= 4096 else "ell") if layout == "auto" else layout
         n_global = raw.n_rows * group.world_size

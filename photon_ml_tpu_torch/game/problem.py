@@ -17,10 +17,12 @@ summed across the ranks bitwise alike (ops/fused_glm.py's ``sharded_*``),
 every rank starts from rank 0's ``w0``, and the solver's host loop then
 fetches the same scalars and takes the same decisions on every rank.
 
-Over a (data x model)-tiled batch (``parallel/sparse.py``) ``run`` is the
-same call on every rank of the grid: the warm start and the prior are
-padded to the batch's padded dim and cut to the rank's model slice, the
-solver state is ``[d_loc]`` (its reductions summed over the data row,
+Over a (data x model)-tiled batch (the sparse tiles of
+``parallel/sparse.py`` or the dense tiles of
+``parallel.mesh.shard_batch(shard_features_dim=True)``) ``run`` is the same
+call on every rank of the grid: the warm start and the prior are padded to
+the batch's padded dim and cut to the rank's model slice, the solver state
+is ``[d_loc]`` (its reductions summed over the data row,
 ``GLMObjective.coefficient_axis``), and the model comes back whole on every
 rank, in the original space, still padded (the coordinate trims it).
 """
@@ -58,16 +60,20 @@ def batch_route(batch: LabeledBatch) -> str:
       (kernels B1-B3 of ops/fused_glm.py);
     - ``"sparse_kernel"``: an ELL or sorted-COO float32/bfloat16 batch on a
       CUDA device (the segment kernel of ops/sparse.py);
-    - ``"tiled_kernel"``: a (data x model)-tiled float32 batch on a CUDA
-      device (the segment kernel on the rank's tile, the rank-order sum
-      over the grid's subgroups);
+    - ``"tiled_kernel"``: a (data x model)-tiled sparse float32 batch on a
+      CUDA device (the segment kernel on the rank's tile, the rank-order
+      sum over the grid's subgroups);
+    - ``"tiled_dense"``: a dense tile of the feature-axis shard on a CUDA
+      device (``torch.mv`` on the rank's tile, as the JAX package sends
+      such a batch down its jnp path, and the rank-order sum);
     - ``"plain_cpu"``: a batch on the CPU (the plain versions);
     - ``"plain_float64"``: a float64 batch on a CUDA device takes the plain
       versions on the card, as the JAX package sends float64 to its XLA
       path (``pallas_glm.eligible``).
 
     Anything else raises: nothing on the card falls back to the plain
-    versions."""
+    versions. A row-sharded sparse batch is refused in the JAX package's
+    words (``parallel.mesh``'s ``SHARD_COO_REFUSAL`` / ``MULTI_ELL_REFUSAL``)."""
     f = batch.features
     x = f.values
     dev = x.device
@@ -77,10 +83,9 @@ def batch_route(batch: LabeledBatch) -> str:
         if group.device != dev:
             raise ValueError(f"a shard on {dev} for a rank whose device is {group.device}")
         if not f.is_dense and not tiled:
-            raise NotImplementedError(
-                "a row-sharded ELL or COO batch is not ported yet (ROADMAP A10); a huge-d batch over ranks is "
-                "layout='tiled'"
-            )
+            from ..parallel.mesh import MULTI_ELL_REFUSAL, SHARD_COO_REFUSAL
+
+            raise NotImplementedError(SHARD_COO_REFUSAL if f.layout == "coo" else MULTI_ELL_REFUSAL)
     for name in ("labels", "offsets", "weights"):
         if getattr(batch, name).device != dev:
             raise ValueError(f"batch.{name} is not on the features' device {dev}")
@@ -95,7 +100,10 @@ def batch_route(batch: LabeledBatch) -> str:
             f"the CUDA kernels take float32 or bfloat16 features, got {x.dtype}"
         )
     else:
-        route = "dense_kernel" if f.is_dense else ("tiled_kernel" if tiled else "sparse_kernel")
+        if tiled:
+            route = "tiled_dense" if f.tile.is_dense else "tiled_kernel"
+        else:
+            route = "dense_kernel" if f.is_dense else "sparse_kernel"
     return route
 
 

@@ -19,8 +19,9 @@ Two decode engines: the native C++ columnar decoder (``native``) and the
 pure-Python codec (``io/avro.py``); ``DECODED_PARTS`` counts the part files
 each engine decoded, so a run can show which one ran. The chunked reader
 records the JAX package's ingest metrics (``photon_ingest_*``) and spans
-(``ingest.chunked``, ``ingest.decode``) in the ``obs`` registry. The
-mesh-tiled sparse layout (``layout="tiled"``) is ROADMAP A10.
+(``ingest.chunked``, ``ingest.decode``) in the ``obs`` registry.
+``to_batch(layout="tiled", mesh=...)`` builds a rank's tile of the
+(data x model)-tiled sparse layout (``parallel/sparse.py``).
 """
 
 from __future__ import annotations

@@ -82,7 +82,9 @@ SUM_LAUNCHES = {"rank_order_sum": 0}
 SHIFT_LAUNCHES = {"fused_hessian_stats": 0}
 ROUTES = {"ring_bulk_copy": 0, "ring_plain_loads": 0, "staged": 0}
 # the objective route of each solve (game/problem.py ``_fusion_mode``)
-OBJECTIVE_ROUTES = {"dense_kernel": 0, "sparse_kernel": 0, "tiled_kernel": 0, "plain_cpu": 0, "plain_float64": 0}
+OBJECTIVE_ROUTES = {
+    "dense_kernel": 0, "sparse_kernel": 0, "tiled_kernel": 0, "tiled_dense": 0, "plain_cpu": 0, "plain_float64": 0,
+}
 
 # sweep modes, bodies, finalizes and launch steps of csrc/fused_glm.cu
 # (enum Mode, enum Body, enum Finalize, kStep*)
@@ -505,7 +507,9 @@ def _sharded(group, name: str, mode: int, plain: bool, x: Tensor, coef, v, label
         dtype = outs[0].dtype
         slots[group.rank] = _flat(mode, outs)
     group.gather_slots(slots)
-    total = rank_order_sum(slots, dtype)
+    # the sum kernel writes float32: a float64 batch's sweep (the route
+    # plain_float64) sums by the plain version, as DataParallelGroup.sum does
+    total = rank_order_sum(slots, dtype) if dtype == torch.float32 else rank_order_sum_plain(slots, dtype)
     if launch:
         SHARDED_LAUNCHES[name] += 1
     return _split(mode, x.shape[1], total)

@@ -43,9 +43,12 @@ in rank order, B4's pattern), and inverts its Cholesky factor in column
 chunks. A matrix that is not positive definite gives NaN variances, as the
 JAX package's does.
 
-A (data x model)-tiled batch (``parallel/sparse.py``) takes the JAX
-package's unfused branch over its tile: the coefficients, gradient and
-normalization stats are this rank's ``[d_loc]`` model slice, the margins
+A (data x model)-tiled batch (``parallel.mesh.TiledMatrix``: the sparse
+tiles of ``parallel/sparse.py``, or the dense tiles of the feature-axis
+shard, whose products are ``torch.mv`` on the tile as the JAX package sends
+that batch down its jnp path) takes the JAX package's unfused branch over
+its tile: the coefficients, gradient and normalization stats are this
+rank's ``[d_loc]`` model slice, the margins
 its data row's ``[n_loc]`` block. Each evaluation sums over the grid's
 subgroups in two collectives, the reductions that do not depend on each
 other gathered into one: the tile's margins with the coefficient dots
@@ -130,7 +133,8 @@ class GLMObjective:
 
     @property
     def tiled(self) -> bool:
-        """The batch is a (data x model)-tiled one (``parallel/sparse.py``)."""
+        """The batch is a (data x model)-tiled one (``parallel.mesh.TiledMatrix``:
+        sparse or dense tiles)."""
         return self.batch.features.layout == "tiled"
 
     @property

@@ -37,8 +37,29 @@ so B4's slot gathers make the host wait for nothing.
 slot row, one slot gather, the rank-order sum, so that every rank of the
 group holds the same bits.
 
-The dense feature-axis shard (``shard_batch(shard_features_dim=True)``) and
-row-sharded ELL / COO batches are ROADMAP A10 and raise.
+On the grid (a ``MeshGroup``):
+
+- ``shard_batch(batch, mesh)``: rows over the data axis, replicated over
+  the model axis (each rank of a model column runs B4 over its ``data``
+  subgroup: the JAX package's ``shard_batch(batch, mesh)``);
+- ``shard_batch(batch, mesh, shard_features_dim=True)``: the dense
+  feature-axis shard, the JAX package's ``P(DATA, MODEL)`` placement. The
+  rank (i, j) keeps the dense tile ``X[rows_i, cols_j]`` of a
+  ``TiledDenseMatrix``: its rows padded as ``pad_rows_for_group`` pads
+  them, its columns to a multiple of M with zero columns (``tile_sizes``,
+  the sparse tile's rule);
+- ``shard_coefficients``: a whole coefficient vector's model slice.
+
+``TiledMatrix`` is the product interface a tile offers ``ops/glm.py``'s
+tiled branch: ``matvec`` summed over the data row, ``rmatvec`` /
+``sq_rmatvec`` over the model column (``DataParallelGroup.sum``), and the
+FULL Hessian's ``xtcx``. A dense tile's products are plain matrix products
+(``torch.mv``; the JAX package computes them outside any Pallas kernel);
+the sorted-COO tile of ``parallel/sparse.py`` runs the segment kernel.
+
+A sparse batch does not row-shard, in the JAX package's words: a COO batch
+is not row-partitionable, and every rank of a group here is a process of
+its own, so an ELL batch's width would differ from rank to rank.
 """
 
 from __future__ import annotations
@@ -51,7 +72,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..device import resolve_device
-from ..ops.features import FeatureMatrix, LabeledBatch, pad_batch
+from ..ops.features import FeatureMatrix, LabeledBatch, _as_tensor, pad_batch
 from ..ops.fused_glm import rank_order_sum, rank_order_sum_plain
 from .multihost import equal_host_share
 
@@ -60,17 +81,29 @@ Tensor = torch.Tensor
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 
-_FEATURE_AXIS_TODO = (
-    "the dense feature-axis shard (shard_batch(shard_features_dim=True)) is not ported yet "
-    "(ROADMAP A10); a huge-d fixed effect shards its coefficients over the model axis as "
-    "layout='tiled' (parallel.sparse.tiled_sparse_batch)"
+# the JAX package's refusals of a sparse batch over several processes or a
+# mesh (its shard_batch's; the planner raises them at plan time)
+MULTI_ELL_REFUSAL = (
+    "multi-process ELL sharding is not supported: the ELL width "
+    "is the max nnz of the LOCAL rows, so per-host shapes (and "
+    "the compiled programs) would disagree; use a dense layout "
+    "(d <= 4096) for multi-process runs"
 )
-_SPARSE_TODO = (
-    "shard_batch takes dense batches only: the reference refuses the column-sorted COO layout "
-    "(its entries are column-major, not row-partitionable; for a mesh-sharded huge-d batch build "
-    "layout='tiled', parallel.sparse.tiled_sparse_batch) and ELL across processes (the ELL "
-    "width is the local rows' max nnz, so the ranks' shapes would disagree), and every rank of a "
-    "group here is a process of its own; row-sharded ELL batches are ROADMAP A10"
+SHARD_COO_REFUSAL = (
+    "shard_batch does not support the column-sorted COO layout (its "
+    "nnz axis is column-major, not row-partitionable); for a "
+    "mesh-sharded huge-d batch build layout='tiled' "
+    "(parallel.sparse.tiled_sparse_batch)"
+)
+
+# the JAX package's _reject_multiprocess_model_axis: a DataParallelGroup
+# is a data axis alone, so over several processes it has no model axis to
+# shard (a MeshGroup's ranks take the mesh's devices' place and do)
+MULTIPROCESS_MODEL_AXIS_REFUSAL = (
+    "model-axis sharding across processes is not supported yet: "
+    "callers pass full arrays, but each process may only contribute "
+    "its own model-axis slice; multi-process runs shard the data "
+    "axis only"
 )
 
 
@@ -356,6 +389,148 @@ def _data_axis(group):
     return group.data if isinstance(group, MeshGroup) else group
 
 
+def tile_sizes(n_rows: int, dim: int, mesh: MeshGroup, local: bool = False):
+    """(n_loc, n_pad, d_loc, d_pad) of a grid's tiles: a data row's rows and
+    the padded global row count, a model slice's columns and the padded dim
+    (at least one row and column a tile). ``local``: ``n_rows`` are this
+    data row's own rows (a per-host read), the same count on every data row."""
+    D, M = mesh.n_data, mesh.n_model
+    if local:
+        n_loc = max(int(n_rows), 1)
+        n_pad = n_loc * D
+    else:
+        n_pad = max(-(-int(n_rows) // D) * D, D)
+        n_loc = n_pad // D
+    d_pad = max(-(-int(dim) // M) * M, M)
+    return n_loc, n_pad, d_pad // M, d_pad
+
+
+# the FULL Hessian's default row chunk (the JAX package's rule): at least
+# 4,096 rows, at most 64 chunks while a chunk's gathered rows stay under
+# 256 MiB
+_XTCX_MIN_CHUNK = 4096
+_XTCX_MAX_CHUNKS = 64
+_XTCX_CHUNK_BYTES = 256 << 20
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class TiledMatrix:
+    """A ``FeatureMatrix``-shaped matrix tiled over a (data, model) grid:
+    this rank's tile ``tile`` (a ``[n_loc, d_loc]`` ``FeatureMatrix`` in
+    local rows and columns) at grid position ``(mesh.data_index,
+    mesh.model_index)``. ``dim`` / ``n_rows`` are the padded global sizes
+    (multiples of the axes, ``tile_sizes``); ``dim_true`` the unpadded
+    feature count. The coefficient slices a rank passes are its ``[d_loc]``
+    model slice, the row vectors its data row's ``[n_loc]`` block."""
+
+    dim: int
+    n_rows: int
+    mesh: MeshGroup
+    tile: FeatureMatrix
+    dim_true: int = 0
+
+    @property
+    def layout(self) -> str:
+        return "tiled"
+
+    @property
+    def is_dense(self) -> bool:
+        return False
+
+    @property
+    def n_local_rows(self) -> int:
+        return self.n_rows // self.mesh.n_data
+
+    @property
+    def d_local(self) -> int:
+        return self.dim // self.mesh.n_model
+
+    @property
+    def values(self) -> Tensor:
+        """The tile's stored values."""
+        return self.tile.values
+
+    def matvec(self, w: Tensor, plain: bool = False) -> Tensor:
+        """``X w`` -> this data row's ``[n_loc]`` margins, for this rank's
+        ``[d_loc]`` slice ``w``: the tile's product summed over the data row."""
+        return self.mesh.model.sum(self.tile.matvec(w, plain=plain), plain=plain)
+
+    def rmatvec(self, c: Tensor, plain: bool = False) -> Tensor:
+        """``X^T c`` -> this rank's ``[d_loc]`` slice, for its data row's
+        ``[n_loc]`` block ``c``: the tile's product summed over the model column."""
+        return self.mesh.data.sum(self.tile.rmatvec(c, plain=plain), plain=plain)
+
+    def sq_rmatvec(self, c: Tensor, plain: bool = False) -> Tensor:
+        """``(X * X)^T c`` -> this rank's ``[d_loc]`` slice."""
+        return self.mesh.data.sum(self.tile.sq_rmatvec(c, plain=plain), plain=plain)
+
+    def default_row_chunk(self) -> int:
+        """The JAX package's default chunk of ``xtcx``: at least 4,096 rows,
+        raised until there are at most 64 chunks as long as a chunk's
+        gathered rows stay under 256 MiB."""
+        itemsize = self.values.element_size()
+        mem_cap_rows = max(_XTCX_CHUNK_BYTES // (itemsize * max(self.dim, 1)), 1024)
+        return max(_XTCX_MIN_CHUNK, min(-(-self.n_local_rows // _XTCX_MAX_CHUNKS), mem_cap_rows))
+
+    def xtcx(self, c: Tensor, row_chunk: Optional[int] = None) -> Tensor:
+        """``X^T diag(c) X`` -> this rank's ``[d_loc, dim]`` row block in
+        ``c``'s dtype, summed over the model column: the FULL-variance
+        Hessian on tiles (``xtcx_partial`` summed as a B4 sum is, in
+        pieces). The ceiling on ``dim`` is the caller's
+        (``ops.glm.check_full_variance_dim``): the whole matrix is inverted
+        on one device afterwards."""
+        from ..ops.glm import sum_over_ranks
+
+        h = self.xtcx_partial(c, row_chunk)
+        return h.to(c.dtype) if self.mesh.n_data == 1 else sum_over_ranks(self.mesh.data, h, c.dtype)
+
+    def _float64_row_chunks(self, chunk: int):
+        """``(lo, hi, xt)`` for each window of ``chunk`` local rows: the
+        tile's rows ``[lo, hi)`` as a float64 ``[hi - lo, d_loc]`` matrix."""
+        raise NotImplementedError
+
+    def xtcx_partial(self, c: Tensor, row_chunk: Optional[int] = None) -> Tensor:
+        """This rank's float64 ``[d_loc, dim]`` share of ``X^T diag(c) X``
+        over its data row's rows, not yet summed over the model column. The
+        rank scans its rows in ``row_chunk`` windows (default
+        ``default_row_chunk``): the chunk of its tile as float64 ``[chunk,
+        d_loc]``, the chunk's full rows gathered over its data row into
+        ``[chunk, dim]``, and ``xt^T (c * xg)`` added into its block, so the
+        peak is one chunk's rows and the block, never ``n x dim``."""
+        chunk = min(row_chunk or self.default_row_chunk(), self.n_local_rows)
+        h = torch.zeros((self.d_local, self.dim), dtype=torch.float64, device=c.device)
+        c64 = c.to(torch.float64)
+        for lo, hi, xt in self._float64_row_chunks(chunk):
+            # the chunk's full rows: every model slice's columns, in model order
+            (xg_t,) = self.mesh.gather_model([xt.T.contiguous()])
+            h.addmm_(xt.T, c64[lo:hi, None] * xg_t.T)
+        return h
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class TiledDenseMatrix(TiledMatrix):
+    """The dense feature-axis shard (``shard_batch(shard_features_dim=True)``):
+    ``tile`` is this rank's dense ``X[rows_i, cols_j]``, zero-padded. Its
+    products are ``torch.mv`` on the tile (the same bits for the same input
+    on one device) and the grid's exact sums."""
+
+    def to_dense(self) -> Tensor:
+        """The whole padded ``[n_rows, dim]`` matrix on every rank: the
+        tile's columns gathered over the data row, then the rows over the
+        model column (every rank of the grid must call it)."""
+        (xt,) = self.mesh.gather_model([self.tile.dense.T.contiguous()])
+        if self.mesh.n_data == 1:
+            return xt.T.contiguous()
+        (x,) = self.mesh.data.gather_rows([xt.T.contiguous()])
+        return x
+
+    def _float64_row_chunks(self, chunk: int):
+        x = self.tile.dense
+        for lo in range(0, self.n_local_rows, chunk):
+            hi = min(lo + chunk, self.n_local_rows)
+            yield lo, hi, x[lo:hi].to(torch.float64)
+
+
 def row_range(n_rows: int, group: DataParallelGroup):
     """This rank's ``[start, stop)`` of the real rows; the rank holds
     ``equal_host_share`` rows, the last ``share - (stop - start)`` of them
@@ -370,19 +545,45 @@ def pad_rows_for_group(batch: LabeledBatch, group: DataParallelGroup) -> Labeled
     return pad_batch(batch, equal_host_share(batch.n_rows, group.world_size) * group.world_size)
 
 
+def _grid_of(group, what: str) -> "MeshGroup":
+    """``group``, the grid whose model axis shards the features: a
+    ``MeshGroup`` (``make_mesh``; one rank's is ``make_mesh(1, 1)``), as
+    the JAX package's counterparts take a mesh. A ``DataParallelGroup``
+    over several processes has no model axis and is refused in the JAX
+    package's words (``_reject_multiprocess_model_axis``)."""
+    if isinstance(group, MeshGroup):
+        return group
+    if isinstance(group, DataParallelGroup) and group.world_size > 1:
+        raise NotImplementedError(f"{what}: {MULTIPROCESS_MODEL_AXIS_REFUSAL}")
+    raise TypeError(f"{what} takes a MeshGroup (make_mesh), got {type(group).__name__}")
+
+
 def shard_batch(
-    batch: LabeledBatch, group: DataParallelGroup, shard_features_dim: bool = False
+    batch: LabeledBatch, group, shard_features_dim: bool = False
 ) -> LabeledBatch:
-    """This rank's contiguous row range of a whole dense batch, padded as
-    ``pad_rows_for_group`` pads, copied (so the whole batch can be freed)
-    and marked with ``group``: its sweeps sum across the ranks."""
-    if shard_features_dim:
-        raise NotImplementedError(_FEATURE_AXIS_TODO)
+    """This rank's share of a whole dense batch (every rank passes the
+    same), copied (so the whole batch can be freed).
+
+    ``shard_features_dim=False``: its contiguous row range over ``group``
+    (a ``DataParallelGroup``, or a ``MeshGroup``'s data axis: the ranks of
+    a data row keep the same rows), padded as ``pad_rows_for_group`` pads,
+    and marked with that group: its sweeps sum across the ranks.
+
+    ``shard_features_dim=True``: the rank's dense tile on the grid
+    ``group`` (a ``MeshGroup``; ``TiledDenseMatrix``), on its device, with its data row's
+    labels, offsets and weights (padded rows carry weight 0); ``group`` on
+    the batch is the grid's ``data`` subgroup when the grid spans ranks, as
+    a tiled sparse batch's is.
+
+    Sparse batches are refused in the JAX package's words."""
     if batch.group is not None:
         raise ValueError("the batch is already sharded")
     f = batch.features
     if not f.is_dense:
-        raise NotImplementedError(_SPARSE_TODO)
+        raise NotImplementedError(SHARD_COO_REFUSAL if f.layout == "coo" else MULTI_ELL_REFUSAL)
+    if shard_features_dim:
+        return _tile_dense_batch(batch, _grid_of(group, "shard_batch(shard_features_dim=True)"))
+    group = _data_axis(group)
     padded = pad_rows_for_group(batch, group)
     share = padded.n_rows // group.world_size
     lo, hi = group.rank * share, (group.rank + 1) * share
@@ -394,6 +595,50 @@ def shard_batch(
         weights=take(padded.weights),
         group=group,
     )
+
+
+def _tile_dense_batch(batch: LabeledBatch, mesh: "MeshGroup") -> LabeledBatch:
+    """The rank's ``[n_loc, d_loc]`` tile of a whole dense batch and its data
+    row's ``[n_loc]`` labels, offsets and weights."""
+    x = batch.features.dense
+    n, d = x.shape
+    n_loc, n_pad, d_loc, d_pad = tile_sizes(n, d, mesh)
+    r0, c0 = mesh.data_index * n_loc, mesh.model_index * d_loc
+    dev = mesh.device
+    rows = x[r0 : min(r0 + n_loc, n), c0 : min(c0 + d_loc, d)]
+    tile = torch.zeros((n_loc, d_loc), dtype=x.dtype, device=dev)
+    tile[: rows.shape[0], : rows.shape[1]] = rows.to(dev)
+
+    def block(a):
+        out = torch.zeros(n_loc, dtype=a.dtype, device=dev)
+        part = a[r0 : r0 + n_loc]
+        out[: part.shape[0]] = part.to(dev)
+        return out
+
+    return LabeledBatch(
+        features=TiledDenseMatrix(
+            dim=d_pad, n_rows=n_pad, mesh=mesh, tile=FeatureMatrix(dim=d_loc, dense=tile), dim_true=d,
+        ),
+        labels=block(batch.labels),
+        offsets=block(batch.offsets),
+        weights=block(batch.weights),
+        group=None if mesh.world is None else mesh.data,
+    )
+
+
+def shard_coefficients(w, mesh, dtype=None) -> Tensor:
+    """This rank's model slice of a whole coefficient vector ``w`` (every
+    rank passes the same), zero-padded to the tiles' padded dim, on the
+    grid's device: the JAX package's ``P("model")`` placement. ``dtype``
+    defaults to ``w``'s (float32 for an array that is not a tensor)."""
+    mesh = _grid_of(mesh, "shard_coefficients")
+    if dtype is None:
+        dtype = w.dtype if isinstance(w, Tensor) else torch.float32
+    w = _as_tensor(w, dtype, mesh.device)
+    d_pad = tile_sizes(0, w.shape[0], mesh)[3]
+    if d_pad > w.shape[0]:
+        w = torch.cat([w, w.new_zeros(d_pad - w.shape[0])])
+    return mesh.model_slice(w).clone()
 
 
 def local_batch(

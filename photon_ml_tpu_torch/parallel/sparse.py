@@ -8,7 +8,9 @@ one ``[d_loc]`` slice of every solver vector, and the batch gradient
 
 Each tile is a sorted-COO ``FeatureMatrix`` of ``[n_loc, d_loc]`` (local
 rows and columns), so its products run S1, the segment kernel of
-``ops/sparse.py``, on the card (its plain version on the CPU):
+``ops/sparse.py``, on the card (its plain version on the CPU). The product
+interface is ``parallel/mesh.py``'s ``TiledMatrix``, which the dense tile
+of ``shard_batch(shard_features_dim=True)`` shares:
 
 - ``matvec``: the tile's ``[n_loc]`` partial margins, summed over the data
   row (the ranks sharing the rows; ``psum(..., "model")``);
@@ -19,7 +21,7 @@ Every sum over a subgroup is ``DataParallelGroup.sum``: float64 slots, one
 gather, the rank-order sum, so the ranks of a subgroup hold the same bits.
 
 The host build (``tile_sparse_matrix``) pads the rows to a multiple of D and
-the columns to a multiple of M (padded rows carry weight 0, padded columns
+the columns to a multiple of M (``mesh.tile_sizes``) (padded rows carry weight 0, padded columns
 no entries); ``dim`` and ``n_rows`` are the padded global sizes and
 ``dim_true`` the real feature count. Each rank keeps the entries of its own
 tile; its padding entries are the COO layout's (``col = d_loc - 1``,
@@ -41,66 +43,14 @@ import numpy as np
 import torch
 
 from ..ops.features import FeatureMatrix, LabeledBatch, _as_tensor, sorted_coo_matrix
-from .mesh import MeshGroup
+from .mesh import MeshGroup, TiledMatrix, shard_coefficients, tile_sizes
 
 Tensor = torch.Tensor
 
-# the FULL Hessian's default row chunk (the JAX package's rule): at least
-# 4,096 rows, at most 64 chunks while a chunk's gathered rows stay under
-# 256 MiB
-_XTCX_MIN_CHUNK = 4096
-_XTCX_MAX_CHUNKS = 64
-_XTCX_CHUNK_BYTES = 256 << 20
-
-
 @dataclasses.dataclass(frozen=True, eq=False)
-class TiledSparseMatrix:
-    """A ``FeatureMatrix``-shaped sparse matrix tiled over a (data, model)
-    grid: this rank's tile ``tile`` (a sorted-COO ``[n_loc, d_loc]``
-    matrix) at grid position ``(mesh.data_index, mesh.model_index)``.
-    ``dim`` / ``n_rows`` are the padded global sizes (multiples of the
-    axes); ``dim_true`` the unpadded feature count."""
-
-    dim: int
-    n_rows: int
-    mesh: MeshGroup
-    tile: FeatureMatrix
-    dim_true: int = 0
-
-    @property
-    def layout(self) -> str:
-        return "tiled"
-
-    @property
-    def is_dense(self) -> bool:
-        return False
-
-    @property
-    def n_local_rows(self) -> int:
-        return self.n_rows // self.mesh.n_data
-
-    @property
-    def d_local(self) -> int:
-        return self.dim // self.mesh.n_model
-
-    @property
-    def values(self) -> Tensor:
-        """The tile's stored values (``coo_vals``)."""
-        return self.tile.coo_vals
-
-    def matvec(self, w: Tensor, plain: bool = False) -> Tensor:
-        """``X w`` -> this data row's ``[n_loc]`` margins, for this rank's
-        ``[d_loc]`` slice ``w``: the tile's product summed over the data row."""
-        return self.mesh.model.sum(self.tile.matvec(w, plain=plain), plain=plain)
-
-    def rmatvec(self, c: Tensor, plain: bool = False) -> Tensor:
-        """``X^T c`` -> this rank's ``[d_loc]`` slice, for its data row's
-        ``[n_loc]`` block ``c``: the tile's product summed over the model column."""
-        return self.mesh.data.sum(self.tile.rmatvec(c, plain=plain), plain=plain)
-
-    def sq_rmatvec(self, c: Tensor, plain: bool = False) -> Tensor:
-        """``(X * X)^T c`` -> this rank's ``[d_loc]`` slice."""
-        return self.mesh.data.sum(self.tile.sq_rmatvec(c, plain=plain), plain=plain)
+class TiledSparseMatrix(TiledMatrix):
+    """A ``TiledMatrix`` whose tile is a sorted-COO ``[n_loc, d_loc]``
+    matrix: its products run S1 on the card."""
 
     def to_dense(self) -> Tensor:
         raise NotImplementedError(
@@ -109,67 +59,22 @@ class TiledSparseMatrix:
             "sharded xtcx path without materializing X)"
         )
 
-    def default_row_chunk(self) -> int:
-        """The JAX package's default chunk of ``xtcx``: at least 4,096 rows,
-        raised until there are at most 64 chunks as long as a chunk's
-        gathered rows stay under 256 MiB."""
-        itemsize = self.values.element_size()
-        mem_cap_rows = max(_XTCX_CHUNK_BYTES // (itemsize * max(self.dim, 1)), 1024)
-        return max(_XTCX_MIN_CHUNK, min(-(-self.n_local_rows // _XTCX_MAX_CHUNKS), mem_cap_rows))
-
-    def xtcx(self, c: Tensor, row_chunk: Optional[int] = None) -> Tensor:
-        """``X^T diag(c) X`` -> this rank's ``[d_loc, dim]`` row block in
-        ``c``'s dtype, summed over the model column: the FULL-variance
-        Hessian on tiles (``xtcx_partial`` summed as a B4 sum is, in
-        pieces). The ceiling on ``dim`` is the caller's
-        (``ops.glm.check_full_variance_dim``): the whole matrix is inverted
-        on one device afterwards."""
-        from ..ops.glm import sum_over_ranks
-
-        h = self.xtcx_partial(c, row_chunk)
-        return h.to(c.dtype) if self.mesh.n_data == 1 else sum_over_ranks(self.mesh.data, h, c.dtype)
-
-    def xtcx_partial(self, c: Tensor, row_chunk: Optional[int] = None) -> Tensor:
-        """This rank's float64 ``[d_loc, dim]`` share of ``X^T diag(c) X``
-        over its data row's rows, not yet summed over the model column. The
-        rank scans its rows in ``row_chunk`` windows (default
-        ``default_row_chunk``): it densifies the chunk of its tile to
-        ``[chunk, d_loc]``, gathers the chunk's full rows over its data row
-        into ``[chunk, dim]`` and adds ``xt^T (c * xg)`` into its block, so
-        the peak is one chunk's rows and the block, never ``n x dim``."""
-        n_loc, d_loc = self.n_local_rows, self.d_local
-        chunk = min(row_chunk or self.default_row_chunk(), n_loc)
+    def _float64_row_chunks(self, chunk: int):
+        """Each window's entries (the tile's entries sorted by row once)
+        densified into ``[chunk, d_loc]``."""
+        n_loc = self.n_local_rows
         t = self.tile
-        dev = c.device
+        dev = t.coo_vals.device
         rows, order = torch.sort(t.coo_rows.long(), stable=True)
         cols = t.coo_cols.long()[order]
         vals = t.coo_vals[order].to(torch.float64)
         bounds = torch.searchsorted(rows, torch.arange(0, n_loc + chunk, chunk, device=dev)).tolist()
-        h = torch.zeros((d_loc, self.dim), dtype=torch.float64, device=dev)
-        c64 = c.to(torch.float64)
         for k, lo in enumerate(range(0, n_loc, chunk)):
             hi = min(lo + chunk, n_loc)
             a, b = bounds[k], bounds[k + 1]
-            xt = torch.zeros((hi - lo, d_loc), dtype=torch.float64, device=dev)
+            xt = torch.zeros((hi - lo, self.d_local), dtype=torch.float64, device=dev)
             xt.index_put_((rows[a:b] - lo, cols[a:b]), vals[a:b], accumulate=True)
-            # the chunk's full rows: every model slice's columns, in model order
-            (xg_t,) = self.mesh.gather_model([xt.T.contiguous()])
-            h.addmm_(xt.T, c64[lo:hi, None] * xg_t.T)
-        return h
-
-
-def _padded_sizes(n_rows: int, dim: int, mesh: MeshGroup, local: bool):
-    """(n_loc, n_pad, d_loc, d_pad): a data row's rows and the padded global
-    row count, a model slice's columns and the padded dim."""
-    D, M = mesh.n_data, mesh.n_model
-    if local:
-        n_loc = max(int(n_rows), 1)
-        n_pad = n_loc * D
-    else:
-        n_pad = max(-(-int(n_rows) // D) * D, D)
-        n_loc = n_pad // D
-    d_pad = max(-(-int(dim) // M) * M, M)
-    return n_loc, n_pad, d_pad // M, d_pad
+            yield lo, hi, xt
 
 
 def tile_sparse_matrix(
@@ -192,7 +97,7 @@ def tile_sparse_matrix(
     keeps the entries of its model slice's columns, in local coordinates,
     sorted by column (stable: input order within a column). The tile lives
     on the mesh's device."""
-    n_loc, n_pad, d_loc, d_pad = _padded_sizes(n_rows, dim, mesh, local)
+    n_loc, n_pad, d_loc, d_pad = tile_sizes(n_rows, dim, mesh, local)
     rows = np.asarray(rows, dtype=np.int64)
     cols = np.asarray(cols, dtype=np.int64)
     vals = np.asarray(vals)
@@ -245,6 +150,5 @@ def tiled_sparse_batch(
 def replicated_coefficients(w, mesh: MeshGroup, dtype=torch.float32) -> Tensor:
     """This rank's model-axis slice of a whole ``[dim]``-padded coefficient
     vector (every rank passes the whole vector, as every JAX process does),
-    on the mesh's device: the JAX package's placement sharded over the model
-    axis."""
-    return mesh.model_slice(_as_tensor(w, dtype, mesh.device)).clone()
+    on the mesh's device: ``parallel.mesh.shard_coefficients`` in ``dtype``."""
+    return shard_coefficients(w, mesh, dtype)

@@ -17,19 +17,20 @@ the lane path and the retrain chain do not compose with, and
 ``_check_coordinate`` what the streamed fixed effect does not, in the JAX
 package's words). Several processes (``n_processes`` > 1, ``--distributed``)
 resolve with no mesh or with a (data x model) grid of the world size (one
-card a rank: the JAX mesh's counterpart); a fixed effect is dense, or
-``layout='tiled'`` (the (data x model)-tiled sparse batch, which needs a
-mesh, in the JAX package's words, and takes no ``feature_dtype``). Over
-processes a coordinate streams as well (each rank streams its own rows, or
+card a rank: the JAX mesh's counterpart); a fixed effect is dense (under a
+model axis its rows sharded over the data axis and replicated over the
+model axis, the JAX package's "row+model-sharded"), or ``layout='tiled'``
+(the (data x model)-tiled sparse batch, which needs a mesh, in the JAX
+package's words, and takes no ``feature_dtype``). Over processes a
+coordinate streams as well (each rank streams its own rows, or
 its own entity range, under the per-rank budget: the JAX package's
 "host-sharded rows (streamed slices)" and "entity-sharded (host-resident
 blocks)"), a streamed fixed effect dense or ELL, and the sweep pipelines
 (also on the tiled grid). What the JAX package refuses stays refused in its
-words: a resident ELL or COO fixed effect over processes, and a budget on a
-fixed effect that is not row-sliceable. What the port has not ported is
-refused with a ``PlanError`` that names its ROADMAP item (A10): a grid other
-than the process count, and a dense or other non-tiled fixed effect under a
-model axis (the dense feature-axis shard).
+words: a resident ELL or COO fixed effect over processes, a budget on a
+fixed effect that is not row-sliceable, and trial lanes over processes.
+What the port has not ported is refused with a ``PlanError`` that names its
+ROADMAP item (A10): a grid other than the process count.
 ``plan_fingerprint`` and ``check_checkpoint_topology`` are the JAX package's,
 so a checkpoint's manifest speaks the same topology contract.
 
@@ -204,11 +205,6 @@ def _check_coordinate(cc, axes=None) -> None:
             f"coordinate {cc.name}: layout='tiled' requires the "
             "estimator to be built with a device mesh"
         )
-    if axes is not None and axes[MODEL_AXIS] > 1 and not cc.is_random_effect and cc.layout != "tiled":
-        raise not_ported(
-            f"coordinate {cc.name}: a fixed effect of layout={cc.layout!r} under a model axis (the dense "
-            "feature-axis shard; a huge-d fixed effect takes layout='tiled')", A10,
-        )
     if cc.feature_dtype is not None and dtype_name(cc.feature_dtype) not in ("float32", "bfloat16"):
         raise PlanError(f"coordinate {cc.name}: feature_dtype must be float32 or bfloat16")
 
@@ -251,33 +247,22 @@ def _sharding(cc, axes, multi: bool) -> str:
     return "row-sharded" if multi else "single-device"
 
 
-# the JAX package's refusals of a resident sparse fixed effect over several
-# processes or a mesh (its parallel.mesh.shard_batch's, raised at plan time)
-MULTI_ELL_REFUSAL = (
-    "multi-process ELL sharding is not supported: the ELL width "
-    "is the max nnz of the LOCAL rows, so per-host shapes (and "
-    "the compiled programs) would disagree; use a dense layout "
-    "(d <= 4096) for multi-process runs"
-)
-SHARD_COO_REFUSAL = (
-    "shard_batch does not support the column-sorted COO layout (its "
-    "nnz axis is column-major, not row-partitionable); for a "
-    "mesh-sharded huge-d batch build layout='tiled' "
-    "(parallel.sparse.tiled_sparse_batch)"
-)
-
-
 def _check_multiprocess_coordinate(cc, axes, multi: bool) -> None:
     """A resident sparse fixed effect over several processes or a mesh, in
     the JAX package's words: a COO batch is not row-partitionable, and a
     resident ELL batch's width is its local rows' max nnz, so the ranks'
     shapes would disagree (a streamed ELL never crosses a rank: its width
-    is the rank's own)."""
+    is the rank's own). The words are ``parallel.mesh``'s, imported here
+    only to refuse: the planner imports no torch."""
     if cc.is_random_effect or cc.hbm_budget_mb is not None:
         return
     if cc.layout in ("coo", "sparse") and (multi or axes is not None):
+        from ..parallel.mesh import SHARD_COO_REFUSAL
+
         raise PlanError(SHARD_COO_REFUSAL)
     if cc.layout == "ell" and multi:
+        from ..parallel.mesh import MULTI_ELL_REFUSAL
+
         raise PlanError(MULTI_ELL_REFUSAL)
 
 
@@ -303,10 +288,9 @@ def check_lane_composition(
             "trials across hosts instead)"
         )
     if distributed or n_processes > 1:
-        # the JAX package's words; it refuses the composition as well
         raise PlanError(
             "trial-lanes sweeps are single-process: not composable with "
-            f"multi-process training ({A10})"
+            "multi-process training"
         )
     if pipeline_depth > 1:
         raise PlanError(

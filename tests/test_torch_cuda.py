@@ -19,8 +19,10 @@ on the card takes the counted ``plain_float64`` route and reaches the CPU's
 float64 solve (loss rtol 1e-9). Across processes: ``cli.train
 --distributed`` on two gloo ranks sharing the card against the one-process
 card fit (each coordinate's accepted loss rtol 1e-5, validation AUC within
-2e-3, the random effect keyed by entity id at atol 5e-3), and the
-cross-rank random-effect build on the card bitwise its CPU build.
+2e-3, the random effect keyed by entity id at atol 5e-3), the
+cross-rank random-effect build on the card bitwise its CPU build, and the
+dense feature-axis shard on a (2 x 2) grid of ranks sharing the card
+against the same grid's CPU passes.
 """
 
 import dataclasses
@@ -171,7 +173,8 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(cuda):
     f64_batch = batch_from_dense(x.double(), y, dtype=torch.float64)
     assert _fusion_mode(f64_batch) == ("plain_float64", None)
     assert _fusion_mode(batch_from_dense(x, y)) == ("dense_kernel", None)
-    assert fg.OBJECTIVE_ROUTES == {"dense_kernel": 1, "sparse_kernel": 0, "tiled_kernel": 0, "plain_cpu": 0, "plain_float64": 1}
+    assert fg.OBJECTIVE_ROUTES == {"dense_kernel": 1, "sparse_kernel": 0, "tiled_kernel": 0, "tiled_dense": 0,
+                                   "plain_cpu": 0, "plain_float64": 1}
     with pytest.raises(TypeError):
         _fusion_mode(batch_from_dense(x, y, feature_dtype=torch.float16))
 
@@ -353,6 +356,42 @@ def test_b4_over_ranks_matches_float64_plain(cuda, tmp_path, backend):
         for k, v in out["outs"].items():
             for a, b in zip(v, outs[0]["outs"][k]):
                 assert (a is None and b is None) or np.array_equal(a, b), k
+
+
+def test_float64_b4_over_ranks_on_card_sums_by_the_plain_version(cuda, tmp_path):
+    """A float64 batch over ranks on the card (the route plain_float64, as
+    ``cli.train --dtype float64 --distributed`` runs it): B4's plain sweeps
+    add their slot rows by the plain rank-order sum, the sum kernel writing
+    float32 only; held against the float64 plain versions on the whole
+    batch at rtol 1e-12, rank against rank bitwise, no kernel launched."""
+    import numpy as np
+    import test_torch_parallel_ranks as ranks
+
+    from photon_ml_tpu_torch.parallel import spawn
+
+    n, d, seed = 20_003, 256, 5
+    outs = spawn("test_torch_parallel_ranks:b4_float64_on_card", _ranks_for("gloo"), "gloo", "cuda",
+                 args=(n, d, seed), timeout_s=300, store_dir=tmp_path)
+    case = ranks.card_case(cuda, n, d, seed)
+    t = {k: torch.from_numpy(v).to(cuda).double() for k, v in case.items() if isinstance(v, np.ndarray)}
+    loss = LOSSES["logistic"]
+    rows = (t["y"], t["off"], t["wt"])
+    ref = {
+        "vg": fg.value_grad_plain(t["x"], t["coef"], *rows, loss),
+        "hv": fg.hessian_vector_plain(t["x"], t["coef"], t["v"], *rows, 0.25, loss),
+        "hd": fg.hessian_stats_plain(t["x"], t["coef"], *rows, loss, False),
+        "hds": fg.hessian_stats_plain(t["x"], t["coef"], *rows, loss, True),
+    }
+    for k, want in ref.items():
+        for got, w in zip(outs[0]["outs"][k], want):
+            if w is None:
+                assert got is None, k
+                continue
+            torch.testing.assert_close(torch.from_numpy(np.asarray(got)).to(cuda), w, rtol=1e-12, atol=1e-9)
+    for out in outs:
+        assert not any(out["launches"].values()) and not any(out["sums"].values())
+        for k, v in out["outs"].items():
+            assert all(_same_bits(a, b) for a, b in zip(v, outs[0]["outs"][k])), k
 
 
 def _same_bits(a, b) -> bool:
@@ -794,7 +833,8 @@ def test_float64_batch_on_card_takes_the_counted_plain_route(cuda, layout):
         regularization=RegularizationContext("L2"), reg_weight=1.0, variance_type="SIMPLE",
     ))
     m_g, r_g = problem.run(build(cuda))
-    assert fg.OBJECTIVE_ROUTES == {"dense_kernel": 0, "sparse_kernel": 0, "tiled_kernel": 0, "plain_cpu": 0, "plain_float64": 1}
+    assert fg.OBJECTIVE_ROUTES == {"dense_kernel": 0, "sparse_kernel": 0, "tiled_kernel": 0, "tiled_dense": 0,
+                                   "plain_cpu": 0, "plain_float64": 1}
     assert not any(fg.LAUNCHES.values()) and not any(sparse.SPARSE_LAUNCHES.values())
     m_c, r_c = problem.run(build("cpu"))
     assert abs(float(r_g.loss) - float(r_c.loss)) <= 1e-9 * abs(float(r_c.loss))
@@ -1688,3 +1728,45 @@ def test_cross_rank_re_build_on_card_is_bitwise_its_cpu_build(cuda, tmp_path):
                     assert np.array_equal(value, want[key]), (rank, case, key)
                 else:
                     assert value == want[key], (rank, case, key)
+
+
+def test_dense_feature_shard_over_ranks_on_card(cuda, tmp_path):
+    """The dense feature-axis shard on a (2 x 2) grid of gloo ranks sharing
+    the card, float32: the tiles' products (``torch.mv`` on the tile, the
+    same bits twice), value, gradient, Hv and the Hessian diagonal against
+    the same grid's float64 pass on the CPU at the kernels' bounds (value
+    rtol 2e-6; the vectors max-abs <= 3e-5 * max(|ref|, 1)), every rank of
+    a subgroup with the same bits; the TRON solve with SIMPLE variances
+    through the ``tiled_dense`` route and the rank-order sum against the
+    same grid's float32 solve on the CPU at the solve bounds (rtol 1e-3 /
+    atol 1e-5; both at tolerance 1e-6, ROADMAP C3)."""
+    import numpy as np
+
+    from photon_ml_tpu_torch.parallel import spawn
+
+    rng = np.random.default_rng(5)
+    n, d = 4001, 301  # ragged on both axes
+    x = rng.normal(size=(n, d)) / np.sqrt(d)
+    x[:, -1] = 1.0
+    y = (rng.uniform(size=n) < 1 / (1 + np.exp(-(x @ rng.normal(size=d))))).astype(np.float64)
+    base = dict(x=x, y=y, w=rng.normal(size=d) * 0.3, v=rng.normal(size=d), l2=0.5)
+    runs = {}
+    for device, dtype, tol in (("cuda", "float32", 1e-6), ("cpu", "float32", 1e-6), ("cpu", "float64", 1e-9)):
+        runs[device, dtype] = spawn("_torch_feature_shard_ranks:dense_tiles_on_card", 4, "gloo", device,
+                                    args=(dict(base, device=device, dtype=dtype, tolerance=tol),), timeout_s=300.0,
+                                    store_dir=tmp_path)
+    card = runs["cuda", "float32"]
+    for r, want, solve in zip(card, runs["cpu", "float64"], runs["cpu", "float32"]):
+        assert r["device"].startswith("cuda") and r["same_bits"]
+        assert r["routes"]["tiled_dense"] == 1 and r["sums"]["rank_order_sum"] > 0, r
+        torch.testing.assert_close(r["value"].double(), want["value"], rtol=2e-6, atol=0)
+        for key in ("z", "g", "hv", "hd"):
+            err = float((r[key].double() - want[key]).abs().max())
+            assert err <= 3e-5 * max(float(want[key].abs().max()), 1.0), (r["pos"], key, err)
+        torch.testing.assert_close(r["means"][:d], solve["means"][:d], rtol=1e-3, atol=1e-5)
+        torch.testing.assert_close(r["var"][:d], solve["var"][:d], rtol=1e-3, atol=1e-5)
+    for key, axis in (("z", 0), ("g", 1), ("hv", 1), ("means", None)):
+        for a in card:
+            for b in card:
+                if axis is None or a["pos"][axis] == b["pos"][axis]:
+                    assert _same_bits(a[key].numpy(), b[key].numpy()), (key, a["pos"], b["pos"])

@@ -504,8 +504,7 @@ def test_refused_coordinates_name_their_roadmap_item(tmp_path, spec, item):
         return
     # the tiled layout is ported: it needs a mesh in the JAX package's
     # words, resolves on one as the JAX package's plan does, pipelines on a
-    # grid of processes, and takes no budget (the JAX package's words); a
-    # dense fixed effect under the grid's model axis stays in A10
+    # grid of processes, and takes no budget (the JAX package's words)
     tiled = parse_coordinate(spec)
     with pytest.raises(PlanError, match="layout='tiled' requires the estimator to be built with a device mesh"):
         resolve([tiled])
@@ -528,8 +527,19 @@ def test_refused_coordinates_name_their_roadmap_item(tmp_path, spec, item):
     with pytest.raises(Exception) as theirs:
         ref_resolve([ref_parse_coordinate(spec + ",hbm.budget.mb=64")], mesh={"data": 2, "model": 2})
     assert str(ours.value) == str(theirs.value) and "row-sliceable layout" in str(ours.value)
+    # a dense fixed effect beside it on the grid is ported: rows over the
+    # data axis, replicated over the model axis, the JAX package's label and
+    # fingerprint; a grid whose size is not the process count names the item
+    both = [tiled, parse_coordinate(FE_SPEC.replace("name=global", "name=dense"))]
+    ref_both = [ref_parse_coordinate(spec), ref_parse_coordinate(FE_SPEC.replace("name=global", "name=dense"))]
+    ours = resolve(both, mesh={"data": 2, "model": 2}, n_processes=4, dims={"globalShard": 10})
+    theirs = ref_resolve(ref_both, mesh={"data": 2, "model": 2})
+    assert [c.sharding for c in ours.coordinates] == [c.sharding for c in theirs.coordinates] == [
+        "row+model-sharded"] * 2
+    assert [c.notes for c in ours.coordinates] == [c.notes for c in theirs.coordinates]
+    assert plan_fingerprint(ours) == ref_plan_fingerprint(theirs)
     with pytest.raises(PlanError, match=f"ROADMAP {item}"):
-        resolve([parse_coordinate(FE_SPEC)], mesh={"data": 2, "model": 2}, n_processes=4)
+        resolve(both, mesh={"data": 2, "model": 2}, n_processes=2)
 
 
 def test_planner_refusals_and_helpers():
@@ -537,11 +547,13 @@ def test_planner_refusals_and_helpers():
     plan = resolve([cc], dims={"globalShard": 5000})
     assert plan.coordinates[0].geometry == {"dim": 5000, "batch_layout": "ell"}
     assert plan_fingerprint(plan) == ref_plan_fingerprint(ref_resolve([ref_parse_coordinate(FE_SPEC)]))
-    for kwargs, item in (({"mesh": {"data": 2}}, "A10"), ({"mesh": {"data": 2, "model": 2}, "n_processes": 2}, "A10"),
-                         # a dense fixed effect under a model axis: the dense feature-axis shard stays in A10
-                         ({"mesh": {"data": 2, "model": 2}, "n_processes": 4}, "A10")):
+    for kwargs, item in (({"mesh": {"data": 2}}, "A10"), ({"mesh": {"data": 2, "model": 2}, "n_processes": 2}, "A10")):
         with pytest.raises(PlanError, match=f"ROADMAP {item}"):
             resolve([cc], **kwargs)
+    # a dense fixed effect under a model axis resolves as the JAX package's
+    (ours,) = resolve([cc], mesh={"data": 2, "model": 2}, n_processes=4).coordinates
+    (theirs,) = ref_resolve([ref_parse_coordinate(FE_SPEC)], mesh={"data": 2, "model": 2}).coordinates
+    assert ours.sharding == theirs.sharding == "row+model-sharded"
     # sweep pipelining over processes resolves as in the JAX package
     piped = resolve([cc], pipeline_depth=2, distributed=True, n_processes=2)
     ref_piped = ref_resolve([ref_parse_coordinate(FE_SPEC)], pipeline_depth=2, distributed=True, n_processes=2,

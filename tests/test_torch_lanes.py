@@ -263,9 +263,8 @@ def test_lane_composition_refusals_are_the_jax_packages():
             check_lane_composition(ours, 4, **kw)
         with pytest.raises(ValueError) as want:
             ref_check_lane_composition(ccs, 4, **kw)
-        # lanes over processes: the JAX package's words, naming ROADMAP A10
-        over_processes = "n_processes" in kw or "distributed" in kw
-        assert str(got.value) == str(want.value) + (" (ROADMAP A10)" if over_processes else "")
+        # lanes over processes too: the JAX package's words alone
+        assert str(got.value) == str(want.value)
     edits = [
         lambda c: dataclasses.replace(c, hbm_budget_mb=64),
         lambda c: dataclasses.replace(c, config=dataclasses.replace(c.config, regularization=type(c.config.regularization)("L1"))),

@@ -22,9 +22,8 @@ CLI's scores rtol 1e-5 / atol 1e-6 (float32 resolution) and AUC within
 Also: ``host_row_range`` and the spec parser, the backend choice, the
 planner's multi-process plans (streamed and pipelined ones among them, as
 the JAX package's) and the refusals that stay (the JAX package's in its
-words, the port's topology limits and the dense feature-axis shard naming
-ROADMAP A10), resume without a shared file system, and the passive rows of
-the padded global row space."""
+words, the port's topology limits naming ROADMAP A10), resume without a
+shared file system, and the passive rows of the padded global row space."""
 
 from __future__ import annotations
 
@@ -199,16 +198,18 @@ def test_multiprocess_plans_and_the_refusals_that_stay():
     assert str(ours.value) == str(theirs.value) and "row-sliceable layout" in str(ours.value)
     # a tiled fixed effect over processes is ported: it needs a mesh (the
     # JAX package's words), and resolves on a grid of the process count,
-    # the random effect over its data axis; a dense one under a model axis
-    # stays in A10
+    # the random effect over its data axis; so does a dense one under a
+    # model axis, as the JAX package's plan labels it
     tiled = parse_coordinate(FE + ",layout=tiled")
     with pytest.raises(PlanError, match="layout='tiled' requires the estimator to be built with a device mesh"):
         resolve([tiled], n_processes=2, distributed=True)
     for mesh in ({"data": 1, "model": 2}, {"data": 2, "model": 1}):
         grid = resolve([tiled, re_cc], mesh=mesh, n_processes=2, distributed=True)
         assert [c.sharding for c in grid.coordinates] == ["row+model-sharded", "entity-sharded"]
-    with pytest.raises(PlanError, match="ROADMAP A10"):
-        resolve([cc], mesh={"data": 1, "model": 2}, n_processes=2, distributed=True)
+    dense = resolve([cc, re_cc], mesh={"data": 1, "model": 2}, n_processes=2, distributed=True)
+    ref_dense = ref_resolve([ref_parse_coordinate(FE)], mesh={"data": 1, "model": 2})
+    assert [c.sharding for c in dense.coordinates] == ["row+model-sharded", "entity-sharded"]
+    assert dense.coordinates[0].sharding == ref_dense.coordinates[0].sharding
     # lanes over processes: refused in the JAX package's words
     with pytest.raises(PlanError, match="trial-lanes sweeps are single-process"):
         resolve([cc], n_processes=2, distributed=True, trial_lanes=4)

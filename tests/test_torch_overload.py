@@ -634,11 +634,24 @@ def test_chaos_drill_slow_engine_storm_with_live_flip(run_telemetry, tmp_path):
         server.close()
 
 
-def test_serving_refresh_fault_swallowed_then_recovers(run_telemetry, tmp_path):
+def test_serving_refresh_fault_swallowed_then_recovers(run_telemetry, tmp_path, monkeypatch):
     root = str(tmp_path / "serving")
     serving.publish_snapshot(root, "v1", game_model=_game_model(0.0))
+    # the watcher's thread checks once as it starts: v2 is published only
+    # after that check has ended, so the first check that can see v2 is the
+    # first poke below, with the fault armed
+    first_check = threading.Event()
+    check = serving.RefreshWatcher._check
+
+    def watched_check(self):
+        check(self)
+        if threading.current_thread() is self._thread:
+            first_check.set()
+
+    monkeypatch.setattr(serving.RefreshWatcher, "_check", watched_check)
     server = serving.ScoringServer(serving_root=root, max_latency_ms=0.5, poll_seconds=3600.0, device="cpu")
     try:
+        assert first_check.wait(timeout=30.0)
         serving.publish_snapshot(root, "v2", game_model=_game_model(1.0))
         faults.configure("serving.refresh:io:1")
         server.poke_refresh()  # the injected IO error: swallowed, still on v1

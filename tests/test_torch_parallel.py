@@ -64,12 +64,14 @@ from photon_ml_tpu_torch.ops import fused_glm as fg
 from photon_ml_tpu_torch.ops.features import batch_from_dense
 from photon_ml_tpu_torch.parallel import (
     DataParallelGroup,
+    MeshGroup,
     entity_range,
     equal_host_share,
     host_row_range,
     local_batch,
     row_range,
     shard_batch,
+    shard_coefficients,
     spawn,
 )
 
@@ -467,7 +469,23 @@ def test_shard_batch_keeps_each_ranks_rows_and_pads_the_last():
     for a, b in ((own.features.dense, shards[3].features.dense), (own.weights, shards[3].weights)):
         assert torch.equal(a, b)
     assert own.group is g3 and shards[3].group.rank == 3
-    with pytest.raises(NotImplementedError, match="A10"):
+    # the dense feature-axis shard: each rank of a 2 x 2 grid keeps its tile
+    # of X zero-padded to [10, 4] (cut from the whole batch, no collective)
+    # and its model slice of the coefficients; a data-only group over
+    # processes has no model axis (the JAX package's words)
+    xp = np.zeros((10, 4), F32)
+    xp[:, :3] = x
+    for r in range(4):
+        i, j = divmod(r, 2)
+        grid = MeshGroup(2, 2, i, j, DataParallelGroup(i, 2, "cpu", "gloo"), DataParallelGroup(j, 2, "cpu", "gloo"),
+                         DataParallelGroup(r, 4, "cpu", "gloo"))
+        tb = shard_batch(whole, grid, shard_features_dim=True)
+        np.testing.assert_array_equal(tb.features.tile.dense.numpy(), xp[i * 5 : (i + 1) * 5, j * 2 : (j + 1) * 2])
+        np.testing.assert_array_equal(tb.weights.numpy(), np.ones(5, F32))
+        assert tb.group is grid.data and (tb.features.dim, tb.features.dim_true, tb.features.n_rows) == (4, 3, 10)
+        np.testing.assert_array_equal(shard_coefficients(np.arange(3, dtype=F32), grid).numpy(),
+                                      np.r_[np.arange(3, dtype=F32), 0][j * 2 : (j + 1) * 2])
+    with pytest.raises(NotImplementedError, match="model-axis sharding across processes is not supported yet"):
         shard_batch(whole, g3, shard_features_dim=True)
     with pytest.raises(ValueError, match="already sharded"):
         shard_batch(shards[0], g3)

@@ -47,25 +47,27 @@ def _t(a, device="cpu"):
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-def b4_outputs(group, case, device="cpu"):
+def b4_outputs(group, case, device="cpu", dtype=torch.float32, plain=False):
     """B4's three functions on this rank's rows of one case (``x, coef, v,
-    y, off, wt, vshift`` and a loss name): the raw sums, as numpy."""
+    y, off, wt, vshift`` and a loss name) in ``dtype`` (``plain``: the
+    plain versions, as the route plain_float64 runs them): the raw sums, as
+    numpy."""
     loss = LOSSES[case["loss"]]
     batch = batch_from_dense(
-        case["x"], case["y"], offsets=case["off"], weights=case["wt"], device=device
+        case["x"], case["y"], offsets=case["off"], weights=case["wt"], dtype=dtype, device=device
     )
     if group is not None:
         batch = shard_batch(batch, group)
     x = batch.features.dense
-    coef, v = _t(case["coef"], device), _t(case["v"], device)
-    vshift = torch.tensor(case["vshift"], device=device)
+    coef, v = _t(case["coef"], device).to(dtype), _t(case["v"], device).to(dtype)
+    vshift = torch.tensor(case["vshift"], dtype=dtype, device=device)
     args = (x, coef, batch.labels, batch.offsets, batch.weights)
-    vg = fg.sharded_value_grad(group, *args, loss)
+    vg = fg.sharded_value_grad(group, *args, loss, plain=plain)
     hv = fg.sharded_hessian_vector(
-        group, x, coef, v, batch.labels, batch.offsets, batch.weights, vshift, loss
+        group, x, coef, v, batch.labels, batch.offsets, batch.weights, vshift, loss, plain=plain
     )
-    hd = fg.sharded_hessian_stats(group, *args, loss, False)
-    hds = fg.sharded_hessian_stats(group, *args, loss, True)
+    hd = fg.sharded_hessian_stats(group, *args, loss, False, plain=plain)
+    hds = fg.sharded_hessian_stats(group, *args, loss, True, plain=plain)
     return {k: tuple(_np(o) for o in outs) for k, outs in (("vg", vg), ("hv", hv), ("hd", hd), ("hds", hds))}
 
 
@@ -281,6 +283,15 @@ def b4_on_card(group, n, d, seed):
     fg.reset_launch_counts()
     out = b4_outputs(group, case, device=group.device)
     return {"outs": out, "launches": dict(fg.LAUNCHES), "sharded": dict(fg.SHARDED_LAUNCHES)}
+
+
+def b4_float64_on_card(group, n, d, seed):
+    """``card_case`` in float64 through B4's plain versions on the rank's
+    card (the route plain_float64), with the launch counts."""
+    case = card_case(group.device, n, d, seed)
+    fg.reset_launch_counts()
+    out = b4_outputs(group, case, device=group.device, dtype=torch.float64, plain=True)
+    return {"outs": out, "launches": dict(fg.LAUNCHES), "sums": dict(fg.SUM_LAUNCHES)}
 
 
 def b4_on_card_both(group, n, d, seed):

@@ -30,6 +30,8 @@ for name in names:
 sys.path.insert(0, "tests")
 import test_torch_parallel_ranks
 import _torch_tiled_ranks
+import _torch_feature_shard_ranks
+import _torch_mp_ranks
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
@@ -57,23 +59,26 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
     assert modules == files
     assert {"photon_ml_tpu_torch.serving.batcher", "photon_ml_tpu_torch.cli.serve",
             "photon_ml_tpu_torch.obs.http", "photon_ml_tpu_torch.robust.distributed",
-            "photon_ml_tpu_torch.game.data_mp", "photon_ml_tpu_torch.parallel.sparse"} <= modules
+            "photon_ml_tpu_torch.game.data_mp", "photon_ml_tpu_torch.parallel.sparse",
+            "photon_ml_tpu_torch.parallel.mesh"} <= modules
 
 
 def test_port_sources_name_no_jax_import():
     """No module of the port, not chip_smoke.py and not the card tests, the
-    data-parallel, cross-process build and streamed rank bodies or the
-    launcher of the multi-process tests has an import of jax or of the JAX
-    package (photon_ml_tpu_torch shares the prefix, so match the module name
-    exactly)."""
+    data-parallel, cross-process build, streamed, tiled and feature-shard
+    rank bodies or the launcher of the multi-process tests has an import of
+    jax or of the JAX package (photon_ml_tpu_torch shares the prefix, so
+    match the module name exactly)."""
     import ast
 
     files = sorted((ROOT / "photon_ml_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
         ROOT / "tests" / "test_torch_parallel_ranks.py", ROOT / "tests" / "_torch_mp_ranks.py",
         ROOT / "tests" / "_torch_tiled_ranks.py", ROOT / "tests" / "_torch_mp_common.py",
+        ROOT / "tests" / "_torch_feature_shard_ranks.py",
     ]
     assert ROOT / "photon_ml_tpu_torch" / "parallel" / "sparse.py" in files
+    assert ROOT / "photon_ml_tpu_torch" / "parallel" / "mesh.py" in files
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):

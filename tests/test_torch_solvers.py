@@ -224,8 +224,9 @@ def test_unported_paths_raise(rng):
     assert float(model.coefficients.means.abs().max()) <= 0.1 and res.reason != 0
     # the tiled layout is ported (tests/test_torch_tiled.py): without a mesh
     # it is refused in the JAX package's words, on a 1 x 1 grid it builds;
-    # the dense feature-axis shard is what stays in A10
-    from photon_ml_tpu_torch.parallel import DataParallelGroup, make_mesh, shard_batch
+    # so is the dense feature-axis shard (tests/test_torch_feature_shard.py):
+    # a 1 x 1 grid's tile is the whole batch and solves as it does
+    from photon_ml_tpu_torch.parallel import make_mesh, shard_batch
 
     raw = RawDataset(n_rows=64, labels=y, offsets=np.zeros(64), weights=np.ones(64),
                      shard_coo={"s": (np.zeros(1, int), np.zeros(1, int), np.ones(1))}, shard_dims={"s": 4},
@@ -233,8 +234,11 @@ def test_unported_paths_raise(rng):
     with pytest.raises(ValueError, match="layout='tiled' requires a device mesh"):
         raw.to_batch("s", layout="tiled", device="cpu")
     assert raw.to_batch("s", layout="tiled", mesh=make_mesh(1, 1, device="cpu")).features.layout == "tiled"
-    with pytest.raises(NotImplementedError, match="A10"):
-        shard_batch(batch, DataParallelGroup(0, 1, "cpu", "gloo"), shard_features_dim=True)
+    b64 = batch_from_dense(x, y, dtype=torch.float64, device="cpu")
+    tb = shard_batch(b64, make_mesh(1, 1, device="cpu"), shard_features_dim=True)
+    assert tb.features.layout == "tiled" and torch.equal(tb.features.to_dense(), b64.features.dense)
+    fit = lambda b: GLMProblem("logistic_regression", GLMOptimizationConfig()).run(b)[0]  # noqa: E731
+    torch.testing.assert_close(fit(tb).coefficients.means, fit(b64).coefficients.means, rtol=1e-6, atol=1e-9)
     # FULL variance is ported (tests/test_torch_variance.py): it runs
     model, _ = GLMProblem("logistic_regression", GLMOptimizationConfig(variance_type="FULL")).run(batch)
     var = model.coefficients.variances

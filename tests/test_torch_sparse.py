@@ -530,7 +530,8 @@ def test_objective_counts_its_products_on_the_plain_route(rng):
     fused_glm.reset_launch_counts()
     assert batch_route(tb) == "plain_cpu" and not any(fused_glm.OBJECTIVE_ROUTES.values())
     assert _fusion_mode(tb) == ("plain_cpu", None)
-    assert fused_glm.OBJECTIVE_ROUTES == {"dense_kernel": 0, "sparse_kernel": 0, "tiled_kernel": 0, "plain_cpu": 1, "plain_float64": 0}
+    assert fused_glm.OBJECTIVE_ROUTES == {"dense_kernel": 0, "sparse_kernel": 0, "tiled_kernel": 0, "tiled_dense": 0,
+                                          "plain_cpu": 1, "plain_float64": 0}
     GLMObjective(loss=LOSSES["logistic"], batch=tb).value_and_grad(torch.zeros(40))
     assert not any(sparse.SPARSE_LAUNCHES.values())
 
@@ -687,17 +688,23 @@ def test_the_remaining_sparse_refusals_name_their_items(rng):
     ds = build_fixed_effect_dataset(traw, "fe", "s", layout="tiled", mesh=grid, device="cpu")
     assert ds.batch.features.layout == "tiled" and (ds.n_rows, ds.dim) == (10, 8)
 
-    class _Grid:
-        n_model, n_data, world = 2, 1, None
+    from photon_ml_tpu_torch.parallel import DataParallelGroup
 
-    # what stays in A10: a non-tiled fixed effect under a model axis
-    with pytest.raises(ValueError, match="A10"):
-        build_fixed_effect_dataset(traw, "fe", "s", mesh=_Grid(), device="cpu")
+    class _Grid:
+        n_model, n_data, world = 2, 2, object()
+        data = DataParallelGroup(1, 2, "cpu", "gloo")
+
+    # a dense fixed effect under a model axis is ported: the rank's row
+    # shard over the grid's data axis (each model column its replica), as
+    # the JAX package's shard_batch(batch, mesh)
+    ds = build_fixed_effect_dataset(traw, "fe", "s", mesh=_Grid(), device="cpu")
+    assert ds.batch.features.is_dense and ds.batch.group is _Grid.data and ds.true_n_rows == 20
 
     class _Group:
         world_size, rank, device = 2, 0, torch.device("cpu")
 
-    with pytest.raises(NotImplementedError, match="A10"):
+    # a row-sharded ELL batch over processes: the JAX package's refusal
+    with pytest.raises(NotImplementedError, match="multi-process ELL sharding is not supported"):
         shard_batch(tb, _Group())
 
 
