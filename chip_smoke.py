@@ -422,11 +422,23 @@ PyTorch built for CUDA (no JAX needed). Phases, each of which must pass:
    over each model column), held against the one process at rtol 1e-3 /
    atol 1e-5 in each case, the grid's four best-model digests equal, each
    rank's B1-B3, B4 and sum launches printed.
+19. the runtime transfer guard (run right after phase 5, on its coordinates):
+   (a) inside analysis.transfer_guard() float(t), t.item(), t.cpu() and
+   t[mask] raise (CUDA's sync debug mode at "error"), outside it they run;
+   (b) logged_fetch gives a tensor's bits and counts its bytes; (c) two
+   threads fetching under one guard never raise, and the guard holds again
+   after them; the lift's cost (an allow_transfers() enter and exit under
+   the guard, each a mode change) in microseconds; then (d) phase 5's sweep
+   three times each with PHOTON_TRANSFER_GUARD unset and "off", in turns
+   (unset, off, off, unset, unset, off): both medians, the models bitwise
+   alike, and photon_device_fetch_bytes_total by site, equal. Every
+   CoordinateDescent sweep of every phase runs under the guard.
 
     python3 chip_smoke.py --only timing    # card, build, then one phase
 
-runs a subset of phases 3-18 (check, fe, glmix, dp, nccl, solvers, io, game, streaming, tuning, s2,
-sparse, timing, variants, retrain, serving, distributed, tiled) and then reports not ok; "streaming" runs phase 5,
+runs a subset of phases 3-19 (check, fe, glmix, guard, dp, nccl, solvers, io, game, streaming, tuning, s2,
+sparse, timing, variants, retrain, serving, distributed, tiled) and then reports not ok; "guard" runs phase 5
+first; "streaming" runs phase 5,
 writes phase 12's fixture and runs its (b) before phase 16; "distributed" and "tiled" write phase 12's fixture
 and run its (b) before phases 17 and 18 ("distributed" runs phase 16 (e) too, 17 (g)'s reference); "s2" is phase 13 (a) alone; "solvers", "io", "game" and "tuning" run phase 5 first ("game" and
 "tuning" write phase 12's fixture first); "retrain" writes phase 12's
@@ -4128,11 +4140,17 @@ record = os.environ.get("SMOKE_RECORD_RESIDUALS")
 if record:
     # "<coordinate>:<dir>": the residual each solve of that fixed effect is
     # handed (.npy) and the solve's histories (.json), numbered from 1
+    from photon_ml_tpu_torch.analysis import allow_transfers
     from photon_ml_tpu_torch.game import coordinate as co
     watched, directory = record.split(":", 1)
     real_train, calls = co.FixedEffectCoordinate.train, []
     def recording_train(self, residual_scores, *args, **kwargs):
         out = real_train(self, residual_scores, *args, **kwargs)
+        # the record's fetches run inside the sweep's transfer guard: lift it
+        with allow_transfers():
+            record_solve(self, residual_scores, out)
+        return out
+    def record_solve(self, residual_scores, out):
         if self.coordinate_id == watched and residual_scores is not None:
             calls.append(1)
             stem = os.path.join(directory, f"{watched}-{len(calls)}")
@@ -4142,7 +4160,6 @@ if record:
             with open(stem + ".json", "w") as f:
                 json.dump({"iterations": int(r.iterations), "reason": int(r.reason),
                            "losses": hist(r.loss_history), "grad_norms": hist(r.grad_norm_history)}, f)
-        return out
     co.FixedEffectCoordinate.train = recording_train
 result =(train if cli == "train" else score).run(argv)
 doc = {"wall_s": time.perf_counter() - t0, "launches": dict(fg.LAUNCHES), "shifts": dict(fg.SHIFT_LAUNCHES),
@@ -7903,6 +7920,132 @@ def _tiled_case_holds(torch, name, case, b, docs, ref, wall, problems, smi, maps
     return out
 
 
+# ------------------------------------------------- phase 19: transfer guard
+
+
+def _guard_fetches(run):
+    """photon_device_fetch_bytes_total by site from one run's registry."""
+    return {m["labels"]["site"]: m["value"] for m in run.registry.snapshot()
+            if m["name"] == "photon_device_fetch_bytes_total"}
+
+
+def guard_phase(torch, state, smi):
+    import threading
+
+    from photon_ml_tpu_torch import obs
+    from photon_ml_tpu_torch.analysis import allow_transfers, guard_level, logged_fetch, transfer_guard
+
+    problems = []
+    dev = torch.device("cuda")
+    # (a) an implicit fetch raises inside the guard and runs outside it
+    x = torch.arange(8.0, device=dev)
+    mask = x > 3.0
+    ops = {"float(t)": lambda: float(x.sum()), "t.item()": lambda: x.sum().item(), "t.cpu()": lambda: x.cpu(),
+           "t[mask]": lambda: x[mask]}
+    for what, op in ops.items():
+        with transfer_guard():
+            try:
+                op()
+                problems.append(f"(a) {what} ran inside the guard")
+            except RuntimeError as e:
+                if "synchroniz" not in str(e):
+                    problems.append(f"(a) {what} raised something else: {e}")
+        op()
+    if torch.cuda.get_sync_debug_mode() != 0 or guard_level() is not None:
+        problems.append("(a) the guard left the sync debug mode set")
+    log(f"  (a) {', '.join(ops)} raise inside transfer_guard() and run outside it")
+    # (b) logged_fetch: the tensor's bits, its bytes counted
+    y = torch.randn(4096, device=dev)
+    with obs.use_run(obs.RunTelemetry()) as run:
+        with transfer_guard():
+            got = logged_fetch("guard.check", y)
+        counted = _guard_fetches(run).get("guard.check")
+    same = bool(np.array_equal(got.view(np.uint32), y.cpu().numpy().view(np.uint32)))
+    if not same or counted != y.numel() * y.element_size():
+        problems.append(f"(b) logged_fetch: bits equal {same}, counted {counted}")
+    log(f"  (b) logged_fetch of {y.numel()} f32: bits equal {same}, {counted} bytes counted")
+    # (c) two threads fetching under one guard
+    errors, start = [], threading.Barrier(3)
+
+    def fetcher():
+        try:
+            start.wait()
+            for _ in range(500):
+                logged_fetch("guard.threads", y * 2.0)
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    with transfer_guard():
+        threads = [threading.Thread(target=fetcher) for _ in range(2)]
+        for t in threads:
+            t.start()
+        start.wait()
+        for t in threads:
+            t.join()
+        try:
+            x.sum().item()
+            problems.append("(c) the guard did not hold again after the threads")
+        except RuntimeError:
+            pass
+        reps = 20_000
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            with allow_transfers():
+                pass
+        lift_us = (time.perf_counter() - t0) / reps * 1e6
+    if errors:
+        problems.append(f"(c) a fetching thread raised: {errors[0]!r}")
+    log(f"  (c) two threads x 500 logged_fetch under one guard: {len(errors)} raised; one lift "
+        f"(allow_transfers enter + exit, two mode changes) {lift_us:.3f} us on the host clock")
+    out = guard_sweeps(torch, state["coords"], smi, problems)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return dict(out, lift_us=lift_us)
+
+
+def guard_sweeps(torch, coords, smi, problems):
+    """(d): phase 5's sweep with PHOTON_TRANSFER_GUARD unset and "off", in
+    turns: the medians, the models compared bitwise and the fetch bytes by
+    site, equal."""
+    import os
+
+    from photon_ml_tpu_torch import obs
+
+    runs = {"guarded": [], "off": []}
+    prev = os.environ.pop("PHOTON_TRANSFER_GUARD", None)
+    try:
+        for kind in ("guarded", "off", "off", "guarded", "guarded", "off"):
+            if kind == "off":
+                os.environ["PHOTON_TRANSFER_GUARD"] = "off"
+            else:
+                os.environ.pop("PHOTON_TRANSFER_GUARD", None)
+            with obs.use_run(obs.RunTelemetry()) as run:
+                res, wall = sweep(torch, coords)
+                runs[kind].append((wall, res, _guard_fetches(run)))
+    finally:
+        os.environ.pop("PHOTON_TRANSFER_GUARD", None)
+        if prev is not None:
+            os.environ["PHOTON_TRANSFER_GUARD"] = prev
+    med = {k: sorted(w for w, _, _ in v)[1] for k, v in runs.items()}
+    ref = runs["off"][0]
+    for kind, items in runs.items():
+        for _, res, fetched in items:
+            if fetched != ref[2]:
+                problems.append(f"(d) fetch bytes by site differ: {kind} {fetched} against {ref[2]}")
+            for name in ("global", "per-user"):
+                a, b = res.model[name], ref[1].model[name]
+                ta = a.coefficients.means if name == "global" else a.coef_values
+                tb = b.coefficients.means if name == "global" else b.coef_values
+                if not torch.equal(ta, tb):
+                    problems.append(f"(d) {kind} sweep's {name} model differs from the unguarded one")
+    log(f"  (d) phase 5's sweep, guarded walls {', '.join(f'{w:.4f}' for w, _, _ in runs['guarded'])} s, "
+        f"PHOTON_TRANSFER_GUARD=off {', '.join(f'{w:.4f}' for w, _, _ in runs['off'])} s: medians "
+        f"{med['guarded']:.4f} against {med['off']:.4f} s ({med['guarded'] / med['off']:.4f}x); models "
+        f"compared bitwise; photon_device_fetch_bytes_total by site {ref[2]} on {smi}")
+    return {"guarded_s": med["guarded"], "unguarded_s": med["off"], "ratio": med["guarded"] / med["off"],
+            "fetch_bytes": ref[2]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=500_000)
@@ -7913,7 +8056,7 @@ def main() -> int:
     ap.add_argument("--prev-segment-source", default=None,
                     help="an earlier csrc/sparse_glm.cu to time in turns with this one in phase 8 (S1 and S2)")
     ap.add_argument("--only", default="",
-                    help="comma-separated subset of check,fe,glmix,dp,nccl,solvers,io,game,streaming,tuning,s2,"
+                    help="comma-separated subset of check,fe,glmix,guard,dp,nccl,solvers,io,game,streaming,tuning,s2,"
                          "sparse,timing,variants,retrain,serving,distributed,tiled "
                          "to run after card and build (for iterating on one phase; the result is then not ok)")
     args = ap.parse_args()
@@ -7943,18 +8086,26 @@ def main() -> int:
 
     # phase 12's metrics directories, kept for phase 15's cli.fleetz
     keep = tempfile.mkdtemp(prefix="chip_smoke_keep_")
-    errs = fe_launches = glmix = dp = times = solvers = io = game = streaming = tuning = retrain = served = None
+    errs = fe_launches = glmix = guard = dp = times = solvers = io = game = streaming = tuning = retrain = None
+    served = None
     dist = tiled = None
     if want("check"):
         errs = phases.run("kernels vs float64 plain", check_kernels, torch, args.n, args.d, args.seed)
     if want("fe"):
         fe_launches = phases.run("fixed-effect path", fe_path, torch, args.n, args.d, args.seed)
-    if (want("glmix") or want("dp") or want("nccl") or want("solvers") or want("io") or want("game")
-            or want("streaming") or want("tuning")):
+    if (want("glmix") or want("guard") or want("dp") or want("nccl") or want("solvers") or want("io")
+            or want("game") or want("streaming") or want("tuning")):
         glmix = phases.run(
             "GLMix sweep (main path)", glmix_path, torch, args.n, args.d, args.users, args.d_re, args.seed
         )
     state = (glmix or {}).pop("state", None)
+    if not want("guard"):
+        pass
+    elif state is None:
+        log("== phase: transfer guard needs the one-card sweep's coordinates")
+        phases.failed.append("transfer guard")
+    else:
+        guard = phases.run("transfer guard", guard_phase, torch, state, smi)
     if not (want("dp") or want("nccl")):
         pass
     elif state is None:
@@ -8077,6 +8228,10 @@ def main() -> int:
             f"of {min(glmix['walls']):.4f}-{max(glmix['walls']):.4f}, "
             f"FE share {glmix['fe_share']:.3f}, RE share {glmix['re_share']:.3f}, "
             f"syncs {glmix['syncs']}, train AUC {glmix['train_auc']:.6f}) on {smi}")
+    if guard:
+        log(f"transfer guard: phase 5's sweep median {guard['guarded_s']:.4f} s guarded against "
+            f"{guard['unguarded_s']:.4f} s with PHOTON_TRANSFER_GUARD=off ({guard['ratio']:.4f}x), a lift "
+            f"{guard['lift_us']:.2f} us, fetch bytes by site {guard['fetch_bytes']} on {smi}")
     if dp:
         sw = dp.get("sweep")
         if sw:

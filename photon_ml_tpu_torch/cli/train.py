@@ -502,22 +502,26 @@ def _run_training(args, device, run_t, sinks, t_run0, recorder) -> Dict:
         # the SAME pool later runs the background validation decode
         n_ingest_workers = resolve_ingest_workers(args.ingest_workers)
         ingest_pool = WorkerPool(n_ingest_workers, name="photon-ingest")
-    try:
-        if ingest_pool is not None:
+        try:
             raw, index_maps = read_avro_dataset_chunked(
                 input_paths, shards, index_maps=index_maps, id_tag_columns=id_tags,
                 response_column=args.response_column, columns=input_columns,
                 workers=n_ingest_workers, pool=ingest_pool,
             )
-        else:
-            # several processes: this process's row range, read on the main
-            # thread (the collectives' order must not depend on a pool)
-            raw, index_maps = read_avro_dataset(
-                input_paths, shards, index_maps=index_maps, id_tag_columns=id_tags,
-                response_column=args.response_column, columns=input_columns,
-                row_range=row_range, part_counts=part_counts,
-            )
-            raw.global_row_start = row_range[0]
+        except BaseException:
+            # a failed read leaves no future behind: release the workers
+            ingest_pool.close()
+            raise
+    else:
+        # several processes: this process's row range, read on the main
+        # thread (the collectives' order must not depend on a pool)
+        raw, index_maps = read_avro_dataset(
+            input_paths, shards, index_maps=index_maps, id_tag_columns=id_tags,
+            response_column=args.response_column, columns=input_columns,
+            row_range=row_range, part_counts=part_counts,
+        )
+        raw.global_row_start = row_range[0]
+    try:
         if args.validate_data != "disabled":
             from ..io import validators
 

@@ -43,12 +43,13 @@ def pin_device(device: DeviceLike = None) -> torch.device:
 def fetch(site: str, tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
     """``tensors`` on the host in their own dtypes and shapes, bit for bit,
     moved in one device-to-host copy (their bytes concatenated where they
-    lie) and counted as one fetch at ``site``
-    (``photon_device_fetch_bytes_total{site=}``)."""
+    lie), the transfer guard lifted for it, and counted as one fetch at
+    ``site`` (``photon_device_fetch_bytes_total{site=}``)."""
     from . import obs
+    from .analysis.runtime import device_get
 
     flat = [t.detach().contiguous().reshape(-1).view(torch.uint8) for t in tensors]
-    host = (torch.cat(flat) if len(flat) > 1 else flat[0]).cpu().numpy()
+    host = device_get(torch.cat(flat) if len(flat) > 1 else flat[0]).numpy()
     obs.add_device_fetch_bytes(site, int(host.nbytes))
     out, start = [], 0
     for t, f in zip(tensors, flat):

@@ -67,6 +67,7 @@ import numpy as np
 import torch
 
 from .. import plan as execution_plan
+from ..analysis.runtime import device_put
 from ..device import DeviceLike, resolve_device
 from ..evaluation.suite import EvaluationResults, build_suite
 from ..game.coordinate import Coordinate, FixedEffectCoordinate, ModelCoordinate, RandomEffectCoordinate
@@ -299,7 +300,7 @@ class GameEstimator(EventEmitter):
                 ids = val_raw.id_tags[cc.random_effect_type]
 
                 def fn(model, _ids=ids, _ell=ell):
-                    erow = torch.as_tensor(model.rows_for(_ids).astype(np.int32), device=_ell.idx.device)
+                    erow = device_put(model.rows_for(_ids), _ell.idx.device, torch.int32)
                     return model.score_ell_rows(erow, _ell.idx, _ell.val)
 
             else:

@@ -30,15 +30,22 @@ def auc(s: Tensor, y: Tensor, w: Tensor) -> Tensor:
     pos = torch.where(y > POSITIVE_THRESHOLD, w, zero)
     neg = torch.where(y > POSITIVE_THRESHOLD, zero, w)
     n = s.shape[0]
-    # last index of each tie group
+    # the last index of each tie group, and for every index the last index
+    # of the group before its own (-1 for the first group): static shapes,
+    # no masked compaction, so no host synchronize
     last = torch.ones(n, dtype=torch.bool, device=s.device)
     last[:-1] = s[1:] != s[:-1]
-    cpos = torch.cumsum(pos, 0)[last]
-    cneg = torch.cumsum(neg, 0)[last]
-    gp = torch.diff(cpos, prepend=cpos.new_zeros(1))
-    gn = torch.diff(cneg, prepend=cneg.new_zeros(1))
+    idx = torch.arange(n, device=s.device)
+    ends = torch.where(last, idx, torch.full_like(idx, -1))
+    prev_end = torch.cummax(torch.cat([ends.new_full((1,), -1), ends[:-1]]), 0).values
+    cpos, cneg = torch.cumsum(pos, 0), torch.cumsum(neg, 0)
+
+    def group_sum(c: Tensor) -> Tensor:  # c at a group's end less c at the previous group's end
+        return c - torch.where(prev_end >= 0, c[prev_end.clamp(min=0)], torch.zeros_like(c))
+
+    gp, gn = group_sum(cpos), group_sum(cneg)
     cum_before = cpos - gp
-    raw = torch.sum(cum_before * gn + gp * gn / 2.0)
+    raw = torch.sum(torch.where(last, cum_before * gn + gp * gn / 2.0, torch.zeros_like(gp)))
     tp, tn = cpos[-1], cneg[-1]
     nan = torch.full((), float("nan"), dtype=raw.dtype, device=raw.device)
     return torch.where((tp == 0.0) | (tn == 0.0), nan, raw / (tp * tn))
@@ -104,12 +111,14 @@ def build_device_evaluator(evaluators, labels: np.ndarray, weights) -> Optional[
     on_device: Dict[torch.device, tuple] = {}
 
     def evaluate(scores: Tensor) -> Dict[str, float]:
+        from ..analysis.runtime import device_put, logged_fetch
+
         dev = scores.device
         if dev not in on_device:
-            on_device[dev] = (y_host.to(dev), w_host.to(dev))
+            on_device[dev] = (device_put(y_host, dev), device_put(w_host, dev))
         y, w = on_device[dev]
         s = scores.to(y.dtype)
-        vals = torch.stack([f(s, y, w).to(torch.float64) for f in fns]).cpu().numpy()
+        vals = logged_fetch("evaluation.device_metrics", torch.stack([f(s, y, w).to(torch.float64) for f in fns]))
         return {n: float(v) for n, v in zip(names, vals)}
 
     return evaluate

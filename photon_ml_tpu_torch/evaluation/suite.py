@@ -75,7 +75,9 @@ class EvaluationSuite:
 
     def _evaluate_host(self, scores) -> EvaluationResults:
         if hasattr(scores, "detach"):  # a torch tensor
-            scores = scores.detach().cpu().double().numpy()
+            from ..analysis.runtime import device_get
+
+            scores = device_get(scores).double().numpy()
         scores = np.asarray(scores, dtype=np.float64)
         out: Dict[str, float] = {}
         for ev in self.evaluators:

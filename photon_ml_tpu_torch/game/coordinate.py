@@ -81,6 +81,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..analysis.runtime import allow_transfers, device_get, device_put
 from ..device import fetch
 from ..models.coefficients import Coefficients
 from ..models.game import (
@@ -455,7 +456,7 @@ class RandomEffectCoordinate(Coordinate):
         del solver_kwargs["l2"]  # replaced by the per-lane l2_lanes operand
         results = _train_blocks_packed_lanes(
             blocks.features, blocks.labels, offsets_lanes, blocks.weights, w0,
-            torch.as_tensor(l2_lanes, dtype=dtype, device=dev), **solver_kwargs,
+            device_put(l2_lanes, dev, dtype), **solver_kwargs,
         )
         valid = blocks.proj_cols >= 0
         W = torch.where(valid[:, :, None], results.coefficients, torch.zeros((), dtype=dtype, device=dev))
@@ -597,7 +598,12 @@ class RandomEffectCoordinate(Coordinate):
         pc = _layout(ds)
         if ci is pc:
             return True
-        return tuple(ci.shape) == tuple(pc.shape) and bool(torch.equal(ci.to(pc.device), pc))
+        if tuple(ci.shape) != tuple(pc.shape):
+            return False
+        # a deliberate sync, off the coordinate-descent path (which the
+        # provenance check above answers)
+        with allow_transfers():
+            return torch.equal(ci.to(pc.device), pc)
 
     def score(self, model: RandomEffectModel) -> Tensor:
         ds = self.dataset
@@ -627,9 +633,7 @@ class RandomEffectCoordinate(Coordinate):
         # the model's entity rows or support differ from this dataset's (a
         # model loaded from elsewhere): remap block rows to model rows by id
         if ds_ids != m_ids:
-            block_to_model = torch.as_tensor(
-                model.rows_for(ds.entity_ids), dtype=torch.int32, device=ds.device
-            )
+            block_to_model = device_put(model.rows_for(ds.entity_ids), ds.device, torch.int32)
             row_entity = torch.where(
                 row_entity >= 0, block_to_model[torch.clamp(row_entity, min=0).long()], -1
             ).to(torch.int32)
@@ -676,7 +680,7 @@ def _layout(ds: RandomEffectDataset) -> Tensor:
         return ds.blocks.proj_cols
     cached = getattr(ds, "_layout_cache", None)
     if cached is None:
-        cached = torch.as_tensor(ds.host_proj_cols, dtype=torch.int32, device=ds.device)
+        cached = device_put(ds.host_proj_cols, ds.device, torch.int32)
         object.__setattr__(ds, "_layout_cache", cached)
     return cached
 
@@ -727,8 +731,8 @@ def _project_model_values(
     prov = getattr(model, "_support_layout_of", None)
     if prov is not None and prov() is dataset:
         return values.to(device=dev, dtype=dtype)
-    pc_host = layout.cpu().numpy()
-    idx = model.coef_indices.cpu().numpy()
+    pc_host = device_get(layout).numpy()
+    idx = device_get(model.coef_indices).numpy()
     if (
         idx.shape == (E, S)
         and model.num_entities == E
@@ -737,7 +741,7 @@ def _project_model_values(
     ):
         return values.to(device=dev, dtype=dtype)
     dim = int(max(int(pc_host.max(initial=0)), int(idx.max(initial=0))) + 1)
-    vals = values.detach().cpu().double().numpy()
+    vals = device_get(values).double().numpy()
     me, ms = np.nonzero(idx >= 0)
     mkeys = me.astype(np.int64) * dim + idx[me, ms]
     order = np.argsort(mkeys, kind="stable")
@@ -753,7 +757,7 @@ def _project_model_values(
         pos = np.clip(np.searchsorted(mkeys_s, dkeys, side="right") - 1, 0, None)
         hit = mkeys_s[pos] == dkeys
         w0[de[hit], dsl[hit]] = mvals_s[pos[hit]]
-    return torch.as_tensor(w0).to(device=dev, dtype=dtype)
+    return device_put(w0, dev, dtype)
 
 
 def _pow2_ceil(x: np.ndarray) -> np.ndarray:

@@ -59,13 +59,13 @@ from __future__ import annotations
 import collections
 import dataclasses
 import logging
-import time
 from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import obs
+from ..analysis.runtime import allow_transfers, device_put, logged_fetch, transfer_guard
 from ..evaluation.suite import EvaluationResults, EvaluationSuite
 from ..models.game import GameModel
 from ..optimize import SolverResult
@@ -302,7 +302,14 @@ class CoordinateDescent:
                             eit, ename, res, lane_snaps.popleft(), evaluations, best_eval, best_models
                         )
 
-                with pipeline.pipelined(self.pipeline_depth, anchor=sweep_span), pipeline.closing(lane):
+                # the zero-fetch contract, enforced at run time: on the card
+                # every synchronizing call inside the sweep must be an explicit,
+                # counted fetch (device.fetch / logged_fetch) or run under
+                # allow_transfers(); an implicit one (float(t), t.item(), a
+                # masked index) raises instead of silently stalling the card.
+                # The static half of this contract is the lint's rule R1.
+                with pipeline.pipelined(self.pipeline_depth, anchor=sweep_span), pipeline.closing(lane), \
+                        transfer_guard(device=_loop_device(coords.values())):
                     for idx in range(first, len(self.order)):
                         name = self.order[idx]
                         coordinate = coords[name]
@@ -316,8 +323,7 @@ class CoordinateDescent:
                         # the current position for /statusz scrapes: host dict
                         # writes, live with or without a sink
                         status.update(sweep=it, n_sweeps=self.n_iterations, coordinate=name, coordinate_index=idx)
-                        t0 = time.perf_counter()
-                        with obs.span("cd.coordinate", iteration=it, coordinate=name):
+                        with obs.span("cd.coordinate", iteration=it, coordinate=name) as coordinate_span:
                             with timed(f"cd iter {it} coordinate {name}: train", phase="solve", coordinate=name):
                                 model, solver_result = coordinate.train(residual, initial_model=models.get(name))
                             if solver_result is not None:  # None: a locked coordinate
@@ -344,7 +350,7 @@ class CoordinateDescent:
                             if self.divergence_guard:
                                 syncs[name] += 1
                                 accepted, train_loss = self._guard(name, new_scores, solver_result, train_losses)
-                        seconds[name] += time.perf_counter() - t0
+                        seconds[name] += coordinate_span.duration_s
                         if c0 is not None:
                             collectives[name] += group.collectives - c0[0]
                             collective_s[name] += group.collective_seconds - c0[1]
@@ -378,7 +384,9 @@ class CoordinateDescent:
                             # state holds the serial loop's ledger
                             if lane is not None:
                                 _absorb(lane.drain_all())
-                            with obs.span("cd.checkpoint", phase="checkpoint", coordinate=name):
+                            # a checkpoint is a deliberate sync point: lift the
+                            # guard for exactly this call
+                            with allow_transfers(), obs.span("cd.checkpoint", phase="checkpoint", coordinate=name):
                                 self.boundary_fn(CDBoundaryState(
                                     iteration=it,
                                     coordinate_index=idx,
@@ -402,7 +410,7 @@ class CoordinateDescent:
                         models, evaluations, best_eval, best_models, it, self.order[-1]
                     )
                 if self.checkpoint_fn is not None:
-                    with obs.span("cd.checkpoint", phase="checkpoint"):
+                    with allow_transfers(), obs.span("cd.checkpoint", phase="checkpoint"):
                         self.checkpoint_fn(it, dict(models))
             # the sweep-boundary liveness rendezvous (and the drill's
             # dist.collective fault site)
@@ -438,13 +446,12 @@ class CoordinateDescent:
         only."""
         finite = torch.all(torch.isfinite(new_scores)).to(torch.float64)
         if solver_result is None:
-            obs.add_device_fetch_bytes("cd.update_guard", 8)
-            return bool(finite.item()), None
-        finite_h, loss_h = (
-            torch.stack([finite, torch.sum(solver_result.loss).to(device=finite.device, dtype=torch.float64)])
-            .cpu().numpy()
+            return bool(logged_fetch("cd.update_guard", finite)), None
+        finite_h, loss_h = logged_fetch(
+            "cd.update_guard",
+            # a streamed coordinate's loss lies on the host: staged, not synced
+            torch.stack([finite, device_put(torch.sum(solver_result.loss), finite.device, torch.float64)]),
         )
-        obs.add_device_fetch_bytes("cd.update_guard", 16)
         if not bool(finite_h):
             return False, None
         loss = float(loss_h)
@@ -517,12 +524,11 @@ class CoordinateDescent:
                 s = fn(model)
                 acc = s if acc is None else acc + s
         if acc is not None:
-            total_dev = acc + torch.as_tensor(np.asarray(v.offsets), dtype=acc.dtype, device=acc.device)
+            total_dev = acc + device_put(np.asarray(v.offsets), acc.device, acc.dtype)
             res = v.suite.evaluate_device(total_dev)
             if res is not None:
                 return res
         total = np.asarray(v.offsets, dtype=np.float64)
         if acc is not None:
-            total = total + acc.detach().cpu().double().numpy()
-            obs.add_device_fetch_bytes("cd.validation_scores", acc.numel() * acc.element_size())
+            total = total + logged_fetch("cd.validation_scores", acc).astype(np.float64)
         return v.suite.evaluate(total)

@@ -79,6 +79,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..analysis.runtime import allow_transfers, device_put
 from ..device import DeviceLike, resolve_device
 from ..ops.features import FeatureMatrix, LabeledBatch
 from ..ops.fused_glm import HV, VG, slice_slots, slices_total
@@ -345,7 +346,7 @@ class StreamedFEObjective:
         self._stager = _SliceStager(hb, step, self.n_slices, dev, keys=True)
 
         # the device-resident scalar planes
-        dl, do, dw = (t.to(device=dev, dtype=self.sdt) for t in (hb.labels, hb.offsets, hb.weights))
+        dl, do, dw = (device_put(t, dev, self.sdt) for t in (hb.labels, hb.offsets, hb.weights))
         if dev.type == "cuda":
             obs.add_device_put_bytes("fe_streaming.resident", 3 * n * dl.element_size())
         if residual_scores is not None:
@@ -465,7 +466,9 @@ class StreamedFEObjective:
                 slots = full
             totals = slices_total(slots, mode, self.dim, self.sdt)
         self._intervals["pass"].append((pp.start_perf, pp.start_perf + pp.duration_s))
-        with obs.span("fe_stream.collect", phase="collect", kind=kind) as cp:
+        # the pass's end on the host clock: a deliberate wait, lifted past the
+        # transfer guard
+        with obs.span("fe_stream.collect", phase="collect", kind=kind) as cp, allow_transfers():
             if self.device.type == "cuda":
                 torch.cuda.current_stream(self.device).synchronize()
         self._intervals["collect"].append((cp.start_perf, cp.start_perf + cp.duration_s))

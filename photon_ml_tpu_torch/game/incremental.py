@@ -331,11 +331,13 @@ def _ensure_published(serving_root: str, record: DayRecord, model: GameModel) ->
 def _stage(name: str, seconds: Dict[str, float], device):
     """Time one stage of a chain day into ``seconds[name]``, ending in a
     device synchronize, and observe it in ``photon_retrain_stage_seconds``."""
+    # photon: ignore[R7] — a stage's wall for retrain-summary.json and the
+    # stage histogram; the day reaches the timeline as its retrain.day span
     t0 = time.perf_counter()
     yield
     if device is not None and device.type == "cuda":
         torch.cuda.synchronize(device)
-    dt = time.perf_counter() - t0
+    dt = time.perf_counter() - t0  # photon: ignore[R7] — closes the stage above
     seconds[name] = seconds.get(name, 0.0) + dt
     obs.current_run().registry.histogram(
         "photon_retrain_stage_seconds", "wall of one stage of a chain day"
@@ -409,6 +411,9 @@ def run_chain(
             continue  # decided on an earlier invocation; the ledger is durable
         faults.check("retrain.day")
         seconds: Dict[str, float] = {}
+        # photon: ignore[R7] — the day's wall for retrain-summary.json's
+        # day_seconds, from before its read to after its ledger write (its
+        # retrain.day span brackets the training stages only)
         t_day = time.perf_counter()
         with _stage("read", seconds, device):
             raw = data() if callable(data) else data
@@ -486,7 +491,7 @@ def run_chain(
         state["rows_cumulative"] = rows_cumulative
         state["rows_seen"] = rows_seen
         _save_chain_state(chain_dir, state)
-        seconds["day"] = time.perf_counter() - t_day
+        seconds["day"] = time.perf_counter() - t_day  # photon: ignore[R7] — closes t_day
         day_seconds[label] = seconds
 
     return ChainResult(

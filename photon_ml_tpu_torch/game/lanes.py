@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..analysis.runtime import device_put, logged_fetch
 from ..models.coefficients import Coefficients
 from ..models.game import FixedEffectModel, GameModel, RandomEffectModel
 from ..models.glm import model_for_task
@@ -117,22 +118,20 @@ def _evaluate_lane(validation, models: Mapping[str, object]):
             s = fn(model)
             acc = s if acc is None else acc + s
     if acc is not None:
-        total_dev = acc + torch.as_tensor(np.asarray(validation.offsets), dtype=acc.dtype, device=acc.device)
+        total_dev = acc + device_put(np.asarray(validation.offsets), acc.device, acc.dtype)
         res = validation.suite.evaluate_device(total_dev)
         if res is not None:
             return res
     total = np.asarray(validation.offsets, dtype=np.float64)
     if acc is not None:
-        total = total + acc.detach().cpu().double().numpy()
-        obs.add_device_fetch_bytes("lanes.validation_scores", acc.numel() * acc.element_size())
+        total = total + logged_fetch("lanes.validation_scores", acc).astype(np.float64)
     return validation.suite.evaluate(total)
 
 
 def _guard_fetch(finite: Tensor, reason) -> tuple:
     """One fetch of every lane's finite flag and the solve's reasons."""
     reason_t = torch.as_tensor(reason, device=finite.device).to(torch.int32)
-    packed = torch.cat([finite.to(torch.int32), reason_t.reshape(-1)]).cpu().numpy()
-    obs.add_device_fetch_bytes("lanes.update_guard", packed.nbytes)
+    packed = logged_fetch("lanes.update_guard", torch.cat([finite.to(torch.int32), reason_t.reshape(-1)]))
     L = finite.shape[0]
     return packed[:L].astype(bool), packed[L:].reshape(tuple(reason_t.shape))
 

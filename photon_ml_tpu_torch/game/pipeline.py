@@ -139,7 +139,7 @@ class EvalLane:
                 try:
                     with obs.span("cd.eval", parent=self._anchor, phase="eval", iteration=it, coordinate=coord):
                         result, error = self._fn(snapshot), None
-                # parked, re-raised at the matching drain
+                # photon: ignore[R4] — parked, re-raised at the matching drain
                 except BaseException as e:
                     result, error = None, e
                 with self._cv:

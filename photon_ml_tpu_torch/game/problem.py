@@ -35,6 +35,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..analysis.runtime import device_put
 from ..models.coefficients import Coefficients
 from ..models.glm import GeneralizedLinearModel, model_for_task
 from ..device import resolve_device
@@ -391,7 +392,7 @@ class GLMProblem:
         w0 = torch.zeros((batch.dim, L), dtype=dtype, device=dev) if w0 is None else w0.to(device=dev, dtype=dtype)
         result = _train_fe_lanes(
             batch.features, batch.labels, offsets_lanes.to(dtype), batch.weights, w0,
-            torch.as_tensor(l2_lanes, dtype=dtype, device=dev),
+            device_put(l2_lanes, dev, dtype),
             task=self.task,
             optimizer_type=OptimizerType(solver_cfg.normalized_type()).value,
             tolerance=solver_cfg.tolerance,

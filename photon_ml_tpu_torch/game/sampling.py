@@ -23,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from ..analysis.runtime import device_put
 from ..ops.features import LabeledBatch
 from ..ops.losses import POSITIVE_RESPONSE_THRESHOLD
 
@@ -60,7 +61,7 @@ def apply_keep_mask(batch: LabeledBatch, task: str, rate: float, keep: Tensor) -
         pos = batch.labels > POSITIVE_RESPONSE_THRESHOLD
         # a divisor on the device: a host scalar would turn the division
         # into a product by its reciprocal on the card
-        kept = w / torch.as_tensor(rate, dtype=w.dtype, device=w.device)
+        kept = w / device_put(rate, w.device, w.dtype)
         new_w = torch.where(pos, w, torch.where(keep, kept, zero))
     else:
         new_w = torch.where(keep, w, zero)

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..analysis.runtime import device_put
 from ..device import DeviceLike, fetch, resolve_device
 from ..models.game import ell_support_positions
 from ..optimize import SolverResult
@@ -331,7 +332,8 @@ def score_streamed(
     n = row_entity.shape[0]
     dev = row_entity.device
     itemsize = coef_values_np.element_size()
-    # rounded to the 8-entity multiple of entities_per_slice
+    # photon: ignore[R3] — the //8*8 below rounds to the 8-entity lane
+    # multiple (matches entities_per_slice), not an itemsize
     step = max(int(budget_bytes // max(S * itemsize * 2, 1)) // 8 * 8, 8)
     if score_dtype is None:
         score_dtype = torch.promote_types(ell_val.dtype, torch.float32)
@@ -342,7 +344,7 @@ def score_streamed(
         zero = torch.zeros((), dtype=ell_val.dtype, device=dev)
         for s0 in range(0, E, step):
             s1 = min(s0 + step, E)
-            pc = proj_cols_np[s0:s1].to(dev)
+            pc = device_put(proj_cols_np[s0:s1], dev)
             in_sl = (row_entity >= s0) & (row_entity < s1)
             # rows outside the slice resolve against entity 0's layout; their
             # contribution is masked to zero
@@ -372,7 +374,7 @@ def score_streamed(
             m = _pow2_ceil(len(rows_k))
             padded = np.full(m, n, dtype=np.int32)
             padded[: len(rows_k)] = rows_k
-            slice_rows.append(torch.from_numpy(padded).to(dev))
+            slice_rows.append(device_put(padded, dev))
             device_rows += m
         cache = StreamedScoreCache(cache.x_sub, step, slice_rows, device_rows)
         obs.current_run().registry.gauge(
@@ -389,7 +391,7 @@ def score_streamed(
             continue
         s0 = k * step
         s1 = min(s0 + step, E)
-        w = coef_values_np[s0:s1].to(dev)
+        w = device_put(coef_values_np[s0:s1], dev)
         if dev.type == "cuda":
             obs.add_device_put_bytes("streaming.score_stage", w.numel() * w.element_size())
         valid = idx < n
@@ -397,7 +399,9 @@ def score_streamed(
         loc = torch.where(valid, row_entity[safe] - s0, torch.zeros_like(idx)).long()
         wr = w[loc].to(score_dtype)  # [m, S]
         part = torch.sum(wr * xsub_wide[safe], dim=1)
-        scores.index_add_(0, safe[valid], part[valid])
+        # padding rows add an exact zero to row n - 1: no masked compaction,
+        # so no host synchronize
+        scores.index_add_(0, safe, torch.where(valid, part, torch.zeros_like(part)))
     obs.current_run().registry.counter(
         "photon_stream_slices_total", "streamed slices staged through the chip"
     ).labels(site=_SCORE_SITE).inc(n_slices)

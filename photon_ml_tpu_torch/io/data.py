@@ -372,6 +372,9 @@ def read_avro_dataset(
         except Exception:
             if engine == "native":
                 raise
+            from .. import obs
+
+            obs.swallowed_error("io.native_decode_fallback")
             logger.warning(
                 "native Avro decode failed; falling back to Python codec",
                 exc_info=True,

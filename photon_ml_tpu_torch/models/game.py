@@ -20,6 +20,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..analysis.runtime import device_put
 from ..ops.features import LabeledBatch
 from .coefficients import Coefficients
 from .glm import GeneralizedLinearModel
@@ -180,7 +181,9 @@ class RandomEffectModel:
         A table held in host memory (a streamed coordinate's) is copied to
         the rows' device first."""
         dev = feat_val.device
-        return score_entity_ell(self.coef_indices.to(dev), self.coef_values.to(dev), entity_rows, feat_idx, feat_val)
+        return score_entity_ell(
+            device_put(self.coef_indices, dev), device_put(self.coef_values, dev), entity_rows, feat_idx, feat_val
+        )
 
 
 @dataclasses.dataclass

@@ -52,6 +52,13 @@ _lib = None
 _lib_error: Optional[str] = None
 
 
+def _build_error() -> str:
+    """Why the decoder is unavailable (read under the build lock: a build on
+    another thread may be writing it)."""
+    with _build_lock:
+        return _lib_error or "native decoder unavailable"
+
+
 def _build() -> Optional[ctypes.CDLL]:
     """Compile decoder.cpp into ``library_path()`` (cached by the source's
     hash) and load it."""
@@ -301,7 +308,7 @@ def decode_file(
     """Decode one container file into columnar arrays via the native lib."""
     lib = _build()
     if lib is None:
-        raise RuntimeError(_lib_error or "native decoder unavailable")
+        raise RuntimeError(_build_error())
 
     import mmap as _mmap
 
@@ -507,7 +514,7 @@ def decode_file_chunks(
     core count."""
     lib = _build()
     if lib is None:
-        raise RuntimeError(_lib_error or "native decoder unavailable")
+        raise RuntimeError(_build_error())
     if n_threads is None:
         n_threads = int(os.environ.get("PHOTON_DECODE_THREADS", 0)) or (os.cpu_count() or 1)
 

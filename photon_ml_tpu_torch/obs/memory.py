@@ -43,7 +43,7 @@ def read_host_memory(proc_status: str = _PROC_STATUS) -> Dict[str, int]:
             import resource
 
             out["peak_rss_bytes"] = int(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss) * 1024
-        except Exception:  # no resource module: no peak
+        except Exception:  # photon: ignore[R4] - no resource module: no peak
             pass
     return out
 

@@ -123,7 +123,11 @@ def swallowed_error(site: str) -> None:
 
 
 def _host(v) -> np.ndarray:
-    return v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v)
+    if not hasattr(v, "detach"):
+        return np.asarray(v)
+    from ..analysis.runtime import device_get
+
+    return device_get(v).numpy()
 
 
 def record_solver_metrics(solver: str, result) -> None:

@@ -56,7 +56,7 @@ def _count_dropped(sink: str) -> None:
             "photon_sink_dropped_events_total",
             "telemetry events a sink failed to write, by sink",
         ).labels(sink=sink).inc()
-    # counting must not mask the original write error, and routing through
+    # photon: ignore[R4] — counting must not mask the original write error, and routing through
     # obs.swallowed_error here could recurse into the very registry lookup
     # that failed
     except Exception:  # pragma: no cover

@@ -45,6 +45,7 @@ def set_process_index(index: int) -> None:
     # set once at startup, before any sink, server or recorder thread
     # exists; a reference assignment is atomic, so a late reader sees the
     # old or the new index, never a torn value
+    # photon: thread-confined
     _process_index = int(index)
 
 
@@ -55,6 +56,7 @@ def get_process_index() -> int:
 def set_replica_id(replica: Optional[str]) -> None:
     global _replica_id
     # the same set-once-at-startup discipline as set_process_index
+    # photon: thread-confined
     _replica_id = None if replica is None else str(replica)
 
 

@@ -312,7 +312,7 @@ class LabeledBatch:
 def _as_tensor(a, dtype, device) -> Tensor:
     if isinstance(a, torch.Tensor):
         return a.to(device=device, dtype=dtype)
-    return torch.as_tensor(np.asarray(a), device=device).to(dtype)
+    return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
 
 def _labeled(feats: FeatureMatrix, y, offsets, weights, dtype, dev) -> LabeledBatch:

@@ -69,6 +69,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..analysis.runtime import device_put
 from . import cuda_lib, lane_reduce, sparse
 from .losses import PointwiseLoss
 
@@ -160,7 +161,7 @@ def hessian_vector_plain(
     cd = _compute_dtype(x, compute_dtype)
     xc = x.to(cd)
     z = torch.mv(xc, eff_coef.to(x.dtype).to(cd)) + offsets.to(cd)
-    u = torch.mv(xc, eff_v.to(x.dtype).to(cd)) + torch.as_tensor(vshift, dtype=cd, device=x.device)
+    u = torch.mv(xc, eff_v.to(x.dtype).to(cd)) + device_put(vshift, x.device, cd)
     cu = weights.to(cd) * loss.d2z(z, labels.to(cd)) * u
     hv = torch.mv(xc.T, _round_like_x(cu, x.dtype))
     return hv, torch.sum(cu)
@@ -300,7 +301,7 @@ def _launch(
     hv = mode == HV
     if hv:
         v = _vec("eff_v", v, d, dev, x.dtype)
-        vshift = torch.as_tensor(vshift, device=dev).to(torch.float32).reshape(1)
+        vshift = device_put(vshift, dev, torch.float32).reshape(1)
     y = _vec("labels", labels, n, dev, torch.float32)
     off = _vec("offsets", offsets, n, dev, torch.float32)
     wt = _vec("weights", weights, n, dev, torch.float32)
@@ -661,10 +662,10 @@ def slices_total(slots: Tensor, mode: int, d: int, dtype: torch.dtype) -> tuple:
 def sweep_bytes(n: int, d: int, x_dtype: torch.dtype, mode: int) -> int:
     """Bytes one call must move: X, the [d] vector(s) in X's dtype, labels,
     offsets and weights (f32) read once; the outputs written once."""
-    item = torch.empty((), dtype=x_dtype).element_size()
+    item, f32 = x_dtype.itemsize, torch.float32.itemsize
     hv = mode == HV
-    reads = n * d * item + d * item * (2 if hv else 1) + 3 * n * 4 + (4 if hv else 0)
-    return reads + 4 * _out_width(mode, d)
+    reads = n * d * item + d * item * (2 if hv else 1) + 3 * n * f32 + (f32 if hv else 0)
+    return reads + f32 * _out_width(mode, d)
 
 
 def sweep_flops(n: int, d: int, mode: int) -> int:

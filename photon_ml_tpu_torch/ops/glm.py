@@ -384,7 +384,7 @@ def sum_over_ranks(group, h: Tensor, dtype: torch.dtype, plain: bool = False) ->
     width = h.shape[1]
     plain = plain or h.device.type == "cpu"
     out = torch.empty(h.shape, dtype=dtype, device=h.device)
-    rows = max(1, HESSIAN_CHUNK_BYTES // (8 * width))
+    rows = max(1, HESSIAN_CHUNK_BYTES // (torch.float64.itemsize * width))
     for lo in range(0, h.shape[0], rows):
         piece = h[lo : lo + rows].reshape(-1)
         slots = torch.empty((group.world_size, piece.numel()), dtype=torch.float64, device=h.device)
@@ -405,7 +405,7 @@ def _xtcx(x: Tensor, c: Tensor, norm: NormalizationContext) -> Tensor:
     h = torch.zeros((d, d), dtype=torch.float64, device=x.device)
     shifts = None if norm.shifts is None else norm.shifts.to(torch.float64)
     factors = None if norm.factors is None else norm.factors.to(torch.float64)
-    rows = max(1, HESSIAN_CHUNK_BYTES // (8 * d))
+    rows = max(1, HESSIAN_CHUNK_BYTES // (torch.float64.itemsize * d))
     for lo in range(0, n, rows):
         xc = x[lo : lo + rows].to(torch.float64)
         if shifts is not None:
@@ -443,8 +443,7 @@ def _diag_of_inverse(m: Tensor) -> Tensor:
     for lo in range(0, d, chunk):
         hi = min(d, lo + chunk)
         rhs = torch.zeros((d, hi - lo), dtype=m.dtype, device=m.device)
-        cols = torch.arange(hi - lo, device=m.device)
-        rhs[lo + cols, cols] = 1.0
+        rhs.diagonal(-lo).fill_(1.0)  # entries (lo + j, j): no upload, no host sync
         x = torch.linalg.solve_triangular(L, rhs, upper=False)
         out[lo:hi] = torch.sum(x * x, dim=0)
     return out

@@ -107,7 +107,8 @@ class Segments(NamedTuple):
         seg = torch.arange(n_seg, device=self.gather.device)
         if self.ptr is None:
             return seg.repeat_interleave(self.seg_len)
-        return seg.repeat_interleave(self.ptr.diff().long())
+        # the output size given: no host synchronize to learn it
+        return seg.repeat_interleave(self.ptr.diff().long(), output_size=self.gather.shape[0])
 
 
 def group_width(mean_len: float) -> int:

@@ -37,6 +37,7 @@ from typing import Callable, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..analysis.runtime import device_get, device_put
 from ..ops.lane_reduce import lane_reduce
 
 Tensor = torch.Tensor
@@ -128,7 +129,7 @@ class SyncCounter:
             [first.reshape(())]
             + [torch.as_tensor(v, device=first.device).to(first.dtype).reshape(()) for v in rest]
         )
-        return list(packed.cpu().numpy())
+        return list(device_get(packed).numpy())
 
 
 class Lanes:
@@ -307,4 +308,4 @@ def abs_tolerances(
 def nan_history(values: List, length: int, like: Tensor) -> Tensor:
     out = [math.nan] * length
     out[: len(values)] = [float(v) for v in values]
-    return torch.tensor(out, dtype=like.dtype, device=like.device)
+    return device_put(out, like.device, like.dtype)

@@ -59,6 +59,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..analysis.runtime import device_put
 
 from .common import (
     LEADING,
@@ -415,8 +416,8 @@ def _solve_batched(
     # terms): step sizes and history follow the iterate's dtype
     dtype, dev = w.dtype, w.device
     lanes = tuple(f.shape)
-    loss_tol = torch.as_tensor(loss_abs_tol, dtype=f.dtype, device=dev)
-    grad_tol = torch.as_tensor(grad_abs_tol, dtype=g.dtype, device=dev)
+    loss_tol = device_put(loss_abs_tol, dev, f.dtype)
+    grad_tol = device_put(grad_abs_tol, dev, g.dtype)
     T = max_iterations + 1
 
     done = ~L.finite(f, g)

@@ -18,11 +18,12 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..analysis.runtime import device_get
 from .common import ConvergenceReason, SolverResult
 
 
 def _host(v) -> np.ndarray:
-    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+    return device_get(v).numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 
 
 @dataclasses.dataclass(frozen=True)

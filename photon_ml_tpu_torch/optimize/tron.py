@@ -41,6 +41,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import obs
+from ..analysis.runtime import device_put
 from .common import (
     LEADING,
     LOCAL,
@@ -99,7 +100,7 @@ def _truncated_cg(
         if step_norm > delta:
             # hit the trust-region boundary: back off to the crossing
             std, sts, dtd = axis.total(torch.dot(step, d), torch.dot(step, step), torch.dot(d, d))
-            delta_t = torch.as_tensor(delta, dtype=gradient.dtype, device=gradient.device)
+            delta_t = device_put(delta, gradient.device, gradient.dtype)
             dsq = delta_t * delta_t
             rad = torch.sqrt(torch.clamp(std * std + dtd * (dsq - sts), min=0.0))
             alpha_b = torch.where(
@@ -299,8 +300,8 @@ def _solve_batched(
     f, g = value_and_grad(w)
     dtype, dev = w.dtype, w.device
     lanes = tuple(f.shape)
-    loss_tol = torch.as_tensor(loss_abs_tol, dtype=f.dtype, device=dev)
-    grad_tol = torch.as_tensor(grad_abs_tol, dtype=g.dtype, device=dev)
+    loss_tol = device_put(loss_abs_tol, dev, f.dtype)
+    grad_tol = device_put(grad_abs_tol, dev, g.dtype)
     T = max_iterations + 1
 
     # a lane corrupt at its start has no good iterate: it freezes at w0

@@ -71,6 +71,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..analysis.runtime import allow_transfers, device_get
 from ..device import resolve_device
 from ..ops.features import FeatureMatrix, LabeledBatch, _as_tensor, pad_batch
 from ..ops.fused_glm import rank_order_sum, rank_order_sum_plain
@@ -147,7 +148,10 @@ class DataParallelGroup:
 
     @property
     def collective_seconds(self) -> float:
-        self._resolve(wait=True)
+        # reading the NCCL events' times waits for them: a deliberate sync,
+        # lifted past the transfer guard
+        with allow_transfers():
+            self._resolve(wait=True)
         return self._seconds
 
     def _resolve(self, wait: bool) -> None:
@@ -165,13 +169,17 @@ class DataParallelGroup:
 
     @contextlib.contextmanager
     def _collective(self, device: torch.device):
+        """A host-clocked collective: it synchronizes the card on purpose
+        (and gloo stages CUDA tensors through the host), so the transfer
+        guard is lifted for it."""
         sync = device.type == "cuda"
-        if sync:
-            torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        yield
-        if sync:
-            torch.cuda.synchronize(device)
+        with allow_transfers():
+            if sync:
+                torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            yield
+            if sync:
+                torch.cuda.synchronize(device)
         self.collectives += 1
         self._seconds += time.perf_counter() - t0
 
@@ -704,6 +712,6 @@ def shard_random_effect_dataset(dataset, group: DataParallelGroup):
     return dataclasses.replace(
         dataset,
         blocks=shard_entity_blocks(dataset.blocks, group),
-        host_proj_cols=dataset.blocks.proj_cols.cpu().numpy(),
+        host_proj_cols=device_get(dataset.blocks.proj_cols).numpy(),
         group=group,
     )

@@ -53,6 +53,9 @@ class TiledSparseMatrix(TiledMatrix):
     matrix: its products run S1 on the card."""
 
     def to_dense(self) -> Tensor:
+        # photon: ignore[R10] — internal API guard on a layout class, not a
+        # user-facing configuration refusal; the supported paths are named
+        # in the message, and no config combination routes here
         raise NotImplementedError(
             "TiledSparseMatrix is for huge d; densification is not supported "
             "(use variance_type SIMPLE, or FULL which runs the chunked "

@@ -228,7 +228,7 @@ class HeartbeatWriter:
         """One synchronous liveness write (the thread loop's body)."""
         # the main thread writes once in start(), before the beat thread
         # exists; after that only the beat thread touches seq
-        self.seq = self.seq + 1
+        self.seq = self.seq + 1  # photon: thread-confined
         write_heartbeat(self.run_dir, self.process, self.seq, fsync=self.fsync)
 
     def _run(self) -> None:

@@ -235,7 +235,7 @@ def _plant_nan(tree):
         return tree
     if isinstance(tree, torch.Tensor) and tree.numel() and tree.is_floating_point():
         out = tree.clone()
-        out.view(-1)[0] = float("nan")
+        out.view(-1)[:1].fill_(float("nan"))  # a fill: no upload, no host sync
         return out
     return tree
 
@@ -275,6 +275,7 @@ def configure(spec, seed: int = 0) -> FaultInjector:
     # threads and must stay a single is-None test, so workers snapshot the
     # reference once per call (inj = _injector) and CPython reference
     # assignment is atomic: a reader sees the old or the new injector
+    # photon: thread-confined
     _injector = FaultInjector(specs, seed=seed)
     return _injector
 

@@ -228,7 +228,7 @@ class MicroBatcher:
         under the request."""
         if self._closed.is_set():
             raise RuntimeError("MicroBatcher is closed")
-        # cross-thread enqueue stamp: the matching read
+        # photon: ignore[R7] — cross-thread enqueue stamp: the matching read
         # happens on the worker thread, so a span cannot bracket it
         now = time.perf_counter()
         deadline = None if deadline_s is None else now + float(deadline_s)
@@ -255,7 +255,7 @@ class MicroBatcher:
         reg.counter("photon_serving_offered_total", _OFFERED_HELP).labels(
             model=self.model
         ).inc()
-        # closes the admission-stage interval opened by
+        # photon: ignore[R7] — closes the admission-stage interval opened by
         # the enqueue stamp; lands on the span timeline via record_span (the
         # decision spans the lock, so no context manager can bracket it)
         admitted = time.perf_counter()
@@ -290,7 +290,7 @@ class MicroBatcher:
         batch = [first]
         deadline = first[1] + self.max_latency_s
         while len(batch) < self.max_batch:
-            # deadline arithmetic against the enqueue
+            # photon: ignore[R7] — deadline arithmetic against the enqueue
             # stamp, not a measured section
             remaining = deadline - time.perf_counter()
             if remaining <= 0:
@@ -310,7 +310,7 @@ class MicroBatcher:
             # deadline check at the last moment before scoring: requests that
             # expired while queued are shed — a counted, typed response,
             # never a silent drop and never a wasted engine slot
-            # expiry check against the enqueue stamps
+            # photon: ignore[R7] — expiry check against the enqueue stamps
             now = time.perf_counter()
             live, expired = [], []
             for item in batch:
@@ -347,7 +347,7 @@ class MicroBatcher:
                 faults.check("serving.score")
                 faults.check(self._model_site)
                 _bind_device(engine)
-                # service-rate sample for the admission
+                # photon: ignore[R7] — service-rate sample for the admission
                 # EWMA; paired read below, crosses the engine call
                 t_score = time.perf_counter()
                 scores = engine.score_requests([b[0] for b in live])
@@ -367,7 +367,7 @@ class MicroBatcher:
                 self._dec_pending(len(live))
                 self._publish_queue_gauges(reg)
                 continue
-            # closes the cross-thread latency interval
+            # photon: ignore[R7] — closes the cross-thread latency interval
             # opened at submit(); feeds the latency histogram directly
             done = time.perf_counter()
             per_req = (done - t_score) / len(live)

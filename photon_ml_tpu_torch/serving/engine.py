@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..analysis.runtime import logged_fetch
 from ..device import DeviceLike, pin_device
 from ..models.game import FixedEffectModel, RandomEffectModel, score_entity_ell
 from ..ops.sparse import Segments, row_segments, segment_dot, segment_dot_plain
@@ -255,9 +256,7 @@ class ScoreEngine:
         (one counted fetch each) and sum them onto the offsets in float64."""
         total = np.array(offsets, dtype=np.float64)
         for name, margin in margins:
-            host = margin.detach().cpu()
-            obs.add_device_fetch_bytes(f"serving.score.{name}", host.numel() * host.element_size())
-            total += host.double().numpy()
+            total += logged_fetch(f"serving.score.{name}", margin).astype(np.float64)
         return total
 
     # -- batch path (cli.score / GameTransformer) ----------------------------

@@ -22,7 +22,11 @@ card fit (each coordinate's accepted loss rtol 1e-5, validation AUC within
 2e-3, the random effect keyed by entity id at atol 5e-3), the
 cross-rank random-effect build on the card bitwise its CPU build, and the
 dense feature-axis shard on a (2 x 2) grid of ranks sharing the card
-against the same grid's CPU passes.
+against the same grid's CPU passes. The runtime transfer guard: inside
+``transfer_guard()`` an implicit fetch raises, ``logged_fetch`` gives the
+tensor's bits and counts its bytes, two threads fetch under one guard, and
+a guarded GLMix sweep gives the unguarded sweep's models and fetch
+counters by site.
 """
 
 import dataclasses
@@ -1770,3 +1774,125 @@ def test_dense_feature_shard_over_ranks_on_card(cuda, tmp_path):
             for b in card:
                 if axis is None or a["pos"][axis] == b["pos"][axis]:
                     assert _same_bits(a[key].numpy(), b[key].numpy()), (key, a["pos"], b["pos"])
+
+
+# ------------------------------------------------- the runtime transfer guard
+
+
+@pytest.mark.parametrize("op", ["float", "item", "cpu", "mask"])
+def test_transfer_guard_raises_on_an_implicit_fetch(cuda, op):
+    """Inside transfer_guard() CUDA's sync debug mode is "error": an
+    implicit fetch raises; outside the guard the same op runs."""
+    from photon_ml_tpu_torch.analysis import guard_level, transfer_guard
+
+    x = torch.arange(8.0, device=cuda)
+    mask = x > 3.0
+    ops = {"float": lambda: float(x.sum()), "item": lambda: x.sum().item(), "cpu": lambda: x.cpu(),
+           "mask": lambda: x[mask]}
+    with transfer_guard():
+        assert guard_level() == "disallow"
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            ops[op]()
+    assert torch.cuda.get_sync_debug_mode() == 0
+    ops[op]()
+
+
+def test_device_put_uploads_under_the_guard(cuda):
+    """A blocking upload synchronizes (and raises under the guard);
+    device_put's non-blocking one does not, and lands the same values."""
+    import numpy as np
+
+    from photon_ml_tpu_torch.analysis import transfer_guard
+    from photon_ml_tpu_torch.analysis.runtime import device_put
+
+    host = np.arange(1000, dtype=np.float64)
+    with transfer_guard():
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            torch.as_tensor(host, device=cuda)
+        got = device_put(host, cuda, torch.float32)
+        scalar = device_put(0.25, cuda, torch.float64)
+    assert torch.equal(got, torch.as_tensor(host, dtype=torch.float32, device=cuda))
+    assert scalar.item() == 0.25
+
+
+def test_logged_fetch_on_card_equal_bits_and_counted(cuda):
+    import numpy as np
+
+    from photon_ml_tpu_torch import obs
+    from photon_ml_tpu_torch.analysis import logged_fetch, transfer_guard
+
+    x = torch.randn(1000, device=cuda, dtype=torch.float32)
+    b = torch.randn(64, device=cuda).to(torch.bfloat16)
+    with obs.use_run(obs.RunTelemetry()) as run:
+        with transfer_guard():
+            got, got_b = logged_fetch("test.card", (x, b))
+        counted = run.registry.counter("photon_device_fetch_bytes_total").labels(site="test.card").value
+    assert np.array_equal(got.view(np.uint32), x.cpu().numpy().view(np.uint32))
+    assert np.array_equal(got_b, b.float().cpu().numpy())
+    assert counted == 1000 * 4 + 64 * 2
+
+
+def test_two_threads_fetching_under_the_guard_never_raise(cuda):
+    import threading
+
+    from photon_ml_tpu_torch.analysis import logged_fetch, transfer_guard
+
+    x = torch.randn(4096, device=cuda)
+    errors, start = [], threading.Barrier(3)
+
+    def fetcher():
+        try:
+            start.wait()
+            for _ in range(200):
+                y = x * 2.0  # queued work the fetch waits for
+                assert logged_fetch("test.threads", y)[0] == 2.0 * float(logged_fetch("test.threads", x[0]))
+        except BaseException as e:  # noqa: BLE001 — surfaced below
+            errors.append(e)
+
+    with transfer_guard():
+        threads = [threading.Thread(target=fetcher) for _ in range(2)]
+        for t in threads:
+            t.start()
+        start.wait()
+        for _ in range(200):
+            x.mul_(1.0)  # the guarded thread's own device work, no sync
+        for t in threads:
+            t.join()
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            x.sum().item()  # the guard is back once both threads are done
+    assert errors == []
+
+
+def test_guarded_glmix_sweep_matches_unguarded_and_counts_alike(cuda, monkeypatch):
+    """A small GLMix sweep (validation on the card, an eval lane at depth
+    2) under the guard gives the unguarded sweep's models bit for bit and
+    the same photon_device_fetch_bytes_total by site."""
+    import numpy as np
+
+    from photon_ml_tpu_torch import obs
+    from photon_ml_tpu_torch.evaluation import build_suite
+    from photon_ml_tpu_torch.game import CoordinateDescent, ValidationContext
+
+    _, _, raw = _glmix_draws()
+
+    def run(env, depth):
+        if env is None:
+            monkeypatch.delenv("PHOTON_TRANSFER_GUARD", raising=False)
+        else:
+            monkeypatch.setenv("PHOTON_TRANSFER_GUARD", env)
+        coords = _glmix_on(cuda)
+        val = ValidationContext(suite=build_suite(["AUC"], raw.labels), offsets=np.zeros(raw.n_rows),
+                                score_fns={k: c.score for k, c in coords.items()})
+        with obs.use_run(obs.RunTelemetry()) as tel:
+            res = CoordinateDescent(coords, n_iterations=2, validation=val, pipeline_depth=depth).run()
+            fetched = {m["labels"]["site"]: m["value"] for m in tel.registry.snapshot()
+                       if m["name"] == "photon_device_fetch_bytes_total"}
+        return coords, res, fetched
+
+    for depth in (1, 2):
+        coords, guarded, g_fetched = run(None, depth)
+        _, off, o_fetched = run("off", depth)
+        assert g_fetched == o_fetched and g_fetched["cd.update_guard"] > 0
+        for name in coords:
+            assert torch.equal(coords[name].score(guarded.model[name]), coords[name].score(off.model[name]))
+        assert [e.primary_metric for _, e in guarded.evaluations] == [e.primary_metric for _, e in off.evaluations]

@@ -246,6 +246,93 @@ DEPARTURES = {
 }
 
 
+# the port's pins, one per JAX case: (id, documented fragment, the port's
+# exception type, or None where the port departs). The port's lint (its R10
+# pass) reads them statically; a test holds them to the JAX package's CASES.
+CASES = [
+    ('ckpt-model-axis-reshape', 'checkpoint mesh reshape across the model axis is not supported', PlanError),
+    ('ckpt-process-count-reshape', 'the process count changed and no legal reshape exists', PlanError),
+    ('ckpt-plan-fingerprint', 'resuming across a changed execution plan is not supported', PlanError),
+    ('chain-state-version', 'unsupported chain-state version', ValueError),
+    ('retrain-distributed', 'incremental retrain is single-process: not composable with --distributed', PlanError),
+    (
+        'retrain-trial-lanes',
+        'incremental retrain warm-starts with regularize-by-prior: not composable with --trial-lanes',
+        PlanError,
+    ),
+    (
+        'retrain-streamed',
+        'incremental retrain requires HBM-resident coordinates: not composable with hbm.budget.mb streaming',
+        PlanError,
+    ),
+    ('prior-index-mismatch', 'prior model features absent from the current feature index', ValueError),
+    ('lanes-mesh', 'trial-lanes sweeps are single-chip: not composable with a device mesh', PlanError),
+    (
+        'lanes-multiprocess',
+        'trial-lanes sweeps are single-process: not composable with multi-process training',
+        PlanError,
+    ),
+    (
+        'lanes-pipeline',
+        'trial-lanes sweeps drive their own lane schedule: not composable with pipeline_depth > 1',
+        PlanError,
+    ),
+    ('lanes-partial-retrain', 'partial retraining (locked coordinates) is not supported with trial-lanes', PlanError),
+    ('lanes-streamed', 'trial-lanes sweeps require HBM-resident coordinates', PlanError),
+    (
+        'lanes-l1',
+        'trial-lanes sweeps support L2 regularization only (the OWL-QN l1 weight is compile-time static, not a per-lane operand)',
+        ValueError,
+    ),
+    ('lanes-variance', 'trial-lanes sweeps require variance=NONE', ValueError),
+    ('lanes-down-sampling', 'down-sampling is not supported with trial-lanes', ValueError),
+    ('lanes-normalization', 'feature normalization is not supported with trial-lanes', ValueError),
+    ('lanes-regularize-by-prior', 'regularize-by-prior is not supported with trial-lanes', ValueError),
+    ('feature-dtype-tiled-estimator', "feature_dtype is not supported with layout='tiled'", PlanError),
+    ('feature-dtype-tiled-batch', 'feature_dtype is not supported on the tiled layout', ValueError),
+    ('tiled-no-mesh-estimator', "layout='tiled' requires the estimator to be built with a device mesh", ValueError),
+    ('tiled-no-mesh-batch', "layout='tiled' requires a device mesh", ValueError),
+    ('streamed-fe-bad-layout', 'hbm_budget_mb on a fixed effect requires a row-sliceable layout', ValueError),
+    (
+        'streamed-fe-variance',
+        'is not supported with hbm_budget_mb on a fixed effect (out-of-core row slices never materialize the Hessian)',
+        PlanError,
+    ),
+    (
+        'streamed-fe-down-sampling',
+        'down_sampling_rate < 1 is not supported with hbm_budget_mb on a fixed effect',
+        PlanError,
+    ),
+    ('streamed-fe-deep-check', 'not supported on the streamed fixed-effect path', ValueError),
+    ('full-variance-ceiling', 'exceeds the supported ceiling', ValueError),
+    ('standardization-no-intercept', 'STANDARDIZATION requires an intercept term', ValueError),
+    ('coo-on-mesh', 'shard_batch does not support the column-sorted COO layout', NotImplementedError),
+    ('multiprocess-ell', 'multi-process ELL sharding is not supported', NotImplementedError),
+    ('multiprocess-no-mesh', 'multi-process training requires a device mesh spanning all global devices', None),
+    ('multiprocess-model-axis', 'model-axis sharding across processes is not supported yet', NotImplementedError),
+    ('serving-width-ladder', "exceeds the serving engine's padded feature-width ladder", ValueError),
+    ('serving-store-version', 'unsupported serving store version', ValueError),
+    ('socket-and-listen', 'pass at most one of --socket / --listen (one socket front per server process)', ValueError),
+    ('fleet-duplicate-model', 'duplicate model name in the serving fleet', PlanError),
+    (
+        'fleet-front-af-unix',
+        'the replica front routes over TCP replicas: not composable with AF_UNIX socket paths',
+        PlanError,
+    ),
+    ('disk-slice-bad-layout', 'the disk-to-slice ingest path requires a row-sliceable layout', ValueError),
+]
+
+
+def test_port_pins_are_the_jax_cases():
+    assert [c[:2] for c in CASES] == [c[:2] for c in jax_matrix.CASES]
+    for case, _, exc in CASES:
+        if exc is None:
+            assert case in DEPARTURES and case not in PORT_TRIGGERS
+        else:
+            jax_exc = JAX_CASES[case][1]
+            assert exc is (PlanError if jax_exc is JaxPlanError else jax_exc)
+
+
 def test_every_jax_case_has_a_port_site_or_a_departure():
     assert len(JAX_CASES) == 38
     assert set(PORT_TRIGGERS) | set(DEPARTURES) == set(JAX_CASES)
